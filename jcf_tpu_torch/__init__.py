@@ -4,11 +4,19 @@ The JAX package stays the reference; this package keeps its module names
 so each module here has a counterpart there. It imports torch and numpy,
 never jax, and nothing from ``jcf_tpu``.
 
-What is ported so far is the int8 TTA serving path
-(``infer.engine.TTAEngine.features_from_images``): view sampling (K1),
-int8 patch embed, token assembly (K2), the int8 attention and MLP halves
-of the tower (K3, K4), the CLS-row tail and MTA. Every Pallas kernel on
-that path has a hand-written CUDA kernel under ``csrc/`` and a plain
-PyTorch version beside its wrapper; a wrapper runs the plain version only
-for CPU tensors.
+What is ported so far:
+
+- the int8 TTA serving path (``infer.engine.TTAEngine.features_from_images``):
+  view sampling (K1), int8 patch embed, token assembly (K2), the int8
+  attention and MLP halves of the tower (K3, K4), the CLS-query last-layer
+  attention (K5), the CLS-row tail and MTA;
+- the zero-shot classifier build that every ``jcf-ood`` run takes before it
+  serves (``pipelines.common.build_text_weights``): templates, the
+  ``regex``-free tokenizer, the bf16 text tower (K6a, K6b) and the
+  content-keyed classifier cache.
+
+Every Pallas kernel on those paths has a hand-written CUDA kernel under
+``csrc/`` and a plain PyTorch version beside its wrapper; a wrapper runs
+the plain version only for CPU tensors. Entry points run on the CUDA card
+unless the caller passes ``device="cpu"``.
 """

@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels; count their launches.
 
-``csrc/*.cu`` compile at first use with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. Each C
-entry launches on the stream it is given and returns
-``cudaGetLastError()``; ``check`` raises if that is not 0. The library
+``csrc/*.cu`` compile at first use with ``nvcc`` for ``sm_90a``, one
+process per source started together, and link into one shared library
+with a plain C interface, loaded with ``ctypes``. Each C entry launches
+on the stream it is given and returns ``cudaGetLastError()``; ``check``
+raises if that is not 0. The library
 lands in a build directory named after a hash of the sources, under
 ``build/`` at the repository root, so an edited source never loads a
 stale build. Nothing here runs at import time.
@@ -24,7 +25,7 @@ import subprocess
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry -> argument types (pointers and the stream as c_void_p)
@@ -34,6 +35,10 @@ SIGNATURES = {
     "jcf_ln_quant": [_P, _P, _P, _I, _I, _P],
     "jcf_int8_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "jcf_attention": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "jcf_cls_attention": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "jcf_bf16_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "jcf_ln_affine": [_P, _P, _P, _P, _I, _I, _P],
+    "jcf_causal_attention": [_P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
 }
 
 _lib = None
@@ -46,6 +51,12 @@ def nvcc() -> str:
     if not found:
         raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
     return found
+
+
+def _run(cmd) -> None:
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
 
 
 def load() -> ctypes.CDLL:
@@ -62,12 +73,27 @@ def load() -> ctypes.CDLL:
     lib_path = os.path.join(out_dir, "libjcf_kernels.so")
     if not os.path.exists(lib_path):
         os.makedirs(out_dir, exist_ok=True)
-        tmp = f"{lib_path}.tmp{os.getpid()}"
-        cmd = [nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-               *(p for p in srcs if p.endswith(".cu"))]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        tag = f"tmp{os.getpid()}"
+        # one nvcc per source, all at once; then one link
+        objs, procs = [], []
+        for p in srcs:
+            if p.endswith(".cu"):
+                obj = os.path.join(out_dir, f"{os.path.basename(p)}.{tag}.o")
+                cmd = [nvcc(), *NVCC_FLAGS, "-c", "-I", CSRC, "-o", obj, p]
+                objs.append(obj)
+                procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = f"{lib_path}.{tag}"
+        _run([nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs])
+        for obj in objs:
+            os.remove(obj)
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(lib_path)
     for name, argtypes in SIGNATURES.items():

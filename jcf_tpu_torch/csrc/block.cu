@@ -1,4 +1,5 @@
-// K3/K4 row and attention kernels of the int8 tower halves.
+// K3/K4 row and attention kernels of the int8 tower halves, and the K5
+// CLS-query attention of the last layer.
 //
 // The TPU runs each half of a layer as one Pallas kernel
 // (jcf_tpu/ops/block_kernel.py::_attn_half_int8_kernel and
@@ -150,7 +151,113 @@ __global__ void __launch_bounds__(ATT_WARPS * 32) attention_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// CLS-query attention of the last layer (K5)
+// ---------------------------------------------------------------------------
+//
+// Replaces the attention section of _attn_cls_int8_kernel (folded tree,
+// static ctx scale): only each crop's CLS row queries, against the K/V of
+// all S rows. For one crop and one head pair (lo, hi):
+//   s      = q . k                               (bf16 inputs, f32 sums)
+//   m      = max over both heads' keys of s, and 0 when S < 64 (the
+//            reference's zero-padded 64-key halves score exactly 0)
+//   p_     = exp(s - m)                          (f32)
+//   ctx_u  = sum_j bf16(p_j) v_j                 (f32)
+//   l      = sum_j p_j                           (f32 p_, not bf16: the
+//                                                 normalizer of K5, unlike K3)
+//   out    = int8(round(ctx_u * (ctx_inv / max(l, 1e-30))))
+//
+// Bound on the H100: bytes. A crop's K/V (2 x 50 x 768 bf16) is read
+// once and its work is 2 x 50 x 64 MACs per head twice, so one warp owns
+// a (crop, pair) and reads K/V straight from device memory with 8-byte
+// coalesced loads: lanes 0-15 hold the lo head's 64 dims, lanes 16-31 the
+// hi head's, four each; a score is a 16-lane shuffle reduction; PV keeps
+// the same dims per lane. Only the scores and p pass through shared
+// memory.
+
+constexpr int CLS_WARPS = 4;
+constexpr int CLS_MAX_S = 64;
+
+__global__ void __launch_bounds__(CLS_WARPS * 32) cls_attention_kernel(
+    const bf16* __restrict__ q,         // [n_crops, E] (CLS rows)
+    const bf16* __restrict__ kv,        // [n_crops * S, 2E]: [k | v]
+    const float* __restrict__ ctx_inv,  // scalar
+    int8_t* __restrict__ out,           // [n_crops, E]
+    int n_crops, int S, int H) {
+  __shared__ float sc[CLS_WARPS][2][CLS_MAX_S];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int E = H * 64, n_pairs = H / 2;
+  const long long item = (long long)blockIdx.x * CLS_WARPS + warp;
+  if (item >= (long long)n_crops * n_pairs) return;
+  const long long crop = item / n_pairs;
+  const int pair = (int)(item - crop * n_pairs);
+  const int h = lane >> 4;        // 0: lo head, 1: hi head
+  const int col = pair * 128 + lane * 4;  // this lane's four dims of the pair
+
+  float qv[4];
+  {
+    const uint2 u = *reinterpret_cast<const uint2*>(q + crop * E + col);
+    const bf16* b = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) qv[t] = bf2f(b[t]);
+  }
+  const bf16* kvc = kv + crop * S * 2 * E;
+  float (*s)[CLS_MAX_S] = sc[warp];
+  for (int j = 0; j < S; ++j) {
+    const uint2 u = *reinterpret_cast<const uint2*>(kvc + (long long)j * 2 * E + col);
+    const bf16* b = reinterpret_cast<const bf16*>(&u);
+    float acc = 0.0f;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) acc = fmaf(qv[t], bf2f(b[t]), acc);
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if ((lane & 15) == 0) s[h][j] = acc;
+  }
+  __syncwarp();
+  // the pair shift over both heads' scores (and the pad keys' 0)
+  float m = S < CLS_MAX_S ? 0.0f : -INFINITY;
+  for (int j = lane; j < S; j += 32) m = fmaxf(m, fmaxf(s[0][j], s[1][j]));
+  m = warp_max(m);
+  float l0 = 0.0f, l1 = 0.0f;
+  for (int j = lane; j < S; j += 32) {
+    const float p0 = expf(__fsub_rn(s[0][j], m)), p1 = expf(__fsub_rn(s[1][j], m));
+    l0 += p0;
+    l1 += p1;
+    s[0][j] = round_bf16(p0);
+    s[1][j] = round_bf16(p1);
+  }
+  l0 = warp_sum(l0);
+  l1 = warp_sum(l1);
+  const float l = h ? l1 : l0;
+  __syncwarp();
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int j = 0; j < S; ++j) {
+    const uint2 u = *reinterpret_cast<const uint2*>(kvc + (long long)j * 2 * E + E + col);
+    const bf16* b = reinterpret_cast<const bf16*>(&u);
+    const float p = s[h][j];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) acc[t] = fmaf(p, bf2f(b[t]), acc[t]);
+  }
+  const float r = __fdiv_rn(*ctx_inv, fmaxf(l, 1e-30f));
+  char4 o;
+  o.x = round_clip_int8(__fmul_rn(acc[0], r));
+  o.y = round_clip_int8(__fmul_rn(acc[1], r));
+  o.z = round_clip_int8(__fmul_rn(acc[2], r));
+  o.w = round_clip_int8(__fmul_rn(acc[3], r));
+  *reinterpret_cast<char4*>(out + crop * E + col) = o;
+}
+
 }  // namespace
+
+extern "C" int jcf_cls_attention(const void* q, const void* kv, const void* ctx_inv, void* out,
+                                 int n_crops, int S, int H, void* stream) {
+  const long long items = (long long)n_crops * (H / 2);
+  const unsigned blocks = (unsigned)((items + CLS_WARPS - 1) / CLS_WARPS);
+  cls_attention_kernel<<<blocks, CLS_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kv),
+      static_cast<const float*>(ctx_inv), static_cast<int8_t*>(out), n_crops, S, H);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int jcf_ln_quant(const void* x, const void* inv, void* out, int M, int E,
                             void* stream) {

@@ -56,3 +56,17 @@ __device__ __forceinline__ float2 warp_row_stats(const float (&v)[PER], int lane
   const float var = warp_sum(q) / (float)n;
   return make_float2(mean, rsqrtf(var + 1e-5f));
 }
+
+// 16-byte cp.async global -> shared; src_bytes 0 zero-fills the chunk
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}

@@ -1,14 +1,14 @@
 """TTA serving engine (``jcf_tpu/infer/engine.py``), int8 serving slice.
 
 ``TTAEngine.features_from_images`` runs the path ``bench.py`` times on a
-TPU, in the configuration it ships there (with the last layer's attention
-on all rows, ``_CLS_ATTNQ = False``):
+TPU, in the configuration it ships there (``_CLS_ATTNQ = True``):
 
   source images [B, 3, H, W] bf16 + crop geometry (center + random views)
   -> K1 int8 views [B, N, 3, 224, 224]          (ops.view_kernel)
   -> im2col (a permute) + int8 GEMM -> int32    (ops.int8_gemm)
   -> K2 flat bf16 rows [B' * S, E]              (ops.assemble_kernel)
-  -> int8 tower, K3/K4 per layer -> CLS rows    (ops.block_kernel)
+  -> int8 tower, K3/K4 per layer, the last as K5 + K4 on the CLS rows
+                                                (ops.block_kernel)
   -> ln_post, proj, L2 norm -> MTA modes [B, D] (models.clip, tta.mta)
 
 ``quant=None`` builds the plain f32 reference of the same function: f32
@@ -16,9 +16,11 @@ views, f32 patch embed, the composable f32 tower. The int8 path is
 certified against it (top-1 agreement, top-5 overlap), as ``bench.py``
 certifies the JAX int8 engine.
 
-The engine runs on one ``device``. Calibration runs the f32 tower on a
-CUDA device, so full-f32 matmuls (``torch.backends.cuda.matmul.allow_tf32
-= False``) are required there.
+The engine runs on one ``device``, the CUDA card unless the caller asks
+for another. Calibration runs the f32 tower on a CUDA device, so full-f32
+matmuls (``torch.backends.cuda.matmul.allow_tf32 = False``) are required
+there. The classifier it scores against is the [C, D] output of
+``pipelines.common.build_text_weights`` (or any unit-norm [C, D] tensor).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from jcf_tpu_torch.models.clip import (
     encode_cls_tail,
     encode_image_tokens,
     fold_normalize_into_embed,
+    tree_to,
     vision_ln_z_amax,
 )
 from jcf_tpu_torch.ops.assemble_kernel import assemble_dense_rows, make_cls_row
@@ -70,7 +73,7 @@ class TTAEngine:
     (the plain f32 reference).
     """
 
-    def __init__(self, params: dict, cfg: CLIPConfig, *, device="cpu", n_views: int = 8,
+    def __init__(self, params: dict, cfg: CLIPConfig, *, device="cuda", n_views: int = 8,
                  quant: Optional[str] = "int8", calibration_images=None):
         self.cfg = cfg
         self.device = torch.device(device)
@@ -83,7 +86,7 @@ class TTAEngine:
         )
         if quant is None:
             self.dtype = torch.float32
-            self._params = {"visual": _to(v, dev)}
+            self._params = {"visual": tree_to(v, dev)}
             self._w_embed = w4.permute(3, 0, 1, 2).reshape(w4.shape[3], -1).to(dev)
             self._b_embed = fold_bias.to(dev)
             return
@@ -95,7 +98,7 @@ class TTAEngine:
         if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
             raise RuntimeError("calibration needs full f32 matmuls: set "
                                "torch.backends.cuda.matmul.allow_tf32 = False")
-        params_dev = {"visual": _to(v, dev)}
+        params_dev = {"visual": tree_to(v, dev)}
         amax = vision_ln_z_amax(params_dev, cfg, self._calibration_crops(calibration_images))
         self._quant = quantize_clip_params(
             params_dev, heads={"visual": cfg.vision_heads}, act_scales={"visual": amax},
@@ -174,9 +177,3 @@ class TTAEngine:
 
     def logits(self, modes: torch.Tensor, text_weights: torch.Tensor) -> torch.Tensor:
         return (modes @ text_weights.T) * 100.0
-
-
-def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)

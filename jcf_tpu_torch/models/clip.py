@@ -1,4 +1,5 @@
-"""CLIP ViT pieces of ``jcf_tpu/models/clip.py`` in PyTorch.
+"""CLIP pieces of ``jcf_tpu/models/clip.py`` in PyTorch: the ViT pieces
+of the serving path and the text tower (``encode_text``).
 
 Parameters are plain nested dicts of tensors with the JAX tree's keys and
 layouts: transformer blocks stacked on a leading layer axis, packed
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from jcf_tpu_torch.ops.attention import multi_head_attention
+from jcf_tpu_torch.ops.block_kernel import run_text_tower
 from jcf_tpu_torch.ops.layers import layer_norm, layer_slice, linear, mlp, quick_gelu
 
 # CLIP pixel statistics (jcf_tpu/data/transforms.py CLIP_MEAN / CLIP_STD)
@@ -143,6 +145,14 @@ def params_from_numpy(tree) -> dict:
     return torch.from_numpy(np.array(tree, copy=True))
 
 
+def tree_to(tree, device):
+    """A param tree with every tensor moved to ``device`` (no copy where a
+    tensor lies there already)."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 # ---------------------------------------------------------------------------
 # plain f32 forward pieces
 # ---------------------------------------------------------------------------
@@ -188,6 +198,38 @@ def encode_cls_tail(params: dict, cls_rows: torch.Tensor) -> torch.Tensor:
     dt = cls_rows.dtype
     cls = layer_norm(cls_rows, v["ln_post"]["scale"], v["ln_post"]["bias"])
     return torch.matmul(cls.float(), v["proj"].to(dt).float()).to(dt)
+
+
+def encode_text_embeddings(params: dict, cfg: CLIPConfig, embeddings: torch.Tensor,
+                           eot_positions: torch.Tensor) -> torch.Tensor:
+    """Text features [B, embed_dim] bf16 from token embeddings [B, S, tw]:
+    bf16 embeddings + bf16 positions, the causal bf16 tower through the
+    K6a/K6b kernels (``run_text_tower``), ``ln_final`` on the EOT rows
+    (scale in f32, output bf16; LayerNorm is per row, so gathering first
+    changes nothing), then ``text_projection`` cast to bf16 with an f32
+    product, cast back to bf16. Runs where ``embeddings`` lie."""
+    t = params["text"]
+    if "ctx_deep" in t:
+        raise NotImplementedError("deep text prompts are not ported")
+    bf = torch.bfloat16
+    b, s, e = embeddings.shape
+    x = embeddings.to(bf) + t["positional_embedding"].to(bf)
+    x = run_text_tower(x.reshape(b * s, e), t["blocks"], cfg.text_heads, s=s).reshape(b, s, e)
+    x = x[torch.arange(b, device=x.device), eot_positions]
+    x = layer_norm(x, t["ln_final"]["scale"], t["ln_final"]["bias"])
+    return torch.matmul(x.float(), t["text_projection"].to(bf).float()).to(bf)
+
+
+def encode_text(params: dict, cfg: CLIPConfig, token_ids, *, device="cuda") -> torch.Tensor:
+    """Text features [B, embed_dim] bf16 from token ids [B, context] (a
+    tensor or numpy array), on ``device`` (``jcf_tpu`` ``encode_text`` with
+    ``dtype=bfloat16`` on its fused route): the f32 token table gathered,
+    the EOT position at the argmax of the ids (EOT is the largest id).
+    The text params move to ``device`` unless they lie there already."""
+    text = tree_to(params["text"], device)
+    ids = torch.as_tensor(token_ids).to(device).long()
+    return encode_text_embeddings({"text": text}, cfg, text["token_embedding"][ids],
+                                  ids.argmax(dim=-1))
 
 
 def vision_ln_z_amax(params: dict, cfg: CLIPConfig, images: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Multi-head self-attention (``jcf_tpu/ops/attention.py``), plain part.
 
-Only the composable path the calibration forward and the f32 reference
-tower use. The Pallas kernels of the JAX module (``_packed_attn_kernel``,
-``_attn_kernel_blocked``) are not on the serving slice and are not ported
-yet (ROADMAP.md).
+The composable path the calibration forward and the f32 reference tower
+use, and the text tower's causal mask. The Pallas kernels of the JAX
+module (``_packed_attn_kernel``, ``_attn_kernel_blocked``) are not on the
+ported paths and are not ported yet (ROADMAP.md); the text tower's causal
+attention is a kernel of ``ops.block_kernel`` (K6a).
 """
 
 from __future__ import annotations
@@ -13,6 +14,11 @@ import math
 import torch
 
 from jcf_tpu_torch.ops.layers import linear
+
+
+def causal_mask(length: int, device=None) -> torch.Tensor:
+    """Strictly-upper-triangular -inf mask [length, length] f32."""
+    return torch.triu(torch.full((length, length), float("-inf"), device=device), diagonal=1)
 
 
 def attention(q, k, v, bias=None):

@@ -10,6 +10,9 @@ from __future__ import annotations
 import torch
 
 LN_EPS = 1e-5
+# QuickGELU x * sigmoid(1.702 x) == x * (0.5 + 0.5 tanh(0.851 x)), the
+# form the reference kernels use
+GELU_TANH_COEF = 0.851
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -1,6 +1,7 @@
-"""K3/K4 and the tower loop: the port's plain int8 tower (dense rows,
-``cls_only``, folded weights, static scales in mode "full", last layer
-as ``_CLS_ATTNQ = False``) vs ``run_fused_tower`` in interpret mode, with
+"""K3/K4/K5 and the tower loop: the port's plain int8 tower (dense rows,
+``cls_only``, folded weights, static scales in mode "full", the last
+layer through K5 as ``_CLS_ATTNQ = True``) vs ``run_fused_tower`` in
+interpret mode, with
 the bars of ``test_block_kernel.py:461-466``: min row cos >= 0.999 and
 atol = rtol = 5e-2 (int8 values can flip at rounding boundaries where the
 two sides' f32 sums and tanh differ in the last bits). The halves, the
@@ -75,8 +76,7 @@ def _bias():
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
-def test_plain_tower_matches_jax(monkeypatch, seed):
-    monkeypatch.setattr(jbk, "_CLS_ATTNQ", False)
+def test_plain_tower_matches_jax(seed):
     jp, jq, tq = _quant_trees(seed)
     x = _rows(seed)
     ref = jbk.run_fused_tower(_to_jax(x), jp["visual"]["blocks"], H, None, quant=jq,
@@ -143,3 +143,37 @@ def test_plain_ln_quant_matches_jax(seed):
     d = np.abs(got.numpy().astype(np.int32) - ref.astype(np.int32))
     assert d.max() <= 1 and (d > 0).mean() <= 1e-3
 
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_plain_attn_cls_matches_jax(seed):
+    """K5 (LN + quant on all rows, K/V on all rows, Q on the CLS rows,
+    CLS-query attention, out-proj + residual on the CLS rows) vs
+    ``_attn_cls_dense`` in interpret mode. The int8 GEMMs are exact and
+    both sides run the same f32 epilogue ops, so the bf16 outputs are
+    equal wherever the int8 context is: all but a few elements that sit
+    on rounding ties."""
+    jp, jq, tq = _quant_trees(seed)
+    x = _rows(seed, crops=8)
+    lp, lq = _jax_layer(jp, jq, 1)
+    ref = jbk._attn_cls_dense(_to_jax(x), lp, H, lq, True, s_real=S, quant_folded=True)
+    got = tbk.attn_cls_int8(x, layer_slice(tq, 1)["attn"], S, H)
+    assert got.shape == (8, E) and got.dtype == torch.bfloat16
+    ref = np.asarray(ref.astype(jnp.float32))
+    _close(got.float().numpy(), ref)
+    assert (got.float().numpy() != ref).mean() <= 2e-2
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plain_cls_attention_shift_and_normalizer(seed):
+    """The CLS-query context against the full-row attention's CLS rows:
+    both take the pair shift max(0, pair max) and PV on bf16 p, but K5
+    sums the f32 p and K3 the bf16 p, so they agree to one int8 step."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.standard_normal((CROPS * S, 3 * E)).astype(np.float32)).bfloat16()
+    ctx_inv = torch.tensor([[40.0]])
+    full = tbk.attention(qkv, ctx_inv, S, H)[::S]
+    cls = tbk.cls_attention(qkv[::S, :E].contiguous(), qkv[:, E:].contiguous(), ctx_inv, S, H)
+    assert cls.dtype == torch.int8 and cls.shape == (CROPS, E)
+    d = (cls.int() - full.int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 5e-2

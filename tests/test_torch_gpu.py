@@ -13,8 +13,9 @@ the kernels' edges; ``chip_smoke.py`` checks them at the serving shapes.
 import pytest
 import torch
 
-from jcf_tpu_torch.models.clip import CLIPConfig, init_clip_params
+from jcf_tpu_torch.models.clip import CLIPConfig, init_clip_params, tree_to
 from jcf_tpu_torch.ops import assemble_kernel as ak
+from jcf_tpu_torch.ops import bf16_gemm as bg
 from jcf_tpu_torch.ops import block_kernel as bk
 from jcf_tpu_torch.ops import int8_gemm as ig
 from jcf_tpu_torch.ops import view_kernel as vk
@@ -93,6 +94,52 @@ def test_ln_quant_and_attention_kernels(cuda):
     _int8_close(bk.attention(qkv, ctx_inv, s, h), bk.attention_plain(qkv, ctx_inv, s, h), 1e-2)
 
 
+@pytest.mark.parametrize("m,n,k", [(200, 72, 96), (128, 128, 64), (77, 24, 2048)])
+def test_bf16_gemm_epilogues(cuda, m, n, k):
+    g = torch.Generator(device=cuda).manual_seed(m + n + k)
+    a = torch.randn(m, k, device=cuda, generator=g).bfloat16()
+    w = (torch.randn(n, k, device=cuda, generator=g) * k**-0.5).bfloat16()
+    bias = torch.randn(n, device=cuda, generator=g) * 0.1
+    resid = torch.randn(m, n, device=cuda, generator=g).bfloat16()
+    acc = bg.matmul_plain(a, w)
+    _bf16_close(bg.bf16_gemm_bias(a, w, bias), (acc + bias).bfloat16())
+    _bf16_close(bg.bf16_gemm_residual(a, w, bias, resid), (resid.float() + (acc + bias)).bfloat16())
+    _bf16_close(bg.bf16_gemm_gelu(a, w, bias), bg.gelu_plain(acc + bias).bfloat16())
+
+
+def test_ln_affine_and_causal_attention_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    s, h, d, seqs = 77, 8, 64, 9
+    x = torch.randn(seqs * s, h * d, device=cuda, generator=g).bfloat16()
+    scale = (1 + 0.1 * torch.randn(h * d, device=cuda, generator=g)).bfloat16()
+    bias = (0.1 * torch.randn(h * d, device=cuda, generator=g)).bfloat16()
+    _bf16_close(bk.ln_affine(x, scale, bias), bk.ln_affine_plain(x, scale, bias))
+    qkv = torch.randn(seqs * s, 3 * h * d, device=cuda, generator=g).bfloat16()
+    _bf16_close(bk.causal_attention(qkv, s, h), bk.causal_attention_plain(qkv, s, h))
+
+
+@pytest.mark.parametrize("s", [50, 64])
+def test_cls_attention_kernel(cuda, s):
+    g = torch.Generator(device=cuda).manual_seed(s)
+    h, crops = 12, 37
+    q = (torch.randn(crops, h * 64, device=cuda, generator=g) * 0.5).bfloat16()
+    kv = (torch.randn(crops * s, 2 * h * 64, device=cuda, generator=g) * 0.5).bfloat16()
+    ctx_inv = torch.tensor([[30.0]], device=cuda)
+    _int8_close(bk.cls_attention(q, kv, ctx_inv, s, h),
+                bk.cls_attention_plain(q, kv, ctx_inv, s, h), 1e-2)
+
+
+def test_text_tower_kernels_vs_plain(cuda):
+    """A 2-layer full-width text tower (512 wide, 8 heads, 77 tokens): the
+    kernel route vs the same tower run from the plain versions on the CPU."""
+    params = init_clip_params(0, CLIPConfig(text_layers=2))["text"]["blocks"]
+    x = torch.randn(6 * 77, 512, generator=torch.Generator().manual_seed(0)).bfloat16()
+    ref = bk.run_text_tower(x, params, 8, s=77)
+    got = bk.run_text_tower(x.to(cuda), tree_to(params, cuda), 8, s=77).cpu()
+    cos = torch.nn.functional.cosine_similarity(got.float(), ref.float())
+    assert float(cos.min()) >= 0.999
+
+
 def test_tower_kernels_vs_plain(cuda):
     """A 2-layer full-width tower: the kernel route vs the same tower run
     from the plain versions (the tree moved to the CPU)."""
@@ -120,6 +167,15 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         bk.attention(torch.zeros(65, 3 * 128, device=cuda).bfloat16(),
                      torch.ones(1, device=cuda), 65, 2)
+    with pytest.raises(ValueError):  # f32 rows: the kernel takes bf16
+        bk.causal_attention(torch.zeros(77, 3 * 128, device=cuda), 77, 2)
+    with pytest.raises(ValueError):  # head dim 32: the kernel takes 64
+        bk.cls_attention(torch.zeros(2, 64, device=cuda).bfloat16(),
+                         torch.zeros(100, 128, device=cuda).bfloat16(),
+                         torch.ones(1, device=cuda), 50, 2)
+    with pytest.raises(ValueError):  # K % 8 != 0
+        bg.bf16_gemm_bias(torch.zeros(4, 12, device=cuda).bfloat16(),
+                          torch.zeros(8, 12, device=cuda).bfloat16(), torch.zeros(8, device=cuda))
     # the refused calls launched nothing
     before = dict(bk.LAUNCHES)
     with pytest.raises(ValueError):

@@ -2,11 +2,13 @@
 of the port (plain versions on the CPU) vs the same path composed from
 the JAX package's functions in interpret mode (the engine's TPU route:
 int8 views, im2col s32 patch embed, assembly, the dense ``cls_only``
-folded static-"full" tower with ``_CLS_ATTNQ = False``, ln_post/proj/L2,
-MTA) on the same weights, images, crop geometry and classifier. Modes
-agree to cos >= 0.999 and the top-1 class of the logits is equal.
+folded static-"full" tower with its last layer through K5,
+``_CLS_ATTNQ = True``, ln_post/proj/L2, MTA) on the same weights, images,
+crop geometry and classifier. Modes agree to cos >= 0.999 and the top-1
+class of the logits is equal.
 
-Also: the port imports and runs with ``jax`` and ``jcf_tpu`` blocked."""
+Also: the port (engine, tokenizer, classifier build) imports and runs
+with ``jax``, ``jcf_tpu`` and ``regex`` blocked."""
 
 import os
 import pathlib
@@ -21,7 +23,6 @@ import jax
 import jax.numpy as jnp
 import torch
 
-import jcf_tpu.ops.block_kernel as jbk
 from jcf_tpu.data.transforms import CLIP_MEAN, CLIP_STD
 from jcf_tpu.models import clip as jclip
 from jcf_tpu.ops.assemble_kernel import assemble_dense_rows, make_cls_row
@@ -86,8 +87,7 @@ def _jax_slice(jp, images, geometry, text):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-def test_slice_matches_jax_composition(monkeypatch, seed):
-    monkeypatch.setattr(jbk, "_CLS_ATTNQ", False)
+def test_slice_matches_jax_composition(seed):
     rng = np.random.default_rng(seed)
     jp = jax.tree_util.tree_map(np.asarray, jclip.init_clip_params(seed, jclip.CLIPConfig(**SMALL)))
     images = rng.random((B, 3, SRC, SRC)).astype(np.float32)
@@ -97,7 +97,7 @@ def test_slice_matches_jax_composition(monkeypatch, seed):
         jax.random.PRNGKey(seed), B, N_RANDOM + 1, (SRC, SRC), SMALL["image_resolution"])]
 
     ref = _jax_slice(jp, images, geometry, text)
-    engine = TTAEngine(tclip.params_from_numpy(jp), tclip.CLIPConfig(**SMALL),
+    engine = TTAEngine(tclip.params_from_numpy(jp), tclip.CLIPConfig(**SMALL), device="cpu",
                        n_views=N_RANDOM, calibration_images=images)
     got = engine.features_from_images(torch.from_numpy(images).bfloat16(), torch.from_numpy(text),
                                       geometry=tuple(torch.from_numpy(a) for a in geometry))
@@ -117,8 +117,8 @@ def test_int8_slice_tracks_f32_reference():
     images = rng.random((B, 3, SRC, SRC)).astype(np.float32)
     text = torch.nn.functional.normalize(torch.randn(CLASSES, 32, generator=torch.Generator().manual_seed(3)), dim=-1)
     cfg = tclip.CLIPConfig(**SMALL)
-    q = TTAEngine(params, cfg, n_views=N_RANDOM, calibration_images=images)
-    f = TTAEngine(params, cfg, n_views=N_RANDOM, quant=None)
+    q = TTAEngine(params, cfg, device="cpu", n_views=N_RANDOM, calibration_images=images)
+    f = TTAEngine(params, cfg, device="cpu", n_views=N_RANDOM, quant=None)
     geo = q.sample_geometry(torch.Generator().manual_seed(0), B, (SRC, SRC))
     img = torch.from_numpy(images).bfloat16()
     mq = q.features_from_images(img, text, geometry=geo)
@@ -127,22 +127,36 @@ def test_int8_slice_tracks_f32_reference():
 
 
 _BLOCKED = """
-import sys
+import os, sys, tempfile
 sys.modules["jax"] = None
 sys.modules["jcf_tpu"] = None
+sys.modules["regex"] = None
 import numpy as np, torch
+from jcf_tpu_torch.config import DataConfig, PipelineConfig, RuntimeConfig
 from jcf_tpu_torch.infer.engine import TTAEngine
 from jcf_tpu_torch.models.clip import CLIPConfig, init_clip_params
+from jcf_tpu_torch.pipelines.common import build_text_weights, ensure_templates
+from jcf_tpu_torch.tokenizer import tokenize
 cfg = CLIPConfig(embed_dim=32, image_resolution=64, vision_layers=1, vision_width=128,
-                 vision_patch_size=16, context_length=8, vocab_size=50, text_width=64,
-                 text_heads=1, text_layers=1)
+                 vision_patch_size=16, context_length=77, text_width=64, text_heads=2,
+                 text_layers=1)
+params = init_clip_params(0, cfg)
+assert tokenize("a photo of a Animal_Giant_panda.")[0, :12].tolist() == [
+    49406, 320, 1125, 539, 320, 4668, 318, 4687, 318, 12952, 269, 49407]
+with tempfile.TemporaryDirectory() as tmp:
+    with open(os.path.join(tmp, "classes.txt"), "w") as f:
+        f.write("Animal_Giant_panda 0\\nFood_Apple_pie 1\\nThing_Pen 2\\n")
+    pc = PipelineConfig(DataConfig(os.path.join(tmp, "classes.txt"), os.path.join(tmp, "tpl"), ""),
+                        RuntimeConfig("bfloat16", os.path.join(tmp, "cache")))
+    text = build_text_weights(params, cfg, ensure_templates(pc), pc, device="cpu")
+assert text.shape == (3, 32) and bool(text.float().isfinite().all())
 imgs = np.random.default_rng(0).random((2, 3, 72, 72)).astype(np.float32)
-eng = TTAEngine(init_clip_params(0, cfg), cfg, n_views=2, calibration_images=imgs)
-text = torch.nn.functional.normalize(torch.ones(5, 32), dim=-1)
+eng = TTAEngine(params, cfg, device="cpu", n_views=2, calibration_images=imgs)
 modes = eng.features_from_images(torch.from_numpy(imgs).bfloat16(), text,
                                  generator=torch.Generator().manual_seed(0))
 assert modes.shape == (2, 32) and bool(modes.isfinite().all())
-assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
+loaded = {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
+assert not loaded & {"jax", "jcf_tpu", "regex"}, loaded
 print("ok")
 """
 
@@ -157,7 +171,8 @@ def test_port_runs_with_jax_blocked():
 
 
 def test_no_jax_imports_in_port():
-    pattern = re.compile(r"^\s*(import jax|from jax|import jcf_tpu\b|from jcf_tpu(\.| ))", re.M)
+    pattern = re.compile(r"^\s*(import (jax|regex)\b|from (jax|regex)\b|import jcf_tpu\b|"
+                         r"from jcf_tpu(\.| ))", re.M)
     sources = list((ROOT / "jcf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                               ROOT / "profile_torch.py"]
     assert len(sources) > 10
