@@ -18,26 +18,40 @@
    ``build_text_weights``: 403 x 8 prompts), counting the kernels it
    launches, checks it against the plain-version tower, and checks that a
    second call hits the classifier cache;
+5b. trains: holds the K7 forward and backward kernels against the plain
+   forward and autograd through it at the stage-1 step's attention shapes
+   (text 403 x 77, 8 heads, causal; vision 256 x 50, 12 heads), in f32
+   and bf16; builds the stage-1 LoRA step at ViT-B/32 width (8 template
+   banks of the 403 classes, LoRA r 4 on q/k/v of every layer of both
+   towers, AdamW 2e-4 / wd 1e-2, bs 256 images of 224²), counts the K7
+   launches of one bf16 step, holds a step through the kernels against a
+   step through the plain K7 from the same state and dropout seed (bf16
+   and f32), trains 10 steps on a fixed batch (the loss must fall), times
+   the bf16 step (ms, img/s, peak memory), profiles one step by kernel
+   group and saves and reloads the LoRA;
 6. drives ``TTAEngine.features_from_images`` at ViT-B/32 full width with
    seed-0 weights, images and classifier (as ``bench.py`` makes them),
    b1024 x 8 views, counting the kernels it launches;
-7. certifies the int8 path against the port's plain f32 path on the same
-   crop geometry (top-1 agreement >= 0.99, top-5 overlap >= 0.97, the gates
+7. certifies the int8 path against the port's plain f32 path (its
+   attention through the plain K7) on the same crop geometry (top-1 agreement >= 0.99, top-5 overlap >= 0.97, the gates
    of ``bench.py``), then serves once with the built classifier;
 8. times the slice in images/s.
 
-Every weight and input is made from seed 0. Exits nonzero, without the
+Every weight and input is made from seed 0 (the LoRA factors from seed
+1, as ``scripts/bench_train.py``). Exits nonzero, without the
 final line, when no CUDA device is present or any phase fails. Before the
 last line it prints the kernels JSON line (launches on the path, error
 against the plain version, kernel / plain / library-call times and the
 card's bound for the same work; the residual GEMMs at c_proj's shape,
-their out-proj shape in the log) and the card's name and power limit. The
+their out-proj shape in the log; K7 at the text tower's bf16 shape, the
+other three in the log) and the card's name and power limit. The
 last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -54,12 +68,17 @@ VIEWS = 8  # views per image, the center view included
 ITERS = 10  # timed serving iterations
 N_CLASSES = 403  # the reference's class count (DataConfig.num_classes)
 TEXT_BATCH = 512  # prompts per text-tower call (encode_class_templates)
+TRAIN_BATCH = 256  # stage-1 images per step (Stage1Config.batch_size)
+N_BASE = 374  # stage-1 targets cover the base classes 0..373 (scripts/bench_train.py)
+TRAIN_STEPS = 10  # steps of the loss-falls check
+TRAIN_ITERS = 5  # timed steps
 
 # published dense peaks of one H100 SXM at 700 W: memory bytes/s, int8
 # ops/s, bf16 flop/s
 PEAK_BYTES = 3.35e12
 PEAK_INT8 = 1979e12
 PEAK_BF16 = 989e12
+PEAK_F32 = 67e12  # f32 outside the tensor cores
 
 # kernel -> (path, source, TPU kernel it replaces); the int8 patch-embed
 # GEMM replaces an XLA convolution, not a Pallas kernel
@@ -86,6 +105,11 @@ KERNELS = {
                            "jcf_tpu/ops/block_kernel.py:704"),
     "bf16_gemm_gelu": ("classifier", "jcf_tpu_torch/csrc/bf16_gemm.cu",
                        "jcf_tpu/ops/block_kernel.py:704"),
+    # K7's backward replaces the XLA VJP of the same function (attention.py:239-258)
+    "packed_attention": ("training", "jcf_tpu_torch/csrc/packed_attn.cu",
+                         "jcf_tpu/ops/attention.py:166"),
+    "packed_attention_bwd": ("training", "jcf_tpu_torch/csrc/packed_attn.cu",
+                             "jcf_tpu/ops/attention.py:166"),
 }
 
 
@@ -176,6 +200,35 @@ def check_bf16(name, got, ref):
     if bool(bad.any()) or not bool(g.isfinite().all()):
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return float(d.max())
+
+
+def check_f32(name, got, ref):
+    """f32 outputs: |diff| <= 1e-5 + 1e-5 |ref| (the same f32 sums in
+    another order)."""
+    d = (got.float() - ref.float()).abs()
+    bad = d > 1e-5 + 1e-5 * ref.float().abs()
+    log(f"  {name}: max |diff| {float(d.max()):.3e}, over tolerance {int(bad.sum())} "
+        f"(tol: 1e-5 + 1e-5 |ref|)")
+    if bool(bad.any()) or not bool(got.isfinite().all()):
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return float(d.max())
+
+
+def check_grad_bf16(name, got, ref):
+    """bf16 gradients: per head-row of dQ, dK and dV, cos >= 0.999 where
+    the reference row is nonzero; rows the mask leaves at zero stay zero
+    (|x| <= 1e-6)."""
+    e3 = got.shape[-1]
+    g, r = got.float().reshape(-1, e3 // 3), ref.float().reshape(-1, e3 // 3)
+    live = r.norm(dim=-1) > 0
+    cos = float(cosine_rows(g[live], r[live]).min())
+    dead = float(g[~live].abs().max()) if bool((~live).any()) else 0.0
+    d = float((g - r).abs().max())
+    log(f"  {name}: min row cos {cos:.6f} over {int(live.sum())} rows, {int((~live).sum())} zero "
+        f"rows off by {dead:.1e}, max |diff| {d:.3e} (tol: cos >= 0.999, zero rows <= 1e-6)")
+    if cos < 0.999 or dead > 1e-6 or not bool(got.isfinite().all()):
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return d
 
 
 def cosine_rows(a, b):
@@ -564,6 +617,238 @@ def classifier_phase(params, cfg, dev, counters):
     return built, launches, text_results
 
 
+def k7_phase(dev):
+    """K7's forward and backward kernels against the plain forward and
+    autograd through it, at the stage-1 step's attention shapes in f32 and
+    bf16 -> {(tower, dtype): per-kernel results}."""
+    import torch
+    import torch.nn.functional as F
+
+    from jcf_tpu_torch.ops import attention as at
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        peak = PEAK_F32 if dtype == torch.float32 else PEAK_BF16
+        for tower, b, s, h, causal in (("text", N_CLASSES, 77, 8, True),
+                                       ("vision", TRAIN_BATCH, 50, 12, False)):
+            e, d = h * 64, 64
+            log(f"K7 checks, {tower} attention of the step: {b} x {s}, {h} heads, {dname}, "
+                f"{'causal' if causal else 'zero'} bias")
+            qkv = torch.randn(b, s, 3 * e, device=dev, generator=gen).to(dtype)
+            dout = torch.randn(b, s, e, device=dev, generator=gen).to(dtype)
+            bias = at.causal_mask(s, dev) if causal else torch.zeros(s, s, device=dev)
+            pairs = int(bias.isfinite().sum())  # the (query, key) pairs the bias leaves open
+            q, k, v = (t.detach().requires_grad_(True)
+                       for t in qkv.reshape(b, s, 3, h, d).permute(2, 0, 3, 1, 4))
+            ph = Phase()
+            mask = bias.to(dtype)  # SDPA takes a mask of the inputs' type
+            ph.run("packed_attention",
+                   lambda: at.packed_attention_fwd(qkv, h, bias),
+                   lambda: at.packed_attention_plain(qkv, h, bias),
+                   check_f32 if dtype == torch.float32 else check_bf16,
+                   # QK^T and PV over the open pairs; the output is dout's size
+                   bound(nbytes(qkv, bias, dout), 4.0 * b * h * pairs * d, peak),
+                   lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+            x = qkv.clone().requires_grad_(True)
+            out_p = at.packed_attention_plain(x, h, bias)
+            out_l = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+            dout_l = dout.reshape(b, s, h, d).transpose(1, 2)
+            # recompute P, then dP, dV, dQ, dK: five products over the open pairs
+            ph.run("packed_attention_bwd",
+                   lambda: at.packed_attention_bwd(qkv, h, bias, dout),
+                   lambda: torch.autograd.grad(out_p, x, dout, retain_graph=True)[0],
+                   check_f32 if dtype == torch.float32 else check_grad_bf16,
+                   bound(2 * nbytes(qkv) + nbytes(bias, dout), 10.0 * b * h * pairs * d, peak),
+                   lambda: torch.autograd.grad(out_l, (q, k, v), dout_l, retain_graph=True))
+            out[(tower, dname)] = ph.results
+            del out_p, out_l, x
+    return out
+
+
+@contextlib.contextmanager
+def plain_k7():
+    """Routes ``multi_head_attention`` through the plain K7 (autograd
+    through ``packed_attention_plain``) for the block: the references that
+    must not run the kernel under test."""
+    from jcf_tpu_torch.ops import attention as at
+
+    kernel_route = at.packed_attention
+    at.packed_attention = at.packed_attention_plain
+    try:
+        yield
+    finally:
+        at.packed_attention = kernel_route
+
+
+def step_kernel_group(name: str) -> str:
+    """The group of a device kernel of the training step, by its name."""
+    if "packed_attn" in name:
+        return "K7 backward" if "bwd" in name else "K7 forward"
+    if "gemm_f32" in name or "sgemm" in name:
+        return "f32 GEMMs (LoRA branch)"
+    if "gemm" in name or "nvjet" in name or "cutlass" in name:
+        return "bf16 GEMMs (frozen weights)"
+    if "reduce_kernel" in name or "softmax" in name.lower() or "norm" in name.lower():
+        return "reductions"
+    return "elementwise, casts and copies"
+
+
+def training_phase(params, cfg, dev, counters, smi):
+    """Stage-1 LoRA training at ViT-B/32 width, bs 256 -> (launches of one
+    counted bf16 step, K7 results)."""
+    import torch
+
+    from jcf_tpu_torch.config import DataConfig, PipelineConfig
+    from jcf_tpu_torch.data import synthesize_templates
+    from jcf_tpu_torch.peft import LoraSpec, init_lora_params, load_lora, save_lora
+    from jcf_tpu_torch.pipelines import tokenize_banks
+    from jcf_tpu_torch.train import adamw, make_stage1_step, state_from_numpy, state_to_numpy
+
+    k7 = k7_phase(dev)
+    for (tower, dname), r in k7.items():
+        log(f"K7 {tower} {dname}: forward {r['packed_attention']['ms']:.3f} ms, backward "
+            f"{r['packed_attention_bwd']['ms']:.3f} ms per launch")
+
+    bf, f32 = torch.bfloat16, torch.float32
+    with tempfile.TemporaryDirectory() as tmp:
+        synthetic_classes(os.path.join(tmp, "classes.txt"))
+        synthesize_templates(os.path.join(tmp, "classes.txt"), os.path.join(tmp, "tpl"))
+        banks = tokenize_banks(PipelineConfig(DataConfig(template_dir=os.path.join(tmp, "tpl"))))
+    spec = LoraSpec()
+    lora = init_lora_params(1, spec, cfg.text_layers, cfg.text_width, cfg.vision_layers,
+                            cfg.vision_width)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.random((TRAIN_BATCH, 3, cfg.image_resolution,
+                                          cfg.image_resolution)).astype(np.float32)).to(dev)
+    targets = torch.from_numpy(rng.integers(0, N_BASE, TRAIN_BATCH)).to(dev)
+    log(f"training: banks {tuple(banks.shape)}, {TRAIN_BATCH} images of "
+        f"{cfg.image_resolution}², LoRA r {spec.r} on {'/'.join(spec.params)} of every layer")
+    steps = {dt: make_stage1_step(params, cfg, spec, banks, adamw(2e-4, weight_decay=1e-2),
+                                  dtype=dt, device=dev) for dt in (bf, f32)}
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # one bf16 step, counted
+    init_state, step, frozen = steps[bf]
+    state = init_state(lora)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.update(dict.fromkeys(c, 0))
+    state, m = step(frozen, state, images, targets, 0, gen(0))
+    torch.cuda.synchronize()
+    launches = {k: v for c in counters for k, v in c.items()}
+    log(f"training step launches: {launches}")
+    n_layers = cfg.text_layers + cfg.vision_layers
+    if (launches["packed_attention"], launches["packed_attention_bwd"]) != (n_layers, n_layers):
+        raise AssertionError(f"expected {n_layers} K7 forward and backward launches per step")
+
+    # a step through the kernels vs one through the plain K7 (autograd
+    # through packed_attention_plain), from the same state and seed
+    def compare(dtype, start):
+        init_state, step, frozen = steps[dtype]
+        runs = []
+        for plain in (False, True):
+            st = state_from_numpy(start, init_state)
+            with plain_k7() if plain else contextlib.nullcontext():
+                st, m = step(frozen, st, images, targets, 1, gen(1))
+            grads = {t: {k: p.grad.detach().cpu() for k, p in d.items()} for t, d in st.lora.items()}
+            runs.append((float(m["loss"]), grads, state_to_numpy(st)["lora"]))
+        (loss_k, g_k, new_k), (loss_p, g_p, new_p) = runs
+        worst = {"grad_cos": 1.0, "update_cos": 1.0, "rel_l2": 0.0, "max_diff": 0.0}
+        for t in new_k:
+            for key in new_k[t]:
+                a, b, s0 = new_k[t][key], new_p[t][key], start["lora"][t][key]
+                pair = [torch.from_numpy(x).reshape(1, -1) for x in (a - s0, b - s0)]
+                worst["grad_cos"] = min(worst["grad_cos"], float(cosine_rows(
+                    g_k[t][key].reshape(1, -1), g_p[t][key].reshape(1, -1))[0]))
+                worst["update_cos"] = min(worst["update_cos"], float(cosine_rows(*pair)[0]))
+                worst["rel_l2"] = max(worst["rel_l2"],
+                                      float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+                worst["max_diff"] = max(worst["max_diff"], float(np.abs(a - b).max()))
+        return loss_k, loss_p, worst
+
+    start = state_to_numpy(state)  # after one step: A and B both move in the next
+    # bf16: Adam divides each gradient by its own size, so a gradient near
+    # zero turns bf16 noise into a whole update; the factors are held by
+    # their relative L2 difference and the gradients by their cosine
+    for dtype, tol in ((bf, {"loss": 1e-3, "grad_cos": 0.999, "rel_l2": 5e-2}),
+                       (f32, {"loss": 1e-5, "grad_cos": 0.99999, "max_diff": 1e-5})):
+        loss_k, loss_p, w = compare(dtype, start)
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        name = "bf16" if dtype == bf else "f32"
+        log(f"{name} step, kernels vs plain K7: loss {loss_k:.6f} vs {loss_p:.6f} (rel {rel:.2e}); "
+            f"per leaf: min gradient cos {w['grad_cos']:.6f}, min update cos "
+            f"{w['update_cos']:.6f}, factors max rel L2 diff {w['rel_l2']:.2e}, max |diff| "
+            f"{w['max_diff']:.3e} (tol: {tol})")
+        if (rel > tol["loss"] or w["grad_cos"] < tol["grad_cos"]
+                or w["rel_l2"] > tol.get("rel_l2", np.inf)
+                or w["max_diff"] > tol.get("max_diff", np.inf)):
+            raise AssertionError(f"the {name} step through the kernels disagrees with the plain K7")
+
+    # training on a fixed batch (images, targets and template bank 0): the loss falls
+    state = init_state(lora)
+    losses = []
+    for i in range(TRAIN_STEPS):
+        state, m = step(frozen, state, images, targets, 0, gen(100 + i))
+        losses.append(float(m["loss"]))
+    log(f"bf16 training, {TRAIN_STEPS} steps: loss {' '.join(f'{x:.4f}' for x in losses)}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError("the stage-1 loss did not fall")
+
+    # timing
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for i in range(TRAIN_ITERS):
+        state, m = step(frozen, state, images, targets, i % banks.shape[0], gen(200 + i))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / TRAIN_ITERS * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"stage-1 step (bf16, bs {TRAIN_BATCH}): {ms:.2f} ms/step, "
+        f"{TRAIN_BATCH / ms * 1e3:.2f} img/s, peak memory {peak:.2f} GiB, loss "
+        f"{float(m['loss']):.4f} on {smi}")
+
+    # where the step's device time goes: one step under torch.profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(frozen, state, images, targets, 0, gen(300))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"profiled step: {wall:.2f} ms wall, device busy {busy:.2f} ms (idle share "
+        f"{1 - busy / wall:.4f}), {sum(r[1] for r in rows)} device kernels; the largest:")
+    for ms_k, n, name in rows[:20]:
+        log(f"  {ms_k:9.3f} ms {n:5d}x  {name[:100]}")
+    groups = {}
+    for ms_k, n, name in rows:
+        g = step_kernel_group(name)
+        groups[g] = (groups.get(g, (0.0, 0))[0] + ms_k, groups.get(g, (0.0, 0))[1] + n)
+    for g, (ms_k, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"  group {g}: {ms_k:.3f} ms in {n} launches ({ms_k / busy:.4f} of busy)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lora_weights.pkl")
+        layers = dict(n_text=cfg.text_layers, n_vision=cfg.vision_layers)
+        save_lora(state.lora, spec, path, **layers)
+        back = load_lora(path, spec, text_width=cfg.text_width, vision_width=cfg.vision_width,
+                         **layers)
+    for t in back:
+        for key in back[t]:
+            if not torch.equal(back[t][key], state.lora[t][key].detach().cpu()):
+                raise AssertionError(f"the saved LoRA does not load back ({t}/{key})")
+    log("LoRA saved and loaded back equal")
+    del steps, state, frozen
+    torch.cuda.empty_cache()
+    return launches, k7
+
+
 def main() -> int:
     import torch
 
@@ -574,14 +859,23 @@ def main() -> int:
     from jcf_tpu_torch import _build
     from jcf_tpu_torch.infer.engine import TTAEngine
     from jcf_tpu_torch.models.clip import VIT_B_32, init_clip_params
-    from jcf_tpu_torch.ops import assemble_kernel, bf16_gemm, block_kernel, int8_gemm, view_kernel
+    from jcf_tpu_torch.ops import (
+        assemble_kernel,
+        attention,
+        bf16_gemm,
+        block_kernel,
+        int8_gemm,
+        view_kernel,
+    )
 
     counters = [m.LAUNCHES for m in (view_kernel, int8_gemm, assemble_kernel, block_kernel,
-                                     bf16_gemm)]
+                                     bf16_gemm, attention)]
 
-    # every f32 reference and the calibration use full f32 products
+    # every f32 reference and the calibration use full f32 products; bf16
+    # products accumulate in f32 with one rounding (the training step)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
     smi = cmd_output(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     smi = smi.splitlines()[0]
@@ -615,6 +909,10 @@ def main() -> int:
 
     built, launches_cls, text_results = classifier_phase(params, cfg, dev, counters)
     results.update(text_results)
+    launches_trn, k7 = training_phase(params, cfg, dev, counters, smi)
+    # the JSON line carries the text attention in bf16 (the step's larger
+    # share); the log has all four
+    results.update(k7[("text", "bf16")])
 
     # the serving path, counted
     torch.cuda.synchronize()
@@ -624,7 +922,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches_srv = {k: v for c in counters for k, v in c.items()}
     log(f"serving path launches: {launches_srv}")
-    launches = {"serving": launches_srv, "classifier": launches_cls}
+    launches = {"serving": launches_srv, "classifier": launches_cls, "training": launches_trn}
     missing = [k for k, (path, _, _) in KERNELS.items() if launches[path].get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels of their path never launched: {missing}")
@@ -634,16 +932,18 @@ def main() -> int:
     if float((norms - 1).abs().max()) > 1e-3:
         raise AssertionError("modes are not unit-norm")
 
-    # int8 vs the plain f32 path on the same geometry (bench.py's cert)
+    # int8 vs the plain f32 path on the same geometry (bench.py's cert);
+    # its attention is the plain K7, so no kernel computes the reference
     t0 = time.perf_counter()
     ref = TTAEngine(params, cfg, device=dev, n_views=n_random, quant=None)
 
     def f32_modes(classifier, chunk=128):
-        return torch.cat([
-            ref.features_from_images(images[i : i + chunk], classifier,
-                                     geometry=tuple(t[i : i + chunk] for t in geometry))
-            for i in range(0, BATCH, chunk)
-        ])
+        with plain_k7():
+            return torch.cat([
+                ref.features_from_images(images[i : i + chunk], classifier,
+                                         geometry=tuple(t[i : i + chunk] for t in geometry))
+                for i in range(0, BATCH, chunk)
+            ])
 
     def agreement(modes_q, modes_f, classifier):
         top5_q = engine.logits(modes_q, classifier.float()).topk(5, dim=-1).indices

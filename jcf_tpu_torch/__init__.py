@@ -13,7 +13,11 @@ What is ported so far:
 - the zero-shot classifier build that every ``jcf-ood`` run takes before it
   serves (``pipelines.common.build_text_weights``): templates, the
   ``regex``-free tokenizer, the bf16 text tower (K6a, K6b) and the
-  content-keyed classifier cache.
+  content-keyed classifier cache;
+- the stage-1 LoRA training step (``train.make_stage1_step``): LoRA
+  (``peft``), both towers on the composable route with the packed-qkv
+  attention K7 forward and backward, AdamW, the LoRA files and tree
+  checkpoints (``utils``).
 
 Every Pallas kernel on those paths has a hand-written CUDA kernel under
 ``csrc/`` and a plain PyTorch version beside its wrapper; a wrapper runs

@@ -39,6 +39,8 @@ SIGNATURES = {
     "jcf_bf16_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "jcf_ln_affine": [_P, _P, _P, _P, _I, _I, _P],
     "jcf_causal_attention": [_P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
+    "jcf_packed_attention": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    "jcf_packed_attention_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
 }
 
 _lib = None

@@ -3,7 +3,9 @@
 from jcf_tpu_torch.data.templates import (
     TEMPLATE_PATTERNS,
     load_class_templates,
+    load_template_file,
     synthesize_templates,
 )
 
-__all__ = ["TEMPLATE_PATTERNS", "load_class_templates", "synthesize_templates"]
+__all__ = ["TEMPLATE_PATTERNS", "load_class_templates", "load_template_file",
+           "synthesize_templates"]

@@ -43,6 +43,15 @@ def load_class_templates(template_dir: str) -> Dict[int, List[str]]:
     return out
 
 
+def load_template_file(template_dir: str, idx: int) -> Dict[int, List[str]]:
+    """One bank: line i of ``text_template{idx}.txt`` is class i's prompt."""
+    out: Dict[int, List[str]] = {}
+    with open(os.path.join(template_dir, f"text_template{idx}.txt")) as f:
+        for i, line in enumerate(f):
+            out[i] = [line.strip()]
+    return out
+
+
 def synthesize_templates(classes_file: str, out_dir: str, captions_file: Optional[str] = None,
                          n_banks: int = 8) -> None:
     """Write text_template{1..n_banks}.txt from the class names of

@@ -1,5 +1,7 @@
 """CLIP pieces of ``jcf_tpu/models/clip.py`` in PyTorch: the ViT pieces
-of the serving path and the text tower (``encode_text``).
+of the serving path, the text tower (``encode_text``) and the composable
+towers of LoRA training (``encode_image``, ``encode_text`` with a LoRA
+context), whose attention is K7 (``ops.attention.packed_attention``).
 
 Parameters are plain nested dicts of tensors with the JAX tree's keys and
 layouts: transformer blocks stacked on a leading layer axis, packed
@@ -12,11 +14,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 
-from jcf_tpu_torch.ops.attention import multi_head_attention
+from jcf_tpu_torch.ops.attention import causal_mask, multi_head_attention, packed_attention_plain
 from jcf_tpu_torch.ops.block_kernel import run_text_tower
 from jcf_tpu_torch.ops.layers import layer_norm, layer_slice, linear, mlp, quick_gelu
 
@@ -167,27 +170,60 @@ def _patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, c * patch * patch)
 
 
-def encode_image_tokens(params: dict, cfg: CLIPConfig, x: torch.Tensor) -> torch.Tensor:
-    """Composable vision tower from embedded patch tokens [B, G², W]:
-    CLS prepend, positional add, ln_pre, the residual blocks, ln_post on
-    the CLS row, proj. Runs in x.dtype; this is the plain f32 reference
-    tower the int8 path is certified against."""
-    v = params["visual"]
-    dt = x.dtype
-    cls = v["class_embedding"].to(dt).expand(x.shape[0], 1, x.shape[-1])
-    x = torch.cat([cls, x], dim=1) + v["positional_embedding"].to(dt)
-    x = layer_norm(x, v["ln_pre"]["scale"], v["ln_pre"]["bias"])
-    blocks = v["blocks"]
+def _run_blocks(x: torch.Tensor, blocks: dict, n_heads: int, mask: Optional[torch.Tensor], *,
+                lora_ctx: Optional[dict] = None) -> torch.Tensor:
+    """The stacked residual blocks over [B, S, E] activations, the
+    composable route of ``jcf_tpu``'s ``_run_blocks``: per layer
+    ``x + mha(LN1 x)``, then ``x + mlp(LN2 x)``, in x's dtype. With
+    ``lora_ctx`` (``peft.lora.make_lora_context``) the layers its gates
+    select add the decomposed LoRA branch; the others are unchanged (their
+    branch would add zeros)."""
     for i in range(blocks["attn"]["w_qkv"].shape[0]):
         layer = layer_slice(blocks, i)
+        lora = None
+        if lora_ctx is not None and lora_ctx["gates"][i]:
+            lora = {"layer": {k: t[i] for k, t in lora_ctx["stacked"].items()},
+                    "gate": float(lora_ctx["gates"][i]), "proj_mask": lora_ctx["proj_mask"],
+                    "spec": lora_ctx["spec"], "generator": lora_ctx["generator"]}
         x = x + multi_head_attention(
             layer_norm(x, layer["ln_1"]["scale"], layer["ln_1"]["bias"]),
-            layer["attn"], cfg.vision_heads,
+            layer["attn"], n_heads, mask, lora=lora,
         )
-        x = x + mlp(
-            layer_norm(x, layer["ln_2"]["scale"], layer["ln_2"]["bias"]),
-            layer["mlp"],
-        )
+        x = x + mlp(layer_norm(x, layer["ln_2"]["scale"], layer["ln_2"]["bias"]), layer["mlp"])
+    return x
+
+
+def encode_image(params: dict, cfg: CLIPConfig, images: torch.Tensor, *,
+                 dtype: torch.dtype = torch.float32,
+                 lora_ctx: Optional[dict] = None) -> torch.Tensor:
+    """Image features [B, embed_dim] (before normalization) from NCHW
+    images [B, 3, res, res], in ``dtype``: patchify, the patch embedding
+    with the weight cast to ``dtype``, then ``encode_image_tokens``. Runs
+    where ``images`` and ``params`` lie."""
+    v = params["visual"]
+    x = linear(_patchify(images.to(dtype), cfg.vision_patch_size), v["patch_embed"]["w"].to(dtype))
+    return encode_image_tokens(params, cfg, x, dtype=dtype, lora_ctx=lora_ctx)
+
+
+def encode_image_tokens(params: dict, cfg: CLIPConfig, x: torch.Tensor, *,
+                        dtype: torch.dtype = torch.float32,
+                        lora_ctx: Optional[dict] = None) -> torch.Tensor:
+    """Composable vision tower from embedded patch tokens [B, G², W], in
+    ``dtype``: CLS prepend, positional add, the visual prompt tokens
+    appended (``vpt``), ln_pre, the residual blocks (with the LoRA branch
+    when ``lora_ctx`` is given), ln_post on the CLS row, proj. In f32 it
+    is also the plain reference tower the int8 path is certified against."""
+    v = params["visual"]
+    if "vpt_deep" in v:
+        raise NotImplementedError("deep visual prompts are not ported")
+    x = x.to(dtype)
+    cls = v["class_embedding"].to(dtype).expand(x.shape[0], 1, x.shape[-1])
+    x = torch.cat([cls, x], dim=1) + v["positional_embedding"].to(dtype)
+    if cfg.vision_prompt_tokens and "vpt" in v:
+        vpt = v["vpt"].to(dtype).expand(x.shape[0], cfg.vision_prompt_tokens, x.shape[-1])
+        x = torch.cat([x, vpt], dim=1)
+    x = layer_norm(x, v["ln_pre"]["scale"], v["ln_pre"]["bias"])
+    x = _run_blocks(x, v["blocks"], cfg.vision_heads, None, lora_ctx=lora_ctx)
     return encode_cls_tail(params, x[:, 0])
 
 
@@ -201,35 +237,46 @@ def encode_cls_tail(params: dict, cls_rows: torch.Tensor) -> torch.Tensor:
 
 
 def encode_text_embeddings(params: dict, cfg: CLIPConfig, embeddings: torch.Tensor,
-                           eot_positions: torch.Tensor) -> torch.Tensor:
-    """Text features [B, embed_dim] bf16 from token embeddings [B, S, tw]:
-    bf16 embeddings + bf16 positions, the causal bf16 tower through the
-    K6a/K6b kernels (``run_text_tower``), ``ln_final`` on the EOT rows
-    (scale in f32, output bf16; LayerNorm is per row, so gathering first
-    changes nothing), then ``text_projection`` cast to bf16 with an f32
-    product, cast back to bf16. Runs where ``embeddings`` lie."""
+                           eot_positions: torch.Tensor, *, dtype: torch.dtype = torch.bfloat16,
+                           lora_ctx: Optional[dict] = None) -> torch.Tensor:
+    """Text features [B, embed_dim] in ``dtype`` from token embeddings
+    [B, S, tw]: embeddings + positions in ``dtype``, the causal tower,
+    ``ln_final`` on the EOT rows (scale in f32, output in ``dtype``; the
+    LayerNorm is per row, so gathering first changes nothing), then
+    ``text_projection`` cast to ``dtype`` with an f32 product, cast back.
+    Runs where ``embeddings`` lie.
+
+    Without ``lora_ctx`` the tower is the bf16 K6a/K6b route
+    (``run_text_tower``; only bf16 is ported). With it, the composable
+    route of LoRA training in ``dtype``: K7 with the causal mask and the
+    decomposed LoRA branch."""
     t = params["text"]
     if "ctx_deep" in t:
         raise NotImplementedError("deep text prompts are not ported")
-    bf = torch.bfloat16
     b, s, e = embeddings.shape
-    x = embeddings.to(bf) + t["positional_embedding"].to(bf)
-    x = run_text_tower(x.reshape(b * s, e), t["blocks"], cfg.text_heads, s=s).reshape(b, s, e)
+    x = embeddings.to(dtype) + t["positional_embedding"].to(dtype)
+    if lora_ctx is not None:
+        x = _run_blocks(x, t["blocks"], cfg.text_heads, causal_mask(s, x.device), lora_ctx=lora_ctx)
+    elif dtype == torch.bfloat16:
+        x = run_text_tower(x.reshape(b * s, e), t["blocks"], cfg.text_heads, s=s).reshape(b, s, e)
+    else:
+        raise NotImplementedError("only the bf16 text tower (K6a/K6b) is ported")
     x = x[torch.arange(b, device=x.device), eot_positions]
     x = layer_norm(x, t["ln_final"]["scale"], t["ln_final"]["bias"])
-    return torch.matmul(x.float(), t["text_projection"].to(bf).float()).to(bf)
+    return torch.matmul(x.float(), t["text_projection"].to(dtype).float()).to(dtype)
 
 
-def encode_text(params: dict, cfg: CLIPConfig, token_ids, *, device="cuda") -> torch.Tensor:
-    """Text features [B, embed_dim] bf16 from token ids [B, context] (a
-    tensor or numpy array), on ``device`` (``jcf_tpu`` ``encode_text`` with
-    ``dtype=bfloat16`` on its fused route): the f32 token table gathered,
-    the EOT position at the argmax of the ids (EOT is the largest id).
-    The text params move to ``device`` unless they lie there already."""
+def encode_text(params: dict, cfg: CLIPConfig, token_ids, *, device="cuda",
+                dtype: torch.dtype = torch.bfloat16, lora_ctx: Optional[dict] = None) -> torch.Tensor:
+    """Text features [B, embed_dim] from token ids [B, context] (a tensor
+    or numpy array), on ``device`` (``jcf_tpu`` ``encode_text``; without
+    ``lora_ctx`` its bf16 fused route): the f32 token table gathered, the
+    EOT position at the argmax of the ids (EOT is the largest id). The
+    text params move to ``device`` unless they lie there already."""
     text = tree_to(params["text"], device)
     ids = torch.as_tensor(token_ids).to(device).long()
     return encode_text_embeddings({"text": text}, cfg, text["token_embedding"][ids],
-                                  ids.argmax(dim=-1))
+                                  ids.argmax(dim=-1), dtype=dtype, lora_ctx=lora_ctx)
 
 
 def vision_ln_z_amax(params: dict, cfg: CLIPConfig, images: torch.Tensor) -> torch.Tensor:
@@ -255,8 +302,9 @@ def vision_ln_z_amax(params: dict, cfg: CLIPConfig, images: torch.Tensor) -> tor
         layer = layer_slice(blocks, i)
         a1 = z_amax(x)
         h1 = layer_norm(x, layer["ln_1"]["scale"], layer["ln_1"]["bias"])
-        ctx = multi_head_attention(h1, layer["attn"], cfg.vision_heads,
-                                   return_pre_proj=True)
+        # the plain attention, as the JAX function's impl="xla"
+        ctx = packed_attention_plain(linear(h1, layer["attn"]["w_qkv"], layer["attn"]["b_qkv"]),
+                                     cfg.vision_heads)
         a_ctx = ctx.abs().max()
         x = x + (torch.matmul(ctx, layer["attn"]["w_out"].T) + layer["attn"]["b_out"])
         a2 = z_amax(x)

@@ -1,10 +1,14 @@
-"""Multi-head self-attention (``jcf_tpu/ops/attention.py``), plain part.
+"""Multi-head self-attention (``jcf_tpu/ops/attention.py``): K7, the
+attention over the packed qkv projection, forward and backward.
 
-The composable path the calibration forward and the f32 reference tower
-use, and the text tower's causal mask. The Pallas kernels of the JAX
-module (``_packed_attn_kernel``, ``_attn_kernel_blocked``) are not on the
-ported paths and are not ported yet (ROADMAP.md); the text tower's causal
-attention is a kernel of ``ops.block_kernel`` (K6a).
+``packed_attention`` is differentiable. Its forward launches the CUDA
+kernel of ``csrc/packed_attn.cu`` (replaces ``_packed_attn_kernel``) and
+its backward the backward kernel of the same file (replaces the XLA VJP of
+``_packed_attention_ref``); on CPU tensors both run their plain versions
+``packed_attention_plain`` and ``packed_attention_bwd_plain``.
+``multi_head_attention`` routes every sequence shorter than 128 through
+it, as the JAX function does on a TPU; longer ones take K8
+(``_attn_kernel_blocked``), which is not ported.
 """
 
 from __future__ import annotations
@@ -13,7 +17,12 @@ import math
 
 import torch
 
+from jcf_tpu_torch import _build
 from jcf_tpu_torch.ops.layers import linear
+from jcf_tpu_torch.peft.lora import lora_out_adjustment, lora_qkv_adjustment
+
+# launches of this module's kernels (CUDA tensors only)
+LAUNCHES = {"packed_attention": 0, "packed_attention_bwd": 0}
 
 
 def causal_mask(length: int, device=None) -> torch.Tensor:
@@ -21,29 +30,155 @@ def causal_mask(length: int, device=None) -> torch.Tensor:
     return torch.triu(torch.full((length, length), float("-inf"), device=device), diagonal=1)
 
 
-def attention(q, k, v, bias=None):
-    """Softmax attention over [B, H, S, D] tensors (``_attention_xla``):
-    f32 scores scaled by 1/sqrt(D), optional additive bias, probabilities
-    cast to q.dtype before PV, output in q.dtype."""
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    scores = scores * (1.0 / math.sqrt(q.shape[-1]))
-    if bias is not None:
-        scores = scores + bias.float()
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.matmul(probs.to(q.dtype).float(), v.float())
-    return out.to(q.dtype)
+def _heads(qkv: torch.Tensor, n_heads: int):
+    """[B, S, 3E] -> q, k, v as f32 [B, H, S, D] views, and D."""
+    b, s, e3 = qkv.shape
+    d = e3 // 3 // n_heads
+    q, k, v = qkv.float().reshape(b, s, 3, n_heads, d).permute(2, 0, 3, 1, 4)
+    return q, k, v, d
+
+
+def _full_bias(qkv: torch.Tensor, bias) -> torch.Tensor:
+    s = qkv.shape[1]
+    if bias is None:
+        return torch.zeros((s, s), dtype=torch.float32, device=qkv.device)
+    return bias.to(qkv.device, torch.float32)
+
+
+def _probs(q, k, d, bias):
+    """f32 scores x 1/sqrt(d) + bias, the row max (constant to autograd:
+    softmax does not depend on it), exp and p / sum in f32."""
+    scores = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(d)) + bias
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True).detach())
+    return p / p.sum(dim=-1, keepdim=True)
+
+
+def packed_attention_plain(qkv: torch.Tensor, n_heads: int, bias=None) -> torch.Tensor:
+    """K7's forward in plain PyTorch (``_packed_attention_ref``): qkv
+    [B, S, 3E] (f32 or bf16) and an optional additive [S, S] bias ->
+    [B, S, E] in qkv's dtype; p is cast to qkv's dtype for PV. Autograd
+    through it is the reference of the backward kernel."""
+    b, s, e3 = qkv.shape
+    q, k, v, d = _heads(qkv, n_heads)
+    p = _probs(q, k, d, _full_bias(qkv, bias))
+    out = torch.matmul(p.to(qkv.dtype).float(), v)  # [B, H, S, D]
+    return out.to(qkv.dtype).permute(0, 2, 1, 3).reshape(b, s, e3 // 3)
+
+
+def packed_attention_bwd_plain(qkv: torch.Tensor, n_heads: int, bias: torch.Tensor,
+                               dout: torch.Tensor) -> torch.Tensor:
+    """K7's backward in plain PyTorch: qkv [B, S, 3E], the [S, S] f32 bias
+    and the output's cotangent dout [B, S, E] -> d qkv [B, S, 3E] in qkv's
+    dtype. P is recomputed; dP = dO V^T is rounded to qkv's dtype (the
+    cotangent of the cast of p); dS = P (dP - rowsum(P dP)) / sqrt(d);
+    dQ = dS K, dK = dS^T Q, dV = T(P)^T dO, each cast to qkv's dtype."""
+    b, s, e3 = qkv.shape
+    dt = qkv.dtype
+    q, k, v, d = _heads(qkv, n_heads)
+    do = dout.float().reshape(b, s, n_heads, d).transpose(1, 2)
+    p = _probs(q, k, d, _full_bias(qkv, bias))
+    dp = torch.matmul(do, v.transpose(-1, -2)).to(dt).float()
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True)) * (1.0 / math.sqrt(d))
+    grads = (torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q),
+             torch.matmul(p.to(dt).float().transpose(-1, -2), do))
+    return torch.stack([g.to(dt) for g in grads], dim=2).permute(0, 3, 2, 1, 4).reshape(b, s, e3)
+
+
+def _kernel_args(qkv: torch.Tensor, n_heads: int, bias: torch.Tensor):
+    """Checks the types and shapes the kernels take -> (B, S, H, D). The C
+    entries refuse S > 128 and a block over the card's shared memory
+    themselves (``cudaErrorInvalidValue``, raised by ``_build.check``)."""
+    if qkv.dtype not in (torch.float32, torch.bfloat16) or qkv.dim() != 3:
+        raise ValueError(f"K7 takes f32 or bf16 qkv [B, S, 3E], got {qkv.dtype} {tuple(qkv.shape)}")
+    b, s, e3 = qkv.shape
+    if e3 % (3 * n_heads):
+        raise ValueError(f"3E = {e3} is not a multiple of 3 x {n_heads} heads")
+    if bias.dtype != torch.float32 or tuple(bias.shape) != (s, s) or bias.device != qkv.device:
+        raise ValueError(f"bias must be f32 ({s}, {s}) on qkv's device")
+    return b, s, n_heads, e3 // 3 // n_heads
+
+
+def packed_attention_fwd(qkv: torch.Tensor, n_heads: int, bias: torch.Tensor) -> torch.Tensor:
+    """K7's forward kernel for CUDA tensors, its plain version for CPU
+    tensors: qkv [B, S, 3E], bias [S, S] f32 -> [B, S, E]."""
+    if not qkv.is_cuda:
+        return packed_attention_plain(qkv, n_heads, bias)
+    b, s, h, d = _kernel_args(qkv, n_heads, bias)
+    qkv, bias = qkv.contiguous(), bias.contiguous()
+    out = torch.empty((b, s, h * d), dtype=qkv.dtype, device=qkv.device)
+    lib = _build.load()
+    err = lib.jcf_packed_attention(qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), b, s, h, d,
+                                   1.0 / math.sqrt(d), int(qkv.dtype == torch.bfloat16),
+                                   _build.stream_ptr(qkv.device))
+    _build.check(err, "packed_attention")
+    LAUNCHES["packed_attention"] += 1
+    return out
+
+
+def packed_attention_bwd(qkv: torch.Tensor, n_heads: int, bias: torch.Tensor,
+                         dout: torch.Tensor) -> torch.Tensor:
+    """K7's backward kernel for CUDA tensors, its plain version for CPU
+    tensors: -> d qkv [B, S, 3E] in qkv's dtype."""
+    if not qkv.is_cuda:
+        return packed_attention_bwd_plain(qkv, n_heads, bias, dout)
+    b, s, h, d = _kernel_args(qkv, n_heads, bias)
+    if dout.dtype != qkv.dtype or tuple(dout.shape) != (b, s, h * d) or dout.device != qkv.device:
+        raise ValueError(f"dout must be {qkv.dtype} ({b}, {s}, {h * d}) on qkv's device")
+    qkv, bias, dout = qkv.contiguous(), bias.contiguous(), dout.contiguous()
+    dqkv = torch.empty_like(qkv)
+    lib = _build.load()
+    err = lib.jcf_packed_attention_bwd(qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(),
+                                       dqkv.data_ptr(), b, s, h, d, 1.0 / math.sqrt(d),
+                                       int(qkv.dtype == torch.bfloat16),
+                                       _build.stream_ptr(qkv.device))
+    _build.check(err, "packed_attention_bwd")
+    LAUNCHES["packed_attention_bwd"] += 1
+    return dqkv
+
+
+class _PackedAttention(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient; the
+    bias is a constant and gets none."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, n_heads):
+        ctx.save_for_backward(qkv, bias)
+        ctx.n_heads = n_heads
+        return packed_attention_fwd(qkv, n_heads, bias)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, bias = ctx.saved_tensors
+        return packed_attention_bwd(qkv, ctx.n_heads, bias, dout.to(qkv.dtype)), None, None
+
+
+def packed_attention(qkv: torch.Tensor, n_heads: int, bias=None) -> torch.Tensor:
+    """[B, S, 3E] packed qkv -> [B, S, E] attention context in qkv's dtype,
+    differentiable in qkv. ``bias`` is an optional additive [S, S] mask
+    (the text tower's causal mask); zeros when None."""
+    return _PackedAttention.apply(qkv, _full_bias(qkv, bias), n_heads)
 
 
 def multi_head_attention(x: torch.Tensor, params: dict, n_heads: int,
                          mask: torch.Tensor | None = None, *,
-                         return_pre_proj: bool = False) -> torch.Tensor:
+                         lora: dict | None = None) -> torch.Tensor:
     """Self-attention over batch-first [B, S, E] with the packed CLIP
-    in-projection ``w_qkv [3E, E]`` / ``b_qkv [3E]``."""
+    in-projection ``w_qkv [3E, E]`` / ``b_qkv [3E]``, through K7.
+
+    lora: this layer's decomposed LoRA context, ``{"layer": {a_qkv, b_qkv
+    [, a_out, b_out]}, "gate", "proj_mask", "spec", "generator"}`` (the
+    training path; for inference merge the factors instead)."""
     b, s, e = x.shape
-    d = e // n_heads
-    qkv = linear(x, params["w_qkv"], params["b_qkv"]).reshape(b, s, 3, n_heads, d)
-    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # [B, H, S, D]
-    out = attention(q, k, v, mask).transpose(1, 2).reshape(b, s, e)
-    if return_pre_proj:
-        return out
-    return linear(out, params["w_out"], params["b_out"])
+    if s >= 128:
+        raise NotImplementedError("sequences of 128 or more take K8 (_attn_kernel_blocked), "
+                                  "which is not ported")
+    qkv = linear(x, params["w_qkv"], params["b_qkv"])
+    if lora is not None:
+        qkv = qkv + lora_qkv_adjustment(x, lora["layer"], lora["spec"], lora["gate"],
+                                        lora["proj_mask"], lora["generator"])
+    out = packed_attention(qkv, n_heads, mask)
+    y = linear(out, params["w_out"], params["b_out"])
+    if lora is not None and "a_out" in lora["layer"]:
+        y = y + lora_out_adjustment(out, lora["layer"], lora["spec"], lora["gate"],
+                                    lora["generator"])
+    return y

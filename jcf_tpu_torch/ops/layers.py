@@ -33,9 +33,19 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: torch.Tensor | None = None) -> torch.Tensor:
     """y = x @ W.T + b with W [out, in]. The weight is cast to x.dtype and
     the product accumulates in f32 (bf16 products are exact in f32), then
-    the result is cast back to x.dtype before the bias add, as in JAX."""
+    the result is cast back to x.dtype before the bias add, as in JAX. On
+    the card a bf16 product is one bf16 ``matmul``, which gives f32
+    accumulation and one rounding only while
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    is False; it raises otherwise."""
     w = weight.to(x.dtype)
-    y = torch.matmul(x.float(), w.float().T).to(x.dtype)
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        if torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
+            raise RuntimeError("a bf16 linear on the card needs torch.backends.cuda.matmul."
+                               "allow_bf16_reduced_precision_reduction = False")
+        y = torch.matmul(x, w.T)
+    else:
+        y = torch.matmul(x.float(), w.float().T).to(x.dtype)
     if bias is not None:
         y = y + bias.to(x.dtype)
     return y

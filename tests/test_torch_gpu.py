@@ -15,6 +15,7 @@ import torch
 
 from jcf_tpu_torch.models.clip import CLIPConfig, init_clip_params, tree_to
 from jcf_tpu_torch.ops import assemble_kernel as ak
+from jcf_tpu_torch.ops import attention as at
 from jcf_tpu_torch.ops import bf16_gemm as bg
 from jcf_tpu_torch.ops import block_kernel as bk
 from jcf_tpu_torch.ops import int8_gemm as ig
@@ -28,6 +29,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda", 0)
 
 
@@ -158,6 +160,75 @@ def test_tower_kernels_vs_plain(cuda):
     assert float(cos.min()) >= 0.999
 
 
+def _f32_close(got, ref):
+    assert bool(((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,h,causal", [(77, 8, True), (50, 12, False), (23, 3, True)])
+def test_packed_attention_kernels(cuda, dtype, s, h, causal):
+    """K7 forward and backward vs the plain forward and autograd through
+    it: f32 within 1e-5 (+ 1e-5 relative), bf16 within 1 bf16 ulp + 1e-3."""
+    g = torch.Generator(device=cuda).manual_seed(s + h)
+    b = 5
+    qkv = torch.randn(b, s, 3 * h * 64, device=cuda, generator=g).to(dtype)
+    dout = torch.randn(b, s, h * 64, device=cuda, generator=g).to(dtype)
+    bias = at.causal_mask(s, cuda) if causal else torch.zeros(s, s, device=cuda)
+    close = _f32_close if dtype == torch.float32 else _bf16_close
+    close(at.packed_attention_fwd(qkv, h, bias).float(),
+          at.packed_attention_plain(qkv, h, bias).float())
+    x = qkv.clone().requires_grad_(True)
+    ref, = torch.autograd.grad(at.packed_attention_plain(x, h, bias), x, dout)
+    close(at.packed_attention_bwd(qkv, h, bias, dout).float(), ref.float())
+
+
+def test_packed_attention_autograd_launches_both_kernels(cuda):
+    qkv = torch.randn(4, 50, 3 * 128, device=cuda).requires_grad_(True)
+    before = dict(at.LAUNCHES)
+    at.packed_attention(qkv, 2).sum().backward()
+    assert at.LAUNCHES["packed_attention"] == before["packed_attention"] + 1
+    assert at.LAUNCHES["packed_attention_bwd"] == before["packed_attention_bwd"] + 1
+    assert qkv.grad.shape == qkv.shape and bool(qkv.grad.isfinite().all())
+
+
+def test_stage1_step_kernels_vs_plain_attention(cuda, monkeypatch):
+    """One f32 stage-1 step of a 2-layer full-width model through K7 and
+    one through the plain K7 (autograd through ``packed_attention_plain``),
+    from the same state and dropout seeds: losses within 1e-5 relative, the
+    updated factors within 1e-5 (1% of the learning rate: Adam divides by
+    sqrt(v) + 1e-8, so a gradient near 1e-8 turns a last-bit difference
+    into a few 1e-6 of its factor)."""
+    from jcf_tpu_torch.peft import LoraSpec, init_lora_params
+    from jcf_tpu_torch.train import adamw, make_stage1_step
+
+    cfg = CLIPConfig(text_layers=2, vision_layers=2)
+    spec = LoraSpec()
+    params = init_clip_params(0, cfg)
+    lora = init_lora_params(1, spec, 2, cfg.text_width, 2, cfg.vision_width)
+    gen = torch.Generator().manual_seed(0)
+    banks = torch.randint(1, 49000, (2, 7, 77), generator=gen)
+    banks[:, :, 20] = 49407
+    images = torch.rand(6, 3, 224, 224, generator=gen)
+    targets = torch.randint(0, 7, (6,), generator=gen)
+    init_state, step, frozen = make_stage1_step(params, cfg, spec, banks, adamw(1e-3),
+                                                device=cuda)
+    outs = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(at, "packed_attention", at.packed_attention_plain)
+        state, m = step(frozen, init_state(lora), images, targets, 1,
+                        torch.Generator(device=cuda).manual_seed(3))
+        state, m = step(frozen, state, images, targets, 0,
+                        torch.Generator(device=cuda).manual_seed(4))
+        outs.append((float(m["loss"]), {t: {k: v.detach().cpu() for k, v in d.items()}
+                                        for t, d in state.lora.items()}))
+    (loss_k, lora_k), (loss_p, lora_p) = outs
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    for t in lora_k:
+        for k in lora_k[t]:
+            assert float((lora_k[t][k] - lora_p[t][k]).abs().max()) <= 1e-5, (t, k)
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda):
     images = torch.rand(1, 3, 64, 64, device=cuda)  # f32: the kernel takes bf16
     cy = torch.zeros(1, 2, 32, device=cuda)
@@ -173,6 +244,22 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         bk.cls_attention(torch.zeros(2, 64, device=cuda).bfloat16(),
                          torch.zeros(100, 128, device=cuda).bfloat16(),
                          torch.ones(1, device=cuda), 50, 2)
+    # K7's C entries refuse what its tiles cannot hold
+    before = dict(at.LAUNCHES)
+    with pytest.raises(RuntimeError):  # S = 128, D = 128: over the shared memory
+        at.packed_attention_bwd(torch.zeros(1, 128, 3 * 128, device=cuda), 1,
+                                torch.zeros(128, 128, device=cuda),
+                                torch.zeros(1, 128, 128, device=cuda))
+    with pytest.raises(RuntimeError):  # S = 129: a lane holds 4 keys of a row
+        at.packed_attention_fwd(torch.zeros(1, 129, 3 * 128, device=cuda), 2,
+                                torch.zeros(129, 129, device=cuda))
+    assert at.LAUNCHES == before
+    # the refusals leave no error behind for the next launch
+    at.packed_attention_fwd(torch.zeros(1, 50, 3 * 128, device=cuda), 2,
+                            torch.zeros(50, 50, device=cuda))
+    with pytest.raises(ValueError):  # f16: the kernels take f32 or bf16
+        at.packed_attention_fwd(torch.zeros(1, 50, 3 * 128, device=cuda).half(), 2,
+                                torch.zeros(50, 50, device=cuda))
     with pytest.raises(ValueError):  # K % 8 != 0
         bg.bf16_gemm_bias(torch.zeros(4, 12, device=cuda).bfloat16(),
                           torch.zeros(8, 12, device=cuda).bfloat16(), torch.zeros(8, device=cuda))

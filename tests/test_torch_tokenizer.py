@@ -120,7 +120,10 @@ def test_config_defaults_match_jax(make):
     """Field by field: every field the port keeps has the JAX default, in
     the default config and in the perf preset."""
     t, j = getattr(tconfig, make)(), getattr(jconfig, make)()
-    for section in ("data", "runtime"):
+    for section in ("data", "runtime", "lora", "stage1"):
+        if section in ("lora", "stage1"):  # ported whole
+            assert ([f.name for f in dataclasses.fields(getattr(t, section))]
+                    == [f.name for f in dataclasses.fields(getattr(j, section))]), section
         for f in dataclasses.fields(getattr(t, section)):
             assert getattr(getattr(t, section), f.name) == getattr(getattr(j, section), f.name), \
                 (section, f.name)
