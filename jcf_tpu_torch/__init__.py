@@ -17,7 +17,11 @@ What is ported so far:
 - the stage-1 LoRA training step (``train.make_stage1_step``): LoRA
   (``peft``), both towers on the composable route with the packed-qkv
   attention K7 forward and backward, AdamW, the LoRA files and tree
-  checkpoints (``utils``).
+  checkpoints (``utils``);
+- serving towers of 128 tokens or more (ViT-B/16's 197): the composable
+  tower with the blocked attention K8 and dynamic per-row int8 linears
+  (or in f32), and the checkpoint loader (``models.loader``) that turns a
+  ViT state dict into its ``CLIPConfig`` and params.
 
 Every Pallas kernel on those paths has a hand-written CUDA kernel under
 ``csrc/`` and a plain PyTorch version beside its wrapper; a wrapper runs

@@ -33,7 +33,7 @@ SIGNATURES = {
     "jcf_view": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "jcf_assemble": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "jcf_ln_quant": [_P, _P, _P, _I, _I, _P],
-    "jcf_int8_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "jcf_int8_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "jcf_attention": [_P, _P, _P, _I, _I, _I, _I, _P],
     "jcf_cls_attention": [_P, _P, _P, _P, _I, _I, _I, _P],
     "jcf_bf16_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
@@ -41,6 +41,8 @@ SIGNATURES = {
     "jcf_causal_attention": [_P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
     "jcf_packed_attention": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
     "jcf_packed_attention_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    "jcf_blocked_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, *[ctypes.c_longlong] * 6,
+                              ctypes.c_float, _I, _P],
 }
 
 _lib = None

@@ -19,6 +19,40 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// widening loads and narrowing stores of the attention kernels' f32 / bf16
+// operands
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return bf2f(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// rounding to T's precision, kept in f32
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// opts a kernel in to more than the default 48 KB of shared memory; a
+// block over the card's limit is refused here, and the refusal is cleared
+// so that the next launch's cudaGetLastError does not report it
+template <typename K>
+int set_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) cudaGetLastError();
+  return (int)err;
+}
+
 // round half to even, saturate to [-127, 127]
 __device__ __forceinline__ int8_t round_clip_int8(float x) {
   return (int8_t)fminf(fmaxf(rintf(x), -127.0f), 127.0f);

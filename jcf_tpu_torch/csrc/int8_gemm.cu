@@ -14,6 +14,9 @@
 //                 (c_fc: the static hidden scale is pre-folded into scale
 //                 and bias, so QuickGELU runs in the quantized domain,
 //                 _gelu_quant_static)
+//   EPI_ROWSCALE  bf16((acc * row_scale[m]) * scale[n] + bias[n])
+//                 (the dynamic per-row int8 linear of the composable tower,
+//                 jcf_tpu/ops/quant.py::int8_linear, in its op order)
 // Epilogue arithmetic uses the _rn intrinsics so it rounds exactly like
 // the separate elementwise ops of the reference and the plain version.
 //
@@ -30,7 +33,7 @@
 
 namespace {
 
-enum { EPI_S32 = 0, EPI_BF16 = 1, EPI_RESID = 2, EPI_GELU_Q = 3 };
+enum { EPI_S32 = 0, EPI_BF16 = 1, EPI_RESID = 2, EPI_GELU_Q = 3, EPI_ROWSCALE = 4 };
 
 constexpr int BM = 128, BN = 128, BK = 64;
 constexpr int LDS = BK + 16;  // padded shared row, bytes
@@ -42,6 +45,7 @@ struct Epilogue {
   const float* bias;       // [N]
   const bf16* resid;       // [M, N]
   const float* gelu_c;     // scalar: 0.851 / h_inv
+  const float* row_scale;  // [M]
 };
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
@@ -59,9 +63,14 @@ __device__ __forceinline__ void store_pair(const Epilogue& ep, int m, int n, int
     *reinterpret_cast<int2*>(static_cast<int32_t*>(ep.out) + idx) = make_int2(v0, v1);
     return;
   }
-  const float y0 = __fadd_rn(__fmul_rn(__int2float_rn(v0), ep.scale[n]), ep.bias[n]);
-  const float y1 = __fadd_rn(__fmul_rn(__int2float_rn(v1), ep.scale[n + 1]), ep.bias[n + 1]);
-  if (EPI == EPI_BF16) {
+  float a0 = __int2float_rn(v0), a1 = __int2float_rn(v1);
+  if (EPI == EPI_ROWSCALE) {
+    a0 = __fmul_rn(a0, ep.row_scale[m]);
+    a1 = __fmul_rn(a1, ep.row_scale[m]);
+  }
+  const float y0 = __fadd_rn(__fmul_rn(a0, ep.scale[n]), ep.bias[n]);
+  const float y1 = __fadd_rn(__fmul_rn(a1, ep.scale[n + 1]), ep.bias[n + 1]);
+  if (EPI == EPI_BF16 || EPI == EPI_ROWSCALE) {
     *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(ep.out) + idx) =
         __floats2bfloat162_rn(y0, y1);
   } else if (EPI == EPI_RESID) {
@@ -168,10 +177,12 @@ __global__ void __launch_bounds__(GEMM_THREADS) int8_gemm_kernel(
 
 extern "C" int jcf_int8_gemm(const void* A, const void* B, void* out, int M, int N, int K,
                              int epilogue, const void* scale, const void* bias,
-                             const void* resid, const void* gelu_c, void* stream) {
+                             const void* resid, const void* gelu_c, const void* row_scale,
+                             void* stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   Epilogue ep{out, static_cast<const float*>(scale), static_cast<const float*>(bias),
-              static_cast<const bf16*>(resid), static_cast<const float*>(gelu_c)};
+              static_cast<const bf16*>(resid), static_cast<const float*>(gelu_c),
+              static_cast<const float*>(row_scale)};
   const int8_t* a = static_cast<const int8_t*>(A);
   const int8_t* b = static_cast<const int8_t*>(B);
   cudaStream_t s = (cudaStream_t)stream;
@@ -180,6 +191,7 @@ extern "C" int jcf_int8_gemm(const void* A, const void* B, void* out, int M, int
     case EPI_BF16: int8_gemm_kernel<EPI_BF16><<<grid, GEMM_THREADS, 0, s>>>(a, b, M, N, K, ep); break;
     case EPI_RESID: int8_gemm_kernel<EPI_RESID><<<grid, GEMM_THREADS, 0, s>>>(a, b, M, N, K, ep); break;
     case EPI_GELU_Q: int8_gemm_kernel<EPI_GELU_Q><<<grid, GEMM_THREADS, 0, s>>>(a, b, M, N, K, ep); break;
+    case EPI_ROWSCALE: int8_gemm_kernel<EPI_ROWSCALE><<<grid, GEMM_THREADS, 0, s>>>(a, b, M, N, K, ep); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -34,26 +34,6 @@ constexpr int PA_WARPS = 8;   // forward: warps per block
 constexpr int PB_WARPS = 16;  // backward: warps per block
 constexpr int PA_KEYS = 4;    // keys per lane: S <= 128
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return bf2f(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// rounding to T's precision, kept in f32
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
 __host__ __device__ __forceinline__ int odd_stride(int s) { return s | 1; }
 
 // loads the head's q, k, v tiles: q (and v when v_rows) as [S, D], k (and
@@ -219,18 +199,6 @@ size_t fwd_smem(int S, int D) {
 size_t bwd_smem(int S, int D) {
   const size_t sp = odd_stride(S);
   return ((size_t)2 * S * D + 2 * D * sp + 2 * S * sp) * sizeof(float);
-}
-
-// opts the kernel in to more than the default 48 KB of shared memory; a
-// block over the card's limit is refused here, and the refusal is cleared
-// so that the next launch's cudaGetLastError does not report it
-template <typename K>
-int set_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) cudaGetLastError();
-  return (int)err;
 }
 
 // a lane holds PA_KEYS keys of a row: S <= 128

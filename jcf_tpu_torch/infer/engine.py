@@ -1,7 +1,8 @@
-"""TTA serving engine (``jcf_tpu/infer/engine.py``), int8 serving slice.
+"""TTA serving engine (``jcf_tpu/infer/engine.py``).
 
 ``TTAEngine.features_from_images`` runs the path ``bench.py`` times on a
-TPU, in the configuration it ships there (``_CLS_ATTNQ = True``):
+TPU, in the configuration it ships there (``_CLS_ATTNQ = True``), for
+towers under 128 tokens (ViT-B/32's 50):
 
   source images [B, 3, H, W] bf16 + crop geometry (center + random views)
   -> K1 int8 views [B, N, 3, 224, 224]          (ops.view_kernel)
@@ -11,10 +12,19 @@ TPU, in the configuration it ships there (``_CLS_ATTNQ = True``):
                                                 (ops.block_kernel)
   -> ln_post, proj, L2 norm -> MTA modes [B, D] (models.clip, tta.mta)
 
+From 128 tokens on (ViT-B/16's 197) it takes the route the JAX engine
+takes there, whose fold and assembly gates need fewer than 128 tokens:
+K1 int8 views, the same int8 patch GEMM, tokens ``acc * k_scale +
+k_bias`` in f32, then the composable bf16 tower
+(``models.clip.encode_image_tokens``) with the unfolded int8 tree:
+dynamic per-row int8 linears (``ops.quant.int8_linear``) and K8
+attention (``ops.attention.fused_attention``). No calibration: its
+activation scales are per row.
+
 ``quant=None`` builds the plain f32 reference of the same function: f32
-views, f32 patch embed, the composable f32 tower. The int8 path is
-certified against it (top-1 agreement, top-5 overlap), as ``bench.py``
-certifies the JAX int8 engine.
+views, f32 patch embed, the composable f32 tower (K7 or K8 attention in
+f32). The int8 path is certified against it (top-1 agreement, top-5
+overlap), as ``bench.py`` certifies the JAX int8 engine.
 
 The engine runs on one ``device``, the CUDA card unless the caller asks
 for another. Calibration runs the f32 tower on a CUDA device, so full-f32
@@ -41,10 +51,11 @@ from jcf_tpu_torch.models.clip import (
     vision_ln_z_amax,
 )
 from jcf_tpu_torch.ops.assemble_kernel import assemble_dense_rows, make_cls_row
+from jcf_tpu_torch.ops.attention import BLOCKED_MIN_SEQ
 from jcf_tpu_torch.ops.block_kernel import run_fused_tower
 from jcf_tpu_torch.ops.int8_gemm import int8_gemm_s32
 from jcf_tpu_torch.ops.layers import l2_normalize
-from jcf_tpu_torch.ops.quant import quantize_clip_params
+from jcf_tpu_torch.ops.quant import quantize_clip_params, true_div
 from jcf_tpu_torch.ops.view_kernel import (
     fused_views_nchw,
     fused_views_nchw_plain,
@@ -59,18 +70,19 @@ def _embed_quant(w4f: torch.Tensor, fb: torch.Tensor):
     dequant scale kscale / 254, and bias fb + rowsum(W) * 127/254 (the
     view kernel's +127 pixel offset, folded)."""
     flat = w4f.permute(3, 0, 1, 2).reshape(w4f.shape[3], -1)  # [E, C*p*p]
-    kscale = torch.clamp_min(flat.abs().amax(dim=1) / 127.0, 1e-8)
+    kscale = torch.clamp_min(true_div(flat.abs().amax(dim=1), 127.0), 1e-8)
     k_q = torch.clamp(torch.round(flat / kscale[:, None]), -127, 127).to(torch.int8).contiguous()
     bias_i8 = fb + flat.sum(dim=1) * (127.0 / 254.0)
-    return k_q, kscale / 254.0, bias_i8
+    return k_q, true_div(kscale, 254.0), bias_i8
 
 
 class TTAEngine:
     """Images -> MTA mode features / logits on one device.
 
     params: the CLIP param tree (f32 CPU tensors, ``models.clip`` layout).
-    quant: "int8" (the serving slice; needs ``calibration_images``) or None
-    (the plain f32 reference).
+    quant: "int8" (the serving slice; below 128 tokens it needs
+    ``calibration_images``, from 128 on it ignores them, as the JAX engine
+    does) or None (the plain f32 reference).
     """
 
     def __init__(self, params: dict, cfg: CLIPConfig, *, device="cuda", n_views: int = 8,
@@ -92,9 +104,17 @@ class TTAEngine:
             return
         if quant != "int8":
             raise ValueError(f"unknown quant mode {quant!r}")
-        if calibration_images is None:
-            raise NotImplementedError("dynamic activation quantization is not ported")
         self.dtype = torch.bfloat16
+        self._k_q, self._k_scale, self._k_bias = _embed_quant(w4.to(dev), fold_bias.to(dev))
+        if cfg.vision_seq_len >= BLOCKED_MIN_SEQ:
+            # the composable tower: bf16 copies of the float params (as the
+            # JAX engine casts them) and the unfolded tree from the f32 ones
+            self._quant = quantize_clip_params({"visual": tree_to(v, dev)}, fold=False)["visual"]
+            self._params = {"visual": tree_to(v, dev, torch.bfloat16)}
+            return
+        if calibration_images is None:
+            raise NotImplementedError("dynamic activation quantization below 128 tokens is "
+                                      "not ported")
         if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
             raise RuntimeError("calibration needs full f32 matmuls: set "
                                "torch.backends.cuda.matmul.allow_tf32 = False")
@@ -103,7 +123,6 @@ class TTAEngine:
         self._quant = quantize_clip_params(
             params_dev, heads={"visual": cfg.vision_heads}, act_scales={"visual": amax},
         )["visual"]
-        self._k_q, self._k_scale, self._k_bias = _embed_quant(w4.to(dev), fold_bias.to(dev))
         bf = torch.bfloat16
         pos = v["positional_embedding"].to(dev, bf)
         ln_pre = {k: t.to(dev, bf) for k, t in v["ln_pre"].items()}
@@ -147,17 +166,22 @@ class TTAEngine:
             feats = encode_image_tokens(self._params, cfg, tokens)
         else:
             views = fused_views_nchw(images, cy, cx, inv, res)
-            # im2col: patch rows [B' * 49, 3 * p * p] in the weight's (c, py, px) order
+            # im2col: patch rows [B' * G², 3 * p * p] in the weight's (c, py, px) order
             cols = _patchify(views.reshape(b * n, 3, res, res), p).reshape(-1, 3 * p * p)
             acc = int8_gemm_s32(cols.contiguous(), self._k_q)
             g = cfg.grid_size
-            rows = assemble_dense_rows(
-                acc.reshape(b * n, g, g, -1), self._k_scale, self._k_bias, self._pos_tail,
-                self._cls_row, self._ln_pre["scale"], self._ln_pre["bias"],
-            )
-            cls_rows = run_fused_tower(rows, self._quant, cfg.vision_heads,
-                                       flat_s=cfg.vision_seq_len)
-            feats = encode_cls_tail(self._params, cls_rows)
+            if cfg.vision_seq_len >= BLOCKED_MIN_SEQ:
+                tokens = (acc.float() * self._k_scale + self._k_bias).reshape(b * n, g * g, -1)
+                feats = encode_image_tokens(self._params, cfg, tokens, dtype=self.dtype,
+                                            quant=self._quant)
+            else:
+                rows = assemble_dense_rows(
+                    acc.reshape(b * n, g, g, -1), self._k_scale, self._k_bias, self._pos_tail,
+                    self._cls_row, self._ln_pre["scale"], self._ln_pre["bias"],
+                )
+                cls_rows = run_fused_tower(rows, self._quant, cfg.vision_heads,
+                                           flat_s=cfg.vision_seq_len)
+                feats = encode_cls_tail(self._params, cls_rows)
         return l2_normalize(feats).float().reshape(b, n, -1)
 
     def features_from_images(self, images: torch.Tensor, text_weights: torch.Tensor, *,

@@ -1,7 +1,9 @@
 """CLIP pieces of ``jcf_tpu/models/clip.py`` in PyTorch: the ViT pieces
 of the serving path, the text tower (``encode_text``) and the composable
-towers of LoRA training (``encode_image``, ``encode_text`` with a LoRA
-context), whose attention is K7 (``ops.attention.packed_attention``).
+towers (``encode_image``, ``encode_image_tokens``, ``encode_text`` with a
+LoRA context) of LoRA training and of serving from 128 tokens on, whose
+attention is K7 below 128 tokens and K8 from 128 on
+(``ops.attention.multi_head_attention``).
 
 Parameters are plain nested dicts of tensors with the JAX tree's keys and
 layouts: transformer blocks stacked on a leading layer axis, packed
@@ -148,12 +150,13 @@ def params_from_numpy(tree) -> dict:
     return torch.from_numpy(np.array(tree, copy=True))
 
 
-def tree_to(tree, device):
-    """A param tree with every tensor moved to ``device`` (no copy where a
-    tensor lies there already)."""
+def tree_to(tree, device, dtype=None):
+    """A param tree with every tensor moved to ``device`` and, given a
+    ``dtype``, its floating tensors cast to it (no copy where nothing
+    changes)."""
     if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+        return {k: tree_to(v, device, dtype) for k, v in tree.items()}
+    return tree.to(device, dtype if dtype is not None and tree.is_floating_point() else None)
 
 
 # ---------------------------------------------------------------------------
@@ -171,15 +174,18 @@ def _patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
 
 
 def _run_blocks(x: torch.Tensor, blocks: dict, n_heads: int, mask: Optional[torch.Tensor], *,
-                lora_ctx: Optional[dict] = None) -> torch.Tensor:
+                lora_ctx: Optional[dict] = None, quant: Optional[dict] = None) -> torch.Tensor:
     """The stacked residual blocks over [B, S, E] activations, the
     composable route of ``jcf_tpu``'s ``_run_blocks``: per layer
     ``x + mha(LN1 x)``, then ``x + mlp(LN2 x)``, in x's dtype. With
     ``lora_ctx`` (``peft.lora.make_lora_context``) the layers its gates
     select add the decomposed LoRA branch; the others are unchanged (their
-    branch would add zeros)."""
+    branch would add zeros). With ``quant`` (the unfolded tree of
+    ``ops.quant.quantize_clip_params(fold=False)``, stacked like
+    ``blocks``) every projection is a dynamic per-row int8 linear."""
     for i in range(blocks["attn"]["w_qkv"].shape[0]):
         layer = layer_slice(blocks, i)
+        q_layer = layer_slice(quant, i) if quant is not None else {"attn": None, "mlp": None}
         lora = None
         if lora_ctx is not None and lora_ctx["gates"][i]:
             lora = {"layer": {k: t[i] for k, t in lora_ctx["stacked"].items()},
@@ -187,32 +193,35 @@ def _run_blocks(x: torch.Tensor, blocks: dict, n_heads: int, mask: Optional[torc
                     "spec": lora_ctx["spec"], "generator": lora_ctx["generator"]}
         x = x + multi_head_attention(
             layer_norm(x, layer["ln_1"]["scale"], layer["ln_1"]["bias"]),
-            layer["attn"], n_heads, mask, lora=lora,
+            layer["attn"], n_heads, mask, lora=lora, quant=q_layer["attn"],
         )
-        x = x + mlp(layer_norm(x, layer["ln_2"]["scale"], layer["ln_2"]["bias"]), layer["mlp"])
+        x = x + mlp(layer_norm(x, layer["ln_2"]["scale"], layer["ln_2"]["bias"]), layer["mlp"],
+                    quant=q_layer["mlp"])
     return x
 
 
 def encode_image(params: dict, cfg: CLIPConfig, images: torch.Tensor, *,
-                 dtype: torch.dtype = torch.float32,
-                 lora_ctx: Optional[dict] = None) -> torch.Tensor:
+                 dtype: torch.dtype = torch.float32, lora_ctx: Optional[dict] = None,
+                 quant: Optional[dict] = None) -> torch.Tensor:
     """Image features [B, embed_dim] (before normalization) from NCHW
     images [B, 3, res, res], in ``dtype``: patchify, the patch embedding
     with the weight cast to ``dtype``, then ``encode_image_tokens``. Runs
     where ``images`` and ``params`` lie."""
     v = params["visual"]
     x = linear(_patchify(images.to(dtype), cfg.vision_patch_size), v["patch_embed"]["w"].to(dtype))
-    return encode_image_tokens(params, cfg, x, dtype=dtype, lora_ctx=lora_ctx)
+    return encode_image_tokens(params, cfg, x, dtype=dtype, lora_ctx=lora_ctx, quant=quant)
 
 
 def encode_image_tokens(params: dict, cfg: CLIPConfig, x: torch.Tensor, *,
-                        dtype: torch.dtype = torch.float32,
-                        lora_ctx: Optional[dict] = None) -> torch.Tensor:
+                        dtype: torch.dtype = torch.float32, lora_ctx: Optional[dict] = None,
+                        quant: Optional[dict] = None) -> torch.Tensor:
     """Composable vision tower from embedded patch tokens [B, G², W], in
     ``dtype``: CLS prepend, positional add, the visual prompt tokens
     appended (``vpt``), ln_pre, the residual blocks (with the LoRA branch
-    when ``lora_ctx`` is given), ln_post on the CLS row, proj. In f32 it
-    is also the plain reference tower the int8 path is certified against."""
+    when ``lora_ctx`` is given, dynamic int8 projections with the unfolded
+    ``quant`` tree), ln_post on the CLS row, proj. Attention is K7 below
+    128 tokens and K8 from 128 on. In f32 it is also the plain reference
+    tower the int8 path is certified against."""
     v = params["visual"]
     if "vpt_deep" in v:
         raise NotImplementedError("deep visual prompts are not ported")
@@ -223,7 +232,7 @@ def encode_image_tokens(params: dict, cfg: CLIPConfig, x: torch.Tensor, *,
         vpt = v["vpt"].to(dtype).expand(x.shape[0], cfg.vision_prompt_tokens, x.shape[-1])
         x = torch.cat([x, vpt], dim=1)
     x = layer_norm(x, v["ln_pre"]["scale"], v["ln_pre"]["bias"])
-    x = _run_blocks(x, v["blocks"], cfg.vision_heads, None, lora_ctx=lora_ctx)
+    x = _run_blocks(x, v["blocks"], cfg.vision_heads, None, lora_ctx=lora_ctx, quant=quant)
     return encode_cls_tail(params, x[:, 0])
 
 

@@ -1,14 +1,20 @@
 """Multi-head self-attention (``jcf_tpu/ops/attention.py``): K7, the
-attention over the packed qkv projection, forward and backward.
+attention over the packed qkv projection, forward and backward, and K8,
+the attention of sequences of 128 tokens or more.
 
 ``packed_attention`` is differentiable. Its forward launches the CUDA
 kernel of ``csrc/packed_attn.cu`` (replaces ``_packed_attn_kernel``) and
 its backward the backward kernel of the same file (replaces the XLA VJP of
 ``_packed_attention_ref``); on CPU tensors both run their plain versions
 ``packed_attention_plain`` and ``packed_attention_bwd_plain``.
+
+``fused_attention`` is K8 over [B, H, S, D] heads: on CUDA tensors it
+launches the kernel of ``csrc/blocked_attn.cu`` (replaces
+``_attn_kernel_blocked``), on CPU tensors it runs ``attention_plain``
+(JAX's ``_attention_xla``). Like the TPU kernel it has no backward.
+
 ``multi_head_attention`` routes every sequence shorter than 128 through
-it, as the JAX function does on a TPU; longer ones take K8
-(``_attn_kernel_blocked``), which is not ported.
+K7 and longer ones through K8, as the JAX function does on a TPU.
 """
 
 from __future__ import annotations
@@ -19,10 +25,13 @@ import torch
 
 from jcf_tpu_torch import _build
 from jcf_tpu_torch.ops.layers import linear
+from jcf_tpu_torch.ops.quant import int8_linear
 from jcf_tpu_torch.peft.lora import lora_out_adjustment, lora_qkv_adjustment
 
 # launches of this module's kernels (CUDA tensors only)
-LAUNCHES = {"packed_attention": 0, "packed_attention_bwd": 0}
+LAUNCHES = {"packed_attention": 0, "packed_attention_bwd": 0, "blocked_attention": 0}
+# sequences this long or longer take K8, shorter ones K7
+BLOCKED_MIN_SEQ = 128
 
 
 def causal_mask(length: int, device=None) -> torch.Tensor:
@@ -38,11 +47,11 @@ def _heads(qkv: torch.Tensor, n_heads: int):
     return q, k, v, d
 
 
-def _full_bias(qkv: torch.Tensor, bias) -> torch.Tensor:
-    s = qkv.shape[1]
+def _full_bias(s: int, device, bias) -> torch.Tensor:
+    """The additive [s, s] f32 bias on ``device``: zeros when None."""
     if bias is None:
-        return torch.zeros((s, s), dtype=torch.float32, device=qkv.device)
-    return bias.to(qkv.device, torch.float32)
+        return torch.zeros((s, s), dtype=torch.float32, device=device)
+    return bias.to(device, torch.float32)
 
 
 def _probs(q, k, d, bias):
@@ -53,16 +62,23 @@ def _probs(q, k, d, bias):
     return p / p.sum(dim=-1, keepdim=True)
 
 
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias=None) -> torch.Tensor:
+    """K8's function in plain PyTorch (``_attention_xla``): q, k, v
+    [B, H, S, D] (f32 or bf16) and an optional additive [S, S] bias ->
+    [B, H, S, D] in q's dtype. Scores and softmax in f32, p cast to v's
+    dtype for PV with f32 sums."""
+    p = _probs(q.float(), k.float(), q.shape[-1], _full_bias(q.shape[2], q.device, bias))
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
 def packed_attention_plain(qkv: torch.Tensor, n_heads: int, bias=None) -> torch.Tensor:
     """K7's forward in plain PyTorch (``_packed_attention_ref``): qkv
     [B, S, 3E] (f32 or bf16) and an optional additive [S, S] bias ->
     [B, S, E] in qkv's dtype; p is cast to qkv's dtype for PV. Autograd
     through it is the reference of the backward kernel."""
     b, s, e3 = qkv.shape
-    q, k, v, d = _heads(qkv, n_heads)
-    p = _probs(q, k, d, _full_bias(qkv, bias))
-    out = torch.matmul(p.to(qkv.dtype).float(), v)  # [B, H, S, D]
-    return out.to(qkv.dtype).permute(0, 2, 1, 3).reshape(b, s, e3 // 3)
+    q, k, v = qkv.reshape(b, s, 3, n_heads, e3 // 3 // n_heads).permute(2, 0, 3, 1, 4)
+    return attention_plain(q, k, v, bias).permute(0, 2, 1, 3).reshape(b, s, e3 // 3)
 
 
 def packed_attention_bwd_plain(qkv: torch.Tensor, n_heads: int, bias: torch.Tensor,
@@ -76,7 +92,7 @@ def packed_attention_bwd_plain(qkv: torch.Tensor, n_heads: int, bias: torch.Tens
     dt = qkv.dtype
     q, k, v, d = _heads(qkv, n_heads)
     do = dout.float().reshape(b, s, n_heads, d).transpose(1, 2)
-    p = _probs(q, k, d, _full_bias(qkv, bias))
+    p = _probs(q, k, d, _full_bias(s, qkv.device, bias))
     dp = torch.matmul(do, v.transpose(-1, -2)).to(dt).float()
     ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True)) * (1.0 / math.sqrt(d))
     grads = (torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q),
@@ -156,28 +172,78 @@ def packed_attention(qkv: torch.Tensor, n_heads: int, bias=None) -> torch.Tensor
     """[B, S, 3E] packed qkv -> [B, S, E] attention context in qkv's dtype,
     differentiable in qkv. ``bias`` is an optional additive [S, S] mask
     (the text tower's causal mask); zeros when None."""
-    return _PackedAttention.apply(qkv, _full_bias(qkv, bias), n_heads)
+    return _PackedAttention.apply(qkv, _full_bias(qkv.shape[1], qkv.device, bias), n_heads)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias=None) -> torch.Tensor:
+    """K8: ``softmax(q k^T / sqrt(D) + bias) v`` over q, k, v [B, H, S, D]
+    (f32 or bf16, one dtype) with an optional additive f32 [S, S] bias ->
+    [B, H, S, D] in q's dtype. CUDA tensors launch the kernel (D = 64,
+    S <= 768; q, k and v may be any views with one set of strides and a
+    contiguous head dim, and the result is a [B, H, S, D] view of a packed
+    [B, S, H, D] tensor); CPU tensors run ``attention_plain``."""
+    if not q.is_cuda:
+        return attention_plain(q, k, v, bias)
+    if q.dtype not in (torch.float32, torch.bfloat16) or q.dim() != 4:
+        raise ValueError(f"K8 takes f32 or bf16 q [B, H, S, D], got {q.dtype} {tuple(q.shape)}")
+    for t in (k, v):
+        if t.dtype != q.dtype or t.shape != q.shape or t.stride() != q.stride() or t.device != q.device:
+            raise ValueError("K8 takes q, k and v of one dtype, shape, stride and device")
+    if q.shape[-1] != 64 or q.stride(-1) != 1:
+        raise ValueError(f"K8 takes a contiguous head dim of 64, got {q.shape[-1]}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("K8 has no backward (nor has the TPU kernel it replaces)")
+    b, h, s, d = q.shape
+    if bias is not None:
+        if bias.dtype != torch.float32 or tuple(bias.shape) != (s, s) or bias.device != q.device:
+            raise ValueError(f"bias must be f32 ({s}, {s}) on q's device")
+        bias = bias.contiguous()
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    lib = _build.load()
+    err = lib.jcf_blocked_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    bias.data_ptr() if bias is not None else None, out.data_ptr(),
+                                    b, s, h, d, *q.stride()[:3], *out.stride()[:3],
+                                    1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
+                                    _build.stream_ptr(q.device))
+    _build.check(err, "blocked_attention")
+    LAUNCHES["blocked_attention"] += 1
+    return out
 
 
 def multi_head_attention(x: torch.Tensor, params: dict, n_heads: int,
                          mask: torch.Tensor | None = None, *,
-                         lora: dict | None = None) -> torch.Tensor:
+                         lora: dict | None = None, quant: dict | None = None) -> torch.Tensor:
     """Self-attention over batch-first [B, S, E] with the packed CLIP
-    in-projection ``w_qkv [3E, E]`` / ``b_qkv [3E]``, through K7.
+    in-projection ``w_qkv [3E, E]`` / ``b_qkv [3E]``: through K7 below 128
+    tokens, K8 from 128 on.
 
     lora: this layer's decomposed LoRA context, ``{"layer": {a_qkv, b_qkv
     [, a_out, b_out]}, "gate", "proj_mask", "spec", "generator"}`` (the
-    training path; for inference merge the factors instead)."""
+    training path; for inference merge the factors instead). K8 has no
+    backward, so it takes no LoRA context.
+    quant: this layer's unfolded int8 leaves ``{"w_qkv", "w_out"}``
+    (``QuantizedLinear``, ``quantize_clip_params(fold=False)``): both
+    projections become dynamic per-row int8 linears."""
     b, s, e = x.shape
-    if s >= 128:
-        raise NotImplementedError("sequences of 128 or more take K8 (_attn_kernel_blocked), "
-                                  "which is not ported")
-    qkv = linear(x, params["w_qkv"], params["b_qkv"])
+    if s >= BLOCKED_MIN_SEQ and lora is not None:
+        raise NotImplementedError("training at 128 tokens or more needs a backward of K8, "
+                                  "which the JAX package does not have either")
+    if quant is not None:
+        qkv = int8_linear(x, quant["w_qkv"])
+    else:
+        qkv = linear(x, params["w_qkv"], params["b_qkv"])
     if lora is not None:
         qkv = qkv + lora_qkv_adjustment(x, lora["layer"], lora["spec"], lora["gate"],
                                         lora["proj_mask"], lora["generator"])
-    out = packed_attention(qkv, n_heads, mask)
-    y = linear(out, params["w_out"], params["b_out"])
+    if s < BLOCKED_MIN_SEQ:
+        out = packed_attention(qkv, n_heads, mask)
+    else:
+        q, k, v = qkv.reshape(b, s, 3, n_heads, e // n_heads).permute(2, 0, 3, 1, 4)
+        out = fused_attention(q, k, v, mask).transpose(1, 2).reshape(b, s, e)
+    if quant is not None:
+        y = int8_linear(out, quant["w_out"])
+    else:
+        y = linear(out, params["w_out"], params["b_out"])
     if lora is not None and "a_out" in lora["layer"]:
         y = y + lora_out_adjustment(out, lora["layer"], lora["spec"], lora["gate"],
                                     lora["generator"])

@@ -9,7 +9,9 @@
   residual add in f32 (out-proj, c_proj);
 - ``int8_gemm_gelu_quant``: ``int8(round(h * (0.5 + 0.5 tanh(c h))))``,
   ``h = acc * scale + bias`` (c_fc with the static hidden scale folded,
-  ``jcf_tpu`` ``_gelu_quant_static``).
+  ``jcf_tpu`` ``_gelu_quant_static``);
+- ``int8_gemm_rowscale``: ``bf16((acc * row_scale[m]) * scale[n] +
+  bias[n])`` (the dynamic per-row int8 linear, ``ops.quant.int8_linear``).
 
 Each wrapper launches the CUDA kernel for CUDA tensors and runs its plain
 version for CPU tensors. The plain product runs in float64, which holds
@@ -22,7 +24,7 @@ import torch
 
 from jcf_tpu_torch import _build
 
-_EPILOGUES = {"s32": 0, "bf16": 1, "residual": 2, "gelu_quant": 3}
+_EPILOGUES = {"s32": 0, "bf16": 1, "residual": 2, "gelu_quant": 3, "rowscale": 4}
 # launches of the GEMM kernel, by epilogue
 LAUNCHES = {f"int8_gemm_{e}": 0 for e in _EPILOGUES}
 
@@ -36,6 +38,11 @@ def dequant_plain(acc, scale, bias):
     return acc.float() * scale + bias
 
 
+def rowscale_plain(acc, row_scale, scale, bias):
+    """``(acc * row_scale[m]) * scale[n] + bias[n]`` in f32, in that order."""
+    return (acc.float() * row_scale[:, None]) * scale + bias
+
+
 def gelu_quant_plain(h, c):
     """QuickGELU in tanh form on values already in the quantized domain,
     then round-half-even and saturate to int8."""
@@ -43,7 +50,8 @@ def gelu_quant_plain(h, c):
     return torch.clamp(torch.round(g), -127, 127).to(torch.int8)
 
 
-def _launch(epilogue, a, w, out_dtype, *, scale=None, bias=None, resid=None, gelu_c=None):
+def _launch(epilogue, a, w, out_dtype, *, scale=None, bias=None, resid=None, gelu_c=None,
+            row_scale=None):
     m, k = a.shape
     n = w.shape[0]
     if a.dtype != torch.int8 or w.dtype != torch.int8 or w.shape[1] != k:
@@ -55,7 +63,8 @@ def _launch(epilogue, a, w, out_dtype, *, scale=None, bias=None, resid=None, gel
     for name, t, dt, shape in (("scale", scale, torch.float32, (n,)),
                                ("bias", bias, torch.float32, (n,)),
                                ("resid", resid, torch.bfloat16, (m, n)),
-                               ("gelu_c", gelu_c, torch.float32, None)):
+                               ("gelu_c", gelu_c, torch.float32, None),
+                               ("row_scale", row_scale, torch.float32, (m,))):
         if t is None:
             continue
         if t.dtype != dt or t.device != a.device or (shape and tuple(t.shape) != shape):
@@ -67,7 +76,7 @@ def _launch(epilogue, a, w, out_dtype, *, scale=None, bias=None, resid=None, gel
     lib = _build.load()
     err = lib.jcf_int8_gemm(
         a.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, _EPILOGUES[epilogue],
-        *(t.data_ptr() if t is not None else None for t in (scale, bias, resid, gelu_c)),
+        *(t.data_ptr() if t is not None else None for t in (scale, bias, resid, gelu_c, row_scale)),
         _build.stream_ptr(a.device),
     )
     _build.check(err, f"int8_gemm_{epilogue}")
@@ -98,3 +107,14 @@ def int8_gemm_gelu_quant(a, w, scale, bias, gelu_c):
     if not a.is_cuda:
         return gelu_quant_plain(dequant_plain(int8_matmul_plain(a, w), scale, bias), gelu_c)
     return _launch("gelu_quant", a, w, torch.int8, scale=scale, bias=bias, gelu_c=gelu_c)
+
+
+def int8_gemm_rowscale(a, w, row_scale, scale, bias, out_dtype=torch.bfloat16):
+    """[M, K] int8 rows with their f32 scales [M] times w [N, K] with its
+    [N] scales and bias -> [M, N] in ``out_dtype``. The kernel gives bf16
+    only; the plain version rounds its f32 result to ``out_dtype``."""
+    if not a.is_cuda:
+        return rowscale_plain(int8_matmul_plain(a, w), row_scale, scale, bias).to(out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise ValueError(f"the row-scale epilogue writes bf16, not {out_dtype}")
+    return _launch("rowscale", a, w, torch.bfloat16, scale=scale, bias=bias, row_scale=row_scale)

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from jcf_tpu_torch.ops.quant import int8_linear
+
 LN_EPS = 1e-5
 # QuickGELU x * sigmoid(1.702 x) == x * (0.5 + 0.5 tanh(0.851 x)), the
 # form the reference kernels use
@@ -51,8 +53,12 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
     return y
 
 
-def mlp(x: torch.Tensor, params: dict) -> torch.Tensor:
-    """CLIP MLP block: c_fc (d -> 4d) -> QuickGELU -> c_proj (4d -> d)."""
+def mlp(x: torch.Tensor, params: dict, quant: dict | None = None) -> torch.Tensor:
+    """CLIP MLP block: c_fc (d -> 4d) -> QuickGELU -> c_proj (4d -> d).
+    ``quant``: the layer's unfolded int8 ``{"c_fc", "c_proj"}`` leaves;
+    both products then run as dynamic per-row int8 linears."""
+    if quant is not None:
+        return int8_linear(quick_gelu(int8_linear(x, quant["c_fc"])), quant["c_proj"])
     h = quick_gelu(linear(x, params["c_fc"]["w"], params["c_fc"]["b"]))
     return linear(h, params["c_proj"]["w"], params["c_proj"]["b"])
 

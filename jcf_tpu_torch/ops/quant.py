@@ -1,13 +1,19 @@
-"""Int8 W8A8 weight quantization (``jcf_tpu/ops/quant.py``) in PyTorch.
+"""Int8 W8A8 quantization (``jcf_tpu/ops/quant.py``) in PyTorch.
 
-Weights: static per-output-channel symmetric int8 from |W|max. The one
-ported route is the serving one (``fold=True``, static mode "full" in
-the JAX package): the LayerNorm affine folds into the following
-projection and 1/sqrt(d) into the q third of ``w_qkv``, and the calibrated
-post-LN, attention-context and post-GELU activation quantizations become
-static per-layer scales folded into the weight dequant scales. Same
-formulas, margins and op order as the JAX package, so the int8 weights
-are equal and the f32 scales agree to rounding.
+Weights: static per-output-channel symmetric int8 from |W|max. Two trees:
+
+- folded (``fold=True``, static mode "full" in the JAX package), the
+  fused tower's below 128 tokens: the LayerNorm affine folds into the
+  following projection and 1/sqrt(d) into the q third of ``w_qkv``, and
+  the calibrated post-LN, attention-context and post-GELU activation
+  quantizations become static per-layer scales folded into the weight
+  dequant scales;
+- unfolded (``fold=False``), the composable tower's from 128 tokens on:
+  each projection's weight and bias as they are, for ``int8_linear``,
+  which quantizes its input rows dynamically.
+
+Same formulas, margins and op order as the JAX package, so the int8
+weights are equal and the f32 scales agree to rounding (bitwise unfolded).
 """
 
 from __future__ import annotations
@@ -16,10 +22,19 @@ from typing import NamedTuple
 
 import torch
 
+from jcf_tpu_torch.ops.int8_gemm import int8_gemm_rowscale
+
 # margins on the calibrated amax: the z-scored LN inputs, and the static
 # ctx / hidden scales, whose per-row amax varies more
 LN_MARGIN = 1.05
 STATIC_MARGIN = 1.10
+
+
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as an IEEE division on every device, as the JAX package
+    divides: on CUDA, PyTorch multiplies by the reciprocal of a Python
+    scalar divisor, which rounds differently now and then."""
+    return x / x.new_tensor(c)
 
 
 class QuantizedLinear(NamedTuple):
@@ -31,21 +46,57 @@ class QuantizedLinear(NamedTuple):
 def quantize_weight(weight: torch.Tensor, bias: torch.Tensor | None = None) -> QuantizedLinear:
     """[..., out, in] float weight -> per-channel symmetric int8."""
     w = weight.float()
-    scale = torch.clamp_min(w.abs().amax(dim=-1) / 127.0, 1e-8)
+    scale = torch.clamp_min(true_div(w.abs().amax(dim=-1), 127.0), 1e-8)
     w_int8 = torch.clamp(torch.round(w / scale[..., None]), -127, 127).to(torch.int8)
     return QuantizedLinear(w_int8, scale, bias)
 
 
-def quantize_clip_params(params: dict, *, heads: dict, act_scales: dict) -> dict:
+def quantize_rows(x: torch.Tensor):
+    """Dynamic per-row symmetric int8 (``int8_linear``'s activation side):
+    x [M, K] -> (int8 [M, K], f32 scales [M]) with
+    ``scale = max(max|x| / 127, 1e-8)`` and ``round_half_even(x / scale)``
+    (a true division) clipped to +-127, in f32. x is not copied to f32
+    first: max|x| is exact in x's dtype, and the division promotes to f32."""
+    amax = torch.linalg.vector_norm(x, float("inf"), dim=-1).float()
+    x_scale = torch.clamp_min(true_div(amax, 127.0), 1e-8)
+    q = torch.div(x, x_scale[:, None]).round_().clamp_(-127, 127)
+    return q.to(torch.int8), x_scale
+
+
+def int8_linear(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
+    """Dynamic per-row activation quantization and an s8 x s8 -> s32
+    product, then ``(acc * x_scale) * w_scale + bias`` in f32, cast to
+    x's dtype: x [..., in] -> [..., out]. The product and epilogue are
+    ``ops.int8_gemm.int8_gemm_rowscale`` (bf16 out on the card)."""
+    x_q, x_scale = quantize_rows(x.reshape(-1, x.shape[-1]))
+    y = int8_gemm_rowscale(x_q, q.w_int8, x_scale, q.w_scale, q.bias.float(), out_dtype=x.dtype)
+    return y.reshape(*x.shape[:-1], -1)
+
+
+def quantize_clip_params(params: dict, *, fold: bool = True, heads: dict | None = None,
+                         act_scales: dict | None = None) -> dict:
     """Quantize the vision tower's block matmuls -> ``{"visual": tree}``.
 
-    ``act_scales={"visual": amax [L, 4]}`` is the calibrated amax of the
-    LN-1, LN-2, attention-context and post-GELU activations per layer
-    (``models.clip.vision_ln_z_amax``). The other quantization modes of the
-    JAX package are not ported (ROADMAP.md).
+    ``fold=True``: the folded static tree of the fused tower.
+    ``heads={"visual": H}`` and ``act_scales={"visual": amax [L, 4]}``, the
+    calibrated amax of the LN-1, LN-2, attention-context and post-GELU
+    activations per layer (``models.clip.vision_ln_z_amax``), are required.
+    ``fold=False``: the unfolded tree of the composable tower
+    (``{"attn": {"w_qkv", "w_out"}, "mlp": {"c_fc", "c_proj"}}`` of
+    ``QuantizedLinear``); neither argument is read. The static modes "ln"
+    and "hidden" and the text tower's trees of the JAX package are not
+    ported (ROADMAP.md).
     """
-    act = act_scales["visual"]
     blocks = params["visual"]["blocks"]
+    if not fold:
+        q = quantize_weight
+        return {"visual": {
+            "attn": {"w_qkv": q(blocks["attn"]["w_qkv"], blocks["attn"]["b_qkv"]),
+                     "w_out": q(blocks["attn"]["w_out"], blocks["attn"]["b_out"])},
+            "mlp": {"c_fc": q(blocks["mlp"]["c_fc"]["w"], blocks["mlp"]["c_fc"]["b"]),
+                    "c_proj": q(blocks["mlp"]["c_proj"]["w"], blocks["mlp"]["c_proj"]["b"])},
+        }}
+    act = act_scales["visual"]
     n_heads = heads["visual"]
 
     w_qkv = blocks["attn"]["w_qkv"].float()  # [L, 3E, E]

@@ -276,3 +276,85 @@ def test_launch_counters(cuda):
     bk.ln_quant(x, torch.ones(1, device=cuda))
     bk.ln_quant(x.cpu(), torch.ones(1))  # the plain version: not a launch
     assert bk.LAUNCHES["ln_quant"] == n + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [12, 16])
+@pytest.mark.parametrize("s,causal", [(50, True), (145, False), (197, False), (257, False),
+                                      (577, False)])
+def test_blocked_attention_kernel(cuda, dtype, h, s, causal):
+    """K8 vs ``attention_plain`` on head views of a packed qkv (the layout
+    the tower gives it, unit-scale entries as a LayerNorm'd row through a
+    unit-variance projection gives): f32 within 1e-5 (+ 1e-5 relative),
+    bf16 within 1 bf16 ulp + 1e-3. (On peakier rows a p that rounds to
+    bf16 on the other side of a tie moves the output by an ulp of p times
+    |v|, which can exceed an ulp of a small output.)"""
+    g = torch.Generator(device=cuda).manual_seed(s + h)
+    b, e = 3, h * 64
+    qkv = torch.randn(b, s, 3 * e, device=cuda, generator=g).to(dtype)
+    q, k, v = qkv.reshape(b, s, 3, h, 64).permute(2, 0, 3, 1, 4)
+    bias = at.causal_mask(s, cuda) if causal else None
+    got = at.fused_attention(q, k, v, bias)
+    assert got.dtype == dtype and got.shape == (b, h, s, 64)
+    close = _f32_close if dtype == torch.float32 else _bf16_close
+    close(got.float(), at.attention_plain(q, k, v, bias).float())
+
+
+def test_blocked_attention_refuses_over_its_limit(cuda):
+    """S = 1024: the score tile is over the card's shared memory. The C
+    entry refuses, nothing launches, and the next launch runs."""
+    before = at.LAUNCHES["blocked_attention"]
+    q = torch.zeros(1, 2, 1024, 64, device=cuda)
+    with pytest.raises(RuntimeError):
+        at.fused_attention(q, q, q)
+    assert at.LAUNCHES["blocked_attention"] == before
+    q = torch.randn(1, 2, 197, 64, device=cuda)
+    _f32_close(at.fused_attention(q, q, q), at.attention_plain(q, q, q))
+    assert at.LAUNCHES["blocked_attention"] == before + 1
+    with pytest.raises(ValueError):  # head dim 32: the kernel takes 64
+        at.fused_attention(*(torch.zeros(1, 2, 200, 32, device=cuda),) * 3)
+
+
+@pytest.mark.parametrize("m,n,k", [(200, 72, 96), (197 * 3, 2304, 768), (77, 768, 3072)])
+def test_int8_gemm_rowscale(cuda, m, n, k):
+    g = torch.Generator(device=cuda).manual_seed(m + n + k)
+    a = torch.randint(-127, 128, (m, k), device=cuda, generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), device=cuda, generator=g, dtype=torch.int8)
+    row_scale = torch.rand(m, device=cuda, generator=g) * 0.05
+    scale = torch.rand(n, device=cuda, generator=g) * 2e-4
+    bias = torch.randn(n, device=cuda, generator=g) * 0.1
+    _bf16_close(ig.int8_gemm_rowscale(a, w, row_scale, scale, bias),
+                ig.rowscale_plain(ig.int8_matmul_plain(a, w), row_scale, scale, bias).bfloat16())
+
+
+def test_b16_int8_engine_launches_and_matches_plain(cuda):
+    """A 2-layer ViT-B/16 int8 engine (full width, 197 tokens) at 2 images
+    x 4 views: one K1, one s32 patch GEMM, 2 K8 and 8 row-scale GEMMs, no
+    other kernel; its modes match the same engine's plain versions on the
+    CPU (min cos >= 0.999)."""
+    from jcf_tpu_torch.infer.engine import TTAEngine
+    from jcf_tpu_torch.ops.quant import quantize_rows
+
+    cfg = CLIPConfig(vision_patch_size=16, vision_layers=2)
+    params = init_clip_params(0, cfg)
+    gen = torch.Generator().manual_seed(0)
+    images = torch.rand(2, 3, 256, 256, generator=gen).bfloat16()
+    text = torch.nn.functional.normalize(torch.randn(10, 512, generator=gen), dim=-1)
+    cpu = TTAEngine(params, cfg, device="cpu", n_views=3)
+    geometry = cpu.sample_geometry(gen, 2, (256, 256))
+    counters = [vk.LAUNCHES, ig.LAUNCHES, ak.LAUNCHES, bk.LAUNCHES, bg.LAUNCHES, at.LAUNCHES]
+    for c in counters:
+        c.update(dict.fromkeys(c, 0))
+    got = TTAEngine(params, cfg, device=cuda, n_views=3).features_from_images(
+        images.to(cuda), text.to(cuda), geometry=tuple(t.to(cuda) for t in geometry))
+    torch.cuda.synchronize()
+    launches = {k: v for c in counters for k, v in c.items() if v}
+    assert launches == {"view": 1, "int8_gemm_s32": 1, "blocked_attention": 2,
+                        "int8_gemm_rowscale": 8}, launches
+    ref = cpu.features_from_images(images, text, geometry=geometry)
+    cos = torch.nn.functional.cosine_similarity(got.cpu(), ref)
+    assert float(cos.min()) >= 0.999
+    # the row quantization is plain PyTorch on both devices: equal rows
+    x = torch.randn(50, 768, generator=gen)
+    for dev_out, cpu_out in zip(quantize_rows(x.to(cuda)), quantize_rows(x)):
+        assert torch.equal(dev_out.cpu(), cpu_out)

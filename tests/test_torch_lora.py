@@ -138,7 +138,7 @@ def test_k7_plain_backward_matches_autograd(dtype, causal):
     bias = tattn.causal_mask(s) if causal else None
     dout = torch.randn(4, s, heads * 32, generator=torch.Generator().manual_seed(1)).to(dtype)
     ref, = torch.autograd.grad(tattn.packed_attention_plain(x, heads, bias), x, dout)
-    got = tattn.packed_attention_bwd_plain(x.detach(), heads, tattn._full_bias(x, bias), dout)
+    got = tattn.packed_attention_bwd_plain(x.detach(), heads, tattn._full_bias(s, x.device, bias), dout)
     assert got.dtype == dtype and got.shape == x.shape
     g, r = got.float(), ref.float()
     tol = 1e-6 if dtype == torch.float32 else 2.0**-8 * g.abs().maximum(r.abs()) + 1e-3
@@ -164,11 +164,13 @@ def test_k7_bias_is_additive_and_causal_mask_masks():
 
 
 def test_multi_head_attention_refuses_k8_lengths():
+    """K8 (128 tokens or more) has no backward: a LoRA training context
+    there is refused."""
     x = torch.zeros(1, 128, 64)
     p = {"w_qkv": torch.zeros(192, 64), "b_qkv": torch.zeros(192),
          "w_out": torch.zeros(64, 64), "b_out": torch.zeros(64)}
     with pytest.raises(NotImplementedError):
-        tattn.multi_head_attention(x, p, 2)
+        tattn.multi_head_attention(x, p, 2, lora={"layer": {}})
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,9 @@ folded static-"full" tower with its last layer through K5,
 crop geometry and classifier. Modes agree to cos >= 0.999 and the top-1
 class of the logits is equal.
 
-Also: the port (engine, tokenizer, classifier build) imports and runs
-with ``jax``, ``jcf_tpu`` and ``regex`` blocked."""
+Also: the port (engine, tokenizer, classifier build, and a ViT-B/16-class
+engine of 145 tokens built through the checkpoint loader) imports and
+runs with ``jax``, ``jcf_tpu`` and ``regex`` blocked."""
 
 import os
 import pathlib
@@ -155,6 +156,18 @@ eng = TTAEngine(params, cfg, device="cpu", n_views=2, calibration_images=imgs)
 modes = eng.features_from_images(torch.from_numpy(imgs).bfloat16(), text,
                                  generator=torch.Generator().manual_seed(0))
 assert modes.shape == (2, 32) and bool(modes.isfinite().all())
+from jcf_tpu_torch.models import loader
+cfg16 = CLIPConfig(embed_dim=32, image_resolution=96, vision_layers=1, vision_width=128,
+                   vision_patch_size=8, context_length=77, text_width=64, text_heads=1,
+                   text_layers=1)
+sd = loader.state_dict_from_params(init_clip_params(1, cfg16), cfg16)
+cfg_sd = loader.config_from_state_dict(sd)
+assert cfg_sd == cfg16 and cfg_sd.vision_seq_len == 145
+eng16 = TTAEngine(loader.params_from_state_dict(sd, cfg_sd), cfg_sd, device="cpu", n_views=2)
+imgs16 = np.random.default_rng(1).random((2, 3, 104, 104)).astype(np.float32)
+modes16 = eng16.features_from_images(torch.from_numpy(imgs16).bfloat16(), text,
+                                     generator=torch.Generator().manual_seed(0))
+assert modes16.shape == (2, 32) and bool(modes16.isfinite().all())
 loaded = {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
 assert not loaded & {"jax", "jcf_tpu", "regex"}, loaded
 print("ok")
