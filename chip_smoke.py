@@ -48,7 +48,19 @@
    0.999 gated; the top-1 agreement printed with what bounds it on random
    weights: the logit margins, the same tower in bf16 without int8, and 8
    more random classifiers), times img/s and profiles one forward by
-   kernel group.
+   kernel group;
+9. (after 6b) the whole-layer routes on the ViT-B/32 engine of phase 6,
+   its images, geometry and classifier: for ``_FUSE`` = "block" (K9a),
+   "layer" (K9d) and "stream" (K9c) it counts one forward (11 K9a or 11
+   K9d and the CLS-only last layer, or one K9c; no K3 attention), holds
+   the kernel against its plain version on that forward's tower input
+   (the whole tower for K9c), the CLS rows against the halves route's,
+   certifies the modes against phase 7's f32 modes (top-1 >= 0.98, top-5
+   >= 0.95, ``bench.py``'s gates for knob configurations), times the
+   kernel, the plain version and the halves route per layer, and img/s;
+   then builds the classifier under "block" (84 K9b launches, nothing
+   else), holds it against the halves-built one and K9b against its
+   plain version at 512 x 77. ``_FUSE`` is set back to "halves" after.
 
 Every weight and input is made from seed 0 (the LoRA factors from seed
 1, as ``scripts/bench_train.py``). Exits nonzero, without the
@@ -132,6 +144,15 @@ KERNELS = {
                           "jcf_tpu/ops/attention.py:89"),
     "int8_gemm_rowscale": ("serving_b16", "jcf_tpu_torch/csrc/int8_gemm.cu",
                            "jcf_tpu/ops/quant.py:41"),
+    # the whole-layer routes (_FUSE), phase 9
+    "block_int8": ("serving_block", "jcf_tpu_torch/csrc/fused_layer.cu",
+                   "jcf_tpu/ops/block_kernel.py:732"),
+    "layer_fused_int8": ("serving_layer", "jcf_tpu_torch/csrc/fused_layer.cu",
+                         "jcf_tpu/ops/block_kernel.py:1672"),
+    "stream_tower_int8": ("serving_stream", "jcf_tpu_torch/csrc/fused_layer.cu",
+                          "jcf_tpu/ops/block_kernel.py:833"),
+    "block_bf16": ("classifier_block", "jcf_tpu_torch/csrc/fused_layer.cu",
+                   "jcf_tpu/ops/block_kernel.py:948"),
 }
 
 
@@ -281,15 +302,15 @@ class Phase:
     def __init__(self):
         self.results = {}
 
-    def run(self, name, kern, plain, check, work, library=None):
+    def run(self, name, kern, plain, check, work, library=None, reps=10):
         out = kern()
         ref = plain()
         import torch
 
         torch.cuda.synchronize()
-        r = {"max_abs_err": check(name, out, ref), "ms": time_ms(kern),
-             "plain_ms": time_ms(plain), **work,
-             "library_ms": time_ms(library) if library is not None else None}
+        r = {"max_abs_err": check(name, out, ref), "ms": time_ms(kern, reps),
+             "plain_ms": time_ms(plain, reps), **work,
+             "library_ms": time_ms(library, reps) if library is not None else None}
         self.results[name] = r
         lib = "none" if library is None else f"{r['library_ms']:.3f} ms"
         log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library {lib}, "
@@ -1106,6 +1127,220 @@ def serving_b16_phase(dev, counters, smi, text):
     return launches, ph.results
 
 
+FUSED_ITERS = 3  # timed forwards of each whole-layer route
+
+
+def check_layer(name, got, ref, elementwise=True):
+    """Whole-layer and whole-tower kernels vs their plain versions: min row
+    cos >= 0.999, the composed-tower bar, and for one layer also |diff| <=
+    0.05 + 0.05 |ref| (int8 values flip at ties where sums run in another
+    order; over a whole tower the flips compound, so it has the cosine
+    bar only); the elements over the bf16 bar (1 ulp + 1e-3) are printed,
+    not gated."""
+    g, r = got.float(), ref.float()
+    d = (g - r).abs()
+    cos = float(cosine_rows(g, r).min())
+    close = bool((d <= 0.05 + 0.05 * r.abs()).all()) or not elementwise
+    over = int((d > 2.0**-7 * g.abs().maximum(r.abs()) + 1e-3).sum())
+    tol = "cos >= 0.999, |diff| <= 0.05 + 0.05 |ref|" if elementwise else "cos >= 0.999"
+    log(f"  {name}: min row cos {cos:.6f}, max |diff| {float(d.max()):.3e}, {over} of {d.numel()} "
+        f"elements over 1 bf16 ulp + 1e-3 (tol: {tol})")
+    if cos < 0.999 or not close or not bool(g.isfinite().all()):
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return float(d.max())
+
+
+def layer_work(rows, e, hidden, heads, pairs, n_bytes, peak, n_layers=1):
+    """The bound of ``n_layers`` whole layers on ``rows`` rows: the
+    products' E (4E + 2 hidden) multiply-adds per row at ``peak``, the
+    attention's QK^T and PV over ``pairs`` (query, key) pairs per head of
+    all sequences in bf16, and ``n_bytes`` moved."""
+    d = e // heads
+    t_ops = n_layers * (2.0 * rows * e * (4 * e + 2 * hidden) / peak
+                        + 4.0 * heads * pairs * d / PEAK_BF16) * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def fused_serving_phase(engine, images, geometry, text, modes_halves, modes_f, counters, smi, dev):
+    """Phase 9, serving: the int8 ViT-B/32 engine of phase 6 under
+    ``_FUSE`` = "block" (K9a), "layer" (K9d) and "stream" (K9c) -> (launches
+    of one counted forward per route, per-kernel results)."""
+    import torch
+
+    from jcf_tpu_torch.ops import block_kernel as bk
+    from jcf_tpu_torch.ops.layers import layer_slice
+
+    cfg = engine.cfg
+    s, heads, n_layers, e = cfg.vision_seq_len, cfg.vision_heads, cfg.vision_layers, cfg.vision_width
+    quant = engine._quant
+    layer0 = layer_slice(quant, 0)
+    hidden = quant["mlp"]["c_fc"].w_int8.shape[-2]
+    w_bytes = sum(nbytes(*q) for q in (layer0["attn"]["w_qkv"], layer0["attn"]["w_out"],
+                                        layer0["mlp"]["c_fc"], layer0["mlp"]["c_proj"]))
+    base = {"view": 1, "int8_gemm_s32": 1, "assemble": 1}
+    # the CLS-only last layer: K5 (LN + quant, K/V and Q GEMMs, CLS
+    # attention, out-proj) and K4 on the CLS rows
+    cls_layer = {"ln_quant": 2, "int8_gemm_bf16": 2, "cls_attention": 1, "int8_gemm_residual": 2,
+                 "int8_gemm_gelu_quant": 1}
+    ph = Phase()
+    launches, halves_ms = {}, None
+    for fuse, name in (("block", "block_int8"), ("layer", "layer_fused_int8"),
+                       ("stream", "stream_tower_int8")):
+        bk._FUSE = fuse
+        log(f"phase 9, _FUSE = {fuse!r}: ViT-B/32 int8 serving, b{BATCH} x {VIEWS} views")
+        calls = []
+        torch.cuda.synchronize()
+        for c in counters:
+            c.update(dict.fromkeys(c, 0))
+        with recorded(bk, name, calls, 1):
+            modes = engine.features_from_images(images, text, geometry=geometry)
+        torch.cuda.synchronize()
+        launches[fuse] = {k: v for c in counters for k, v in c.items()}
+        log(f"  launches: {launches[fuse]}")
+        expected = {**base, name: 1} if fuse == "stream" else {**base, **cls_layer, name: n_layers - 1}
+        if {k: v for k, v in launches[fuse].items() if v} != expected:
+            raise AssertionError(f"expected exactly the launches {expected}")
+        check_modes(modes, BATCH, cfg.embed_dim)
+
+        # the kernel against its plain version on the tower's input rows
+        # (layer 0's), the whole tower for K9c
+        rows = calls[0][0]
+        n_rows = rows.shape[0]
+        pairs = n_rows // s * s * s
+        if fuse == "stream":
+            tower = ph.run(name, lambda: bk.stream_tower_int8(rows, quant, heads, s=s),
+                           lambda: bk.stream_tower_int8_plain(rows, quant, heads, s=s),
+                           lambda n, g, r: check_layer(n, g, r, elementwise=False),
+                           layer_work(n_rows, e, hidden, heads, pairs,
+                                      2 * nbytes(rows) + n_layers * w_bytes, PEAK_INT8, n_layers),
+                           reps=2)
+            # K9c's layer loop against K9d launched layer by layer at the
+            # same chunk count: one device body, so equal bit for bit
+            nsplit, bk._LAYER_NSPLIT = bk._LAYER_NSPLIT, bk._MLP_NSPLIT
+            try:
+                chain = rows
+                for i in range(n_layers):
+                    chain = bk.layer_fused_int8(chain, layer_slice(quant, i), s, heads)
+            finally:
+                bk._LAYER_NSPLIT = nsplit
+            same = torch.equal(chain, tower)
+            log(f"  stream_tower_int8 vs {n_layers} layer_fused_int8 launches at "
+                f"{bk._MLP_NSPLIT} chunk(s): {'equal' if same else 'NOT equal'} (tol: bit for bit)")
+            if not same:
+                raise AssertionError("K9c's layer loop disagrees with K9d layer by layer")
+            del tower, chain
+        else:
+            kern, plain = getattr(bk, name), getattr(bk, f"{name}_plain")
+            ph.run(name, lambda: kern(rows, layer0, s, heads), lambda: plain(rows, layer0, s, heads),
+                   check_layer,
+                   layer_work(n_rows, e, hidden, heads, pairs, 2 * nbytes(rows) + w_bytes,
+                              PEAK_INT8), reps=5)
+        if halves_ms is None:
+            halves_ms = time_ms(lambda: bk._halves_int8(rows, layer0, s, heads))
+        per_layer = ph.results[name]["ms"] / (n_layers if fuse == "stream" else 1)
+        log(f"  {name}: {per_layer:.3f} ms per layer; the halves route (K3 + K4, 7 launches) "
+            f"{halves_ms:.3f} ms per layer on the same rows")
+
+        # the CLS rows against the halves route's on the same rows; the
+        # modes against phase 6's halves modes and phase 7's f32 modes
+        cls = bk.run_fused_tower(rows, quant, heads, flat_s=s)
+        bk._FUSE = "halves"
+        cls_h = bk.run_fused_tower(rows, quant, heads, flat_s=s)
+        bk._FUSE = fuse
+        cos_cls = float(cosine_rows(cls, cls_h).min())
+        top1_h, overlap_h, cos_h = agreement(modes, modes_halves, text)
+        top1, overlap, cos = agreement(modes, modes_f, text)
+        log(f"  CLS rows vs the halves route's: min row cos {cos_cls:.6f} (tol 0.999); modes vs "
+            f"the halves modes: top1_agree {top1_h:.4f} top5_overlap {overlap_h:.4f} mode_cos "
+            f"{cos_h:.6f}")
+        log(f"  cert int8 ({fuse}) vs f32: top1_agree {top1:.4f} top5_overlap {overlap:.4f} "
+            f"mode_cos {cos:.6f} (gates: >= 0.98, >= 0.95)")
+        if cos_cls < 0.999:
+            raise AssertionError(f"_FUSE = {fuse!r}: the CLS rows disagree with the halves route")
+        if top1 < 0.98 or overlap < 0.95:
+            raise AssertionError(f"_FUSE = {fuse!r} fails the ranking certificate")
+
+        gen = torch.Generator(device=dev).manual_seed(2)
+        engine.features_from_images(images, text, generator=gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FUSED_ITERS):
+            out = engine.features_from_images(images, text, generator=gen)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        log(f"  _FUSE = {fuse!r} throughput: {BATCH * FUSED_ITERS / elapsed:.2f} img/s "
+            f"({elapsed / FUSED_ITERS * 1e3:.2f} ms/iter, {FUSED_ITERS} iters) on {smi}")
+        if not bool(out.isfinite().all()):
+            raise AssertionError(f"non-finite modes in the timed _FUSE = {fuse!r} run")
+        del calls, rows, cls, cls_h, out
+        torch.cuda.empty_cache()
+    return launches, ph.results
+
+
+def fused_classifier_phase(params, cfg, dev, counters, built):
+    """Phase 9, classifier: ``build_text_weights`` under ``_FUSE`` =
+    "block" (K9b on every layer) against the halves-built classifier, and
+    K9b against its plain version at 512 prompts x 77 -> (launches,
+    results)."""
+    import torch
+
+    from jcf_tpu_torch.config import DataConfig, PipelineConfig, RuntimeConfig
+    from jcf_tpu_torch.models.clip import tree_to
+    from jcf_tpu_torch.ops import block_kernel as bk
+    from jcf_tpu_torch.ops.attention import causal_mask
+    from jcf_tpu_torch.ops.layers import layer_slice
+    from jcf_tpu_torch.pipelines.common import build_text_weights, ensure_templates
+    from jcf_tpu_torch.tokenizer import tokenize
+
+    bf = torch.bfloat16
+    text = tree_to(params["text"], dev)
+    bk._FUSE = "block"
+    log("phase 9, _FUSE = 'block': the classifier build (K9b)")
+    with tempfile.TemporaryDirectory() as tmp:
+        synthetic_classes(os.path.join(tmp, "classes.txt"))
+        pc = PipelineConfig(DataConfig(os.path.join(tmp, "classes.txt"), os.path.join(tmp, "tpl"), ""),
+                            RuntimeConfig("bfloat16", os.path.join(tmp, "cache")))
+        templates = ensure_templates(pc)
+        prompts = [p for c in sorted(templates) for p in templates[c]]
+        ids = torch.from_numpy(tokenize(prompts[:TEXT_BATCH], truncate=True)).to(dev).long()
+        torch.cuda.synchronize()
+        for c in counters:
+            c.update(dict.fromkeys(c, 0))
+        t0 = time.perf_counter()
+        built_k = build_text_weights({"text": text}, cfg, templates, pc, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    launches = {k: v for c in counters for k, v in c.items()}
+    log(f"  classifier built in {build_s:.2f} s (cache miss); launches: {launches}")
+    n_batches = -(-len(prompts) // TEXT_BATCH)
+    expected = {"block_bf16": n_batches * cfg.text_layers}
+    if {k: v for k, v in launches.items() if v} != expected:
+        raise AssertionError(f"expected exactly the launches {expected}")
+    cos_w = float(cosine_rows(built_k, built).min())
+    log(f"  classifier vs the halves-built one: min row cos {cos_w:.6f} (tol 0.999)")
+    if cos_w < 0.999 or not bool(built_k.float().isfinite().all()):
+        raise AssertionError("the K9b-built classifier disagrees with the halves-built one")
+
+    b, s = ids.shape
+    heads, e = cfg.text_heads, cfg.text_width
+    x = (text["token_embedding"][ids].to(bf) + text["positional_embedding"].to(bf)).reshape(b * s, -1)
+    layer = layer_slice(text["blocks"], 0)
+    hidden = layer["mlp"]["c_fc"]["w"].shape[0]
+    bias = causal_mask(s, dev)
+    # bf16 weights, f32 biases (qkv, out-proj, c_fc, c_proj), bf16 LN scales and biases
+    w_bytes = 2 * e * (4 * e + 2 * hidden) + 4 * (5 * e + hidden) + 8 * e
+    ph = Phase()
+    ph.run("block_bf16", lambda: bk.block_bf16(x, layer, s, heads, bias),
+           lambda: bk.block_bf16_plain(x, layer, s, heads, bias), check_layer,
+           layer_work(b * s, e, hidden, heads, b * s * (s + 1) // 2,
+                      2 * nbytes(x) + w_bytes + nbytes(bias), PEAK_BF16))
+    halves_ms = time_ms(lambda: bk.mlp_half(bk.attn_half(x, layer, s, heads), layer))
+    log(f"  block_bf16: {ph.results['block_bf16']['ms']:.3f} ms per layer; the halves (K6a + K6b, "
+        f"7 launches) {halves_ms:.3f} ms per layer on the same rows")
+    return launches, ph.results
+
+
 def main() -> int:
     import torch
 
@@ -1228,12 +1463,26 @@ def main() -> int:
         f"{ITERS} iters, {elapsed / ITERS * 1e3:.2f} ms/iter) on {smi}")
     if not bool(out.isfinite().all()):
         raise AssertionError("non-finite modes in the timed run")
-    del ref, engine
+    del ref
 
     launches_b16, results_b16 = serving_b16_phase(dev, counters, smi, text)
     results.update(results_b16)
+
+    # phase 9: the whole-layer routes, on the same engine, images, geometry
+    # and classifier as phases 5-8
+    try:
+        launches_fused, results_fused = fused_serving_phase(engine, images, geometry, text, modes,
+                                                            modes_f, counters, smi, dev)
+        launches_cls_block, results_cls_block = fused_classifier_phase(params, cfg, dev, counters,
+                                                                       built)
+    finally:
+        block_kernel._FUSE = "halves"
+    results.update(results_fused)
+    results.update(results_cls_block)
     launches = {"serving": launches_srv, "classifier": launches_cls, "training": launches_trn,
-                "serving_b16": launches_b16}
+                "serving_b16": launches_b16, "serving_block": launches_fused["block"],
+                "serving_layer": launches_fused["layer"],
+                "serving_stream": launches_fused["stream"], "classifier_block": launches_cls_block}
     missing = [k for k, (path, _, _) in KERNELS.items() if launches[path].get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels of their path never launched: {missing}")

@@ -43,6 +43,10 @@ SIGNATURES = {
     "jcf_packed_attention_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
     "jcf_blocked_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, *[ctypes.c_longlong] * 6,
                               ctypes.c_float, _I, _P],
+    "jcf_block_int8": [*[_P] * 19, *[_I] * 7, _P],
+    "jcf_layer_fused_int8": [*[_P] * 19, *[_I] * 7, _P],
+    "jcf_stream_tower_int8": [*[_P] * 19, *[_I] * 7, _P],
+    "jcf_block_bf16": [*[_P] * 16, _I, _I, _I, _I, ctypes.c_float, _P],
 }
 
 _lib = None

@@ -10,6 +10,7 @@
 // intermediate between them is int8 or bf16, so the round trips through
 // device memory stay at 1-2 bytes per activation.
 #include "common.cuh"
+#include "pair_attention.cuh"
 
 namespace {
 
@@ -55,25 +56,15 @@ __global__ void __launch_bounds__(LNQ_WARPS * 32) ln_quant_kernel(
 //
 // Replaces the attention section of _attn_half_int8_kernel
 // (_batched_attention -> _paired_attention_nomask), folded tree (1/sqrt(d)
-// already in q), static ctx scale. For one crop of S rows and one head
-// pair (lo, hi):
-//   s      = q . k                          (bf16 inputs, f32 sums)
-//   m      = max(0, max over both heads' keys of s)
-//   p      = bf16(exp(s - m))
-//   ctx_u  = sum_j p_j v_j,  l = sum_j p_j   (per head, f32)
-//   out    = int8(round(ctx_u * (ctx_inv / max(l, 1e-30))))
-// The TPU takes one softmax shift per head PAIR, over both heads' scores
-// and the zeroed pad keys' 0 (its paired MXU layout); the shift cancels
-// in real arithmetic but moves the bf16 rounding of p, so the kernel
-// keeps exactly that shift, max(0, pair max), to stay within rounding of
-// the reference. That is why a block owns a pair of heads.
+// already in q), static ctx scale: one block per (crop, head pair) loads
+// the pair's q, k (transposed) and v into shared memory and runs the row
+// loop of pair_attention.cuh, which keeps the reference's pair shift
+// max(0, pair max). That is why a block owns a pair of heads.
 //
 // Bound on the H100: at S = 50, D = 64 the block's work (2 heads x 50 x
 // 50 x 64 x 2 MACs) is small next to launching a tensor-core pipeline,
-// so it runs on the CUDA cores from shared memory: one warp per query
-// row, lanes over keys for the scores (K stored transposed so the lanes
-// read consecutive addresses) and lanes over head dims for PV. qkv is
-// read once and the int8 context written once.
+// so it runs on the CUDA cores from shared memory. qkv is read once and
+// the int8 context written once.
 
 constexpr int ATT_WARPS = 8;
 
@@ -100,55 +91,8 @@ __global__ void __launch_bounds__(ATT_WARPS * 32) attention_kernel(
     v_s[idx] = r[2 * E];
   }
   __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float cinv = *ctx_inv;
-  float* pw = p_s + warp * 2 * S;
-  for (int i = warp; i < S; i += ATT_WARPS) {
-    const bf16* qi = q_s + i * D2;
-    float s[2][2];  // [head][key block]: key j = lane + 32 * kb
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int kb = 0; kb < 2; ++kb) {
-        const int j = lane + 32 * kb;
-        float acc = -INFINITY;
-        if (j < S) {
-          acc = 0.0f;
-          for (int d = 0; d < D; ++d)
-            acc = fmaf(bf2f(qi[h * D + d]), bf2f(kt_s[(h * D + d) * S + j]), acc);
-        }
-        s[h][kb] = acc;
-      }
-    // the reference's pair shift: max over both heads and the pad keys' 0
-    float m = fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1]));
-    m = fmaxf(warp_max(m), 0.0f);
-    float l[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float sum = 0.0f;
-#pragma unroll
-      for (int kb = 0; kb < 2; ++kb) {
-        const int j = lane + 32 * kb;
-        if (j < S) {
-          const float p = round_bf16(expf(__fsub_rn(s[h][kb], m)));
-          pw[h * S + j] = p;
-          sum += p;
-        }
-      }
-      l[h] = warp_sum(sum);
-    }
-    __syncwarp();
-    for (int d2 = lane; d2 < D2; d2 += 32) {
-      const int h = d2 >= D;
-      const float* ph = pw + h * S;
-      float acc = 0.0f;
-      for (int j = 0; j < S; ++j) acc = fmaf(ph[j], bf2f(v_s[j * D2 + d2]), acc);
-      const float r = __fdiv_rn(cinv, fmaxf(l[h], 1e-30f));
-      out[(crop * S + i) * E + pair * D2 + d2] = round_clip_int8(__fmul_rn(acc, r));
-    }
-    __syncwarp();
-  }
+  pair_attention_rows(q_s, kt_s, v_s, p_s, S, D, *ctx_inv, out + crop * S * E + pair * D2, E,
+                      ATT_WARPS);
 }
 
 // ---------------------------------------------------------------------------

@@ -48,14 +48,6 @@ struct Epilogue {
   const float* row_scale;  // [M]
 };
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 template <int EPI>
 __device__ __forceinline__ void store_pair(const Epilogue& ep, int m, int n, int N, int v0, int v1) {
   const long long idx = (long long)m * N + n;

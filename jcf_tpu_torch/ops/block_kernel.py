@@ -27,11 +27,29 @@ GEMMs with fused epilogues (csrc/int8_gemm.cu, csrc/bf16_gemm.cu). Each
 wrapper launches its kernel for CUDA tensors and runs its plain version
 for CPU tensors.
 
+Whole layers in one kernel (csrc/fused_layer.cu), the TPU's ``_FUSE``
+variants of the same math:
+  K9a ``block_int8`` (``_block_int8_kernel``): one int8 layer, the mid
+  residual kept in f32 (the halves round it to bf16);
+  K9d ``layer_fused_int8`` (``_layer_fused_int8_kernel``): one int8 layer,
+  bf16 mid, the MLP in ``_LAYER_NSPLIT`` hidden chunks;
+  K9c ``stream_tower_int8`` (``_stream_tower_int8_kernel``): every int8
+  layer on every row in one launch, bf16 mid;
+  K9b ``block_bf16`` (``_block_kernel``): one bf16 text layer with an
+  additive [S, S] bias, f32 mid, QuickGELU in its sigmoid form.
+The MLP's f32 chunk partials (``_MLP_NSPLIT`` for K9a/K9c) are added in
+chunk order. The int8 kernels take the serving flags only (folded tree,
+static "full" scales, dense rows, mask-free attention) and refuse others.
+
 ``run_fused_tower`` is the serving route of the JAX function: dense rows,
-``cls_only``, folded weights, static scales in mode "full", and the last
-layer as in ``_CLS_ATTNQ = True`` (K5, then the MLP half on the CLS rows).
-``run_text_tower`` is its causal bf16 route (``encode_text``). The other
-quant modes are not ported (ROADMAP.md).
+``cls_only``, folded weights, static scales in mode "full". Under
+``_FUSE`` = "halves" (the default) each layer is K3 + K4, under "block"
+K9a and under "layer" K9d, and the last layer as in ``_CLS_ATTNQ = True``
+(K5, then the MLP half on the CLS rows); under "stream" one K9c runs all
+layers on all rows and the CLS rows are taken after it.
+``run_text_tower`` is its causal bf16 route (``encode_text``): the halves
+(K6a, K6b), or K9b per layer under "block". The knobs are read at call
+time. The other quant modes are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -42,17 +60,35 @@ import torch
 
 from jcf_tpu_torch import _build
 from jcf_tpu_torch.ops.attention import causal_mask
-from jcf_tpu_torch.ops.bf16_gemm import bf16_gemm_bias, bf16_gemm_gelu, bf16_gemm_residual
+from jcf_tpu_torch.ops.bf16_gemm import (
+    bf16_gemm_bias,
+    bf16_gemm_gelu,
+    bf16_gemm_residual,
+    matmul_plain,
+)
 from jcf_tpu_torch.ops.int8_gemm import (
+    dequant_plain,
+    gelu_quant_plain,
     int8_gemm_bf16,
     int8_gemm_gelu_quant,
     int8_gemm_residual,
+    int8_matmul_plain,
 )
 from jcf_tpu_torch.ops.layers import GELU_TANH_COEF, LN_EPS, layer_slice
 
 # launches of this module's kernels (CUDA tensors only)
 LAUNCHES = {"ln_quant": 0, "attention": 0, "cls_attention": 0, "ln_affine": 0,
-            "causal_attention": 0}
+            "causal_attention": 0, "block_int8": 0, "layer_fused_int8": 0,
+            "stream_tower_int8": 0, "block_bf16": 0}
+
+# the towers' layer variant, the JAX package's knob of the same name:
+# "halves" (K3 + K4, K6a + K6b), "block" (K9a, and K9b on the text tower),
+# "layer" (K9d) or "stream" (K9c); read at call time
+_FUSE = "halves"
+FUSE_MODES = ("halves", "block", "layer", "stream")
+# hidden chunks of the MLP in K9a and K9c, and in K9d
+_MLP_NSPLIT = 1
+_LAYER_NSPLIT = 4
 
 
 # ---------------------------------------------------------------------------
@@ -231,14 +267,21 @@ def ln_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch
 def causal_attention_plain(qkv: torch.Tensor, s: int, n_heads: int) -> torch.Tensor:
     """Plain version of the causal attention kernel (``_paired_attention``
     with the additive causal mask, per head): qkv [B * S, 3E] bf16 ->
-    context [B * S, E] bf16. f32 scores x 1/sqrt(d), the mask, a per-head
-    max, exp and sum in f32, p / sum in f32, then bf16 p for PV."""
+    context [B * S, E] bf16."""
+    return bias_attention_plain(qkv, s, n_heads, causal_mask(s, qkv.device))
+
+
+def bias_attention_plain(qkv: torch.Tensor, s: int, n_heads: int, bias: torch.Tensor) -> torch.Tensor:
+    """``_paired_attention`` per head with an additive [S, S] f32 bias:
+    qkv [B * S, 3E] bf16 -> context [B * S, E] bf16. f32 scores x
+    1/sqrt(d), the bias, a per-head max, exp and sum in f32, p / sum in
+    f32, then bf16 p for PV."""
     rows, e3 = qkv.shape
     e = e3 // 3
     d = e // n_heads
     b = rows // s
     q, k, v = qkv.float().reshape(b, s, 3, n_heads, d).permute(2, 0, 3, 1, 4)  # [B, H, S, D]
-    scores = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(d)) + causal_mask(s, qkv.device)
+    scores = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(d)) + bias
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
     ctx = torch.matmul(p.to(torch.bfloat16).float(), v)  # [B, H, S, D]
@@ -310,25 +353,6 @@ def attn_cls_int8(x: torch.Tensor, attn: dict, s: int, n_heads: int) -> torch.Te
     return int8_gemm_residual(ctx, wo.w_int8, wo.w_scale, wo.bias, x[::s].contiguous())
 
 
-def run_fused_tower(x: torch.Tensor, quant: dict, n_heads: int, *, flat_s: int) -> torch.Tensor:
-    """All layers over flat dense rows x [B' * S, E] bf16 -> CLS rows [B', E].
-
-    ``quant`` is the folded static tree of ``quantize_clip_params`` (layers
-    stacked on the leading axis). Layers 0..L-2 run both halves on all
-    rows; the last layer runs K5 (the CLS rows attend to every token) and
-    its MLP half on the CLS rows only, since nothing downstream reads the
-    other rows.
-    """
-    s = flat_s
-    n_layers = quant["attn"]["w_qkv"].w_int8.shape[0]
-    for i in range(n_layers - 1):
-        layer = layer_slice(quant, i)
-        x = attn_half_int8(x, layer["attn"], s, n_heads)
-        x = mlp_half_int8(x, layer["mlp"])
-    last = layer_slice(quant, n_layers - 1)
-    return mlp_half_int8(attn_cls_int8(x, last["attn"], s, n_heads), last["mlp"])
-
-
 def attn_half(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Tensor:
     """K6a on rows x [B * S, E] bf16 (S rows per sequence) with one
     layer's float block params -> x + causal attention(LN1(x)), bf16.
@@ -350,14 +374,291 @@ def mlp_half(x: torch.Tensor, layer: dict) -> torch.Tensor:
     return bf16_gemm_residual(hidden, mlp["c_proj"]["w"].to(bf), mlp["c_proj"]["b"].float(), x)
 
 
+# ---------------------------------------------------------------------------
+# whole layers in one kernel (K9a-d)
+# ---------------------------------------------------------------------------
+
+# the options of the reference's int8 kernels, one bit each (as
+# csrc/fused_layer.cu numbers them); the kernels take the serving set only
+FLAG_FOLDED, FLAG_STATIC_ACT, FLAG_STATIC_CTX, FLAG_STATIC_H = 1, 2, 4, 8
+FLAG_STATIC_SHIFT, FLAG_DENSE, FLAG_USE_MASK = 16, 32, 64
+SERVING_FLAGS = FLAG_FOLDED | FLAG_STATIC_ACT | FLAG_STATIC_CTX | FLAG_STATIC_H | FLAG_DENSE
+
+
+def _chunks(n: int, hidden: int) -> int:
+    """The MLP's hidden chunk count: n where it divides the hidden width,
+    else 1, as the reference falls back."""
+    return n if hidden % n == 0 else 1
+
+
+def quant_flags(tree: dict) -> int:
+    """The reference kernels' options that an int8 tree (one layer or
+    stacked) selects on the dense mask-free row stream: static scales
+    where the tree carries them (the port folds exactly its static tree),
+    a static softmax shift where it carries ``score_shift``."""
+    attn, mlp = tree["attn"], tree["mlp"]
+    flags = FLAG_DENSE
+    if "ln_inv" in attn and "ln_inv" in mlp:
+        flags |= FLAG_FOLDED | FLAG_STATIC_ACT
+    if "ctx_inv" in attn:
+        flags |= FLAG_STATIC_CTX
+    if "h_inv" in mlp:
+        flags |= FLAG_STATIC_H
+    if "score_shift" in attn:
+        flags |= FLAG_STATIC_SHIFT
+    return flags
+
+
+def _attn_mid_plain(x: torch.Tensor, attn: dict, s: int, n_heads: int) -> torch.Tensor:
+    """K3's math up to its residual add, unrounded: x + out-proj(int8
+    attention(LN1 x)) in f32."""
+    x_q = ln_quant_plain(x, attn["ln_inv"])
+    wq, wo = attn["w_qkv"], attn["w_out"]
+    qkv = dequant_plain(int8_matmul_plain(x_q, wq.w_int8), wq.w_scale, wq.bias).to(torch.bfloat16)
+    ctx = attention_plain(qkv, attn["ctx_inv"], s, n_heads)
+    return x.float() + dequant_plain(int8_matmul_plain(ctx, wo.w_int8), wo.w_scale, wo.bias)
+
+
+def _mlp_proj_plain(mid: torch.Tensor, mlp: dict, nsp: int) -> torch.Tensor:
+    """K4's math before its residual add: c_proj(GELU-quant(c_fc(LN2
+    mid))) + b_proj in f32, the hidden in ``nsp`` chunks: each chunk's
+    product an exact int32 sum, its f32 partial (x the c_proj scale) added
+    in chunk order."""
+    h_inv = mlp["h_inv"].reshape(())
+    fc, pr = mlp["c_fc"], mlp["c_proj"]
+    x_q = ln_quant_plain(mid, mlp["ln_inv"])
+    fc_sc, fc_b, gelu_c = fc.w_scale * h_inv, fc.bias * h_inv, GELU_TANH_COEF / h_inv
+    hs = fc.w_int8.shape[0] // nsp
+    acc = None
+    for c in range(nsp):
+        sl = slice(c * hs, (c + 1) * hs)
+        h_q = gelu_quant_plain(dequant_plain(int8_matmul_plain(x_q, fc.w_int8[sl]), fc_sc[sl],
+                                             fc_b[sl]), gelu_c)
+        part = int8_matmul_plain(h_q, pr.w_int8[:, sl]).float() * pr.w_scale
+        acc = part if acc is None else acc + part
+    return acc + pr.bias
+
+
+def _bf16_mid_layer_plain(x, layer, s, n_heads, nsp):
+    """One int8 layer with its mid rounded to bf16, as the halves and
+    K9c/K9d round it."""
+    mid = _attn_mid_plain(x, layer["attn"], s, n_heads).to(torch.bfloat16)
+    return (mid.float() + _mlp_proj_plain(mid, layer["mlp"], nsp)).to(torch.bfloat16)
+
+
+def _hidden(tree: dict) -> int:
+    return tree["mlp"]["c_fc"].w_int8.shape[-2]
+
+
+def block_int8_plain(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Tensor:
+    """Plain version of K9a: one int8 layer with the mid kept in f32 and
+    the MLP in ``_MLP_NSPLIT`` chunks -> bf16."""
+    mid = _attn_mid_plain(x, layer["attn"], s, n_heads)
+    nsp = _chunks(_MLP_NSPLIT, _hidden(layer))
+    return (mid + _mlp_proj_plain(mid, layer["mlp"], nsp)).to(torch.bfloat16)
+
+
+def layer_fused_int8_plain(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Tensor:
+    """Plain version of K9d: one int8 layer, bf16 mid, the MLP in
+    ``_LAYER_NSPLIT`` chunks."""
+    return _bf16_mid_layer_plain(x, layer, s, n_heads, _chunks(_LAYER_NSPLIT, _hidden(layer)))
+
+
+def stream_tower_int8_plain(x: torch.Tensor, quant: dict, n_heads: int, *, s: int) -> torch.Tensor:
+    """Plain version of K9c: every layer of the stacked tree on every row,
+    bf16 mid, the MLP in ``_MLP_NSPLIT`` chunks."""
+    nsp = _chunks(_MLP_NSPLIT, _hidden(quant))
+    for i in range(quant["attn"]["w_qkv"].w_int8.shape[0]):
+        x = _bf16_mid_layer_plain(x, layer_slice(quant, i), s, n_heads, nsp)
+    return x
+
+
+def _launch_int8(name: str, x: torch.Tensor, tree: dict, s: int, n_heads: int, n_layers: int,
+                 nsp: int, mid_f32: bool) -> torch.Tensor:
+    """Checks and launches one of the int8 layer kernels (``jcf_<name>``)
+    on the rows x [B' * S, E] with the (one-layer or stacked) folded tree."""
+    rows, e = x.shape
+    if (x.dtype != torch.bfloat16 or rows % s or s > 64 or e != 64 * n_heads or n_heads % 2
+            or e % 128 or e > 1024):
+        raise ValueError(f"{name} takes bf16 rows of S <= 64 tokens, head dim 64, an even head "
+                         f"count and E a multiple of 128 up to 1024; got {x.dtype} "
+                         f"{tuple(x.shape)}, S={s}, H={n_heads}")
+    flags = quant_flags(tree)
+    if flags != SERVING_FLAGS:
+        raise ValueError(f"{name} takes the folded tree with static scales in mode \"full\" "
+                         f"(flags {SERVING_FLAGS:#x}), not flags {flags:#x}")
+    attn, mlp = tree["attn"], tree["mlp"]
+    wq, wo, fc, pr = attn["w_qkv"], attn["w_out"], mlp["c_fc"], mlp["c_proj"]
+    hidden = _hidden(tree)
+    if hidden % 128 or (hidden // nsp) % 64:
+        raise ValueError(f"{name} needs a hidden width divisible by 128 and chunks of a multiple "
+                         f"of 64, got {hidden} in {nsp} chunks")
+    h_inv = mlp["h_inv"].reshape(-1, 1)
+    ops = [wq.w_int8, wq.w_scale, wq.bias, wo.w_int8, wo.w_scale, wo.bias,
+           fc.w_int8, fc.w_scale * h_inv, fc.bias * h_inv, pr.w_int8, pr.w_scale, pr.bias,
+           attn["ln_inv"], attn["ctx_inv"], mlp["ln_inv"], GELU_TANH_COEF / h_inv]
+    shapes = [(3 * e, e), (3 * e,), (3 * e,), (e, e), (e,), (e,), (hidden, e), (hidden,),
+              (hidden,), (e, hidden), (e,), (e,), (), (), (), ()]
+    for i, (t, shape) in enumerate(zip(ops, shapes)):
+        want = torch.int8 if i in (0, 3, 6, 9) else torch.float32
+        if (t.dtype != want or t.device != x.device or t.numel() != n_layers * math.prod(shape)
+                or (shape and tuple(t.shape[-len(shape):]) != shape)):
+            raise ValueError(f"{name}: operand {i} must be {want} {shape} per layer, {n_layers} "
+                             f"layer(s), on {x.device}; got {t.dtype} {tuple(t.shape)}")
+    ops = [t.contiguous() for t in ops]
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    mid = torch.empty((rows, e), dtype=torch.float32, device=x.device) if mid_f32 else None
+    lib = _build.load()
+    err = getattr(lib, f"jcf_{name}")(
+        x.data_ptr(), out.data_ptr(), mid.data_ptr() if mid is not None else None,
+        *(t.data_ptr() for t in ops), rows // s, s, n_heads, hidden, n_layers, nsp, flags,
+        _build.stream_ptr(x.device))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def block_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Tensor:
+    """K9a on dense rows x [B' * S, E] bf16 with one layer's folded static
+    tree -> the layer's output rows, bf16: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if not x.is_cuda:
+        return block_int8_plain(x, layer, s, n_heads)
+    return _launch_int8("block_int8", x, layer, s, n_heads, 1,
+                        _chunks(_MLP_NSPLIT, _hidden(layer)), mid_f32=True)
+
+
+def layer_fused_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Tensor:
+    """K9d, as ``block_int8`` with the mid rounded to bf16 and the MLP in
+    ``_LAYER_NSPLIT`` chunks."""
+    if not x.is_cuda:
+        return layer_fused_int8_plain(x, layer, s, n_heads)
+    return _launch_int8("layer_fused_int8", x, layer, s, n_heads, 1,
+                        _chunks(_LAYER_NSPLIT, _hidden(layer)), mid_f32=False)
+
+
+def stream_tower_int8(x: torch.Tensor, quant: dict, n_heads: int, *, s: int) -> torch.Tensor:
+    """K9c: every layer of the stacked folded static tree on every row of
+    x [B' * S, E] bf16, one launch -> [B' * S, E] bf16."""
+    if not x.is_cuda:
+        return stream_tower_int8_plain(x, quant, n_heads, s=s)
+    n_layers = quant["attn"]["w_qkv"].w_int8.shape[0]
+    return _launch_int8("stream_tower_int8", x, quant, s, n_heads, n_layers,
+                        _chunks(_MLP_NSPLIT, _hidden(quant)), mid_f32=False)
+
+
+def block_bf16_plain(x: torch.Tensor, layer: dict, s: int, n_heads: int,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9b (``_block_kernel``): one bf16 layer of float
+    block params on rows x [B * S, E] bf16 with an additive [S, S] f32
+    bias. LN affine in bf16, f32 math; bf16 qkv; the context in bf16; the
+    mid residual in f32; QuickGELU as h * sigmoid(1.702 h) in f32."""
+    bf = torch.bfloat16
+    ln1, ln2, attn, mlp = layer["ln_1"], layer["ln_2"], layer["attn"], layer["mlp"]
+    h = ln_affine_plain(x, ln1["scale"].to(bf), ln1["bias"].to(bf))
+    qkv = (matmul_plain(h, attn["w_qkv"].to(bf)) + attn["b_qkv"].float()).to(bf)
+    ctx = bias_attention_plain(qkv, s, n_heads, bias)
+    mid = x.float() + (matmul_plain(ctx, attn["w_out"].to(bf)) + attn["b_out"].float())
+    h2 = ln_affine_plain(mid, ln2["scale"].to(bf), ln2["bias"].to(bf))
+    g = matmul_plain(h2, mlp["c_fc"]["w"].to(bf)) + mlp["c_fc"]["b"].float()
+    hid = (g * torch.sigmoid(1.702 * g)).to(bf)
+    return (mid + (matmul_plain(hid, mlp["c_proj"]["w"].to(bf)) + mlp["c_proj"]["b"].float())).to(bf)
+
+
+def block_bf16(x: torch.Tensor, layer: dict, s: int, n_heads: int,
+               bias: torch.Tensor) -> torch.Tensor:
+    """K9b wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Weights are cast to bf16, biases kept f32, as the
+    reference casts them."""
+    if not x.is_cuda:
+        return block_bf16_plain(x, layer, s, n_heads, bias)
+    rows, e = x.shape
+    hidden = layer["mlp"]["c_fc"]["w"].shape[0]
+    if (x.dtype != torch.bfloat16 or rows % s or s > 80 or e != 64 * n_heads or e % 128
+            or e > 1024 or hidden % 128):
+        raise ValueError(f"block_bf16 takes bf16 rows of S <= 80 tokens, head dim 64, E and the "
+                         f"hidden width multiples of 128 (E <= 1024); got {x.dtype} "
+                         f"{tuple(x.shape)}, S={s}, H={n_heads}, hidden={hidden}")
+    if bias.dtype != torch.float32 or tuple(bias.shape) != (s, s) or bias.device != x.device:
+        raise ValueError(f"bias must be f32 ({s}, {s}) on {x.device}")
+    bf = torch.bfloat16
+    ln1, ln2, attn, mlp = layer["ln_1"], layer["ln_2"], layer["attn"], layer["mlp"]
+    ops = [ln1["scale"].to(bf), ln1["bias"].to(bf), attn["w_qkv"].to(bf), attn["b_qkv"].float(),
+           attn["w_out"].to(bf), attn["b_out"].float(), ln2["scale"].to(bf), ln2["bias"].to(bf),
+           mlp["c_fc"]["w"].to(bf), mlp["c_fc"]["b"].float(), mlp["c_proj"]["w"].to(bf),
+           mlp["c_proj"]["b"].float(), bias]
+    shapes = [(e,), (e,), (3 * e, e), (3 * e,), (e, e), (e,), (e,), (e,), (hidden, e), (hidden,),
+              (e, hidden), (e,), (s, s)]
+    for i, (t, shape) in enumerate(zip(ops, shapes)):
+        if tuple(t.shape) != shape or t.device != x.device:
+            raise ValueError(f"block_bf16: operand {i} must be {shape} on {x.device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    ops = [t.contiguous() for t in ops]
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    mid = torch.empty((rows, e), dtype=torch.float32, device=x.device)
+    lib = _build.load()
+    err = lib.jcf_block_bf16(x.data_ptr(), out.data_ptr(), mid.data_ptr(),
+                             *(t.data_ptr() for t in ops), rows // s, s, n_heads, hidden,
+                             1.0 / math.sqrt(e // n_heads), _build.stream_ptr(x.device))
+    _build.check(err, "block_bf16")
+    LAUNCHES["block_bf16"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the towers
+# ---------------------------------------------------------------------------
+
+
+def _fuse() -> str:
+    if _FUSE not in FUSE_MODES:
+        raise ValueError(f"_FUSE must be one of {FUSE_MODES}, got {_FUSE!r}")
+    return _FUSE
+
+
+def _halves_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Tensor:
+    return mlp_half_int8(attn_half_int8(x, layer["attn"], s, n_heads), layer["mlp"])
+
+
+def run_fused_tower(x: torch.Tensor, quant: dict, n_heads: int, *, flat_s: int) -> torch.Tensor:
+    """All layers over flat dense rows x [B' * S, E] bf16 -> CLS rows [B', E].
+
+    ``quant`` is the folded static tree of ``quantize_clip_params`` (layers
+    stacked on the leading axis). Under ``_FUSE`` = "halves", "block" or
+    "layer", layers 0..L-2 run on all rows (K3 + K4, K9a or K9d); the last
+    layer runs K5 (the CLS rows attend to every token) and its MLP half on
+    the CLS rows only, since nothing downstream reads the other rows. Under
+    "stream" one K9c runs every layer on every row, and the CLS rows are
+    taken from its output.
+    """
+    s = flat_s
+    fuse = _fuse()
+    if fuse == "stream":
+        return stream_tower_int8(x, quant, n_heads, s=s)[::s].contiguous()
+    layer_fn = {"halves": _halves_int8, "block": block_int8, "layer": layer_fused_int8}[fuse]
+    n_layers = quant["attn"]["w_qkv"].w_int8.shape[0]
+    for i in range(n_layers - 1):
+        x = layer_fn(x, layer_slice(quant, i), s, n_heads)
+    last = layer_slice(quant, n_layers - 1)
+    return mlp_half_int8(attn_cls_int8(x, last["attn"], s, n_heads), last["mlp"])
+
+
 def run_text_tower(x: torch.Tensor, blocks: dict, n_heads: int, *, s: int) -> torch.Tensor:
     """The causal bf16 route of ``run_fused_tower`` (every TPU
     ``encode_text``): rows x [B * S, E] bf16 through all layers of the
-    stacked float ``blocks`` -> [B * S, E] bf16. The TPU pads S = 77 to
-    80 with keys masked by -1e30; they never reach real rows, so the port
-    runs unpadded."""
+    stacked float ``blocks`` -> [B * S, E] bf16. Under ``_FUSE`` = "block"
+    each layer is K9b with the causal mask as its bias; under every other
+    value the halves (K6a, K6b), as the JAX package falls back. The TPU pads
+    S = 77 to 80 with keys masked by -1e30; they never reach real rows, so
+    the port runs unpadded."""
+    fuse = _fuse()
+    bias = causal_mask(s, x.device) if fuse == "block" else None
     for i in range(blocks["attn"]["w_qkv"].shape[0]):
         layer = layer_slice(blocks, i)
-        x = attn_half(x, layer, s, n_heads)
-        x = mlp_half(x, layer)
+        if fuse == "block":
+            x = block_bf16(x, layer, s, n_heads, bias)
+        else:
+            x = mlp_half(attn_half(x, layer, s, n_heads), layer)
     return x

@@ -20,6 +20,7 @@ from jcf_tpu_torch.ops import bf16_gemm as bg
 from jcf_tpu_torch.ops import block_kernel as bk
 from jcf_tpu_torch.ops import int8_gemm as ig
 from jcf_tpu_torch.ops import view_kernel as vk
+from jcf_tpu_torch.ops.layers import layer_slice
 
 pytestmark = pytest.mark.gpu
 
@@ -358,3 +359,127 @@ def test_b16_int8_engine_launches_and_matches_plain(cuda):
     x = torch.randn(50, 768, generator=gen)
     for dev_out, cpu_out in zip(quantize_rows(x.to(cuda)), quantize_rows(x)):
         assert torch.equal(dev_out.cpu(), cpu_out)
+
+
+def _tree_to(tree, dev):
+    return {half: {k: (type(v)(*(t.to(dev) for t in v)) if isinstance(v, tuple) else v.to(dev))
+                   for k, v in d.items()} for half, d in tree.items()}
+
+
+def _int8_tree(width, layers=2):
+    from jcf_tpu_torch.ops.quant import quantize_clip_params
+
+    params = init_clip_params(0, CLIPConfig(vision_layers=layers, vision_width=width))
+    amax = torch.tensor([[6.0, 6.0, 3.0, 4.0]] * layers)
+    return quantize_clip_params(params, heads={"visual": width // 64},
+                                act_scales={"visual": amax})["visual"]
+
+
+def _rows_close(got, ref):
+    """Layer outputs: min row cos >= 0.999 and |diff| <= 0.05 + 0.05 |ref|
+    (int8 values flip at ties where the sums run in another order)."""
+    g, r = got.float(), ref.float()
+    assert float(torch.nn.functional.cosine_similarity(g, r).min()) >= 0.999
+    assert bool(((g - r).abs() <= 0.05 + 0.05 * r.abs()).all())
+
+
+@pytest.mark.parametrize("width,s,crops,nsplit", [
+    (128, 50, 1, (1, 4)), (128, 17, 3, (2, 3)), (768, 50, 3, (1, 4)), (768, 17, 1, (2, 2))])
+def test_fused_int8_layer_kernels(cuda, monkeypatch, width, s, crops, nsplit):
+    """K9a, K9d and K9c vs their plain versions, with (_MLP_NSPLIT,
+    _LAYER_NSPLIT) chunk counts (3 does not divide the hidden width: one
+    chunk)."""
+    monkeypatch.setattr(bk, "_MLP_NSPLIT", nsplit[0])
+    monkeypatch.setattr(bk, "_LAYER_NSPLIT", nsplit[1])
+    tree = _tree_to(_int8_tree(width), cuda)
+    layer, h = layer_slice(tree, 1), width // 64
+    x = torch.randn(crops * s, width, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(s)).bfloat16()
+    before = dict(bk.LAUNCHES)
+    _rows_close(bk.block_int8(x, layer, s, h), bk.block_int8_plain(x, layer, s, h))
+    _rows_close(bk.layer_fused_int8(x, layer, s, h), bk.layer_fused_int8_plain(x, layer, s, h))
+    _rows_close(bk.stream_tower_int8(x, tree, h, s=s), bk.stream_tower_int8_plain(x, tree, h, s=s))
+    assert {k: bk.LAUNCHES[k] - before[k] for k in before if bk.LAUNCHES[k] != before[k]} == {
+        "block_int8": 1, "layer_fused_int8": 1, "stream_tower_int8": 1}
+
+
+@pytest.mark.parametrize("width,s,seqs,causal", [
+    (512, 77, 3, True), (128, 77, 1, False), (128, 17, 3, True)])
+def test_block_bf16_kernel(cuda, width, s, seqs, causal):
+    """K9b vs its plain version, with the causal mask or a zero bias."""
+    cfg = CLIPConfig(text_layers=1, text_width=width, text_heads=width // 64)
+    layer = layer_slice(tree_to(init_clip_params(0, cfg)["text"]["blocks"], cuda), 0)
+    x = torch.randn(seqs * s, width, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(s)).bfloat16()
+    bias = at.causal_mask(s, cuda) if causal else torch.zeros(s, s, device=cuda)
+    h = width // 64
+    _rows_close(bk.block_bf16(x, layer, s, h, bias), bk.block_bf16_plain(x, layer, s, h, bias))
+
+
+def test_fused_routes_launch_the_kernels(cuda, monkeypatch):
+    """Each _FUSE route of both towers launches its kernel on every layer
+    it covers and no K3 attention, K6 row kernel or bf16 GEMM, and agrees
+    with the same route from the plain versions on the CPU."""
+    tree = _int8_tree(128, layers=3)
+    x = torch.randn(4 * 50, 128, generator=torch.Generator().manual_seed(1)).bfloat16()
+    for fuse, name, n in (("block", "block_int8", 2), ("layer", "layer_fused_int8", 2),
+                          ("stream", "stream_tower_int8", 1)):
+        monkeypatch.setattr(bk, "_FUSE", fuse)
+        ref = bk.run_fused_tower(x, tree, 2, flat_s=50)
+        before = dict(bk.LAUNCHES)
+        got = bk.run_fused_tower(x.to(cuda), _tree_to(tree, cuda), 2, flat_s=50)
+        assert got.shape == (4, 128)
+        assert bk.LAUNCHES[name] - before[name] == n and bk.LAUNCHES["attention"] == before["attention"]
+        _rows_close(got.cpu(), ref)
+    cfg = CLIPConfig(text_layers=2, text_width=128, text_heads=2)
+    blocks = init_clip_params(0, cfg)["text"]["blocks"]
+    xt = torch.randn(3 * 77, 128, generator=torch.Generator().manual_seed(2)).bfloat16()
+    monkeypatch.setattr(bk, "_FUSE", "block")
+    ref = bk.run_text_tower(xt, blocks, 2, s=77)
+    before, before_g = dict(bk.LAUNCHES), dict(bg.LAUNCHES)
+    got = bk.run_text_tower(xt.to(cuda), tree_to(blocks, cuda), 2, s=77)
+    assert bk.LAUNCHES["block_bf16"] - before["block_bf16"] == 2 and bg.LAUNCHES == before_g
+    assert all(bk.LAUNCHES[k] == before[k] for k in ("ln_affine", "causal_attention"))
+    _rows_close(got.cpu(), ref)
+
+
+def test_fused_layer_wrappers_refuse(cuda, monkeypatch):
+    """The K9 wrappers raise on quant flags, shapes and types their kernels
+    do not take, launching nothing; the C entries refuse any flag set but
+    the serving one themselves."""
+    tree = _tree_to(_int8_tree(128), cuda)
+    layer = layer_slice(tree, 0)
+    x = torch.randn(2 * 50, 128, device=cuda).bfloat16()
+    no_ctx = {"attn": {k: v for k, v in layer["attn"].items() if k != "ctx_inv"}, "mlp": layer["mlp"]}
+    shift = {"attn": {**layer["attn"], "score_shift": layer["attn"]["ctx_inv"]}, "mlp": layer["mlp"]}
+    stacked_no_h = {"attn": tree["attn"], "mlp": {k: v for k, v in tree["mlp"].items() if k != "h_inv"}}
+    text = layer_slice(tree_to(init_clip_params(0, CLIPConfig(
+        text_layers=1, text_width=128, text_heads=2))["text"]["blocks"], cuda), 0)
+    before = dict(bk.LAUNCHES)
+    for fn in (bk.block_int8, bk.layer_fused_int8):
+        for bad in (no_ctx, shift):
+            with pytest.raises(ValueError):
+                fn(x, bad, 50, 2)
+        with pytest.raises(ValueError):  # S = 100 > 64
+            fn(x, layer, 100, 2)
+    with pytest.raises(ValueError):
+        bk.stream_tower_int8(x, stacked_no_h, 2, s=50)
+    with pytest.raises(ValueError):  # f32 rows
+        bk.block_bf16(x.float(), text, 50, 2, at.causal_mask(50, cuda))
+    with pytest.raises(ValueError):  # S = 100 > 80
+        bk.block_bf16(x, text, 100, 2, at.causal_mask(100, cuda))
+    with pytest.raises(ValueError):  # a bias of the wrong shape
+        bk.block_bf16(x, text, 50, 2, at.causal_mask(49, cuda))
+    assert bk.LAUNCHES == before
+    for bad in (bk.SERVING_FLAGS | bk.FLAG_USE_MASK, bk.SERVING_FLAGS & ~bk.FLAG_STATIC_H):
+        monkeypatch.setattr(bk, "quant_flags", lambda tree, bad=bad: bad)
+        monkeypatch.setattr(bk, "SERVING_FLAGS", bad)
+        for fn in (bk.block_int8, bk.layer_fused_int8):
+            with pytest.raises(RuntimeError):
+                fn(x, layer, 50, 2)
+        with pytest.raises(RuntimeError):
+            bk.stream_tower_int8(x, tree, 2, s=50)
+    monkeypatch.undo()
+    assert bk.LAUNCHES == before
+    bk.block_int8(x, layer, 50, 2)  # the refusals leave no error behind
+    assert bk.LAUNCHES["block_int8"] == before["block_int8"] + 1
