@@ -61,6 +61,26 @@
    then builds the classifier under "block" (84 K9b launches, nothing
    else), holds it against the halves-built one and K9b against its
    plain version at 512 x 77. ``_FUSE`` is set back to "halves" after.
+10. (last) the int8 engine's quantization modes below 128 tokens, on the
+   ViT-B/32 images, geometry and classifier of phase 6: dynamic (no
+   calibration), "ln", "hidden" and "full+score". For each it counts one
+   forward against the launches ``mode_launches`` writes out, holds each
+   kernel the mode adds against its plain version at 8192 crops (the
+   dynamic row quantizations, the row-scale and f32 GEMM epilogues, the
+   f32-context attention of K3 and K5, the calibrated shift) and the
+   halves against ``plain_halves``, certifies the modes against phase
+   7's f32 modes (dynamic, ``bench.py``'s default, at >= 0.99 / 0.97; the
+   static-mode knobs at >= 0.98 / 0.95) and times img/s. 10b:
+   ``features_from_crops`` at 8 images x 513 crops of 224² (dynamic int8:
+   12 K3 + 12 K4, no K5), held to ``mta_from_features(crop_features)``
+   bit for bit and certified against the f32 engine (per crop >= 0.99 /
+   0.97, per-image mode cos >= 0.999), crops/s. 10c: ViT-B/32 at 288² (82
+   tokens, static "full", b256 x 8 views of 329² sources): no K5 launch,
+   K3's attention at S = 82 and the last layer's K3 + K4 route against
+   their plain versions, the cert (top-1 >= 0.99 and top-5 >= 0.97;
+   where more than 1% of the images' f32 top-1 gaps lie under the int8
+   swing, top-5, the mean mode cosine and the per-view features
+   instead), img/s.
 
 Every weight and input is made from seed 0 (the LoRA factors from seed
 1, as ``scripts/bench_train.py``). Exits nonzero, without the
@@ -153,6 +173,25 @@ KERNELS = {
                           "jcf_tpu/ops/block_kernel.py:833"),
     "block_bf16": ("classifier_block", "jcf_tpu_torch/csrc/fused_layer.cu",
                    "jcf_tpu/ops/block_kernel.py:948"),
+    # the dynamic branches of K3, K4 and K5, phase 10 (c_fc without row
+    # scales only in mode "ln": static post-LN scales, a dynamic hidden)
+    "ln_quant_rows": ("serving_dynamic", "jcf_tpu_torch/csrc/block.cu",
+                      "jcf_tpu/ops/block_kernel.py:565"),
+    "int8_gemm_bf16_rows": ("serving_dynamic", "jcf_tpu_torch/csrc/int8_gemm.cu",
+                            "jcf_tpu/ops/block_kernel.py:565"),
+    "attention_f32": ("serving_dynamic", "jcf_tpu_torch/csrc/block.cu",
+                      "jcf_tpu/ops/block_kernel.py:322"),
+    "quant_rows": ("serving_dynamic", "jcf_tpu_torch/csrc/block.cu", "jcf_tpu/ops/block_kernel.py:565"),
+    "int8_gemm_residual_rows": ("serving_dynamic", "jcf_tpu_torch/csrc/int8_gemm.cu",
+                                "jcf_tpu/ops/block_kernel.py:643"),
+    "int8_gemm_f32_rows": ("serving_dynamic", "jcf_tpu_torch/csrc/int8_gemm.cu",
+                           "jcf_tpu/ops/block_kernel.py:643"),
+    "gelu_quant_rows": ("serving_dynamic", "jcf_tpu_torch/csrc/block.cu",
+                        "jcf_tpu/ops/block_kernel.py:643"),
+    "cls_attention_f32": ("serving_dynamic", "jcf_tpu_torch/csrc/block.cu",
+                          "jcf_tpu/ops/block_kernel.py:1508"),
+    "int8_gemm_f32": ("serving_ln", "jcf_tpu_torch/csrc/int8_gemm.cu",
+                      "jcf_tpu/ops/block_kernel.py:643"),
 }
 
 
@@ -934,10 +973,11 @@ def agreement(modes_q, modes_f, classifier):
     return top1, overlap, float(cosine_rows(modes_q, modes_f).mean())
 
 
-def margins(modes_q, modes_f, classifier) -> None:
+def margins(modes_q, modes_f, classifier) -> float:
     """Logs what decides the top-1 agreement: the f32 top-1 minus top-2
     logit gap per image, the int8 - f32 logit difference on those two
-    classes, and how alike the f32 modes of different images are."""
+    classes, and how alike the f32 modes of different images are ->
+    the share of images whose gap is under that difference."""
     import torch
 
     logits_f = modes_f @ classifier.float().T
@@ -954,6 +994,7 @@ def margins(modes_q, modes_f, classifier) -> None:
         f"{swing.quantile(torch.tensor([0.5, 0.95], device=gap.device)).tolist()}; "
         f"images whose gap is under their swing {float((gap < swing).float().mean()):.4f}; "
         f"mean cosine between different images' f32 modes {pair_cos:.6f}")
+    return float((gap < swing).float().mean())
 
 
 def check_modes(modes, batch: int, dim: int) -> None:
@@ -1341,6 +1382,468 @@ def fused_classifier_phase(params, cfg, dev, counters, built):
     return launches, ph.results
 
 
+MODE_ITERS = 5  # timed forwards of each quantization mode
+# phase 10: the int8 engine's quantization modes below 128 tokens, and the
+# ranking gates each is held to (bench.py:485-495: the default config,
+# dynamic, at 0.99 / 0.97; the static-mode knobs at 0.98 / 0.95)
+QUANT_MODES = (("dynamic", None, (0.99, 0.97)), ("ln", "ln", (0.98, 0.95)),
+               ("hidden", "hidden", (0.98, 0.95)), ("full+score", "full+score", (0.98, 0.95)))
+CROP_IMAGES, CROP_VIEWS = 8, 513  # features_from_crops: TTAConfig n_views=512 + center, batch_images=8
+RES_288, SRC_288, BATCH_288 = 288, 329, 256  # ViT-B/32 at 288² (82 tokens): sources 329², b256
+
+
+def mode_launches(mode: str, n_layers: int, s: int) -> dict:
+    """The launches of one forward of the int8 engine below 128 tokens (K1,
+    the s32 patch GEMM, K2, the tower) in each quantization mode: per layer
+    K3 = LN + quant, the qkv GEMM, attention (and the context's row quant
+    where it is dynamic), the out-proj GEMM; K4 = LN + quant, c_fc (with
+    QuickGELU + the hidden's row quant where it is dynamic), c_proj. With
+    S <= 64 the last layer's attention half is K5 (two GEMMs: K/V on all
+    rows, Q on the CLS rows); from 65 tokens on it is K3."""
+    n, k5 = n_layers, int(s <= 64)
+    static = {"ln_quant": 2 * n, "int8_gemm_bf16": n + k5, "attention": n - k5, "cls_attention": k5}
+    dyn_ln = {"ln_quant_rows": 2 * n, "int8_gemm_bf16_rows": n + k5}
+    dyn_ctx = {"attention_f32": n - k5, "cls_attention_f32": k5, "quant_rows": n}
+    dyn_h = {"gelu_quant_rows": n}
+    table = {
+        "dynamic": {**dyn_ln, **dyn_ctx, **dyn_h, "int8_gemm_residual_rows": 2 * n,
+                    "int8_gemm_f32_rows": n},
+        "ln": {**static, **dyn_ctx, **dyn_h, "attention": 0, "cls_attention": 0,
+               "int8_gemm_residual_rows": 2 * n, "int8_gemm_f32": n},
+        "hidden": {**static, **dyn_ctx, "attention": 0, "cls_attention": 0,
+                   "int8_gemm_residual_rows": n, "int8_gemm_residual": n, "int8_gemm_gelu_quant": n},
+        "full": {**static, "int8_gemm_residual": 2 * n, "int8_gemm_gelu_quant": n},
+    }
+    table["full+score"] = table["full"]
+    out = {"view": 1, "int8_gemm_s32": 1, "assemble": 1, **table[mode]}
+    return {k: v for k, v in out.items() if v}
+
+
+@contextlib.contextmanager
+def plain_halves():
+    """Routes the int8 halves (K3, K4, K5) of ``ops.block_kernel`` through
+    the plain versions of their kernels for the block: the composed
+    reference of a half in any quantization mode."""
+    import torch
+
+    from jcf_tpu_torch.ops import block_kernel as bk
+    from jcf_tpu_torch.ops import int8_gemm as ig
+
+    def dq(a, w, sc, b, rows):
+        return ig.dequant_plain(ig.int8_matmul_plain(a, w), sc, b, rows)
+
+    swaps = {
+        "ln_quant": bk.ln_quant_plain,
+        "ln_quant_rows": bk.ln_quant_rows_plain,
+        "quant_rows": lambda x, gelu=False: (bk.gelu_quant_rows_plain if gelu else bk.quant_rows_plain)(x),
+        "attention": bk.attention_plain,
+        "cls_attention": bk.cls_attention_plain,
+        "int8_gemm_bf16": lambda a, w, sc, b, row_scale=None: dq(a, w, sc, b, row_scale).to(torch.bfloat16),
+        "int8_gemm_residual": lambda a, w, sc, b, r, row_scale=None:
+            (r.float() + dq(a, w, sc, b, row_scale)).to(torch.bfloat16),
+        "int8_gemm_f32": lambda a, w, sc, b, row_scale=None: dq(a, w, sc, b, row_scale),
+        "int8_gemm_gelu_quant": lambda a, w, sc, b, c: ig.gelu_quant_plain(dq(a, w, sc, b, None), c),
+    }
+    saved = {k: getattr(bk, k) for k in swaps}
+    for k, fn in swaps.items():
+        setattr(bk, k, fn)
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(bk, k, fn)
+
+
+def check_rows(name, got, ref):
+    """A dynamic row quantization (int8 [M, N], f32 scales [M]): the int8
+    values within 1 on at most 1e-3 of the elements (statistics or tanh
+    rounded in another order put a value on the other side of a tie), the
+    scales within 1e-6 relative."""
+    err = check_int8(name, got[0], ref[0], 1e-3)
+    ds = float(((got[1] - ref[1]).abs() / ref[1].abs()).max())
+    log(f"  {name}: scales max rel diff {ds:.2e} (tol: 1e-6)")
+    if ds > 1e-6:
+        raise AssertionError(f"{name}: row scales disagree with the plain version")
+    return err
+
+
+def check_ctx_f32(slack):
+    """The f32 context of a dynamic-ctx attention: within 1e-5 + 1e-5 |ref|
+    plus ``slack`` = 2^-7 sum_j p_j |v_j| / l, how far a p that rounds to
+    bf16 on the other side of a tie moves an element."""
+    def check(name, got, ref):
+        d = (got - ref).abs()
+        bad = d > 1e-5 + 1e-5 * ref.abs() + slack
+        log(f"  {name}: max |diff| {float(d.max()):.3e}, over tolerance {int(bad.sum())} "
+            f"(tol: 1e-5 + 1e-5 |ref| + 2^-7 sum p|v| / l)")
+        if bool(bad.any()) or not bool(got.isfinite().all()):
+            raise AssertionError(f"{name}: kernel disagrees with its plain version")
+        return float(d.max())
+    return check
+
+
+def abs_v(qkv_or_kv, e):
+    """The same rows with the values (the last E columns) made |v|."""
+    import torch
+
+    return torch.cat([qkv_or_kv[:, :-e], qkv_or_kv[:, -e:].abs()], dim=1)
+
+
+def mode_kernel_checks(engine, rows, mode, ph):
+    """Phase 10: each kernel a quantization mode adds, against its plain
+    version on layer 0's input rows of that mode's forward (K5's with the
+    last layer's weights), and the composed halves against
+    ``plain_halves``."""
+    import torch
+
+    from jcf_tpu_torch.ops import block_kernel as bk
+    from jcf_tpu_torch.ops import int8_gemm as ig
+    from jcf_tpu_torch.ops.layers import layer_slice
+
+    cfg = engine.cfg
+    s, heads, e = cfg.vision_seq_len, cfg.vision_heads, cfg.vision_width
+    n_crops = rows.shape[0] // s
+    d = e // heads
+    layer = layer_slice(engine._quant, 0)
+    last = layer_slice(engine._quant, cfg.vision_layers - 1)["attn"]
+    attn, mlp = layer["attn"], layer["mlp"]
+    wq, wo, fc, pr = attn["w_qkv"], attn["w_out"], mlp["c_fc"], mlp["c_proj"]
+    lw = last["w_qkv"]
+    m = rows.shape[0]
+    att_ops = 4.0 * n_crops * heads * s * s * d
+    cls_ops = 4.0 * n_crops * heads * s * d
+
+    def plain_gemm(a, w, sc, b, rs):
+        return ig.dequant_plain(ig.int8_matmul_plain(a, w), sc, b, rs)
+
+    if mode == "dynamic":
+        x_q, x_sc = ph.run("ln_quant_rows", lambda: bk.ln_quant_rows(rows),
+                           lambda: bk.ln_quant_rows_plain(rows), check_rows,
+                           bound(nbytes(rows) + m * e + 4 * m, 0.0, PEAK_INT8))
+        qkv = ph.run("int8_gemm_bf16_rows",
+                     lambda: ig.int8_gemm_bf16(x_q, wq.w_int8, wq.w_scale, wq.bias, row_scale=x_sc),
+                     lambda: plain_gemm(x_q, wq.w_int8, wq.w_scale, wq.bias, x_sc).to(torch.bfloat16),
+                     check_bf16, gemm_work(x_q, wq.w_int8, 2, PEAK_INT8, wq.w_scale, wq.bias, x_sc),
+                     lambda: torch._int_mm(x_q, wq.w_int8.T))
+        slack = 2.0**-7 * bk.attention_plain(abs_v(qkv, e), None, s, heads)
+        ctx = ph.run("attention_f32", lambda: bk.attention(qkv, None, s, heads),
+                     lambda: bk.attention_plain(qkv, None, s, heads), check_ctx_f32(slack),
+                     bound(nbytes(qkv) + 4 * m * e, att_ops, PEAK_BF16))
+        del slack
+        c_q, c_sc = ph.run("quant_rows", lambda: bk.quant_rows(ctx),
+                           lambda: bk.quant_rows_plain(ctx), check_rows,
+                           bound(nbytes(ctx) + m * e + 4 * m, 0.0, PEAK_INT8))
+        mid = ph.run("int8_gemm_residual_rows (out-proj)",
+                     lambda: ig.int8_gemm_residual(c_q, wo.w_int8, wo.w_scale, wo.bias, rows,
+                                                   row_scale=c_sc),
+                     lambda: (rows.float() + plain_gemm(c_q, wo.w_int8, wo.w_scale, wo.bias, c_sc)
+                              ).to(torch.bfloat16),
+                     check_bf16, gemm_work(c_q, wo.w_int8, 2, PEAK_INT8, rows, wo.w_scale, wo.bias, c_sc),
+                     lambda: torch._int_mm(c_q, wo.w_int8.T))
+        m_q, m_sc = bk.ln_quant_rows(mid)
+        hidden = ph.run("int8_gemm_f32_rows",
+                        lambda: ig.int8_gemm_f32(m_q, fc.w_int8, fc.w_scale, fc.bias, row_scale=m_sc),
+                        lambda: plain_gemm(m_q, fc.w_int8, fc.w_scale, fc.bias, m_sc), check_f32,
+                        gemm_work(m_q, fc.w_int8, 4, PEAK_INT8, fc.w_scale, fc.bias, m_sc),
+                        lambda: torch._int_mm(m_q, fc.w_int8.T), reps=3)
+        h_q, h_sc = ph.run("gelu_quant_rows", lambda: bk.quant_rows(hidden, gelu=True),
+                           lambda: bk.gelu_quant_rows_plain(hidden), check_rows,
+                           bound(nbytes(hidden) + hidden.numel() + 4 * m, 0.0, PEAK_INT8), reps=3)
+        del hidden
+        ph.run("int8_gemm_residual_rows",
+               lambda: ig.int8_gemm_residual(h_q, pr.w_int8, pr.w_scale, pr.bias, mid, row_scale=h_sc),
+               lambda: (mid.float() + plain_gemm(h_q, pr.w_int8, pr.w_scale, pr.bias, h_sc)
+                        ).to(torch.bfloat16),
+               check_bf16, gemm_work(h_q, pr.w_int8, 2, PEAK_INT8, mid, pr.w_scale, pr.bias, h_sc),
+               lambda: torch._int_mm(h_q, pr.w_int8.T))
+        del h_q, h_sc, qkv, ctx, c_q
+        lx_q, lx_sc = bk.ln_quant_rows(rows)
+        kv = ig.int8_gemm_bf16(lx_q, lw.w_int8[e:], lw.w_scale[e:], lw.bias[e:], row_scale=lx_sc)
+        q = ig.int8_gemm_bf16(lx_q[::s].contiguous(), lw.w_int8[:e], lw.w_scale[:e], lw.bias[:e],
+                              row_scale=lx_sc[::s].contiguous())
+        slack = 2.0**-7 * bk.cls_attention_plain(q, abs_v(kv, e), None, s, heads)
+        ph.run("cls_attention_f32", lambda: bk.cls_attention(q, kv, None, s, heads),
+               lambda: bk.cls_attention_plain(q, kv, None, s, heads), check_ctx_f32(slack),
+               bound(nbytes(q, kv) + 4 * n_crops * e, cls_ops, PEAK_BF16))
+        del kv, q, lx_q, slack
+    elif mode == "ln":
+        mid = bk.attn_half_int8(rows, attn, s, heads)
+        m_q = bk.ln_quant(mid, mlp["ln_inv"])
+        ph.run("int8_gemm_f32",
+               lambda: ig.int8_gemm_f32(m_q, fc.w_int8, fc.w_scale, fc.bias),
+               lambda: plain_gemm(m_q, fc.w_int8, fc.w_scale, fc.bias, None), check_f32,
+               gemm_work(m_q, fc.w_int8, 4, PEAK_INT8, fc.w_scale, fc.bias),
+               lambda: torch._int_mm(m_q, fc.w_int8.T), reps=3)
+    elif mode == "full+score":
+        mid = bk.attn_half_int8(rows, attn, s, heads)
+        x_q = bk.ln_quant(rows, attn["ln_inv"])
+        qkv = ig.int8_gemm_bf16(x_q, wq.w_int8, wq.w_scale, wq.bias)
+        shift = attn["score_shift"]
+        log(f"  layer 0 score shift {float(shift):.4f}, layer {cfg.vision_layers - 1} "
+            f"{float(last['score_shift']):.4f}")
+        ph.run("attention (score shift)", lambda: bk.attention(qkv, attn["ctx_inv"], s, heads, shift),
+               lambda: bk.attention_plain(qkv, attn["ctx_inv"], s, heads, shift),
+               lambda n, a, b: check_int8(n, a, b, 1e-2),
+               bound(nbytes(qkv) + m * e, att_ops, PEAK_BF16))
+        lx_q = bk.ln_quant(rows, last["ln_inv"])
+        kv = ig.int8_gemm_bf16(lx_q, lw.w_int8[e:], lw.w_scale[e:], lw.bias[e:])
+        q = ig.int8_gemm_bf16(lx_q[::s].contiguous(), lw.w_int8[:e], lw.w_scale[:e], lw.bias[:e])
+        ph.run("cls_attention (score shift)",
+               lambda: bk.cls_attention(q, kv, last["ctx_inv"], s, heads, last["score_shift"]),
+               lambda: bk.cls_attention_plain(q, kv, last["ctx_inv"], s, heads, last["score_shift"]),
+               lambda n, a, b: check_int8(n, a, b, 1e-2),
+               bound(nbytes(q, kv) + n_crops * e, cls_ops, PEAK_BF16))
+        del qkv, kv, q, x_q, lx_q
+    else:
+        mid = bk.attn_half_int8(rows, attn, s, heads)
+
+    def plain(fn):
+        def run(x):
+            with plain_halves():
+                return fn(x)
+        return run
+
+    halves = [(f"K3 attention half ({mode})", lambda x: bk.attn_half_int8(x, attn, s, heads), rows),
+              (f"K4 MLP half ({mode})", lambda x: bk.mlp_half_int8(x, mlp), mid)]
+    if s <= bk.CLS_MAX_SEQ:
+        halves.append((f"K5 CLS attention half ({mode})",
+                       lambda x: bk.attn_cls_int8(x, last, s, heads), rows))
+    for name, kern, x in halves:
+        check_composed(name, kern(x), plain(kern)(x), lambda: kern(x), lambda: plain(kern)(x))
+    torch.cuda.empty_cache()
+
+
+def count_forward(counters, run):
+    """Runs ``run`` once with every launch count at 0 -> (its result, the
+    launches it made)."""
+    import torch
+
+    torch.cuda.synchronize()
+    for c in counters:
+        c.update(dict.fromkeys(c, 0))
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: v for c in counters for k, v in c.items() if v}
+
+
+def time_forwards(run, iters, items, unit, smi, label) -> float:
+    """``iters`` timed calls of ``run`` after one warm-up -> items per s."""
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = run()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    rate = items * iters / elapsed
+    log(f"  {label} throughput: {rate:.2f} {unit}/s ({elapsed / iters * 1e3:.2f} ms/iter, {iters} "
+        f"iters) on {smi}")
+    if not bool(out.isfinite().all()):
+        raise AssertionError(f"non-finite output in the timed {label} run")
+    return rate
+
+
+def quant_modes_phase(params, images_np, images, geometry, text, modes_f, counters, smi, dev):
+    """Phase 10: the int8 ViT-B/32 engine below 128 tokens in each
+    quantization mode, on phase 6's images, geometry and classifier ->
+    (launches of each mode's counted forward, per-kernel results)."""
+    import torch
+
+    from jcf_tpu_torch.infer.engine import TTAEngine
+    from jcf_tpu_torch.models.clip import VIT_B_32
+    from jcf_tpu_torch.ops import block_kernel as bk
+
+    cfg = VIT_B_32
+    ph = Phase()
+    launches = {}
+    for name, mode, (gate1, gate5) in QUANT_MODES:
+        log(f"phase 10, {name}: ViT-B/32 int8 serving, b{BATCH} x {VIEWS} views")
+        t0 = time.perf_counter()
+        engine = TTAEngine(params, cfg, device=dev, n_views=VIEWS - 1,
+                           calibration_images=None if mode is None else images_np,
+                           static_quant_mode=mode or "full")
+        torch.cuda.synchronize()
+        log(f"  engine built in {time.perf_counter() - t0:.1f} s; tree keys attn "
+            f"{sorted(engine._quant['attn'])}, mlp {sorted(engine._quant['mlp'])}")
+        calls = []
+        with recorded(bk, "attn_half_int8", calls, 1):
+            modes, launches[name] = count_forward(
+                counters, lambda: engine.features_from_images(images, text, geometry=geometry))
+        log(f"  launches: {launches[name]}")
+        expected = mode_launches(name, cfg.vision_layers, cfg.vision_seq_len)
+        if launches[name] != expected:
+            raise AssertionError(f"expected exactly the launches {expected}")
+        check_modes(modes, BATCH, cfg.embed_dim)
+        mode_kernel_checks(engine, calls[0][0], name, ph)
+        del calls
+        top1, overlap, cos = agreement(modes, modes_f, text)
+        log(f"  cert int8 ({name}) vs f32: top1_agree {top1:.4f} top5_overlap {overlap:.4f} "
+            f"mode_cos {cos:.6f} (gates: >= {gate1}, >= {gate5})")
+        if top1 < gate1 or overlap < gate5:
+            raise AssertionError(f"mode {name} fails the ranking certificate")
+        gen = torch.Generator(device=dev).manual_seed(2)
+        time_forwards(lambda: engine.features_from_images(images, text, generator=gen), MODE_ITERS,
+                      BATCH, "img", smi, f"{name} mode")
+        del engine, modes
+        torch.cuda.empty_cache()
+    return launches, ph.results
+
+
+def crops_phase(params, images, text, counters, smi, dev):
+    """Phase 10b: ``features_from_crops`` at the reference's own geometry,
+    8 images x 513 crops of 224² (512 random views + the center), dynamic
+    int8, against the f32 engine's -> the launches of one call."""
+    import torch
+
+    from jcf_tpu_torch.infer.engine import TTAEngine
+    from jcf_tpu_torch.models.clip import CLIP_MEAN, CLIP_STD, VIT_B_32
+    from jcf_tpu_torch.ops import view_kernel as vk
+
+    cfg = VIT_B_32
+    log(f"phase 10b: features_from_crops, {CROP_IMAGES} images x {CROP_VIEWS} crops of "
+        f"{cfg.image_resolution}², dynamic int8")
+    src = images[:CROP_IMAGES].float()
+    cy, cx, inv = vk.sample_view_centers(torch.Generator(device=dev).manual_seed(3), CROP_IMAGES,
+                                         CROP_VIEWS, tuple(src.shape[2:]), cfg.image_resolution)
+    mean = torch.tensor(CLIP_MEAN, device=dev).reshape(1, 1, 3, 1, 1)
+    std = torch.tensor(CLIP_STD, device=dev).reshape(1, 1, 3, 1, 1)
+    crops = (vk.fused_views_nchw_plain(src, cy, cx, inv, cfg.image_resolution) - mean) / std
+    del src, cy, cx, inv
+    engine = TTAEngine(params, cfg, device=dev)
+    modes, launches = count_forward(counters, lambda: engine.features_from_crops(crops, text))
+    log(f"  launches: {launches}")
+    n = cfg.vision_layers
+    expected = {"ln_quant_rows": 2 * n, "int8_gemm_bf16_rows": n, "attention_f32": n, "quant_rows": n,
+                "int8_gemm_residual_rows": 2 * n, "int8_gemm_f32_rows": n, "gelu_quant_rows": n}
+    if launches != expected:
+        raise AssertionError(f"expected exactly the launches {expected}")
+    check_modes(modes, CROP_IMAGES, cfg.embed_dim)
+    feats = engine.crop_features(crops)
+    if not torch.equal(engine.mta_from_features(feats, text), modes):
+        raise AssertionError("features_from_crops != mta_from_features(crop_features)")
+    ref = TTAEngine(params, cfg, device=dev, quant=None)
+    with plain_attention():
+        feats_f = torch.cat([ref.crop_features(crops[i : i + 1]) for i in range(CROP_IMAGES)])
+    modes_f = ref.mta_from_features(feats_f, text)
+    flat_q, flat_f = feats.reshape(-1, feats.shape[-1]), feats_f.reshape(-1, feats.shape[-1])
+    top1, overlap, cos = agreement(flat_q, flat_f, text)
+    min_cos = float(cosine_rows(modes, modes_f).min())
+    log(f"  cert int8 vs f32 over {flat_q.shape[0]} crops: top1_agree {top1:.4f} top5_overlap "
+        f"{overlap:.4f} feature cos mean {cos:.6f}; modes: min cos {min_cos:.6f} (gates: crops "
+        f">= 0.99, >= 0.97; modes min cos >= 0.999)")
+    if top1 < 0.99 or overlap < 0.97 or min_cos < 0.999:
+        raise AssertionError("features_from_crops fails the ranking certificate")
+    del ref, feats, feats_f
+    torch.cuda.empty_cache()
+    time_forwards(lambda: engine.features_from_crops(crops, text), 3, CROP_IMAGES * CROP_VIEWS,
+                  "crops", smi, "features_from_crops")
+    del engine, crops
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serving_288_phase(text, counters, smi, dev):
+    """Phase 10c: ViT-B/32 at 288² (82 tokens), static "full", b256 x 8
+    views: the last layer's attention half is K3 on all rows (no K5), K3's
+    attention at S = 82 against its plain version, the cert, img/s ->
+    (launches, results)."""
+    import torch
+
+    from jcf_tpu_torch.infer.engine import TTAEngine
+    from jcf_tpu_torch.models.clip import CLIPConfig, init_clip_params
+    from jcf_tpu_torch.ops import block_kernel as bk
+    from jcf_tpu_torch.ops import int8_gemm as ig
+    from jcf_tpu_torch.ops.layers import layer_slice
+
+    cfg = CLIPConfig(image_resolution=RES_288)
+    s, heads, e = cfg.vision_seq_len, cfg.vision_heads, cfg.vision_width
+    log(f"phase 10c: ViT-B/32 at {RES_288}² ({s} tokens), static 'full', b{BATCH_288} x {VIEWS} views")
+    params = init_clip_params(0, cfg)
+    rng = np.random.default_rng(0)
+    images_np = rng.random((BATCH_288, 3, SRC_288, SRC_288)).astype(np.float32)
+    images = torch.from_numpy(images_np).to(dev, torch.bfloat16)
+    engine = TTAEngine(params, cfg, device=dev, n_views=VIEWS - 1, calibration_images=images_np)
+    geometry = engine.sample_geometry(torch.Generator(device=dev).manual_seed(0), BATCH_288,
+                                      images.shape[2:])
+    calls = []
+    with recorded(bk, "attn_half_int8", calls, 1):
+        modes, launches = count_forward(
+            counters, lambda: engine.features_from_images(images, text, geometry=geometry))
+    log(f"  launches: {launches}")
+    expected = mode_launches("full", cfg.vision_layers, s)
+    if launches != expected:
+        raise AssertionError(f"expected exactly the launches {expected} (no cls_attention)")
+    check_modes(modes, BATCH_288, cfg.embed_dim)
+
+    ph = Phase()
+    rows = calls[0][0]
+    attn = layer_slice(engine._quant, 0)["attn"]
+    wq = attn["w_qkv"]
+    x_q = bk.ln_quant(rows, attn["ln_inv"])
+    qkv = ig.int8_gemm_bf16(x_q, wq.w_int8, wq.w_scale, wq.bias)
+    n_crops = rows.shape[0] // s
+    ph.run(f"attention ({s} tokens)", lambda: bk.attention(qkv, attn["ctx_inv"], s, heads),
+           lambda: bk.attention_plain(qkv, attn["ctx_inv"], s, heads),
+           lambda n, a, b: check_int8(n, a, b, 1e-2),
+           bound(nbytes(qkv) + x_q.numel(), 4.0 * n_crops * heads * s * s * (e // heads), PEAK_BF16))
+    last = layer_slice(engine._quant, cfg.vision_layers - 1)
+    route = lambda x: bk.mlp_half_int8(bk.attn_half_int8(x, last["attn"], s, heads)[::s].contiguous(),
+                                       last["mlp"])
+
+    def route_plain(x):
+        with plain_halves():
+            return route(x)
+
+    check_composed(f"last layer, K3 + K4 on the CLS rows ({s} tokens)", route(rows), route_plain(rows),
+                   lambda: route(rows), lambda: route_plain(rows))
+    del calls, rows, x_q, qkv
+
+    # the cert on the per-view features (the tower's output) and on the
+    # MTA modes, against the f32 engine with plain attention
+    ref = TTAEngine(params, cfg, device=dev, n_views=VIEWS - 1, quant=None)
+    chunk = 64
+    with plain_attention():
+        feats_f = torch.cat([ref._view_features(images[i : i + chunk],
+                                                tuple(t[i : i + chunk] for t in geometry))
+                             for i in range(0, BATCH_288, chunk)])
+    modes_f = ref.mta_from_features(feats_f, text)
+    feats = engine._view_features(images, geometry)
+    del ref
+    view_cos = cosine_rows(feats.reshape(-1, feats.shape[-1]), feats_f.reshape(-1, feats.shape[-1]))
+    top1, overlap, cos = agreement(modes, modes_f, text)
+    mode_cos = cosine_rows(modes, modes_f)
+    log(f"  cert int8 vs f32: top1_agree {top1:.4f} top5_overlap {overlap:.4f}; mode cos mean "
+        f"{cos:.6f}, 1% quantile {float(mode_cos.quantile(0.01)):.6f}, min "
+        f"{float(mode_cos.min()):.6f}; per-view feature cos over {view_cos.numel()} views mean "
+        f"{float(view_cos.mean()):.6f} min {float(view_cos.min()):.6f}")
+    tied = margins(modes, modes_f, text)
+    # top-1 >= 0.99 is decidable only where at most 1% of the images' f32
+    # top-1 - top-2 gaps lie under the int8 - f32 swing of that gap; past
+    # that (random-init modes near one direction, as ViT-B/16's in phase
+    # 6b) the gates are top-5, the mean mode cosine and the per-view
+    # features, which MTA does not amplify
+    if tied > 0.01:
+        log(f"  {tied:.4f} of the images' top-1 gaps are under their swing: gates top-5 >= 0.97, "
+            f"mean mode cos >= 0.999, per-view feature cos mean >= 0.999 and min >= 0.99; "
+            f"top-1 printed")
+        ok = (overlap >= 0.97 and cos >= 0.999 and float(view_cos.mean()) >= 0.999
+              and float(view_cos.min()) >= 0.99)
+    else:
+        log("  gates: top-1 >= 0.99, top-5 >= 0.97")
+        ok = top1 >= 0.99 and overlap >= 0.97
+    if not ok:
+        raise AssertionError(f"ViT-B/32 at {RES_288}² fails the ranking certificate")
+    del feats, feats_f, view_cos
+    gen = torch.Generator(device=dev).manual_seed(2)
+    time_forwards(lambda: engine.features_from_images(images, text, generator=gen), MODE_ITERS,
+                  BATCH_288, "img", smi, f"ViT-B/32 at {RES_288}²")
+    del engine, images, modes, modes_f
+    torch.cuda.empty_cache()
+    return launches, ph.results
+
+
 def main() -> int:
     import torch
 
@@ -1479,10 +1982,20 @@ def main() -> int:
         block_kernel._FUSE = "halves"
     results.update(results_fused)
     results.update(results_cls_block)
+
+    # phase 10: the quantization modes on the same images, geometry,
+    # classifier and f32 modes; features_from_crops; 82 tokens
+    launches_modes, results_modes = quant_modes_phase(params, images_np, images, geometry, text,
+                                                      modes_f, counters, smi, dev)
+    results.update(results_modes)
+    crops_phase(params, images, text, counters, smi, dev)
+    _, results_288 = serving_288_phase(text, counters, smi, dev)
+    results.update(results_288)
     launches = {"serving": launches_srv, "classifier": launches_cls, "training": launches_trn,
                 "serving_b16": launches_b16, "serving_block": launches_fused["block"],
                 "serving_layer": launches_fused["layer"],
-                "serving_stream": launches_fused["stream"], "classifier_block": launches_cls_block}
+                "serving_stream": launches_fused["stream"], "classifier_block": launches_cls_block,
+                "serving_dynamic": launches_modes["dynamic"], "serving_ln": launches_modes["ln"]}
     missing = [k for k, (path, _, _) in KERNELS.items() if launches[path].get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels of their path never launched: {missing}")

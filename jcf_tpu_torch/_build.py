@@ -32,10 +32,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "jcf_view": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "jcf_assemble": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "jcf_ln_quant": [_P, _P, _P, _I, _I, _P],
+    "jcf_ln_quant": [_P, _P, _P, _P, _I, _I, _P],
+    "jcf_quant_rows": [_P, _P, _P, _I, _I, _I, _P],
     "jcf_int8_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "jcf_attention": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "jcf_cls_attention": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "jcf_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "jcf_cls_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "jcf_bf16_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "jcf_ln_affine": [_P, _P, _P, _P, _I, _I, _P],
     "jcf_causal_attention": [_P, _P, _I, _I, _I, _I, ctypes.c_float, _P],

@@ -1,35 +1,46 @@
 // K3/K4 row and attention kernels of the int8 tower halves, and the K5
-// CLS-query attention of the last layer.
+// CLS-query attention of the last layer, for every quantization the
+// folded tree carries: static or dynamic per-row activation scales, a
+// static or dynamic context scale, an optional calibrated softmax shift.
 //
 // The TPU runs each half of a layer as one Pallas kernel
 // (jcf_tpu/ops/block_kernel.py::_attn_half_int8_kernel and
 // ::_mlp_half_int8_kernel) because VMEM holds a whole crop tile plus the
 // layer's weights. On the H100 a half is a few launches instead: this
-// file's LayerNorm+quant row kernel and attention kernel, and the int8
-// tensor-core GEMM with fused epilogues in int8_gemm.cu. Every
-// intermediate between them is int8 or bf16, so the round trips through
-// device memory stay at 1-2 bytes per activation.
+// file's LayerNorm+quant row kernel, attention kernel and row-quant
+// kernel, and the int8 tensor-core GEMM with fused epilogues in
+// int8_gemm.cu. With static scales every intermediate between them is
+// int8 or bf16, so the round trips through device memory stay at 1-2
+// bytes per activation; a dynamic context or hidden scale adds one f32
+// round trip of that activation (its row amax spans blocks).
 #include "common.cuh"
 #include "pair_attention.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// LayerNorm z-norm + static int8 quantization of bf16 rows
+// LayerNorm z-norm + static or dynamic int8 quantization of bf16 rows
 // ---------------------------------------------------------------------------
 //
 // Replaces the head of both halves: _ln_norm (the LN affine is folded into
 // the next projection's weights) then _quant_rows_static:
 //   q = clip(round(((x - mean) * rsqrt(var + 1e-5)) * ln_inv), -127, 127)
+// or, without a calibrated ln_inv, _quant_rows (DYN below).
 // Bound on the H100: bytes (2 B in, 1 B out per element). One warp per
 // row, the row held in registers across both reductions.
 
 constexpr int LNQ_WARPS = 8;
 constexpr int LNQ_PER = 32;  // E <= 1024
 
+// DYN: no calibrated scale; the row's own (_ln_norm then _quant_rows):
+//   z = (x - mean) * rsqrt(var + 1e-5), amax = max(max |z|, 1e-8),
+//   q = clip(round(z * (127 / amax))), scale = amax * f32(1/127)
+// (a reciprocal multiply, as the reference; ops.quant.quantize_rows of
+// the composable tower divides, which rounds differently).
+template <bool DYN>
 __global__ void __launch_bounds__(LNQ_WARPS * 32) ln_quant_kernel(
     const bf16* __restrict__ x, const float* __restrict__ inv_p,
-    int8_t* __restrict__ out, int M, int E) {
+    int8_t* __restrict__ out, float* __restrict__ scale, int M, int E) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * LNQ_WARPS + (threadIdx.x >> 5);
   if (row >= M) return;
@@ -41,7 +52,18 @@ __global__ void __launch_bounds__(LNQ_WARPS * 32) ln_quant_kernel(
     v[k] = j < E ? bf2f(xr[j]) : 0.0f;
   }
   const float2 st = warp_row_stats<LNQ_PER>(v, lane, E);
-  const float inv = *inv_p;
+  float inv;
+  if (DYN) {
+    float amax = 0.0f;
+#pragma unroll
+    for (int k = 0; k < LNQ_PER; ++k)
+      if (lane + 32 * k < E) amax = fmaxf(amax, fabsf(__fmul_rn(__fsub_rn(v[k], st.x), st.y)));
+    amax = fmaxf(warp_max(amax), 1e-8f);
+    inv = __fdiv_rn(127.0f, amax);
+    if (lane == 0) scale[row] = __fmul_rn(amax, 1.0f / 127.0f);
+  } else {
+    inv = *inv_p;
+  }
   int8_t* o = out + row * E;
 #pragma unroll
   for (int k = 0; k < LNQ_PER; ++k) {
@@ -51,27 +73,93 @@ __global__ void __launch_bounds__(LNQ_WARPS * 32) ln_quant_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// per-crop attention with the static context quantization folded in
+// dynamic per-row int8 quantization of f32 rows (_quant_rows), optionally
+// after QuickGELU in its tanh form (_quick_gelu32)
+// ---------------------------------------------------------------------------
+//
+// Replaces the reference's in-kernel quantizations that have no
+// calibrated scale: the attention context over a whole E-wide row (all
+// head pairs, which block.cu's attention spreads over E / 128 blocks, so
+// the context comes here as f32), and the MLP hidden over all 3072
+// columns (_MLP_NSPLIT = 1) after the c_fc GEMM's f32 epilogue:
+//   g = GELU ? h * (0.5 + 0.5 tanh(0.851 h)) : h
+//   amax = max(max |g|, 1e-8), q = clip(round(g * (127 / amax))),
+//   scale = amax * f32(1/127)
+// Bound on the H100: bytes (4 B in, 1 B out per element). One block per
+// row, the row in registers (QR_PER values a thread) across the block
+// reduction.
+
+constexpr int QR_THREADS = 256;
+constexpr int QR_PER = 16;  // N <= 4096
+
+template <bool GELU>
+__global__ void __launch_bounds__(QR_THREADS) quant_rows_kernel(
+    const float* __restrict__ x, int8_t* __restrict__ out, float* __restrict__ scale, int N) {
+  __shared__ float red[QR_THREADS / 32];
+  const long long row = blockIdx.x;
+  const float* xr = x + row * N;
+  float v[QR_PER];
+  float amax = 0.0f;
+#pragma unroll
+  for (int k = 0; k < QR_PER; ++k) {
+    const int j = threadIdx.x + QR_THREADS * k;
+    float g = 0.0f;
+    if (j < N) {
+      g = xr[j];
+      if (GELU)
+        g = __fmul_rn(g, __fadd_rn(0.5f, __fmul_rn(0.5f, tanhf(__fmul_rn(0.851f, g)))));
+    }
+    v[k] = g;
+    amax = fmaxf(amax, fabsf(g));
+  }
+  amax = warp_max(amax);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
+  __syncthreads();
+  amax = red[0];
+#pragma unroll
+  for (int w = 1; w < QR_THREADS / 32; ++w) amax = fmaxf(amax, red[w]);
+  amax = fmaxf(amax, 1e-8f);
+  const float inv = __fdiv_rn(127.0f, amax);
+  if (threadIdx.x == 0) scale[row] = __fmul_rn(amax, 1.0f / 127.0f);
+  int8_t* o = out + row * N;
+#pragma unroll
+  for (int k = 0; k < QR_PER; ++k) {
+    const int j = threadIdx.x + QR_THREADS * k;
+    if (j < N) o[j] = round_clip_int8(__fmul_rn(v[k], inv));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// per-crop attention
 // ---------------------------------------------------------------------------
 //
 // Replaces the attention section of _attn_half_int8_kernel
 // (_batched_attention -> _paired_attention_nomask), folded tree (1/sqrt(d)
-// already in q), static ctx scale: one block per (crop, head pair) loads
-// the pair's q, k (transposed) and v into shared memory and runs the row
-// loop of pair_attention.cuh, which keeps the reference's pair shift
-// max(0, pair max). That is why a block owns a pair of heads.
+// already in q): one block per (crop, head pair) loads the pair's q, k
+// (transposed) and v into shared memory and runs the row loop of
+// pair_attention.cuh, which keeps the reference's pair shift max(0, pair
+// max) or takes the calibrated shift. That is why a block owns a pair of
+// heads. With a static context scale the loop writes the int8 context;
+// without one it writes the f32 context, and quant_rows_kernel quantizes
+// each E-wide row after it: a row's amax spans every pair, and a block
+// owning a whole crop would need E / 128 times the shared memory (over
+// the card's 227 KB from S = 50 on).
 //
 // Bound on the H100: at S = 50, D = 64 the block's work (2 heads x 50 x
 // 50 x 64 x 2 MACs) is small next to launching a tensor-core pipeline,
 // so it runs on the CUDA cores from shared memory. qkv is read once and
-// the int8 context written once.
+// the context written once. S up to 127 (the reference's dense rows pad
+// to at most 128): KB = 4 blocks of 32 keys a lane, 105,664 B of shared
+// memory at S = 127.
 
 constexpr int ATT_WARPS = 8;
 
+template <int KB, bool F32_OUT>
 __global__ void __launch_bounds__(ATT_WARPS * 32) attention_kernel(
     const bf16* __restrict__ qkv,       // [n_crops * S, 3E]
-    const float* __restrict__ ctx_inv,  // scalar
-    int8_t* __restrict__ out,           // [n_crops * S, E]
+    const float* __restrict__ ctx_inv,  // scalar (static ctx)
+    const float* __restrict__ shift,    // scalar, or null for the pair max
+    void* __restrict__ out,             // [n_crops * S, E] int8, or f32
     int S, int H, int D) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int E = H * D, D2 = 2 * D, n_pairs = H / 2;
@@ -91,25 +179,31 @@ __global__ void __launch_bounds__(ATT_WARPS * 32) attention_kernel(
     v_s[idx] = r[2 * E];
   }
   __syncthreads();
-  pair_attention_rows(q_s, kt_s, v_s, p_s, S, D, *ctx_inv, out + crop * S * E + pair * D2, E,
-                      ATT_WARPS);
+  const long long off = crop * S * E + pair * D2;
+  void* o = F32_OUT ? static_cast<void*>(static_cast<float*>(out) + off)
+                    : static_cast<void*>(static_cast<int8_t*>(out) + off);
+  pair_attention_rows_t<KB, F32_OUT>(q_s, kt_s, v_s, p_s, S, D, shift,
+                                     F32_OUT ? 0.0f : *ctx_inv, o, E, ATT_WARPS);
 }
 
 // ---------------------------------------------------------------------------
 // CLS-query attention of the last layer (K5)
 // ---------------------------------------------------------------------------
 //
-// Replaces the attention section of _attn_cls_int8_kernel (folded tree,
-// static ctx scale): only each crop's CLS row queries, against the K/V of
-// all S rows. For one crop and one head pair (lo, hi):
+// Replaces the attention section of _attn_cls_int8_kernel (folded tree):
+// only each crop's CLS row queries, against the K/V of all S rows. For
+// one crop and one head pair (lo, hi):
 //   s      = q . k                               (bf16 inputs, f32 sums)
 //   m      = max over both heads' keys of s, and 0 when S < 64 (the
-//            reference's zero-padded 64-key halves score exactly 0)
+//            reference's zero-padded 64-key halves score exactly 0); or
+//            the layer's calibrated score_shift where the tree has one
 //   p_     = exp(s - m)                          (f32)
 //   ctx_u  = sum_j bf16(p_j) v_j                 (f32)
 //   l      = sum_j p_j                           (f32 p_, not bf16: the
 //                                                 normalizer of K5, unlike K3)
-//   out    = int8(round(ctx_u * (ctx_inv / max(l, 1e-30))))
+//   out    = int8(round(ctx_u * (ctx_inv / max(l, 1e-30))))   (static ctx)
+//          = ctx_u * (1 / max(l, 1e-30)), f32 (dynamic ctx: quant_rows
+//            quantizes each CLS row over all pairs afterwards)
 //
 // Bound on the H100: bytes. A crop's K/V (2 x 50 x 768 bf16) is read
 // once and its work is 2 x 50 x 64 MACs per head twice, so one warp owns
@@ -122,11 +216,13 @@ __global__ void __launch_bounds__(ATT_WARPS * 32) attention_kernel(
 constexpr int CLS_WARPS = 4;
 constexpr int CLS_MAX_S = 64;
 
+template <bool F32_OUT>
 __global__ void __launch_bounds__(CLS_WARPS * 32) cls_attention_kernel(
     const bf16* __restrict__ q,         // [n_crops, E] (CLS rows)
     const bf16* __restrict__ kv,        // [n_crops * S, 2E]: [k | v]
-    const float* __restrict__ ctx_inv,  // scalar
-    int8_t* __restrict__ out,           // [n_crops, E]
+    const float* __restrict__ ctx_inv,  // scalar (static ctx)
+    const float* __restrict__ shift,    // scalar, or null for the pair max
+    void* __restrict__ out,             // [n_crops, E] int8, or f32
     int n_crops, int S, int H) {
   __shared__ float sc[CLS_WARPS][2][CLS_MAX_S];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -159,9 +255,14 @@ __global__ void __launch_bounds__(CLS_WARPS * 32) cls_attention_kernel(
   }
   __syncwarp();
   // the pair shift over both heads' scores (and the pad keys' 0)
-  float m = S < CLS_MAX_S ? 0.0f : -INFINITY;
-  for (int j = lane; j < S; j += 32) m = fmaxf(m, fmaxf(s[0][j], s[1][j]));
-  m = warp_max(m);
+  float m;
+  if (shift != nullptr) {
+    m = *shift;
+  } else {
+    m = S < CLS_MAX_S ? 0.0f : -INFINITY;
+    for (int j = lane; j < S; j += 32) m = fmaxf(m, fmaxf(s[0][j], s[1][j]));
+    m = warp_max(m);
+  }
   float l0 = 0.0f, l1 = 0.0f;
   for (int j = lane; j < S; j += 32) {
     const float p0 = expf(__fsub_rn(s[0][j], m)), p1 = expf(__fsub_rn(s[1][j], m));
@@ -182,46 +283,96 @@ __global__ void __launch_bounds__(CLS_WARPS * 32) cls_attention_kernel(
 #pragma unroll
     for (int t = 0; t < 4; ++t) acc[t] = fmaf(p, bf2f(b[t]), acc[t]);
   }
-  const float r = __fdiv_rn(*ctx_inv, fmaxf(l, 1e-30f));
-  char4 o;
-  o.x = round_clip_int8(__fmul_rn(acc[0], r));
-  o.y = round_clip_int8(__fmul_rn(acc[1], r));
-  o.z = round_clip_int8(__fmul_rn(acc[2], r));
-  o.w = round_clip_int8(__fmul_rn(acc[3], r));
-  *reinterpret_cast<char4*>(out + crop * E + col) = o;
+  const float r = __fdiv_rn(F32_OUT ? 1.0f : *ctx_inv, fmaxf(l, 1e-30f));
+  if (F32_OUT) {
+    *reinterpret_cast<float4*>(static_cast<float*>(out) + crop * E + col) =
+        make_float4(__fmul_rn(acc[0], r), __fmul_rn(acc[1], r), __fmul_rn(acc[2], r),
+                    __fmul_rn(acc[3], r));
+  } else {
+    char4 o;
+    o.x = round_clip_int8(__fmul_rn(acc[0], r));
+    o.y = round_clip_int8(__fmul_rn(acc[1], r));
+    o.z = round_clip_int8(__fmul_rn(acc[2], r));
+    o.w = round_clip_int8(__fmul_rn(acc[3], r));
+    *reinterpret_cast<char4*>(static_cast<int8_t*>(out) + crop * E + col) = o;
+  }
 }
 
 }  // namespace
 
-extern "C" int jcf_cls_attention(const void* q, const void* kv, const void* ctx_inv, void* out,
-                                 int n_crops, int S, int H, void* stream) {
+// f32_out: write the f32 context (no ctx_inv); shift: null for the pair max
+extern "C" int jcf_cls_attention(const void* q, const void* kv, const void* ctx_inv,
+                                 const void* shift, void* out, int n_crops, int S, int H,
+                                 int f32_out, void* stream) {
+  if (S < 1 || S > CLS_MAX_S || H < 2 || H % 2) return (int)cudaErrorInvalidValue;
   const long long items = (long long)n_crops * (H / 2);
   const unsigned blocks = (unsigned)((items + CLS_WARPS - 1) / CLS_WARPS);
-  cls_attention_kernel<<<blocks, CLS_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(kv),
-      static_cast<const float*>(ctx_inv), static_cast<int8_t*>(out), n_crops, S, H);
+  const bf16* q_ = static_cast<const bf16*>(q);
+  const bf16* kv_ = static_cast<const bf16*>(kv);
+  const float* ci = static_cast<const float*>(ctx_inv);
+  const float* sh = static_cast<const float*>(shift);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (f32_out)
+    cls_attention_kernel<true><<<blocks, CLS_WARPS * 32, 0, st>>>(q_, kv_, ci, sh, out, n_crops, S, H);
+  else
+    cls_attention_kernel<false><<<blocks, CLS_WARPS * 32, 0, st>>>(q_, kv_, ci, sh, out, n_crops, S, H);
   return (int)cudaGetLastError();
 }
 
-extern "C" int jcf_ln_quant(const void* x, const void* inv, void* out, int M, int E,
+// inv null: the dynamic variant, writing each row's scale to scale[M]
+extern "C" int jcf_ln_quant(const void* x, const void* inv, void* out, void* scale, int M, int E,
                             void* stream) {
+  if (E < 1 || E > 32 * LNQ_PER) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((M + LNQ_WARPS - 1) / LNQ_WARPS);
-  ln_quant_kernel<<<blocks, LNQ_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(inv),
-      static_cast<int8_t*>(out), M, E);
+  const bf16* x_ = static_cast<const bf16*>(x);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (inv == nullptr)
+    ln_quant_kernel<true><<<blocks, LNQ_WARPS * 32, 0, st>>>(
+        x_, nullptr, static_cast<int8_t*>(out), static_cast<float*>(scale), M, E);
+  else
+    ln_quant_kernel<false><<<blocks, LNQ_WARPS * 32, 0, st>>>(
+        x_, static_cast<const float*>(inv), static_cast<int8_t*>(out), nullptr, M, E);
   return (int)cudaGetLastError();
 }
 
-extern "C" int jcf_attention(const void* qkv, const void* ctx_inv, void* out, int n_crops,
-                             int S, int H, int D, void* stream) {
-  const size_t smem = (size_t)3 * S * 2 * D * sizeof(bf16) + (size_t)ATT_WARPS * 2 * S * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  }
-  const long long blocks = (long long)n_crops * (H / 2);
-  attention_kernel<<<(unsigned)blocks, ATT_WARPS * 32, smem, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(ctx_inv),
-      static_cast<int8_t*>(out), S, H, D);
+extern "C" int jcf_quant_rows(const void* x, void* out, void* scale, int M, int N, int gelu,
+                              void* stream) {
+  if (N < 1 || N > QR_THREADS * QR_PER) return (int)cudaErrorInvalidValue;
+  const float* x_ = static_cast<const float*>(x);
+  int8_t* o = static_cast<int8_t*>(out);
+  float* sc = static_cast<float*>(scale);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (gelu)
+    quant_rows_kernel<true><<<(unsigned)M, QR_THREADS, 0, st>>>(x_, o, sc, N);
+  else
+    quant_rows_kernel<false><<<(unsigned)M, QR_THREADS, 0, st>>>(x_, o, sc, N);
   return (int)cudaGetLastError();
+}
+
+template <int KB, bool F32_OUT>
+static int launch_attention(const bf16* qkv, const float* ctx_inv, const float* shift, void* out,
+                            int n_crops, int S, int H, int D, cudaStream_t stream) {
+  const size_t smem =
+      (size_t)3 * S * 2 * D * sizeof(bf16) + (size_t)ATT_WARPS * 2 * S * sizeof(float);
+  const int err = set_smem(attention_kernel<KB, F32_OUT>, smem);
+  if (err) return err;
+  const long long blocks = (long long)n_crops * (H / 2);
+  attention_kernel<KB, F32_OUT><<<(unsigned)blocks, ATT_WARPS * 32, smem, stream>>>(
+      qkv, ctx_inv, shift, out, S, H, D);
+  return (int)cudaGetLastError();
+}
+
+// f32_out: write the f32 context (no ctx_inv); shift: null for the pair max
+extern "C" int jcf_attention(const void* qkv, const void* ctx_inv, const void* shift, void* out,
+                             int n_crops, int S, int H, int D, int f32_out, void* stream) {
+  if (S < 1 || S > 128 || H < 2 || H % 2) return (int)cudaErrorInvalidValue;
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const float* ci = static_cast<const float*>(ctx_inv);
+  const float* sh = static_cast<const float*>(shift);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (S <= 64)
+    return f32_out ? launch_attention<2, true>(q, ci, sh, out, n_crops, S, H, D, st)
+                   : launch_attention<2, false>(q, ci, sh, out, n_crops, S, H, D, st);
+  return f32_out ? launch_attention<4, true>(q, ci, sh, out, n_crops, S, H, D, st)
+                 : launch_attention<4, false>(q, ci, sh, out, n_crops, S, H, D, st);
 }

@@ -17,6 +17,14 @@
 //   EPI_ROWSCALE  bf16((acc * row_scale[m]) * scale[n] + bias[n])
 //                 (the dynamic per-row int8 linear of the composable tower,
 //                 jcf_tpu/ops/quant.py::int8_linear, in its op order)
+// and, for the fused tower's dynamic activation scales, the fused
+// kernels' op order (acc * scale[n]) * row_scale[m] + bias[n]
+// (block_kernel.py::_int8_gemm), that is, y_r below:
+//   EPI_BF16_ROWS   bf16(y_r)             (qkv; K5's K/V and CLS Q)
+//   EPI_RESID_ROWS  bf16(resid + y_r)     (out-proj after a dynamic ctx,
+//                                          c_proj after a dynamic hidden)
+//   EPI_F32         f32(acc * scale[n] + bias[n])  (c_fc before a dynamic
+//   EPI_F32_ROWS    f32(y_r)                        hidden quantization)
 // Epilogue arithmetic uses the _rn intrinsics so it rounds exactly like
 // the separate elementwise ops of the reference and the plain version.
 //
@@ -33,14 +41,17 @@
 
 namespace {
 
-enum { EPI_S32 = 0, EPI_BF16 = 1, EPI_RESID = 2, EPI_GELU_Q = 3, EPI_ROWSCALE = 4 };
+enum {
+  EPI_S32 = 0, EPI_BF16 = 1, EPI_RESID = 2, EPI_GELU_Q = 3, EPI_ROWSCALE = 4,
+  EPI_BF16_ROWS = 5, EPI_RESID_ROWS = 6, EPI_F32 = 7, EPI_F32_ROWS = 8
+};
 
 constexpr int BM = 128, BN = 128, BK = 64;
 constexpr int LDS = BK + 16;  // padded shared row, bytes
 constexpr int GEMM_THREADS = 256;
 
 struct Epilogue {
-  void* out;               // [M, N] int32 / bf16 / int8
+  void* out;               // [M, N] int32 / bf16 / f32 / int8
   const float* scale;      // [N]
   const float* bias;       // [N]
   const bf16* resid;       // [M, N]
@@ -60,15 +71,22 @@ __device__ __forceinline__ void store_pair(const Epilogue& ep, int m, int n, int
     a0 = __fmul_rn(a0, ep.row_scale[m]);
     a1 = __fmul_rn(a1, ep.row_scale[m]);
   }
-  const float y0 = __fadd_rn(__fmul_rn(a0, ep.scale[n]), ep.bias[n]);
-  const float y1 = __fadd_rn(__fmul_rn(a1, ep.scale[n + 1]), ep.bias[n + 1]);
-  if (EPI == EPI_BF16 || EPI == EPI_ROWSCALE) {
+  float y0 = __fmul_rn(a0, ep.scale[n]), y1 = __fmul_rn(a1, ep.scale[n + 1]);
+  if (EPI == EPI_BF16_ROWS || EPI == EPI_RESID_ROWS || EPI == EPI_F32_ROWS) {
+    y0 = __fmul_rn(y0, ep.row_scale[m]);
+    y1 = __fmul_rn(y1, ep.row_scale[m]);
+  }
+  y0 = __fadd_rn(y0, ep.bias[n]);
+  y1 = __fadd_rn(y1, ep.bias[n + 1]);
+  if (EPI == EPI_BF16 || EPI == EPI_ROWSCALE || EPI == EPI_BF16_ROWS) {
     *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(ep.out) + idx) =
         __floats2bfloat162_rn(y0, y1);
-  } else if (EPI == EPI_RESID) {
+  } else if (EPI == EPI_RESID || EPI == EPI_RESID_ROWS) {
     const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(ep.resid + idx);
     *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(ep.out) + idx) =
         __floats2bfloat162_rn(__fadd_rn(__low2float(r), y0), __fadd_rn(__high2float(r), y1));
+  } else if (EPI == EPI_F32 || EPI == EPI_F32_ROWS) {
+    *reinterpret_cast<float2*>(static_cast<float*>(ep.out) + idx) = make_float2(y0, y1);
   } else {
     const float c = *ep.gelu_c;
     const float g0 = __fmul_rn(y0, __fadd_rn(0.5f, __fmul_rn(0.5f, tanhf(__fmul_rn(c, y0)))));
@@ -179,11 +197,18 @@ extern "C" int jcf_int8_gemm(const void* A, const void* B, void* out, int M, int
   const int8_t* b = static_cast<const int8_t*>(B);
   cudaStream_t s = (cudaStream_t)stream;
   switch (epilogue) {
-    case EPI_S32: int8_gemm_kernel<EPI_S32><<<grid, GEMM_THREADS, 0, s>>>(a, b, M, N, K, ep); break;
-    case EPI_BF16: int8_gemm_kernel<EPI_BF16><<<grid, GEMM_THREADS, 0, s>>>(a, b, M, N, K, ep); break;
-    case EPI_RESID: int8_gemm_kernel<EPI_RESID><<<grid, GEMM_THREADS, 0, s>>>(a, b, M, N, K, ep); break;
-    case EPI_GELU_Q: int8_gemm_kernel<EPI_GELU_Q><<<grid, GEMM_THREADS, 0, s>>>(a, b, M, N, K, ep); break;
-    case EPI_ROWSCALE: int8_gemm_kernel<EPI_ROWSCALE><<<grid, GEMM_THREADS, 0, s>>>(a, b, M, N, K, ep); break;
+#define JCF_EPI(E) \
+  case E: int8_gemm_kernel<E><<<grid, GEMM_THREADS, 0, s>>>(a, b, M, N, K, ep); break;
+    JCF_EPI(EPI_S32)
+    JCF_EPI(EPI_BF16)
+    JCF_EPI(EPI_RESID)
+    JCF_EPI(EPI_GELU_Q)
+    JCF_EPI(EPI_ROWSCALE)
+    JCF_EPI(EPI_BF16_ROWS)
+    JCF_EPI(EPI_RESID_ROWS)
+    JCF_EPI(EPI_F32)
+    JCF_EPI(EPI_F32_ROWS)
+#undef JCF_EPI
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

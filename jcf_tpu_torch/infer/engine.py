@@ -2,15 +2,29 @@
 
 ``TTAEngine.features_from_images`` runs the path ``bench.py`` times on a
 TPU, in the configuration it ships there (``_CLS_ATTNQ = True``), for
-towers under 128 tokens (ViT-B/32's 50):
+towers under 128 tokens (ViT-B/32's 50, or 82 at 288²):
 
   source images [B, 3, H, W] bf16 + crop geometry (center + random views)
-  -> K1 int8 views [B, N, 3, 224, 224]          (ops.view_kernel)
+  -> K1 int8 views [B, N, 3, res, res]          (ops.view_kernel)
   -> im2col (a permute) + int8 GEMM -> int32    (ops.int8_gemm)
   -> K2 flat bf16 rows [B' * S, E]              (ops.assemble_kernel)
-  -> int8 tower, K3/K4 per layer, the last as K5 + K4 on the CLS rows
-                                                (ops.block_kernel)
+  -> int8 tower, K3/K4 per layer; the last layer's attention half K5 on
+     the CLS rows (S <= 64) or K3 on all rows (65 to 127 tokens), then
+     K4 on the CLS rows                         (ops.block_kernel)
   -> ln_post, proj, L2 norm -> MTA modes [B, D] (models.clip, tta.mta)
+
+Below 128 tokens the int8 tower takes the folded tree in one of the JAX
+engine's quantization modes: without ``calibration_images`` every
+activation scale is dynamic per row; with them the post-LN scales are
+static, and ``static_quant_mode`` makes more of them static: "ln" (only
+those), "hidden" (+ the post-GELU hidden), "full" (+ the attention
+context), each optionally "+score" (the calibrated softmax shift).
+
+``features_from_crops`` (and its two halves ``crop_features`` and
+``mta_from_features``) encodes given crops [B, N, 3, res, res],
+CLIP-normalized f32, the JAX engine's ``_encode_cloud``: the float patch
+embedding in the compute dtype, CLS, positions, ``ln_pre``, every layer on
+every row (K3 + K4, no K5), ``ln_post`` and ``proj`` on the CLS rows.
 
 From 128 tokens on (ViT-B/16's 197) it takes the route the JAX engine
 takes there, whose fold and assembly gates need fewer than 128 tokens:
@@ -29,13 +43,16 @@ overlap), as ``bench.py`` certifies the JAX int8 engine.
 The engine runs on one ``device``, the CUDA card unless the caller asks
 for another. Calibration runs the f32 tower on a CUDA device, so full-f32
 matmuls (``torch.backends.cuda.matmul.allow_tf32 = False``) are required
-there. The classifier it scores against is the [C, D] output of
-``pipelines.common.build_text_weights`` (or any unit-norm [C, D] tensor).
+there; the bf16 patch embedding of ``crop_features`` on the card needs
+``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction =
+False`` (``ops.layers.linear``). The classifier it scores against is the
+[C, D] output of ``pipelines.common.build_text_weights`` (or any
+unit-norm [C, D] tensor).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -45,6 +62,7 @@ from jcf_tpu_torch.models.clip import (
     CLIPConfig,
     _patchify,
     encode_cls_tail,
+    encode_image,
     encode_image_tokens,
     fold_normalize_into_embed,
     tree_to,
@@ -52,16 +70,21 @@ from jcf_tpu_torch.models.clip import (
 )
 from jcf_tpu_torch.ops.assemble_kernel import assemble_dense_rows, make_cls_row
 from jcf_tpu_torch.ops.attention import BLOCKED_MIN_SEQ
-from jcf_tpu_torch.ops.block_kernel import run_fused_tower
+from jcf_tpu_torch.ops.block_kernel import check_dense_tower, run_fused_tower
 from jcf_tpu_torch.ops.int8_gemm import int8_gemm_s32
 from jcf_tpu_torch.ops.layers import l2_normalize
 from jcf_tpu_torch.ops.quant import quantize_clip_params, true_div
 from jcf_tpu_torch.ops.view_kernel import (
+    CROP_SCALE,
     fused_views_nchw,
     fused_views_nchw_plain,
     sample_view_centers,
 )
 from jcf_tpu_torch.tta.mta import solve_mta_batch
+
+# static_quant_mode's base -> the quantizations beside the post-LN pair
+# that go static (jcf_tpu/infer/engine.py:384-401)
+STATIC_MODES = {"ln": (), "hidden": ("hidden",), "full": ("ctx", "hidden")}
 
 
 def _embed_quant(w4f: torch.Tensor, fb: torch.Tensor):
@@ -76,20 +99,36 @@ def _embed_quant(w4f: torch.Tensor, fb: torch.Tensor):
     return k_q, true_div(kscale, 254.0), bias_i8
 
 
+def static_act(static_quant_mode: str):
+    """"<base>[+score]" -> (``act_static`` for ``quantize_clip_params``,
+    whether the calibration takes the score columns). Raises
+    ``ValueError`` on any other mode."""
+    base, _, suffix = static_quant_mode.partition("+")
+    if base not in STATIC_MODES or suffix not in ("", "score"):
+        raise ValueError(f"unknown static_quant_mode {static_quant_mode!r}")
+    with_scores = suffix == "score"
+    return STATIC_MODES[base] + (("score",) if with_scores else ()), with_scores
+
+
 class TTAEngine:
-    """Images -> MTA mode features / logits on one device.
+    """Images or crops -> MTA mode features / logits on one device.
 
     params: the CLIP param tree (f32 CPU tensors, ``models.clip`` layout).
-    quant: "int8" (the serving slice; below 128 tokens it needs
-    ``calibration_images``, from 128 on it ignores them, as the JAX engine
-    does) or None (the plain f32 reference).
+    quant: "int8" (below 128 tokens the folded tree with dynamic scales,
+    or with ``calibration_images`` the static scales that
+    ``static_quant_mode`` names; from 128 on the unfolded tree, both
+    ignored, as the JAX engine does) or None (the plain f32 reference).
+    crop_scale: the random views' area range, a share of the source's.
     """
 
     def __init__(self, params: dict, cfg: CLIPConfig, *, device="cuda", n_views: int = 8,
-                 quant: Optional[str] = "int8", calibration_images=None):
+                 quant: Optional[str] = "int8", calibration_images=None,
+                 static_quant_mode: str = "full",
+                 crop_scale: Tuple[float, float] = CROP_SCALE):
         self.cfg = cfg
         self.device = torch.device(device)
         self.n_views = n_views  # random views per image; the center view is added
+        self.crop_scale = tuple(crop_scale)
         self.quant = quant
         dev = self.device
         v = params["visual"]
@@ -99,6 +138,7 @@ class TTAEngine:
         if quant is None:
             self.dtype = torch.float32
             self._params = {"visual": tree_to(v, dev)}
+            self._quant = None
             self._w_embed = w4.permute(3, 0, 1, 2).reshape(w4.shape[3], -1).to(dev)
             self._b_embed = fold_bias.to(dev)
             return
@@ -106,33 +146,32 @@ class TTAEngine:
             raise ValueError(f"unknown quant mode {quant!r}")
         self.dtype = torch.bfloat16
         self._k_q, self._k_scale, self._k_bias = _embed_quant(w4.to(dev), fold_bias.to(dev))
+        # bf16 copies of the float params, as the JAX engine casts them
+        self._params = {"visual": tree_to(v, dev, torch.bfloat16)}
         if cfg.vision_seq_len >= BLOCKED_MIN_SEQ:
-            # the composable tower: bf16 copies of the float params (as the
-            # JAX engine casts them) and the unfolded tree from the f32 ones
+            # the composable tower: the unfolded tree from the f32 params
             self._quant = quantize_clip_params({"visual": tree_to(v, dev)}, fold=False)["visual"]
-            self._params = {"visual": tree_to(v, dev, torch.bfloat16)}
             return
-        if calibration_images is None:
-            raise NotImplementedError("dynamic activation quantization below 128 tokens is "
-                                      "not ported")
-        if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-            raise RuntimeError("calibration needs full f32 matmuls: set "
-                               "torch.backends.cuda.matmul.allow_tf32 = False")
         params_dev = {"visual": tree_to(v, dev)}
-        amax = vision_ln_z_amax(params_dev, cfg, self._calibration_crops(calibration_images))
+        act_scales, act_static_ = None, ()
+        if calibration_images is not None:
+            if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+                raise RuntimeError("calibration needs full f32 matmuls: set "
+                                   "torch.backends.cuda.matmul.allow_tf32 = False")
+            act_static_, with_scores = static_act(static_quant_mode)
+            amax = vision_ln_z_amax(params_dev, cfg, self._calibration_crops(calibration_images),
+                                    with_scores=with_scores)
+            act_scales = {"visual": amax}
         self._quant = quantize_clip_params(
-            params_dev, heads={"visual": cfg.vision_heads}, act_scales={"visual": amax},
+            params_dev, heads={"visual": cfg.vision_heads}, act_scales=act_scales,
+            act_static=act_static_,
         )["visual"]
-        bf = torch.bfloat16
-        pos = v["positional_embedding"].to(dev, bf)
-        ln_pre = {k: t.to(dev, bf) for k, t in v["ln_pre"].items()}
-        self._pos_tail = pos[1:].contiguous()
-        self._ln_pre = ln_pre
-        self._cls_row = make_cls_row(v["class_embedding"].to(dev, bf), pos[0],
-                                     ln_pre["scale"], ln_pre["bias"])
-        # the tail reads bf16 copies, as the JAX engine casts its params
-        self._params = {"visual": {"ln_post": {k: t.to(dev, bf) for k, t in v["ln_post"].items()},
-                                   "proj": v["proj"].to(dev, bf)}}
+        check_dense_tower(self._quant, cfg.vision_seq_len, cfg.vision_heads)
+        bf16 = self._params["visual"]
+        self._pos_tail = bf16["positional_embedding"][1:].contiguous()
+        self._ln_pre = bf16["ln_pre"]
+        self._cls_row = make_cls_row(bf16["class_embedding"], bf16["positional_embedding"][0],
+                                     self._ln_pre["scale"], self._ln_pre["bias"])
 
     def _calibration_crops(self, images) -> torch.Tensor:
         """The first 32 images as f32 center crops at the model resolution,
@@ -149,7 +188,7 @@ class TTAEngine:
     def sample_geometry(self, generator: torch.Generator, batch: int, src_hw):
         """(cy, cx, inv) for the center view plus ``n_views`` random views."""
         return sample_view_centers(generator, batch, self.n_views + 1, tuple(src_hw),
-                                   self.cfg.image_resolution)
+                                   self.cfg.image_resolution, self.crop_scale)
 
     def _view_features(self, images: torch.Tensor, geometry) -> torch.Tensor:
         """Source images [B, 3, H, W] in [0, 1] and geometry (cy, cx, inv)
@@ -198,6 +237,27 @@ class TTAEngine:
         geometry = tuple(t.to(self.device) for t in geometry)
         feats = self._view_features(images, geometry)
         return solve_mta_batch(feats, text_weights.to(self.device).float())
+
+    def crop_features(self, crops) -> torch.Tensor:
+        """crops [B, N, 3, res, res], CLIP-normalized f32 (row 0 the center
+        view) -> per-view L2-normalized features [B, N, D] f32."""
+        crops = torch.as_tensor(crops).to(self.device)
+        b, n = crops.shape[:2]
+        feats = encode_image(self._params, self.cfg, crops.reshape(b * n, *crops.shape[2:]),
+                             dtype=self.dtype, quant=self._quant)
+        return l2_normalize(feats).float().reshape(b, n, -1)
+
+    def mta_from_features(self, feats: torch.Tensor, text_weights: torch.Tensor) -> torch.Tensor:
+        """Per-view features [B, N, D] -> MTA mode features [B, D] f32: a
+        crop cloud encoded once can be solved against several
+        classifiers."""
+        return solve_mta_batch(torch.as_tensor(feats).to(self.device).float(),
+                               torch.as_tensor(text_weights).to(self.device).float())
+
+    def features_from_crops(self, crops, text_weights) -> torch.Tensor:
+        """crops [B, N, 3, res, res] -> MTA mode features [B, D] f32;
+        ``mta_from_features(crop_features(crops), text_weights)``."""
+        return self.mta_from_features(self.crop_features(crops), text_weights)
 
     def logits(self, modes: torch.Tensor, text_weights: torch.Tensor) -> torch.Tensor:
         return (modes @ text_weights.T) * 100.0

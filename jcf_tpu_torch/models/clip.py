@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from jcf_tpu_torch.ops.attention import causal_mask, multi_head_attention, packed_attention_plain
-from jcf_tpu_torch.ops.block_kernel import run_text_tower
+from jcf_tpu_torch.ops.block_kernel import run_fused_tower, run_text_tower
 from jcf_tpu_torch.ops.layers import layer_norm, layer_slice, linear, mlp, quick_gelu
 
 # CLIP pixel statistics (jcf_tpu/data/transforms.py CLIP_MEAN / CLIP_STD)
@@ -151,11 +151,16 @@ def params_from_numpy(tree) -> dict:
 
 
 def tree_to(tree, device, dtype=None):
-    """A param tree with every tensor moved to ``device`` and, given a
-    ``dtype``, its floating tensors cast to it (no copy where nothing
-    changes)."""
+    """A param or quant tree with every tensor moved to ``device`` and,
+    given a ``dtype``, its floating tensors cast to it (no copy where
+    nothing changes). Dicts and ``QuantizedLinear`` tuples are walked;
+    leaves that are not tensors are kept."""
     if isinstance(tree, dict):
         return {k: tree_to(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(tree_to(v, device, dtype) for v in tree))
+    if not isinstance(tree, torch.Tensor):
+        return tree
     return tree.to(device, dtype if dtype is not None and tree.is_floating_point() else None)
 
 
@@ -175,14 +180,29 @@ def _patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
 
 def _run_blocks(x: torch.Tensor, blocks: dict, n_heads: int, mask: Optional[torch.Tensor], *,
                 lora_ctx: Optional[dict] = None, quant: Optional[dict] = None) -> torch.Tensor:
-    """The stacked residual blocks over [B, S, E] activations, the
-    composable route of ``jcf_tpu``'s ``_run_blocks``: per layer
-    ``x + mha(LN1 x)``, then ``x + mlp(LN2 x)``, in x's dtype. With
-    ``lora_ctx`` (``peft.lora.make_lora_context``) the layers its gates
-    select add the decomposed LoRA branch; the others are unchanged (their
-    branch would add zeros). With ``quant`` (the unfolded tree of
+    """The stacked residual blocks over [B, S, E] activations (``jcf_tpu``'s
+    ``_run_blocks``).
+
+    A folded int8 tree (``quant["quant_folded"]``, serving only) takes the
+    fused tower, ``ops.block_kernel.run_fused_tower`` on the flat rows with
+    every row returned, as the JAX function's fused gate does below 128
+    tokens without a mask or a LoRA context; anywhere else it raises.
+
+    Otherwise the composable route: per layer ``x + mha(LN1 x)``, then
+    ``x + mlp(LN2 x)``, in x's dtype. With ``lora_ctx``
+    (``peft.lora.make_lora_context``) the layers its gates select add the
+    decomposed LoRA branch; the others are unchanged (their branch would
+    add zeros). With ``quant`` (the unfolded tree of
     ``ops.quant.quantize_clip_params(fold=False)``, stacked like
     ``blocks``) every projection is a dynamic per-row int8 linear."""
+    if quant is not None and quant.get("quant_folded", False):
+        b, s, e = x.shape
+        if s >= 128 or mask is not None or lora_ctx is not None:
+            raise ValueError("folded int8 trees are serving-only (the fused tower below 128 tokens, "
+                             "no mask, no LoRA); the composable path needs an unfolded "
+                             "quantize_clip_params(fold=False) tree")
+        rows = run_fused_tower(x.reshape(b * s, e), quant, n_heads, flat_s=s, cls_only=False)
+        return rows.reshape(b, s, e)
     for i in range(blocks["attn"]["w_qkv"].shape[0]):
         layer = layer_slice(blocks, i)
         q_layer = layer_slice(quant, i) if quant is not None else {"attn": None, "mlp": None}
@@ -288,11 +308,15 @@ def encode_text(params: dict, cfg: CLIPConfig, token_ids, *, device="cuda",
                                   ids.argmax(dim=-1), dtype=dtype, lora_ctx=lora_ctx)
 
 
-def vision_ln_z_amax(params: dict, cfg: CLIPConfig, images: torch.Tensor) -> torch.Tensor:
+def vision_ln_z_amax(params: dict, cfg: CLIPConfig, images: torch.Tensor, *,
+                     with_scores: bool = False) -> torch.Tensor:
     """Per-layer activation amax of the vision tower over calibration crops
     [B, 3, res, res] -> [L, 4] f32: z-normalized LN1 input, z-normalized
-    LN2 input, attention context, post-QuickGELU hidden. Plain f32
-    forward (``jcf_tpu`` ``vision_ln_z_amax`` without ``with_scores``)."""
+    LN2 input, attention context, post-QuickGELU hidden. ``with_scores``
+    appends the amax of the scaled scores q.k / sqrt(d) and the least row
+    max of those scores -> [L, 6], the calibration of the max-free softmax
+    shift (``ops.quant.quantize_clip_params``, "score"). Plain f32 forward
+    (``jcf_tpu`` ``vision_ln_z_amax``)."""
     v = params["visual"]
     x = linear(_patchify(images.float(), cfg.vision_patch_size),
                v["patch_embed"]["w"].float())
@@ -306,14 +330,23 @@ def vision_ln_z_amax(params: dict, cfg: CLIPConfig, images: torch.Tensor) -> tor
         return ((t - mu) * torch.rsqrt(var + 1e-5)).abs().max()
 
     blocks = v["blocks"]
+    n_heads = cfg.vision_heads
+    head_dim = cfg.vision_width // n_heads
     rows = []
     for i in range(blocks["attn"]["w_qkv"].shape[0]):
         layer = layer_slice(blocks, i)
         a1 = z_amax(x)
         h1 = layer_norm(x, layer["ln_1"]["scale"], layer["ln_1"]["bias"])
+        qkv = linear(h1, layer["attn"]["w_qkv"], layer["attn"]["b_qkv"])
+        cols = []
+        if with_scores:
+            b, s, _ = qkv.shape
+            q, k = qkv[..., : 2 * cfg.vision_width].reshape(b, s, 2, n_heads, head_dim).unbind(2)
+            sc = torch.einsum("bqhd,bkhd->bhqk", q, k) / qkv.new_tensor(math.sqrt(head_dim))
+            # the weakest row's max bounds how far above any row a shift may sit
+            cols = [sc.abs().max(), sc.amax(dim=-1).min()]
         # the plain attention, as the JAX function's impl="xla"
-        ctx = packed_attention_plain(linear(h1, layer["attn"]["w_qkv"], layer["attn"]["b_qkv"]),
-                                     cfg.vision_heads)
+        ctx = packed_attention_plain(qkv, n_heads)
         a_ctx = ctx.abs().max()
         x = x + (torch.matmul(ctx, layer["attn"]["w_out"].T) + layer["attn"]["b_out"])
         a2 = z_amax(x)
@@ -323,7 +356,7 @@ def vision_ln_z_amax(params: dict, cfg: CLIPConfig, images: torch.Tensor) -> tor
         a_h = hidden.abs().max()
         x = x + (torch.matmul(hidden, layer["mlp"]["c_proj"]["w"].T)
                  + layer["mlp"]["c_proj"]["b"])
-        rows.append(torch.stack([a1, a2, a_ctx, a_h]))
+        rows.append(torch.stack([a1, a2, a_ctx, a_h, *cols]))
     return torch.stack(rows)
 
 

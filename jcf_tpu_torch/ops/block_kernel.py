@@ -1,17 +1,23 @@
 """The tower halves and the loops over the towers
 (``jcf_tpu/ops/block_kernel.py``).
 
-int8 attention half (K3), on a flat dense row stream x [B' * S, E] bf16:
-  LN z-norm -> static int8 quant -> s8 qkv GEMM -> dequant + bias -> bf16
-  -> per-crop attention (q pre-scaled, pair shift, PV on unnormalized bf16
-  p, normalizer x ctx_inv) -> int8 ctx -> s8 out-proj -> dequant + bias
-  + f32 residual -> bf16.
+int8 attention half (K3), on a flat dense row stream x [B' * S, E] bf16
+(S < 128, never a multiple of 16: the reference's dense route):
+  LN z-norm -> int8 quant (static ``ln_inv``, or dynamic per row) -> s8
+  qkv GEMM -> dequant (x the row scales) + bias -> bf16 -> per-crop
+  attention (q pre-scaled; shift max(0, pair max), or the calibrated
+  ``score_shift``; PV on unnormalized bf16 p; normalizer x ctx_inv) ->
+  int8 ctx (static ``ctx_inv``; or the f32 context quantized per row) ->
+  s8 out-proj -> dequant + bias + f32 residual -> bf16.
 int8 MLP half (K4):
-  LN z-norm -> static int8 quant -> s8 c_fc (h_inv folded) -> QuickGELU
-  in tanh form in the quantized domain -> int8 -> s8 c_proj -> dequant +
-  bias + f32 residual -> bf16.
-int8 CLS-query attention half of the last layer (K5): K/V for all rows,
-  Q, attention, out-proj and residual for the CLS rows only.
+  LN z-norm -> int8 quant (static or dynamic) -> s8 c_fc, then either
+  the static hidden scale h_inv folded in and QuickGELU (tanh form) in
+  the quantized domain, or the f32 hidden, QuickGELU and a dynamic row
+  quantization over all hidden columns -> int8 -> s8 c_proj -> dequant
+  (x the row scales) + bias + f32 residual -> bf16.
+int8 CLS-query attention half of the last layer (K5), S <= 64: K/V for
+  all rows, Q, attention, out-proj and residual for the CLS rows only,
+  in the same quantization modes.
 bf16 attention half (K6a), the text tower's:
   LN (affine cast to bf16, f32 math) -> bf16 qkv GEMM + f32 bias -> causal
   attention (f32 softmax, normalized p cast to bf16 for PV) -> bf16 ctx
@@ -20,12 +26,16 @@ bf16 MLP half (K6b):
   LN -> c_fc + bias -> QuickGELU (tanh form, f32) -> bf16 -> c_proj +
   bias + f32 residual -> bf16.
 
-Each half is a few kernel launches: the row kernels ``ln_quant`` and
-``ln_affine``, the attention kernels ``attention``, ``cls_attention``
-(csrc/block.cu) and ``causal_attention`` (csrc/text_block.cu), and the
-GEMMs with fused epilogues (csrc/int8_gemm.cu, csrc/bf16_gemm.cu). Each
-wrapper launches its kernel for CUDA tensors and runs its plain version
-for CPU tensors.
+Each half is a few kernel launches: the row kernels ``ln_quant``,
+``ln_quant_rows``, ``quant_rows`` and ``ln_affine``, the attention kernels
+``attention``, ``cls_attention`` (csrc/block.cu) and ``causal_attention``
+(csrc/text_block.cu), and the GEMMs with fused epilogues
+(csrc/int8_gemm.cu, csrc/bf16_gemm.cu). Each wrapper launches its kernel
+for CUDA tensors and runs its plain version for CPU tensors. A static
+scale the tree lacks is dynamic. The folded tree's modes
+(``ops.quant.quantize_clip_params``): every scale dynamic; "ln" (static
+post-LN scales); "hidden" (+ the hidden's); "full" (+ the context's);
+each of the three optionally "+score" (the shift).
 
 Whole layers in one kernel (csrc/fused_layer.cu), the TPU's ``_FUSE``
 variants of the same math:
@@ -39,17 +49,20 @@ variants of the same math:
   additive [S, S] bias, f32 mid, QuickGELU in its sigmoid form.
 The MLP's f32 chunk partials (``_MLP_NSPLIT`` for K9a/K9c) are added in
 chunk order. The int8 kernels take the serving flags only (folded tree,
-static "full" scales, dense rows, mask-free attention) and refuse others.
+static "full" scales, dense rows, mask-free attention, S <= 64) and
+refuse other trees on every device.
 
-``run_fused_tower`` is the serving route of the JAX function: dense rows,
-``cls_only``, folded weights, static scales in mode "full". Under
-``_FUSE`` = "halves" (the default) each layer is K3 + K4, under "block"
-K9a and under "layer" K9d, and the last layer as in ``_CLS_ATTNQ = True``
-(K5, then the MLP half on the CLS rows); under "stream" one K9c runs all
-layers on all rows and the CLS rows are taken after it.
+``run_fused_tower`` is the dense mask-free route of the JAX function:
+folded weights in any of the modes above, ``cls_only`` or every row.
+Under ``_FUSE`` = "halves" (the default) each layer is K3 + K4, under
+"block" K9a and under "layer" K9d. With ``cls_only`` the last layer runs
+as the reference's ``_CLS_ATTNQ = True`` route: K5, then the MLP half on
+the CLS rows, for S <= 64; from 65 tokens on K3 on all rows, then K4 on
+the CLS rows. Under "stream" one K9c runs all layers on all rows.
 ``run_text_tower`` is its causal bf16 route (``encode_text``): the halves
 (K6a, K6b), or K9b per layer under "block". The knobs are read at call
-time. The other quant modes are not ported (ROADMAP.md).
+time. The unfolded tree and the masked (``use_mask=True``) attention of
+the int8 kernels are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -64,22 +77,32 @@ from jcf_tpu_torch.ops.bf16_gemm import (
     bf16_gemm_bias,
     bf16_gemm_gelu,
     bf16_gemm_residual,
+    gelu_plain,
     matmul_plain,
 )
 from jcf_tpu_torch.ops.int8_gemm import (
     dequant_plain,
     gelu_quant_plain,
     int8_gemm_bf16,
+    int8_gemm_f32,
     int8_gemm_gelu_quant,
     int8_gemm_residual,
     int8_matmul_plain,
 )
 from jcf_tpu_torch.ops.layers import GELU_TANH_COEF, LN_EPS, layer_slice
 
-# launches of this module's kernels (CUDA tensors only)
-LAUNCHES = {"ln_quant": 0, "attention": 0, "cls_attention": 0, "ln_affine": 0,
-            "causal_attention": 0, "block_int8": 0, "layer_fused_int8": 0,
+# launches of this module's kernels (CUDA tensors only); the int8 row and
+# attention kernels by variant: static scale, or dynamic (``*_rows``,
+# ``*_f32``: the f32 context before its row quantization)
+LAUNCHES = {"ln_quant": 0, "ln_quant_rows": 0, "quant_rows": 0, "gelu_quant_rows": 0,
+            "attention": 0, "attention_f32": 0, "cls_attention": 0, "cls_attention_f32": 0,
+            "ln_affine": 0, "causal_attention": 0, "block_int8": 0, "layer_fused_int8": 0,
             "stream_tower_int8": 0, "block_bf16": 0}
+
+# the dense int8 tower's sequence lengths: below 128 tokens (the attention
+# kernel's keys), and the CLS-query attention up to 64 (one padded half)
+MAX_SEQ = 127
+CLS_MAX_SEQ = 64
 
 # the towers' layer variant, the JAX package's knob of the same name:
 # "halves" (K3 + K4, K6a + K6b), "block" (K9a, and K9b on the text tower),
@@ -110,23 +133,88 @@ def ln_quant_plain(x: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(_z_rows(x) * inv.reshape(())), -127, 127).to(torch.int8)
 
 
+def quant_rows_plain(x: torch.Tensor):
+    """``_quant_rows``: dynamic per-row symmetric int8 of f32 rows x [M, N]
+    -> (int8 [M, N], f32 scales [M]). ``amax = max(max |x|, 1e-8)``, then
+    ``round(x * (127 / amax))`` (a reciprocal multiply, where
+    ``ops.quant.quantize_rows`` divides) clipped to +-127, and the scale
+    ``amax * f32(1/127)``."""
+    amax = torch.clamp_min(x.abs().amax(dim=-1), 1e-8)
+    inv = torch.full_like(amax, 127.0) / amax  # an IEEE division, as 127.0 / amax in JAX
+    q = torch.clamp(torch.round(x * inv[:, None]), -127, 127).to(torch.int8)
+    return q, amax * (1.0 / 127.0)
+
+
+def ln_quant_rows_plain(x: torch.Tensor):
+    """LN z-norm then ``quant_rows_plain`` (``_ln_norm`` + ``_quant_rows``)."""
+    return quant_rows_plain(_z_rows(x))
+
+
+def gelu_quant_rows_plain(h: torch.Tensor):
+    """QuickGELU (``_quick_gelu32``) then ``quant_rows_plain`` on the f32
+    c_fc output."""
+    return quant_rows_plain(gelu_plain(h))
+
+
+def _scalar(name: str, t, device) -> None:
+    if t is not None and (t.numel() != 1 or t.dtype != torch.float32 or t.device != device):
+        raise ValueError(f"{name} must be a one-element f32 tensor on {device}")
+
+
+def _ln_quant_launch(x: torch.Tensor, inv):
+    m, e = x.shape
+    if x.dtype != torch.bfloat16 or e > 1024:
+        raise ValueError(f"ln_quant kernel takes bf16 rows with E <= 1024, got {x.dtype} E={e}")
+    _scalar("inv", inv, x.device)
+    x = x.contiguous()
+    out = torch.empty((m, e), dtype=torch.int8, device=x.device)
+    scale = torch.empty(m, dtype=torch.float32, device=x.device) if inv is None else None
+    name = "ln_quant" if inv is not None else "ln_quant_rows"
+    lib = _build.load()
+    err = lib.jcf_ln_quant(x.data_ptr(), inv.data_ptr() if inv is not None else None,
+                           out.data_ptr(), scale.data_ptr() if scale is not None else None, m, e,
+                           _build.stream_ptr(x.device))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return out, scale
+
+
 def ln_quant(x: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
     """x [M, E] bf16, inv a one-element f32 tensor -> int8 [M, E]."""
     if not x.is_cuda:
         return ln_quant_plain(x, inv)
-    m, e = x.shape
-    if x.dtype != torch.bfloat16 or e > 1024:
-        raise ValueError(f"ln_quant kernel takes bf16 rows with E <= 1024, got {x.dtype} E={e}")
-    if inv.numel() != 1 or inv.dtype != torch.float32 or inv.device != x.device:
-        raise ValueError("inv must be a one-element f32 tensor on the rows' device")
+    return _ln_quant_launch(x, inv)[0]
+
+
+def ln_quant_rows(x: torch.Tensor):
+    """x [M, E] bf16 -> (int8 [M, E], f32 row scales [M]): the LN z-norm
+    and a dynamic per-row quantization (the same kernel as ``ln_quant``,
+    without a calibrated scale)."""
+    if not x.is_cuda:
+        return ln_quant_rows_plain(x)
+    return _ln_quant_launch(x, None)
+
+
+def quant_rows(x: torch.Tensor, *, gelu: bool = False):
+    """Dynamic per-row int8 of f32 rows x [M, N] (N <= 4096) -> (int8
+    [M, N], f32 row scales [M]); with ``gelu``, of QuickGELU(x) (K4's
+    hidden without a static scale)."""
+    if not x.is_cuda:
+        return (gelu_quant_rows_plain if gelu else quant_rows_plain)(x)
+    name = "gelu_quant_rows" if gelu else "quant_rows"
+    if x.dim() != 2 or x.dtype != torch.float32 or x.shape[1] > 4096:
+        raise ValueError(f"{name} kernel takes f32 rows [M, N <= 4096], got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    m, n = x.shape
     x = x.contiguous()
-    out = torch.empty((m, e), dtype=torch.int8, device=x.device)
+    out = torch.empty((m, n), dtype=torch.int8, device=x.device)
+    scale = torch.empty(m, dtype=torch.float32, device=x.device)
     lib = _build.load()
-    err = lib.jcf_ln_quant(x.data_ptr(), inv.data_ptr(), out.data_ptr(), m, e,
-                           _build.stream_ptr(x.device))
-    _build.check(err, "ln_quant")
-    LAUNCHES["ln_quant"] += 1
-    return out
+    err = lib.jcf_quant_rows(x.data_ptr(), out.data_ptr(), scale.data_ptr(), m, n, int(gelu),
+                             _build.stream_ptr(x.device))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return out, scale
 
 
 # ---------------------------------------------------------------------------
@@ -134,15 +222,19 @@ def ln_quant(x: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def attention_plain(qkv: torch.Tensor, ctx_inv: torch.Tensor, s: int, n_heads: int) -> torch.Tensor:
+def attention_plain(qkv: torch.Tensor, ctx_inv, s: int, n_heads: int, shift=None) -> torch.Tensor:
     """Plain version of the attention kernel: qkv [B' * S, 3E] bf16 (q
-    pre-scaled by 1/sqrt(d)) -> int8 context [B' * S, E] with ctx_inv
-    folded into the normalizer.
+    pre-scaled by 1/sqrt(d)) -> the context [B' * S, E]: int8 with the
+    static ``ctx_inv`` folded into the normalizer, or, with ``ctx_inv``
+    None, f32 normalized by 1 / sum (the input of a dynamic row
+    quantization).
 
     The softmax shift is max(0, max over the head PAIR's scores): the
     reference's paired TPU layout takes one max per pair over both heads
     and the zeroed pad keys. The shift cancels in real arithmetic, but it
-    moves the bf16 rounding of p, so it is kept exactly."""
+    moves the bf16 rounding of p, so it is kept exactly. A calibrated
+    ``shift`` (one-element f32, the tree's ``score_shift``) replaces it,
+    with no max and no clamp."""
     rows, e3 = qkv.shape
     e = e3 // 3
     d = e // n_heads
@@ -151,85 +243,107 @@ def attention_plain(qkv: torch.Tensor, ctx_inv: torch.Tensor, s: int, n_heads: i
     q, k, v = t[0], t[1], t[2]
     scores = torch.matmul(q, k.transpose(-1, -2))  # [B, H, S, S]
     pair = scores.reshape(b, n_heads // 2, 2, s, s)
-    m = pair.amax(dim=(2, 4), keepdim=True).clamp_min(0.0)
+    if shift is None:
+        m = pair.amax(dim=(2, 4), keepdim=True).clamp_min(0.0)
+    else:
+        m = shift.reshape(())
     p = torch.exp(pair - m).to(torch.bfloat16).float().reshape(b, n_heads, s, s)
     ctx_u = torch.matmul(p, v)  # [B, H, S, D]
     sums = p.sum(dim=-1, keepdim=True)
-    ctx = ctx_u * (ctx_inv.reshape(()) / torch.clamp_min(sums, 1e-30))
-    q8 = torch.clamp(torch.round(ctx), -127, 127).to(torch.int8)
-    return q8.permute(0, 2, 1, 3).reshape(rows, e)
+    num = ctx_inv.reshape(()) if ctx_inv is not None else sums.new_ones(())
+    ctx = (ctx_u * (num / torch.clamp_min(sums, 1e-30))).permute(0, 2, 1, 3).reshape(rows, e)
+    if ctx_inv is None:
+        return ctx
+    return torch.clamp(torch.round(ctx), -127, 127).to(torch.int8)
 
 
-def attention(qkv: torch.Tensor, ctx_inv: torch.Tensor, s: int, n_heads: int) -> torch.Tensor:
+def attention(qkv: torch.Tensor, ctx_inv, s: int, n_heads: int, shift=None) -> torch.Tensor:
     """Attention wrapper: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors. S <= 127, an even head count."""
     if not qkv.is_cuda:
-        return attention_plain(qkv, ctx_inv, s, n_heads)
+        return attention_plain(qkv, ctx_inv, s, n_heads, shift)
     rows, e3 = qkv.shape
     e = e3 // 3
     d = e // n_heads
-    if qkv.dtype != torch.bfloat16 or rows % s or n_heads % 2 or s > 64:
+    if qkv.dtype != torch.bfloat16 or rows % s or n_heads % 2 or s > MAX_SEQ:
         raise ValueError(
-            f"attention kernel takes bf16 qkv, S <= 64 and an even head count; "
+            f"attention kernel takes bf16 qkv, S <= {MAX_SEQ} and an even head count; "
             f"got {qkv.dtype}, S={s}, H={n_heads}, D={d}"
         )
-    if ctx_inv.numel() != 1 or ctx_inv.dtype != torch.float32 or ctx_inv.device != qkv.device:
-        raise ValueError("ctx_inv must be a one-element f32 tensor on the qkv device")
+    _scalar("ctx_inv", ctx_inv, qkv.device)
+    _scalar("shift", shift, qkv.device)
     qkv = qkv.contiguous()
-    out = torch.empty((rows, e), dtype=torch.int8, device=qkv.device)
+    name = "attention" if ctx_inv is not None else "attention_f32"
+    out = torch.empty((rows, e), dtype=torch.int8 if ctx_inv is not None else torch.float32,
+                      device=qkv.device)
     lib = _build.load()
-    err = lib.jcf_attention(qkv.data_ptr(), ctx_inv.data_ptr(), out.data_ptr(), rows // s, s,
-                            n_heads, d, _build.stream_ptr(qkv.device))
-    _build.check(err, "attention")
-    LAUNCHES["attention"] += 1
+    err = lib.jcf_attention(qkv.data_ptr(), ctx_inv.data_ptr() if ctx_inv is not None else None,
+                            shift.data_ptr() if shift is not None else None, out.data_ptr(),
+                            rows // s, s, n_heads, d, int(ctx_inv is None),
+                            _build.stream_ptr(qkv.device))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
     return out
 
 
-def cls_attention_plain(q: torch.Tensor, kv: torch.Tensor, ctx_inv: torch.Tensor, s: int,
-                        n_heads: int) -> torch.Tensor:
+def cls_attention_plain(q: torch.Tensor, kv: torch.Tensor, ctx_inv, s: int, n_heads: int,
+                        shift=None) -> torch.Tensor:
     """Plain version of the CLS-query attention kernel (K5): q [B', E]
     bf16 CLS queries (1/sqrt(d) folded), kv [B' * S, 2E] bf16 keys and
-    values of all rows -> int8 context [B', E] with ctx_inv folded into
-    the normalizer.
+    values of all rows -> the context [B', E], int8 with the static
+    ``ctx_inv`` folded into the normalizer, or f32 with ``ctx_inv`` None.
 
     The shift is the max over the head pair's scores and, when S < 64,
     the zero-padded keys' 0 (``_attn_cls_int8_kernel`` pads each head to
-    64 keys). PV takes bf16 p, the normalizer sums the f32 p."""
+    64 keys); or the calibrated ``shift``. PV takes bf16 p, the normalizer
+    sums the f32 p."""
     b, e = q.shape
     d = e // n_heads
     k, v = kv.float().reshape(b, s, 2, n_heads, d).permute(2, 0, 3, 1, 4)  # [B, H, S, D]
     scores = torch.matmul(q.float().reshape(b, n_heads, 1, d), k.transpose(-1, -2))
     pair = scores.reshape(b, n_heads // 2, 2, 1, s)
-    m = pair.amax(dim=(2, 4), keepdim=True)
-    if s < 64:
-        m = m.clamp_min(0.0)
+    if shift is not None:
+        m = shift.reshape(())
+    else:
+        m = pair.amax(dim=(2, 4), keepdim=True)
+        if s < CLS_MAX_SEQ:
+            m = m.clamp_min(0.0)
     p = torch.exp(pair - m).reshape(b, n_heads, 1, s)
     ctx_u = torch.matmul(p.to(torch.bfloat16).float(), v)  # [B, H, 1, D]
-    ctx = ctx_u * (ctx_inv.reshape(()) / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30))
-    return torch.clamp(torch.round(ctx), -127, 127).to(torch.int8).reshape(b, e)
+    sums = p.sum(dim=-1, keepdim=True)
+    num = ctx_inv.reshape(()) if ctx_inv is not None else sums.new_ones(())
+    ctx = (ctx_u * (num / torch.clamp_min(sums, 1e-30))).reshape(b, e)
+    if ctx_inv is None:
+        return ctx
+    return torch.clamp(torch.round(ctx), -127, 127).to(torch.int8)
 
 
-def cls_attention(q: torch.Tensor, kv: torch.Tensor, ctx_inv: torch.Tensor, s: int,
-                  n_heads: int) -> torch.Tensor:
+def cls_attention(q: torch.Tensor, kv: torch.Tensor, ctx_inv, s: int, n_heads: int,
+                  shift=None) -> torch.Tensor:
     """CLS-query attention wrapper: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors."""
     if not q.is_cuda:
-        return cls_attention_plain(q, kv, ctx_inv, s, n_heads)
+        return cls_attention_plain(q, kv, ctx_inv, s, n_heads, shift)
     b, e = q.shape
     if (q.dtype != torch.bfloat16 or kv.dtype != torch.bfloat16 or e != 64 * n_heads
-            or n_heads % 2 or s > 64 or tuple(kv.shape) != (b * s, 2 * e)):
+            or n_heads % 2 or s > CLS_MAX_SEQ or tuple(kv.shape) != (b * s, 2 * e)):
         raise ValueError(f"cls_attention kernel takes bf16 q [B, E] and kv [B * S, 2E] with "
-                         f"head dim 64, an even head count and S <= 64; got q {q.dtype} "
-                         f"{tuple(q.shape)}, kv {kv.dtype} {tuple(kv.shape)}, S={s}, H={n_heads}")
-    if ctx_inv.numel() != 1 or ctx_inv.dtype != torch.float32 or ctx_inv.device != q.device:
-        raise ValueError("ctx_inv must be a one-element f32 tensor on the q device")
+                         f"head dim 64, an even head count and S <= {CLS_MAX_SEQ}; got q "
+                         f"{q.dtype} {tuple(q.shape)}, kv {kv.dtype} {tuple(kv.shape)}, S={s}, "
+                         f"H={n_heads}")
+    _scalar("ctx_inv", ctx_inv, q.device)
+    _scalar("shift", shift, q.device)
     q, kv = q.contiguous(), kv.contiguous()
-    out = torch.empty((b, e), dtype=torch.int8, device=q.device)
+    name = "cls_attention" if ctx_inv is not None else "cls_attention_f32"
+    out = torch.empty((b, e), dtype=torch.int8 if ctx_inv is not None else torch.float32,
+                      device=q.device)
     lib = _build.load()
-    err = lib.jcf_cls_attention(q.data_ptr(), kv.data_ptr(), ctx_inv.data_ptr(), out.data_ptr(),
-                                b, s, n_heads, _build.stream_ptr(q.device))
-    _build.check(err, "cls_attention")
-    LAUNCHES["cls_attention"] += 1
+    err = lib.jcf_cls_attention(q.data_ptr(), kv.data_ptr(),
+                                ctx_inv.data_ptr() if ctx_inv is not None else None,
+                                shift.data_ptr() if shift is not None else None, out.data_ptr(),
+                                b, s, n_heads, int(ctx_inv is None), _build.stream_ptr(q.device))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -314,43 +428,70 @@ def causal_attention(qkv: torch.Tensor, s: int, n_heads: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _ln_quant_any(x: torch.Tensor, inv):
+    """LN z-norm and int8 quant with the static scale ``inv`` -> (int8,
+    None), or without one (None) per row -> (int8, row scales)."""
+    return (ln_quant(x, inv), None) if inv is not None else ln_quant_rows(x)
+
+
+def _context(ctx: torch.Tensor, ctx_inv):
+    """The attention kernel's output as the out-proj's int8 input: int8
+    already (static ``ctx_inv``), or the f32 context quantized per row."""
+    return (ctx, None) if ctx_inv is not None else quant_rows(ctx)
+
+
 def attn_half_int8(x: torch.Tensor, attn: dict, s: int, n_heads: int) -> torch.Tensor:
-    """K3 on dense rows x [B' * S, E] bf16 with one layer's folded static
-    attention weights -> x + attention(x), bf16."""
-    x_q = ln_quant(x, attn["ln_inv"])
+    """K3 on dense rows x [B' * S, E] bf16 with one layer's folded
+    attention weights -> x + attention(x), bf16. Static or dynamic LN
+    and context scales and an optional calibrated shift, as the layer's
+    tree carries them."""
+    x_q, x_sc = _ln_quant_any(x, attn.get("ln_inv"))
     wq = attn["w_qkv"]
-    qkv = int8_gemm_bf16(x_q, wq.w_int8, wq.w_scale, wq.bias)
-    ctx = attention(qkv, attn["ctx_inv"], s, n_heads)
+    qkv = int8_gemm_bf16(x_q, wq.w_int8, wq.w_scale, wq.bias, row_scale=x_sc)
+    ctx_inv = attn.get("ctx_inv")
+    c_q, c_sc = _context(attention(qkv, ctx_inv, s, n_heads, attn.get("score_shift")), ctx_inv)
     wo = attn["w_out"]
-    return int8_gemm_residual(ctx, wo.w_int8, wo.w_scale, wo.bias, x)
+    return int8_gemm_residual(c_q, wo.w_int8, wo.w_scale, wo.bias, x, row_scale=c_sc)
 
 
 def mlp_half_int8(x: torch.Tensor, mlp: dict) -> torch.Tensor:
-    """K4 on rows x [M, E] bf16 with one layer's folded static MLP weights
-    -> x + mlp(x), bf16. The static hidden scale h_inv folds into the
-    c_fc dequant scale and bias (``_fold_h_static``), so the GEMM lands in
-    the quantized domain and QuickGELU runs there."""
-    h_inv = mlp["h_inv"].reshape(())
+    """K4 on rows x [M, E] bf16 with one layer's folded MLP weights -> x +
+    mlp(x), bf16. A static hidden scale h_inv folds into the c_fc dequant
+    scale and bias (``_fold_h_static``), so the GEMM lands in the
+    quantized domain and QuickGELU runs there; without one the c_fc GEMM
+    writes the f32 hidden and QuickGELU and the row quantization over all
+    hidden columns follow in one row kernel."""
     fc, pr = mlp["c_fc"], mlp["c_proj"]
-    x_q = ln_quant(x, mlp["ln_inv"])
-    gelu_c = GELU_TANH_COEF / h_inv
-    h_q = int8_gemm_gelu_quant(x_q, fc.w_int8, fc.w_scale * h_inv, fc.bias * h_inv, gelu_c)
-    return int8_gemm_residual(h_q, pr.w_int8, pr.w_scale, pr.bias, x)
+    x_q, x_sc = _ln_quant_any(x, mlp.get("ln_inv"))
+    if "h_inv" in mlp:
+        h_inv = mlp["h_inv"].reshape(())
+        gelu_c = GELU_TANH_COEF / h_inv
+        h_q, h_sc = int8_gemm_gelu_quant(x_q, fc.w_int8, fc.w_scale * h_inv, fc.bias * h_inv,
+                                         gelu_c), None
+    else:
+        hidden = int8_gemm_f32(x_q, fc.w_int8, fc.w_scale, fc.bias, row_scale=x_sc)
+        h_q, h_sc = quant_rows(hidden, gelu=True)
+    return int8_gemm_residual(h_q, pr.w_int8, pr.w_scale, pr.bias, x, row_scale=h_sc)
 
 
 def attn_cls_int8(x: torch.Tensor, attn: dict, s: int, n_heads: int) -> torch.Tensor:
-    """K5 on dense rows x [B' * S, E] bf16 with the last layer's folded
-    static attention weights -> the CLS rows of x + attention(x), [B', E]
+    """K5 on dense rows x [B' * S, E] bf16 (S <= 64) with the last layer's
+    folded attention weights -> the CLS rows of x + attention(x), [B', E]
     bf16 (``_attn_cls_int8_kernel``). LN and quant run on all rows, K/V
-    (rows e:3e of w_qkv) on all rows, Q (rows :e) on the CLS rows only."""
+    (rows e:3e of w_qkv) on all rows, Q (rows :e) on the CLS rows only,
+    with the CLS rows' scales where they are dynamic."""
     e = x.shape[1]
-    x_q = ln_quant(x, attn["ln_inv"])
+    x_q, x_sc = _ln_quant_any(x, attn.get("ln_inv"))
     wq = attn["w_qkv"]
-    kv = int8_gemm_bf16(x_q, wq.w_int8[e:], wq.w_scale[e:], wq.bias[e:])
-    q = int8_gemm_bf16(x_q[::s].contiguous(), wq.w_int8[:e], wq.w_scale[:e], wq.bias[:e])
-    ctx = cls_attention(q, kv, attn["ctx_inv"], s, n_heads)
+    kv = int8_gemm_bf16(x_q, wq.w_int8[e:], wq.w_scale[e:], wq.bias[e:], row_scale=x_sc)
+    q = int8_gemm_bf16(x_q[::s].contiguous(), wq.w_int8[:e], wq.w_scale[:e], wq.bias[:e],
+                       row_scale=x_sc[::s].contiguous() if x_sc is not None else None)
+    ctx_inv = attn.get("ctx_inv")
+    c_q, c_sc = _context(cls_attention(q, kv, ctx_inv, s, n_heads, attn.get("score_shift")),
+                         ctx_inv)
     wo = attn["w_out"]
-    return int8_gemm_residual(ctx, wo.w_int8, wo.w_scale, wo.bias, x[::s].contiguous())
+    return int8_gemm_residual(c_q, wo.w_int8, wo.w_scale, wo.bias, x[::s].contiguous(),
+                              row_scale=c_sc)
 
 
 def attn_half(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Tensor:
@@ -393,13 +534,15 @@ def _chunks(n: int, hidden: int) -> int:
 
 def quant_flags(tree: dict) -> int:
     """The reference kernels' options that an int8 tree (one layer or
-    stacked) selects on the dense mask-free row stream: static scales
-    where the tree carries them (the port folds exactly its static tree),
+    stacked) selects on the dense mask-free row stream: folded where the
+    tree says so (``quant_folded``), static scales where it carries them,
     a static softmax shift where it carries ``score_shift``."""
     attn, mlp = tree["attn"], tree["mlp"]
     flags = FLAG_DENSE
+    if tree.get("quant_folded", False):
+        flags |= FLAG_FOLDED
     if "ln_inv" in attn and "ln_inv" in mlp:
-        flags |= FLAG_FOLDED | FLAG_STATIC_ACT
+        flags |= FLAG_STATIC_ACT
     if "ctx_inv" in attn:
         flags |= FLAG_STATIC_CTX
     if "h_inv" in mlp:
@@ -484,9 +627,6 @@ def _launch_int8(name: str, x: torch.Tensor, tree: dict, s: int, n_heads: int, n
                          f"count and E a multiple of 128 up to 1024; got {x.dtype} "
                          f"{tuple(x.shape)}, S={s}, H={n_heads}")
     flags = quant_flags(tree)
-    if flags != SERVING_FLAGS:
-        raise ValueError(f"{name} takes the folded tree with static scales in mode \"full\" "
-                         f"(flags {SERVING_FLAGS:#x}), not flags {flags:#x}")
     attn, mlp = tree["attn"], tree["mlp"]
     wq, wo, fc, pr = attn["w_qkv"], attn["w_out"], mlp["c_fc"], mlp["c_proj"]
     hidden = _hidden(tree)
@@ -519,10 +659,21 @@ def _launch_int8(name: str, x: torch.Tensor, tree: dict, s: int, n_heads: int, n
     return out
 
 
+def _serving_only(name: str, tree: dict) -> None:
+    """The K9 kernels and their plain versions take the serving flags only;
+    any other tree is refused on every device (ROADMAP.md, Queue 2)."""
+    flags = quant_flags(tree)
+    if flags != SERVING_FLAGS:
+        raise ValueError(f"{name} takes the folded tree with static scales in mode \"full\" "
+                         f"(flags {SERVING_FLAGS:#x}), not flags {flags:#x}; the dynamic and "
+                         f"partial static modes run on _FUSE = \"halves\"")
+
+
 def block_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Tensor:
     """K9a on dense rows x [B' * S, E] bf16 with one layer's folded static
     tree -> the layer's output rows, bf16: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
+    _serving_only("block_int8", layer)
     if not x.is_cuda:
         return block_int8_plain(x, layer, s, n_heads)
     return _launch_int8("block_int8", x, layer, s, n_heads, 1,
@@ -532,6 +683,7 @@ def block_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Tens
 def layer_fused_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Tensor:
     """K9d, as ``block_int8`` with the mid rounded to bf16 and the MLP in
     ``_LAYER_NSPLIT`` chunks."""
+    _serving_only("layer_fused_int8", layer)
     if not x.is_cuda:
         return layer_fused_int8_plain(x, layer, s, n_heads)
     return _launch_int8("layer_fused_int8", x, layer, s, n_heads, 1,
@@ -541,6 +693,7 @@ def layer_fused_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torc
 def stream_tower_int8(x: torch.Tensor, quant: dict, n_heads: int, *, s: int) -> torch.Tensor:
     """K9c: every layer of the stacked folded static tree on every row of
     x [B' * S, E] bf16, one launch -> [B' * S, E] bf16."""
+    _serving_only("stream_tower_int8", quant)
     if not x.is_cuda:
         return stream_tower_int8_plain(x, quant, n_heads, s=s)
     n_layers = quant["attn"]["w_qkv"].w_int8.shape[0]
@@ -622,27 +775,54 @@ def _halves_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Te
     return mlp_half_int8(attn_half_int8(x, layer["attn"], s, n_heads), layer["mlp"])
 
 
-def run_fused_tower(x: torch.Tensor, quant: dict, n_heads: int, *, flat_s: int) -> torch.Tensor:
-    """All layers over flat dense rows x [B' * S, E] bf16 -> CLS rows [B', E].
+def check_dense_tower(quant: dict, s: int, n_heads: int) -> None:
+    """Raises unless the folded tree and the shape take the reference's
+    dense mask-free route, the only one ported: a folded tree, an even
+    head count (an odd one takes the masked ``use_mask=True`` attention),
+    S < 128, and S not a multiple of 16 (else the padded length equals S
+    and the reference takes its non-dense route)."""
+    if not quant.get("quant_folded", False):
+        raise ValueError("the fused tower takes a folded tree (quantize_clip_params(fold=True))")
+    if n_heads % 2:
+        raise ValueError(f"{n_heads} heads: an odd head count takes the reference's masked "
+                         f"attention (use_mask=True), which is not ported")
+    if s > MAX_SEQ or s % 16 == 0:
+        raise ValueError(f"S = {s}: the dense route needs S <= {MAX_SEQ} and S not a multiple of "
+                         f"16 (the non-dense padded route is not ported)")
 
-    ``quant`` is the folded static tree of ``quantize_clip_params`` (layers
-    stacked on the leading axis). Under ``_FUSE`` = "halves", "block" or
-    "layer", layers 0..L-2 run on all rows (K3 + K4, K9a or K9d); the last
-    layer runs K5 (the CLS rows attend to every token) and its MLP half on
-    the CLS rows only, since nothing downstream reads the other rows. Under
-    "stream" one K9c runs every layer on every row, and the CLS rows are
-    taken from its output.
+
+def run_fused_tower(x: torch.Tensor, quant: dict, n_heads: int, *, flat_s: int,
+                    cls_only: bool = True) -> torch.Tensor:
+    """All layers over flat dense rows x [B' * S, E] bf16 -> the CLS rows
+    [B', E] (``cls_only``) or every row [B' * S, E].
+
+    ``quant`` is a folded tree of ``quantize_clip_params`` (layers stacked
+    on the leading axis) in any of its quantization modes. Under ``_FUSE``
+    = "halves", "block" or "layer" the layers run on all rows (K3 + K4,
+    K9a or K9d). With ``cls_only`` the last layer's MLP half runs on the
+    CLS rows only, since nothing downstream reads the other rows, after K5
+    (the CLS rows attend to every token) for S <= 64, or after K3 on all
+    rows from 65 tokens on (the reference's ``_CLS_ATTNQ`` gate). Under
+    "stream" one K9c runs every layer on every row.
     """
     s = flat_s
+    check_dense_tower(quant, s, n_heads)
     fuse = _fuse()
     if fuse == "stream":
-        return stream_tower_int8(x, quant, n_heads, s=s)[::s].contiguous()
+        out = stream_tower_int8(x, quant, n_heads, s=s)
+        return out[::s].contiguous() if cls_only else out
     layer_fn = {"halves": _halves_int8, "block": block_int8, "layer": layer_fused_int8}[fuse]
     n_layers = quant["attn"]["w_qkv"].w_int8.shape[0]
-    for i in range(n_layers - 1):
+    for i in range(n_layers - 1 if cls_only else n_layers):
         x = layer_fn(x, layer_slice(quant, i), s, n_heads)
+    if not cls_only:
+        return x
     last = layer_slice(quant, n_layers - 1)
-    return mlp_half_int8(attn_cls_int8(x, last["attn"], s, n_heads), last["mlp"])
+    if s <= CLS_MAX_SEQ:
+        mid = attn_cls_int8(x, last["attn"], s, n_heads)
+    else:
+        mid = attn_half_int8(x, last["attn"], s, n_heads)[::s].contiguous()
+    return mlp_half_int8(mid, last["mlp"])
 
 
 def run_text_tower(x: torch.Tensor, blocks: dict, n_heads: int, *, s: int) -> torch.Tensor:

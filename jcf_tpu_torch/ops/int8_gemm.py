@@ -11,7 +11,15 @@
   ``h = acc * scale + bias`` (c_fc with the static hidden scale folded,
   ``jcf_tpu`` ``_gelu_quant_static``);
 - ``int8_gemm_rowscale``: ``bf16((acc * row_scale[m]) * scale[n] +
-  bias[n])`` (the dynamic per-row int8 linear, ``ops.quant.int8_linear``).
+  bias[n])`` (the dynamic per-row int8 linear, ``ops.quant.int8_linear``);
+- ``int8_gemm_f32``: ``acc * scale + bias`` in f32 (c_fc before a
+  dynamic hidden quantization).
+
+``int8_gemm_bf16``, ``int8_gemm_residual`` and ``int8_gemm_f32`` take an
+optional ``row_scale`` [M], the dynamic per-row scales of the fused
+tower's int8 rows, applied in that tower's op order: ``(acc * scale[n])
+* row_scale[m] + bias[n]`` (``jcf_tpu`` ``_int8_gemm``), each its own
+epilogue (``<name>_rows``).
 
 Each wrapper launches the CUDA kernel for CUDA tensors and runs its plain
 version for CPU tensors. The plain product runs in float64, which holds
@@ -24,7 +32,8 @@ import torch
 
 from jcf_tpu_torch import _build
 
-_EPILOGUES = {"s32": 0, "bf16": 1, "residual": 2, "gelu_quant": 3, "rowscale": 4}
+_EPILOGUES = {"s32": 0, "bf16": 1, "residual": 2, "gelu_quant": 3, "rowscale": 4,
+              "bf16_rows": 5, "residual_rows": 6, "f32": 7, "f32_rows": 8}
 # launches of the GEMM kernel, by epilogue
 LAUNCHES = {f"int8_gemm_{e}": 0 for e in _EPILOGUES}
 
@@ -34,8 +43,13 @@ def int8_matmul_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.double(), w.double().T).to(torch.int32)
 
 
-def dequant_plain(acc, scale, bias):
-    return acc.float() * scale + bias
+def dequant_plain(acc, scale, bias, row_scale=None):
+    """``acc * scale + bias`` in f32; with ``row_scale`` [M], ``(acc *
+    scale) * row_scale[m] + bias`` (the fused tower's order)."""
+    y = acc.float() * scale
+    if row_scale is not None:
+        y = y * row_scale[:, None]
+    return y + bias
 
 
 def rowscale_plain(acc, row_scale, scale, bias):
@@ -90,17 +104,30 @@ def int8_gemm_s32(a, w):
     return _launch("s32", a, w, torch.int32)
 
 
-def int8_gemm_bf16(a, w, scale, bias):
-    if not a.is_cuda:
-        return dequant_plain(int8_matmul_plain(a, w), scale, bias).to(torch.bfloat16)
-    return _launch("bf16", a, w, torch.bfloat16, scale=scale, bias=bias)
+def _rows(epilogue, row_scale):
+    return epilogue if row_scale is None else f"{epilogue}_rows"
 
 
-def int8_gemm_residual(a, w, scale, bias, resid):
+def int8_gemm_bf16(a, w, scale, bias, row_scale=None):
     if not a.is_cuda:
-        y = dequant_plain(int8_matmul_plain(a, w), scale, bias)
+        return dequant_plain(int8_matmul_plain(a, w), scale, bias, row_scale).to(torch.bfloat16)
+    return _launch(_rows("bf16", row_scale), a, w, torch.bfloat16, scale=scale, bias=bias,
+                   row_scale=row_scale)
+
+
+def int8_gemm_residual(a, w, scale, bias, resid, row_scale=None):
+    if not a.is_cuda:
+        y = dequant_plain(int8_matmul_plain(a, w), scale, bias, row_scale)
         return (resid.float() + y).to(torch.bfloat16)
-    return _launch("residual", a, w, torch.bfloat16, scale=scale, bias=bias, resid=resid)
+    return _launch(_rows("residual", row_scale), a, w, torch.bfloat16, scale=scale, bias=bias,
+                   resid=resid, row_scale=row_scale)
+
+
+def int8_gemm_f32(a, w, scale, bias, row_scale=None):
+    if not a.is_cuda:
+        return dequant_plain(int8_matmul_plain(a, w), scale, bias, row_scale)
+    return _launch(_rows("f32", row_scale), a, w, torch.float32, scale=scale, bias=bias,
+                   row_scale=row_scale)
 
 
 def int8_gemm_gelu_quant(a, w, scale, bias, gelu_c):

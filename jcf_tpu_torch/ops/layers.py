@@ -65,11 +65,14 @@ def mlp(x: torch.Tensor, params: dict, quant: dict | None = None) -> torch.Tenso
 
 def layer_slice(tree, i: int):
     """Layer ``i`` of a tree whose leaves are stacked on a leading layer
-    axis (dicts and ``QuantizedLinear`` tuples are walked)."""
+    axis (dicts and ``QuantizedLinear`` tuples are walked; a leaf that is
+    not a tensor, such as a quant tree's ``quant_folded``, is kept)."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
     if isinstance(tree, tuple):
         return type(tree)(*(layer_slice(v, i) for v in tree))
+    if not isinstance(tree, torch.Tensor):
+        return tree
     return tree[i]
 
 

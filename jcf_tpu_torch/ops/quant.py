@@ -2,12 +2,14 @@
 
 Weights: static per-output-channel symmetric int8 from |W|max. Two trees:
 
-- folded (``fold=True``, static mode "full" in the JAX package), the
-  fused tower's below 128 tokens: the LayerNorm affine folds into the
-  following projection and 1/sqrt(d) into the q third of ``w_qkv``, and
-  the calibrated post-LN, attention-context and post-GELU activation
-  quantizations become static per-layer scales folded into the weight
-  dequant scales;
+- folded (``fold=True``), the fused tower's below 128 tokens: the
+  LayerNorm affine folds into the following projection and 1/sqrt(d)
+  into the q third of ``w_qkv``. Its activation quantizations are
+  dynamic per row, or, given calibrated amax, static per-layer scales
+  folded into the weight dequant scales: the JAX engine's static modes
+  "ln" (the post-LN inputs), "hidden" (+ the post-GELU hidden) and "full"
+  (+ the attention context), each optionally with the calibrated softmax
+  shift ("+score");
 - unfolded (``fold=False``), the composable tower's from 128 tokens on:
   each projection's weight and bias as they are, for ``int8_linear``,
   which quantizes its input rows dynamically.
@@ -74,18 +76,28 @@ def int8_linear(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
 
 
 def quantize_clip_params(params: dict, *, fold: bool = True, heads: dict | None = None,
-                         act_scales: dict | None = None) -> dict:
+                         act_scales: dict | None = None,
+                         act_static: tuple = ("ctx", "hidden")) -> dict:
     """Quantize the vision tower's block matmuls -> ``{"visual": tree}``.
 
-    ``fold=True``: the folded static tree of the fused tower.
-    ``heads={"visual": H}`` and ``act_scales={"visual": amax [L, 4]}``, the
-    calibrated amax of the LN-1, LN-2, attention-context and post-GELU
-    activations per layer (``models.clip.vision_ln_z_amax``), are required.
+    Every tree says whether it is folded (``tree["quant_folded"]``), which
+    is what the towers dispatch on.
+
+    ``fold=True``: the folded tree of the fused tower; ``heads={"visual":
+    H}`` is required. Without ``act_scales`` every activation quantization
+    is dynamic per row. ``act_scales={"visual": amax}``, the calibrated
+    per-layer amax of ``models.clip.vision_ln_z_amax``, adds static scales:
+    [L, 2] (the LN-1 and LN-2 inputs) gives ``ln_inv``; [L, 4] (+ the
+    attention context and the post-GELU hidden) also ``ctx_inv`` and
+    ``h_inv`` as ``act_static`` names "ctx" and "hidden"; [L, 6] (+ the
+    score amax and the weakest row's score max, ``with_scores=True``) also
+    the max-free softmax shift ``score_shift`` when ``act_static`` names
+    "score". Each static scale's amax / 127 folds into the weight dequant
+    scale that consumes its quantized input.
     ``fold=False``: the unfolded tree of the composable tower
     (``{"attn": {"w_qkv", "w_out"}, "mlp": {"c_fc", "c_proj"}}`` of
-    ``QuantizedLinear``); neither argument is read. The static modes "ln"
-    and "hidden" and the text tower's trees of the JAX package are not
-    ported (ROADMAP.md).
+    ``QuantizedLinear``); nothing else is read. The text tower's trees of
+    the JAX package are not ported (ROADMAP.md).
     """
     blocks = params["visual"]["blocks"]
     if not fold:
@@ -95,8 +107,8 @@ def quantize_clip_params(params: dict, *, fold: bool = True, heads: dict | None 
                      "w_out": q(blocks["attn"]["w_out"], blocks["attn"]["b_out"])},
             "mlp": {"c_fc": q(blocks["mlp"]["c_fc"]["w"], blocks["mlp"]["c_fc"]["b"]),
                     "c_proj": q(blocks["mlp"]["c_proj"]["w"], blocks["mlp"]["c_proj"]["b"])},
+            "quant_folded": False,
         }}
-    act = act_scales["visual"]
     n_heads = heads["visual"]
 
     w_qkv = blocks["attn"]["w_qkv"].float()  # [L, 3E, E]
@@ -117,25 +129,39 @@ def quantize_clip_params(params: dict, *, fold: bool = True, heads: dict | None 
     q_rows = torch.arange(w_qkv.shape[1], device=w_qkv.device) < e
     w_qkv = torch.where(q_rows[None, :, None], w_qkv * s, w_qkv)
     b_qkv = torch.where(q_rows[None, :], b_qkv * s, b_qkv)
-    qkv_q = quantize_weight(w_qkv, b_qkv)
-    fc_q = quantize_weight(w_fc, b_fc)
-    w_out = quantize_weight(blocks["attn"]["w_out"], blocks["attn"]["b_out"].float())
-    c_proj = quantize_weight(blocks["mlp"]["c_proj"]["w"], blocks["mlp"]["c_proj"]["b"].float())
-
-    a = torch.as_tensor(act, dtype=torch.float32, device=w_qkv.device) * LN_MARGIN
-    ah = a[:, 2:4] * (STATIC_MARGIN / LN_MARGIN)  # the reference's op order
     tree = {
-        "attn": {
-            "w_qkv": qkv_q._replace(w_scale=qkv_q.w_scale * (a[:, 0] / 127.0)[:, None]),
-            "w_out": w_out._replace(w_scale=w_out.w_scale * (ah[:, 0] / 127.0)[:, None]),
-            "ln_inv": (127.0 / a[:, 0]).reshape(-1, 1, 1),
-            "ctx_inv": (127.0 / ah[:, 0]).reshape(-1, 1, 1),
-        },
-        "mlp": {
-            "c_fc": fc_q._replace(w_scale=fc_q.w_scale * (a[:, 1] / 127.0)[:, None]),
-            "c_proj": c_proj._replace(w_scale=c_proj.w_scale * (ah[:, 1] / 127.0)[:, None]),
-            "ln_inv": (127.0 / a[:, 1]).reshape(-1, 1, 1),
-            "h_inv": (127.0 / ah[:, 1]).reshape(-1, 1, 1),
-        },
+        "attn": {"w_qkv": quantize_weight(w_qkv, b_qkv),
+                 "w_out": quantize_weight(blocks["attn"]["w_out"],
+                                          blocks["attn"]["b_out"].float())},
+        "mlp": {"c_fc": quantize_weight(w_fc, b_fc),
+                "c_proj": quantize_weight(blocks["mlp"]["c_proj"]["w"],
+                                          blocks["mlp"]["c_proj"]["b"].float())},
+        "quant_folded": True,
     }
+    if not act_scales:
+        return {"visual": tree}
+    a = torch.as_tensor(act_scales["visual"], dtype=torch.float32, device=w_qkv.device) * LN_MARGIN
+    attn, mlp = tree["attn"], tree["mlp"]
+
+    def fold_scale(q: QuantizedLinear, amax: torch.Tensor) -> QuantizedLinear:
+        return q._replace(w_scale=q.w_scale * true_div(amax, 127.0)[:, None])
+
+    attn["ln_inv"] = (127.0 / a[:, 0]).reshape(-1, 1, 1)
+    mlp["ln_inv"] = (127.0 / a[:, 1]).reshape(-1, 1, 1)
+    attn["w_qkv"] = fold_scale(attn["w_qkv"], a[:, 0])
+    mlp["c_fc"] = fold_scale(mlp["c_fc"], a[:, 1])
+    if a.shape[1] >= 4:
+        ah = a[:, 2:4] * (STATIC_MARGIN / LN_MARGIN)  # the reference's op order
+        if "ctx" in act_static:
+            attn["ctx_inv"] = (127.0 / ah[:, 0]).reshape(-1, 1, 1)
+            attn["w_out"] = fold_scale(attn["w_out"], ah[:, 0])
+        if "hidden" in act_static:
+            mlp["h_inv"] = (127.0 / ah[:, 1]).reshape(-1, 1, 1)
+            mlp["c_proj"] = fold_scale(mlp["c_proj"], ah[:, 1])
+    if a.shape[1] >= 6 and "score" in act_static:
+        # the calibrated score amax less 40 (e^48 of headroom under f32
+        # overflow), at most the weakest calibrated row max + 80 (every
+        # row's bf16 p stays above underflow), and not below 0
+        shift = torch.minimum(true_div(a[:, 4], LN_MARGIN) - 40.0, a[:, 5] + 80.0)
+        attn["score_shift"] = torch.clamp_min(shift, 0.0).reshape(-1, 1, 1)
     return {"visual": tree}

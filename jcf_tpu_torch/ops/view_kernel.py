@@ -24,7 +24,8 @@ from jcf_tpu_torch import _build
 
 # launches of the view kernel (fused_views_nchw on CUDA tensors)
 LAUNCHES = {"view": 0}
-# random crops: area share of the source and aspect range (the reference's)
+# random crops: area share of the source (the default; ``TTAEngine``'s
+# ``crop_scale``) and aspect range (the reference's)
 CROP_SCALE = (0.5, 1.0)
 CROP_RATIO = (0.75, 4.0 / 3.0)
 
@@ -106,9 +107,10 @@ def view_centers_from_boxes(boxes, flips, out_size: int):
 
 
 def sample_tta_boxes(generator: torch.Generator, batch: int, n_random: int,
-                     src_hw: Tuple[int, int], out_size: int):
+                     src_hw: Tuple[int, int], out_size: int,
+                     scale: Tuple[float, float] = CROP_SCALE):
     """Whole-batch TTA boxes: the center crop first, then ``n_random``
-    random crops per image (area uniform in ``CROP_SCALE``, log-uniform aspect,
+    random crops per image (area uniform in ``scale``, log-uniform aspect,
     clamped to the image; flip with probability 1/2) ->
     (boxes [B, 1+n, 4] f32, flips [B, 1+n] bool) on the generator's device."""
     h_src, w_src = src_hw
@@ -118,7 +120,7 @@ def sample_tta_boxes(generator: torch.Generator, batch: int, n_random: int,
     def uniform(lo, hi):
         return lo + (hi - lo) * torch.rand(shape, generator=generator, device=dev)
 
-    area = (w_src * h_src) * uniform(*CROP_SCALE)
+    area = (w_src * h_src) * uniform(*scale)
     aspect = torch.exp(uniform(math.log(CROP_RATIO[0]), math.log(CROP_RATIO[1])))
     w = torch.clamp(torch.sqrt(area * aspect), 8.0, w_src)
     h = torch.clamp(torch.sqrt(area / aspect), 8.0, h_src)
@@ -136,8 +138,10 @@ def sample_tta_boxes(generator: torch.Generator, batch: int, n_random: int,
 
 
 def sample_view_centers(generator: torch.Generator, batch: int, n_views: int,
-                        src_hw: Tuple[int, int], out_size: int):
+                        src_hw: Tuple[int, int], out_size: int,
+                        scale: Tuple[float, float] = CROP_SCALE):
     """Per-view centers and inverse supports for ``n_views`` views per
-    image, the center crop as view 0 -> (cy, cx, inv)."""
-    boxes, flips = sample_tta_boxes(generator, batch, n_views - 1, src_hw, out_size)
+    image, the center crop as view 0 -> (cy, cx, inv); the random views'
+    areas are uniform in ``scale`` of the source's."""
+    boxes, flips = sample_tta_boxes(generator, batch, n_views - 1, src_hw, out_size, scale)
     return view_centers_from_boxes(boxes, flips, out_size)

@@ -195,16 +195,17 @@ def test_bad_fuse_value_raises(monkeypatch, fuse):
 
 def test_quant_flags_of_the_trees():
     """The folded static tree selects the serving flags the kernels take;
-    a tree without a static scale, or with a static softmax shift, does
-    not."""
+    a tree without a static scale, with a static softmax shift, or not
+    marked folded, does not."""
     _, _, tq = _trees(0)
     layer = layer_slice(tq, 0)
     assert tbk.quant_flags(tq) == tbk.quant_flags(layer) == tbk.SERVING_FLAGS
-    no_ctx = {"attn": {k: v for k, v in layer["attn"].items() if k != "ctx_inv"},
-              "mlp": layer["mlp"]}
+    no_ctx = {**layer, "attn": {k: v for k, v in layer["attn"].items() if k != "ctx_inv"}}
     assert tbk.quant_flags(no_ctx) == tbk.SERVING_FLAGS & ~tbk.FLAG_STATIC_CTX
-    shift = {"attn": {**layer["attn"], "score_shift": layer["attn"]["ctx_inv"]}, "mlp": layer["mlp"]}
+    shift = {**layer, "attn": {**layer["attn"], "score_shift": layer["attn"]["ctx_inv"]}}
     assert tbk.quant_flags(shift) == tbk.SERVING_FLAGS | tbk.FLAG_STATIC_SHIFT
+    unmarked = {"attn": layer["attn"], "mlp": layer["mlp"]}
+    assert tbk.quant_flags(unmarked) == tbk.SERVING_FLAGS & ~tbk.FLAG_FOLDED
 
 
 _JAX_STRICT = """

@@ -154,9 +154,7 @@ def test_tower_kernels_vs_plain(cuda):
     tree = quantize_clip_params(params, heads={"visual": 12}, act_scales={"visual": amax})["visual"]
     x = torch.randn(16 * 50, 768, generator=torch.Generator().manual_seed(0)).bfloat16()
     ref = bk.run_fused_tower(x, tree, 12, flat_s=50)
-    tree_gpu = {half: {k: (type(v)(*(t.to(cuda) for t in v)) if isinstance(v, tuple) else v.to(cuda))
-                       for k, v in d.items()} for half, d in tree.items()}
-    got = bk.run_fused_tower(x.to(cuda), tree_gpu, 12, flat_s=50).cpu()
+    got = bk.run_fused_tower(x.to(cuda), tree_to(tree, cuda), 12, flat_s=50).cpu()
     cos = torch.nn.functional.cosine_similarity(got.float(), ref.float())
     assert float(cos.min()) >= 0.999
 
@@ -236,9 +234,9 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     inv = torch.ones(1, 2, 2, device=cuda)
     with pytest.raises(TypeError):
         vk.fused_views_nchw(images, cy, cy, inv, 32)
-    with pytest.raises(ValueError):
-        bk.attention(torch.zeros(65, 3 * 128, device=cuda).bfloat16(),
-                     torch.ones(1, device=cuda), 65, 2)
+    with pytest.raises(ValueError):  # S = 128: the dense rows stop at 127
+        bk.attention(torch.zeros(128, 3 * 128, device=cuda).bfloat16(),
+                     torch.ones(1, device=cuda), 128, 2)
     with pytest.raises(ValueError):  # f32 rows: the kernel takes bf16
         bk.causal_attention(torch.zeros(77, 3 * 128, device=cuda), 77, 2)
     with pytest.raises(ValueError):  # head dim 32: the kernel takes 64
@@ -361,11 +359,6 @@ def test_b16_int8_engine_launches_and_matches_plain(cuda):
         assert torch.equal(dev_out.cpu(), cpu_out)
 
 
-def _tree_to(tree, dev):
-    return {half: {k: (type(v)(*(t.to(dev) for t in v)) if isinstance(v, tuple) else v.to(dev))
-                   for k, v in d.items()} for half, d in tree.items()}
-
-
 def _int8_tree(width, layers=2):
     from jcf_tpu_torch.ops.quant import quantize_clip_params
 
@@ -391,7 +384,7 @@ def test_fused_int8_layer_kernels(cuda, monkeypatch, width, s, crops, nsplit):
     chunk)."""
     monkeypatch.setattr(bk, "_MLP_NSPLIT", nsplit[0])
     monkeypatch.setattr(bk, "_LAYER_NSPLIT", nsplit[1])
-    tree = _tree_to(_int8_tree(width), cuda)
+    tree = tree_to(_int8_tree(width), cuda)
     layer, h = layer_slice(tree, 1), width // 64
     x = torch.randn(crops * s, width, device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(s)).bfloat16()
@@ -427,7 +420,7 @@ def test_fused_routes_launch_the_kernels(cuda, monkeypatch):
         monkeypatch.setattr(bk, "_FUSE", fuse)
         ref = bk.run_fused_tower(x, tree, 2, flat_s=50)
         before = dict(bk.LAUNCHES)
-        got = bk.run_fused_tower(x.to(cuda), _tree_to(tree, cuda), 2, flat_s=50)
+        got = bk.run_fused_tower(x.to(cuda), tree_to(tree, cuda), 2, flat_s=50)
         assert got.shape == (4, 128)
         assert bk.LAUNCHES[name] - before[name] == n and bk.LAUNCHES["attention"] == before["attention"]
         _rows_close(got.cpu(), ref)
@@ -447,7 +440,7 @@ def test_fused_layer_wrappers_refuse(cuda, monkeypatch):
     """The K9 wrappers raise on quant flags, shapes and types their kernels
     do not take, launching nothing; the C entries refuse any flag set but
     the serving one themselves."""
-    tree = _tree_to(_int8_tree(128), cuda)
+    tree = tree_to(_int8_tree(128), cuda)
     layer = layer_slice(tree, 0)
     x = torch.randn(2 * 50, 128, device=cuda).bfloat16()
     no_ctx = {"attn": {k: v for k, v in layer["attn"].items() if k != "ctx_inv"}, "mlp": layer["mlp"]}
@@ -483,3 +476,151 @@ def test_fused_layer_wrappers_refuse(cuda, monkeypatch):
     assert bk.LAUNCHES == before
     bk.block_int8(x, layer, 50, 2)  # the refusals leave no error behind
     assert bk.LAUNCHES["block_int8"] == before["block_int8"] + 1
+
+
+# ---------------------------------------------------------------------------
+# the dynamic and partial static modes, and 65 to 127 tokens
+# ---------------------------------------------------------------------------
+
+
+def _mode_tree(mode):
+    """A 2-layer full-width folded tree in one of the engine's modes: None
+    (dynamic), or "<base>[+score]" with fixed amax (shifts of 3 and 4)."""
+    from jcf_tpu_torch.infer.engine import static_act
+    from jcf_tpu_torch.ops.quant import quantize_clip_params
+
+    params = init_clip_params(0, CLIPConfig(vision_layers=2))
+    if mode is None:
+        return quantize_clip_params(params, heads={"visual": 12})["visual"]
+    act_static, _ = static_act(mode)
+    amax = torch.tensor([[6.0, 6.0, 3.0, 4.0, 43.0, -5.0], [6.0, 6.0, 3.0, 4.0, 44.0, -5.0]])
+    return quantize_clip_params(params, heads={"visual": 12}, act_scales={"visual": amax},
+                                act_static=act_static)["visual"]
+
+
+@pytest.mark.parametrize("m,e", [(700, 768), (333, 3072), (50, 128)])
+def test_row_quant_kernels(cuda, m, e):
+    """LN + dynamic row quant (bf16 rows) and the row quant of f32 rows,
+    with and without QuickGELU, all-zero rows included: int8 within 1 on
+    <= 1e-3 of the elements, scales within 1e-6 relative."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn(m, e, device=cuda, generator=g) * 3
+    x[7] = 0.0
+    xb = x[:, :768].bfloat16()  # LayerNorm rows: E <= 1024
+    before = dict(bk.LAUNCHES)
+    for (q, s), (q_ref, s_ref) in (
+            (bk.ln_quant_rows(xb), bk.ln_quant_rows_plain(xb)),
+            (bk.quant_rows(x), bk.quant_rows_plain(x)),
+            (bk.quant_rows(x, gelu=True), bk.gelu_quant_rows_plain(x))):
+        _int8_close(q, q_ref, 1e-3)
+        assert bool(((s - s_ref).abs() <= 1e-6 * s_ref.abs()).all())
+    assert {k: bk.LAUNCHES[k] - before[k] for k in before if bk.LAUNCHES[k] != before[k]} == {
+        "ln_quant_rows": 1, "quant_rows": 1, "gelu_quant_rows": 1}
+
+
+@pytest.mark.parametrize("m,n,k", [(200, 72, 96), (77, 2304, 768), (130, 768, 3072)])
+def test_int8_gemm_row_epilogues(cuda, m, n, k):
+    """The fused tower's row-scale epilogues, ``(acc * scale) * row +
+    bias``: to bf16, + a bf16 residual, to f32; and the f32 one without
+    rows."""
+    g = torch.Generator(device=cuda).manual_seed(m + n + k)
+    a = torch.randint(-127, 128, (m, k), device=cuda, generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), device=cuda, generator=g, dtype=torch.int8)
+    rows = torch.rand(m, device=cuda, generator=g) * 0.05
+    scale = torch.rand(n, device=cuda, generator=g) * 2e-4
+    bias = torch.randn(n, device=cuda, generator=g) * 0.1
+    resid = torch.randn(m, n, device=cuda, generator=g).bfloat16()
+    acc = ig.int8_matmul_plain(a, w)
+    _bf16_close(ig.int8_gemm_bf16(a, w, scale, bias, row_scale=rows),
+                ig.dequant_plain(acc, scale, bias, rows).bfloat16())
+    _bf16_close(ig.int8_gemm_residual(a, w, scale, bias, resid, row_scale=rows),
+                (resid.float() + ig.dequant_plain(acc, scale, bias, rows)).bfloat16())
+    _f32_close(ig.int8_gemm_f32(a, w, scale, bias, row_scale=rows),
+               ig.dequant_plain(acc, scale, bias, rows))
+    _f32_close(ig.int8_gemm_f32(a, w, scale, bias), ig.dequant_plain(acc, scale, bias))
+
+
+def _ctx_slack(qkv, s, h, shift):
+    """2^-7 sum_j p_j |v_j| / l: how far a p that rounds to bf16 on the
+    other side of a tie can move an f32 context element."""
+    e = qkv.shape[1] // 3
+    absv = torch.cat([qkv[:, : 2 * e], qkv[:, 2 * e :].abs()], dim=1)
+    return 2.0**-7 * bk.attention_plain(absv, None, s, h, shift)
+
+
+@pytest.mark.parametrize("shift", [None, 1.5])
+@pytest.mark.parametrize("s", [50, 82, 127])
+def test_attention_kernel_modes(cuda, s, shift):
+    """K3's attention at S up to 127: the static int8 context and the f32
+    context of a dynamic one, with the pair max or a calibrated shift."""
+    g = torch.Generator(device=cuda).manual_seed(s)
+    h, crops = 12, 9
+    qkv = (torch.randn(crops * s, 3 * h * 64, device=cuda, generator=g) * 0.5).bfloat16()
+    sh = None if shift is None else torch.tensor([[shift]], device=cuda)
+    ctx_inv = torch.tensor([[30.0]], device=cuda)
+    _int8_close(bk.attention(qkv, ctx_inv, s, h, sh), bk.attention_plain(qkv, ctx_inv, s, h, sh),
+                1e-2)
+    got, ref = bk.attention(qkv, None, s, h, sh), bk.attention_plain(qkv, None, s, h, sh)
+    assert got.dtype == torch.float32
+    assert bool(((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs() + _ctx_slack(qkv, s, h, sh)).all())
+
+
+@pytest.mark.parametrize("shift", [None, 1.5])
+def test_cls_attention_kernel_modes(cuda, shift):
+    """K5's attention: the f32 context of a dynamic ctx, and the shift."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    h, crops, s = 12, 37, 50
+    q = (torch.randn(crops, h * 64, device=cuda, generator=g) * 0.5).bfloat16()
+    kv = (torch.randn(crops * s, 2 * h * 64, device=cuda, generator=g) * 0.5).bfloat16()
+    sh = None if shift is None else torch.tensor([[shift]], device=cuda)
+    ctx_inv = torch.tensor([[30.0]], device=cuda)
+    _int8_close(bk.cls_attention(q, kv, ctx_inv, s, h, sh),
+                bk.cls_attention_plain(q, kv, ctx_inv, s, h, sh), 1e-2)
+    got, ref = bk.cls_attention(q, kv, None, s, h, sh), bk.cls_attention_plain(q, kv, None, s, h, sh)
+    slack = 2.0**-7 * bk.cls_attention_plain(q, torch.cat([kv[:, : h * 64], kv[:, h * 64 :].abs()], 1),
+                                             None, s, h, sh)
+    assert bool(((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs() + slack).all())
+
+
+@pytest.mark.parametrize("s", [50, 82])
+@pytest.mark.parametrize("mode", [None, "ln", "hidden", "full+score"])
+def test_tower_kernels_vs_plain_modes(cuda, mode, s):
+    """A 2-layer full-width tower in each mode, the CLS rows and every
+    row: the kernel route vs the plain versions on the CPU (row cos >=
+    0.999); at 82 tokens no K5 launch."""
+    tree = _mode_tree(mode)
+    x = torch.randn(12 * s, 768, generator=torch.Generator().manual_seed(s)).bfloat16()
+    tree_gpu = tree_to(tree, cuda)
+    for cls_only in (True, False):
+        ref = bk.run_fused_tower(x, tree, 12, flat_s=s, cls_only=cls_only)
+        before = dict(bk.LAUNCHES)
+        got = bk.run_fused_tower(x.to(cuda), tree_gpu, 12, flat_s=s, cls_only=cls_only).cpu()
+        k5 = sum(bk.LAUNCHES[k] - before[k] for k in ("cls_attention", "cls_attention_f32"))
+        assert k5 == (1 if cls_only and s <= 64 else 0)
+        cos = torch.nn.functional.cosine_similarity(got.float(), ref.float())
+        assert got.shape == ref.shape and float(cos.min()) >= 0.999
+
+
+def test_features_from_crops_on_the_card(cuda):
+    """A 2-layer dynamic int8 engine (no calibration): crop features and
+    modes on the card vs the CPU's plain versions (cos >= 0.999), and the
+    modes equal to ``mta_from_features(crop_features)``."""
+    from jcf_tpu_torch.infer.engine import TTAEngine
+
+    cfg = CLIPConfig(vision_layers=2)
+    params = init_clip_params(0, cfg)
+    gen = torch.Generator().manual_seed(0)
+    crops = torch.randn(2, 5, 3, 224, 224, generator=gen)
+    text = torch.nn.functional.normalize(torch.randn(10, 512, generator=gen), dim=-1)
+    cpu = TTAEngine(params, cfg, device="cpu")
+    card = TTAEngine(params, cfg, device=cuda)
+    before = dict(bk.LAUNCHES)
+    feats = card.crop_features(crops)
+    assert bk.LAUNCHES["attention_f32"] - before["attention_f32"] == 2
+    assert bk.LAUNCHES["cls_attention_f32"] == before["cls_attention_f32"]
+    cos = torch.nn.functional.cosine_similarity(feats.cpu(), cpu.crop_features(crops), dim=-1)
+    assert float(cos.min()) >= 0.999
+    modes = card.features_from_crops(crops, text)
+    assert torch.equal(modes, card.mta_from_features(feats, text))
+    cos = torch.nn.functional.cosine_similarity(modes.cpu(), cpu.features_from_crops(crops, text))
+    assert float(cos.min()) >= 0.999
