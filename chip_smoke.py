@@ -416,8 +416,7 @@ def serving_kernel_phase(engine, images, geometry):
     wq, wo = attn["w_qkv"], attn["w_out"]
     qkv = ph.run("int8_gemm_bf16",
                  lambda: ig.int8_gemm_bf16(x_q, wq.w_int8, wq.w_scale, wq.bias),
-                 lambda: ig.dequant_plain(ig.int8_matmul_plain(x_q, wq.w_int8), wq.w_scale,
-                                          wq.bias).to(torch.bfloat16),
+                 lambda: ig.int8_gemm_bf16_plain(x_q, wq.w_int8, wq.w_scale, wq.bias),
                  check_bf16,
                  gemm_work(x_q, wq.w_int8, 2, PEAK_INT8, wq.w_scale, wq.bias),
                  lambda: torch._int_mm(x_q, wq.w_int8.T))
@@ -430,8 +429,7 @@ def serving_kernel_phase(engine, images, geometry):
     # out-proj: the residual epilogue at K = E (recorded beside c_proj's)
     mid = ph.run("int8_gemm_residual (out-proj)",
                  lambda: ig.int8_gemm_residual(ctx, wo.w_int8, wo.w_scale, wo.bias, rows),
-                 lambda: (rows.float() + ig.dequant_plain(ig.int8_matmul_plain(ctx, wo.w_int8),
-                                                          wo.w_scale, wo.bias)).to(torch.bfloat16),
+                 lambda: ig.int8_gemm_residual_plain(ctx, wo.w_int8, wo.w_scale, wo.bias, rows),
                  check_bf16,
                  gemm_work(ctx, wo.w_int8, 2, PEAK_INT8, rows, wo.w_scale, wo.bias),
                  lambda: torch._int_mm(ctx, wo.w_int8.T))
@@ -441,15 +439,13 @@ def serving_kernel_phase(engine, images, geometry):
     m_q = bk.ln_quant(mid, mlp["ln_inv"])
     h_q = ph.run("int8_gemm_gelu_quant",
                  lambda: ig.int8_gemm_gelu_quant(m_q, fc.w_int8, fc_sc, fc_b, gelu_c),
-                 lambda: ig.gelu_quant_plain(
-                     ig.dequant_plain(ig.int8_matmul_plain(m_q, fc.w_int8), fc_sc, fc_b), gelu_c),
+                 lambda: ig.int8_gemm_gelu_quant_plain(m_q, fc.w_int8, fc_sc, fc_b, gelu_c),
                  lambda n, a, b: check_int8(n, a, b, 1e-3),
                  gemm_work(m_q, fc.w_int8, 1, PEAK_INT8, fc_sc, fc_b),
                  lambda: torch._int_mm(m_q, fc.w_int8.T))
     ph.run("int8_gemm_residual",
            lambda: ig.int8_gemm_residual(h_q, pr.w_int8, pr.w_scale, pr.bias, mid),
-           lambda: (mid.float() + ig.dequant_plain(ig.int8_matmul_plain(h_q, pr.w_int8),
-                                                   pr.w_scale, pr.bias)).to(torch.bfloat16),
+           lambda: ig.int8_gemm_residual_plain(h_q, pr.w_int8, pr.w_scale, pr.bias, mid),
            check_bf16,
            gemm_work(h_q, pr.w_int8, 2, PEAK_INT8, mid, pr.w_scale, pr.bias),
            lambda: torch._int_mm(h_q, pr.w_int8.T))
@@ -468,37 +464,11 @@ def serving_kernel_phase(engine, images, geometry):
            bound(nbytes(q, kv) + q.numel(), 4.0 * n_crops * heads * s * d, PEAK_BF16))
 
     # the composed halves against the same halves built from plain versions
-    def attn_half_plain(x):
-        xq = bk.ln_quant_plain(x, attn["ln_inv"])
-        t = ig.dequant_plain(ig.int8_matmul_plain(xq, wq.w_int8), wq.w_scale, wq.bias)
-        c = bk.attention_plain(t.to(torch.bfloat16), attn["ctx_inv"], s, heads)
-        y = ig.dequant_plain(ig.int8_matmul_plain(c, wo.w_int8), wo.w_scale, wo.bias)
-        return (x.float() + y).to(torch.bfloat16)
-
-    def mlp_half_plain(x):
-        xq = bk.ln_quant_plain(x, mlp["ln_inv"])
-        hq = ig.gelu_quant_plain(
-            ig.dequant_plain(ig.int8_matmul_plain(xq, fc.w_int8), fc_sc, fc_b), gelu_c)
-        y = ig.dequant_plain(ig.int8_matmul_plain(hq, pr.w_int8), pr.w_scale, pr.bias)
-        return (x.float() + y).to(torch.bfloat16)
-
-    def cls_half_plain(x):
-        xq = bk.ln_quant_plain(x, last["ln_inv"])
-        kv_ = ig.dequant_plain(ig.int8_matmul_plain(xq, lw.w_int8[e:]), lw.w_scale[e:], lw.bias[e:])
-        q_ = ig.dequant_plain(ig.int8_matmul_plain(xq[::s], lw.w_int8[:e]), lw.w_scale[:e],
-                              lw.bias[:e])
-        c = bk.cls_attention_plain(q_.to(torch.bfloat16), kv_.to(torch.bfloat16),
-                                   last["ctx_inv"], s, heads)
-        wo_ = last["w_out"]
-        y = ig.dequant_plain(ig.int8_matmul_plain(c, wo_.w_int8), wo_.w_scale, wo_.bias)
-        return (x[::s].float() + y).to(torch.bfloat16)
-
-    for name, kern, plain, x in (
-            ("K3 attention half", lambda x: bk.attn_half_int8(x, attn, s, heads), attn_half_plain,
-             rows),
-            ("K4 MLP half", lambda x: bk.mlp_half_int8(x, mlp), mlp_half_plain, mid),
-            ("K5 CLS attention half", lambda x: bk.attn_cls_int8(x, last, s, heads),
-             cls_half_plain, rows)):
+    for name, kern, x in (
+            ("K3 attention half", lambda x: bk.attn_half_int8(x, attn, s, heads), rows),
+            ("K4 MLP half", lambda x: bk.mlp_half_int8(x, mlp), mid),
+            ("K5 CLS attention half", lambda x: bk.attn_cls_int8(x, last, s, heads), rows)):
+        plain = plain_version(kern)
         check_composed(name, kern(x), plain(x), lambda: kern(x), lambda: plain(x))
     return ph.results
 
@@ -973,11 +943,11 @@ def agreement(modes_q, modes_f, classifier):
     return top1, overlap, float(cosine_rows(modes_q, modes_f).mean())
 
 
-def margins(modes_q, modes_f, classifier) -> float:
+def margins(modes_q, modes_f, classifier) -> None:
     """Logs what decides the top-1 agreement: the f32 top-1 minus top-2
     logit gap per image, the int8 - f32 logit difference on those two
-    classes, and how alike the f32 modes of different images are ->
-    the share of images whose gap is under that difference."""
+    classes, the share of images whose gap is under that difference, and
+    how alike the f32 modes of different images are."""
     import torch
 
     logits_f = modes_f @ classifier.float().T
@@ -994,7 +964,6 @@ def margins(modes_q, modes_f, classifier) -> float:
         f"{swing.quantile(torch.tensor([0.5, 0.95], device=gap.device)).tolist()}; "
         f"images whose gap is under their swing {float((gap < swing).float().mean()):.4f}; "
         f"mean cosine between different images' f32 modes {pair_cos:.6f}")
-    return float((gap < swing).float().mean())
 
 
 def check_modes(modes, batch: int, dim: int) -> None:
@@ -1098,7 +1067,7 @@ def serving_b16_phase(dev, counters, smi, text):
         log(f"row-scale GEMM at M = {a.shape[0]}, N = {w.shape[0]}, K = {a.shape[1]}")
         ph.run(name,
                lambda: ig.int8_gemm_rowscale(a, w, xs, ws, bias),
-               lambda: ig.rowscale_plain(ig.int8_matmul_plain(a, w), xs, ws, bias).to(torch.bfloat16),
+               lambda: ig.int8_gemm_rowscale_plain(a, w, xs, ws, bias),
                check_bf16,
                gemm_work(a, w, 2, PEAK_INT8, xs, ws, bias),
                lambda: torch._int_mm(a, w.T))
@@ -1424,13 +1393,8 @@ def plain_halves():
     """Routes the int8 halves (K3, K4, K5) of ``ops.block_kernel`` through
     the plain versions of their kernels for the block: the composed
     reference of a half in any quantization mode."""
-    import torch
-
     from jcf_tpu_torch.ops import block_kernel as bk
     from jcf_tpu_torch.ops import int8_gemm as ig
-
-    def dq(a, w, sc, b, rows):
-        return ig.dequant_plain(ig.int8_matmul_plain(a, w), sc, b, rows)
 
     swaps = {
         "ln_quant": bk.ln_quant_plain,
@@ -1438,11 +1402,8 @@ def plain_halves():
         "quant_rows": lambda x, gelu=False: (bk.gelu_quant_rows_plain if gelu else bk.quant_rows_plain)(x),
         "attention": bk.attention_plain,
         "cls_attention": bk.cls_attention_plain,
-        "int8_gemm_bf16": lambda a, w, sc, b, row_scale=None: dq(a, w, sc, b, row_scale).to(torch.bfloat16),
-        "int8_gemm_residual": lambda a, w, sc, b, r, row_scale=None:
-            (r.float() + dq(a, w, sc, b, row_scale)).to(torch.bfloat16),
-        "int8_gemm_f32": lambda a, w, sc, b, row_scale=None: dq(a, w, sc, b, row_scale),
-        "int8_gemm_gelu_quant": lambda a, w, sc, b, c: ig.gelu_quant_plain(dq(a, w, sc, b, None), c),
+        **{k: getattr(ig, f"{k}_plain") for k in
+           ("int8_gemm_bf16", "int8_gemm_residual", "int8_gemm_f32", "int8_gemm_gelu_quant")},
     }
     saved = {k: getattr(bk, k) for k in swaps}
     for k, fn in swaps.items():
@@ -1452,6 +1413,14 @@ def plain_halves():
     finally:
         for k, fn in saved.items():
             setattr(bk, k, fn)
+
+
+def plain_version(fn):
+    """``fn`` run under ``plain_halves``."""
+    def run(x):
+        with plain_halves():
+            return fn(x)
+    return run
 
 
 def check_rows(name, got, ref):
@@ -1495,6 +1464,7 @@ def mode_kernel_checks(engine, rows, mode, ph):
     last layer's weights), and the composed halves against
     ``plain_halves``."""
     import torch
+    import torch.nn.functional as F
 
     from jcf_tpu_torch.ops import block_kernel as bk
     from jcf_tpu_torch.ops import int8_gemm as ig
@@ -1513,8 +1483,10 @@ def mode_kernel_checks(engine, rows, mode, ph):
     att_ops = 4.0 * n_crops * heads * s * s * d
     cls_ops = 4.0 * n_crops * heads * s * d
 
-    def plain_gemm(a, w, sc, b, rs):
-        return ig.dequant_plain(ig.int8_matmul_plain(a, w), sc, b, rs)
+    def heads_view(t, parts):
+        """[B' * S', parts * E] rows -> ``parts`` head views [B', H, S', D]."""
+        v = t.view(-1, t.shape[0] // n_crops, parts, heads, d)
+        return [v[:, :, i].transpose(1, 2) for i in range(parts)]
 
     if mode == "dynamic":
         x_q, x_sc = ph.run("ln_quant_rows", lambda: bk.ln_quant_rows(rows),
@@ -1522,13 +1494,16 @@ def mode_kernel_checks(engine, rows, mode, ph):
                            bound(nbytes(rows) + m * e + 4 * m, 0.0, PEAK_INT8))
         qkv = ph.run("int8_gemm_bf16_rows",
                      lambda: ig.int8_gemm_bf16(x_q, wq.w_int8, wq.w_scale, wq.bias, row_scale=x_sc),
-                     lambda: plain_gemm(x_q, wq.w_int8, wq.w_scale, wq.bias, x_sc).to(torch.bfloat16),
+                     lambda: ig.int8_gemm_bf16_plain(x_q, wq.w_int8, wq.w_scale, wq.bias, x_sc),
                      check_bf16, gemm_work(x_q, wq.w_int8, 2, PEAK_INT8, wq.w_scale, wq.bias, x_sc),
                      lambda: torch._int_mm(x_q, wq.w_int8.T))
         slack = 2.0**-7 * bk.attention_plain(abs_v(qkv, e), None, s, heads)
+        # library: SDPA on the head views (q holds 1/sqrt(d): scale 1); the
+        # f32 context is softmax(q k^T) v, the pair shift cancels
         ctx = ph.run("attention_f32", lambda: bk.attention(qkv, None, s, heads),
                      lambda: bk.attention_plain(qkv, None, s, heads), check_ctx_f32(slack),
-                     bound(nbytes(qkv) + 4 * m * e, att_ops, PEAK_BF16))
+                     bound(nbytes(qkv) + 4 * m * e, att_ops, PEAK_BF16),
+                     lambda: F.scaled_dot_product_attention(*heads_view(qkv, 3), scale=1.0))
         del slack
         c_q, c_sc = ph.run("quant_rows", lambda: bk.quant_rows(ctx),
                            lambda: bk.quant_rows_plain(ctx), check_rows,
@@ -1536,14 +1511,15 @@ def mode_kernel_checks(engine, rows, mode, ph):
         mid = ph.run("int8_gemm_residual_rows (out-proj)",
                      lambda: ig.int8_gemm_residual(c_q, wo.w_int8, wo.w_scale, wo.bias, rows,
                                                    row_scale=c_sc),
-                     lambda: (rows.float() + plain_gemm(c_q, wo.w_int8, wo.w_scale, wo.bias, c_sc)
-                              ).to(torch.bfloat16),
+                     lambda: ig.int8_gemm_residual_plain(c_q, wo.w_int8, wo.w_scale, wo.bias, rows,
+                                                         c_sc),
                      check_bf16, gemm_work(c_q, wo.w_int8, 2, PEAK_INT8, rows, wo.w_scale, wo.bias, c_sc),
                      lambda: torch._int_mm(c_q, wo.w_int8.T))
         m_q, m_sc = bk.ln_quant_rows(mid)
         hidden = ph.run("int8_gemm_f32_rows",
                         lambda: ig.int8_gemm_f32(m_q, fc.w_int8, fc.w_scale, fc.bias, row_scale=m_sc),
-                        lambda: plain_gemm(m_q, fc.w_int8, fc.w_scale, fc.bias, m_sc), check_f32,
+                        lambda: ig.int8_gemm_f32_plain(m_q, fc.w_int8, fc.w_scale, fc.bias, m_sc),
+                        check_f32,
                         gemm_work(m_q, fc.w_int8, 4, PEAK_INT8, fc.w_scale, fc.bias, m_sc),
                         lambda: torch._int_mm(m_q, fc.w_int8.T), reps=3)
         h_q, h_sc = ph.run("gelu_quant_rows", lambda: bk.quant_rows(hidden, gelu=True),
@@ -1552,8 +1528,7 @@ def mode_kernel_checks(engine, rows, mode, ph):
         del hidden
         ph.run("int8_gemm_residual_rows",
                lambda: ig.int8_gemm_residual(h_q, pr.w_int8, pr.w_scale, pr.bias, mid, row_scale=h_sc),
-               lambda: (mid.float() + plain_gemm(h_q, pr.w_int8, pr.w_scale, pr.bias, h_sc)
-                        ).to(torch.bfloat16),
+               lambda: ig.int8_gemm_residual_plain(h_q, pr.w_int8, pr.w_scale, pr.bias, mid, h_sc),
                check_bf16, gemm_work(h_q, pr.w_int8, 2, PEAK_INT8, mid, pr.w_scale, pr.bias, h_sc),
                lambda: torch._int_mm(h_q, pr.w_int8.T))
         del h_q, h_sc, qkv, ctx, c_q
@@ -1564,14 +1539,16 @@ def mode_kernel_checks(engine, rows, mode, ph):
         slack = 2.0**-7 * bk.cls_attention_plain(q, abs_v(kv, e), None, s, heads)
         ph.run("cls_attention_f32", lambda: bk.cls_attention(q, kv, None, s, heads),
                lambda: bk.cls_attention_plain(q, kv, None, s, heads), check_ctx_f32(slack),
-               bound(nbytes(q, kv) + 4 * n_crops * e, cls_ops, PEAK_BF16))
+               bound(nbytes(q, kv) + 4 * n_crops * e, cls_ops, PEAK_BF16),
+               lambda: F.scaled_dot_product_attention(*heads_view(q, 1), *heads_view(kv, 2),
+                                                      scale=1.0))
         del kv, q, lx_q, slack
     elif mode == "ln":
         mid = bk.attn_half_int8(rows, attn, s, heads)
         m_q = bk.ln_quant(mid, mlp["ln_inv"])
         ph.run("int8_gemm_f32",
                lambda: ig.int8_gemm_f32(m_q, fc.w_int8, fc.w_scale, fc.bias),
-               lambda: plain_gemm(m_q, fc.w_int8, fc.w_scale, fc.bias, None), check_f32,
+               lambda: ig.int8_gemm_f32_plain(m_q, fc.w_int8, fc.w_scale, fc.bias), check_f32,
                gemm_work(m_q, fc.w_int8, 4, PEAK_INT8, fc.w_scale, fc.bias),
                lambda: torch._int_mm(m_q, fc.w_int8.T), reps=3)
     elif mode == "full+score":
@@ -1597,19 +1574,14 @@ def mode_kernel_checks(engine, rows, mode, ph):
     else:
         mid = bk.attn_half_int8(rows, attn, s, heads)
 
-    def plain(fn):
-        def run(x):
-            with plain_halves():
-                return fn(x)
-        return run
-
     halves = [(f"K3 attention half ({mode})", lambda x: bk.attn_half_int8(x, attn, s, heads), rows),
               (f"K4 MLP half ({mode})", lambda x: bk.mlp_half_int8(x, mlp), mid)]
     if s <= bk.CLS_MAX_SEQ:
         halves.append((f"K5 CLS attention half ({mode})",
                        lambda x: bk.attn_cls_int8(x, last, s, heads), rows))
     for name, kern, x in halves:
-        check_composed(name, kern(x), plain(kern)(x), lambda: kern(x), lambda: plain(kern)(x))
+        plain = plain_version(kern)
+        check_composed(name, kern(x), plain(x), lambda: kern(x), lambda: plain(x))
     torch.cuda.empty_cache()
 
 
@@ -1791,11 +1763,7 @@ def serving_288_phase(text, counters, smi, dev):
     last = layer_slice(engine._quant, cfg.vision_layers - 1)
     route = lambda x: bk.mlp_half_int8(bk.attn_half_int8(x, last["attn"], s, heads)[::s].contiguous(),
                                        last["mlp"])
-
-    def route_plain(x):
-        with plain_halves():
-            return route(x)
-
+    route_plain = plain_version(route)
     check_composed(f"last layer, K3 + K4 on the CLS rows ({s} tokens)", route(rows), route_plain(rows),
                    lambda: route(rows), lambda: route_plain(rows))
     del calls, rows, x_q, qkv
@@ -1818,21 +1786,16 @@ def serving_288_phase(text, counters, smi, dev):
         f"{cos:.6f}, 1% quantile {float(mode_cos.quantile(0.01)):.6f}, min "
         f"{float(mode_cos.min()):.6f}; per-view feature cos over {view_cos.numel()} views mean "
         f"{float(view_cos.mean()):.6f} min {float(view_cos.min()):.6f}")
-    tied = margins(modes, modes_f, text)
-    # top-1 >= 0.99 is decidable only where at most 1% of the images' f32
-    # top-1 - top-2 gaps lie under the int8 - f32 swing of that gap; past
-    # that (random-init modes near one direction, as ViT-B/16's in phase
-    # 6b) the gates are top-5, the mean mode cosine and the per-view
-    # features, which MTA does not amplify
-    if tied > 0.01:
-        log(f"  {tied:.4f} of the images' top-1 gaps are under their swing: gates top-5 >= 0.97, "
-            f"mean mode cos >= 0.999, per-view feature cos mean >= 0.999 and min >= 0.99; "
-            f"top-1 printed")
-        ok = (overlap >= 0.97 and cos >= 0.999 and float(view_cos.mean()) >= 0.999
-              and float(view_cos.min()) >= 0.99)
-    else:
-        log("  gates: top-1 >= 0.99, top-5 >= 0.97")
-        ok = top1 >= 0.99 and overlap >= 0.97
+    margins(modes, modes_f, text)
+    # fixed gates, as phase 6b's: the f32 model's own top-1 - top-2 gaps at
+    # 288² are as small as ViT-B/16's (PERF.md section 2), so top-1 counts
+    # near-ties and is printed; the tower's output (the per-view features)
+    # is gated, and the modes on their mean cosine (MTA can move a mode
+    # between near-equal peaks)
+    log("  gates: top-5 >= 0.97, mean mode cos >= 0.999, per-view feature cos mean >= 0.999 "
+        "and min >= 0.999; top-1 printed")
+    ok = (overlap >= 0.97 and cos >= 0.999 and float(view_cos.mean()) >= 0.999
+          and float(view_cos.min()) >= 0.999)
     if not ok:
         raise AssertionError(f"ViT-B/32 at {RES_288}² fails the ranking certificate")
     del feats, feats_f, view_cos

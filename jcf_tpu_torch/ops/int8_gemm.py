@@ -22,8 +22,9 @@ tower's int8 rows, applied in that tower's op order: ``(acc * scale[n])
 epilogue (``<name>_rows``).
 
 Each wrapper launches the CUDA kernel for CUDA tensors and runs its plain
-version for CPU tensors. The plain product runs in float64, which holds
-every partial sum of int8 products exactly (|acc| < 2**53).
+version (``<name>_plain``, the same arguments) for CPU tensors. The plain
+product runs in float64, which holds every partial sum of int8 products
+exactly (|acc| < 2**53).
 """
 
 from __future__ import annotations
@@ -62,6 +63,27 @@ def gelu_quant_plain(h, c):
     then round-half-even and saturate to int8."""
     g = h * (0.5 + 0.5 * torch.tanh(c * h))
     return torch.clamp(torch.round(g), -127, 127).to(torch.int8)
+
+
+def int8_gemm_bf16_plain(a, w, scale, bias, row_scale=None):
+    return dequant_plain(int8_matmul_plain(a, w), scale, bias, row_scale).to(torch.bfloat16)
+
+
+def int8_gemm_residual_plain(a, w, scale, bias, resid, row_scale=None):
+    y = dequant_plain(int8_matmul_plain(a, w), scale, bias, row_scale)
+    return (resid.float() + y).to(torch.bfloat16)
+
+
+def int8_gemm_f32_plain(a, w, scale, bias, row_scale=None):
+    return dequant_plain(int8_matmul_plain(a, w), scale, bias, row_scale)
+
+
+def int8_gemm_gelu_quant_plain(a, w, scale, bias, gelu_c):
+    return gelu_quant_plain(dequant_plain(int8_matmul_plain(a, w), scale, bias), gelu_c)
+
+
+def int8_gemm_rowscale_plain(a, w, row_scale, scale, bias, out_dtype=torch.bfloat16):
+    return rowscale_plain(int8_matmul_plain(a, w), row_scale, scale, bias).to(out_dtype)
 
 
 def _launch(epilogue, a, w, out_dtype, *, scale=None, bias=None, resid=None, gelu_c=None,
@@ -110,29 +132,28 @@ def _rows(epilogue, row_scale):
 
 def int8_gemm_bf16(a, w, scale, bias, row_scale=None):
     if not a.is_cuda:
-        return dequant_plain(int8_matmul_plain(a, w), scale, bias, row_scale).to(torch.bfloat16)
+        return int8_gemm_bf16_plain(a, w, scale, bias, row_scale)
     return _launch(_rows("bf16", row_scale), a, w, torch.bfloat16, scale=scale, bias=bias,
                    row_scale=row_scale)
 
 
 def int8_gemm_residual(a, w, scale, bias, resid, row_scale=None):
     if not a.is_cuda:
-        y = dequant_plain(int8_matmul_plain(a, w), scale, bias, row_scale)
-        return (resid.float() + y).to(torch.bfloat16)
+        return int8_gemm_residual_plain(a, w, scale, bias, resid, row_scale)
     return _launch(_rows("residual", row_scale), a, w, torch.bfloat16, scale=scale, bias=bias,
                    resid=resid, row_scale=row_scale)
 
 
 def int8_gemm_f32(a, w, scale, bias, row_scale=None):
     if not a.is_cuda:
-        return dequant_plain(int8_matmul_plain(a, w), scale, bias, row_scale)
+        return int8_gemm_f32_plain(a, w, scale, bias, row_scale)
     return _launch(_rows("f32", row_scale), a, w, torch.float32, scale=scale, bias=bias,
                    row_scale=row_scale)
 
 
 def int8_gemm_gelu_quant(a, w, scale, bias, gelu_c):
     if not a.is_cuda:
-        return gelu_quant_plain(dequant_plain(int8_matmul_plain(a, w), scale, bias), gelu_c)
+        return int8_gemm_gelu_quant_plain(a, w, scale, bias, gelu_c)
     return _launch("gelu_quant", a, w, torch.int8, scale=scale, bias=bias, gelu_c=gelu_c)
 
 
@@ -141,7 +162,7 @@ def int8_gemm_rowscale(a, w, row_scale, scale, bias, out_dtype=torch.bfloat16):
     [N] scales and bias -> [M, N] in ``out_dtype``. The kernel gives bf16
     only; the plain version rounds its f32 result to ``out_dtype``."""
     if not a.is_cuda:
-        return rowscale_plain(int8_matmul_plain(a, w), row_scale, scale, bias).to(out_dtype)
+        return int8_gemm_rowscale_plain(a, w, row_scale, scale, bias, out_dtype)
     if out_dtype != torch.bfloat16:
         raise ValueError(f"the row-scale epilogue writes bf16, not {out_dtype}")
     return _launch("rowscale", a, w, torch.bfloat16, scale=scale, bias=bias, row_scale=row_scale)

@@ -1,0 +1,65 @@
+#!/usr/bin/env python3
+"""Times K3's attention kernel (``ops.block_kernel.attention``) at the
+ViT-B/32 serving shapes, on one NVIDIA GPU.
+
+    python3 profile_attention.py        # from the repository root
+
+Seeded bf16 qkv rows of 12 heads of 64: 8192 crops of 50 tokens (224²,
+b1024 x 8 views) with the int8 context (a static scale) and the f32
+context (dynamic), and 2048 crops of 82 tokens (288², b256 x 8) with the
+int8 context. Prints the card and, per shape, the ms per launch (CUDA
+events, the median of ``ROUNDS`` rounds of ``REPS`` launches) on one line
+each. To compare two builds, run it from both checkouts on the same card,
+alternating (A, B, B, A).
+"""
+
+from __future__ import annotations
+
+import os
+import statistics
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HEADS, E = 12, 768
+SHAPES = ((8192, 50, "int8"), (8192, 50, "f32"), (2048, 82, "int8"))
+ROUNDS, REPS = 7, 10
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_attention: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from jcf_tpu_torch.ops import block_kernel as bk
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ctx_inv = torch.tensor([20.0], device=dev)
+    for crops, s, out in SHAPES:
+        qkv = (torch.randn(crops * s, 3 * E, device=dev, generator=gen) * 0.5).bfloat16()
+        inv = ctx_inv if out == "int8" else None
+        bk.attention(qkv, inv, s, HEADS)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(ROUNDS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(REPS):
+                bk.attention(qkv, inv, s, HEADS)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / REPS)
+        print(f"attention {crops} crops x S = {s}, {out} context: median {statistics.median(times):.4f} "
+              f"ms per launch, min {min(times):.4f}, max {max(times):.4f} ({ROUNDS} x {REPS})")
+        del qkv
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
