@@ -32,9 +32,14 @@
 6. drives ``TTAEngine.features_from_images`` at ViT-B/32 full width with
    seed-0 weights, images and classifier (as ``bench.py`` makes them),
    b1024 x 8 views, counting the kernels it launches;
-7. certifies the int8 path against the port's plain f32 path (its
-   attention through the plain K7) on the same crop geometry (top-1 agreement >= 0.99, top-5 overlap >= 0.97, the gates
-   of ``bench.py``), then serves once with the built classifier;
+7. certifies the int8 path against the f32 engine (``quant=None``, the
+   reference preset's engine on its own route: K1 in f32 and the
+   unquantized tower, counted: 1 ``view_f32`` and 7 launches a layer, no
+   K7) on the same crop geometry (top-1 agreement >= 0.99, top-5 overlap
+   >= 0.97, the gates of ``bench.py``; printed beside the numbers
+   measured against the earlier f32 path, the composable tower with
+   plain K7 attention), then serves once with the built
+   classifier;
 8. times the slice in images/s;
 6b. (run last, so the ViT-B/32 numbers above are taken as before) serves
    ViT-B/16 (``CLIPConfig(vision_patch_size=16)``: 197 tokens, full width
@@ -81,6 +86,26 @@
    where more than 1% of the images' f32 top-1 gaps lie under the int8
    swing, top-5, the mean mode cosine and the per-view features
    instead), img/s.
+11. (after 10) the unquantized towers: the f32 engine of phase 7 against
+   its route through the plain versions (per-view features cos >=
+   0.99999, modes top-1 and top-5 >= 0.99) and img/s; its
+   ``features_from_crops`` at 8 x 513 crops (84 launches, no K1), against
+   the plain route (per-crop cos >= 0.99999), crops/s; the bf16 parity
+   engine (``quant=None, dtype=bf16``, ``bench.py``'s ``JCF_BENCH_QUANT=none``)
+   at b1024 x 8 views, counted, certified against the f32 engine (top-1
+   >= 0.99, top-5 >= 0.97), img/s; under ``_FUSE`` = "block" the bf16
+   engine (1 K1 + 12 K9b with an all-zero bias; cert >= 0.98 / 0.95) and
+   the f32 engine's refusal; the f32 classifier build under
+   ``PipelineConfig()`` (counted: the f32 text halves only; against the
+   plain f32 tower, row cos >= 0.99999); then each new kernel against its
+   plain version: K1's f32 and bf16 views at the serving batch, on layer
+   0's input rows of the f32 and bf16 engines' forwards ``ln_affine_f32``,
+   the f32 GEMM epilogues (bias, QuickGELU, residual), the mask-free
+   attention in f32 and bf16 (SDPA on the head views as the library
+   yardstick, ``matmul`` without TF32 for the GEMMs, ``F.layer_norm``) and
+   the composed halves, and at 512 prompts x 77 tokens the f32 text pieces,
+   ``causal_attention_f32`` (SDPA ``is_causal``) and the 12-layer f32
+   text tower.
 
 Every weight and input is made from seed 0 (the LoRA factors from seed
 1, as ``scripts/bench_train.py``). Exits nonzero, without the
@@ -192,11 +217,34 @@ KERNELS = {
                           "jcf_tpu/ops/block_kernel.py:1508"),
     "int8_gemm_f32": ("serving_ln", "jcf_tpu_torch/csrc/int8_gemm.cu",
                       "jcf_tpu/ops/block_kernel.py:643"),
+    # the unquantized towers, phase 11: K1's float views, K6a mask-free and
+    # in f32, K6b in f32 (the f32 engine; the bf16 parity engine; the f32
+    # classifier build)
+    "view_f32": ("serving_f32", "jcf_tpu_torch/csrc/view.cu", "jcf_tpu/ops/view_kernel.py:60"),
+    "view_bf16": ("serving_bf16", "jcf_tpu_torch/csrc/view.cu", "jcf_tpu/ops/view_kernel.py:60"),
+    "ln_affine_f32": ("serving_f32", "jcf_tpu_torch/csrc/text_block.cu",
+                      "jcf_tpu/ops/block_kernel.py:528"),
+    "f32_gemm_bias": ("serving_f32", "jcf_tpu_torch/csrc/f32_gemm.cu",
+                      "jcf_tpu/ops/block_kernel.py:528"),
+    "pair_attention_f32": ("serving_f32", "jcf_tpu_torch/csrc/text_block.cu",
+                           "jcf_tpu/ops/block_kernel.py:322"),
+    "pair_attention_bf16": ("serving_bf16", "jcf_tpu_torch/csrc/text_block.cu",
+                            "jcf_tpu/ops/block_kernel.py:322"),
+    "f32_gemm_gelu": ("serving_f32", "jcf_tpu_torch/csrc/f32_gemm.cu",
+                      "jcf_tpu/ops/block_kernel.py:704"),
+    "f32_gemm_residual": ("serving_f32", "jcf_tpu_torch/csrc/f32_gemm.cu",
+                          "jcf_tpu/ops/block_kernel.py:704"),
+    "causal_attention_f32": ("classifier_f32", "jcf_tpu_torch/csrc/text_block.cu",
+                             "jcf_tpu/ops/block_kernel.py:464"),
 }
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Prints ``msg`` after the seconds since the script started."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
 
 
 def cmd_output(cmd) -> str:
@@ -386,7 +434,7 @@ def serving_kernel_phase(engine, images, geometry):
     ph = Phase()
 
     views = ph.run("view",
-                   lambda: vk.fused_views_nchw(images, cy, cx, inv, res),
+                   lambda: vk.fused_views_nchw(images, cy, cx, inv, res, quantize=True),
                    lambda: vk.fused_views_nchw_plain(images, cy, cx, inv, res, quantize=True),
                    lambda n, a, b: check_int8(n, a, b, 5e-3),
                    bound(nbytes(images) + n_crops * 3 * res * res, 0.0, PEAK_INT8))
@@ -483,13 +531,14 @@ def text_tower_plain(x, blocks, n_heads, s):
     return x
 
 
-def encode_text_plain(text, cfg, ids):
-    """``encode_text`` with the plain-version tower."""
+def encode_text_plain(text, cfg, ids, dtype=None):
+    """``encode_text`` with the plain-version tower, in ``dtype`` (bf16 by
+    default)."""
     import torch
 
     from jcf_tpu_torch.ops.layers import layer_norm
 
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
     b, s = ids.shape
     x = text["token_embedding"][ids].to(bf) + text["positional_embedding"].to(bf)
     x = text_tower_plain(x.reshape(b * s, -1), text["blocks"], cfg.text_heads, s).reshape(b, s, -1)
@@ -580,13 +629,11 @@ def text_kernel_phase(text, cfg, ids):
 
 
 def text_half_plain(x, layer, s, n_heads, half):
-    """One half of one text layer from the plain versions."""
-    import torch
-
+    """One half of one text layer from the plain versions, in x's dtype."""
     from jcf_tpu_torch.ops import bf16_gemm as bg
     from jcf_tpu_torch.ops import block_kernel as bk
 
-    bf = torch.bfloat16
+    bf = x.dtype
     if half == "attn":
         ln, attn = layer["ln_1"], layer["attn"]
         h = bk.ln_affine_plain(x, ln["scale"].to(bf), ln["bias"].to(bf))
@@ -1696,8 +1743,7 @@ def crops_phase(params, images, text, counters, smi, dev):
     if not torch.equal(engine.mta_from_features(feats, text), modes):
         raise AssertionError("features_from_crops != mta_from_features(crop_features)")
     ref = TTAEngine(params, cfg, device=dev, quant=None)
-    with plain_attention():
-        feats_f = torch.cat([ref.crop_features(crops[i : i + 1]) for i in range(CROP_IMAGES)])
+    feats_f = ref.crop_features(crops)
     modes_f = ref.mta_from_features(feats_f, text)
     flat_q, flat_f = feats.reshape(-1, feats.shape[-1]), feats_f.reshape(-1, feats.shape[-1])
     top1, overlap, cos = agreement(flat_q, flat_f, text)
@@ -1769,13 +1815,9 @@ def serving_288_phase(text, counters, smi, dev):
     del calls, rows, x_q, qkv
 
     # the cert on the per-view features (the tower's output) and on the
-    # MTA modes, against the f32 engine with plain attention
+    # MTA modes, against the f32 engine
     ref = TTAEngine(params, cfg, device=dev, n_views=VIEWS - 1, quant=None)
-    chunk = 64
-    with plain_attention():
-        feats_f = torch.cat([ref._view_features(images[i : i + chunk],
-                                                tuple(t[i : i + chunk] for t in geometry))
-                             for i in range(0, BATCH_288, chunk)])
+    feats_f = ref._view_features(images, geometry)
     modes_f = ref.mta_from_features(feats_f, text)
     feats = engine._view_features(images, geometry)
     del ref
@@ -1807,6 +1849,408 @@ def serving_288_phase(text, counters, smi, dev):
     return launches, ph.results
 
 
+# phase 11: the unquantized towers. Launches of one layer of each float
+# tower (K6a: LN, qkv, attention, out-proj; K6b: LN, c_fc + GELU, c_proj)
+FLOAT_LAYER = {
+    "f32": {"ln_affine_f32": 2, "f32_gemm_bias": 1, "pair_attention_f32": 1,
+            "f32_gemm_residual": 2, "f32_gemm_gelu": 1},
+    "bf16": {"ln_affine": 2, "bf16_gemm_bias": 1, "pair_attention_bf16": 1,
+             "bf16_gemm_residual": 2, "bf16_gemm_gelu": 1},
+    "f32 text": {"ln_affine_f32": 2, "f32_gemm_bias": 1, "causal_attention_f32": 1,
+                 "f32_gemm_residual": 2, "f32_gemm_gelu": 1},
+}
+FLOAT_ITERS = 2  # timed calls of the unquantized engines
+# the int8 certificate (static "full", b1024 x 8 views) as measured
+# against the earlier f32 path, the composable tower with plain K7
+# attention, on an H100 80GB HBM3 at 700 W: top-1, top-5, mode cos
+PLAIN_K7_CERT = (0.9980, 0.9828, 0.999133)
+
+
+def float_launches(kind: str, n_layers: int, calls: int = 1, view: bool = True) -> dict:
+    """The launches of ``calls`` unquantized tower forwards (and K1 once,
+    with ``view``)."""
+    out = {k: v * n_layers * calls for k, v in FLOAT_LAYER[kind].items()}
+    if view:
+        out["view_f32" if kind == "f32" else "view_bf16"] = 1
+    return out
+
+
+@contextlib.contextmanager
+def plain_float():
+    """Routes the float halves (K6a, K6b in bf16 and f32) and the engines'
+    K1 through the plain versions of their kernels for the block: the
+    composed reference of the unquantized towers."""
+    import torch
+
+    from jcf_tpu_torch.infer import engine as eng
+    from jcf_tpu_torch.ops import bf16_gemm as bg
+    from jcf_tpu_torch.ops import block_kernel as bk
+    from jcf_tpu_torch.ops import f32_gemm as fg
+    from jcf_tpu_torch.ops import view_kernel as vk
+
+    swaps = [(bk, "ln_affine", bk.ln_affine_plain), (bk, "pair_attention", bk.pair_attention_plain),
+             (bk, "causal_attention", bk.causal_attention_plain),
+             (eng, "fused_views_nchw", vk.fused_views_nchw_plain)]
+    saved = [(m, k, getattr(m, k)) for m, k, _ in swaps]
+    gemms = dict(bk._GEMMS)
+    for m, k, fn in swaps:
+        setattr(m, k, fn)
+    bk._GEMMS[torch.float32] = (fg.f32_gemm_bias_plain, fg.f32_gemm_gelu_plain,
+                                fg.f32_gemm_residual_plain)
+    bk._GEMMS[torch.bfloat16] = (bg.bf16_gemm_bias_plain, bg.bf16_gemm_gelu_plain,
+                                 bg.bf16_gemm_residual_plain)
+    try:
+        yield
+    finally:
+        for m, k, fn in saved:
+            setattr(m, k, fn)
+        bk._GEMMS.update(gemms)
+
+
+def plain_float_version(fn):
+    """``fn`` run under ``plain_float``."""
+    def run(*args):
+        with plain_float():
+            return fn(*args)
+    return run
+
+
+def check_f32_sum(a, w):
+    """An f32 GEMM against its plain version: within 1e-5 + 1e-5 |ref| +
+    1e-6 sum_k |a_k w_k| per element (K-term f32 sums in another order;
+    their worst case is K u sum |a w|, 2e-4 of it at K = 3072)."""
+    import torch
+
+    def check(name, got, ref):
+        d = (got - ref).abs()
+        bad = d > 1e-5 + 1e-5 * ref.abs() + 1e-6 * torch.matmul(a.abs(), w.abs().T)
+        log(f"  {name}: max |diff| {float(d.max()):.3e}, over tolerance {int(bad.sum())} "
+            f"(tol: 1e-5 + 1e-5 |ref| + 1e-6 sum |a w|)")
+        if bool(bad.any()) or not bool(got.isfinite().all()):
+            raise AssertionError(f"{name}: kernel disagrees with its plain version")
+        return float(d.max())
+    return check
+
+
+def head_views(qkv, rows_per, heads):
+    """q, k, v [B, H, S, D] views of qkv [B * S, 3E] (SDPA's layout)."""
+    e = qkv.shape[1] // 3
+    return qkv.view(-1, rows_per, 3, heads, e // heads).permute(2, 0, 3, 1, 4)
+
+
+def float_kernel_phase(rows_f32, rows_bf16, text, cfg, ids, images, geometry):
+    """Phase 11a: each new kernel against its plain version at the paths'
+    shapes: K1's bf16 and f32 views at the serving batch; on layer 0's
+    input rows of the f32 and bf16 engines' forwards the f32 LN, the three
+    f32 GEMM epilogues, the mask-free attention in f32 and bf16, and the
+    composed halves; on 512 prompts x 77 tokens the f32 text pieces, the
+    causal f32 attention and the 12-layer f32 text tower -> results."""
+    import torch
+    import torch.nn.functional as F
+
+    from jcf_tpu_torch.ops import block_kernel as bk
+    from jcf_tpu_torch.ops import f32_gemm as fg
+    from jcf_tpu_torch.ops import view_kernel as vk
+    from jcf_tpu_torch.ops.layers import layer_slice
+
+    res, s, heads = cfg.image_resolution, cfg.vision_seq_len, cfg.vision_heads
+    cy, cx, inv = geometry
+    n_crops = cy.shape[0] * cy.shape[1]
+    log(f"phase 11a: unquantized kernel checks at B' = {n_crops} crops, {ids.shape[0]} prompts")
+    ph = Phase()
+    img32 = images.float()
+    ph.run("view_f32",
+           lambda: vk.fused_views_nchw(img32, cy, cx, inv, res),
+           lambda: vk.fused_views_nchw_plain(img32, cy, cx, inv, res),
+           check_f32,
+           bound(nbytes(img32) + n_crops * 3 * res * res * 4, 0.0, PEAK_F32))
+    del img32
+    ph.run("view_bf16",
+           lambda: vk.fused_views_nchw(images, cy, cx, inv, res),
+           lambda: vk.fused_views_nchw_plain(images, cy, cx, inv, res),
+           check_bf16,
+           bound(nbytes(images) + n_crops * 3 * res * res * 2, 0.0, PEAK_BF16))
+    torch.cuda.empty_cache()
+
+    # the f32 vision layer, stage by stage
+    x, layer = rows_f32[0], rows_f32[1]
+    e = x.shape[1]
+    d = e // heads
+    ln1, ln2, attn, mlp = layer["ln_1"], layer["ln_2"], layer["attn"], layer["mlp"]
+    h = ph.run("ln_affine_f32",
+               lambda: bk.ln_affine(x, ln1["scale"], ln1["bias"]),
+               lambda: bk.ln_affine_plain(x, ln1["scale"], ln1["bias"]),
+               check_f32,
+               bound(2 * nbytes(x) + nbytes(ln1["scale"], ln1["bias"]), 0.0, PEAK_F32),
+               lambda: F.layer_norm(x, (e,), ln1["scale"], ln1["bias"], 1e-5))
+    wq, bq = attn["w_qkv"], attn["b_qkv"]
+    qkv = ph.run("f32_gemm_bias",
+                 lambda: fg.f32_gemm_bias(h, wq, bq),
+                 lambda: fg.f32_gemm_bias_plain(h, wq, bq),
+                 check_f32_sum(h, wq),
+                 gemm_work(h, wq, 4, PEAK_F32, bq),
+                 lambda: torch.matmul(h, wq.T))
+    q, k, v = head_views(qkv, s, heads)
+    ctx = ph.run("pair_attention_f32",
+                 lambda: bk.pair_attention(qkv, s, heads),
+                 lambda: bk.pair_attention_plain(qkv, s, heads),
+                 check_f32,
+                 bound(nbytes(qkv) + nbytes(x), 4.0 * n_crops * heads * s * s * d, PEAK_F32),
+                 lambda: F.scaled_dot_product_attention(q, k, v))
+    del q, k, v
+    wo, bo = attn["w_out"], attn["b_out"]
+    mid = ph.run("f32_gemm_residual (out-proj)",
+                 lambda: fg.f32_gemm_residual(ctx, wo, bo, x),
+                 lambda: fg.f32_gemm_residual_plain(ctx, wo, bo, x),
+                 check_f32_sum(ctx, wo),
+                 gemm_work(ctx, wo, 4, PEAK_F32, x, bo),
+                 lambda: torch.matmul(ctx, wo.T))
+    del h, qkv, ctx
+    h2 = bk.ln_affine(mid, ln2["scale"], ln2["bias"])
+    wf, bf_ = mlp["c_fc"]["w"], mlp["c_fc"]["b"]
+    hid = ph.run("f32_gemm_gelu",
+                 lambda: fg.f32_gemm_gelu(h2, wf, bf_),
+                 lambda: fg.f32_gemm_gelu_plain(h2, wf, bf_),
+                 check_f32_sum(h2, wf),
+                 gemm_work(h2, wf, 4, PEAK_F32, bf_),
+                 lambda: torch.matmul(h2, wf.T))
+    del h2
+    torch.cuda.empty_cache()
+    wp, bp = mlp["c_proj"]["w"], mlp["c_proj"]["b"]
+    ph.run("f32_gemm_residual",
+           lambda: fg.f32_gemm_residual(hid, wp, bp, mid),
+           lambda: fg.f32_gemm_residual_plain(hid, wp, bp, mid),
+           check_f32_sum(hid, wp),
+           gemm_work(hid, wp, 4, PEAK_F32, mid, bp),
+           lambda: torch.matmul(hid, wp.T))
+    del hid
+    torch.cuda.empty_cache()
+    for name, kern, inp in (
+            ("K6a mask-free attention half (f32)",
+             lambda t: bk.attn_half(t, layer, s, heads, causal=False), x),
+            ("K6b MLP half (f32)", lambda t: bk.mlp_half(t, layer), mid)):
+        plain = plain_float_version(kern)
+        check_composed(name, kern(inp), plain(inp), lambda: kern(inp), lambda: plain(inp))
+    del mid
+    torch.cuda.empty_cache()
+
+    # the bf16 parity engine's attention
+    xb, layer_b = rows_bf16[0], rows_bf16[1]
+    lb, ab = layer_b["ln_1"], layer_b["attn"]
+    qkv_b = bk.bf16_gemm_bias(bk.ln_affine(xb, lb["scale"], lb["bias"]), ab["w_qkv"],
+                              ab["b_qkv"].float())
+    slack = 2.0**-7 * bk.pair_attention_plain(abs_v(qkv_b, e), s, heads).float()
+    q, k, v = head_views(qkv_b, s, heads)
+    ph.run("pair_attention_bf16",
+           lambda: bk.pair_attention(qkv_b, s, heads),
+           lambda: bk.pair_attention_plain(qkv_b, s, heads),
+           lambda n, a, b: check_bf16(n, a, b, slack),
+           bound(nbytes(qkv_b) + nbytes(xb), 4.0 * n_crops * heads * s * s * d, PEAK_BF16),
+           lambda: F.scaled_dot_product_attention(q, k, v))
+    del q, k, v, qkv_b, slack
+    kern = lambda t: bk.attn_half(t, layer_b, s, heads, causal=False)
+    plain = plain_float_version(kern)
+    check_composed("K6a mask-free attention half (bf16)", kern(xb), plain(xb), lambda: kern(xb),
+                   lambda: plain(xb))
+    torch.cuda.empty_cache()
+
+    # the f32 text tower at 512 prompts x 77 tokens
+    b, st = ids.shape
+    th = cfg.text_heads
+    xt = (text["token_embedding"][ids] + text["positional_embedding"]).reshape(b * st, -1)
+    et = xt.shape[1]
+    tl = layer_slice(text["blocks"], 0)
+    t1, ta = tl["ln_1"], tl["attn"]
+    ht = ph.run("ln_affine_f32 (text)",
+                lambda: bk.ln_affine(xt, t1["scale"], t1["bias"]),
+                lambda: bk.ln_affine_plain(xt, t1["scale"], t1["bias"]),
+                check_f32,
+                bound(2 * nbytes(xt) + nbytes(t1["scale"], t1["bias"]), 0.0, PEAK_F32),
+                lambda: F.layer_norm(xt, (et,), t1["scale"], t1["bias"], 1e-5))
+    qkv_t = ph.run("f32_gemm_bias (text)",
+                   lambda: fg.f32_gemm_bias(ht, ta["w_qkv"], ta["b_qkv"]),
+                   lambda: fg.f32_gemm_bias_plain(ht, ta["w_qkv"], ta["b_qkv"]),
+                   check_f32_sum(ht, ta["w_qkv"]),
+                   gemm_work(ht, ta["w_qkv"], 4, PEAK_F32, ta["b_qkv"]),
+                   lambda: torch.matmul(ht, ta["w_qkv"].T))
+    q, k, v = head_views(qkv_t, st, th)
+    ph.run("causal_attention_f32",
+           lambda: bk.causal_attention(qkv_t, st, th),
+           lambda: bk.causal_attention_plain(qkv_t, st, th),
+           check_f32,
+           # keys j <= i: s (s + 1) / 2 score and PV pairs per head
+           bound(nbytes(qkv_t) + nbytes(xt), 4.0 * b * th * (st * (st + 1) // 2) * (et // th),
+                 PEAK_F32),
+           lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    del q, k, v, qkv_t, ht
+    check_composed(f"f32 text tower ({cfg.text_layers} layers)",
+                   bk.run_text_tower(xt, text["blocks"], th, s=st),
+                   text_tower_plain(xt, text["blocks"], th, st),
+                   lambda: bk.run_text_tower(xt, text["blocks"], th, s=st),
+                   lambda: text_tower_plain(xt, text["blocks"], th, st))
+    return ph.results
+
+
+def float_classifier_phase(params, cfg, dev, counters):
+    """Phase 11b: the classifier build under ``PipelineConfig()`` (f32, the
+    reference preset) for 403 classes x 8 templates, counted and timed,
+    held against the plain-version f32 text tower -> (launches, the token
+    ids of its first 512 prompts)."""
+    import torch
+
+    from jcf_tpu_torch.config import DataConfig, PipelineConfig, RuntimeConfig
+    from jcf_tpu_torch.models.clip import encode_text, tree_to
+    from jcf_tpu_torch.ops.layers import l2_normalize
+    from jcf_tpu_torch.pipelines.common import build_text_weights, ensure_templates
+    from jcf_tpu_torch.tokenizer import tokenize
+
+    text = tree_to(params["text"], dev)
+    tparams = {"text": text}
+    with tempfile.TemporaryDirectory() as tmp:
+        synthetic_classes(os.path.join(tmp, "classes.txt"))
+        pc = PipelineConfig(DataConfig(os.path.join(tmp, "classes.txt"), os.path.join(tmp, "tpl"), ""),
+                            RuntimeConfig("float32", os.path.join(tmp, "cache")))
+        templates = ensure_templates(pc)
+        prompts = [p for c in sorted(templates) for p in templates[c]]
+        n_t = len(templates[0])
+        log(f"phase 11b: the f32 classifier build (PipelineConfig()), {len(templates)} classes x "
+            f"{n_t} templates")
+        t0 = time.perf_counter()
+        built, launches = count_forward(
+            counters, lambda: build_text_weights(tparams, cfg, templates, pc, device=dev))
+        log(f"  built in {time.perf_counter() - t0:.2f} s (cache miss); launches: {launches}")
+    calls = -(-len(prompts) // TEXT_BATCH)
+    expected = float_launches("f32 text", cfg.text_layers, calls, view=False)
+    if launches != expected:
+        raise AssertionError(f"expected exactly the launches {expected}")
+    if built.dtype != torch.float32 or tuple(built.shape) != (N_CLASSES, cfg.embed_dim):
+        raise AssertionError(f"bad f32 classifier: {built.dtype} {tuple(built.shape)}")
+    ids = torch.from_numpy(tokenize(prompts[:TEXT_BATCH], truncate=True)).to(dev).long()
+    emb_k = l2_normalize(encode_text(tparams, cfg, ids, device=dev, dtype=torch.float32))
+    emb_p = l2_normalize(encode_text_plain(text, cfg, ids, torch.float32))
+    cos_emb = float(cosine_rows(emb_k, emb_p).min())
+    n_c = TEXT_BATCH // n_t
+    ref_w = l2_normalize(emb_p.reshape(n_c, n_t, -1).mean(dim=1))
+    cos_w = float(cosine_rows(built[:n_c], ref_w).min())
+    log(f"  first {TEXT_BATCH} prompts, kernel vs plain f32 tower: min row cos {cos_emb:.7f}; "
+        f"classifier rows of their {n_c} classes {cos_w:.7f} (tol 0.99999)")
+    if cos_emb < 0.99999 or cos_w < 0.99999:
+        raise AssertionError("the f32 classifier disagrees with the plain-version tower")
+    return launches, ids
+
+
+def float_engine_phase(params, ref, modes_f, images, geometry, text, counters, smi, dev):
+    """Phase 11c-e: the f32 engine (the certificate reference) against the
+    plain-version f32 route, img/s; its ``features_from_crops`` at 8 x 513
+    crops, counted, against the plain route, crops/s; the bf16 parity
+    engine at b1024 x 8 views, counted, certified against the f32 engine,
+    img/s; the ``_FUSE`` = "block" routes -> (bf16 launches, bf16 layer-0
+    call, block launches)."""
+    import torch
+
+    from jcf_tpu_torch.infer.engine import TTAEngine
+    from jcf_tpu_torch.models.clip import CLIP_MEAN, CLIP_STD, VIT_B_32
+    from jcf_tpu_torch.ops import block_kernel as bk
+    from jcf_tpu_torch.ops import view_kernel as vk
+
+    cfg = VIT_B_32
+    dim = cfg.embed_dim
+    log(f"phase 11c: the f32 engine (quant=None) vs its plain-version route, b{BATCH} x {VIEWS} views")
+    feats = ref._view_features(images, geometry)
+    with plain_float():
+        feats_p = ref._view_features(images, geometry)
+    view_cos = cosine_rows(feats.reshape(-1, dim), feats_p.reshape(-1, dim))
+    top1, overlap, cos = agreement(modes_f, ref.mta_from_features(feats_p, text), text)
+    log(f"  per-view feature cos over {view_cos.numel()} views: min {float(view_cos.min()):.7f}; "
+        f"modes top1_agree {top1:.4f} top5_overlap {overlap:.4f} mode_cos {cos:.7f} (gates: "
+        f"view cos >= 0.99999, top-1 >= 0.99, top-5 >= 0.99)")
+    if float(view_cos.min()) < 0.99999 or top1 < 0.99 or overlap < 0.99:
+        raise AssertionError("the f32 engine disagrees with its plain-version route")
+    del feats, feats_p
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    time_forwards(lambda: ref.features_from_images(images, text, generator=gen), FLOAT_ITERS, BATCH,
+                  "img", smi, "f32 engine (features_from_images)")
+
+    log(f"phase 11d: f32 features_from_crops, {CROP_IMAGES} images x {CROP_VIEWS} crops")
+    src = images[:CROP_IMAGES].float()
+    cy, cx, inv = vk.sample_view_centers(torch.Generator(device=dev).manual_seed(3), CROP_IMAGES,
+                                         CROP_VIEWS, tuple(src.shape[2:]), cfg.image_resolution)
+    mean = torch.tensor(CLIP_MEAN, device=dev).reshape(1, 1, 3, 1, 1)
+    std = torch.tensor(CLIP_STD, device=dev).reshape(1, 1, 3, 1, 1)
+    crops = (vk.fused_views_nchw_plain(src, cy, cx, inv, cfg.image_resolution) - mean) / std
+    del src, cy, cx, inv
+    modes_c, launches_c = count_forward(counters, lambda: ref.features_from_crops(crops, text))
+    log(f"  launches: {launches_c}")
+    expected = float_launches("f32", cfg.vision_layers, view=False)
+    if launches_c != expected:
+        raise AssertionError(f"expected exactly the launches {expected}")
+    check_modes(modes_c, CROP_IMAGES, dim)
+    feats = ref.crop_features(crops)
+    with plain_float():
+        feats_p = ref.crop_features(crops)
+    crop_cos = cosine_rows(feats.reshape(-1, dim), feats_p.reshape(-1, dim))
+    mode_cos = cosine_rows(modes_c, ref.mta_from_features(feats_p, text))
+    log(f"  per-crop feature cos min {float(crop_cos.min()):.7f}, mode cos min "
+        f"{float(mode_cos.min()):.7f} (gate: crop cos >= 0.99999)")
+    if float(crop_cos.min()) < 0.99999:
+        raise AssertionError("f32 features_from_crops disagrees with its plain-version route")
+    del feats, feats_p
+    time_forwards(lambda: ref.features_from_crops(crops, text), FLOAT_ITERS,
+                  CROP_IMAGES * CROP_VIEWS, "crops", smi, "f32 features_from_crops")
+    del crops
+    torch.cuda.empty_cache()
+
+    log(f"phase 11e: the bf16 parity engine (quant=None, bf16), b{BATCH} x {VIEWS} views")
+    eb = TTAEngine(params, cfg, device=dev, n_views=VIEWS - 1, quant=None, dtype=torch.bfloat16)
+    calls = []
+    with recorded(bk, "attn_half", calls, 1):
+        modes_b, launches_b = count_forward(
+            counters, lambda: eb.features_from_images(images, text, geometry=geometry))
+    log(f"  launches: {launches_b}")
+    expected = float_launches("bf16", cfg.vision_layers)
+    if launches_b != expected:
+        raise AssertionError(f"expected exactly the launches {expected}")
+    check_modes(modes_b, BATCH, dim)
+    top1, overlap, cos = agreement(modes_b, modes_f, text)
+    log(f"  cert bf16 vs f32: top1_agree {top1:.4f} top5_overlap {overlap:.4f} mode_cos {cos:.6f} "
+        f"(gates: >= 0.99, >= 0.97)")
+    margins(modes_b, modes_f, text)
+    if top1 < 0.99 or overlap < 0.97:
+        raise AssertionError("the bf16 parity engine fails the ranking certificate")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    time_forwards(lambda: eb.features_from_images(images, text, generator=gen), FLOAT_ITERS, BATCH,
+                  "img", smi, "bf16 parity engine")
+
+    log("phase 11f: the unquantized engines under _FUSE = 'block'")
+    bk._FUSE = "block"
+    try:
+        modes_k, launches_k = count_forward(
+            counters, lambda: eb.features_from_images(images, text, geometry=geometry))
+        log(f"  bf16 launches: {launches_k}")
+        expected = {"view_bf16": 1, "block_bf16": cfg.vision_layers}
+        if launches_k != expected:
+            raise AssertionError(f"expected exactly the launches {expected}")
+        check_modes(modes_k, BATCH, dim)
+        top1, overlap, cos = agreement(modes_k, modes_f, text)
+        log(f"  cert bf16 'block' vs f32: top1_agree {top1:.4f} top5_overlap {overlap:.4f} "
+            f"mode_cos {cos:.6f}; mode cos vs the halves {float(cosine_rows(modes_k, modes_b).mean()):.6f} "
+            f"(gates: >= 0.98, >= 0.95)")
+        if top1 < 0.98 or overlap < 0.95:
+            raise AssertionError("the bf16 'block' route fails the ranking certificate")
+        try:
+            ref.features_from_images(images[:8], text, geometry=tuple(t[:8] for t in geometry))
+        except NotImplementedError as exc:
+            log(f"  f32 under 'block' refuses: {exc}")
+        else:
+            raise AssertionError("the f32 engine ran under _FUSE = 'block'")
+    finally:
+        bk._FUSE = "halves"
+    del eb, modes_b, modes_k
+    torch.cuda.empty_cache()
+    return launches_b, calls[0], launches_k
+
+
 def main() -> int:
     import torch
 
@@ -1817,18 +2261,19 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from jcf_tpu_torch import _build
     from jcf_tpu_torch.infer.engine import TTAEngine
-    from jcf_tpu_torch.models.clip import VIT_B_32, init_clip_params
+    from jcf_tpu_torch.models.clip import VIT_B_32, init_clip_params, tree_to
     from jcf_tpu_torch.ops import (
         assemble_kernel,
         attention,
         bf16_gemm,
         block_kernel,
+        f32_gemm,
         int8_gemm,
         view_kernel,
     )
 
     counters = [m.LAUNCHES for m in (view_kernel, int8_gemm, assemble_kernel, block_kernel,
-                                     bf16_gemm, attention)]
+                                     bf16_gemm, f32_gemm, attention)]
 
     # every f32 reference and the calibration use full f32 products; bf16
     # products accumulate in f32 with one rounding (the training step)
@@ -1883,23 +2328,25 @@ def main() -> int:
     log(f"serving path launches: {launches_srv}")
     check_modes(modes, BATCH, cfg.embed_dim)
 
-    # int8 vs the plain f32 path on the same geometry (bench.py's cert);
-    # its attention is the plain K7, so no kernel computes the reference
+    # int8 vs the f32 engine on the same geometry (bench.py's cert): the
+    # reference preset's engine on its own route (K1 in f32, the float
+    # tower: 7 launches a layer, no K7), counted; phase 11 holds it against
+    # its plain-version route
     t0 = time.perf_counter()
     ref = TTAEngine(params, cfg, device=dev, n_views=n_random, quant=None)
-
-    def f32_modes(classifier, chunk=128):
-        with plain_attention():
-            return torch.cat([
-                ref.features_from_images(images[i : i + chunk], classifier,
-                                         geometry=tuple(t[i : i + chunk] for t in geometry))
-                for i in range(0, BATCH, chunk)
-            ])
-
-    modes_f = f32_modes(text)
+    rows_f32 = []
+    with recorded(block_kernel, "attn_half", rows_f32, 1):
+        modes_f, launches_f32 = count_forward(
+            counters, lambda: ref.features_from_images(images, text, geometry=geometry))
+    log(f"f32 engine launches: {launches_f32}")
+    if launches_f32 != float_launches("f32", cfg.vision_layers):
+        raise AssertionError(f"expected exactly the launches {float_launches('f32', cfg.vision_layers)}")
+    check_modes(modes_f, BATCH, cfg.embed_dim)
     top1, overlap, cos = agreement(modes, modes_f, text)
     log(f"cert int8 vs f32 ({time.perf_counter() - t0:.1f} s): top1_agree {top1:.4f} "
-        f"top5_overlap {overlap:.4f} mode_cos {cos:.6f} (gates: >= 0.99, >= 0.97)")
+        f"top5_overlap {overlap:.4f} mode_cos {cos:.6f} (gates: >= 0.99, >= 0.97; against the "
+        f"composable f32 tower with plain K7: {PLAIN_K7_CERT[0]} / {PLAIN_K7_CERT[1]} / "
+        f"{PLAIN_K7_CERT[2]})")
     margins(modes, modes_f, text)
     if top1 < 0.99 or overlap < 0.97:
         raise AssertionError("int8 path fails the ranking certificate")
@@ -1910,7 +2357,8 @@ def main() -> int:
     modes_b = engine.features_from_images(images, built, geometry=geometry)
     if not bool(modes_b.isfinite().all()) or float((modes_b.norm(dim=-1) - 1).abs().max()) > 1e-3:
         raise AssertionError("bad modes with the built classifier")
-    top1_b, overlap_b, cos_b = agreement(modes_b, f32_modes(built), built)
+    top1_b, overlap_b, cos_b = agreement(
+        modes_b, ref.features_from_images(images, built, geometry=geometry), built)
     log(f"built classifier, int8 vs f32 (not gated): top1_agree {top1_b:.4f} "
         f"top5_overlap {overlap_b:.4f} mode_cos {cos_b:.6f}")
 
@@ -1929,7 +2377,6 @@ def main() -> int:
         f"{ITERS} iters, {elapsed / ITERS * 1e3:.2f} ms/iter) on {smi}")
     if not bool(out.isfinite().all()):
         raise AssertionError("non-finite modes in the timed run")
-    del ref
 
     launches_b16, results_b16 = serving_b16_phase(dev, counters, smi, text)
     results.update(results_b16)
@@ -1954,11 +2401,22 @@ def main() -> int:
     crops_phase(params, images, text, counters, smi, dev)
     _, results_288 = serving_288_phase(text, counters, smi, dev)
     results.update(results_288)
+
+    # phase 11: the unquantized towers (the f32 engine of phase 7, the
+    # bf16 parity engine, the f32 classifier build)
+    launches_bf16, rows_bf16, _ = float_engine_phase(params, ref, modes_f, images, geometry, text,
+                                                     counters, smi, dev)
+    launches_cls_f32, ids = float_classifier_phase(params, cfg, dev, counters)
+    text_f32 = tree_to(params["text"], dev)
+    results.update(float_kernel_phase(rows_f32[0], rows_bf16, text_f32, cfg, ids, images, geometry))
+    del ref, rows_f32, rows_bf16, text_f32
     launches = {"serving": launches_srv, "classifier": launches_cls, "training": launches_trn,
                 "serving_b16": launches_b16, "serving_block": launches_fused["block"],
                 "serving_layer": launches_fused["layer"],
                 "serving_stream": launches_fused["stream"], "classifier_block": launches_cls_block,
-                "serving_dynamic": launches_modes["dynamic"], "serving_ln": launches_modes["ln"]}
+                "serving_dynamic": launches_modes["dynamic"], "serving_ln": launches_modes["ln"],
+                "serving_f32": launches_f32, "serving_bf16": launches_bf16,
+                "classifier_f32": launches_cls_f32}
     missing = [k for k, (path, _, _) in KERNELS.items() if launches[path].get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels of their path never launched: {missing}")

@@ -181,11 +181,11 @@ __global__ void __launch_bounds__(ATT_WARPS * 32) attention_kernel(
     v_s[idx] = r[2 * E];
   }
   __syncthreads();
-  const long long off = crop * S * E + pair * D2;
-  void* o = F32_OUT ? static_cast<void*>(static_cast<float*>(out) + off)
-                    : static_cast<void*>(static_cast<int8_t*>(out) + off);
-  pair_attention_rows_t<KB, F32_OUT>(q_s, kt_s, v_s, p_s, S, D, shift,
-                                     F32_OUT ? 0.0f : *ctx_inv, o, E, ATT_WARPS);
+  typedef typename std::conditional<F32_OUT, float, int8_t>::type O;
+  pair_attention_rows_t<KB, bf16, O>(q_s, D2, nullptr, kt_s, v_s, p_s, S, D, 1.0f, shift, 0.0f,
+                                     F32_OUT ? 0.0f : *ctx_inv,
+                                     static_cast<O*>(out) + crop * S * E + pair * D2, E,
+                                     ATT_WARPS);
 }
 
 // ---------------------------------------------------------------------------

@@ -11,6 +11,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float bf2f(bf16 x) { return __bfloat162float(x); }

@@ -37,7 +37,13 @@
 // hidden 2048): LN rows and ctx [80, E + 8] bf16 (83,200 B each), one
 // head's q, k^T, v (29,568 B), p (2,464 B), the MLP hidden [16, hidden +
 // 8] bf16 (65,792 B) in place of ctx, a 3-stage ring (30,720 B);
-// 229,152 B in all, f32 mid in the same kind of global scratch.
+// 229,152 B in all, f32 mid in the same kind of global scratch. At the
+// vision tower's E = 768 (the bf16 unquantized tower under "block", S =
+// 50, hidden 3072) ctx alone would take 124,160 B beside as much for the
+// LN rows, so ctx and then the hidden go to a bf16 scratch in global
+// memory, [80, E + 8] per sequence, that the wrapper allocates when
+// jcf_block_bf16_scratch says so (the products read their A operand
+// through the same loads from there): 175,680 B of shared memory.
 //
 // The products are mma.sync (m16n8k32 s8 or m16n8k16 bf16) of the
 // resident activation tile against weight tiles streamed through a
@@ -123,7 +129,9 @@ __device__ __forceinline__ void zero(T (&acc)[MT][NT][4]) {
 // acc += A x B^T over kbytes bytes of depth, for this warp's tile of MT x
 // 16 rows and NT x 8 columns. The block's 8 warps are (8 / WN) x WN over
 // rows and columns; the output tile is WN * NT * 8 columns wide.
-// A: the activation tile in shared memory, row stride lda bytes.
+// A: the activation tile in shared memory (or, for K9b at E = 768, in its
+//    global scratch, read through the same generic loads), row stride lda
+//    bytes.
 // B: weights in global memory ([out, in] row-major), row stride ldb bytes,
 //    offset to the output tile's first row and the depth's first byte,
 //    streamed through a ring of NSTAGE 64-byte-deep stages (NSTAGE - 1
@@ -518,11 +526,24 @@ struct LayerBf16 {
   const float *b_qkv, *b_out, *b_fc, *b_proj;     // [3E] [E] [F] [E]
 };
 
-size_t bf16_smem(int S, int E, int F) {
+// K9b's shared memory: ring, LN rows, then ctx + one head's q, k^T, v and
+// p, or the MLP hidden in ctx's place; with `global_ctx` ctx and the
+// hidden live in the global scratch instead
+size_t bf16_smem(int S, int E, int F, bool global_ctx) {
   const size_t lda = (size_t)(E + 8) * 2, ldh = (size_t)(F + 8) * 2;
-  const size_t attn = SEQ_ROWS * lda + (size_t)3 * S * 64 * 2 + (size_t)WARPS * S * 4;
+  const size_t head = (size_t)3 * S * 64 * 2 + (size_t)WARPS * S * 4;
+  if (global_ctx) return BF16_STAGES * RING_STAGE + SEQ_ROWS * lda + head;
+  const size_t attn = SEQ_ROWS * lda + head;
   const size_t mlp = TEXT_MLP_ROWS * ldh;
   return BF16_STAGES * RING_STAGE + SEQ_ROWS * lda + (attn > mlp ? attn : mlp);
+}
+
+// the global scratch per sequence (bf16 elements) when the shared tiling
+// does not fit, else 0: ctx [80, E + 8], then the hidden [16, F + 8]
+size_t bf16_scratch(int S, int E, int F) {
+  if (bf16_smem(S, E, F, false) <= 232448) return 0;
+  const size_t ctx = (size_t)SEQ_ROWS * (E + 8), hid = (size_t)TEXT_MLP_ROWS * (F + 8);
+  return ctx > hid ? ctx : hid;
 }
 
 // One head's attention rows with an additive [S, S] f32 bias (K6a's math,
@@ -579,15 +600,16 @@ __device__ __forceinline__ void head_attention_rows(const bf16* q_s, const bf16*
 // One block per sequence of S rows: x + attention(LN1 x) -> f32 mid (in
 // mid32), then mid + c_proj(QuickGELU(c_fc(LN2 mid))) -> bf16 out.
 __global__ void __launch_bounds__(THREADS, 1) block_bf16_kernel(
-    const bf16* x, bf16* out, float* mid32, LayerBf16 w, const float* bias, int S, int H, int F,
-    float scale) {
+    const bf16* x, bf16* out, float* mid32, bf16* scratch, long long scratch_elems, LayerBf16 w,
+    const float* bias, int S, int H, int F, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int E = H * 64, lda = E + 8, ldh = F + 8;  // row strides in elements
   unsigned char* ring = smem;
   // [80, lda]: the LN1, then the LN2 rows
   bf16* hs = reinterpret_cast<bf16*>(smem + BF16_STAGES * RING_STAGE);
-  bf16* ctx = hs + SEQ_ROWS * lda;                        // [80, lda]
-  bf16* q_s = ctx + SEQ_ROWS * lda;                       // [S, 64]
+  // [80, lda]: in shared memory, or this sequence's part of the scratch
+  bf16* ctx = scratch != nullptr ? scratch + blockIdx.x * scratch_elems : hs + SEQ_ROWS * lda;
+  bf16* q_s = scratch != nullptr ? hs + SEQ_ROWS * lda : ctx + SEQ_ROWS * lda;  // [S, 64]
   bf16* kt_s = q_s + S * 64;                              // [64, S]
   bf16* v_s = kt_s + 64 * S;                              // [S, 64]
   float* p_s = reinterpret_cast<float*>(v_s + S * 64);    // [8, S]
@@ -736,7 +758,14 @@ extern "C" int jcf_stream_tower_int8(INT8_LAYER_ARGS) {
 // K9b (_block_kernel, bf16): x [n_seq * S, E] bf16 -> out; mid32 [rows, E]
 // f32 scratch; LN params bf16 [E]; weights bf16 [out, in]; biases f32;
 // bias [S, S] f32 additive; scale = 1/sqrt(64). S <= 80, head dim 64.
-extern "C" int jcf_block_bf16(const void* x, void* out, void* mid32, const void* ln1_s,
+// scratch: n_seq x jcf_block_bf16_scratch(S, E, F) bf16, or null where
+// that is 0.
+extern "C" long long jcf_block_bf16_scratch(int S, int E, int F) {
+  return (long long)bf16_scratch(S, E, F);
+}
+
+extern "C" int jcf_block_bf16(const void* x, void* out, void* mid32, void* scratch,
+                              const void* ln1_s,
                               const void* ln1_b, const void* w_qkv, const void* b_qkv,
                               const void* w_out, const void* b_out, const void* ln2_s,
                               const void* ln2_b, const void* w_fc, const void* b_fc,
@@ -744,9 +773,10 @@ extern "C" int jcf_block_bf16(const void* x, void* out, void* mid32, const void*
                               int n_seq, int S, int H, int F, float scale, void* stream) {
   const int E = H * 64;
   if (n_seq < 1 || S < 1 || S > SEQ_ROWS || H < 1 || E > 1024 || E % 128 || F < 128 ||
-      F % 128 || mid32 == nullptr || bias == nullptr)
+      F % 128 || mid32 == nullptr || bias == nullptr ||
+      (scratch == nullptr) != (bf16_scratch(S, E, F) == 0))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = bf16_smem(S, E, F);
+  const size_t smem = bf16_smem(S, E, F, scratch != nullptr);
   const int err = set_smem(block_bf16_kernel, smem);
   if (err) return err;
   const LayerBf16 w{static_cast<const bf16*>(ln1_s),  static_cast<const bf16*>(ln1_b),
@@ -756,7 +786,8 @@ extern "C" int jcf_block_bf16(const void* x, void* out, void* mid32, const void*
                     static_cast<const float*>(b_qkv), static_cast<const float*>(b_out),
                     static_cast<const float*>(b_fc),  static_cast<const float*>(b_proj)};
   block_bf16_kernel<<<n_seq, THREADS, smem, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(x), static_cast<bf16*>(out), static_cast<float*>(mid32), w,
+      static_cast<const bf16*>(x), static_cast<bf16*>(out), static_cast<float*>(mid32),
+      static_cast<bf16*>(scratch), (long long)bf16_scratch(S, E, F), w,
       static_cast<const float*>(bias), S, H, F, scale);
   return (int)cudaGetLastError();
 }

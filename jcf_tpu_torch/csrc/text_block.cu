@@ -1,50 +1,54 @@
-// K6a row and attention kernels of the bf16 tower halves (the text tower).
+// K6a row and attention kernels of the unquantized tower halves (the text
+// tower in bf16 and f32, the float vision towers in bf16 and f32).
 //
-// The TPU runs each half of a text layer as one Pallas kernel
+// The TPU runs each half of a layer as one Pallas kernel
 // (jcf_tpu/ops/block_kernel.py::_attn_half_kernel and ::_mlp_half_kernel)
 // with the tile's rows resident in VMEM. On the H100 a half is a few
-// launches: this file's LayerNorm row kernel and causal attention kernel,
-// and the bf16 tensor-core GEMM with fused epilogues in bf16_gemm.cu. Every
-// intermediate between them is bf16.
+// launches: this file's LayerNorm row kernel and attention kernels, and
+// the GEMMs with fused epilogues (bf16_gemm.cu on the tensor cores for
+// bf16, f32_gemm.cu on the CUDA cores for f32). Every intermediate
+// between them is in the compute dtype T (bf16 or f32).
 #include "common.cuh"
+#include "pair_attention.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// LayerNorm with its affine on bf16 rows
+// LayerNorm with its affine on T rows
 // ---------------------------------------------------------------------------
 //
 // Replaces the head of both halves: _ln_rows with the LN scale and bias
-// cast to bf16 by the caller (block_kernel.py:1229, :1249), statistics
-// and the affine in f32, the output cast to bf16:
-//   y = bf16(((x - mean) * rsqrt(var + 1e-5)) * scale + bias)
-// Bound on the H100: bytes (2 B in, 2 B out per element). One warp per
-// row, the row held in registers across both reductions.
+// cast to the row dtype by the caller (block_kernel.py:1229, :1249),
+// statistics and the affine in f32, the output cast to T:
+//   y = T(((x - mean) * rsqrt(var + 1e-5)) * scale + bias)
+// Bound on the H100: bytes (sizeof(T) in, sizeof(T) out per element). One
+// warp per row, the row held in registers across both reductions.
 
 constexpr int LNA_WARPS = 8;
 constexpr int LNA_PER = 32;  // E <= 1024
 
+template <typename T>
 __global__ void __launch_bounds__(LNA_WARPS * 32) ln_affine_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ scale, const bf16* __restrict__ bias,
-    bf16* __restrict__ out, int M, int E) {
+    const T* __restrict__ x, const T* __restrict__ scale, const T* __restrict__ bias,
+    T* __restrict__ out, int M, int E) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * LNA_WARPS + (threadIdx.x >> 5);
   if (row >= M) return;
-  const bf16* xr = x + row * E;
+  const T* xr = x + row * E;
   float v[LNA_PER];
 #pragma unroll
   for (int k = 0; k < LNA_PER; ++k) {
     const int j = lane + 32 * k;
-    v[k] = j < E ? bf2f(xr[j]) : 0.0f;
+    v[k] = j < E ? to_f(xr[j]) : 0.0f;
   }
   const float2 st = warp_row_stats<LNA_PER>(v, lane, E);
-  bf16* o = out + row * E;
+  T* o = out + row * E;
 #pragma unroll
   for (int k = 0; k < LNA_PER; ++k) {
     const int j = lane + 32 * k;
     if (j < E) {
       const float z = __fmul_rn(__fsub_rn(v[k], st.x), st.y);
-      o[j] = __float2bfloat16_rn(__fadd_rn(__fmul_rn(z, bf2f(scale[j])), bf2f(bias[j])));
+      o[j] = from_f<T>(__fadd_rn(__fmul_rn(z, to_f(scale[j])), to_f(bias[j])));
     }
   }
 }
@@ -57,10 +61,10 @@ __global__ void __launch_bounds__(LNA_WARPS * 32) ln_affine_kernel(
 // -> _paired_attention with the additive causal mask). Per head, for query
 // row i and keys j <= i (the mask's -inf above the diagonal; the TPU's pad
 // keys carry -1e30 and never reach real rows, so the port does not pad):
-//   s   = (q . k) * scale              (bf16 inputs, f32 sums; 1/sqrt(d) not folded)
+//   s   = (q . k) * scale              (T inputs, f32 sums; 1/sqrt(d) not folded)
 //   m   = max_j s                      (per head: no pair shift here)
 //   p   = exp(s - m),  l = sum_j p     (f32)
-//   ctx = bf16(sum_j bf16(p / l) v_j)  (normalized p cast to bf16 for PV)
+//   ctx = T(sum_j T(p / l) v_j)        (normalized p cast to T for PV)
 // The TPU pairs two heads per 128-lane MXU pass with per-half masked
 // reductions; that is exact per head, so a block owns one head.
 //
@@ -68,42 +72,45 @@ __global__ void __launch_bounds__(LNA_WARPS * 32) ln_affine_kernel(
 // small next to a tensor-core pipeline, so it runs on the CUDA cores from
 // shared memory (one warp per query row, lanes over keys for the scores
 // with K stored transposed, lanes over head dims for PV). qkv is read once
-// (16-byte loads) and the context written once.
+// (16-byte loads) and the context written once. Shared memory: 3 S D
+// sizeof(T) + 8 S 4 B, 61,600 B in f32 at S = 77.
 
 constexpr int CA_WARPS = 8;
 constexpr int CA_KEYS = 4;  // keys per lane: S <= 128
 
+template <typename T>
 __global__ void __launch_bounds__(CA_WARPS * 32) causal_attention_kernel(
-    const bf16* __restrict__ qkv,  // [n_seq * S, 3E]
-    bf16* __restrict__ out,        // [n_seq * S, E]
+    const T* __restrict__ qkv,  // [n_seq * S, 3E]
+    T* __restrict__ out,        // [n_seq * S, E]
     int S, int H, int D, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
   const int E = H * D;
   const int head = blockIdx.x % H;
   const long long seq = blockIdx.x / H;
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);        // [S, D]
-  bf16* kt_s = q_s + S * D;                              // [D, S] (transposed)
-  bf16* v_s = kt_s + D * S;                              // [S, D]
+  T* q_s = reinterpret_cast<T*>(smem_raw);             // [S, D]
+  T* kt_s = q_s + S * D;                                 // [D, S] (transposed)
+  T* v_s = kt_s + D * S;                                 // [S, D]
   float* p_s = reinterpret_cast<float*>(v_s + S * D);    // [warps, S]
 
-  const bf16* base = qkv + seq * S * 3 * E + head * D;
-  const int chunks = D / 8;
+  const T* base = qkv + seq * S * 3 * E + head * D;
+  const int chunks = D / VEC;
   for (int idx = threadIdx.x; idx < S * chunks; idx += blockDim.x) {
-    const int j = idx / chunks, d0 = (idx - j * chunks) * 8;
-    const bf16* r = base + (long long)j * 3 * E + d0;
+    const int j = idx / chunks, d0 = (idx - j * chunks) * VEC;
+    const T* r = base + (long long)j * 3 * E + d0;
     *reinterpret_cast<uint4*>(q_s + j * D + d0) = *reinterpret_cast<const uint4*>(r);
     *reinterpret_cast<uint4*>(v_s + j * D + d0) = *reinterpret_cast<const uint4*>(r + 2 * E);
     const uint4 kv = *reinterpret_cast<const uint4*>(r + E);
-    const bf16* k8 = reinterpret_cast<const bf16*>(&kv);
+    const T* kk = reinterpret_cast<const T*>(&kv);
 #pragma unroll
-    for (int t = 0; t < 8; ++t) kt_s[(d0 + t) * S + j] = k8[t];
+    for (int t = 0; t < VEC; ++t) kt_s[(d0 + t) * S + j] = kk[t];
   }
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* pw = p_s + warp * S;
   for (int i = warp; i < S; i += CA_WARPS) {
-    const bf16* qi = q_s + i * D;
+    const T* qi = q_s + i * D;
     float s[CA_KEYS];
     float m = -INFINITY;
 #pragma unroll
@@ -112,7 +119,7 @@ __global__ void __launch_bounds__(CA_WARPS * 32) causal_attention_kernel(
       float acc = -INFINITY;
       if (j <= i) {
         acc = 0.0f;
-        for (int d = 0; d < D; ++d) acc = fmaf(bf2f(qi[d]), bf2f(kt_s[d * S + j]), acc);
+        for (int d = 0; d < D; ++d) acc = fmaf(to_f(qi[d]), to_f(kt_s[d * S + j]), acc);
         acc = __fmul_rn(acc, scale);
       }
       s[kb] = acc;
@@ -130,38 +137,129 @@ __global__ void __launch_bounds__(CA_WARPS * 32) causal_attention_kernel(
 #pragma unroll
     for (int kb = 0; kb < CA_KEYS; ++kb) {
       const int j = lane + 32 * kb;
-      if (j <= i) pw[j] = round_bf16(__fdiv_rn(s[kb], sum));
+      if (j <= i) pw[j] = round_to<T>(__fdiv_rn(s[kb], sum));
     }
     __syncwarp();
     for (int d = lane; d < D; d += 32) {
       float acc = 0.0f;
-      for (int j = 0; j <= i; ++j) acc = fmaf(pw[j], bf2f(v_s[j * D + d]), acc);
-      out[(seq * S + i) * E + head * D + d] = __float2bfloat16_rn(acc);
+      for (int j = 0; j <= i; ++j) acc = fmaf(pw[j], to_f(v_s[j * D + d]), acc);
+      out[(seq * S + i) * E + head * D + d] = from_f<T>(acc);
     }
     __syncwarp();
   }
 }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// mask-free paired attention over one crop and one head pair
+// ---------------------------------------------------------------------------
+//
+// Replaces the attention section of _attn_half_kernel on the float vision
+// towers (_batched_attention -> _paired_attention_nomask, no post_scale,
+// no score shift, the tree unfolded): the row loop of pair_attention.cuh
+// with the scale 1/sqrt(d) after the f32 sums, p rounded to T, and the
+// context written in T. The pair shift is floored at 0 where the TPU pads
+// the keys (S not a multiple of 8: zeroed pad keys score 0); at a
+// multiple of 8 there are no pad keys and no floor.
+//
+// Bound on the H100: at S = 50, D = 64 a pair's work is small next to a
+// tensor-core pipeline, so it runs on the CUDA cores like K3's attention.
+// Shared memory: kT and v of the pair (2 S 2D sizeof(T)), each warp's q
+// row (8 x 2D sizeof(T)), p (8 x 2 S x 4 B). q stays in device memory and
+// each warp copies its current row: staging q for the whole pair as well
+// would take 3 x 127 x 128 x 4 = 195,072 B in f32 at S = 127, one block
+// per SM. Without it: 142,272 B in f32 and 75,200 B in bf16 at S = 127;
+// 58,496 B (3 blocks an SM) and 30,848 B at S = 50.
 
-extern "C" int jcf_ln_affine(const void* x, const void* scale, const void* bias, void* out, int M,
-                             int E, void* stream) {
+constexpr int PA_WARPS = 8;
+
+template <int KB, typename T>
+__global__ void __launch_bounds__(PA_WARPS * 32) pair_attention_kernel(
+    const T* __restrict__ qkv,  // [n_crops * S, 3E]
+    T* __restrict__ out,        // [n_crops * S, E]
+    int S, int H, int D, float scale, float m_floor) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int E = H * D, D2 = 2 * D, n_pairs = H / 2;
+  const int pair = blockIdx.x % n_pairs;
+  const long long crop = blockIdx.x / n_pairs;
+  T* kt_s = reinterpret_cast<T*>(smem_raw);                  // [D2, S] (transposed)
+  T* v_s = kt_s + D2 * S;                                     // [S, D2]
+  T* q_w = v_s + S * D2;                                      // [warps, D2]
+  float* p_s = reinterpret_cast<float*>(q_w + PA_WARPS * D2);  // [warps, 2, S]
+
+  const T* base = qkv + crop * S * 3 * E + pair * D2;
+  for (int idx = threadIdx.x; idx < S * D2; idx += blockDim.x) {
+    const int j = idx / D2, d = idx - j * D2;
+    const T* r = base + (long long)j * 3 * E + d;
+    kt_s[d * S + j] = r[E];
+    v_s[idx] = r[2 * E];
+  }
+  __syncthreads();
+  pair_attention_rows_t<KB, T, T>(base, 3 * E, q_w, kt_s, v_s, p_s, S, D, scale, nullptr, m_floor,
+                                  0.0f, out + crop * S * E + pair * D2, E, PA_WARPS);
+}
+
+template <typename T>
+int launch_ln_affine(const void* x, const void* scale, const void* bias, void* out, int M, int E,
+                     cudaStream_t stream) {
+  if (E < 1 || E > 32 * LNA_PER) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((M + LNA_WARPS - 1) / LNA_WARPS);
-  ln_affine_kernel<<<blocks, LNA_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(scale),
-      static_cast<const bf16*>(bias), static_cast<bf16*>(out), M, E);
+  ln_affine_kernel<T><<<blocks, LNA_WARPS * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(scale), static_cast<const T*>(bias),
+      static_cast<T*>(out), M, E);
   return (int)cudaGetLastError();
 }
 
-extern "C" int jcf_causal_attention(const void* qkv, void* out, int n_seq, int S, int H, int D,
-                                    float scale, void* stream) {
-  const size_t smem = (size_t)3 * S * D * sizeof(bf16) + (size_t)CA_WARPS * S * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(causal_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  }
+template <typename T>
+int launch_causal(const void* qkv, void* out, int n_seq, int S, int H, int D, float scale,
+                  cudaStream_t stream) {
+  if (S < 1 || S > 32 * CA_KEYS || D % (16 / sizeof(T))) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)3 * S * D * sizeof(T) + (size_t)CA_WARPS * S * sizeof(float);
+  const int err = set_smem(causal_attention_kernel<T>, smem);
+  if (err) return err;
   const long long blocks = (long long)n_seq * H;
-  causal_attention_kernel<<<(unsigned)blocks, CA_WARPS * 32, smem, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), S, H, D, scale);
+  causal_attention_kernel<T><<<(unsigned)blocks, CA_WARPS * 32, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<T*>(out), S, H, D, scale);
   return (int)cudaGetLastError();
+}
+
+template <int KB, typename T>
+int launch_pair(const void* qkv, void* out, int n_crops, int S, int H, int D, float scale,
+                float m_floor, cudaStream_t stream) {
+  const size_t smem = (size_t)(2 * S * 2 * D + PA_WARPS * 2 * D) * sizeof(T) +
+                      (size_t)PA_WARPS * 2 * S * sizeof(float);
+  const int err = set_smem(pair_attention_kernel<KB, T>, smem);
+  if (err) return err;
+  const long long blocks = (long long)n_crops * (H / 2);
+  pair_attention_kernel<KB, T><<<(unsigned)blocks, PA_WARPS * 32, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<T*>(out), S, H, D, scale, m_floor);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// f32: 1 for f32 rows, scale and bias, 0 for bf16
+extern "C" int jcf_ln_affine(const void* x, const void* scale, const void* bias, void* out, int M,
+                             int E, int f32, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  return f32 ? launch_ln_affine<float>(x, scale, bias, out, M, E, st)
+             : launch_ln_affine<bf16>(x, scale, bias, out, M, E, st);
+}
+
+extern "C" int jcf_causal_attention(const void* qkv, void* out, int n_seq, int S, int H, int D,
+                                    float scale, int f32, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  return f32 ? launch_causal<float>(qkv, out, n_seq, S, H, D, scale, st)
+             : launch_causal<bf16>(qkv, out, n_seq, S, H, D, scale, st);
+}
+
+// floor: 0 where the reference pads the keys, -inf where it does not
+extern "C" int jcf_pair_attention(const void* qkv, void* out, int n_crops, int S, int H, int D,
+                                  float scale, float m_floor, int f32, void* stream) {
+  if (S < 1 || S > 128 || H < 2 || H % 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (S <= 64)
+    return f32 ? launch_pair<2, float>(qkv, out, n_crops, S, H, D, scale, m_floor, st)
+               : launch_pair<2, bf16>(qkv, out, n_crops, S, H, D, scale, m_floor, st);
+  return f32 ? launch_pair<4, float>(qkv, out, n_crops, S, H, D, scale, m_floor, st)
+             : launch_pair<4, bf16>(qkv, out, n_crops, S, H, D, scale, m_floor, st);
 }

@@ -4,12 +4,16 @@
 // Per image, view and channel: triangle (antialiased bilinear) weights
 // wy [out, H] and wx [W, out] built in-kernel from per-pixel centers (the
 // horizontal flip is already folded into mirrored column centers), a row
-// resample t = wy @ X_c with f32 accumulation cast to bf16, a column
-// resample view = t @ wx in f32, and the int8 pixel quantization
-// round(view * 254 - 127).
+// resample t = wy @ X_c with f32 accumulation cast to the image type T, a
+// column resample view = t @ wx in f32, then either the int8 pixel
+// quantization round(view * 254 - 127) (quantize=True, bf16 images) or
+// the view cast to T (quantize=False: bf16 or f32 views in the images'
+// dtype, the float engines' path). The weights are cast to T as the
+// reference casts them.
 //
 // What bounds it on the H100: bytes. Each source row is read once per
-// output row tile and each output pixel written once (1 byte); the resample work is tiny because a triangle filter whose
+// output row tile and each output pixel written once (1 byte, or
+// sizeof(T)); the resample work is tiny because a triangle filter whose
 // support is at most ~1.15 source pixels (crop scale >= 0.5 of a 256^2
 // source into 224^2) touches only a handful of taps. So instead of the
 // TPU's two dense GEMMs per channel (MXU work is free there) the kernel
@@ -19,8 +23,10 @@
 //
 // Layout: one block per (image, view, channel, tile of VIEW_ROWS output
 // rows). Pass 1 writes the tile's rows of t (all W source columns) to
-// shared memory as bf16; pass 2 gives each thread one output column and
-// VIEW_ROWS accumulators, so each column weight is computed once per tile.
+// shared memory as T (VIEW_ROWS x W x sizeof(T): 98,304 B in f32 at the
+// widest source, W = 768, of the 227 KB a block may take); pass 2 gives
+// each thread one output column and VIEW_ROWS accumulators, so each
+// column weight is computed once per tile.
 #include "common.cuh"
 
 namespace {
@@ -48,15 +54,23 @@ __device__ __forceinline__ float tap_rnorm(float c, float inv, int lo, int hi) {
   return 1.0f / fmaxf(s, 1e-8f);
 }
 
+// the view's store: int8 pixels, or the view cast to the image type
+__device__ __forceinline__ void store_view(int8_t* o, float v) {
+  *o = round_clip_int8(__fsub_rn(__fmul_rn(v, 254.0f), 127.0f));
+}
+__device__ __forceinline__ void store_view(bf16* o, float v) { *o = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store_view(float* o, float v) { *o = v; }
+
+template <typename T, typename O>
 __global__ void __launch_bounds__(VIEW_THREADS) view_kernel(
-    const bf16* __restrict__ img,   // [B, C, H, W]
+    const T* __restrict__ img,      // [B, C, H, W]
     const float* __restrict__ cy,   // [B, V, out]
     const float* __restrict__ cx,   // [B, V, out]
     const float* __restrict__ inv,  // [B, V, 2]
-    int8_t* __restrict__ out,       // [B, V, C, out, out]
+    O* __restrict__ out,            // [B, V, C, out, out]
     int C, int H, int W, int V, int out_size) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* t_s = reinterpret_cast<bf16*>(smem_raw);  // [VIEW_ROWS, W]
+  T* t_s = reinterpret_cast<T*>(smem_raw);  // [VIEW_ROWS, W]
 
   const int n_tiles = (out_size + VIEW_ROWS - 1) / VIEW_ROWS;
   long long id = blockIdx.x;
@@ -73,9 +87,9 @@ __global__ void __launch_bounds__(VIEW_THREADS) view_kernel(
   const float inv_x = inv[bv * 2 + 1];
   const float* cy_v = cy + bv * out_size;
   const float* cx_v = cx + bv * out_size;
-  const bf16* x_c = img + ((long long)b * C + c) * H * W;
+  const T* x_c = img + ((long long)b * C + c) * H * W;
 
-  // pass 1: t[r, w] = bf16(sum_i bf16(wy[o0 + r, i]) * x[i, w])
+  // pass 1: t[r, w] = T(sum_i T(wy[o0 + r, i]) * x[i, w])
   for (int w = threadIdx.x; w < W; w += blockDim.x) {
     for (int r = 0; r < VIEW_ROWS; ++r) {
       const int o = o0 + r;
@@ -86,16 +100,16 @@ __global__ void __launch_bounds__(VIEW_THREADS) view_kernel(
         tap_range(cen, inv_y, H, lo, hi);
         const float rn = tap_rnorm(cen, inv_y, lo, hi);
         for (int i = lo; i <= hi; ++i) {
-          const float wt = round_bf16(__fmul_rn(tri(cen, i, inv_y), rn));
-          acc = fmaf(wt, bf2f(x_c[(long long)i * W + w]), acc);  // exact product
+          const float wt = round_to<T>(__fmul_rn(tri(cen, i, inv_y), rn));
+          acc = fmaf(wt, to_f(x_c[(long long)i * W + w]), acc);
         }
       }
-      t_s[r * W + w] = __float2bfloat16_rn(acc);
+      t_s[r * W + w] = from_f<T>(acc);
     }
   }
   __syncthreads();
 
-  // pass 2: view[r, q] = sum_w t[r, w] * bf16(wx[w, q])
+  // pass 2: view[r, q] = sum_w t[r, w] * T(wx[w, q])
   const long long plane = (long long)out_size * out_size;
   const long long out_base = (bv * C + c) * plane;
   for (int q = threadIdx.x; q < out_size; q += blockDim.x) {
@@ -107,34 +121,44 @@ __global__ void __launch_bounds__(VIEW_THREADS) view_kernel(
 #pragma unroll
     for (int r = 0; r < VIEW_ROWS; ++r) acc[r] = 0.0f;
     for (int w = lo; w <= hi; ++w) {
-      const float wt = round_bf16(__fmul_rn(tri(cen, w, inv_x), rn));
+      const float wt = round_to<T>(__fmul_rn(tri(cen, w, inv_x), rn));
 #pragma unroll
-      for (int r = 0; r < VIEW_ROWS; ++r) acc[r] = fmaf(bf2f(t_s[r * W + w]), wt, acc[r]);
+      for (int r = 0; r < VIEW_ROWS; ++r) acc[r] = fmaf(to_f(t_s[r * W + w]), wt, acc[r]);
     }
 #pragma unroll
     for (int r = 0; r < VIEW_ROWS; ++r) {
       const int o = o0 + r;
       if (o >= out_size) break;
-      out[out_base + (long long)o * out_size + q] =
-          round_clip_int8(__fsub_rn(__fmul_rn(acc[r], 254.0f), 127.0f));
+      store_view(out + out_base + (long long)o * out_size + q, acc[r]);
     }
   }
 }
 
-}  // namespace
-
-extern "C" int jcf_view(const void* img, const void* cy, const void* cx, const void* inv,
-                        void* out, int B, int C, int H, int W, int V, int out_size,
-                        void* stream) {
+template <typename T, typename O>
+int launch_view(const void* img, const void* cy, const void* cx, const void* inv, void* out,
+                int B, int C, int H, int W, int V, int out_size, cudaStream_t stream) {
   const int n_tiles = (out_size + VIEW_ROWS - 1) / VIEW_ROWS;
   const long long blocks = (long long)B * V * C * n_tiles;
-  const size_t smem = (size_t)VIEW_ROWS * W * sizeof(bf16);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(view_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
-  view_kernel<<<(unsigned)blocks, VIEW_THREADS, smem, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(img), static_cast<const float*>(cy),
-      static_cast<const float*>(cx), static_cast<const float*>(inv),
-      static_cast<int8_t*>(out), C, H, W, V, out_size);
+  const size_t smem = (size_t)VIEW_ROWS * W * sizeof(T);
+  const int err = set_smem(view_kernel<T, O>, smem);
+  if (err) return err;
+  view_kernel<T, O><<<(unsigned)blocks, VIEW_THREADS, smem, stream>>>(
+      static_cast<const T*>(img), static_cast<const float*>(cy), static_cast<const float*>(cx),
+      static_cast<const float*>(inv), static_cast<O*>(out), C, H, W, V, out_size);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// mode: 0 bf16 images -> int8 pixels, 1 bf16 -> bf16 views, 2 f32 -> f32 views
+extern "C" int jcf_view(const void* img, const void* cy, const void* cx, const void* inv,
+                        void* out, int B, int C, int H, int W, int V, int out_size, int mode,
+                        void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (mode) {
+    case 0: return launch_view<bf16, int8_t>(img, cy, cx, inv, out, B, C, H, W, V, out_size, st);
+    case 1: return launch_view<bf16, bf16>(img, cy, cx, inv, out, B, C, H, W, V, out_size, st);
+    case 2: return launch_view<float, float>(img, cy, cx, inv, out, B, C, H, W, V, out_size, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

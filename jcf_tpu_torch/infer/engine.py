@@ -24,7 +24,8 @@ context), each optionally "+score" (the calibrated softmax shift).
 ``mta_from_features``) encodes given crops [B, N, 3, res, res],
 CLIP-normalized f32, the JAX engine's ``_encode_cloud``: the float patch
 embedding in the compute dtype, CLS, positions, ``ln_pre``, every layer on
-every row (K3 + K4, no K5), ``ln_post`` and ``proj`` on the CLS rows.
+every row (K3 + K4, no K5; K6a + K6b in the unquantized engine),
+``ln_post`` and ``proj`` on the CLS rows.
 
 From 128 tokens on (ViT-B/16's 197) it takes the route the JAX engine
 takes there, whose fold and assembly gates need fewer than 128 tokens:
@@ -35,17 +36,24 @@ dynamic per-row int8 linears (``ops.quant.int8_linear``) and K8
 attention (``ops.attention.fused_attention``). No calibration: its
 activation scales are per row.
 
-``quant=None`` builds the plain f32 reference of the same function: f32
-views, f32 patch embed, the composable f32 tower (K7 or K8 attention in
-f32). The int8 path is certified against it (top-1 agreement, top-5
-overlap), as ``bench.py`` certifies the JAX int8 engine.
+``quant=None`` builds the unquantized engine in ``dtype``: f32 (the
+reference preset's engine, and the reference the int8 path is certified
+against: top-1 agreement, top-5 overlap, as ``bench.py`` certifies the
+JAX int8 engine) or bf16 (``bench.py``'s ``JCF_BENCH_QUANT=none`` parity
+configuration). Below 128 tokens it takes the JAX engine's route there:
+K1 views in ``dtype``, the patch embedding (a matmul of the views in
+``dtype`` with f32 accumulation, plus the folded normalization bias),
+CLS, positions and ``ln_pre`` in ``dtype``, then the unquantized fused
+tower on every layer and every row (``models.clip._run_blocks``: K6a
+with the mask-free paired attention, K6b), ``ln_post`` and ``proj``. From
+128 tokens on the tower is the composable one with K8 attention.
 
 The engine runs on one ``device``, the CUDA card unless the caller asks
-for another. Calibration runs the f32 tower on a CUDA device, so full-f32
-matmuls (``torch.backends.cuda.matmul.allow_tf32 = False``) are required
-there; the bf16 patch embedding of ``crop_features`` on the card needs
-``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction =
-False`` (``ops.layers.linear``). The classifier it scores against is the
+for another. Calibration and the f32 engine run f32 products on the card,
+so full-f32 matmuls (``torch.backends.cuda.matmul.allow_tf32 = False``)
+are required there; the bf16 patch embedding of ``crop_features`` on the
+card needs ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+= False`` (``ops.layers.linear``). The classifier it scores against is the
 [C, D] output of ``pipelines.common.build_text_weights`` (or any
 unit-norm [C, D] tensor).
 """
@@ -74,12 +82,7 @@ from jcf_tpu_torch.ops.block_kernel import check_dense_tower, run_fused_tower
 from jcf_tpu_torch.ops.int8_gemm import int8_gemm_s32
 from jcf_tpu_torch.ops.layers import l2_normalize
 from jcf_tpu_torch.ops.quant import quantize_clip_params, true_div
-from jcf_tpu_torch.ops.view_kernel import (
-    CROP_SCALE,
-    fused_views_nchw,
-    fused_views_nchw_plain,
-    sample_view_centers,
-)
+from jcf_tpu_torch.ops.view_kernel import CROP_SCALE, fused_views_nchw, sample_view_centers
 from jcf_tpu_torch.tta.mta import solve_mta_batch
 
 # static_quant_mode's base -> the quantizations beside the post-LN pair
@@ -110,6 +113,12 @@ def static_act(static_quant_mode: str):
     return STATIC_MODES[base] + (("score",) if with_scores else ()), with_scores
 
 
+def _require_f32_matmul(dev: torch.device, what: str) -> None:
+    if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(f"{what} needs full f32 matmuls: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+
+
 class TTAEngine:
     """Images or crops -> MTA mode features / logits on one device.
 
@@ -117,13 +126,15 @@ class TTAEngine:
     quant: "int8" (below 128 tokens the folded tree with dynamic scales,
     or with ``calibration_images`` the static scales that
     ``static_quant_mode`` names; from 128 on the unfolded tree, both
-    ignored, as the JAX engine does) or None (the plain f32 reference).
+    ignored, as the JAX engine does) or None (the unquantized engine).
+    dtype: the compute dtype; with ``quant=None`` f32 (the default) or
+    bf16, the int8 engine bf16 only (the default there).
     crop_scale: the random views' area range, a share of the source's.
     """
 
     def __init__(self, params: dict, cfg: CLIPConfig, *, device="cuda", n_views: int = 8,
-                 quant: Optional[str] = "int8", calibration_images=None,
-                 static_quant_mode: str = "full",
+                 quant: Optional[str] = "int8", dtype: Optional[torch.dtype] = None,
+                 calibration_images=None, static_quant_mode: str = "full",
                  crop_scale: Tuple[float, float] = CROP_SCALE):
         self.cfg = cfg
         self.device = torch.device(device)
@@ -136,14 +147,19 @@ class TTAEngine:
             v["patch_embed"]["w"], CLIP_MEAN, CLIP_STD, cfg.vision_patch_size
         )
         if quant is None:
-            self.dtype = torch.float32
-            self._params = {"visual": tree_to(v, dev)}
+            self.dtype = torch.float32 if dtype is None else dtype
+            if self.dtype not in (torch.float32, torch.bfloat16):
+                raise ValueError(f"the unquantized engine computes in f32 or bf16, not {self.dtype}")
+            # the float params cast to the compute dtype, as the JAX engine casts them
+            self._params = {"visual": tree_to(v, dev, self.dtype)}
             self._quant = None
-            self._w_embed = w4.permute(3, 0, 1, 2).reshape(w4.shape[3], -1).to(dev)
+            self._w_embed = w4.permute(3, 0, 1, 2).reshape(w4.shape[3], -1).to(dev, self.dtype)
             self._b_embed = fold_bias.to(dev)
             return
         if quant != "int8":
             raise ValueError(f"unknown quant mode {quant!r}")
+        if dtype not in (None, torch.bfloat16):
+            raise ValueError(f"the int8 engine computes in bf16, not {dtype}")
         self.dtype = torch.bfloat16
         self._k_q, self._k_scale, self._k_bias = _embed_quant(w4.to(dev), fold_bias.to(dev))
         # bf16 copies of the float params, as the JAX engine casts them
@@ -155,9 +171,7 @@ class TTAEngine:
         params_dev = {"visual": tree_to(v, dev)}
         act_scales, act_static_ = None, ()
         if calibration_images is not None:
-            if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-                raise RuntimeError("calibration needs full f32 matmuls: set "
-                                   "torch.backends.cuda.matmul.allow_tf32 = False")
+            _require_f32_matmul(dev, "calibration")
             act_static_, with_scores = static_act(static_quant_mode)
             amax = vision_ln_z_amax(params_dev, cfg, self._calibration_crops(calibration_images),
                                     with_scores=with_scores)
@@ -199,12 +213,16 @@ class TTAEngine:
         p, res = cfg.vision_patch_size, cfg.image_resolution
         images = images.to(self.device, self.dtype)
         if self.quant is None:
-            views = fused_views_nchw_plain(images, cy, cx, inv, res)
-            tokens = torch.matmul(_patchify(views.reshape(b * n, 3, res, res), p),
-                                  self._w_embed.T) + self._b_embed
-            feats = encode_image_tokens(self._params, cfg, tokens)
-        else:
+            if self.dtype == torch.float32:
+                _require_f32_matmul(self.device, "the f32 engine")
             views = fused_views_nchw(images, cy, cx, inv, res)
+            # the patch embedding as the reference's conv: operands in the
+            # compute dtype, f32 accumulation, the folded bias in f32
+            cols = _patchify(views.reshape(b * n, 3, res, res), p).float()
+            tokens = torch.matmul(cols, self._w_embed.float().T) + self._b_embed
+            feats = encode_image_tokens(self._params, cfg, tokens, dtype=self.dtype)
+        else:
+            views = fused_views_nchw(images, cy, cx, inv, res, quantize=True)
             # im2col: patch rows [B' * G², 3 * p * p] in the weight's (c, py, px) order
             cols = _patchify(views.reshape(b * n, 3, res, res), p).reshape(-1, 3 * p * p)
             acc = int8_gemm_s32(cols.contiguous(), self._k_q)
@@ -242,6 +260,8 @@ class TTAEngine:
         """crops [B, N, 3, res, res], CLIP-normalized f32 (row 0 the center
         view) -> per-view L2-normalized features [B, N, D] f32."""
         crops = torch.as_tensor(crops).to(self.device)
+        if self.quant is None and self.dtype == torch.float32:
+            _require_f32_matmul(self.device, "the f32 engine")
         b, n = crops.shape[:2]
         feats = encode_image(self._params, self.cfg, crops.reshape(b * n, *crops.shape[2:]),
                              dtype=self.dtype, quant=self._quant)

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from jcf_tpu_torch.ops.attention import causal_mask, multi_head_attention, packed_attention_plain
-from jcf_tpu_torch.ops.block_kernel import run_fused_tower, run_text_tower
+from jcf_tpu_torch.ops.block_kernel import run_float_tower, run_fused_tower
 from jcf_tpu_torch.ops.layers import layer_norm, layer_slice, linear, mlp, quick_gelu
 
 # CLIP pixel statistics (jcf_tpu/data/transforms.py CLIP_MEAN / CLIP_STD)
@@ -187,6 +187,13 @@ def _run_blocks(x: torch.Tensor, blocks: dict, n_heads: int, mask: Optional[torc
     fused tower, ``ops.block_kernel.run_fused_tower`` on the flat rows with
     every row returned, as the JAX function's fused gate does below 128
     tokens without a mask or a LoRA context; anywhere else it raises.
+    Without a quant tree or a LoRA context, below 128 tokens, the same gate
+    takes the unquantized fused tower (``run_float_tower``, bf16 or f32):
+    causal when ``mask`` is given (the only mask here is the causal one),
+    mask-free over head pairs otherwise. It does so on every device, on the
+    plain versions on the CPU. A mask-free tower with an odd head count
+    (the reference's per-head masked attention, ROADMAP.md Queue 2) stays
+    on the composable route, which computes the same function.
 
     Otherwise the composable route: per layer ``x + mha(LN1 x)``, then
     ``x + mlp(LN2 x)``, in x's dtype. With ``lora_ctx``
@@ -202,6 +209,11 @@ def _run_blocks(x: torch.Tensor, blocks: dict, n_heads: int, mask: Optional[torc
                              "no mask, no LoRA); the composable path needs an unfolded "
                              "quantize_clip_params(fold=False) tree")
         rows = run_fused_tower(x.reshape(b * s, e), quant, n_heads, flat_s=s, cls_only=False)
+        return rows.reshape(b, s, e)
+    if (quant is None and lora_ctx is None and x.shape[1] < 128
+            and (mask is not None or n_heads % 2 == 0)):
+        b, s, e = x.shape
+        rows = run_float_tower(x.reshape(b * s, e), blocks, n_heads, s=s, causal=mask is not None)
         return rows.reshape(b, s, e)
     for i in range(blocks["attn"]["w_qkv"].shape[0]):
         layer = layer_slice(blocks, i)
@@ -237,11 +249,13 @@ def encode_image_tokens(params: dict, cfg: CLIPConfig, x: torch.Tensor, *,
                         quant: Optional[dict] = None) -> torch.Tensor:
     """Composable vision tower from embedded patch tokens [B, G², W], in
     ``dtype``: CLS prepend, positional add, the visual prompt tokens
-    appended (``vpt``), ln_pre, the residual blocks (with the LoRA branch
-    when ``lora_ctx`` is given, dynamic int8 projections with the unfolded
-    ``quant`` tree), ln_post on the CLS row, proj. Attention is K7 below
-    128 tokens and K8 from 128 on. In f32 it is also the plain reference
-    tower the int8 path is certified against."""
+    appended (``vpt``), ln_pre, the residual blocks, ln_post on the CLS
+    row, proj. The blocks are ``_run_blocks``'s: below 128 tokens without
+    a LoRA context or a quant tree the unquantized fused tower (K6a
+    mask-free, K6b); with the LoRA branch (``lora_ctx``) or the unfolded
+    ``quant`` tree (dynamic int8 projections) the composable tower, whose
+    attention is K7 below 128 tokens and K8 from 128 on. In f32 it is the
+    reference the int8 path is certified against."""
     v = params["visual"]
     if "vpt_deep" in v:
         raise NotImplementedError("deep visual prompts are not ported")
@@ -275,21 +289,16 @@ def encode_text_embeddings(params: dict, cfg: CLIPConfig, embeddings: torch.Tens
     ``text_projection`` cast to ``dtype`` with an f32 product, cast back.
     Runs where ``embeddings`` lie.
 
-    Without ``lora_ctx`` the tower is the bf16 K6a/K6b route
-    (``run_text_tower``; only bf16 is ported). With it, the composable
+    Without ``lora_ctx`` the tower is the causal K6a/K6b route of
+    ``_run_blocks`` in ``dtype`` (bf16 or f32). With it, the composable
     route of LoRA training in ``dtype``: K7 with the causal mask and the
     decomposed LoRA branch."""
     t = params["text"]
     if "ctx_deep" in t:
         raise NotImplementedError("deep text prompts are not ported")
-    b, s, e = embeddings.shape
+    b, s, _ = embeddings.shape
     x = embeddings.to(dtype) + t["positional_embedding"].to(dtype)
-    if lora_ctx is not None:
-        x = _run_blocks(x, t["blocks"], cfg.text_heads, causal_mask(s, x.device), lora_ctx=lora_ctx)
-    elif dtype == torch.bfloat16:
-        x = run_text_tower(x.reshape(b * s, e), t["blocks"], cfg.text_heads, s=s).reshape(b, s, e)
-    else:
-        raise NotImplementedError("only the bf16 text tower (K6a/K6b) is ported")
+    x = _run_blocks(x, t["blocks"], cfg.text_heads, causal_mask(s, x.device), lora_ctx=lora_ctx)
     x = x[torch.arange(b, device=x.device), eot_positions]
     x = layer_norm(x, t["ln_final"]["scale"], t["ln_final"]["bias"])
     return torch.matmul(x.float(), t["text_projection"].to(dtype).float()).to(dtype)
@@ -299,7 +308,7 @@ def encode_text(params: dict, cfg: CLIPConfig, token_ids, *, device="cuda",
                 dtype: torch.dtype = torch.bfloat16, lora_ctx: Optional[dict] = None) -> torch.Tensor:
     """Text features [B, embed_dim] from token ids [B, context] (a tensor
     or numpy array), on ``device`` (``jcf_tpu`` ``encode_text``; without
-    ``lora_ctx`` its bf16 fused route): the f32 token table gathered, the
+    ``lora_ctx`` its fused route in ``dtype``): the f32 token table gathered, the
     EOT position at the argmax of the ids (EOT is the largest id). The
     text params move to ``device`` unless they lie there already."""
     text = tree_to(params["text"], device)

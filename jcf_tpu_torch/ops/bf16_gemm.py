@@ -65,19 +65,31 @@ def _launch(epilogue, a, w, bias, resid=None):
     return out
 
 
+def bf16_gemm_bias_plain(a, w, bias):
+    return (matmul_plain(a, w) + bias).to(torch.bfloat16)
+
+
+def bf16_gemm_residual_plain(a, w, bias, resid):
+    return (resid.float() + (matmul_plain(a, w) + bias)).to(torch.bfloat16)
+
+
+def bf16_gemm_gelu_plain(a, w, bias):
+    return gelu_plain(matmul_plain(a, w) + bias).to(torch.bfloat16)
+
+
 def bf16_gemm_bias(a, w, bias):
     if not a.is_cuda:
-        return (matmul_plain(a, w) + bias).to(torch.bfloat16)
+        return bf16_gemm_bias_plain(a, w, bias)
     return _launch("bias", a, w, bias)
 
 
 def bf16_gemm_residual(a, w, bias, resid):
     if not a.is_cuda:
-        return (resid.float() + (matmul_plain(a, w) + bias)).to(torch.bfloat16)
+        return bf16_gemm_residual_plain(a, w, bias, resid)
     return _launch("residual", a, w, bias, resid)
 
 
 def bf16_gemm_gelu(a, w, bias):
     if not a.is_cuda:
-        return gelu_plain(matmul_plain(a, w) + bias).to(torch.bfloat16)
+        return bf16_gemm_gelu_plain(a, w, bias)
     return _launch("gelu", a, w, bias)

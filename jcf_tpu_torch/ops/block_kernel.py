@@ -18,19 +18,22 @@ int8 MLP half (K4):
 int8 CLS-query attention half of the last layer (K5), S <= 64: K/V for
   all rows, Q, attention, out-proj and residual for the CLS rows only,
   in the same quantization modes.
-bf16 attention half (K6a), the text tower's:
-  LN (affine cast to bf16, f32 math) -> bf16 qkv GEMM + f32 bias -> causal
-  attention (f32 softmax, normalized p cast to bf16 for PV) -> bf16 ctx
-  -> out-proj + bias + f32 residual -> bf16.
-bf16 MLP half (K6b):
-  LN -> c_fc + bias -> QuickGELU (tanh form, f32) -> bf16 -> c_proj +
-  bias + f32 residual -> bf16.
+float attention half (K6a), in the compute dtype T (bf16 or f32):
+  LN (affine cast to T, f32 math) -> T qkv GEMM + f32 bias -> causal
+  attention (the text tower: f32 softmax per head, normalized p cast to T
+  for PV) or mask-free paired attention (the float vision towers: scores
+  x 1/sqrt(d), one shift per head pair, PV on unnormalized p in T) -> T
+  ctx -> out-proj + bias + f32 residual -> T.
+float MLP half (K6b):
+  LN -> c_fc + bias -> QuickGELU (tanh form, f32) -> T -> c_proj + bias +
+  f32 residual -> T.
 
 Each half is a few kernel launches: the row kernels ``ln_quant``,
 ``ln_quant_rows``, ``quant_rows`` and ``ln_affine``, the attention kernels
-``attention``, ``cls_attention`` (csrc/block.cu) and ``causal_attention``
-(csrc/text_block.cu), and the GEMMs with fused epilogues
-(csrc/int8_gemm.cu, csrc/bf16_gemm.cu). Each wrapper launches its kernel
+``attention``, ``cls_attention`` (csrc/block.cu), ``causal_attention``
+and ``pair_attention`` (csrc/text_block.cu), and the GEMMs with fused
+epilogues (csrc/int8_gemm.cu; csrc/bf16_gemm.cu on the tensor cores and
+csrc/f32_gemm.cu on the CUDA cores for the float halves). Each wrapper launches its kernel
 for CUDA tensors and runs its plain version for CPU tensors. A static
 scale the tree lacks is dynamic. The folded tree's modes
 (``ops.quant.quantize_clip_params``): every scale dynamic; "ln" (static
@@ -59,9 +62,10 @@ Under ``_FUSE`` = "halves" (the default) each layer is K3 + K4, under
 as the reference's ``_CLS_ATTNQ = True`` route: K5, then the MLP half on
 the CLS rows, for S <= 64; from 65 tokens on K3 on all rows, then K4 on
 the CLS rows. Under "stream" one K9c runs all layers on all rows.
-``run_text_tower`` is its causal bf16 route (``encode_text``): the halves
-(K6a, K6b), or K9b per layer under "block". The knobs are read at call
-time. The unfolded tree and the masked (``use_mask=True``) attention of
+``run_float_tower`` is its route without a quant tree, bf16 or f32,
+causal (``encode_text``, ``run_text_tower``) or mask-free (the float
+vision towers): the halves (K6a, K6b), or K9b per layer under "block"
+(bf16 only). The knobs are read at call time. The unfolded tree and the masked (``use_mask=True``) attention of
 the int8 kernels are not ported (ROADMAP.md).
 """
 
@@ -80,6 +84,7 @@ from jcf_tpu_torch.ops.bf16_gemm import (
     gelu_plain,
     matmul_plain,
 )
+from jcf_tpu_torch.ops.f32_gemm import f32_gemm_bias, f32_gemm_gelu, f32_gemm_residual
 from jcf_tpu_torch.ops.int8_gemm import (
     dequant_plain,
     gelu_quant_plain,
@@ -96,8 +101,12 @@ from jcf_tpu_torch.ops.layers import GELU_TANH_COEF, LN_EPS, layer_slice
 # ``*_f32``: the f32 context before its row quantization)
 LAUNCHES = {"ln_quant": 0, "ln_quant_rows": 0, "quant_rows": 0, "gelu_quant_rows": 0,
             "attention": 0, "attention_f32": 0, "cls_attention": 0, "cls_attention_f32": 0,
-            "ln_affine": 0, "causal_attention": 0, "block_int8": 0, "layer_fused_int8": 0,
-            "stream_tower_int8": 0, "block_bf16": 0}
+            "ln_affine": 0, "ln_affine_f32": 0, "causal_attention": 0, "causal_attention_f32": 0,
+            "pair_attention_bf16": 0, "pair_attention_f32": 0, "block_int8": 0,
+            "layer_fused_int8": 0, "stream_tower_int8": 0, "block_bf16": 0}
+# the float kernels' variants by dtype: the launch count's suffix and the
+# C entries' f32 flag
+_FLOAT = {torch.bfloat16: ("", 0), torch.float32: ("_f32", 1)}
 
 # the dense int8 tower's sequence lengths: below 128 tokens (the attention
 # kernel's keys), and the CLS-query attention up to 64 (one padded half)
@@ -353,73 +362,140 @@ def cls_attention(q: torch.Tensor, kv: torch.Tensor, ctx_inv, s: int, n_heads: i
 
 
 def ln_affine_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """``_ln_rows``: f32 statistics and affine on bf16 rows with the LN
-    scale and bias already cast to bf16 -> bf16."""
-    return (_z_rows(x) * scale.float() + bias.float()).to(torch.bfloat16)
+    """``_ln_rows``: f32 statistics and affine on bf16 or f32 rows with the
+    LN scale and bias already cast to the rows' dtype -> that dtype."""
+    return (_z_rows(x) * scale.float() + bias.float()).to(x.dtype)
+
+
+def _float_kind(name: str, x: torch.Tensor):
+    """(launch-count suffix, f32 flag) of a float kernel for x's dtype."""
+    if x.dtype not in _FLOAT:
+        raise ValueError(f"{name} kernel takes bf16 or f32, got {x.dtype}")
+    return _FLOAT[x.dtype]
 
 
 def ln_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """x [M, E] bf16, scale and bias [E] bf16 -> bf16 [M, E]."""
+    """x [M, E] bf16 or f32, scale and bias [E] in x's dtype -> [M, E] in
+    x's dtype."""
     if not x.is_cuda:
         return ln_affine_plain(x, scale, bias)
     m, e = x.shape
-    if x.dtype != torch.bfloat16 or e > 1024:
-        raise ValueError(f"ln_affine kernel takes bf16 rows with E <= 1024, got {x.dtype} E={e}")
+    suffix, f32 = _float_kind("ln_affine", x)
+    if e > 1024:
+        raise ValueError(f"ln_affine kernel takes rows with E <= 1024, got E={e}")
     for name, t in (("scale", scale), ("bias", bias)):
-        if t.dtype != torch.bfloat16 or tuple(t.shape) != (e,) or t.device != x.device:
-            raise ValueError(f"{name} must be bf16 ({e},) on the rows' device")
+        if t.dtype != x.dtype or tuple(t.shape) != (e,) or t.device != x.device:
+            raise ValueError(f"{name} must be {x.dtype} ({e},) on the rows' device")
     x, scale, bias = x.contiguous(), scale.contiguous(), bias.contiguous()
-    out = torch.empty((m, e), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty_like(x)
     lib = _build.load()
     err = lib.jcf_ln_affine(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), m, e,
-                            _build.stream_ptr(x.device))
-    _build.check(err, "ln_affine")
-    LAUNCHES["ln_affine"] += 1
+                            f32, _build.stream_ptr(x.device))
+    _build.check(err, "ln_affine" + suffix)
+    LAUNCHES["ln_affine" + suffix] += 1
     return out
 
 
 def causal_attention_plain(qkv: torch.Tensor, s: int, n_heads: int) -> torch.Tensor:
     """Plain version of the causal attention kernel (``_paired_attention``
-    with the additive causal mask, per head): qkv [B * S, 3E] bf16 ->
-    context [B * S, E] bf16."""
+    with the additive causal mask, per head): qkv [B * S, 3E] bf16 or f32
+    -> context [B * S, E] in qkv's dtype."""
     return bias_attention_plain(qkv, s, n_heads, causal_mask(s, qkv.device))
 
 
 def bias_attention_plain(qkv: torch.Tensor, s: int, n_heads: int, bias: torch.Tensor) -> torch.Tensor:
     """``_paired_attention`` per head with an additive [S, S] f32 bias:
-    qkv [B * S, 3E] bf16 -> context [B * S, E] bf16. f32 scores x
-    1/sqrt(d), the bias, a per-head max, exp and sum in f32, p / sum in
-    f32, then bf16 p for PV."""
+    qkv [B * S, 3E] bf16 or f32 -> context [B * S, E] in qkv's dtype. f32
+    scores x 1/sqrt(d), the bias, a per-head max, exp and sum in f32, p /
+    sum in f32, then p in qkv's dtype for PV."""
     rows, e3 = qkv.shape
     e = e3 // 3
     d = e // n_heads
     b = rows // s
+    dt = qkv.dtype
     q, k, v = qkv.float().reshape(b, s, 3, n_heads, d).permute(2, 0, 3, 1, 4)  # [B, H, S, D]
     scores = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(d)) + bias
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
-    ctx = torch.matmul(p.to(torch.bfloat16).float(), v)  # [B, H, S, D]
-    return ctx.to(torch.bfloat16).permute(0, 2, 1, 3).reshape(rows, e)
+    ctx = torch.matmul(p.to(dt).float(), v)  # [B, H, S, D]
+    return ctx.to(dt).permute(0, 2, 1, 3).reshape(rows, e)
 
 
 def causal_attention(qkv: torch.Tensor, s: int, n_heads: int) -> torch.Tensor:
-    """Causal attention wrapper: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    """Causal attention wrapper (bf16 or f32): the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     if not qkv.is_cuda:
         return causal_attention_plain(qkv, s, n_heads)
     rows, e3 = qkv.shape
     e = e3 // 3
     d = e // n_heads
-    if qkv.dtype != torch.bfloat16 or rows % s or s > 128 or d % 8 or e != d * n_heads:
-        raise ValueError(f"causal attention kernel takes bf16 qkv, S <= 128 and a head dim "
-                         f"divisible by 8; got {qkv.dtype}, rows={rows}, S={s}, H={n_heads}, D={d}")
+    suffix, f32 = _float_kind("causal attention", qkv)
+    if rows % s or s > 128 or d % 8 or e != d * n_heads:
+        raise ValueError(f"causal attention kernel takes S <= 128 and a head dim divisible by "
+                         f"8; got rows={rows}, S={s}, H={n_heads}, D={d}")
     qkv = qkv.contiguous()
-    out = torch.empty((rows, e), dtype=torch.bfloat16, device=qkv.device)
+    out = torch.empty((rows, e), dtype=qkv.dtype, device=qkv.device)
     lib = _build.load()
     err = lib.jcf_causal_attention(qkv.data_ptr(), out.data_ptr(), rows // s, s, n_heads, d,
-                                   1.0 / math.sqrt(d), _build.stream_ptr(qkv.device))
-    _build.check(err, "causal_attention")
-    LAUNCHES["causal_attention"] += 1
+                                   1.0 / math.sqrt(d), f32, _build.stream_ptr(qkv.device))
+    _build.check(err, "causal_attention" + suffix)
+    LAUNCHES["causal_attention" + suffix] += 1
+    return out
+
+
+def _pad_floor(s: int) -> float:
+    """The pair shift's floor: 0 where the reference pads the keys to a
+    multiple of 8 (its zeroed pad keys score 0), none where S is one."""
+    return 0.0 if s % 8 else -math.inf
+
+
+def pair_attention_plain(qkv: torch.Tensor, s: int, n_heads: int) -> torch.Tensor:
+    """Plain version of the mask-free attention kernel of the float towers
+    (``_paired_attention_nomask``, unfolded, no shift or post scale): qkv
+    [B' * S, 3E] bf16 or f32 -> the context [B' * S, E] in qkv's dtype.
+    Scores q.k in f32, then x 1/sqrt(d); one shift per head PAIR, the max
+    over both heads' keys, floored at 0 where S is not a multiple of 8; p
+    = exp(s - m) rounded to qkv's dtype; PV and the normalizer on that p in
+    f32; ctx_u * (1 / max(l, 1e-30))."""
+    rows, e3 = qkv.shape
+    e = e3 // 3
+    d = e // n_heads
+    b = rows // s
+    dt = qkv.dtype
+    q, k, v = qkv.float().reshape(b, s, 3, n_heads, d).permute(2, 0, 3, 1, 4)  # [B, H, S, D]
+    scores = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    pair = scores.reshape(b, n_heads // 2, 2, s, s)
+    m = pair.amax(dim=(2, 4), keepdim=True).clamp_min(_pad_floor(s))
+    p = torch.exp(pair - m).to(dt).float().reshape(b, n_heads, s, s)
+    ctx_u = torch.matmul(p, v)
+    ctx = ctx_u * (1.0 / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30))
+    return ctx.to(dt).permute(0, 2, 1, 3).reshape(rows, e)
+
+
+def pair_attention(qkv: torch.Tensor, s: int, n_heads: int) -> torch.Tensor:
+    """Mask-free attention wrapper (bf16 or f32, S <= 127, an even head
+    count): the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if not qkv.is_cuda:
+        return pair_attention_plain(qkv, s, n_heads)
+    rows, e3 = qkv.shape
+    e = e3 // 3
+    d = e // n_heads
+    if qkv.dtype not in _FLOAT:
+        raise ValueError(f"pair attention kernel takes bf16 or f32, got {qkv.dtype}")
+    if rows % s or s > MAX_SEQ or n_heads % 2 or e != d * n_heads:
+        raise ValueError(f"pair attention kernel takes S <= {MAX_SEQ} and an even head count; "
+                         f"got rows={rows}, S={s}, H={n_heads}, D={d}")
+    f32 = _FLOAT[qkv.dtype][1]
+    name = "pair_attention_f32" if f32 else "pair_attention_bf16"
+    qkv = qkv.contiguous()
+    out = torch.empty((rows, e), dtype=qkv.dtype, device=qkv.device)
+    lib = _build.load()
+    err = lib.jcf_pair_attention(qkv.data_ptr(), out.data_ptr(), rows // s, s, n_heads, d,
+                                 1.0 / math.sqrt(d), _pad_floor(s), f32,
+                                 _build.stream_ptr(qkv.device))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -494,25 +570,45 @@ def attn_cls_int8(x: torch.Tensor, attn: dict, s: int, n_heads: int) -> torch.Te
                               row_scale=c_sc)
 
 
-def attn_half(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Tensor:
-    """K6a on rows x [B * S, E] bf16 (S rows per sequence) with one
-    layer's float block params -> x + causal attention(LN1(x)), bf16.
-    Weights are cast to bf16, biases kept f32 (``_halves_block``)."""
-    bf = torch.bfloat16
+# the float halves' GEMMs by dtype: (bias, QuickGELU, residual) epilogues
+_GEMMS = {torch.bfloat16: (bf16_gemm_bias, bf16_gemm_gelu, bf16_gemm_residual),
+          torch.float32: (f32_gemm_bias, f32_gemm_gelu, f32_gemm_residual)}
+
+
+def _gemms(dt: torch.dtype):
+    if dt not in _GEMMS:
+        raise ValueError(f"the float tower halves take bf16 or f32 rows, got {dt}")
+    return _GEMMS[dt]
+
+
+def attn_half(x: torch.Tensor, layer: dict, s: int, n_heads: int, *,
+              causal: bool = True) -> torch.Tensor:
+    """K6a on rows x [B * S, E] (S rows per sequence), bf16 or f32, with
+    one layer's float block params -> x + attention(LN1(x)) in x's dtype:
+    causal (the text tower), or mask-free over head pairs (the float
+    vision towers). Weights and the LN affine are cast to x's dtype,
+    biases kept f32 (``_halves_block``)."""
+    dt = x.dtype
+    gemm_bias, _, gemm_residual = _gemms(dt)
+    if not causal and n_heads % 2:
+        raise ValueError(f"{n_heads} heads: the mask-free attention pairs heads; an odd head count "
+                         f"takes the reference's per-head masked attention, which is not ported")
     ln, attn = layer["ln_1"], layer["attn"]
-    h = ln_affine(x, ln["scale"].to(bf), ln["bias"].to(bf))
-    qkv = bf16_gemm_bias(h, attn["w_qkv"].to(bf), attn["b_qkv"].float())
-    ctx = causal_attention(qkv, s, n_heads)
-    return bf16_gemm_residual(ctx, attn["w_out"].to(bf), attn["b_out"].float(), x)
+    h = ln_affine(x, ln["scale"].to(dt), ln["bias"].to(dt))
+    qkv = gemm_bias(h, attn["w_qkv"].to(dt), attn["b_qkv"].float())
+    ctx = causal_attention(qkv, s, n_heads) if causal else pair_attention(qkv, s, n_heads)
+    return gemm_residual(ctx, attn["w_out"].to(dt), attn["b_out"].float(), x)
 
 
 def mlp_half(x: torch.Tensor, layer: dict) -> torch.Tensor:
-    """K6b on rows x [M, E] bf16 -> x + c_proj(QuickGELU(c_fc(LN2(x)))), bf16."""
-    bf = torch.bfloat16
+    """K6b on rows x [M, E], bf16 or f32 -> x + c_proj(QuickGELU(c_fc(LN2(x))))
+    in x's dtype."""
+    dt = x.dtype
+    _, gemm_gelu, gemm_residual = _gemms(dt)
     ln, mlp = layer["ln_2"], layer["mlp"]
-    h = ln_affine(x, ln["scale"].to(bf), ln["bias"].to(bf))
-    hidden = bf16_gemm_gelu(h, mlp["c_fc"]["w"].to(bf), mlp["c_fc"]["b"].float())
-    return bf16_gemm_residual(hidden, mlp["c_proj"]["w"].to(bf), mlp["c_proj"]["b"].float(), x)
+    h = ln_affine(x, ln["scale"].to(dt), ln["bias"].to(dt))
+    hidden = gemm_gelu(h, mlp["c_fc"]["w"].to(dt), mlp["c_fc"]["b"].float())
+    return gemm_residual(hidden, mlp["c_proj"]["w"].to(dt), mlp["c_proj"]["b"].float(), x)
 
 
 # ---------------------------------------------------------------------------
@@ -723,7 +819,9 @@ def block_bf16(x: torch.Tensor, layer: dict, s: int, n_heads: int,
                bias: torch.Tensor) -> torch.Tensor:
     """K9b wrapper: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors. Weights are cast to bf16, biases kept f32, as the
-    reference casts them."""
+    reference casts them. Where the kernel's shared memory cannot hold a
+    sequence's context beside its LN rows (E = 768, the float vision
+    tower) it takes a bf16 scratch in device memory."""
     if not x.is_cuda:
         return block_bf16_plain(x, layer, s, n_heads, bias)
     rows, e = x.shape
@@ -752,7 +850,13 @@ def block_bf16(x: torch.Tensor, layer: dict, s: int, n_heads: int,
     out = torch.empty_like(x)
     mid = torch.empty((rows, e), dtype=torch.float32, device=x.device)
     lib = _build.load()
+    # the bf16 context and hidden of a sequence, where shared memory cannot
+    # hold them beside the LN rows (E = 768)
+    per_seq = lib.jcf_block_bf16_scratch(s, e, hidden)
+    scratch = (torch.empty(rows // s * per_seq, dtype=torch.bfloat16, device=x.device)
+               if per_seq else None)
     err = lib.jcf_block_bf16(x.data_ptr(), out.data_ptr(), mid.data_ptr(),
+                             scratch.data_ptr() if scratch is not None else None,
                              *(t.data_ptr() for t in ops), rows // s, s, n_heads, hidden,
                              1.0 / math.sqrt(e // n_heads), _build.stream_ptr(x.device))
     _build.check(err, "block_bf16")
@@ -825,20 +929,37 @@ def run_fused_tower(x: torch.Tensor, quant: dict, n_heads: int, *, flat_s: int,
     return mlp_half_int8(mid, last["mlp"])
 
 
-def run_text_tower(x: torch.Tensor, blocks: dict, n_heads: int, *, s: int) -> torch.Tensor:
-    """The causal bf16 route of ``run_fused_tower`` (every TPU
-    ``encode_text``): rows x [B * S, E] bf16 through all layers of the
-    stacked float ``blocks`` -> [B * S, E] bf16. Under ``_FUSE`` = "block"
-    each layer is K9b with the causal mask as its bias; under every other
-    value the halves (K6a, K6b), as the JAX package falls back. The TPU pads
-    S = 77 to 80 with keys masked by -1e30; they never reach real rows, so
-    the port runs unpadded."""
+def run_float_tower(x: torch.Tensor, blocks: dict, n_heads: int, *, s: int,
+                    causal: bool) -> torch.Tensor:
+    """``run_fused_tower`` without a quant tree: rows x [B * S, E], bf16 or
+    f32, through all layers of the stacked float ``blocks`` -> [B * S, E]
+    in x's dtype, causal (the text tower) or mask-free (the float vision
+    towers, S <= 127 and an even head count).
+
+    Under ``_FUSE`` = "block" each layer is K9b with the causal mask or an
+    all-zero [S, S] bias (the reference's bias once its pad keys are
+    dropped), bf16 only: K9b in f32 is not ported (ROADMAP.md, Queue 2)
+    and raises. Under every other value the halves (K6a, K6b), as the JAX
+    package falls back. The TPU pads S to a multiple of 8 (pad keys masked
+    by -1e30, or zeroed and floored into the pair shift); pad rows never
+    reach real rows, so the port runs unpadded."""
     fuse = _fuse()
-    bias = causal_mask(s, x.device) if fuse == "block" else None
+    if fuse == "block":
+        if x.dtype != torch.bfloat16:
+            raise NotImplementedError(
+                f"_FUSE = 'block' on a {x.dtype} tower needs K9b (block_bf16) in f32, which is "
+                "not ported (ROADMAP.md, Queue 2); run it under _FUSE = 'halves'")
+        bias = (causal_mask(s, x.device) if causal
+                else torch.zeros((s, s), dtype=torch.float32, device=x.device))
     for i in range(blocks["attn"]["w_qkv"].shape[0]):
         layer = layer_slice(blocks, i)
         if fuse == "block":
             x = block_bf16(x, layer, s, n_heads, bias)
         else:
-            x = mlp_half(attn_half(x, layer, s, n_heads), layer)
+            x = mlp_half(attn_half(x, layer, s, n_heads, causal=causal), layer)
     return x
+
+
+def run_text_tower(x: torch.Tensor, blocks: dict, n_heads: int, *, s: int) -> torch.Tensor:
+    """The causal route of ``run_float_tower`` (every ``encode_text``)."""
+    return run_float_tower(x, blocks, n_heads, s=s, causal=True)

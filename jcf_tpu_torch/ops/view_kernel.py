@@ -3,10 +3,9 @@
 ``fused_views_nchw`` resamples each image's crop views (triangle-filter
 bilinear with antialiasing, flips folded into mirrored column centers)
 and emits int8 pixels ``round(v * 254 - 127)`` for the int8 patch embed
-(the JAX function with ``quantize=True``). On a CUDA tensor it launches
-the hand-written kernel in ``csrc/view.cu``; on a CPU tensor it runs
-``fused_views_nchw_plain``, which also gives the float views of the f32
-reference path.
+(``quantize=True``), or the views in the images' dtype, bf16 or f32 (the
+float engines'). On a CUDA tensor it launches the hand-written kernel in
+``csrc/view.cu``; on a CPU tensor it runs ``fused_views_nchw_plain``.
 
 ``sample_view_centers`` draws the crop geometry with a ``torch.Generator``
 (the same box distribution as the JAX sampler; the random numbers differ,
@@ -22,8 +21,12 @@ import torch
 
 from jcf_tpu_torch import _build
 
-# launches of the view kernel (fused_views_nchw on CUDA tensors)
-LAUNCHES = {"view": 0}
+# launches of the view kernel (fused_views_nchw on CUDA tensors): int8
+# pixels, bf16 and f32 views
+LAUNCHES = {"view": 0, "view_bf16": 0, "view_f32": 0}
+# the kernel's modes by (image dtype, quantize) -> (C entry mode, count)
+_MODES = {(torch.bfloat16, True): (0, "view"), (torch.bfloat16, False): (1, "view_bf16"),
+          (torch.float32, False): (2, "view_f32")}
 # random crops: area share of the source (the default; ``TTAEngine``'s
 # ``crop_scale``) and aspect range (the reference's)
 CROP_SCALE = (0.5, 1.0)
@@ -63,30 +66,34 @@ def fused_views_nchw_plain(images, cy, cx, inv, out_size: int, *, quantize: bool
     return view.to(dt)
 
 
-def fused_views_nchw(images, cy, cx, inv, out_size: int):
-    """K1 wrapper -> int8 views [B, V, C, out, out]: the CUDA kernel for
-    CUDA tensors (bf16 images), the plain version for CPU tensors."""
+def fused_views_nchw(images, cy, cx, inv, out_size: int, *, quantize: bool = False):
+    """K1 wrapper -> views [B, V, C, out, out]: int8 pixels with
+    ``quantize`` (bf16 images), else in the images' dtype (bf16 or f32).
+    The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
     if not images.is_cuda:
-        return fused_views_nchw_plain(images, cy, cx, inv, out_size, quantize=True)
+        return fused_views_nchw_plain(images, cy, cx, inv, out_size, quantize=quantize)
     b, c, h, w = images.shape
     n_views = cy.shape[1]
-    if images.dtype != torch.bfloat16:
-        raise TypeError(f"view kernel takes bf16 images, got {images.dtype}")
-    for name, t, shape in (("cy", cy, (b, n_views, out_size)),
-                           ("cx", cx, (b, n_views, out_size)),
-                           ("inv", inv, (b, n_views, 2))):
+    if (images.dtype, quantize) not in _MODES:
+        raise TypeError(f"view kernel takes bf16 images (int8 or bf16 views) or f32 images (f32 "
+                        f"views), got {images.dtype} with quantize={quantize}")
+    mode, name = _MODES[(images.dtype, quantize)]
+    for arg, t, shape in (("cy", cy, (b, n_views, out_size)),
+                          ("cx", cx, (b, n_views, out_size)),
+                          ("inv", inv, (b, n_views, 2))):
         if t.dtype != torch.float32 or tuple(t.shape) != shape or t.device != images.device:
-            raise ValueError(f"{name} must be f32 {shape} on {images.device}")
+            raise ValueError(f"{arg} must be f32 {shape} on {images.device}")
     if w > 768:
         raise ValueError(f"view kernel supports source width <= 768, got {w}")
     images, cy, cx, inv = (t.contiguous() for t in (images, cy, cx, inv))
-    out = torch.empty((b, n_views, c, out_size, out_size), dtype=torch.int8, device=images.device)
+    out = torch.empty((b, n_views, c, out_size, out_size),
+                      dtype=torch.int8 if quantize else images.dtype, device=images.device)
     lib = _build.load()
     err = lib.jcf_view(images.data_ptr(), cy.data_ptr(), cx.data_ptr(), inv.data_ptr(),
-                       out.data_ptr(), b, c, h, w, n_views, out_size,
+                       out.data_ptr(), b, c, h, w, n_views, out_size, mode,
                        _build.stream_ptr(images.device))
-    _build.check(err, "view")
-    LAUNCHES["view"] += 1
+    _build.check(err, name)
+    LAUNCHES[name] += 1
     return out
 
 

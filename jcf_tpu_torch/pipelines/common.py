@@ -1,8 +1,10 @@
-"""Shared pipeline plumbing (``jcf_tpu/pipelines/common.py``): the class
-templates and the zero-shot text classifier with its disk cache."""
+"""Shared pipeline plumbing (``jcf_tpu/pipelines/common.py``): model
+loading, the class templates, the zero-shot text classifier with its disk
+cache, and the crop-cloud stacking of the parity path."""
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import logging
 import os
@@ -15,19 +17,30 @@ import torch
 from jcf_tpu_torch.config import PipelineConfig
 from jcf_tpu_torch.data import load_class_templates, synthesize_templates
 from jcf_tpu_torch.models.clip import CLIPConfig
+from jcf_tpu_torch.models.loader import load_clip
 from jcf_tpu_torch.tta.classifier import build_classifier_weights
 
 logger = logging.getLogger("jcf_tpu_torch")
 
 
 def compute_dtype(cfg: PipelineConfig) -> torch.dtype:
-    """The text tower's dtype. Only the bf16 tower (the perf preset's) is
-    ported; the f32 halves are not (ROADMAP.md)."""
-    if cfg.runtime.compute_dtype != "bfloat16":
-        raise NotImplementedError(
-            f"compute_dtype {cfg.runtime.compute_dtype!r}: only the bf16 text tower is ported "
-            "(use config.perf_preset())")
-    return torch.bfloat16
+    """bf16 for ``compute_dtype="bfloat16"`` (the perf preset), else f32
+    (the default, the reference preset)."""
+    return torch.bfloat16 if cfg.runtime.compute_dtype == "bfloat16" else torch.float32
+
+
+def load_model_for_pipeline(cfg: PipelineConfig, prompted: bool = False):
+    """(params, model config) from ``cfg.runtime.clip_checkpoint``. With
+    ``prompted`` a checkpoint without visual prompts gets 4 fresh ones
+    (IVLP: ``vision_prompt_tokens = 4``, ``vpt`` drawn with numpy's
+    ``default_rng(0)`` at std 0.02, as the JAX package draws them)."""
+    params, mcfg = load_clip(cfg.runtime.clip_checkpoint)
+    if prompted and mcfg.vision_prompt_tokens == 0:
+        mcfg = dataclasses.replace(mcfg, vision_prompt_tokens=4)
+        rng = np.random.default_rng(0)
+        params["visual"]["vpt"] = torch.from_numpy(
+            (0.02 * rng.standard_normal((4, mcfg.vision_width))).astype(np.float32))
+    return params, mcfg
 
 
 def ensure_templates(cfg: PipelineConfig) -> Dict[int, List[str]]:
@@ -85,7 +98,7 @@ def build_text_weights(params: dict, mcfg: CLIPConfig, templates: Dict[int, List
             w = torch.from_numpy(np.load(path)).to(device, dtype)
             logger.info("text classifier cache HIT: %s (%.2fs)", path, time.perf_counter() - t0)
             return w
-    w = build_classifier_weights(params, mcfg, templates, device=device)
+    w = build_classifier_weights(params, mcfg, templates, device=device, dtype=dtype)
     logger.info("text classifier built in %.1fs (cache %s)", time.perf_counter() - t0,
                 "miss" if cache_dir else "disabled")
     if path is not None:
@@ -96,3 +109,10 @@ def build_text_weights(params: dict, mcfg: CLIPConfig, templates: Dict[int, List
         os.replace(tmp, path)
         logger.info("text classifier cached: %s", path)
     return w
+
+
+def stack_center_and_crops(center, crops) -> torch.Tensor:
+    """[B, 1, 3, s, s] + [B, N, 3, s, s] -> [B, N + 1, 3, s, s] with the
+    center view first (``ood.py:868-872``); numpy arrays or tensors in, a
+    CPU tensor out."""
+    return torch.from_numpy(np.concatenate([np.asarray(center), np.asarray(crops)], axis=1))

@@ -4,7 +4,8 @@ For each class: encode every template sentence, L2-normalize each
 embedding, average over the templates, normalize again; stack into [C, D]
 weights. All C * T prompts are tokenized once and encoded in batches of
 512 through the text tower (``models.clip.encode_text``, the K6a/K6b
-kernels on the card), in bf16 like the JAX package's perf preset.
+kernels on the card), in bf16 (the perf preset's compute dtype, the
+default here) or f32 (the reference preset's).
 """
 
 from __future__ import annotations
@@ -19,34 +20,37 @@ from jcf_tpu_torch.ops.layers import l2_normalize
 from jcf_tpu_torch.tokenizer import tokenize
 
 
-def _mean_bf16(emb: torch.Tensor, dim: int) -> torch.Tensor:
-    """``jnp.mean`` of bf16: accumulated in f32, cast back."""
+def _mean(emb: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jnp.mean``: accumulated in f32, cast back to the input dtype."""
     return emb.float().mean(dim=dim).to(emb.dtype)
 
 
-def _encode_normalized(params: dict, cfg: CLIPConfig, ids, batch_size: int, device) -> torch.Tensor:
+def _encode_normalized(params: dict, cfg: CLIPConfig, ids, batch_size: int, device,
+                       dtype: torch.dtype) -> torch.Tensor:
     """L2-normalized text features of token ids [N, ctx], ``batch_size``
-    prompts per tower call -> [N, D] bf16 on ``device``."""
+    prompts per tower call -> [N, D] in ``dtype`` on ``device``."""
     params = {"text": tree_to(params["text"], device)}
     ids = torch.as_tensor(ids)
-    return torch.cat([l2_normalize(encode_text(params, cfg, ids[i : i + batch_size], device=device))
+    return torch.cat([l2_normalize(encode_text(params, cfg, ids[i : i + batch_size], device=device,
+                                               dtype=dtype))
                       for i in range(0, ids.shape[0], batch_size)])
 
 
 def encode_class_templates(params: dict, cfg: CLIPConfig, token_ids, *, batch_size: int = 512,
-                           device="cuda") -> torch.Tensor:
-    """Template token ids [C, T, ctx] -> classifier weights [C, D] bf16."""
+                           device="cuda", dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Template token ids [C, T, ctx] -> classifier weights [C, D] in ``dtype``."""
     c, t, ctx = token_ids.shape
-    emb = _encode_normalized(params, cfg, token_ids.reshape(c * t, ctx), batch_size, device)
-    return l2_normalize(_mean_bf16(emb.reshape(c, t, -1), 1))
+    emb = _encode_normalized(params, cfg, token_ids.reshape(c * t, ctx), batch_size, device, dtype)
+    return l2_normalize(_mean(emb.reshape(c, t, -1), 1))
 
 
 def build_classifier_weights(params: dict, cfg: CLIPConfig,
                              templates: Dict[int, List[str]] | Sequence[List[str]], *,
-                             batch_size: int = 512, device="cuda") -> torch.Tensor:
-    """Classifier weights [C, D] bf16 from {class_id: [template strings]}
-    (classes in key order) or a list of template lists. Classes with
-    different template counts average their own templates exactly."""
+                             batch_size: int = 512, device="cuda",
+                             dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Classifier weights [C, D] in ``dtype`` from {class_id: [template
+    strings]} (classes in key order) or a list of template lists. Classes
+    with different template counts average their own templates exactly."""
     if isinstance(templates, dict):
         items = [templates[k] for k in sorted(templates.keys())]
     else:
@@ -54,12 +58,13 @@ def build_classifier_weights(params: dict, cfg: CLIPConfig,
     if len({len(v) for v in items}) == 1:
         ids = np.stack([tokenize(v, context_length=cfg.context_length, truncate=True)
                         for v in items])  # [C, T, ctx]
-        return encode_class_templates(params, cfg, ids, batch_size=batch_size, device=device)
+        return encode_class_templates(params, cfg, ids, batch_size=batch_size, device=device,
+                                      dtype=dtype)
     flat = [s for v in items for s in v]
     ids = tokenize(flat, context_length=cfg.context_length, truncate=True)
-    emb = _encode_normalized(params, cfg, ids, batch_size, device)
+    emb = _encode_normalized(params, cfg, ids, batch_size, device, dtype)
     weights, offset = [], 0
     for v in items:
-        weights.append(l2_normalize(_mean_bf16(emb[offset : offset + len(v)], 0)))
+        weights.append(l2_normalize(_mean(emb[offset : offset + len(v)], 0)))
         offset += len(v)
     return torch.stack(weights)

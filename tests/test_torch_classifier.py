@@ -20,7 +20,7 @@ import torch
 
 from jcf_tpu.models import clip as jclip
 from jcf_tpu.tta import build_classifier_weights as j_build
-from jcf_tpu_torch.config import PipelineConfig, RuntimeConfig, perf_preset
+from jcf_tpu_torch.config import RuntimeConfig, perf_preset
 from jcf_tpu_torch.models import clip as tclip
 from jcf_tpu_torch.pipelines import common
 from jcf_tpu_torch.tta import build_classifier_weights
@@ -116,8 +116,3 @@ def test_cache_key_follows_the_text_weights():
     templates[0] = ["a photo of a red panda."]
     assert common._classifier_cache_key(params, cfg, templates, pc) != key
 
-
-def test_f32_text_tower_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        common.build_text_weights({}, tclip.CLIPConfig(**SMALL), {}, PipelineConfig(),
-                                  device="cpu")

@@ -49,7 +49,7 @@ def test_view_kernel(cuda, seed):
     gen = torch.Generator(device=cuda).manual_seed(seed)
     images = torch.rand(5, 3, 80, 72, device=cuda, generator=gen).bfloat16()
     cy, cx, inv = vk.sample_view_centers(gen, 5, 6, (80, 72), 48)
-    got = vk.fused_views_nchw(images, cy, cx, inv, 48)
+    got = vk.fused_views_nchw(images, cy, cx, inv, 48, quantize=True)
     ref = vk.fused_views_nchw_plain(images, cy, cx, inv, 48, quantize=True)
     _int8_close(got, ref, 5e-3)
 
@@ -229,16 +229,16 @@ def test_stage1_step_kernels_vs_plain_attention(cuda, monkeypatch):
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
-    images = torch.rand(1, 3, 64, 64, device=cuda)  # f32: the kernel takes bf16
+    images = torch.rand(1, 3, 64, 64, device=cuda)  # f32: int8 pixels take bf16
     cy = torch.zeros(1, 2, 32, device=cuda)
     inv = torch.ones(1, 2, 2, device=cuda)
     with pytest.raises(TypeError):
-        vk.fused_views_nchw(images, cy, cy, inv, 32)
+        vk.fused_views_nchw(images, cy, cy, inv, 32, quantize=True)
     with pytest.raises(ValueError):  # S = 128: the dense rows stop at 127
         bk.attention(torch.zeros(128, 3 * 128, device=cuda).bfloat16(),
                      torch.ones(1, device=cuda), 128, 2)
-    with pytest.raises(ValueError):  # f32 rows: the kernel takes bf16
-        bk.causal_attention(torch.zeros(77, 3 * 128, device=cuda), 77, 2)
+    with pytest.raises(ValueError):  # f16 rows: the kernel takes bf16 or f32
+        bk.causal_attention(torch.zeros(77, 3 * 128, device=cuda).half(), 77, 2)
     with pytest.raises(ValueError):  # head dim 32: the kernel takes 64
         bk.cls_attention(torch.zeros(2, 64, device=cuda).bfloat16(),
                          torch.zeros(100, 128, device=cuda).bfloat16(),
@@ -397,9 +397,10 @@ def test_fused_int8_layer_kernels(cuda, monkeypatch, width, s, crops, nsplit):
 
 
 @pytest.mark.parametrize("width,s,seqs,causal", [
-    (512, 77, 3, True), (128, 77, 1, False), (128, 17, 3, True)])
+    (512, 77, 3, True), (128, 77, 1, False), (128, 17, 3, True), (768, 50, 5, False)])
 def test_block_bf16_kernel(cuda, width, s, seqs, causal):
-    """K9b vs its plain version, with the causal mask or a zero bias."""
+    """K9b vs its plain version, with the causal mask or a zero bias; at
+    768 wide (the float vision tower) through its global scratch."""
     cfg = CLIPConfig(text_layers=1, text_width=width, text_heads=width // 64)
     layer = layer_slice(tree_to(init_clip_params(0, cfg)["text"]["blocks"], cuda), 0)
     x = torch.randn(seqs * s, width, device=cuda,
@@ -624,3 +625,140 @@ def test_features_from_crops_on_the_card(cuda):
     assert torch.equal(modes, card.mta_from_features(feats, text))
     cos = torch.nn.functional.cosine_similarity(modes.cpu(), cpu.features_from_crops(crops, text))
     assert float(cos.min()) >= 0.999
+
+
+# ---------------------------------------------------------------------------
+# the unquantized towers: K1's float views, the f32 GEMMs, f32 LN and
+# causal attention, the mask-free pair attention in bf16 and f32
+# ---------------------------------------------------------------------------
+
+
+def _f32_close(got, ref, slack=None):
+    """f32: within 1e-5 + 1e-5 |ref| (+ ``slack``, per element)."""
+    tol = 1e-5 + 1e-5 * ref.abs() + (0.0 if slack is None else slack)
+    assert bool(((got - ref).abs() <= tol).all()) and bool(got.isfinite().all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_view_kernel_float(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    images = torch.rand(5, 3, 80, 72, device=cuda, generator=gen).to(dtype)
+    cy, cx, inv = vk.sample_view_centers(gen, 5, 6, (80, 72), 48)
+    before = dict(vk.LAUNCHES)
+    got = vk.fused_views_nchw(images, cy, cx, inv, 48)
+    ref = vk.fused_views_nchw_plain(images, cy, cx, inv, 48)
+    name = "view_f32" if dtype == torch.float32 else "view_bf16"
+    assert got.dtype == dtype and vk.LAUNCHES[name] == before[name] + 1
+    (_f32_close if dtype == torch.float32 else _bf16_close)(got, ref)
+
+
+@pytest.mark.parametrize("m,n,k", [(200, 72, 96), (128, 128, 64), (77, 24, 3072), (5, 132, 12)])
+def test_f32_gemm_epilogues(cuda, m, n, k):
+    """Each epilogue vs its plain version: the same f32 sums in another
+    order, within 1e-5 + 1e-5 |ref| + 1e-6 sum_k |a w| (the worst case of
+    K-term f32 sums is K u sum |a w|; 1e-6 is far above the typical)."""
+    from jcf_tpu_torch.ops import f32_gemm as fg
+
+    g = torch.Generator(device=cuda).manual_seed(m + n + k)
+    a = torch.randn(m, k, device=cuda, generator=g)
+    w = torch.randn(n, k, device=cuda, generator=g) * k**-0.5
+    bias = torch.randn(n, device=cuda, generator=g) * 0.1
+    resid = torch.randn(m, n, device=cuda, generator=g)
+    slack = 1e-6 * torch.matmul(a.abs(), w.abs().T)
+    _f32_close(fg.f32_gemm_bias(a, w, bias), fg.f32_gemm_bias_plain(a, w, bias), slack)
+    _f32_close(fg.f32_gemm_residual(a, w, bias, resid),
+               fg.f32_gemm_residual_plain(a, w, bias, resid), slack)
+    _f32_close(fg.f32_gemm_gelu(a, w, bias), fg.f32_gemm_gelu_plain(a, w, bias), slack)
+
+
+def test_ln_affine_and_causal_attention_f32(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    s, h, d, seqs = 77, 8, 64, 9
+    x = torch.randn(seqs * s, h * d, device=cuda, generator=g)
+    scale = 1 + 0.1 * torch.randn(h * d, device=cuda, generator=g)
+    bias = 0.1 * torch.randn(h * d, device=cuda, generator=g)
+    before = dict(bk.LAUNCHES)
+    _f32_close(bk.ln_affine(x, scale, bias), bk.ln_affine_plain(x, scale, bias))
+    qkv = torch.randn(seqs * s, 3 * h * d, device=cuda, generator=g)
+    _f32_close(bk.causal_attention(qkv, s, h), bk.causal_attention_plain(qkv, s, h))
+    assert bk.LAUNCHES["ln_affine_f32"] == before["ln_affine_f32"] + 1
+    assert bk.LAUNCHES["causal_attention_f32"] == before["causal_attention_f32"] + 1
+    assert bk.LAUNCHES["causal_attention"] == before["causal_attention"]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,h", [(50, 12), (56, 4), (82, 12), (127, 2)])
+def test_pair_attention_kernel(cuda, dtype, s, h):
+    """The mask-free attention vs its plain version: f32 within 1e-5 +
+    1e-5 |ref|; bf16 within one ulp + 1e-3 plus 2^-7 sum_j p_j |v_j| / l
+    (how far a p that rounds to bf16 across a tie moves an element)."""
+    g = torch.Generator(device=cuda).manual_seed(s + h)
+    crops, d = 7, 64
+    qkv = (torch.randn(crops * s, 3 * h * d, device=cuda, generator=g) * 0.5).to(dtype)
+    before = dict(bk.LAUNCHES)
+    got = bk.pair_attention(qkv, s, h)
+    ref = bk.pair_attention_plain(qkv, s, h)
+    name = "pair_attention_f32" if dtype == torch.float32 else "pair_attention_bf16"
+    assert got.dtype == dtype and bk.LAUNCHES[name] == before[name] + 1
+    if dtype == torch.float32:
+        _f32_close(got, ref)
+    else:
+        v = qkv.float()[:, 2 * h * d :].abs().to(dtype)
+        slack = 2.0**-7 * bk.pair_attention_plain(torch.cat([qkv[:, : 2 * h * d], v], 1), s, h).float()
+        d_ = (got.float() - ref.float()).abs()
+        tol = 2.0**-7 * got.float().abs().maximum(ref.float().abs()) + 1e-3 + slack
+        assert bool((d_ <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [False, True])
+def test_float_tower_kernels_vs_plain(cuda, dtype, causal):
+    """A 2-layer full-width float tower (ViT-B/32's vision tower at S = 50
+    mask-free, its text tower at 77 causal): the kernels vs the plain
+    versions on the CPU; 7 launches a layer, nothing of K7."""
+    cfg = CLIPConfig(vision_layers=2, text_layers=2)
+    p = init_clip_params(0, cfg)
+    blocks, s, h, e = ((p["text"]["blocks"], 77, 8, 512) if causal
+                       else (p["visual"]["blocks"], 50, 12, 768))
+    from jcf_tpu_torch.ops import f32_gemm as fg
+
+    x = torch.randn(6 * s, e, generator=torch.Generator().manual_seed(1)).to(dtype)
+    ref = bk.run_float_tower(x, blocks, h, s=s, causal=causal)
+    counts = (bk.LAUNCHES, at.LAUNCHES, bg.LAUNCHES, fg.LAUNCHES)
+    before = {k: v for c in counts for k, v in c.items()}
+    got = bk.run_float_tower(x.to(cuda), tree_to(blocks, cuda), h, s=s, causal=causal).cpu()
+    after = {k: v for c in counts for k, v in c.items()}
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert sum(launched.values()) == 2 * 7 and "packed_attention" not in launched
+    cos = torch.nn.functional.cosine_similarity(got.float(), ref.float())
+    assert float(cos.min()) >= (0.99999 if dtype == torch.float32 else 0.999)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_unquantized_engine_on_the_card(cuda, dtype):
+    """A 2-layer unquantized engine: K1 in the compute dtype, the float
+    tower on every row, modes vs the CPU's plain versions (cos >= 0.999);
+    the f32 engine refuses TF32."""
+    from jcf_tpu_torch.infer.engine import TTAEngine
+
+    cfg = CLIPConfig(vision_layers=2)
+    params = init_clip_params(0, cfg)
+    gen = torch.Generator().manual_seed(0)
+    images = torch.rand(3, 3, 256, 256, generator=gen)
+    text = torch.nn.functional.normalize(torch.randn(10, 512, generator=gen), dim=-1)
+    cpu = TTAEngine(params, cfg, device="cpu", quant=None, dtype=dtype, n_views=3)
+    card = TTAEngine(params, cfg, device=cuda, quant=None, dtype=dtype, n_views=3)
+    geo = cpu.sample_geometry(torch.Generator().manual_seed(1), 3, (256, 256))
+    before = dict(vk.LAUNCHES)
+    modes = card.features_from_images(images.to(cuda), text, geometry=geo)
+    name = "view_f32" if dtype == torch.float32 else "view_bf16"
+    assert vk.LAUNCHES[name] == before[name] + 1
+    cos = torch.nn.functional.cosine_similarity(modes.cpu(), cpu.features_from_images(images, text, geometry=geo))
+    assert float(cos.min()) >= 0.999
+    if dtype == torch.float32:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with pytest.raises(RuntimeError, match="allow_tf32"):
+                card.features_from_images(images.to(cuda), text, geometry=geo)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False

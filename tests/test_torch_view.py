@@ -60,7 +60,7 @@ def test_plain_views_int8_match_jax(seed):
     ref = np.asarray(j_fused_views(img_bf, jnp.asarray(cy), jnp.asarray(cx), jnp.asarray(inv),
                                    OUT, interpret=True, quantize=True))
     got = tv.fused_views_nchw(torch.from_numpy(images).bfloat16(), torch.from_numpy(cy),
-                              torch.from_numpy(cx), torch.from_numpy(inv), OUT)
+                              torch.from_numpy(cx), torch.from_numpy(inv), OUT, quantize=True)
     assert got.dtype == torch.int8 and ref.dtype == np.int8
     d = np.abs(got.numpy().astype(np.int32) - ref.astype(np.int32))
     assert d.max() <= 1
