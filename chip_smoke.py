@@ -94,16 +94,18 @@
    engine (``quant=None, dtype=bf16``, ``bench.py``'s ``JCF_BENCH_QUANT=none``)
    at b1024 x 8 views, counted, certified against the f32 engine (top-1
    >= 0.99, top-5 >= 0.97), img/s; under ``_FUSE`` = "block" the bf16
-   engine (1 K1 + 12 K9b with an all-zero bias; cert >= 0.98 / 0.95) and
-   the f32 engine's refusal; the f32 classifier build under
+   engine (1 K1 + 12 K9b with an all-zero bias; cert >= 0.98 / 0.95), K9b
+   at E = 768 against its plain version on the bf16 engine's layer-0
+   rows, and the f32 engine's refusal; the f32 classifier build under
    ``PipelineConfig()`` (counted: the f32 text halves only; against the
    plain f32 tower, row cos >= 0.99999); then each new kernel against its
    plain version: K1's f32 and bf16 views at the serving batch, on layer
    0's input rows of the f32 and bf16 engines' forwards ``ln_affine_f32``,
    the f32 GEMM epilogues (bias, QuickGELU, residual), the mask-free
    attention in f32 and bf16 (SDPA on the head views as the library
-   yardstick, ``matmul`` without TF32 for the GEMMs, ``F.layer_norm``) and
-   the composed halves, and at 512 prompts x 77 tokens the f32 text pieces,
+   yardstick, ``matmul`` without TF32 for the GEMMs, ``F.layer_norm``),
+   the bf16 c_fc and c_proj epilogues at the vision width and the
+   composed halves in both dtypes, and at 512 prompts x 77 tokens the f32 text pieces,
    ``causal_attention_f32`` (SDPA ``is_causal``) and the 12-layer f32
    text tower.
 
@@ -123,6 +125,7 @@ and the card's name and power limit. The last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -621,9 +624,9 @@ def text_kernel_phase(text, cfg, ids):
                    lambda: bk.mlp_half(mid, layer),
                    lambda: text_half_plain(mid, layer, s, heads, "mlp"))
     check_composed(f"text tower ({cfg.text_layers} layers)",
-                   bk.run_text_tower(x, text["blocks"], heads, s=s),
+                   bk.run_float_tower(x, text["blocks"], heads, s=s, causal=True),
                    text_tower_plain(x, text["blocks"], heads, s),
-                   lambda: bk.run_text_tower(x, text["blocks"], heads, s=s),
+                   lambda: bk.run_float_tower(x, text["blocks"], heads, s=s, causal=True),
                    lambda: text_tower_plain(x, text["blocks"], heads, s))
     return ph.results
 
@@ -1866,6 +1869,12 @@ FLOAT_ITERS = 2  # timed calls of the unquantized engines
 PLAIN_K7_CERT = (0.9980, 0.9828, 0.999133)
 
 
+def views_preset(pc, n_random: int):
+    """``pc`` with ``n_random`` random views per image (the center view is
+    added): the serving cells' 8 views, not the preset's own count."""
+    return dataclasses.replace(pc, tta=dataclasses.replace(pc.tta, n_views=n_random))
+
+
 def float_launches(kind: str, n_layers: int, calls: int = 1, view: bool = True) -> dict:
     """The launches of ``calls`` unquantized tower forwards (and K1 once,
     with ``view``)."""
@@ -1942,12 +1951,14 @@ def float_kernel_phase(rows_f32, rows_bf16, text, cfg, ids, images, geometry):
     """Phase 11a: each new kernel against its plain version at the paths'
     shapes: K1's bf16 and f32 views at the serving batch; on layer 0's
     input rows of the f32 and bf16 engines' forwards the f32 LN, the three
-    f32 GEMM epilogues, the mask-free attention in f32 and bf16, and the
-    composed halves; on 512 prompts x 77 tokens the f32 text pieces, the
+    f32 GEMM epilogues, the mask-free attention in f32 and bf16, the bf16
+    c_fc and c_proj epilogues at the vision width, and the composed halves
+    in both dtypes; on 512 prompts x 77 tokens the f32 text pieces, the
     causal f32 attention and the 12-layer f32 text tower -> results."""
     import torch
     import torch.nn.functional as F
 
+    from jcf_tpu_torch.ops import bf16_gemm as bg
     from jcf_tpu_torch.ops import block_kernel as bk
     from jcf_tpu_torch.ops import f32_gemm as fg
     from jcf_tpu_torch.ops import view_kernel as vk
@@ -2050,8 +2061,35 @@ def float_kernel_phase(rows_f32, rows_bf16, text, cfg, ids, images, geometry):
     del q, k, v, qkv_b, slack
     kern = lambda t: bk.attn_half(t, layer_b, s, heads, causal=False)
     plain = plain_float_version(kern)
-    check_composed("K6a mask-free attention half (bf16)", kern(xb), plain(xb), lambda: kern(xb),
+    midb = kern(xb)
+    check_composed("K6a mask-free attention half (bf16)", midb, plain(xb), lambda: kern(xb),
                    lambda: plain(xb))
+    # its MLP half at the vision width: c_fc 768 -> 3072, c_proj 3072 -> 768
+    l2b, mb = layer_b["ln_2"], layer_b["mlp"]
+    h2b = bk.ln_affine(midb, l2b["scale"], l2b["bias"])
+    wfb, bfb = mb["c_fc"]["w"], mb["c_fc"]["b"].float()
+    hidb = ph.run("bf16_gemm_gelu (vision)",
+                  lambda: bg.bf16_gemm_gelu(h2b, wfb, bfb),
+                  lambda: bg.bf16_gemm_gelu_plain(h2b, wfb, bfb),
+                  check_bf16,
+                  gemm_work(h2b, wfb, 2, PEAK_BF16, bfb),
+                  lambda: torch.matmul(h2b, wfb.T))
+    del h2b
+    torch.cuda.empty_cache()
+    wpb, bpb = mb["c_proj"]["w"], mb["c_proj"]["b"].float()
+    ph.run("bf16_gemm_residual (vision)",
+           lambda: bg.bf16_gemm_residual(hidb, wpb, bpb, midb),
+           lambda: bg.bf16_gemm_residual_plain(hidb, wpb, bpb, midb),
+           check_bf16,
+           gemm_work(hidb, wpb, 2, PEAK_BF16, midb, bpb),
+           lambda: torch.matmul(hidb, wpb.T))
+    del hidb
+    torch.cuda.empty_cache()
+    kern = lambda t: bk.mlp_half(t, layer_b)
+    plain = plain_float_version(kern)
+    check_composed("K6b MLP half (bf16)", kern(midb), plain(midb), lambda: kern(midb),
+                   lambda: plain(midb))
+    del midb
     torch.cuda.empty_cache()
 
     # the f32 text tower at 512 prompts x 77 tokens
@@ -2084,9 +2122,9 @@ def float_kernel_phase(rows_f32, rows_bf16, text, cfg, ids, images, geometry):
            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
     del q, k, v, qkv_t, ht
     check_composed(f"f32 text tower ({cfg.text_layers} layers)",
-                   bk.run_text_tower(xt, text["blocks"], th, s=st),
+                   bk.run_float_tower(xt, text["blocks"], th, s=st, causal=True),
                    text_tower_plain(xt, text["blocks"], th, st),
-                   lambda: bk.run_text_tower(xt, text["blocks"], th, s=st),
+                   lambda: bk.run_float_tower(xt, text["blocks"], th, s=st, causal=True),
                    lambda: text_tower_plain(xt, text["blocks"], th, st))
     return ph.results
 
@@ -2144,14 +2182,16 @@ def float_engine_phase(params, ref, modes_f, images, geometry, text, counters, s
     plain-version f32 route, img/s; its ``features_from_crops`` at 8 x 513
     crops, counted, against the plain route, crops/s; the bf16 parity
     engine at b1024 x 8 views, counted, certified against the f32 engine,
-    img/s; the ``_FUSE`` = "block" routes -> (bf16 launches, bf16 layer-0
-    call, block launches)."""
+    img/s; the ``_FUSE`` = "block" routes, and K9b against its plain
+    version on the bf16 engine's layer-0 rows -> (bf16 launches, bf16
+    layer-0 call, results)."""
     import torch
 
-    from jcf_tpu_torch.infer.engine import TTAEngine
+    from jcf_tpu_torch.config import reference_preset
     from jcf_tpu_torch.models.clip import CLIP_MEAN, CLIP_STD, VIT_B_32
     from jcf_tpu_torch.ops import block_kernel as bk
     from jcf_tpu_torch.ops import view_kernel as vk
+    from jcf_tpu_torch.pipelines.common import build_engine
 
     cfg = VIT_B_32
     dim = cfg.embed_dim
@@ -2202,7 +2242,12 @@ def float_engine_phase(params, ref, modes_f, images, geometry, text, counters, s
     torch.cuda.empty_cache()
 
     log(f"phase 11e: the bf16 parity engine (quant=None, bf16), b{BATCH} x {VIEWS} views")
-    eb = TTAEngine(params, cfg, device=dev, n_views=VIEWS - 1, quant=None, dtype=torch.bfloat16)
+    # bench.py's JCF_BENCH_QUANT=none: the reference preset in bf16
+    pc = reference_preset()
+    pc = dataclasses.replace(pc, runtime=dataclasses.replace(pc.runtime, compute_dtype="bfloat16"))
+    eb = build_engine(params, cfg, views_preset(pc, VIEWS - 1), device=dev)
+    if (eb.quant, eb.dtype) != (None, torch.bfloat16):
+        raise AssertionError(f"the parity config built a {eb.quant} {eb.dtype} engine")
     calls = []
     with recorded(bk, "attn_half", calls, 1):
         modes_b, launches_b = count_forward(
@@ -2223,6 +2268,7 @@ def float_engine_phase(params, ref, modes_f, images, geometry, text, counters, s
                   "img", smi, "bf16 parity engine")
 
     log("phase 11f: the unquantized engines under _FUSE = 'block'")
+    ph = Phase()
     bk._FUSE = "block"
     try:
         modes_k, launches_k = count_forward(
@@ -2238,6 +2284,20 @@ def float_engine_phase(params, ref, modes_f, images, geometry, text, counters, s
             f"(gates: >= 0.98, >= 0.95)")
         if top1 < 0.98 or overlap < 0.95:
             raise AssertionError("the bf16 'block' route fails the ranking certificate")
+        # K9b at E = 768 (its global-scratch branch) on layer 0's bf16 rows,
+        # with the all-zero bias the vision tower gives it
+        xb, layer_b = calls[0][0], calls[0][1]
+        e, s, heads = cfg.vision_width, cfg.vision_seq_len, cfg.vision_heads
+        hidden = layer_b["mlp"]["c_fc"]["w"].shape[0]
+        zeros = torch.zeros((s, s), dtype=torch.float32, device=dev)
+        n_seq = xb.shape[0] // s
+        # bf16 weights, f32 biases (qkv, out-proj, c_fc, c_proj), bf16 LN scales and biases
+        w_bytes = 2 * e * (4 * e + 2 * hidden) + 4 * (5 * e + hidden) + 8 * e
+        ph.run("block_bf16 (vision)", lambda: bk.block_bf16(xb, layer_b, s, heads, zeros),
+               lambda: bk.block_bf16_plain(xb, layer_b, s, heads, zeros), check_layer,
+               layer_work(xb.shape[0], e, hidden, heads, n_seq * s * s,
+                          2 * nbytes(xb) + w_bytes + nbytes(zeros), PEAK_BF16), reps=3)
+        del xb, zeros
         try:
             ref.features_from_images(images[:8], text, geometry=tuple(t[:8] for t in geometry))
         except NotImplementedError as exc:
@@ -2248,7 +2308,7 @@ def float_engine_phase(params, ref, modes_f, images, geometry, text, counters, s
         bk._FUSE = "halves"
     del eb, modes_b, modes_k
     torch.cuda.empty_cache()
-    return launches_b, calls[0], launches_k
+    return launches_b, calls[0], ph.results
 
 
 def main() -> int:
@@ -2260,6 +2320,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from jcf_tpu_torch import _build
+    from jcf_tpu_torch.config import reference_preset
     from jcf_tpu_torch.infer.engine import TTAEngine
     from jcf_tpu_torch.models.clip import VIT_B_32, init_clip_params, tree_to
     from jcf_tpu_torch.ops import (
@@ -2271,6 +2332,7 @@ def main() -> int:
         int8_gemm,
         view_kernel,
     )
+    from jcf_tpu_torch.pipelines.common import build_engine
 
     counters = [m.LAUNCHES for m in (view_kernel, int8_gemm, assemble_kernel, block_kernel,
                                      bf16_gemm, f32_gemm, attention)]
@@ -2333,7 +2395,7 @@ def main() -> int:
     # tower: 7 launches a layer, no K7), counted; phase 11 holds it against
     # its plain-version route
     t0 = time.perf_counter()
-    ref = TTAEngine(params, cfg, device=dev, n_views=n_random, quant=None)
+    ref = build_engine(params, cfg, views_preset(reference_preset(), n_random), device=dev)
     rows_f32 = []
     with recorded(block_kernel, "attn_half", rows_f32, 1):
         modes_f, launches_f32 = count_forward(
@@ -2404,8 +2466,9 @@ def main() -> int:
 
     # phase 11: the unquantized towers (the f32 engine of phase 7, the
     # bf16 parity engine, the f32 classifier build)
-    launches_bf16, rows_bf16, _ = float_engine_phase(params, ref, modes_f, images, geometry, text,
-                                                     counters, smi, dev)
+    launches_bf16, rows_bf16, results_block = float_engine_phase(params, ref, modes_f, images,
+                                                                 geometry, text, counters, smi, dev)
+    results.update(results_block)
     launches_cls_f32, ids = float_classifier_phase(params, cfg, dev, counters)
     text_f32 = tree_to(params["text"], dev)
     results.update(float_kernel_phase(rows_f32[0], rows_bf16, text_f32, cfg, ids, images, geometry))

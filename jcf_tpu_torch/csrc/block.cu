@@ -182,10 +182,10 @@ __global__ void __launch_bounds__(ATT_WARPS * 32) attention_kernel(
   }
   __syncthreads();
   typedef typename std::conditional<F32_OUT, float, int8_t>::type O;
-  pair_attention_rows_t<KB, bf16, O>(q_s, D2, nullptr, kt_s, v_s, p_s, S, D, 1.0f, shift, 0.0f,
-                                     F32_OUT ? 0.0f : *ctx_inv,
-                                     static_cast<O*>(out) + crop * S * E + pair * D2, E,
-                                     ATT_WARPS);
+  pair_attention_rows_t<KB, bf16, O, false>(q_s, D2, nullptr, kt_s, v_s, p_s, S, D, 1.0f, shift,
+                                            0.0f, F32_OUT ? 0.0f : *ctx_inv,
+                                            static_cast<O*>(out) + crop * S * E + pair * D2, E,
+                                            ATT_WARPS);
 }
 
 // ---------------------------------------------------------------------------

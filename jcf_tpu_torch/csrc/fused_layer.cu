@@ -599,6 +599,12 @@ __device__ __forceinline__ void head_attention_rows(const bf16* q_s, const bf16*
 
 // One block per sequence of S rows: x + attention(LN1 x) -> f32 mid (in
 // mid32), then mid + c_proj(QuickGELU(c_fc(LN2 mid))) -> bf16 out.
+// GLOBAL_CTX (ctx and the hidden in the global scratch) is a template
+// parameter so that each instance knows which pointers address shared
+// memory: chosen at run time, q, k^T, v, p and ctx took generic loads and
+// stores, 7.6% slower at 512 x 77 (profile_attention.py, H100 80GB HBM3,
+// 700 W).
+template <bool GLOBAL_CTX>
 __global__ void __launch_bounds__(THREADS, 1) block_bf16_kernel(
     const bf16* x, bf16* out, float* mid32, bf16* scratch, long long scratch_elems, LayerBf16 w,
     const float* bias, int S, int H, int F, float scale) {
@@ -608,8 +614,8 @@ __global__ void __launch_bounds__(THREADS, 1) block_bf16_kernel(
   // [80, lda]: the LN1, then the LN2 rows
   bf16* hs = reinterpret_cast<bf16*>(smem + BF16_STAGES * RING_STAGE);
   // [80, lda]: in shared memory, or this sequence's part of the scratch
-  bf16* ctx = scratch != nullptr ? scratch + blockIdx.x * scratch_elems : hs + SEQ_ROWS * lda;
-  bf16* q_s = scratch != nullptr ? hs + SEQ_ROWS * lda : ctx + SEQ_ROWS * lda;  // [S, 64]
+  bf16* ctx = GLOBAL_CTX ? scratch + blockIdx.x * scratch_elems : hs + SEQ_ROWS * lda;
+  bf16* q_s = GLOBAL_CTX ? hs + SEQ_ROWS * lda : ctx + SEQ_ROWS * lda;  // [S, 64]
   bf16* kt_s = q_s + S * 64;                              // [64, S]
   bf16* v_s = kt_s + 64 * S;                              // [S, 64]
   float* p_s = reinterpret_cast<float*>(v_s + S * 64);    // [8, S]
@@ -777,7 +783,8 @@ extern "C" int jcf_block_bf16(const void* x, void* out, void* mid32, void* scrat
       (scratch == nullptr) != (bf16_scratch(S, E, F) == 0))
     return (int)cudaErrorInvalidValue;
   const size_t smem = bf16_smem(S, E, F, scratch != nullptr);
-  const int err = set_smem(block_bf16_kernel, smem);
+  const auto kernel = scratch != nullptr ? block_bf16_kernel<true> : block_bf16_kernel<false>;
+  const int err = set_smem(kernel, smem);
   if (err) return err;
   const LayerBf16 w{static_cast<const bf16*>(ln1_s),  static_cast<const bf16*>(ln1_b),
                     static_cast<const bf16*>(ln2_s),  static_cast<const bf16*>(ln2_b),
@@ -785,7 +792,7 @@ extern "C" int jcf_block_bf16(const void* x, void* out, void* mid32, void* scrat
                     static_cast<const bf16*>(w_fc),   static_cast<const bf16*>(w_proj),
                     static_cast<const float*>(b_qkv), static_cast<const float*>(b_out),
                     static_cast<const float*>(b_fc),  static_cast<const float*>(b_proj)};
-  block_bf16_kernel<<<n_seq, THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<n_seq, THREADS, smem, (cudaStream_t)stream>>>(
       static_cast<const bf16*>(x), static_cast<bf16*>(out), static_cast<float*>(mid32),
       static_cast<bf16*>(scratch), (long long)bf16_scratch(S, E, F), w,
       static_cast<const float*>(bias), S, H, F, scale);

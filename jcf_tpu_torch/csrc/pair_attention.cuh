@@ -5,7 +5,7 @@
 //
 // For each query row i and head h of the pair (lo, hi), with T the
 // element type of q, k, v and p (bf16, or f32):
-//   s      = (q . k) * scale                (T inputs, f32 sums; scale 1 on
+//   s      = (q . k) [* scale]              (T inputs, f32 sums; no scale on
 //                                            the folded tree, whose q carries
 //                                            1/sqrt(d), else 1/sqrt(d) after
 //                                            the sum, JAX's order)
@@ -48,8 +48,12 @@ __device__ __forceinline__ void store_ctx(bf16* o, float acc, float l, float) {
 // memory), kt_s [2D, S] and v_s [S, 2D] in shared memory, p_s [n_warps,
 // 2, S] f32 scratch; shift null for the pair max, else the layer's scalar
 // shift; row i's 2D outputs go to out + i * out_stride (cinv read for the
-// int8 context only).
-template <int KB, typename T, typename O>
+// int8 context only). SCALED multiplies the sums by scale (the unfolded
+// tree); it is a template parameter because nvcc keeps a __fmul_rn by a
+// literal 1 (K3 at S = 82 +4.8%) and a run-time test of scale cost the
+// f32 pair attention 18% (H100 80GB HBM3, 700 W; profile_attention.py,
+// chip_smoke.py).
+template <int KB, typename T, typename O, bool SCALED>
 __device__ __forceinline__ void pair_attention_rows_t(const T* q, long long q_stride, T* q_w,
                                                       const T* kt_s, const T* v_s, float* p_s,
                                                       int S, int D, float scale,
@@ -78,7 +82,7 @@ __device__ __forceinline__ void pair_attention_rows_t(const T* q, long long q_st
           acc = 0.0f;
           for (int d = 0; d < D; ++d)
             acc = fmaf(to_f(qi[h * D + d]), to_f(kt_s[(h * D + d) * S + j]), acc);
-          acc = __fmul_rn(acc, scale);
+          if (SCALED) acc = __fmul_rn(acc, scale);
         }
         s[h][kb] = acc;
       }
@@ -125,6 +129,6 @@ __device__ __forceinline__ void pair_attention_rows(const bf16* q_s, const bf16*
                                                     const bf16* v_s, float* p_s, int S, int D,
                                                     float cinv, int8_t* out, long long out_stride,
                                                     int n_warps) {
-  pair_attention_rows_t<2, bf16, int8_t>(q_s, 2 * D, nullptr, kt_s, v_s, p_s, S, D, 1.0f,
-                                         nullptr, 0.0f, cinv, out, out_stride, n_warps);
+  pair_attention_rows_t<2, bf16, int8_t, false>(q_s, 2 * D, nullptr, kt_s, v_s, p_s, S, D, 1.0f,
+                                                nullptr, 0.0f, cinv, out, out_stride, n_warps);
 }

@@ -194,8 +194,9 @@ __global__ void __launch_bounds__(PA_WARPS * 32) pair_attention_kernel(
     v_s[idx] = r[2 * E];
   }
   __syncthreads();
-  pair_attention_rows_t<KB, T, T>(base, 3 * E, q_w, kt_s, v_s, p_s, S, D, scale, nullptr, m_floor,
-                                  0.0f, out + crop * S * E + pair * D2, E, PA_WARPS);
+  pair_attention_rows_t<KB, T, T, true>(base, 3 * E, q_w, kt_s, v_s, p_s, S, D, scale, nullptr,
+                                        m_floor, 0.0f, out + crop * S * E + pair * D2, E,
+                                        PA_WARPS);
 }
 
 template <typename T>

@@ -63,7 +63,7 @@ as the reference's ``_CLS_ATTNQ = True`` route: K5, then the MLP half on
 the CLS rows, for S <= 64; from 65 tokens on K3 on all rows, then K4 on
 the CLS rows. Under "stream" one K9c runs all layers on all rows.
 ``run_float_tower`` is its route without a quant tree, bf16 or f32,
-causal (``encode_text``, ``run_text_tower``) or mask-free (the float
+causal (``encode_text``) or mask-free (the float
 vision towers): the halves (K6a, K6b), or K9b per layer under "block"
 (bf16 only). The knobs are read at call time. The unfolded tree and the masked (``use_mask=True``) attention of
 the int8 kernels are not ported (ROADMAP.md).
@@ -958,8 +958,3 @@ def run_float_tower(x: torch.Tensor, blocks: dict, n_heads: int, *, s: int,
         else:
             x = mlp_half(attn_half(x, layer, s, n_heads, causal=causal), layer)
     return x
-
-
-def run_text_tower(x: torch.Tensor, blocks: dict, n_heads: int, *, s: int) -> torch.Tensor:
-    """The causal route of ``run_float_tower`` (every ``encode_text``)."""
-    return run_float_tower(x, blocks, n_heads, s=s, causal=True)

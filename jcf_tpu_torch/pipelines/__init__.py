@@ -1,6 +1,7 @@
 """Pipeline plumbing of the port (``jcf_tpu/pipelines``)."""
 
 from jcf_tpu_torch.pipelines.common import (
+    build_engine,
     build_text_weights,
     ensure_templates,
     load_model_for_pipeline,
@@ -8,5 +9,5 @@ from jcf_tpu_torch.pipelines.common import (
 )
 from jcf_tpu_torch.pipelines.train_lora import lora_spec_from_config, tokenize_banks
 
-__all__ = ["build_text_weights", "ensure_templates", "load_model_for_pipeline",
+__all__ = ["build_engine", "build_text_weights", "ensure_templates", "load_model_for_pipeline",
            "lora_spec_from_config", "stack_center_and_crops", "tokenize_banks"]

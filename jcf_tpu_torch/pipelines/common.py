@@ -1,6 +1,7 @@
 """Shared pipeline plumbing (``jcf_tpu/pipelines/common.py``): model
-loading, the class templates, the zero-shot text classifier with its disk
-cache, and the crop-cloud stacking of the parity path."""
+loading, the TTA engine of a configuration, the class templates, the
+zero-shot text classifier with its disk cache, and the crop-cloud
+stacking of the parity path."""
 
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 
 from jcf_tpu_torch.config import PipelineConfig
 from jcf_tpu_torch.data import load_class_templates, synthesize_templates
+from jcf_tpu_torch.infer.engine import TTAEngine
 from jcf_tpu_torch.models.clip import CLIPConfig
 from jcf_tpu_torch.models.loader import load_clip
 from jcf_tpu_torch.tta.classifier import build_classifier_weights
@@ -27,6 +29,26 @@ def compute_dtype(cfg: PipelineConfig) -> torch.dtype:
     """bf16 for ``compute_dtype="bfloat16"`` (the perf preset), else f32
     (the default, the reference preset)."""
     return torch.bfloat16 if cfg.runtime.compute_dtype == "bfloat16" else torch.float32
+
+
+def build_engine(params: dict, mcfg: CLIPConfig, cfg: PipelineConfig, first_batch=None, *,
+                 device="cuda") -> TTAEngine:
+    """The TTA engine of ``cfg``, as ``jcf_tpu/pipelines/ood.py:47-61``
+    builds it: the compute dtype, ``tta.n_views`` random views (the center
+    view is added) over ``tta.crop_scale``, ``runtime.quant`` and
+    ``runtime.static_quant_mode``. With ``runtime.static_quant`` on the
+    device-crop path (``tta.device_crops``) the int8 engine calibrates its
+    static activation scales on ``first_batch``, the first decoded batch of
+    source images, and raises without it; elsewhere the batch is not read
+    and the int8 engine keeps dynamic scales."""
+    calibrate = cfg.runtime.static_quant and cfg.tta.device_crops
+    if calibrate and first_batch is None:
+        raise ValueError("runtime.static_quant on the device-crop path calibrates on the first "
+                         "decoded batch: pass it as first_batch")
+    return TTAEngine(params, mcfg, device=device, n_views=cfg.tta.n_views,
+                     crop_scale=cfg.tta.crop_scale, quant=cfg.runtime.quant,
+                     dtype=compute_dtype(cfg), calibration_images=first_batch if calibrate else None,
+                     static_quant_mode=cfg.runtime.static_quant_mode)
 
 
 def load_model_for_pipeline(cfg: PipelineConfig, prompted: bool = False):

@@ -512,6 +512,33 @@ def test_presets_match_jax(make):
                 (section, f.name)
 
 
+@pytest.mark.parametrize("make", ["reference_preset", "perf_preset", "perf_preset_host_crops"])
+def test_build_engine_reads_the_config(make):
+    """``build_engine`` builds the engine ``jcf_tpu/pipelines/ood.py:47-61``
+    builds from the same config: the reference preset's f32 unquantized
+    engine; the perf preset's int8 engine with static "full" scales
+    calibrated on the first batch (and a refusal without it); static_quant
+    off the device-crop path keeps dynamic scales."""
+    pc = tconfig.reference_preset() if make == "reference_preset" else tconfig.perf_preset()
+    if make == "perf_preset_host_crops":
+        pc = dataclasses.replace(pc, tta=dataclasses.replace(pc.tta, device_crops=False))
+    params = tclip.init_clip_params(0, tclip.CLIPConfig(**SMALL))
+    batch = torch.from_numpy(_engine_inputs(13)[0])
+    engine = tcommon.build_engine(params, tclip.CLIPConfig(**SMALL), pc, batch, device="cpu")
+    assert (engine.quant, engine.n_views, engine.crop_scale) == (
+        pc.runtime.quant, pc.tta.n_views, pc.tta.crop_scale)
+    assert engine.dtype == tcommon.compute_dtype(pc)
+    if make == "reference_preset":
+        assert (engine.quant, engine.dtype, engine.n_views) == (None, torch.float32, 512)
+        return
+    static = make == "perf_preset"
+    assert all((k in engine._quant[part]) == static
+               for part, k in (("attn", "ln_inv"), ("attn", "ctx_inv"), ("mlp", "h_inv")))
+    if static:
+        with pytest.raises(ValueError, match="first_batch"):
+            tcommon.build_engine(params, tclip.CLIPConfig(**SMALL), pc, device="cpu")
+
+
 def test_load_model_for_pipeline_matches_jax(tmp_path):
     """A checkpoint through ``load_model_for_pipeline``, plain and with
     ``prompted`` (4 fresh visual prompt tokens drawn as JAX draws them)."""

@@ -2,7 +2,7 @@
 of the port: the plain versions of ``block_int8`` (K9a),
 ``layer_fused_int8`` (K9d), ``stream_tower_int8`` (K9c) and
 ``block_bf16`` (K9b), per layer and through ``run_fused_tower`` /
-``run_text_tower``, vs the JAX kernels in interpret mode with the same
+``run_float_tower(causal=True)``, vs the JAX kernels in interpret mode with the same
 ``_FUSE`` and chunk knobs set on both packages.
 
 The int8 layers take the folded static "full" tree, dense rows and
@@ -152,7 +152,7 @@ def test_plain_text_tower_block_matches_jax(knobs, seed):
     x = txt._rows(seed)
     ref = jbk.run_fused_tower(txt._to_jax(x).reshape(txt.B, txt.S, txt.E), jp["text"]["blocks"],
                               txt.H, causal_mask(txt.S), interpret=True)
-    got = tbk.run_text_tower(x, blocks, txt.H, s=txt.S)
+    got = tbk.run_float_tower(x, blocks, txt.H, s=txt.S, causal=True)
     assert got.shape == x.shape and got.dtype == torch.bfloat16
     txt._close(got.float().numpy(), _np32(ref).reshape(txt.B * txt.S, txt.E))
 
@@ -169,14 +169,14 @@ def test_text_tower_keeps_halves(knobs, monkeypatch, fuse):
         return _np32(jbk.run_fused_tower(xj, jp["text"]["blocks"], txt.H, causal_mask(txt.S),
                                          interpret=True))
 
-    ref_halves, halves = jax_tower(), tbk.run_text_tower(x, blocks, txt.H, s=txt.S)
+    ref_halves, halves = jax_tower(), tbk.run_float_tower(x, blocks, txt.H, s=txt.S, causal=True)
     knobs(fuse)
 
     def no_k9b(*args):
         raise AssertionError("K9b ran outside _FUSE = 'block'")
 
     monkeypatch.setattr(tbk, "block_bf16", no_k9b)
-    got, ref = tbk.run_text_tower(x, blocks, txt.H, s=txt.S), jax_tower()
+    got, ref = tbk.run_float_tower(x, blocks, txt.H, s=txt.S, causal=True), jax_tower()
     assert torch.equal(got, halves)
     np.testing.assert_array_equal(ref, ref_halves)
     txt._close(got.float().numpy(), ref.reshape(txt.B * txt.S, txt.E))
@@ -190,7 +190,7 @@ def test_bad_fuse_value_raises(monkeypatch, fuse):
         tbk.run_fused_tower(vis._rows(0), tq, H, flat_s=S)
     _, blocks = _text(0)
     with pytest.raises(ValueError, match="_FUSE"):
-        tbk.run_text_tower(txt._rows(0), blocks, txt.H, s=txt.S)
+        tbk.run_float_tower(txt._rows(0), blocks, txt.H, s=txt.S, causal=True)
 
 
 def test_quant_flags_of_the_trees():

@@ -137,8 +137,8 @@ def test_text_tower_kernels_vs_plain(cuda):
     kernel route vs the same tower run from the plain versions on the CPU."""
     params = init_clip_params(0, CLIPConfig(text_layers=2))["text"]["blocks"]
     x = torch.randn(6 * 77, 512, generator=torch.Generator().manual_seed(0)).bfloat16()
-    ref = bk.run_text_tower(x, params, 8, s=77)
-    got = bk.run_text_tower(x.to(cuda), tree_to(params, cuda), 8, s=77).cpu()
+    ref = bk.run_float_tower(x, params, 8, s=77, causal=True)
+    got = bk.run_float_tower(x.to(cuda), tree_to(params, cuda), 8, s=77, causal=True).cpu()
     cos = torch.nn.functional.cosine_similarity(got.float(), ref.float())
     assert float(cos.min()) >= 0.999
 
@@ -429,9 +429,9 @@ def test_fused_routes_launch_the_kernels(cuda, monkeypatch):
     blocks = init_clip_params(0, cfg)["text"]["blocks"]
     xt = torch.randn(3 * 77, 128, generator=torch.Generator().manual_seed(2)).bfloat16()
     monkeypatch.setattr(bk, "_FUSE", "block")
-    ref = bk.run_text_tower(xt, blocks, 2, s=77)
+    ref = bk.run_float_tower(xt, blocks, 2, s=77, causal=True)
     before, before_g = dict(bk.LAUNCHES), dict(bg.LAUNCHES)
-    got = bk.run_text_tower(xt.to(cuda), tree_to(blocks, cuda), 2, s=77)
+    got = bk.run_float_tower(xt.to(cuda), tree_to(blocks, cuda), 2, s=77, causal=True)
     assert bk.LAUNCHES["block_bf16"] - before["block_bf16"] == 2 and bg.LAUNCHES == before_g
     assert all(bk.LAUNCHES[k] == before[k] for k in ("ln_affine", "causal_attention"))
     _rows_close(got.cpu(), ref)

@@ -213,7 +213,7 @@ def test_plain_text_tower_matches_jax(seed):
     x = _rows(seed)
     ref = jbk.run_fused_tower(_to_jax(x).reshape(B, S, E), jp["text"]["blocks"], H,
                               causal_mask(S), interpret=True)
-    got = tbk.run_text_tower(x, tclip.params_from_numpy(jp)["text"]["blocks"], H, s=S)
+    got = tbk.run_float_tower(x, tclip.params_from_numpy(jp)["text"]["blocks"], H, s=S, causal=True)
     assert got.shape == (B * S, E) and got.dtype == torch.bfloat16
     _close(got.float().numpy(), _np(ref).reshape(B * S, E))
 
