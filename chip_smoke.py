@@ -108,6 +108,26 @@
    composed halves in both dtypes, and at 512 prompts x 77 tokens the f32 text pieces,
    ``causal_attention_f32`` (SDPA ``is_causal``) and the 12-layer f32
    text tower.
+12. (after 11) the masked and unfolded int8 halves: 12a each new kernel
+   against its plain version at the paths' shapes (on layer 0's input
+   rows of the int8 text tower, 512 prompts x 77 tokens in f32: the LN +
+   affine + row quant, the causal masked attention with SDPA
+   ``is_causal`` as yardstick, the f32 residual epilogues; on the
+   unfolded vision tower's input rows at 8192 crops: the bf16 LN + affine
+   + row quant, K3's and K5's attention with the score scale; the
+   composed halves); 12b the int8 classifier build
+   (``quant=quantize_clip_params(params)["text"]``) at 403 x 8 prompts in
+   f32 and bf16, counted against ``int8_text_launches``, against the same
+   build on the plain versions (rows cos >= 0.9999 in f32, 0.999 in bf16)
+   and the f32
+   classifier of 11b (rows cos > 0.99, the JAX certificate), the ranking
+   of phase 7's f32 modes under both printed, seconds; 12c the unfolded
+   int8 ViT-B/32 tower at 8192 crops, all rows and the CLS rows, counted,
+   against its plain route (row cos >= 0.999) and the bf16 float tower
+   (mean row cos > 0.995), ms per tower; 12d a 3-head and a 64-token
+   tower at small width, int8 and bf16, counted, against their plain
+   routes, and the float halves' per-head attention (``head_attention``)
+   against its plain version on the 3-head tower's layer-0 qkv.
 
 Every weight and input is made from seed 0 (the LoRA factors from seed
 1, as ``scripts/bench_train.py``). Exits nonzero, without the
@@ -239,6 +259,23 @@ KERNELS = {
                           "jcf_tpu/ops/block_kernel.py:704"),
     "causal_attention_f32": ("classifier_f32", "jcf_tpu_torch/csrc/text_block.cu",
                              "jcf_tpu/ops/block_kernel.py:464"),
+    # the masked and unfolded int8 halves, phase 12: the int8 text tower
+    # (the classifier build in f32) and the unfolded vision tower
+    "ln_affine_quant_rows_f32": ("classifier_int8_f32", "jcf_tpu_torch/csrc/block.cu",
+                                 "jcf_tpu/ops/block_kernel.py:565"),
+    "masked_attention_f32": ("classifier_int8_f32", "jcf_tpu_torch/csrc/text_block.cu",
+                             "jcf_tpu/ops/block_kernel.py:464"),
+    "int8_gemm_residual_f32_rows": ("classifier_int8_f32", "jcf_tpu_torch/csrc/int8_gemm.cu",
+                                    "jcf_tpu/ops/block_kernel.py:643"),
+    "ln_affine_quant_rows": ("tower_unfolded", "jcf_tpu_torch/csrc/block.cu",
+                             "jcf_tpu/ops/block_kernel.py:565"),
+    "attention_scaled_f32": ("tower_unfolded", "jcf_tpu_torch/csrc/block.cu",
+                             "jcf_tpu/ops/block_kernel.py:322"),
+    "cls_attention_scaled_f32": ("tower_unfolded", "jcf_tpu_torch/csrc/block.cu",
+                                 "jcf_tpu/ops/block_kernel.py:1508"),
+    # K6a's per-head masked route (an odd head count without a mask), 12d
+    "head_attention": ("tower_odd_heads_bf16", "jcf_tpu_torch/csrc/text_block.cu",
+                       "jcf_tpu/ops/block_kernel.py:528"),
 }
 
 
@@ -709,7 +746,7 @@ def classifier_phase(params, cfg, dev, counters):
     if tuple(built.shape) != (N_CLASSES, cfg.embed_dim) or not bool(built.float().isfinite().all()):
         raise AssertionError(f"bad classifier: shape {tuple(built.shape)}")
     norm_err = float((built.float().norm(dim=-1) - 1).abs().max())
-    emb_k = l2_normalize(encode_text(tparams, cfg, ids, device=dev))
+    emb_k = l2_normalize(encode_text(tparams, cfg, ids, device=dev, dtype=torch.bfloat16))
     emb_p = l2_normalize(encode_text_plain(text, cfg, ids))
     cos_emb = float(cosine_rows(emb_k, emb_p).min())
     n_c = TEXT_BATCH // n_t
@@ -1442,7 +1479,8 @@ def mode_launches(mode: str, n_layers: int, s: int) -> dict:
 def plain_halves():
     """Routes the int8 halves (K3, K4, K5) of ``ops.block_kernel`` through
     the plain versions of their kernels for the block: the composed
-    reference of a half in any quantization mode."""
+    reference of a half in any quantization mode, folded or unfolded,
+    masked or not."""
     from jcf_tpu_torch.ops import block_kernel as bk
     from jcf_tpu_torch.ops import int8_gemm as ig
 
@@ -1450,8 +1488,10 @@ def plain_halves():
         "ln_quant": bk.ln_quant_plain,
         "ln_quant_rows": bk.ln_quant_rows_plain,
         "quant_rows": lambda x, gelu=False: (bk.gelu_quant_rows_plain if gelu else bk.quant_rows_plain)(x),
+        "ln_affine_quant_rows": bk.ln_affine_quant_rows_plain,
         "attention": bk.attention_plain,
         "cls_attention": bk.cls_attention_plain,
+        "masked_attention": bk.masked_attention_plain,
         **{k: getattr(ig, f"{k}_plain") for k in
            ("int8_gemm_bf16", "int8_gemm_residual", "int8_gemm_f32", "int8_gemm_gelu_quant")},
     }
@@ -1899,6 +1939,7 @@ def plain_float():
 
     swaps = [(bk, "ln_affine", bk.ln_affine_plain), (bk, "pair_attention", bk.pair_attention_plain),
              (bk, "causal_attention", bk.causal_attention_plain),
+             (bk, "masked_attention", bk.masked_attention_plain),
              (eng, "fused_views_nchw", vk.fused_views_nchw_plain)]
     saved = [(m, k, getattr(m, k)) for m, k, _ in swaps]
     gemms = dict(bk._GEMMS)
@@ -2133,7 +2174,7 @@ def float_classifier_phase(params, cfg, dev, counters):
     """Phase 11b: the classifier build under ``PipelineConfig()`` (f32, the
     reference preset) for 403 classes x 8 templates, counted and timed,
     held against the plain-version f32 text tower -> (launches, the token
-    ids of its first 512 prompts)."""
+    ids of its first 512 prompts, the classifier)."""
     import torch
 
     from jcf_tpu_torch.config import DataConfig, PipelineConfig, RuntimeConfig
@@ -2174,7 +2215,7 @@ def float_classifier_phase(params, cfg, dev, counters):
         f"classifier rows of their {n_c} classes {cos_w:.7f} (tol 0.99999)")
     if cos_emb < 0.99999 or cos_w < 0.99999:
         raise AssertionError("the f32 classifier disagrees with the plain-version tower")
-    return launches, ids
+    return launches, ids, built
 
 
 def float_engine_phase(params, ref, modes_f, images, geometry, text, counters, smi, dev):
@@ -2309,6 +2350,331 @@ def float_engine_phase(params, ref, modes_f, images, geometry, text, counters, s
     del eb, modes_b, modes_k
     torch.cuda.empty_cache()
     return launches_b, calls[0], ph.results
+
+
+# phase 12: the masked and unfolded int8 halves. Launches of one layer of
+# the int8 text tower, the unfolded tree (K3: LN + its affine + row quant,
+# qkv, the causal masked attention, the context's row quant, out-proj; K4:
+# LN + quant, c_fc, QuickGELU + row quant, c_proj), bf16 rows; f32 rows
+# take the f32 variants of the LN kernel and the residual epilogue
+INT8_TEXT_LAYER = {"ln_affine_quant_rows": 2, "int8_gemm_bf16_rows": 1, "masked_attention_f32": 1,
+                   "quant_rows": 1, "int8_gemm_residual_rows": 2, "int8_gemm_f32_rows": 1,
+                   "gelu_quant_rows": 1}
+F32_NAMES = {"ln_affine_quant_rows": "ln_affine_quant_rows_f32",
+             "int8_gemm_residual_rows": "int8_gemm_residual_f32_rows"}
+SMALL_CROPS = 1024  # crops of the odd-head and 64-token towers (12d)
+
+
+def int8_text_launches(f32: bool, n_layers: int, calls: int) -> dict:
+    """The launches of ``calls`` int8 text-tower forwards."""
+    return {(F32_NAMES.get(k, k) if f32 else k): v * n_layers * calls
+            for k, v in INT8_TEXT_LAYER.items()}
+
+
+def ranking(modes, w_a, w_b):
+    """Top-1 agreement and top-5 overlap of the same modes scored under
+    two classifiers."""
+    import torch
+
+    la, lb = modes.float() @ w_a.float().T, modes.float() @ w_b.float().T
+    top1 = float((la.argmax(-1) == lb.argmax(-1)).float().mean())
+    ta, tb = la.topk(5, dim=-1).indices, lb.topk(5, dim=-1).indices
+    overlap = float((ta[:, :, None] == tb[:, None, :]).any(-1).float().mean())
+    return top1, overlap
+
+
+def int8_classifier_phase(params, cfg, dev, counters, built_f32, modes_f):
+    """Phase 12b: the int8 classifier build (``build_classifier_weights(
+    quant=quantize_clip_params(params)["text"])``, the JAX package's
+    ``tests/test_quant.py`` route) at 403 x 8 prompts in f32 and bf16:
+    counted against ``int8_text_launches``, held against the same build on
+    the plain versions (rows cos >= 0.9999 in f32, >= 0.999 in bf16: int8
+    ties that f32 sums in another order flip compound over 12 layers, as
+    in the bf16 classifier of phase 5) and, as the JAX certificate,
+    against the f32 classifier (rows cos min > 0.99); the ranking of phase
+    7's f32 modes under both classifiers is printed -> launches by
+    dtype."""
+    import torch
+
+    from jcf_tpu_torch.config import DataConfig, PipelineConfig, RuntimeConfig
+    from jcf_tpu_torch.models.clip import tree_to
+    from jcf_tpu_torch.ops.quant import quantize_clip_params
+    from jcf_tpu_torch.pipelines.common import ensure_templates
+    from jcf_tpu_torch.tta import build_classifier_weights
+
+    tparams = {"text": tree_to(params["text"], dev)}
+    quant = quantize_clip_params(tparams)["text"]
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        synthetic_classes(os.path.join(tmp, "classes.txt"))
+        pc = PipelineConfig(DataConfig(os.path.join(tmp, "classes.txt"), os.path.join(tmp, "tpl"), ""),
+                            RuntimeConfig("float32", None))
+        templates = ensure_templates(pc)
+    n_prompts = sum(len(v) for v in templates.values())
+    calls = -(-n_prompts // TEXT_BATCH)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace("torch.", "")
+        build = lambda: build_classifier_weights(tparams, cfg, templates, device=dev, dtype=dt,
+                                                 quant=quant)
+        t0 = time.perf_counter()
+        built, launches[name] = count_forward(counters, build)
+        secs = time.perf_counter() - t0
+        log(f"phase 12b: int8 classifier ({name}), {len(templates)} classes, {n_prompts} prompts "
+            f"in {calls} tower calls, built in {secs:.2f} s; launches: {launches[name]}")
+        expected = int8_text_launches(dt == torch.float32, cfg.text_layers, calls)
+        if launches[name] != expected:
+            raise AssertionError(f"expected exactly the launches {expected}")
+        if built.dtype != dt or tuple(built.shape) != (N_CLASSES, cfg.embed_dim):
+            raise AssertionError(f"bad int8 classifier: {built.dtype} {tuple(built.shape)}")
+        with plain_halves():
+            plain = build()
+        cos_p = float(cosine_rows(built, plain).min())
+        gate = 0.9999 if dt == torch.float32 else 0.999
+        cos_f = cosine_rows(built, built_f32)
+        top1, overlap = ranking(modes_f, built, built_f32)
+        log(f"  rows cos vs the plain-version build min {cos_p:.7f} (gate >= {gate}); vs the f32 "
+            f"classifier min {float(cos_f.min()):.6f} mean {float(cos_f.mean()):.6f} (gate > 0.99); "
+            f"phase 7's f32 modes under int8 vs f32 classifier: top1_agree {top1:.4f} "
+            f"top5_overlap {overlap:.4f} (not gated)")
+        if cos_p < gate or float(cos_f.min()) <= 0.99:
+            raise AssertionError(f"the int8 classifier ({name}) fails its gates")
+    return launches
+
+
+def masked_kernel_phase(params, cfg, dev, ids, rows_v, blocks_v, quant_v):
+    """Phase 12a: each new kernel and branch against its plain version at
+    the paths' shapes: on layer 0's input rows of the int8 text tower (512
+    prompts x 77 tokens, f32) the LN + affine + row quant, the causal
+    masked attention (f32 context; SDPA ``is_causal`` as the yardstick)
+    and the f32 residual epilogues; on the unfolded vision tower's input
+    rows (``rows_v``, 8192 crops x 50) the bf16 LN + affine + row quant,
+    K3's attention with the score scale and K5's with the last layer's
+    weights; the composed halves against ``plain_halves`` -> results."""
+    import torch
+    import torch.nn.functional as F
+
+    from jcf_tpu_torch.models.clip import tree_to
+    from jcf_tpu_torch.ops import block_kernel as bk
+    from jcf_tpu_torch.ops import int8_gemm as ig
+    from jcf_tpu_torch.ops.layers import layer_slice
+    from jcf_tpu_torch.ops.quant import quantize_clip_params
+
+    ph = Phase()
+    text = tree_to(params["text"], dev)
+    quant_t = quantize_clip_params({"text": text})["text"]
+    b, st = ids.shape
+    th, et = cfg.text_heads, cfg.text_width
+    dt_ = et // th
+    x = (text["token_embedding"][ids] + text["positional_embedding"]).reshape(b * st, -1)
+    m = x.shape[0]
+    log(f"phase 12a: masked and unfolded kernel checks, text {b} x {st} rows, vision "
+        f"{rows_v.shape[0]} rows")
+    ln1 = bk._layer_ln(text["blocks"], 0, "ln_1", torch.float32)
+    ln2 = bk._layer_ln(text["blocks"], 0, "ln_2", torch.float32)
+    layer = layer_slice(quant_t, 0)
+    wq, wo, fc, pr = (layer["attn"]["w_qkv"], layer["attn"]["w_out"], layer["mlp"]["c_fc"],
+                      layer["mlp"]["c_proj"])
+    x_q, x_sc = ph.run("ln_affine_quant_rows_f32",
+                       lambda: bk.ln_affine_quant_rows(x, ln1["scale"], ln1["bias"]),
+                       lambda: bk.ln_affine_quant_rows_plain(x, ln1["scale"], ln1["bias"]),
+                       check_rows, bound(nbytes(x, ln1["scale"], ln1["bias"]) + m * et + 4 * m,
+                                         0.0, PEAK_INT8))
+    qkv = ig.int8_gemm_bf16(x_q, wq.w_int8, wq.w_scale, wq.bias, row_scale=x_sc)
+    kw = dict(causal=True, scale=1.0 / dt_ ** 0.5, f32_ctx=True)
+    slack = 2.0**-7 * bk.masked_attention_plain(abs_v(qkv, et), st, th, **kw)
+    q, k, v = head_views(qkv, st, th)
+    ctx = ph.run("masked_attention_f32",
+                 lambda: bk.masked_attention(qkv, st, th, **kw),
+                 lambda: bk.masked_attention_plain(qkv, st, th, **kw), check_ctx_f32(slack),
+                 # keys j <= i: s (s + 1) / 2 score and PV pairs per head
+                 bound(nbytes(qkv) + 4 * m * et, 4.0 * b * th * (st * (st + 1) // 2) * dt_,
+                       PEAK_BF16),
+                 lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    del q, k, v, slack
+    c_q, c_sc = bk.quant_rows(ctx)
+    mid = ph.run("int8_gemm_residual_f32_rows (out-proj)",
+                 lambda: ig.int8_gemm_residual(c_q, wo.w_int8, wo.w_scale, wo.bias, x, row_scale=c_sc),
+                 lambda: ig.int8_gemm_residual_plain(c_q, wo.w_int8, wo.w_scale, wo.bias, x, c_sc),
+                 check_f32, gemm_work(c_q, wo.w_int8, 4, PEAK_INT8, x, wo.w_scale, wo.bias, c_sc),
+                 lambda: torch._int_mm(c_q, wo.w_int8.T))
+    m_q, m_sc = bk.ln_affine_quant_rows(mid, ln2["scale"], ln2["bias"])
+    h_q, h_sc = bk.quant_rows(ig.int8_gemm_f32(m_q, fc.w_int8, fc.w_scale, fc.bias, row_scale=m_sc),
+                              gelu=True)
+    ph.run("int8_gemm_residual_f32_rows",
+           lambda: ig.int8_gemm_residual(h_q, pr.w_int8, pr.w_scale, pr.bias, mid, row_scale=h_sc),
+           lambda: ig.int8_gemm_residual_plain(h_q, pr.w_int8, pr.w_scale, pr.bias, mid, h_sc),
+           check_f32, gemm_work(h_q, pr.w_int8, 4, PEAK_INT8, mid, pr.w_scale, pr.bias, h_sc),
+           lambda: torch._int_mm(h_q, pr.w_int8.T))
+    xb = x.bfloat16()
+    lnb = [bk._layer_ln(text["blocks"], 0, n, torch.bfloat16) for n in ("ln_1", "ln_2")]
+    for name, kern, inp in (
+            ("K3 masked attention half (f32, unfolded)",
+             lambda t: bk.attn_half_int8(t, layer["attn"], st, th, ln=ln1, causal=True), x),
+            ("K4 MLP half (f32, unfolded)", lambda t: bk.mlp_half_int8(t, layer["mlp"], ln=ln2), mid),
+            ("K3 masked attention half (bf16, unfolded)",
+             lambda t: bk.attn_half_int8(t, layer["attn"], st, th, ln=lnb[0], causal=True), xb)):
+        plain = plain_version(kern)
+        check_composed(name, kern(inp), plain(inp), lambda: kern(inp), lambda: plain(inp))
+    del x, xb, mid, qkv, ctx, c_q, h_q, text, quant_t
+    torch.cuda.empty_cache()
+
+    # the unfolded vision tower's layer 0 (K3) and last layer (K5)
+    s, heads, e = cfg.vision_seq_len, cfg.vision_heads, cfg.vision_width
+    d = e // heads
+    n_crops = rows_v.shape[0] // s
+    mv = rows_v.shape[0]
+    sc = 1.0 / d ** 0.5
+    lv = bk._layer_ln(blocks_v, 0, "ln_1", torch.bfloat16)
+    lyr = layer_slice(quant_v, 0)
+    x_q, x_sc = ph.run("ln_affine_quant_rows",
+                       lambda: bk.ln_affine_quant_rows(rows_v, lv["scale"], lv["bias"]),
+                       lambda: bk.ln_affine_quant_rows_plain(rows_v, lv["scale"], lv["bias"]),
+                       check_rows, bound(nbytes(rows_v, lv["scale"], lv["bias"]) + mv * e + 4 * mv,
+                                         0.0, PEAK_INT8))
+    wq = lyr["attn"]["w_qkv"]
+    qkv = ig.int8_gemm_bf16(x_q, wq.w_int8, wq.w_scale, wq.bias, row_scale=x_sc)
+    slack = 2.0**-7 * bk.attention_plain(abs_v(qkv, e), None, s, heads, scale=sc)
+    q, k, v = head_views(qkv, s, heads)
+    ph.run("attention_scaled_f32",
+           lambda: bk.attention(qkv, None, s, heads, scale=sc),
+           lambda: bk.attention_plain(qkv, None, s, heads, scale=sc), check_ctx_f32(slack),
+           bound(nbytes(qkv) + 4 * mv * e, 4.0 * n_crops * heads * s * s * d, PEAK_BF16),
+           lambda: F.scaled_dot_product_attention(q, k, v))
+    del q, k, v, qkv, slack, x_q, x_sc
+    last_i = cfg.vision_layers - 1
+    last = layer_slice(quant_v, last_i)["attn"]
+    ll = bk._layer_ln(blocks_v, last_i, "ln_1", torch.bfloat16)
+    lw = last["w_qkv"]
+    lx_q, lx_sc = bk.ln_affine_quant_rows(rows_v, ll["scale"], ll["bias"])
+    kv = ig.int8_gemm_bf16(lx_q, lw.w_int8[e:], lw.w_scale[e:], lw.bias[e:], row_scale=lx_sc)
+    qc = ig.int8_gemm_bf16(lx_q[::s].contiguous(), lw.w_int8[:e], lw.w_scale[:e], lw.bias[:e],
+                           row_scale=lx_sc[::s].contiguous())
+    slack = 2.0**-7 * bk.cls_attention_plain(qc, abs_v(kv, e), None, s, heads, scale=sc)
+    qh = qc.view(n_crops, 1, heads, d).transpose(1, 2)
+    kvh = kv.view(n_crops, s, 2, heads, d)
+    ph.run("cls_attention_scaled_f32",
+           lambda: bk.cls_attention(qc, kv, None, s, heads, scale=sc),
+           lambda: bk.cls_attention_plain(qc, kv, None, s, heads, scale=sc), check_ctx_f32(slack),
+           bound(nbytes(qc, kv) + 4 * n_crops * e, 4.0 * n_crops * heads * s * d, PEAK_BF16),
+           lambda: F.scaled_dot_product_attention(qh, kvh[:, :, 0].transpose(1, 2),
+                                                  kvh[:, :, 1].transpose(1, 2)))
+    del kv, qc, qh, kvh, lx_q, lx_sc, slack
+    lns = [bk._layer_ln(blocks_v, 0, n, torch.bfloat16) for n in ("ln_1", "ln_2")]
+    mid = bk.attn_half_int8(rows_v, lyr["attn"], s, heads, ln=lns[0])
+    for name, kern, inp in (
+            ("K3 attention half (unfolded)",
+             lambda t: bk.attn_half_int8(t, lyr["attn"], s, heads, ln=lns[0]), rows_v),
+            ("K4 MLP half (unfolded)", lambda t: bk.mlp_half_int8(t, lyr["mlp"], ln=lns[1]), mid),
+            ("K5 CLS attention half (unfolded)",
+             lambda t: bk.attn_cls_int8(t, last, s, heads, ln=ll), rows_v)):
+        plain = plain_version(kern)
+        check_composed(name, kern(inp), plain(inp), lambda: kern(inp), lambda: plain(inp))
+    del mid
+    torch.cuda.empty_cache()
+    return ph.results
+
+
+def unfolded_tower_phase(cfg, counters, smi, rows_v, blocks_v, quant_v):
+    """Phase 12c: the unfolded int8 ViT-B/32 tower at 8192 crops, counted
+    on all rows and on the CLS rows (K5, then K4 with the f32 LN affine
+    of the layer params), against its plain route (row cos >= 0.999) and,
+    as ``bench.py``'s kernel smoke, against the bf16 float tower (mean row
+    cos > 0.995); ms per tower -> launches."""
+    import torch
+
+    from jcf_tpu_torch.ops import block_kernel as bk
+
+    s, heads = cfg.vision_seq_len, cfg.vision_heads
+    log(f"phase 12c: the unfolded int8 tower, {rows_v.shape[0] // s} crops x {s} tokens")
+    tower = lambda cls_only: bk.run_fused_tower(rows_v, quant_v, heads, flat_s=s, cls_only=cls_only,
+                                                blocks=blocks_v)
+    out, launches = count_forward(counters, lambda: tower(False))
+    cls, launches_cls = count_forward(counters, lambda: tower(True))
+    log(f"  launches, all rows: {launches}; CLS rows: {launches_cls}")
+    for k, v in launches_cls.items():
+        launches[k] = launches.get(k, 0) + v
+    if launches_cls.get("cls_attention_scaled_f32") != 1 or launches.get("attention_scaled_f32") != 2 * cfg.vision_layers - 1:
+        raise AssertionError("the unfolded tower did not take K3 / K5 with the score scale")
+    with plain_halves():
+        ref = tower(False)
+        ref_cls = tower(True)
+    cos = cosine_rows(out, ref)
+    cos_c = cosine_rows(cls, ref_cls)
+    del ref, ref_cls
+    flt = bk.run_float_tower(rows_v, blocks_v, heads, s=s, causal=False)
+    cos_f = cosine_rows(out, flt)
+    del flt
+    log(f"  vs its plain route: all rows min cos {float(cos.min()):.6f}, CLS rows "
+        f"{float(cos_c.min()):.6f} (gate >= 0.999); vs the bf16 float tower mean row cos "
+        f"{float(cos_f.mean()):.6f}, min {float(cos_f.min()):.6f} (gate: mean > 0.995)")
+    if float(cos.min()) < 0.999 or float(cos_c.min()) < 0.999 or float(cos_f.mean()) <= 0.995:
+        raise AssertionError("the unfolded int8 tower fails its gates")
+    del out, cls
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: tower(False), reps=2)
+    ms_c = time_ms(lambda: tower(True), reps=2)
+    log(f"  unfolded tower: {ms:.3f} ms all rows, {ms_c:.3f} ms to the CLS rows "
+        f"({cfg.vision_layers} layers) on {smi}")
+    return launches
+
+
+def small_towers_phase(dev, counters):
+    """Phase 12d: an odd-head tower (3 heads of 64, 50 tokens: the masked
+    route without a mask) and a 64-token tower (2 heads: the non-dense
+    mask-free route, no pair-shift floor), 12 layers, the unfolded int8
+    tree and the bf16 float tower, at 1024 crops, counted, against their
+    plain routes (row cos >= 0.999); the float towers' per-head attention
+    against its plain version on layer 0's qkv -> (the 3-head bf16
+    tower's launches, results)."""
+    import torch
+    import torch.nn.functional as F
+
+    from jcf_tpu_torch.models.clip import CLIPConfig, init_clip_params, tree_to
+    from jcf_tpu_torch.ops import block_kernel as bk
+    from jcf_tpu_torch.ops.layers import layer_slice
+    from jcf_tpu_torch.ops.quant import quantize_clip_params
+
+    ph = Phase()
+    launches_odd = None
+    for width, s, attn in ((192, 50, "masked_attention_f32"), (128, 64, "attention_scaled_f32")):
+        heads = width // 64
+        params = init_clip_params(0, CLIPConfig(vision_width=width, text_layers=1))
+        blocks = tree_to(params["visual"]["blocks"], dev, torch.bfloat16)
+        quant = quantize_clip_params({"visual": tree_to(params["visual"], dev)})["visual"]
+        x = torch.randn(SMALL_CROPS * s, width, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(s)).bfloat16()
+        for kind, run in (
+                ("int8", lambda: bk.run_fused_tower(x, quant, heads, flat_s=s, cls_only=False,
+                                                    blocks=blocks)),
+                ("bf16", lambda: bk.run_float_tower(x, blocks, heads, s=s, causal=False))):
+            out, launches = count_forward(counters, run)
+            with (plain_halves() if kind == "int8" else plain_float()):
+                ref = run()
+            cos = float(cosine_rows(out, ref).min())
+            log(f"phase 12d: {heads} heads x {s} tokens, {kind}, {SMALL_CROPS} crops: launches "
+                f"{launches}; vs plain min row cos {cos:.6f} (gate >= 0.999)")
+            want = attn if kind == "int8" else ("head_attention" if heads % 2 else "pair_attention_bf16")
+            if launches.get(want) != 12 or cos < 0.999:
+                raise AssertionError(f"the {heads}-head {s}-token {kind} tower fails")
+            if kind == "bf16" and heads % 2:
+                launches_odd = launches
+        if heads % 2:
+            # the per-head attention of the float halves on layer 0's qkv
+            layer = layer_slice(blocks, 0)
+            h = bk.ln_affine(x, layer["ln_1"]["scale"], layer["ln_1"]["bias"])
+            qkv = bk.bf16_gemm_bias(h, layer["attn"]["w_qkv"], layer["attn"]["b_qkv"].float())
+            kw = dict(causal=False, scale=1.0 / 8.0)
+            slack = 2.0**-7 * bk.masked_attention_plain(abs_v(qkv, width), s, heads, **kw).float()
+            q, k, v = head_views(qkv, s, heads)
+            ph.run("head_attention",
+                   lambda: bk.masked_attention(qkv, s, heads, **kw),
+                   lambda: bk.masked_attention_plain(qkv, s, heads, **kw),
+                   lambda n, a, b: check_bf16(n, a, b, slack),
+                   bound(nbytes(qkv) + nbytes(x), 4.0 * SMALL_CROPS * heads * s * s * 64, PEAK_BF16),
+                   lambda: F.scaled_dot_product_attention(q, k, v))
+            del q, k, v, qkv, h, slack
+    torch.cuda.empty_cache()
+    return launches_odd, ph.results
 
 
 def main() -> int:
@@ -2469,17 +2835,40 @@ def main() -> int:
     launches_bf16, rows_bf16, results_block = float_engine_phase(params, ref, modes_f, images,
                                                                  geometry, text, counters, smi, dev)
     results.update(results_block)
-    launches_cls_f32, ids = float_classifier_phase(params, cfg, dev, counters)
+    launches_cls_f32, ids, built_f32 = float_classifier_phase(params, cfg, dev, counters)
     text_f32 = tree_to(params["text"], dev)
     results.update(float_kernel_phase(rows_f32[0], rows_bf16, text_f32, cfg, ids, images, geometry))
     del ref, rows_f32, rows_bf16, text_f32
+    torch.cuda.empty_cache()
+
+    # phase 12: the masked and unfolded int8 halves, on phase 6's tower
+    # input rows (K2's output at 8192 crops) and phase 11b's prompts
+    from jcf_tpu_torch.infer import engine as engine_module
+    from jcf_tpu_torch.ops.quant import quantize_clip_params
+
+    calls = []
+    with recorded(engine_module, "run_fused_tower", calls, 1):
+        engine.features_from_images(images, text, geometry=geometry)
+    rows_v, blocks_v = calls[0][0], engine._params["visual"]["blocks"]
+    del calls, engine
+    quant_v = quantize_clip_params({"visual": tree_to(params["visual"], dev)})["visual"]
+    results.update(masked_kernel_phase(params, cfg, dev, ids, rows_v, blocks_v, quant_v))
+    launches_cls_int8 = int8_classifier_phase(params, cfg, dev, counters, built_f32, modes_f)
+    launches_unf = unfolded_tower_phase(cfg, counters, smi, rows_v, blocks_v, quant_v)
+    del rows_v, blocks_v, quant_v
+    torch.cuda.empty_cache()
+    launches_odd, results_odd = small_towers_phase(dev, counters)
+    results.update(results_odd)
     launches = {"serving": launches_srv, "classifier": launches_cls, "training": launches_trn,
                 "serving_b16": launches_b16, "serving_block": launches_fused["block"],
                 "serving_layer": launches_fused["layer"],
                 "serving_stream": launches_fused["stream"], "classifier_block": launches_cls_block,
                 "serving_dynamic": launches_modes["dynamic"], "serving_ln": launches_modes["ln"],
                 "serving_f32": launches_f32, "serving_bf16": launches_bf16,
-                "classifier_f32": launches_cls_f32}
+                "classifier_f32": launches_cls_f32,
+                "classifier_int8_f32": launches_cls_int8["float32"],
+                "classifier_int8_bf16": launches_cls_int8["bfloat16"],
+                "tower_unfolded": launches_unf, "tower_odd_heads_bf16": launches_odd}
     missing = [k for k, (path, _, _) in KERNELS.items() if launches[path].get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels of their path never launched: {missing}")

@@ -27,29 +27,29 @@ CSRC = os.path.join(_PKG, "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
     "jcf_view": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "jcf_assemble": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "jcf_ln_quant": [_P, _P, _P, _P, _I, _I, _P],
+    "jcf_ln_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "jcf_quant_rows": [_P, _P, _P, _I, _I, _I, _P],
     "jcf_int8_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "jcf_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "jcf_cls_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "jcf_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I, _P],
+    "jcf_cls_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "jcf_bf16_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "jcf_f32_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "jcf_ln_affine": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "jcf_causal_attention": [_P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
-    "jcf_pair_attention": [_P, _P, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P],
-    "jcf_packed_attention": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
-    "jcf_packed_attention_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    "jcf_masked_attention": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
+    "jcf_pair_attention": [_P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
+    "jcf_packed_attention": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "jcf_packed_attention_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "jcf_blocked_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, *[ctypes.c_longlong] * 6,
-                              ctypes.c_float, _I, _P],
+                              _F, _I, _P],
     "jcf_block_int8": [*[_P] * 19, *[_I] * 7, _P],
     "jcf_layer_fused_int8": [*[_P] * 19, *[_I] * 7, _P],
     "jcf_stream_tower_int8": [*[_P] * 19, *[_I] * 7, _P],
-    "jcf_block_bf16": [*[_P] * 17, _I, _I, _I, _I, ctypes.c_float, _P],
+    "jcf_block_bf16": [*[_P] * 17, _I, _I, _I, _I, _F, _P],
     "jcf_block_bf16_scratch": [_I, _I, _I],
 }
 # C entries that return something other than a cudaError_t

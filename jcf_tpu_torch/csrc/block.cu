@@ -19,45 +19,64 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// LayerNorm z-norm + static or dynamic int8 quantization of bf16 rows
+// LayerNorm + static or dynamic int8 quantization of bf16 or f32 rows
 // ---------------------------------------------------------------------------
 //
-// Replaces the head of both halves: _ln_norm (the LN affine is folded into
-// the next projection's weights) then _quant_rows_static:
+// Replaces the head of both halves and of K5. On the folded tree:
+// _ln_norm (the LN affine is folded into the next projection's weights)
+// then _quant_rows_static:
 //   q = clip(round(((x - mean) * rsqrt(var + 1e-5)) * ln_inv), -127, 127)
-// or, without a calibrated ln_inv, _quant_rows (DYN below).
-// Bound on the H100: bytes (2 B in, 1 B out per element). One warp per
-// row, the row held in registers across both reductions.
+// or, without a calibrated ln_inv, _quant_rows (DYN below). On the
+// unfolded tree (AFFINE, dynamic only): _ln_rows then _quant_rows, the
+// affine after the z-norm, a product and a sum each rounded to f32:
+//   y = ((x - mean) * rsqrt(var + 1e-5)) * g + b
+// with g and b in f32 (the caller rounds them to the rows' dtype where
+// _halves_block casts them, block_kernel.py:1178, :1201, and keeps the
+// layer params' f32 affine on the CLS rows, :1918-1921). Rows in bf16
+// (the vision tower, a bf16 text tower) or f32 (the f32 text tower,
+// whose residual stream stays f32 through the halves).
+// Bound on the H100: bytes (2 or 4 B in, 1 B out per element). One warp
+// per row, the row held in registers across both reductions.
 
 constexpr int LNQ_WARPS = 8;
 constexpr int LNQ_PER = 32;  // E <= 1024
 
-// DYN: no calibrated scale; the row's own (_ln_norm then _quant_rows):
-//   z = (x - mean) * rsqrt(var + 1e-5), amax = max(max |z|, 1e-8),
-//   q = clip(round(z * (127 / amax))), scale = amax * f32(1/127)
+// DYN: no calibrated scale; the row's own (_quant_rows):
+//   amax = max(max |y|, 1e-8), q = clip(round(y * (127 / amax))),
+//   scale = amax * f32(1/127)
 // (a reciprocal multiply, as the reference; ops.quant.quantize_rows of
 // the composable tower divides, which rounds differently).
-template <bool DYN>
+template <typename T, bool DYN, bool AFFINE>
 __global__ void __launch_bounds__(LNQ_WARPS * 32) ln_quant_kernel(
-    const bf16* __restrict__ x, const float* __restrict__ inv_p,
-    int8_t* __restrict__ out, float* __restrict__ scale, int M, int E) {
+    const T* __restrict__ x, const float* __restrict__ g, const float* __restrict__ b,
+    const float* __restrict__ inv_p, int8_t* __restrict__ out, float* __restrict__ scale, int M,
+    int E) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * LNQ_WARPS + (threadIdx.x >> 5);
   if (row >= M) return;
-  const bf16* xr = x + row * E;
+  const T* xr = x + row * E;
   float v[LNQ_PER];
 #pragma unroll
   for (int k = 0; k < LNQ_PER; ++k) {
     const int j = lane + 32 * k;
-    v[k] = j < E ? bf2f(xr[j]) : 0.0f;
+    v[k] = j < E ? to_f(xr[j]) : 0.0f;
   }
   const float2 st = warp_row_stats<LNQ_PER>(v, lane, E);
+#pragma unroll
+  for (int k = 0; k < LNQ_PER; ++k) {
+    const int j = lane + 32 * k;
+    if (j < E) {
+      float y = __fmul_rn(__fsub_rn(v[k], st.x), st.y);
+      if (AFFINE) y = __fadd_rn(__fmul_rn(y, g[j]), b[j]);
+      v[k] = y;
+    }
+  }
   float inv;
   if (DYN) {
     float amax = 0.0f;
 #pragma unroll
     for (int k = 0; k < LNQ_PER; ++k)
-      if (lane + 32 * k < E) amax = fmaxf(amax, fabsf(__fmul_rn(__fsub_rn(v[k], st.x), st.y)));
+      if (lane + 32 * k < E) amax = fmaxf(amax, fabsf(v[k]));
     amax = fmaxf(warp_max(amax), 1e-8f);
     inv = __fdiv_rn(127.0f, amax);
     if (lane == 0) scale[row] = __fmul_rn(amax, 1.0f / 127.0f);
@@ -68,7 +87,7 @@ __global__ void __launch_bounds__(LNQ_WARPS * 32) ln_quant_kernel(
 #pragma unroll
   for (int k = 0; k < LNQ_PER; ++k) {
     const int j = lane + 32 * k;
-    if (j < E) o[j] = round_clip_int8(__fmul_rn(__fmul_rn(__fsub_rn(v[k], st.x), st.y), inv));
+    if (j < E) o[j] = round_clip_int8(__fmul_rn(v[k], inv));
   }
 }
 
@@ -134,16 +153,20 @@ __global__ void __launch_bounds__(QR_THREADS) quant_rows_kernel(
 // ---------------------------------------------------------------------------
 //
 // Replaces the attention section of _attn_half_int8_kernel
-// (_batched_attention -> _paired_attention_nomask), folded tree (1/sqrt(d)
-// already in q): one block per (crop, head pair) loads the pair's q, k
-// (transposed) and v into shared memory and runs the row loop of
-// pair_attention.cuh, which keeps the reference's pair shift max(0, pair
-// max) or takes the calibrated shift. That is why a block owns a pair of
-// heads. With a static context scale the loop writes the int8 context;
-// without one it writes the f32 context, and quant_rows_kernel quantizes
-// each E-wide row after it: a row's amax spans every pair, and a block
-// owning a whole crop would need E / 128 times the shared memory (over
-// the card's 227 KB from S = 50 on).
+// (_batched_attention -> _paired_attention_nomask): one block per (crop,
+// head pair) loads the pair's q, k (transposed) and v into shared memory
+// and runs the row loop of pair_attention.cuh, which keeps the
+// reference's pair shift max(floor, pair max) or takes the calibrated
+// shift. That is why a block owns a pair of heads. The floor is 0 on the
+// dense route (the reference's zeroed pad keys score 0: S is never a
+// multiple of 16 there) and -inf on its non-dense route (S a multiple of
+// 16: s_pad = S, no pad keys). SCALED multiplies the f32 sums by
+// 1/sqrt(d) (the unfolded tree; the folded tree's q carries it). With a
+// static context scale the loop writes the int8 context; without one it
+// writes the f32 context, and quant_rows_kernel quantizes each E-wide
+// row after it: a row's amax spans every pair, and a block owning a
+// whole crop would need E / 128 times the shared memory (over the card's
+// 227 KB from S = 50 on).
 //
 // Bound on the H100: at S = 50, D = 64 the block's work (2 heads x 50 x
 // 50 x 64 x 2 MACs) is small next to launching a tensor-core pipeline,
@@ -156,13 +179,13 @@ __global__ void __launch_bounds__(QR_THREADS) quant_rows_kernel(
 
 constexpr int ATT_WARPS = 8;
 
-template <int KB, bool F32_OUT>
+template <int KB, bool F32_OUT, bool SCALED>
 __global__ void __launch_bounds__(ATT_WARPS * 32) attention_kernel(
     const bf16* __restrict__ qkv,       // [n_crops * S, 3E]
     const float* __restrict__ ctx_inv,  // scalar (static ctx)
     const float* __restrict__ shift,    // scalar, or null for the pair max
     void* __restrict__ out,             // [n_crops * S, E] int8, or f32
-    int S, int H, int D) {
+    int S, int H, int D, float scale, float m_floor) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int E = H * D, D2 = 2 * D, n_pairs = H / 2;
   const int pair = blockIdx.x % n_pairs;
@@ -182,20 +205,22 @@ __global__ void __launch_bounds__(ATT_WARPS * 32) attention_kernel(
   }
   __syncthreads();
   typedef typename std::conditional<F32_OUT, float, int8_t>::type O;
-  pair_attention_rows_t<KB, bf16, O, false>(q_s, D2, nullptr, kt_s, v_s, p_s, S, D, 1.0f, shift,
-                                            0.0f, F32_OUT ? 0.0f : *ctx_inv,
-                                            static_cast<O*>(out) + crop * S * E + pair * D2, E,
-                                            ATT_WARPS);
+  pair_attention_rows_t<KB, bf16, O, SCALED>(q_s, D2, nullptr, kt_s, v_s, p_s, S, D, scale, shift,
+                                             m_floor, F32_OUT ? 0.0f : *ctx_inv,
+                                             static_cast<O*>(out) + crop * S * E + pair * D2, E,
+                                             ATT_WARPS);
 }
 
 // ---------------------------------------------------------------------------
 // CLS-query attention of the last layer (K5)
 // ---------------------------------------------------------------------------
 //
-// Replaces the attention section of _attn_cls_int8_kernel (folded tree):
-// only each crop's CLS row queries, against the K/V of all S rows. For
-// one crop and one head pair (lo, hi):
-//   s      = q . k                               (bf16 inputs, f32 sums)
+// Replaces the attention section of _attn_cls_int8_kernel: only each
+// crop's CLS row queries, against the K/V of all S rows. For one crop and
+// one head pair (lo, hi):
+//   s      = q . k [* scale]                     (bf16 inputs, f32 sums; the
+//                                                 unfolded tree's 1/sqrt(d)
+//                                                 after the sum, SCALED)
 //   m      = max over both heads' keys of s, and 0 when S < 64 (the
 //            reference's zero-padded 64-key halves score exactly 0); or
 //            the layer's calibrated score_shift where the tree has one
@@ -218,14 +243,14 @@ __global__ void __launch_bounds__(ATT_WARPS * 32) attention_kernel(
 constexpr int CLS_WARPS = 4;
 constexpr int CLS_MAX_S = 64;
 
-template <bool F32_OUT>
+template <bool F32_OUT, bool SCALED>
 __global__ void __launch_bounds__(CLS_WARPS * 32) cls_attention_kernel(
     const bf16* __restrict__ q,         // [n_crops, E] (CLS rows)
     const bf16* __restrict__ kv,        // [n_crops * S, 2E]: [k | v]
     const float* __restrict__ ctx_inv,  // scalar (static ctx)
     const float* __restrict__ shift,    // scalar, or null for the pair max
     void* __restrict__ out,             // [n_crops, E] int8, or f32
-    int n_crops, int S, int H) {
+    int n_crops, int S, int H, float scale) {
   __shared__ float sc[CLS_WARPS][2][CLS_MAX_S];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int E = H * 64, n_pairs = H / 2;
@@ -253,6 +278,7 @@ __global__ void __launch_bounds__(CLS_WARPS * 32) cls_attention_kernel(
     for (int t = 0; t < 4; ++t) acc = fmaf(qv[t], bf2f(b[t]), acc);
 #pragma unroll
     for (int o = 8; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (SCALED) acc = __fmul_rn(acc, scale);
     if ((lane & 15) == 0) s[h][j] = acc;
   }
   __syncwarp();
@@ -302,39 +328,62 @@ __global__ void __launch_bounds__(CLS_WARPS * 32) cls_attention_kernel(
 
 }  // namespace
 
-// f32_out: write the f32 context (no ctx_inv); shift: null for the pair max
-extern "C" int jcf_cls_attention(const void* q, const void* kv, const void* ctx_inv,
-                                 const void* shift, void* out, int n_crops, int S, int H,
-                                 int f32_out, void* stream) {
-  if (S < 1 || S > CLS_MAX_S || H < 2 || H % 2) return (int)cudaErrorInvalidValue;
+template <bool F32_OUT, bool SCALED>
+static int launch_cls(const bf16* q, const bf16* kv, const float* ctx_inv, const float* shift,
+                      void* out, int n_crops, int S, int H, float scale, cudaStream_t stream) {
   const long long items = (long long)n_crops * (H / 2);
   const unsigned blocks = (unsigned)((items + CLS_WARPS - 1) / CLS_WARPS);
+  cls_attention_kernel<F32_OUT, SCALED><<<blocks, CLS_WARPS * 32, 0, stream>>>(
+      q, kv, ctx_inv, shift, out, n_crops, S, H, scale);
+  return (int)cudaGetLastError();
+}
+
+// f32_out: write the f32 context (no ctx_inv); shift: null for the pair
+// max; scaled: multiply the scores by scale (the unfolded tree)
+extern "C" int jcf_cls_attention(const void* q, const void* kv, const void* ctx_inv,
+                                 const void* shift, void* out, int n_crops, int S, int H,
+                                 float scale, int scaled, int f32_out, void* stream) {
+  if (S < 1 || S > CLS_MAX_S || H < 2 || H % 2) return (int)cudaErrorInvalidValue;
   const bf16* q_ = static_cast<const bf16*>(q);
   const bf16* kv_ = static_cast<const bf16*>(kv);
   const float* ci = static_cast<const float*>(ctx_inv);
   const float* sh = static_cast<const float*>(shift);
   cudaStream_t st = (cudaStream_t)stream;
-  if (f32_out)
-    cls_attention_kernel<true><<<blocks, CLS_WARPS * 32, 0, st>>>(q_, kv_, ci, sh, out, n_crops, S, H);
-  else
-    cls_attention_kernel<false><<<blocks, CLS_WARPS * 32, 0, st>>>(q_, kv_, ci, sh, out, n_crops, S, H);
+  if (scaled)
+    return f32_out ? launch_cls<true, true>(q_, kv_, ci, sh, out, n_crops, S, H, scale, st)
+                   : launch_cls<false, true>(q_, kv_, ci, sh, out, n_crops, S, H, scale, st);
+  return f32_out ? launch_cls<true, false>(q_, kv_, ci, sh, out, n_crops, S, H, scale, st)
+                 : launch_cls<false, false>(q_, kv_, ci, sh, out, n_crops, S, H, scale, st);
+}
+
+template <typename T, bool DYN, bool AFFINE>
+static int launch_ln_quant(const void* x, const void* g, const void* b, const void* inv,
+                           void* out, void* scale, int M, int E, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((M + LNQ_WARPS - 1) / LNQ_WARPS);
+  ln_quant_kernel<T, DYN, AFFINE><<<blocks, LNQ_WARPS * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(g), static_cast<const float*>(b),
+      static_cast<const float*>(inv), static_cast<int8_t*>(out), static_cast<float*>(scale), M, E);
   return (int)cudaGetLastError();
 }
 
-// inv null: the dynamic variant, writing each row's scale to scale[M]
-extern "C" int jcf_ln_quant(const void* x, const void* inv, void* out, void* scale, int M, int E,
-                            void* stream) {
-  if (E < 1 || E > 32 * LNQ_PER) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((M + LNQ_WARPS - 1) / LNQ_WARPS);
-  const bf16* x_ = static_cast<const bf16*>(x);
+template <typename T>
+static int dispatch_ln_quant(const void* x, const void* g, const void* b, const void* inv,
+                             void* out, void* scale, int M, int E, cudaStream_t st) {
+  if (g != nullptr)
+    return launch_ln_quant<T, true, true>(x, g, b, nullptr, out, scale, M, E, st);
+  if (inv == nullptr) return launch_ln_quant<T, true, false>(x, g, b, nullptr, out, scale, M, E, st);
+  return launch_ln_quant<T, false, false>(x, g, b, inv, out, nullptr, M, E, st);
+}
+
+// g, b null: the z-norm alone (the folded tree); else the f32 LN affine,
+// dynamic only. inv null: the dynamic variant, writing each row's scale
+// to scale[M]. f32: f32 rows, else bf16
+extern "C" int jcf_ln_quant(const void* x, const void* g, const void* b, const void* inv,
+                            void* out, void* scale, int M, int E, int f32, void* stream) {
+  if (E < 1 || E > 32 * LNQ_PER || (g != nullptr && inv != nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (inv == nullptr)
-    ln_quant_kernel<true><<<blocks, LNQ_WARPS * 32, 0, st>>>(
-        x_, nullptr, static_cast<int8_t*>(out), static_cast<float*>(scale), M, E);
-  else
-    ln_quant_kernel<false><<<blocks, LNQ_WARPS * 32, 0, st>>>(
-        x_, static_cast<const float*>(inv), static_cast<int8_t*>(out), nullptr, M, E);
-  return (int)cudaGetLastError();
+  return f32 ? dispatch_ln_quant<float>(x, g, b, inv, out, scale, M, E, st)
+             : dispatch_ln_quant<bf16>(x, g, b, inv, out, scale, M, E, st);
 }
 
 extern "C" int jcf_quant_rows(const void* x, void* out, void* scale, int M, int N, int gelu,
@@ -351,30 +400,49 @@ extern "C" int jcf_quant_rows(const void* x, void* out, void* scale, int M, int 
   return (int)cudaGetLastError();
 }
 
-template <int KB, bool F32_OUT>
+template <int KB, bool F32_OUT, bool SCALED>
 static int launch_attention(const bf16* qkv, const float* ctx_inv, const float* shift, void* out,
-                            int n_crops, int S, int H, int D, cudaStream_t stream) {
+                            int n_crops, int S, int H, int D, float scale, float m_floor,
+                            cudaStream_t stream) {
   const size_t smem =
       (size_t)3 * S * 2 * D * sizeof(bf16) + (size_t)ATT_WARPS * 2 * S * sizeof(float);
-  const int err = set_smem(attention_kernel<KB, F32_OUT>, smem);
+  const int err = set_smem(attention_kernel<KB, F32_OUT, SCALED>, smem);
   if (err) return err;
   const long long blocks = (long long)n_crops * (H / 2);
-  attention_kernel<KB, F32_OUT><<<(unsigned)blocks, ATT_WARPS * 32, smem, stream>>>(
-      qkv, ctx_inv, shift, out, S, H, D);
+  attention_kernel<KB, F32_OUT, SCALED><<<(unsigned)blocks, ATT_WARPS * 32, smem, stream>>>(
+      qkv, ctx_inv, shift, out, S, H, D, scale, m_floor);
   return (int)cudaGetLastError();
 }
 
-// f32_out: write the f32 context (no ctx_inv); shift: null for the pair max
+template <int KB>
+static int dispatch_attention(const bf16* qkv, const float* ctx_inv, const float* shift, void* out,
+                              int n_crops, int S, int H, int D, float scale, int scaled,
+                              float m_floor, int f32_out, cudaStream_t st) {
+  if (scaled)
+    return f32_out ? launch_attention<KB, true, true>(qkv, ctx_inv, shift, out, n_crops, S, H, D,
+                                                      scale, m_floor, st)
+                   : launch_attention<KB, false, true>(qkv, ctx_inv, shift, out, n_crops, S, H, D,
+                                                       scale, m_floor, st);
+  return f32_out ? launch_attention<KB, true, false>(qkv, ctx_inv, shift, out, n_crops, S, H, D,
+                                                     scale, m_floor, st)
+                 : launch_attention<KB, false, false>(qkv, ctx_inv, shift, out, n_crops, S, H, D,
+                                                      scale, m_floor, st);
+}
+
+// f32_out: write the f32 context (no ctx_inv); shift: null for the pair
+// max; scaled: multiply the scores by scale (the unfolded tree); m_floor:
+// the pair shift's floor (0 on the dense route, -inf off it)
 extern "C" int jcf_attention(const void* qkv, const void* ctx_inv, const void* shift, void* out,
-                             int n_crops, int S, int H, int D, int f32_out, void* stream) {
+                             int n_crops, int S, int H, int D, float scale, int scaled,
+                             float m_floor, int f32_out, void* stream) {
   if (S < 1 || S > 128 || H < 2 || H % 2) return (int)cudaErrorInvalidValue;
   const bf16* q = static_cast<const bf16*>(qkv);
   const float* ci = static_cast<const float*>(ctx_inv);
   const float* sh = static_cast<const float*>(shift);
   cudaStream_t st = (cudaStream_t)stream;
   if (S <= 64)
-    return f32_out ? launch_attention<2, true>(q, ci, sh, out, n_crops, S, H, D, st)
-                   : launch_attention<2, false>(q, ci, sh, out, n_crops, S, H, D, st);
-  return f32_out ? launch_attention<4, true>(q, ci, sh, out, n_crops, S, H, D, st)
-                 : launch_attention<4, false>(q, ci, sh, out, n_crops, S, H, D, st);
+    return dispatch_attention<2>(q, ci, sh, out, n_crops, S, H, D, scale, scaled, m_floor, f32_out,
+                                 st);
+  return dispatch_attention<4>(q, ci, sh, out, n_crops, S, H, D, scale, scaled, m_floor, f32_out,
+                               st);
 }

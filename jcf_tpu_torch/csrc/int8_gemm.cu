@@ -25,6 +25,11 @@
 //                                          c_proj after a dynamic hidden)
 //   EPI_F32         f32(acc * scale[n] + bias[n])  (c_fc before a dynamic
 //   EPI_F32_ROWS    f32(y_r)                        hidden quantization)
+// and, for the f32 int8 text tower, whose residual stream stays f32
+// through the halves (_attn_half_int8_kernel and _mlp_half_int8_kernel
+// add the f32 projection to r.astype(f32) and store in the rows' dtype):
+//   EPI_RESID_F32       f32(resid[m, n] + (acc * scale[n] + bias[n]))
+//   EPI_RESID_ROWS_F32  f32(resid + y_r)
 // Epilogue arithmetic uses the _rn intrinsics so it rounds exactly like
 // the separate elementwise ops of the reference and the plain version.
 //
@@ -43,7 +48,8 @@ namespace {
 
 enum {
   EPI_S32 = 0, EPI_BF16 = 1, EPI_RESID = 2, EPI_GELU_Q = 3, EPI_ROWSCALE = 4,
-  EPI_BF16_ROWS = 5, EPI_RESID_ROWS = 6, EPI_F32 = 7, EPI_F32_ROWS = 8
+  EPI_BF16_ROWS = 5, EPI_RESID_ROWS = 6, EPI_F32 = 7, EPI_F32_ROWS = 8, EPI_RESID_F32 = 9,
+  EPI_RESID_ROWS_F32 = 10
 };
 
 constexpr int BM = 128, BN = 128, BK = 64;
@@ -54,7 +60,7 @@ struct Epilogue {
   void* out;               // [M, N] int32 / bf16 / f32 / int8
   const float* scale;      // [N]
   const float* bias;       // [N]
-  const bf16* resid;       // [M, N]
+  const void* resid;       // [M, N] bf16, or f32 (EPI_RESID*_F32)
   const float* gelu_c;     // scalar: 0.851 / h_inv
   const float* row_scale;  // [M]
 };
@@ -72,7 +78,8 @@ __device__ __forceinline__ void store_pair(const Epilogue& ep, int m, int n, int
     a1 = __fmul_rn(a1, ep.row_scale[m]);
   }
   float y0 = __fmul_rn(a0, ep.scale[n]), y1 = __fmul_rn(a1, ep.scale[n + 1]);
-  if (EPI == EPI_BF16_ROWS || EPI == EPI_RESID_ROWS || EPI == EPI_F32_ROWS) {
+  if (EPI == EPI_BF16_ROWS || EPI == EPI_RESID_ROWS || EPI == EPI_F32_ROWS ||
+      EPI == EPI_RESID_ROWS_F32) {
     y0 = __fmul_rn(y0, ep.row_scale[m]);
     y1 = __fmul_rn(y1, ep.row_scale[m]);
   }
@@ -82,9 +89,14 @@ __device__ __forceinline__ void store_pair(const Epilogue& ep, int m, int n, int
     *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(ep.out) + idx) =
         __floats2bfloat162_rn(y0, y1);
   } else if (EPI == EPI_RESID || EPI == EPI_RESID_ROWS) {
-    const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(ep.resid + idx);
+    const __nv_bfloat162 r =
+        *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(ep.resid) + idx);
     *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(ep.out) + idx) =
         __floats2bfloat162_rn(__fadd_rn(__low2float(r), y0), __fadd_rn(__high2float(r), y1));
+  } else if (EPI == EPI_RESID_F32 || EPI == EPI_RESID_ROWS_F32) {
+    const float2 r = *reinterpret_cast<const float2*>(static_cast<const float*>(ep.resid) + idx);
+    *reinterpret_cast<float2*>(static_cast<float*>(ep.out) + idx) =
+        make_float2(__fadd_rn(r.x, y0), __fadd_rn(r.y, y1));
   } else if (EPI == EPI_F32 || EPI == EPI_F32_ROWS) {
     *reinterpret_cast<float2*>(static_cast<float*>(ep.out) + idx) = make_float2(y0, y1);
   } else {
@@ -191,7 +203,7 @@ extern "C" int jcf_int8_gemm(const void* A, const void* B, void* out, int M, int
                              void* stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   Epilogue ep{out, static_cast<const float*>(scale), static_cast<const float*>(bias),
-              static_cast<const bf16*>(resid), static_cast<const float*>(gelu_c),
+              resid, static_cast<const float*>(gelu_c),
               static_cast<const float*>(row_scale)};
   const int8_t* a = static_cast<const int8_t*>(A);
   const int8_t* b = static_cast<const int8_t*>(B);
@@ -208,6 +220,8 @@ extern "C" int jcf_int8_gemm(const void* A, const void* B, void* out, int M, int
     JCF_EPI(EPI_RESID_ROWS)
     JCF_EPI(EPI_F32)
     JCF_EPI(EPI_F32_ROWS)
+    JCF_EPI(EPI_RESID_F32)
+    JCF_EPI(EPI_RESID_ROWS_F32)
 #undef JCF_EPI
     default: return (int)cudaErrorInvalidValue;
   }

@@ -18,9 +18,10 @@
 // The TPU takes one softmax shift per head PAIR, over both heads' scores
 // and the zeroed pad keys' 0 (its paired MXU layout); the shift cancels
 // in real arithmetic but moves the rounding of p, so the loop keeps
-// exactly that shift: floor = 0 where the reference pads the keys (every
-// int8 dense tower; the float towers where S is not a multiple of 8),
-// -inf where it does not. With a calibrated shift the TPU takes no max at
+// exactly that shift: floor = 0 where the reference pads the keys (the
+// int8 dense route, S not a multiple of 16; the float towers where S is
+// not a multiple of 8), -inf where it does not (the int8 non-dense route
+// at S a multiple of 16, the float towers at a multiple of 8). With a calibrated shift the TPU takes no max at
 // all (_paired_attention_nomask, score_shift).
 //
 // One warp per query row (rows warp, warp + n_warps, ...), lanes over keys

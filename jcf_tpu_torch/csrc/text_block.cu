@@ -1,5 +1,7 @@
 // K6a row and attention kernels of the unquantized tower halves (the text
-// tower in bf16 and f32, the float vision towers in bf16 and f32).
+// tower in bf16 and f32, the float vision towers in bf16 and f32), and
+// the masked attention of the int8 halves (K3 with use_mask=True: the
+// int8 text tower, odd head counts).
 //
 // The TPU runs each half of a layer as one Pallas kernel
 // (jcf_tpu/ops/block_kernel.py::_attn_half_kernel and ::_mlp_half_kernel)
@@ -54,21 +56,32 @@ __global__ void __launch_bounds__(LNA_WARPS * 32) ln_affine_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// causal self-attention over one prompt and one head
+// per-head attention under a mask (causal, or none) over one sequence
 // ---------------------------------------------------------------------------
 //
-// Replaces the attention section of _attn_half_kernel (_batched_attention
-// -> _paired_attention with the additive causal mask). Per head, for query
-// row i and keys j <= i (the mask's -inf above the diagonal; the TPU's pad
-// keys carry -1e30 and never reach real rows, so the port does not pad):
-//   s   = (q . k) * scale              (T inputs, f32 sums; 1/sqrt(d) not folded)
+// Replaces the masked attention of the halves, _batched_attention with
+// use_mask=True: _paired_attention (an even head count) or the per-head
+// loop (block_kernel.py:203-225, an odd head count) with the additive
+// bias. For query row i and head h, over keys j <= i (CAUSAL: the mask's
+// -inf above the diagonal) or all S keys (no mask: an odd head count
+// without one, where the bias is 0 on real keys; the TPU's pad keys
+// carry -1e30, score exactly 0 after exp and never reach real rows, so
+// the port does not pad):
+//   s   = (q . k) [* scale]            (T inputs, f32 sums; SCALED: the
+//                                       unfolded 1/sqrt(d) after the sum,
+//                                       none where the folded q carries it)
 //   m   = max_j s                      (per head: no pair shift here)
 //   p   = exp(s - m),  l = sum_j p     (f32)
-//   ctx = T(sum_j T(p / l) v_j)        (normalized p cast to T for PV)
-// The TPU pairs two heads per 128-lane MXU pass with per-half masked
-// reductions; that is exact per head, so a block owns one head.
+//   ctx = sum_j T(p / l) v_j           (normalized p cast to T for PV)
+// stored as O: T (the float halves, K6a), f32 (the int8 halves'
+// dynamic context, quantized per row after), or int8(round(ctx *
+// ctx_inv)) (a static context scale, post-multiplied as the masked path
+// does, block_kernel.py:186-189). The TPU pairs two heads per 128-lane
+// MXU pass with per-half masked reductions; that is exact per head, so a
+// block owns one head. With the int8 halves T is bf16, the qkv of the
+// int8 GEMM.
 //
-// Bound on the H100: at S = 77, D = 64 a (prompt, head) block's work is
+// Bound on the H100: at S = 77, D = 64 a (sequence, head) block's work is
 // small next to a tensor-core pipeline, so it runs on the CUDA cores from
 // shared memory (one warp per query row, lanes over keys for the scores
 // with K stored transposed, lanes over head dims for PV). qkv is read once
@@ -78,10 +91,19 @@ __global__ void __launch_bounds__(LNA_WARPS * 32) ln_affine_kernel(
 constexpr int CA_WARPS = 8;
 constexpr int CA_KEYS = 4;  // keys per lane: S <= 128
 
-template <typename T>
-__global__ void __launch_bounds__(CA_WARPS * 32) causal_attention_kernel(
-    const T* __restrict__ qkv,  // [n_seq * S, 3E]
-    T* __restrict__ out,        // [n_seq * S, E]
+__device__ __forceinline__ void store_head_ctx(float* o, float acc, float) { *o = acc; }
+__device__ __forceinline__ void store_head_ctx(bf16* o, float acc, float) {
+  *o = __float2bfloat16_rn(acc);
+}
+__device__ __forceinline__ void store_head_ctx(int8_t* o, float acc, float cinv) {
+  *o = round_clip_int8(__fmul_rn(acc, cinv));
+}
+
+template <typename T, typename O, bool CAUSAL, bool SCALED>
+__global__ void __launch_bounds__(CA_WARPS * 32) masked_attention_kernel(
+    const T* __restrict__ qkv,          // [n_seq * S, 3E]
+    const float* __restrict__ ctx_inv,  // scalar (int8 context)
+    O* __restrict__ out,                // [n_seq * S, E]
     int S, int H, int D, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
@@ -107,20 +129,22 @@ __global__ void __launch_bounds__(CA_WARPS * 32) causal_attention_kernel(
   }
   __syncthreads();
 
+  const float cinv = std::is_same<O, int8_t>::value ? *ctx_inv : 0.0f;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* pw = p_s + warp * S;
   for (int i = warp; i < S; i += CA_WARPS) {
     const T* qi = q_s + i * D;
+    const int n_keys = CAUSAL ? i + 1 : S;  // keys j < n_keys
     float s[CA_KEYS];
     float m = -INFINITY;
 #pragma unroll
     for (int kb = 0; kb < CA_KEYS; ++kb) {
       const int j = lane + 32 * kb;
       float acc = -INFINITY;
-      if (j <= i) {
+      if (j < n_keys) {
         acc = 0.0f;
         for (int d = 0; d < D; ++d) acc = fmaf(to_f(qi[d]), to_f(kt_s[d * S + j]), acc);
-        acc = __fmul_rn(acc, scale);
+        if (SCALED) acc = __fmul_rn(acc, scale);
       }
       s[kb] = acc;
       m = fmaxf(m, acc);
@@ -130,20 +154,20 @@ __global__ void __launch_bounds__(CA_WARPS * 32) causal_attention_kernel(
 #pragma unroll
     for (int kb = 0; kb < CA_KEYS; ++kb) {
       const int j = lane + 32 * kb;
-      s[kb] = j <= i ? expf(__fsub_rn(s[kb], m)) : 0.0f;
+      s[kb] = j < n_keys ? expf(__fsub_rn(s[kb], m)) : 0.0f;
       sum += s[kb];
     }
     sum = warp_sum(sum);
 #pragma unroll
     for (int kb = 0; kb < CA_KEYS; ++kb) {
       const int j = lane + 32 * kb;
-      if (j <= i) pw[j] = round_to<T>(__fdiv_rn(s[kb], sum));
+      if (j < n_keys) pw[j] = round_to<T>(__fdiv_rn(s[kb], sum));
     }
     __syncwarp();
     for (int d = lane; d < D; d += 32) {
       float acc = 0.0f;
-      for (int j = 0; j <= i; ++j) acc = fmaf(pw[j], to_f(v_s[j * D + d]), acc);
-      out[(seq * S + i) * E + head * D + d] = from_f<T>(acc);
+      for (int j = 0; j < n_keys; ++j) acc = fmaf(pw[j], to_f(v_s[j * D + d]), acc);
+      store_head_ctx(out + (seq * S + i) * E + head * D + d, acc, cinv);
     }
     __syncwarp();
   }
@@ -210,17 +234,27 @@ int launch_ln_affine(const void* x, const void* scale, const void* bias, void* o
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_causal(const void* qkv, void* out, int n_seq, int S, int H, int D, float scale,
-                  cudaStream_t stream) {
-  if (S < 1 || S > 32 * CA_KEYS || D % (16 / sizeof(T))) return (int)cudaErrorInvalidValue;
+template <typename T, typename O, bool CAUSAL, bool SCALED>
+int launch_masked(const void* qkv, const void* ctx_inv, void* out, int n_seq, int S, int H, int D,
+                  float scale, cudaStream_t stream) {
   const size_t smem = (size_t)3 * S * D * sizeof(T) + (size_t)CA_WARPS * S * sizeof(float);
-  const int err = set_smem(causal_attention_kernel<T>, smem);
+  const int err = set_smem(masked_attention_kernel<T, O, CAUSAL, SCALED>, smem);
   if (err) return err;
   const long long blocks = (long long)n_seq * H;
-  causal_attention_kernel<T><<<(unsigned)blocks, CA_WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), S, H, D, scale);
+  masked_attention_kernel<T, O, CAUSAL, SCALED><<<(unsigned)blocks, CA_WARPS * 32, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const float*>(ctx_inv), static_cast<O*>(out), S, H,
+      D, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T, typename O>
+int dispatch_masked(const void* qkv, const void* ctx_inv, void* out, int n_seq, int S, int H,
+                    int D, float scale, int causal, int scaled, cudaStream_t st) {
+  if (causal)
+    return scaled ? launch_masked<T, O, true, true>(qkv, ctx_inv, out, n_seq, S, H, D, scale, st)
+                  : launch_masked<T, O, true, false>(qkv, ctx_inv, out, n_seq, S, H, D, scale, st);
+  return scaled ? launch_masked<T, O, false, true>(qkv, ctx_inv, out, n_seq, S, H, D, scale, st)
+                : launch_masked<T, O, false, false>(qkv, ctx_inv, out, n_seq, S, H, D, scale, st);
 }
 
 template <int KB, typename T>
@@ -246,11 +280,27 @@ extern "C" int jcf_ln_affine(const void* x, const void* scale, const void* bias,
              : launch_ln_affine<bf16>(x, scale, bias, out, M, E, st);
 }
 
-extern "C" int jcf_causal_attention(const void* qkv, void* out, int n_seq, int S, int H, int D,
-                                    float scale, int f32, void* stream) {
+// f32: f32 rows (the context in f32), else bf16 rows with the context
+// stored as out_kind: 0 bf16, 1 f32, 2 int8 x ctx_inv. causal: the causal
+// mask, else none; scaled: the scores x scale
+extern "C" int jcf_masked_attention(const void* qkv, const void* ctx_inv, void* out, int n_seq,
+                                    int S, int H, int D, float scale, int causal, int scaled,
+                                    int f32, int out_kind, void* stream) {
+  if (S < 1 || S > 32 * CA_KEYS || D % (f32 ? 4 : 8) || (f32 && out_kind != 0) || out_kind < 0 ||
+      out_kind > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return f32 ? launch_causal<float>(qkv, out, n_seq, S, H, D, scale, st)
-             : launch_causal<bf16>(qkv, out, n_seq, S, H, D, scale, st);
+  if (f32)
+    return dispatch_masked<float, float>(qkv, ctx_inv, out, n_seq, S, H, D, scale, causal, scaled,
+                                         st);
+  if (out_kind == 0)
+    return dispatch_masked<bf16, bf16>(qkv, ctx_inv, out, n_seq, S, H, D, scale, causal, scaled,
+                                       st);
+  if (out_kind == 1)
+    return dispatch_masked<bf16, float>(qkv, ctx_inv, out, n_seq, S, H, D, scale, causal, scaled,
+                                        st);
+  return dispatch_masked<bf16, int8_t>(qkv, ctx_inv, out, n_seq, S, H, D, scale, causal, scaled,
+                                       st);
 }
 
 // floor: 0 where the reference pads the keys, -inf where it does not

@@ -78,7 +78,7 @@ from jcf_tpu_torch.models.clip import (
 )
 from jcf_tpu_torch.ops.assemble_kernel import assemble_dense_rows, make_cls_row
 from jcf_tpu_torch.ops.attention import BLOCKED_MIN_SEQ
-from jcf_tpu_torch.ops.block_kernel import check_dense_tower, run_fused_tower
+from jcf_tpu_torch.ops.block_kernel import dense_rows_eligible, run_fused_tower
 from jcf_tpu_torch.ops.int8_gemm import int8_gemm_s32
 from jcf_tpu_torch.ops.layers import l2_normalize
 from jcf_tpu_torch.ops.quant import quantize_clip_params, true_div
@@ -168,6 +168,14 @@ class TTAEngine:
             # the composable tower: the unfolded tree from the f32 params
             self._quant = quantize_clip_params({"visual": tree_to(v, dev)}, fold=False)["visual"]
             return
+        if not dense_rows_eligible(cfg.vision_seq_len, cfg.vision_heads):
+            # the JAX engine's route for these towers skips the row assembly
+            # (jcf_tpu/infer/engine.py:491-501); ROADMAP.md, Queue 1 item 5
+            raise ValueError(
+                f"{cfg.vision_heads} heads, S = {cfg.vision_seq_len}: the int8 engine assembles "
+                f"dense rows, the reference's route for an even head count (an odd one takes the "
+                f"masked attention, use_mask=True) and S not a multiple of 16; the engine's "
+                f"non-assembled route is not ported")
         params_dev = {"visual": tree_to(v, dev)}
         act_scales, act_static_ = None, ()
         if calibration_images is not None:
@@ -177,10 +185,9 @@ class TTAEngine:
                                     with_scores=with_scores)
             act_scales = {"visual": amax}
         self._quant = quantize_clip_params(
-            params_dev, heads={"visual": cfg.vision_heads}, act_scales=act_scales,
+            params_dev, fold=True, heads={"visual": cfg.vision_heads}, act_scales=act_scales,
             act_static=act_static_,
         )["visual"]
-        check_dense_tower(self._quant, cfg.vision_seq_len, cfg.vision_heads)
         bf16 = self._params["visual"]
         self._pos_tail = bf16["positional_embedding"][1:].contiguous()
         self._ln_pre = bf16["ln_pre"]

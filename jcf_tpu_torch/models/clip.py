@@ -1,8 +1,8 @@
 """CLIP pieces of ``jcf_tpu/models/clip.py`` in PyTorch: the ViT pieces
-of the serving path, the text tower (``encode_text``) and the composable
-towers (``encode_image``, ``encode_image_tokens``, ``encode_text`` with a
-LoRA context) of LoRA training and of serving from 128 tokens on, whose
-attention is K7 below 128 tokens and K8 from 128 on
+of the serving path, the text tower (``encode_text``, float or int8) and
+the composable towers (``encode_image``, ``encode_image_tokens``,
+``encode_text`` with a LoRA context) of LoRA training and of serving from
+128 tokens on, whose attention is K7 below 128 tokens and K8 from 128 on
 (``ops.attention.multi_head_attention``).
 
 Parameters are plain nested dicts of tensors with the JAX tree's keys and
@@ -183,38 +183,36 @@ def _run_blocks(x: torch.Tensor, blocks: dict, n_heads: int, mask: Optional[torc
     """The stacked residual blocks over [B, S, E] activations (``jcf_tpu``'s
     ``_run_blocks``).
 
-    A folded int8 tree (``quant["quant_folded"]``, serving only) takes the
-    fused tower, ``ops.block_kernel.run_fused_tower`` on the flat rows with
-    every row returned, as the JAX function's fused gate does below 128
-    tokens without a mask or a LoRA context; anywhere else it raises.
-    Without a quant tree or a LoRA context, below 128 tokens, the same gate
-    takes the unquantized fused tower (``run_float_tower``, bf16 or f32):
-    causal when ``mask`` is given (the only mask here is the causal one),
-    mask-free over head pairs otherwise. It does so on every device, on the
-    plain versions on the CPU. A mask-free tower with an odd head count
-    (the reference's per-head masked attention, ROADMAP.md Queue 2) stays
-    on the composable route, which computes the same function.
+    Below 128 tokens without a LoRA context the JAX function's fused gate
+    (``jcf_tpu/models/clip.py:209-222``, on its chip) takes the fused
+    tower on every device (on the CPU through the plain versions), causal
+    when ``mask`` is given (the only mask here is the causal one): with a
+    quant tree, folded or unfolded, ``ops.block_kernel.run_fused_tower``
+    on the flat rows with every row returned (the int8 halves, K3 / K4;
+    the unfolded tree's LN affine from ``blocks``); without one the
+    unquantized ``run_float_tower`` (K6a / K6b, bf16 or f32).
 
     Otherwise the composable route: per layer ``x + mha(LN1 x)``, then
     ``x + mlp(LN2 x)``, in x's dtype. With ``lora_ctx``
     (``peft.lora.make_lora_context``) the layers its gates select add the
     decomposed LoRA branch; the others are unchanged (their branch would
     add zeros). With ``quant`` (the unfolded tree of
-    ``ops.quant.quantize_clip_params(fold=False)``, stacked like
-    ``blocks``) every projection is a dynamic per-row int8 linear."""
+    ``ops.quant.quantize_clip_params``, stacked like ``blocks``) every
+    projection is a dynamic per-row int8 linear. A folded tree is
+    serving-only and raises there."""
+    b, s, e = x.shape
+    if lora_ctx is None and s < 128:
+        causal = mask is not None
+        if quant is not None:
+            rows = run_fused_tower(x.reshape(b * s, e), quant, n_heads, flat_s=s, cls_only=False,
+                                   blocks=blocks, causal=causal)
+        else:
+            rows = run_float_tower(x.reshape(b * s, e), blocks, n_heads, s=s, causal=causal)
+        return rows.reshape(b, s, e)
     if quant is not None and quant.get("quant_folded", False):
-        b, s, e = x.shape
-        if s >= 128 or mask is not None or lora_ctx is not None:
-            raise ValueError("folded int8 trees are serving-only (the fused tower below 128 tokens, "
-                             "no mask, no LoRA); the composable path needs an unfolded "
-                             "quantize_clip_params(fold=False) tree")
-        rows = run_fused_tower(x.reshape(b * s, e), quant, n_heads, flat_s=s, cls_only=False)
-        return rows.reshape(b, s, e)
-    if (quant is None and lora_ctx is None and x.shape[1] < 128
-            and (mask is not None or n_heads % 2 == 0)):
-        b, s, e = x.shape
-        rows = run_float_tower(x.reshape(b * s, e), blocks, n_heads, s=s, causal=mask is not None)
-        return rows.reshape(b, s, e)
+        raise ValueError("folded int8 trees are serving-only (the fused tower below 128 tokens, "
+                         "no LoRA); the composable path needs an unfolded "
+                         "quantize_clip_params(fold=False) tree")
     for i in range(blocks["attn"]["w_qkv"].shape[0]):
         layer = layer_slice(blocks, i)
         q_layer = layer_slice(quant, i) if quant is not None else {"attn": None, "mlp": None}
@@ -251,11 +249,13 @@ def encode_image_tokens(params: dict, cfg: CLIPConfig, x: torch.Tensor, *,
     ``dtype``: CLS prepend, positional add, the visual prompt tokens
     appended (``vpt``), ln_pre, the residual blocks, ln_post on the CLS
     row, proj. The blocks are ``_run_blocks``'s: below 128 tokens without
-    a LoRA context or a quant tree the unquantized fused tower (K6a
-    mask-free, K6b); with the LoRA branch (``lora_ctx``) or the unfolded
-    ``quant`` tree (dynamic int8 projections) the composable tower, whose
-    attention is K7 below 128 tokens and K8 from 128 on. In f32 it is the
-    reference the int8 path is certified against."""
+    a LoRA context the fused tower, unquantized (K6a, K6b) or with the
+    ``quant`` tree (K3, K4; the unfolded tree's dynamic scales, or the
+    folded tree's); with the LoRA branch (``lora_ctx``), or from 128
+    tokens on with the unfolded tree (dynamic int8 projections), the
+    composable tower, whose attention is K7 below 128 tokens and K8 from
+    128 on. In f32 it is the reference the int8 path is certified
+    against."""
     v = params["visual"]
     if "vpt_deep" in v:
         raise NotImplementedError("deep visual prompts are not ported")
@@ -280,41 +280,49 @@ def encode_cls_tail(params: dict, cls_rows: torch.Tensor) -> torch.Tensor:
 
 
 def encode_text_embeddings(params: dict, cfg: CLIPConfig, embeddings: torch.Tensor,
-                           eot_positions: torch.Tensor, *, dtype: torch.dtype = torch.bfloat16,
-                           lora_ctx: Optional[dict] = None) -> torch.Tensor:
-    """Text features [B, embed_dim] in ``dtype`` from token embeddings
-    [B, S, tw]: embeddings + positions in ``dtype``, the causal tower,
-    ``ln_final`` on the EOT rows (scale in f32, output in ``dtype``; the
-    LayerNorm is per row, so gathering first changes nothing), then
-    ``text_projection`` cast to ``dtype`` with an f32 product, cast back.
-    Runs where ``embeddings`` lie.
+                           eot_positions: torch.Tensor, *, dtype: torch.dtype = torch.float32,
+                           lora_ctx: Optional[dict] = None,
+                           quant: Optional[dict] = None) -> torch.Tensor:
+    """Text features [B, embed_dim] in ``dtype`` (f32 by default, as the
+    JAX package) from token embeddings [B, S, tw]: embeddings + positions
+    in ``dtype``, the causal tower, ``ln_final`` on the EOT rows (scale in
+    f32, output in ``dtype``; the LayerNorm is per row, so gathering first
+    changes nothing), then ``text_projection`` cast to ``dtype`` with an
+    f32 product, cast back. Runs where ``embeddings`` lie.
 
-    Without ``lora_ctx`` the tower is the causal K6a/K6b route of
-    ``_run_blocks`` in ``dtype`` (bf16 or f32). With it, the composable
-    route of LoRA training in ``dtype``: K7 with the causal mask and the
-    decomposed LoRA branch."""
+    Without ``lora_ctx`` the tower is the causal fused route of
+    ``_run_blocks`` in ``dtype`` (bf16 or f32): K6a/K6b, or with ``quant``
+    (``quantize_clip_params(params)["text"]``) the int8 halves K3/K4 with
+    the masked attention. With ``lora_ctx``, the composable route of LoRA
+    training in ``dtype``: K7 with the causal mask and the decomposed LoRA
+    branch (and int8 linears with an unfolded ``quant``)."""
     t = params["text"]
     if "ctx_deep" in t:
         raise NotImplementedError("deep text prompts are not ported")
     b, s, _ = embeddings.shape
     x = embeddings.to(dtype) + t["positional_embedding"].to(dtype)
-    x = _run_blocks(x, t["blocks"], cfg.text_heads, causal_mask(s, x.device), lora_ctx=lora_ctx)
+    x = _run_blocks(x, t["blocks"], cfg.text_heads, causal_mask(s, x.device), lora_ctx=lora_ctx,
+                    quant=quant)
     x = x[torch.arange(b, device=x.device), eot_positions]
     x = layer_norm(x, t["ln_final"]["scale"], t["ln_final"]["bias"])
     return torch.matmul(x.float(), t["text_projection"].to(dtype).float()).to(dtype)
 
 
 def encode_text(params: dict, cfg: CLIPConfig, token_ids, *, device="cuda",
-                dtype: torch.dtype = torch.bfloat16, lora_ctx: Optional[dict] = None) -> torch.Tensor:
+                dtype: torch.dtype = torch.float32, lora_ctx: Optional[dict] = None,
+                quant: Optional[dict] = None) -> torch.Tensor:
     """Text features [B, embed_dim] from token ids [B, context] (a tensor
     or numpy array), on ``device`` (``jcf_tpu`` ``encode_text``; without
-    ``lora_ctx`` its fused route in ``dtype``): the f32 token table gathered, the
-    EOT position at the argmax of the ids (EOT is the largest id). The
-    text params move to ``device`` unless they lie there already."""
+    ``lora_ctx`` its fused route in ``dtype``, f32 by default; int8 with
+    ``quant``, the text tree of ``ops.quant.quantize_clip_params``): the
+    f32 token table gathered, the EOT position at the argmax of the ids
+    (EOT is the largest id). The text params and ``quant`` move to
+    ``device`` unless they lie there already."""
     text = tree_to(params["text"], device)
     ids = torch.as_tensor(token_ids).to(device).long()
     return encode_text_embeddings({"text": text}, cfg, text["token_embedding"][ids],
-                                  ids.argmax(dim=-1), dtype=dtype, lora_ctx=lora_ctx)
+                                  ids.argmax(dim=-1), dtype=dtype, lora_ctx=lora_ctx,
+                                  quant=tree_to(quant, device) if quant is not None else None)
 
 
 def vision_ln_z_amax(params: dict, cfg: CLIPConfig, images: torch.Tensor, *,

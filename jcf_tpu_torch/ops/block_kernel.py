@@ -1,44 +1,57 @@
 """The tower halves and the loops over the towers
 (``jcf_tpu/ops/block_kernel.py``).
 
-int8 attention half (K3), on a flat dense row stream x [B' * S, E] bf16
-(S < 128, never a multiple of 16: the reference's dense route):
-  LN z-norm -> int8 quant (static ``ln_inv``, or dynamic per row) -> s8
-  qkv GEMM -> dequant (x the row scales) + bias -> bf16 -> per-crop
-  attention (q pre-scaled; shift max(0, pair max), or the calibrated
-  ``score_shift``; PV on unnormalized bf16 p; normalizer x ctx_inv) ->
-  int8 ctx (static ``ctx_inv``; or the f32 context quantized per row) ->
-  s8 out-proj -> dequant + bias + f32 residual -> bf16.
+int8 attention half (K3), on rows x [B' * S, E] in bf16 (the vision
+towers, a bf16 text tower) or f32 (the f32 text tower), S <= 127:
+  LN (the z-norm on the folded tree; with its affine on the unfolded
+  tree) -> int8 quant (static ``ln_inv``, or dynamic per row) -> s8 qkv
+  GEMM -> dequant (x the row scales) + bias -> bf16 -> per-crop attention
+  -> int8 ctx (static ``ctx_inv``; or the f32 context quantized per row)
+  -> s8 out-proj -> dequant + bias + f32 residual -> x's dtype.
+  The attention is the reference's mask-free paired one (an even head
+  count without a mask: scores x 1/sqrt(d) on the unfolded tree, the
+  folded q carries it; shift max(floor, pair max), floor 0 on the dense
+  route (S not a multiple of 16, whose zeroed pad keys score 0) and none
+  on the non-dense route (S a multiple of 16), or the calibrated
+  ``score_shift``; PV on unnormalized bf16 p; normalizer x ctx_inv), or
+  its masked one (``use_mask=True``: the causal text tower, or an odd
+  head count: per head, p normalized in f32 then cast to bf16 for PV,
+  the static ctx scale a post-multiply; no shift).
 int8 MLP half (K4):
-  LN z-norm -> int8 quant (static or dynamic) -> s8 c_fc, then either
+  LN (as in K3) -> int8 quant (static or dynamic) -> s8 c_fc, then either
   the static hidden scale h_inv folded in and QuickGELU (tanh form) in
   the quantized domain, or the f32 hidden, QuickGELU and a dynamic row
   quantization over all hidden columns -> int8 -> s8 c_proj -> dequant
-  (x the row scales) + bias + f32 residual -> bf16.
-int8 CLS-query attention half of the last layer (K5), S <= 64: K/V for
-  all rows, Q, attention, out-proj and residual for the CLS rows only,
-  in the same quantization modes.
+  (x the row scales) + bias + f32 residual -> x's dtype.
+int8 CLS-query attention half of the last layer (K5), dense route, S <=
+  64: K/V for all rows, Q, attention, out-proj and residual for the CLS
+  rows only, in the same quantization modes, folded or unfolded.
 float attention half (K6a), in the compute dtype T (bf16 or f32):
   LN (affine cast to T, f32 math) -> T qkv GEMM + f32 bias -> causal
-  attention (the text tower: f32 softmax per head, normalized p cast to T
-  for PV) or mask-free paired attention (the float vision towers: scores
-  x 1/sqrt(d), one shift per head pair, PV on unnormalized p in T) -> T
-  ctx -> out-proj + bias + f32 residual -> T.
+  attention (the text tower) or per-head attention without a mask (an
+  odd head count; both: f32 softmax per head, normalized p cast to T for
+  PV) or mask-free paired attention (the float vision towers: scores x
+  1/sqrt(d), one shift per head pair, PV on unnormalized p in T) -> T ctx
+  -> out-proj + bias + f32 residual -> T.
 float MLP half (K6b):
   LN -> c_fc + bias -> QuickGELU (tanh form, f32) -> T -> c_proj + bias +
   f32 residual -> T.
 
 Each half is a few kernel launches: the row kernels ``ln_quant``,
-``ln_quant_rows``, ``quant_rows`` and ``ln_affine``, the attention kernels
-``attention``, ``cls_attention`` (csrc/block.cu), ``causal_attention``
-and ``pair_attention`` (csrc/text_block.cu), and the GEMMs with fused
-epilogues (csrc/int8_gemm.cu; csrc/bf16_gemm.cu on the tensor cores and
-csrc/f32_gemm.cu on the CUDA cores for the float halves). Each wrapper launches its kernel
-for CUDA tensors and runs its plain version for CPU tensors. A static
-scale the tree lacks is dynamic. The folded tree's modes
-(``ops.quant.quantize_clip_params``): every scale dynamic; "ln" (static
-post-LN scales); "hidden" (+ the hidden's); "full" (+ the context's);
-each of the three optionally "+score" (the shift).
+``ln_quant_rows``, ``ln_affine_quant_rows``, ``quant_rows`` and
+``ln_affine``, the attention kernels ``attention``, ``cls_attention``
+(csrc/block.cu), ``masked_attention`` (its float variants
+``causal_attention`` and ``head_attention``) and ``pair_attention``
+(csrc/text_block.cu), and the GEMMs with fused epilogues
+(csrc/int8_gemm.cu; csrc/bf16_gemm.cu on the tensor cores and
+csrc/f32_gemm.cu on the CUDA cores for the float halves). Each wrapper
+launches its kernel for CUDA tensors and runs its plain version for CPU
+tensors. A static scale the tree lacks is dynamic. The folded tree's
+modes (``ops.quant.quantize_clip_params(fold=True)``): every scale
+dynamic; "ln" (static post-LN scales); "hidden" (+ the hidden's); "full"
+(+ the context's); each of the three optionally "+score" (the shift).
+The unfolded tree (``fold=False``) keeps every scale dynamic and reads
+the LN affine from the float blocks.
 
 Whole layers in one kernel (csrc/fused_layer.cu), the TPU's ``_FUSE``
 variants of the same math:
@@ -55,18 +68,22 @@ chunk order. The int8 kernels take the serving flags only (folded tree,
 static "full" scales, dense rows, mask-free attention, S <= 64) and
 refuse other trees on every device.
 
-``run_fused_tower`` is the dense mask-free route of the JAX function:
-folded weights in any of the modes above, ``cls_only`` or every row.
-Under ``_FUSE`` = "halves" (the default) each layer is K3 + K4, under
-"block" K9a and under "layer" K9d. With ``cls_only`` the last layer runs
-as the reference's ``_CLS_ATTNQ = True`` route: K5, then the MLP half on
-the CLS rows, for S <= 64; from 65 tokens on K3 on all rows, then K4 on
-the CLS rows. Under "stream" one K9c runs all layers on all rows.
+``run_fused_tower`` is the JAX function's int8 route: the dense route
+(an even head count without a mask, S not a multiple of 16) or the
+non-dense one (a mask, an odd head count, or S a multiple of 16), folded
+or unfolded trees in any of their modes, ``cls_only`` or every row.
+Under ``_FUSE`` = "halves" (the default) each layer is K3 + K4, on the
+dense route under "block" K9a, under "layer" K9d and under "stream" one
+K9c for every layer (the folded tree); the non-dense route runs the
+halves under "layer" and "stream", as the JAX package falls back. With
+``cls_only`` the dense route's last layer runs as the reference's
+``_CLS_ATTNQ = True`` route: K5, then the MLP half on the CLS rows, for S
+<= 64; from 65 tokens on K3 on all rows, then K4 on the CLS rows. The
+non-dense route runs every layer on every row, then takes the CLS rows.
 ``run_float_tower`` is its route without a quant tree, bf16 or f32,
-causal (``encode_text``) or mask-free (the float
-vision towers): the halves (K6a, K6b), or K9b per layer under "block"
-(bf16 only). The knobs are read at call time. The unfolded tree and the masked (``use_mask=True``) attention of
-the int8 kernels are not ported (ROADMAP.md).
+causal (``encode_text``) or mask-free (the float vision towers): the
+halves (K6a, K6b), or K9b per layer under "block" (bf16 only). The knobs
+are read at call time.
 """
 
 from __future__ import annotations
@@ -98,12 +115,20 @@ from jcf_tpu_torch.ops.layers import GELU_TANH_COEF, LN_EPS, layer_slice
 
 # launches of this module's kernels (CUDA tensors only); the int8 row and
 # attention kernels by variant: static scale, or dynamic (``*_rows``,
-# ``*_f32``: the f32 context before its row quantization)
-LAUNCHES = {"ln_quant": 0, "ln_quant_rows": 0, "quant_rows": 0, "gelu_quant_rows": 0,
-            "attention": 0, "attention_f32": 0, "cls_attention": 0, "cls_attention_f32": 0,
-            "ln_affine": 0, "ln_affine_f32": 0, "causal_attention": 0, "causal_attention_f32": 0,
-            "pair_attention_bf16": 0, "pair_attention_f32": 0, "block_int8": 0,
-            "layer_fused_int8": 0, "stream_tower_int8": 0, "block_bf16": 0}
+# ``*_f32``: the f32 context before its row quantization); the unfolded
+# tree's (``ln_affine_quant_rows``, ``*_scaled``: the scores x 1/sqrt(d));
+# f32 rows (``*_f32`` of the LN kernels); the masked attention of the
+# int8 halves (``masked_attention``) and of the float halves
+# (``causal_attention``, and ``head_attention`` without a mask)
+LAUNCHES = {"ln_quant": 0, "ln_quant_rows": 0, "ln_quant_f32": 0, "ln_quant_rows_f32": 0,
+            "ln_affine_quant_rows": 0, "ln_affine_quant_rows_f32": 0, "quant_rows": 0,
+            "gelu_quant_rows": 0, "attention": 0, "attention_f32": 0, "attention_scaled": 0,
+            "attention_scaled_f32": 0, "cls_attention": 0, "cls_attention_f32": 0,
+            "cls_attention_scaled": 0, "cls_attention_scaled_f32": 0, "masked_attention": 0,
+            "masked_attention_f32": 0, "ln_affine": 0, "ln_affine_f32": 0,
+            "causal_attention": 0, "causal_attention_f32": 0, "head_attention": 0,
+            "head_attention_f32": 0, "pair_attention_bf16": 0, "pair_attention_f32": 0,
+            "block_int8": 0, "layer_fused_int8": 0, "stream_tower_int8": 0, "block_bf16": 0}
 # the float kernels' variants by dtype: the launch count's suffix and the
 # C entries' f32 flag
 _FLOAT = {torch.bfloat16: ("", 0), torch.float32: ("_f32", 1)}
@@ -124,7 +149,7 @@ _LAYER_NSPLIT = 4
 
 
 # ---------------------------------------------------------------------------
-# LayerNorm z-norm + static quant
+# LayerNorm (z-norm, or with its affine) + int8 quant
 # ---------------------------------------------------------------------------
 
 
@@ -159,6 +184,14 @@ def ln_quant_rows_plain(x: torch.Tensor):
     return quant_rows_plain(_z_rows(x))
 
 
+def ln_affine_quant_rows_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
+    """``_ln_rows`` then ``_quant_rows`` (the unfolded tree's K3 / K4 / K5
+    head): the z-norm of bf16 or f32 rows x [M, E], then ``z * scale +
+    bias`` with the affine in f32 (a product and a sum, each rounded),
+    then ``quant_rows_plain`` -> (int8 [M, E], f32 row scales [M])."""
+    return quant_rows_plain(_z_rows(x) * scale.float() + bias.float())
+
+
 def gelu_quant_rows_plain(h: torch.Tensor):
     """QuickGELU (``_quick_gelu32``) then ``quant_rows_plain`` on the f32
     c_fc output."""
@@ -170,38 +203,60 @@ def _scalar(name: str, t, device) -> None:
         raise ValueError(f"{name} must be a one-element f32 tensor on {device}")
 
 
-def _ln_quant_launch(x: torch.Tensor, inv):
+def _ln_quant_launch(x: torch.Tensor, inv, affine=None):
+    """The LN + quant kernel on rows x [M, E] (bf16 or f32): the z-norm
+    with the static ``inv`` or per row, or, given ``affine`` (scale,
+    bias [E]), the LN with its affine in f32, per row."""
     m, e = x.shape
-    if x.dtype != torch.bfloat16 or e > 1024:
-        raise ValueError(f"ln_quant kernel takes bf16 rows with E <= 1024, got {x.dtype} E={e}")
+    if x.dtype not in _FLOAT or e > 1024:
+        raise ValueError(f"ln_quant kernel takes bf16 or f32 rows with E <= 1024, got {x.dtype} "
+                         f"E={e}")
+    suffix, f32 = _FLOAT[x.dtype]
     _scalar("inv", inv, x.device)
+    if affine is not None:
+        if inv is not None:
+            raise ValueError("the LN affine goes with dynamic row scales only")
+        affine = [t.float().contiguous() for t in affine]
+        if any(tuple(t.shape) != (e,) or t.device != x.device for t in affine):
+            raise ValueError(f"the LN scale and bias must be ({e},) on {x.device}")
     x = x.contiguous()
     out = torch.empty((m, e), dtype=torch.int8, device=x.device)
     scale = torch.empty(m, dtype=torch.float32, device=x.device) if inv is None else None
-    name = "ln_quant" if inv is not None else "ln_quant_rows"
+    name = ("ln_affine_quant_rows" if affine is not None
+            else "ln_quant" if inv is not None else "ln_quant_rows") + suffix
+    g, b = affine if affine is not None else (None, None)
     lib = _build.load()
-    err = lib.jcf_ln_quant(x.data_ptr(), inv.data_ptr() if inv is not None else None,
-                           out.data_ptr(), scale.data_ptr() if scale is not None else None, m, e,
-                           _build.stream_ptr(x.device))
+    err = lib.jcf_ln_quant(x.data_ptr(), *(t.data_ptr() if t is not None else None
+                                           for t in (g, b, inv, out, scale)),
+                           m, e, f32, _build.stream_ptr(x.device))
     _build.check(err, name)
     LAUNCHES[name] += 1
     return out, scale
 
 
 def ln_quant(x: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
-    """x [M, E] bf16, inv a one-element f32 tensor -> int8 [M, E]."""
+    """x [M, E] bf16 or f32, inv a one-element f32 tensor -> int8 [M, E]."""
     if not x.is_cuda:
         return ln_quant_plain(x, inv)
     return _ln_quant_launch(x, inv)[0]
 
 
 def ln_quant_rows(x: torch.Tensor):
-    """x [M, E] bf16 -> (int8 [M, E], f32 row scales [M]): the LN z-norm
-    and a dynamic per-row quantization (the same kernel as ``ln_quant``,
-    without a calibrated scale)."""
+    """x [M, E] bf16 or f32 -> (int8 [M, E], f32 row scales [M]): the LN
+    z-norm and a dynamic per-row quantization (the same kernel as
+    ``ln_quant``, without a calibrated scale)."""
     if not x.is_cuda:
         return ln_quant_rows_plain(x)
     return _ln_quant_launch(x, None)
+
+
+def ln_affine_quant_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
+    """x [M, E] bf16 or f32, the LN scale and bias [E] (any float dtype,
+    used in f32) -> (int8 [M, E], f32 row scales [M]): the LN with its
+    affine and a dynamic per-row quantization (the same kernel)."""
+    if not x.is_cuda:
+        return ln_affine_quant_rows_plain(x, scale, bias)
+    return _ln_quant_launch(x, None, (scale, bias))
 
 
 def quant_rows(x: torch.Tensor, *, gelu: bool = False):
@@ -231,19 +286,27 @@ def quant_rows(x: torch.Tensor, *, gelu: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def attention_plain(qkv: torch.Tensor, ctx_inv, s: int, n_heads: int, shift=None) -> torch.Tensor:
-    """Plain version of the attention kernel: qkv [B' * S, 3E] bf16 (q
-    pre-scaled by 1/sqrt(d)) -> the context [B' * S, E]: int8 with the
-    static ``ctx_inv`` folded into the normalizer, or, with ``ctx_inv``
-    None, f32 normalized by 1 / sum (the input of a dynamic row
-    quantization).
+def _score_scale(scale) -> str:
+    """The launch-count tag of a score scale: none on the folded tree."""
+    return "" if scale is None else "_scaled"
 
-    The softmax shift is max(0, max over the head PAIR's scores): the
+
+def attention_plain(qkv: torch.Tensor, ctx_inv, s: int, n_heads: int, shift=None, *,
+                    scale=None, floor: float = 0.0) -> torch.Tensor:
+    """Plain version of the attention kernel: qkv [B' * S, 3E] bf16 -> the
+    context [B' * S, E]: int8 with the static ``ctx_inv`` folded into the
+    normalizer, or, with ``ctx_inv`` None, f32 normalized by 1 / sum (the
+    input of a dynamic row quantization). The scores q.k in f32, x
+    ``scale`` where it is given (the unfolded tree's 1/sqrt(d); the folded
+    tree's q carries it).
+
+    The softmax shift is max(floor, max over the head PAIR's scores): the
     reference's paired TPU layout takes one max per pair over both heads
-    and the zeroed pad keys. The shift cancels in real arithmetic, but it
-    moves the bf16 rounding of p, so it is kept exactly. A calibrated
-    ``shift`` (one-element f32, the tree's ``score_shift``) replaces it,
-    with no max and no clamp."""
+    and, on its dense route, the zeroed pad keys' 0 (``floor`` 0; its
+    non-dense route at S a multiple of 16 has no pad keys: -inf). The
+    shift cancels in real arithmetic, but it moves the bf16 rounding of
+    p, so it is kept exactly. A calibrated ``shift`` (one-element f32, the
+    tree's ``score_shift``) replaces it, with no max and no clamp."""
     rows, e3 = qkv.shape
     e = e3 // 3
     d = e // n_heads
@@ -251,9 +314,11 @@ def attention_plain(qkv: torch.Tensor, ctx_inv, s: int, n_heads: int, shift=None
     t = qkv.float().reshape(b, s, 3, n_heads, d).permute(2, 0, 3, 1, 4)  # [3, B, H, S, D]
     q, k, v = t[0], t[1], t[2]
     scores = torch.matmul(q, k.transpose(-1, -2))  # [B, H, S, S]
+    if scale is not None:
+        scores = scores * scale
     pair = scores.reshape(b, n_heads // 2, 2, s, s)
     if shift is None:
-        m = pair.amax(dim=(2, 4), keepdim=True).clamp_min(0.0)
+        m = pair.amax(dim=(2, 4), keepdim=True).clamp_min(floor)
     else:
         m = shift.reshape(())
     p = torch.exp(pair - m).to(torch.bfloat16).float().reshape(b, n_heads, s, s)
@@ -266,11 +331,12 @@ def attention_plain(qkv: torch.Tensor, ctx_inv, s: int, n_heads: int, shift=None
     return torch.clamp(torch.round(ctx), -127, 127).to(torch.int8)
 
 
-def attention(qkv: torch.Tensor, ctx_inv, s: int, n_heads: int, shift=None) -> torch.Tensor:
+def attention(qkv: torch.Tensor, ctx_inv, s: int, n_heads: int, shift=None, *, scale=None,
+              floor: float = 0.0) -> torch.Tensor:
     """Attention wrapper: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. S <= 127, an even head count."""
     if not qkv.is_cuda:
-        return attention_plain(qkv, ctx_inv, s, n_heads, shift)
+        return attention_plain(qkv, ctx_inv, s, n_heads, shift, scale=scale, floor=floor)
     rows, e3 = qkv.shape
     e = e3 // 3
     d = e // n_heads
@@ -282,13 +348,14 @@ def attention(qkv: torch.Tensor, ctx_inv, s: int, n_heads: int, shift=None) -> t
     _scalar("ctx_inv", ctx_inv, qkv.device)
     _scalar("shift", shift, qkv.device)
     qkv = qkv.contiguous()
-    name = "attention" if ctx_inv is not None else "attention_f32"
+    name = "attention" + _score_scale(scale) + ("" if ctx_inv is not None else "_f32")
     out = torch.empty((rows, e), dtype=torch.int8 if ctx_inv is not None else torch.float32,
                       device=qkv.device)
     lib = _build.load()
     err = lib.jcf_attention(qkv.data_ptr(), ctx_inv.data_ptr() if ctx_inv is not None else None,
                             shift.data_ptr() if shift is not None else None, out.data_ptr(),
-                            rows // s, s, n_heads, d, int(ctx_inv is None),
+                            rows // s, s, n_heads, d, 1.0 if scale is None else scale,
+                            int(scale is not None), floor, int(ctx_inv is None),
                             _build.stream_ptr(qkv.device))
     _build.check(err, name)
     LAUNCHES[name] += 1
@@ -296,11 +363,13 @@ def attention(qkv: torch.Tensor, ctx_inv, s: int, n_heads: int, shift=None) -> t
 
 
 def cls_attention_plain(q: torch.Tensor, kv: torch.Tensor, ctx_inv, s: int, n_heads: int,
-                        shift=None) -> torch.Tensor:
+                        shift=None, *, scale=None) -> torch.Tensor:
     """Plain version of the CLS-query attention kernel (K5): q [B', E]
-    bf16 CLS queries (1/sqrt(d) folded), kv [B' * S, 2E] bf16 keys and
-    values of all rows -> the context [B', E], int8 with the static
-    ``ctx_inv`` folded into the normalizer, or f32 with ``ctx_inv`` None.
+    bf16 CLS queries, kv [B' * S, 2E] bf16 keys and values of all rows ->
+    the context [B', E], int8 with the static ``ctx_inv`` folded into the
+    normalizer, or f32 with ``ctx_inv`` None. The scores q.k in f32, x
+    ``scale`` where it is given (the unfolded tree; the folded q carries
+    1/sqrt(d)).
 
     The shift is the max over the head pair's scores and, when S < 64,
     the zero-padded keys' 0 (``_attn_cls_int8_kernel`` pads each head to
@@ -310,6 +379,8 @@ def cls_attention_plain(q: torch.Tensor, kv: torch.Tensor, ctx_inv, s: int, n_he
     d = e // n_heads
     k, v = kv.float().reshape(b, s, 2, n_heads, d).permute(2, 0, 3, 1, 4)  # [B, H, S, D]
     scores = torch.matmul(q.float().reshape(b, n_heads, 1, d), k.transpose(-1, -2))
+    if scale is not None:
+        scores = scores * scale
     pair = scores.reshape(b, n_heads // 2, 2, 1, s)
     if shift is not None:
         m = shift.reshape(())
@@ -328,11 +399,11 @@ def cls_attention_plain(q: torch.Tensor, kv: torch.Tensor, ctx_inv, s: int, n_he
 
 
 def cls_attention(q: torch.Tensor, kv: torch.Tensor, ctx_inv, s: int, n_heads: int,
-                  shift=None) -> torch.Tensor:
+                  shift=None, *, scale=None) -> torch.Tensor:
     """CLS-query attention wrapper: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors."""
     if not q.is_cuda:
-        return cls_attention_plain(q, kv, ctx_inv, s, n_heads, shift)
+        return cls_attention_plain(q, kv, ctx_inv, s, n_heads, shift, scale=scale)
     b, e = q.shape
     if (q.dtype != torch.bfloat16 or kv.dtype != torch.bfloat16 or e != 64 * n_heads
             or n_heads % 2 or s > CLS_MAX_SEQ or tuple(kv.shape) != (b * s, 2 * e)):
@@ -343,14 +414,16 @@ def cls_attention(q: torch.Tensor, kv: torch.Tensor, ctx_inv, s: int, n_heads: i
     _scalar("ctx_inv", ctx_inv, q.device)
     _scalar("shift", shift, q.device)
     q, kv = q.contiguous(), kv.contiguous()
-    name = "cls_attention" if ctx_inv is not None else "cls_attention_f32"
+    name = "cls_attention" + _score_scale(scale) + ("" if ctx_inv is not None else "_f32")
     out = torch.empty((b, e), dtype=torch.int8 if ctx_inv is not None else torch.float32,
                       device=q.device)
     lib = _build.load()
     err = lib.jcf_cls_attention(q.data_ptr(), kv.data_ptr(),
                                 ctx_inv.data_ptr() if ctx_inv is not None else None,
                                 shift.data_ptr() if shift is not None else None, out.data_ptr(),
-                                b, s, n_heads, int(ctx_inv is None), _build.stream_ptr(q.device))
+                                b, s, n_heads, 1.0 if scale is None else scale,
+                                int(scale is not None), int(ctx_inv is None),
+                                _build.stream_ptr(q.device))
     _build.check(err, name)
     LAUNCHES[name] += 1
     return out
@@ -397,50 +470,104 @@ def ln_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch
 
 
 def causal_attention_plain(qkv: torch.Tensor, s: int, n_heads: int) -> torch.Tensor:
-    """Plain version of the causal attention kernel (``_paired_attention``
-    with the additive causal mask, per head): qkv [B * S, 3E] bf16 or f32
-    -> context [B * S, E] in qkv's dtype."""
+    """Plain version of the causal attention of the float halves
+    (``_paired_attention`` with the additive causal mask, per head): qkv
+    [B * S, 3E] bf16 or f32 -> context [B * S, E] in qkv's dtype."""
     return bias_attention_plain(qkv, s, n_heads, causal_mask(s, qkv.device))
 
 
-def bias_attention_plain(qkv: torch.Tensor, s: int, n_heads: int, bias: torch.Tensor) -> torch.Tensor:
-    """``_paired_attention`` per head with an additive [S, S] f32 bias:
-    qkv [B * S, 3E] bf16 or f32 -> context [B * S, E] in qkv's dtype. f32
-    scores x 1/sqrt(d), the bias, a per-head max, exp and sum in f32, p /
-    sum in f32, then p in qkv's dtype for PV."""
+def _head_attention_plain(qkv: torch.Tensor, s: int, n_heads: int, bias, scale) -> torch.Tensor:
+    """Per-head softmax attention with an optional additive [S, S] f32
+    bias -> the f32 context [B * S, E]: f32 scores (x ``scale`` where it
+    is given), the bias, a per-head max, exp and sum in f32, p / sum in
+    f32, then p in qkv's dtype for PV with f32 sums."""
     rows, e3 = qkv.shape
     e = e3 // 3
     d = e // n_heads
     b = rows // s
-    dt = qkv.dtype
     q, k, v = qkv.float().reshape(b, s, 3, n_heads, d).permute(2, 0, 3, 1, 4)  # [B, H, S, D]
-    scores = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(d)) + bias
+    scores = torch.matmul(q, k.transpose(-1, -2))
+    if scale is not None:
+        scores = scores * scale
+    if bias is not None:
+        scores = scores + bias
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
-    ctx = torch.matmul(p.to(dt).float(), v)  # [B, H, S, D]
-    return ctx.to(dt).permute(0, 2, 1, 3).reshape(rows, e)
+    ctx = torch.matmul(p.to(qkv.dtype).float(), v)  # [B, H, S, D]
+    return ctx.permute(0, 2, 1, 3).reshape(rows, e)
 
 
-def causal_attention(qkv: torch.Tensor, s: int, n_heads: int) -> torch.Tensor:
-    """Causal attention wrapper (bf16 or f32): the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+def bias_attention_plain(qkv: torch.Tensor, s: int, n_heads: int, bias: torch.Tensor) -> torch.Tensor:
+    """``_paired_attention`` per head with an additive [S, S] f32 bias:
+    qkv [B * S, 3E] bf16 or f32 -> context [B * S, E] in qkv's dtype,
+    the scores x 1/sqrt(d)."""
+    d = qkv.shape[1] // 3 // n_heads
+    return _head_attention_plain(qkv, s, n_heads, bias, 1.0 / math.sqrt(d)).to(qkv.dtype)
+
+
+def masked_attention_plain(qkv: torch.Tensor, s: int, n_heads: int, *, causal: bool, scale=None,
+                           ctx_inv=None, f32_ctx: bool = False) -> torch.Tensor:
+    """Plain version of the masked attention kernel (``_batched_attention``
+    with ``use_mask=True``: ``_paired_attention``, or the per-head loop of
+    an odd head count): qkv [B * S, 3E] bf16 or f32, the causal mask or
+    none (the reference's bias is 0 on real keys; its pad keys carry
+    -1e30 and contribute exact zeros, so the port does not pad), the
+    scores x ``scale`` where it is given -> the context [B * S, E] in
+    qkv's dtype (the float halves), in f32 (``f32_ctx``: the int8 halves'
+    dynamic context), or ``int8(round(ctx * ctx_inv))`` (a static
+    context scale, post-multiplied)."""
+    bias = causal_mask(s, qkv.device) if causal else None
+    ctx = _head_attention_plain(qkv, s, n_heads, bias, scale)
+    if ctx_inv is not None:
+        return torch.clamp(torch.round(ctx * ctx_inv.reshape(())), -127, 127).to(torch.int8)
+    return ctx if f32_ctx else ctx.to(qkv.dtype)
+
+
+def masked_attention(qkv: torch.Tensor, s: int, n_heads: int, *, causal: bool, scale=None,
+                     ctx_inv=None, f32_ctx: bool = False) -> torch.Tensor:
+    """Masked attention wrapper: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. S <= 128, any head count, a head dim
+    divisible by 8; the f32 and int8 contexts from bf16 qkv only."""
     if not qkv.is_cuda:
-        return causal_attention_plain(qkv, s, n_heads)
+        return masked_attention_plain(qkv, s, n_heads, causal=causal, scale=scale,
+                                      ctx_inv=ctx_inv, f32_ctx=f32_ctx)
     rows, e3 = qkv.shape
     e = e3 // 3
     d = e // n_heads
-    suffix, f32 = _float_kind("causal attention", qkv)
-    if rows % s or s > 128 or d % 8 or e != d * n_heads:
-        raise ValueError(f"causal attention kernel takes S <= 128 and a head dim divisible by "
-                         f"8; got rows={rows}, S={s}, H={n_heads}, D={d}")
+    suffix, f32 = _float_kind("masked attention", qkv)
+    int8_path = ctx_inv is not None or f32_ctx
+    if rows % s or s > 128 or d % 8 or e != d * n_heads or (f32 and int8_path):
+        raise ValueError(f"masked attention kernel takes S <= 128, a head dim divisible by 8, and "
+                         f"bf16 qkv for an f32 or int8 context; got {qkv.dtype}, rows={rows}, "
+                         f"S={s}, H={n_heads}, D={d}")
+    _scalar("ctx_inv", ctx_inv, qkv.device)
+    if int8_path:
+        name, out_kind = ("masked_attention", 2) if ctx_inv is not None else ("masked_attention_f32", 1)
+        out_dtype = torch.int8 if ctx_inv is not None else torch.float32
+    else:
+        name, out_kind = ("causal_attention" if causal else "head_attention") + suffix, 0
+        out_dtype = qkv.dtype
     qkv = qkv.contiguous()
-    out = torch.empty((rows, e), dtype=qkv.dtype, device=qkv.device)
+    out = torch.empty((rows, e), dtype=out_dtype, device=qkv.device)
     lib = _build.load()
-    err = lib.jcf_causal_attention(qkv.data_ptr(), out.data_ptr(), rows // s, s, n_heads, d,
-                                   1.0 / math.sqrt(d), f32, _build.stream_ptr(qkv.device))
-    _build.check(err, "causal_attention" + suffix)
-    LAUNCHES["causal_attention" + suffix] += 1
+    err = lib.jcf_masked_attention(qkv.data_ptr(), ctx_inv.data_ptr() if ctx_inv is not None else None,
+                                   out.data_ptr(), rows // s, s, n_heads, d,
+                                   1.0 if scale is None else scale, int(causal),
+                                   int(scale is not None), f32, out_kind,
+                                   _build.stream_ptr(qkv.device))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
     return out
+
+
+def causal_attention(qkv: torch.Tensor, s: int, n_heads: int) -> torch.Tensor:
+    """Causal attention of the float halves (bf16 or f32, the scores x
+    1/sqrt(d)): the masked attention kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if not qkv.is_cuda:
+        return causal_attention_plain(qkv, s, n_heads)
+    d = qkv.shape[1] // 3 // n_heads
+    return masked_attention(qkv, s, n_heads, causal=True, scale=1.0 / math.sqrt(d))
 
 
 def _pad_floor(s: int) -> float:
@@ -504,9 +631,15 @@ def pair_attention(qkv: torch.Tensor, s: int, n_heads: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _ln_quant_any(x: torch.Tensor, inv):
-    """LN z-norm and int8 quant with the static scale ``inv`` -> (int8,
-    None), or without one (None) per row -> (int8, row scales)."""
+def _ln_quant_any(x: torch.Tensor, inv, ln=None):
+    """The head of K3 / K4 / K5 -> (int8, row scales or None): the LN
+    z-norm with the static scale ``inv`` or per row (the folded tree), or
+    with ``ln`` ({"scale", "bias"}: the unfolded tree's LN affine) the LN
+    with its affine, per row."""
+    if ln is not None:
+        if inv is not None:
+            raise ValueError("the unfolded tree (an LN affine) carries no static scales")
+        return ln_affine_quant_rows(x, ln["scale"], ln["bias"])
     return (ln_quant(x, inv), None) if inv is not None else ln_quant_rows(x)
 
 
@@ -516,29 +649,53 @@ def _context(ctx: torch.Tensor, ctx_inv):
     return (ctx, None) if ctx_inv is not None else quant_rows(ctx)
 
 
-def attn_half_int8(x: torch.Tensor, attn: dict, s: int, n_heads: int) -> torch.Tensor:
-    """K3 on dense rows x [B' * S, E] bf16 with one layer's folded
-    attention weights -> x + attention(x), bf16. Static or dynamic LN
-    and context scales and an optional calibrated shift, as the layer's
-    tree carries them."""
-    x_q, x_sc = _ln_quant_any(x, attn.get("ln_inv"))
+def _unfolded_scale(ln, e: int, n_heads: int):
+    """The score scale of the int8 attention: 1/sqrt(d) on the unfolded
+    tree (``ln`` given), none on the folded tree (its q carries it)."""
+    return None if ln is None else 1.0 / math.sqrt(e // n_heads)
+
+
+def attn_half_int8(x: torch.Tensor, attn: dict, s: int, n_heads: int, *, ln=None,
+                   causal: bool = False, dense: bool = True) -> torch.Tensor:
+    """K3 on rows x [B' * S, E] (bf16 or f32) with one layer's attention
+    weights -> x + attention(x) in x's dtype. The folded tree (``ln``
+    None) with static or dynamic LN and context scales and an optional
+    calibrated shift, as the layer's tree carries them; or the unfolded
+    tree with ``ln`` (the layer's ``ln_1`` affine in x's dtype, as
+    ``_halves_block`` casts it), every scale dynamic, the scores x
+    1/sqrt(d).
+
+    The attention: ``causal`` or an odd head count takes the reference's
+    masked route (``use_mask=True``, no shift); else the mask-free paired
+    attention, its shift floored at 0 on the ``dense`` route (zeroed pad
+    keys) and not at all off it (S a multiple of 16)."""
+    x_q, x_sc = _ln_quant_any(x, attn.get("ln_inv"), ln)
     wq = attn["w_qkv"]
     qkv = int8_gemm_bf16(x_q, wq.w_int8, wq.w_scale, wq.bias, row_scale=x_sc)
     ctx_inv = attn.get("ctx_inv")
-    c_q, c_sc = _context(attention(qkv, ctx_inv, s, n_heads, attn.get("score_shift")), ctx_inv)
+    scale = _unfolded_scale(ln, x.shape[1], n_heads)
+    if causal or n_heads % 2:
+        ctx = masked_attention(qkv, s, n_heads, causal=causal, scale=scale, ctx_inv=ctx_inv,
+                               f32_ctx=ctx_inv is None)
+    else:
+        ctx = attention(qkv, ctx_inv, s, n_heads, attn.get("score_shift"), scale=scale,
+                        floor=0.0 if dense else -math.inf)
+    c_q, c_sc = _context(ctx, ctx_inv)
     wo = attn["w_out"]
     return int8_gemm_residual(c_q, wo.w_int8, wo.w_scale, wo.bias, x, row_scale=c_sc)
 
 
-def mlp_half_int8(x: torch.Tensor, mlp: dict) -> torch.Tensor:
-    """K4 on rows x [M, E] bf16 with one layer's folded MLP weights -> x +
-    mlp(x), bf16. A static hidden scale h_inv folds into the c_fc dequant
-    scale and bias (``_fold_h_static``), so the GEMM lands in the
-    quantized domain and QuickGELU runs there; without one the c_fc GEMM
-    writes the f32 hidden and QuickGELU and the row quantization over all
-    hidden columns follow in one row kernel."""
+def mlp_half_int8(x: torch.Tensor, mlp: dict, *, ln=None) -> torch.Tensor:
+    """K4 on rows x [M, E] (bf16 or f32) with one layer's MLP weights -> x
+    + mlp(x) in x's dtype; ``ln`` the unfolded tree's ``ln_2`` affine (in
+    x's dtype for the halves, the layer params' own for the CLS rows, as
+    ``_mlp_half_cls_rows`` takes it). A static hidden scale h_inv folds
+    into the c_fc dequant scale and bias (``_fold_h_static``), so the GEMM
+    lands in the quantized domain and QuickGELU runs there; without one
+    the c_fc GEMM writes the f32 hidden and QuickGELU and the row
+    quantization over all hidden columns follow in one row kernel."""
     fc, pr = mlp["c_fc"], mlp["c_proj"]
-    x_q, x_sc = _ln_quant_any(x, mlp.get("ln_inv"))
+    x_q, x_sc = _ln_quant_any(x, mlp.get("ln_inv"), ln)
     if "h_inv" in mlp:
         h_inv = mlp["h_inv"].reshape(())
         gelu_c = GELU_TANH_COEF / h_inv
@@ -550,21 +707,24 @@ def mlp_half_int8(x: torch.Tensor, mlp: dict) -> torch.Tensor:
     return int8_gemm_residual(h_q, pr.w_int8, pr.w_scale, pr.bias, x, row_scale=h_sc)
 
 
-def attn_cls_int8(x: torch.Tensor, attn: dict, s: int, n_heads: int) -> torch.Tensor:
-    """K5 on dense rows x [B' * S, E] bf16 (S <= 64) with the last layer's
-    folded attention weights -> the CLS rows of x + attention(x), [B', E]
-    bf16 (``_attn_cls_int8_kernel``). LN and quant run on all rows, K/V
+def attn_cls_int8(x: torch.Tensor, attn: dict, s: int, n_heads: int, *, ln=None) -> torch.Tensor:
+    """K5 on dense rows x [B' * S, E] (S <= 64) with the last layer's
+    attention weights -> the CLS rows of x + attention(x), [B', E] in x's
+    dtype (``_attn_cls_int8_kernel``). LN and quant run on all rows, K/V
     (rows e:3e of w_qkv) on all rows, Q (rows :e) on the CLS rows only,
-    with the CLS rows' scales where they are dynamic."""
+    with the CLS rows' scales where they are dynamic. ``ln`` as in
+    ``attn_half_int8`` (the unfolded tree: LN affine, scores x
+    1/sqrt(d))."""
     e = x.shape[1]
-    x_q, x_sc = _ln_quant_any(x, attn.get("ln_inv"))
+    x_q, x_sc = _ln_quant_any(x, attn.get("ln_inv"), ln)
     wq = attn["w_qkv"]
     kv = int8_gemm_bf16(x_q, wq.w_int8[e:], wq.w_scale[e:], wq.bias[e:], row_scale=x_sc)
     q = int8_gemm_bf16(x_q[::s].contiguous(), wq.w_int8[:e], wq.w_scale[:e], wq.bias[:e],
                        row_scale=x_sc[::s].contiguous() if x_sc is not None else None)
     ctx_inv = attn.get("ctx_inv")
-    c_q, c_sc = _context(cls_attention(q, kv, ctx_inv, s, n_heads, attn.get("score_shift")),
-                         ctx_inv)
+    ctx = cls_attention(q, kv, ctx_inv, s, n_heads, attn.get("score_shift"),
+                        scale=_unfolded_scale(ln, e, n_heads))
+    c_q, c_sc = _context(ctx, ctx_inv)
     wo = attn["w_out"]
     return int8_gemm_residual(c_q, wo.w_int8, wo.w_scale, wo.bias, x[::s].contiguous(),
                               row_scale=c_sc)
@@ -585,18 +745,23 @@ def attn_half(x: torch.Tensor, layer: dict, s: int, n_heads: int, *,
               causal: bool = True) -> torch.Tensor:
     """K6a on rows x [B * S, E] (S rows per sequence), bf16 or f32, with
     one layer's float block params -> x + attention(LN1(x)) in x's dtype:
-    causal (the text tower), or mask-free over head pairs (the float
-    vision towers). Weights and the LN affine are cast to x's dtype,
-    biases kept f32 (``_halves_block``)."""
+    causal (the text tower), or mask-free: over head pairs (the float
+    vision towers), per head for an odd head count (the reference's
+    ``use_mask=True`` route with a zero bias). Weights and the LN affine
+    are cast to x's dtype, biases kept f32 (``_halves_block``)."""
     dt = x.dtype
     gemm_bias, _, gemm_residual = _gemms(dt)
-    if not causal and n_heads % 2:
-        raise ValueError(f"{n_heads} heads: the mask-free attention pairs heads; an odd head count "
-                         f"takes the reference's per-head masked attention, which is not ported")
     ln, attn = layer["ln_1"], layer["attn"]
     h = ln_affine(x, ln["scale"].to(dt), ln["bias"].to(dt))
     qkv = gemm_bias(h, attn["w_qkv"].to(dt), attn["b_qkv"].float())
-    ctx = causal_attention(qkv, s, n_heads) if causal else pair_attention(qkv, s, n_heads)
+    if causal:
+        ctx = causal_attention(qkv, s, n_heads)
+    elif n_heads % 2:
+        # the reference's per-head masked route (use_mask=True), a zero bias
+        ctx = masked_attention(qkv, s, n_heads, causal=False,
+                               scale=1.0 / math.sqrt(x.shape[1] // n_heads))
+    else:
+        ctx = pair_attention(qkv, s, n_heads)
     return gemm_residual(ctx, attn["w_out"].to(dt), attn["b_out"].float(), x)
 
 
@@ -628,13 +793,15 @@ def _chunks(n: int, hidden: int) -> int:
     return n if hidden % n == 0 else 1
 
 
-def quant_flags(tree: dict) -> int:
+def quant_flags(tree: dict, *, dense: bool = True, use_mask: bool = False) -> int:
     """The reference kernels' options that an int8 tree (one layer or
-    stacked) selects on the dense mask-free row stream: folded where the
-    tree says so (``quant_folded``), static scales where it carries them,
-    a static softmax shift where it carries ``score_shift``."""
+    stacked) selects on a route: the dense row stream and the masked
+    attention as the route takes them (``run_fused_tower`` decides both),
+    folded where the tree says so (``quant_folded``), static scales where
+    it carries them, a static softmax shift where it carries
+    ``score_shift``."""
     attn, mlp = tree["attn"], tree["mlp"]
-    flags = FLAG_DENSE
+    flags = (FLAG_DENSE if dense else 0) | (FLAG_USE_MASK if use_mask else 0)
     if tree.get("quant_folded", False):
         flags |= FLAG_FOLDED
     if "ln_inv" in attn and "ln_inv" in mlp:
@@ -875,58 +1042,95 @@ def _fuse() -> str:
     return _FUSE
 
 
-def _halves_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Tensor:
-    return mlp_half_int8(attn_half_int8(x, layer["attn"], s, n_heads), layer["mlp"])
+def _halves_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int, lns=(None, None), *,
+                 causal: bool = False, dense: bool = True) -> torch.Tensor:
+    """K3 then K4 on one layer; ``lns`` the unfolded tree's (ln_1, ln_2)
+    affines in x's dtype, or (None, None) for the folded tree."""
+    mid = attn_half_int8(x, layer["attn"], s, n_heads, ln=lns[0], causal=causal, dense=dense)
+    return mlp_half_int8(mid, layer["mlp"], ln=lns[1])
 
 
-def check_dense_tower(quant: dict, s: int, n_heads: int) -> None:
-    """Raises unless the folded tree and the shape take the reference's
-    dense mask-free route, the only one ported: a folded tree, an even
-    head count (an odd one takes the masked ``use_mask=True`` attention),
-    S < 128, and S not a multiple of 16 (else the padded length equals S
-    and the reference takes its non-dense route)."""
-    if not quant.get("quant_folded", False):
-        raise ValueError("the fused tower takes a folded tree (quantize_clip_params(fold=True))")
-    if n_heads % 2:
-        raise ValueError(f"{n_heads} heads: an odd head count takes the reference's masked "
-                         f"attention (use_mask=True), which is not ported")
-    if s > MAX_SEQ or s % 16 == 0:
-        raise ValueError(f"S = {s}: the dense route needs S <= {MAX_SEQ} and S not a multiple of "
-                         f"16 (the non-dense padded route is not ported)")
+def dense_rows_eligible(s: int, n_heads: int) -> bool:
+    """True iff ``run_fused_tower`` takes the reference's dense route for a
+    mask-free tower of ``s`` tokens (``jcf_tpu`` ``dense_rows_eligible``):
+    an even head count (the paired attention) and S not a multiple of 16
+    (else the padded length equals S). The engine's row assembly (K2)
+    feeds that route only."""
+    return n_heads % 2 == 0 and s % 16 != 0
+
+
+def _layer_ln(blocks, i: int, name: str, dt):
+    """Layer i's LN affine ``name`` from the stacked float blocks, cast to
+    ``dt`` (None: as the blocks hold it)."""
+    ln = blocks[name]
+    return {k: ln[k][i] if dt is None else ln[k][i].to(dt) for k in ("scale", "bias")}
 
 
 def run_fused_tower(x: torch.Tensor, quant: dict, n_heads: int, *, flat_s: int,
-                    cls_only: bool = True) -> torch.Tensor:
-    """All layers over flat dense rows x [B' * S, E] bf16 -> the CLS rows
-    [B', E] (``cls_only``) or every row [B' * S, E].
+                    cls_only: bool = True, blocks: dict | None = None,
+                    causal: bool = False) -> torch.Tensor:
+    """All layers over flat rows x [B' * S, E] (bf16 or f32) -> the CLS
+    rows [B', E] (``cls_only``) or every row [B' * S, E], in x's dtype.
 
-    ``quant`` is a folded tree of ``quantize_clip_params`` (layers stacked
-    on the leading axis) in any of its quantization modes. Under ``_FUSE``
-    = "halves", "block" or "layer" the layers run on all rows (K3 + K4,
-    K9a or K9d). With ``cls_only`` the last layer's MLP half runs on the
-    CLS rows only, since nothing downstream reads the other rows, after K5
-    (the CLS rows attend to every token) for S <= 64, or after K3 on all
-    rows from 65 tokens on (the reference's ``_CLS_ATTNQ`` gate). Under
-    "stream" one K9c runs every layer on every row.
+    ``quant`` is a tree of ``quantize_clip_params`` (layers stacked on the
+    leading axis): folded in any of its modes, or unfolded, whose LN
+    affine the halves read from the stacked float ``blocks`` (the JAX
+    function's ``stacked_blocks``; not read for a folded tree). ``causal``
+    is the text tower's mask, the only mask the towers take.
+
+    The route is the reference's: dense (no mask, an even head count, S
+    not a multiple of 16) or not. On the dense route, under ``_FUSE`` =
+    "halves" each layer is K3 + K4, under "block" K9a and under "layer"
+    K9d (the folded tree); with ``cls_only`` the last layer's MLP half
+    runs on the CLS rows only, since nothing downstream reads the other
+    rows, after K5 (the CLS rows attend to every token) for S <= 64, or
+    after K3 on all rows from 65 tokens on (the reference's
+    ``_CLS_ATTNQ`` gate); under "stream" one K9c runs every layer on
+    every row. The non-dense route (the masked attention of a causal or
+    odd-head tower, or the mask-free one at S a multiple of 16) runs the
+    halves on every row of every layer, under "layer" and "stream" too,
+    then takes the CLS rows. What the TPU runs as K9a/c/d off the serving
+    flags ("block" off the dense folded route, "layer" and "stream" on an
+    unfolded dense tree) raises ``NotImplementedError``.
     """
     s = flat_s
-    check_dense_tower(quant, s, n_heads)
+    folded = quant.get("quant_folded", False)
+    if not folded and blocks is None:
+        raise ValueError("an unfolded tree takes its LN affine from the float blocks: pass blocks")
+    use_mask = causal or n_heads % 2 == 1
+    dense = not use_mask and s % 16 != 0
     fuse = _fuse()
-    if fuse == "stream":
+    if (fuse == "block" and not dense) or (fuse != "halves" and dense and not folded):
+        raise NotImplementedError(
+            f"_FUSE = {fuse!r} on this tree ({'folded' if folded else 'unfolded'}, "
+            f"{'dense' if dense else 'non-dense'}{', masked' if use_mask else ''}) needs K9a/c/d "
+            f"off the serving flags, not ported (ROADMAP.md, Queue 2); run it under _FUSE = "
+            f"'halves'")
+    if fuse == "stream" and dense:
         out = stream_tower_int8(x, quant, n_heads, s=s)
         return out[::s].contiguous() if cls_only else out
-    layer_fn = {"halves": _halves_int8, "block": block_int8, "layer": layer_fused_int8}[fuse]
+    dt = x.dtype
     n_layers = quant["attn"]["w_qkv"].w_int8.shape[0]
-    for i in range(n_layers - 1 if cls_only else n_layers):
-        x = layer_fn(x, layer_slice(quant, i), s, n_heads)
-    if not cls_only:
-        return x
-    last = layer_slice(quant, n_layers - 1)
+    whole = {"block": block_int8, "layer": layer_fused_int8}
+    cls_route = cls_only and dense
+    for i in range(n_layers - 1 if cls_route else n_layers):
+        layer = layer_slice(quant, i)
+        if dense and fuse in whole:
+            x = whole[fuse](x, layer, s, n_heads)
+        else:
+            lns = (None, None) if folded else (_layer_ln(blocks, i, "ln_1", dt),
+                                               _layer_ln(blocks, i, "ln_2", dt))
+            x = _halves_int8(x, layer, s, n_heads, lns, causal=causal, dense=dense)
+    if not cls_route:
+        return x[::s].contiguous() if cls_only else x
+    last, i = layer_slice(quant, n_layers - 1), n_layers - 1
+    ln1 = None if folded else _layer_ln(blocks, i, "ln_1", dt)
     if s <= CLS_MAX_SEQ:
-        mid = attn_cls_int8(x, last["attn"], s, n_heads)
+        mid = attn_cls_int8(x, last["attn"], s, n_heads, ln=ln1)
     else:
-        mid = attn_half_int8(x, last["attn"], s, n_heads)[::s].contiguous()
-    return mlp_half_int8(mid, last["mlp"])
+        mid = attn_half_int8(x, last["attn"], s, n_heads, ln=ln1)[::s].contiguous()
+    # the CLS rows' LN affine as the layer params hold it (_mlp_half_cls_rows)
+    return mlp_half_int8(mid, last["mlp"], ln=None if folded else _layer_ln(blocks, i, "ln_2", None))
 
 
 def run_float_tower(x: torch.Tensor, blocks: dict, n_heads: int, *, s: int,

@@ -5,8 +5,9 @@
 
 - ``int8_gemm_s32``: the raw int32 accumulators (patch embed);
 - ``int8_gemm_bf16``: ``bf16(acc * scale + bias)`` (qkv projection);
-- ``int8_gemm_residual``: ``bf16(resid + (acc * scale + bias))`` with the
-  residual add in f32 (out-proj, c_proj);
+- ``int8_gemm_residual``: ``resid + (acc * scale + bias)`` with the
+  residual add in f32, stored in the residual's dtype (out-proj, c_proj):
+  bf16, or f32 for the f32 int8 text tower (``<name>_f32``);
 - ``int8_gemm_gelu_quant``: ``int8(round(h * (0.5 + 0.5 tanh(c h))))``,
   ``h = acc * scale + bias`` (c_fc with the static hidden scale folded,
   ``jcf_tpu`` ``_gelu_quant_static``);
@@ -34,7 +35,8 @@ import torch
 from jcf_tpu_torch import _build
 
 _EPILOGUES = {"s32": 0, "bf16": 1, "residual": 2, "gelu_quant": 3, "rowscale": 4,
-              "bf16_rows": 5, "residual_rows": 6, "f32": 7, "f32_rows": 8}
+              "bf16_rows": 5, "residual_rows": 6, "f32": 7, "f32_rows": 8, "residual_f32": 9,
+              "residual_f32_rows": 10}
 # launches of the GEMM kernel, by epilogue
 LAUNCHES = {f"int8_gemm_{e}": 0 for e in _EPILOGUES}
 
@@ -71,7 +73,7 @@ def int8_gemm_bf16_plain(a, w, scale, bias, row_scale=None):
 
 def int8_gemm_residual_plain(a, w, scale, bias, resid, row_scale=None):
     y = dequant_plain(int8_matmul_plain(a, w), scale, bias, row_scale)
-    return (resid.float() + y).to(torch.bfloat16)
+    return (resid.float() + y).to(resid.dtype)
 
 
 def int8_gemm_f32_plain(a, w, scale, bias, row_scale=None):
@@ -98,7 +100,7 @@ def _launch(epilogue, a, w, out_dtype, *, scale=None, bias=None, resid=None, gel
     args = [a, w]
     for name, t, dt, shape in (("scale", scale, torch.float32, (n,)),
                                ("bias", bias, torch.float32, (n,)),
-                               ("resid", resid, torch.bfloat16, (m, n)),
+                               ("resid", resid, out_dtype, (m, n)),
                                ("gelu_c", gelu_c, torch.float32, None),
                                ("row_scale", row_scale, torch.float32, (m,))):
         if t is None:
@@ -138,10 +140,14 @@ def int8_gemm_bf16(a, w, scale, bias, row_scale=None):
 
 
 def int8_gemm_residual(a, w, scale, bias, resid, row_scale=None):
+    """The residual epilogue, bf16 or f32 as ``resid`` is."""
     if not a.is_cuda:
         return int8_gemm_residual_plain(a, w, scale, bias, resid, row_scale)
-    return _launch(_rows("residual", row_scale), a, w, torch.bfloat16, scale=scale, bias=bias,
-                   resid=resid, row_scale=row_scale)
+    if resid.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the residual epilogue takes a bf16 or f32 residual, not {resid.dtype}")
+    epi = "residual" if resid.dtype == torch.bfloat16 else "residual_f32"
+    return _launch(_rows(epi, row_scale), a, w, resid.dtype, scale=scale, bias=bias, resid=resid,
+                   row_scale=row_scale)
 
 
 def int8_gemm_f32(a, w, scale, bias, row_scale=None):

@@ -1,18 +1,23 @@
 """Int8 W8A8 quantization (``jcf_tpu/ops/quant.py``) in PyTorch.
 
-Weights: static per-output-channel symmetric int8 from |W|max. Two trees:
+Weights: static per-output-channel symmetric int8 from |W|max. Two trees
+per tower (the vision and the text tower):
 
-- folded (``fold=True``), the fused tower's below 128 tokens: the
+- unfolded (``fold=False``, the default, as in the JAX package): each
+  projection's weight and bias as they are. The fused tower below 128
+  tokens runs it with the LN affine and the 1/sqrt(d) score scale in its
+  kernels and every activation scale dynamic per row (the int8 text
+  tower and its classifier build, the unfolded vision tower); the
+  composable tower (from 128 tokens on, or under a LoRA context) with
+  ``int8_linear``, which quantizes its input rows dynamically;
+- folded (``fold=True``), the serving engine's below 128 tokens: the
   LayerNorm affine folds into the following projection and 1/sqrt(d)
   into the q third of ``w_qkv``. Its activation quantizations are
   dynamic per row, or, given calibrated amax, static per-layer scales
   folded into the weight dequant scales: the JAX engine's static modes
   "ln" (the post-LN inputs), "hidden" (+ the post-GELU hidden) and "full"
   (+ the attention context), each optionally with the calibrated softmax
-  shift ("+score");
-- unfolded (``fold=False``), the composable tower's from 128 tokens on:
-  each projection's weight and bias as they are, for ``int8_linear``,
-  which quantizes its input rows dynamically.
+  shift ("+score").
 
 Same formulas, margins and op order as the JAX package, so the int8
 weights are equal and the f32 scales agree to rounding (bitwise unfolded).
@@ -75,42 +80,9 @@ def int8_linear(x: torch.Tensor, q: QuantizedLinear) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], -1)
 
 
-def quantize_clip_params(params: dict, *, fold: bool = True, heads: dict | None = None,
-                         act_scales: dict | None = None,
-                         act_static: tuple = ("ctx", "hidden")) -> dict:
-    """Quantize the vision tower's block matmuls -> ``{"visual": tree}``.
-
-    Every tree says whether it is folded (``tree["quant_folded"]``), which
-    is what the towers dispatch on.
-
-    ``fold=True``: the folded tree of the fused tower; ``heads={"visual":
-    H}`` is required. Without ``act_scales`` every activation quantization
-    is dynamic per row. ``act_scales={"visual": amax}``, the calibrated
-    per-layer amax of ``models.clip.vision_ln_z_amax``, adds static scales:
-    [L, 2] (the LN-1 and LN-2 inputs) gives ``ln_inv``; [L, 4] (+ the
-    attention context and the post-GELU hidden) also ``ctx_inv`` and
-    ``h_inv`` as ``act_static`` names "ctx" and "hidden"; [L, 6] (+ the
-    score amax and the weakest row's score max, ``with_scores=True``) also
-    the max-free softmax shift ``score_shift`` when ``act_static`` names
-    "score". Each static scale's amax / 127 folds into the weight dequant
-    scale that consumes its quantized input.
-    ``fold=False``: the unfolded tree of the composable tower
-    (``{"attn": {"w_qkv", "w_out"}, "mlp": {"c_fc", "c_proj"}}`` of
-    ``QuantizedLinear``); nothing else is read. The text tower's trees of
-    the JAX package are not ported (ROADMAP.md).
-    """
-    blocks = params["visual"]["blocks"]
-    if not fold:
-        q = quantize_weight
-        return {"visual": {
-            "attn": {"w_qkv": q(blocks["attn"]["w_qkv"], blocks["attn"]["b_qkv"]),
-                     "w_out": q(blocks["attn"]["w_out"], blocks["attn"]["b_out"])},
-            "mlp": {"c_fc": q(blocks["mlp"]["c_fc"]["w"], blocks["mlp"]["c_fc"]["b"]),
-                    "c_proj": q(blocks["mlp"]["c_proj"]["w"], blocks["mlp"]["c_proj"]["b"])},
-            "quant_folded": False,
-        }}
-    n_heads = heads["visual"]
-
+def _fold_blocks(blocks: dict, n_heads: int, act, act_static) -> dict:
+    """The folded tree of one tower's stacked blocks (``quant_blocks`` of
+    the JAX function with ``fold=True``)."""
     w_qkv = blocks["attn"]["w_qkv"].float()  # [L, 3E, E]
     b_qkv = blocks["attn"]["b_qkv"].float()
     w_fc = blocks["mlp"]["c_fc"]["w"].float()
@@ -138,9 +110,9 @@ def quantize_clip_params(params: dict, *, fold: bool = True, heads: dict | None 
                                           blocks["mlp"]["c_proj"]["b"].float())},
         "quant_folded": True,
     }
-    if not act_scales:
-        return {"visual": tree}
-    a = torch.as_tensor(act_scales["visual"], dtype=torch.float32, device=w_qkv.device) * LN_MARGIN
+    if act is None:
+        return tree
+    a = torch.as_tensor(act, dtype=torch.float32, device=w_qkv.device) * LN_MARGIN
     attn, mlp = tree["attn"], tree["mlp"]
 
     def fold_scale(q: QuantizedLinear, amax: torch.Tensor) -> QuantizedLinear:
@@ -164,4 +136,46 @@ def quantize_clip_params(params: dict, *, fold: bool = True, heads: dict | None 
         # row's bf16 p stays above underflow), and not below 0
         shift = torch.minimum(true_div(a[:, 4], LN_MARGIN) - 40.0, a[:, 5] + 80.0)
         attn["score_shift"] = torch.clamp_min(shift, 0.0).reshape(-1, 1, 1)
-    return {"visual": tree}
+    return tree
+
+
+def quantize_clip_params(params: dict, *, fold: bool = False, heads: dict | None = None,
+                         act_scales: dict | None = None,
+                         act_static: tuple = ("ctx", "hidden")) -> dict:
+    """Quantize the towers' block matmuls -> ``{"visual": tree, "text":
+    tree}``, the JAX function's trees (one per tower of ``params``).
+
+    Every tree says whether it is folded (``tree["quant_folded"]``), which
+    is what the towers dispatch on.
+
+    ``fold=False`` (the default): the unfolded tree of every tower in
+    ``params`` (``{"attn": {"w_qkv", "w_out"}, "mlp": {"c_fc",
+    "c_proj"}}`` of ``QuantizedLinear``); nothing else is read.
+    ``fold=True``: the folded tree of each tower that ``heads`` names
+    with its head count ({"visual": H_v, "text": H_t}; the JAX function
+    needs both). Without ``act_scales`` every activation quantization is
+    dynamic per row. ``act_scales={tower: amax}``, the calibrated
+    per-layer amax (``models.clip.vision_ln_z_amax`` for the vision
+    tower), adds static scales: [L, 2] (the LN-1 and LN-2 inputs) gives
+    ``ln_inv``; [L, 4] (+ the attention context and the post-GELU hidden)
+    also ``ctx_inv`` and ``h_inv`` as ``act_static`` names "ctx" and
+    "hidden"; [L, 6] (+ the score amax and the weakest row's score max,
+    ``with_scores=True``) also the max-free softmax shift ``score_shift``
+    when ``act_static`` names "score". Each static scale's amax / 127
+    folds into the weight dequant scale that consumes its quantized input.
+    """
+    act_scales = act_scales or {}
+    if not fold:
+        q = quantize_weight
+        return {tower: {
+            "attn": {"w_qkv": q(b["attn"]["w_qkv"], b["attn"]["b_qkv"]),
+                     "w_out": q(b["attn"]["w_out"], b["attn"]["b_out"])},
+            "mlp": {"c_fc": q(b["mlp"]["c_fc"]["w"], b["mlp"]["c_fc"]["b"]),
+                    "c_proj": q(b["mlp"]["c_proj"]["w"], b["mlp"]["c_proj"]["b"])},
+            "quant_folded": False,
+        } for tower, b in ((t, params[t]["blocks"]) for t in ("visual", "text") if t in params)}
+    if not heads:
+        raise ValueError("fold=True needs heads={tower: head count} for the towers to fold")
+    return {tower: _fold_blocks(params[tower]["blocks"], heads[tower], act_scales.get(tower),
+                                act_static)
+            for tower in ("visual", "text") if tower in heads}

@@ -4,8 +4,12 @@ For each class: encode every template sentence, L2-normalize each
 embedding, average over the templates, normalize again; stack into [C, D]
 weights. All C * T prompts are tokenized once and encoded in batches of
 512 through the text tower (``models.clip.encode_text``, the K6a/K6b
-kernels on the card), in bf16 (the perf preset's compute dtype, the
-default here) or f32 (the reference preset's).
+kernels on the card), in f32 (the default, as the JAX package's, and the
+reference preset's compute dtype) or bf16 (the perf preset's); with
+``quant`` (``ops.quant.quantize_clip_params(params)["text"]``) the int8
+text tower (K3/K4 with the masked attention), a memory and latency
+option certified against the f32 classifier (rows cos > 0.99, as
+``tests/test_quant.py`` certifies the JAX package's).
 """
 
 from __future__ import annotations
@@ -26,31 +30,38 @@ def _mean(emb: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _encode_normalized(params: dict, cfg: CLIPConfig, ids, batch_size: int, device,
-                       dtype: torch.dtype) -> torch.Tensor:
+                       dtype: torch.dtype, quant) -> torch.Tensor:
     """L2-normalized text features of token ids [N, ctx], ``batch_size``
     prompts per tower call -> [N, D] in ``dtype`` on ``device``."""
     params = {"text": tree_to(params["text"], device)}
+    if quant is not None:
+        quant = tree_to(quant, device)
     ids = torch.as_tensor(ids)
     return torch.cat([l2_normalize(encode_text(params, cfg, ids[i : i + batch_size], device=device,
-                                               dtype=dtype))
+                                               dtype=dtype, quant=quant))
                       for i in range(0, ids.shape[0], batch_size)])
 
 
 def encode_class_templates(params: dict, cfg: CLIPConfig, token_ids, *, batch_size: int = 512,
-                           device="cuda", dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Template token ids [C, T, ctx] -> classifier weights [C, D] in ``dtype``."""
+                           device="cuda", dtype: torch.dtype = torch.float32,
+                           quant: dict | None = None) -> torch.Tensor:
+    """Template token ids [C, T, ctx] -> classifier weights [C, D] in
+    ``dtype``; int8 text tower with ``quant``."""
     c, t, ctx = token_ids.shape
-    emb = _encode_normalized(params, cfg, token_ids.reshape(c * t, ctx), batch_size, device, dtype)
+    emb = _encode_normalized(params, cfg, token_ids.reshape(c * t, ctx), batch_size, device, dtype,
+                             quant)
     return l2_normalize(_mean(emb.reshape(c, t, -1), 1))
 
 
 def build_classifier_weights(params: dict, cfg: CLIPConfig,
                              templates: Dict[int, List[str]] | Sequence[List[str]], *,
                              batch_size: int = 512, device="cuda",
-                             dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                             dtype: torch.dtype = torch.float32,
+                             quant: dict | None = None) -> torch.Tensor:
     """Classifier weights [C, D] in ``dtype`` from {class_id: [template
     strings]} (classes in key order) or a list of template lists. Classes
-    with different template counts average their own templates exactly."""
+    with different template counts average their own templates exactly.
+    ``quant``: the int8 text tree, as ``encode_class_templates``."""
     if isinstance(templates, dict):
         items = [templates[k] for k in sorted(templates.keys())]
     else:
@@ -59,10 +70,10 @@ def build_classifier_weights(params: dict, cfg: CLIPConfig,
         ids = np.stack([tokenize(v, context_length=cfg.context_length, truncate=True)
                         for v in items])  # [C, T, ctx]
         return encode_class_templates(params, cfg, ids, batch_size=batch_size, device=device,
-                                      dtype=dtype)
+                                      dtype=dtype, quant=quant)
     flat = [s for v in items for s in v]
     ids = tokenize(flat, context_length=cfg.context_length, truncate=True)
-    emb = _encode_normalized(params, cfg, ids, batch_size, device, dtype)
+    emb = _encode_normalized(params, cfg, ids, batch_size, device, dtype, quant)
     weights, offset = [], 0
     for v in items:
         weights.append(l2_normalize(_mean(emb[offset : offset + len(v)], 0)))

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Times K3's attention kernel (``ops.block_kernel.attention``) at the
-ViT-B/32 serving shapes, and K9b (``block_bf16``) on one text layer, on
+ViT-B/32 serving shapes, K6a's causal attention
+(``causal_attention``) and K9b (``block_bf16``) on one text layer, on
 one NVIDIA GPU.
 
-    python3 profile_attention.py        # from the repository root
+    python3 profile_attention.py [ROOT]   # from the repository root
 
 Seeded bf16 qkv rows of 12 heads of 64: 8192 crops of 50 tokens (224²,
 b1024 x 8 views) with the int8 context (a static scale) and the f32
 context (dynamic), and 2048 crops of 82 tokens (288², b256 x 8) with the
-int8 context. K9b: seed-0 weights of the ViT-B/32 text tower's layer 0
-on 512 prompts x 77 tokens (the classifier build's batch) with the
-causal mask. Prints the card and, per kernel and shape, the ms per
-launch (CUDA events, the median of ``ROUNDS`` rounds of ``REPS``
-launches) on one line each. To compare two builds, run it from both checkouts on the same card,
-alternating (A, B, B, A).
+int8 context. K6a causal: bf16 qkv of 512 prompts x 77 tokens, 8 heads
+of 64. K9b: seed-0 weights of the ViT-B/32 text tower's layer 0 on 512
+prompts x 77 tokens (the classifier build's batch) with the causal
+mask. Prints the card and, per kernel and shape, the ms per launch
+(CUDA events, the median of ``ROUNDS`` rounds of ``REPS`` launches) on
+one line each. ``ROOT`` (default: this script's directory) is the
+checkout whose ``jcf_tpu_torch`` is timed: to compare two builds, run it
+on both checkouts on the same card, alternating (A, B, B, A).
 """
 
 from __future__ import annotations
@@ -36,8 +39,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_attention: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(sys.argv[1]) if len(sys.argv) > 1 else ROOT)
     from jcf_tpu_torch.ops import block_kernel as bk
+
+    print(f"package: {os.path.dirname(os.path.dirname(os.path.abspath(bk.__file__)))}")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -51,6 +56,10 @@ def main() -> int:
         report(f"attention {crops} crops x S = {s}, {out} context",
                lambda: bk.attention(qkv, inv, s, HEADS))
         del qkv
+    qkv = torch.randn(PROMPTS * 77, 3 * 512, device=dev, generator=gen).bfloat16()
+    report(f"causal_attention {PROMPTS} prompts x S = 77, bf16",
+           lambda: bk.causal_attention(qkv, 77, 8))
+    del qkv
 
     from jcf_tpu_torch.models.clip import CLIPConfig, init_clip_params, tree_to
     from jcf_tpu_torch.ops.attention import causal_mask

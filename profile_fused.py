@@ -46,7 +46,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     params = init_clip_params(0, CLIPConfig(vision_layers=1))
     amax = torch.tensor([[6.0, 6.0, 3.0, 4.0]])
-    tree = quantize_clip_params(params, heads={"visual": 12}, act_scales={"visual": amax})["visual"]
+    tree = quantize_clip_params(params, fold=True, heads={"visual": 12}, act_scales={"visual": amax})["visual"]
     layer = {half: {k: (type(v)(*(t.to(dev) for t in v)) if isinstance(v, tuple) else v.to(dev))
                     for k, v in d.items()} for half, d in layer_slice(tree, 0).items()}
     x = torch.randn(CROPS * 50, 768, device=dev,

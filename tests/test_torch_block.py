@@ -45,7 +45,7 @@ def _quant_trees(seed):
     heads = {"visual": H, "text": 1}
     jq = jquant.quantize_clip_params(jp, fold=True, heads=heads, act_scales={"visual": amax},
                                      act_static=("ctx", "hidden"))["visual"]
-    tq = tquant.quantize_clip_params(tclip.params_from_numpy(jp), heads=heads,
+    tq = tquant.quantize_clip_params(tclip.params_from_numpy(jp), fold=True, heads=heads,
                                      act_scales={"visual": torch.tensor(amax)})["visual"]
     return jp, jq, tq
 

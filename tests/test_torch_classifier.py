@@ -62,7 +62,7 @@ def test_build_classifier_weights_matches_jax(seed, ragged):
     ref = np.asarray(j_build(jax.tree_util.tree_map(jnp.asarray, jp), jclip.CLIPConfig(**SMALL),
                              templates, dtype=jnp.bfloat16, impl="fused").astype(jnp.float32))
     got = build_classifier_weights(tclip.params_from_numpy(jp), tclip.CLIPConfig(**SMALL),
-                                   templates, device="cpu")
+                                   templates, device="cpu", dtype=torch.bfloat16)
     assert got.shape == (len(NAMES), SMALL["embed_dim"]) and got.dtype == torch.bfloat16
     got = got.float().numpy()
     np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-2)
@@ -74,8 +74,9 @@ def test_batching_does_not_change_the_weights():
     params = tclip.params_from_numpy(_params(2))
     cfg = tclip.CLIPConfig(**SMALL)
     templates = _templates(False)
-    whole = build_classifier_weights(params, cfg, templates, device="cpu")
-    parts = build_classifier_weights(params, cfg, templates, batch_size=5, device="cpu")
+    whole = build_classifier_weights(params, cfg, templates, device="cpu", dtype=torch.bfloat16)
+    parts = build_classifier_weights(params, cfg, templates, batch_size=5, device="cpu",
+                                     dtype=torch.bfloat16)
     assert torch.equal(whole, parts)
 
 

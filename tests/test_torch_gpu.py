@@ -151,7 +151,7 @@ def test_tower_kernels_vs_plain(cuda):
     cfg = CLIPConfig(vision_layers=2)
     params = init_clip_params(0, cfg)
     amax = torch.tensor([[6.0, 6.0, 3.0, 4.0]] * 2)
-    tree = quantize_clip_params(params, heads={"visual": 12}, act_scales={"visual": amax})["visual"]
+    tree = quantize_clip_params(params, fold=True, heads={"visual": 12}, act_scales={"visual": amax})["visual"]
     x = torch.randn(16 * 50, 768, generator=torch.Generator().manual_seed(0)).bfloat16()
     ref = bk.run_fused_tower(x, tree, 12, flat_s=50)
     got = bk.run_fused_tower(x.to(cuda), tree_to(tree, cuda), 12, flat_s=50).cpu()
@@ -364,7 +364,7 @@ def _int8_tree(width, layers=2):
 
     params = init_clip_params(0, CLIPConfig(vision_layers=layers, vision_width=width))
     amax = torch.tensor([[6.0, 6.0, 3.0, 4.0]] * layers)
-    return quantize_clip_params(params, heads={"visual": width // 64},
+    return quantize_clip_params(params, fold=True, heads={"visual": width // 64},
                                 act_scales={"visual": amax})["visual"]
 
 
@@ -492,10 +492,10 @@ def _mode_tree(mode):
 
     params = init_clip_params(0, CLIPConfig(vision_layers=2))
     if mode is None:
-        return quantize_clip_params(params, heads={"visual": 12})["visual"]
+        return quantize_clip_params(params, fold=True, heads={"visual": 12})["visual"]
     act_static, _ = static_act(mode)
     amax = torch.tensor([[6.0, 6.0, 3.0, 4.0, 43.0, -5.0], [6.0, 6.0, 3.0, 4.0, 44.0, -5.0]])
-    return quantize_clip_params(params, heads={"visual": 12}, act_scales={"visual": amax},
+    return quantize_clip_params(params, fold=True, heads={"visual": 12}, act_scales={"visual": amax},
                                 act_static=act_static)["visual"]
 
 
@@ -762,3 +762,200 @@ def test_unquantized_engine_on_the_card(cuda, dtype):
                 card.features_from_images(images.to(cuda), text, geometry=geo)
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# ---------------------------------------------------------------------------
+# the masked and unfolded int8 halves: kernel A (LN + its affine + row
+# quant), kernel B (masked attention), kernel C (f32 residual epilogues),
+# K3 / K5 attention with the unfolded score scale
+# ---------------------------------------------------------------------------
+
+
+def _launched(before):
+    return {k: bk.LAUNCHES[k] - before[k] for k in before if bk.LAUNCHES[k] != before[k]}
+
+
+@pytest.mark.parametrize("m,e,dtype", [(700, 768, torch.bfloat16), (333, 512, torch.float32),
+                                       (77, 192, torch.bfloat16)])
+def test_ln_affine_quant_rows_kernel(cuda, m, e, dtype):
+    """Kernel A vs its plain version: int8 within 1 on <= 1e-3 of the
+    elements (the f32 statistics sum in another order), scales within
+    1e-6 relative; the f32 rows' z-norm variants as well."""
+    g = torch.Generator(device=cuda).manual_seed(m + e)
+    x = (torch.randn(m, e, device=cuda, generator=g) * 3).to(dtype)
+    x[5] = 0.0
+    scale = (1 + 0.1 * torch.randn(e, device=cuda, generator=g)).to(dtype)
+    bias = (0.1 * torch.randn(e, device=cuda, generator=g)).to(dtype)
+    before = dict(bk.LAUNCHES)
+    pairs = [(bk.ln_affine_quant_rows(x, scale, bias), bk.ln_affine_quant_rows_plain(x, scale, bias)),
+             (bk.ln_quant_rows(x), bk.ln_quant_rows_plain(x))]
+    for (q, s), (q_ref, s_ref) in pairs:
+        _int8_close(q, q_ref, 1e-3)
+        assert bool(((s - s_ref).abs() <= 1e-6 * s_ref.abs()).all())
+    inv = torch.tensor([[20.0]], device=cuda)
+    _int8_close(bk.ln_quant(x, inv), bk.ln_quant_plain(x, inv), 1e-3)
+    sfx = "_f32" if dtype == torch.float32 else ""
+    assert _launched(before) == {f"ln_affine_quant_rows{sfx}": 1, f"ln_quant_rows{sfx}": 1,
+                                 f"ln_quant{sfx}": 1}
+
+
+@pytest.mark.parametrize("s,h,causal", [(77, 8, True), (17, 3, False), (50, 1, False)])
+@pytest.mark.parametrize("scaled", [True, False])
+def test_masked_attention_kernel(cuda, s, h, causal, scaled):
+    """Kernel B vs its plain version on bf16 qkv: the f32 context within
+    1e-5 + 1e-5 |ref| + 2^-7 sum_j p_j |v_j| (a p rounding to bf16 across
+    a tie), the int8 context within 1 on <= 1e-2; the float halves'
+    variants (bf16 within 1 ulp + 1e-3 + that slack, f32 within 1e-5)."""
+    g = torch.Generator(device=cuda).manual_seed(s + h)
+    e, seqs = 64 * h, 23
+    qkv = (torch.randn(seqs * s, 3 * e, device=cuda, generator=g) * 1.5).bfloat16()
+    sc = 0.125 if scaled else None
+    kw = dict(causal=causal, scale=sc)
+    absv = torch.cat([qkv[:, : 2 * e], qkv[:, 2 * e :].abs()], dim=1)
+    slack = 2.0**-7 * bk.masked_attention_plain(absv, s, h, f32_ctx=True, **kw)
+    before = dict(bk.LAUNCHES)
+    got = bk.masked_attention(qkv, s, h, f32_ctx=True, **kw)
+    ref = bk.masked_attention_plain(qkv, s, h, f32_ctx=True, **kw)
+    assert got.dtype == torch.float32
+    assert bool(((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs() + slack).all())
+    ctx_inv = torch.tensor([[30.0]], device=cuda)
+    _int8_close(bk.masked_attention(qkv, s, h, ctx_inv=ctx_inv, **kw),
+                bk.masked_attention_plain(qkv, s, h, ctx_inv=ctx_inv, **kw), 1e-2)
+    got, ref = bk.masked_attention(qkv, s, h, **kw), bk.masked_attention_plain(qkv, s, h, **kw)
+    d = (got.float() - ref.float()).abs()
+    assert bool((d <= 2.0**-7 * ref.float().abs().maximum(got.float().abs()) + 1e-3 + slack).all())
+    q32 = qkv.float()
+    _f32_close(bk.masked_attention(q32, s, h, **kw), bk.masked_attention_plain(q32, s, h, **kw))
+    name = "causal_attention" if causal else "head_attention"
+    assert _launched(before) == {"masked_attention_f32": 1, "masked_attention": 1, name: 1,
+                                 f"{name}_f32": 1}
+
+
+@pytest.mark.parametrize("m,n,k", [(200, 72, 96), (77, 512, 2048), (130, 768, 3072)])
+def test_int8_gemm_f32_residual_epilogues(cuda, m, n, k):
+    """Kernel C: the f32 residual epilogues with and without row scales,
+    in the fused tower's op order, within 1e-5 + 1e-5 |ref|."""
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    a = torch.randint(-127, 128, (m, k), device=cuda, generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), device=cuda, generator=g, dtype=torch.int8)
+    rows = torch.rand(m, device=cuda, generator=g) * 0.05
+    scale = torch.rand(n, device=cuda, generator=g) * 2e-4
+    bias = torch.randn(n, device=cuda, generator=g) * 0.1
+    resid = torch.randn(m, n, device=cuda, generator=g)
+    acc = ig.int8_matmul_plain(a, w)
+    before = dict(ig.LAUNCHES)
+    got = ig.int8_gemm_residual(a, w, scale, bias, resid, row_scale=rows)
+    assert got.dtype == torch.float32
+    _f32_close(got, resid + ig.dequant_plain(acc, scale, bias, rows))
+    _f32_close(ig.int8_gemm_residual(a, w, scale, bias, resid),
+               resid + ig.dequant_plain(acc, scale, bias))
+    assert {k_: ig.LAUNCHES[k_] - before[k_] for k_ in before if ig.LAUNCHES[k_] != before[k_]} == {
+        "int8_gemm_residual_f32_rows": 1, "int8_gemm_residual_f32": 1}
+
+
+@pytest.mark.parametrize("s,floor", [(50, 0.0), (64, float("-inf")), (82, 0.0)])
+def test_attention_kernel_unfolded(cuda, s, floor):
+    """K3's mask-free attention with the scores x 1/sqrt(d) (the unfolded
+    tree) and the pair shift's floor of each route; K5 with the scale."""
+    g = torch.Generator(device=cuda).manual_seed(s)
+    h, crops = 12, 19
+    qkv = (torch.randn(crops * s, 3 * h * 64, device=cuda, generator=g) * 4).bfloat16()
+    kw = dict(scale=0.125, floor=floor)
+    before = dict(bk.LAUNCHES)
+    got, ref = bk.attention(qkv, None, s, h, **kw), bk.attention_plain(qkv, None, s, h, **kw)
+    e = h * 64
+    absv = torch.cat([qkv[:, : 2 * e], qkv[:, 2 * e :].abs()], dim=1)
+    slack = 2.0**-7 * bk.attention_plain(absv, None, s, h, **kw)
+    assert bool(((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs() + slack).all())
+    launched = {"attention_scaled_f32": 1}
+    if s <= 64:
+        q = qkv[::s, :e].contiguous()
+        kv = qkv[:, e:].contiguous()
+        got = bk.cls_attention(q, kv, None, s, h, scale=0.125)
+        ref = bk.cls_attention_plain(q, kv, None, s, h, scale=0.125)
+        slack = 2.0**-7 * bk.cls_attention_plain(q, torch.cat([kv[:, :e], kv[:, e:].abs()], 1),
+                                                 None, s, h, scale=0.125)
+        assert bool(((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs() + slack).all())
+        launched["cls_attention_scaled_f32"] = 1
+    assert _launched(before) == launched
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_text_tower_on_the_card(cuda, dtype):
+    """A 2-layer int8 text tower at ViT-B/32 width (512, 8 heads, 77
+    tokens, the unfolded tree, causal) on the card vs the CPU's plain
+    versions (row cos >= 0.999): 2 launches of each masked-route kernel
+    a layer's worth, nothing of the mask-free attention or K5."""
+    from jcf_tpu_torch.ops.quant import quantize_clip_params
+
+    p = init_clip_params(0, CLIPConfig(vision_layers=1, text_layers=2))
+    blocks = p["text"]["blocks"]
+    quant = quantize_clip_params(p)["text"]
+    x = torch.randn(6 * 77, 512, generator=torch.Generator().manual_seed(3)).to(dtype)
+    ref = bk.run_fused_tower(x, quant, 8, flat_s=77, cls_only=False, blocks=blocks, causal=True)
+    before, before_g = dict(bk.LAUNCHES), dict(ig.LAUNCHES)
+    got = bk.run_fused_tower(x.to(cuda), tree_to(quant, cuda), 8, flat_s=77, cls_only=False,
+                             blocks=tree_to(blocks, cuda), causal=True).cpu()
+    sfx = "_f32" if dtype == torch.float32 else ""
+    assert _launched(before) == {f"ln_affine_quant_rows{sfx}": 4, "masked_attention_f32": 2,
+                                 "quant_rows": 2, "gelu_quant_rows": 2}
+    res = "int8_gemm_residual_f32_rows" if dtype == torch.float32 else "int8_gemm_residual_rows"
+    assert {k: ig.LAUNCHES[k] - before_g[k] for k in before_g if ig.LAUNCHES[k] != before_g[k]} == {
+        "int8_gemm_bf16_rows": 2, res: 4, "int8_gemm_f32_rows": 2}
+    assert got.dtype == dtype
+    cos = torch.nn.functional.cosine_similarity(got.float(), ref.float())
+    assert float(cos.min()) >= 0.999
+
+
+def test_unfolded_vision_tower_on_the_card(cuda):
+    """A 2-layer unfolded int8 ViT-B/32 vision tower (768 wide, 12 heads,
+    50 tokens, dense) on the card vs the CPU's plain versions, every row
+    and the CLS rows (K5 with the scale, then K4 on the CLS rows with the
+    f32 LN affine)."""
+    from jcf_tpu_torch.ops.quant import quantize_clip_params
+
+    p = init_clip_params(0, CLIPConfig(vision_layers=2, text_layers=1))
+    blocks = p["visual"]["blocks"]
+    quant = quantize_clip_params(p)["visual"]
+    x = torch.randn(16 * 50, 768, generator=torch.Generator().manual_seed(4)).bfloat16()
+    qg, bg_ = tree_to(quant, cuda), tree_to(blocks, cuda)
+    for cls_only in (False, True):
+        ref = bk.run_fused_tower(x, quant, 12, flat_s=50, cls_only=cls_only, blocks=blocks)
+        before = dict(bk.LAUNCHES)
+        got = bk.run_fused_tower(x.to(cuda), qg, 12, flat_s=50, cls_only=cls_only,
+                                 blocks=bg_).cpu()
+        launched = _launched(before)
+        assert launched["ln_affine_quant_rows"] == 4
+        assert launched["attention_scaled_f32"] == (1 if cls_only else 2)
+        assert launched.get("cls_attention_scaled_f32", 0) == (1 if cls_only else 0)
+        cos = torch.nn.functional.cosine_similarity(got.float(), ref.float())
+        assert got.shape == ref.shape and float(cos.min()) >= 0.999
+
+
+@pytest.mark.parametrize("width,s", [(192, 17), (128, 64)])
+def test_odd_head_and_64_token_towers_on_the_card(cuda, width, s):
+    """An odd head count (3 heads: the masked route, no mask) and a
+    64-token tower (the non-dense mask-free route, no pair-shift floor),
+    2 layers of the unfolded tree, int8 and float, vs the CPU's plain
+    versions."""
+    from jcf_tpu_torch.ops.quant import quantize_clip_params
+
+    p = init_clip_params(0, CLIPConfig(vision_layers=2, vision_width=width, text_layers=1))
+    blocks = p["visual"]["blocks"]
+    quant = quantize_clip_params(p)["visual"]
+    h = width // 64
+    x = torch.randn(9 * s, width, generator=torch.Generator().manual_seed(s)).bfloat16()
+    before = dict(bk.LAUNCHES)
+    for cls_only in (False, True):
+        ref = bk.run_fused_tower(x, quant, h, flat_s=s, cls_only=cls_only, blocks=blocks)
+        got = bk.run_fused_tower(x.to(cuda), tree_to(quant, cuda), h, flat_s=s,
+                                 cls_only=cls_only, blocks=tree_to(blocks, cuda)).cpu()
+        cos = torch.nn.functional.cosine_similarity(got.float(), ref.float())
+        assert got.shape == ref.shape and float(cos.min()) >= 0.999
+    ref = bk.run_float_tower(x, blocks, h, s=s, causal=False)
+    got = bk.run_float_tower(x.to(cuda), tree_to(blocks, cuda), h, s=s, causal=False).cpu()
+    assert float(torch.nn.functional.cosine_similarity(got.float(), ref.float()).min()) >= 0.999
+    launched = _launched(before)
+    attn = "masked_attention_f32" if h % 2 else "attention_scaled_f32"
+    assert launched[attn] == 4 and "cls_attention_scaled_f32" not in launched
+    assert launched["head_attention" if h % 2 else "pair_attention_bf16"] == 2

@@ -75,7 +75,7 @@ def test_quantize_clip_params_static_full_matches_jax(seed):
     ref = jquant.quantize_clip_params(
         jp, fold=True, heads=HEADS, act_scales={"visual": amax}, act_static=("ctx", "hidden"),
     )["visual"]
-    got = tquant.quantize_clip_params(tp, heads=HEADS,
+    got = tquant.quantize_clip_params(tp, fold=True, heads=HEADS,
                                       act_scales={"visual": torch.tensor(amax)})["visual"]
     for half, names in (("attn", ("w_qkv", "w_out")), ("mlp", ("c_fc", "c_proj"))):
         for name in names:

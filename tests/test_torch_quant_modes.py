@@ -88,7 +88,7 @@ def _trees(seed, mode, res=224, layers=2):
     heads = {"visual": H, "text": 1}
     if mode is None:
         jq = jquant.quantize_clip_params(jp, fold=True, heads=heads)["visual"]
-        tq = tquant.quantize_clip_params(tclip.params_from_numpy(jp), heads=heads)["visual"]
+        tq = tquant.quantize_clip_params(tclip.params_from_numpy(jp), fold=True, heads=heads)["visual"]
         return jp, jq, tq
     act_static, with_scores = _jax_act_static(mode)
     amax = np.array(jclip.vision_ln_z_amax(jp, jclip.CLIPConfig(**_cfg(res, layers)),
@@ -97,7 +97,7 @@ def _trees(seed, mode, res=224, layers=2):
         amax[:, 4] = 43.0 + np.arange(layers)
     jq = jquant.quantize_clip_params(jp, fold=True, heads=heads, act_scales={"visual": amax},
                                      act_static=act_static)["visual"]
-    tq = tquant.quantize_clip_params(tclip.params_from_numpy(jp), heads=heads,
+    tq = tquant.quantize_clip_params(tclip.params_from_numpy(jp), fold=True, heads=heads,
                                      act_scales={"visual": torch.from_numpy(amax)},
                                      act_static=act_static)["visual"]
     return jp, jq, tq
@@ -199,7 +199,7 @@ def test_score_shift_clamps_like_jax():
     for a in (amax, np.where(np.arange(6) == 4, 10.0, amax).astype(np.float32)):  # clamped to 0
         ref = jquant.quantize_clip_params(jp, fold=True, heads={"visual": H, "text": 1},
                                           act_scales={"visual": a}, act_static=("score",))
-        got = tquant.quantize_clip_params(tclip.params_from_numpy(jp), heads={"visual": H},
+        got = tquant.quantize_clip_params(tclip.params_from_numpy(jp), fold=True, heads={"visual": H},
                                           act_scales={"visual": torch.from_numpy(a)},
                                           act_static=("score",))
         r, g = np.asarray(ref["visual"]["attn"]["score_shift"]), got["visual"]["attn"]["score_shift"]
@@ -495,7 +495,13 @@ def test_crop_scale_reaches_the_sampler():
     np.testing.assert_allclose(area.numpy(), 0.2 * 512 * 512, rtol=1e-4)
 
 
-def test_refusals():
+def test_refusals(monkeypatch):
+    """What stays refused: unknown static modes; the engine's odd-head and
+    64-token towers (its non-assembled route is not ported); an unfolded
+    tree without the blocks that hold its LN affine; the ``_FUSE`` routes
+    that need K9a/c/d off the serving flags (the 64-token and the
+    unfolded towers themselves run under "halves",
+    ``tests/test_torch_masked_int8.py``)."""
     cfg = _cfg(224, layers=1)
     params = tclip.init_clip_params(0, tclip.CLIPConfig(**cfg))
     imgs = np.random.default_rng(0).random((2, 3, 224, 224)).astype(np.float32)
@@ -507,11 +513,21 @@ def test_refusals():
     with pytest.raises(ValueError, match="use_mask"):
         TTAEngine(tclip.init_clip_params(0, tclip.CLIPConfig(**odd)), tclip.CLIPConfig(**odd),
                   device="cpu")
-    tree = tquant.quantize_clip_params(params, heads={"visual": H})["visual"]
+    s64 = dict(cfg, vision_prompt_tokens=14)  # 49 patches + CLS + 14 prompts
     with pytest.raises(ValueError, match="multiple of 16"):
+        TTAEngine(tclip.init_clip_params(0, tclip.CLIPConfig(**s64)), tclip.CLIPConfig(**s64),
+                  device="cpu")
+    tree = tquant.quantize_clip_params(params, fold=True, heads={"visual": H})["visual"]
+    monkeypatch.setattr(tbk, "_FUSE", "block")
+    with pytest.raises(NotImplementedError, match="Queue 2"):
         tbk.run_fused_tower(_rows(0, 64), tree, H, flat_s=64)
-    unfolded = tquant.quantize_clip_params(params, fold=False)["visual"]
-    with pytest.raises(ValueError, match="folded"):
+    unfolded = tquant.quantize_clip_params(params)["visual"]
+    monkeypatch.setattr(tbk, "_FUSE", "layer")
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        tbk.run_fused_tower(_rows(0, 50), unfolded, H, flat_s=50,
+                            blocks=params["visual"]["blocks"])
+    monkeypatch.setattr(tbk, "_FUSE", "halves")
+    with pytest.raises(ValueError, match="blocks"):
         tbk.run_fused_tower(_rows(0, 50), unfolded, H, flat_s=50)
 
 

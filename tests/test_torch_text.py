@@ -225,7 +225,7 @@ def test_encode_text_matches_jax(seed):
     cfg = jclip.CLIPConfig(**SMALL)
     ref = _np(jclip.encode_text(jp, cfg, jnp.asarray(ids), dtype=jnp.bfloat16, impl="fused"))
     got = tclip.encode_text(tclip.params_from_numpy(jp), tclip.CLIPConfig(**SMALL), ids,
-                            device="cpu")
+                            device="cpu", dtype=torch.bfloat16)
     assert got.shape == (B, SMALL["embed_dim"]) and got.dtype == torch.bfloat16
     _close(got.float().numpy(), ref)
 
@@ -253,7 +253,7 @@ def test_encode_text_strict_bf16(tmp_path):
                     str(tmp_path / "out.npy")], cwd=ROOT, env=env, check=True, timeout=600)
     ref = np.load(tmp_path / "out.npy")
     got = tclip.encode_text(tclip.params_from_numpy(jp), tclip.CLIPConfig(**SMALL), ids,
-                            device="cpu").float().numpy()
+                            device="cpu", dtype=torch.bfloat16).float().numpy()
     cos = (got * ref).sum(-1) / (np.linalg.norm(got, axis=-1) * np.linalg.norm(ref, axis=-1))
     assert cos.min() >= 0.9999, cos
     np.testing.assert_allclose(got, ref, atol=2e-2, rtol=2e-2)
