@@ -96,7 +96,8 @@
    >= 0.99, top-5 >= 0.97), img/s; under ``_FUSE`` = "block" the bf16
    engine (1 K1 + 12 K9b with an all-zero bias; cert >= 0.98 / 0.95), K9b
    at E = 768 against its plain version on the bf16 engine's layer-0
-   rows, and the f32 engine's refusal; the f32 classifier build under
+   rows, and the f32 engine on 8 images (1 K1 + 12 ``block_f32``, modes
+   against the f32 halves' at cos >= 0.9999); the f32 classifier build under
    ``PipelineConfig()`` (counted: the f32 text halves only; against the
    plain f32 tower, row cos >= 0.99999); then each new kernel against its
    plain version: K1's f32 and bf16 views at the serving batch, on layer
@@ -128,11 +129,40 @@
    tower at small width, int8 and bf16, counted, against their plain
    routes, and the float halves' per-head attention (``head_attention``)
    against its plain version on the 3-head tower's layer-0 qkv.
+13. (last) ``jcf-ood`` end to end. 13a: each committed JPEG fixture
+   (``tests/fixtures/jpeg``) through nvJPEG and the resize + center-crop
+   kernel, against its committed PIL and ``jcf_tpu.native`` decodes at
+   256² (max and mean level difference, bars 16 and 1.5 levels) and the
+   kernel against its plain version; decode img/s. Then a TestSetB of the
+   fixtures repeated (16 images; 1024 for 13d), a 403-line synthetic
+   ``classes.txt`` (rotated so that seed-0 weights send images to both
+   sides of the base/new boundary) and the seed-0 ViT-B/32 checkpoint
+   written through ``models.loader.state_dict_from_params``, each run from
+   a temporary directory with its own classifier cache. 13b:
+   ``cli.ood.main`` in the default configuration (f32, 512 + 1 host
+   crops), counted (the f32 text and vision halves, one nvJPEG decode an
+   image), then on the plain versions (only nvJPEG launches): the split
+   files byte-identical; img/s and the ``Timer`` shares of decode and
+   device. 13c: the same under ``_FUSE`` = "block": 84 + 12 per batch
+   ``block_f32`` launches and no K6a / K6b, the files equal to 13b's,
+   ``block_f32`` against ``block_f32_plain`` at 512 x 77 causal and 4104
+   x 50 zero bias (1e-5 + 1e-5 |ref|, row cos >= 0.99999), timed beside
+   the f32 halves per layer. 13d: ``--perf`` on 1024 images (batches of
+   128): each batch launches exactly phase 8's route, the decoder one
+   nvJPEG decode and one resize an image; against the same run on the
+   plain versions (scored against the same cached classifier) per-image
+   top-1 agreement >= 0.99 and per-view feature cos >= 0.999 (top-5 and
+   the mode cosines printed); img/s end to end and in the serving loop,
+   and the share of the loop the device waits for decoded images. 13a
+   also decodes 132 images in a second thread while this one keeps the
+   card busy: each must equal its decode alone.
 
 Every weight and input is made from seed 0 (the LoRA factors from seed
 1, as ``scripts/bench_train.py``). Exits nonzero, without the
 final line, when no CUDA device is present or any phase fails. Before the
-last line it prints the script's wall time, the kernels JSON line
+last line it prints the script's wall time, the decoder's JSON line (no
+TPU kernel: its level differences, img/s and the resize kernel's times),
+the kernels JSON line
 (launches on the path, error against the plain version, kernel / plain /
 library-call times and the card's bound for the same work; the residual
 GEMMs at c_proj's shape, their out-proj shape in the log; K7 at the text
@@ -152,6 +182,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -276,6 +307,8 @@ KERNELS = {
     # K6a's per-head masked route (an odd head count without a mask), 12d
     "head_attention": ("tower_odd_heads_bf16", "jcf_tpu_torch/csrc/text_block.cu",
                        "jcf_tpu/ops/block_kernel.py:528"),
+    # K9b in f32: jcf-ood's default configuration under _FUSE = "block", 13c
+    "block_f32": ("ood_block", "jcf_tpu_torch/csrc/block_f32.cu", "jcf_tpu/ops/block_kernel.py:948"),
 }
 
 
@@ -687,18 +720,20 @@ def text_half_plain(x, layer, s, n_heads, half):
                          + mlp["c_proj"]["b"])).to(bf)
 
 
-def synthetic_classes(path: str) -> None:
+def synthetic_classes(path: str, rotate: int = 0) -> None:
     """A 403-line ``classes.txt`` in the reference's "Domain_Class_name id"
     form, the names made from seed 0 (the real class list is not in the
-    repository)."""
+    repository); with ``rotate`` line (class id) i holds name i + rotate."""
     rng = np.random.default_rng(0)
     domains = ["Animal", "Food", "Thing", "Caltech-101", "Thu-dog", "Stanford-Cars"]
     words = ["red", "giant", "small", "striped", "wild", "golden", "spotted", "panda", "eagle",
              "pie", "coupe", "terrier", "lamp", "chair", "boat", "shirt", "apple", "bridge"]
+    names = [f"{domains[i % len(domains)]}_"
+             f"{'_'.join(rng.choice(words, size=int(rng.integers(1, 4)))).capitalize()}_{i}"
+             for i in range(N_CLASSES)]
     with open(path, "w") as f:
         for i in range(N_CLASSES):
-            name = "_".join(rng.choice(words, size=int(rng.integers(1, 4))))
-            f.write(f"{domains[i % len(domains)]}_{name.capitalize()}_{i} {i}\n")
+            f.write(f"{names[(i + rotate) % N_CLASSES]} {i}\n")
 
 
 def classifier_phase(params, cfg, dev, counters):
@@ -2339,12 +2374,18 @@ def float_engine_phase(params, ref, modes_f, images, geometry, text, counters, s
                layer_work(xb.shape[0], e, hidden, heads, n_seq * s * s,
                           2 * nbytes(xb) + w_bytes + nbytes(zeros), PEAK_BF16), reps=3)
         del xb, zeros
-        try:
-            ref.features_from_images(images[:8], text, geometry=tuple(t[:8] for t in geometry))
-        except NotImplementedError as exc:
-            log(f"  f32 under 'block' refuses: {exc}")
-        else:
-            raise AssertionError("the f32 engine ran under _FUSE = 'block'")
+        # the f32 engine under "block": K9b in f32 (block_f32) on every layer
+        modes_fk, launches_fk = count_forward(
+            counters, lambda: ref.features_from_images(images[:8], text,
+                                                       geometry=tuple(t[:8] for t in geometry)))
+        log(f"  f32 launches on 8 images: {launches_fk}")
+        expected = {"view_f32": 1, "block_f32": cfg.vision_layers}
+        if launches_fk != expected:
+            raise AssertionError(f"expected exactly the launches {expected}")
+        cos_f = float(cosine_rows(modes_fk, modes_f[:8]).min())
+        log(f"  f32 'block' modes vs the f32 halves': min cos {cos_f:.7f} (tol 0.9999)")
+        if cos_f < 0.9999:
+            raise AssertionError("the f32 'block' route disagrees with the f32 halves")
     finally:
         bk._FUSE = "halves"
     del eb, modes_b, modes_k
@@ -2677,6 +2718,429 @@ def small_towers_phase(dev, counters):
     return launches_odd, ph.results
 
 
+# phase 13: jcf-ood end to end (the CLI, the TestSetB walk, nvJPEG decode,
+# the PIL-exact crops, the loader, run_ood_split on both paths)
+OOD_IMAGES = 16  # the parity path's images: the fixtures repeated, 2 batches of 8
+OOD_PERF_IMAGES = 1024  # the throughput path's images: 8 batches of 128
+FIXTURE_DIR = os.path.join(ROOT, "tests", "fixtures", "jpeg")
+# the class list's rotation: seed-0 weights send the fixtures to the names
+# 270, 255 and 9 (measured on one H100); rotated by 260 these sit at ids 10,
+# 398 and 152, on both sides of the base/new boundary at 372
+OOD_ROTATE = 260
+# nvJPEG + the resize against PIL's and libjpeg's decodes at 256 x 256: the
+# IDCTs and the 4:2:0 chroma upsampling differ (libjpeg's "fancy"
+# triangle upsampling), and libjpeg decodes short sides from 512 at
+# reduced scale, so levels move by a few near edges
+DECODE_MAX_LEVELS = 16
+DECODE_MEAN_LEVELS = 1.5
+
+
+def fixture_paths():
+    return sorted(os.path.join(FIXTURE_DIR, f) for f in os.listdir(FIXTURE_DIR) if f.endswith(".jpg"))
+
+
+def decode_phase(dev, smi) -> dict:
+    """13a: each committed JPEG through nvJPEG and the resize + crop kernel
+    against the committed PIL and ``jcf_tpu.native`` decodes, the kernel
+    against its plain version, decode img/s -> the decoder's JSON entry."""
+    import torch
+
+    from jcf_tpu_torch import _build
+    from jcf_tpu_torch.data import decode as dec
+
+    log("phase 13a: JPEG decode on the card (nvJPEG, then the triangle resize and center crop)")
+    t0 = time.perf_counter()
+    _build.load_jpeg()  # raises, naming the directories searched, without nvjpeg.h
+    log(f"  decoder library loaded in {time.perf_counter() - t0:.1f} s")
+    refs = np.load(os.path.join(FIXTURE_DIR, "native_minus_pil.npz"))
+    worst = {"pil": [0, 0.0], "native": [0, 0.0]}
+    kernel_err = 0
+    for name, delta in zip(refs["names"], refs["delta"]):
+        name = str(name)
+        with open(os.path.join(FIXTURE_DIR, "pil_256", name[:-4] + ".png"), "rb") as f:
+            pil = dec.decode_png(f.read()).astype(np.int16)
+        raw = dec.decode_file(os.path.join(FIXTURE_DIR, name), dev)
+        got = dec.resize_crop(raw, 256, 256)
+        plain = dec.resize_crop_plain(raw, 256, 256)
+        torch.cuda.synchronize()
+        got = got.cpu().numpy().astype(np.int16)
+        dk = np.abs(got - plain.cpu().numpy())
+        kernel_err = max(kernel_err, int(dk.max()))
+        if dk.max() > 1 or (dk > 0).mean() > 1e-3:
+            raise AssertionError(f"{name}: the resize kernel disagrees with its plain version")
+        line = []
+        for key, ref in (("pil", pil), ("native", pil + delta)):
+            d = np.abs(got - ref)
+            worst[key] = [max(worst[key][0], int(d.max())), max(worst[key][1], float(d.mean()))]
+            line.append(f"vs {key} max {int(d.max())} mean {float(d.mean()):.4f} levels "
+                        f"({float((d > 0).mean()):.4f} differ)")
+            if d.max() > DECODE_MAX_LEVELS or d.mean() > DECODE_MEAN_LEVELS:
+                raise AssertionError(f"{name}: nvJPEG decode off its {key} reference")
+        log(f"  {name} {tuple(raw.shape)}: kernel vs plain max {int(dk.max())}; " + "; ".join(line))
+    log(f"  worst: vs PIL max {worst['pil'][0]} mean {worst['pil'][1]:.4f}, vs jcf_tpu.native max "
+        f"{worst['native'][0]} mean {worst['native'][1]:.4f} (bars: max <= {DECODE_MAX_LEVELS}, "
+        f"mean <= {DECODE_MEAN_LEVELS} levels)")
+    # decoding in a second thread while this one keeps the card busy (as
+    # the --perf loop does): every image as decoded alone
+    paths = fixture_paths() * 22
+    ref = []
+    for p in paths:
+        ref.append(dec.resize_crop(dec.decode_file(p, dev), 256, 256))
+        torch.cuda.synchronize()
+    got = []
+    worker = threading.Thread(target=lambda: got.append(dec.decode_batch(paths, device=dev,
+                                                                         uint8=True)))
+    a = torch.randn(4096, 4096, device=dev)
+    worker.start()
+    for _ in range(300):
+        a = (a @ a) * 1e-4
+    worker.join()
+    torch.cuda.synchronize()
+    bad = sum(not torch.equal(g, r) for g, r in zip(got[0], ref))
+    log(f"  decode_batch of {len(paths)} images in a second thread under load: {bad} differ from "
+        f"their decode alone (must be 0)")
+    if bad:
+        raise AssertionError("images decoded under load differ from their decode alone")
+    del a, ref, got
+    paths = fixture_paths() * 20
+    dec.decode_batch(paths[:6], device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec.decode_batch(paths, device=dev)
+    torch.cuda.synchronize()
+    ips = len(paths) / (time.perf_counter() - t0)
+    log(f"  decode_batch: {ips:.2f} img/s (the 6 fixtures x 20, one thread) on {smi}")
+    raw = dec.decode_file(paths[-1], dev)  # the largest fixture
+    ms = time_ms(lambda: dec.resize_crop(raw, 256, 256))
+    plain_ms = time_ms(lambda: dec.resize_crop_plain(raw, 256, 256))
+    work = bound(raw.numel() + 256 * 256 * 3, 0.0, PEAK_F32)
+    log(f"  resize_crop at {tuple(raw.shape)}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{work['bound_ms']:.4f} ms ({work['bound_by']})")
+    return {"name": "jpeg_decode+resize_crop", "route": "cuda",
+            "source": "jcf_tpu_torch/csrc/jpeg.cu",
+            "replaces": "jcf_tpu/native/jcfnative.cpp:50-205 (a host libjpeg decoder, no TPU "
+                        "kernel)",
+            "max_level_diff_pil": worst["pil"][0], "mean_level_diff_pil": worst["pil"][1],
+            "max_level_diff_native": worst["native"][0],
+            "mean_level_diff_native": worst["native"][1], "resize_max_abs_err": kernel_err,
+            "img_per_s": ips, "resize_ms": ms, "resize_plain_ms": plain_ms,
+            "resize_bound_ms": work["bound_ms"]}
+
+
+def ood_dataset(root: str, n_images: int) -> str:
+    """A dataset directory: TestSetB holding the fixtures repeated to
+    ``n_images`` files and a 403-line synthetic ``classes.txt``."""
+    test = os.path.join(root, "TestSetB")
+    os.makedirs(test)
+    fx = fixture_paths()
+    for i in range(n_images):
+        src = fx[i % len(fx)]
+        shutil.copy(src, os.path.join(test, f"{i:04d}_{os.path.basename(src)}"))
+    synthetic_classes(os.path.join(root, "classes.txt"), OOD_ROTATE)
+    return root
+
+
+@contextlib.contextmanager
+def first_calls(module, name: str, key, calls: dict):
+    """Keeps the arguments of the first call of ``module.name`` per
+    ``key(args)`` in ``calls`` for the block (the calls run unchanged)."""
+    fn = getattr(module, name)
+
+    def wrapper(*args):
+        calls.setdefault(key(args), args)
+        return fn(*args)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def per_call_launches(counters, out: list, method: str = "features_from_images"):
+    """Appends, per call of ``TTAEngine.<method>``, the launches it made on
+    its thread (the decoder's, from the decode thread, left out) and (its
+    modes, the classifier) to ``out`` for the block."""
+    from jcf_tpu_torch.data import decode as dec
+    from jcf_tpu_torch.infer.engine import TTAEngine
+
+    fn = getattr(TTAEngine, method)
+
+    def wrapper(self, images, text_weights, **kw):
+        before = {k: v for c in counters for k, v in c.items()}
+        modes = fn(self, images, text_weights, **kw)
+        after = {k: v for c in counters for k, v in c.items()}
+        out.append(({k: after[k] - before[k] for k in after
+                     if after[k] != before[k] and k not in dec.LAUNCHES}, modes, text_weights))
+        return modes
+
+    setattr(TTAEngine, method, wrapper)
+    try:
+        yield
+    finally:
+        setattr(TTAEngine, method, fn)
+
+
+@contextlib.contextmanager
+def recorded_outputs(out: list):
+    """Appends the per-view features [B, N, D] of each
+    ``TTAEngine._view_features`` call to ``out`` for the block."""
+    from jcf_tpu_torch.infer.engine import TTAEngine
+
+    fn = TTAEngine._view_features
+
+    def wrapper(self, *args):
+        feats = fn(self, *args)
+        out.append(feats)
+        return feats
+
+    TTAEngine._view_features = wrapper
+    try:
+        yield
+    finally:
+        TTAEngine._view_features = fn
+
+
+def predictions(calls) -> "torch.Tensor":
+    """The argmax classes of the recorded (launches, modes, classifier)."""
+    import torch
+
+    return torch.cat([torch.argmax(m.float() @ w.float().T, -1).cpu() for _, m, w in calls])
+
+
+def prediction_counts(preds) -> str:
+    ids, counts = preds.unique(return_counts=True)
+    order = counts.argsort(descending=True)
+    return ", ".join(f"{int(ids[i])}: {int(counts[i])}" for i in order[:8])
+
+
+@contextlib.contextmanager
+def plain_serving():
+    """Every kernel of ``jcf-ood``'s two paths through its plain version
+    for the block (the float halves and K1, the int8 halves, the int8
+    patch GEMM, K2, the decoder's resize): only nvJPEG, which has no plain
+    version on the card, still launches."""
+    from jcf_tpu_torch.data import decode as dec
+    from jcf_tpu_torch.infer import engine as eng
+    from jcf_tpu_torch.ops import assemble_kernel as ak
+    from jcf_tpu_torch.ops import int8_gemm as ig
+
+    swaps = [(eng, "int8_gemm_s32", ig.int8_matmul_plain),
+             (eng, "assemble_dense_rows", ak.assemble_dense_rows_plain),
+             (dec, "resize_crop", dec.resize_crop_plain)]
+    saved = [(m, k, getattr(m, k)) for m, k, _ in swaps]
+    with plain_float(), plain_halves():
+        for m, k, fn in swaps:
+            setattr(m, k, fn)
+        try:
+            yield
+        finally:
+            for m, k, fn in saved:
+                setattr(m, k, fn)
+
+
+def run_ood_cli(tmp: str, argv, counters, label: str, n_images: int, smi, dev="cuda",
+                fresh_cache: bool = True):
+    """``cli.ood.main(argv)`` from ``tmp`` (its templates and classifier
+    cache live there; the cache emptied first unless ``fresh_cache`` is
+    False), every launch count at 0 before -> (split files, launches,
+    Timer summary, wall seconds)."""
+    import torch
+
+    from jcf_tpu_torch.cli import ood as cli
+    from jcf_tpu_torch.utils import Timer
+
+    if fresh_cache:
+        shutil.rmtree(os.path.join(tmp, ".jcf_cache"), ignore_errors=True)
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    timer = Timer()
+    try:
+        torch.cuda.synchronize()
+        for c in counters:
+            c.update(dict.fromkeys(c, 0))
+        t0 = time.perf_counter()
+        out = cli.main([*argv, "--device", torch.device(dev).type], timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for c in counters for k, v in c.items() if v}
+    finally:
+        os.chdir(cwd)
+    files = tuple(open(out[k], "rb").read() for k in ("base_path", "new_path"))
+    summ = timer.summary()
+    wait, busy = summ["decode_wait"]["total_s"], summ["tta_batch"]["total_s"]
+    if out["n_base"] + out["n_new"] != n_images or not out["n_base"] or not out["n_new"]:
+        raise AssertionError(f"{label}: {out['n_base']} base + {out['n_new']} new of {n_images} "
+                             f"images (both split files must fill)")
+    log(f"  {label}: {out['n_base']} base / {out['n_new']} new in {wall:.2f} s end to end "
+        f"({n_images / wall:.2f} img/s with the checkpoint load and the classifier build); serving "
+        f"loop {n_images / (wait + busy):.2f} img/s, decode_wait {wait:.2f} s "
+        f"({wait / (wait + busy):.3f} "
+        f"of the loop), tta_batch {busy:.2f} s ({busy / (wait + busy):.3f}) on {smi}")
+    return files, launches, summ, wall
+
+
+def add_launches(*dicts) -> dict:
+    out = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def check_block_f32(name, got, ref):
+    """K9b in f32 against its plain version: |diff| <= 1e-5 + 1e-5 |ref| and
+    row cos >= 0.99999 (the same f32 sums in another order)."""
+    cos = float(cosine_rows(got, ref).min())
+    log(f"  {name}: min row cos {cos:.7f} (tol 0.99999)")
+    err = check_f32(name, got, ref)
+    if cos < 0.99999:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def block_f32_work(x, layer, s, heads, bias, causal):
+    """The bound of one f32 layer on x's rows: the products' 2E(4E + 2F)
+    flops per row and the attention's 4 d flops per (query, key) pair
+    this mask keeps, at the f32 peak; x read and written, f32 weights and
+    biases and the bias read once."""
+    rows, e = x.shape
+    hidden = layer["mlp"]["c_fc"]["w"].shape[0]
+    pairs = rows // s * (s * (s + 1) // 2 if causal else s * s)
+    ops = 2.0 * rows * e * (4 * e + 2 * hidden) + 4.0 * heads * pairs * (e // heads)
+    w_bytes = 4 * (e * (4 * e + 2 * hidden) + 9 * e + hidden)
+    return bound(2 * nbytes(x) + w_bytes + nbytes(bias), ops, PEAK_F32)
+
+
+def ood_phase(params, cfg, counters, smi, launches_srv, launches_cls) -> tuple:
+    """13b-d: ``cli.ood.main`` on the card -> (launches of 13c, kernel
+    results, the decoder's entry)."""
+    import pickle
+
+    import torch
+
+    from jcf_tpu_torch.models.loader import state_dict_from_params
+    from jcf_tpu_torch.ops import block_kernel as bk
+
+    decoder = decode_phase(torch.device("cuda", 0), smi)
+    launches_srv = {k: v for k, v in launches_srv.items() if v}
+    launches_cls = {k: v for k, v in launches_cls.items() if v}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ds = ood_dataset(os.path.join(tmp, "Dataset"), OOD_IMAGES)
+        ds_perf = ood_dataset(os.path.join(tmp, "Dataset_perf"), OOD_PERF_IMAGES)
+        ckpt = os.path.join(tmp, "ViT-B-32.pkl")
+        with open(ckpt, "wb") as f:
+            pickle.dump(state_dict_from_params(params, cfg), f)
+        log(f"phase 13: datasets ({OOD_IMAGES} and {OOD_PERF_IMAGES} images) and the seed-0 "
+            f"ViT-B/32 checkpoint ({os.path.getsize(ckpt) / 2**20:.0f} MiB) written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        argv = ["--root_path", ds, "--clip_checkpoint", ckpt]
+        n_text = -(-N_CLASSES * 8 // TEXT_BATCH)
+        n_img = -(-OOD_IMAGES // 8)
+
+        log("phase 13b: the default configuration (f32, 512 + 1 host crops) through cli.ood.main")
+        calls = []
+        with per_call_launches(counters, calls, "features_from_crops"):
+            files, launches, _, _ = run_ood_cli(tmp, argv, counters, "kernels", OOD_IMAGES, smi)
+        log(f"  predicted classes (class: images): {prediction_counts(predictions(calls))}")
+        expected = add_launches(float_launches("f32 text", cfg.text_layers, n_text, view=False),
+                                float_launches("f32", cfg.vision_layers, n_img, view=False),
+                                {"jpeg_decode": OOD_IMAGES})
+        log(f"  launches: {launches}")
+        if launches != expected:
+            raise AssertionError(f"expected exactly the launches {expected}")
+        with plain_serving():
+            files_p, launches_p, _, _ = run_ood_cli(tmp, argv, counters, "plain versions",
+                                                    OOD_IMAGES, smi)
+        if launches_p != {"jpeg_decode": OOD_IMAGES}:
+            raise AssertionError(f"the plain route launched kernels: {launches_p}")
+        if files_p != files:
+            raise AssertionError("the split files differ between the kernel and plain routes")
+        log("  split files byte-identical between the kernel and plain routes")
+
+        log("phase 13c: the same under _FUSE = 'block' (K9b in f32)")
+        first = {}
+        bk._FUSE = "block"
+        try:
+            with first_calls(bk, "block_f32", lambda a: a[2], first):
+                files_b, launches_b, _, _ = run_ood_cli(tmp, argv, counters, "block", OOD_IMAGES,
+                                                        smi)
+            log(f"  launches: {launches_b}")
+            expected = {"block_f32": cfg.text_layers * n_text + cfg.vision_layers * n_img,
+                        "jpeg_decode": OOD_IMAGES}
+            if launches_b != expected:
+                raise AssertionError(f"expected exactly the launches {expected}")
+            if files_b != files:
+                raise AssertionError("the split files differ between 'block' and the halves")
+            log("  split files byte-identical to 13b's")
+            ph = Phase()
+            for name, s, causal in (("block_f32", cfg.context_length, True),
+                                    ("block_f32 (vision)", cfg.vision_seq_len, False)):
+                x, layer, _, heads, bias = first[s]
+                ph.run(name, lambda: bk.block_f32(x, layer, s, heads, bias),
+                       lambda: bk.block_f32_plain(x, layer, s, heads, bias), check_block_f32,
+                       block_f32_work(x, layer, s, heads, bias, causal), reps=3)
+                halves_ms = time_ms(lambda: bk.mlp_half(bk.attn_half(x, layer, s, heads,
+                                                                     causal=causal), layer), 3)
+                log(f"  {name}: {x.shape[0] // s} x {s} rows, kernel {ph.results[name]['ms']:.3f} "
+                    f"ms per layer; the f32 halves (K6a + K6b, 7 launches) {halves_ms:.3f} ms "
+                    f"per layer on the same rows")
+            del first, x, layer
+        finally:
+            bk._FUSE = "halves"
+        torch.cuda.empty_cache()
+
+        log(f"phase 13d: --perf (bf16, static int8, device crops) on {OOD_PERF_IMAGES} images")
+        argv_p = ["--root_path", ds_perf, "--clip_checkpoint", ckpt, "--perf"]
+        calls, views_k = [], []
+        with per_call_launches(counters, calls), recorded_outputs(views_k):
+            files_k, launches_k, summ, wall = run_ood_cli(tmp, argv_p, counters, "kernels",
+                                                          OOD_PERF_IMAGES, smi)
+        log(f"  launches: {launches_k}")
+        for i, (per_batch, _, _) in enumerate(calls):
+            if per_batch != launches_srv:
+                raise AssertionError(f"batch {i}: launches {per_batch}, phase 8's route "
+                                     f"{launches_srv}")
+        expected = add_launches(launches_cls, *(c[0] for c in calls),
+                                {"jpeg_decode": OOD_PERF_IMAGES, "resize_crop": OOD_PERF_IMAGES})
+        if len(calls) != OOD_PERF_IMAGES // 128 or launches_k != expected:
+            raise AssertionError(f"expected {OOD_PERF_IMAGES // 128} batches and the launches "
+                                 f"{expected}")
+        log(f"  {len(calls)} batches, each launching exactly phase 8's route")
+        preds_k = predictions(calls)
+        log(f"  predicted classes (class: images): {prediction_counts(preds_k)}")
+        calls_p, views_p = [], []
+        # the plain route scores against the kernel route's classifier (a
+        # cache hit), so that the comparison is the serving path's alone
+        with plain_serving(), per_call_launches(counters, calls_p), recorded_outputs(views_p):
+            files_pp, launches_pp, _, _ = run_ood_cli(tmp, argv_p, counters, "plain versions",
+                                                      OOD_PERF_IMAGES, smi, fresh_cache=False)
+        if launches_pp != {"jpeg_decode": OOD_PERF_IMAGES}:
+            raise AssertionError(f"the plain route launched kernels: {launches_pp}")
+        preds_p = predictions(calls_p)
+        modes_k = torch.cat([m.float() for _, m, _ in calls])
+        modes_p = torch.cat([m.float() for _, m, _ in calls_p])
+        w = calls[0][2].float()
+        if not all(torch.equal(c[2].float(), w) for c in calls + calls_p):
+            raise AssertionError("the two routes scored against different classifiers")
+        top1 = float((preds_k == preds_p).float().mean())
+        top5_k = (modes_k @ w.T).topk(5, dim=-1).indices
+        top5_p = (modes_p @ w.T).topk(5, dim=-1).indices
+        top5 = float((top5_k[:, :, None] == top5_p[:, None, :]).any(-1).float().mean())
+        cos = cosine_rows(modes_k, modes_p)
+        view_cos = cosine_rows(torch.cat(views_k).flatten(0, 1), torch.cat(views_p).flatten(0, 1))
+        log(f"  kernels vs plain versions: per-image top-1 agree {top1:.4f}, top-5 overlap "
+            f"{top5:.4f}, mode cos mean {float(cos.mean()):.6f} min {float(cos.min()):.6f}; "
+            f"per-view feature cos over {view_cos.numel()} views mean {float(view_cos.mean()):.6f} "
+            f"min {float(view_cos.min()):.6f} (gates: top-1 >= 0.99, view cos >= 0.999); split "
+            f"files {'identical' if files_pp == files_k else 'differ'}")
+        if top1 < 0.99 or float(view_cos.min()) < 0.999:
+            raise AssertionError("the --perf kernel route disagrees with its plain versions")
+    return launches_b, ph.results, decoder
+
+
 def main() -> int:
     import torch
 
@@ -2859,6 +3323,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_odd, results_odd = small_towers_phase(dev, counters)
     results.update(results_odd)
+    torch.cuda.empty_cache()
+
+    # phase 13 (last): jcf-ood end to end through its CLI, both paths
+    from jcf_tpu_torch.data import decode as decode_module
+
+    launches_ood, results_ood, decoder = ood_phase(params, cfg, counters + [decode_module.LAUNCHES],
+                                                   smi, launches_srv, launches_cls)
+    results.update(results_ood)
     launches = {"serving": launches_srv, "classifier": launches_cls, "training": launches_trn,
                 "serving_b16": launches_b16, "serving_block": launches_fused["block"],
                 "serving_layer": launches_fused["layer"],
@@ -2868,7 +3340,8 @@ def main() -> int:
                 "classifier_f32": launches_cls_f32,
                 "classifier_int8_f32": launches_cls_int8["float32"],
                 "classifier_int8_bf16": launches_cls_int8["bfloat16"],
-                "tower_unfolded": launches_unf, "tower_odd_heads_bf16": launches_odd}
+                "tower_unfolded": launches_unf, "tower_odd_heads_bf16": launches_odd,
+                "ood_block": launches_ood}
     missing = [k for k, (path, _, _) in KERNELS.items() if launches[path].get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels of their path never launched: {missing}")
@@ -2879,6 +3352,7 @@ def main() -> int:
          "launches": launches[path][name], **results[name]}
         for name, (path, src, rep) in KERNELS.items()
     ]
+    print(json.dumps({"decoder": decoder}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

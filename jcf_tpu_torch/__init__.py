@@ -21,7 +21,11 @@ What is ported so far:
 - serving towers of 128 tokens or more (ViT-B/16's 197): the composable
   tower with the blocked attention K8 and dynamic per-row int8 linears
   (or in f32), and the checkpoint loader (``models.loader``) that turns a
-  ViT state dict into its ``CLIPConfig`` and params.
+  ViT state dict into its ``CLIPConfig`` and params;
+- ``jcf-ood`` end to end (``cli.ood``, ``pipelines.ood.run_ood_split``):
+  the TestSetB walk, JPEG decode with nvJPEG on the card, the PIL-exact
+  TTA crops (``data.transforms``), the threaded loader, both paths; and
+  K9b in f32 (``ops.block_kernel.block_f32``) under ``_FUSE = "block"``.
 
 Every Pallas kernel on those paths has a hand-written CUDA kernel under
 ``csrc/`` and a plain PyTorch version beside its wrapper; a wrapper runs

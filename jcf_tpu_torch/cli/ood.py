@@ -1,0 +1,33 @@
+"""``jcf-ood-torch``: the zero-shot OOD base/new split of TestSetB
+(``jcf_tpu/cli/ood.py``) on the card.
+
+    python -m jcf_tpu_torch.cli.ood --root_path Dataset [--perf] [--device cpu]
+
+The flags are the JAX CLI's; ``--device`` (the port's own, default
+"cuda") runs the plain versions on the CPU instead, as the tests do.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+from jcf_tpu_torch.cli._args import build_parser, config_from_args
+
+
+def main(argv: Optional[Sequence[str]] = None, timer=None) -> dict:
+    """Parses ``argv`` (the command line when None), seeds, and runs
+    ``run_ood_split`` on ``--device`` with ``timer`` (a ``utils.Timer``
+    that collects its phases; one of its own when None); returns its
+    result."""
+    parser = build_parser("Zero-shot OOD split of TestSetB", default_seed=1)
+    parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    args = parser.parse_args(argv)
+    from jcf_tpu_torch.pipelines import run_ood_split
+    from jcf_tpu_torch.utils import set_random_seed
+
+    set_random_seed(args.seed)
+    return run_ood_split(config_from_args(args), device=args.device, timer=timer)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,5 @@
 """The part of ``jcf_tpu/config.py`` the classifier build, the TTA
-engines and stage-1 LoRA training read.
+engines, stage-1 LoRA training, ``jcf-ood`` and its CLI read.
 
 Defaults are the JAX package's (tests/test_torch_tokenizer.py and
 tests/test_torch_float_tower.py compare them field by field);
@@ -21,6 +21,13 @@ class DataConfig:
     classes_file: str = "Dataset/classes.txt"
     template_dir: str = "text_template"
     captions_file: str = "class_caption.txt"
+    root: str = "Dataset"
+    test_dir: str = "Dataset/TestSetB"
+    num_classes: int = 403
+    num_workers: int = 8
+    train_split: str = "Dataset/train.txt"
+    val_split: str = "Dataset/valid1.txt"
+    shots: int = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +81,12 @@ class RuntimeConfig:
     # which quantizations go static: "ln", "hidden", "full", optionally "+score"
     static_quant_mode: str = "full"
     clip_checkpoint: str = "ViT-B-32.pkl"
+    # accepted for the JAX CLI's flag; the port has one attention route on
+    # the card, so any value but None is refused where an engine is built
+    attention_impl: Optional[str] = None
+    # shard serving batches over the visible devices; the port serves on
+    # one GPU (pipelines.common.serving_mesh returns None)
+    data_parallel: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

@@ -287,4 +287,6 @@ class TTAEngine:
         return self.mta_from_features(self.crop_features(crops), text_weights)
 
     def logits(self, modes: torch.Tensor, text_weights: torch.Tensor) -> torch.Tensor:
-        return (modes @ text_weights.T) * 100.0
+        """100 x modes [B, D] . text_weights [C, D]^T in f32 (a bf16
+        classifier promoted, as JAX promotes it)."""
+        return (modes.float() @ text_weights.to(modes.device).float().T) * 100.0

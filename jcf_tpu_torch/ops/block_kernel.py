@@ -61,8 +61,10 @@ variants of the same math:
   bf16 mid, the MLP in ``_LAYER_NSPLIT`` hidden chunks;
   K9c ``stream_tower_int8`` (``_stream_tower_int8_kernel``): every int8
   layer on every row in one launch, bf16 mid;
-  K9b ``block_bf16`` (``_block_kernel``): one bf16 text layer with an
-  additive [S, S] bias, f32 mid, QuickGELU in its sigmoid form.
+  K9b ``block_bf16`` (``_block_kernel``): one bf16 layer with an
+  additive [S, S] bias, f32 mid, QuickGELU in its sigmoid form; and
+  ``block_f32`` (csrc/block_f32.cu) in f32, every product on the CUDA
+  cores.
 The MLP's f32 chunk partials (``_MLP_NSPLIT`` for K9a/K9c) are added in
 chunk order. The int8 kernels take the serving flags only (folded tree,
 static "full" scales, dense rows, mask-free attention, S <= 64) and
@@ -82,8 +84,8 @@ halves under "layer" and "stream", as the JAX package falls back. With
 non-dense route runs every layer on every row, then takes the CLS rows.
 ``run_float_tower`` is its route without a quant tree, bf16 or f32,
 causal (``encode_text``) or mask-free (the float vision towers): the
-halves (K6a, K6b), or K9b per layer under "block" (bf16 only). The knobs
-are read at call time.
+halves (K6a, K6b), or K9b per layer under "block" (bf16 or f32). The
+knobs are read at call time.
 """
 
 from __future__ import annotations
@@ -128,7 +130,8 @@ LAUNCHES = {"ln_quant": 0, "ln_quant_rows": 0, "ln_quant_f32": 0, "ln_quant_rows
             "masked_attention_f32": 0, "ln_affine": 0, "ln_affine_f32": 0,
             "causal_attention": 0, "causal_attention_f32": 0, "head_attention": 0,
             "head_attention_f32": 0, "pair_attention_bf16": 0, "pair_attention_f32": 0,
-            "block_int8": 0, "layer_fused_int8": 0, "stream_tower_int8": 0, "block_bf16": 0}
+            "block_int8": 0, "layer_fused_int8": 0, "stream_tower_int8": 0, "block_bf16": 0,
+            "block_f32": 0}
 # the float kernels' variants by dtype: the launch count's suffix and the
 # C entries' f32 flag
 _FLOAT = {torch.bfloat16: ("", 0), torch.float32: ("_f32", 1)}
@@ -964,22 +967,39 @@ def stream_tower_int8(x: torch.Tensor, quant: dict, n_heads: int, *, s: int) -> 
                         _chunks(_MLP_NSPLIT, _hidden(quant)), mid_f32=False)
 
 
+def _block_float_plain(x: torch.Tensor, layer: dict, s: int, n_heads: int, bias: torch.Tensor,
+                       dt: torch.dtype) -> torch.Tensor:
+    """K9b's math (``_block_kernel``) in the rows' dtype ``dt``: the LN
+    affine and weights cast to ``dt``, biases f32, f32 statistics and sums;
+    qkv and the context rounded to ``dt``; the mid residual in f32;
+    QuickGELU as h * sigmoid(1.702 h) in f32, the hidden rounded to
+    ``dt``."""
+    ln1, ln2, attn, mlp = layer["ln_1"], layer["ln_2"], layer["attn"], layer["mlp"]
+    h = ln_affine_plain(x, ln1["scale"].to(dt), ln1["bias"].to(dt))
+    qkv = (matmul_plain(h, attn["w_qkv"].to(dt)) + attn["b_qkv"].float()).to(dt)
+    ctx = bias_attention_plain(qkv, s, n_heads, bias)
+    mid = x.float() + (matmul_plain(ctx, attn["w_out"].to(dt)) + attn["b_out"].float())
+    h2 = ln_affine_plain(mid, ln2["scale"].to(dt), ln2["bias"].to(dt))
+    g = matmul_plain(h2, mlp["c_fc"]["w"].to(dt)) + mlp["c_fc"]["b"].float()
+    hid = (g * torch.sigmoid(1.702 * g)).to(dt)
+    return (mid + (matmul_plain(hid, mlp["c_proj"]["w"].to(dt)) + mlp["c_proj"]["b"].float())).to(dt)
+
+
 def block_bf16_plain(x: torch.Tensor, layer: dict, s: int, n_heads: int,
                      bias: torch.Tensor) -> torch.Tensor:
     """Plain version of K9b (``_block_kernel``): one bf16 layer of float
     block params on rows x [B * S, E] bf16 with an additive [S, S] f32
     bias. LN affine in bf16, f32 math; bf16 qkv; the context in bf16; the
     mid residual in f32; QuickGELU as h * sigmoid(1.702 h) in f32."""
-    bf = torch.bfloat16
-    ln1, ln2, attn, mlp = layer["ln_1"], layer["ln_2"], layer["attn"], layer["mlp"]
-    h = ln_affine_plain(x, ln1["scale"].to(bf), ln1["bias"].to(bf))
-    qkv = (matmul_plain(h, attn["w_qkv"].to(bf)) + attn["b_qkv"].float()).to(bf)
-    ctx = bias_attention_plain(qkv, s, n_heads, bias)
-    mid = x.float() + (matmul_plain(ctx, attn["w_out"].to(bf)) + attn["b_out"].float())
-    h2 = ln_affine_plain(mid, ln2["scale"].to(bf), ln2["bias"].to(bf))
-    g = matmul_plain(h2, mlp["c_fc"]["w"].to(bf)) + mlp["c_fc"]["b"].float()
-    hid = (g * torch.sigmoid(1.702 * g)).to(bf)
-    return (mid + (matmul_plain(hid, mlp["c_proj"]["w"].to(bf)) + mlp["c_proj"]["b"].float())).to(bf)
+    return _block_float_plain(x, layer, s, n_heads, bias, torch.bfloat16)
+
+
+def block_f32_plain(x: torch.Tensor, layer: dict, s: int, n_heads: int,
+                    bias: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9b in f32 (``_block_kernel`` at
+    ``Precision.HIGHEST``): one f32 layer on rows x [B * S, E] f32 with an
+    additive [S, S] f32 bias, every product and sum in f32 (no TF32)."""
+    return _block_float_plain(x, layer, s, n_heads, bias, torch.float32)
 
 
 def block_bf16(x: torch.Tensor, layer: dict, s: int, n_heads: int,
@@ -1028,6 +1048,48 @@ def block_bf16(x: torch.Tensor, layer: dict, s: int, n_heads: int,
                              1.0 / math.sqrt(e // n_heads), _build.stream_ptr(x.device))
     _build.check(err, "block_bf16")
     LAUNCHES["block_bf16"] += 1
+    return out
+
+
+def block_f32(x: torch.Tensor, layer: dict, s: int, n_heads: int,
+              bias: torch.Tensor) -> torch.Tensor:
+    """K9b in f32 (csrc/block_f32.cu): the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors. One block per sequence; every
+    intermediate of the layer in a global f32 scratch the wrapper
+    allocates, S x (E + max(3E, hidden)) floats per sequence."""
+    if not x.is_cuda:
+        return block_f32_plain(x, layer, s, n_heads, bias)
+    rows, e = x.shape
+    hidden = layer["mlp"]["c_fc"]["w"].shape[0]
+    if (x.dtype != torch.float32 or rows % s or s > 80 or e != 64 * n_heads or e % 16
+            or e > 1024 or hidden % 16):
+        raise ValueError(f"block_f32 takes f32 rows of S <= 80 tokens, head dim 64, E <= 1024 and "
+                         f"E and the hidden width multiples of 16; got {x.dtype} "
+                         f"{tuple(x.shape)}, S={s}, H={n_heads}, hidden={hidden}")
+    if bias.dtype != torch.float32 or tuple(bias.shape) != (s, s) or bias.device != x.device:
+        raise ValueError(f"bias must be f32 ({s}, {s}) on {x.device}")
+    f = torch.float32
+    ln1, ln2, attn, mlp = layer["ln_1"], layer["ln_2"], layer["attn"], layer["mlp"]
+    ops = [ln1["scale"], ln1["bias"], attn["w_qkv"], attn["b_qkv"], attn["w_out"], attn["b_out"],
+           ln2["scale"], ln2["bias"], mlp["c_fc"]["w"], mlp["c_fc"]["b"], mlp["c_proj"]["w"],
+           mlp["c_proj"]["b"], bias]
+    shapes = [(e,), (e,), (3 * e, e), (3 * e,), (e, e), (e,), (e,), (e,), (hidden, e), (hidden,),
+              (e, hidden), (e,), (s, s)]
+    for i, (t, shape) in enumerate(zip(ops, shapes)):
+        if tuple(t.shape) != shape or t.device != x.device:
+            raise ValueError(f"block_f32: operand {i} must be {shape} on {x.device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    ops = [t.to(f).contiguous() for t in ops]
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    lib = _build.load()
+    scratch = torch.empty(rows // s * lib.jcf_block_f32_scratch(s, e, hidden), dtype=f,
+                          device=x.device)
+    err = lib.jcf_block_f32(x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                            *(t.data_ptr() for t in ops), rows // s, s, n_heads, hidden,
+                            1.0 / math.sqrt(e // n_heads), _build.stream_ptr(x.device))
+    _build.check(err, "block_f32")
+    LAUNCHES["block_f32"] += 1
     return out
 
 
@@ -1140,25 +1202,24 @@ def run_float_tower(x: torch.Tensor, blocks: dict, n_heads: int, *, s: int,
     in x's dtype, causal (the text tower) or mask-free (the float vision
     towers, S <= 127 and an even head count).
 
-    Under ``_FUSE`` = "block" each layer is K9b with the causal mask or an
-    all-zero [S, S] bias (the reference's bias once its pad keys are
-    dropped), bf16 only: K9b in f32 is not ported (ROADMAP.md, Queue 2)
-    and raises. Under every other value the halves (K6a, K6b), as the JAX
-    package falls back. The TPU pads S to a multiple of 8 (pad keys masked
-    by -1e30, or zeroed and floored into the pair shift); pad rows never
+    Under ``_FUSE`` = "block" each layer is K9b (``block_bf16`` on bf16
+    rows, ``block_f32`` on f32 rows) with the causal mask or an all-zero
+    [S, S] bias (the reference's bias once its pad keys are dropped).
+    Under every other value the halves (K6a, K6b), as the JAX package
+    falls back. The TPU pads S to a multiple of 8 (pad keys masked by
+    -1e30, or zeroed and floored into the pair shift); pad rows never
     reach real rows, so the port runs unpadded."""
     fuse = _fuse()
     if fuse == "block":
-        if x.dtype != torch.bfloat16:
-            raise NotImplementedError(
-                f"_FUSE = 'block' on a {x.dtype} tower needs K9b (block_bf16) in f32, which is "
-                "not ported (ROADMAP.md, Queue 2); run it under _FUSE = 'halves'")
+        if x.dtype not in _FLOAT:
+            raise ValueError(f"the float tower takes bf16 or f32 rows, got {x.dtype}")
+        whole = block_bf16 if x.dtype == torch.bfloat16 else block_f32
         bias = (causal_mask(s, x.device) if causal
                 else torch.zeros((s, s), dtype=torch.float32, device=x.device))
     for i in range(blocks["attn"]["w_qkv"].shape[0]):
         layer = layer_slice(blocks, i)
         if fuse == "block":
-            x = block_bf16(x, layer, s, n_heads, bias)
+            x = whole(x, layer, s, n_heads, bias)
         else:
             x = mlp_half(attn_half(x, layer, s, n_heads, causal=causal), layer)
     return x

@@ -1,7 +1,7 @@
 """Shared pipeline plumbing (``jcf_tpu/pipelines/common.py``): model
-loading, the TTA engine of a configuration, the class templates, the
-zero-shot text classifier with its disk cache, and the crop-cloud
-stacking of the parity path."""
+loading, the TTA engine of a configuration, the serving mesh, the class
+templates, the zero-shot text classifier with its disk cache, the parity
+path's TTA loader and its crop-cloud stacking."""
 
 from __future__ import annotations
 
@@ -16,7 +16,13 @@ import numpy as np
 import torch
 
 from jcf_tpu_torch.config import PipelineConfig
-from jcf_tpu_torch.data import load_class_templates, synthesize_templates
+from jcf_tpu_torch.data import (
+    DataLoader,
+    TTACropSampler,
+    TTADataset,
+    load_class_templates,
+    synthesize_templates,
+)
 from jcf_tpu_torch.infer.engine import TTAEngine
 from jcf_tpu_torch.models.clip import CLIPConfig
 from jcf_tpu_torch.models.loader import load_clip
@@ -31,6 +37,15 @@ def compute_dtype(cfg: PipelineConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.runtime.compute_dtype == "bfloat16" else torch.float32
 
 
+def serving_mesh(cfg: PipelineConfig):
+    """The data-parallel serving mesh of ``jcf_tpu``; the port serves on
+    one GPU, so there is none (multi-GPU serving: ROADMAP.md, Queue 1
+    item 6). Returns None."""
+    if cfg.runtime.data_parallel and torch.cuda.is_available() and torch.cuda.device_count() > 1:
+        logger.info("%d GPUs visible: the port serves on one", torch.cuda.device_count())
+    return None
+
+
 def build_engine(params: dict, mcfg: CLIPConfig, cfg: PipelineConfig, first_batch=None, *,
                  device="cuda") -> TTAEngine:
     """The TTA engine of ``cfg``, as ``jcf_tpu/pipelines/ood.py:47-61``
@@ -40,7 +55,12 @@ def build_engine(params: dict, mcfg: CLIPConfig, cfg: PipelineConfig, first_batc
     device-crop path (``tta.device_crops``) the int8 engine calibrates its
     static activation scales on ``first_batch``, the first decoded batch of
     source images, and raises without it; elsewhere the batch is not read
-    and the int8 engine keeps dynamic scales."""
+    and the int8 engine keeps dynamic scales. ``runtime.attention_impl``
+    is accepted for the JAX CLI's flag, but the port has one attention
+    route on the card, so only None is served."""
+    if cfg.runtime.attention_impl is not None:
+        raise ValueError(f"runtime.attention_impl = {cfg.runtime.attention_impl!r}: the port has "
+                         "one attention route on the card; leave it None")
     calibrate = cfg.runtime.static_quant and cfg.tta.device_crops
     if calibrate and first_batch is None:
         raise ValueError("runtime.static_quant on the device-crop path calibrates on the first "
@@ -133,8 +153,22 @@ def build_text_weights(params: dict, mcfg: CLIPConfig, templates: Dict[int, List
     return w
 
 
+def tta_loader(cfg: PipelineConfig, data, mcfg: CLIPConfig, *, device="cuda") -> DataLoader:
+    """Loader of (center [B, 1, 3, s, s], crops [B, N, 3, s, s], labels,
+    impaths, indices) batches on ``device`` for the model's resolution s,
+    CLIP-normalized: ``tta.n_views`` crops of ``tta.crop_scale`` seeded per
+    image from seed 0, the center view resized to ``max(tta.resize_to * s
+    // 224, s)``, ``tta.batch_images`` images a batch, ``data.num_workers``
+    decoding threads."""
+    size = mcfg.image_resolution
+    sampler = TTACropSampler(n_views=cfg.tta.n_views, size=size, scale=cfg.tta.crop_scale, seed=0)
+    dataset = TTADataset(data, sampler, size=size,
+                         resize_to=max(cfg.tta.resize_to * size // 224, size), device=device)
+    return DataLoader(dataset, batch_size=cfg.tta.batch_images, num_workers=cfg.data.num_workers)
+
+
 def stack_center_and_crops(center, crops) -> torch.Tensor:
     """[B, 1, 3, s, s] + [B, N, 3, s, s] -> [B, N + 1, 3, s, s] with the
     center view first (``ood.py:868-872``); numpy arrays or tensors in, a
-    CPU tensor out."""
-    return torch.from_numpy(np.concatenate([np.asarray(center), np.asarray(crops)], axis=1))
+    tensor out on their device (the CPU for numpy arrays)."""
+    return torch.cat([torch.as_tensor(center), torch.as_tensor(crops)], dim=1)

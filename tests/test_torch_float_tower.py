@@ -354,7 +354,8 @@ def test_strict_bf16_matches_jax(tmp_path):
 def test_block_route_bf16_and_f32_refusal(monkeypatch):
     """Under ``_FUSE = "block"`` the bf16 vision tower runs K9b with an
     all-zero bias, as the JAX package runs ``_block_kernel`` with its pad
-    keys masked; the f32 tower refuses (K9b in f32 is not ported)."""
+    keys masked; the f32 tower, once refused, now runs K9b in f32
+    (``block_f32``) and is held against the JAX tower in f32."""
     monkeypatch.setattr(tbk, "_FUSE", "block")
     monkeypatch.setattr(jbk, "_FUSE", "block")
     jp = _params(21)
@@ -366,8 +367,9 @@ def test_block_route_bf16_and_f32_refusal(monkeypatch):
     got = tbk.run_float_tower(_t(x, torch.bfloat16), tblocks, H, s=50, causal=False)
     assert len(calls) == 2 and not bool(calls[0].any())
     _close_bf16(got.float().numpy(), _jax_tower(x.reshape(3, 50, E), jblocks, H, None, jnp.bfloat16))
-    with pytest.raises(NotImplementedError, match="K9b"):
-        tbk.run_float_tower(_t(x), tblocks, H, s=50, causal=False)
+    got = tbk.run_float_tower(_t(x), tblocks, H, s=50, causal=False)
+    assert got.dtype == torch.float32
+    _close(got.numpy(), _jax_tower(x.reshape(3, 50, E), jblocks, H, None, jnp.float32), 1e-3)
 
 
 def test_encode_text_f32_matches_jax():
