@@ -129,7 +129,7 @@
    tower at small width, int8 and bf16, counted, against their plain
    routes, and the float halves' per-head attention (``head_attention``)
    against its plain version on the 3-head tower's layer-0 qkv.
-13. (last) ``jcf-ood`` end to end. 13a: each committed JPEG fixture
+13. ``jcf-ood`` end to end. 13a: each committed JPEG fixture
    (``tests/fixtures/jpeg``) through nvJPEG and the resize + center-crop
    kernel, against its committed PIL and ``jcf_tpu.native`` decodes at
    256² (max and mean level difference, bars 16 and 1.5 levels) and the
@@ -157,6 +157,35 @@
    also decodes 132 images in a second thread while this one keeps the
    card busy: each must equal its decode alone.
 
+14. (last) ``jcf-predict`` end to end, on a workspace of the names its
+   defaults read: phase 13's 16 fixture images split 8 / 8 into
+   ``TestSetB_1.txt`` and ``TestSetB_2.txt``, the seed-0 ViT-B/32
+   checkpoint, a stage-1 LoRA (r 4 on q, k, v of both towers, seed 1, B
+   drawn non-zero), stage 2's ``test_pkl`` (the checkpoint with 4 visual
+   prompt tokens, so the prompted tower has 54 rows a crop; its own LoRA
+   from seed 2; the channel LP and MoCo adapter heads; the prompt
+   learner's ctx) and a seed-0 ResNet-50 with trained-tower BatchNorm
+   statistics as a ``base_encoder.`` MoCo state dict. 14a:
+   ``cli.predict.main`` in the default configuration (f32, 512 + 1 host
+   crops), counted (the f32 text halves of 3 classifiers and the prompt
+   learner, the f32 vision halves of 3 crop clouds, one nvJPEG decode an
+   image; no K3-K5, no K9), then on the plain versions: the three result
+   files byte-identical, ``cs1`` within 1e-3; img/s end to end and per
+   loop. 14b: ``run_predict`` with ``runtime.quant = "int8"`` in bf16 (the
+   engines built without calibration: dynamic per-row scales) under
+   ``_FUSE`` = "halves", "block", "layer", "stream", each counted (the
+   crop clouds run every layer on every row, as the JAX engine's
+   ``_encode_cloud``: 12 K3 + K4, 12 K9a, 12 K9d or 1 K9c per cloud; the
+   text tower K9b under "block"), the prompted tower's per-crop features
+   against 14a's f32 ones (top-1 >= 0.99, top-5 >= 0.97, MTA modes min cos
+   >= 0.999), the K9 kernel in the dynamic mode against its plain version
+   on the prompted tower's input rows (4104 crops x 54 rows), timed beside
+   the dynamic halves per layer; img/s. 14c: each K9 kernel in the modes
+   "ln", "hidden" and "full+score" (the engine calibrated on phase 6's
+   images) on ``features_from_images`` at b1024 x 8 views (8192 crops x
+   50 rows), counted, against its plain version on that forward's tower
+   input, timed beside the halves per layer in the same mode.
+
 Every weight and input is made from seed 0 (the LoRA factors from seed
 1, as ``scripts/bench_train.py``). Exits nonzero, without the
 final line, when no CUDA device is present or any phase fails. Before the
@@ -164,7 +193,8 @@ last line it prints the script's wall time, the decoder's JSON line (no
 TPU kernel: its level differences, img/s and the resize kernel's times),
 the kernels JSON line
 (launches on the path, error against the plain version, kernel / plain /
-library-call times and the card's bound for the same work; the residual
+library-call times and the card's bound for the same work; the K9 int8
+kernels once more per mode phase 14 adds, as "<kernel>/<mode>"; the residual
 GEMMs at c_proj's shape, their out-proj shape in the log; K7 at the text
 tower's bf16 shape, the other three in the log; K8 in bf16 and the
 row-scale GEMM at c_fc's shape, K8 in f32 and the qkv shape in the log)
@@ -208,6 +238,9 @@ PEAK_INT8 = 1979e12
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12  # f32 outside the tensor cores
 
+# the int8 layer kernel K9a / K9c / K9d: a template there, its instances
+# built from csrc/fused_int8_*.cu
+FUSED_INT8_SRC = "jcf_tpu_torch/csrc/fused_layer.cuh"
 # kernel -> (path, source, TPU kernel it replaces); the int8 patch-embed
 # GEMM replaces an XLA convolution, not a Pallas kernel
 KERNELS = {
@@ -244,11 +277,11 @@ KERNELS = {
     "int8_gemm_rowscale": ("serving_b16", "jcf_tpu_torch/csrc/int8_gemm.cu",
                            "jcf_tpu/ops/quant.py:41"),
     # the whole-layer routes (_FUSE), phase 9
-    "block_int8": ("serving_block", "jcf_tpu_torch/csrc/fused_layer.cu",
+    "block_int8": ("serving_block", FUSED_INT8_SRC,
                    "jcf_tpu/ops/block_kernel.py:732"),
-    "layer_fused_int8": ("serving_layer", "jcf_tpu_torch/csrc/fused_layer.cu",
+    "layer_fused_int8": ("serving_layer", FUSED_INT8_SRC,
                          "jcf_tpu/ops/block_kernel.py:1672"),
-    "stream_tower_int8": ("serving_stream", "jcf_tpu_torch/csrc/fused_layer.cu",
+    "stream_tower_int8": ("serving_stream", FUSED_INT8_SRC,
                           "jcf_tpu/ops/block_kernel.py:833"),
     "block_bf16": ("classifier_block", "jcf_tpu_torch/csrc/fused_layer.cu",
                    "jcf_tpu/ops/block_kernel.py:948"),
@@ -1065,6 +1098,17 @@ def agreement(modes_q, modes_f, classifier):
     return top1, overlap, float(cosine_rows(modes_q, modes_f).mean())
 
 
+def gap_swing(modes_q, modes_f, classifier):
+    """Per row: the f32 top-1 - top-2 logit gap, and the int8 - f32
+    difference of that gap (the swing)."""
+    logits_f = modes_f @ classifier.float().T
+    top2 = logits_f.topk(2, dim=-1)
+    delta = (modes_q - modes_f) @ classifier.float().T
+    idx = top2.indices
+    swing = (delta.gather(1, idx[:, :1]) - delta.gather(1, idx[:, 1:])).abs()[:, 0]
+    return top2.values[:, 0] - top2.values[:, 1], swing
+
+
 def margins(modes_q, modes_f, classifier) -> None:
     """Logs what decides the top-1 agreement: the f32 top-1 minus top-2
     logit gap per image, the int8 - f32 logit difference on those two
@@ -1072,11 +1116,7 @@ def margins(modes_q, modes_f, classifier) -> None:
     how alike the f32 modes of different images are."""
     import torch
 
-    logits_f = modes_f @ classifier.float().T
-    top2 = logits_f.topk(2, dim=-1)
-    gap = top2.values[:, 0] - top2.values[:, 1]
-    delta = (modes_q - modes_f) @ classifier.float().T
-    swing = (delta.gather(1, top2.indices[:, :1]) - delta.gather(1, top2.indices[:, 1:])).abs()[:, 0]
+    gap, swing = gap_swing(modes_q, modes_f, classifier)
     mf = modes_f / modes_f.norm(dim=-1, keepdim=True)
     n = mf.shape[0]
     pair_cos = float(((mf @ mf.T).sum() - n) / (n * (n - 1)))
@@ -1086,6 +1126,14 @@ def margins(modes_q, modes_f, classifier) -> None:
         f"{swing.quantile(torch.tensor([0.5, 0.95], device=gap.device)).tolist()}; "
         f"images whose gap is under their swing {float((gap < swing).float().mean()):.4f}; "
         f"mean cosine between different images' f32 modes {pair_cos:.6f}")
+
+
+def tie_share(modes_q, modes_f, classifier) -> float:
+    """The share of rows whose f32 top-1 - top-2 logit gap is under the
+    int8 - f32 swing of that gap: the near-ties that top-1 agreement
+    counts."""
+    gap, swing = gap_swing(modes_q, modes_f, classifier)
+    return float((gap < swing).float().mean())
 
 
 def check_modes(modes, batch: int, dim: int) -> None:
@@ -1936,6 +1984,8 @@ FLOAT_LAYER = {
              "bf16_gemm_residual": 2, "bf16_gemm_gelu": 1},
     "f32 text": {"ln_affine_f32": 2, "f32_gemm_bias": 1, "causal_attention_f32": 1,
                  "f32_gemm_residual": 2, "f32_gemm_gelu": 1},
+    "bf16 text": {"ln_affine": 2, "bf16_gemm_bias": 1, "causal_attention": 1,
+                  "bf16_gemm_residual": 2, "bf16_gemm_gelu": 1},
 }
 FLOAT_ITERS = 2  # timed calls of the unquantized engines
 # the int8 certificate (static "full", b1024 x 8 views) as measured
@@ -3141,6 +3191,456 @@ def ood_phase(params, cfg, counters, smi, launches_srv, launches_cls) -> tuple:
     return launches_b, ph.results, decoder
 
 
+# phase 14: jcf-predict end to end (the prompt learner, the heads, the MoCo
+# RN50, the cs ensemble, the result writers; the int8 towers under each
+# _FUSE with K9a / K9d / K9c in the dynamic mode)
+PREDICT_IMAGES = 16  # phase 13's fixtures repeated: 8 base + 8 new, one batch of 8 each
+PREDICT_ROUTES = ("halves", "block", "layer", "stream")
+# the K9 kernel of each whole-layer route
+K9_OF = {"block": "block_int8", "layer": "layer_fused_int8", "stream": "stream_tower_int8"}
+# 14c: the calibrated modes of the K9 kernels beside 14b's dynamic one
+K9_MODES = ("ln", "hidden", "full+score")
+# one layer of the dynamic int8 halves on every row: K3 (LN + row quant,
+# qkv, f32-context attention, the context's row quant, out-proj), K4 (LN +
+# row quant, c_fc, QuickGELU + row quant, c_proj)
+DYNAMIC_LAYER = {"ln_quant_rows": 2, "int8_gemm_bf16_rows": 1, "attention_f32": 1,
+                 "quant_rows": 1, "int8_gemm_residual_rows": 2, "int8_gemm_f32_rows": 1,
+                 "gelu_quant_rows": 1}
+
+
+def rn50_params(seed: int = 0) -> dict:
+    """The seed-0 ResNet-50 (``init_resnet50_params``) with BatchNorm
+    statistics of a trained tower (scales 0.2-0.6, running variances 0.5-2,
+    from ``default_rng(seed + 5)``): identity BatchNorms let the random
+    tower's features grow to ~1e3."""
+    import torch
+
+    from jcf_tpu_torch.models.resnet import init_resnet50_params
+
+    params = init_resnet50_params(seed)
+    rng = np.random.default_rng(seed + 5)
+
+    def stats(bn):
+        c = bn["weight"].shape[0]
+        bn["weight"] = torch.from_numpy(rng.uniform(0.2, 0.6, c).astype(np.float32))
+        bn["running_var"] = torch.from_numpy(rng.uniform(0.5, 2.0, c).astype(np.float32))
+        bn["bias"] = torch.from_numpy((0.05 * rng.standard_normal(c)).astype(np.float32))
+        bn["running_mean"] = torch.from_numpy((0.1 * rng.standard_normal(c)).astype(np.float32))
+
+    stats(params["bn1"])
+    for stage in params["layers"]:
+        for block in stage:
+            for i in (1, 2, 3):
+                stats(block[f"bn{i}"])
+            if "downsample" in block:
+                stats(block["downsample"]["bn"])
+    return params
+
+
+def moco_state_dict(params: dict, prefix: str = "base_encoder.") -> dict:
+    """A MoCo-v3 checkpoint (torchvision names under ``prefix``, numpy
+    arrays) of an RN50 tree, with the projection head a real checkpoint
+    carries beside the backbone."""
+    sd = {f"{prefix}conv1.weight": params["conv1"].numpy()}
+    bn_keys = ("weight", "bias", "running_mean", "running_var")
+    for k in bn_keys:
+        sd[f"{prefix}bn1.{k}"] = params["bn1"][k].numpy()
+    for si, stage in enumerate(params["layers"], start=1):
+        for b, blk in enumerate(stage):
+            pre = f"{prefix}layer{si}.{b}"
+            for ci in (1, 2, 3):
+                sd[f"{pre}.conv{ci}.weight"] = blk[f"conv{ci}"].numpy()
+                for k in bn_keys:
+                    sd[f"{pre}.bn{ci}.{k}"] = blk[f"bn{ci}"][k].numpy()
+            if "downsample" in blk:
+                sd[f"{pre}.downsample.0.weight"] = blk["downsample"]["conv"].numpy()
+                for k in bn_keys:
+                    sd[f"{pre}.downsample.1.{k}"] = blk["downsample"]["bn"][k].numpy()
+    sd[f"{prefix}fc.0.weight"] = np.zeros((16, 2048), np.float32)
+    return sd
+
+
+def predict_workspace(root: str, params: dict, cfg) -> None:
+    """The files ``jcf-predict`` reads, under ``root`` by their default
+    names: ``Dataset`` (phase 13's 16 fixture images, ``TestSetB_1.txt``
+    the first 8, ``TestSetB_2.txt`` the last 8, its rotated 403-line
+    ``classes.txt``), the seed-0 ViT-B/32 checkpoint, the stage-1 LoRA (r 4
+    on q, k, v of every layer of both towers, seed 1, B factors drawn
+    non-zero), stage 2's ``test_pkl`` (the checkpoint with 4 visual prompt
+    tokens, its own LoRA from seed 2, the channel LP and MoCo adapter
+    heads, the prompt learner's ctx) and the MoCo checkpoint of
+    ``rn50_params(0)``."""
+    import pickle
+
+    import torch
+
+    from jcf_tpu_torch.config import PipelineConfig
+    from jcf_tpu_torch.heads import init_channel_lp, init_moco_adapter
+    from jcf_tpu_torch.models.loader import state_dict_from_params
+    from jcf_tpu_torch.peft import init_lora_params, save_lora
+    from jcf_tpu_torch.pipelines.train_lora import lora_spec_from_config
+    from jcf_tpu_torch.tokenizer import tokenize
+    from jcf_tpu_torch.utils import save_pytree
+
+    ds = ood_dataset(os.path.join(root, "Dataset"), PREDICT_IMAGES)
+    test = os.path.join(ds, "TestSetB")
+    paths = sorted(os.path.join(test, f) for f in os.listdir(test))
+    half = PREDICT_IMAGES // 2
+    for name, part in (("TestSetB_1.txt", paths[:half]), ("TestSetB_2.txt", paths[half:])):
+        with open(os.path.join(ds, name), "w") as f:
+            f.writelines(p + "\n" for p in part)
+    with open(os.path.join(root, "ViT-B-32.pkl"), "wb") as f:
+        pickle.dump(state_dict_from_params(params, cfg), f)
+    pc = PipelineConfig()
+    spec = lora_spec_from_config(pc)
+    rng = np.random.default_rng(0)
+
+    def lora(seed):
+        tree = init_lora_params(seed, spec, cfg.text_layers, cfg.text_width, cfg.vision_layers,
+                                cfg.vision_width)
+        for tower in tree.values():
+            tower["b_qkv"] = torch.from_numpy(
+                (0.02 * rng.standard_normal(tuple(tower["b_qkv"].shape))).astype(np.float32))
+        return tree
+
+    kw = dict(n_text=cfg.text_layers, n_vision=cfg.vision_layers)
+    save_lora(lora(1), spec, os.path.join(root, pc.stage1.save_path), **kw)
+    out = os.path.join(root, pc.stage2.out_dir)
+    vis = dict(params["visual"])
+    vis["vpt"] = torch.from_numpy((0.02 * rng.standard_normal((4, cfg.vision_width)))
+                                  .astype(np.float32))
+    save_pytree(state_dict_from_params(dict(params, visual=vis), cfg),
+                os.path.join(out, "clip_model.pkl"))
+    save_lora(lora(2), spec, os.path.join(out, "lora_weights.pkl"), **kw)
+    w = rng.standard_normal((N_CLASSES, cfg.embed_dim)).astype(np.float32)
+    lp = init_channel_lp(N_CLASSES, cfg.embed_dim,
+                         torch.from_numpy(w / np.linalg.norm(w, axis=-1, keepdims=True)))
+    lp["scale1"] = torch.from_numpy((1 + 0.1 * rng.standard_normal(cfg.embed_dim))
+                                    .astype(np.float32))
+    save_pytree(lp, os.path.join(out, "channel.pkl"))
+    sums = np.abs(rng.standard_normal((N_CLASSES, 2048))).astype(np.float32)
+    save_pytree(init_moco_adapter(N_CLASSES, 2048, torch.from_numpy(sums)),
+                os.path.join(out, "moco_adapter.pkl"))
+    table = params["text"]["token_embedding"].numpy()
+    ctx = table[tokenize(pc.stage2.ctx_init)[0][1 : 1 + pc.stage2.n_ctx]]
+    save_pytree({"ctx": ctx + (0.01 * rng.standard_normal(ctx.shape)).astype(np.float32)},
+                os.path.join(out, "PromptLearner.pkl"))
+    with open(os.path.join(root, pc.stage2.moco_checkpoint), "wb") as f:
+        pickle.dump(moco_state_dict(rn50_params(0)), f)
+
+
+@contextlib.contextmanager
+def predict_records(ensembles: list, feats: list):
+    """For the block: appends the ensembles of each base batch of
+    ``run_predict`` ({name: [B, C] f32}) to ``ensembles`` and the per-view
+    features of every
+    ``TTAEngine.crop_features`` call (the prompted tower, then the zs
+    tower, per base batch; the pristine tower per new batch) to ``feats``."""
+    from jcf_tpu_torch.infer.engine import TTAEngine
+    from jcf_tpu_torch.pipelines import predict as pr
+
+    ens, crop = pr.ensemble_base_logits, TTAEngine.crop_features
+
+    def ens_wrapper(*args):
+        out = ens(*args)
+        ensembles.append(out)
+        return out
+
+    def crop_wrapper(self, crops):
+        out = crop(self, crops)
+        feats.append(out)
+        return out
+
+    pr.ensemble_base_logits, TTAEngine.crop_features = ens_wrapper, crop_wrapper
+    try:
+        yield
+    finally:
+        pr.ensemble_base_logits, TTAEngine.crop_features = ens, crop
+
+
+def run_predict_counted(tmp: str, run, counters, label: str, smi):
+    """``run(results_dir, timer)`` (the CLI or ``run_predict``) from
+    ``tmp`` with its classifier cache emptied and every launch count at 0
+    -> (the three result files, launches, Timer summary, wall seconds)."""
+    import torch
+
+    from jcf_tpu_torch.utils import Timer
+
+    shutil.rmtree(os.path.join(tmp, ".jcf_cache"), ignore_errors=True)
+    results_dir = os.path.join(tmp, f"final_{label.replace(' ', '_').replace(chr(39), '')}")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    timer = Timer()
+    try:
+        torch.cuda.synchronize()
+        for c in counters:
+            c.update(dict.fromkeys(c, 0))
+        t0 = time.perf_counter()
+        out = run(results_dir, timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for c in counters for k, v in c.items() if v}
+    finally:
+        os.chdir(cwd)
+    half = PREDICT_IMAGES // 2
+    if out["n_base"] != half or out["n_new"] != half:
+        raise AssertionError(f"{label}: {out['n_base']} base + {out['n_new']} new, expected "
+                             f"{half} + {half}")
+    files = {n: open(os.path.join(results_dir, n), "rb").read()
+             for n in ("top5_results6.txt", "top5_results_ood.txt", "result.txt")}
+    lines = files["result.txt"].decode().splitlines()
+    if len(lines) != PREDICT_IMAGES or any(len(l.split()) != 6 or "/" in l for l in lines):
+        raise AssertionError(f"{label}: result.txt is not {PREDICT_IMAGES} lines of a file name "
+                             f"and 5 labels")
+    summ = timer.summary()
+    wait, base, new = (summ[k]["total_s"] for k in ("decode_wait", "base_batch", "new_batch"))
+    log(f"  {label}: {PREDICT_IMAGES} images in {wall:.2f} s end to end "
+        f"({PREDICT_IMAGES / wall:.2f} img/s with the loads, the 4 text classifiers and the "
+        f"engines: load "
+        f"{summ['load']['total_s']:.2f} s, classifiers {summ['classifiers']['total_s']:.2f} s, "
+        f"engines {summ['engines']['total_s']:.2f} s); base loop {half / base:.2f} img/s, new loop "
+        f"{half / new:.2f} img/s, decode_wait {wait:.2f} s "
+        f"({wait / (wait + base + new):.3f} of the loops) on {smi}")
+    return files, launches, summ, wall
+
+
+def text_launches(fuse: str, dtype: str, n_layers: int, calls: int) -> dict:
+    """The text tower's launches over ``calls`` forwards (the classifier
+    builds' batches and the prompt learner's one): K9b per layer under
+    "block" (``block_bf16``; ``block_f32`` in f32), else the float halves."""
+    if fuse == "block":
+        return {"block_f32" if dtype == "f32" else "block_bf16": n_layers * calls}
+    return float_launches("f32 text" if dtype == "f32" else "bf16 text", n_layers, calls,
+                          view=False)
+
+
+def predict_phase(params, cfg, counters, text, smi, dev):
+    """Phase 14a-b: ``jcf-predict`` on the card -> (launches of each 14b
+    route, kernel results)."""
+    import torch
+
+    from jcf_tpu_torch.cli import predict as cli
+    from jcf_tpu_torch.cli._args import build_parser, config_from_args
+    from jcf_tpu_torch.models import clip as clip_module
+    from jcf_tpu_torch.ops import block_kernel as bk
+    from jcf_tpu_torch.ops.layers import layer_slice
+    from jcf_tpu_torch.pipelines import run_predict
+    from jcf_tpu_torch.tta.mta import solve_mta_batch
+
+    ph = Phase()
+    launches_routes = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        predict_workspace(tmp, params, cfg)
+        log(f"phase 14: jcf-predict's workspace (16 images, ViT-B/32, the stage-1 and stage-2 "
+            f"LoRAs, the prompted checkpoint, the heads, the MoCo RN50) written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        argv = ["--root_path", "Dataset", "--clip_checkpoint", "ViT-B-32.pkl"]
+        n_text = 3 * -(-N_CLASSES * 8 // TEXT_BATCH) + 1  # 3 classifiers + the prompt learner
+
+        def cli_run(results_dir, timer):
+            return cli.main([*argv, "--results_dir", results_dir, "--device",
+                             torch.device(dev).type], timer=timer)
+
+        log("phase 14a: the default configuration (f32, 512 + 1 host crops) through "
+            "cli.predict.main")
+        ens_k, feats_f = [], []
+        with predict_records(ens_k, feats_f):
+            files_k, launches_k, _, _ = run_predict_counted(tmp, cli_run, counters, "kernels", smi)
+        log(f"  launches: {launches_k}")
+        # 3 crop clouds (the prompted and zs towers on the base batch, the
+        # pristine one on the new batch), the text tower, one nvJPEG
+        # decode per image and per loader (the center view and the crops
+        # come from the same decode)
+        expected = add_launches(text_launches("halves", "f32", cfg.text_layers, n_text),
+                                float_launches("f32", cfg.vision_layers, 3, view=False),
+                                {"jpeg_decode": PREDICT_IMAGES})
+        if launches_k != expected:
+            raise AssertionError(f"expected exactly the launches {expected}")
+        ens_p = []
+        with plain_serving(), predict_records(ens_p, []):
+            files_p, launches_p, _, _ = run_predict_counted(tmp, cli_run, counters,
+                                                            "plain versions", smi)
+        if launches_p != {"jpeg_decode": PREDICT_IMAGES}:
+            raise AssertionError(f"the plain route launched kernels: {launches_p}")
+        d_cs1 = max(float((a["cs1"] - b["cs1"]).abs().max()) for a, b in zip(ens_k, ens_p))
+        log(f"  kernels vs plain versions: cs1 max |diff| {d_cs1:.3e} (tol 1e-3); result files "
+            f"{'byte-identical' if files_k == files_p else 'DIFFER'}")
+        if files_k != files_p or d_cs1 > 1e-3 or len(ens_k) != len(ens_p):
+            raise AssertionError("14a: the kernel route disagrees with the plain versions")
+
+        cfg_q = config_from_args(build_parser("p", 346373).parse_args(argv))
+        cfg_q = dataclasses.replace(cfg_q, runtime=dataclasses.replace(
+            cfg_q.runtime, compute_dtype="bfloat16", quant="int8"))
+        top5_f = torch.cat([e["cs1"] for e in ens_k]).topk(5, dim=-1).indices
+        try:
+            for fuse in PREDICT_ROUTES:
+                bk._FUSE = fuse
+                log(f"phase 14b, _FUSE = {fuse!r}: runtime.quant = 'int8', compute_dtype bf16 "
+                    f"(dynamic per-row scales), through run_predict")
+                ens_q, feats_q, towers = [], [], []
+                with predict_records(ens_q, feats_q), recorded(clip_module, "run_fused_tower",
+                                                              towers, 1):
+                    _, launches, _, _ = run_predict_counted(
+                        tmp, lambda r, t: run_predict(cfg_q, r, device=dev, timer=t), counters,
+                        f"int8 {fuse}", smi)
+                log(f"  launches: {launches}")
+                n = cfg.vision_layers
+                vision = ({"stream_tower_int8": 3} if fuse == "stream"
+                          else {K9_OF[fuse]: 3 * n} if fuse in K9_OF
+                          else {k: v * 3 * n for k, v in DYNAMIC_LAYER.items()})
+                expected = add_launches(text_launches(fuse, "bf16", cfg.text_layers, n_text),
+                                        vision, {"jpeg_decode": PREDICT_IMAGES})
+                if launches != expected:
+                    raise AssertionError(f"expected exactly the launches {expected}")
+                launches_routes[fuse] = launches
+
+                # the prompted tower's crops against 14a's f32 features: per
+                # crop (phase 10b's bars for dynamic int8) and the MTA modes
+                q, f = feats_q[0].float(), feats_f[0].float()
+                flat_q, flat_f = q.reshape(-1, q.shape[-1]), f.reshape(-1, f.shape[-1])
+                top1, overlap, cos = agreement(flat_q, flat_f, text)
+                crop_cos = cosine_rows(flat_q, flat_f)
+                modes_q, modes_f = solve_mta_batch(q, text), solve_mta_batch(f, text)
+                mode_cos = float(cosine_rows(modes_q, modes_f).min())
+                top5_q = torch.cat([e["cs1"] for e in ens_q]).topk(5, dim=-1).indices
+                same5 = float((top5_q == top5_f).all(-1).float().mean())
+                ties = tie_share(flat_q, flat_f, text)
+                log(f"  prompted tower, int8 ({fuse}) vs 14a's f32 over {flat_q.shape[0]} crops: "
+                    f"top1_agree {top1:.4f} top5_overlap {overlap:.4f}; feature cos mean "
+                    f"{cos:.6f} min {float(crop_cos.min()):.6f}; modes min cos {mode_cos:.6f}; "
+                    f"crops whose f32 top-1 - top-2 gap is under the int8 swing {ties:.4f}; cs1 "
+                    f"top-5 equal to 14a's on {same5:.3f} of the base images (not gated)")
+                margins(flat_q, flat_f, text)
+                # phase 10b's bars; where more than 1% of the crops' f32 top-1
+                # gaps lie under the int8 swing (crops of the same few photos
+                # through random weights sit near one point), top-1 counts
+                # near-ties and phase 10c's fixed gates hold the features
+                if ties <= 0.01:
+                    log("  gates: top-1 >= 0.99, top-5 >= 0.97, modes min cos >= 0.999")
+                    ok = top1 >= 0.99 and overlap >= 0.97 and mode_cos >= 0.999
+                else:
+                    log("  gates (near-ties): top-5 >= 0.97, feature cos mean and min >= 0.999, "
+                        "modes min cos >= 0.999; top-1 printed")
+                    ok = (overlap >= 0.97 and cos >= 0.999 and float(crop_cos.min()) >= 0.999
+                          and mode_cos >= 0.999)
+                if not ok:
+                    raise AssertionError(f"14b {fuse}: the int8 towers fail the certificate")
+
+                # the K9 kernel against its plain version on the prompted
+                # tower's input rows (54 tokens; layer 0, the whole tower for
+                # K9c), beside the dynamic halves per layer
+                rows, quant, heads = towers[0][:3]
+                s = rows.shape[0] // feats_q[0].shape[0] // feats_q[0].shape[1]
+                layer0 = layer_slice(quant, 0)
+                halves_ms = time_ms(lambda: bk._halves_int8(rows, layer0, s, heads), 3)
+                if fuse in K9_OF:
+                    name = K9_OF[fuse]
+                    k9_check(ph, f"{name}/dynamic", fuse, rows, quant, s, heads)
+                    per_layer = ph.results[f"{name}/dynamic"]["ms"] / (n if fuse == "stream" else 1)
+                    log(f"  {name} (dynamic) at {rows.shape[0] // s} x {s} rows: {per_layer:.3f} "
+                        f"ms per layer; the dynamic halves (K3 + K4, 9 launches) {halves_ms:.3f} "
+                        f"ms per layer on the same rows")
+                else:
+                    log(f"  the dynamic halves at {rows.shape[0] // s} x {s} rows: "
+                        f"{halves_ms:.3f} ms per layer")
+                del ens_q, feats_q, towers, rows, quant
+                torch.cuda.empty_cache()
+        finally:
+            bk._FUSE = "halves"
+    return launches_routes, ph.results
+
+
+def k9_check(ph, label, fuse, rows, quant, s, heads):
+    """``ph.run`` of the K9 kernel of ``fuse`` against its plain version on
+    ``rows``: layer 0 (K9a, K9d: the one-layer bars) or the whole tower
+    (K9c: the cosine bar)."""
+    from jcf_tpu_torch.ops import block_kernel as bk
+    from jcf_tpu_torch.ops.layers import layer_slice
+
+    name = K9_OF[fuse]
+    kern, plain = getattr(bk, name), getattr(bk, f"{name}_plain")
+    layer0 = layer_slice(quant, 0)
+    e, n_rows = rows.shape[1], rows.shape[0]
+    hidden = quant["mlp"]["c_fc"].w_int8.shape[-2]
+    w_bytes = sum(nbytes(*q) for q in (layer0["attn"]["w_qkv"], layer0["attn"]["w_out"],
+                                        layer0["mlp"]["c_fc"], layer0["mlp"]["c_proj"]))
+    pairs = n_rows // s * s * s
+    if fuse == "stream":
+        n_layers = quant["attn"]["w_qkv"].w_int8.shape[0]
+        ph.run(label, lambda: kern(rows, quant, heads, s=s), lambda: plain(rows, quant, heads, s=s),
+               lambda n, g, r: check_layer(n, g, r, elementwise=False),
+               layer_work(n_rows, e, hidden, heads, pairs, 2 * nbytes(rows) + n_layers * w_bytes,
+                          PEAK_INT8, n_layers), reps=1)
+    else:
+        ph.run(label, lambda: kern(rows, layer0, s, heads), lambda: plain(rows, layer0, s, heads),
+               check_layer,
+               layer_work(n_rows, e, hidden, heads, pairs, 2 * nbytes(rows) + w_bytes, PEAK_INT8),
+               reps=3)
+
+
+def k9_modes_phase(params, images_np, images, geometry, text, counters, smi, dev):
+    """Phase 14c: each K9 kernel in the modes "ln", "hidden" and
+    "full+score" (the folded tree calibrated on phase 6's images, dense
+    rows), on the int8 engine's route (``features_from_images``, b1024 x 8
+    views = 8192 crops of 50 rows): one counted forward per (mode, route),
+    the kernel against its plain version on that forward's tower input,
+    the halves per layer in the same mode -> ({path: launches},
+    results)."""
+    import torch
+
+    from jcf_tpu_torch.infer import engine as engine_module
+    from jcf_tpu_torch.infer.engine import TTAEngine
+    from jcf_tpu_torch.models.clip import VIT_B_32
+    from jcf_tpu_torch.ops import block_kernel as bk
+    from jcf_tpu_torch.ops.layers import layer_slice
+
+    cfg = VIT_B_32
+    ph = Phase()
+    launches = {}
+    try:
+        for mode in K9_MODES:
+            engine = TTAEngine(params, cfg, device=dev, n_views=VIEWS - 1,
+                               calibration_images=images_np, static_quant_mode=mode)
+            for fuse, name in K9_OF.items():
+                bk._FUSE = fuse
+                log(f"phase 14c, {name} in mode {mode!r}: ViT-B/32 int8 serving, b{BATCH} x "
+                    f"{VIEWS} views")
+                towers = []
+                with recorded(engine_module, "run_fused_tower", towers, 1):
+                    modes, counted = count_forward(
+                        counters, lambda: engine.features_from_images(images, text,
+                                                                      geometry=geometry))
+                check_modes(modes, BATCH, cfg.embed_dim)
+                if not counted.get(name):
+                    raise AssertionError(f"{name} never launched under _FUSE = {fuse!r}")
+                label = f"{name}/{mode}"
+                launches[f"modes_{fuse}_{mode}"] = {label: counted[name]}
+                log(f"  launches: {counted}")
+                rows, quant, heads = towers[0][:3]
+                s = cfg.vision_seq_len
+                k9_check(ph, label, fuse, rows, quant, s, heads)
+                halves_ms = time_ms(lambda: bk._halves_int8(rows, layer_slice(quant, 0), s, heads),
+                                    3)
+                n = cfg.vision_layers if fuse == "stream" else 1
+                log(f"  {label}: {ph.results[label]['ms'] / n:.3f} ms per layer; the halves in "
+                    f"mode {mode!r} {halves_ms:.3f} ms per layer on the same rows")
+                del towers, rows, quant, modes
+            del engine
+            torch.cuda.empty_cache()
+    finally:
+        bk._FUSE = "halves"
+    return launches, ph.results
+
+
+# the K9 kernels in the modes phase 14 adds: jcf-predict's dynamic towers
+# (14b) and the calibrated modes on the serving route (14c)
+KERNELS.update({f"{name}/dynamic": (f"predict_{fuse}", FUSED_INT8_SRC, KERNELS[name][2])
+                for fuse, name in K9_OF.items()})
+KERNELS.update({f"{name}/{mode}": (f"modes_{fuse}_{mode}", FUSED_INT8_SRC, KERNELS[name][2])
+                for mode in K9_MODES for fuse, name in K9_OF.items()})
+
+
 def main() -> int:
     import torch
 
@@ -3331,6 +3831,15 @@ def main() -> int:
     launches_ood, results_ood, decoder = ood_phase(params, cfg, counters + [decode_module.LAUNCHES],
                                                    smi, launches_srv, launches_cls)
     results.update(results_ood)
+
+    # phase 14 (last): jcf-predict end to end through its CLI and
+    # run_predict; the K9 kernels in the calibrated modes
+    launches_pred, results_pred = predict_phase(params, cfg, counters + [decode_module.LAUNCHES],
+                                                text, smi, dev)
+    results.update(results_pred)
+    launches_k9m, results_k9m = k9_modes_phase(params, images_np, images, geometry, text, counters,
+                                               smi, dev)
+    results.update(results_k9m)
     launches = {"serving": launches_srv, "classifier": launches_cls, "training": launches_trn,
                 "serving_b16": launches_b16, "serving_block": launches_fused["block"],
                 "serving_layer": launches_fused["layer"],
@@ -3341,7 +3850,9 @@ def main() -> int:
                 "classifier_int8_f32": launches_cls_int8["float32"],
                 "classifier_int8_bf16": launches_cls_int8["bfloat16"],
                 "tower_unfolded": launches_unf, "tower_odd_heads_bf16": launches_odd,
-                "ood_block": launches_ood}
+                "ood_block": launches_ood, **launches_k9m,
+                **{f"predict_{fuse}": {f"{name}/dynamic": launches_pred[fuse].get(name, 0)}
+                   for fuse, name in K9_OF.items()}}
     missing = [k for k, (path, _, _) in KERNELS.items() if launches[path].get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels of their path never launched: {missing}")

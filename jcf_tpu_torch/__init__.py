@@ -25,7 +25,13 @@ What is ported so far:
 - ``jcf-ood`` end to end (``cli.ood``, ``pipelines.ood.run_ood_split``):
   the TestSetB walk, JPEG decode with nvJPEG on the card, the PIL-exact
   TTA crops (``data.transforms``), the threaded loader, both paths; and
-  K9b in f32 (``ops.block_kernel.block_f32``) under ``_FUSE = "block"``.
+  K9b in f32 (``ops.block_kernel.block_f32``) under ``_FUSE = "block"``;
+- ``jcf-predict`` end to end (``cli.predict``,
+  ``pipelines.predict.run_predict``): the zs, prompted and pristine
+  towers, the prompt learner (``peft.prompt``), the heads (``heads``),
+  the MoCo ResNet-50 (``models.resnet``), the cs ensembles and the result
+  writers (``infer.predict``); and the whole-layer int8 kernels K9a, K9c
+  and K9d in every quantization mode of the folded tree.
 
 Every Pallas kernel on those paths has a hand-written CUDA kernel under
 ``csrc/`` and a plain PyTorch version beside its wrapper; a wrapper runs

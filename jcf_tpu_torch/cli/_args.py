@@ -70,4 +70,6 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
         ),
         stage1=dataclasses.replace(cfg.stage1, seed=args.seed, lr=args.lr,
                                    batch_size=args.batch_size or cfg.stage1.batch_size),
+        stage2=dataclasses.replace(cfg.stage2, lr=args.lr,
+                                   batch_size=args.batch_size or cfg.stage2.batch_size),
     )

@@ -1,5 +1,6 @@
 """The part of ``jcf_tpu/config.py`` the classifier build, the TTA
-engines, stage-1 LoRA training, ``jcf-ood`` and its CLI read.
+engines, stage-1 LoRA training, ``jcf-ood``, ``jcf-predict`` and their
+CLIs read.
 
 Defaults are the JAX package's (tests/test_torch_tokenizer.py and
 tests/test_torch_float_tower.py compare them field by field);
@@ -71,6 +72,36 @@ class Stage1Config:
 
 
 @dataclasses.dataclass(frozen=True)
+class Stage2Config:
+    """Stage 2 (the joint prompt / head training) and the artifacts
+    ``jcf-predict`` reads from it: ``out_dir`` (``clip_model.pkl`` with its
+    visual prompts, ``lora_weights.pkl``, ``channel.pkl``,
+    ``moco_adapter.pkl``, ``PromptLearner.pkl``), the MoCo checkpoint, and
+    the prompt learner's ``n_ctx`` and ``ctx_init``. The training fields
+    are kept as plain fields with the JAX defaults (stage 2 is not ported)."""
+    epochs: int = 20  # slow_pace.py:1577
+    batch_size: int = 128
+    lr: float = 2e-4
+    weight_decay: float = 1e-2
+    betas: Tuple[float, float] = (0.9, 0.999)
+    cosine_eta_min: float = 1e-6
+    # the reference steps its CosineAnnealingLR(T_max=20) every batch
+    scheduler_step_per_batch: bool = True
+    logit_scale: float = 100.0
+    seed: int = 346373
+    n_ctx: int = 4
+    ctx_init: str = "a photo of a"
+    full_ensemble_val: bool = True
+    moco_checkpoint: str = "r-50-1000ep.pkl"
+    resume: bool = True
+    checkpoint_path: str = "checkpoints/stage2_state.pkl"
+    out_dir: str = "test_pkl"
+    feature_cache_1: str = "features_zs1.pkl"
+    feature_cache_2: str = "features_zs2.pkl"
+    label_cache_2: str = "label_zs2.pkl"
+
+
+@dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
     compute_dtype: str = "float32"  # "bfloat16" for the perf path
     # directory of the content-keyed text-classifier cache; None disables
@@ -96,6 +127,7 @@ class PipelineConfig:
     lora: LoraConfig = dataclasses.field(default_factory=LoraConfig)
     stage1: Stage1Config = dataclasses.field(default_factory=Stage1Config)
     tta: TTAConfig = dataclasses.field(default_factory=TTAConfig)
+    stage2: Stage2Config = dataclasses.field(default_factory=Stage2Config)
 
 
 def perf_preset() -> PipelineConfig:

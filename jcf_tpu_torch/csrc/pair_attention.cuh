@@ -123,13 +123,3 @@ __device__ __forceinline__ void pair_attention_rows_t(const T* q, long long q_st
     __syncwarp();
   }
 }
-
-// the serving flags' loop (S <= 64, folded bf16 q, pair max, static ctx):
-// fused_layer.cu
-__device__ __forceinline__ void pair_attention_rows(const bf16* q_s, const bf16* kt_s,
-                                                    const bf16* v_s, float* p_s, int S, int D,
-                                                    float cinv, int8_t* out, long long out_stride,
-                                                    int n_warps) {
-  pair_attention_rows_t<2, bf16, int8_t, false>(q_s, 2 * D, nullptr, kt_s, v_s, p_s, S, D, 1.0f,
-                                                nullptr, 0.0f, cinv, out, out_stride, n_warps);
-}

@@ -1,6 +1,7 @@
-"""Dataset records of ``jcf_tpu/data/datasets.py`` that ``jcf-ood``
-reads: ``Datum``, ``read_classnames``, the TestSetB walk and the TTA
-dataset. Images decode through ``data.decode`` onto an explicit device."""
+"""Dataset records of ``jcf_tpu/data/datasets.py`` that ``jcf-ood`` and
+``jcf-predict`` read: ``Datum``, ``read_classnames``, the TestSetB walk,
+the split lists and the TTA dataset. Images decode through
+``data.decode`` onto an explicit device."""
 
 from __future__ import annotations
 
@@ -45,6 +46,25 @@ def read_classnames(classes_path: str) -> Dict[str, int]:
     return out
 
 
+def label_to_classname(classname_to_label: Dict[str, int]) -> Dict[int, str]:
+    return {v: k for k, v in classname_to_label.items()}
+
+
+def read_path_list(split_path: str, image_dir: str = "") -> List[Datum]:
+    """An unlabeled path-per-line list (``TestSetB_1.txt`` /
+    ``TestSetB_2.txt``): the first field of each non-empty line, joined to
+    ``image_dir`` where given."""
+    out: List[Datum] = []
+    with open(split_path) as f:
+        for line in f:
+            if not line.strip():
+                continue
+            path = line.strip().split()[0]
+            full = os.path.join(image_dir, path) if image_dir else path
+            out.append(Datum(full, -1, "Unknown", os.path.basename(os.path.dirname(full))))
+    return out
+
+
 def walk_test_dir(test_dir: str) -> List[Datum]:
     """Recursive image walk in sorted order (directories, then files),
     .jpg / .jpeg / .png by extension in any case, skipping ``__MACOSX``."""
@@ -63,15 +83,18 @@ def walk_test_dir(test_dir: str) -> List[Datum]:
 class TTADataset:
     """(center [1, 3, s, s], crops [N, 3, s, s], label, impath, index), f32
     on ``device``: the reference's test-mode sample (``ood.py:946-958``),
-    the center view ``preprocess_center(size, resize_to)`` and the crops
-    of ``crop_sampler``."""
+    the center view ``preprocess_center(size, resize_to)``, CLIP-normalized
+    or, with ``center_normalize=False``, raw [0, 1] pixels (stage 2's and
+    ``jcf-predict``'s loaders normalize on the device), and the crops of
+    ``crop_sampler``."""
 
     def __init__(self, data: List[Datum], crop_sampler: TTACropSampler, *, size: int = 224,
-                 resize_to: int = 256, device="cuda"):
+                 resize_to: int = 256, center_normalize: bool = True, device="cuda"):
         self.data = data
         self.crop_sampler = crop_sampler
         self.size = size
         self.resize_to = resize_to
+        self.center_normalize = center_normalize
         self.device = torch.device(device)
 
     def __len__(self) -> int:
@@ -80,6 +103,7 @@ class TTADataset:
     def __getitem__(self, index: int):
         d = self.data[index]
         img = read_image(d.impath, self.device)
-        center = preprocess_center(img, size=self.size, resize_to=self.resize_to)
+        center = preprocess_center(img, size=self.size, resize_to=self.resize_to,
+                                   apply_normalize=self.center_normalize)
         crops = self.crop_sampler(img, index)
         return center[None], crops, d.label, d.impath, index

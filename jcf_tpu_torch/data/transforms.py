@@ -39,6 +39,9 @@ from jcf_tpu_torch.ops.quant import true_div
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+# ImageNet statistics of the MoCo ResNet-50's input (slow_pace.py:1274)
+MOCO_MEAN = (0.485, 0.456, 0.406)
+MOCO_STD = (0.229, 0.224, 0.225)
 
 _PRECISION_BITS = 22  # 32 - 8 - 2, Pillow's fixed point for 8-bit images
 

@@ -50,10 +50,11 @@ with the mask-free paired attention, K6b), ``ln_post`` and ``proj``. From
 
 The engine runs on one ``device``, the CUDA card unless the caller asks
 for another. Calibration and the f32 engine run f32 products on the card,
-so full-f32 matmuls (``torch.backends.cuda.matmul.allow_tf32 = False``)
-are required there; the bf16 patch embedding of ``crop_features`` on the
-card needs ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
-= False`` (``ops.layers.linear``). The classifier it scores against is the
+so full-f32 products (``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32`` both False) are required there; the
+bf16 patch embedding of ``crop_features`` on the card needs
+``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction =
+False`` (``ops.layers.linear``). The classifier it scores against is the
 [C, D] output of ``pipelines.common.build_text_weights`` (or any
 unit-norm [C, D] tensor).
 """
@@ -80,7 +81,7 @@ from jcf_tpu_torch.ops.assemble_kernel import assemble_dense_rows, make_cls_row
 from jcf_tpu_torch.ops.attention import BLOCKED_MIN_SEQ
 from jcf_tpu_torch.ops.block_kernel import dense_rows_eligible, run_fused_tower
 from jcf_tpu_torch.ops.int8_gemm import int8_gemm_s32
-from jcf_tpu_torch.ops.layers import l2_normalize
+from jcf_tpu_torch.ops.layers import l2_normalize, require_f32_products
 from jcf_tpu_torch.ops.quant import quantize_clip_params, true_div
 from jcf_tpu_torch.ops.view_kernel import CROP_SCALE, fused_views_nchw, sample_view_centers
 from jcf_tpu_torch.tta.mta import solve_mta_batch
@@ -111,12 +112,6 @@ def static_act(static_quant_mode: str):
         raise ValueError(f"unknown static_quant_mode {static_quant_mode!r}")
     with_scores = suffix == "score"
     return STATIC_MODES[base] + (("score",) if with_scores else ()), with_scores
-
-
-def _require_f32_matmul(dev: torch.device, what: str) -> None:
-    if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(f"{what} needs full f32 matmuls: set "
-                           "torch.backends.cuda.matmul.allow_tf32 = False")
 
 
 class TTAEngine:
@@ -179,7 +174,7 @@ class TTAEngine:
         params_dev = {"visual": tree_to(v, dev)}
         act_scales, act_static_ = None, ()
         if calibration_images is not None:
-            _require_f32_matmul(dev, "calibration")
+            require_f32_products(dev, "calibration")
             act_static_, with_scores = static_act(static_quant_mode)
             amax = vision_ln_z_amax(params_dev, cfg, self._calibration_crops(calibration_images),
                                     with_scores=with_scores)
@@ -221,7 +216,7 @@ class TTAEngine:
         images = images.to(self.device, self.dtype)
         if self.quant is None:
             if self.dtype == torch.float32:
-                _require_f32_matmul(self.device, "the f32 engine")
+                require_f32_products(self.device, "the f32 engine")
             views = fused_views_nchw(images, cy, cx, inv, res)
             # the patch embedding as the reference's conv: operands in the
             # compute dtype, f32 accumulation, the folded bias in f32
@@ -268,7 +263,7 @@ class TTAEngine:
         view) -> per-view L2-normalized features [B, N, D] f32."""
         crops = torch.as_tensor(crops).to(self.device)
         if self.quant is None and self.dtype == torch.float32:
-            _require_f32_matmul(self.device, "the f32 engine")
+            require_f32_products(self.device, "the f32 engine")
         b, n = crops.shape[:2]
         feats = encode_image(self._params, self.cfg, crops.reshape(b * n, *crops.shape[2:]),
                              dtype=self.dtype, quant=self._quant)

@@ -153,10 +153,13 @@ def params_from_numpy(tree) -> dict:
 def tree_to(tree, device, dtype=None):
     """A param or quant tree with every tensor moved to ``device`` and,
     given a ``dtype``, its floating tensors cast to it (no copy where
-    nothing changes). Dicts and ``QuantizedLinear`` tuples are walked;
-    leaves that are not tensors are kept."""
+    nothing changes). Dicts, lists (the ResNet's stages) and
+    ``QuantizedLinear`` tuples are walked; leaves that are not tensors are
+    kept."""
     if isinstance(tree, dict):
         return {k: tree_to(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device, dtype) for v in tree]
     if isinstance(tree, tuple):
         return type(tree)(*(tree_to(v, device, dtype) for v in tree))
     if not isinstance(tree, torch.Tensor):

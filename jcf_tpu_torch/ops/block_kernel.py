@@ -53,8 +53,9 @@ dynamic; "ln" (static post-LN scales); "hidden" (+ the hidden's); "full"
 The unfolded tree (``fold=False``) keeps every scale dynamic and reads
 the LN affine from the float blocks.
 
-Whole layers in one kernel (csrc/fused_layer.cu), the TPU's ``_FUSE``
-variants of the same math:
+Whole layers in one kernel (csrc/fused_layer.cu; the int8 kernel a
+template over its quantization mode in csrc/fused_layer.cuh), the TPU's
+``_FUSE`` variants of the same math:
   K9a ``block_int8`` (``_block_int8_kernel``): one int8 layer, the mid
   residual kept in f32 (the halves round it to bf16);
   K9d ``layer_fused_int8`` (``_layer_fused_int8_kernel``): one int8 layer,
@@ -66,9 +67,11 @@ variants of the same math:
   ``block_f32`` (csrc/block_f32.cu) in f32, every product on the CUDA
   cores.
 The MLP's f32 chunk partials (``_MLP_NSPLIT`` for K9a/K9c) are added in
-chunk order. The int8 kernels take the serving flags only (folded tree,
-static "full" scales, dense rows, mask-free attention, S <= 64) and
-refuse other trees on every device.
+chunk order; a dynamic hidden is quantized per row and per chunk, so the
+chunk count is part of the result. The int8 kernels take the folded tree
+in every mode (dynamic, "ln", "hidden", "full", each "+score") on dense
+rows (mask-free attention, S <= 64) and refuse the unfolded tree on every
+device.
 
 ``run_fused_tower`` is the JAX function's int8 route: the dense route
 (an even head count without a mask, S not a multiple of 16) or the
@@ -784,7 +787,8 @@ def mlp_half(x: torch.Tensor, layer: dict) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 # the options of the reference's int8 kernels, one bit each (as
-# csrc/fused_layer.cu numbers them); the kernels take the serving set only
+# csrc/fused_layer.cu numbers them); the kernels take the folded tree on the
+# dense route with any of the static options
 FLAG_FOLDED, FLAG_STATIC_ACT, FLAG_STATIC_CTX, FLAG_STATIC_H = 1, 2, 4, 8
 FLAG_STATIC_SHIFT, FLAG_DENSE, FLAG_USE_MASK = 16, 32, 64
 SERVING_FLAGS = FLAG_FOLDED | FLAG_STATIC_ACT | FLAG_STATIC_CTX | FLAG_STATIC_H | FLAG_DENSE
@@ -818,32 +822,52 @@ def quant_flags(tree: dict, *, dense: bool = True, use_mask: bool = False) -> in
     return flags
 
 
+def _ln_quant_plain_any(x: torch.Tensor, inv):
+    """LN z-norm + int8 with the static ``inv`` (row scales None) or per
+    row: ``_quant_rows_static(_ln_norm(x))`` or ``_quant_rows(_ln_norm(x))``."""
+    return (ln_quant_plain(x, inv), None) if inv is not None else ln_quant_rows_plain(x)
+
+
 def _attn_mid_plain(x: torch.Tensor, attn: dict, s: int, n_heads: int) -> torch.Tensor:
-    """K3's math up to its residual add, unrounded: x + out-proj(int8
-    attention(LN1 x)) in f32."""
-    x_q = ln_quant_plain(x, attn["ln_inv"])
+    """K3's math on the dense route up to its residual add, unrounded: x +
+    out-proj(int8 attention(LN1 x)) in f32, each quantization static where
+    the tree has its scale, else per row; the pair shift max(0, pair max)
+    or the tree's ``score_shift``."""
+    x_q, x_sc = _ln_quant_plain_any(x, attn.get("ln_inv"))
     wq, wo = attn["w_qkv"], attn["w_out"]
-    qkv = dequant_plain(int8_matmul_plain(x_q, wq.w_int8), wq.w_scale, wq.bias).to(torch.bfloat16)
-    ctx = attention_plain(qkv, attn["ctx_inv"], s, n_heads)
-    return x.float() + dequant_plain(int8_matmul_plain(ctx, wo.w_int8), wo.w_scale, wo.bias)
+    qkv = dequant_plain(int8_matmul_plain(x_q, wq.w_int8), wq.w_scale, wq.bias,
+                        x_sc).to(torch.bfloat16)
+    ctx_inv = attn.get("ctx_inv")
+    ctx = attention_plain(qkv, ctx_inv, s, n_heads, attn.get("score_shift"))
+    c_q, c_sc = (ctx, None) if ctx_inv is not None else quant_rows_plain(ctx)
+    return x.float() + dequant_plain(int8_matmul_plain(c_q, wo.w_int8), wo.w_scale, wo.bias, c_sc)
 
 
 def _mlp_proj_plain(mid: torch.Tensor, mlp: dict, nsp: int) -> torch.Tensor:
     """K4's math before its residual add: c_proj(GELU-quant(c_fc(LN2
     mid))) + b_proj in f32, the hidden in ``nsp`` chunks: each chunk's
-    product an exact int32 sum, its f32 partial (x the c_proj scale) added
-    in chunk order."""
-    h_inv = mlp["h_inv"].reshape(())
+    product an exact int32 sum, its f32 partial (x the c_proj scale, x the
+    chunk's row scales where the hidden is dynamic) added in chunk order.
+    A static hidden scale folds into c_fc (``_gelu_quant_static``); a
+    dynamic one quantizes each chunk of each row on its own (``_quant_rows``
+    of the chunk's QuickGELU), so the chunk count changes the result."""
     fc, pr = mlp["c_fc"], mlp["c_proj"]
-    x_q = ln_quant_plain(mid, mlp["ln_inv"])
-    fc_sc, fc_b, gelu_c = fc.w_scale * h_inv, fc.bias * h_inv, GELU_TANH_COEF / h_inv
+    x_q, x_sc = _ln_quant_plain_any(mid, mlp.get("ln_inv"))
+    if "h_inv" in mlp:
+        h_inv = mlp["h_inv"].reshape(())
+        fc_sc, fc_b, gelu_c = fc.w_scale * h_inv, fc.bias * h_inv, GELU_TANH_COEF / h_inv
+    else:
+        fc_sc, fc_b = fc.w_scale, fc.bias
     hs = fc.w_int8.shape[0] // nsp
     acc = None
     for c in range(nsp):
         sl = slice(c * hs, (c + 1) * hs)
-        h_q = gelu_quant_plain(dequant_plain(int8_matmul_plain(x_q, fc.w_int8[sl]), fc_sc[sl],
-                                             fc_b[sl]), gelu_c)
+        h = dequant_plain(int8_matmul_plain(x_q, fc.w_int8[sl]), fc_sc[sl], fc_b[sl], x_sc)
+        h_q, h_sc = ((gelu_quant_plain(h, gelu_c), None) if "h_inv" in mlp
+                     else gelu_quant_rows_plain(h))
         part = int8_matmul_plain(h_q, pr.w_int8[:, sl]).float() * pr.w_scale
+        if h_sc is not None:
+            part = part * h_sc[:, None]
         acc = part if acc is None else acc + part
     return acc + pr.bias
 
@@ -860,8 +884,8 @@ def _hidden(tree: dict) -> int:
 
 
 def block_int8_plain(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Tensor:
-    """Plain version of K9a: one int8 layer with the mid kept in f32 and
-    the MLP in ``_MLP_NSPLIT`` chunks -> bf16."""
+    """Plain version of K9a: one int8 layer of the folded tree (any mode)
+    with the mid kept in f32 and the MLP in ``_MLP_NSPLIT`` chunks -> bf16."""
     mid = _attn_mid_plain(x, layer["attn"], s, n_heads)
     nsp = _chunks(_MLP_NSPLIT, _hidden(layer))
     return (mid + _mlp_proj_plain(mid, layer["mlp"], nsp)).to(torch.bfloat16)
@@ -885,7 +909,8 @@ def stream_tower_int8_plain(x: torch.Tensor, quant: dict, n_heads: int, *, s: in
 def _launch_int8(name: str, x: torch.Tensor, tree: dict, s: int, n_heads: int, n_layers: int,
                  nsp: int, mid_f32: bool) -> torch.Tensor:
     """Checks and launches one of the int8 layer kernels (``jcf_<name>``)
-    on the rows x [B' * S, E] with the (one-layer or stacked) folded tree."""
+    on the rows x [B' * S, E] with the (one-layer or stacked) folded tree,
+    in the mode its static scales select."""
     rows, e = x.shape
     if (x.dtype != torch.bfloat16 or rows % s or s > 64 or e != 64 * n_heads or n_heads % 2
             or e % 128 or e > 1024):
@@ -899,47 +924,57 @@ def _launch_int8(name: str, x: torch.Tensor, tree: dict, s: int, n_heads: int, n
     if hidden % 128 or (hidden // nsp) % 64:
         raise ValueError(f"{name} needs a hidden width divisible by 128 and chunks of a multiple "
                          f"of 64, got {hidden} in {nsp} chunks")
-    h_inv = mlp["h_inv"].reshape(-1, 1)
+    if flags & FLAG_STATIC_H:
+        h_inv = mlp["h_inv"].reshape(-1, 1)
+        fc_sc, fc_b, gelu_c = fc.w_scale * h_inv, fc.bias * h_inv, GELU_TANH_COEF / h_inv
+    else:
+        fc_sc, fc_b = fc.w_scale, fc.bias
+        gelu_c = torch.full((n_layers,), GELU_TANH_COEF, dtype=torch.float32, device=x.device)
+    # the static scalars the mode names; None where its quantization is dynamic
     ops = [wq.w_int8, wq.w_scale, wq.bias, wo.w_int8, wo.w_scale, wo.bias,
-           fc.w_int8, fc.w_scale * h_inv, fc.bias * h_inv, pr.w_int8, pr.w_scale, pr.bias,
-           attn["ln_inv"], attn["ctx_inv"], mlp["ln_inv"], GELU_TANH_COEF / h_inv]
+           fc.w_int8, fc_sc, fc_b, pr.w_int8, pr.w_scale, pr.bias,
+           attn.get("ln_inv"), attn.get("ctx_inv"), mlp.get("ln_inv"), gelu_c,
+           attn.get("score_shift")]
     shapes = [(3 * e, e), (3 * e,), (3 * e,), (e, e), (e,), (e,), (hidden, e), (hidden,),
-              (hidden,), (e, hidden), (e,), (e,), (), (), (), ()]
+              (hidden,), (e, hidden), (e,), (e,), (), (), (), (), ()]
     for i, (t, shape) in enumerate(zip(ops, shapes)):
+        if t is None:
+            continue
         want = torch.int8 if i in (0, 3, 6, 9) else torch.float32
         if (t.dtype != want or t.device != x.device or t.numel() != n_layers * math.prod(shape)
                 or (shape and tuple(t.shape[-len(shape):]) != shape)):
             raise ValueError(f"{name}: operand {i} must be {want} {shape} per layer, {n_layers} "
                              f"layer(s), on {x.device}; got {t.dtype} {tuple(t.shape)}")
-    ops = [t.contiguous() for t in ops]
+    ops = [t.contiguous() if t is not None else None for t in ops]
     x = x.contiguous()
     out = torch.empty_like(x)
-    mid = torch.empty((rows, e), dtype=torch.float32, device=x.device) if mid_f32 else None
+    # K9a's f32 mid and the dynamic context before its row quantization
+    scratch = (torch.empty((rows, e), dtype=torch.float32, device=x.device)
+               if mid_f32 or not flags & FLAG_STATIC_CTX else None)
     lib = _build.load()
     err = getattr(lib, f"jcf_{name}")(
-        x.data_ptr(), out.data_ptr(), mid.data_ptr() if mid is not None else None,
-        *(t.data_ptr() for t in ops), rows // s, s, n_heads, hidden, n_layers, nsp, flags,
-        _build.stream_ptr(x.device))
+        x.data_ptr(), out.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+        *(t.data_ptr() if t is not None else None for t in ops), rows // s, s, n_heads, hidden,
+        n_layers, nsp, flags, _build.stream_ptr(x.device))
     _build.check(err, name)
     LAUNCHES[name] += 1
     return out
 
 
-def _serving_only(name: str, tree: dict) -> None:
-    """The K9 kernels and their plain versions take the serving flags only;
-    any other tree is refused on every device (ROADMAP.md, Queue 2)."""
-    flags = quant_flags(tree)
-    if flags != SERVING_FLAGS:
-        raise ValueError(f"{name} takes the folded tree with static scales in mode \"full\" "
-                         f"(flags {SERVING_FLAGS:#x}), not flags {flags:#x}; the dynamic and "
-                         f"partial static modes run on _FUSE = \"halves\"")
+def _require_folded(name: str, tree: dict) -> None:
+    """The K9 int8 kernels and their plain versions take the folded tree
+    (any of its modes); the unfolded tree is refused on every device
+    (ROADMAP.md, Queue 2)."""
+    if not tree.get("quant_folded", False):
+        raise NotImplementedError(f"{name} takes the folded tree; the unfolded tree's K9a/c/d "
+                                  f"are not ported (ROADMAP.md, Queue 2)")
 
 
 def block_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Tensor:
-    """K9a on dense rows x [B' * S, E] bf16 with one layer's folded static
-    tree -> the layer's output rows, bf16: the CUDA kernel for CUDA
+    """K9a on dense rows x [B' * S, E] bf16 with one layer's folded tree
+    (any mode) -> the layer's output rows, bf16: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
-    _serving_only("block_int8", layer)
+    _require_folded("block_int8", layer)
     if not x.is_cuda:
         return block_int8_plain(x, layer, s, n_heads)
     return _launch_int8("block_int8", x, layer, s, n_heads, 1,
@@ -949,7 +984,7 @@ def block_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Tens
 def layer_fused_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Tensor:
     """K9d, as ``block_int8`` with the mid rounded to bf16 and the MLP in
     ``_LAYER_NSPLIT`` chunks."""
-    _serving_only("layer_fused_int8", layer)
+    _require_folded("layer_fused_int8", layer)
     if not x.is_cuda:
         return layer_fused_int8_plain(x, layer, s, n_heads)
     return _launch_int8("layer_fused_int8", x, layer, s, n_heads, 1,
@@ -957,9 +992,9 @@ def layer_fused_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torc
 
 
 def stream_tower_int8(x: torch.Tensor, quant: dict, n_heads: int, *, s: int) -> torch.Tensor:
-    """K9c: every layer of the stacked folded static tree on every row of
-    x [B' * S, E] bf16, one launch -> [B' * S, E] bf16."""
-    _serving_only("stream_tower_int8", quant)
+    """K9c: every layer of the stacked folded tree (any mode) on every row
+    of x [B' * S, E] bf16, one launch -> [B' * S, E] bf16."""
+    _require_folded("stream_tower_int8", quant)
     if not x.is_cuda:
         return stream_tower_int8_plain(x, quant, n_heads, s=s)
     n_layers = quant["attn"]["w_qkv"].w_int8.shape[0]
@@ -1151,9 +1186,10 @@ def run_fused_tower(x: torch.Tensor, quant: dict, n_heads: int, *, flat_s: int,
     every row. The non-dense route (the masked attention of a causal or
     odd-head tower, or the mask-free one at S a multiple of 16) runs the
     halves on every row of every layer, under "layer" and "stream" too,
-    then takes the CLS rows. What the TPU runs as K9a/c/d off the serving
-    flags ("block" off the dense folded route, "layer" and "stream" on an
-    unfolded dense tree) raises ``NotImplementedError``.
+    then takes the CLS rows. The K9 kernels take the folded tree in every
+    mode (dynamic, "ln", "hidden", "full", each "+score"); what the TPU
+    runs as K9a/c/d on other trees ("block" off the dense route, "layer"
+    and "stream" on an unfolded dense tree) raises ``NotImplementedError``.
     """
     s = flat_s
     folded = quant.get("quant_folded", False)
@@ -1166,7 +1202,7 @@ def run_fused_tower(x: torch.Tensor, quant: dict, n_heads: int, *, flat_s: int,
         raise NotImplementedError(
             f"_FUSE = {fuse!r} on this tree ({'folded' if folded else 'unfolded'}, "
             f"{'dense' if dense else 'non-dense'}{', masked' if use_mask else ''}) needs K9a/c/d "
-            f"off the serving flags, not ported (ROADMAP.md, Queue 2); run it under _FUSE = "
+            f"off the folded dense route, not ported (ROADMAP.md, Queue 2); run it under _FUSE = "
             f"'halves'")
     if fuse == "stream" and dense:
         out = stream_tower_int8(x, quant, n_heads, s=s)

@@ -17,6 +17,20 @@ LN_EPS = 1e-5
 GELU_TANH_COEF = 0.851
 
 
+def require_f32_products(dev: torch.device, what: str) -> None:
+    """Raises on a CUDA device while PyTorch may run f32 products in TF32:
+    matmuls (``torch.backends.cuda.matmul.allow_tf32``, off by default) or
+    cuDNN's convolutions (``torch.backends.cudnn.allow_tf32``, on by
+    default). The JAX package computes them in f32."""
+    if dev.type != "cuda":
+        return
+    for flag, on in (("torch.backends.cuda.matmul.allow_tf32",
+                      torch.backends.cuda.matmul.allow_tf32),
+                     ("torch.backends.cudnn.allow_tf32", torch.backends.cudnn.allow_tf32)):
+        if on:
+            raise RuntimeError(f"{what} needs full f32 products: set {flag} = False")
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = LN_EPS) -> torch.Tensor:
     """LayerNorm over the last axis; statistics in f32, output in x.dtype."""

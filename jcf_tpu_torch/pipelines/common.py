@@ -10,7 +10,7 @@ import hashlib
 import logging
 import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -153,17 +153,23 @@ def build_text_weights(params: dict, mcfg: CLIPConfig, templates: Dict[int, List
     return w
 
 
-def tta_loader(cfg: PipelineConfig, data, mcfg: CLIPConfig, *, device="cuda") -> DataLoader:
+def tta_loader(cfg: PipelineConfig, data, mcfg: CLIPConfig, normalize: bool = True,
+               crop_scale: Optional[Tuple[float, float]] = None, *, device="cuda") -> DataLoader:
     """Loader of (center [B, 1, 3, s, s], crops [B, N, 3, s, s], labels,
     impaths, indices) batches on ``device`` for the model's resolution s,
-    CLIP-normalized: ``tta.n_views`` crops of ``tta.crop_scale`` seeded per
-    image from seed 0, the center view resized to ``max(tta.resize_to * s
-    // 224, s)``, ``tta.batch_images`` images a batch, ``data.num_workers``
+    CLIP-normalized (``normalize=False``: raw [0, 1] pixels, the center
+    view too, as ``jcf-predict`` takes them): ``tta.n_views`` crops of
+    ``crop_scale`` (``tta.crop_scale`` where None) seeded per image from
+    seed 0, the center view resized to ``max(tta.resize_to * s // 224,
+    s)``, ``tta.batch_images`` images a batch, ``data.num_workers``
     decoding threads."""
     size = mcfg.image_resolution
-    sampler = TTACropSampler(n_views=cfg.tta.n_views, size=size, scale=cfg.tta.crop_scale, seed=0)
+    sampler = TTACropSampler(n_views=cfg.tta.n_views, size=size,
+                             scale=crop_scale or cfg.tta.crop_scale, apply_normalize=normalize,
+                             seed=0)
     dataset = TTADataset(data, sampler, size=size,
-                         resize_to=max(cfg.tta.resize_to * size // 224, size), device=device)
+                         resize_to=max(cfg.tta.resize_to * size // 224, size),
+                         center_normalize=normalize, device=device)
     return DataLoader(dataset, batch_size=cfg.tta.batch_images, num_workers=cfg.data.num_workers)
 
 

@@ -30,6 +30,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda", 0)
 
@@ -438,26 +439,28 @@ def test_fused_routes_launch_the_kernels(cuda, monkeypatch):
 
 
 def test_fused_layer_wrappers_refuse(cuda, monkeypatch):
-    """The K9 wrappers raise on quant flags, shapes and types their kernels
-    do not take, launching nothing; the C entries refuse any flag set but
-    the serving one themselves."""
+    """The K9 wrappers raise on trees, shapes and types their kernels do
+    not take, launching nothing: a tree not marked folded (the unfolded
+    tree's K9a/c/d are not ported: ``NotImplementedError``), S > 64; for
+    K9b f32 rows, S > 80, a bias of the wrong shape. The C entries refuse
+    a flag set off the folded dense route (masked, non-dense, unfolded)
+    themselves. Every static-option subset of the folded tree runs
+    (``tests/test_torch_gpu_predict.py``)."""
     tree = tree_to(_int8_tree(128), cuda)
     layer = layer_slice(tree, 0)
     x = torch.randn(2 * 50, 128, device=cuda).bfloat16()
-    no_ctx = {"attn": {k: v for k, v in layer["attn"].items() if k != "ctx_inv"}, "mlp": layer["mlp"]}
-    shift = {"attn": {**layer["attn"], "score_shift": layer["attn"]["ctx_inv"]}, "mlp": layer["mlp"]}
-    stacked_no_h = {"attn": tree["attn"], "mlp": {k: v for k, v in tree["mlp"].items() if k != "h_inv"}}
+    unmarked = {"attn": layer["attn"], "mlp": layer["mlp"]}
+    stacked_unmarked = {"attn": tree["attn"], "mlp": tree["mlp"]}
     text = layer_slice(tree_to(init_clip_params(0, CLIPConfig(
         text_layers=1, text_width=128, text_heads=2))["text"]["blocks"], cuda), 0)
     before = dict(bk.LAUNCHES)
     for fn in (bk.block_int8, bk.layer_fused_int8):
-        for bad in (no_ctx, shift):
-            with pytest.raises(ValueError):
-                fn(x, bad, 50, 2)
+        with pytest.raises(NotImplementedError):
+            fn(x, unmarked, 50, 2)
         with pytest.raises(ValueError):  # S = 100 > 64
             fn(x, layer, 100, 2)
-    with pytest.raises(ValueError):
-        bk.stream_tower_int8(x, stacked_no_h, 2, s=50)
+    with pytest.raises(NotImplementedError):
+        bk.stream_tower_int8(x, stacked_unmarked, 2, s=50)
     with pytest.raises(ValueError):  # f32 rows
         bk.block_bf16(x.float(), text, 50, 2, at.causal_mask(50, cuda))
     with pytest.raises(ValueError):  # S = 100 > 80
@@ -465,9 +468,9 @@ def test_fused_layer_wrappers_refuse(cuda, monkeypatch):
     with pytest.raises(ValueError):  # a bias of the wrong shape
         bk.block_bf16(x, text, 50, 2, at.causal_mask(49, cuda))
     assert bk.LAUNCHES == before
-    for bad in (bk.SERVING_FLAGS | bk.FLAG_USE_MASK, bk.SERVING_FLAGS & ~bk.FLAG_STATIC_H):
+    flags = bk.quant_flags(layer)
+    for bad in (flags | bk.FLAG_USE_MASK, flags & ~bk.FLAG_DENSE, flags & ~bk.FLAG_FOLDED):
         monkeypatch.setattr(bk, "quant_flags", lambda tree, bad=bad: bad)
-        monkeypatch.setattr(bk, "SERVING_FLAGS", bad)
         for fn in (bk.block_int8, bk.layer_fused_int8):
             with pytest.raises(RuntimeError):
                 fn(x, layer, 50, 2)

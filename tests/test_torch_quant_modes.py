@@ -534,8 +534,17 @@ def test_refusals(monkeypatch):
 @pytest.mark.parametrize("fuse", ["block", "layer", "stream"])
 @pytest.mark.parametrize("mode", [None, "ln", "hidden+score"])
 def test_whole_layer_routes_refuse_other_modes(monkeypatch, fuse, mode):
-    """``_FUSE`` != "halves" takes the serving flags only, on every device."""
-    _, _, tq = _trees(0, mode)
-    monkeypatch.setattr(tbk, "_FUSE", fuse)
-    with pytest.raises(ValueError, match="halves"):
-        tbk.run_fused_tower(_rows(0, 50), tq, H, flat_s=50)
+    """The whole-layer routes (K9a, K9d, K9c) took only the serving flags
+    and refused these modes; they now take every folded mode. The tower
+    under ``_FUSE`` = ``fuse`` in ``mode`` against the JAX function in
+    interpret mode under the same ``_FUSE``: row cos >= 0.999, as the
+    halves' towers above."""
+    jp, jq, tq = _trees(0, mode)
+    x = _rows(0, 50)
+    for mod in (jbk, tbk):
+        monkeypatch.setattr(mod, "_FUSE", fuse)
+    ref = jbk.run_fused_tower(_jx(x), jp["visual"]["blocks"], H, None, quant=jq, quant_folded=True,
+                              interpret=True, flat_s=50, cls_only=True)
+    got = tbk.run_fused_tower(x, tq, H, flat_s=50)
+    assert got.shape == (CROPS, E) and got.dtype == torch.bfloat16
+    assert _row_cos(got.float().numpy(), _np(ref)) >= 0.999
