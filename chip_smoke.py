@@ -85,7 +85,10 @@
    their plain versions, the cert (top-1 >= 0.99 and top-5 >= 0.97;
    where more than 1% of the images' f32 top-1 gaps lie under the int8
    swing, top-5, the mean mode cosine and the per-view features
-   instead), img/s.
+   instead), img/s; then the same engine under ``_FUSE`` = "block",
+   "layer", "stream" (11 K9a or 11 K9d on the "long" branch, then the last
+   layer's K3 + K4; or one K9c), each counted, on the fixed gates, the
+   kernel against its plain version at 2048 x 82, img/s.
 11. (after 10) the unquantized towers: the f32 engine of phase 7 against
    its route through the plain versions (per-view features cos >=
    0.99999, modes top-1 and top-5 >= 0.99) and img/s; its
@@ -122,18 +125,34 @@
    build on the plain versions (rows cos >= 0.9999 in f32, 0.999 in bf16)
    and the f32
    classifier of 11b (rows cos > 0.99, the JAX certificate), the ranking
-   of phase 7's f32 modes under both printed, seconds; 12c the unfolded
+   of phase 7's f32 modes under both printed, seconds; the same build
+   under ``_FUSE`` = "block" (exactly 12 K9a a text forward on the masked
+   branch, no K3 / K4; the same gates; K9a against its plain version at
+   512 x 77); 12c the unfolded
    int8 ViT-B/32 tower at 8192 crops, all rows and the CLS rows, counted,
    against its plain route (row cos >= 0.999) and the bf16 float tower
-   (mean row cos > 0.995), ms per tower; 12d a 3-head and a 64-token
+   (mean row cos > 0.995), ms per tower, then under each K9 route
+   (counted on the "unfolded" branch, each kernel against its plain
+   version, the tower against the bf16 float tower, ms per layer beside
+   the unfolded halves'); 12d a 3-head and a 64-token
    tower at small width, int8 and bf16, counted, against their plain
    routes, and the float halves' per-head attention (``head_attention``)
-   against its plain version on the 3-head tower's layer-0 qkv.
+   against its plain version on the 3-head tower's layer-0 qkv; then both
+   int8 towers under "block" (12 K9a on the masked or the non-dense
+   branch, against the plain route and the halves) and the int8 engines
+   of the same widths (the 64-token one with 14 visual prompts; dynamic
+   and static "full") on their non-assembled route under "block",
+   counted, per-view features against the plain route and the halves,
+   img/s.
 13. ``jcf-ood`` end to end. 13a: each committed JPEG fixture
    (``tests/fixtures/jpeg``) through nvJPEG and the resize + center-crop
    kernel, against its committed PIL and ``jcf_tpu.native`` decodes at
    256² (max and mean level difference, bars 16 and 1.5 levels) and the
-   kernel against its plain version; decode img/s. Then a TestSetB of the
+   kernel against its plain version; decode img/s. 13a': the same
+   seeded PIL-exact crops of the nvJPEG and the committed PIL decodes
+   through the f32 engine's ``crop_features``: per-crop top-1 moves under
+   phase 5's classifier and the feature cosine, printed, not gated. Then
+   a TestSetB of the
    fixtures repeated (16 images; 1024 for 13d), a 403-line synthetic
    ``classes.txt`` (rotated so that seed-0 weights send images to both
    sides of the base/new boundary) and the seed-0 ViT-B/32 checkpoint
@@ -194,7 +213,8 @@ TPU kernel: its level differences, img/s and the resize kernel's times),
 the kernels JSON line
 (launches on the path, error against the plain version, kernel / plain /
 library-call times and the card's bound for the same work; the K9 int8
-kernels once more per mode phase 14 adds, as "<kernel>/<mode>"; the residual
+kernels once more per mode phase 14 adds, as "<kernel>/<mode>", and per
+branch off the folded dense route, as "<kernel>/<branch>"; the residual
 GEMMs at c_proj's shape, their out-proj shape in the log; K7 at the text
 tower's bf16 shape, the other three in the log; K8 in bf16 and the
 row-scale GEMM at c_fc's shape, K8 in f32 and the qkv shape in the log)
@@ -894,14 +914,15 @@ def plain_attention():
 
 
 @contextlib.contextmanager
-def recorded(module, name: str, calls: list, n: int):
+def recorded(module, name: str, calls: list, n: int, with_kwargs: bool = False):
     """Records the arguments of the first ``n`` calls of ``module.name``
-    into ``calls`` for the block (the calls themselves run unchanged)."""
+    into ``calls`` for the block (the calls themselves run unchanged): the
+    positional ones, or with ``with_kwargs`` (args, kwargs)."""
     fn = getattr(module, name)
 
     def wrapper(*args, **kwargs):
         if len(calls) < n:
-            calls.append(args)
+            calls.append((args, kwargs) if with_kwargs else args)
         return fn(*args, **kwargs)
 
     setattr(module, name, wrapper)
@@ -1179,7 +1200,7 @@ def serving_b16_phase(dev, counters, smi, text):
     rng = np.random.default_rng(0)
     images = torch.from_numpy(rng.random((B16_BATCH, 3, 256, 256)).astype(np.float32))
     images = images.to(dev, torch.bfloat16)
-    engine = TTAEngine(params, cfg, device=dev, n_views=VIEWS - 1)
+    engine = TTAEngine(params, cfg, device=dev, quant="int8", n_views=VIEWS - 1)
     torch.cuda.synchronize()
     log(f"ViT-B/16 serving ({cfg.vision_seq_len} tokens, {cfg.vision_layers} layers of width "
         f"{cfg.vision_width}), b{B16_BATCH} x {VIEWS} views: engine built in "
@@ -1806,7 +1827,7 @@ def quant_modes_phase(params, images_np, images, geometry, text, modes_f, counte
     for name, mode, (gate1, gate5) in QUANT_MODES:
         log(f"phase 10, {name}: ViT-B/32 int8 serving, b{BATCH} x {VIEWS} views")
         t0 = time.perf_counter()
-        engine = TTAEngine(params, cfg, device=dev, n_views=VIEWS - 1,
+        engine = TTAEngine(params, cfg, device=dev, quant="int8", n_views=VIEWS - 1,
                            calibration_images=None if mode is None else images_np,
                            static_quant_mode=mode or "full")
         torch.cuda.synchronize()
@@ -1856,7 +1877,7 @@ def crops_phase(params, images, text, counters, smi, dev):
     std = torch.tensor(CLIP_STD, device=dev).reshape(1, 1, 3, 1, 1)
     crops = (vk.fused_views_nchw_plain(src, cy, cx, inv, cfg.image_resolution) - mean) / std
     del src, cy, cx, inv
-    engine = TTAEngine(params, cfg, device=dev)
+    engine = TTAEngine(params, cfg, device=dev, quant="int8")
     modes, launches = count_forward(counters, lambda: engine.features_from_crops(crops, text))
     log(f"  launches: {launches}")
     n = cfg.vision_layers
@@ -1908,7 +1929,8 @@ def serving_288_phase(text, counters, smi, dev):
     rng = np.random.default_rng(0)
     images_np = rng.random((BATCH_288, 3, SRC_288, SRC_288)).astype(np.float32)
     images = torch.from_numpy(images_np).to(dev, torch.bfloat16)
-    engine = TTAEngine(params, cfg, device=dev, n_views=VIEWS - 1, calibration_images=images_np)
+    engine = TTAEngine(params, cfg, device=dev, quant="int8",
+                       n_views=VIEWS - 1, calibration_images=images_np)
     geometry = engine.sample_geometry(torch.Generator(device=dev).manual_seed(0), BATCH_288,
                                       images.shape[2:])
     calls = []
@@ -1966,13 +1988,16 @@ def serving_288_phase(text, counters, smi, dev):
           and float(view_cos.min()) >= 0.999)
     if not ok:
         raise AssertionError(f"ViT-B/32 at {RES_288}² fails the ranking certificate")
-    del feats, feats_f, view_cos
+    del feats, view_cos
     gen = torch.Generator(device=dev).manual_seed(2)
     time_forwards(lambda: engine.features_from_images(images, text, generator=gen), MODE_ITERS,
                   BATCH_288, "img", smi, f"ViT-B/32 at {RES_288}²")
-    del engine, images, modes, modes_f
+    launches_k9, results_k9 = k9_288_routes(engine, images, geometry, text, feats_f, modes_f,
+                                            counters, smi)
+    ph.results.update(results_k9)
+    del engine, images, modes, modes_f, feats_f
     torch.cuda.empty_cache()
-    return launches, ph.results
+    return launches, ph.results, launches_k9
 
 
 # phase 11: the unquantized towers. Launches of one layer of each float
@@ -2474,21 +2499,24 @@ def ranking(modes, w_a, w_b):
     return top1, overlap
 
 
-def int8_classifier_phase(params, cfg, dev, counters, built_f32, modes_f):
+def int8_classifier_phase(params, cfg, dev, counters, built_f32, modes_f, fuse="halves"):
     """Phase 12b: the int8 classifier build (``build_classifier_weights(
     quant=quantize_clip_params(params)["text"])``, the JAX package's
-    ``tests/test_quant.py`` route) at 403 x 8 prompts in f32 and bf16:
-    counted against ``int8_text_launches``, held against the same build on
-    the plain versions (rows cos >= 0.9999 in f32, >= 0.999 in bf16: int8
-    ties that f32 sums in another order flip compound over 12 layers, as
-    in the bf16 classifier of phase 5) and, as the JAX certificate,
-    against the f32 classifier (rows cos min > 0.99); the ranking of phase
-    7's f32 modes under both classifiers is printed -> launches by
-    dtype."""
+    ``tests/test_quant.py`` route) at 403 x 8 prompts in f32 and bf16,
+    under ``_FUSE`` = ``fuse``: counted (the halves: ``int8_text_launches``;
+    "block": K9a per layer, masked, and nothing else), held against the
+    same build on the plain versions (rows cos >= 0.9999 in f32, >= 0.999
+    in bf16: int8 ties that f32 sums in another order flip compound over
+    12 layers, as in the bf16 classifier of phase 5) and, as the JAX
+    certificate, against the f32 classifier (rows cos min > 0.99); the
+    ranking of phase 7's f32 modes under both classifiers is printed.
+    Under "block" K9a is held against its plain version on the first
+    call's layer-0 rows (512 x 77) -> (launches by dtype, results)."""
     import torch
 
     from jcf_tpu_torch.config import DataConfig, PipelineConfig, RuntimeConfig
     from jcf_tpu_torch.models.clip import tree_to
+    from jcf_tpu_torch.ops import block_kernel as bk
     from jcf_tpu_torch.ops.quant import quantize_clip_params
     from jcf_tpu_torch.pipelines.common import ensure_templates
     from jcf_tpu_torch.tta import build_classifier_weights
@@ -2496,6 +2524,7 @@ def int8_classifier_phase(params, cfg, dev, counters, built_f32, modes_f):
     tparams = {"text": tree_to(params["text"], dev)}
     quant = quantize_clip_params(tparams)["text"]
     launches = {}
+    ph = Phase()
     with tempfile.TemporaryDirectory() as tmp:
         synthetic_classes(os.path.join(tmp, "classes.txt"))
         pc = PipelineConfig(DataConfig(os.path.join(tmp, "classes.txt"), os.path.join(tmp, "tpl"), ""),
@@ -2503,33 +2532,48 @@ def int8_classifier_phase(params, cfg, dev, counters, built_f32, modes_f):
         templates = ensure_templates(pc)
     n_prompts = sum(len(v) for v in templates.values())
     calls = -(-n_prompts // TEXT_BATCH)
-    for dt in (torch.float32, torch.bfloat16):
-        name = str(dt).replace("torch.", "")
-        build = lambda: build_classifier_weights(tparams, cfg, templates, device=dev, dtype=dt,
-                                                 quant=quant)
-        t0 = time.perf_counter()
-        built, launches[name] = count_forward(counters, build)
-        secs = time.perf_counter() - t0
-        log(f"phase 12b: int8 classifier ({name}), {len(templates)} classes, {n_prompts} prompts "
-            f"in {calls} tower calls, built in {secs:.2f} s; launches: {launches[name]}")
-        expected = int8_text_launches(dt == torch.float32, cfg.text_layers, calls)
-        if launches[name] != expected:
-            raise AssertionError(f"expected exactly the launches {expected}")
-        if built.dtype != dt or tuple(built.shape) != (N_CLASSES, cfg.embed_dim):
-            raise AssertionError(f"bad int8 classifier: {built.dtype} {tuple(built.shape)}")
-        with plain_halves():
-            plain = build()
-        cos_p = float(cosine_rows(built, plain).min())
-        gate = 0.9999 if dt == torch.float32 else 0.999
-        cos_f = cosine_rows(built, built_f32)
-        top1, overlap = ranking(modes_f, built, built_f32)
-        log(f"  rows cos vs the plain-version build min {cos_p:.7f} (gate >= {gate}); vs the f32 "
-            f"classifier min {float(cos_f.min()):.6f} mean {float(cos_f.mean()):.6f} (gate > 0.99); "
-            f"phase 7's f32 modes under int8 vs f32 classifier: top1_agree {top1:.4f} "
-            f"top5_overlap {overlap:.4f} (not gated)")
-        if cos_p < gate or float(cos_f.min()) <= 0.99:
-            raise AssertionError(f"the int8 classifier ({name}) fails its gates")
-    return launches
+    tag = "" if fuse == "halves" else f" (_FUSE = {fuse!r})"
+    bk._FUSE = fuse
+    try:
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).replace("torch.", "")
+            build = lambda: build_classifier_weights(tparams, cfg, templates, device=dev, dtype=dt,
+                                                     quant=quant)
+            layer_calls = []
+            t0 = time.perf_counter()
+            with recorded(bk, "block_int8", layer_calls, 1, with_kwargs=True):
+                built, launches[name] = count_forward(counters, build)
+            secs = time.perf_counter() - t0
+            log(f"phase 12b{tag}: int8 classifier ({name}), {len(templates)} classes, {n_prompts} "
+                f"prompts in {calls} tower calls, built in {secs:.2f} s; launches: {launches[name]}")
+            if fuse == "halves":
+                expected = int8_text_launches(dt == torch.float32, cfg.text_layers, calls)
+            else:
+                branch = "block_int8/" + ("masked_f32" if dt == torch.float32 else "masked")
+                expected = {"block_int8": cfg.text_layers * calls, branch: cfg.text_layers * calls}
+            if launches[name] != expected:
+                raise AssertionError(f"expected exactly the launches {expected}")
+            if built.dtype != dt or tuple(built.shape) != (N_CLASSES, cfg.embed_dim):
+                raise AssertionError(f"bad int8 classifier: {built.dtype} {tuple(built.shape)}")
+            with plain_halves(), plain_k9():
+                plain = build()
+            cos_p = float(cosine_rows(built, plain).min())
+            gate = 0.9999 if dt == torch.float32 else 0.999
+            cos_f = cosine_rows(built, built_f32)
+            top1, overlap = ranking(modes_f, built, built_f32)
+            log(f"  rows cos vs the plain-version build min {cos_p:.7f} (gate >= {gate}); vs the "
+                f"f32 classifier min {float(cos_f.min()):.6f} mean {float(cos_f.mean()):.6f} (gate "
+                f"> 0.99); phase 7's f32 modes under int8 vs f32 classifier: top1_agree {top1:.4f} "
+                f"top5_overlap {overlap:.4f} (not gated)")
+            if cos_p < gate or float(cos_f.min()) <= 0.99:
+                raise AssertionError(f"the int8 classifier ({name}) fails its gates")
+            if layer_calls:
+                (x, layer, s, heads), kw = layer_calls[0]
+                k9_branch_check(ph, branch, "block_int8", x, layer, s, heads, **kw)
+            del layer_calls
+    finally:
+        bk._FUSE = "halves"
+    return launches, ph.results
 
 
 def masked_kernel_phase(params, cfg, dev, ids, rows_v, blocks_v, quant_v):
@@ -3063,9 +3107,10 @@ def block_f32_work(x, layer, s, heads, bias, causal):
     return bound(2 * nbytes(x) + w_bytes + nbytes(bias), ops, PEAK_F32)
 
 
-def ood_phase(params, cfg, counters, smi, launches_srv, launches_cls) -> tuple:
-    """13b-d: ``cli.ood.main`` on the card -> (launches of 13c, kernel
-    results, the decoder's entry)."""
+def ood_phase(params, cfg, counters, smi, launches_srv, launches_cls, classifier) -> tuple:
+    """13a' (``decode_moves`` against ``classifier``), 13b-d: ``cli.ood.main``
+    on the card -> (launches of 13c, kernel results, the decoder's
+    entry)."""
     import pickle
 
     import torch
@@ -3074,6 +3119,7 @@ def ood_phase(params, cfg, counters, smi, launches_srv, launches_cls) -> tuple:
     from jcf_tpu_torch.ops import block_kernel as bk
 
     decoder = decode_phase(torch.device("cuda", 0), smi)
+    decode_moves(params, cfg, classifier, torch.device("cuda", 0), smi)
     launches_srv = {k: v for k, v in launches_srv.items() if v}
     launches_cls = {k: v for k, v in launches_cls.items() if v}
     with tempfile.TemporaryDirectory() as tmp:
@@ -3552,31 +3598,13 @@ def predict_phase(params, cfg, counters, text, smi, dev):
 
 
 def k9_check(ph, label, fuse, rows, quant, s, heads):
-    """``ph.run`` of the K9 kernel of ``fuse`` against its plain version on
-    ``rows``: layer 0 (K9a, K9d: the one-layer bars) or the whole tower
-    (K9c: the cosine bar)."""
-    from jcf_tpu_torch.ops import block_kernel as bk
+    """``k9_branch_check`` of the K9 kernel of ``fuse`` on the folded tree
+    ``quant``: layer 0 (K9a, K9d) or the whole tower (K9c)."""
     from jcf_tpu_torch.ops.layers import layer_slice
 
     name = K9_OF[fuse]
-    kern, plain = getattr(bk, name), getattr(bk, f"{name}_plain")
-    layer0 = layer_slice(quant, 0)
-    e, n_rows = rows.shape[1], rows.shape[0]
-    hidden = quant["mlp"]["c_fc"].w_int8.shape[-2]
-    w_bytes = sum(nbytes(*q) for q in (layer0["attn"]["w_qkv"], layer0["attn"]["w_out"],
-                                        layer0["mlp"]["c_fc"], layer0["mlp"]["c_proj"]))
-    pairs = n_rows // s * s * s
-    if fuse == "stream":
-        n_layers = quant["attn"]["w_qkv"].w_int8.shape[0]
-        ph.run(label, lambda: kern(rows, quant, heads, s=s), lambda: plain(rows, quant, heads, s=s),
-               lambda n, g, r: check_layer(n, g, r, elementwise=False),
-               layer_work(n_rows, e, hidden, heads, pairs, 2 * nbytes(rows) + n_layers * w_bytes,
-                          PEAK_INT8, n_layers), reps=1)
-    else:
-        ph.run(label, lambda: kern(rows, layer0, s, heads), lambda: plain(rows, layer0, s, heads),
-               check_layer,
-               layer_work(n_rows, e, hidden, heads, pairs, 2 * nbytes(rows) + w_bytes, PEAK_INT8),
-               reps=3)
+    k9_branch_check(ph, label, name, rows,
+                    quant if name == "stream_tower_int8" else layer_slice(quant, 0), s, heads)
 
 
 def k9_modes_phase(params, images_np, images, geometry, text, counters, smi, dev):
@@ -3600,7 +3628,7 @@ def k9_modes_phase(params, images_np, images, geometry, text, counters, smi, dev
     launches = {}
     try:
         for mode in K9_MODES:
-            engine = TTAEngine(params, cfg, device=dev, n_views=VIEWS - 1,
+            engine = TTAEngine(params, cfg, device=dev, quant="int8", n_views=VIEWS - 1,
                                calibration_images=images_np, static_quant_mode=mode)
             for fuse, name in K9_OF.items():
                 bk._FUSE = fuse
@@ -3633,12 +3661,339 @@ def k9_modes_phase(params, images_np, images, geometry, text, counters, smi, dev
     return launches, ph.results
 
 
+# the K9 branches: the int8 text tower under "block" (12b), the
+# unfolded tower (12c) and 288² (10c) under each K9 route, the odd-head and
+# 64-token towers and engines under "block" (12d)
+KERNELS.update({
+    "block_int8/masked_f32": ("classifier_int8_block_f32", FUSED_INT8_SRC,
+                              "jcf_tpu/ops/block_kernel.py:732"),
+    "block_int8/masked": ("classifier_int8_block_bf16", FUSED_INT8_SRC,
+                          "jcf_tpu/ops/block_kernel.py:732"),
+    "block_int8/odd_heads": ("engine_masked_block", FUSED_INT8_SRC,
+                             "jcf_tpu/ops/block_kernel.py:732"),
+    "block_int8/nondense": ("engine_nondense_block", FUSED_INT8_SRC,
+                            "jcf_tpu/ops/block_kernel.py:732"),
+    **{f"{name}/{branch}": (f"{path}_{fuse}", FUSED_INT8_SRC, KERNELS[name][2])
+       for fuse, name in K9_OF.items()
+       for branch, path in (("unfolded", "tower_unfolded"), ("long", "serving_288"))},
+})
 # the K9 kernels in the modes phase 14 adds: jcf-predict's dynamic towers
 # (14b) and the calibrated modes on the serving route (14c)
 KERNELS.update({f"{name}/dynamic": (f"predict_{fuse}", FUSED_INT8_SRC, KERNELS[name][2])
                 for fuse, name in K9_OF.items()})
 KERNELS.update({f"{name}/{mode}": (f"modes_{fuse}_{mode}", FUSED_INT8_SRC, KERNELS[name][2])
                 for mode in K9_MODES for fuse, name in K9_OF.items()})
+
+
+# the K9 kernels off the folded dense route at 64 tokens or fewer:
+# the int8 text tower (12b under "block"), the unfolded vision tower (12c
+# under each K9 route), 288² (10c under each K9 route), the odd-head and
+# 64-token towers and engines (12d under "block")
+K9_ROUTES_ITERS = 2  # timed forwards of each K9 route at 288²
+
+
+@contextlib.contextmanager
+def plain_k9():
+    """Routes ``run_fused_tower``'s whole-layer int8 kernels (K9a, K9d,
+    K9c) through their plain versions for the block; with
+    ``plain_halves`` the whole tower's plain route."""
+    from jcf_tpu_torch.ops import block_kernel as bk
+
+    saved = {n: getattr(bk, n) for n in K9_OF.values()}
+    for n in saved:
+        setattr(bk, n, getattr(bk, f"{n}_plain"))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(bk, n, fn)
+
+
+def k9_branch_check(ph, label, name, rows, tree, s, heads, *, lns=(None, None), causal=False,
+                    dense=True, reps=3):
+    """``ph.run`` of the K9 kernel ``name`` against its plain version on
+    ``rows`` with ``tree`` (one layer for K9a and K9d: the one-layer bars;
+    the stacked tree for K9c: the cosine bar), the unfolded tree's ``lns``
+    (per layer, or stacked for K9c) and the route. The bound reads each
+    input once (the rows, every layer's weights and LN affines) and writes
+    the rows once; the attention's (query, key) pairs are the causal
+    mask's where there is one."""
+    from jcf_tpu_torch.ops import block_kernel as bk
+
+    kern, plain = getattr(bk, name), getattr(bk, f"{name}_plain")
+    n_rows, e = rows.shape
+    stream = name == "stream_tower_int8"
+    n_layers = tree["attn"]["w_qkv"].w_int8.shape[0] if stream else 1
+    hidden = tree["mlp"]["c_fc"].w_int8.shape[-2]
+    w_bytes = sum(nbytes(*q) for q in (tree["attn"]["w_qkv"], tree["attn"]["w_out"],
+                                        tree["mlp"]["c_fc"], tree["mlp"]["c_proj"]))
+    ln_bytes = 0 if lns[0] is None else n_layers * 4 * e * rows.element_size()
+    pairs = n_rows // s * (s * (s + 1) // 2 if causal else s * s)
+    work = layer_work(n_rows, e, hidden, heads, pairs, 2 * nbytes(rows) + w_bytes + ln_bytes,
+                      PEAK_INT8, n_layers)
+    if stream:
+        return ph.run(label, lambda: kern(rows, tree, heads, s=s, lns=lns),
+                      lambda: plain(rows, tree, heads, s=s, lns=lns),
+                      lambda n, g, r: check_layer(n, g, r, elementwise=False), work, reps=1)
+    kw = dict(causal=causal, dense=dense) if name == "block_int8" else {}
+    return ph.run(label, lambda: kern(rows, tree, s, heads, lns=lns, **kw),
+                  lambda: plain(rows, tree, s, heads, lns=lns, **kw), check_layer, work, reps=reps)
+
+
+def stacked_lns(blocks, dt):
+    """The stacked (ln_1, ln_2) affines of float ``blocks`` in ``dt``."""
+    return tuple({k: blocks[n][k].to(dt) for k in ("scale", "bias")} for n in ("ln_1", "ln_2"))
+
+
+def k9_unfolded_phase(cfg, counters, smi, rows_v, blocks_v, quant_v):
+    """Phase 12c under ``_FUSE`` = "block", "layer", "stream": the unfolded
+    int8 ViT-B/32 tower at 8192 crops on every row, counted (12 K9a, 12
+    K9d or 1 K9c, each on the "unfolded" branch, nothing else); each
+    kernel against its plain version on the tower's input rows; the tower
+    against the bf16 float tower (mean row cos > 0.995, 12c's gate); ms
+    per layer beside the unfolded halves' -> (launches by path,
+    results)."""
+    import torch
+
+    from jcf_tpu_torch.ops import block_kernel as bk
+    from jcf_tpu_torch.ops.layers import layer_slice
+
+    s, heads, n = cfg.vision_seq_len, cfg.vision_heads, cfg.vision_layers
+    lns = stacked_lns(blocks_v, rows_v.dtype)
+    lns0 = bk._lns_slice(lns, 0)
+    flt = bk.run_float_tower(rows_v, blocks_v, heads, s=s, causal=False)
+    halves_ms = time_ms(lambda: bk._halves_int8(rows_v, layer_slice(quant_v, 0), s, heads, lns0), 3)
+    ph = Phase()
+    launches = {}
+    try:
+        for fuse, name in K9_OF.items():
+            bk._FUSE = fuse
+            log(f"phase 12c, _FUSE = {fuse!r}: the unfolded int8 tower, {rows_v.shape[0] // s} crops "
+                f"x {s} tokens, every row")
+            out, counted = count_forward(counters, lambda: bk.run_fused_tower(
+                rows_v, quant_v, heads, flat_s=s, cls_only=False, blocks=blocks_v))
+            want = 1 if fuse == "stream" else n
+            log(f"  launches: {counted}")
+            if counted != {name: want, f"{name}/unfolded": want}:
+                raise AssertionError(f"expected exactly {want} {name} on the unfolded branch")
+            cos_f = cosine_rows(out, flt)
+            log(f"  vs the bf16 float tower: mean row cos {float(cos_f.mean()):.6f}, min "
+                f"{float(cos_f.min()):.6f} (gate: mean > 0.995)")
+            if float(cos_f.mean()) <= 0.995:
+                raise AssertionError(f"_FUSE = {fuse!r}: the unfolded tower fails its gate")
+            del out
+            label = f"{name}/unfolded"
+            if fuse == "stream":
+                k9_branch_check(ph, label, name, rows_v, quant_v, s, heads, lns=lns)
+            else:
+                k9_branch_check(ph, label, name, rows_v, layer_slice(quant_v, 0), s, heads, lns=lns0)
+            per_layer = ph.results[label]["ms"] / (n if fuse == "stream" else 1)
+            log(f"  {label}: {per_layer:.3f} ms per layer; the unfolded halves (K3 + K4) "
+                f"{halves_ms:.3f} ms per layer on the same rows, on {smi}")
+            launches[f"tower_unfolded_{fuse}"] = {label: counted[label]}
+            torch.cuda.empty_cache()
+    finally:
+        bk._FUSE = "halves"
+    return launches, ph.results
+
+
+def k9_288_routes(engine, images, geometry, text, feats_f, modes_f, counters, smi):
+    """Phase 10c under ``_FUSE`` = "block", "layer", "stream" (static
+    "full", 82 tokens, b256 x 8 views): each route counted (11 K9a or 11
+    K9d on the "long" branch, then the last layer's K3 on all rows and K4
+    on the CLS rows; or one K9c), 10c's fixed gates against the f32
+    engine, each kernel against its plain version on the tower's input
+    rows (2048 crops x 82), img/s -> (launches by path, results)."""
+    import torch
+
+    from jcf_tpu_torch.infer import engine as engine_module
+    from jcf_tpu_torch.ops import block_kernel as bk
+    from jcf_tpu_torch.ops.layers import layer_slice
+
+    cfg = engine.cfg
+    s, heads, n = cfg.vision_seq_len, cfg.vision_heads, cfg.vision_layers
+    base = {"view": 1, "int8_gemm_s32": 1, "assemble": 1}
+    last = {"ln_quant": 2, "int8_gemm_bf16": 1, "attention": 1, "int8_gemm_residual": 2,
+            "int8_gemm_gelu_quant": 1}
+    ph = Phase()
+    launches = {}
+    try:
+        for fuse, name in K9_OF.items():
+            bk._FUSE = fuse
+            log(f"phase 10c, _FUSE = {fuse!r}: ViT-B/32 at {RES_288}² ({s} tokens), static 'full'")
+            towers = []
+            with recorded(engine_module, "run_fused_tower", towers, 1):
+                modes, counted = count_forward(
+                    counters, lambda: engine.features_from_images(images, text, geometry=geometry))
+            k9 = 1 if fuse == "stream" else n - 1
+            expected = {**base, name: k9, f"{name}/long": k9, **({} if fuse == "stream" else last)}
+            log(f"  launches: {counted}")
+            if counted != expected:
+                raise AssertionError(f"expected exactly the launches {expected}")
+            check_modes(modes, images.shape[0], cfg.embed_dim)
+            feats = engine._view_features(images, geometry)
+            view_cos = cosine_rows(feats.reshape(-1, feats.shape[-1]),
+                                   feats_f.reshape(-1, feats.shape[-1]))
+            top1, overlap, cos = agreement(modes, modes_f, text)
+            log(f"  cert int8 ({fuse}) vs f32: top1_agree {top1:.4f} top5_overlap {overlap:.4f}; "
+                f"mode cos mean {cos:.6f}; per-view feature cos mean {float(view_cos.mean()):.6f} "
+                f"min {float(view_cos.min()):.6f} (gates: top-5 >= 0.97, mean mode cos, per-view "
+                f"mean and min >= 0.999)")
+            if (overlap < 0.97 or cos < 0.999 or float(view_cos.mean()) < 0.999
+                    or float(view_cos.min()) < 0.999):
+                raise AssertionError(f"_FUSE = {fuse!r} at {RES_288}² fails the certificate")
+            del feats, view_cos
+            rows, quant = towers[0][0], towers[0][1]
+            label = f"{name}/long"
+            if fuse == "stream":
+                k9_branch_check(ph, label, name, rows, quant, s, heads)
+            else:
+                k9_branch_check(ph, label, name, rows, layer_slice(quant, 0), s, heads)
+            del towers, rows
+            gen = torch.Generator(device=images.device).manual_seed(2)
+            time_forwards(lambda: engine.features_from_images(images, text, generator=gen),
+                          K9_ROUTES_ITERS, images.shape[0], "img", smi,
+                          f"_FUSE = {fuse!r} at {RES_288}²")
+            launches[f"serving_288_{fuse}"] = {label: counted[label]}
+            torch.cuda.empty_cache()
+    finally:
+        bk._FUSE = "halves"
+    return launches, ph.results
+
+
+def k9_small_towers_phase(dev, counters, smi):
+    """Phase 12d under ``_FUSE`` = "block": the odd-head tower (3 heads,
+    50 tokens: K9a's masked branch without a mask) and the 64-token tower
+    (2 heads: the non-dense mask-free branch), 12 layers of the unfolded
+    tree at 1024 crops, counted (12 K9a on the branch, nothing else),
+    against the plain route and the halves (row cos >= 0.999), K9a
+    against its plain version on layer 0; then the int8 engines of the
+    same widths (the 64-token one with 14 visual prompts), dynamic and
+    static "full", on their non-assembled route (K1, the s32 patch GEMM,
+    then the tower on every row; no K2) at 128 images x 8 views: counted,
+    per-view features against the plain route and the halves (cos >=
+    0.999), img/s -> (launches by path, results)."""
+    import torch
+
+    from jcf_tpu_torch.infer.engine import TTAEngine
+    from jcf_tpu_torch.models.clip import CLIPConfig, init_clip_params, tree_to
+    from jcf_tpu_torch.ops import block_kernel as bk
+    from jcf_tpu_torch.ops.layers import layer_slice
+    from jcf_tpu_torch.ops.quant import quantize_clip_params
+
+    ph = Phase()
+    launches = {}
+    n_img = SMALL_CROPS // VIEWS
+    rng = np.random.default_rng(3)
+    images_np = rng.random((n_img, 3, 256, 256)).astype(np.float32)
+    images = torch.from_numpy(images_np).to(dev, torch.bfloat16)
+    try:
+        for width, prompts, branch, label in ((192, 0, "masked", "block_int8/odd_heads"),
+                                              (128, 14, "nondense", "block_int8/nondense")):
+            heads, s = width // 64, 50 + prompts
+            cfg = CLIPConfig(vision_width=width, text_layers=1, vision_prompt_tokens=prompts)
+            params = init_clip_params(0, cfg)
+            text = torch.nn.functional.normalize(torch.randn(
+                N_CLASSES, cfg.embed_dim, device=dev, generator=torch.Generator(device=dev)
+                .manual_seed(1)), dim=-1)
+            blocks = tree_to(params["visual"]["blocks"], dev, torch.bfloat16)
+            quant = quantize_clip_params({"visual": tree_to(params["visual"], dev)})["visual"]
+            x = torch.randn(SMALL_CROPS * s, width, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(s)).bfloat16()
+            tower = lambda: bk.run_fused_tower(x, quant, heads, flat_s=s, cls_only=False,
+                                               blocks=blocks)
+            bk._FUSE = "block"
+            out, counted = count_forward(counters, tower)
+            with plain_halves(), plain_k9():
+                ref = tower()
+            bk._FUSE = "halves"
+            halves = tower()
+            bk._FUSE = "block"
+            cos_p, cos_h = float(cosine_rows(out, ref).min()), float(cosine_rows(out, halves).min())
+            log(f"phase 12d, _FUSE = 'block': {heads} heads x {s} tokens, int8, {SMALL_CROPS} "
+                f"crops: launches {counted}; vs plain min row cos {cos_p:.6f}, vs the halves "
+                f"{cos_h:.6f} (gates >= 0.999)")
+            if counted != {"block_int8": 12, f"block_int8/{branch}": 12} or min(cos_p, cos_h) < 0.999:
+                raise AssertionError(f"the {heads}-head {s}-token tower under 'block' fails")
+            lns = bk._lns_slice(stacked_lns(blocks, torch.bfloat16), 0)
+            k9_branch_check(ph, label, "block_int8", x, layer_slice(quant, 0), s, heads, lns=lns,
+                            dense=False)
+            del out, ref, halves, x
+            for mode in (None, "full"):
+                engine = TTAEngine(params, cfg, device=dev, quant="int8", n_views=VIEWS - 1,
+                                   calibration_images=None if mode is None else images_np,
+                                   static_quant_mode=mode or "full")
+                geometry = engine.sample_geometry(torch.Generator(device=dev).manual_seed(0),
+                                                  n_img, images.shape[2:])
+                feats, counted = count_forward(counters,
+                                               lambda: engine._view_features(images, geometry))
+                with plain_halves(), plain_k9():
+                    feats_p = engine._view_features(images, geometry)
+                bk._FUSE = "halves"
+                feats_h = engine._view_features(images, geometry)
+                bk._FUSE = "block"
+                flat = lambda f: f.reshape(-1, f.shape[-1])
+                cos_p = float(cosine_rows(flat(feats), flat(feats_p)).min())
+                cos_h = float(cosine_rows(flat(feats), flat(feats_h)).min())
+                want = {"view": 1, "int8_gemm_s32": 1, "block_int8": 12, f"block_int8/{branch}": 12}
+                log(f"  the {heads}-head {s}-token int8 engine ({mode or 'dynamic'}), {n_img} "
+                    f"images x {VIEWS} views under 'block': launches {counted}; per-view features "
+                    f"vs plain min cos {cos_p:.6f}, vs the halves {cos_h:.6f} (gates >= 0.999)")
+                if counted != want or min(cos_p, cos_h) < 0.999:
+                    raise AssertionError(f"the {heads}-head {s}-token engine under 'block' fails")
+                time_forwards(lambda: engine.features_from_images(images, text, geometry=geometry),
+                              K9_ROUTES_ITERS, n_img, "img", smi,
+                              f"{heads}-head {s}-token engine ({mode or 'dynamic'}, 'block')")
+                launches[f"engine_{branch}_block"] = {label: counted["block_int8"]}
+                del engine, feats, feats_p, feats_h
+            torch.cuda.empty_cache()
+    finally:
+        bk._FUSE = "halves"
+    return launches, ph.results
+
+
+def decode_moves(params, cfg, classifier, dev, smi) -> None:
+    """After 13a: how far the card's nvJPEG decode moves what the f32
+    ViT-B/32 engine sees against PIL's decode. Each fixture decoded by
+    nvJPEG + the triangle resize (13a's 256² images) and PIL's committed
+    decode (``tests/fixtures/jpeg/pil_256``, read by the port's PNG
+    decoder), then the same 64 seeded boxes per image cropped PIL-exactly
+    to 224² (``data.transforms.resample_boxes``), CLIP-normalized, through
+    ``crop_features``: the per-crop top-1 moves under the phase-5
+    classifier and the per-crop feature cosine. Printed, not gated."""
+    import torch
+
+    from jcf_tpu_torch.data import decode as dec
+    from jcf_tpu_torch.data import transforms as tt
+    from jcf_tpu_torch.infer.engine import TTAEngine
+
+    engine = TTAEngine(params, cfg, device=dev, quant=None)
+    rng = np.random.default_rng(0)
+    n_boxes, res = 64, cfg.image_resolution
+    sizes = rng.integers(128, 257, n_boxes)
+    boxes = [(int(rng.integers(0, 257 - h)), int(rng.integers(0, 257 - h)), int(h), int(h))
+             for h in sizes]
+    feats = {}
+    for kind in ("nvjpeg", "pil"):
+        crops = []
+        for path in fixture_paths():
+            if kind == "nvjpeg":
+                img = dec.resize_crop(dec.decode_file(path, dev), 256, 256)
+            else:
+                png = os.path.join(FIXTURE_DIR, "pil_256", os.path.basename(path)[:-4] + ".png")
+                with open(png, "rb") as f:
+                    img = torch.from_numpy(dec.decode_png(f.read())).to(dev)
+            crops.append(tt.normalize(tt.to_chw_array(tt.resample_boxes(img, boxes, (res, res)))))
+        feats[kind] = engine.crop_features(torch.stack(crops))
+    a, b = (feats[k].reshape(-1, feats[k].shape[-1]) for k in ("nvjpeg", "pil"))
+    w = classifier.to(dev).float()
+    top_a, top_b = (a @ w.T).argmax(-1), (b @ w.T).argmax(-1)
+    moves = int((top_a != top_b).sum())
+    cos = cosine_rows(a, b)
+    log(f"phase 13a': nvJPEG vs PIL decode through the f32 engine, {a.shape[0]} crops "
+        f"({len(fixture_paths())} fixtures x {n_boxes} seeded boxes, 224²): per-crop top-1 moves "
+        f"{moves} of {a.shape[0]} ({moves / a.shape[0]:.4f}); feature cos mean "
+        f"{float(cos.mean()):.6f} min {float(cos.min()):.6f} (not gated) on {smi}")
 
 
 def main() -> int:
@@ -3693,7 +4048,8 @@ def main() -> int:
     text = rng.standard_normal((N_CLASSES, cfg.embed_dim)).astype(np.float32)
     text = torch.from_numpy(text / np.linalg.norm(text, axis=-1, keepdims=True)).to(dev)
     images = torch.from_numpy(images_np).to(dev, torch.bfloat16)
-    engine = TTAEngine(params, cfg, device=dev, n_views=n_random, calibration_images=images_np)
+    engine = TTAEngine(params, cfg, device=dev, quant="int8",
+                       n_views=n_random, calibration_images=images_np)
     torch.cuda.synchronize()
     log(f"engine built (weights, calibration, quantization) in {time.perf_counter() - t0:.1f} s")
 
@@ -3791,7 +4147,7 @@ def main() -> int:
                                                       modes_f, counters, smi, dev)
     results.update(results_modes)
     crops_phase(params, images, text, counters, smi, dev)
-    _, results_288 = serving_288_phase(text, counters, smi, dev)
+    _, results_288, launches_288 = serving_288_phase(text, counters, smi, dev)
     results.update(results_288)
 
     # phase 11: the unquantized towers (the f32 engine of phase 7, the
@@ -3817,19 +4173,27 @@ def main() -> int:
     del calls, engine
     quant_v = quantize_clip_params({"visual": tree_to(params["visual"], dev)})["visual"]
     results.update(masked_kernel_phase(params, cfg, dev, ids, rows_v, blocks_v, quant_v))
-    launches_cls_int8 = int8_classifier_phase(params, cfg, dev, counters, built_f32, modes_f)
+    launches_cls_int8, _ = int8_classifier_phase(params, cfg, dev, counters, built_f32, modes_f)
+    launches_cls_k9, results_cls_k9 = int8_classifier_phase(params, cfg, dev, counters, built_f32,
+                                                            modes_f, fuse="block")
+    results.update(results_cls_k9)
     launches_unf = unfolded_tower_phase(cfg, counters, smi, rows_v, blocks_v, quant_v)
+    launches_unf_k9, results_unf_k9 = k9_unfolded_phase(cfg, counters, smi, rows_v, blocks_v,
+                                                        quant_v)
+    results.update(results_unf_k9)
     del rows_v, blocks_v, quant_v
     torch.cuda.empty_cache()
     launches_odd, results_odd = small_towers_phase(dev, counters)
     results.update(results_odd)
+    launches_small_k9, results_small_k9 = k9_small_towers_phase(dev, counters, smi)
+    results.update(results_small_k9)
     torch.cuda.empty_cache()
 
     # phase 13 (last): jcf-ood end to end through its CLI, both paths
     from jcf_tpu_torch.data import decode as decode_module
 
     launches_ood, results_ood, decoder = ood_phase(params, cfg, counters + [decode_module.LAUNCHES],
-                                                   smi, launches_srv, launches_cls)
+                                                   smi, launches_srv, launches_cls, built)
     results.update(results_ood)
 
     # phase 14 (last): jcf-predict end to end through its CLI and
@@ -3850,7 +4214,12 @@ def main() -> int:
                 "classifier_int8_f32": launches_cls_int8["float32"],
                 "classifier_int8_bf16": launches_cls_int8["bfloat16"],
                 "tower_unfolded": launches_unf, "tower_odd_heads_bf16": launches_odd,
-                "ood_block": launches_ood, **launches_k9m,
+                "ood_block": launches_ood, **launches_k9m, **launches_288, **launches_unf_k9,
+                **launches_small_k9,
+                "classifier_int8_block_f32": {"block_int8/masked_f32":
+                                              launches_cls_k9["float32"]["block_int8"]},
+                "classifier_int8_block_bf16": {"block_int8/masked":
+                                               launches_cls_k9["bfloat16"]["block_int8"]},
                 **{f"predict_{fuse}": {f"{name}/dynamic": launches_pred[fuse].get(name, 0)}
                    for fuse, name in K9_OF.items()}}
     missing = [k for k, (path, _, _) in KERNELS.items() if launches[path].get(k, 0) == 0]

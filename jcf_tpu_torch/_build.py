@@ -49,16 +49,18 @@ SIGNATURES = {
     "jcf_packed_attention_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "jcf_blocked_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, *[ctypes.c_longlong] * 6,
                               _F, _I, _P],
-    "jcf_block_int8": [*[_P] * 20, *[_I] * 7, _P],
-    "jcf_layer_fused_int8": [*[_P] * 20, *[_I] * 7, _P],
-    "jcf_stream_tower_int8": [*[_P] * 20, *[_I] * 7, _P],
+    "jcf_block_int8": [*[_P] * 25, *[_I] * 7, _P],
+    "jcf_layer_fused_int8": [*[_P] * 25, *[_I] * 7, _P],
+    "jcf_stream_tower_int8": [*[_P] * 25, *[_I] * 7, _P],
     "jcf_block_bf16": [*[_P] * 17, _I, _I, _I, _I, _F, _P],
+    "jcf_int8_xq_scratch": [_I] * 6,
     "jcf_block_bf16_scratch": [_I, _I, _I],
     "jcf_block_f32": [*[_P] * 16, _I, _I, _I, _I, _F, _P],
     "jcf_block_f32_scratch": [_I, _I, _I],
 }
 # C entries that return something other than a cudaError_t
-RESTYPES = {"jcf_block_bf16_scratch": ctypes.c_longlong, "jcf_block_f32_scratch": ctypes.c_longlong}
+RESTYPES = {"jcf_int8_xq_scratch": ctypes.c_longlong, "jcf_block_bf16_scratch": ctypes.c_longlong,
+            "jcf_block_f32_scratch": ctypes.c_longlong}
 # the decoder library's entries (csrc/jpeg.cu): nvjpegStatus_t codes, and a
 # cudaError_t for the resize
 JPEG_SRC = "jpeg.cu"

@@ -30,9 +30,12 @@ def main(argv: Optional[Sequence[str]] = None, timer=None) -> dict:
     from jcf_tpu_torch.utils import set_random_seed
 
     if args.device == "cuda":
-        # f32 products in f32 (the engines refuse TF32, cuDNN's included)
+        # f32 products in f32 (the engines refuse TF32, cuDNN's included),
+        # bf16 products with f32 sums (ops.layers.linear refuses the
+        # reduced-precision reduction)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     set_random_seed(args.seed)
     return run_ood_split(config_from_args(args), device=args.device, timer=timer)
 

@@ -9,12 +9,17 @@
 //                               launch, bf16 mid and residual between halves)
 //   _block_kernel              (K9b, _FUSE = "block" on the text tower: one bf16
 //                               layer with an additive [S, S] bias, f32 mid)
-// The int8 kernels take the folded tree on the dense route (mask-free
-// attention, S <= 64) in every quantization mode: each of the LN, context
-// and hidden quantizations static (the calibrated scale) or dynamic per
-// row, and the softmax shift the pair max or the calibrated score_shift.
-// The options are template parameters (one instance per set): chosen at
-// run time, such a choice cost these kernels 4.8-7.9% (PERF.md). The
+// The int8 kernels take every tree and route of the reference's
+// run_fused_tower below 128 tokens. On the folded dense route (mask-free
+// attention, S <= 64), in every quantization mode (each of the LN, context
+// and hidden quantizations static, the calibrated scale, or dynamic per
+// row, and the softmax shift the pair max or the calibrated score_shift),
+// the options are template parameters (one instance per set): chosen at
+// run time, such a choice cost these kernels 4.8-7.9% (PERF.md). Every
+// other branch (the unfolded tree, the masked attention of the text tower
+// and of an odd head count, the non-dense route at S a multiple of 16, f32
+// rows, 65 to 127 tokens) takes the general instances, which read the mode
+// and the branch from the run-time flags (fused_layer.cuh). The
 // dynamic quantizations are the reference's _quant_rows: LN rows per row
 // (the scales multiply the s32 sums after the weight scale, before the
 // bias, _int8_gemm's order); the context per E-wide row over all head
@@ -95,15 +100,17 @@ extern "C" int jcf_fused_profile_mid32_dyn(void*);
 extern "C" int jcf_fused_profile_mid32_static(void*);
 extern "C" int jcf_fused_profile_bf16mid_dyn(void*);
 extern "C" int jcf_fused_profile_bf16mid_static(void*);
+extern "C" int jcf_fused_profile_general(void*);
 
-// the per-phase cycles of every int8 instance, summed over the four
+// the per-phase cycles of every int8 instance, summed over the five
 // sources that hold them, then cleared
 extern "C" int jcf_fused_profile(void* host) {
   unsigned long long* sum = static_cast<unsigned long long*>(host);
   unsigned long long part[7];
   for (int i = 0; i < 7; ++i) sum[i] = 0;
   for (auto fn : {jcf_fused_profile_mid32_dyn, jcf_fused_profile_mid32_static,
-                  jcf_fused_profile_bf16mid_dyn, jcf_fused_profile_bf16mid_static}) {
+                  jcf_fused_profile_bf16mid_dyn, jcf_fused_profile_bf16mid_static,
+                  jcf_fused_profile_general}) {
     const int err = fn(part);
     if (err) return err;
     for (int i = 0; i < 7; ++i) sum[i] += part[i];
@@ -114,22 +121,26 @@ extern "C" int jcf_fused_profile(void* host) {
 
 namespace {
 
-int launch_int8(bool mid_f32, const void* x, void* out, void* scratch32, const LayerInt8& w,
-                int n_crops, int S, int H, int F, int n_layers, int nsp, int flags,
-                cudaStream_t stream) {
+int launch_int8(bool mid_f32, const void* x, void* out, void* scratch32, void* xq_g,
+                const LayerInt8& w, int n_crops, int S, int H, int F, int n_layers, int nsp,
+                int flags, cudaStream_t stream) {
   const int E = H * 64;
-  const int options = FLAG_STATIC_ACT | FLAG_STATIC_CTX | FLAG_STATIC_H | FLAG_STATIC_SHIFT;
+  flags |= mid_f32 ? FLAG_MID_F32 : 0;
   const bool act = flags & FLAG_STATIC_ACT, ctx = flags & FLAG_STATIC_CTX,
              hs = flags & FLAG_STATIC_H, shift = flags & FLAG_STATIC_SHIFT;
-  if ((flags & ~options) != (FLAG_FOLDED | FLAG_DENSE) || n_crops < 1 || S < 1 ||
-      S > CROP_ROWS || H < 2 || H % 2 || E > 1024 || E % 128 || F < 128 || F % 128 || nsp < 1 ||
-      F % nsp || (F / nsp) % 64 || n_layers < 1 ||
-      ((mid_f32 || !ctx) && scratch32 == nullptr) || (act && (!w.ln1_inv || !w.ln2_inv)) ||
-      (ctx && !w.ctx_inv) || (shift && !w.shift) || !w.gelu_c)
+  bool fast, gmem;
+  if (!int8_route(S, H, F, nsp, n_layers, flags, &fast, &gmem) || n_crops < 1 ||
+      ((mid_f32 || !ctx || !fast) && scratch32 == nullptr) || (gmem && xq_g == nullptr) ||
+      (act && (!w.ln1_inv || !w.ln2_inv)) || (ctx && !w.ctx_inv) || (shift && !w.shift) ||
+      !w.gelu_c || (!(flags & FLAG_FOLDED) && (!w.ln1_s || !w.ln1_b || !w.ln2_s || !w.ln2_b)))
     return (int)cudaErrorInvalidValue;
-  const Int8Launch a{static_cast<const bf16*>(x), static_cast<bf16*>(out),
-                     static_cast<float*>(scratch32), w, n_crops, S, H, F, n_layers, nsp,
-                     int8_smem(S, E, F, nsp), stream};
+  const Int8Launch a{x, out, static_cast<float*>(scratch32), static_cast<int8_t*>(xq_g), w,
+                     n_crops, S, H, F, n_layers, nsp, flags,
+                     int8_layout(!fast, gmem, S, E, F, nsp).total, stream};
+  if (!fast) {
+    if (flags & FLAG_F32_ROWS) return launch_int8_general<float, false>(a);
+    return gmem ? launch_int8_general<bf16, true>(a) : launch_int8_general<bf16, false>(a);
+  }
   if (mid_f32)
     return act ? launch_int8_part<true, true>(a, ctx, hs, shift)
                : launch_int8_part<true, false>(a, ctx, hs, shift);
@@ -345,20 +356,27 @@ __global__ void __launch_bounds__(THREADS, 1) block_bf16_kernel(
 // K9a (_block_int8_kernel): one int8 layer, f32 mid in scratch32.
 // K9d (_layer_fused_int8_kernel): one int8 layer, bf16 mid.
 // K9c (_stream_tower_int8_kernel): n_layers int8 layers, bf16 mid.
-// The same argument list for the three: x [n_crops * S, E] bf16 and out
-// (same shape); scratch32 [n_crops * S, E] f32, needed by K9a and by a
-// dynamic context (else null); the stacked weights, scales and biases of
-// LayerInt8 (fc scale and bias with h_inv folded and gelu_c = 0.851 /
-// h_inv per layer where the hidden's scale is static, else gelu_c =
-// 0.851); the static scalars the flags name (ln1_inv and ln2_inv, ctx_inv,
-// shift), null where the quantization is dynamic; nsp MLP hidden chunks;
-// flags: FLAG_FOLDED | FLAG_DENSE with any of the static options.
+// The same argument list for the three: x [n_crops * S, E] bf16 (f32 for
+// K9a with FLAG_F32_ROWS) and out (same shape and type); scratch32
+// [n_crops * S, E] f32, needed by K9a, by a dynamic context and by every
+// branch off the folded dense route (else null); xq_g: n_crops x
+// jcf_int8_xq_scratch(...) bytes where that is not 0 (else null); the
+// stacked weights, scales and biases of LayerInt8 (fc scale and bias with
+// h_inv folded and gelu_c = 0.851 / h_inv per layer where the hidden's
+// scale is static, else gelu_c = 0.851; for an odd head count w_qkv padded
+// by 64 rows and w_out, w_proj to a multiple of 128 rows); the static
+// scalars the flags name (ln1_inv and ln2_inv, ctx_inv, shift), null where
+// the quantization is dynamic; the unfolded tree's LN affines [L, E] in
+// the rows' dtype, null when folded; nsp MLP hidden chunks; flags: the
+// reference's options (FLAG_FOLDED, the static ones, FLAG_DENSE,
+// FLAG_USE_MASK) and FLAG_CAUSAL, FLAG_F32_ROWS.
 #define INT8_LAYER_ARGS                                                                        \
-  const void *x, void *out, void *scratch32, const void *w_qkv, const void *qkv_sc,               \
+  const void *x, void *out, void *scratch32, void *xq_g, const void *w_qkv, const void *qkv_sc,  \
       const void *qkv_b, const void *w_out, const void *out_sc, const void *out_b,             \
       const void *w_fc, const void *fc_sc, const void *fc_b, const void *w_proj,               \
       const void *proj_sc, const void *proj_b, const void *ln1_inv, const void *ctx_inv,       \
-      const void *ln2_inv, const void *gelu_c, const void *shift, int n_crops, int S, int H,    \
+      const void *ln2_inv, const void *gelu_c, const void *shift, const void *ln1_s,            \
+      const void *ln1_b, const void *ln2_s, const void *ln2_b, int n_crops, int S, int H,         \
       int F, int n_layers, int nsp, int flags, void *stream
 #define INT8_LAYER_STRUCT                                                                     \
   LayerInt8 {                                                                                 \
@@ -370,23 +388,32 @@ __global__ void __launch_bounds__(THREADS, 1) block_bf16_kernel(
         static_cast<const float*>(proj_sc), static_cast<const float*>(proj_b),                \
         static_cast<const float*>(ln1_inv), static_cast<const float*>(ctx_inv),               \
         static_cast<const float*>(ln2_inv), static_cast<const float*>(gelu_c),                \
-        static_cast<const float*>(shift)                                                      \
+        static_cast<const float*>(shift), ln1_s, ln1_b, ln2_s, ln2_b                          \
   }
 
 extern "C" int jcf_block_int8(INT8_LAYER_ARGS) {
   if (n_layers != 1) return (int)cudaErrorInvalidValue;
-  return launch_int8(true, x, out, scratch32, INT8_LAYER_STRUCT, n_crops, S, H, F, 1, nsp, flags,
+  return launch_int8(true, x, out, scratch32, xq_g, INT8_LAYER_STRUCT, n_crops, S, H, F, 1, nsp, flags,
                      (cudaStream_t)stream);
 }
 
 extern "C" int jcf_layer_fused_int8(INT8_LAYER_ARGS) {
   if (n_layers != 1) return (int)cudaErrorInvalidValue;
-  return launch_int8(false, x, out, scratch32, INT8_LAYER_STRUCT, n_crops, S, H, F, 1, nsp, flags,
+  return launch_int8(false, x, out, scratch32, xq_g, INT8_LAYER_STRUCT, n_crops, S, H, F, 1, nsp, flags,
                      (cudaStream_t)stream);
 }
 
+// the bytes of global LN rows per crop that a launch with these arguments
+// needs (E = 768 at S > 96 off the folded dense route), else 0; -1 where
+// no instance takes them
+extern "C" long long jcf_int8_xq_scratch(int S, int H, int F, int nsp, int n_layers, int flags) {
+  bool fast, gmem;
+  if (!int8_route(S, H, F, nsp, n_layers, flags | FLAG_MID_F32, &fast, &gmem)) return -1;
+  return gmem ? (long long)general_rows(S) * (H * 64 + 16) : 0;
+}
+
 extern "C" int jcf_stream_tower_int8(INT8_LAYER_ARGS) {
-  return launch_int8(false, x, out, scratch32, INT8_LAYER_STRUCT, n_crops, S, H, F, n_layers, nsp,
+  return launch_int8(false, x, out, scratch32, xq_g, INT8_LAYER_STRUCT, n_crops, S, H, F, n_layers, nsp,
                      flags, (cudaStream_t)stream);
 }
 

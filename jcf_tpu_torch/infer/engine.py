@@ -20,6 +20,13 @@ static, and ``static_quant_mode`` makes more of them static: "ln" (only
 those), "hidden" (+ the post-GELU hidden), "full" (+ the attention
 context), each optionally "+score" (the calibrated softmax shift).
 
+Towers whose rows the JAX engine does not assemble (an odd head count,
+whose attention is the masked one; S a multiple of 16; visual prompts)
+skip K2 as it does: tokens ``acc * k_scale + k_bias`` in f32, then CLS,
+positions, prompts and ``ln_pre`` in bf16 (``models.clip.
+encode_image_tokens``), and the folded tree's fused tower on its
+non-dense route, every layer on every row, the CLS rows taken last.
+
 ``features_from_crops`` (and its two halves ``crop_features`` and
 ``mta_from_features``) encodes given crops [B, N, 3, res, res],
 CLIP-normalized f32, the JAX engine's ``_encode_cloud``: the float patch
@@ -118,17 +125,18 @@ class TTAEngine:
     """Images or crops -> MTA mode features / logits on one device.
 
     params: the CLIP param tree (f32 CPU tensors, ``models.clip`` layout).
-    quant: "int8" (below 128 tokens the folded tree with dynamic scales,
-    or with ``calibration_images`` the static scales that
-    ``static_quant_mode`` names; from 128 on the unfolded tree, both
-    ignored, as the JAX engine does) or None (the unquantized engine).
+    quant: None (the default: the unquantized engine, f32 unless ``dtype``
+    says bf16, as the JAX engine's default) or "int8" (below 128 tokens the
+    folded tree with dynamic scales, or with ``calibration_images`` the
+    static scales that ``static_quant_mode`` names; from 128 on the
+    unfolded tree, both ignored, as the JAX engine does).
     dtype: the compute dtype; with ``quant=None`` f32 (the default) or
     bf16, the int8 engine bf16 only (the default there).
     crop_scale: the random views' area range, a share of the source's.
     """
 
     def __init__(self, params: dict, cfg: CLIPConfig, *, device="cuda", n_views: int = 8,
-                 quant: Optional[str] = "int8", dtype: Optional[torch.dtype] = None,
+                 quant: Optional[str] = None, dtype: Optional[torch.dtype] = None,
                  calibration_images=None, static_quant_mode: str = "full",
                  crop_scale: Tuple[float, float] = CROP_SCALE):
         self.cfg = cfg
@@ -163,14 +171,6 @@ class TTAEngine:
             # the composable tower: the unfolded tree from the f32 params
             self._quant = quantize_clip_params({"visual": tree_to(v, dev)}, fold=False)["visual"]
             return
-        if not dense_rows_eligible(cfg.vision_seq_len, cfg.vision_heads):
-            # the JAX engine's route for these towers skips the row assembly
-            # (jcf_tpu/infer/engine.py:491-501); ROADMAP.md, Queue 1 item 5
-            raise ValueError(
-                f"{cfg.vision_heads} heads, S = {cfg.vision_seq_len}: the int8 engine assembles "
-                f"dense rows, the reference's route for an even head count (an odd one takes the "
-                f"masked attention, use_mask=True) and S not a multiple of 16; the engine's "
-                f"non-assembled route is not ported")
         params_dev = {"visual": tree_to(v, dev)}
         act_scales, act_static_ = None, ()
         if calibration_images is not None:
@@ -183,6 +183,14 @@ class TTAEngine:
             params_dev, fold=True, heads={"visual": cfg.vision_heads}, act_scales=act_scales,
             act_static=act_static_,
         )["visual"]
+        # the JAX engine's row assembly gate (jcf_tpu/infer/engine.py:491-501):
+        # the dense route's towers without visual prompts; the others (an odd
+        # head count, S a multiple of 16, prompts) take the tokens to the
+        # fused tower's non-dense route (_view_features)
+        self._assembled = (dense_rows_eligible(cfg.vision_seq_len, cfg.vision_heads)
+                           and not cfg.vision_prompt_tokens)
+        if not self._assembled:
+            return
         bf16 = self._params["visual"]
         self._pos_tail = bf16["positional_embedding"][1:].contiguous()
         self._ln_pre = bf16["ln_pre"]
@@ -229,7 +237,11 @@ class TTAEngine:
             cols = _patchify(views.reshape(b * n, 3, res, res), p).reshape(-1, 3 * p * p)
             acc = int8_gemm_s32(cols.contiguous(), self._k_q)
             g = cfg.grid_size
-            if cfg.vision_seq_len >= BLOCKED_MIN_SEQ:
+            if cfg.vision_seq_len >= BLOCKED_MIN_SEQ or not self._assembled:
+                # tokens acc * k_scale + k_bias in f32, then CLS, positions
+                # (and prompts), ln_pre and the tower (jcf_tpu/infer/engine.py:
+                # 636-680): below 128 tokens the folded tree on the fused
+                # tower's non-dense route
                 tokens = (acc.float() * self._k_scale + self._k_bias).reshape(b * n, g * g, -1)
                 feats = encode_image_tokens(self._params, cfg, tokens, dtype=self.dtype,
                                             quant=self._quant)

@@ -54,8 +54,8 @@ The unfolded tree (``fold=False``) keeps every scale dynamic and reads
 the LN affine from the float blocks.
 
 Whole layers in one kernel (csrc/fused_layer.cu; the int8 kernel a
-template over its quantization mode in csrc/fused_layer.cuh), the TPU's
-``_FUSE`` variants of the same math:
+template over its quantization mode and branch in csrc/fused_layer.cuh),
+the TPU's ``_FUSE`` variants of the same math:
   K9a ``block_int8`` (``_block_int8_kernel``): one int8 layer, the mid
   residual kept in f32 (the halves round it to bf16);
   K9d ``layer_fused_int8`` (``_layer_fused_int8_kernel``): one int8 layer,
@@ -69,18 +69,22 @@ template over its quantization mode in csrc/fused_layer.cuh), the TPU's
 The MLP's f32 chunk partials (``_MLP_NSPLIT`` for K9a/K9c) are added in
 chunk order; a dynamic hidden is quantized per row and per chunk, so the
 chunk count is part of the result. The int8 kernels take the folded tree
-in every mode (dynamic, "ln", "hidden", "full", each "+score") on dense
-rows (mask-free attention, S <= 64) and refuse the unfolded tree on every
-device.
+in every mode (dynamic, "ln", "hidden", "full", each "+score") and the
+unfolded one (every scale dynamic, the LN affines as operands), S <= 127:
+K9d and K9c on the dense route, K9a on either route (the masked attention
+of the text tower and of an odd head count, on bf16 or f32 rows; the
+mask-free one at S a multiple of 16). The folded dense route at S <= 64
+runs one kernel instance per mode; every other branch a general instance
+(``LAUNCHES["<kernel>/<branch>"]`` counts it, ``k9_branch``).
 
 ``run_fused_tower`` is the JAX function's int8 route: the dense route
 (an even head count without a mask, S not a multiple of 16) or the
 non-dense one (a mask, an odd head count, or S a multiple of 16), folded
 or unfolded trees in any of their modes, ``cls_only`` or every row.
-Under ``_FUSE`` = "halves" (the default) each layer is K3 + K4, on the
-dense route under "block" K9a, under "layer" K9d and under "stream" one
-K9c for every layer (the folded tree); the non-dense route runs the
-halves under "layer" and "stream", as the JAX package falls back. With
+Under ``_FUSE`` = "halves" (the default) each layer is K3 + K4; under
+"block" K9a on either route, under "layer" K9d and under "stream" one K9c
+for every layer on the dense route; the non-dense route runs the halves
+under "layer" and "stream", as the JAX package falls back. With
 ``cls_only`` the dense route's last layer runs as the reference's
 ``_CLS_ATTNQ = True`` route: K5, then the MLP half on the CLS rows, for S
 <= 64; from 65 tokens on K3 on all rows, then K4 on the CLS rows. The
@@ -787,10 +791,12 @@ def mlp_half(x: torch.Tensor, layer: dict) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 # the options of the reference's int8 kernels, one bit each (as
-# csrc/fused_layer.cu numbers them); the kernels take the folded tree on the
-# dense route with any of the static options
+# csrc/fused_layer.cuh numbers them); the kernels take every set that
+# ``run_fused_tower``'s routes give
 FLAG_FOLDED, FLAG_STATIC_ACT, FLAG_STATIC_CTX, FLAG_STATIC_H = 1, 2, 4, 8
 FLAG_STATIC_SHIFT, FLAG_DENSE, FLAG_USE_MASK = 16, 32, 64
+# the port's own: the masked route's causal mask, f32 rows
+FLAG_CAUSAL, FLAG_F32_ROWS = 128, 256
 SERVING_FLAGS = FLAG_FOLDED | FLAG_STATIC_ACT | FLAG_STATIC_CTX | FLAG_STATIC_H | FLAG_DENSE
 
 
@@ -822,37 +828,56 @@ def quant_flags(tree: dict, *, dense: bool = True, use_mask: bool = False) -> in
     return flags
 
 
-def _ln_quant_plain_any(x: torch.Tensor, inv):
-    """LN z-norm + int8 with the static ``inv`` (row scales None) or per
-    row: ``_quant_rows_static(_ln_norm(x))`` or ``_quant_rows(_ln_norm(x))``."""
+def _ln_quant_plain_any(x: torch.Tensor, inv, ln=None):
+    """The plain head of a K9 quantization -> (int8, row scales or None):
+    LN z-norm + int8 with the static ``inv`` (row scales None) or per row
+    (``_quant_rows_static`` or ``_quant_rows`` of ``_ln_norm``), or with
+    ``ln`` (the unfolded tree's affine in the rows' dtype) ``_ln_rows`` then
+    ``_quant_rows``."""
+    if ln is not None:
+        if inv is not None:
+            raise ValueError("the unfolded tree (an LN affine) carries no static scales")
+        return ln_affine_quant_rows_plain(x, ln["scale"], ln["bias"])
     return (ln_quant_plain(x, inv), None) if inv is not None else ln_quant_rows_plain(x)
 
 
-def _attn_mid_plain(x: torch.Tensor, attn: dict, s: int, n_heads: int) -> torch.Tensor:
-    """K3's math on the dense route up to its residual add, unrounded: x +
-    out-proj(int8 attention(LN1 x)) in f32, each quantization static where
-    the tree has its scale, else per row; the pair shift max(0, pair max)
-    or the tree's ``score_shift``."""
-    x_q, x_sc = _ln_quant_plain_any(x, attn.get("ln_inv"))
+def _attn_mid_plain(x: torch.Tensor, attn: dict, s: int, n_heads: int, *, ln=None,
+                    causal: bool = False, dense: bool = True) -> torch.Tensor:
+    """K3's math up to its residual add, unrounded: x + out-proj(int8
+    attention(LN1 x)) in f32, each quantization static where the tree has
+    its scale, else per row; ``ln`` the unfolded tree's LN affine (the
+    scores then x 1/sqrt(d)). The attention as ``attn_half_int8`` takes it:
+    masked (``causal``, or an odd head count: per head, the static context
+    scale post-multiplied, no shift), or mask-free with the pair shift
+    max(0, pair max) on the ``dense`` route, the pair max off it, or the
+    tree's ``score_shift``."""
+    x_q, x_sc = _ln_quant_plain_any(x, attn.get("ln_inv"), ln)
     wq, wo = attn["w_qkv"], attn["w_out"]
     qkv = dequant_plain(int8_matmul_plain(x_q, wq.w_int8), wq.w_scale, wq.bias,
                         x_sc).to(torch.bfloat16)
     ctx_inv = attn.get("ctx_inv")
-    ctx = attention_plain(qkv, ctx_inv, s, n_heads, attn.get("score_shift"))
+    scale = _unfolded_scale(ln, x.shape[1], n_heads)
+    if causal or n_heads % 2:
+        ctx = masked_attention_plain(qkv, s, n_heads, causal=causal, scale=scale, ctx_inv=ctx_inv,
+                                     f32_ctx=ctx_inv is None)
+    else:
+        ctx = attention_plain(qkv, ctx_inv, s, n_heads, attn.get("score_shift"), scale=scale,
+                              floor=0.0 if dense else -math.inf)
     c_q, c_sc = (ctx, None) if ctx_inv is not None else quant_rows_plain(ctx)
     return x.float() + dequant_plain(int8_matmul_plain(c_q, wo.w_int8), wo.w_scale, wo.bias, c_sc)
 
 
-def _mlp_proj_plain(mid: torch.Tensor, mlp: dict, nsp: int) -> torch.Tensor:
+def _mlp_proj_plain(mid: torch.Tensor, mlp: dict, nsp: int, *, ln=None) -> torch.Tensor:
     """K4's math before its residual add: c_proj(GELU-quant(c_fc(LN2
-    mid))) + b_proj in f32, the hidden in ``nsp`` chunks: each chunk's
-    product an exact int32 sum, its f32 partial (x the c_proj scale, x the
-    chunk's row scales where the hidden is dynamic) added in chunk order.
-    A static hidden scale folds into c_fc (``_gelu_quant_static``); a
-    dynamic one quantizes each chunk of each row on its own (``_quant_rows``
-    of the chunk's QuickGELU), so the chunk count changes the result."""
+    mid))) + b_proj in f32 (``ln`` the unfolded tree's LN affine), the
+    hidden in ``nsp`` chunks: each chunk's product an exact int32 sum, its
+    f32 partial (x the c_proj scale, x the chunk's row scales where the
+    hidden is dynamic) added in chunk order. A static hidden scale folds
+    into c_fc (``_gelu_quant_static``); a dynamic one quantizes each chunk
+    of each row on its own (``_quant_rows`` of the chunk's QuickGELU), so
+    the chunk count changes the result."""
     fc, pr = mlp["c_fc"], mlp["c_proj"]
-    x_q, x_sc = _ln_quant_plain_any(mid, mlp.get("ln_inv"))
+    x_q, x_sc = _ln_quant_plain_any(mid, mlp.get("ln_inv"), ln)
     if "h_inv" in mlp:
         h_inv = mlp["h_inv"].reshape(())
         fc_sc, fc_b, gelu_c = fc.w_scale * h_inv, fc.bias * h_inv, GELU_TANH_COEF / h_inv
@@ -872,52 +897,113 @@ def _mlp_proj_plain(mid: torch.Tensor, mlp: dict, nsp: int) -> torch.Tensor:
     return acc + pr.bias
 
 
-def _bf16_mid_layer_plain(x, layer, s, n_heads, nsp):
-    """One int8 layer with its mid rounded to bf16, as the halves and
-    K9c/K9d round it."""
-    mid = _attn_mid_plain(x, layer["attn"], s, n_heads).to(torch.bfloat16)
-    return (mid.float() + _mlp_proj_plain(mid, layer["mlp"], nsp)).to(torch.bfloat16)
+def _bf16_mid_layer_plain(x, layer, s, n_heads, nsp, lns):
+    """One int8 layer on the dense route with its mid rounded to bf16, as
+    the halves and K9c/K9d round it."""
+    mid = _attn_mid_plain(x, layer["attn"], s, n_heads, ln=lns[0]).to(torch.bfloat16)
+    return (mid.float() + _mlp_proj_plain(mid, layer["mlp"], nsp, ln=lns[1])).to(torch.bfloat16)
 
 
 def _hidden(tree: dict) -> int:
     return tree["mlp"]["c_fc"].w_int8.shape[-2]
 
 
-def block_int8_plain(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Tensor:
+def _check_k9(name: str, tree: dict, n_heads: int, lns, *, causal: bool = False,
+              dense: bool = True) -> None:
+    """The route and tree a K9 kernel takes, as ``run_fused_tower`` picks
+    them: the LN affines ``lns`` exactly when the tree is unfolded; the
+    dense route only without a mask and with an even head count."""
+    folded = tree.get("quant_folded", False)
+    if folded != (lns[0] is None and lns[1] is None) or (not folded and None in lns):
+        raise ValueError(f"{name}: an unfolded tree takes its (ln_1, ln_2) affines as lns, a folded "
+                         f"one none; got a {'folded' if folded else 'unfolded'} tree and lns "
+                         f"{'given' if lns[0] is not None else 'None'}")
+    if dense and (causal or n_heads % 2):
+        raise ValueError(f"{name}: the dense route takes no mask and an even head count; got "
+                         f"causal={causal}, {n_heads} heads")
+
+
+def block_int8_plain(x: torch.Tensor, layer: dict, s: int, n_heads: int, *, lns=(None, None),
+                     causal: bool = False, dense: bool = True) -> torch.Tensor:
     """Plain version of K9a: one int8 layer of the folded tree (any mode)
-    with the mid kept in f32 and the MLP in ``_MLP_NSPLIT`` chunks -> bf16."""
-    mid = _attn_mid_plain(x, layer["attn"], s, n_heads)
+    or of the unfolded one (``lns``: its (ln_1, ln_2) affines in x's
+    dtype), on either route (``causal``, an odd head count, ``dense``, as
+    ``attn_half_int8`` takes them), with the mid kept in f32 and the MLP in
+    ``_MLP_NSPLIT`` chunks -> x's dtype (bf16, or f32 rows)."""
+    mid = _attn_mid_plain(x, layer["attn"], s, n_heads, ln=lns[0], causal=causal, dense=dense)
     nsp = _chunks(_MLP_NSPLIT, _hidden(layer))
-    return (mid + _mlp_proj_plain(mid, layer["mlp"], nsp)).to(torch.bfloat16)
+    return (mid + _mlp_proj_plain(mid, layer["mlp"], nsp, ln=lns[1])).to(x.dtype)
 
 
-def layer_fused_int8_plain(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Tensor:
-    """Plain version of K9d: one int8 layer, bf16 mid, the MLP in
-    ``_LAYER_NSPLIT`` chunks."""
-    return _bf16_mid_layer_plain(x, layer, s, n_heads, _chunks(_LAYER_NSPLIT, _hidden(layer)))
+def layer_fused_int8_plain(x: torch.Tensor, layer: dict, s: int, n_heads: int, *,
+                           lns=(None, None)) -> torch.Tensor:
+    """Plain version of K9d: one int8 layer on the dense route, bf16 mid,
+    the MLP in ``_LAYER_NSPLIT`` chunks; ``lns`` as in ``block_int8_plain``."""
+    return _bf16_mid_layer_plain(x, layer, s, n_heads, _chunks(_LAYER_NSPLIT, _hidden(layer)), lns)
 
 
-def stream_tower_int8_plain(x: torch.Tensor, quant: dict, n_heads: int, *, s: int) -> torch.Tensor:
-    """Plain version of K9c: every layer of the stacked tree on every row,
-    bf16 mid, the MLP in ``_MLP_NSPLIT`` chunks."""
+def _lns_slice(lns, i: int):
+    """Layer i's (ln_1, ln_2) affines of stacked ones (None kept)."""
+    return tuple(None if ln is None else {k: t[i] for k, t in ln.items()} for ln in lns)
+
+
+def stream_tower_int8_plain(x: torch.Tensor, quant: dict, n_heads: int, *, s: int,
+                            lns=(None, None)) -> torch.Tensor:
+    """Plain version of K9c: every layer of the stacked tree on every row of
+    the dense route, bf16 mid, the MLP in ``_MLP_NSPLIT`` chunks; ``lns``
+    the unfolded tree's stacked [L, E] affines in x's dtype."""
     nsp = _chunks(_MLP_NSPLIT, _hidden(quant))
     for i in range(quant["attn"]["w_qkv"].w_int8.shape[0]):
-        x = _bf16_mid_layer_plain(x, layer_slice(quant, i), s, n_heads, nsp)
+        x = _bf16_mid_layer_plain(x, layer_slice(quant, i), s, n_heads, nsp, _lns_slice(lns, i))
     return x
 
 
+# the launch count of a K9 branch beside its kernel's (``<kernel>/<branch>``),
+# one per branch off the folded dense route at S <= 64
+K9_BRANCHES = ("unfolded", "masked", "masked_f32", "nondense", "long")
+for _k in ("block_int8", "layer_fused_int8", "stream_tower_int8"):
+    LAUNCHES.update({f"{_k}/{b}": 0 for b in K9_BRANCHES})
+
+
+def k9_branch(tree: dict, s: int, n_heads: int, dtype: torch.dtype, *, causal: bool = False,
+              dense: bool = True) -> str:
+    """The branch a K9 launch takes: "masked_f32" (f32 rows) or "masked"
+    (causal, or an odd head count), "nondense" (mask-free at S a multiple
+    of 16), "unfolded" (dense), "long" (folded dense at 65 to 127 tokens),
+    or "" (the folded dense route at S <= 64)."""
+    if dtype == torch.float32:
+        return "masked_f32"
+    if causal or n_heads % 2:
+        return "masked"
+    if not dense:
+        return "nondense"
+    if not tree.get("quant_folded", False):
+        return "unfolded"
+    return "long" if s > CLS_MAX_SEQ else ""
+
+
+def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """t with zero rows appended along dim -2 up to ``rows``."""
+    extra = rows - t.shape[-2]
+    return torch.cat([t, t.new_zeros(t.shape[:-2] + (extra, t.shape[-1]))], dim=-2)
+
+
 def _launch_int8(name: str, x: torch.Tensor, tree: dict, s: int, n_heads: int, n_layers: int,
-                 nsp: int, mid_f32: bool) -> torch.Tensor:
+                 nsp: int, mid_f32: bool, *, lns=(None, None), causal: bool = False,
+                 dense: bool = True) -> torch.Tensor:
     """Checks and launches one of the int8 layer kernels (``jcf_<name>``)
-    on the rows x [B' * S, E] with the (one-layer or stacked) folded tree,
-    in the mode its static scales select."""
+    on the rows x [B' * S, E] with the (one-layer or stacked) tree, in the
+    mode its static scales select, on the branch the route and tree give."""
     rows, e = x.shape
-    if (x.dtype != torch.bfloat16 or rows % s or s > 64 or e != 64 * n_heads or n_heads % 2
-            or e % 128 or e > 1024):
-        raise ValueError(f"{name} takes bf16 rows of S <= 64 tokens, head dim 64, an even head "
-                         f"count and E a multiple of 128 up to 1024; got {x.dtype} "
-                         f"{tuple(x.shape)}, S={s}, H={n_heads}")
-    flags = quant_flags(tree)
+    f32 = x.dtype == torch.float32
+    if (x.dtype not in _FLOAT or (f32 and not mid_f32) or rows % s or s > MAX_SEQ
+            or e != 64 * n_heads or e > 1024):
+        raise ValueError(f"{name} takes bf16 rows (or f32 for block_int8) of S <= {MAX_SEQ} "
+                         f"tokens, head dim 64 and E up to 1024; got {x.dtype} {tuple(x.shape)}, "
+                         f"S={s}, H={n_heads}")
+    masked = causal or n_heads % 2 == 1
+    flags = (quant_flags(tree, dense=dense, use_mask=masked) | (FLAG_CAUSAL if causal else 0)
+             | (FLAG_F32_ROWS if f32 else 0))
     attn, mlp = tree["attn"], tree["mlp"]
     wq, wo, fc, pr = attn["w_qkv"], attn["w_out"], mlp["c_fc"], mlp["c_proj"]
     hidden = _hidden(tree)
@@ -930,76 +1016,97 @@ def _launch_int8(name: str, x: torch.Tensor, tree: dict, s: int, n_heads: int, n
     else:
         fc_sc, fc_b = fc.w_scale, fc.bias
         gelu_c = torch.full((n_layers,), GELU_TANH_COEF, dtype=torch.float32, device=x.device)
-    # the static scalars the mode names; None where its quantization is dynamic
+    ln1, ln2 = lns
+    # the static scalars the mode names and the unfolded tree's LN affines;
+    # None where its quantization is dynamic, or the tree folded
     ops = [wq.w_int8, wq.w_scale, wq.bias, wo.w_int8, wo.w_scale, wo.bias,
            fc.w_int8, fc_sc, fc_b, pr.w_int8, pr.w_scale, pr.bias,
            attn.get("ln_inv"), attn.get("ctx_inv"), mlp.get("ln_inv"), gelu_c,
-           attn.get("score_shift")]
+           attn.get("score_shift")] + [None if ln is None else ln[k] for ln in (ln1, ln2)
+                                       for k in ("scale", "bias")]
     shapes = [(3 * e, e), (3 * e,), (3 * e,), (e, e), (e,), (e,), (hidden, e), (hidden,),
-              (hidden,), (e, hidden), (e,), (e,), (), (), (), (), ()]
+              (hidden,), (e, hidden), (e,), (e,), (), (), (), (), (), (e,), (e,), (e,), (e,)]
     for i, (t, shape) in enumerate(zip(ops, shapes)):
         if t is None:
             continue
-        want = torch.int8 if i in (0, 3, 6, 9) else torch.float32
+        want = torch.int8 if i in (0, 3, 6, 9) else x.dtype if i >= 17 else torch.float32
         if (t.dtype != want or t.device != x.device or t.numel() != n_layers * math.prod(shape)
                 or (shape and tuple(t.shape[-len(shape):]) != shape)):
             raise ValueError(f"{name}: operand {i} must be {want} {shape} per layer, {n_layers} "
                              f"layer(s), on {x.device}; got {t.dtype} {tuple(t.shape)}")
+    if e % 128:
+        # an odd head count: every weight tile of the kernel's 128-row
+        # tiling lies in memory (the rows past the layer are dropped)
+        up = -(-e // 128) * 128
+        ops[0], ops[3], ops[9] = _pad_rows(ops[0], 3 * e + 64), _pad_rows(ops[3], up), _pad_rows(
+            ops[9], up)
     ops = [t.contiguous() if t is not None else None for t in ops]
+    lib = _build.load()
+    per_crop = lib.jcf_int8_xq_scratch(s, n_heads, hidden, nsp, n_layers, flags)
+    if per_crop < 0:
+        raise ValueError(f"{name}: no instance takes S={s}, H={n_heads}, hidden={hidden}, "
+                         f"{nsp} chunks, {n_layers} layer(s), flags {flags:#x}")
     x = x.contiguous()
     out = torch.empty_like(x)
-    # K9a's f32 mid and the dynamic context before its row quantization
+    fast = (flags & ~(FLAG_STATIC_ACT | FLAG_STATIC_CTX | FLAG_STATIC_H | FLAG_STATIC_SHIFT)
+            == FLAG_FOLDED | FLAG_DENSE and s <= CLS_MAX_SEQ)
+    # K9a's f32 mid and the f32 context before its quantization
     scratch = (torch.empty((rows, e), dtype=torch.float32, device=x.device)
-               if mid_f32 or not flags & FLAG_STATIC_CTX else None)
-    lib = _build.load()
+               if mid_f32 or not flags & FLAG_STATIC_CTX or not fast else None)
+    xq = (torch.empty(rows // s * per_crop, dtype=torch.int8, device=x.device)
+          if per_crop else None)
     err = getattr(lib, f"jcf_{name}")(
         x.data_ptr(), out.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+        xq.data_ptr() if xq is not None else None,
         *(t.data_ptr() if t is not None else None for t in ops), rows // s, s, n_heads, hidden,
         n_layers, nsp, flags, _build.stream_ptr(x.device))
     _build.check(err, name)
     LAUNCHES[name] += 1
+    branch = k9_branch(tree, s, n_heads, x.dtype, causal=causal, dense=dense)
+    if branch:
+        LAUNCHES[f"{name}/{branch}"] += 1
     return out
 
 
-def _require_folded(name: str, tree: dict) -> None:
-    """The K9 int8 kernels and their plain versions take the folded tree
-    (any of its modes); the unfolded tree is refused on every device
-    (ROADMAP.md, Queue 2)."""
-    if not tree.get("quant_folded", False):
-        raise NotImplementedError(f"{name} takes the folded tree; the unfolded tree's K9a/c/d "
-                                  f"are not ported (ROADMAP.md, Queue 2)")
-
-
-def block_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Tensor:
-    """K9a on dense rows x [B' * S, E] bf16 with one layer's folded tree
-    (any mode) -> the layer's output rows, bf16: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
-    _require_folded("block_int8", layer)
+def block_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int, *, lns=(None, None),
+               causal: bool = False, dense: bool = True) -> torch.Tensor:
+    """K9a on rows x [B' * S, E] (bf16, or f32 on the masked route) with
+    one layer's tree, folded (any mode) or unfolded (``lns``: its (ln_1,
+    ln_2) affines in x's dtype), on the route ``run_fused_tower`` picks
+    (``causal``, an odd head count, ``dense``) -> the layer's output rows
+    in x's dtype: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    _check_k9("block_int8", layer, n_heads, lns, causal=causal, dense=dense)
     if not x.is_cuda:
-        return block_int8_plain(x, layer, s, n_heads)
+        return block_int8_plain(x, layer, s, n_heads, lns=lns, causal=causal, dense=dense)
     return _launch_int8("block_int8", x, layer, s, n_heads, 1,
-                        _chunks(_MLP_NSPLIT, _hidden(layer)), mid_f32=True)
+                        _chunks(_MLP_NSPLIT, _hidden(layer)), mid_f32=True, lns=lns,
+                        causal=causal, dense=dense)
 
 
-def layer_fused_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int) -> torch.Tensor:
-    """K9d, as ``block_int8`` with the mid rounded to bf16 and the MLP in
-    ``_LAYER_NSPLIT`` chunks."""
-    _require_folded("layer_fused_int8", layer)
+def layer_fused_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int, *,
+                     lns=(None, None)) -> torch.Tensor:
+    """K9d, as ``block_int8`` on the dense route with the mid rounded to
+    bf16 and the MLP in ``_LAYER_NSPLIT`` chunks."""
+    _check_k9("layer_fused_int8", layer, n_heads, lns)
     if not x.is_cuda:
-        return layer_fused_int8_plain(x, layer, s, n_heads)
+        return layer_fused_int8_plain(x, layer, s, n_heads, lns=lns)
     return _launch_int8("layer_fused_int8", x, layer, s, n_heads, 1,
-                        _chunks(_LAYER_NSPLIT, _hidden(layer)), mid_f32=False)
+                        _chunks(_LAYER_NSPLIT, _hidden(layer)), mid_f32=False, lns=lns)
 
 
-def stream_tower_int8(x: torch.Tensor, quant: dict, n_heads: int, *, s: int) -> torch.Tensor:
-    """K9c: every layer of the stacked folded tree (any mode) on every row
-    of x [B' * S, E] bf16, one launch -> [B' * S, E] bf16."""
-    _require_folded("stream_tower_int8", quant)
+def stream_tower_int8(x: torch.Tensor, quant: dict, n_heads: int, *, s: int,
+                      lns=(None, None)) -> torch.Tensor:
+    """K9c: every layer of the stacked tree (folded in any mode, or
+    unfolded with ``lns`` its stacked [L, E] affines in x's dtype) on every
+    row of x [B' * S, E] bf16 on the dense route, one launch -> [B' * S, E]
+    bf16."""
+    _check_k9("stream_tower_int8", quant, n_heads, lns)
     if not x.is_cuda:
-        return stream_tower_int8_plain(x, quant, n_heads, s=s)
+        return stream_tower_int8_plain(x, quant, n_heads, s=s, lns=lns)
     n_layers = quant["attn"]["w_qkv"].w_int8.shape[0]
     return _launch_int8("stream_tower_int8", x, quant, s, n_heads, n_layers,
-                        _chunks(_MLP_NSPLIT, _hidden(quant)), mid_f32=False)
+                        _chunks(_MLP_NSPLIT, _hidden(quant)), mid_f32=False, lns=lns)
 
 
 def _block_float_plain(x: torch.Tensor, layer: dict, s: int, n_heads: int, bias: torch.Tensor,
@@ -1178,18 +1285,18 @@ def run_fused_tower(x: torch.Tensor, quant: dict, n_heads: int, *, flat_s: int,
     The route is the reference's: dense (no mask, an even head count, S
     not a multiple of 16) or not. On the dense route, under ``_FUSE`` =
     "halves" each layer is K3 + K4, under "block" K9a and under "layer"
-    K9d (the folded tree); with ``cls_only`` the last layer's MLP half
-    runs on the CLS rows only, since nothing downstream reads the other
-    rows, after K5 (the CLS rows attend to every token) for S <= 64, or
-    after K3 on all rows from 65 tokens on (the reference's
-    ``_CLS_ATTNQ`` gate); under "stream" one K9c runs every layer on
-    every row. The non-dense route (the masked attention of a causal or
-    odd-head tower, or the mask-free one at S a multiple of 16) runs the
-    halves on every row of every layer, under "layer" and "stream" too,
-    then takes the CLS rows. The K9 kernels take the folded tree in every
-    mode (dynamic, "ln", "hidden", "full", each "+score"); what the TPU
-    runs as K9a/c/d on other trees ("block" off the dense route, "layer"
-    and "stream" on an unfolded dense tree) raises ``NotImplementedError``.
+    K9d; with ``cls_only`` the last layer's MLP half runs on the CLS rows
+    only, since nothing downstream reads the other rows, after K5 (the CLS
+    rows attend to every token) for S <= 64, or after K3 on all rows from
+    65 tokens on (the reference's ``_CLS_ATTNQ`` gate); under "stream" one
+    K9c runs every layer on every row. The non-dense route (the masked
+    attention of a causal or odd-head tower, or the mask-free one at S a
+    multiple of 16) runs every layer on every row, then takes the CLS
+    rows: K9a per layer under "block", the halves under "halves", "layer"
+    and "stream", as the JAX package falls back. The K9 kernels take the
+    folded tree in every mode (dynamic, "ln", "hidden", "full", each
+    "+score") and the unfolded one (its LN affines from ``blocks``, cast
+    to x's dtype, stacked for K9c).
     """
     s = flat_s
     folded = quant.get("quant_folded", False)
@@ -1198,31 +1305,35 @@ def run_fused_tower(x: torch.Tensor, quant: dict, n_heads: int, *, flat_s: int,
     use_mask = causal or n_heads % 2 == 1
     dense = not use_mask and s % 16 != 0
     fuse = _fuse()
-    if (fuse == "block" and not dense) or (fuse != "halves" and dense and not folded):
-        raise NotImplementedError(
-            f"_FUSE = {fuse!r} on this tree ({'folded' if folded else 'unfolded'}, "
-            f"{'dense' if dense else 'non-dense'}{', masked' if use_mask else ''}) needs K9a/c/d "
-            f"off the folded dense route, not ported (ROADMAP.md, Queue 2); run it under _FUSE = "
-            f"'halves'")
-    if fuse == "stream" and dense:
-        out = stream_tower_int8(x, quant, n_heads, s=s)
-        return out[::s].contiguous() if cls_only else out
     dt = x.dtype
+
+    def lns(i):
+        """Layer i's (ln_1, ln_2) affines in x's dtype (all layers' for
+        None), or none for the folded tree."""
+        if folded:
+            return None, None
+        if i is None:
+            return tuple({k: blocks[n][k].to(dt) for k in ("scale", "bias")}
+                         for n in ("ln_1", "ln_2"))
+        return _layer_ln(blocks, i, "ln_1", dt), _layer_ln(blocks, i, "ln_2", dt)
+
+    if fuse == "stream" and dense:
+        out = stream_tower_int8(x, quant, n_heads, s=s, lns=lns(None))
+        return out[::s].contiguous() if cls_only else out
     n_layers = quant["attn"]["w_qkv"].w_int8.shape[0]
-    whole = {"block": block_int8, "layer": layer_fused_int8}
     cls_route = cls_only and dense
     for i in range(n_layers - 1 if cls_route else n_layers):
         layer = layer_slice(quant, i)
-        if dense and fuse in whole:
-            x = whole[fuse](x, layer, s, n_heads)
+        if fuse == "block":
+            x = block_int8(x, layer, s, n_heads, lns=lns(i), causal=causal, dense=dense)
+        elif fuse == "layer" and dense:
+            x = layer_fused_int8(x, layer, s, n_heads, lns=lns(i))
         else:
-            lns = (None, None) if folded else (_layer_ln(blocks, i, "ln_1", dt),
-                                               _layer_ln(blocks, i, "ln_2", dt))
-            x = _halves_int8(x, layer, s, n_heads, lns, causal=causal, dense=dense)
+            x = _halves_int8(x, layer, s, n_heads, lns(i), causal=causal, dense=dense)
     if not cls_route:
         return x[::s].contiguous() if cls_only else x
     last, i = layer_slice(quant, n_layers - 1), n_layers - 1
-    ln1 = None if folded else _layer_ln(blocks, i, "ln_1", dt)
+    ln1 = lns(i)[0]
     if s <= CLS_MAX_SEQ:
         mid = attn_cls_int8(x, last["attn"], s, n_heads, ln=ln1)
     else:

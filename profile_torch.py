@@ -59,7 +59,7 @@ def main() -> int:
     text = rng.standard_normal((403, cfg.embed_dim)).astype(np.float32)
     text = torch.from_numpy(text / np.linalg.norm(text, axis=-1, keepdims=True)).to(dev)
     images = torch.from_numpy(images_np).to(dev, torch.bfloat16)
-    engine = TTAEngine(init_clip_params(0, cfg), cfg, device=dev, n_views=VIEWS - 1,
+    engine = TTAEngine(init_clip_params(0, cfg), cfg, device=dev, quant="int8", n_views=VIEWS - 1,
                        calibration_images=images_np)
     gen = torch.Generator(device=dev).manual_seed(2)
 

@@ -151,7 +151,8 @@ def test_int8_engine_ignores_calibration_images():
     params, cfg = tclip.params_from_numpy(jp), tclip.CLIPConfig(**SMALL)
     geo = tuple(torch.from_numpy(a) for a in geometry)
     img = torch.from_numpy(images).bfloat16()
-    modes = [TTAEngine(params, cfg, device="cpu", n_views=N_RANDOM, calibration_images=c)
+    modes = [TTAEngine(params, cfg, device="cpu", quant="int8",
+                       n_views=N_RANDOM, calibration_images=c)
              .features_from_images(img, torch.from_numpy(text), geometry=geo)
              for c in (None, images)]
     torch.testing.assert_close(modes[0], modes[1], rtol=0, atol=0)

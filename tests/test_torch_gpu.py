@@ -340,12 +340,12 @@ def test_b16_int8_engine_launches_and_matches_plain(cuda):
     gen = torch.Generator().manual_seed(0)
     images = torch.rand(2, 3, 256, 256, generator=gen).bfloat16()
     text = torch.nn.functional.normalize(torch.randn(10, 512, generator=gen), dim=-1)
-    cpu = TTAEngine(params, cfg, device="cpu", n_views=3)
+    cpu = TTAEngine(params, cfg, device="cpu", quant="int8", n_views=3)
     geometry = cpu.sample_geometry(gen, 2, (256, 256))
     counters = [vk.LAUNCHES, ig.LAUNCHES, ak.LAUNCHES, bk.LAUNCHES, bg.LAUNCHES, at.LAUNCHES]
     for c in counters:
         c.update(dict.fromkeys(c, 0))
-    got = TTAEngine(params, cfg, device=cuda, n_views=3).features_from_images(
+    got = TTAEngine(params, cfg, device=cuda, quant="int8", n_views=3).features_from_images(
         images.to(cuda), text.to(cuda), geometry=tuple(t.to(cuda) for t in geometry))
     torch.cuda.synchronize()
     launches = {k: v for c in counters for k, v in c.items() if v}
@@ -440,12 +440,15 @@ def test_fused_routes_launch_the_kernels(cuda, monkeypatch):
 
 def test_fused_layer_wrappers_refuse(cuda, monkeypatch):
     """The K9 wrappers raise on trees, shapes and types their kernels do
-    not take, launching nothing: a tree not marked folded (the unfolded
-    tree's K9a/c/d are not ported: ``NotImplementedError``), S > 64; for
-    K9b f32 rows, S > 80, a bias of the wrong shape. The C entries refuse
-    a flag set off the folded dense route (masked, non-dense, unfolded)
-    themselves. Every static-option subset of the folded tree runs
-    (``tests/test_torch_gpu_predict.py``)."""
+    not take, launching nothing: a tree not marked folded without its LN
+    affines, S > 127; for K9b f32 rows, S > 80, a bias of the wrong
+    shape. The C entries refuse a flag set no route gives (a mask on the
+    dense route, a causal mask without one, the unfolded options without
+    the LN affines) themselves. S = 100 and the unfolded tree run, each
+    against its plain version (``tests/test_torch_gpu_predict.py`` holds
+    every branch)."""
+    from jcf_tpu_torch.ops.quant import quantize_clip_params
+
     tree = tree_to(_int8_tree(128), cuda)
     layer = layer_slice(tree, 0)
     x = torch.randn(2 * 50, 128, device=cuda).bfloat16()
@@ -455,11 +458,11 @@ def test_fused_layer_wrappers_refuse(cuda, monkeypatch):
         text_layers=1, text_width=128, text_heads=2))["text"]["blocks"], cuda), 0)
     before = dict(bk.LAUNCHES)
     for fn in (bk.block_int8, bk.layer_fused_int8):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="lns"):
             fn(x, unmarked, 50, 2)
-        with pytest.raises(ValueError):  # S = 100 > 64
-            fn(x, layer, 100, 2)
-    with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError):  # S = 128 > 127
+            fn(torch.randn(128, 128, device=cuda).bfloat16(), layer, 128, 2)
+    with pytest.raises(ValueError, match="lns"):
         bk.stream_tower_int8(x, stacked_unmarked, 2, s=50)
     with pytest.raises(ValueError):  # f32 rows
         bk.block_bf16(x.float(), text, 50, 2, at.causal_mask(50, cuda))
@@ -469,15 +472,30 @@ def test_fused_layer_wrappers_refuse(cuda, monkeypatch):
         bk.block_bf16(x, text, 50, 2, at.causal_mask(49, cuda))
     assert bk.LAUNCHES == before
     flags = bk.quant_flags(layer)
-    for bad in (flags | bk.FLAG_USE_MASK, flags & ~bk.FLAG_DENSE, flags & ~bk.FLAG_FOLDED):
-        monkeypatch.setattr(bk, "quant_flags", lambda tree, bad=bad: bad)
+    # no instance takes these (a ValueError before the launch, from the C
+    # side's route check); the last reaches the launch, which refuses it
+    for bad, err in ((flags | bk.FLAG_USE_MASK, ValueError), (flags | bk.FLAG_CAUSAL, ValueError),
+                     (flags & ~bk.FLAG_FOLDED, RuntimeError)):
+        monkeypatch.setattr(bk, "quant_flags", lambda tree, bad=bad, **kw: bad)
         for fn in (bk.block_int8, bk.layer_fused_int8):
-            with pytest.raises(RuntimeError):
+            with pytest.raises(err):
                 fn(x, layer, 50, 2)
-        with pytest.raises(RuntimeError):
+        with pytest.raises(err):
             bk.stream_tower_int8(x, tree, 2, s=50)
     monkeypatch.undo()
     assert bk.LAUNCHES == before
+    x100 = torch.randn(2 * 100, 128, device=cuda).bfloat16()
+    for fn in (bk.block_int8, bk.layer_fused_int8):
+        _rows_close(fn(x100, layer, 100, 2).cpu(),
+                    getattr(bk, f"{fn.__name__}_plain")(x100, layer, 100, 2).cpu())
+    blocks = tree_to(init_clip_params(0, CLIPConfig(vision_width=128, vision_layers=1,
+                                                    text_layers=1))["visual"]["blocks"], cuda)
+    unfolded = layer_slice(quantize_clip_params({"visual": {"blocks": blocks}})["visual"], 0)
+    lns = tuple(bk._layer_ln(blocks, 0, n, torch.bfloat16) for n in ("ln_1", "ln_2"))
+    for fn in (bk.block_int8, bk.layer_fused_int8):
+        _rows_close(fn(x, unfolded, 50, 2, lns=lns).cpu(),
+                    getattr(bk, f"{fn.__name__}_plain")(x, unfolded, 50, 2, lns=lns).cpu())
+    before = dict(bk.LAUNCHES)
     bk.block_int8(x, layer, 50, 2)  # the refusals leave no error behind
     assert bk.LAUNCHES["block_int8"] == before["block_int8"] + 1
 
@@ -616,8 +634,8 @@ def test_features_from_crops_on_the_card(cuda):
     gen = torch.Generator().manual_seed(0)
     crops = torch.randn(2, 5, 3, 224, 224, generator=gen)
     text = torch.nn.functional.normalize(torch.randn(10, 512, generator=gen), dim=-1)
-    cpu = TTAEngine(params, cfg, device="cpu")
-    card = TTAEngine(params, cfg, device=cuda)
+    cpu = TTAEngine(params, cfg, device="cpu", quant="int8")
+    card = TTAEngine(params, cfg, device=cuda, quant="int8")
     before = dict(bk.LAUNCHES)
     feats = card.crop_features(crops)
     assert bk.LAUNCHES["attention_f32"] - before["attention_f32"] == 2

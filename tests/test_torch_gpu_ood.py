@@ -139,3 +139,31 @@ def test_transforms_on_the_card_equal_the_cpu(cuda):
     sampler = tt.TTACropSampler(n_views=33, size=224, seed=0)
     assert torch.equal(sampler(img, 5).cpu(), sampler(img.cpu(), 5))
     assert torch.equal(tt.preprocess_center(img).cpu(), tt.preprocess_center(img.cpu()))
+
+
+def test_cli_runs_bf16_from_the_default_reduction_flag(cuda, tmp_path, monkeypatch):
+    """``jcf-ood-torch --dtype bfloat16`` on the card: PyTorch's default
+    lets bf16 products reduce in reduced precision, which
+    ``ops.layers.linear`` refuses; the CLI turns it off, so a run from the
+    default completes and writes both split files (a one-layer CLIP at
+    width 128 on the six fixture JPEGs, 403 synthetic classes)."""
+    import pickle
+
+    from chip_smoke import ood_dataset
+    from jcf_tpu_torch.cli import ood as cli
+    from jcf_tpu_torch.models.clip import CLIPConfig, init_clip_params
+    from jcf_tpu_torch.models.loader import state_dict_from_params
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_bf16_reduced_precision_reduction", True)
+    cfg = CLIPConfig(embed_dim=64, vision_width=128, vision_layers=1, text_width=128,
+                     text_heads=2, text_layers=1)
+    ckpt = tmp_path / "tiny.pkl"
+    with open(ckpt, "wb") as f:
+        pickle.dump(state_dict_from_params(init_clip_params(0, cfg), cfg), f)
+    ds = ood_dataset(str(tmp_path / "Dataset"), 6)
+    monkeypatch.chdir(tmp_path)
+    out = cli.main(["--root_path", ds, "--clip_checkpoint", str(ckpt), "--dtype", "bfloat16",
+                    "--n_views", "3", "--batch_images", "4"])
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    assert out["n_base"] + out["n_new"] == 6
+    assert all(os.path.isfile(out[k]) for k in ("base_path", "new_path"))

@@ -112,13 +112,110 @@ def test_stream_tower_matches_plain(cuda, monkeypatch, mode, nsp):
 
 
 def test_layer_kernels_refuse_bad_operands(cuda):
+    """S > 127 raises before any launch; S = 66 and the unfolded tree run,
+    each against its plain version."""
     tree = _on(_tree(None), cuda)
-    with pytest.raises(ValueError, match="S <= 64"):
-        bk.block_int8(_rows(66, cuda), layer_slice(tree, 0), 66, H)
+    before = dict(bk.LAUNCHES)
+    with pytest.raises(ValueError, match="S <= 127"):
+        bk.block_int8(_rows(128, cuda), layer_slice(tree, 0), 128, H)
+    assert bk.LAUNCHES == before
+    x = _rows(66, cuda)
+    _close(bk.block_int8(x, layer_slice(tree, 0), 66, H),
+           bk.block_int8_plain(x, layer_slice(tree, 0), 66, H))
+    blocks = _on(_unfolded_blocks(), cuda)
     unfolded = quantize_clip_params(tclip.tree_to(
         {"visual": {"blocks": _unfolded_blocks()}}, cuda))["visual"]
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        bk.layer_fused_int8(_rows(50, cuda), layer_slice(unfolded, 0), 50, H)
+    lns = tuple(bk._layer_ln(blocks, 0, n, torch.bfloat16) for n in ("ln_1", "ln_2"))
+    x = _rows(50, cuda)
+    _close(bk.layer_fused_int8(x, layer_slice(unfolded, 0), 50, H, lns=lns),
+           bk.layer_fused_int8_plain(x, layer_slice(unfolded, 0), 50, H, lns=lns))
+
+
+# the K9 branches off the folded dense route at 64 tokens or fewer, at
+# ViT-B/32 widths: (tower, width, folded mode or "unfolded", S, causal,
+# rows dtype, the kernels that take the route)
+BRANCHES = {
+    "text f32 unfolded": ("text", 512, "unfolded", 77, True, torch.float32, ("block_int8",)),
+    "text f32 folded": ("text", 512, None, 77, True, torch.float32, ("block_int8",)),
+    "text bf16 unfolded": ("text", 512, "unfolded", 77, True, torch.bfloat16, ("block_int8",)),
+    "unfolded 50": ("visual", 768, "unfolded", 50, False, torch.bfloat16, (
+        "block_int8", "layer_fused_int8", "stream_tower_int8")),
+    "82 tokens full": ("visual", 768, "full", 82, False, torch.bfloat16, (
+        "block_int8", "layer_fused_int8", "stream_tower_int8")),
+    "101 tokens dynamic": ("visual", 768, None, 101, False, torch.bfloat16, (
+        "block_int8", "layer_fused_int8", "stream_tower_int8")),
+    "odd heads unfolded": ("visual", 192, "unfolded", 50, False, torch.bfloat16, ("block_int8",)),
+    "odd heads full": ("visual", 704, "full", 50, False, torch.bfloat16, ("block_int8",)),
+    "64 tokens full+score": ("visual", 768, "full+score", 64, False, torch.bfloat16,
+                             ("block_int8",)),
+    "64 tokens unfolded": ("visual", 768, "unfolded", 64, False, torch.bfloat16, ("block_int8",)),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _branch_tree(tower, width, mode):
+    """(2-layer tree, float blocks) of seed-0 weights: the text tower at
+    ``width`` (77 tokens), or the vision tower at ``width``; unfolded, or
+    folded dynamic (None), or folded in a static mode calibrated on 4
+    seeded images (the score column raised so that the shift is not 0)."""
+    kw = ({"text_width": width, "text_heads": width // 64} if tower == "text"
+          else {"vision_width": width})
+    cfg = tclip.CLIPConfig(vision_layers=2, text_layers=2, vocab_size=100, **kw)
+    params = tclip.init_clip_params(0, cfg)
+    blocks = params[tower]["blocks"]
+    if mode == "unfolded":
+        return quantize_clip_params(params)[tower], blocks
+    heads = {"visual": cfg.vision_heads, "text": cfg.text_heads}
+    if mode is None:
+        return quantize_clip_params(params, fold=True, heads=heads)[tower], blocks
+    from jcf_tpu_torch.infer.engine import static_act
+
+    act, with_scores = static_act(mode)
+    imgs = torch.from_numpy(np.random.default_rng(0).standard_normal((4, 3, 224, 224))
+                            .astype(np.float32))
+    amax = tclip.vision_ln_z_amax(params, cfg, imgs, with_scores=with_scores)
+    if with_scores:
+        amax[:, 4] = 43.0
+    return quantize_clip_params(params, fold=True, heads=heads, act_scales={"visual": amax},
+                                act_static=act)["visual"], blocks
+
+
+@pytest.mark.parametrize("nsp", [1, 4])
+@pytest.mark.parametrize("name", list(BRANCHES))
+def test_k9_branches_match_plain(cuda, monkeypatch, name, nsp):
+    """Each kernel of each branch against its plain version on the same
+    card tensors (48 crops or prompts): one layer (K9a on its route, K9d)
+    within 0.05 + 0.05 |ref| at row cos >= 0.999, the 2-layer K9c at row
+    cos >= 0.999; each launch counted under its kernel and its branch."""
+    tower, width, mode, s, causal, dtype, kernels = BRANCHES[name]
+    monkeypatch.setattr(bk, "_MLP_NSPLIT", nsp)
+    monkeypatch.setattr(bk, "_LAYER_NSPLIT", nsp)
+    tree, blocks = _branch_tree(tower, width, mode)
+    tree, blocks = _on(tree, cuda), _on(blocks, cuda)
+    heads = width // 64
+    dense = not causal and heads % 2 == 0 and s % 16 != 0
+    folded = mode != "unfolded"
+    g = torch.Generator(device=cuda).manual_seed(s)
+    x = torch.randn(48 * s, width, device=cuda, generator=g).to(dtype)
+    for name_k in kernels:
+        before = dict(bk.LAUNCHES)
+        branch = bk.k9_branch(tree, s, heads, dtype, causal=causal, dense=dense)
+        if name_k == "stream_tower_int8":
+            lns = (None, None) if folded else tuple(
+                {k: blocks[n][k].to(dtype) for k in ("scale", "bias")} for n in ("ln_1", "ln_2"))
+            got = bk.stream_tower_int8(x, tree, heads, s=s, lns=lns)
+            ref = bk.stream_tower_int8_plain(x, tree, heads, s=s, lns=lns)
+        else:
+            lns = (None, None) if folded else tuple(
+                bk._layer_ln(blocks, 1, n, dtype) for n in ("ln_1", "ln_2"))
+            kw = dict(causal=causal, dense=dense) if name_k == "block_int8" else {}
+            got = getattr(bk, name_k)(x, layer_slice(tree, 1), s, heads, lns=lns, **kw)
+            ref = getattr(bk, f"{name_k}_plain")(x, layer_slice(tree, 1), s, heads, lns=lns, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == x.shape
+        assert bk.LAUNCHES[name_k] == before[name_k] + 1
+        assert branch and bk.LAUNCHES[f"{name_k}/{branch}"] == before[f"{name_k}/{branch}"] + 1
+        _close(got, ref, cos_only=name_k == "stream_tower_int8")
 
 
 def _unfolded_blocks():

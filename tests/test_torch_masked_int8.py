@@ -405,8 +405,10 @@ def test_tower_matches_jax(name, cls_only):
 @pytest.mark.parametrize("fuse", ["layer", "stream"])
 def test_non_dense_routes_run_the_halves_under_fuse(monkeypatch, fuse):
     """Under ``_FUSE`` = "layer" and "stream" the non-dense routes run the
-    halves, as the JAX package falls back (``fused_block``); "block"
-    needs K9a off the serving flags and raises."""
+    halves, as the JAX package falls back (``fused_block``); under "block"
+    they run K9a per layer: exactly the composition of ``block_int8`` on
+    the route, close to the halves (its mid stays f32 where the halves
+    round it to the rows' dtype)."""
     jb, jq, tb, tq, n_heads, s, causal, dtype, e = _route("unfolded causal bf16")
     x = _rows(4, CROPS * s, e, dtype)
     halves = tbk.run_fused_tower(x, tq, n_heads, flat_s=s, cls_only=False, blocks=tb, causal=True)
@@ -414,8 +416,14 @@ def test_non_dense_routes_run_the_halves_under_fuse(monkeypatch, fuse):
     got = tbk.run_fused_tower(x, tq, n_heads, flat_s=s, cls_only=False, blocks=tb, causal=True)
     assert torch.equal(got, halves)
     monkeypatch.setattr(tbk, "_FUSE", "block")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tbk.run_fused_tower(x, tq, n_heads, flat_s=s, blocks=tb, causal=True)
+    got = tbk.run_fused_tower(x, tq, n_heads, flat_s=s, cls_only=False, blocks=tb, causal=True)
+    by_layer = x
+    for i in range(2):
+        lns = tuple(tbk._layer_ln(tb, i, n, dtype) for n in ("ln_1", "ln_2"))
+        by_layer = tbk.block_int8(by_layer, layer_slice(tq, i), s, n_heads, lns=lns, causal=True,
+                                  dense=False)
+    assert torch.equal(got, by_layer)
+    assert _row_cos(got.float().numpy(), halves.float().numpy()) >= 0.999
 
 
 def test_quant_flags_read_the_routes():

@@ -466,7 +466,8 @@ def test_engine_modes_match_jax(res, mode):
                                          act_static=act_static)["visual"]
     ref = _jax_images(jp, cfg, images, geometry, text, jq)
     engine = TTAEngine(tclip.params_from_numpy(jp), tclip.CLIPConfig(**cfg), device="cpu",
-                       n_views=n_random, calibration_images=None if mode is None else images,
+                       quant="int8", n_views=n_random,
+                       calibration_images=None if mode is None else images,
                        static_quant_mode=mode or "full")
     got = engine.features_from_images(torch.from_numpy(images).bfloat16(), torch.from_numpy(text),
                                       geometry=tuple(torch.from_numpy(a) for a in geometry))
@@ -496,36 +497,50 @@ def test_crop_scale_reaches_the_sampler():
 
 
 def test_refusals(monkeypatch):
-    """What stays refused: unknown static modes; the engine's odd-head and
-    64-token towers (its non-assembled route is not ported); an unfolded
-    tree without the blocks that hold its LN affine; the ``_FUSE`` routes
-    that need K9a/c/d off the serving flags (the 64-token and the
-    unfolded towers themselves run under "halves",
-    ``tests/test_torch_masked_int8.py``)."""
+    """What stays refused: unknown static modes; an unfolded tree without
+    the blocks that hold its LN affine. The engine's odd-head and 64-token
+    towers build and skip the row assembly (their route is held against
+    JAX in ``tests/test_torch_k9_branches.py``); "block" on the 64-token
+    tower and "layer" on the unfolded tree run K9a and K9d and agree with
+    the JAX function in interpret mode under the same ``_FUSE`` (row cos
+    >= 0.999)."""
     cfg = _cfg(224, layers=1)
     params = tclip.init_clip_params(0, tclip.CLIPConfig(**cfg))
     imgs = np.random.default_rng(0).random((2, 3, 224, 224)).astype(np.float32)
     for mode in ("medium", "full+shift", "ln+score+score"):
         with pytest.raises(ValueError, match="static_quant_mode"):
-            TTAEngine(params, tclip.CLIPConfig(**cfg), device="cpu", calibration_images=imgs,
+            TTAEngine(params, tclip.CLIPConfig(**cfg), device="cpu", quant="int8",
+                      calibration_images=imgs,
                       static_quant_mode=mode)
     odd = _cfg(224, layers=1, width=192)  # 3 heads
-    with pytest.raises(ValueError, match="use_mask"):
-        TTAEngine(tclip.init_clip_params(0, tclip.CLIPConfig(**odd)), tclip.CLIPConfig(**odd),
-                  device="cpu")
+    assert not TTAEngine(tclip.init_clip_params(0, tclip.CLIPConfig(**odd)),
+                         tclip.CLIPConfig(**odd), device="cpu", quant="int8")._assembled
     s64 = dict(cfg, vision_prompt_tokens=14)  # 49 patches + CLS + 14 prompts
-    with pytest.raises(ValueError, match="multiple of 16"):
-        TTAEngine(tclip.init_clip_params(0, tclip.CLIPConfig(**s64)), tclip.CLIPConfig(**s64),
-                  device="cpu")
-    tree = tquant.quantize_clip_params(params, fold=True, heads={"visual": H})["visual"]
-    monkeypatch.setattr(tbk, "_FUSE", "block")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tbk.run_fused_tower(_rows(0, 64), tree, H, flat_s=64)
-    unfolded = tquant.quantize_clip_params(params)["visual"]
-    monkeypatch.setattr(tbk, "_FUSE", "layer")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tbk.run_fused_tower(_rows(0, 50), unfolded, H, flat_s=50,
-                            blocks=params["visual"]["blocks"])
+    assert not TTAEngine(tclip.init_clip_params(0, tclip.CLIPConfig(**s64)),
+                         tclip.CLIPConfig(**s64), device="cpu", quant="int8")._assembled
+    jp = _params(0, layers=1)
+    jtree = jquant.quantize_clip_params(jp, fold=True, heads={"visual": H, "text": 1})["visual"]
+    tp = tclip.params_from_numpy(jp)
+    tree = tquant.quantize_clip_params(tp, fold=True, heads={"visual": H, "text": 1})["visual"]
+    jblocks = jax.tree_util.tree_map(jnp.asarray, jp["visual"]["blocks"])
+    for mod in (jbk, tbk):
+        monkeypatch.setattr(mod, "_FUSE", "block")
+    x = _rows(0, 64)
+    ref = jbk.run_fused_tower(_jx(x), jblocks, H, None, quant=jtree, quant_folded=True,
+                              interpret=True, flat_s=64, cls_only=True)
+    before = dict(tbk.LAUNCHES)
+    got = tbk.run_fused_tower(x, tree, H, flat_s=64)
+    assert tbk.LAUNCHES == before  # the CPU runs the plain versions
+    assert _row_cos(got.float().numpy(), _np(ref)) >= 0.999
+    junfolded = jquant.quantize_clip_params(jp)["visual"]
+    unfolded = tquant.quantize_clip_params(tp)["visual"]
+    for mod in (jbk, tbk):
+        monkeypatch.setattr(mod, "_FUSE", "layer")
+    x = _rows(1, 50)
+    ref = jbk.run_fused_tower(_jx(x), jblocks, H, None, quant=junfolded, interpret=True,
+                              flat_s=50, cls_only=True)
+    got = tbk.run_fused_tower(x, unfolded, H, flat_s=50, blocks=tp["visual"]["blocks"])
+    assert _row_cos(got.float().numpy(), _np(ref)) >= 0.999
     monkeypatch.setattr(tbk, "_FUSE", "halves")
     with pytest.raises(ValueError, match="blocks"):
         tbk.run_fused_tower(_rows(0, 50), unfolded, H, flat_s=50)

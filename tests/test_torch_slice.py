@@ -99,7 +99,7 @@ def test_slice_matches_jax_composition(seed):
 
     ref = _jax_slice(jp, images, geometry, text)
     engine = TTAEngine(tclip.params_from_numpy(jp), tclip.CLIPConfig(**SMALL), device="cpu",
-                       n_views=N_RANDOM, calibration_images=images)
+                       quant="int8", n_views=N_RANDOM, calibration_images=images)
     got = engine.features_from_images(torch.from_numpy(images).bfloat16(), torch.from_numpy(text),
                                       geometry=tuple(torch.from_numpy(a) for a in geometry))
     assert got.shape == (B, SMALL["embed_dim"]) and got.dtype == torch.float32
@@ -118,7 +118,8 @@ def test_int8_slice_tracks_f32_reference():
     images = rng.random((B, 3, SRC, SRC)).astype(np.float32)
     text = torch.nn.functional.normalize(torch.randn(CLASSES, 32, generator=torch.Generator().manual_seed(3)), dim=-1)
     cfg = tclip.CLIPConfig(**SMALL)
-    q = TTAEngine(params, cfg, device="cpu", n_views=N_RANDOM, calibration_images=images)
+    q = TTAEngine(params, cfg, device="cpu", quant="int8",
+                  n_views=N_RANDOM, calibration_images=images)
     f = TTAEngine(params, cfg, device="cpu", n_views=N_RANDOM, quant=None)
     geo = q.sample_geometry(torch.Generator().manual_seed(0), B, (SRC, SRC))
     img = torch.from_numpy(images).bfloat16()
@@ -152,7 +153,7 @@ with tempfile.TemporaryDirectory() as tmp:
     text = build_text_weights(params, cfg, ensure_templates(pc), pc, device="cpu")
 assert text.shape == (3, 32) and bool(text.float().isfinite().all())
 imgs = np.random.default_rng(0).random((2, 3, 72, 72)).astype(np.float32)
-eng = TTAEngine(params, cfg, device="cpu", n_views=2, calibration_images=imgs)
+eng = TTAEngine(params, cfg, device="cpu", quant="int8", n_views=2, calibration_images=imgs)
 modes = eng.features_from_images(torch.from_numpy(imgs).bfloat16(), text,
                                  generator=torch.Generator().manual_seed(0))
 assert modes.shape == (2, 32) and bool(modes.isfinite().all())
@@ -163,7 +164,8 @@ cfg16 = CLIPConfig(embed_dim=32, image_resolution=96, vision_layers=1, vision_wi
 sd = loader.state_dict_from_params(init_clip_params(1, cfg16), cfg16)
 cfg_sd = loader.config_from_state_dict(sd)
 assert cfg_sd == cfg16 and cfg_sd.vision_seq_len == 145
-eng16 = TTAEngine(loader.params_from_state_dict(sd, cfg_sd), cfg_sd, device="cpu", n_views=2)
+eng16 = TTAEngine(loader.params_from_state_dict(sd, cfg_sd), cfg_sd, device="cpu", quant="int8",
+                  n_views=2)
 imgs16 = np.random.default_rng(1).random((2, 3, 104, 104)).astype(np.float32)
 modes16 = eng16.features_from_images(torch.from_numpy(imgs16).bfloat16(), text,
                                      generator=torch.Generator().manual_seed(0))
