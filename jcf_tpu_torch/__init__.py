@@ -23,7 +23,8 @@ What is ported so far:
   (or in f32), and the checkpoint loader (``models.loader``) that turns a
   ViT state dict into its ``CLIPConfig`` and params;
 - ``jcf-ood`` end to end (``cli.ood``, ``pipelines.ood.run_ood_split``):
-  the TestSetB walk, JPEG decode with nvJPEG on the card, the PIL-exact
+  the TestSetB walk, JPEG decode bit for bit as libjpeg-turbo's (host
+  Huffman decoding, IDCT and color kernels on the card), the PIL-exact
   TTA crops (``data.transforms``), the threaded loader, both paths; and
   K9b in f32 (``ops.block_kernel.block_f32``) under ``_FUSE = "block"``;
 - ``jcf-predict`` end to end (``cli.predict``,

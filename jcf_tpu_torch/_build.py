@@ -1,16 +1,18 @@
-"""Build and load the package's CUDA kernels; count their launches.
+"""Build and load the package's CUDA kernels and its host JPEG decoder;
+count their launches.
 
 ``csrc/*.cu`` compile at first use with ``nvcc`` for ``sm_90a``, one
 process per source started together, and link into one shared library
-with a plain C interface, loaded with ``ctypes``; ``csrc/jpeg.cu`` (the
-nvJPEG decoder) compiles in the same pass and links into a second
-library with ``-lnvjpeg`` (``load_jpeg``), so that a toolkit without
-nvJPEG fails the decoder alone, naming where it looked for ``nvjpeg.h``. Each C entry launches
+with a plain C interface, loaded with ``ctypes``. Each C entry launches
 on the stream it is given and returns ``cudaGetLastError()``; ``check``
-raises if that is not 0. The library
-lands in a build directory named after a hash of the sources, under
-``build/`` at the repository root, so an edited source never loads a
-stale build. Nothing here runs at import time.
+raises if that is not 0. ``csrc/jpeg_entropy.cpp`` (the JPEG markers and
+Huffman decoding, host code) compiles with ``g++`` into a library of its
+own (``load_entropy``), on the card's host and on a CPU-only machine
+alike. Each library lands in a build directory named after a hash of its
+sources and flags, under ``build/`` at the repository root, so an edited
+source never loads a stale build; a build writes to a temporary name and
+``os.replace``s it, so processes that race build it each and load whole
+files. Nothing here runs at import time.
 
 Each kernel wrapper module keeps a ``LAUNCHES`` dict of plain ints, one
 per kernel, which its wrapper increments where it launches the kernel
@@ -24,11 +26,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
+ENTROPY_SRC = "jpeg_entropy.cpp"
+GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argument types (pointers and the stream as c_void_p)
@@ -57,35 +62,28 @@ SIGNATURES = {
     "jcf_block_bf16_scratch": [_I, _I, _I],
     "jcf_block_f32": [*[_P] * 16, _I, _I, _I, _I, _F, _P],
     "jcf_block_f32_scratch": [_I, _I, _I],
+    "jcf_jpeg_idct": [_P, _P, _I, _I, _I, _P, _P],
+    "jcf_jpeg_upsample_color": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "jcf_resize_crop": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "jcf_copy_add_one": [_P, _P, ctypes.c_longlong, _P],
 }
 # C entries that return something other than a cudaError_t
 RESTYPES = {"jcf_int8_xq_scratch": ctypes.c_longlong, "jcf_block_bf16_scratch": ctypes.c_longlong,
             "jcf_block_f32_scratch": ctypes.c_longlong}
-# the decoder library's entries (csrc/jpeg.cu): nvjpegStatus_t codes, and a
-# cudaError_t for the resize
-JPEG_SRC = "jpeg.cu"
-JPEG_SIGNATURES = {
-    "jcf_jpeg_create": [_P],
-    "jcf_jpeg_state_create": [_P, _P],
-    "jcf_jpeg_state_destroy": [_P],
-    "jcf_jpeg_info": [_P, _P, ctypes.c_longlong, _P],
-    "jcf_jpeg_decode": [_P, _P, _P, ctypes.c_longlong, _I, _I, _P, _P],
-    "jcf_resize_crop": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
+# the entropy decoder's entries (csrc/jpeg_entropy.cpp)
+ENTROPY_SIGNATURES = {
+    "jcf_jpeg_open": ([_P, ctypes.c_longlong, _P, _P, _I], _P),
+    "jcf_jpeg_copy": ([_P, _P, _P], None),
+    "jcf_jpeg_close": ([_P], None),
 }
 
 _lib = None
-_jpeg_lib = None
-_jpeg_error = None  # why the decoder library did not build in load()'s pass
+_entropy_lib = None
+_entropy_lock = threading.Lock()
 
 
 def cuda_home() -> str:
     return os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-
-
-def nvjpeg_include_dirs() -> list:
-    """Where the toolkit keeps ``nvjpeg.h``."""
-    home = cuda_home()
-    return [os.path.join(home, "include"), os.path.join(home, "targets", "x86_64-linux", "include")]
 
 
 def nvcc() -> str:
@@ -100,27 +98,22 @@ def nvcc() -> str:
 def _run(cmd) -> None:
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"{os.path.basename(cmd[0])} failed: {' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
 
 
 def _out_dir() -> str:
     """The build directory of these sources and flags."""
     srcs = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh")))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    return _hashed_dir(srcs, NVCC_FLAGS)
+
+
+def _hashed_dir(srcs: list, flags: list) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for p in srcs:
         with open(p, "rb") as f:
             h.update(os.path.basename(p).encode() + f.read())
     return os.path.join(os.path.dirname(_PKG), "build", "jcf_tpu_torch", h.hexdigest()[:16])
-
-
-def _jpeg_link(obj: str, lib_path: str, tag: str) -> None:
-    home = cuda_home()
-    libdirs = [os.path.join(home, "lib64"), os.path.join(home, "targets", "x86_64-linux", "lib")]
-    flags = [f for d in libdirs if os.path.isdir(d)
-             for f in ("-L", d, "-Xlinker", "-rpath", "-Xlinker", d)]
-    tmp = f"{lib_path}.{tag}"
-    _run([nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, obj, *flags, "-lnvjpeg"])
-    os.replace(tmp, lib_path)
 
 
 def _compile_all(out_dir: str, names: list, tag: str) -> dict:
@@ -139,10 +132,8 @@ def _compile_all(out_dir: str, names: list, tag: str) -> dict:
 
 
 def load() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library; the
-    decoder library is built in the same nvcc pass where ``nvjpeg.h``
-    exists (``load_jpeg`` loads it)."""
-    global _lib, _jpeg_error
+    """Build (once per source hash) and load the kernel library."""
+    global _lib
     if _lib is not None:
         return _lib
     out_dir = _out_dir()
@@ -150,10 +141,9 @@ def load() -> ctypes.CDLL:
     if not os.path.exists(lib_path):
         os.makedirs(out_dir, exist_ok=True)
         tag = f"tmp{os.getpid()}"
-        names = sorted(f for f in os.listdir(CSRC) if f.endswith(".cu") and f != JPEG_SRC)
-        with_jpeg = any(os.path.exists(os.path.join(d, "nvjpeg.h")) for d in nvjpeg_include_dirs())
-        done = _compile_all(out_dir, names + ([JPEG_SRC] if with_jpeg else []), tag)
-        failed = [err for name, (_, err) in done.items() if err and name != JPEG_SRC]
+        names = sorted(f for f in os.listdir(CSRC) if f.endswith(".cu"))
+        done = _compile_all(out_dir, names, tag)
+        failed = [err for _, err in done.values() if err]
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp = f"{lib_path}.{tag}"
@@ -162,17 +152,6 @@ def load() -> ctypes.CDLL:
         for obj in objs:
             os.remove(obj)
         os.replace(tmp, lib_path)
-        if with_jpeg:
-            obj, err = done[JPEG_SRC]
-            try:
-                if err:
-                    raise RuntimeError(f"nvcc failed:\n{err}")
-                _jpeg_link(obj, os.path.join(out_dir, "libjcf_jpeg.so"), tag)
-            except RuntimeError as exc:
-                _jpeg_error = str(exc)
-            finally:
-                if os.path.exists(obj):
-                    os.remove(obj)
     lib = ctypes.CDLL(lib_path)
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -182,38 +161,35 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def load_jpeg() -> ctypes.CDLL:
-    """The nvJPEG decoder library (``csrc/jpeg.cu``), built beside the
-    kernels. Raises, naming the directories searched, where the toolkit
-    has no ``nvjpeg.h``, and with nvcc's output where it did not build."""
-    global _jpeg_lib
-    if _jpeg_lib is not None:
-        return _jpeg_lib
-    load()
-    out_dir = _out_dir()
-    lib_path = os.path.join(out_dir, "libjcf_jpeg.so")
-    if not os.path.exists(lib_path):
-        dirs = nvjpeg_include_dirs()
-        if not any(os.path.exists(os.path.join(d, "nvjpeg.h")) for d in dirs):
-            raise RuntimeError(f"nvjpeg.h not found in {dirs}: the JPEG decoder cannot be built")
-        if _jpeg_error:
-            raise RuntimeError(f"the nvJPEG decoder did not build: {_jpeg_error}")
-        # the kernel library was built by an earlier process; build the decoder alone
-        tag = f"tmp{os.getpid()}"
-        obj, err = _compile_all(out_dir, [JPEG_SRC], tag)[JPEG_SRC]
-        if err:
-            raise RuntimeError(f"the nvJPEG decoder did not build: {err}")
-        try:
-            _jpeg_link(obj, lib_path, tag)
-        finally:
-            os.remove(obj)
-    lib = ctypes.CDLL(lib_path)
-    for name, argtypes in JPEG_SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    _jpeg_lib = lib
-    return lib
+def gxx() -> str:
+    found = shutil.which("g++") or shutil.which("c++")
+    if not found:
+        raise RuntimeError("g++ not found; the JPEG entropy decoder cannot be built")
+    return found
+
+
+def load_entropy() -> ctypes.CDLL:
+    """Build (once per source hash, with g++) and load the host JPEG
+    entropy decoder (``csrc/jpeg_entropy.cpp``)."""
+    global _entropy_lib
+    with _entropy_lock:
+        if _entropy_lib is not None:
+            return _entropy_lib
+        src = os.path.join(CSRC, ENTROPY_SRC)
+        out_dir = _hashed_dir([src], GXX_FLAGS)
+        lib_path = os.path.join(out_dir, "libjcf_jpeg_entropy.so")
+        if not os.path.exists(lib_path):
+            os.makedirs(out_dir, exist_ok=True)
+            tmp = f"{lib_path}.tmp{os.getpid()}"
+            _run([gxx(), *GXX_FLAGS, "-o", tmp, src])
+            os.replace(tmp, lib_path)
+        lib = ctypes.CDLL(lib_path)
+        for name, (argtypes, restype) in ENTROPY_SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _entropy_lib = lib
+        return lib
 
 
 def check(err: int, name: str) -> None:

@@ -24,10 +24,10 @@ class Datum:
 
 
 def read_image(path: str, device="cuda") -> torch.Tensor:
-    """uint8 [H, W, 3] RGB on ``device`` (nvJPEG on a CUDA device, PIL on
-    the CPU; PNG through the port's decoder; a grayscale JPEG's luma
-    repeated, as PIL's ``convert("RGB")`` repeats it); a missing or
-    unreadable file raises and names itself."""
+    """uint8 [H, W, 3] RGB on ``device``, equal to PIL's
+    ``convert("RGB")`` (``data.decode``: a JPEG decoded as libjpeg-turbo
+    decodes it, a PNG through the port's decoder; a grayscale JPEG's luma
+    repeated); a missing or unreadable file raises and names itself."""
     if not os.path.exists(path):
         raise IOError(f"No file exists at {path}")
     img = decode_file(path, device)

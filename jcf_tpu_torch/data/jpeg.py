@@ -1,0 +1,479 @@
+"""JPEG decode, bit for bit as libjpeg-turbo decodes with its defaults
+(what PIL and ``jcf_tpu/native/jcfnative.cpp`` call), on the card and on
+the CPU.
+
+Three stages:
+
+1. ``read_coefficients``: markers and Huffman decoding on the host
+   (``csrc/jpeg_entropy.cpp``, built with g++, bound with ctypes) -> the
+   int16 DCT coefficients of each component, its quantization table,
+   sampling factors and block grid. A JPEG it does not take (arithmetic
+   coding, lossless, 12-bit, 2 or 4 components, truncated or corrupt data)
+   raises ``ValueError`` naming the file.
+2. ``idct``: dequantization and libjpeg's integer IDCT of each block into a
+   uint8 component plane: ``jpeg_idct_islow`` (``jidctint.c``) for 8 x 8
+   output, the reduced ``jpeg_idct_4x4`` / ``_2x2`` / ``_1x1``
+   (``jidctred.c``) for 4, 2 and 1, as libjpeg-turbo's x86 SIMD code
+   computes them (see below: the C's integers for any encoder's output,
+   the SIMD's 16-bit arithmetic on crafted coefficients).
+3. ``upsample_color``: each component to the output size (``jdsample.c``:
+   the triangle "fancy" upsamplers h2v1, h1v2 and h2v2 with edge columns
+   and rows replicated, where they apply, else box replication) and
+   YCbCr -> RGB with ``jdcolor.c``'s 16-bit fixed-point tables; uint8
+   [H, W, 3], or [H, W, 1] for a grayscale JPEG.
+
+``decode_jpeg(data, device, scale_denom=d)`` decodes at 1/d scale (d in
+1, 2, 4, 8) as libjpeg does with ``scale_denom`` d (``jdmaster.c``): the
+output is ceil(W / d) x ceil(H / d); each component's IDCT size starts at
+8 / d and doubles while the component's subsampling lets an IDCT of twice
+the size replace upsampling (at 1/2 on 4:2:0 the luma takes the 4 x 4 IDCT,
+the chroma the full 8 x 8 one and no upsampling); fancy upsampling applies
+only where the smallest IDCT size is above 1 and, for h2v1 and h2v2, the
+component is more than 2 samples wide.
+
+Stages 2 and 3 are CUDA kernels (``csrc/jpeg.cu``) for tensors on the card
+and their plain versions (``idct_plain``, ``upsample_color_plain``: integer
+torch, the 16- and 32-bit wraps written out) for tensors on the CPU; both
+compute the same integers, so the card's pixels equal the CPU's bit for
+bit. Each kernel wrapper counts its launches
+in ``LAUNCHES``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import threading
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from jcf_tpu_torch import _build
+
+# launches of the decoder's card work (CUDA tensors only); decoding threads
+# count under a lock
+LAUNCHES = {"jpeg_idct": 0, "jpeg_upsample_color": 0, "resize_crop": 0}
+_launches_lock = threading.Lock()
+# per decoding thread: its CUDA stream per device (``decode_coefficients``)
+_local = threading.local()
+
+
+def count(name: str) -> None:
+    with _launches_lock:
+        LAUNCHES[name] += 1
+
+
+SCALES = (1, 2, 4, 8)
+_ERR_LEN = 256
+
+
+# ---------------------------------------------------------------------------
+# stage 1: the host entropy decoder
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Component:
+    h: int  # sampling factors
+    v: int
+    blocks_w: int  # coded grid in 8 x 8 blocks (whole MCUs)
+    blocks_h: int
+    coefs: torch.Tensor  # int16 [blocks_h, blocks_w, 64], natural order, CPU
+    quant: torch.Tensor  # int32 [64], natural order, CPU
+
+
+@dataclasses.dataclass
+class Coefficients:
+    width: int
+    height: int
+    ycc: bool  # three components in YCbCr (else RGB, or one gray component)
+    progressive: bool
+    components: List[Component]  # their coefs and quant: views of the two below
+    coefs: torch.Tensor  # int16 [every component's blocks, 64], CPU
+    quant: torch.Tensor  # int32 [components, 64], CPU
+
+    @property
+    def max_h(self) -> int:
+        return max(c.h for c in self.components)
+
+    @property
+    def max_v(self) -> int:
+        return max(c.v for c in self.components)
+
+
+def read_coefficients(data: bytes, name: str = "<bytes>") -> Coefficients:
+    """A JPEG's bytes -> its quantized DCT coefficients (host, CPU
+    tensors). Raises ``ValueError`` naming ``name`` for a JPEG the decoder
+    does not take."""
+    lib = _build.load_entropy()
+    info = np.zeros(17, np.int32)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    buf = np.frombuffer(data, np.uint8)
+    handle = lib.jcf_jpeg_open(buf.ctypes.data, buf.size, info.ctypes.data, err, _ERR_LEN)
+    if not handle:
+        raise ValueError(f"{name}: {err.value.decode(errors='replace')}")
+    try:
+        width, height, ncomp, ycc, progressive = (int(v) for v in info[:5])
+        grids = [tuple(int(v) for v in info[5 + 4 * c:9 + 4 * c]) for c in range(ncomp)]
+        total = sum(bw * bh for _, _, bw, bh in grids)
+        coefs = torch.empty((total, 64), dtype=torch.int16)
+        quant = torch.empty((ncomp, 64), dtype=torch.int32)
+        lib.jcf_jpeg_copy(handle, coefs.data_ptr(), quant.data_ptr())
+    finally:
+        lib.jcf_jpeg_close(handle)
+    comps, at = [], 0
+    for c, (h, v, bw, bh) in enumerate(grids):
+        comps.append(Component(h, v, bw, bh, coefs[at:at + bw * bh].view(bh, bw, 64), quant[c]))
+        at += bw * bh
+    return Coefficients(width, height, bool(ycc), bool(progressive), comps, coefs, quant)
+
+
+# ---------------------------------------------------------------------------
+# geometry (jdmaster.c, jdsample.c)
+# ---------------------------------------------------------------------------
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plane:
+    """One component on its way to the output: its IDCT size, its size
+    after the IDCT (``downsampled_width`` / ``_height``), its upsampling
+    factors and method (0 box replication, 1 fancy h2v1, 2 fancy h1v2,
+    3 fancy h2v2)."""
+    size: int
+    width: int
+    height: int
+    fx: int
+    fy: int
+    method: int
+
+
+def geometry(coef: Coefficients, scale_denom: int,
+             name: str = "<bytes>") -> Tuple[int, int, List[Plane]]:
+    """(output width, output height, one ``Plane`` per component) at
+    1/``scale_denom`` scale, as libjpeg sets them up; sampling factors
+    that call for fractional upsampling raise, naming ``name``."""
+    if scale_denom not in SCALES:
+        raise ValueError(f"scale_denom {scale_denom} is not one of {SCALES}")
+    smin = 8 // scale_denom
+    max_h, max_v = coef.max_h, coef.max_v
+    out_w = _ceil_div(coef.width * smin, 8)
+    out_h = _ceil_div(coef.height * smin, 8)
+    do_fancy = smin > 1
+    planes = []
+    for c in coef.components:
+        size = smin  # grow the IDCT instead of upsampling, where the factors allow
+        while (size < 8 and (max_h * smin) % (c.h * size * 2) == 0
+               and (max_v * smin) % (c.v * size * 2) == 0):
+            size *= 2
+        width = _ceil_div(coef.width * c.h * size, max_h * 8)
+        height = _ceil_div(coef.height * c.v * size, max_v * 8)
+        h_in, v_in = c.h * size // smin, c.v * size // smin
+        if max_h % h_in or max_v % v_in:
+            raise ValueError(f"{name}: sampling factors {c.h}x{c.v} in {max_h}x{max_v} call for "
+                             f"fractional upsampling; not supported")
+        fx, fy = max_h // h_in, max_v // v_in
+        method = 0
+        if (fx, fy) == (2, 1) and do_fancy and width > 2:
+            method = 1
+        elif (fx, fy) == (1, 2) and do_fancy:
+            method = 2
+        elif (fx, fy) == (2, 2) and do_fancy and width > 2:
+            method = 3
+        planes.append(Plane(size, width, height, fx, fy, method))
+    return out_w, out_h, planes
+
+
+# ---------------------------------------------------------------------------
+# stage 2: dequantization + IDCT
+# ---------------------------------------------------------------------------
+#
+# libjpeg-turbo runs its IDCTs through x86 SIMD code (jidctint-sse2/avx2,
+# jidctred-sse2) wherever the CPU has SSE2, as PIL's and jcfnative's builds
+# do. Those compute jidctint.c's and jidctred.c's integers wherever every
+# intermediate fits in 16 bits, which is the case for any JPEG an encoder
+# writes from 8-bit samples. Past that (crafted coefficients or tables)
+# they differ from the C, and the decoder follows the SIMD code, since that
+# is what the reference decodes run:
+#
+# - dequantization keeps the low 16 bits of coefficient x table (pmullw;
+#   a 16-bit table entry above 32767 is negative, as ISLOW_MULT_TYPE);
+# - the islow passes add in0 +- in4, in7 + in3 and in5 + in1 in 16 bits
+#   (paddw), every product and the other sums in 32 bits (pmaddwd, paddd);
+# - pass 1's outputs saturate to int16 (packssdw); where a block's AC rows
+#   that pass 1 reads are all zero (rows 1-7 for 8 x 8, 1-3 and 5-7 for
+#   4 x 4), each column's outputs are its dequantized DC << 2 in 16 bits;
+#   the 2 x 2 IDCT has no such test and keeps column 0's pass-1 outputs in
+#   32 bits for pass 2's DC term;
+# - the output saturates to -128..127 (packssdw, packsswb) before the
+#   level shift: a clamp where the C wraps through ``v & RANGE_MASK``.
+#
+# The 1 x 1 "IDCT" has no SIMD version: DESCALE(dc x table, 3) through the C
+# range limit, ``table[v & 1023]`` (a clamp within [-512, 511], a wrap
+# beyond). ``tests/test_torch_jpeg_exact.py`` holds all of it against PIL on
+# random coefficients and tables.
+
+CONST_BITS, PASS1_BITS = 13, 2
+
+
+def _w16(x: torch.Tensor) -> torch.Tensor:
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
+def _w32(x: torch.Tensor) -> torch.Tensor:
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _descale(x: torch.Tensor, n: int) -> torch.Tensor:
+    """paddd of the rounding term, then psrad, on 32-bit values."""
+    return _w32(x + (1 << (n - 1))) >> n
+
+
+def _islow_1d(x, shift: int):
+    """One pass of the islow IDCT over x[0..7] (16-bit values)."""
+    z2, z3 = x[2], x[6]
+    tmp3 = z2 * (4433 + 6270) + z3 * 4433
+    tmp2 = z2 * 4433 + z3 * (4433 - 15137)
+    tmp0 = _w16(x[0] + x[4]) << CONST_BITS
+    tmp1 = _w16(x[0] - x[4]) << CONST_BITS
+    tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    i7, i5, i3, i1 = x[7], x[5], x[3], x[1]
+    s73, s51 = _w16(i7 + i3), _w16(i5 + i1)
+    z3 = s73 * (9633 - 16069) + s51 * 9633
+    z4 = s73 * 9633 + s51 * (9633 - 3196)
+    t0 = i7 * (2446 - 7373) + i1 * -7373 + z3
+    t3 = i7 * -7373 + i1 * (12299 - 7373) + z4
+    t1 = i5 * (16819 - 20995) + i3 * -20995 + z4
+    t2 = i5 * -20995 + i3 * (25172 - 20995) + z3
+    return [_descale(v, shift) for v in (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+                                         tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)]
+
+
+def _red4_1d(x, shift: int):
+    """One pass of the 4 x 4 IDCT (input 4 unused)."""
+    tmp0 = x[0] << (CONST_BITS + 1)
+    tmp2 = x[2] * 15137 + x[6] * -6270
+    tmp10, tmp12 = tmp0 + tmp2, tmp0 - tmp2
+    z1, z2, z3, z4 = x[7], x[5], x[3], x[1]
+    t0 = z1 * -1730 + z2 * 11893 + z3 * -17799 + z4 * 8697
+    t2 = z1 * -4176 + z2 * -4926 + z3 * 7373 + z4 * 20995
+    return [_descale(v, shift) for v in (tmp10 + t2, tmp12 + t0, tmp12 - t0, tmp10 - t2)]
+
+
+def _red2_1d(dc: torch.Tensor, x, shift: int):
+    """One pass of the 2 x 2 IDCT: the DC term ``dc`` (already shifted),
+    the odd inputs x[1], x[3], x[5], x[7]."""
+    t0 = x[7] * -5906 + x[5] * 6967 + x[3] * -10426 + x[1] * 29692
+    return [_descale(dc + t0, shift), _descale(dc - t0, shift)]
+
+
+def _clamp_output(v: torch.Tensor) -> torch.Tensor:
+    return v.clamp(-128, 127) + 128
+
+
+# output size -> (one pass, pass 1's extra descale bits, the AC rows of the zero test)
+_PASSES = {8: (_islow_1d, 0, [1, 2, 3, 4, 5, 6, 7]), 4: (_red4_1d, 1, [1, 2, 3, 5, 6, 7])}
+
+
+def idct_plain(coefs: torch.Tensor, quant: torch.Tensor, size: int) -> torch.Tensor:
+    """Plain version of ``idct``: int16 [bh, bw, 64] coefficients and an
+    int32 [64] table -> uint8 [bh * size, bw * size] (int64 arithmetic
+    with the 16- and 32-bit wraps written out)."""
+    bh, bw, _ = coefs.shape
+    c = coefs.to(torch.int64).view(bh, bw, 8, 8)
+    q = _w16(quant.to(torch.int64)).view(8, 8)
+    p1 = CONST_BITS - PASS1_BITS
+    p2 = CONST_BITS + PASS1_BITS + 3
+    if size == 1:  # C: the product in int, the RANGE_MASK table
+        i = _descale(c[..., 0, 0] * q[0, 0], 3) & 1023
+        out = (torch.where(i < 512, i, i - 1024) + 128).clamp(0, 255).view(bh, bw, 1, 1)
+    elif size == 2:
+        d = _w16(c * q)
+        rows = [d[..., r, :] for r in range(8)]
+        ws = torch.stack(_red2_1d(rows[0] << (CONST_BITS + 2), rows, p1 + 2), dim=-2)
+        ws16 = ws.clamp(-32768, 32767)  # [bh, bw, 2, 8]
+        dc = _w32(ws[..., 0] << (CONST_BITS + 2))
+        out = _clamp_output(torch.stack(
+            _red2_1d(dc, [ws16[..., k] for k in range(8)], p2 + 2), dim=-1))
+    else:
+        one_pass, extra, ac_rows = _PASSES[size]
+        d = _w16(c * q)
+        ws = torch.stack(one_pass([d[..., r, :] for r in range(8)], p1 + extra), dim=-2)
+        ws = ws.clamp(-32768, 32767)  # [bh, bw, size, 8]
+        dc_only = (c[..., ac_rows, :] == 0).flatten(-2).all(-1)
+        dc = _w16(d[..., 0, :] << PASS1_BITS)[..., None, :]
+        ws = torch.where(dc_only[..., None, None], dc, ws)
+        out = _clamp_output(torch.stack(one_pass([ws[..., k] for k in range(8)], p2 + extra),
+                                        dim=-1))
+    return out.permute(0, 2, 1, 3).reshape(bh * size, bw * size).to(torch.uint8)
+
+
+def idct(coefs: torch.Tensor, quant: torch.Tensor, size: int) -> torch.Tensor:
+    """Dequantize and inverse-transform one component: int16 [bh, bw, 64]
+    coefficients (natural order), the int32 [64] table -> the uint8 plane
+    [bh * size, bw * size], size 8 (``jpeg_idct_islow``) or 4, 2, 1 (the
+    reduced IDCTs). The ``jpeg_idct`` kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if size not in (1, 2, 4, 8):
+        raise ValueError(f"IDCT size {size} is not 1, 2, 4 or 8")
+    if not coefs.is_cuda:
+        return idct_plain(coefs, quant, size)
+    bh, bw, n = coefs.shape
+    if coefs.dtype != torch.int16 or n != 64 or quant.dtype != torch.int32 or quant.numel() != 64:
+        raise ValueError(f"idct takes int16 [bh, bw, 64] and int32 [64], got {coefs.dtype} "
+                         f"{tuple(coefs.shape)} and {quant.dtype} {tuple(quant.shape)}")
+    coefs, quant = coefs.contiguous(), quant.to(coefs.device).contiguous()
+    out = torch.empty((bh * size, bw * size), dtype=torch.uint8, device=coefs.device)
+    err = _build.load().jcf_jpeg_idct(coefs.data_ptr(), quant.data_ptr(), bw, bh, size,
+                                      out.data_ptr(), _build.stream_ptr(coefs.device))
+    _build.check(err, "jpeg_idct")
+    count("jpeg_idct")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# stage 3: upsampling + color conversion
+# ---------------------------------------------------------------------------
+
+
+def _upsample_plain(img: torch.Tensor, p: Plane, out_w: int, out_h: int) -> torch.Tensor:
+    """One plane (uint8 [>= p.height, >= p.width]) -> int32 [out_h, out_w]
+    by ``p.method``, edges replicated."""
+    dev = img.device
+    src = img[:p.height, :p.width].to(torch.int32)
+    y = torch.arange(out_h, device=dev)
+    x = torch.arange(out_w, device=dev)
+    if p.method == 0:
+        ys = (y // p.fy).clamp(max=p.height - 1)
+        xs = (x // p.fx).clamp(max=p.width - 1)
+        return src[ys][:, xs]
+    # fancy: the nearer input row (or column) weighs 3/4, the further 1/4
+    if p.method == 1:
+        rows = src[y.clamp(max=p.height - 1)]
+    else:
+        near = (y // 2).clamp(max=p.height - 1)
+        far = torch.where(y % 2 == 0, near - 1, near + 1).clamp(0, p.height - 1)
+        rows = src[near] * 3 + src[far]
+        if p.method == 2:  # h1v2: (3 near + far + 1 or 2) >> 2
+            bias = torch.where(y % 2 == 0, 1, 2).view(-1, 1)
+            return (rows[:, x.clamp(max=p.width - 1)] + bias) >> 2
+    j = (x // 2).clamp(max=p.width - 1)
+    side = torch.where(x % 2 == 0, j - 1, j + 1).clamp(0, p.width - 1)
+    if p.method == 1:  # h2v1: (3 near + far + 1 or 2) >> 2
+        bias = torch.where(x % 2 == 0, 1, 2)
+        return (rows[:, j] * 3 + rows[:, side] + bias) >> 2
+    # h2v2 on the column sums: (3 this + that + 8 or 7) >> 4
+    bias = torch.where(x % 2 == 0, 8, 7)
+    return (rows[:, j] * 3 + rows[:, side] + bias) >> 4
+
+
+def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor) -> torch.Tensor:
+    """``jdcolor.c``'s YCbCr -> RGB on int32 samples: SCALEBITS 16, the
+    tables rounded with ONE_HALF, the sums clamped to 0..255 ->
+    int32 [..., 3]."""
+    cb, cr = cb - 128, cr - 128
+    r = y + ((91881 * cr + 32768) >> 16)
+    g = y + ((-22554 * cb + 32768 - 46802 * cr) >> 16)
+    b = y + ((116130 * cb + 32768) >> 16)
+    return torch.stack([r, g, b], dim=-1).clamp(0, 255)
+
+
+def upsample_color_plain(planes: List[torch.Tensor], geo: List[Plane], out_w: int, out_h: int,
+                         ycc: bool) -> torch.Tensor:
+    """Plain version of ``upsample_color``, in int32."""
+    full = [_upsample_plain(img, p, out_w, out_h) for img, p in zip(planes, geo)]
+    if len(full) == 1:
+        out = full[0].unsqueeze(-1)
+    elif ycc:
+        out = ycc_to_rgb(*full)
+    else:
+        out = torch.stack(full, dim=-1)
+    return out.to(torch.uint8)
+
+
+def upsample_color(planes: List[torch.Tensor], geo: List[Plane], out_w: int, out_h: int,
+                   ycc: bool) -> torch.Tensor:
+    """The IDCT's planes (uint8, one per component) -> uint8 [out_h,
+    out_w, 3] (or [out_h, out_w, 1] for one component): each plane
+    upsampled by its ``Plane``'s method, then YCbCr -> RGB where ``ycc``.
+    The ``jpeg_upsample_color`` kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if len(planes) not in (1, 3) or len(geo) != len(planes):
+        raise ValueError(f"upsample_color takes 1 or 3 planes, got {len(planes)}")
+    if not planes[0].is_cuda:
+        return upsample_color_plain(planes, geo, out_w, out_h, ycc)
+    dev = planes[0].device
+    for img, p in zip(planes, geo):
+        if (img.dtype != torch.uint8 or img.device != dev or not img.is_contiguous()
+                or img.shape[0] < p.height or img.shape[1] < p.width):
+            raise ValueError(f"upsample_color: plane {img.dtype} {tuple(img.shape)} on "
+                             f"{img.device} does not hold {p}")
+    n = len(planes)
+    out = torch.empty((out_h, out_w, n), dtype=torch.uint8, device=dev)
+    ptrs = [img.data_ptr() for img in planes] + [0] * (3 - n)
+    desc = np.zeros((3, 6), np.int32)  # per plane: stride, width, height, fx, fy, method
+    for i, (img, p) in enumerate(zip(planes, geo)):
+        desc[i] = (img.shape[1], p.width, p.height, p.fx, p.fy, p.method)
+    err = _build.load().jcf_jpeg_upsample_color(*ptrs, desc.ctypes.data, n, int(ycc), out_w,
+                                                out_h, out.data_ptr(), _build.stream_ptr(dev))
+    _build.check(err, "jpeg_upsample_color")
+    count("jpeg_upsample_color")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the whole decode
+# ---------------------------------------------------------------------------
+
+
+def _decode_stream(device: torch.device) -> torch.cuda.Stream:
+    streams = _local.__dict__.setdefault("streams", {})
+    if device not in streams:
+        streams[device] = torch.cuda.Stream(device)
+    return streams[device]
+
+
+def _stages(coef: Coefficients, device, out_w: int, out_h: int, geo) -> torch.Tensor:
+    coefs, quant = coef.coefs.to(device), coef.quant.to(device)  # one copy each
+    planes, at = [], 0
+    for i, (c, p) in enumerate(zip(coef.components, geo)):
+        n = c.blocks_h * c.blocks_w
+        planes.append(idct(coefs[at:at + n].view(c.blocks_h, c.blocks_w, 64), quant[i], p.size))
+        at += n
+    return upsample_color(planes, geo, out_w, out_h, coef.ycc)
+
+
+def decode_coefficients(coef: Coefficients, device, scale_denom: int = 1,
+                        name: str = "<bytes>") -> torch.Tensor:
+    """Stages 2 and 3 on ``device``: uint8 [ceil(H / d), ceil(W / d), C]
+    (C = 3, or 1 for a grayscale JPEG).
+
+    On a CUDA device they run on the calling thread's own stream, which
+    the caller's current stream then waits for: the copy of the
+    coefficients from pageable host memory blocks the host, and on the
+    caller's stream it would wait for every kernel queued there before it
+    (the serving thread's, while ``--perf`` decodes the next batch)."""
+    device = torch.device(device)
+    out_w, out_h, geo = geometry(coef, scale_denom, name)
+    if device.type != "cuda":
+        return _stages(coef, device, out_w, out_h, geo)
+    caller, stream = torch.cuda.current_stream(device), _decode_stream(device)
+    with torch.cuda.stream(stream):  # the inputs come from the host: nothing to wait for
+        out = _stages(coef, device, out_w, out_h, geo)
+    caller.wait_stream(stream)
+    out.record_stream(caller)  # freed after the caller's use, not before
+    return out
+
+
+def decode_jpeg(data: bytes, device="cuda", *, scale_denom: int = 1,
+                name: str = "<bytes>") -> torch.Tensor:
+    """A JPEG's bytes -> uint8 [H, W, C] on ``device`` (C = 3, or 1 for a
+    grayscale JPEG), bit for bit libjpeg-turbo's decode with its defaults
+    at 1/``scale_denom`` scale. Raises ``ValueError`` naming ``name`` for
+    a JPEG the decoder does not take; nothing falls back to another
+    decoder."""
+    return decode_coefficients(read_coefficients(data, name), device, scale_denom, name)

@@ -8,19 +8,16 @@ Two paths, as in the JAX package:
 
 - the parity path (``tta.device_crops`` False, the default configuration,
   the reference preset: 512 + 1 crops, f32): images decode on ``device``
-  (nvJPEG on the card), the center view and the seeded crops come from
-  the PIL-exact transforms of ``data.transforms``, and the engine encodes
-  them with ``features_from_crops``. On the CPU JPEGs decode with PIL,
-  as in the JAX package, and the split files equal its files byte for
-  byte. On the card nvJPEG's pixels differ from PIL's decode by a few
-  levels (up to 9 on the committed fixtures), so the crops start from
-  other pixels and an image near a decision boundary can land in the
-  other file: the files match the JAX package's only up to that
-  difference;
+  (``data.decode``: PIL's pixels, byte for byte, on the card as on the
+  CPU), the center view and the seeded crops come from the PIL-exact
+  transforms of ``data.transforms``, and the engine encodes them with
+  ``features_from_crops``; the split files equal the JAX package's byte
+  for byte on the CPU;
 - the throughput path (``tta.device_crops``, ``--perf``): square sources
-  from ``data.decode.decode_batch`` (nvJPEG, the triangle resize and the
-  center crop on the card), decoded one chunk ahead in a second thread
-  while the card serves the current chunk, and ``features_from_images``
+  from ``data.decode.decode_batch`` (libjpeg's decode at its reduced
+  scale, the triangle resize and the center crop, on the card), decoded
+  one chunk ahead in a second thread while the card serves the current
+  chunk, and ``features_from_images``
   with crop geometry sampled on the card. With ``runtime.static_quant``
   the int8 engine is built on the first decoded batch, which calibrates
   its static activation scales. The geometry comes from one
@@ -110,7 +107,8 @@ def run_ood_split(cfg: PipelineConfig, *, device="cuda", timer: Optional[Timer] 
             with ThreadPoolExecutor(max_workers=1) as pool:
                 fut = pool.submit(decode, chunks[0]) if chunks else None
                 for i in range(len(chunks)):
-                    # the decode thread launches on the same (default) stream
+                    # the decode thread's images are ordered on the default
+                    # stream (``data.jpeg`` waits its own stream into it)
                     with timer.phase("decode_wait"):
                         impaths, images = fut.result()
                     if i + 1 < len(chunks):

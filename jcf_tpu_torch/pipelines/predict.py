@@ -28,10 +28,9 @@ the f32 compute dtype it raises). Under ``_FUSE`` = "block", "layer" or
 
 Everything runs on ``device`` (the CUDA card unless the caller asks for
 the CPU; on the card f32 products need TF32 off, ``ops.layers.
-require_f32_products``). The loaders decode with nvJPEG on the card and
-PIL on the CPU, so on the CPU the files equal the JAX package's byte for
-byte; on the card nvJPEG's pixels differ from PIL's by a few levels, and
-an image near a decision boundary can change its top 5.
+require_f32_products``). The loaders decode JPEGs to PIL's pixels byte for
+byte on every device (``data.decode``), and on the CPU the files equal the
+JAX package's byte for byte.
 """
 
 from __future__ import annotations

@@ -980,3 +980,19 @@ def test_odd_head_and_64_token_towers_on_the_card(cuda, width, s):
     attn = "masked_attention_f32" if h % 2 else "attention_scaled_f32"
     assert launched[attn] == 4 and "cls_attention_scaled_f32" not in launched
     assert launched["head_attention" if h % 2 else "pair_attention_bf16"] == 2
+
+
+@pytest.mark.parametrize("rows", [1, 37, 800])
+def test_copy_add_one_and_its_chains(cuda, rows):
+    """Probe P4's kernel: x + 1 in bf16 equal to the plain version bit for
+    bit, eagerly and in a chain captured in one CUDA graph."""
+    from jcf_tpu_torch.scripts import exp_boundary_cost as p4
+
+    x = (torch.randn(rows, 768, device=cuda) * 300).to(torch.bfloat16)
+    assert torch.equal(p4.copy_add_one(x), p4.copy_add_one_plain(x))
+    replay, out = p4.graph_chain(x, 3)
+    replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, p4.chain(x, 3, p4.copy_add_one_plain))
+    with pytest.raises(ValueError):
+        p4.copy_add_one(x.float())

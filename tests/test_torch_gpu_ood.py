@@ -1,7 +1,8 @@
 """``jcf-ood``'s card pieces on an NVIDIA GPU: K9b in f32 (``block_f32``)
-against its plain version, the nvJPEG decode and the resize + crop
-kernel against the committed references, the PIL-exact transforms on
-the card against the same functions on the CPU.
+against its plain version, the JPEG decode (PIL's bytes at every scale,
+``tests/fixtures/jpeg/libjpeg_sha256.json``) and the resize + crop kernel
+against the committed references, the PIL-exact transforms on the card
+against the same functions on the CPU.
 
 Marked ``gpu``: each test skips where no CUDA device is present. The file
 imports neither JAX, ``jcf_tpu`` nor PIL, so it also runs on the card's
@@ -77,27 +78,60 @@ def test_block_f32_refuses_what_it_does_not_take(cuda):
 
 
 def test_decode_matches_the_committed_references(cuda):
+    """The full-size decode + resize within one level of PIL's decode +
+    the plain resize (``pil_256``), ``decode_batch`` within one level of
+    ``jcf_tpu.native``'s output (``pil_256`` + ``delta``): the resize
+    kernel's f32 sums are the one difference."""
     refs = np.load(os.path.join(FIXTURES, "native_minus_pil.npz"))
     for name, delta in zip(refs["names"], refs["delta"]):
         name = str(name)
+        path = os.path.join(FIXTURES, name)
         with open(os.path.join(FIXTURES, "pil_256", name[:-4] + ".png"), "rb") as f:
             pil = dec.decode_png(f.read()).astype(np.int16)
-        got = dec.decode_batch([os.path.join(FIXTURES, name)], device=cuda, uint8=True)
-        got = got[0].cpu().numpy().astype(np.int16)
-        for ref in (pil, pil + delta):
-            d = np.abs(got - ref)
-            assert d.max() <= 16 and d.mean() <= 1.5, (name, d.max(), d.mean())
+        full = dec.resize_crop(dec.decode_file(path, cuda), 256, 256).cpu().numpy()
+        batch = dec.decode_batch([path], device=cuda, uint8=True)[0].cpu().numpy()
+        for got, ref in ((full, pil), (batch, pil + delta)):
+            d = np.abs(got.astype(np.int16) - ref)
+            assert d.max() <= 1 and (d > 0).mean() <= 1e-3, (name, d.max(), (d > 0).mean())
+
+
+def test_decode_hashes_at_every_scale(cuda):
+    """Every committed JPEG decoded on the card at every scale PIL's draft
+    reaches hashes to PIL's decode, and each decoder kernel equals its
+    plain version bit for bit."""
+    import hashlib
+    import json
+
+    from jcf_tpu_torch.data import jpeg
+
+    with open(os.path.join(FIXTURES, "libjpeg_sha256.json")) as f:
+        refs = json.load(f)["images"]
+    for rel, scales in refs.items():
+        with open(os.path.join(FIXTURES, rel), "rb") as f:
+            coef = jpeg.read_coefficients(f.read(), rel)
+        for scale, ref in scales.items():
+            out_w, out_h, geo = jpeg.geometry(coef, int(scale))
+            cq = [(c.coefs.to(cuda), c.quant.to(cuda)) for c in coef.components]
+            planes = [jpeg.idct(c, q, p.size) for (c, q), p in zip(cq, geo)]
+            for (c, q), p, plane in zip(cq, geo, planes):
+                assert torch.equal(plane, jpeg.idct_plain(c, q, p.size)), (rel, scale)
+            img = jpeg.upsample_color(planes, geo, out_w, out_h, coef.ycc)
+            assert torch.equal(img, jpeg.upsample_color_plain(planes, geo, out_w, out_h,
+                                                              coef.ycc)), (rel, scale)
+            x = img.cpu().numpy()
+            x = np.repeat(x, 3, axis=2) if x.shape[2] == 1 else x
+            assert list(x.shape) == ref["shape"], (rel, scale)
+            assert hashlib.sha256(x.tobytes()).hexdigest() == ref["sha256"], (rel, scale)
 
 
 def test_decode_in_a_thread_while_the_card_is_busy(cuda):
-    """nvJPEG reuses its state's buffers on the next call; decoded back to
-    back while the stream is busy, images must still equal their decode
-    alone."""
+    """Decoded back to back in a second thread while the stream is busy,
+    images must still equal their decode alone."""
     paths = [os.path.join(FIXTURES, f) for f in sorted(os.listdir(FIXTURES))
              if f.endswith(".jpg")] * 16
     ref = []
     for p in paths:
-        ref.append(dec.resize_crop(dec.decode_file(p, cuda), 256, 256))
+        ref.append(dec.decode_batch([p], device=cuda, uint8=True)[0])
         torch.cuda.synchronize()
     got = []
     worker = threading.Thread(target=lambda: got.append(dec.decode_batch(paths, device=cuda,
