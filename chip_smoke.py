@@ -219,7 +219,17 @@
    the boundary overhead; the kernel against its plain version. P5
    (``profile_halves``): K3 and K4 of the seed-0 ViT-B/32's layer 0
    (unfolded, dynamic) at b1024 x 50, each half's ms against its bound
-   and split into its stages (CUDA events around each).
+   and split into its stages (CUDA events around each). P3
+   (``exp_batched_dot``): attention over 12,288 heads of [56, 64] bf16 on
+   the tensor cores and in the CUDA-core row loop, each against the plain
+   version (K8's bf16 bar), SDPA as the yardstick. P1 (``exp_w4a8``): one
+   MLP half at 409,600 rows with int8 weights (the K4 kernels), int4
+   weights read by the w4a8 GEMM, and int4 weights unpacked once: the
+   three outputs equal bit for bit; each new kernel against its plain
+   version, the int8 half against the plain ``_mlp_math``. P2
+   (``exp_patch_regroup``): the im2col regroup of 512 planes of 224², f32
+   and int8, by strategies A, B and C, each equal to the plain copy bit
+   for bit.
 
 Every weight and input is made from seed 0 (the LoRA factors from seed
 1, as ``scripts/bench_train.py``). Exits nonzero, without the
@@ -388,6 +398,21 @@ KERNELS = {
     # probe P4, phase 15
     "copy_add_one": ("probe_p4", "jcf_tpu_torch/csrc/copy_add_one.cu",
                      "scripts/exp_boundary_cost.py:29"),
+    # probes P3, P1 and P2, phase 15c-e (P1's int8 variant, k_int8, runs the
+    # K4 kernels above: ln_quant, int8_gemm_gelu_quant, int8_gemm_residual)
+    "batched_dot_mma": ("probe_p3", "jcf_tpu_torch/csrc/batched_dot.cu",
+                        "scripts/exp_batched_dot.py:35"),
+    "batched_dot_loop": ("probe_p3", "jcf_tpu_torch/csrc/batched_dot.cu",
+                         "scripts/exp_batched_dot.py:52"),
+    "w4a8_gemm_gelu_quant": ("probe_p1", "jcf_tpu_torch/csrc/w4a8.cu", "scripts/exp_w4a8.py:87"),
+    "w4a8_gemm_residual": ("probe_p1", "jcf_tpu_torch/csrc/w4a8.cu", "scripts/exp_w4a8.py:87"),
+    "unpack_int4": ("probe_p1", "jcf_tpu_torch/csrc/w4a8.cu", "scripts/exp_w4a8.py:93"),
+    "patch_regroup_a": ("probe_p2", "jcf_tpu_torch/csrc/patch_regroup.cu",
+                        "scripts/exp_patch_regroup.py:28"),
+    "patch_regroup_b": ("probe_p2", "jcf_tpu_torch/csrc/patch_regroup.cu",
+                        "scripts/exp_patch_regroup.py:34"),
+    "patch_regroup_c": ("probe_p2", "jcf_tpu_torch/csrc/patch_regroup.cu",
+                        "scripts/exp_patch_regroup.py:42"),
 }
 
 
@@ -4166,6 +4191,115 @@ def probes_phase(smi, dev) -> tuple:
     return launches, ph.results
 
 
+def probe_kernels_phase(smi, dev) -> tuple:
+    """15c-15e: the probes P3, P1 and P2 of ``jcf_tpu_torch/scripts`` at
+    full size, each script's ``run`` counted (the main path), then each new
+    kernel against its plain version. P3 (``exp_batched_dot``): 12,288
+    heads of [56, 64] bf16 through ``batched_dot_mma`` and
+    ``batched_dot_loop`` (K8's bf16 bar), SDPA as the yardstick. P1
+    (``exp_w4a8``): the MLP half at 409,600 rows, int8 (the K4 kernels),
+    w4_step and w4_cache, equal bit for bit inside ``run``; the w4a8 GEMMs
+    at c_fc's and c_proj's shapes, ``unpack_int4``, and the int8 variant
+    against the plain ``_mlp_math``. P2 (``exp_patch_regroup``): the three
+    strategies over 512 planes of 224² in f32 and int8, bit for bit, the
+    plain copy as the yardstick -> ({path: launches}, results)."""
+    import torch
+
+    from jcf_tpu_torch.ops import block_kernel as bk
+    from jcf_tpu_torch.ops import int8_gemm as ig
+    from jcf_tpu_torch.scripts import exp_batched_dot as p3
+    from jcf_tpu_torch.scripts import exp_patch_regroup as p2
+    from jcf_tpu_torch.scripts import exp_w4a8 as p1
+
+    launches, ph = {}, Phase()
+    log("phase 15c: probe P3 (python -m jcf_tpu_torch.scripts.exp_batched_dot)")
+    r3, launches["probe_p3"] = count_forward([p3.LAUNCHES], lambda: p3.run(device=dev))
+    mma, loop = r3["batched"]["ms"], r3["loop"]["ms"]
+    log(f"  P3: launches {launches['probe_p3']}; tensor cores {mma:.4f} ms, CUDA-core loop "
+        f"{loop:.4f} ms ({loop / mma:.1f}x), SDPA {r3['library_ms']:.4f} ms "
+        f"({mma / r3['library_ms']:.2f}x of it), bound {r3['bound_ms']:.4f} ms; on {smi}")
+    q, k, v = p3.inputs(p3.GRID * p3.GROUP * p3.H, dev, seed=1)
+    slack = 2.0**-7 * torch.matmul(p3.probs(q, k), v.float().abs())
+    work3 = bound(*p3.work(q.shape[0], p3.S, p3.D), PEAK_BF16)
+    for name, fn in (("batched_dot_mma", p3.batched_dot_mma),
+                     ("batched_dot_loop", p3.batched_dot_loop)):
+        ph.run(name, lambda: fn(q, k, v), lambda: p3.batched_dot_plain(q, k, v),
+               lambda n, a, b: check_bf16(n, a, b, slack), work3,
+               library=lambda: p3.sdpa(q, k, v))
+    del q, k, v, slack
+    torch.cuda.empty_cache()
+
+    log("phase 15d: probe P1 (python -m jcf_tpu_torch.scripts.exp_w4a8)")
+    r1, launches["probe_p1"] = count_forward([p1.LAUNCHES, bk.LAUNCHES, ig.LAUNCHES],
+                                             lambda: p1.run(device=dev))
+    int8_ms = r1["int8"]["ms"]
+    log(f"  P1: launches {launches['probe_p1']}; int8 {int8_ms:.4f} ms, w4_step "
+        f"{r1['w4_step']['ms']:.4f} ms ({r1['w4_step']['ms'] - int8_ms:+.4f}), w4_cache "
+        f"{r1['w4_cache']['ms']:.4f} ms ({r1['w4_cache']['ms'] - int8_ms:+.4f}), bound "
+        f"{r1['bound_ms']:.4f} ms, _int_mm* {r1['library_ms']:.4f} ms; on {smi}")
+    wfc_np, wproj_np = p1.weights(1)
+    wfc, wproj = torch.from_numpy(wfc_np).to(dev), torch.from_numpy(wproj_np).to(dev)
+    wfc4, wproj4 = p1.pack(wfc_np).to(dev), p1.pack(wproj_np).to(dev)
+    c = p1.constants(dev)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((p1.ROWS, p1.E), np.float32))
+    x = x.to(dev, torch.bfloat16)
+    x_q = bk.ln_quant(x, c["ln_inv"])
+    h_q = ph.run("w4a8_gemm_gelu_quant",
+                 lambda: p1.w4a8_gemm_gelu_quant(x_q, wfc4, c["fc_scale"], c["fc_bias"],
+                                                 c["gelu_c"]),
+                 lambda: p1.w4a8_gemm_gelu_quant_plain(x_q, wfc4, c["fc_scale"], c["fc_bias"],
+                                                       c["gelu_c"]),
+                 lambda n, a, b: check_int8(n, a, b, 1e-3),
+                 bound(nbytes(x_q, wfc4, c["fc_scale"], c["fc_bias"]) + x_q.shape[0] * p1.HID,
+                       2 * x_q.shape[0] * p1.E * p1.HID, PEAK_INT8),
+                 lambda: torch._int_mm(x_q, wfc.T))
+    ph.run("w4a8_gemm_residual",
+           lambda: p1.w4a8_gemm_residual(h_q, wproj4, c["proj_scale"], c["proj_bias"], x),
+           lambda: p1.w4a8_gemm_residual_plain(h_q, wproj4, c["proj_scale"], c["proj_bias"], x),
+           check_bf16,
+           bound(nbytes(h_q, wproj4, c["proj_scale"], c["proj_bias"], x, x),
+                 2 * h_q.shape[0] * p1.E * p1.HID, PEAK_INT8),
+           lambda: torch._int_mm(h_q, wproj.T))
+    wfc8, wproj8 = p1.unpack_int4(wfc4), p1.unpack_int4(wproj4)
+    cost = [(name, ph.results[name]["ms"], time_ms(fn)) for name, fn in (
+        ("w4a8_gemm_gelu_quant", lambda: ig.int8_gemm_gelu_quant(x_q, wfc8, c["fc_scale"],
+                                                                 c["fc_bias"], c["gelu_c"])),
+        ("w4a8_gemm_residual", lambda: ig.int8_gemm_residual(h_q, wproj8, c["proj_scale"],
+                                                             c["proj_bias"], x)))]
+    log("  P1: the unpack in the load path costs " + ", ".join(
+        f"{name} {w4:.4f} ms against the int8 GEMM's {i8:.4f} ms on the unpacked weight "
+        f"({w4 - i8:+.4f})" for name, w4, i8 in cost) + f"; on {smi}")
+    ph.run("unpack_int4", lambda: p1.unpack_int4(wfc4), lambda: p1.unpack_int4_plain(wfc4),
+           check_equal, bound(3 * nbytes(wfc4), 2 * wfc.numel(), PEAK_F32))
+    for name, fn in (("w4_step", lambda: p1.mlp_w4_step(x, wfc4, wproj4, c)),
+                     ("w4_cache", lambda: p1.mlp_w4_cache(x, wfc4, wproj4, c))):
+        if not torch.equal(fn(), p1.mlp_int8(x, wfc, wproj, c)):
+            raise AssertionError(f"P1 {name} differs from the int8 variant")
+    log("  P1: w4_step and w4_cache equal to int8 bit for bit on a second input")
+    check_composed("P1 int8 (K4 kernels) vs the plain _mlp_math",
+                   p1.mlp_int8(x, wfc, wproj, c), p1.mlp_w4a8_plain(x, wfc, wproj, c),
+                   lambda: p1.mlp_int8(x, wfc, wproj, c),
+                   lambda: p1.mlp_w4a8_plain(x, wfc, wproj, c))
+    del x, x_q, h_q, wfc, wproj, wfc4, wproj4, wfc8, wproj8
+    torch.cuda.empty_cache()
+
+    log("phase 15e: probe P2 (python -m jcf_tpu_torch.scripts.exp_patch_regroup)")
+    r2, launches["probe_p2"] = count_forward([p2.LAUNCHES], lambda: p2.run(device=dev))
+    for tag, r in r2.items():
+        log(f"  P2 {tag}: " + ", ".join(f"{s.upper()} {r[s]:.4f} ms" for s in p2.STRATEGIES)
+            + f", plain copy {r['plain']:.4f} ms, bound {r['bound_ms']:.4f} ms; on {smi}")
+    for tag, dt in p2.DTYPES.items():
+        x = p2.planes(p2.PLANES, dt, dev, seed=1)
+        for s in p2.STRATEGIES:
+            ph.run(f"patch_regroup_{s}" + ("" if tag == "f32" else f"_{tag}"),
+                   lambda: p2.patch_regroup(x, s), lambda: p2.patch_regroup_plain(x),
+                   check_equal, bound(2 * nbytes(x), 0, PEAK_F32),
+                   library=lambda: p2.patch_regroup_plain(x))
+        del x
+    torch.cuda.empty_cache()
+    return launches, ph.results
+
+
 def main() -> int:
     import torch
 
@@ -4375,9 +4509,11 @@ def main() -> int:
                                                smi, dev)
     results.update(results_k9m)
 
-    # phase 15 (last): the probes P4 and P5 at full size
+    # phase 15 (last): the probes P4, P5, P3, P1 and P2 at full size
     launches_p4, results_p4 = probes_phase(smi, dev)
     results.update(results_p4)
+    launches_probes, results_probes = probe_kernels_phase(smi, dev)
+    results.update(results_probes)
     launches = {"serving": launches_srv, "classifier": launches_cls, "training": launches_trn,
                 "serving_b16": launches_b16, "serving_block": launches_fused["block"],
                 "serving_layer": launches_fused["layer"],
@@ -4388,7 +4524,7 @@ def main() -> int:
                 "classifier_int8_f32": launches_cls_int8["float32"],
                 "classifier_int8_bf16": launches_cls_int8["bfloat16"],
                 "tower_unfolded": launches_unf, "tower_odd_heads_bf16": launches_odd,
-                **launches_ood, "probe_p4": launches_p4, **launches_k9m, **launches_288, **launches_unf_k9,
+                **launches_ood, "probe_p4": launches_p4, **launches_probes, **launches_k9m, **launches_288, **launches_unf_k9,
                 **launches_small_k9,
                 "classifier_int8_block_f32": {"block_int8/masked_f32":
                                               launches_cls_k9["float32"]["block_int8"]},

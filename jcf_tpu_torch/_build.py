@@ -66,6 +66,11 @@ SIGNATURES = {
     "jcf_jpeg_upsample_color": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "jcf_resize_crop": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
     "jcf_copy_add_one": [_P, _P, ctypes.c_longlong, _P],
+    "jcf_batched_dot_mma": [_P, _P, _P, _P, _I, _I, _P],
+    "jcf_batched_dot_loop": [_P, _P, _P, _P, _I, _I, _P],
+    "jcf_w4a8_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "jcf_unpack_int4": [_P, _P, _I, _I, _P],
+    "jcf_patch_regroup": [_P, _P, _I, _I, _I, _I, _I, _P],
 }
 # C entries that return something other than a cudaError_t
 RESTYPES = {"jcf_int8_xq_scratch": ctypes.c_longlong, "jcf_block_bf16_scratch": ctypes.c_longlong,

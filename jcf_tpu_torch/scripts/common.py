@@ -14,6 +14,14 @@ PEAK_INT8 = 1979e12
 PEAK_BF16 = 989e12
 
 
+def bound_ms(n_bytes: float, ops: float = 0.0, peak_ops: float = 1.0):
+    """The least time the card could take for the work -> (ms, what bounds
+    it): the larger of ``n_bytes`` over ``PEAK_BYTES`` and ``ops`` over
+    ``peak_ops``, the peak for their type."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, ops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def card_line(device) -> str:
     """``nvidia-smi --query-gpu=name,power.limit`` for a CUDA device; for
     the CPU a line that says no card ran."""

@@ -996,3 +996,77 @@ def test_copy_add_one_and_its_chains(cuda, rows):
     assert torch.equal(out, p4.chain(x, 3, p4.copy_add_one_plain))
     with pytest.raises(ValueError):
         p4.copy_add_one(x.float())
+
+
+@pytest.mark.parametrize("b,s", [(5, 56), (37, 17), (9, 64)])
+def test_batched_dot_kernels(cuda, b, s):
+    """Probe P3's kernels, tensor cores and the CUDA-core loop, against the
+    plain version at K8's bf16 bar (1 ulp + 1e-3 + 2^-7 sum_j p_j |v_j|)."""
+    from jcf_tpu_torch.scripts import exp_batched_dot as p3
+
+    q, k, v = p3.inputs(b, cuda, seed=b + s, s=s)
+    ref = p3.batched_dot_plain(q, k, v)
+    slack = 2.0**-7 * torch.matmul(p3.probs(q, k), v.float().abs())
+    for fn in (p3.batched_dot_mma, p3.batched_dot_loop):
+        p3.check_close(fn(q, k, v), ref, slack)
+    with pytest.raises(ValueError):
+        p3.batched_dot_mma(q.float(), k, v)
+
+
+@pytest.mark.parametrize("m,n,k", [(200, 72, 128), (130, 768, 3072), (1000, 3072, 768)])
+def test_w4a8_gemm_and_unpack(cuda, m, n, k):
+    """Probe P1's kernels: the unpack equal to the plain one, and the GEMM
+    on packed weights equal bit for bit to the int8 GEMM on the unpacked
+    ones, with both epilogues."""
+    import numpy as np
+
+    from jcf_tpu_torch.scripts import exp_w4a8 as p1
+
+    rng = np.random.default_rng(m + n + k)
+    w4 = p1.pack(rng.integers(-8, 8, (n, k)).astype(np.int8)).to(cuda)
+    w = p1.unpack_int4(w4)
+    assert torch.equal(w, p1.unpack_int4_plain(w4))
+    a = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(cuda)
+    scale = torch.from_numpy(rng.random(n, np.float32) * 1e-3).to(cuda)
+    bias = torch.from_numpy(rng.standard_normal(n, np.float32)).to(cuda)
+    resid = torch.from_numpy(rng.standard_normal((m, n), np.float32)).to(cuda, torch.bfloat16)
+    c = torch.tensor(0.0851, device=cuda)
+    assert torch.equal(p1.w4a8_gemm_gelu_quant(a, w4, scale, bias, c),
+                       ig.int8_gemm_gelu_quant(a, w, scale, bias, c))
+    assert torch.equal(p1.w4a8_gemm_residual(a, w4, scale, bias, resid),
+                       ig.int8_gemm_residual(a, w, scale, bias, resid))
+    with pytest.raises(ValueError):
+        p1.w4a8_gemm_residual(a[:, :64], w4, scale, bias, resid)
+
+
+def test_w4a8_mlp_variants(cuda):
+    """Probe P1's three MLP halves equal to each other bit for bit, and
+    the int8 one within the int8 bars of the plain ``_mlp_math``."""
+    from jcf_tpu_torch.scripts import exp_w4a8 as p1
+
+    wfc_np, wproj_np = p1.weights(3)
+    wfc, wproj = torch.from_numpy(wfc_np).to(cuda), torch.from_numpy(wproj_np).to(cuda)
+    wfc4, wproj4 = p1.pack(wfc_np).to(cuda), p1.pack(wproj_np).to(cuda)
+    c = p1.constants(cuda)
+    x = torch.randn(1700, p1.E, device=cuda, generator=torch.Generator(device=cuda).manual_seed(3))
+    x = x.to(torch.bfloat16)
+    out = p1.mlp_int8(x, wfc, wproj, c)
+    assert torch.equal(p1.mlp_w4_step(x, wfc4, wproj4, c), out)
+    assert torch.equal(p1.mlp_w4_cache(x, wfc4, wproj4, c), out)
+    ref = p1.mlp_w4a8_plain(x, wfc, wproj, c)
+    g, r = out.float(), ref.float()
+    d = (g - r).abs()
+    assert float((d > 2.0**-7 * g.abs().maximum(r.abs()) + 1e-3).float().mean()) <= 2e-2
+    assert bool((d <= 0.05 + 0.05 * r.abs()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("n,side,patch", [(3, 224, 32), (5, 64, 16), (2, 96, 32)])
+def test_patch_regroup_kernels(cuda, dtype, n, side, patch):
+    """Probe P2's three strategies equal to the plain regroup bit for bit."""
+    from jcf_tpu_torch.scripts import exp_patch_regroup as p2
+
+    x = p2.planes(n, dtype, cuda, seed=n, side=side)
+    ref = p2.patch_regroup_plain(x, patch)
+    for s in p2.STRATEGIES:
+        assert torch.equal(p2.patch_regroup(x, s, patch), ref), s
