@@ -48,24 +48,6 @@ constexpr int HEAD_SMEM = 3 * BD_SP * BD_LD;  // q, k, v of one head (bf16 eleme
 constexpr int LOOP_HEADS = 8;    // heads a block, in sequence
 constexpr int LOOP_THREADS = 256;
 
-__device__ __forceinline__ unsigned ld_u32(const bf16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// four 8 x 8 bf16 matrices, transposed: thread t gives the address of row
-// (t & 7) of matrix t >> 3
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
 __global__ void __launch_bounds__(MMA_THREADS) batched_dot_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ o, int B, int S) {

@@ -75,6 +75,35 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// two adjacent bf16 as one 32-bit fragment register
+__device__ __forceinline__ unsigned ld_u32(const bf16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// four 8 x 8 bf16 matrices from shared memory: thread t gives the address
+// of row (t & 7) of matrix t >> 3; r[i] is matrix i's fragment (thread t:
+// row t >> 2, columns 2 (t & 3) and 2 (t & 3) + 1)
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// the same, transposed: thread t holds rows 2 (t & 3), 2 (t & 3) + 1 of
+// column t >> 2
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
 // round half to even, saturate to [-127, 127]
 __device__ __forceinline__ int8_t round_clip_int8(float x) {
   return (int8_t)fminf(fmaxf(rintf(x), -127.0f), 127.0f);

@@ -10,6 +10,7 @@
 // the GEMMs with fused epilogues (bf16_gemm.cu on the tensor cores for
 // bf16, f32_gemm.cu on the CUDA cores for f32). Every intermediate
 // between them is in the compute dtype T (bf16 or f32).
+#include "attn_mma.cuh"
 #include "common.cuh"
 #include "pair_attention.cuh"
 
@@ -179,48 +180,146 @@ __global__ void __launch_bounds__(CA_WARPS * 32) masked_attention_kernel(
 //
 // Replaces the attention section of _attn_half_kernel on the float vision
 // towers (_batched_attention -> _paired_attention_nomask, no post_scale,
-// no score shift, the tree unfolded): the row loop of pair_attention.cuh
-// with the scale 1/sqrt(d) after the f32 sums, p rounded to T, and the
-// context written in T. The pair shift is floored at 0 where the TPU pads
-// the keys (S not a multiple of 8: zeroed pad keys score 0); at a
-// multiple of 8 there are no pad keys and no floor.
+// no score shift, the tree unfolded), per crop and head pair (lo, hi):
+//   s   = (q . k) * 1/sqrt(d)           (f32 sums, then the scale)
+//   m   = max(floor, max over both heads' real keys of s)
+//   p   = T(exp(s - m)),  l = sum_j p   (per head, f32 sums of the rounded p)
+//   ctx = T(sum_j p_j v_j * (1 / max(l, 1e-30)))
+// The pair shift is floored at 0 where the TPU pads the keys (S not a
+// multiple of 8: zeroed pad keys score 0); at a multiple of 8 there are
+// no pad keys and no floor.
 //
-// Bound on the H100: at S = 50, D = 64 a pair's work is small next to a
-// tensor-core pipeline, so it runs on the CUDA cores like K3's attention.
-// Shared memory: kT and v of the pair (2 S 2D sizeof(T)), each warp's q
-// row (8 x 2D sizeof(T)), p (8 x 2 S x 4 B). q stays in device memory and
-// each warp copies its current row: staging q for the whole pair as well
-// would take 3 x 127 x 128 x 4 = 195,072 B in f32 at S = 127, one block
-// per SM. Without it: 142,272 B in f32 and 75,200 B in bf16 at S = 127;
-// 58,496 B (3 blocks an SM) and 30,848 B at S = 50.
+// Bound on the H100: bytes. At the bf16 parity engine's 8192 crops x 50
+// tokens a pair reads q, k, v and writes the context, 4 x 50 x 128 x 2 B,
+// against 4 x 50 x 50 x 128 flop of products: 25 flop a byte, far under
+// the bf16 ridge point (295).
+//
+// bf16 (D = 64): pair_attention_mma_kernel, on the tensor cores
+// (attn_mma.cuh). A unit is one (crop, pair); a block holds PM_UNITS
+// units, four warps each. The block stages each unit's K and V, [64 or
+// 128 keys, 128] bf16 for both heads, with 16-byte cp.async from the
+// packed [crops * S, 3E] rows (rows past S zero-filled). A warp takes a
+// 16-row query tile of both heads: its q fragments from device memory,
+// both heads' scores in registers (2 x 8 n8 tiles up to 64 keys, 2 x 16
+// up to 127), the pair shift as the max over both heads' registers, the
+// quad shuffle, then the floor; the rounded p go straight into PV's A
+// fragments (V through ldmatrix.trans) and each head's context leaves in
+// 16-byte stores of packed rows.
+//
+// f32: pair_attention_kernel, the row loop of pair_attention.cuh on the
+// CUDA cores (the port refuses TF32 for f32 products). Shared memory: kT
+// and v of the pair (2 S 2D x 4 B), each warp's q row (8 x 2D x 4 B), p
+// (8 x 2 S x 4 B). q stays in device memory and each warp
+// copies its current row: staging q for the whole pair as well would take
+// 3 x 127 x 128 x 4 = 195,072 B at S = 127, one block per SM. Without it:
+// 142,272 B at S = 127, 58,496 B (3 blocks an SM) at S = 50.
 
 constexpr int PA_WARPS = 8;
 
-template <int KB, typename T>
+template <int KB>
 __global__ void __launch_bounds__(PA_WARPS * 32) pair_attention_kernel(
-    const T* __restrict__ qkv,  // [n_crops * S, 3E]
-    T* __restrict__ out,        // [n_crops * S, E]
+    const float* __restrict__ qkv,  // [n_crops * S, 3E]
+    float* __restrict__ out,        // [n_crops * S, E]
     int S, int H, int D, float scale, float m_floor) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int E = H * D, D2 = 2 * D, n_pairs = H / 2;
   const int pair = blockIdx.x % n_pairs;
   const long long crop = blockIdx.x / n_pairs;
-  T* kt_s = reinterpret_cast<T*>(smem_raw);                  // [D2, S] (transposed)
-  T* v_s = kt_s + D2 * S;                                     // [S, D2]
-  T* q_w = v_s + S * D2;                                      // [warps, D2]
-  float* p_s = reinterpret_cast<float*>(q_w + PA_WARPS * D2);  // [warps, 2, S]
+  float* kt_s = reinterpret_cast<float*>(smem_raw);  // [D2, S] (transposed)
+  float* v_s = kt_s + D2 * S;                         // [S, D2]
+  float* q_w = v_s + S * D2;                          // [warps, D2]
+  float* p_s = q_w + PA_WARPS * D2;                   // [warps, 2, S]
 
-  const T* base = qkv + crop * S * 3 * E + pair * D2;
+  const float* base = qkv + crop * S * 3 * E + pair * D2;
   for (int idx = threadIdx.x; idx < S * D2; idx += blockDim.x) {
     const int j = idx / D2, d = idx - j * D2;
-    const T* r = base + (long long)j * 3 * E + d;
+    const float* r = base + (long long)j * 3 * E + d;
     kt_s[d * S + j] = r[E];
     v_s[idx] = r[2 * E];
   }
   __syncthreads();
-  pair_attention_rows_t<KB, T, T, true>(base, 3 * E, q_w, kt_s, v_s, p_s, S, D, scale, nullptr,
-                                        m_floor, 0.0f, out + crop * S * E + pair * D2, E,
-                                        PA_WARPS);
+  pair_attention_rows_t<KB, float, float, true>(base, 3 * E, q_w, kt_s, v_s, p_s, S, D, scale,
+                                                nullptr, m_floor, 0.0f,
+                                                out + crop * S * E + pair * D2, E, PA_WARPS);
+}
+
+constexpr int PM_UNITS = 2;                // (crop, pair) units a block
+constexpr int PM_WARPS = 4 * PM_UNITS;     // four a unit
+constexpr int PM_LD = 2 * ATT_D + 8;       // padded shared row of a pair's K or V (bf16)
+
+// NC: 16-key chunks a head holds in registers (4: S <= 64; 8: S <= 128);
+// 16 NC key rows a unit are staged, zero-filled past S
+template <int NC>
+__global__ void __launch_bounds__(PM_WARPS * 32, NC <= 4 ? 2 : 1) pair_attention_mma_kernel(
+    const bf16* __restrict__ qkv,  // [n_crops * S, 3E]
+    bf16* __restrict__ out,        // [n_crops * S, E]
+    int n_units, int S, int H, float scale, float m_floor) {
+  constexpr int KP = 16 * NC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);  // per unit: [KP][PM_LD] K, then V
+  const int E = H * ATT_D, E3 = 3 * E, n_pairs = H >> 1;
+  const int unit0 = blockIdx.x * PM_UNITS;
+  for (int c = threadIdx.x; c < PM_UNITS * 2 * KP * 16; c += blockDim.x) {
+    const int r = c >> 4, ub = r / (2 * KP), t = (r / KP) & 1, row = r % KP;
+    const int unit = unit0 + ub, col = (c & 15) * 8;
+    const bool ok = unit < n_units && row < S;
+    const long long crop = unit / n_pairs;
+    const bf16* src = qkv + (crop * S + row) * E3 + (1 + t) * E +
+                      (unit - crop * n_pairs) * 2 * ATT_D + col;
+    cp_async16(smem + r * PM_LD + col, ok ? src : qkv, ok ? 16 : 0);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, unit = unit0 + (warp >> 2);
+  if (unit >= n_units) return;
+  const long long crop = unit / n_pairs;
+  const int pair = unit - (int)(crop * n_pairs);
+  const bf16* qb = qkv + crop * S * E3 + pair * 2 * ATT_D;
+  bf16* ob = out + crop * S * E + pair * 2 * ATT_D;
+  const bf16* ks = smem + (warp >> 2) * 2 * KP * PM_LD;
+  const bf16* vs = ks + KP * PM_LD;
+  const int lane = threadIdx.x & 31, tig = lane & 3;
+  for (int m0 = (warp & 3) * 16; m0 < S; m0 += 64) {
+    float sc[2][2 * NC][4];
+    float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned a[4][4];
+      load_q_tile(a, qb + m0 * E3 + h * ATT_D, E3, S - m0);
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        qk_chunk<PM_LD>(sc[h][2 * c], sc[h][2 * c + 1], a, ks + 16 * c * PM_LD + h * ATT_D);
+#pragma unroll
+      for (int t = 0; t < 2 * NC; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[h][t][e] = 8 * t + tig * 2 + (e & 1) < S ? __fmul_rn(sc[h][t][e], scale) : -INFINITY;
+      tile_max<NC>(sc[h], m);
+    }
+    // the pair shift: both heads' max, then the floor
+#pragma unroll
+    for (int r = 0; r < 2; ++r) m[r] = fmaxf(quad_max(m[r]), m_floor);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float l[2] = {0.0f, 0.0f}, acc[8][4];
+      exp_tile<NC, true>(sc[h], m, l);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+      pv_tile<NC, PM_LD>(acc, sc[h], vs + h * ATT_D);
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) inv[r] = __fdiv_rn(1.0f, fmaxf(quad_sum(l[r]), 1e-30f));
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = __fmul_rn(acc[nt][e], inv[e >> 1]);
+      store_tile_bf16(acc, ob + m0 * E + h * ATT_D, E, S - m0);
+    }
+  }
 }
 
 template <typename T>
@@ -257,16 +356,29 @@ int dispatch_masked(const void* qkv, const void* ctx_inv, void* out, int n_seq, 
                 : launch_masked<T, O, false, false>(qkv, ctx_inv, out, n_seq, S, H, D, scale, st);
 }
 
-template <int KB, typename T>
-int launch_pair(const void* qkv, void* out, int n_crops, int S, int H, int D, float scale,
-                float m_floor, cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * S * 2 * D + PA_WARPS * 2 * D) * sizeof(T) +
-                      (size_t)PA_WARPS * 2 * S * sizeof(float);
-  const int err = set_smem(pair_attention_kernel<KB, T>, smem);
+template <int KB>
+int launch_pair_f32(const void* qkv, void* out, int n_crops, int S, int H, int D, float scale,
+                    float m_floor, cudaStream_t stream) {
+  const size_t smem = (size_t)(2 * S * 2 * D + PA_WARPS * 2 * D + PA_WARPS * 2 * S) * sizeof(float);
+  const int err = set_smem(pair_attention_kernel<KB>, smem);
   if (err) return err;
   const long long blocks = (long long)n_crops * (H / 2);
-  pair_attention_kernel<KB, T><<<(unsigned)blocks, PA_WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), S, H, D, scale, m_floor);
+  pair_attention_kernel<KB><<<(unsigned)blocks, PA_WARPS * 32, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<float*>(out), S, H, D, scale, m_floor);
+  return (int)cudaGetLastError();
+}
+
+template <int NC>
+int launch_pair_bf16(const void* qkv, void* out, int n_crops, int S, int H, float scale,
+                     float m_floor, cudaStream_t stream) {
+  const long long n_units = (long long)n_crops * (H / 2);
+  if (n_units > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)PM_UNITS * 2 * 16 * NC * PM_LD * sizeof(bf16);
+  const int err = set_smem(pair_attention_mma_kernel<NC>, smem);
+  if (err) return err;
+  pair_attention_mma_kernel<NC><<<(unsigned)((n_units + PM_UNITS - 1) / PM_UNITS),
+                                  PM_WARPS * 32, smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), (int)n_units, S, H, scale, m_floor);
   return (int)cudaGetLastError();
 }
 
@@ -303,14 +415,18 @@ extern "C" int jcf_masked_attention(const void* qkv, const void* ctx_inv, void* 
                                        st);
 }
 
-// floor: 0 where the reference pads the keys, -inf where it does not
+// floor: 0 where the reference pads the keys, -inf where it does not;
+// bf16 takes D = 64 and 16-byte aligned qkv and out only
 extern "C" int jcf_pair_attention(const void* qkv, void* out, int n_crops, int S, int H, int D,
                                   float scale, float m_floor, int f32, void* stream) {
   if (S < 1 || S > 128 || H < 2 || H % 2) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (S <= 64)
-    return f32 ? launch_pair<2, float>(qkv, out, n_crops, S, H, D, scale, m_floor, st)
-               : launch_pair<2, bf16>(qkv, out, n_crops, S, H, D, scale, m_floor, st);
-  return f32 ? launch_pair<4, float>(qkv, out, n_crops, S, H, D, scale, m_floor, st)
-             : launch_pair<4, bf16>(qkv, out, n_crops, S, H, D, scale, m_floor, st);
+  if (!f32) {
+    if (D != ATT_D || ((uintptr_t)qkv & 15) || ((uintptr_t)out & 15))
+      return (int)cudaErrorInvalidValue;
+    return S <= 64 ? launch_pair_bf16<4>(qkv, out, n_crops, S, H, scale, m_floor, st)
+                   : launch_pair_bf16<8>(qkv, out, n_crops, S, H, scale, m_floor, st);
+  }
+  return S <= 64 ? launch_pair_f32<2>(qkv, out, n_crops, S, H, D, scale, m_floor, st)
+                 : launch_pair_f32<4>(qkv, out, n_crops, S, H, D, scale, m_floor, st);
 }

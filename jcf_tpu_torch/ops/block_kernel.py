@@ -611,8 +611,9 @@ def pair_attention_plain(qkv: torch.Tensor, s: int, n_heads: int) -> torch.Tenso
 
 def pair_attention(qkv: torch.Tensor, s: int, n_heads: int) -> torch.Tensor:
     """Mask-free attention wrapper (bf16 or f32, S <= 127, an even head
-    count): the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    count; bf16 at head dim 64 with 16-byte aligned rows): the CUDA kernel
+    for CUDA tensors (bf16 on the tensor cores, f32 in the row loop), the
+    plain version for CPU tensors."""
     if not qkv.is_cuda:
         return pair_attention_plain(qkv, s, n_heads)
     rows, e3 = qkv.shape
@@ -626,6 +627,9 @@ def pair_attention(qkv: torch.Tensor, s: int, n_heads: int) -> torch.Tensor:
     f32 = _FLOAT[qkv.dtype][1]
     name = "pair_attention_f32" if f32 else "pair_attention_bf16"
     qkv = qkv.contiguous()
+    if not f32 and (d != 64 or qkv.data_ptr() % 16):
+        raise ValueError(f"pair attention kernel takes bf16 at head dim 64 with 16-byte aligned "
+                         f"rows; got D={d}, offset {qkv.data_ptr() % 16} bytes")
     out = torch.empty((rows, e), dtype=qkv.dtype, device=qkv.device)
     lib = _build.load()
     err = lib.jcf_pair_attention(qkv.data_ptr(), out.data_ptr(), rows // s, s, n_heads, d,

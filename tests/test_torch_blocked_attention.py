@@ -8,7 +8,11 @@ interpret mode, as ``tests/test_ops.py:86-97`` holds it against XLA: f32
 within 1e-5 + 1e-5 |ref|; bf16 within one bf16 ulp of the larger value +
 1e-3 (CPU XLA keeps bf16 intermediates in f32, so p may round at another
 point). ``multi_head_attention`` at 145 tokens, f32 and with the unfolded
-int8 tree in bf16, against JAX's with ``impl="pallas_interpret"``."""
+int8 tree in bf16, against JAX's with ``impl="pallas_interpret"``. The
+bf16 kernel's branch-free division (``csrc/attn_mma.cuh`` ``div_rcp``)
+against the IEEE quotient, in exact rational arithmetic."""
+
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -49,8 +53,11 @@ def _qkv(seed, b, h, s, d):
     return [rng.standard_normal((b, h, s, d)).astype(np.float32) for _ in range(3)]
 
 
-# S and the head count (odd and even), each with three biases in two dtypes
-@pytest.mark.parametrize("s,h", [(50, 3), (129, 2), (145, 3), (197, 2)])
+# S and the head count (odd and even), each with three biases in two dtypes; 256
+# (whole 16-row tiles), 257 and 577 (keys streamed in two passes) are the
+# card's bf16 kernel's edges
+@pytest.mark.parametrize("s,h", [(50, 3), (129, 2), (145, 3), (197, 2), (256, 2), (257, 3),
+                                 (577, 2)])
 @pytest.mark.parametrize("bias", ["none", "causal", "band"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_k8_matches_jax_interpret(s, h, bias, dtype):
@@ -78,6 +85,46 @@ def test_k8_takes_strided_views_of_packed_qkv():
     q, k, v = qkv.reshape(2, 150, 3, 2, 64).permute(2, 0, 3, 1, 4)
     got = tattn.fused_attention(q, k, v).transpose(1, 2).reshape(2, 150, 128)
     torch.testing.assert_close(got, tattn.packed_attention_plain(qkv, 2), rtol=0, atol=0)
+
+
+def _rn32(x: Fraction) -> Fraction:
+    """x rounded to the nearest binary32 value, ties to even (normal
+    range)."""
+    if x == 0:
+        return x
+    sign, x = (-1 if x < 0 else 1), abs(x)
+    exp = x.numerator.bit_length() - x.denominator.bit_length()
+    while Fraction(2) ** exp > x:
+        exp -= 1
+    while Fraction(2) ** (exp + 1) <= x:
+        exp += 1
+    m = x / Fraction(2) ** (exp - 23)  # in [2^23, 2^24)
+    whole, rest = divmod(m.numerator, m.denominator)
+    if 2 * rest > m.denominator or (2 * rest == m.denominator and whole % 2):
+        whole += 1
+    return sign * whole * Fraction(2) ** (exp - 23)
+
+
+def test_k8_division_by_reciprocal_is_ieee_division():
+    """The bf16 kernel normalizes p = e / l without a division per
+    element: y = RN(1 / l) once a row, then q = RN(e y), r = RN(e - l q)
+    and RN(q + r y), two FMAs. On K8's range (e = exp(s - m) in (0, 1], l
+    the row sum in [1, 768]) that equals the IEEE quotient RN(e / l) that
+    ``attention_plain`` takes: 20,000 seeded cases and 4,000 near powers
+    of two, in exact rational arithmetic."""
+    rng = np.random.default_rng(0)
+    e = np.exp(-rng.uniform(0, 30, 20000)).astype(np.float32)
+    l = rng.uniform(1, 768, 20000).astype(np.float32)
+    k = rng.integers(0, 10, 4000)
+    near = (2.0 ** k * (1 + rng.integers(-50, 51, 4000) * 2.0**-23)).astype(np.float32)
+    e = np.concatenate([e, (1 - rng.integers(0, 200, 4000) * 2.0**-24).astype(np.float32)])
+    l = np.concatenate([l, np.maximum(near, np.float32(1))])
+    for a, b in zip(e.tolist(), l.tolist()):
+        a, b = Fraction(a), Fraction(b)
+        y = _rn32(1 / b)
+        q = _rn32(a * y)
+        r = _rn32(a - b * q)
+        assert _rn32(q + r * y) == _rn32(a / b), (a, b)
 
 
 def _mha_params(seed, e):

@@ -320,10 +320,12 @@ np.save(sys.argv[2], out, allow_pickle=True)
 
 def test_strict_bf16_matches_jax(tmp_path):
     """With XLA's excess precision off both sides round p, t and every
-    cast point to bf16: the mask-free attention at S = 50, 54, 82 and 64
-    and K1's bf16 views agree to one bf16 ulp on all but 1e-3 of the
-    elements; the 2-layer vision tower to row cos >= 0.9999 and 2e-2."""
-    pad = {s: -(-s // 8) * 8 for s in (50, 54, 82, 64)}
+    cast point to bf16: the mask-free attention at S = 48, 50, 54, 82, 64
+    and 127 (the card's bf16 kernel's edges: floor -inf at 48 and 64, one
+    register tile up to 64 keys, the larger one to 127) and K1's bf16
+    views agree to one bf16 ulp on all but 1e-3 of the elements; the
+    2-layer vision tower to row cos >= 0.9999 and 2e-2."""
+    pad = {s: -(-s // 8) * 8 for s in (48, 50, 54, 82, 64, 127)}
     q3 = {s: _q3(s + 3, s, pad[s])[0] for s in pad}
     views = _view_inputs(4)
     jp = _params(9)

@@ -280,15 +280,17 @@ def test_launch_counters(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h", [12, 16])
-@pytest.mark.parametrize("s,causal", [(50, True), (145, False), (197, False), (257, False),
-                                      (577, False)])
+@pytest.mark.parametrize("s,causal", [(50, True), (128, False), (145, False), (197, False),
+                                      (208, False), (256, False), (257, False), (577, False)])
 def test_blocked_attention_kernel(cuda, dtype, h, s, causal):
     """K8 vs ``attention_plain`` on head views of a packed qkv (the layout
     the tower gives it, unit-scale entries as a LayerNorm'd row through a
     unit-variance projection gives): f32 within 1e-5 (+ 1e-5 relative),
     bf16 within 1 bf16 ulp + 1e-3. (On peakier rows a p that rounds to
     bf16 on the other side of a tie moves the output by an ulp of p times
-    |v|, which can exceed an ulp of a small output.)"""
+    |v|, which can exceed an ulp of a small output.) In bf16, S = 128, 208
+    and 256 are whole 16-row tiles, up to 208 keys held in registers in
+    one pass; 257 and 577 stream the keys in two passes."""
     g = torch.Generator(device=cuda).manual_seed(s + h)
     b, e = 3, h * 64
     qkv = torch.randn(b, s, 3 * e, device=cuda, generator=g).to(dtype)
@@ -301,18 +303,43 @@ def test_blocked_attention_kernel(cuda, dtype, h, s, causal):
 
 
 def test_blocked_attention_refuses_over_its_limit(cuda):
-    """S = 1024: the score tile is over the card's shared memory. The C
-    entry refuses, nothing launches, and the next launch runs."""
+    """S = 1024: the score tile (f32), or K and V of the head (bf16), is
+    over the card's shared memory. The C entry refuses, nothing launches,
+    and the next launch runs."""
     before = at.LAUNCHES["blocked_attention"]
-    q = torch.zeros(1, 2, 1024, 64, device=cuda)
-    with pytest.raises(RuntimeError):
-        at.fused_attention(q, q, q)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros(1, 2, 1024, 64, device=cuda, dtype=dtype)
+        with pytest.raises(RuntimeError):
+            at.fused_attention(q, q, q)
     assert at.LAUNCHES["blocked_attention"] == before
     q = torch.randn(1, 2, 197, 64, device=cuda)
     _f32_close(at.fused_attention(q, q, q), at.attention_plain(q, q, q))
     assert at.LAUNCHES["blocked_attention"] == before + 1
     with pytest.raises(ValueError):  # head dim 32: the kernel takes 64
         at.fused_attention(*(torch.zeros(1, 2, 200, 32, device=cuda),) * 3)
+
+
+@pytest.mark.parametrize("offset,width", [(4, 3 * 128 + 4), (0, 3 * 128 + 4), (8, 3 * 128 + 8)])
+def test_blocked_attention_refuses_unaligned_bf16_views(cuda, offset, width):
+    """bf16 K8 reads 16-byte rows: head views at an offset or row stride
+    that is not a whole 8 elements raise ``ValueError`` and launch
+    nothing (an aligned view at an offset of 8 runs); the f32 kernel takes
+    any strides."""
+    g = torch.Generator(device=cuda).manual_seed(offset + width)
+    buf = torch.randn(2, 150, width, device=cuda, generator=g)
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = buf.to(dtype)[..., offset: offset + 3 * 128]
+        q, k, v = qkv.unflatten(-1, (3, 2, 64)).permute(2, 0, 3, 1, 4)
+        before = at.LAUNCHES["blocked_attention"]
+        aligned = dtype == torch.float32 or (offset % 8 == 0 and width % 8 == 0)
+        if not aligned:
+            with pytest.raises(ValueError):
+                at.fused_attention(q, k, v)
+            assert at.LAUNCHES["blocked_attention"] == before
+            continue
+        close = _f32_close if dtype == torch.float32 else _bf16_close
+        close(at.fused_attention(q, k, v).float(), at.attention_plain(q, k, v).float())
+        assert at.LAUNCHES["blocked_attention"] == before + 1
 
 
 @pytest.mark.parametrize("m,n,k", [(200, 72, 96), (197 * 3, 2304, 768), (77, 768, 3072)])
@@ -708,11 +735,14 @@ def test_ln_affine_and_causal_attention_f32(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("s,h", [(50, 12), (56, 4), (82, 12), (127, 2)])
+@pytest.mark.parametrize("s,h", [(48, 6), (50, 12), (56, 4), (64, 12), (82, 12), (127, 2)])
 def test_pair_attention_kernel(cuda, dtype, s, h):
     """The mask-free attention vs its plain version: f32 within 1e-5 +
     1e-5 |ref|; bf16 within one ulp + 1e-3 plus 2^-7 sum_j p_j |v_j| / l
-    (how far a p that rounds to bf16 across a tie moves an element)."""
+    (how far a p that rounds to bf16 across a tie moves an element). The
+    pair shift's floor is -inf at S = 48, 56 and 64 and 0 at 50, 82 and
+    127; bf16 holds up to 64 keys in one register tile, 82 and 127 in the
+    larger one."""
     g = torch.Generator(device=cuda).manual_seed(s + h)
     crops, d = 7, 64
     qkv = (torch.randn(crops * s, 3 * h * d, device=cuda, generator=g) * 0.5).to(dtype)
@@ -729,6 +759,20 @@ def test_pair_attention_kernel(cuda, dtype, s, h):
         d_ = (got.float() - ref.float()).abs()
         tol = 2.0**-7 * got.float().abs().maximum(ref.float().abs()) + 1e-3 + slack
         assert bool((d_ <= tol).all())
+
+
+def test_pair_attention_refuses_bf16_off_head_dim_64(cuda):
+    """bf16 pair attention runs on the tensor cores at head dim 64 only:
+    D = 32 raises ``ValueError`` and launches nothing; the f32 row loop
+    takes it."""
+    g = torch.Generator(device=cuda).manual_seed(32)
+    qkv = torch.randn(3 * 50, 3 * 4 * 32, device=cuda, generator=g) * 0.5
+    before = dict(bk.LAUNCHES)
+    with pytest.raises(ValueError):
+        bk.pair_attention(qkv.bfloat16(), 50, 4)
+    assert bk.LAUNCHES == before
+    _f32_close(bk.pair_attention(qkv, 50, 4), bk.pair_attention_plain(qkv, 50, 4))
+    assert bk.LAUNCHES["pair_attention_f32"] == before["pair_attention_f32"] + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

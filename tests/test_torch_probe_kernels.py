@@ -18,8 +18,9 @@ the TPU probes in ``scripts/``, whose kernels run through
 - P2 (``exp_patch_regroup``): kernels A, B and C at 4 planes, f32 and
   int8, against the port's plain regroup and the script's numpy check,
   bit for bit.
-- Each script's ``main`` on the CPU at a small size, and the port's
-  modules free of JAX and ``jcf_tpu``.
+- Each script's ``main`` on the CPU at a small size (also the attention
+  A/B script ``ab_attention``, run as a file), and the port's modules
+  free of JAX and ``jcf_tpu``.
 """
 
 import contextlib
@@ -265,6 +266,40 @@ def test_patch_regroup_main_runs_on_the_cpu():
     assert sum(line.startswith("plain (view/permute/reshape copy)") for line in lines) == 2
 
 
+_AB_LABELS = ["K8 blocked_attention bf16, 1 x 12 x 197", "K8 blocked_attention f32, 1 x 12 x 197",
+              "pair_attention bf16, 4 x 50", "pair_attention f32, 4 x 50",
+              "K3 attention (int8 context), 4 x 50", "K3 attention_f32 (f32 context), 4 x 50",
+              "batched_dot_mma, 6 heads x 56"]
+
+
+def test_ab_attention_runs_as_a_file_on_the_cpu():
+    """The A/B script as the card runs it (a file, the checkout's root as
+    ROOT), at one crop on the CPU: the device line, the package it timed,
+    then one line a kernel with its checksum (the plain versions' here)."""
+    script = ROOT / "jcf_tpu_torch" / "scripts" / "ab_attention.py"
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, str(script), str(ROOT), "--device", "cpu", "--crops",
+                          "1", "--rounds", "2", "--reps", "1"], cwd=ROOT / "tests", env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("device: cpu")
+    assert lines[1] == f"package: {ROOT / 'jcf_tpu_torch'}"
+    assert [line.split(":")[0] for line in lines[2:]] == _AB_LABELS
+    assert all("(2 x 1), checksum" in line for line in lines[2:])
+
+
+def test_ab_attention_times_one_package_only():
+    """Imported as a module, the script times the package already loaded
+    and refuses another checkout's."""
+    from jcf_tpu_torch.scripts import ab_attention
+
+    assert ab_attention.import_package(ROOT) == str(ROOT / "jcf_tpu_torch")
+    with pytest.raises(RuntimeError, match="already imported"):
+        ab_attention.import_package(ROOT / "build" / "parent")
+
+
 def test_no_module_of_the_port_imports_jax():
     """Every module of ``jcf_tpu_torch``, ``chip_smoke.py`` and the root
     ``profile_*.py`` scripts (the port's) import neither JAX nor
@@ -273,7 +308,7 @@ def test_no_module_of_the_port_imports_jax():
                          r"from jcf_tpu(\.| ))", re.M)
     sources = (sorted((ROOT / "jcf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
                + sorted(ROOT.glob("profile_*.py")))
-    assert {"exp_batched_dot.py", "exp_w4a8.py", "exp_patch_regroup.py",
+    assert {"exp_batched_dot.py", "exp_w4a8.py", "exp_patch_regroup.py", "ab_attention.py",
             "profile_k9.py"} <= {p.name for p in sources}
     for path in sources:
         assert not pattern.search(path.read_text()), path
