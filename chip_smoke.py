@@ -17,7 +17,8 @@
 5. builds the zero-shot classifier the way ``jcf-ood`` does
    (``synthesize_templates`` from a 403-line ``classes.txt``, then
    ``build_text_weights``: 403 x 8 prompts), counting the kernels it
-   launches, checks it against the plain-version tower, and checks that a
+   launches (every ``causal_attention`` on the tensor-core route,
+   ``causal_attention/mma``), checks it against the plain-version tower, and checks that a
    second call hits the classifier cache;
 5b. trains: holds the K7 forward and backward kernels against the plain
    forward and autograd through it at the stage-1 step's attention shapes
@@ -25,7 +26,8 @@
    and bf16; builds the stage-1 LoRA step at ViT-B/32 width (8 template
    banks of the 403 classes, LoRA r 4 on q/k/v of every layer of both
    towers, AdamW 2e-4 / wd 1e-2, bs 256 images of 224²), counts the K7
-   launches of one bf16 step, holds a step through the kernels against a
+   launches of one bf16 step (every backward on the tensor-core route,
+   ``packed_attention_bwd/mma``), holds a step through the kernels against a
    step through the plain K7 from the same state and dropout seed (bf16
    and f32), trains 10 steps on a fixed batch (the loss must fall), times
    the bf16 step (ms, img/s, peak memory), profiles one step by kernel
@@ -116,8 +118,9 @@
 12. (after 11) the masked and unfolded int8 halves: 12a each new kernel
    against its plain version at the paths' shapes (on layer 0's input
    rows of the int8 text tower, 512 prompts x 77 tokens in f32: the LN +
-   affine + row quant, the causal masked attention with SDPA
-   ``is_causal`` as yardstick, the f32 residual epilogues; on the
+   affine + row quant, the causal masked attention with the f32 and the
+   int8 (static) context, SDPA ``is_causal`` as yardstick, each on the
+   tensor-core route, the f32 residual epilogues; on the
    unfolded vision tower's input rows at 8192 crops: the bf16 LN + affine
    + row quant, K3's and K5's attention with the score scale; the
    composed halves); 12b the int8 classifier build
@@ -143,8 +146,13 @@
    branch, against the plain route and the halves) and the int8 engines
    of the same widths (the 64-token one with 14 visual prompts; dynamic
    and static "full") on their non-assembled route under "block",
-   counted, per-view features against the plain route and the halves,
-   img/s.
+   counted, per-view features against the plain route and the halves
+   (the 3-head "full" engine's halves counted too: the int8-context
+   masked attention on the tensor-core route), img/s. The phases that
+   run the masked attention or K7's backward (5, 5b, 12a, 12b, 12d) print
+   each kernel's route counters ("<kernel>/mma", "<kernel>/rowloop")
+   beside its launches and fail unless bf16 at head dim 64 took the
+   tensor cores.
 13. ``jcf-ood`` end to end. 13a: every committed JPEG
    (``tests/fixtures/jpeg``: the six fixtures and the four small ones
    under ``extra/``: progressive, restart markers, 4:2:2, odd size)
@@ -373,6 +381,10 @@ KERNELS = {
                                  "jcf_tpu/ops/block_kernel.py:565"),
     "masked_attention_f32": ("classifier_int8_f32", "jcf_tpu_torch/csrc/text_block.cu",
                              "jcf_tpu/ops/block_kernel.py:464"),
+    # the masked attention with a static (int8) context: the 3-head int8
+    # engine in the static mode "full" under the halves, 12d
+    "masked_attention": ("engine_odd_heads_full_halves", "jcf_tpu_torch/csrc/text_block.cu",
+                         "jcf_tpu/ops/block_kernel.py:464"),
     "int8_gemm_residual_f32_rows": ("classifier_int8_f32", "jcf_tpu_torch/csrc/int8_gemm.cu",
                                     "jcf_tpu/ops/block_kernel.py:643"),
     "ln_affine_quant_rows": ("tower_unfolded", "jcf_tpu_torch/csrc/block.cu",
@@ -872,6 +884,7 @@ def classifier_phase(params, cfg, dev, counters):
         build_s = time.perf_counter() - t0
         launches = {k: v for c in counters for k, v in c.items()}
         log(f"classifier built in {build_s:.2f} s (cache miss); launches: {launches}")
+        check_routes("classifier", launches, {"causal_attention": "mma"})
         t0 = time.perf_counter()
         hit = build_text_weights(tparams, cfg, templates, pc, device=dev)
         torch.cuda.synchronize()
@@ -1070,6 +1083,7 @@ def training_phase(params, cfg, dev, counters, smi):
     n_layers = cfg.text_layers + cfg.vision_layers
     if (launches["packed_attention"], launches["packed_attention_bwd"]) != (n_layers, n_layers):
         raise AssertionError(f"expected {n_layers} K7 forward and backward launches per step")
+    check_routes("training step", launches, {"packed_attention_bwd": "mma"})
 
     # a step through the kernels vs one through the plain K7 (autograd
     # through packed_attention_plain), from the same state and seed
@@ -1840,6 +1854,19 @@ def count_forward(counters, run):
     return out, {k: v for c in counters for k, v in c.items() if v}
 
 
+def check_routes(label: str, launches: dict, want: dict) -> None:
+    """Logs the route counters ("<kernel>/mma", "<kernel>/rowloop": the
+    attention kernels with a tensor-core and a CUDA-core route) of
+    ``launches``; ``want`` {kernel: route}: the kernel launched, every
+    launch on that route."""
+    routes = {k: v for k, v in launches.items() if k.endswith(("/mma", "/rowloop")) and v}
+    log(f"  {label}: route counters {routes}")
+    for name, route in want.items():
+        if not launches.get(name) or launches.get(f"{name}/{route}", 0) != launches[name]:
+            raise AssertionError(f"{label}: expected every {name} launch on the {route} route, "
+                                 f"got {launches.get(name)} launches, {routes}")
+
+
 def time_forwards(run, iters, items, unit, smi, label) -> float:
     """``iters`` timed calls of ``run`` after one warm-up -> items per s."""
     import torch
@@ -2056,9 +2083,9 @@ FLOAT_LAYER = {
     "bf16": {"ln_affine": 2, "bf16_gemm_bias": 1, "pair_attention_bf16": 1,
              "bf16_gemm_residual": 2, "bf16_gemm_gelu": 1},
     "f32 text": {"ln_affine_f32": 2, "f32_gemm_bias": 1, "causal_attention_f32": 1,
-                 "f32_gemm_residual": 2, "f32_gemm_gelu": 1},
+                 "causal_attention_f32/rowloop": 1, "f32_gemm_residual": 2, "f32_gemm_gelu": 1},
     "bf16 text": {"ln_affine": 2, "bf16_gemm_bias": 1, "causal_attention": 1,
-                  "bf16_gemm_residual": 2, "bf16_gemm_gelu": 1},
+                  "causal_attention/mma": 1, "bf16_gemm_residual": 2, "bf16_gemm_gelu": 1},
 }
 FLOAT_ITERS = 2  # timed calls of the unquantized engines
 # the int8 certificate (static "full", b1024 x 8 views) as measured
@@ -2522,8 +2549,8 @@ def float_engine_phase(params, ref, modes_f, images, geometry, text, counters, s
 # LN + quant, c_fc, QuickGELU + row quant, c_proj), bf16 rows; f32 rows
 # take the f32 variants of the LN kernel and the residual epilogue
 INT8_TEXT_LAYER = {"ln_affine_quant_rows": 2, "int8_gemm_bf16_rows": 1, "masked_attention_f32": 1,
-                   "quant_rows": 1, "int8_gemm_residual_rows": 2, "int8_gemm_f32_rows": 1,
-                   "gelu_quant_rows": 1}
+                   "masked_attention_f32/mma": 1, "quant_rows": 1, "int8_gemm_residual_rows": 2,
+                   "int8_gemm_f32_rows": 1, "gelu_quant_rows": 1}
 F32_NAMES = {"ln_affine_quant_rows": "ln_affine_quant_rows_f32",
              "int8_gemm_residual_rows": "int8_gemm_residual_f32_rows"}
 SMALL_CROPS = 1024  # crops of the odd-head and 64-token towers (12d)
@@ -2601,6 +2628,8 @@ def int8_classifier_phase(params, cfg, dev, counters, built_f32, modes_f, fuse="
                 expected = {"block_int8": cfg.text_layers * calls, branch: cfg.text_layers * calls}
             if launches[name] != expected:
                 raise AssertionError(f"expected exactly the launches {expected}")
+            if fuse == "halves":
+                check_routes(f"phase 12b ({name})", launches[name], {"masked_attention_f32": "mma"})
             if built.dtype != dt or tuple(built.shape) != (N_CLASSES, cfg.embed_dim):
                 raise AssertionError(f"bad int8 classifier: {built.dtype} {tuple(built.shape)}")
             with plain_halves(), plain_k9():
@@ -2673,6 +2702,21 @@ def masked_kernel_phase(params, cfg, dev, ids, rows_v, blocks_v, quant_v):
                  bound(nbytes(qkv) + 4 * m * et, 4.0 * b * th * (st * (st + 1) // 2) * dt_,
                        PEAK_BF16),
                  lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    # the static (int8) context: the calibrated scale 127 / amax of this context
+    ctx_inv = (127.0 / ctx.abs().amax()).reshape(1, 1)
+    kw8 = dict(causal=True, scale=1.0 / dt_ ** 0.5, ctx_inv=ctx_inv)
+    ph.run("masked_attention",
+           lambda: bk.masked_attention(qkv, st, th, **kw8),
+           lambda: bk.masked_attention_plain(qkv, st, th, **kw8),
+           lambda n, a, b_: check_int8(n, a, b_, 1e-2),
+           bound(nbytes(qkv) + m * et, 4.0 * b * th * (st * (st + 1) // 2) * dt_, PEAK_BF16),
+           lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    before = dict(bk.LAUNCHES)
+    bk.masked_attention(qkv, st, th, **kw)
+    bk.masked_attention(qkv, st, th, **kw8)
+    torch.cuda.synchronize()
+    check_routes("phase 12a, one call each", {k: bk.LAUNCHES[k] - before[k] for k in before},
+                 {"masked_attention_f32": "mma", "masked_attention": "mma"})
     del q, k, v, slack
     c_q, c_sc = bk.quant_rows(ctx)
     mid = ph.run("int8_gemm_residual_f32_rows (out-proj)",
@@ -2839,6 +2883,8 @@ def small_towers_phase(dev, counters):
             want = attn if kind == "int8" else ("head_attention" if heads % 2 else "pair_attention_bf16")
             if launches.get(want) != 12 or cos < 0.999:
                 raise AssertionError(f"the {heads}-head {s}-token {kind} tower fails")
+            if heads % 2:
+                check_routes(f"phase 12d, {heads} heads, {kind}", launches, {want: "mma"})
             if kind == "bf16" and heads % 2:
                 launches_odd = launches
         if heads % 2:
@@ -4124,8 +4170,16 @@ def k9_small_towers_phase(dev, counters, smi):
                 with plain_halves(), plain_k9():
                     feats_p = engine._view_features(images, geometry)
                 bk._FUSE = "halves"
-                feats_h = engine._view_features(images, geometry)
+                feats_h, counted_h = count_forward(counters,
+                                                   lambda: engine._view_features(images, geometry))
                 bk._FUSE = "block"
+                if heads % 2 and mode == "full":
+                    # the masked attention with the static (int8) context
+                    log(f"  the {heads}-head int8 engine (full) under the halves: launches "
+                        f"{counted_h}")
+                    check_routes(f"phase 12d, {heads}-head engine (full, halves)", counted_h,
+                                 {"masked_attention": "mma"})
+                    launches["engine_odd_heads_full_halves"] = counted_h
                 flat = lambda f: f.reshape(-1, f.shape[-1])
                 cos_p = float(cosine_rows(flat(feats), flat(feats_p)).min())
                 cos_h = float(cosine_rows(flat(feats), flat(feats_h)).min())

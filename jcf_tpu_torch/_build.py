@@ -48,10 +48,10 @@ SIGNATURES = {
     "jcf_bf16_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "jcf_f32_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "jcf_ln_affine": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "jcf_masked_attention": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
+    "jcf_masked_attention": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     "jcf_pair_attention": [_P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
     "jcf_packed_attention": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "jcf_packed_attention_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "jcf_packed_attention_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "jcf_blocked_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, *[ctypes.c_longlong] * 6,
                               _F, _I, _P],
     "jcf_block_int8": [*[_P] * 25, *[_I] * 7, _P],

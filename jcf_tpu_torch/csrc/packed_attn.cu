@@ -18,15 +18,33 @@
 // T() is a no-op in f32 and a bf16 rounding in bf16; the bias gets no
 // gradient.
 //
-// Bound on the H100: at the training shapes (S = 77 or 50, D = 64) a
-// (sequence, head) block holds a few hundred KFLOP on a tile of a few
-// tens of KB, so the kernels run on the CUDA cores from shared memory:
-// one warp per query row with lanes over keys for the row work (K and V
-// stored transposed with an odd row stride, so column reads by lanes over
-// the head dim are conflict-free too), one thread per output element for
-// the column sums of the backward. Tiles are f32 in shared memory for both
-// input types (bf16 widens exactly).
-#include "common.cuh"
+// Bound on the H100: bytes. At the training shapes (S = 77 or 50, D = 64)
+// a (sequence, head) block holds a few hundred KFLOP on a tile of a few
+// tens of KB. The forward, the f32 backward and the bf16 backward at
+// another head dim (or off 16-byte alignment) run on the CUDA cores from
+// shared memory: one warp per query row with lanes over keys for the row
+// work (K and V stored transposed with an odd row stride, so column reads
+// by lanes over the head dim are conflict-free too), one thread per
+// output element for the column sums of the backward. Tiles are f32 in
+// shared memory for both input types (bf16 widens exactly).
+//
+// The bf16 backward at D = 64: packed_attn_bwd_mma_kernel (attn_mma.cuh).
+// One block per (sequence, head), NC = ceil(S / 16) warps. The block
+// stages Q, K, V and dO as bf16 rows (16 NC of them, zero-filled past S)
+// with 16-byte cp.async. Row pass, a warp per 16-row query tile: S = Q K^T
+// on the CUDA cores in the reference's order, x scale then + bias (keys
+// past S at -inf), p = exp(s - m) / sum as the CUDA-core kernel takes them
+// (scores_seq, softmax_rows: a p near a bf16 tie rounds to the
+// reference's side); then on the tensor cores dP = dO V^T rounded to bf16,
+// the row sum of p dP by quad shuffles, dS = p (dP - sum) x scale, dQ =
+// dS K in 16-byte stores; bf16(p), hi = bf16(dS) and lo = bf16(dS - hi)
+// go to shared memory. Column pass after one barrier, a warp per 16-key
+// tile: dV = bf16(p)^T dO and dK = dS^T Q with the transposed A fragments
+// through ldmatrix.trans. dS enters dQ and dK as hi + lo, two products
+// into the same f32 sums: about 16 bits of dS where bf16 alone keeps 8
+// (the CUDA-core kernel sums f32 dS). Shared memory 2 (4 x 16 NC x 72 + 3
+// x 16 NC x (16 NC + 8)) B: 88,320 at S = 77 (two blocks an SM).
+#include "attn_mma.cuh"
 
 namespace {
 
@@ -192,6 +210,154 @@ __global__ void __launch_bounds__(PB_WARPS * 32) packed_attn_bwd_kernel(
   }
 }
 
+constexpr int PK_LD = ATT_D + 8;  // padded row of Q, K, V, dO (bf16): conflict-free ldmatrix
+
+// one warp's tile of f32 values to shared memory split into bf16 pairs
+// hi (at hi) and lo (at lo) (split_bf16), row 0 at each, LDP a row
+template <int NC, int LDP>
+__device__ __forceinline__ void store_split(const float (&sc)[2 * NC][4], bf16* hi, bf16* lo) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int t = 0; t < 2 * NC; ++t)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int off = (g + 8 * h) * LDP + 8 * t + 2 * tig;
+      split_bf16(sc[t][2 * h], sc[t][2 * h + 1], *reinterpret_cast<unsigned*>(hi + off),
+                 *reinterpret_cast<unsigned*>(lo + off));
+    }
+}
+
+size_t bwd_mma_smem(int nc) {
+  const size_t kp = 16 * nc;
+  return (4 * kp * PK_LD + 3 * kp * (kp + 8)) * sizeof(bf16);
+}
+
+// NC: 16-row chunks, ceil(S / 16); as many warps
+template <int NC>
+__global__ void __launch_bounds__(NC * 32) packed_attn_bwd_mma_kernel(
+    const bf16* __restrict__ qkv,    // [B * S, 3E]
+    const float* __restrict__ bias,  // [S, S]
+    const bf16* __restrict__ dout,   // [B * S, E]
+    bf16* __restrict__ dqkv,         // [B * S, 3E]
+    int S, int H, float scale) {
+  constexpr int KP = 16 * NC, LDP = KP + 8, KS = (KP + 31) / 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [KP][PK_LD] each: Q, K, V, dO
+  const bf16* k_s = q_s + KP * PK_LD;
+  const bf16* v_s = k_s + KP * PK_LD;
+  const bf16* do_s = v_s + KP * PK_LD;
+  bf16* p_s = q_s + 4 * KP * PK_LD;  // [KP][LDP] each: bf16(p), then hi and lo of dS
+  bf16* hi_s = p_s + KP * LDP;
+  bf16* lo_s = hi_s + KP * LDP;
+  const int E = H * ATT_D, E3 = 3 * E;
+  const int head = blockIdx.x % H;
+  const long long seq = blockIdx.x / H;
+  const bf16* base = qkv + seq * S * E3 + head * ATT_D;
+  const bf16* dbase = dout + seq * S * E + head * ATT_D;
+  for (int c = threadIdx.x; c < 4 * KP * 8; c += blockDim.x) {
+    const int r = c >> 3, t = r / KP, row = r - t * KP, col = (c & 7) * 8;
+    const bool ok = row < S;
+    const bf16* src =
+        t < 3 ? base + (long long)row * E3 + t * E + col : dbase + (long long)row * E + col;
+    cp_async16(q_s + r * PK_LD + col, ok ? src : qkv, ok ? 16 : 0);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // row pass: query rows m0 .. m0 + 15. The scores and p in the
+  // reference's order (lanes over keys), x scale, then + bias; rows past S
+  // (zero q and dO) take bias 0: finite p, and dS = 0
+  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+  const int m0 = (threadIdx.x >> 5) * 16;
+  {
+    float sp[16][KS];
+    scores_seq<KS, PK_LD>(sp, q_s + m0 * PK_LD, k_s, S, KP);
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+#pragma unroll
+      for (int sl = 0; sl < KS; ++sl) {
+        const int i = m0 + r, j = 32 * sl + lane;
+        const float b = i < S && j < S ? __ldg(bias + (long long)i * S + j) : 0.0f;
+        sp[r][sl] = j < S ? __fadd_rn(__fmul_rn(sp[r][sl], scale), b) : -INFINITY;
+      }
+    softmax_rows<KS>(sp);
+    // bf16(p) for dV, and f32 p through this warp's rows of hi and lo (8
+    // rows of LDP floats each) into the accumulator layout
+    float* pf0 = reinterpret_cast<float*>(hi_s + m0 * LDP);
+    float* pf1 = reinterpret_cast<float*>(lo_s + m0 * LDP);
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+#pragma unroll
+      for (int sl = 0; sl < KS; ++sl) {
+        const int j = 32 * sl + lane;
+        if (j < KP) {
+          p_s[(m0 + r) * LDP + j] = __float2bfloat16_rn(sp[r][sl]);
+          (r < 8 ? pf0 : pf1)[(r & 7) * LDP + j] = sp[r][sl];
+        }
+      }
+  }
+  __syncwarp();
+  float sc[2 * NC][4];
+  {
+    const float* pf0 = reinterpret_cast<const float*>(hi_s + m0 * LDP);
+    const float* pf1 = reinterpret_cast<const float*>(lo_s + m0 * LDP);
+#pragma unroll
+    for (int t = 0; t < 2 * NC; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[t][e] = ((e >> 1) ? pf1 : pf0)[g * LDP + 8 * t + 2 * tig + (e & 1)];
+  }
+  __syncwarp();  // p read: hi and lo take dS
+
+  // dP = T(dO V^T) (the cast's cotangent is rounded), the row sums of p dP
+  unsigned a[4][4];
+  load_a_tile<PK_LD>(a, do_s + m0 * PK_LD);
+  float dp[2 * NC][4], pdp[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int c = 0; c < NC; ++c) qk_chunk<PK_LD>(dp[2 * c], dp[2 * c + 1], a, v_s + 16 * c * PK_LD);
+#pragma unroll
+  for (int t = 0; t < 2 * NC; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dp[t][e] = round_bf16(dp[t][e]);
+      pdp[e >> 1] = fmaf(sc[t][e], dp[t][e], pdp[e >> 1]);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) pdp[r] = quad_sum(pdp[r]);
+  // dS = p (dP - sum) x scale, in place of p
+#pragma unroll
+  for (int t = 0; t < 2 * NC; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sc[t][e] = __fmul_rn(__fmul_rn(sc[t][e], __fsub_rn(dp[t][e], pdp[e >> 1])), scale);
+  store_split<NC, LDP>(sc, hi_s + m0 * LDP, lo_s + m0 * LDP);
+  float acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+  pv_tile_split<NC, PK_LD>(acc, sc, k_s);  // dQ = dS K
+  bf16* ob = dqkv + seq * S * E3 + head * ATT_D;
+  store_tile_bf16(acc, ob + (long long)m0 * E3, E3, S - m0);
+  __syncthreads();
+
+  // column pass: key rows j0 .. j0 + 15; dV = T(p)^T dO, dK = dS^T Q
+  const int j0 = m0;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+  smem_tile<NC, LDP, PK_LD, true, false>(acc, p_s + j0, nullptr, do_s);
+  store_tile_bf16(acc, ob + (long long)j0 * E3 + 2 * E, E3, S - j0);
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+  smem_tile<NC, LDP, PK_LD, true, true>(acc, hi_s + j0, lo_s + j0, q_s);
+  store_tile_bf16(acc, ob + (long long)j0 * E3 + E, E3, S - j0);
+}
+
 size_t fwd_smem(int S, int D) {
   return ((size_t)2 * S * D + (size_t)D * odd_stride(S) + (size_t)PA_WARPS * S) * sizeof(float);
 }
@@ -219,6 +385,33 @@ int launch_fwd(const void* qkv, const void* bias, void* out, int B, int S, int H
   return (int)cudaGetLastError();
 }
 
+template <int NC>
+int launch_bwd_mma(const void* qkv, const void* bias, const void* dout, void* dqkv, int B, int S,
+                   int H, float scale, cudaStream_t stream) {
+  const size_t smem = bwd_mma_smem(NC);
+  const int err = set_smem(packed_attn_bwd_mma_kernel<NC>, smem);
+  if (err) return err;
+  packed_attn_bwd_mma_kernel<NC><<<(unsigned)((long long)B * H), NC * 32, smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(bias),
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv), S, H, scale);
+  return (int)cudaGetLastError();
+}
+
+// the chunk count the shape needs: ceil(S / 16), S <= 128
+int dispatch_bwd_mma(const void* qkv, const void* bias, const void* dout, void* dqkv, int B, int S,
+                     int H, float scale, cudaStream_t st) {
+  switch ((S + 15) / 16) {
+    case 1: return launch_bwd_mma<1>(qkv, bias, dout, dqkv, B, S, H, scale, st);
+    case 2: return launch_bwd_mma<2>(qkv, bias, dout, dqkv, B, S, H, scale, st);
+    case 3: return launch_bwd_mma<3>(qkv, bias, dout, dqkv, B, S, H, scale, st);
+    case 4: return launch_bwd_mma<4>(qkv, bias, dout, dqkv, B, S, H, scale, st);
+    case 5: return launch_bwd_mma<5>(qkv, bias, dout, dqkv, B, S, H, scale, st);
+    case 6: return launch_bwd_mma<6>(qkv, bias, dout, dqkv, B, S, H, scale, st);
+    case 7: return launch_bwd_mma<7>(qkv, bias, dout, dqkv, B, S, H, scale, st);
+    default: return launch_bwd_mma<8>(qkv, bias, dout, dqkv, B, S, H, scale, st);
+  }
+}
+
 template <typename T>
 int launch_bwd(const void* qkv, const void* bias, const void* dout, void* dqkv, int B, int S,
                int H, int D, float scale, cudaStream_t stream) {
@@ -243,10 +436,18 @@ extern "C" int jcf_packed_attention(const void* qkv, const void* bias, void* out
                  : launch_fwd<float>(qkv, bias, out, B, S, H, D, scale, st);
 }
 
+// mma: the tensor-core kernel (bf16, D = 64, qkv, dout and dqkv 16-byte
+// aligned; the caller's route), else the CUDA-core kernel
 extern "C" int jcf_packed_attention_bwd(const void* qkv, const void* bias, const void* dout,
                                         void* dqkv, int B, int S, int H, int D, float scale,
-                                        int is_bf16, void* stream) {
+                                        int is_bf16, int mma, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (mma) {
+    if (!shape_ok(B, S, H, D) || !is_bf16 || D != ATT_D || (long long)B * H > 0x7fffffffLL ||
+        ((uintptr_t)qkv & 15) || ((uintptr_t)dout & 15) || ((uintptr_t)dqkv & 15))
+      return (int)cudaErrorInvalidValue;
+    return dispatch_bwd_mma(qkv, bias, dout, dqkv, B, S, H, scale, st);
+  }
   return is_bf16 ? launch_bwd<bf16>(qkv, bias, dout, dqkv, B, S, H, D, scale, st)
                  : launch_bwd<float>(qkv, bias, dout, dqkv, B, S, H, D, scale, st);
 }

@@ -82,12 +82,42 @@ __global__ void __launch_bounds__(LNA_WARPS * 32) ln_affine_kernel(
 // block owns one head. With the int8 halves T is bf16, the qkv of the
 // int8 GEMM.
 //
-// Bound on the H100: at S = 77, D = 64 a (sequence, head) block's work is
-// small next to a tensor-core pipeline, so it runs on the CUDA cores from
-// shared memory (one warp per query row, lanes over keys for the scores
-// with K stored transposed, lanes over head dims for PV). qkv is read once
-// (16-byte loads) and the context written once. Shared memory: 3 S D
-// sizeof(T) + 8 S 4 B, 61,600 B in f32 at S = 77.
+// Bound on the H100: bytes. At the int8 text tower's 512 prompts x 77
+// tokens x 8 heads a (sequence, head) reads q, k, v (3 x 77 x 64 x 2 B)
+// and writes the context, against 4 x 77 x 78 / 2 x 64 flop of products
+// under the causal mask: under 20 flop a byte.
+//
+// bf16 qkv at D = 64 (every tower of the port): masked_attention_mma_kernel,
+// PV on the tensor cores (attn_mma.cuh). One block per (sequence, head)
+// with NC = ceil(S / 16) warps, one 16-row query tile each, so S = 77's
+// five tiles take five warps and one round. The block stages the head's K
+// and V, 16 NC rows (zero-filled past S), with 16-byte cp.async while each
+// warp stages its q rows in f32. A warp takes its tile's scores on the
+// CUDA cores in the reference's order (scores_seq: lanes over keys, an
+// fmaf a dim in turn; the causal tiles skip the 32-key slots past their
+// diagonal), x scale after the sum, the causal mask and keys past S at
+// -inf, then the row loop's softmax (softmax_rows: p comes out bit for
+// bit as the CUDA-core kernel's, so a p near a bf16 tie rounds to the
+// reference's side), writes bf16 p to its scratch and runs PV on the
+// tensor cores (NC a template parameter, every loop over it unrolled
+// without a guard: p through ldmatrix, V through ldmatrix.trans). The
+// context leaves as bf16 or int8 in 16-byte stores or as f32 in 8-byte
+// ones (32 contiguous bytes a row a quad). The scale multiplies every
+// score (1 where the caller gives none: x 1 is exact), and the output
+// kind is a run-time switch after PV. Scores on the tensor cores
+// (qk_chunk) took 0.08 ms at 512 x 77 x 8 but moved the bf16 context past
+// 1 ulp + 1e-3 on 3-45 elements of each batch measured, and a
+// warp-uniform dispatch to t + 1 key chunks for causal tile t was 4-13%
+// slower than all NC (the block waits for its last tile), on an H100
+// 80GB HBM3 at 700 W (jcf_tpu_torch/scripts/ab_attention.py,
+// score_order.py).
+//
+// f32 rows, and bf16 at another head dim: masked_attention_kernel, on the
+// CUDA cores from shared memory (one warp per query row, lanes over keys
+// for the scores with K stored transposed, lanes over head dims for PV;
+// the port refuses TF32 for f32 products). qkv is read once (16-byte
+// loads) and the context written once. Shared memory: 3 S D sizeof(T) +
+// 8 S 4 B, 61,600 B in f32 at S = 77.
 
 constexpr int CA_WARPS = 8;
 constexpr int CA_KEYS = 4;  // keys per lane: S <= 128
@@ -172,6 +202,83 @@ __global__ void __launch_bounds__(CA_WARPS * 32) masked_attention_kernel(
     }
     __syncwarp();
   }
+}
+
+constexpr int MA_LD = ATT_D + 8;  // padded shared row of K and V (bf16): conflict-free ldmatrix
+
+// bytes of a warp's scratch: its 16 query rows in f32 for the scores, then
+// its 16 rows of bf16 p (KP + 8 a row) for PV
+__host__ __device__ constexpr int ma_warp_bytes(int kp) {
+  return 16 * ATT_D * 4 > 16 * (kp + 8) * 2 ? 16 * ATT_D * 4 : 16 * (kp + 8) * 2;
+}
+
+// NC: 16-key chunks, ceil(S / 16); as many warps, one query tile each;
+// the register budget leaves each thread at least 128. out_kind: 0 bf16,
+// 1 f32, 2 int8 x ctx_inv
+template <int NC, bool CAUSAL>
+__global__ void __launch_bounds__(NC * 32, 16 / NC > 1 ? 16 / NC : 1)
+    masked_attention_mma_kernel(const bf16* __restrict__ qkv,       // [n_seq * S, 3E]
+                                const float* __restrict__ ctx_inv,  // scalar (int8 context)
+                                void* __restrict__ out,             // [n_seq * S, E]
+                                int S, int H, float scale, int out_kind) {
+  constexpr int KP = 16 * NC, KS = (KP + 31) / 32, LDP = KP + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [KP][MA_LD] K, then [KP][MA_LD] V
+  const bf16* vs = ks + KP * MA_LD;
+  const int E = H * ATT_D, E3 = 3 * E;
+  const int head = blockIdx.x % H;
+  const long long seq = blockIdx.x / H;
+  const bf16* base = qkv + seq * S * E3 + head * ATT_D;
+  for (int c = threadIdx.x; c < 2 * KP * 8; c += blockDim.x) {
+    const int r = c >> 3, t = r >= KP, row = r - t * KP, col = (c & 7) * 8;
+    const bool ok = row < S;
+    cp_async16(ks + r * MA_LD + col, ok ? base + (long long)row * E3 + (1 + t) * E + col : qkv,
+               ok ? 16 : 0);
+  }
+  cp_async_commit();
+  const int lane = threadIdx.x & 31, m0 = (threadIdx.x >> 5) * 16;
+  unsigned char* wb =
+      smem_raw + 2 * KP * MA_LD * sizeof(bf16) + (threadIdx.x >> 5) * ma_warp_bytes(KP);
+  float* qf = reinterpret_cast<float*>(wb);  // [16][64] q in f32, then [16][LDP] bf16 p
+  bf16* ps = reinterpret_cast<bf16*>(wb);
+  stage_q_f32(qf, base + (long long)m0 * E3, E3, S - m0);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // scores and softmax in the reference's order (lanes over keys)
+  float sc[16][KS];
+  scores_seq<KS, MA_LD>(sc, qf, ks, CAUSAL ? min(S, m0 + 16) : S, KP);
+#pragma unroll
+  for (int r = 0; r < 16; ++r)
+#pragma unroll
+    for (int sl = 0; sl < KS; ++sl) {
+      const int j = 32 * sl + lane;
+      sc[r][sl] = j < S && (!CAUSAL || j <= m0 + r) ? __fmul_rn(sc[r][sl], scale) : -INFINITY;
+    }
+  softmax_rows<KS>(sc);
+  __syncwarp();  // q read: its scratch takes p
+#pragma unroll
+  for (int r = 0; r < 16; ++r)
+#pragma unroll
+    for (int sl = 0; sl < KS; ++sl)
+      if (32 * sl + lane < KP) ps[r * LDP + 32 * sl + lane] = __float2bfloat16_rn(sc[r][sl]);
+  __syncwarp();
+
+  // PV on the tensor cores: bf16 p through ldmatrix, V through ldmatrix.trans
+  float acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+  smem_tile<NC, LDP, MA_LD, false, false>(acc, ps, nullptr, vs);
+
+  const long long o = (seq * S + m0) * E + head * ATT_D;
+  if (out_kind == 0)
+    store_tile_bf16(acc, static_cast<bf16*>(out) + o, E, S - m0);
+  else if (out_kind == 1)
+    store_tile_f32(acc, static_cast<float*>(out) + o, E, S - m0);
+  else
+    store_tile_int8(acc, *ctx_inv, static_cast<int8_t*>(out) + o, E, S - m0);
 }
 
 // ---------------------------------------------------------------------------
@@ -346,6 +453,36 @@ int launch_masked(const void* qkv, const void* ctx_inv, void* out, int n_seq, in
   return (int)cudaGetLastError();
 }
 
+template <int NC, bool CAUSAL>
+int launch_masked_mma(const void* qkv, const void* ctx_inv, void* out, int n_seq, int H,
+                      int S, float scale, int out_kind, cudaStream_t stream) {
+  const size_t smem =
+      (size_t)2 * 16 * NC * MA_LD * sizeof(bf16) + (size_t)NC * ma_warp_bytes(16 * NC);
+  const int err = set_smem(masked_attention_mma_kernel<NC, CAUSAL>, smem);
+  if (err) return err;
+  masked_attention_mma_kernel<NC, CAUSAL><<<(unsigned)((long long)n_seq * H), NC * 32, smem,
+                                            stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(ctx_inv), out, S, H, scale,
+      out_kind);
+  return (int)cudaGetLastError();
+}
+
+// the chunk count the shape needs: ceil(S / 16), S <= 128
+template <bool CAUSAL>
+int dispatch_masked_mma(const void* qkv, const void* ctx_inv, void* out, int n_seq, int S, int H,
+                        float scale, int kind, cudaStream_t st) {
+  switch ((S + 15) / 16) {
+    case 1: return launch_masked_mma<1, CAUSAL>(qkv, ctx_inv, out, n_seq, H, S, scale, kind, st);
+    case 2: return launch_masked_mma<2, CAUSAL>(qkv, ctx_inv, out, n_seq, H, S, scale, kind, st);
+    case 3: return launch_masked_mma<3, CAUSAL>(qkv, ctx_inv, out, n_seq, H, S, scale, kind, st);
+    case 4: return launch_masked_mma<4, CAUSAL>(qkv, ctx_inv, out, n_seq, H, S, scale, kind, st);
+    case 5: return launch_masked_mma<5, CAUSAL>(qkv, ctx_inv, out, n_seq, H, S, scale, kind, st);
+    case 6: return launch_masked_mma<6, CAUSAL>(qkv, ctx_inv, out, n_seq, H, S, scale, kind, st);
+    case 7: return launch_masked_mma<7, CAUSAL>(qkv, ctx_inv, out, n_seq, H, S, scale, kind, st);
+    default: return launch_masked_mma<8, CAUSAL>(qkv, ctx_inv, out, n_seq, H, S, scale, kind, st);
+  }
+}
+
 template <typename T, typename O>
 int dispatch_masked(const void* qkv, const void* ctx_inv, void* out, int n_seq, int S, int H,
                     int D, float scale, int causal, int scaled, cudaStream_t st) {
@@ -394,14 +531,24 @@ extern "C" int jcf_ln_affine(const void* x, const void* scale, const void* bias,
 
 // f32: f32 rows (the context in f32), else bf16 rows with the context
 // stored as out_kind: 0 bf16, 1 f32, 2 int8 x ctx_inv. causal: the causal
-// mask, else none; scaled: the scores x scale
+// mask, else none; scaled: the scores x scale. mma: the tensor-core kernel
+// (bf16 rows, D = 64, qkv and out 16-byte aligned; the caller's route),
+// else the CUDA-core row loop
 extern "C" int jcf_masked_attention(const void* qkv, const void* ctx_inv, void* out, int n_seq,
                                     int S, int H, int D, float scale, int causal, int scaled,
-                                    int f32, int out_kind, void* stream) {
+                                    int f32, int out_kind, int mma, void* stream) {
   if (S < 1 || S > 32 * CA_KEYS || D % (f32 ? 4 : 8) || (f32 && out_kind != 0) || out_kind < 0 ||
       out_kind > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (mma) {
+    if (f32 || D != ATT_D || (long long)n_seq * H > 0x7fffffffLL || ((uintptr_t)qkv & 15) ||
+        ((uintptr_t)out & 15))
+      return (int)cudaErrorInvalidValue;
+    const float sc = scaled ? scale : 1.0f;  // x 1 is exact
+    return causal ? dispatch_masked_mma<true>(qkv, ctx_inv, out, n_seq, S, H, sc, out_kind, st)
+                  : dispatch_masked_mma<false>(qkv, ctx_inv, out, n_seq, S, H, sc, out_kind, st);
+  }
   if (f32)
     return dispatch_masked<float, float>(qkv, ctx_inv, out, n_seq, S, H, D, scale, causal, scaled,
                                          st);

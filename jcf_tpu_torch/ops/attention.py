@@ -4,9 +4,11 @@ the attention of sequences of 128 tokens or more.
 
 ``packed_attention`` is differentiable. Its forward launches the CUDA
 kernel of ``csrc/packed_attn.cu`` (replaces ``_packed_attn_kernel``) and
-its backward the backward kernel of the same file (replaces the XLA VJP of
-``_packed_attention_ref``); on CPU tensors both run their plain versions
-``packed_attention_plain`` and ``packed_attention_bwd_plain``.
+its backward a backward kernel of the same file (replaces the XLA VJP of
+``_packed_attention_ref``): in bf16 at head dim 64 the tensor-core kernel,
+else the CUDA-core one (``attention_route``, counted by route); on CPU
+tensors both run their plain versions ``packed_attention_plain`` and
+``packed_attention_bwd_plain``.
 
 ``fused_attention`` is K8 over [B, H, S, D] heads: on CUDA tensors it
 launches a kernel of ``csrc/blocked_attn.cu`` (replaces
@@ -29,10 +31,24 @@ from jcf_tpu_torch.ops.layers import linear
 from jcf_tpu_torch.ops.quant import int8_linear
 from jcf_tpu_torch.peft.lora import lora_out_adjustment, lora_qkv_adjustment
 
-# launches of this module's kernels (CUDA tensors only)
-LAUNCHES = {"packed_attention": 0, "packed_attention_bwd": 0, "blocked_attention": 0}
+# the attention kernels' two routes: "mma" on the tensor cores (bf16 at
+# head dim 64 with 16-byte aligned rows), "rowloop" on the CUDA cores
+ROUTES = ("mma", "rowloop")
+# launches of this module's kernels (CUDA tensors only); K7's backward
+# also by route, as "packed_attention_bwd/<route>"
+LAUNCHES = {"packed_attention": 0, "packed_attention_bwd": 0, "blocked_attention": 0,
+            **{f"packed_attention_bwd/{r}": 0 for r in ROUTES}}
 # sequences this long or longer take K8, shorter ones K7
 BLOCKED_MIN_SEQ = 128
+
+
+def attention_route(dtype: torch.dtype, head_dim: int, *ptrs: int) -> str:
+    """The route of an attention kernel that has both: "mma" (the tensor
+    cores) for bf16 at head dim 64 with every pointer in ``ptrs`` 16-byte
+    aligned, else "rowloop" (the CUDA cores; f32 products stay off the
+    tensor cores, which would take them in TF32)."""
+    aligned = all(p % 16 == 0 for p in ptrs)
+    return "mma" if dtype == torch.bfloat16 and head_dim == 64 and aligned else "rowloop"
 
 
 def causal_mask(length: int, device=None) -> torch.Tensor:
@@ -143,13 +159,15 @@ def packed_attention_bwd(qkv: torch.Tensor, n_heads: int, bias: torch.Tensor,
         raise ValueError(f"dout must be {qkv.dtype} ({b}, {s}, {h * d}) on qkv's device")
     qkv, bias, dout = qkv.contiguous(), bias.contiguous(), dout.contiguous()
     dqkv = torch.empty_like(qkv)
+    route = attention_route(qkv.dtype, d, qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr())
     lib = _build.load()
     err = lib.jcf_packed_attention_bwd(qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(),
                                        dqkv.data_ptr(), b, s, h, d, 1.0 / math.sqrt(d),
-                                       int(qkv.dtype == torch.bfloat16),
+                                       int(qkv.dtype == torch.bfloat16), int(route == "mma"),
                                        _build.stream_ptr(qkv.device))
     _build.check(err, "packed_attention_bwd")
     LAUNCHES["packed_attention_bwd"] += 1
+    LAUNCHES[f"packed_attention_bwd/{route}"] += 1
     return dqkv
 
 

@@ -102,7 +102,7 @@ import math
 import torch
 
 from jcf_tpu_torch import _build
-from jcf_tpu_torch.ops.attention import causal_mask
+from jcf_tpu_torch.ops.attention import ROUTES, attention_route, causal_mask
 from jcf_tpu_torch.ops.bf16_gemm import (
     bf16_gemm_bias,
     bf16_gemm_gelu,
@@ -128,7 +128,8 @@ from jcf_tpu_torch.ops.layers import GELU_TANH_COEF, LN_EPS, layer_slice
 # tree's (``ln_affine_quant_rows``, ``*_scaled``: the scores x 1/sqrt(d));
 # f32 rows (``*_f32`` of the LN kernels); the masked attention of the
 # int8 halves (``masked_attention``) and of the float halves
-# (``causal_attention``, and ``head_attention`` without a mask)
+# (``causal_attention``, and ``head_attention`` without a mask), these
+# also by route (``attention_route``) as "<name>/mma" or "<name>/rowloop"
 LAUNCHES = {"ln_quant": 0, "ln_quant_rows": 0, "ln_quant_f32": 0, "ln_quant_rows_f32": 0,
             "ln_affine_quant_rows": 0, "ln_affine_quant_rows_f32": 0, "quant_rows": 0,
             "gelu_quant_rows": 0, "attention": 0, "attention_f32": 0, "attention_scaled": 0,
@@ -139,6 +140,9 @@ LAUNCHES = {"ln_quant": 0, "ln_quant_rows": 0, "ln_quant_f32": 0, "ln_quant_rows
             "head_attention_f32": 0, "pair_attention_bf16": 0, "pair_attention_f32": 0,
             "block_int8": 0, "layer_fused_int8": 0, "stream_tower_int8": 0, "block_bf16": 0,
             "block_f32": 0}
+MASKED_KERNELS = ("masked_attention", "masked_attention_f32", "causal_attention",
+                  "causal_attention_f32", "head_attention", "head_attention_f32")
+LAUNCHES.update({f"{k}/{r}": 0 for k in MASKED_KERNELS for r in ROUTES})
 # the float kernels' variants by dtype: the launch count's suffix and the
 # C entries' f32 flag
 _FLOAT = {torch.bfloat16: ("", 0), torch.float32: ("_f32", 1)}
@@ -535,9 +539,12 @@ def masked_attention_plain(qkv: torch.Tensor, s: int, n_heads: int, *, causal: b
 
 def masked_attention(qkv: torch.Tensor, s: int, n_heads: int, *, causal: bool, scale=None,
                      ctx_inv=None, f32_ctx: bool = False) -> torch.Tensor:
-    """Masked attention wrapper: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. S <= 128, any head count, a head dim
-    divisible by 8; the f32 and int8 contexts from bf16 qkv only."""
+    """Masked attention wrapper: a CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. S <= 128, any head count, a head dim
+    divisible by 8; the f32 and int8 contexts from bf16 qkv only. bf16 qkv
+    at head dim 64 takes the tensor-core kernel, f32 rows and other head
+    dims the CUDA-core row loop (``attention_route``; counted as
+    "<name>/mma" or "<name>/rowloop")."""
     if not qkv.is_cuda:
         return masked_attention_plain(qkv, s, n_heads, causal=causal, scale=scale,
                                       ctx_inv=ctx_inv, f32_ctx=f32_ctx)
@@ -558,15 +565,20 @@ def masked_attention(qkv: torch.Tensor, s: int, n_heads: int, *, causal: bool, s
         name, out_kind = ("causal_attention" if causal else "head_attention") + suffix, 0
         out_dtype = qkv.dtype
     qkv = qkv.contiguous()
+    if qkv.data_ptr() % 16:
+        raise ValueError(f"masked attention kernel loads 16-byte aligned rows; qkv is "
+                         f"{qkv.data_ptr() % 16} bytes off")
     out = torch.empty((rows, e), dtype=out_dtype, device=qkv.device)
+    route = attention_route(qkv.dtype, d, qkv.data_ptr(), out.data_ptr())
     lib = _build.load()
     err = lib.jcf_masked_attention(qkv.data_ptr(), ctx_inv.data_ptr() if ctx_inv is not None else None,
                                    out.data_ptr(), rows // s, s, n_heads, d,
                                    1.0 if scale is None else scale, int(causal),
-                                   int(scale is not None), f32, out_kind,
+                                   int(scale is not None), f32, out_kind, int(route == "mma"),
                                    _build.stream_ptr(qkv.device))
     _build.check(err, name)
     LAUNCHES[name] += 1
+    LAUNCHES[f"{name}/{route}"] += 1
     return out
 
 

@@ -18,7 +18,18 @@ Seeded inputs, ``--crops`` N (default 2048, b256 x 8 views):
   towers at b1024 x 8 views);
 - K3's ``attention`` at 4N x 50 with the int8 context (a static scale)
   and with the f32 context (``attention_f32``, dynamic);
-- probe P3's ``batched_dot_mma`` at 6N heads of [56, 64].
+- probe P3's ``batched_dot_mma`` at 6N heads of [56, 64];
+- the masked attention (``ops.block_kernel.masked_attention``) on bf16
+  qkv at N/4 prompts x 77 tokens x 8 heads, causal, the scores x 1/8
+  (the text towers at 512 prompts): the f32 context
+  (``masked_attention_f32``), the int8 context (``masked_attention``)
+  and the bf16 one (``causal_attention``), and ``causal_attention_f32``
+  on the same rows in f32; and at N/2 crops x 50 tokens x 3 heads without
+  a mask (``head_attention``, the odd-head float tower at 1024 crops);
+- K7 (``ops.attention.packed_attention_fwd`` / ``_bwd``) in bf16 and f32
+  at the stage-1 step's attention shapes scaled by N / 2048: the text
+  tower's 403 x 77 x 8 heads under the causal mask, the vision tower's
+  256 x 50 x 12 heads with a zero bias.
 Each prints the median, min and max ms per launch over ``--rounds``
 rounds of ``--reps`` launches (CUDA events; on the CPU the host clock,
 where the wrappers run their plain versions) and a checksum of the
@@ -138,6 +149,40 @@ def run(root: str = ROOT, device="cuda", crops: int = 2048, rounds: int = 7,
     heads = 6 * crops
     q, k, v = p3.inputs(heads, device)
     timed(f"batched_dot_mma, {heads} heads x {p3.S}", lambda: p3.batched_dot_mma(q, k, v))
+    del q, k, v
+
+    prompts, s, th = max(1, crops // 4), 77, 8
+    qkv = (torch.randn(prompts * s, 3 * th * D, device=device, generator=gen) * 1.5).bfloat16()
+    kw = dict(causal=True, scale=1.0 / 8.0)
+    ctx_inv = torch.tensor([[20.0]], device=device)
+    timed(f"masked_attention_f32 (f32 context), {prompts} x {s} x {th}, causal",
+          lambda: bk.masked_attention(qkv, s, th, f32_ctx=True, **kw))
+    timed(f"masked_attention (int8 context), {prompts} x {s} x {th}, causal",
+          lambda: bk.masked_attention(qkv, s, th, ctx_inv=ctx_inv, **kw))
+    timed(f"causal_attention bf16, {prompts} x {s} x {th}",
+          lambda: bk.masked_attention(qkv, s, th, **kw))
+    q32 = qkv.float()
+    timed(f"causal_attention_f32, {prompts} x {s} x {th}",
+          lambda: bk.masked_attention(q32, s, th, **kw))
+    del qkv, q32
+    n3, s = max(1, crops // 2), 50
+    qkv = (torch.randn(n3 * s, 3 * 3 * D, device=device, generator=gen) * 1.5).bfloat16()
+    timed(f"head_attention bf16, {n3} x {s} x 3",
+          lambda: bk.masked_attention(qkv, s, 3, causal=False, scale=1.0 / 8.0))
+    del qkv
+
+    for tower, b, s, h, causal in (("text", max(1, crops * 403 // 2048), 77, 8, True),
+                                   ("vision", max(1, crops // 8), 50, 12, False)):
+        bias = at.causal_mask(s, device) if causal else torch.zeros(s, s, device=device)
+        qkv = torch.randn(b, s, 3 * h * D, device=device, generator=gen)
+        dout = torch.randn(b, s, h * D, device=device, generator=gen)
+        for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            x, dx = qkv.to(dtype), dout.to(dtype)
+            timed(f"K7 forward {name} {tower}, {b} x {s} x {h}",
+                  lambda: at.packed_attention_fwd(x, h, bias))
+            timed(f"K7 backward {name} {tower}, {b} x {s} x {h}",
+                  lambda: at.packed_attention_bwd(x, h, bias, dx))
+        del qkv, dout, x, dx
     return res
 
 

@@ -164,22 +164,78 @@ def _f32_close(got, ref):
     assert bool(((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,h,causal", [(77, 8, True), (50, 12, False), (23, 3, True)])
-def test_packed_attention_kernels(cuda, dtype, s, h, causal):
+def _k7_bias(kind, s, device):
+    """K7's additive [S, S] bias: the causal mask, zeros, or random finite
+    values (seeded)."""
+    if kind == "causal":
+        return at.causal_mask(s, device)
+    if kind == "zero":
+        return torch.zeros(s, s, device=device)
+    return torch.randn(s, s, device=device, generator=torch.Generator(device=device).manual_seed(s))
+
+
+# bf16 at S = 23, 50, 77 and 128 with each bias (the tensor-core backward);
+# f32 up to 77 (the CUDA-core backward's f32 tiles stop short of 128 at D = 64)
+K7_CASES = [(dt, s, h, b) for s, h in ((23, 3), (50, 12), (77, 8), (128, 2))
+            for b in ("causal", "zero", "random") for dt in (torch.float32, torch.bfloat16)
+            if dt == torch.bfloat16 or s < 128]
+
+
+@pytest.mark.parametrize("dtype,s,h,bias_kind", K7_CASES)
+def test_packed_attention_kernels(cuda, dtype, s, h, bias_kind):
     """K7 forward and backward vs the plain forward and autograd through
-    it: f32 within 1e-5 (+ 1e-5 relative), bf16 within 1 bf16 ulp + 1e-3."""
+    it: f32 within 1e-5 (+ 1e-5 relative), bf16 within 1 bf16 ulp + 1e-3;
+    the bf16 backward also at check_grad_bf16's bar (per head row of dQ,
+    dK, dV cos >= 0.999, rows the mask leaves at zero within 1e-6) and on
+    the tensor-core route, the f32 one on the row loop."""
     g = torch.Generator(device=cuda).manual_seed(s + h)
     b = 5
     qkv = torch.randn(b, s, 3 * h * 64, device=cuda, generator=g).to(dtype)
     dout = torch.randn(b, s, h * 64, device=cuda, generator=g).to(dtype)
-    bias = at.causal_mask(s, cuda) if causal else torch.zeros(s, s, device=cuda)
+    bias = _k7_bias(bias_kind, s, cuda)
     close = _f32_close if dtype == torch.float32 else _bf16_close
     close(at.packed_attention_fwd(qkv, h, bias).float(),
           at.packed_attention_plain(qkv, h, bias).float())
     x = qkv.clone().requires_grad_(True)
     ref, = torch.autograd.grad(at.packed_attention_plain(x, h, bias), x, dout)
-    close(at.packed_attention_bwd(qkv, h, bias, dout).float(), ref.float())
+    before = dict(at.LAUNCHES)
+    got = at.packed_attention_bwd(qkv, h, bias, dout)
+    close(got.float(), ref.float())
+    route = "mma" if dtype == torch.bfloat16 else "rowloop"
+    assert {k: at.LAUNCHES[k] - before[k] for k in before if at.LAUNCHES[k] != before[k]} == {
+        "packed_attention_bwd": 1, f"packed_attention_bwd/{route}": 1}
+    if dtype == torch.bfloat16:
+        gr, rr = got.float().reshape(-1, 64), ref.float().reshape(-1, 64)
+        live = rr.norm(dim=-1) > 0
+        cos = torch.nn.functional.cosine_similarity(gr[live], rr[live])
+        assert float(cos.min()) >= 0.999
+        assert not bool((~live).any()) or float(gr[~live].abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("d,dtype,offset", [(32, torch.bfloat16, 0), (64, torch.float32, 0),
+                                            (64, torch.bfloat16, 2), (64, torch.bfloat16, 0)])
+def test_packed_attention_bwd_routes(cuda, d, dtype, offset):
+    """K7's backward takes the tensor cores for bf16 at head dim 64 with
+    16-byte aligned rows and the CUDA-core kernel otherwise (head dim 32,
+    f32, qkv 4 bytes off alignment), counted by route; both agree with
+    autograd through the plain forward (f32 1e-5, bf16 1 ulp + 1e-3)."""
+    g = torch.Generator(device=cuda).manual_seed(d + offset)
+    b, s, h = 4, 50, 3
+    n = b * s * 3 * h * d
+    buf = torch.randn(n + 8, device=cuda, generator=g).to(dtype)
+    qkv = buf[offset:offset + n].view(b, s, 3 * h * d)
+    assert qkv.is_contiguous()
+    dout = torch.randn(b, s, h * d, device=cuda, generator=g).to(dtype)
+    bias = at.causal_mask(s, cuda)
+    x = qkv.clone().requires_grad_(True)
+    ref, = torch.autograd.grad(at.packed_attention_plain(x, h, bias), x, dout)
+    before = dict(at.LAUNCHES)
+    got = at.packed_attention_bwd(qkv, h, bias, dout)
+    (_f32_close if dtype == torch.float32 else _bf16_close)(got.float(), ref.float())
+    route = at.attention_route(dtype, d, qkv.data_ptr(), dout.data_ptr())
+    assert route == ("mma" if (d, dtype, offset) == (64, torch.bfloat16, 0) else "rowloop")
+    key = f"packed_attention_bwd/{route}"
+    assert at.LAUNCHES[key] == before[key] + 1
 
 
 def test_packed_attention_autograd_launches_both_kernels(cuda):
@@ -780,7 +836,8 @@ def test_pair_attention_refuses_bf16_off_head_dim_64(cuda):
 def test_float_tower_kernels_vs_plain(cuda, dtype, causal):
     """A 2-layer full-width float tower (ViT-B/32's vision tower at S = 50
     mask-free, its text tower at 77 causal): the kernels vs the plain
-    versions on the CPU; 7 launches a layer, nothing of K7."""
+    versions on the CPU; 7 launches a layer (the causal attention also
+    counted by its route), nothing of K7."""
     cfg = CLIPConfig(vision_layers=2, text_layers=2)
     p = init_clip_params(0, cfg)
     blocks, s, h, e = ((p["text"]["blocks"], 77, 8, 512) if causal
@@ -794,7 +851,14 @@ def test_float_tower_kernels_vs_plain(cuda, dtype, causal):
     got = bk.run_float_tower(x.to(cuda), tree_to(blocks, cuda), h, s=s, causal=causal).cpu()
     after = {k: v for c in counts for k, v in c.items()}
     launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-    assert sum(launched.values()) == 2 * 7 and "packed_attention" not in launched
+    routes = {k: v for k, v in launched.items() if k.endswith(("/mma", "/rowloop"))}
+    assert sum(launched.values()) - sum(routes.values()) == 2 * 7
+    assert "packed_attention" not in launched
+    if causal:  # bf16 on the tensor cores, f32 in the row loop
+        name = "causal_attention/mma" if dtype == torch.bfloat16 else "causal_attention_f32/rowloop"
+        assert routes == {name: 2}
+    else:
+        assert routes == {}
     cos = torch.nn.functional.cosine_similarity(got.float(), ref.float())
     assert float(cos.min()) >= (0.99999 if dtype == torch.float32 else 0.999)
 
@@ -864,13 +928,16 @@ def test_ln_affine_quant_rows_kernel(cuda, m, e, dtype):
                                  f"ln_quant{sfx}": 1}
 
 
-@pytest.mark.parametrize("s,h,causal", [(77, 8, True), (17, 3, False), (50, 1, False)])
+@pytest.mark.parametrize("s", [17, 50, 64, 77, 127, 128])
+@pytest.mark.parametrize("h", [3, 8])
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("scaled", [True, False])
 def test_masked_attention_kernel(cuda, s, h, causal, scaled):
-    """Kernel B vs its plain version on bf16 qkv: the f32 context within
-    1e-5 + 1e-5 |ref| + 2^-7 sum_j p_j |v_j| (a p rounding to bf16 across
-    a tie), the int8 context within 1 on <= 1e-2; the float halves'
-    variants (bf16 within 1 ulp + 1e-3 + that slack, f32 within 1e-5)."""
+    """Kernel B vs its plain version on bf16 qkv at head dim 64 (the
+    tensor-core kernel, every output kind): the f32 context within 1e-5 +
+    1e-5 |ref| + 2^-7 sum_j p_j |v_j| (a p rounding to bf16 across a tie),
+    the int8 context within 1 on <= 1e-2, bf16 within 1 ulp + 1e-3 + that
+    slack; f32 qkv (the row loop) within 1e-5 + 1e-5 |ref|."""
     g = torch.Generator(device=cuda).manual_seed(s + h)
     e, seqs = 64 * h, 23
     qkv = (torch.randn(seqs * s, 3 * e, device=cuda, generator=g) * 1.5).bfloat16()
@@ -893,7 +960,40 @@ def test_masked_attention_kernel(cuda, s, h, causal, scaled):
     _f32_close(bk.masked_attention(q32, s, h, **kw), bk.masked_attention_plain(q32, s, h, **kw))
     name = "causal_attention" if causal else "head_attention"
     assert _launched(before) == {"masked_attention_f32": 1, "masked_attention": 1, name: 1,
-                                 f"{name}_f32": 1}
+                                 f"{name}_f32": 1, "masked_attention_f32/mma": 1,
+                                 "masked_attention/mma": 1, f"{name}/mma": 1,
+                                 f"{name}_f32/rowloop": 1}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_masked_attention_row_loop_route(cuda, causal):
+    """bf16 qkv at head dim 32 takes the CUDA-core row loop (counted
+    "/rowloop"), to the same bars as the tensor-core kernel above; qkv off
+    16-byte alignment (both routes load 16 bytes at a time) is refused
+    before any launch."""
+    g = torch.Generator(device=cuda).manual_seed(32)
+    s, h, seqs, d = 50, 3, 7, 32
+    e = d * h
+    qkv = (torch.randn(seqs * s, 3 * e, device=cuda, generator=g) * 1.5).bfloat16()
+    assert bk.attention_route(qkv.dtype, d, qkv.data_ptr()) == "rowloop"
+    kw = dict(causal=causal, scale=d ** -0.5)
+    absv = torch.cat([qkv[:, : 2 * e], qkv[:, 2 * e :].abs()], dim=1)
+    slack = 2.0**-7 * bk.masked_attention_plain(absv, s, h, f32_ctx=True, **kw)
+    before = dict(bk.LAUNCHES)
+    got = bk.masked_attention(qkv, s, h, f32_ctx=True, **kw)
+    ref = bk.masked_attention_plain(qkv, s, h, f32_ctx=True, **kw)
+    assert bool(((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs() + slack).all())
+    ctx_inv = torch.tensor([[30.0]], device=cuda)
+    _int8_close(bk.masked_attention(qkv, s, h, ctx_inv=ctx_inv, **kw),
+                bk.masked_attention_plain(qkv, s, h, ctx_inv=ctx_inv, **kw), 1e-2)
+    assert _launched(before) == {"masked_attention_f32": 1, "masked_attention": 1,
+                                 "masked_attention_f32/rowloop": 1, "masked_attention/rowloop": 1}
+    n = seqs * s * 3 * 3 * 64
+    off = (torch.randn(n + 8, device=cuda, generator=g)).bfloat16()[2:2 + n].view(seqs * s, -1)
+    before = dict(bk.LAUNCHES)
+    with pytest.raises(ValueError):
+        bk.masked_attention(off, s, 3, f32_ctx=True, **kw)
+    assert bk.LAUNCHES == before
 
 
 @pytest.mark.parametrize("m,n,k", [(200, 72, 96), (77, 512, 2048), (130, 768, 3072)])
@@ -963,7 +1063,8 @@ def test_int8_text_tower_on_the_card(cuda, dtype):
                              blocks=tree_to(blocks, cuda), causal=True).cpu()
     sfx = "_f32" if dtype == torch.float32 else ""
     assert _launched(before) == {f"ln_affine_quant_rows{sfx}": 4, "masked_attention_f32": 2,
-                                 "quant_rows": 2, "gelu_quant_rows": 2}
+                                 "masked_attention_f32/mma": 2, "quant_rows": 2,
+                                 "gelu_quant_rows": 2}
     res = "int8_gemm_residual_f32_rows" if dtype == torch.float32 else "int8_gemm_residual_rows"
     assert {k: ig.LAUNCHES[k] - before_g[k] for k in before_g if ig.LAUNCHES[k] != before_g[k]} == {
         "int8_gemm_bf16_rows": 2, res: 4, "int8_gemm_f32_rows": 2}
