@@ -149,10 +149,10 @@
    counted, per-view features against the plain route and the halves
    (the 3-head "full" engine's halves counted too: the int8-context
    masked attention on the tensor-core route), img/s. The phases that
-   run the masked attention or K7's backward (5, 5b, 12a, 12b, 12d) print
-   each kernel's route counters ("<kernel>/mma", "<kernel>/rowloop")
-   beside its launches and fail unless bf16 at head dim 64 took the
-   tensor cores.
+   run the masked attention, K3's attention or K7 (3, 5, 5b, 8, 9, 10,
+   10b, 10c, 12a-d, 13d) print each kernel's route counters
+   ("<kernel>/mma", "<kernel>/rowloop") beside its launches and fail
+   unless bf16 at head dim 64 took the tensor cores.
 13. ``jcf-ood`` end to end. 13a: every committed JPEG
    (``tests/fixtures/jpeg``: the six fixtures and the four small ones
    under ``extra/``: progressive, restart markers, 4:2:2, odd size)
@@ -244,7 +244,9 @@ Every weight and input is made from seed 0 (the LoRA factors from seed
 final line, when no CUDA device is present or any phase fails. Before the
 last line it prints the script's wall time, the kernels JSON line
 (launches on the path, error against the plain version, kernel / plain /
-library-call times and the card's bound for the same work; the K9 int8
+library-call times and the card's bound for the same work; for the
+attention kernels with two routes, the path's launches on each as
+``routes``; the K9 int8
 kernels once more per mode phase 14 adds, as "<kernel>/<mode>", and per
 branch off the folded dense route, as "<kernel>/<branch>"; the residual
 GEMMs at c_proj's shape, their out-proj shape in the log; K7 at the text
@@ -302,7 +304,7 @@ KERNELS = {
     "ln_quant": ("serving", "jcf_tpu_torch/csrc/block.cu", "jcf_tpu/ops/block_kernel.py:565"),
     "int8_gemm_bf16": ("serving", "jcf_tpu_torch/csrc/int8_gemm.cu",
                        "jcf_tpu/ops/block_kernel.py:565"),
-    "attention": ("serving", "jcf_tpu_torch/csrc/block.cu", "jcf_tpu/ops/block_kernel.py:322"),
+    "attention": ("serving", "jcf_tpu_torch/csrc/pair_mma.cuh", "jcf_tpu/ops/block_kernel.py:322"),
     "int8_gemm_residual": ("serving", "jcf_tpu_torch/csrc/int8_gemm.cu",
                            "jcf_tpu/ops/block_kernel.py:643"),
     "int8_gemm_gelu_quant": ("serving", "jcf_tpu_torch/csrc/int8_gemm.cu",
@@ -343,7 +345,7 @@ KERNELS = {
                       "jcf_tpu/ops/block_kernel.py:565"),
     "int8_gemm_bf16_rows": ("serving_dynamic", "jcf_tpu_torch/csrc/int8_gemm.cu",
                             "jcf_tpu/ops/block_kernel.py:565"),
-    "attention_f32": ("serving_dynamic", "jcf_tpu_torch/csrc/block.cu",
+    "attention_f32": ("serving_dynamic", "jcf_tpu_torch/csrc/pair_mma.cuh",
                       "jcf_tpu/ops/block_kernel.py:322"),
     "quant_rows": ("serving_dynamic", "jcf_tpu_torch/csrc/block.cu", "jcf_tpu/ops/block_kernel.py:565"),
     "int8_gemm_residual_rows": ("serving_dynamic", "jcf_tpu_torch/csrc/int8_gemm.cu",
@@ -367,7 +369,7 @@ KERNELS = {
                       "jcf_tpu/ops/block_kernel.py:528"),
     "pair_attention_f32": ("serving_f32", "jcf_tpu_torch/csrc/text_block.cu",
                            "jcf_tpu/ops/block_kernel.py:322"),
-    "pair_attention_bf16": ("serving_bf16", "jcf_tpu_torch/csrc/text_block.cu",
+    "pair_attention_bf16": ("serving_bf16", "jcf_tpu_torch/csrc/pair_mma.cuh",
                             "jcf_tpu/ops/block_kernel.py:322"),
     "f32_gemm_gelu": ("serving_f32", "jcf_tpu_torch/csrc/f32_gemm.cu",
                       "jcf_tpu/ops/block_kernel.py:704"),
@@ -389,7 +391,7 @@ KERNELS = {
                                     "jcf_tpu/ops/block_kernel.py:643"),
     "ln_affine_quant_rows": ("tower_unfolded", "jcf_tpu_torch/csrc/block.cu",
                              "jcf_tpu/ops/block_kernel.py:565"),
-    "attention_scaled_f32": ("tower_unfolded", "jcf_tpu_torch/csrc/block.cu",
+    "attention_scaled_f32": ("tower_unfolded", "jcf_tpu_torch/csrc/pair_mma.cuh",
                              "jcf_tpu/ops/block_kernel.py:322"),
     "cls_attention_scaled_f32": ("tower_unfolded", "jcf_tpu_torch/csrc/block.cu",
                                  "jcf_tpu/ops/block_kernel.py:1508"),
@@ -655,11 +657,14 @@ def serving_kernel_phase(engine, images, geometry):
                  gemm_work(x_q, wq.w_int8, 2, PEAK_INT8, wq.w_scale, wq.bias),
                  lambda: torch._int_mm(x_q, wq.w_int8.T))
     d = qkv.shape[1] // 3 // heads
+    before = dict(bk.LAUNCHES)
     ctx = ph.run("attention",
                  lambda: bk.attention(qkv, attn["ctx_inv"], s, heads),
                  lambda: bk.attention_plain(qkv, attn["ctx_inv"], s, heads),
                  lambda n, a, b: check_int8(n, a, b, 1e-2),
                  bound(nbytes(qkv) + x_q.numel(), 4.0 * n_crops * heads * s * s * d, PEAK_BF16))
+    check_routes("phase 3, attention", {k: v - before[k] for k, v in bk.LAUNCHES.items()},
+                 {"attention": "mma"})
     # out-proj: the residual epilogue at K = E (recorded beside c_proj's)
     mid = ph.run("int8_gemm_residual (out-proj)",
                  lambda: ig.int8_gemm_residual(ctx, wo.w_int8, wo.w_scale, wo.bias, rows),
@@ -1083,7 +1088,8 @@ def training_phase(params, cfg, dev, counters, smi):
     n_layers = cfg.text_layers + cfg.vision_layers
     if (launches["packed_attention"], launches["packed_attention_bwd"]) != (n_layers, n_layers):
         raise AssertionError(f"expected {n_layers} K7 forward and backward launches per step")
-    check_routes("training step", launches, {"packed_attention_bwd": "mma"})
+    check_routes("training step", launches, {"packed_attention": "mma",
+                                             "packed_attention_bwd": "mma"})
 
     # a step through the kernels vs one through the plain K7 (autograd
     # through packed_attention_plain), from the same state and seed
@@ -1509,7 +1515,9 @@ def fused_serving_phase(engine, images, geometry, text, modes_halves, modes_f, c
         # modes against phase 6's halves modes and phase 7's f32 modes
         cls = bk.run_fused_tower(rows, quant, heads, flat_s=s)
         bk._FUSE = "halves"
-        cls_h = bk.run_fused_tower(rows, quant, heads, flat_s=s)
+        cls_h, launches_h = count_forward(counters,
+                                          lambda: bk.run_fused_tower(rows, quant, heads, flat_s=s))
+        check_routes(f"phase 9 ({fuse}), the halves route", launches_h, {"attention": "mma"})
         bk._FUSE = fuse
         cos_cls = float(cosine_rows(cls, cls_h).min())
         top1_h, overlap_h, cos_h = agreement(modes, modes_halves, text)
@@ -1638,7 +1646,7 @@ def mode_launches(mode: str, n_layers: int, s: int) -> dict:
     }
     table["full+score"] = table["full"]
     out = {"view": 1, "int8_gemm_s32": 1, "assemble": 1, **table[mode]}
-    return {k: v for k, v in out.items() if v}
+    return with_routes({k: v for k, v in out.items() if v})
 
 
 @contextlib.contextmanager
@@ -1867,6 +1875,28 @@ def check_routes(label: str, launches: dict, want: dict) -> None:
                                  f"got {launches.get(name)} launches, {routes}")
 
 
+# the kernels counted by route beside their totals that the main paths
+# run on the tensor cores: K3's mask-free attention (``block_kernel.
+# PAIRED_KERNELS``) and K7's forward
+MMA_ROUTED = ("attention", "attention_f32", "attention_scaled", "attention_scaled_f32",
+              "packed_attention")
+
+
+def with_routes(launches: dict) -> dict:
+    """``launches`` with each ``MMA_ROUTED`` kernel's count repeated on its
+    tensor-core route counter ("<kernel>/mma")."""
+    return {**launches, **{f"{k}/mma": v for k, v in launches.items() if k in MMA_ROUTED and v}}
+
+
+def route_counts(launches: dict, name: str) -> dict:
+    """{"routes": {route: launches}} of a kernel with a tensor-core and a
+    CUDA-core route, the routes it took in ``launches``; {} for the
+    others."""
+    routes = {r: launches[f"{name}/{r}"] for r in ("mma", "rowloop")
+              if launches.get(f"{name}/{r}")}
+    return {"routes": routes} if routes else {}
+
+
 def time_forwards(run, iters, items, unit, smi, label) -> float:
     """``iters`` timed calls of ``run`` after one warm-up -> items per s."""
     import torch
@@ -1916,6 +1946,8 @@ def quant_modes_phase(params, images_np, images, geometry, text, modes_f, counte
         expected = mode_launches(name, cfg.vision_layers, cfg.vision_seq_len)
         if launches[name] != expected:
             raise AssertionError(f"expected exactly the launches {expected}")
+        check_routes(f"phase 10, {name}", launches[name],
+                     {k: "mma" for k in ("attention", "attention_f32") if k in expected})
         check_modes(modes, BATCH, cfg.embed_dim)
         mode_kernel_checks(engine, calls[0][0], name, ph)
         del calls
@@ -1956,10 +1988,12 @@ def crops_phase(params, images, text, counters, smi, dev):
     modes, launches = count_forward(counters, lambda: engine.features_from_crops(crops, text))
     log(f"  launches: {launches}")
     n = cfg.vision_layers
-    expected = {"ln_quant_rows": 2 * n, "int8_gemm_bf16_rows": n, "attention_f32": n, "quant_rows": n,
-                "int8_gemm_residual_rows": 2 * n, "int8_gemm_f32_rows": n, "gelu_quant_rows": n}
+    expected = with_routes({"ln_quant_rows": 2 * n, "int8_gemm_bf16_rows": n, "attention_f32": n,
+                            "quant_rows": n, "int8_gemm_residual_rows": 2 * n,
+                            "int8_gemm_f32_rows": n, "gelu_quant_rows": n})
     if launches != expected:
         raise AssertionError(f"expected exactly the launches {expected}")
+    check_routes("phase 10b", launches, {"attention_f32": "mma"})
     check_modes(modes, CROP_IMAGES, cfg.embed_dim)
     feats = engine.crop_features(crops)
     if not torch.equal(engine.mta_from_features(feats, text), modes):
@@ -2016,6 +2050,7 @@ def serving_288_phase(text, counters, smi, dev):
     expected = mode_launches("full", cfg.vision_layers, s)
     if launches != expected:
         raise AssertionError(f"expected exactly the launches {expected} (no cls_attention)")
+    check_routes("phase 10c", launches, {"attention": "mma"})
     check_modes(modes, BATCH_288, cfg.embed_dim)
 
     ph = Phase()
@@ -2822,6 +2857,7 @@ def unfolded_tower_phase(cfg, counters, smi, rows_v, blocks_v, quant_v):
         launches[k] = launches.get(k, 0) + v
     if launches_cls.get("cls_attention_scaled_f32") != 1 or launches.get("attention_scaled_f32") != 2 * cfg.vision_layers - 1:
         raise AssertionError("the unfolded tower did not take K3 / K5 with the score scale")
+    check_routes("phase 12c", launches, {"attention_scaled_f32": "mma"})
     with plain_halves():
         ref = tower(False)
         ref_cls = tower(True)
@@ -2883,7 +2919,7 @@ def small_towers_phase(dev, counters):
             want = attn if kind == "int8" else ("head_attention" if heads % 2 else "pair_attention_bf16")
             if launches.get(want) != 12 or cos < 0.999:
                 raise AssertionError(f"the {heads}-head {s}-token {kind} tower fails")
-            if heads % 2:
+            if heads % 2 or kind == "int8":
                 check_routes(f"phase 12d, {heads} heads, {kind}", launches, {want: "mma"})
             if kind == "bf16" and heads % 2:
                 launches_odd = launches
@@ -3444,6 +3480,7 @@ def ood_phase(params, cfg, counters, smi, launches_srv, launches_cls) -> tuple:
             raise AssertionError(f"expected {OOD_PERF_IMAGES // 128} batches and the launches "
                                  f"{expected}")
         log(f"  {len(calls)} batches, each launching exactly phase 8's route")
+        check_routes("phase 13d", launches_k, {"attention": "mma"})
         preds_k = predictions(calls)
         log(f"  predicted classes (class: images): {prediction_counts(preds_k)}")
         calls_p, views_p = [], []
@@ -3489,9 +3526,9 @@ K9_MODES = ("ln", "hidden", "full+score")
 # one layer of the dynamic int8 halves on every row: K3 (LN + row quant,
 # qkv, f32-context attention, the context's row quant, out-proj), K4 (LN +
 # row quant, c_fc, QuickGELU + row quant, c_proj)
-DYNAMIC_LAYER = {"ln_quant_rows": 2, "int8_gemm_bf16_rows": 1, "attention_f32": 1,
-                 "quant_rows": 1, "int8_gemm_residual_rows": 2, "int8_gemm_f32_rows": 1,
-                 "gelu_quant_rows": 1}
+DYNAMIC_LAYER = with_routes({"ln_quant_rows": 2, "int8_gemm_bf16_rows": 1, "attention_f32": 1,
+                             "quant_rows": 1, "int8_gemm_residual_rows": 2,
+                             "int8_gemm_f32_rows": 1, "gelu_quant_rows": 1})
 
 
 def rn50_params(seed: int = 0) -> dict:
@@ -4053,8 +4090,8 @@ def k9_288_routes(engine, images, geometry, text, feats_f, modes_f, counters, sm
     cfg = engine.cfg
     s, heads, n = cfg.vision_seq_len, cfg.vision_heads, cfg.vision_layers
     base = {"view": 1, "int8_gemm_s32": 1, "assemble": 1}
-    last = {"ln_quant": 2, "int8_gemm_bf16": 1, "attention": 1, "int8_gemm_residual": 2,
-            "int8_gemm_gelu_quant": 1}
+    last = with_routes({"ln_quant": 2, "int8_gemm_bf16": 1, "attention": 1,
+                        "int8_gemm_residual": 2, "int8_gemm_gelu_quant": 1})
     ph = Phase()
     launches = {}
     try:
@@ -4432,6 +4469,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches_srv = {k: v for c in counters for k, v in c.items()}
     log(f"serving path launches: {launches_srv}")
+    check_routes("serving path", launches_srv, {"attention": "mma"})
     check_modes(modes, BATCH, cfg.embed_dim)
 
     # int8 vs the f32 engine on the same geometry (bench.py's cert): the
@@ -4593,7 +4631,8 @@ def main() -> int:
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[path][name], **results[name]}
+         "launches": launches[path][name], **results[name],
+         **route_counts(launches[path], name)}
         for name, (path, src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

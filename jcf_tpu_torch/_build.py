@@ -43,14 +43,14 @@ SIGNATURES = {
     "jcf_ln_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "jcf_quant_rows": [_P, _P, _P, _I, _I, _I, _P],
     "jcf_int8_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "jcf_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I, _P],
+    "jcf_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I, _I, _P],
     "jcf_cls_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "jcf_bf16_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "jcf_f32_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "jcf_ln_affine": [_P, _P, _P, _P, _I, _I, _I, _P],
     "jcf_masked_attention": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     "jcf_pair_attention": [_P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
-    "jcf_packed_attention": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "jcf_packed_attention": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "jcf_packed_attention_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "jcf_blocked_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, *[ctypes.c_longlong] * 6,
                               _F, _I, _P],

@@ -1,10 +1,11 @@
 // Warp-level pieces of the tensor-core attention kernels: K8 in bf16
-// (blocked_attn.cu), the mask-free pair attention and the masked
-// attention in bf16 (text_block.cu), and K7's backward in bf16
-// (packed_attn.cu), and the CUDA-core scores in the reference's order that
-// the last two take. One warp holds one 16-row query tile of one head of
-// 64 dims; the head's keys and values are rows of LD bf16 in shared
-// memory. Products are mma.sync m16n8k16 bf16 with f32 sums.
+// (blocked_attn.cu), the mask-free pair attention of K3 and K6a
+// (pair_mma.cuh), the masked attention in bf16 (text_block.cu), and K7's
+// forward and backward in bf16 (packed_attn.cu), and the CUDA-core scores
+// in the reference's order that the last two take. One warp holds one
+// 16-row query tile of one head of 64 dims; the head's keys and values
+// are rows of LD bf16 in shared memory. Products are mma.sync m16n8k16
+// bf16 with f32 sums.
 //
 // A score array sc[2 NC][4] holds NC k16 chunks of keys as 2 NC n8 tiles
 // (NC is a template parameter and every loop over it is unrolled without
@@ -231,13 +232,14 @@ __device__ __forceinline__ void smem_tile(float (&acc)[8][4], const bf16* as, co
 // other side, which moves PV's output by an ulp of p times |v|, past 1
 // bf16 ulp + 1e-3 on some elements of every text batch of 512 x 77 (even
 // with exactly rounded scores; the CUDA-core row loop, which sums in the
-// reference's order, on none). The masked attention and K7's backward
-// therefore take a tile's scores and softmax on the CUDA cores in that
-// order, as the row loop does (lanes over keys: lane l holds keys l, l +
-// 32, ... of all 16 rows, so p comes out bit for bit as the row loop's),
-// and keep the products that follow on the tensor cores. k is read as bf16
-// rows from shared memory and widened exactly, q by broadcast (in f32 or
-// bf16).
+// reference's order, on none). The masked attention and K7's bf16
+// forward and backward therefore take a tile's scores and softmax on the
+// CUDA cores in that order, as the row loop does (lanes over keys: lane l
+// holds keys l, l + 32, ... of all 16 rows, so p comes out bit for bit as
+// the row loop's), and keep the products that follow on the tensor cores.
+// k is read as bf16 rows from shared memory and widened exactly, q by
+// broadcast (in f32 or bf16). The pair attention's contexts (pair_mma.cuh)
+// have bars that allow p's other rounding and keep qk_chunk.
 
 // 8 bf16 (one 16-byte word) widened to f32, exactly
 __device__ __forceinline__ void unpack8(float (&f)[8], const uint4 w) {
@@ -385,12 +387,13 @@ __device__ __forceinline__ void store_tile_f32(const float (&acc)[8][4], float* 
   }
 }
 
-// stores int8(round(acc x cinv)) (round_clip_int8) of a 16 x 64 tile with
-// one 16-byte store a thread per row half: the quad trades words so that
-// thread tig holds dims 16 tig .. 16 tig + 15 of its row. dst is row 0
-// (16-byte aligned), ld the row stride in elements (a multiple of 16);
-// rows >= n_rows are not stored
-__device__ __forceinline__ void store_tile_int8(const float (&acc)[8][4], float cinv,
+// stores int8(round(acc x cinv[h])) (round_clip_int8) of a 16 x 64 tile,
+// cinv[h] the factor of this thread's row g + 8 h, with one 16-byte store
+// a thread per row half: the quad trades words so that thread tig holds
+// dims 16 tig .. 16 tig + 15 of its row. dst is row 0 (16-byte aligned),
+// ld the row stride in elements (a multiple of 16); rows >= n_rows are
+// not stored
+__device__ __forceinline__ void store_tile_int8(const float (&acc)[8][4], const float (&cinv)[2],
                                                 int8_t* dst, long long ld, int n_rows) {
   const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
 #pragma unroll
@@ -400,10 +403,10 @@ __device__ __forceinline__ void store_tile_int8(const float (&acc)[8][4], float 
     unsigned w[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const unsigned b0 = (uint8_t)round_clip_int8(__fmul_rn(acc[2 * c][2 * h], cinv));
-      const unsigned b1 = (uint8_t)round_clip_int8(__fmul_rn(acc[2 * c][2 * h + 1], cinv));
-      const unsigned b2 = (uint8_t)round_clip_int8(__fmul_rn(acc[2 * c + 1][2 * h], cinv));
-      const unsigned b3 = (uint8_t)round_clip_int8(__fmul_rn(acc[2 * c + 1][2 * h + 1], cinv));
+      const unsigned b0 = (uint8_t)round_clip_int8(__fmul_rn(acc[2 * c][2 * h], cinv[h]));
+      const unsigned b1 = (uint8_t)round_clip_int8(__fmul_rn(acc[2 * c][2 * h + 1], cinv[h]));
+      const unsigned b2 = (uint8_t)round_clip_int8(__fmul_rn(acc[2 * c + 1][2 * h], cinv[h]));
+      const unsigned b3 = (uint8_t)round_clip_int8(__fmul_rn(acc[2 * c + 1][2 * h + 1], cinv[h]));
       w[c] = b0 | (b1 << 8) | (b2 << 16) | (b3 << 24);
     }
     // round s: word tig of quad thread (tig + s) & 3
@@ -421,4 +424,11 @@ __device__ __forceinline__ void store_tile_int8(const float (&acc)[8][4], float 
     if (g + 8 * h < n_rows)
       *reinterpret_cast<uint4*>(dst + (g + 8 * h) * ld + 16 * tig) = v;
   }
+}
+
+// the same with one factor for every row
+__device__ __forceinline__ void store_tile_int8(const float (&acc)[8][4], float cinv,
+                                                int8_t* dst, long long ld, int n_rows) {
+  const float c[2] = {cinv, cinv};
+  store_tile_int8(acc, c, dst, ld, n_rows);
 }

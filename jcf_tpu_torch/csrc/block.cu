@@ -15,6 +15,7 @@
 // round trip of that activation (its row amax spans blocks).
 #include "common.cuh"
 #include "pair_attention.cuh"
+#include "pair_mma.cuh"
 
 namespace {
 
@@ -153,29 +154,32 @@ __global__ void __launch_bounds__(QR_THREADS) quant_rows_kernel(
 // ---------------------------------------------------------------------------
 //
 // Replaces the attention section of _attn_half_int8_kernel
-// (_batched_attention -> _paired_attention_nomask): one block per (crop,
-// head pair) loads the pair's q, k (transposed) and v into shared memory
-// and runs the row loop of pair_attention.cuh, which keeps the
-// reference's pair shift max(floor, pair max) or takes the calibrated
-// shift. That is why a block owns a pair of heads. The floor is 0 on the
-// dense route (the reference's zeroed pad keys score 0: S is never a
-// multiple of 16 there) and -inf on its non-dense route (S a multiple of
-// 16: s_pad = S, no pad keys). SCALED multiplies the f32 sums by
+// (_batched_attention -> _paired_attention_nomask). The reference takes
+// one softmax shift per head pair, max(floor, pair max), or the layer's
+// calibrated shift; that is why a unit is a pair of heads. The floor is 0
+// on the dense route (the reference's zeroed pad keys score 0: S is never
+// a multiple of 16 there) and -inf on its non-dense route (S a multiple
+// of 16: s_pad = S, no pad keys). SCALED multiplies the f32 sums by
 // 1/sqrt(d) (the unfolded tree; the folded tree's q carries it). With a
-// static context scale the loop writes the int8 context; without one it
+// static context scale the kernel writes the int8 context; without one it
 // writes the f32 context, and quant_rows_kernel quantizes each E-wide
 // row after it: a row's amax spans every pair, and a block owning a
 // whole crop would need E / 128 times the shared memory (over the card's
 // 227 KB from S = 50 on).
 //
-// Bound on the H100: at S = 50, D = 64 the block's work (2 heads x 50 x
-// 50 x 64 x 2 MACs) is small next to launching a tensor-core pipeline,
-// so it runs on the CUDA cores from shared memory. qkv is read once and
-// the context written once. S up to 127 (the reference's dense rows pad
-// to at most 128): KB = 4 blocks of 32 keys a lane, 105,664 B of shared
-// memory at S = 127. Up to 64 keys the KB = 2 instance runs: KB = 4 at
-// S = 50 takes 0.6-0.7% longer, ten times the spread of repeated runs
-// (profile_attention.py on an H100 80GB HBM3, 700 W).
+// Bound on the H100: bytes (qkv read once, the context written once;
+// about 25 flop a byte at S = 50, D = 64). Two routes, picked by the
+// caller (ops.attention.attention_route):
+// - "mma", bf16 qkv at D = 64 with 16-byte aligned qkv and out:
+//   pair_mma.cuh's pair_attention_mma_kernel on the tensor cores, its
+//   int8 and f32 instances with SCALED and the calibrated shift as
+//   template parameters; NC = 4 key chunks up to 64 keys, 6 up to 96
+//   (S = 82: 288² crops), 8 up to 127.
+// - "rowloop", any other head dim or alignment: attention_kernel below,
+//   one block per (crop, pair) with the pair's q, k (transposed) and v in
+//   shared memory and the row loop of pair_attention.cuh on the CUDA
+//   cores. KB = 4 blocks of 32 keys a lane, 105,664 B of shared memory at
+//   S = 127; up to 64 keys the KB = 2 instance.
 
 constexpr int ATT_WARPS = 8;
 
@@ -429,17 +433,58 @@ static int dispatch_attention(const bf16* qkv, const float* ctx_inv, const float
                                                       scale, m_floor, st);
 }
 
+// the tensor-core route's instances: the output form, SCALED and the
+// calibrated shift at compile time
+template <int NC, typename O>
+static int dispatch_attention_mma_o(const bf16* qkv, const float* ctx_inv, const float* shift,
+                                    void* out, int n_crops, int S, int H, float scale, int scaled,
+                                    float m_floor, cudaStream_t st) {
+  if (scaled)
+    return shift ? launch_pair_mma<NC, O, true, true>(qkv, ctx_inv, shift, out, n_crops, S, H,
+                                                      scale, m_floor, st)
+                 : launch_pair_mma<NC, O, true, false>(qkv, ctx_inv, shift, out, n_crops, S, H,
+                                                       scale, m_floor, st);
+  return shift ? launch_pair_mma<NC, O, false, true>(qkv, ctx_inv, shift, out, n_crops, S, H,
+                                                     scale, m_floor, st)
+               : launch_pair_mma<NC, O, false, false>(qkv, ctx_inv, shift, out, n_crops, S, H,
+                                                      scale, m_floor, st);
+}
+
+template <int NC>
+static int dispatch_attention_mma(const bf16* qkv, const float* ctx_inv, const float* shift,
+                                  void* out, int n_crops, int S, int H, float scale, int scaled,
+                                  float m_floor, int f32_out, cudaStream_t st) {
+  return f32_out ? dispatch_attention_mma_o<NC, float>(qkv, ctx_inv, shift, out, n_crops, S, H,
+                                                       scale, scaled, m_floor, st)
+                 : dispatch_attention_mma_o<NC, int8_t>(qkv, ctx_inv, shift, out, n_crops, S, H,
+                                                        scale, scaled, m_floor, st);
+}
+
 // f32_out: write the f32 context (no ctx_inv); shift: null for the pair
 // max; scaled: multiply the scores by scale (the unfolded tree); m_floor:
-// the pair shift's floor (0 on the dense route, -inf off it)
+// the pair shift's floor (0 on the dense route, -inf off it). mma: the
+// tensor-core kernel (D = 64, qkv and out 16-byte aligned; the caller's
+// route), else the CUDA-core row loop
 extern "C" int jcf_attention(const void* qkv, const void* ctx_inv, const void* shift, void* out,
                              int n_crops, int S, int H, int D, float scale, int scaled,
-                             float m_floor, int f32_out, void* stream) {
+                             float m_floor, int f32_out, int mma, void* stream) {
   if (S < 1 || S > 128 || H < 2 || H % 2) return (int)cudaErrorInvalidValue;
   const bf16* q = static_cast<const bf16*>(qkv);
   const float* ci = static_cast<const float*>(ctx_inv);
   const float* sh = static_cast<const float*>(shift);
   cudaStream_t st = (cudaStream_t)stream;
+  if (mma) {
+    if (D != ATT_D || ((uintptr_t)qkv & 15) || ((uintptr_t)out & 15))
+      return (int)cudaErrorInvalidValue;
+    if (S <= 64)
+      return dispatch_attention_mma<4>(q, ci, sh, out, n_crops, S, H, scale, scaled, m_floor,
+                                       f32_out, st);
+    if (S <= 96)
+      return dispatch_attention_mma<6>(q, ci, sh, out, n_crops, S, H, scale, scaled, m_floor,
+                                       f32_out, st);
+    return dispatch_attention_mma<8>(q, ci, sh, out, n_crops, S, H, scale, scaled, m_floor,
+                                     f32_out, st);
+  }
   if (S <= 64)
     return dispatch_attention<2>(q, ci, sh, out, n_crops, S, H, D, scale, scaled, m_floor, f32_out,
                                  st);

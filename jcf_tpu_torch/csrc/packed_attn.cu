@@ -20,13 +20,26 @@
 //
 // Bound on the H100: bytes. At the training shapes (S = 77 or 50, D = 64)
 // a (sequence, head) block holds a few hundred KFLOP on a tile of a few
-// tens of KB. The forward, the f32 backward and the bf16 backward at
-// another head dim (or off 16-byte alignment) run on the CUDA cores from
-// shared memory: one warp per query row with lanes over keys for the row
+// tens of KB. The f32 forward and backward, and the bf16 ones at another
+// head dim (or off 16-byte alignment), run on the CUDA cores from shared
+// memory: one warp per query row with lanes over keys for the row
 // work (K and V stored transposed with an odd row stride, so column reads
 // by lanes over the head dim are conflict-free too), one thread per
 // output element for the column sums of the backward. Tiles are f32 in
 // shared memory for both input types (bf16 widens exactly).
+//
+// The bf16 forward at D = 64: packed_attn_fwd_mma_kernel (attn_mma.cuh).
+// One block per (sequence, head), NC = ceil(S / 16) warps. The block
+// stages Q, K and V as bf16 rows (16 NC of them, zero-filled past S) with
+// 16-byte cp.async; a warp per 16-row query tile takes the backward's row
+// pass up to p (scores on the CUDA cores in the reference's order, x
+// scale, + bias, keys past S at -inf, the row loop's softmax: p bit for
+// bit as the CUDA-core kernel's, so the bf16 context keeps its bar of 1
+// bf16 ulp + 1e-3 with no slack for p's rounding), writes bf16(p) to its
+// own rows of shared memory, and takes PV on the tensor cores (p through
+// ldmatrix, V through ldmatrix.trans) into 16-byte stores. Shared memory
+// 2 (3 x 16 NC x 72 + 16 NC x (16 NC + 8)) B: 48,640 at S = 77 (four
+// blocks an SM).
 //
 // The bf16 backward at D = 64: packed_attn_bwd_mma_kernel (attn_mma.cuh).
 // One block per (sequence, head), NC = ceil(S / 16) warps. The block
@@ -232,6 +245,73 @@ size_t bwd_mma_smem(int nc) {
   return (4 * kp * PK_LD + 3 * kp * (kp + 8)) * sizeof(bf16);
 }
 
+size_t fwd_mma_smem(int nc) {
+  const size_t kp = 16 * nc;
+  return (3 * kp * PK_LD + kp * (kp + 8)) * sizeof(bf16);
+}
+
+// NC: 16-row chunks, ceil(S / 16); as many warps
+template <int NC>
+__global__ void __launch_bounds__(NC * 32) packed_attn_fwd_mma_kernel(
+    const bf16* __restrict__ qkv,    // [B * S, 3E]
+    const float* __restrict__ bias,  // [S, S]
+    bf16* __restrict__ out,          // [B * S, E]
+    int S, int H, float scale) {
+  constexpr int KP = 16 * NC, LDP = KP + 8, KS = (KP + 31) / 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [KP][PK_LD] each: Q, K, V
+  const bf16* k_s = q_s + KP * PK_LD;
+  const bf16* v_s = k_s + KP * PK_LD;
+  bf16* p_s = q_s + 3 * KP * PK_LD;  // [KP][LDP] bf16(p)
+  const int E = H * ATT_D, E3 = 3 * E;
+  const int head = blockIdx.x % H;
+  const long long seq = blockIdx.x / H;
+  const bf16* base = qkv + seq * S * E3 + head * ATT_D;
+  for (int c = threadIdx.x; c < 3 * KP * 8; c += blockDim.x) {
+    const int r = c >> 3, t = r / KP, row = r - t * KP, col = (c & 7) * 8;
+    const bool ok = row < S;
+    cp_async16(q_s + r * PK_LD + col, ok ? base + (long long)row * E3 + t * E + col : qkv,
+               ok ? 16 : 0);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // query rows m0 .. m0 + 15: the scores and p in the reference's order
+  // (lanes over keys), x scale, then + bias; rows past S (zero q) take
+  // bias 0 and are not stored
+  const int lane = threadIdx.x & 31, m0 = (threadIdx.x >> 5) * 16;
+  {
+    float sp[16][KS];
+    scores_seq<KS, PK_LD>(sp, q_s + m0 * PK_LD, k_s, S, KP);
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+#pragma unroll
+      for (int sl = 0; sl < KS; ++sl) {
+        const int i = m0 + r, j = 32 * sl + lane;
+        const float b = i < S && j < S ? __ldg(bias + (long long)i * S + j) : 0.0f;
+        sp[r][sl] = j < S ? __fadd_rn(__fmul_rn(sp[r][sl], scale), b) : -INFINITY;
+      }
+    softmax_rows<KS>(sp);
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+#pragma unroll
+      for (int sl = 0; sl < KS; ++sl)
+        if (32 * sl + lane < KP)
+          p_s[(m0 + r) * LDP + 32 * sl + lane] = __float2bfloat16_rn(sp[r][sl]);
+  }
+  __syncwarp();
+
+  // out = bf16(bf16(p) V) on the tensor cores
+  float acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+  smem_tile<NC, LDP, PK_LD, false, false>(acc, p_s + m0 * LDP, nullptr, v_s);
+  store_tile_bf16(acc, out + (seq * S + m0) * E + head * ATT_D, E, S - m0);
+}
+
 // NC: 16-row chunks, ceil(S / 16); as many warps
 template <int NC>
 __global__ void __launch_bounds__(NC * 32) packed_attn_bwd_mma_kernel(
@@ -386,6 +466,33 @@ int launch_fwd(const void* qkv, const void* bias, void* out, int B, int S, int H
 }
 
 template <int NC>
+int launch_fwd_mma(const void* qkv, const void* bias, void* out, int B, int S, int H, float scale,
+                   cudaStream_t stream) {
+  const size_t smem = fwd_mma_smem(NC);
+  const int err = set_smem(packed_attn_fwd_mma_kernel<NC>, smem);
+  if (err) return err;
+  packed_attn_fwd_mma_kernel<NC><<<(unsigned)((long long)B * H), NC * 32, smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(bias), static_cast<bf16*>(out), S,
+      H, scale);
+  return (int)cudaGetLastError();
+}
+
+// the chunk count the shape needs: ceil(S / 16), S <= 128
+int dispatch_fwd_mma(const void* qkv, const void* bias, void* out, int B, int S, int H, float scale,
+                     cudaStream_t st) {
+  switch ((S + 15) / 16) {
+    case 1: return launch_fwd_mma<1>(qkv, bias, out, B, S, H, scale, st);
+    case 2: return launch_fwd_mma<2>(qkv, bias, out, B, S, H, scale, st);
+    case 3: return launch_fwd_mma<3>(qkv, bias, out, B, S, H, scale, st);
+    case 4: return launch_fwd_mma<4>(qkv, bias, out, B, S, H, scale, st);
+    case 5: return launch_fwd_mma<5>(qkv, bias, out, B, S, H, scale, st);
+    case 6: return launch_fwd_mma<6>(qkv, bias, out, B, S, H, scale, st);
+    case 7: return launch_fwd_mma<7>(qkv, bias, out, B, S, H, scale, st);
+    default: return launch_fwd_mma<8>(qkv, bias, out, B, S, H, scale, st);
+  }
+}
+
+template <int NC>
 int launch_bwd_mma(const void* qkv, const void* bias, const void* dout, void* dqkv, int B, int S,
                    int H, float scale, cudaStream_t stream) {
   const size_t smem = bwd_mma_smem(NC);
@@ -428,10 +535,19 @@ int launch_bwd(const void* qkv, const void* bias, const void* dout, void* dqkv, 
 }  // namespace
 
 // both entries return cudaErrorInvalidValue, and launch nothing, for
-// S > 128 or a block over the card's shared memory
+// S > 128 or a block over the card's shared memory. mma: the tensor-core
+// kernel (bf16, D = 64, every pointer but the bias 16-byte aligned; the
+// caller's route), else the CUDA-core kernel
 extern "C" int jcf_packed_attention(const void* qkv, const void* bias, void* out, int B, int S,
-                                    int H, int D, float scale, int is_bf16, void* stream) {
+                                    int H, int D, float scale, int is_bf16, int mma,
+                                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (mma) {
+    if (!shape_ok(B, S, H, D) || !is_bf16 || D != ATT_D || (long long)B * H > 0x7fffffffLL ||
+        ((uintptr_t)qkv & 15) || ((uintptr_t)out & 15))
+      return (int)cudaErrorInvalidValue;
+    return dispatch_fwd_mma(qkv, bias, out, B, S, H, scale, st);
+  }
   return is_bf16 ? launch_fwd<bf16>(qkv, bias, out, B, S, H, D, scale, st)
                  : launch_fwd<float>(qkv, bias, out, B, S, H, D, scale, st);
 }

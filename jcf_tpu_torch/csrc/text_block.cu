@@ -13,6 +13,7 @@
 #include "attn_mma.cuh"
 #include "common.cuh"
 #include "pair_attention.cuh"
+#include "pair_mma.cuh"
 
 namespace {
 
@@ -301,17 +302,10 @@ __global__ void __launch_bounds__(NC * 32, 16 / NC > 1 ? 16 / NC : 1)
 // against 4 x 50 x 50 x 128 flop of products: 25 flop a byte, far under
 // the bf16 ridge point (295).
 //
-// bf16 (D = 64): pair_attention_mma_kernel, on the tensor cores
-// (attn_mma.cuh). A unit is one (crop, pair); a block holds PM_UNITS
-// units, four warps each. The block stages each unit's K and V, [64 or
-// 128 keys, 128] bf16 for both heads, with 16-byte cp.async from the
-// packed [crops * S, 3E] rows (rows past S zero-filled). A warp takes a
-// 16-row query tile of both heads: its q fragments from device memory,
-// both heads' scores in registers (2 x 8 n8 tiles up to 64 keys, 2 x 16
-// up to 127), the pair shift as the max over both heads' registers, the
-// quad shuffle, then the floor; the rounded p go straight into PV's A
-// fragments (V through ldmatrix.trans) and each head's context leaves in
-// 16-byte stores of packed rows.
+// bf16 (D = 64): pair_mma.cuh's pair_attention_mma_kernel on the tensor
+// cores, its bf16 instance with the scale (2 x 8 n8 tiles of scores a
+// head up to 64 keys, 2 x 16 up to 127), the template K3's attention
+// shares.
 //
 // f32: pair_attention_kernel, the row loop of pair_attention.cuh on the
 // CUDA cores (the port refuses TF32 for f32 products). Shared memory: kT
@@ -348,85 +342,6 @@ __global__ void __launch_bounds__(PA_WARPS * 32) pair_attention_kernel(
   pair_attention_rows_t<KB, float, float, true>(base, 3 * E, q_w, kt_s, v_s, p_s, S, D, scale,
                                                 nullptr, m_floor, 0.0f,
                                                 out + crop * S * E + pair * D2, E, PA_WARPS);
-}
-
-constexpr int PM_UNITS = 2;                // (crop, pair) units a block
-constexpr int PM_WARPS = 4 * PM_UNITS;     // four a unit
-constexpr int PM_LD = 2 * ATT_D + 8;       // padded shared row of a pair's K or V (bf16)
-
-// NC: 16-key chunks a head holds in registers (4: S <= 64; 8: S <= 128);
-// 16 NC key rows a unit are staged, zero-filled past S
-template <int NC>
-__global__ void __launch_bounds__(PM_WARPS * 32, NC <= 4 ? 2 : 1) pair_attention_mma_kernel(
-    const bf16* __restrict__ qkv,  // [n_crops * S, 3E]
-    bf16* __restrict__ out,        // [n_crops * S, E]
-    int n_units, int S, int H, float scale, float m_floor) {
-  constexpr int KP = 16 * NC;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);  // per unit: [KP][PM_LD] K, then V
-  const int E = H * ATT_D, E3 = 3 * E, n_pairs = H >> 1;
-  const int unit0 = blockIdx.x * PM_UNITS;
-  for (int c = threadIdx.x; c < PM_UNITS * 2 * KP * 16; c += blockDim.x) {
-    const int r = c >> 4, ub = r / (2 * KP), t = (r / KP) & 1, row = r % KP;
-    const int unit = unit0 + ub, col = (c & 15) * 8;
-    const bool ok = unit < n_units && row < S;
-    const long long crop = unit / n_pairs;
-    const bf16* src = qkv + (crop * S + row) * E3 + (1 + t) * E +
-                      (unit - crop * n_pairs) * 2 * ATT_D + col;
-    cp_async16(smem + r * PM_LD + col, ok ? src : qkv, ok ? 16 : 0);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, unit = unit0 + (warp >> 2);
-  if (unit >= n_units) return;
-  const long long crop = unit / n_pairs;
-  const int pair = unit - (int)(crop * n_pairs);
-  const bf16* qb = qkv + crop * S * E3 + pair * 2 * ATT_D;
-  bf16* ob = out + crop * S * E + pair * 2 * ATT_D;
-  const bf16* ks = smem + (warp >> 2) * 2 * KP * PM_LD;
-  const bf16* vs = ks + KP * PM_LD;
-  const int lane = threadIdx.x & 31, tig = lane & 3;
-  for (int m0 = (warp & 3) * 16; m0 < S; m0 += 64) {
-    float sc[2][2 * NC][4];
-    float m[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      unsigned a[4][4];
-      load_q_tile(a, qb + m0 * E3 + h * ATT_D, E3, S - m0);
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-        qk_chunk<PM_LD>(sc[h][2 * c], sc[h][2 * c + 1], a, ks + 16 * c * PM_LD + h * ATT_D);
-#pragma unroll
-      for (int t = 0; t < 2 * NC; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sc[h][t][e] = 8 * t + tig * 2 + (e & 1) < S ? __fmul_rn(sc[h][t][e], scale) : -INFINITY;
-      tile_max<NC>(sc[h], m);
-    }
-    // the pair shift: both heads' max, then the floor
-#pragma unroll
-    for (int r = 0; r < 2; ++r) m[r] = fmaxf(quad_max(m[r]), m_floor);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float l[2] = {0.0f, 0.0f}, acc[8][4];
-      exp_tile<NC, true>(sc[h], m, l);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
-      pv_tile<NC, PM_LD>(acc, sc[h], vs + h * ATT_D);
-      float inv[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) inv[r] = __fdiv_rn(1.0f, fmaxf(quad_sum(l[r]), 1e-30f));
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[nt][e] = __fmul_rn(acc[nt][e], inv[e >> 1]);
-      store_tile_bf16(acc, ob + m0 * E + h * ATT_D, E, S - m0);
-    }
-  }
 }
 
 template <typename T>
@@ -505,20 +420,6 @@ int launch_pair_f32(const void* qkv, void* out, int n_crops, int S, int H, int D
   return (int)cudaGetLastError();
 }
 
-template <int NC>
-int launch_pair_bf16(const void* qkv, void* out, int n_crops, int S, int H, float scale,
-                     float m_floor, cudaStream_t stream) {
-  const long long n_units = (long long)n_crops * (H / 2);
-  if (n_units > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)PM_UNITS * 2 * 16 * NC * PM_LD * sizeof(bf16);
-  const int err = set_smem(pair_attention_mma_kernel<NC>, smem);
-  if (err) return err;
-  pair_attention_mma_kernel<NC><<<(unsigned)((n_units + PM_UNITS - 1) / PM_UNITS),
-                                  PM_WARPS * 32, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), (int)n_units, S, H, scale, m_floor);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // f32: 1 for f32 rows, scale and bias, 0 for bf16
@@ -571,8 +472,11 @@ extern "C" int jcf_pair_attention(const void* qkv, void* out, int n_crops, int S
   if (!f32) {
     if (D != ATT_D || ((uintptr_t)qkv & 15) || ((uintptr_t)out & 15))
       return (int)cudaErrorInvalidValue;
-    return S <= 64 ? launch_pair_bf16<4>(qkv, out, n_crops, S, H, scale, m_floor, st)
-                   : launch_pair_bf16<8>(qkv, out, n_crops, S, H, scale, m_floor, st);
+    return S <= 64
+               ? launch_pair_mma<4, bf16, true, false>(qkv, nullptr, nullptr, out, n_crops, S, H,
+                                                       scale, m_floor, st)
+               : launch_pair_mma<8, bf16, true, false>(qkv, nullptr, nullptr, out, n_crops, S, H,
+                                                       scale, m_floor, st);
   }
   return S <= 64 ? launch_pair_f32<2>(qkv, out, n_crops, S, H, D, scale, m_floor, st)
                  : launch_pair_f32<4>(qkv, out, n_crops, S, H, D, scale, m_floor, st);

@@ -2,12 +2,12 @@
 attention over the packed qkv projection, forward and backward, and K8,
 the attention of sequences of 128 tokens or more.
 
-``packed_attention`` is differentiable. Its forward launches the CUDA
+``packed_attention`` is differentiable. Its forward launches a CUDA
 kernel of ``csrc/packed_attn.cu`` (replaces ``_packed_attn_kernel``) and
 its backward a backward kernel of the same file (replaces the XLA VJP of
-``_packed_attention_ref``): in bf16 at head dim 64 the tensor-core kernel,
-else the CUDA-core one (``attention_route``, counted by route); on CPU
-tensors both run their plain versions ``packed_attention_plain`` and
+``_packed_attention_ref``): each in bf16 at head dim 64 the tensor-core
+kernel, else the CUDA-core one (``attention_route``, counted by route); on
+CPU tensors both run their plain versions ``packed_attention_plain`` and
 ``packed_attention_bwd_plain``.
 
 ``fused_attention`` is K8 over [B, H, S, D] heads: on CUDA tensors it
@@ -34,10 +34,12 @@ from jcf_tpu_torch.peft.lora import lora_out_adjustment, lora_qkv_adjustment
 # the attention kernels' two routes: "mma" on the tensor cores (bf16 at
 # head dim 64 with 16-byte aligned rows), "rowloop" on the CUDA cores
 ROUTES = ("mma", "rowloop")
-# launches of this module's kernels (CUDA tensors only); K7's backward
-# also by route, as "packed_attention_bwd/<route>"
+# launches of this module's kernels (CUDA tensors only); K7's forward and
+# backward also by route, as "packed_attention/<route>" and
+# "packed_attention_bwd/<route>"
 LAUNCHES = {"packed_attention": 0, "packed_attention_bwd": 0, "blocked_attention": 0,
-            **{f"packed_attention_bwd/{r}": 0 for r in ROUTES}}
+            **{f"{k}/{r}": 0 for k in ("packed_attention", "packed_attention_bwd")
+               for r in ROUTES}}
 # sequences this long or longer take K8, shorter ones K7
 BLOCKED_MIN_SEQ = 128
 
@@ -133,18 +135,22 @@ def _kernel_args(qkv: torch.Tensor, n_heads: int, bias: torch.Tensor):
 
 def packed_attention_fwd(qkv: torch.Tensor, n_heads: int, bias: torch.Tensor) -> torch.Tensor:
     """K7's forward kernel for CUDA tensors, its plain version for CPU
-    tensors: qkv [B, S, 3E], bias [S, S] f32 -> [B, S, E]."""
+    tensors: qkv [B, S, 3E], bias [S, S] f32 -> [B, S, E]. bf16 at head
+    dim 64 with 16-byte aligned qkv takes the tensor-core kernel, anything
+    else the CUDA-core one (``attention_route``)."""
     if not qkv.is_cuda:
         return packed_attention_plain(qkv, n_heads, bias)
     b, s, h, d = _kernel_args(qkv, n_heads, bias)
     qkv, bias = qkv.contiguous(), bias.contiguous()
     out = torch.empty((b, s, h * d), dtype=qkv.dtype, device=qkv.device)
+    route = attention_route(qkv.dtype, d, qkv.data_ptr(), out.data_ptr())
     lib = _build.load()
     err = lib.jcf_packed_attention(qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), b, s, h, d,
                                    1.0 / math.sqrt(d), int(qkv.dtype == torch.bfloat16),
-                                   _build.stream_ptr(qkv.device))
+                                   int(route == "mma"), _build.stream_ptr(qkv.device))
     _build.check(err, "packed_attention")
     LAUNCHES["packed_attention"] += 1
+    LAUNCHES[f"packed_attention/{route}"] += 1
     return out
 
 

@@ -46,7 +46,11 @@ Each half is a few kernel launches: the row kernels ``ln_quant``,
 (csrc/int8_gemm.cu; csrc/bf16_gemm.cu on the tensor cores and
 csrc/f32_gemm.cu on the CUDA cores for the float halves). Each wrapper
 launches its kernel for CUDA tensors and runs its plain version for CPU
-tensors. A static scale the tree lacks is dynamic. The folded tree's
+tensors. ``attention``, ``pair_attention`` and ``masked_attention`` on
+bf16 qkv at head dim 64 launch tensor-core kernels (csrc/pair_mma.cuh,
+csrc/text_block.cu), other head dims and f32 rows the CUDA-core row
+loops; ``attention`` and ``masked_attention`` count each launch by its
+route too (``attention_route``). A static scale the tree lacks is dynamic. The folded tree's
 modes (``ops.quant.quantize_clip_params(fold=True)``): every scale
 dynamic; "ln" (static post-LN scales); "hidden" (+ the hidden's); "full"
 (+ the context's); each of the three optionally "+score" (the shift).
@@ -128,8 +132,9 @@ from jcf_tpu_torch.ops.layers import GELU_TANH_COEF, LN_EPS, layer_slice
 # tree's (``ln_affine_quant_rows``, ``*_scaled``: the scores x 1/sqrt(d));
 # f32 rows (``*_f32`` of the LN kernels); the masked attention of the
 # int8 halves (``masked_attention``) and of the float halves
-# (``causal_attention``, and ``head_attention`` without a mask), these
-# also by route (``attention_route``) as "<name>/mma" or "<name>/rowloop"
+# (``causal_attention``, and ``head_attention`` without a mask); these
+# and the mask-free attention of the int8 halves (``attention*``) also by
+# route (``attention_route``) as "<name>/mma" or "<name>/rowloop"
 LAUNCHES = {"ln_quant": 0, "ln_quant_rows": 0, "ln_quant_f32": 0, "ln_quant_rows_f32": 0,
             "ln_affine_quant_rows": 0, "ln_affine_quant_rows_f32": 0, "quant_rows": 0,
             "gelu_quant_rows": 0, "attention": 0, "attention_f32": 0, "attention_scaled": 0,
@@ -142,7 +147,8 @@ LAUNCHES = {"ln_quant": 0, "ln_quant_rows": 0, "ln_quant_f32": 0, "ln_quant_rows
             "block_f32": 0}
 MASKED_KERNELS = ("masked_attention", "masked_attention_f32", "causal_attention",
                   "causal_attention_f32", "head_attention", "head_attention_f32")
-LAUNCHES.update({f"{k}/{r}": 0 for k in MASKED_KERNELS for r in ROUTES})
+PAIRED_KERNELS = ("attention", "attention_f32", "attention_scaled", "attention_scaled_f32")
+LAUNCHES.update({f"{k}/{r}": 0 for k in MASKED_KERNELS + PAIRED_KERNELS for r in ROUTES})
 # the float kernels' variants by dtype: the launch count's suffix and the
 # C entries' f32 flag
 _FLOAT = {torch.bfloat16: ("", 0), torch.float32: ("_f32", 1)}
@@ -347,8 +353,11 @@ def attention_plain(qkv: torch.Tensor, ctx_inv, s: int, n_heads: int, shift=None
 
 def attention(qkv: torch.Tensor, ctx_inv, s: int, n_heads: int, shift=None, *, scale=None,
               floor: float = 0.0) -> torch.Tensor:
-    """Attention wrapper: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. S <= 127, an even head count."""
+    """Attention wrapper: a CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors. S <= 127, an even head count. Head dim 64 with 16-byte
+    aligned qkv takes the tensor-core kernel, other head dims and
+    alignments the CUDA-core row loop (``attention_route``; counted as
+    "<name>/mma" or "<name>/rowloop")."""
     if not qkv.is_cuda:
         return attention_plain(qkv, ctx_inv, s, n_heads, shift, scale=scale, floor=floor)
     rows, e3 = qkv.shape
@@ -365,14 +374,16 @@ def attention(qkv: torch.Tensor, ctx_inv, s: int, n_heads: int, shift=None, *, s
     name = "attention" + _score_scale(scale) + ("" if ctx_inv is not None else "_f32")
     out = torch.empty((rows, e), dtype=torch.int8 if ctx_inv is not None else torch.float32,
                       device=qkv.device)
+    route = attention_route(qkv.dtype, d, qkv.data_ptr(), out.data_ptr())
     lib = _build.load()
     err = lib.jcf_attention(qkv.data_ptr(), ctx_inv.data_ptr() if ctx_inv is not None else None,
                             shift.data_ptr() if shift is not None else None, out.data_ptr(),
                             rows // s, s, n_heads, d, 1.0 if scale is None else scale,
                             int(scale is not None), floor, int(ctx_inv is None),
-                            _build.stream_ptr(qkv.device))
+                            int(route == "mma"), _build.stream_ptr(qkv.device))
     _build.check(err, name)
     LAUNCHES[name] += 1
+    LAUNCHES[f"{name}/{route}"] += 1
     return out
 
 

@@ -16,8 +16,11 @@ Seeded inputs, ``--crops`` N (default 2048, b256 x 8 views):
 - the mask-free pair attention (``ops.block_kernel.pair_attention``) in
   bf16 and f32 at 4N crops x 50 tokens x 12 heads (the float ViT-B/32
   towers at b1024 x 8 views);
-- K3's ``attention`` at 4N x 50 with the int8 context (a static scale)
-  and with the f32 context (``attention_f32``, dynamic);
+- K3's ``attention`` at 4N x 50 with the int8 context (a static scale),
+  with the calibrated shift ("+score"), with the f32 context
+  (``attention_f32``, dynamic) and with the f32 context of the unfolded
+  tree (``attention_scaled_f32``, the scores x 1/8); and at N crops x 82
+  tokens (288² crops) with the int8 context;
 - probe P3's ``batched_dot_mma`` at 6N heads of [56, 64];
 - the masked attention (``ops.block_kernel.masked_attention``) on bf16
   qkv at N/4 prompts x 77 tokens x 8 heads, causal, the scores x 1/8
@@ -143,8 +146,18 @@ def run(root: str = ROOT, device="cuda", crops: int = 2048, rounds: int = 7,
     ctx_inv = torch.tensor([20.0], device=device)
     timed(f"K3 attention (int8 context), {pair_crops} x {s}",
           lambda: bk.attention(rows, ctx_inv, s, HEADS))
+    shift = torch.tensor([[6.0]], device=device)
+    timed(f"K3 attention +score (int8 context, shift), {pair_crops} x {s}",
+          lambda: bk.attention(rows, ctx_inv, s, HEADS, shift))
     timed(f"K3 attention_f32 (f32 context), {pair_crops} x {s}",
           lambda: bk.attention(rows, None, s, HEADS))
+    timed(f"K3 attention_scaled_f32 (f32 context, unfolded), {pair_crops} x {s}",
+          lambda: bk.attention(rows, None, s, HEADS, scale=0.125))
+    del rows
+    s = 82
+    rows = (torch.randn(crops * s, 3 * E, device=device, generator=gen) * 0.5).bfloat16()
+    timed(f"K3 attention (int8 context), {crops} x {s}",
+          lambda: bk.attention(rows, ctx_inv, s, HEADS))
     del rows
     heads = 6 * crops
     q, k, v = p3.inputs(heads, device)

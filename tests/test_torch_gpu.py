@@ -194,14 +194,17 @@ def test_packed_attention_kernels(cuda, dtype, s, h, bias_kind):
     dout = torch.randn(b, s, h * 64, device=cuda, generator=g).to(dtype)
     bias = _k7_bias(bias_kind, s, cuda)
     close = _f32_close if dtype == torch.float32 else _bf16_close
+    route = "mma" if dtype == torch.bfloat16 else "rowloop"
+    before = dict(at.LAUNCHES)
     close(at.packed_attention_fwd(qkv, h, bias).float(),
           at.packed_attention_plain(qkv, h, bias).float())
+    assert {k: at.LAUNCHES[k] - before[k] for k in before if at.LAUNCHES[k] != before[k]} == {
+        "packed_attention": 1, f"packed_attention/{route}": 1}
     x = qkv.clone().requires_grad_(True)
     ref, = torch.autograd.grad(at.packed_attention_plain(x, h, bias), x, dout)
     before = dict(at.LAUNCHES)
     got = at.packed_attention_bwd(qkv, h, bias, dout)
     close(got.float(), ref.float())
-    route = "mma" if dtype == torch.bfloat16 else "rowloop"
     assert {k: at.LAUNCHES[k] - before[k] for k in before if at.LAUNCHES[k] != before[k]} == {
         "packed_attention_bwd": 1, f"packed_attention_bwd/{route}": 1}
     if dtype == torch.bfloat16:
@@ -236,6 +239,31 @@ def test_packed_attention_bwd_routes(cuda, d, dtype, offset):
     assert route == ("mma" if (d, dtype, offset) == (64, torch.bfloat16, 0) else "rowloop")
     key = f"packed_attention_bwd/{route}"
     assert at.LAUNCHES[key] == before[key] + 1
+
+
+@pytest.mark.parametrize("d,dtype,offset", [(32, torch.bfloat16, 0), (64, torch.float32, 0),
+                                            (64, torch.bfloat16, 2), (64, torch.bfloat16, 0)])
+def test_packed_attention_fwd_routes(cuda, d, dtype, offset):
+    """K7's forward takes the tensor cores for bf16 at head dim 64 with
+    16-byte aligned rows and the CUDA-core kernel otherwise (head dim 32,
+    f32, qkv 4 bytes off alignment), counted by route; both agree with the
+    plain forward (f32 1e-5, bf16 1 ulp + 1e-3) under the causal mask and
+    a random finite bias."""
+    g = torch.Generator(device=cuda).manual_seed(d + offset)
+    b, s, h = 4, 50, 3
+    n = b * s * 3 * h * d
+    buf = torch.randn(n + 8, device=cuda, generator=g).to(dtype)
+    qkv = buf[offset:offset + n].view(b, s, 3 * h * d)
+    assert qkv.is_contiguous()
+    route = at.attention_route(dtype, d, qkv.data_ptr())
+    assert route == ("mma" if (d, dtype, offset) == (64, torch.bfloat16, 0) else "rowloop")
+    close = _f32_close if dtype == torch.float32 else _bf16_close
+    before = dict(at.LAUNCHES)
+    for bias in (at.causal_mask(s, cuda), _k7_bias("random", s, cuda)):
+        close(at.packed_attention_fwd(qkv, h, bias).float(),
+              at.packed_attention_plain(qkv, h, bias).float())
+    assert {k: at.LAUNCHES[k] - before[k] for k in before if at.LAUNCHES[k] != before[k]} == {
+        "packed_attention": 2, f"packed_attention/{route}": 2}
 
 
 def test_packed_attention_autograd_launches_both_kernels(cuda):
@@ -657,17 +685,78 @@ def _ctx_slack(qkv, s, h, shift):
 @pytest.mark.parametrize("s", [50, 82, 127])
 def test_attention_kernel_modes(cuda, s, shift):
     """K3's attention at S up to 127: the static int8 context and the f32
-    context of a dynamic one, with the pair max or a calibrated shift."""
+    context of a dynamic one, with the pair max or a calibrated shift,
+    both on the tensor-core route (bf16 at head dim 64)."""
     g = torch.Generator(device=cuda).manual_seed(s)
     h, crops = 12, 9
     qkv = (torch.randn(crops * s, 3 * h * 64, device=cuda, generator=g) * 0.5).bfloat16()
     sh = None if shift is None else torch.tensor([[shift]], device=cuda)
     ctx_inv = torch.tensor([[30.0]], device=cuda)
+    before = dict(bk.LAUNCHES)
     _int8_close(bk.attention(qkv, ctx_inv, s, h, sh), bk.attention_plain(qkv, ctx_inv, s, h, sh),
                 1e-2)
     got, ref = bk.attention(qkv, None, s, h, sh), bk.attention_plain(qkv, None, s, h, sh)
     assert got.dtype == torch.float32
     assert bool(((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs() + _ctx_slack(qkv, s, h, sh)).all())
+    assert _launched(before) == {"attention": 1, "attention/mma": 1, "attention_f32": 1,
+                                 "attention_f32/mma": 1}
+
+
+@pytest.mark.parametrize("d,offset", [(32, 0), (64, 2)])
+def test_attention_kernel_row_loop_route(cuda, d, offset):
+    """K3's attention off the tensor cores' shapes takes the CUDA-core row
+    loop (counted "/rowloop"): head dim 32, and qkv 4 bytes off 16-byte
+    alignment (a view of a larger buffer), at the same bars as the
+    tensor-core route, with the pair max and a calibrated shift."""
+    g = torch.Generator(device=cuda).manual_seed(d + offset)
+    s, h, crops = 50, 4, 7
+    n = crops * s * 3 * h * d
+    qkv = (torch.randn(n + 8, device=cuda, generator=g) * 0.5).bfloat16()[offset:offset + n]
+    qkv = qkv.view(crops * s, 3 * h * d)
+    assert qkv.is_contiguous() and bk.attention_route(qkv.dtype, d, qkv.data_ptr()) == "rowloop"
+    ctx_inv = torch.tensor([[30.0]], device=cuda)
+    before = dict(bk.LAUNCHES)
+    for sh in (None, torch.tensor([[1.5]], device=cuda)):
+        _int8_close(bk.attention(qkv, ctx_inv, s, h, sh),
+                    bk.attention_plain(qkv, ctx_inv, s, h, sh), 1e-2)
+        got, ref = bk.attention(qkv, None, s, h, sh), bk.attention_plain(qkv, None, s, h, sh)
+        assert bool(((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs()
+                     + _ctx_slack(qkv, s, h, sh)).all())
+    assert _launched(before) == {"attention": 2, "attention/rowloop": 2, "attention_f32": 2,
+                                 "attention_f32/rowloop": 2}
+
+
+def test_attention_c_entries_refuse_the_tensor_core_route_off_its_shapes(cuda):
+    """The C entries of K3's attention and K7's forward refuse the
+    tensor-core route (``cudaErrorInvalidValue``, nothing launched) for
+    a shape it cannot take (head dim 32; f32 qkv for K7; an unaligned
+    output), and the next launch runs clean."""
+    from jcf_tpu_torch import _build
+
+    lib = _build.load()
+    stream = _build.stream_ptr(cuda)
+    s, h, crops = 50, 2, 3
+    qkv = torch.zeros(crops * s, 3 * h * 32, device=cuda).bfloat16()
+    out = torch.empty(crops * s, h * 32 + 16, device=cuda, dtype=torch.int8)
+    ctx_inv = torch.ones(1, device=cuda)
+    args = (qkv.data_ptr(), ctx_inv.data_ptr(), None, out.data_ptr(), crops, s, h, 32, 1.0, 0,
+            0.0, 0)
+    assert lib.jcf_attention(*args, 1, stream) == 1  # cudaErrorInvalidValue
+    q64 = torch.zeros(crops * s, 3 * h * 64, device=cuda).bfloat16()
+    assert lib.jcf_attention(q64.data_ptr(), ctx_inv.data_ptr(), None, out.data_ptr() + 4, crops,
+                             s, h, 64, 1.0, 0, 0.0, 0, 1, stream) == 1
+    x32 = torch.zeros(2, s, 3 * h * 64, device=cuda)
+    bias = torch.zeros(s, s, device=cuda)
+    o32 = torch.empty(2, s, h * 64, device=cuda)
+    assert lib.jcf_packed_attention(x32.data_ptr(), bias.data_ptr(), o32.data_ptr(), 2, s, h, 64,
+                                    0.125, 0, 1, stream) == 1
+    # the refusals leave no error behind for the next launches
+    torch.cuda.synchronize()
+    rows = (torch.randn(crops * s, 3 * h * 64, device=cuda) * 0.5).bfloat16()
+    _int8_close(bk.attention(rows, ctx_inv, s, h), bk.attention_plain(rows, ctx_inv, s, h), 1e-2)
+    xb = torch.randn(2, s, 3 * h * 64, device=cuda).bfloat16()
+    _bf16_close(at.packed_attention_fwd(xb, h, bias), at.packed_attention_plain(xb, h, bias))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("shift", [None, 1.5])
@@ -1032,7 +1121,7 @@ def test_attention_kernel_unfolded(cuda, s, floor):
     absv = torch.cat([qkv[:, : 2 * e], qkv[:, 2 * e :].abs()], dim=1)
     slack = 2.0**-7 * bk.attention_plain(absv, None, s, h, **kw)
     assert bool(((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs() + slack).all())
-    launched = {"attention_scaled_f32": 1}
+    launched = {"attention_scaled_f32": 1, "attention_scaled_f32/mma": 1}
     if s <= 64:
         q = qkv[::s, :e].contiguous()
         kv = qkv[:, e:].contiguous()

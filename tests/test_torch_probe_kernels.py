@@ -268,7 +268,11 @@ def test_patch_regroup_main_runs_on_the_cpu():
 
 _AB_LABELS = ["K8 blocked_attention bf16, 1 x 12 x 197", "K8 blocked_attention f32, 1 x 12 x 197",
               "pair_attention bf16, 4 x 50", "pair_attention f32, 4 x 50",
-              "K3 attention (int8 context), 4 x 50", "K3 attention_f32 (f32 context), 4 x 50",
+              "K3 attention (int8 context), 4 x 50",
+              "K3 attention +score (int8 context, shift), 4 x 50",
+              "K3 attention_f32 (f32 context), 4 x 50",
+              "K3 attention_scaled_f32 (f32 context, unfolded), 4 x 50",
+              "K3 attention (int8 context), 1 x 82",
               "batched_dot_mma, 6 heads x 56",
               "masked_attention_f32 (f32 context), 1 x 77 x 8, causal",
               "masked_attention (int8 context), 1 x 77 x 8, causal",
