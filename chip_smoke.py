@@ -10,7 +10,9 @@
 2. builds every CUDA kernel from ``jcf_tpu_torch/csrc``;
 3. holds each serving kernel (K1-K5) against its plain PyTorch version on
    the card and times both, at B' = 1024 crops and at the serving path's
-   own shapes (b1024 x 8 views = 8192 crops, the numbers reported);
+   own shapes (b1024 x 8 views = 8192 crops, the numbers reported), and
+   each epilogue of the int8 GEMM once at a ragged shape
+   (``RAGGED_GEMMS``);
 4. holds each text-tower kernel (K6a, K6b) against its plain version on
    one batch of 512 prompts x 77 tokens at ViT-B/32 text widths, and the
    composed halves and the 12-layer tower;
@@ -601,6 +603,60 @@ def gemm_work(a, w, out_itemsize, peak, *extra):
     return bound(nbytes(a, w, *extra) + m * n * out_itemsize, 2.0 * m * n * k, peak)
 
 
+# one ragged shape per epilogue of the int8 GEMM: rows past the 128-row
+# tile, N off the 256 (and 128) tile, K off the 128-byte stage
+RAGGED_GEMMS = {"s32": (4097, 2304, 3072), "bf16": (129, 192, 768), "bf16_rows": (4097, 768, 192),
+                "residual": (127, 2304, 3072), "residual_rows": (4097, 192, 768),
+                "residual_f32": (1, 768, 192), "residual_f32_rows": (129, 2304, 3072),
+                "f32": (4097, 64, 768), "f32_rows": (127, 768, 3072),
+                "gelu_quant": (4097, 2304, 768), "rowscale": (129, 768, 3072)}
+
+
+def ragged_gemm_checks(dev) -> None:
+    """Each int8 GEMM epilogue once at its ragged shape (``RAGGED_GEMMS``)
+    against its plain version, at the bar phase 3 holds it to: s32 exact,
+    bf16 one ulp + 1e-3, f32 1e-5 + 1e-5 |ref|, GELU-quant off by one on at
+    most 1e-3."""
+    import torch
+
+    from jcf_tpu_torch.ops import int8_gemm as ig
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    for epi, (m, n, k) in RAGGED_GEMMS.items():
+        a = torch.randint(-127, 128, (m, k), device=dev, generator=g, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), device=dev, generator=g, dtype=torch.int8)
+        sc = torch.rand(n, device=dev, generator=g) * 3e-5
+        bi = torch.randn(n, device=dev, generator=g) * 0.1
+        rows = torch.rand(m, device=dev, generator=g) + 0.5
+        r = rows if epi.endswith("_rows") else None
+        resid = torch.randn(m, n, device=dev, generator=g)
+        resid = resid if "f32" in epi else resid.bfloat16()
+        c = torch.tensor(0.851 / 30.0, device=dev)
+        base = epi.replace("_rows", "").replace("_f32", "")
+        got, ref, check = {
+            "s32": (lambda: ig.int8_gemm_s32(a, w), lambda: ig.int8_matmul_plain(a, w),
+                    lambda nm, x, y: check_int8(nm, x, y, 0.0)),
+            "bf16": (lambda: ig.int8_gemm_bf16(a, w, sc, bi, r),
+                     lambda: ig.int8_gemm_bf16_plain(a, w, sc, bi, r), check_bf16),
+            "residual": (lambda: ig.int8_gemm_residual(a, w, sc, bi, resid, r),
+                         lambda: ig.int8_gemm_residual_plain(a, w, sc, bi, resid, r),
+                         check_f32 if "f32" in epi else check_bf16),
+            "f32": (lambda: ig.int8_gemm_f32(a, w, sc, bi, r),
+                    lambda: ig.int8_gemm_f32_plain(a, w, sc, bi, r), check_f32),
+            "gelu_quant": (lambda: ig.int8_gemm_gelu_quant(a, w, sc * 30, bi * 30, c),
+                           lambda: ig.int8_gemm_gelu_quant_plain(a, w, sc * 30, bi * 30, c),
+                           lambda nm, x, y: check_int8(nm, x, y, 1e-3)),
+            "rowscale": (lambda: ig.int8_gemm_rowscale(a, w, rows, sc, bi),
+                         lambda: ig.int8_gemm_rowscale_plain(a, w, rows, sc, bi), check_bf16),
+        }[base]
+        before = ig.LAUNCHES[f"int8_gemm_{epi}"]
+        out = got()
+        torch.cuda.synchronize()
+        if ig.LAUNCHES[f"int8_gemm_{epi}"] != before + 1:
+            raise AssertionError(f"int8_gemm_{epi}: the ragged check did not launch the kernel")
+        check(f"int8_gemm_{epi} at {m} x {k} -> {n}", out, ref())
+
+
 def serving_kernel_phase(engine, images, geometry):
     """Each serving kernel against its plain version, stage by stage
     through layer 0 of the real weights (and K5 with the last layer's), at
@@ -688,6 +744,8 @@ def serving_kernel_phase(engine, images, geometry):
            check_bf16,
            gemm_work(h_q, pr.w_int8, 2, PEAK_INT8, mid, pr.w_scale, pr.bias),
            lambda: torch._int_mm(h_q, pr.w_int8.T))
+    log("int8 GEMM epilogues at ragged shapes")
+    ragged_gemm_checks(rows.device)
 
     # K5 with the last layer's weights: K/V on all rows, Q on the CLS rows
     last = layer_slice(engine._quant, cfg.vision_layers - 1)["attn"]

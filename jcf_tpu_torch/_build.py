@@ -42,7 +42,7 @@ SIGNATURES = {
     "jcf_assemble": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "jcf_ln_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "jcf_quant_rows": [_P, _P, _P, _I, _I, _I, _P],
-    "jcf_int8_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "jcf_int8_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
     "jcf_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I, _I, _P],
     "jcf_cls_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "jcf_bf16_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],

@@ -35,13 +35,42 @@
 //
 // What bounds it on the H100: tensor-core throughput at the tower's
 // shapes (M = 409,600 rows at b1024 x 8 views, K = 768 or 3072: far
-// above the int8 ridge point). This first version uses warp-level
-// mma.sync m16n8k32 (s8, s32 accumulation) from a two-stage cp.async
-// ring in shared memory: 128x128
-// block tiles, 64-deep K steps, eight warps of 64x32 each. Rows of the
-// shared tiles are padded to 80 bytes so the fragment loads are free of
-// bank conflicts. wgmma with TMA, which reaches the full int8 rate, is a
-// later step.
+// above the int8 ridge point), and only wgmma reaches the int8 rate. So
+// the mainloop is Hopper's: blocks that walk the 128 x BN output tiles
+// N-fastest (the blocks in flight share their A rows in L2), each block
+// eight consumer warps (two warpgroups of 64 rows) and a producer warp.
+// - The producer (one thread) loads 128-byte K slices of the A and B
+//   tiles with TMA (2D boxes, 128-byte swizzle) into a ring of STAGES
+//   stages, each guarded by a full and an empty mbarrier. TMA zero-fills
+//   the boxes past M, N and K and still counts whole boxes, so every
+//   stage expects STAGE_BYTES.
+// - Each consumer warpgroup runs wgmma.mma_async m64nBNk32 s8 x s8 ->
+//   s32, both operands K-major from shared memory (int8 wgmma takes no
+//   transposed operand; A [M, K] and B [N, K] are K-major as stored), four
+//   k32 steps a stage, one group in flight, and releases a stage once the
+//   group that read it is done. While the consumers store one tile, the
+//   producer already loads the next one's stages.
+// - BN = 256 (one block an SM, 4 stages) reads the least of L2 for each
+//   product, and serves the raw int32 product, whose epilogue is light
+//   (the patch embed 1.46 ms against 1.65 at BN = 128 on an H100). Every
+//   other epilogue holds the block's 8 warps while the tensor cores idle
+//   (c_fc's GELU-quant 6.42 ms at BN = 256); BN = 128 (two blocks an SM,
+//   3 stages each) gives 16 warps, one block's epilogue beside the
+//   other's products (4.89 ms). Two consumer warpgroups on 64-row tiles in turn (ping-pong)
+//   lost to both: B read twice as often, one warpgroup's epilogue stalls.
+// - The epilogue stores from the accumulators: wgmma's m64nN s32 layout
+//   gives each thread, per n8 column group, rows g and g + 8 of its
+//   warp's 16 at columns 2t, 2t + 1, the pairs store_pair takes. The
+//   int32 sums are exact, so every epilogue's output is that of any
+//   exact product (the earlier mma.sync kernel's) bit for bit.
+// BN (256 for the s32 epilogue, built for it alone; 128 for the others)
+// and the grid come from the caller (ops/int8_gemm.py gemm_plan): from
+// K = 2048 on, as many blocks as fit on the card at once
+// (the producer loads the next tile while the consumers store this one);
+// below it, one block a tile, whose blocks start apart and so keep their
+// epilogues apart, where two persistent blocks on an SM run in step.
+#include <cuda.h>
+
 #include "common.cuh"
 
 namespace {
@@ -52,9 +81,22 @@ enum {
   EPI_RESID_ROWS_F32 = 10
 };
 
-constexpr int BM = 128, BN = 128, BK = 64;
-constexpr int LDS = BK + 16;  // padded shared row, bytes
-constexpr int GEMM_THREADS = 256;
+constexpr int BM = 128;            // two consumer warpgroups of 64 rows
+constexpr int BK = 128;            // K bytes a stage: one 128-byte swizzle row
+constexpr int CONSUMER_WARPS = 8;  // warps 0-7; warp 8 the producer
+constexpr int GEMM_THREADS = 32 * (CONSUMER_WARPS + 1);
+
+// BN = 256: one block an SM, a 4-stage ring; BN = 128: two blocks an SM
+// (the one's epilogue beside the other's products), 3 stages each
+template <int BN>
+struct Tile {
+  static constexpr int BLOCKS_PER_SM = BN == 256 ? 1 : 2;
+  static constexpr int STAGES = BN == 256 ? 4 : 3;
+  static constexpr int A_BYTES = BM * BK, STAGE_BYTES = A_BYTES + BN * BK;
+  // the ring, 1024 bytes to align it (the swizzle's 8-row atom), and the
+  // full and empty barriers
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+};
 
 struct Epilogue {
   void* out;               // [M, N] int32 / bf16 / f32 / int8
@@ -110,107 +152,297 @@ __device__ __forceinline__ void store_pair(const Epilogue& ep, int m, int n, int
   }
 }
 
-template <int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS) int8_gemm_kernel(
-    const int8_t* __restrict__ A, const int8_t* __restrict__ B, int M, int N, int K,
-    Epilogue ep) {
-  __shared__ __align__(16) int8_t As[2][BM * LDS];
-  __shared__ __align__(16) int8_t Bs[2][BN * LDS];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 x 32
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
 
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0;
+// spins until the barrier's phase of this parity completes
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
 
-  // each tile is 128 rows x 64 bytes = 512 chunks of 16 bytes; K % 16 == 0
-  // so a chunk is wholly inside or wholly outside the matrix (zero-filled)
-  auto load_tile = [&](int stage, int k0) {
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// box (c0 = K byte, c1 = row) of the tensor map into shared memory at dst
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma's shared-memory descriptor of a K-major operand in the 128-byte
+// swizzle TMA wrote: start address >> 4, leading offset 1 (unused when the
+// K step lies in one swizzle row), stride 1024 bytes between 8-row groups,
+// layout 1 (128-byte swizzle). The k32 steps inside a 128-byte row add 32
+// bytes to the start: the swizzle is a function of the address bits, and
+// every stage is 1024-byte aligned.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator registers across the
+// asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
 #pragma unroll
-    for (int c = tid; c < BM * BK / 16; c += GEMM_THREADS) {
-      const int row = c >> 2, col = (c & 3) * 16, gk = k0 + col;
-      const int gm = m0 + row, gn = n0 + row;
-      const bool ok_a = gm < M && gk < K, ok_b = gn < N && gk < K;
-      cp_async16(&As[stage][row * LDS + col], ok_a ? A + (long long)gm * K + gk : A, ok_a ? 16 : 0);
-      cp_async16(&Bs[stage][row * LDS + col], ok_b ? B + (long long)gn * K + gk : B, ok_b ? 16 : 0);
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (m64 x BN s32, per thread BN / 2) += A (64 x 32 s8) * B (BN x 32 s8)^T
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int (&d)[BN / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN == 256)
+    wgmma_s8_n256(d, da, db);
+  else
+    wgmma_s8_n128(d, da, db);
+}
+
+template <int EPI, int BN>
+__global__ void __launch_bounds__(GEMM_THREADS, Tile<BN>::BLOCKS_PER_SM)
+    int8_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_b, int M, int N, int K, Epilogue ep) {
+  using T = Tile<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t full0 = ring + T::STAGES * T::STAGE_BYTES, empty0 = full0 + T::STAGES * 8;
+  const int tid = threadIdx.x;
+  const int tiles_n = (N + BN - 1) / BN, tiles = ((M + BM - 1) / BM) * tiles_n;
+  const int k_steps = (K + BK - 1) / BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, CONSUMER_WARPS);
     }
-    cp_async_commit();
-  };
-
-  const int k_tiles = (K + BK - 1) / BK;
-  load_tile(0, 0);
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < k_tiles) {
-      load_tile(cur ^ 1, (kt + 1) * BK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int8_t* as = As[cur];
-    const int8_t* bs = Bs[cur];
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      unsigned af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int r = wm * 64 + mi * 16 + g;
-        af[mi][0] = *reinterpret_cast<const unsigned*>(as + r * LDS + kk + tig * 4);
-        af[mi][1] = *reinterpret_cast<const unsigned*>(as + (r + 8) * LDS + kk + tig * 4);
-        af[mi][2] = *reinterpret_cast<const unsigned*>(as + r * LDS + kk + 16 + tig * 4);
-        af[mi][3] = *reinterpret_cast<const unsigned*>(as + (r + 8) * LDS + kk + 16 + tig * 4);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = wn * 32 + ni * 8 + g;
-        bfr[ni][0] = *reinterpret_cast<const unsigned*>(bs + n * LDS + kk + tig * 4);
-        bfr[ni][1] = *reinterpret_cast<const unsigned*>(bs + n * LDS + kk + 16 + tig * 4);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bfr[ni]);
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int m = m0 + wm * 64 + mi * 16 + g;
-      const int n = n0 + wn * 32 + ni * 8 + tig * 2;  // N % 8 == 0: n + 1 < N iff n < N
-      if (n < N) {
-        if (m < M) store_pair<EPI>(ep, m, n, N, acc[mi][ni][0], acc[mi][ni][1]);
-        if (m + 8 < M) store_pair<EPI>(ep, m + 8, n, N, acc[mi][ni][2], acc[mi][ni][3]);
+  if (tid >= 32 * CONSUMER_WARPS) {
+    // the producer warp: one thread keeps the ring full
+    if (tid == 32 * CONSUMER_WARPS) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / tiles_n) * BM, n0 = (t % tiles_n) * BN;
+        for (int ks = 0; ks < k_steps; ++ks) {
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          const uint32_t full = full0 + 8 * stage, a = ring + stage * T::STAGE_BYTES;
+          mbar_expect_tx(full, T::STAGE_BYTES);
+          tma_load(a, &map_a, full, ks * BK, m0);
+          tma_load(a + T::A_BYTES, &map_b, full, ks * BK, n0);
+          if (++stage == T::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
     }
+  } else {
+    const int cw = tid >> 7;  // consumer warpgroup: rows 64 cw of the tile
+    const int lane = tid & 31, warp = (tid >> 5) & 3, g = lane >> 2, tig = lane & 3;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t / tiles_n) * BM, n0 = (t % tiles_n) * BN;
+      int acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+      int held = -1;  // the stage the group in flight reads
+      for (int ks = 0; ks < k_steps; ++ks) {
+        mbar_wait(full0 + 8 * stage, phase);
+        __syncwarp();  // the warp issues the .aligned wgmma instructions together
+        const uint32_t a = ring + stage * T::STAGE_BYTES + cw * 64 * BK;
+        const uint32_t b = ring + stage * T::STAGE_BYTES + T::A_BYTES;
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 32; ++kk)
+          wgmma_s8<BN>(acc, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk));
+        wgmma_commit();
+        fence_acc(acc);
+        wgmma_wait<1>();
+        fence_acc(acc);
+        if (held >= 0 && lane == 0) mbar_arrive(empty0 + 8 * held);
+        held = stage;
+        if (++stage == T::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (held >= 0 && lane == 0) mbar_arrive(empty0 + 8 * held);
+
+      const int m = m0 + cw * 64 + warp * 16 + g;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = n0 + j * 8 + tig * 2;  // N % 8 == 0: n + 1 < N iff n < N
+        if (n < N) {
+          if (m < M) store_pair<EPI>(ep, m, n, N, acc[4 * j], acc[4 * j + 1]);
+          if (m + 8 < M) store_pair<EPI>(ep, m + 8, n, N, acc[4 * j + 2], acc[4 * j + 3]);
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library links no libcuda of its own
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// a [rows, K] int8 row-major matrix in boxes of BK bytes x box_rows rows,
+// 128-byte swizzle, zero fill past its edges
+int tensor_map(CUtensorMap* map, const void* ptr, int rows, int K, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int EPI, int BN>
+int launch_gemm(const void* A, const void* B, int M, int N, int K, int blocks, const Epilogue& ep,
+                cudaStream_t s) {
+  CUtensorMap map_a, map_b;
+  int err = tensor_map(&map_a, A, M, K, BM);
+  if (!err) err = tensor_map(&map_b, B, N, K, BN);
+  if (!err) err = set_smem(int8_gemm_kernel<EPI, BN>, Tile<BN>::SMEM);
+  if (err) return err;
+  int8_gemm_kernel<EPI, BN><<<blocks, GEMM_THREADS, Tile<BN>::SMEM, s>>>(map_a, map_b, M, N, K, ep);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// bn: the N tile, 256 for EPI_S32 only, else 128; blocks: the grid, which
+// walks the ceil(M / 128) x ceil(N / bn) tiles N-fastest. TMA takes
+// 16-byte aligned A and B only (K % 16 == 0 keeps every row aligned)
 extern "C" int jcf_int8_gemm(const void* A, const void* B, void* out, int M, int N, int K,
                              int epilogue, const void* scale, const void* bias,
                              const void* resid, const void* gelu_c, const void* row_scale,
-                             void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+                             int bn, int blocks, void* stream) {
+  if (M < 1 || N < 8 || N % 8 || K < 16 || K % 16 || blocks < 1 || ((uintptr_t)A & 15) ||
+      ((uintptr_t)B & 15) || (bn != 128 && !(bn == 256 && epilogue == EPI_S32)))
+    return (int)cudaErrorInvalidValue;
   Epilogue ep{out, static_cast<const float*>(scale), static_cast<const float*>(bias),
               resid, static_cast<const float*>(gelu_c),
               static_cast<const float*>(row_scale)};
-  const int8_t* a = static_cast<const int8_t*>(A);
-  const int8_t* b = static_cast<const int8_t*>(B);
   cudaStream_t s = (cudaStream_t)stream;
+  if (bn == 256) return launch_gemm<EPI_S32, 256>(A, B, M, N, K, blocks, ep, s);
   switch (epilogue) {
 #define JCF_EPI(E) \
-  case E: int8_gemm_kernel<E><<<grid, GEMM_THREADS, 0, s>>>(a, b, M, N, K, ep); break;
+  case E: return launch_gemm<E, 128>(A, B, M, N, K, blocks, ep, s);
     JCF_EPI(EPI_S32)
     JCF_EPI(EPI_BF16)
     JCF_EPI(EPI_RESID)
@@ -225,5 +457,4 @@ extern "C" int jcf_int8_gemm(const void* A, const void* B, void* out, int M, int
 #undef JCF_EPI
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

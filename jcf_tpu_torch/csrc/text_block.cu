@@ -307,41 +307,230 @@ __global__ void __launch_bounds__(NC * 32, 16 / NC > 1 ? 16 / NC : 1)
 // head up to 64 keys, 2 x 16 up to 127), the template K3's attention
 // shares.
 //
-// f32: pair_attention_kernel, the row loop of pair_attention.cuh on the
-// CUDA cores (the port refuses TF32 for f32 products). Shared memory: kT
-// and v of the pair (2 S 2D x 4 B), each warp's q row (8 x 2D x 4 B), p
-// (8 x 2 S x 4 B). q stays in device memory and each warp
-// copies its current row: staging q for the whole pair as well would take
-// 3 x 127 x 128 x 4 = 195,072 B at S = 127, one block per SM. Without it:
-// 142,272 B at S = 127, 58,496 B (3 blocks an SM) at S = 50.
+// f32 (D = 64, 16-byte aligned rows: every float vision tower):
+// pair_attention_tiled_kernel below, register tiles on the CUDA cores (the
+// port refuses TF32 for f32 products; the f32 FMAs, 62.9 GFLOP at 8192 x
+// 50 x 12, take 0.94 ms at 67 TFLOP/s, under the 1.50 ms of its bytes).
 
 constexpr int PA_WARPS = 8;
 
-template <int KB>
-__global__ void __launch_bounds__(PA_WARPS * 32) pair_attention_kernel(
+// The tiled f32 kernel, one block of 8 warps per (crop, head pair) item
+// (pair_attention_tiled_kernel). The item's K and V (and, up to
+// 64 keys, Q) are staged in shared memory with 16-byte cp.async loads; K
+// and Q rows are 132 floats, head 1 at float 68, so that the 8 keys (rows)
+// a quarter warp reads at one d, and the 4 (row, head) pairs of a warp's q
+// loads, fall in distinct 16-byte bank groups. A warp takes 8 query rows
+// (a unit) at a time, units warp, warp + warps, ...:
+// - scores: lane = (head h, row half rh, key kk); the thread holds rows
+//   4 rh + i (i < 4) x keys kk + 8 t (t < ceil(S / 8)) of head h and walks d
+//   in float4 steps: 4 + ceil(S / 8) 16-byte shared loads feed 16 ceil(S /
+//   8) FMAs (pair_attention.cuh's row loop: two 4-byte loads an FMA).
+//   Each sum runs over d in order, as the row loop's; then x scale, keys
+//   past S at -inf;
+// - the pair shift: the row's max over both heads' keys by shuffles (lane
+//   bits kk and h), then the floor; p = exp(s - m), l by shuffles over kk;
+// - p goes to shared memory ([2][8][S8] a unit, head 1 4 floats on, so
+//   the two heads' broadcast loads miss each other's banks): up to 64 keys
+//   over the unit's own q rows, which the scores no longer need; past 64
+//   to a buffer of each warp's, and Q is then read from device memory
+//   (staged, K, Q, V and p would take 266 KB at S = 127);
+// - PV: lane = 4 columns of the pair's 128 (head lane / 16), the thread
+//   holds the unit's 8 rows x 4 columns and walks the keys in order, 4 at
+//   a time: 4 loads of v and 8 of p (float4) feed 128 FMAs; the context
+//   leaves as whole 16-byte runs, times 1 / max(l, 1e-30) as store_ctx.
+// Shared memory: 86,272 B at S = 50 (two blocks an SM), 199,424 B at S =
+// 127. The FMA chains' latency bounds it, with 14 of an SM's 16 warps busy
+// at S = 50 (7 units): one persistent block an SM that loaded the next
+// item while computing this one (7 warps an SM) was slower, and so was
+// reading Q through L1 to fit three blocks an SM (80 registers: spills).
+constexpr int PT_D = 64, PT_LD = 132, PT_H1 = 68;
+
+// floats of one item's staging: K [S8][PT_LD], V [S4][128], with q_smem
+// Q [S8][PT_LD]
+__host__ __device__ __forceinline__ int pair_stage_floats(int S, bool q_smem) {
+  const int S8 = (S + 7) & ~7, S4 = (S + 3) & ~3;
+  return S8 * PT_LD * (q_smem ? 2 : 1) + S4 * 2 * PT_D;
+}
+
+// stages item (crop, pair) into k_s, v_s (and q_s): cp.async, zeros past S
+template <bool Q_SMEM>
+__device__ __forceinline__ void pair_stage(const float* base, int S, int E, float* k_s, float* v_s,
+                                           float* q_s) {
+  const int S8 = (S + 7) & ~7, S4 = (S + 3) & ~3, E3 = 3 * E;
+  for (int c = threadIdx.x; c < S8 * 32; c += blockDim.x) {
+    const int j = c >> 5, h = (c >> 4) & 1, d = (c & 15) * 4;
+    float* kd = k_s + j * PT_LD + h * PT_H1 + d;
+    float* qd = q_s + j * PT_LD + h * PT_H1 + d;
+    float* vd = v_s + j * 2 * PT_D + h * PT_D + d;
+    if (j < S) {
+      const float* r = base + (long long)j * E3 + h * PT_D + d;
+      cp_async16(kd, r + E, 16);
+      if (Q_SMEM) cp_async16(qd, r, 16);
+      cp_async16(vd, r + 2 * E, 16);
+    } else {
+      const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      *reinterpret_cast<float4*>(kd) = z;
+      if (Q_SMEM) *reinterpret_cast<float4*>(qd) = z;
+      if (j < S4) *reinterpret_cast<float4*>(vd) = z;
+    }
+  }
+}
+
+// the attention of one staged item by n_warps warps: base its qkv rows
+// (Q read from there without Q_SMEM), dst its context rows (row stride E);
+// l_s [warps][16]. p of a unit goes over its q rows (Q_SMEM), else to each
+// warp's buffer p_w [2][8 S8 + 4]
+template <int KT, bool Q_SMEM>
+__device__ __forceinline__ void pair_compute(const float* base, float* dst, int S, int E,
+                                             float scale, float m_floor, const float* k_s,
+                                             const float* v_s, float* q_s, float* p_w,
+                                             float* l_s, int n_warps) {
+  const int E3 = 3 * E;
+  const int units = (S + 7) >> 3, S8 = units * 8, S4 = (S + 3) & ~3;
+  const int PH = 8 * S8 + 4;  // a head's p rows of one unit
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int kk = lane & 7, rh = (lane >> 3) & 1, h = lane >> 4;
+  const float* kh = k_s + h * PT_H1 + kk * PT_LD;
+  for (int u = warp; u < units; u += n_warps) {
+    const int r0 = u * 8 + rh * 4;
+    float acc[4][KT];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int t = 0; t < KT; ++t) acc[i][t] = 0.0f;
+#pragma unroll 2
+    for (int d = 0; d < PT_D; d += 4) {
+      float4 qv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (Q_SMEM) {
+          qv[i] = *reinterpret_cast<const float4*>(q_s + (r0 + i) * PT_LD + h * PT_H1 + d);
+        } else {
+          qv[i] = r0 + i < S ? __ldg(reinterpret_cast<const float4*>(
+                                   base + (long long)(r0 + i) * E3 + h * PT_D + d))
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < KT; ++t) {
+        if (t < units) {
+          const float4 kv = *reinterpret_cast<const float4*>(kh + 8 * t * PT_LD + d);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float a = acc[i][t];
+            a = fmaf(qv[i].x, kv.x, a);
+            a = fmaf(qv[i].y, kv.y, a);
+            a = fmaf(qv[i].z, kv.z, a);
+            a = fmaf(qv[i].w, kv.w, a);
+            acc[i][t] = a;
+          }
+        }
+      }
+    }
+    // the pair shift and p, in place of the sums
+    float l[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int t = 0; t < KT; ++t) {
+        const float sc = t < units && kk + 8 * t < S ? __fmul_rn(acc[i][t], scale) : -INFINITY;
+        acc[i][t] = sc;
+        mx = fmaxf(mx, sc);
+      }
+#pragma unroll
+      for (int o = 1; o <= 16; o <<= 1)
+        if (o != 8) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m = fmaxf(mx, m_floor);
+      float sum = 0.0f;
+#pragma unroll
+      for (int t = 0; t < KT; ++t)
+        if (t < units) {
+          const float pv = expf(__fsub_rn(acc[i][t], m));
+          acc[i][t] = pv;
+          sum += pv;
+        }
+#pragma unroll
+      for (int o = 1; o <= 4; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      l[i] = sum;
+    }
+    float* pw = Q_SMEM ? q_s + u * 8 * PT_LD : p_w + warp * 2 * PH;
+    if (Q_SMEM) __syncwarp();  // the unit's q rows are read: p takes their place
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int t = 0; t < KT; ++t)
+        if (t < units) pw[h * PH + (rh * 4 + i) * S8 + kk + 8 * t] = acc[i][t];
+    if (kk == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) l_s[warp * 16 + h * 8 + rh * 4 + i] = l[i];
+    }
+    __syncwarp();
+
+    const int c = lane * 4;  // the pair's columns c .. c + 3, head lane / 16
+    const float* ph = pw + h * PH;
+    float o4[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) o4[i][x] = 0.0f;
+    for (int j = 0; j < S4; j += 4) {
+      float4 v4[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        v4[jj] = *reinterpret_cast<const float4*>(v_s + (j + jj) * 2 * PT_D + c);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 p4 = *reinterpret_cast<const float4*>(ph + i * S8 + j);
+        const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          o4[i][0] = fmaf(pj[jj], v4[jj].x, o4[i][0]);
+          o4[i][1] = fmaf(pj[jj], v4[jj].y, o4[i][1]);
+          o4[i][2] = fmaf(pj[jj], v4[jj].z, o4[i][2]);
+          o4[i][3] = fmaf(pj[jj], v4[jj].w, o4[i][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = u * 8 + i;
+      if (row < S) {
+        const float inv = __fdiv_rn(1.0f, fmaxf(l_s[warp * 16 + h * 8 + i], 1e-30f));
+        *reinterpret_cast<float4*>(dst + (long long)row * E + c) =
+            make_float4(__fmul_rn(o4[i][0], inv), __fmul_rn(o4[i][1], inv),
+                        __fmul_rn(o4[i][2], inv), __fmul_rn(o4[i][3], inv));
+      }
+    }
+    __syncwarp();  // p and l of this unit are read before the next unit's
+  }
+}
+
+// KT: key slots of a lane, keys kk + 8 t, t < KT (S <= 8 KT): up to 64 keys
+// Q staged, past 64 read through L1 with each warp's own p buffer
+template <int KT>
+__global__ void __launch_bounds__(PA_WARPS * 32, 2) pair_attention_tiled_kernel(
     const float* __restrict__ qkv,  // [n_crops * S, 3E]
     float* __restrict__ out,        // [n_crops * S, E]
-    int S, int H, int D, float scale, float m_floor) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int E = H * D, D2 = 2 * D, n_pairs = H / 2;
+    int S, int H, float scale, float m_floor) {
+  constexpr bool Q_SMEM = KT <= 8;
+  extern __shared__ __align__(16) float smem_f[];
+  const int E = H * PT_D, n_pairs = H / 2;
   const int pair = blockIdx.x % n_pairs;
   const long long crop = blockIdx.x / n_pairs;
-  float* kt_s = reinterpret_cast<float*>(smem_raw);  // [D2, S] (transposed)
-  float* v_s = kt_s + D2 * S;                         // [S, D2]
-  float* q_w = v_s + S * D2;                          // [warps, D2]
-  float* p_s = q_w + PA_WARPS * D2;                   // [warps, 2, S]
-
-  const float* base = qkv + crop * S * 3 * E + pair * D2;
-  for (int idx = threadIdx.x; idx < S * D2; idx += blockDim.x) {
-    const int j = idx / D2, d = idx - j * D2;
-    const float* r = base + (long long)j * 3 * E + d;
-    kt_s[d * S + j] = r[E];
-    v_s[idx] = r[2 * E];
-  }
+  const int kq = ((S + 7) & ~7) * PT_LD;  // the stage: K, (Q,) V
+  float* k_s = smem_f;
+  float* q_s = k_s + kq;                           // Q_SMEM
+  float* v_s = k_s + (Q_SMEM ? 2 : 1) * kq;
+  float* p_w = smem_f + pair_stage_floats(S, Q_SMEM);  // each warp's p past 64 keys
+  float* l_s = p_w + (Q_SMEM ? 0 : PA_WARPS * 2 * (8 * ((S + 7) & ~7) + 4));
+  const float* base = qkv + crop * S * 3 * E + pair * 2 * PT_D;
+  pair_stage<Q_SMEM>(base, S, E, k_s, v_s, q_s);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
-  pair_attention_rows_t<KB, float, float, true>(base, 3 * E, q_w, kt_s, v_s, p_s, S, D, scale,
-                                                nullptr, m_floor, 0.0f,
-                                                out + crop * S * E + pair * D2, E, PA_WARPS);
+  pair_compute<KT, Q_SMEM>(base, out + crop * S * E + pair * 2 * PT_D, S, E, scale, m_floor, k_s,
+                           v_s, q_s, p_w, l_s, PA_WARPS);
 }
 
 template <typename T>
@@ -408,15 +597,18 @@ int dispatch_masked(const void* qkv, const void* ctx_inv, void* out, int n_seq, 
                 : launch_masked<T, O, false, false>(qkv, ctx_inv, out, n_seq, S, H, D, scale, st);
 }
 
-template <int KB>
-int launch_pair_f32(const void* qkv, void* out, int n_crops, int S, int H, int D, float scale,
-                    float m_floor, cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * S * 2 * D + PA_WARPS * 2 * D + PA_WARPS * 2 * S) * sizeof(float);
-  const int err = set_smem(pair_attention_kernel<KB>, smem);
+template <int KT>
+int launch_pair_tiled(const void* qkv, void* out, int n_crops, int S, int H, float scale,
+                      float m_floor, cudaStream_t stream) {
+  constexpr bool Q_SMEM = KT <= 8;
+  const int S8 = (S + 7) & ~7;
+  const size_t p_w = Q_SMEM ? 0 : (size_t)PA_WARPS * 2 * (8 * S8 + 4);
+  const size_t smem = ((size_t)pair_stage_floats(S, Q_SMEM) + p_w + PA_WARPS * 16) * sizeof(float);
+  const int err = set_smem(pair_attention_tiled_kernel<KT>, smem);
   if (err) return err;
   const long long blocks = (long long)n_crops * (H / 2);
-  pair_attention_kernel<KB><<<(unsigned)blocks, PA_WARPS * 32, smem, stream>>>(
-      static_cast<const float*>(qkv), static_cast<float*>(out), S, H, D, scale, m_floor);
+  pair_attention_tiled_kernel<KT><<<(unsigned)blocks, PA_WARPS * 32, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<float*>(out), S, H, scale, m_floor);
   return (int)cudaGetLastError();
 }
 
@@ -464,20 +656,19 @@ extern "C" int jcf_masked_attention(const void* qkv, const void* ctx_inv, void* 
 }
 
 // floor: 0 where the reference pads the keys, -inf where it does not;
-// bf16 takes D = 64 and 16-byte aligned qkv and out only
+// D = 64 and 16-byte aligned qkv and out only: bf16 on the tensor cores,
+// f32 register-tiled on the CUDA cores
 extern "C" int jcf_pair_attention(const void* qkv, void* out, int n_crops, int S, int H, int D,
                                   float scale, float m_floor, int f32, void* stream) {
-  if (S < 1 || S > 128 || H < 2 || H % 2) return (int)cudaErrorInvalidValue;
+  if (S < 1 || S > 128 || H < 2 || H % 2 || D != ATT_D || ((uintptr_t)qkv & 15) ||
+      ((uintptr_t)out & 15))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (!f32) {
-    if (D != ATT_D || ((uintptr_t)qkv & 15) || ((uintptr_t)out & 15))
-      return (int)cudaErrorInvalidValue;
-    return S <= 64
-               ? launch_pair_mma<4, bf16, true, false>(qkv, nullptr, nullptr, out, n_crops, S, H,
-                                                       scale, m_floor, st)
-               : launch_pair_mma<8, bf16, true, false>(qkv, nullptr, nullptr, out, n_crops, S, H,
-                                                       scale, m_floor, st);
-  }
-  return S <= 64 ? launch_pair_f32<2>(qkv, out, n_crops, S, H, D, scale, m_floor, st)
-                 : launch_pair_f32<4>(qkv, out, n_crops, S, H, D, scale, m_floor, st);
+  if (f32)
+    return S <= 64 ? launch_pair_tiled<8>(qkv, out, n_crops, S, H, scale, m_floor, st)
+                   : launch_pair_tiled<16>(qkv, out, n_crops, S, H, scale, m_floor, st);
+  return S <= 64 ? launch_pair_mma<4, bf16, true, false>(qkv, nullptr, nullptr, out, n_crops, S, H,
+                                                          scale, m_floor, st)
+                 : launch_pair_mma<8, bf16, true, false>(qkv, nullptr, nullptr, out, n_crops, S, H,
+                                                          scale, m_floor, st);
 }

@@ -46,11 +46,12 @@ Each half is a few kernel launches: the row kernels ``ln_quant``,
 (csrc/int8_gemm.cu; csrc/bf16_gemm.cu on the tensor cores and
 csrc/f32_gemm.cu on the CUDA cores for the float halves). Each wrapper
 launches its kernel for CUDA tensors and runs its plain version for CPU
-tensors. ``attention``, ``pair_attention`` and ``masked_attention`` on
-bf16 qkv at head dim 64 launch tensor-core kernels (csrc/pair_mma.cuh,
-csrc/text_block.cu), other head dims and f32 rows the CUDA-core row
-loops; ``attention`` and ``masked_attention`` count each launch by its
-route too (``attention_route``). A static scale the tree lacks is dynamic. The folded tree's
+tensors. ``attention`` and ``masked_attention`` on bf16 qkv at head dim
+64 launch tensor-core kernels (csrc/pair_mma.cuh, csrc/text_block.cu),
+other head dims and f32 rows the CUDA-core row loops, and count each
+launch by its route too (``attention_route``); ``pair_attention`` takes
+head dim 64 only, bf16 on the tensor cores and f32 register-tiled on the
+CUDA cores. A static scale the tree lacks is dynamic. The folded tree's
 modes (``ops.quant.quantize_clip_params(fold=True)``): every scale
 dynamic; "ln" (static post-LN scales); "hidden" (+ the hidden's); "full"
 (+ the context's); each of the three optionally "+score" (the shift).
@@ -634,9 +635,9 @@ def pair_attention_plain(qkv: torch.Tensor, s: int, n_heads: int) -> torch.Tenso
 
 def pair_attention(qkv: torch.Tensor, s: int, n_heads: int) -> torch.Tensor:
     """Mask-free attention wrapper (bf16 or f32, S <= 127, an even head
-    count; bf16 at head dim 64 with 16-byte aligned rows): the CUDA kernel
-    for CUDA tensors (bf16 on the tensor cores, f32 in the row loop), the
-    plain version for CPU tensors."""
+    count, head dim 64 with 16-byte aligned rows): the CUDA kernel for CUDA
+    tensors (bf16 on the tensor cores, f32 register-tiled on the CUDA
+    cores), the plain version for CPU tensors."""
     if not qkv.is_cuda:
         return pair_attention_plain(qkv, s, n_heads)
     rows, e3 = qkv.shape
@@ -650,9 +651,9 @@ def pair_attention(qkv: torch.Tensor, s: int, n_heads: int) -> torch.Tensor:
     f32 = _FLOAT[qkv.dtype][1]
     name = "pair_attention_f32" if f32 else "pair_attention_bf16"
     qkv = qkv.contiguous()
-    if not f32 and (d != 64 or qkv.data_ptr() % 16):
-        raise ValueError(f"pair attention kernel takes bf16 at head dim 64 with 16-byte aligned "
-                         f"rows; got D={d}, offset {qkv.data_ptr() % 16} bytes")
+    if d != 64 or qkv.data_ptr() % 16:
+        raise ValueError(f"pair attention kernel takes head dim 64 with 16-byte aligned rows; "
+                         f"got D={d}, offset {qkv.data_ptr() % 16} bytes")
     out = torch.empty((rows, e), dtype=qkv.dtype, device=qkv.device)
     lib = _build.load()
     err = lib.jcf_pair_attention(qkv.data_ptr(), out.data_ptr(), rows // s, s, n_heads, d,

@@ -26,9 +26,15 @@ Each wrapper launches the CUDA kernel for CUDA tensors and runs its plain
 version (``<name>_plain``, the same arguments) for CPU tensors. The plain
 product runs in float64, which holds every partial sum of int8 products
 exactly (|acc| < 2**53).
+
+The kernel (wgmma fed by TMA) computes 128 x ``bn`` output tiles, block b
+of a grid of B taking tiles b, b + B, ... (N-fastest); ``gemm_plan`` picks
+``bn`` and the grid.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -39,6 +45,27 @@ _EPILOGUES = {"s32": 0, "bf16": 1, "residual": 2, "gelu_quant": 3, "rowscale": 4
               "residual_f32_rows": 10}
 # launches of the GEMM kernel, by epilogue
 LAUNCHES = {f"int8_gemm_{e}": 0 for e in _EPILOGUES}
+
+
+# the kernel's row tile (two consumer warpgroups of 64 rows)
+BM = 128
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def gemm_plan(epilogue: str, m: int, n: int, k: int, sms: int) -> tuple:
+    """(bn, blocks): the N tile, 256 (one block an SM) for the raw int32
+    product where N is a multiple of 256, else 128 (two blocks an SM: one
+    block's epilogue runs beside the other's products); the grid, from K
+    2048 on as many blocks as fit on the ``sms`` SMs at once, each walking
+    the tiles N-fastest, below it one block a tile (short mainloops: blocks
+    that start apart keep their epilogues apart)."""
+    bn = 256 if epilogue == "s32" and n % 256 == 0 else 128
+    tiles = -(-m // BM) * -(-n // bn)
+    return bn, min(tiles, sms * (1 if bn == 256 else 2)) if k >= 2048 else tiles
 
 
 def int8_matmul_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -94,9 +121,9 @@ def _launch(epilogue, a, w, out_dtype, *, scale=None, bias=None, resid=None, gel
     n = w.shape[0]
     if a.dtype != torch.int8 or w.dtype != torch.int8 or w.shape[1] != k:
         raise ValueError(f"int8 GEMM takes int8 a [M, K] and w [N, K], got {a.shape}, {w.shape}")
-    if k % 16 or n % 8 or m > 65535 * 128:
-        raise ValueError(f"int8 GEMM needs K % 16 == 0, N % 8 == 0 and M <= 65535 * 128 "
-                         f"(the grid's row limit), got M={m}, K={k}, N={n}")
+    if m < 1 or k < 16 or k % 16 or n < 8 or n % 8:
+        raise ValueError(f"int8 GEMM needs M >= 1, K a positive multiple of 16 and N of 8, "
+                         f"got M={m}, K={k}, N={n}")
     args = [a, w]
     for name, t, dt, shape in (("scale", scale, torch.float32, (n,)),
                                ("bias", bias, torch.float32, (n,)),
@@ -109,13 +136,15 @@ def _launch(epilogue, a, w, out_dtype, *, scale=None, bias=None, resid=None, gel
             raise ValueError(f"{name} must be {dt} {shape} on {a.device}")
         args.append(t)
     if any(not t.is_contiguous() for t in args) or a.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("int8 GEMM operands must be contiguous, a and w 16-byte aligned")
+        raise ValueError("int8 GEMM operands must be contiguous, a and w 16-byte aligned "
+                         "(TMA's rule)")
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    bn, blocks = gemm_plan(epilogue, m, n, k, _sm_count(a.device.index))
     lib = _build.load()
     err = lib.jcf_int8_gemm(
         a.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, _EPILOGUES[epilogue],
         *(t.data_ptr() if t is not None else None for t in (scale, bias, resid, gelu_c, row_scale)),
-        _build.stream_ptr(a.device),
+        bn, blocks, _build.stream_ptr(a.device),
     )
     _build.check(err, f"int8_gemm_{epilogue}")
     LAUNCHES[f"int8_gemm_{epilogue}"] += 1

@@ -74,6 +74,83 @@ def test_int8_gemm_epilogues(cuda, m, n, k):
                 ig.gelu_quant_plain(ig.dequant_plain(acc, scale * 30, bias * 30), c), 1e-3)
 
 
+GEMM_M, GEMM_N, GEMM_K = (1, 127, 129, 4097), (64, 192, 768, 2304), (192, 768, 3072)
+
+
+@pytest.mark.parametrize("k", GEMM_K)
+@pytest.mark.parametrize("n", GEMM_N)
+@pytest.mark.parametrize("m", GEMM_M)
+def test_int8_gemm_wgmma_shapes(cuda, m, n, k):
+    """The wgmma GEMM at ragged shapes (M past the 128-row tile, N not a
+    multiple of the 128 / 256 tile, K not of the 128-byte stage; at 4097 x
+    2304, 297 tiles over at most 132 blocks): s32 equal to the exact
+    product, every other epilogue at its chip_smoke bar against its plain
+    version, one launch each."""
+    g = torch.Generator(device=cuda).manual_seed(m * 7 + n * 3 + k)
+    a = torch.randint(-127, 128, (m, k), device=cuda, generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), device=cuda, generator=g, dtype=torch.int8)
+    scale = torch.rand(n, device=cuda, generator=g) * 3e-5
+    bias = torch.randn(n, device=cuda, generator=g) * 0.1
+    rows = torch.rand(m, device=cuda, generator=g) + 0.5
+    resid = torch.randn(m, n, device=cuda, generator=g)
+    c = torch.tensor(0.851 / 30.0, device=cuda)
+    before = dict(ig.LAUNCHES)
+    assert torch.equal(ig.int8_gemm_s32(a, w), ig.int8_matmul_plain(a, w))
+    for r in (None, rows):
+        _bf16_close(ig.int8_gemm_bf16(a, w, scale, bias, r),
+                    ig.int8_gemm_bf16_plain(a, w, scale, bias, r))
+        _bf16_close(ig.int8_gemm_residual(a, w, scale, bias, resid.bfloat16(), r),
+                    ig.int8_gemm_residual_plain(a, w, scale, bias, resid.bfloat16(), r))
+        _f32_close(ig.int8_gemm_residual(a, w, scale, bias, resid, r),
+                   ig.int8_gemm_residual_plain(a, w, scale, bias, resid, r))
+        _f32_close(ig.int8_gemm_f32(a, w, scale, bias, r), ig.int8_gemm_f32_plain(a, w, scale, bias, r))
+    _int8_close(ig.int8_gemm_gelu_quant(a, w, scale * 30, bias * 30, c),
+                ig.int8_gemm_gelu_quant_plain(a, w, scale * 30, bias * 30, c), 1e-3)
+    _bf16_close(ig.int8_gemm_rowscale(a, w, rows, scale, bias),
+                ig.int8_gemm_rowscale_plain(a, w, rows, scale, bias))
+    assert {k: v - before[k] for k, v in ig.LAUNCHES.items()} == dict.fromkeys(ig.LAUNCHES, 1)
+
+
+def test_int8_gemm_refuses_unaligned_operands(cuda):
+    """TMA reads 16-byte aligned bases only: an A or B one byte off raises
+    ``ValueError`` before any launch; a row slice at a multiple of 16 bytes
+    (K5's ``w_int8[e:]``) runs."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    buf = torch.randint(-127, 128, (64 * 96 + 1,), device=cuda, generator=g, dtype=torch.int8)
+    a, w = buf[:64 * 96].view(64, 96), buf[1:].view(64, 96)
+    before = dict(ig.LAUNCHES)
+    with pytest.raises(ValueError):
+        ig.int8_gemm_s32(a, w)
+    with pytest.raises(ValueError):
+        ig.int8_gemm_s32(w, a)
+    assert ig.LAUNCHES == before
+    assert torch.equal(ig.int8_gemm_s32(a, a[16:]), ig.int8_matmul_plain(a, a[16:]))
+
+
+def test_int8_gemm_c_entry_takes_the_256_tile_for_s32_only(cuda):
+    """The 256-column tile is built for the s32 epilogue alone: the C entry
+    refuses bn 256 with another epilogue, and bn off 128 / 256, before any
+    launch; s32 at bn 256 equals the exact product."""
+    from jcf_tpu_torch import _build
+
+    g = torch.Generator(device=cuda).manual_seed(256)
+    a = torch.randint(-127, 128, (130, 64), device=cuda, generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (512, 64), device=cuda, generator=g, dtype=torch.int8)
+    scale, bias = torch.ones(512, device=cuda), torch.zeros(512, device=cuda)
+    lib, stream = _build.load(), _build.stream_ptr(cuda)
+    out = torch.zeros(130, 512, dtype=torch.int32, device=cuda)
+
+    def call(epilogue, bn):
+        return lib.jcf_int8_gemm(a.data_ptr(), w.data_ptr(), out.data_ptr(), 130, 512, 64, epilogue,
+                                 scale.data_ptr(), bias.data_ptr(), None, None, None, bn, 4, stream)
+
+    assert call(1, 256) != 0 and call(0, 64) != 0
+    torch.cuda.synchronize(cuda)
+    assert int(out.abs().sum()) == 0
+    assert call(0, 256) == 0
+    assert torch.equal(out, ig.int8_matmul_plain(a, w))
+
+
 def test_assemble_kernel(cuda):
     g = torch.Generator(device=cuda).manual_seed(1)
     e = 768
@@ -880,16 +957,20 @@ def test_ln_affine_and_causal_attention_f32(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("s,h", [(48, 6), (50, 12), (56, 4), (64, 12), (82, 12), (127, 2)])
-def test_pair_attention_kernel(cuda, dtype, s, h):
-    """The mask-free attention vs its plain version: f32 within 1e-5 +
-    1e-5 |ref|; bf16 within one ulp + 1e-3 plus 2^-7 sum_j p_j |v_j| / l
-    (how far a p that rounds to bf16 across a tie moves an element). The
-    pair shift's floor is -inf at S = 48, 56 and 64 and 0 at 50, 82 and
-    127; bf16 holds up to 64 keys in one register tile, 82 and 127 in the
-    larger one."""
-    g = torch.Generator(device=cuda).manual_seed(s + h)
-    crops, d = 7, 64
+@pytest.mark.parametrize("s,h,crops", [(48, 6, 7), (50, 12, 7), (54, 12, 7), (56, 4, 7),
+                                       (64, 12, 7), (82, 12, 7), (127, 2, 7), (50, 2, 7),
+                                       (50, 12, 45), (54, 12, 45)])
+def test_pair_attention_kernel(cuda, dtype, s, h, crops):
+    """The mask-free attention vs its plain version: f32 (register-tiled
+    on the CUDA cores) within 1e-5 + 1e-5 |ref|; bf16 within one ulp + 1e-3
+    plus 2^-7 sum_j p_j |v_j| / l (how far a p that rounds to bf16 across
+    a tie moves an element). The pair shift's floor is -inf at S = 48, 56
+    and 64 and 0 at 50, 54, 82 and 127; bf16 holds up to 64 keys in one
+    register tile, 82 and 127 in the larger one; f32 stages Q up to 64
+    keys and reads it through L1 past 64 (45 crops x 6 pairs: 270 blocks,
+    the last wave of two blocks an SM part-full)."""
+    g = torch.Generator(device=cuda).manual_seed(s + h + crops)
+    d = 64
     qkv = (torch.randn(crops * s, 3 * h * d, device=cuda, generator=g) * 0.5).to(dtype)
     before = dict(bk.LAUNCHES)
     got = bk.pair_attention(qkv, s, h)
@@ -907,15 +988,29 @@ def test_pair_attention_kernel(cuda, dtype, s, h):
 
 
 def test_pair_attention_refuses_bf16_off_head_dim_64(cuda):
-    """bf16 pair attention runs on the tensor cores at head dim 64 only:
-    D = 32 raises ``ValueError`` and launches nothing; the f32 row loop
-    takes it."""
+    """Pair attention runs at head dim 64 on 16-byte aligned rows only, in
+    bf16 (tensor cores) and f32 (register tiles): D = 32 in either dtype,
+    and f32 rows 4 bytes off alignment at D = 64, raise ``ValueError`` and
+    launch nothing; the C entry refuses them too; the same rows aligned
+    run."""
+    from jcf_tpu_torch import _build
+
     g = torch.Generator(device=cuda).manual_seed(32)
     qkv = torch.randn(3 * 50, 3 * 4 * 32, device=cuda, generator=g) * 0.5
     before = dict(bk.LAUNCHES)
+    for t in (qkv.bfloat16(), qkv):
+        with pytest.raises(ValueError):
+            bk.pair_attention(t, 50, 4)
+    buf = torch.randn(3 * 50 * 3 * 4 * 64 + 1, device=cuda, generator=g) * 0.5
     with pytest.raises(ValueError):
-        bk.pair_attention(qkv.bfloat16(), 50, 4)
+        bk.pair_attention(buf[1:].view(3 * 50, 3 * 4 * 64), 50, 4)
     assert bk.LAUNCHES == before
+    out = torch.empty(3 * 50, 4 * 32, device=cuda)
+    lib = _build.load()
+    for f32, t in ((0, qkv.bfloat16()), (1, qkv)):
+        assert lib.jcf_pair_attention(t.data_ptr(), out.data_ptr(), 3, 50, 4, 32, 1.0, 0.0, f32,
+                                      _build.stream_ptr(cuda)) != 0
+    qkv = buf[:-1].view(3 * 50, 3 * 4 * 64)
     _f32_close(bk.pair_attention(qkv, 50, 4), bk.pair_attention_plain(qkv, 50, 4))
     assert bk.LAUNCHES["pair_attention_f32"] == before["pair_attention_f32"] + 1
 

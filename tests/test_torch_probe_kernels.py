@@ -311,6 +311,41 @@ def test_ab_attention_times_one_package_only():
         ab_attention.import_package(ROOT / "build" / "parent")
 
 
+_AB_GEMM_LABELS = ["s32 patch embed, 98 x 3072 -> 768", "bf16 qkv, 100 x 768 -> 2304",
+                   "bf16_rows qkv, 100 x 768 -> 2304", "residual out-proj, 100 x 768 -> 768",
+                   "residual c_proj, 100 x 3072 -> 768", "residual_rows c_proj, 100 x 3072 -> 768",
+                   "gelu_quant c_fc, 100 x 768 -> 3072", "f32 c_fc, 100 x 768 -> 3072",
+                   "f32_rows c_fc, 100 x 768 -> 3072", "w4a8 gelu_quant c_fc, 100 x 768 -> 3072",
+                   "w4a8 residual c_proj, 100 x 3072 -> 768", "rowscale qkv, 197 x 768 -> 2304",
+                   "rowscale c_fc, 197 x 768 -> 3072", "residual_f32 c_proj, 77 x 2048 -> 512",
+                   "residual_f32_rows c_proj, 77 x 2048 -> 512",
+                   "residual_f32 out-proj, 77 x 512 -> 512",
+                   "residual_f32_rows out-proj, 77 x 512 -> 512"]
+_AB_GEMM_LABELS += [f"{e} on the {name} product, 100 x {k} -> {n}"
+                    for name, k, n in (("qkv", 768, 2304), ("c_fc", 768, 3072),
+                                       ("c_proj", 3072, 768))
+                    for e in ("s32", "bf16", "f32", "gelu_quant", "residual")]
+
+
+def test_ab_gemm_runs_as_a_file_on_the_cpu():
+    """The GEMM A/B script as the card runs it (a file, the checkout's root
+    as ROOT), at two crops on the CPU: the device line, the package, then
+    one line a GEMM with the SHA-256 of its output (the plain versions'
+    here, which the kernels equal bit for bit)."""
+    script = ROOT / "jcf_tpu_torch" / "scripts" / "ab_gemm.py"
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, str(script), str(ROOT), "--device", "cpu", "--crops",
+                          "2", "--rounds", "1", "--reps", "1"], cwd=ROOT / "tests",
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("device: cpu")
+    assert lines[1] == f"package: {ROOT / 'jcf_tpu_torch'}"
+    assert [line.split(":")[0] for line in lines[2:]] == _AB_GEMM_LABELS
+    assert all("(1 x 1), sha256 " in line for line in lines[2:])
+
+
 def test_no_module_of_the_port_imports_jax():
     """Every module of ``jcf_tpu_torch``, ``chip_smoke.py`` and the root
     ``profile_*.py`` scripts (the port's) import neither JAX nor
@@ -320,7 +355,7 @@ def test_no_module_of_the_port_imports_jax():
     sources = (sorted((ROOT / "jcf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
                + sorted(ROOT.glob("profile_*.py")))
     assert {"exp_batched_dot.py", "exp_w4a8.py", "exp_patch_regroup.py", "ab_attention.py",
-            "profile_k9.py"} <= {p.name for p in sources}
+            "ab_gemm.py", "profile_k9.py"} <= {p.name for p in sources}
     for path in sources:
         assert not pattern.search(path.read_text()), path
 
