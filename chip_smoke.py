@@ -57,8 +57,12 @@
    plain attention (top-5 overlap >= 0.97 and per-image mode cosine >=
    0.999 gated; the top-1 agreement printed with what bounds it on random
    weights: the logit margins, the same tower in bf16 without int8, and 8
-   more random classifiers), times img/s and profiles one forward by
-   kernel group;
+   more random classifiers), runs the f32 engine once more on its kernels
+   (K8 in f32: one K1 and 12 K8 a forward, counted; against the
+   plain-attention route at phase 11's gates: per-view feature cos and
+   mean mode cos >= 0.99999, top-1 and top-5 >= 0.99; img/s), logs K8 in
+   f32 at 577 tokens against its plain version,
+   times img/s and profiles one forward by kernel group;
 9. (after 6b) the whole-layer routes on the ViT-B/32 engine of phase 6,
    its images, geometry and classifier: for ``_FUSE`` = "block" (K9a),
    "layer" (K9d) and "stream" (K9c) it counts one forward (11 K9a or 11
@@ -286,6 +290,9 @@ TRAIN_ITERS = 5  # timed steps
 # ViT-B/16 images per serving batch: bench.py's b1024 cut to a quarter
 # (each crop of 197 tokens costs about 4x the multiply-adds of 50)
 B16_BATCH = 256
+# crops of the K8 f32 check at ViT-L/14@336px's 577 tokens (16 heads; the
+# plain version's scores take 5.5 GB)
+K8_LONG_CROPS = 256
 
 # published dense peaks of one H100 SXM at 700 W: memory bytes/s, int8
 # ops/s, bf16 flop/s
@@ -377,7 +384,7 @@ KERNELS = {
                       "jcf_tpu/ops/block_kernel.py:704"),
     "f32_gemm_residual": ("serving_f32", "jcf_tpu_torch/csrc/f32_gemm.cu",
                           "jcf_tpu/ops/block_kernel.py:704"),
-    "causal_attention_f32": ("classifier_f32", "jcf_tpu_torch/csrc/text_block.cu",
+    "causal_attention_f32": ("classifier_f32", "jcf_tpu_torch/csrc/attn_f32.cuh",
                              "jcf_tpu/ops/block_kernel.py:464"),
     # the masked and unfolded int8 halves, phase 12: the int8 text tower
     # (the classifier build in f32) and the unfolded vision tower
@@ -1376,6 +1383,19 @@ def serving_b16_phase(dev, counters, smi, text):
                    bound(4 * nbytes(qd), 4.0 * b * h * s * s * d, peak),
                    lambda: F.scaled_dot_product_attention(qd, kd, vd))
         del qd, kd, vd, r
+    # K8 in f32 at ViT-L/14@336px's 577 tokens (16 heads; 128-key groups
+    # streamed twice), the log only
+    g = torch.Generator(device=dev).manual_seed(577)
+    qkv_l = torch.randn(K8_LONG_CROPS, 577, 3 * 16 * 64, device=dev, generator=g)
+    ql, kl, vl = qkv_l.unflatten(-1, (3, 16, 64)).permute(2, 0, 3, 1, 4)
+    log(f"K8 f32 at {K8_LONG_CROPS} crops x 16 heads x 577 tokens x 64, head views of a packed qkv")
+    ph.run("blocked_attention (f32, 577 tokens)",
+           lambda: at.fused_attention(ql, kl, vl),
+           lambda: at.attention_plain(ql, kl, vl),
+           check_f32,
+           bound(4 * nbytes(ql), 4.0 * K8_LONG_CROPS * 16 * 577 * 577 * 64, PEAK_F32),
+           lambda: F.scaled_dot_product_attention(ql, kl, vl))
+    del qkv_l, ql, kl, vl
     torch.cuda.empty_cache()
 
     # the row-scale GEMM against its plain version: qkv (log), c_fc (JSON)
@@ -1426,7 +1446,37 @@ def serving_b16_phase(dev, counters, smi, text):
         f"random classifiers: {' '.join(f'{x:.4f}' for x in draws)}")
     if overlap < 0.97 or min_cos < 0.999:
         raise AssertionError("the ViT-B/16 int8 path fails the ranking certificate")
-    del ref, modes_f, modes_bf16
+    del modes_bf16
+
+    # the f32 engine on its kernels (PipelineConfig()'s f32 tower on a
+    # ViT-B/16: K8 in f32), counted, against its plain-attention modes
+    modes_k, launches_k = count_forward(
+        counters, lambda: ref.features_from_images(images, text, geometry=geometry))
+    log(f"ViT-B/16 f32 engine launches: {launches_k}")
+    want = {"view_f32": 1, "blocked_attention": cfg.vision_layers}
+    if launches_k != want:
+        raise AssertionError(f"expected exactly the launches {want}")
+    # phase 11's gates: per-view features, the modes' mean cos and ranks
+    feats_k = ref._view_features(images, geometry)
+    with plain_attention():
+        feats_p = torch.cat([
+            ref._view_features(images[i : i + chunk], tuple(t[i : i + chunk] for t in geometry))
+            for i in range(0, B16_BATCH, chunk)])
+    view_cos = float(cosine_rows(feats_k.reshape(-1, cfg.embed_dim),
+                                 feats_p.reshape(-1, cfg.embed_dim)).min())
+    top1, overlap, cos = agreement(modes_k, modes_f, text)
+    min_cos = float(cosine_rows(modes_k, modes_f).min())
+    log(f"ViT-B/16 f32 engine, K8 kernels vs plain attention: per-view feature cos min "
+        f"{view_cos:.7f}, top1_agree {top1:.4f} top5_overlap {overlap:.4f} mode_cos mean "
+        f"{cos:.7f} min {min_cos:.7f} (gates: view cos and mean mode cos >= 0.99999, top-1 and "
+        f"top-5 >= 0.99)")
+    if view_cos < 0.99999 or cos < 0.99999 or top1 < 0.99 or overlap < 0.99:
+        raise AssertionError("the ViT-B/16 f32 engine on K8 disagrees with its plain attention")
+    del feats_k, feats_p
+    gen = torch.Generator(device=dev).manual_seed(3)
+    time_forwards(lambda: ref.features_from_images(images, text, generator=gen), FLOAT_ITERS,
+                  B16_BATCH, "img", smi, f"ViT-B/16 f32 engine (K8 f32, b{B16_BATCH} x {VIEWS} views)")
+    del ref, modes_f, modes_k
     torch.cuda.empty_cache()
 
     # throughput: fresh geometry per iteration, sampled on the card
@@ -2176,7 +2226,7 @@ FLOAT_LAYER = {
     "bf16": {"ln_affine": 2, "bf16_gemm_bias": 1, "pair_attention_bf16": 1,
              "bf16_gemm_residual": 2, "bf16_gemm_gelu": 1},
     "f32 text": {"ln_affine_f32": 2, "f32_gemm_bias": 1, "causal_attention_f32": 1,
-                 "causal_attention_f32/rowloop": 1, "f32_gemm_residual": 2, "f32_gemm_gelu": 1},
+                 "f32_gemm_residual": 2, "f32_gemm_gelu": 1},
     "bf16 text": {"ln_affine": 2, "bf16_gemm_bias": 1, "causal_attention": 1,
                   "causal_attention/mma": 1, "bf16_gemm_residual": 2, "bf16_gemm_gelu": 1},
 }
@@ -2319,7 +2369,8 @@ def float_kernel_phase(rows_f32, rows_bf16, text, cfg, ids, images, geometry):
                  lambda: fg.f32_gemm_bias_plain(h, wq, bq),
                  check_f32_sum(h, wq),
                  gemm_work(h, wq, 4, PEAK_F32, bq),
-                 lambda: torch.matmul(h, wq.T))
+                 lambda: torch.addmm(bq, h, wq.T))
+    log(f"  f32_gemm_bias: the bare product torch.matmul {time_ms(lambda: torch.matmul(h, wq.T)):.3f} ms")
     q, k, v = head_views(qkv, s, heads)
     ctx = ph.run("pair_attention_f32",
                  lambda: bk.pair_attention(qkv, s, heads),
@@ -2429,7 +2480,9 @@ def float_kernel_phase(rows_f32, rows_bf16, text, cfg, ids, images, geometry):
                    lambda: fg.f32_gemm_bias_plain(ht, ta["w_qkv"], ta["b_qkv"]),
                    check_f32_sum(ht, ta["w_qkv"]),
                    gemm_work(ht, ta["w_qkv"], 4, PEAK_F32, ta["b_qkv"]),
-                   lambda: torch.matmul(ht, ta["w_qkv"].T))
+                   lambda: torch.addmm(ta["b_qkv"], ht, ta["w_qkv"].T))
+    log(f"  f32_gemm_bias (text): the bare product torch.matmul "
+        f"{time_ms(lambda: torch.matmul(ht, ta['w_qkv'].T)):.3f} ms")
     q, k, v = head_views(qkv_t, st, th)
     ph.run("causal_attention_f32",
            lambda: bk.causal_attention(qkv_t, st, th),
@@ -2995,7 +3048,18 @@ def small_towers_phase(dev, counters):
                    lambda n, a, b: check_bf16(n, a, b, slack),
                    bound(nbytes(qkv) + nbytes(x), 4.0 * SMALL_CROPS * heads * s * s * 64, PEAK_BF16),
                    lambda: F.scaled_dot_product_attention(q, k, v))
-            del q, k, v, qkv, h, slack
+            # the same rows in f32: the register-tiled kernel (an odd-head
+            # f32 tower's attention)
+            q32 = qkv.float()
+            q, k, v = head_views(q32, s, heads)
+            ph.run("head_attention_f32",
+                   lambda: bk.masked_attention(q32, s, heads, **kw),
+                   lambda: bk.masked_attention_plain(q32, s, heads, **kw),
+                   check_f32,
+                   bound(nbytes(q32) + q32.shape[0] * width * 4,
+                         4.0 * SMALL_CROPS * heads * s * s * 64, PEAK_F32),
+                   lambda: F.scaled_dot_product_attention(q, k, v))
+            del q, k, v, qkv, q32, h, slack
     torch.cuda.empty_cache()
     return launches_odd, ph.results
 

@@ -43,157 +43,17 @@
 // normalization would round p elsewhere and is not used. The q, k, v rows
 // and the output must be 16-byte aligned (the C entry refuses others).
 //
-// f32: blocked_attn_kernel, on the CUDA cores (the port refuses TF32 for
-// f32 products): one block per (crop, head, 64-query tile). The tile's
-// scores against every key stay in shared memory ([S, 64] f32, 197 KB at
-// S = 768), so each key tile of K and then of V is read once per query
-// tile and nothing of the S x S scores reaches device memory. Both
-// products use 4 x 4 register tiles per thread over f32 shared tiles (q
-// and k stored transposed, rows padded to 68 floats); the softmax runs
-// with four threads per query row over the key-major score tile,
-// conflict-free.
+// f32: attn_f32.cuh's register-tiled kernels on the CUDA cores (the port
+// refuses TF32 for f32 products), q, k, v and the output on 16 bytes as in
+// bf16: one block a (crop, head) up to 256 keys, Q, K and V staged once,
+// each warp's 8 query rows x 32-key slots in registers walking d in
+// float4 steps, the softmax by shuffles, PV from a warp's p buffer; past
+// 256 keys 64 query rows a block with K and V streamed in 128-key groups,
+// the scores taken twice.
+#include "attn_f32.cuh"
 #include "attn_mma.cuh"
 
 namespace {
-
-constexpr int BA_THREADS = 256;
-constexpr int QT = 64;  // queries per block
-constexpr int KT = 64;  // keys per tile
-constexpr int HD = 64;  // head dim
-constexpr int LD = 68;  // padded shared row of the q / k / v tiles, floats
-
-struct Strides {
-  long long b, h, s;  // elements; the head dim is contiguous
-};
-
-size_t smem_bytes(int S) {
-  const size_t n_kt = (S + KT - 1) / KT;
-  return ((size_t)(HD + KT) * LD + n_kt * KT * QT + 4 * QT) * sizeof(float);
-}
-
-__global__ void __launch_bounds__(BA_THREADS) blocked_attn_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ bias,  // [S, S] or null
-    float* __restrict__ out, int S, int H, int n_qt, Strides in, Strides os, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n_kt = (S + KT - 1) / KT;
-  float* qt_s = reinterpret_cast<float*>(smem_raw);  // [HD][LD] q^T of the query tile
-  float* kv_s = qt_s + HD * LD;                       // [HD][LD] k^T, then [KT][LD] v
-  float* sc_s = kv_s + KT * LD;                       // [n_kt * KT][QT] scores, then p
-  float* red_s = sc_s + (size_t)n_kt * KT * QT;       // [4][QT] partial row max / sum
-
-  const int tid = threadIdx.x;
-  const int qt = blockIdx.x % n_qt;
-  const long long bh = blockIdx.x / n_qt;
-  const int head = (int)(bh % H);
-  const long long b = bh / H;
-  const int q0 = qt * QT;
-  const long long ib = b * in.b + head * in.h;
-
-  for (int idx = tid; idx < QT * HD; idx += BA_THREADS) {
-    const int r = idx / HD, d = idx % HD, i = q0 + r;
-    qt_s[d * LD + r] = i < S ? q[ib + i * in.s + d] : 0.0f;
-  }
-
-  // scores: thread (tx, ty) holds queries tx*4 + i of keys ty*4 + jj
-  const int tx = tid & 15, ty = tid >> 4;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int j0 = kt * KT;
-    __syncthreads();
-    for (int idx = tid; idx < KT * HD; idx += BA_THREADS) {
-      const int r = idx / HD, d = idx % HD, j = j0 + r;
-      kv_s[d * LD + r] = j < S ? k[ib + j * in.s + d] : 0.0f;
-    }
-    __syncthreads();
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.0f;
-#pragma unroll 16
-    for (int d = 0; d < HD; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qt_s + d * LD + tx * 4);
-      const float4 c = *reinterpret_cast<const float4*>(kv_s + d * LD + ty * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(av[i], cv[jj], acc[i][jj]);
-    }
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int j = j0 + ty * 4 + jj;
-      float sv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = q0 + tx * 4 + i;
-        float s = __fmul_rn(acc[i][jj], scale);
-        if (bias != nullptr && qi < S && j < S) s = __fadd_rn(s, bias[(long long)qi * S + j]);
-        sv[i] = j < S ? s : -INFINITY;
-      }
-      *reinterpret_cast<float4*>(sc_s + (size_t)j * QT + tx * 4) = make_float4(sv[0], sv[1], sv[2], sv[3]);
-    }
-  }
-  __syncthreads();
-
-  // softmax: four threads per query row r, keys g, g + 4, ...
-  {
-    const int r = tid & (QT - 1), g = tid / QT;
-    float m = -INFINITY;
-    for (int j = g; j < S; j += 4) m = fmaxf(m, sc_s[j * QT + r]);
-    red_s[g * QT + r] = m;
-    __syncthreads();
-    m = fmaxf(fmaxf(red_s[r], red_s[QT + r]), fmaxf(red_s[2 * QT + r], red_s[3 * QT + r]));
-    float sum = 0.0f;
-    for (int j = g; j < S; j += 4) {
-      const float e = expf(__fsub_rn(sc_s[j * QT + r], m));
-      sc_s[j * QT + r] = e;
-      sum = __fadd_rn(sum, e);
-    }
-    __syncthreads();
-    red_s[g * QT + r] = sum;
-    __syncthreads();
-    sum = __fadd_rn(__fadd_rn(red_s[r], red_s[QT + r]), __fadd_rn(red_s[2 * QT + r], red_s[3 * QT + r]));
-    for (int j = g; j < S; j += 4) sc_s[j * QT + r] = __fdiv_rn(sc_s[j * QT + r], sum);
-  }
-
-  // PV: thread (tx, ty) holds queries ty*4 + i of dims tx*4 + c
-  float o[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[i][c] = 0.0f;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int j0 = kt * KT;
-    __syncthreads();
-    for (int idx = tid; idx < KT * HD; idx += BA_THREADS) {
-      const int r = idx / HD, d = idx % HD, j = j0 + r;
-      kv_s[r * LD + d] = j < S ? v[ib + j * in.s + d] : 0.0f;
-    }
-    __syncthreads();
-    const int nk = min(KT, S - j0);
-#pragma unroll 4
-    for (int jj = 0; jj < nk; ++jj) {
-      const float4 p = *reinterpret_cast<const float4*>(sc_s + (size_t)(j0 + jj) * QT + ty * 4);
-      const float4 w = *reinterpret_cast<const float4*>(kv_s + jj * LD + tx * 4);
-      const float pv[4] = {p.x, p.y, p.z, p.w}, wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) o[i][c] = fmaf(pv[i], wv[c], o[i][c]);
-    }
-  }
-  const long long ob = b * os.b + head * os.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    if (qi < S) {
-      float* dst = out + ob + qi * os.s + tx * 4;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) dst[c] = o[i][c];
-    }
-  }
-}
 
 constexpr int K8_WARPS = 4;
 constexpr int K8_LD = ATT_D + 8;  // padded shared row of K and V (bf16): conflict-free ldmatrix
@@ -319,21 +179,6 @@ __global__ void __launch_bounds__(K8_WARPS * 32, 3) blocked_attn_mma_kernel(
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, const void* bias, void* out, int B,
-               int S, int H, Strides in, Strides os, float scale, cudaStream_t stream) {
-  const int n_qt = (S + QT - 1) / QT;
-  if ((long long)B * H * n_qt > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(S);
-  const int err = set_smem(blocked_attn_kernel, smem);
-  if (err) return err;
-  blocked_attn_kernel<<<(unsigned)((long long)B * H * n_qt), BA_THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(bias), static_cast<float*>(out), S, H, n_qt, in, os, scale);
-  return (int)cudaGetLastError();
-}
-
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
 template <int KC, bool STREAM>
 int launch_mma(const void* q, const void* k, const void* v, const void* bias, void* out, int B,
                int S, int H, Strides in, Strides os, float scale, cudaStream_t stream) {
@@ -366,18 +211,18 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* bias, v
 }  // namespace
 
 // returns cudaErrorInvalidValue, and launches nothing, for D != 64, an
-// empty shape, more blocks than the grid holds, S whose score tile is
-// over the card's shared memory (f32: S > 768 on an H100) or S > 768
-// (bf16), and in bf16 a pointer or stride that is not 16-byte aligned;
-// bias may be null
+// empty shape, more blocks than the grid holds, S > 768, or a pointer or
+// stride that is not 16-byte aligned; bias may be null
 extern "C" int jcf_blocked_attention(const void* q, const void* k, const void* v,
                                      const void* bias, void* out, int B, int S, int H, int D,
                                      long long sb, long long sh, long long ss, long long ob,
                                      long long oh, long long os, float scale, int is_bf16,
                                      void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || D != HD) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || S <= 0 || H <= 0 || D != ATT_D) return (int)cudaErrorInvalidValue;
   const Strides in{sb, sh, ss}, o{ob, oh, os};
   cudaStream_t st = (cudaStream_t)stream;
-  return is_bf16 ? launch_bf16(q, k, v, bias, out, B, S, H, in, o, scale, st)
-                 : launch_f32(q, k, v, bias, out, B, S, H, in, o, scale, st);
+  if (is_bf16) return launch_bf16(q, k, v, bias, out, B, S, H, in, o, scale, st);
+  return launch_attn_f32<false, K8_MAX_SEQ>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(bias), static_cast<float*>(out), B, S, H, in, o, scale, st);
 }

@@ -10,6 +10,7 @@
 // the GEMMs with fused epilogues (bf16_gemm.cu on the tensor cores for
 // bf16, f32_gemm.cu on the CUDA cores for f32). Every intermediate
 // between them is in the compute dtype T (bf16 or f32).
+#include "attn_f32.cuh"
 #include "attn_mma.cuh"
 #include "common.cuh"
 #include "pair_attention.cuh"
@@ -113,12 +114,18 @@ __global__ void __launch_bounds__(LNA_WARPS * 32) ln_affine_kernel(
 // 80GB HBM3 at 700 W (jcf_tpu_torch/scripts/ab_attention.py,
 // score_order.py).
 //
-// f32 rows, and bf16 at another head dim: masked_attention_kernel, on the
-// CUDA cores from shared memory (one warp per query row, lanes over keys
-// for the scores with K stored transposed, lanes over head dims for PV;
-// the port refuses TF32 for f32 products). qkv is read once (16-byte
-// loads) and the context written once. Shared memory: 3 S D sizeof(T) +
-// 8 S 4 B, 61,600 B in f32 at S = 77.
+// f32 qkv at D = 64 (every f32 tower; 16-byte aligned rows): attn_f32.cuh's
+// register-tiled kernel on the CUDA cores, K8's f32 kernel with the causal
+// mask or none and the optional scale (the port refuses TF32 for f32
+// products): one block a (sequence, head), each warp's 8 query rows x
+// 32-key slots in registers, the causal slots past a unit's last row
+// skipped, the softmax by shuffles over the head's keys, p / l before PV.
+//
+// bf16 at another head dim: masked_attention_kernel, on the CUDA cores
+// from shared memory (one warp per query row, lanes over keys for the
+// scores with K stored transposed, lanes over head dims for PV). qkv is
+// read once (16-byte loads) and the context written once. Shared memory:
+// 3 S D sizeof(T) + 8 S 4 B.
 
 constexpr int CA_WARPS = 8;
 constexpr int CA_KEYS = 4;  // keys per lane: S <= 128
@@ -622,29 +629,40 @@ extern "C" int jcf_ln_affine(const void* x, const void* scale, const void* bias,
              : launch_ln_affine<bf16>(x, scale, bias, out, M, E, st);
 }
 
-// f32: f32 rows (the context in f32), else bf16 rows with the context
-// stored as out_kind: 0 bf16, 1 f32, 2 int8 x ctx_inv. causal: the causal
-// mask, else none; scaled: the scores x scale. mma: the tensor-core kernel
-// (bf16 rows, D = 64, qkv and out 16-byte aligned; the caller's route),
-// else the CUDA-core row loop
+// f32: f32 rows (the context in f32; D = 64, qkv and out 16-byte aligned:
+// the register-tiled kernel), else bf16 rows with the context stored as
+// out_kind: 0 bf16, 1 f32, 2 int8 x ctx_inv. causal: the causal mask, else
+// none; scaled: the scores x scale. mma: the tensor-core kernel (bf16
+// rows, D = 64, qkv and out 16-byte aligned; the caller's route), else the
+// CUDA-core row loop (bf16 rows)
 extern "C" int jcf_masked_attention(const void* qkv, const void* ctx_inv, void* out, int n_seq,
                                     int S, int H, int D, float scale, int causal, int scaled,
                                     int f32, int out_kind, int mma, void* stream) {
-  if (S < 1 || S > 32 * CA_KEYS || D % (f32 ? 4 : 8) || (f32 && out_kind != 0) || out_kind < 0 ||
+  if (S < 1 || S > 32 * CA_KEYS || D % 8 || (f32 && out_kind != 0) || out_kind < 0 ||
       out_kind > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (f32) {
+    if (D != ATT_D || mma) return (int)cudaErrorInvalidValue;
+    const float* q = static_cast<const float*>(qkv);
+    const long long E = (long long)H * ATT_D;
+    const Strides in{S * 3 * E, ATT_D, 3 * E}, os{S * E, ATT_D, E};
+    const float sc = scaled ? scale : 1.0f;  // x 1 is exact
+    float* o = static_cast<float*>(out);
+    constexpr int MAX_S = 32 * CA_KEYS;
+    return causal ? launch_attn_f32<true, MAX_S>(q, q + E, q + 2 * E, nullptr, o, n_seq, S, H, in,
+                                                 os, sc, st)
+                  : launch_attn_f32<false, MAX_S>(q, q + E, q + 2 * E, nullptr, o, n_seq, S, H, in,
+                                                  os, sc, st);
+  }
   if (mma) {
-    if (f32 || D != ATT_D || (long long)n_seq * H > 0x7fffffffLL || ((uintptr_t)qkv & 15) ||
+    if (D != ATT_D || (long long)n_seq * H > 0x7fffffffLL || ((uintptr_t)qkv & 15) ||
         ((uintptr_t)out & 15))
       return (int)cudaErrorInvalidValue;
     const float sc = scaled ? scale : 1.0f;  // x 1 is exact
     return causal ? dispatch_masked_mma<true>(qkv, ctx_inv, out, n_seq, S, H, sc, out_kind, st)
                   : dispatch_masked_mma<false>(qkv, ctx_inv, out, n_seq, S, H, sc, out_kind, st);
   }
-  if (f32)
-    return dispatch_masked<float, float>(qkv, ctx_inv, out, n_seq, S, H, D, scale, causal, scaled,
-                                         st);
   if (out_kind == 0)
     return dispatch_masked<bf16, bf16>(qkv, ctx_inv, out, n_seq, S, H, D, scale, causal, scaled,
                                        st);

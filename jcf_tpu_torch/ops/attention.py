@@ -12,9 +12,10 @@ CPU tensors both run their plain versions ``packed_attention_plain`` and
 
 ``fused_attention`` is K8 over [B, H, S, D] heads: on CUDA tensors it
 launches a kernel of ``csrc/blocked_attn.cu`` (replaces
-``_attn_kernel_blocked``; bf16 on the tensor cores, f32 on the CUDA
-cores), on CPU tensors it runs ``attention_plain`` (JAX's
-``_attention_xla``). Like the TPU kernel it has no backward.
+``_attn_kernel_blocked``; bf16 on the tensor cores, f32 register-tiled on
+the CUDA cores, ``csrc/attn_f32.cuh``), on CPU tensors it runs
+``attention_plain`` (JAX's ``_attention_xla``). Like the TPU kernel it has
+no backward.
 
 ``multi_head_attention`` routes every sequence shorter than 128 through
 K7 and longer ones through K8, as the JAX function does on a TPU.
@@ -205,9 +206,10 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias=None
     (f32 or bf16, one dtype) with an optional additive f32 [S, S] bias ->
     [B, H, S, D] in q's dtype. CUDA tensors launch the kernel (D = 64,
     S <= 768; q, k and v may be any views with one set of strides and a
-    contiguous head dim, in bf16 with 16-byte aligned rows: pointers and
-    strides of whole 8-element steps; the result is a [B, H, S, D] view of
-    a packed [B, S, H, D] tensor); CPU tensors run ``attention_plain``."""
+    contiguous head dim, with 16-byte aligned rows: pointers on 16 bytes
+    and strides of whole 16-byte steps, 8 bf16 or 4 f32 elements; the
+    result is a [B, H, S, D] view of a packed [B, S, H, D] tensor); CPU
+    tensors run ``attention_plain``."""
     if not q.is_cuda:
         return attention_plain(q, k, v, bias)
     if q.dtype not in (torch.float32, torch.bfloat16) or q.dim() != 4:
@@ -220,9 +222,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias=None
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("K8 has no backward (nor has the TPU kernel it replaces)")
     b, h, s, d = q.shape
-    if q.dtype == torch.bfloat16 and (any(t.data_ptr() % 16 for t in (q, k, v))
-                                      or any(st % 8 for st in q.stride()[:3])):
-        raise ValueError(f"K8 in bf16 takes 16-byte aligned rows, got strides {q.stride()} "
+    step = 16 // q.element_size()
+    if any(t.data_ptr() % 16 for t in (q, k, v)) or any(st % step for st in q.stride()[:3]):
+        raise ValueError(f"K8 takes 16-byte aligned rows, got strides {q.stride()} "
                          f"and offsets {[t.data_ptr() % 16 for t in (q, k, v)]} bytes")
     if bias is not None:
         if bias.dtype != torch.float32 or tuple(bias.shape) != (s, s) or bias.device != q.device:

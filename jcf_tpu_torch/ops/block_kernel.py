@@ -48,13 +48,15 @@ csrc/f32_gemm.cu on the CUDA cores for the float halves). Each wrapper
 launches its kernel for CUDA tensors and runs its plain version for CPU
 tensors. ``attention`` and ``masked_attention`` on bf16 qkv at head dim
 64 launch tensor-core kernels (csrc/pair_mma.cuh, csrc/text_block.cu),
-other head dims and f32 rows the CUDA-core row loops, and count each
-launch by its route too (``attention_route``); ``pair_attention`` takes
-head dim 64 only, bf16 on the tensor cores and f32 register-tiled on the
-CUDA cores. A static scale the tree lacks is dynamic. The folded tree's
-modes (``ops.quant.quantize_clip_params(fold=True)``): every scale
-dynamic; "ln" (static post-LN scales); "hidden" (+ the hidden's); "full"
-(+ the context's); each of the three optionally "+score" (the shift).
+other head dims the CUDA-core row loops, and count each launch by its
+route too (``attention_route``); on f32 qkv ``masked_attention`` takes
+head dim 64 only, register-tiled on the CUDA cores (csrc/attn_f32.cuh,
+K8's f32 kernel), and ``pair_attention`` takes head dim 64 only, bf16 on
+the tensor cores and f32 register-tiled on the CUDA cores. A static
+scale the tree lacks is dynamic. The folded tree's modes
+(``ops.quant.quantize_clip_params(fold=True)``): every scale dynamic;
+"ln" (static post-LN scales); "hidden" (+ the hidden's); "full" (+ the
+context's); each of the three optionally "+score" (the shift).
 The unfolded tree (``fold=False``) keeps every scale dynamic and reads
 the LN affine from the float blocks.
 
@@ -133,9 +135,9 @@ from jcf_tpu_torch.ops.layers import GELU_TANH_COEF, LN_EPS, layer_slice
 # tree's (``ln_affine_quant_rows``, ``*_scaled``: the scores x 1/sqrt(d));
 # f32 rows (``*_f32`` of the LN kernels); the masked attention of the
 # int8 halves (``masked_attention``) and of the float halves
-# (``causal_attention``, and ``head_attention`` without a mask); these
-# and the mask-free attention of the int8 halves (``attention*``) also by
-# route (``attention_route``) as "<name>/mma" or "<name>/rowloop"
+# (``causal_attention``, and ``head_attention`` without a mask); those on
+# bf16 qkv and the mask-free attention of the int8 halves (``attention*``)
+# also by route (``attention_route``) as "<name>/mma" or "<name>/rowloop"
 LAUNCHES = {"ln_quant": 0, "ln_quant_rows": 0, "ln_quant_f32": 0, "ln_quant_rows_f32": 0,
             "ln_affine_quant_rows": 0, "ln_affine_quant_rows_f32": 0, "quant_rows": 0,
             "gelu_quant_rows": 0, "attention": 0, "attention_f32": 0, "attention_scaled": 0,
@@ -147,7 +149,7 @@ LAUNCHES = {"ln_quant": 0, "ln_quant_rows": 0, "ln_quant_f32": 0, "ln_quant_rows
             "block_int8": 0, "layer_fused_int8": 0, "stream_tower_int8": 0, "block_bf16": 0,
             "block_f32": 0}
 MASKED_KERNELS = ("masked_attention", "masked_attention_f32", "causal_attention",
-                  "causal_attention_f32", "head_attention", "head_attention_f32")
+                  "head_attention")
 PAIRED_KERNELS = ("attention", "attention_f32", "attention_scaled", "attention_scaled_f32")
 LAUNCHES.update({f"{k}/{r}": 0 for k in MASKED_KERNELS + PAIRED_KERNELS for r in ROUTES})
 # the float kernels' variants by dtype: the launch count's suffix and the
@@ -553,10 +555,11 @@ def masked_attention(qkv: torch.Tensor, s: int, n_heads: int, *, causal: bool, s
                      ctx_inv=None, f32_ctx: bool = False) -> torch.Tensor:
     """Masked attention wrapper: a CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. S <= 128, any head count, a head dim
-    divisible by 8; the f32 and int8 contexts from bf16 qkv only. bf16 qkv
-    at head dim 64 takes the tensor-core kernel, f32 rows and other head
+    divisible by 8 (f32 qkv: 64); the f32 and int8 contexts from bf16 qkv
+    only. bf16 qkv at head dim 64 takes the tensor-core kernel, other head
     dims the CUDA-core row loop (``attention_route``; counted as
-    "<name>/mma" or "<name>/rowloop")."""
+    "<name>/mma" or "<name>/rowloop"); f32 qkv the register-tiled kernel
+    (``causal_attention_f32``, ``head_attention_f32``: one route)."""
     if not qkv.is_cuda:
         return masked_attention_plain(qkv, s, n_heads, causal=causal, scale=scale,
                                       ctx_inv=ctx_inv, f32_ctx=f32_ctx)
@@ -565,10 +568,10 @@ def masked_attention(qkv: torch.Tensor, s: int, n_heads: int, *, causal: bool, s
     d = e // n_heads
     suffix, f32 = _float_kind("masked attention", qkv)
     int8_path = ctx_inv is not None or f32_ctx
-    if rows % s or s > 128 or d % 8 or e != d * n_heads or (f32 and int8_path):
-        raise ValueError(f"masked attention kernel takes S <= 128, a head dim divisible by 8, and "
-                         f"bf16 qkv for an f32 or int8 context; got {qkv.dtype}, rows={rows}, "
-                         f"S={s}, H={n_heads}, D={d}")
+    if rows % s or s > 128 or d % 8 or e != d * n_heads or (f32 and (int8_path or d != 64)):
+        raise ValueError(f"masked attention kernel takes S <= 128, a head dim divisible by 8 "
+                         f"(64 for f32 qkv), and bf16 qkv for an f32 or int8 context; got "
+                         f"{qkv.dtype}, rows={rows}, S={s}, H={n_heads}, D={d}")
     _scalar("ctx_inv", ctx_inv, qkv.device)
     if int8_path:
         name, out_kind = ("masked_attention", 2) if ctx_inv is not None else ("masked_attention_f32", 1)
@@ -581,7 +584,7 @@ def masked_attention(qkv: torch.Tensor, s: int, n_heads: int, *, causal: bool, s
         raise ValueError(f"masked attention kernel loads 16-byte aligned rows; qkv is "
                          f"{qkv.data_ptr() % 16} bytes off")
     out = torch.empty((rows, e), dtype=out_dtype, device=qkv.device)
-    route = attention_route(qkv.dtype, d, qkv.data_ptr(), out.data_ptr())
+    route = None if f32 else attention_route(qkv.dtype, d, qkv.data_ptr(), out.data_ptr())
     lib = _build.load()
     err = lib.jcf_masked_attention(qkv.data_ptr(), ctx_inv.data_ptr() if ctx_inv is not None else None,
                                    out.data_ptr(), rows // s, s, n_heads, d,
@@ -590,7 +593,8 @@ def masked_attention(qkv: torch.Tensor, s: int, n_heads: int, *, causal: bool, s
                                    _build.stream_ptr(qkv.device))
     _build.check(err, name)
     LAUNCHES[name] += 1
-    LAUNCHES[f"{name}/{route}"] += 1
+    if route is not None:
+        LAUNCHES[f"{name}/{route}"] += 1
     return out
 
 

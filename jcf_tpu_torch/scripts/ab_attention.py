@@ -12,7 +12,8 @@ the same card in turns: A, B, B, A.
 
 Seeded inputs, ``--crops`` N (default 2048, b256 x 8 views):
 - K8 (``ops.attention.fused_attention``) in bf16 and f32 on head views of
-  a packed qkv [N, 197, 3 x 768] (ViT-B/16 serving: N crops x 12 heads);
+  a packed qkv [N, 197, 3 x 768] (ViT-B/16 serving: N crops x 12 heads),
+  and in f32 at N/8 crops x 16 heads x 577 tokens (ViT-L/14@336px);
 - the mask-free pair attention (``ops.block_kernel.pair_attention``) in
   bf16 and f32 at 4N crops x 50 tokens x 12 heads (the float ViT-B/32
   towers at b1024 x 8 views);
@@ -28,7 +29,8 @@ Seeded inputs, ``--crops`` N (default 2048, b256 x 8 views):
   (``masked_attention_f32``), the int8 context (``masked_attention``)
   and the bf16 one (``causal_attention``), and ``causal_attention_f32``
   on the same rows in f32; and at N/2 crops x 50 tokens x 3 heads without
-  a mask (``head_attention``, the odd-head float tower at 1024 crops);
+  a mask (``head_attention``, the odd-head float tower at 1024 crops), in
+  bf16 and in f32 (``head_attention_f32``);
 - K7 (``ops.attention.packed_attention_fwd`` / ``_bwd``) in bf16 and f32
   at the stage-1 step's attention shapes scaled by N / 2048: the text
   tower's 403 x 77 x 8 heads under the causal mask, the vision tower's
@@ -134,6 +136,11 @@ def run(root: str = ROOT, device="cuda", crops: int = 2048, rounds: int = 7,
               lambda: at.fused_attention(q, k, v))
         del q, k, v
     del qkv
+    n_long = max(1, crops // 8)
+    qkv = torch.randn(n_long, 577, 3 * 16 * D, device=device, generator=gen)
+    q, k, v = qkv.unflatten(-1, (3, 16, D)).permute(2, 0, 3, 1, 4)
+    timed(f"K8 blocked_attention f32, {n_long} x 16 x 577", lambda: at.fused_attention(q, k, v))
+    del qkv, q, k, v
     s, pair_crops = 50, 4 * crops
     qkv = torch.randn(pair_crops * s, 3 * E, device=device, generator=gen) * 0.5
     for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
@@ -182,7 +189,10 @@ def run(root: str = ROOT, device="cuda", crops: int = 2048, rounds: int = 7,
     qkv = (torch.randn(n3 * s, 3 * 3 * D, device=device, generator=gen) * 1.5).bfloat16()
     timed(f"head_attention bf16, {n3} x {s} x 3",
           lambda: bk.masked_attention(qkv, s, 3, causal=False, scale=1.0 / 8.0))
-    del qkv
+    q32 = qkv.float()
+    timed(f"head_attention_f32, {n3} x {s} x 3",
+          lambda: bk.masked_attention(q32, s, 3, causal=False, scale=1.0 / 8.0))
+    del qkv, q32
 
     for tower, b, s, h, causal in (("text", max(1, crops * 403 // 2048), 77, 8, True),
                                    ("vision", max(1, crops // 8), 50, 12, False)):

@@ -442,7 +442,8 @@ def test_launch_counters(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h", [12, 16])
 @pytest.mark.parametrize("s,causal", [(50, True), (128, False), (145, False), (197, False),
-                                      (208, False), (256, False), (257, False), (577, False)])
+                                      (208, False), (256, False), (257, False), (300, False),
+                                      (577, False), (768, False)])
 def test_blocked_attention_kernel(cuda, dtype, h, s, causal):
     """K8 vs ``attention_plain`` on head views of a packed qkv (the layout
     the tower gives it, unit-scale entries as a LayerNorm'd row through a
@@ -451,7 +452,11 @@ def test_blocked_attention_kernel(cuda, dtype, h, s, causal):
     bf16 on the other side of a tie moves the output by an ulp of p times
     |v|, which can exceed an ulp of a small output.) In bf16, S = 128, 208
     and 256 are whole 16-row tiles, up to 208 keys held in registers in
-    one pass; 257 and 577 stream the keys in two passes."""
+    one pass; from 257 the keys stream in two passes. In f32 up to 256
+    keys one block holds a head (197: a part-full last unit of 8 rows);
+    from 257 a block holds 64 query rows and streams 128-key groups twice
+    (300: a part-full last query block and key group; 577: a last query
+    block of one row; 768: the limit)."""
     g = torch.Generator(device=cuda).manual_seed(s + h)
     b, e = 3, h * 64
     qkv = torch.randn(b, s, 3 * e, device=cuda, generator=g).to(dtype)
@@ -464,9 +469,9 @@ def test_blocked_attention_kernel(cuda, dtype, h, s, causal):
 
 
 def test_blocked_attention_refuses_over_its_limit(cuda):
-    """S = 1024: the score tile (f32), or K and V of the head (bf16), is
-    over the card's shared memory. The C entry refuses, nothing launches,
-    and the next launch runs."""
+    """S = 1024, over K8's 768 (in bf16 K and V of the head would be over
+    the card's shared memory). The C entry refuses, nothing launches, and
+    the next launch runs."""
     before = at.LAUNCHES["blocked_attention"]
     for dtype in (torch.float32, torch.bfloat16):
         q = torch.zeros(1, 2, 1024, 64, device=cuda, dtype=dtype)
@@ -480,19 +485,21 @@ def test_blocked_attention_refuses_over_its_limit(cuda):
         at.fused_attention(*(torch.zeros(1, 2, 200, 32, device=cuda),) * 3)
 
 
-@pytest.mark.parametrize("offset,width", [(4, 3 * 128 + 4), (0, 3 * 128 + 4), (8, 3 * 128 + 8)])
+@pytest.mark.parametrize("offset,width", [(4, 3 * 128 + 4), (0, 3 * 128 + 4), (8, 3 * 128 + 8),
+                                          (2, 3 * 128 + 2), (0, 3 * 128 + 2)])
 def test_blocked_attention_refuses_unaligned_bf16_views(cuda, offset, width):
-    """bf16 K8 reads 16-byte rows: head views at an offset or row stride
-    that is not a whole 8 elements raise ``ValueError`` and launch
-    nothing (an aligned view at an offset of 8 runs); the f32 kernel takes
-    any strides."""
+    """K8 reads 16-byte rows in bf16 and in f32: head views at an offset or
+    row stride that is not a whole 16 bytes (8 bf16 or 4 f32 elements)
+    raise ``ValueError`` and launch nothing (an aligned view at an offset
+    of 8, or of 4 in f32, runs)."""
     g = torch.Generator(device=cuda).manual_seed(offset + width)
     buf = torch.randn(2, 150, width, device=cuda, generator=g)
     for dtype in (torch.bfloat16, torch.float32):
         qkv = buf.to(dtype)[..., offset: offset + 3 * 128]
         q, k, v = qkv.unflatten(-1, (3, 2, 64)).permute(2, 0, 3, 1, 4)
         before = at.LAUNCHES["blocked_attention"]
-        aligned = dtype == torch.float32 or (offset % 8 == 0 and width % 8 == 0)
+        step = 16 // qkv.element_size()
+        aligned = offset % step == 0 and width % step == 0
         if not aligned:
             with pytest.raises(ValueError):
                 at.fused_attention(q, k, v)
@@ -1021,7 +1028,7 @@ def test_float_tower_kernels_vs_plain(cuda, dtype, causal):
     """A 2-layer full-width float tower (ViT-B/32's vision tower at S = 50
     mask-free, its text tower at 77 causal): the kernels vs the plain
     versions on the CPU; 7 launches a layer (the causal attention also
-    counted by its route), nothing of K7."""
+    counted by its route in bf16), nothing of K7."""
     cfg = CLIPConfig(vision_layers=2, text_layers=2)
     p = init_clip_params(0, cfg)
     blocks, s, h, e = ((p["text"]["blocks"], 77, 8, 512) if causal
@@ -1038,11 +1045,12 @@ def test_float_tower_kernels_vs_plain(cuda, dtype, causal):
     routes = {k: v for k, v in launched.items() if k.endswith(("/mma", "/rowloop"))}
     assert sum(launched.values()) - sum(routes.values()) == 2 * 7
     assert "packed_attention" not in launched
-    if causal:  # bf16 on the tensor cores, f32 in the row loop
-        name = "causal_attention/mma" if dtype == torch.bfloat16 else "causal_attention_f32/rowloop"
-        assert routes == {name: 2}
+    if causal and dtype == torch.bfloat16:  # on the tensor cores; f32 has one route
+        assert routes == {"causal_attention/mma": 2}
     else:
         assert routes == {}
+    if causal and dtype == torch.float32:
+        assert launched["causal_attention_f32"] == 2
     cos = torch.nn.functional.cosine_similarity(got.float(), ref.float())
     assert float(cos.min()) >= (0.99999 if dtype == torch.float32 else 0.999)
 
@@ -1121,7 +1129,8 @@ def test_masked_attention_kernel(cuda, s, h, causal, scaled):
     tensor-core kernel, every output kind): the f32 context within 1e-5 +
     1e-5 |ref| + 2^-7 sum_j p_j |v_j| (a p rounding to bf16 across a tie),
     the int8 context within 1 on <= 1e-2, bf16 within 1 ulp + 1e-3 + that
-    slack; f32 qkv (the row loop) within 1e-5 + 1e-5 |ref|."""
+    slack; f32 qkv (the register-tiled kernel, one route) within 1e-5 +
+    1e-5 |ref|."""
     g = torch.Generator(device=cuda).manual_seed(s + h)
     e, seqs = 64 * h, 23
     qkv = (torch.randn(seqs * s, 3 * e, device=cuda, generator=g) * 1.5).bfloat16()
@@ -1145,8 +1154,7 @@ def test_masked_attention_kernel(cuda, s, h, causal, scaled):
     name = "causal_attention" if causal else "head_attention"
     assert _launched(before) == {"masked_attention_f32": 1, "masked_attention": 1, name: 1,
                                  f"{name}_f32": 1, "masked_attention_f32/mma": 1,
-                                 "masked_attention/mma": 1, f"{name}/mma": 1,
-                                 f"{name}_f32/rowloop": 1}
+                                 "masked_attention/mma": 1, f"{name}/mma": 1}
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -1178,6 +1186,29 @@ def test_masked_attention_row_loop_route(cuda, causal):
     with pytest.raises(ValueError):
         bk.masked_attention(off, s, 3, f32_ctx=True, **kw)
     assert bk.LAUNCHES == before
+
+
+def test_masked_attention_f32_refuses_other_head_dims(cuda):
+    """f32 qkv takes head dim 64 only (the register-tiled kernel; every f32
+    tower's): head dim 32 raises ``ValueError`` and launches nothing, and
+    so do f32 rows off 16 bytes; the next launch at head dim 64 runs."""
+    g = torch.Generator(device=cuda).manual_seed(33)
+    s, h = 50, 3
+    before = dict(bk.LAUNCHES)
+    for causal in (True, False):
+        qkv = torch.randn(4 * s, 3 * h * 32, device=cuda, generator=g)
+        with pytest.raises(ValueError):
+            bk.masked_attention(qkv, s, h, causal=causal, scale=32 ** -0.5)
+    with pytest.raises(ValueError):
+        bk.causal_attention(torch.randn(4 * s, 3 * h * 32, device=cuda, generator=g), s, h)
+    n = 4 * s * 3 * h * 64
+    off = torch.randn(n + 4, device=cuda, generator=g)[2:2 + n].view(4 * s, -1)
+    with pytest.raises(ValueError):
+        bk.causal_attention(off, s, h)
+    assert bk.LAUNCHES == before
+    qkv = torch.randn(4 * s, 3 * h * 64, device=cuda, generator=g)
+    _f32_close(bk.causal_attention(qkv, s, h), bk.causal_attention_plain(qkv, s, h))
+    assert _launched(before) == {"causal_attention_f32": 1}
 
 
 @pytest.mark.parametrize("m,n,k", [(200, 72, 96), (77, 512, 2048), (130, 768, 3072)])

@@ -267,6 +267,7 @@ def test_patch_regroup_main_runs_on_the_cpu():
 
 
 _AB_LABELS = ["K8 blocked_attention bf16, 1 x 12 x 197", "K8 blocked_attention f32, 1 x 12 x 197",
+              "K8 blocked_attention f32, 1 x 16 x 577",
               "pair_attention bf16, 4 x 50", "pair_attention f32, 4 x 50",
               "K3 attention (int8 context), 4 x 50",
               "K3 attention +score (int8 context, shift), 4 x 50",
@@ -277,7 +278,7 @@ _AB_LABELS = ["K8 blocked_attention bf16, 1 x 12 x 197", "K8 blocked_attention f
               "masked_attention_f32 (f32 context), 1 x 77 x 8, causal",
               "masked_attention (int8 context), 1 x 77 x 8, causal",
               "causal_attention bf16, 1 x 77 x 8", "causal_attention_f32, 1 x 77 x 8",
-              "head_attention bf16, 1 x 50 x 3",
+              "head_attention bf16, 1 x 50 x 3", "head_attention_f32, 1 x 50 x 3",
               *[f"K7 {way} {dt} {tower}, 1 x {s} x {h}"
                 for tower, s, h in (("text", 77, 8), ("vision", 50, 12))
                 for dt in ("bf16", "f32") for way in ("forward", "backward")]]
