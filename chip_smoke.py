@@ -300,6 +300,7 @@ PEAK_BYTES = 3.35e12
 PEAK_INT8 = 1979e12
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12  # f32 outside the tensor cores
+PEAK_TF32 = 495e12  # TF32 on the tensor cores (the f32 GEMM's three passes)
 
 # the int8 layer kernel K9a / K9c / K9d: a template there, its instances
 # built from csrc/fused_int8_*.cu
@@ -384,6 +385,11 @@ KERNELS = {
                       "jcf_tpu/ops/block_kernel.py:704"),
     "f32_gemm_residual": ("serving_f32", "jcf_tpu_torch/csrc/f32_gemm.cu",
                           "jcf_tpu/ops/block_kernel.py:704"),
+    # the f32 GEMM's weight split (hi and lo TF32 planes), one launch a
+    # GEMM: part of K6a / K6b's f32 products, which the TPU splits in its
+    # HIGHEST passes
+    "tf32_split": ("serving_f32", "jcf_tpu_torch/csrc/f32_gemm.cu",
+                   "jcf_tpu/ops/block_kernel.py:528"),
     "causal_attention_f32": ("classifier_f32", "jcf_tpu_torch/csrc/attn_f32.cuh",
                              "jcf_tpu/ops/block_kernel.py:464"),
     # the masked and unfolded int8 halves, phase 12: the int8 text tower
@@ -610,6 +616,16 @@ def gemm_work(a, w, out_itemsize, peak, *extra):
     return bound(nbytes(a, w, *extra) + m * n * out_itemsize, 2.0 * m * n * k, peak)
 
 
+def f32_gemm_work(name, a, w, *extra):
+    """The f32 GEMM's bound: its three TF32 passes at the TF32 rate (the
+    f32 FMA bound logged beside it)."""
+    m, k = a.shape
+    n = w.shape[0]
+    fma = gemm_work(a, w, 4, PEAK_F32, *extra)
+    log(f"  {name}: f32 FMA bound {fma['bound_ms']:.3f} ms ({fma['bound_by']})")
+    return bound(nbytes(a, w, *extra) + m * n * 4, 3 * 2.0 * m * n * k, PEAK_TF32)
+
+
 # one ragged shape per epilogue of the int8 GEMM: rows past the 128-row
 # tile, N off the 256 (and 128) tile, K off the 128-byte stage
 RAGGED_GEMMS = {"s32": (4097, 2304, 3072), "bf16": (129, 192, 768), "bf16_rows": (4097, 768, 192),
@@ -833,12 +849,17 @@ def text_kernel_phase(text, cfg, ids):
                check_bf16,
                bound(2 * nbytes(x) + nbytes(*ln1), 0.0, PEAK_BF16),
                lambda: F.layer_norm(x, (e,), ln1[0], ln1[1], 1e-5))
+    # the library call: torch.addmm (its bias in bf16: its operands share a
+    # dtype); the bare product logged beside it
+    b_qkv_bf = attn["b_qkv"].to(bf)
     qkv = ph.run("bf16_gemm_bias",
                  lambda: bg.bf16_gemm_bias(h, w_qkv, attn["b_qkv"]),
                  lambda: (bg.matmul_plain(h, w_qkv) + attn["b_qkv"]).to(bf),
                  check_bf16,
                  gemm_work(h, w_qkv, 2, PEAK_BF16, attn["b_qkv"]),
-                 lambda: torch.matmul(h, w_qkv.T))
+                 lambda: torch.addmm(b_qkv_bf, h, w_qkv.T))
+    log(f"  bf16_gemm_bias: the bare product torch.matmul "
+        f"{time_ms(lambda: torch.matmul(h, w_qkv.T)):.3f} ms")
     d = e // heads
     q, k, v = qkv.reshape(b, s, 3, heads, d).permute(2, 0, 3, 1, 4)
     ctx = ph.run("causal_attention",
@@ -2219,14 +2240,15 @@ def serving_288_phase(text, counters, smi, dev):
 
 
 # phase 11: the unquantized towers. Launches of one layer of each float
-# tower (K6a: LN, qkv, attention, out-proj; K6b: LN, c_fc + GELU, c_proj)
+# tower (K6a: LN, qkv, attention, out-proj; K6b: LN, c_fc + GELU, c_proj;
+# in f32 a weight split before each of the four GEMMs)
 FLOAT_LAYER = {
     "f32": {"ln_affine_f32": 2, "f32_gemm_bias": 1, "pair_attention_f32": 1,
-            "f32_gemm_residual": 2, "f32_gemm_gelu": 1},
+            "f32_gemm_residual": 2, "f32_gemm_gelu": 1, "tf32_split": 4},
     "bf16": {"ln_affine": 2, "bf16_gemm_bias": 1, "pair_attention_bf16": 1,
              "bf16_gemm_residual": 2, "bf16_gemm_gelu": 1},
     "f32 text": {"ln_affine_f32": 2, "f32_gemm_bias": 1, "causal_attention_f32": 1,
-                 "f32_gemm_residual": 2, "f32_gemm_gelu": 1},
+                 "f32_gemm_residual": 2, "f32_gemm_gelu": 1, "tf32_split": 4},
     "bf16 text": {"ln_affine": 2, "bf16_gemm_bias": 1, "causal_attention": 1,
                   "causal_attention/mma": 1, "bf16_gemm_residual": 2, "bf16_gemm_gelu": 1},
 }
@@ -2368,7 +2390,7 @@ def float_kernel_phase(rows_f32, rows_bf16, text, cfg, ids, images, geometry):
                  lambda: fg.f32_gemm_bias(h, wq, bq),
                  lambda: fg.f32_gemm_bias_plain(h, wq, bq),
                  check_f32_sum(h, wq),
-                 gemm_work(h, wq, 4, PEAK_F32, bq),
+                 f32_gemm_work("f32_gemm_bias", h, wq, bq),
                  lambda: torch.addmm(bq, h, wq.T))
     log(f"  f32_gemm_bias: the bare product torch.matmul {time_ms(lambda: torch.matmul(h, wq.T)):.3f} ms")
     q, k, v = head_views(qkv, s, heads)
@@ -2384,7 +2406,7 @@ def float_kernel_phase(rows_f32, rows_bf16, text, cfg, ids, images, geometry):
                  lambda: fg.f32_gemm_residual(ctx, wo, bo, x),
                  lambda: fg.f32_gemm_residual_plain(ctx, wo, bo, x),
                  check_f32_sum(ctx, wo),
-                 gemm_work(ctx, wo, 4, PEAK_F32, x, bo),
+                 f32_gemm_work("f32_gemm_residual (out-proj)", ctx, wo, x, bo),
                  lambda: torch.matmul(ctx, wo.T))
     del h, qkv, ctx
     h2 = bk.ln_affine(mid, ln2["scale"], ln2["bias"])
@@ -2393,16 +2415,21 @@ def float_kernel_phase(rows_f32, rows_bf16, text, cfg, ids, images, geometry):
                  lambda: fg.f32_gemm_gelu(h2, wf, bf_),
                  lambda: fg.f32_gemm_gelu_plain(h2, wf, bf_),
                  check_f32_sum(h2, wf),
-                 gemm_work(h2, wf, 4, PEAK_F32, bf_),
+                 f32_gemm_work("f32_gemm_gelu", h2, wf, bf_),
                  lambda: torch.matmul(h2, wf.T))
     del h2
     torch.cuda.empty_cache()
+    ph.run("tf32_split",
+           lambda: fg.tf32_split(wf),
+           lambda: fg.tf32_split_plain(wf),
+           lambda n, g, r: check_equal(n, g.view(torch.int32), r.view(torch.int32)),
+           bound(3 * nbytes(wf), 0.0, PEAK_F32))
     wp, bp = mlp["c_proj"]["w"], mlp["c_proj"]["b"]
     ph.run("f32_gemm_residual",
            lambda: fg.f32_gemm_residual(hid, wp, bp, mid),
            lambda: fg.f32_gemm_residual_plain(hid, wp, bp, mid),
            check_f32_sum(hid, wp),
-           gemm_work(hid, wp, 4, PEAK_F32, mid, bp),
+           f32_gemm_work("f32_gemm_residual", hid, wp, mid, bp),
            lambda: torch.matmul(hid, wp.T))
     del hid
     torch.cuda.empty_cache()
@@ -2418,17 +2445,36 @@ def float_kernel_phase(rows_f32, rows_bf16, text, cfg, ids, images, geometry):
     # the bf16 parity engine's attention
     xb, layer_b = rows_bf16[0], rows_bf16[1]
     lb, ab = layer_b["ln_1"], layer_b["attn"]
-    qkv_b = bk.bf16_gemm_bias(bk.ln_affine(xb, lb["scale"], lb["bias"]), ab["w_qkv"],
-                              ab["b_qkv"].float())
+    hb = bk.ln_affine(xb, lb["scale"], lb["bias"])
+    wqb, bqb = ab["w_qkv"], ab["b_qkv"].float()
+    bqb_bf = bqb.to(torch.bfloat16)
+    qkv_b = ph.run("bf16_gemm_bias (vision)",
+                   lambda: bg.bf16_gemm_bias(hb, wqb, bqb),
+                   lambda: bg.bf16_gemm_bias_plain(hb, wqb, bqb),
+                   check_bf16,
+                   gemm_work(hb, wqb, 2, PEAK_BF16, bqb),
+                   lambda: torch.addmm(bqb_bf, hb, wqb.T))
+    log(f"  bf16_gemm_bias (vision): the bare product torch.matmul "
+        f"{time_ms(lambda: torch.matmul(hb, wqb.T)):.3f} ms")
+    del hb
     slack = 2.0**-7 * bk.pair_attention_plain(abs_v(qkv_b, e), s, heads).float()
     q, k, v = head_views(qkv_b, s, heads)
-    ph.run("pair_attention_bf16",
-           lambda: bk.pair_attention(qkv_b, s, heads),
-           lambda: bk.pair_attention_plain(qkv_b, s, heads),
-           lambda n, a, b: check_bf16(n, a, b, slack),
-           bound(nbytes(qkv_b) + nbytes(xb), 4.0 * n_crops * heads * s * s * d, PEAK_BF16),
-           lambda: F.scaled_dot_product_attention(q, k, v))
+    ctx_b = ph.run("pair_attention_bf16",
+                   lambda: bk.pair_attention(qkv_b, s, heads),
+                   lambda: bk.pair_attention_plain(qkv_b, s, heads),
+                   lambda n, a, b: check_bf16(n, a, b, slack),
+                   bound(nbytes(qkv_b) + nbytes(xb), 4.0 * n_crops * heads * s * s * d, PEAK_BF16),
+                   lambda: F.scaled_dot_product_attention(q, k, v))
     del q, k, v, qkv_b, slack
+    wob, bob = ab["w_out"], ab["b_out"].float()
+    ph.run("bf16_gemm_residual (vision out-proj)",
+           lambda: bg.bf16_gemm_residual(ctx_b, wob, bob, xb),
+           lambda: bg.bf16_gemm_residual_plain(ctx_b, wob, bob, xb),
+           check_bf16,
+           gemm_work(ctx_b, wob, 2, PEAK_BF16, xb, bob),
+           lambda: torch.matmul(ctx_b, wob.T))
+    del ctx_b
+    torch.cuda.empty_cache()
     kern = lambda t: bk.attn_half(t, layer_b, s, heads, causal=False)
     plain = plain_float_version(kern)
     midb = kern(xb)
@@ -2479,7 +2525,7 @@ def float_kernel_phase(rows_f32, rows_bf16, text, cfg, ids, images, geometry):
                    lambda: fg.f32_gemm_bias(ht, ta["w_qkv"], ta["b_qkv"]),
                    lambda: fg.f32_gemm_bias_plain(ht, ta["w_qkv"], ta["b_qkv"]),
                    check_f32_sum(ht, ta["w_qkv"]),
-                   gemm_work(ht, ta["w_qkv"], 4, PEAK_F32, ta["b_qkv"]),
+                   f32_gemm_work("f32_gemm_bias (text)", ht, ta["w_qkv"], ta["b_qkv"]),
                    lambda: torch.addmm(ta["b_qkv"], ht, ta["w_qkv"].T))
     log(f"  f32_gemm_bias (text): the bare product torch.matmul "
         f"{time_ms(lambda: torch.matmul(ht, ta['w_qkv'].T)):.3f} ms")

@@ -14,23 +14,43 @@
 // The epilogue arithmetic uses the _rn intrinsics so it rounds like the
 // reference's separate elementwise ops.
 //
-// What bounds it on the H100: tensor-core throughput. The text tower's
-// products at 512 prompts x 77 tokens (M = 39,424, K = 512 or 2048) sit
-// far above the bf16 ridge point. This first version is the int8 GEMM's
-// design (int8_gemm.cu) at bf16: warp-level mma.sync m16n8k16 (f32
-// accumulation) from a two-stage cp.async ring, 128x128 block tiles,
-// 32-deep K steps (64 bytes, the int8 kernel's byte layout), eight warps
-// of 64x32, shared rows padded to 80 bytes against bank conflicts. wgmma
-// with TMA, which reaches the full bf16 rate, is a later step.
-#include "common.cuh"
+// What bounds it on the H100: tensor-core throughput. The products of the
+// text tower (512 prompts x 77 tokens: M = 39,424, K = 512 or 2048) and
+// of the vision tower (8192 crops x 50: M = 409,600, K = 768 or 3072) sit
+// far above the bf16 ridge point, and only wgmma reaches the bf16 rate. So
+// the mainloop is the int8 GEMM's (int8_gemm.cu) at bf16, on the helpers
+// of wgmma_gemm.cuh:
+// - a producer thread in a ninth warp loads 128-byte K slices (64 bf16) of
+//   the A and B tiles with TMA (2D boxes, 128-byte swizzle) into a ring of
+//   3 stages, each guarded by a full and an empty mbarrier;
+// - two consumer warpgroups (64 rows each of a 128 x 128 tile) run
+//   wgmma.mma_async m64n128k16 f32 += bf16 x bf16, both operands K-major
+//   from shared memory as stored, four k16 steps a stage, one group in
+//   flight; a stage is released once the group that read it is done;
+// - BN = 128 and two blocks an SM (32 KB a stage): one block's epilogue
+//   runs beside the other's products. The 128 x 128 tile loads a byte of
+//   stage for every 64 flops: at 41-46% of the bf16 rate the vision
+//   products already pull 6.2-7.2 TB/s out of L2 (an H100), which seems
+//   to be the bound. BN = 256 at one block an SM loads a quarter less but
+//   stalls the tensor cores in the epilogue; it was slower at every shape
+//   but vision c_proj;
+// - the epilogue stores from the accumulators: wgmma's m64nN f32 layout
+//   gives each thread, per n8 column group, rows g and g + 8 of its warp's
+//   16 at columns 2t, 2t + 1, the pairs store_pair takes.
+// The grid comes from the caller (ops/bf16_gemm.py gemm_plan): from K =
+// 2048 on, as many blocks as fit on the card at once, each walking the
+// tiles N-fastest (the producer loads the next tile while the consumers
+// store this one); below it, one block a tile. wgmma sums each k16 step in
+// another order than the earlier mma.sync kernel, so an output may move by
+// a bf16 tie.
+#include "wgmma_gemm.cuh"
 
 namespace {
 
 enum { EPI_BIAS = 0, EPI_RESID = 1, EPI_GELU = 2 };
 
-constexpr int BM = 128, BN = 128, BK = 32;  // BK in bf16 elements
-constexpr int LDS = BK + 8;                 // padded shared row, elements
-constexpr int GEMM_THREADS = 256;
+constexpr int BN = 128;
+using R = Ring<3, BN, 1>;
 
 struct Epilogue {
   bf16* out;           // [M, N]
@@ -59,105 +79,120 @@ __device__ __forceinline__ void store_pair(const Epilogue& ep, int m, int n, int
   *reinterpret_cast<__nv_bfloat162*>(ep.out + idx) = __floats2bfloat162_rn(y0, y1);
 }
 
+// d (m64 x n128 f32, 64 a thread) += A (64 x 16 bf16) * B (128 x 16 bf16)^T,
+// both K-major in shared memory
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 template <int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS) bf16_gemm_kernel(
-    const bf16* __restrict__ A, const bf16* __restrict__ B, int M, int N, int K, Epilogue ep) {
-  __shared__ __align__(16) bf16 As[2][BM * LDS];
-  __shared__ __align__(16) bf16 Bs[2][BN * LDS];
+__global__ void __launch_bounds__(GEMM_THREADS_WG, 2)
+    bf16_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_b, int M, int N, int K, Epilogue ep) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t full0 = ring + R::STAGES * R::STAGE_BYTES, empty0 = full0 + R::STAGES * 8;
+  const int tid = threadIdx.x;
+  const int tiles_n = (N + BN - 1) / BN, tiles = ((M + GEMM_BM - 1) / GEMM_BM) * tiles_n;
+  const int k_steps = (2 * K + GEMM_BK_BYTES - 1) / GEMM_BK_BYTES;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 x 32
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.0f;
-
-  // each tile is 128 rows x 32 elements = 512 chunks of 8 elements; K % 8
-  // == 0 so a chunk is wholly inside or wholly outside the matrix
-  auto load_tile = [&](int stage, int k0) {
-#pragma unroll
-    for (int c = tid; c < BM * BK / 8; c += GEMM_THREADS) {
-      const int row = c >> 2, col = (c & 3) * 8, gk = k0 + col;
-      const int gm = m0 + row, gn = n0 + row;
-      const bool ok_a = gm < M && gk < K, ok_b = gn < N && gk < K;
-      cp_async16(&As[stage][row * LDS + col], ok_a ? A + (long long)gm * K + gk : A, ok_a ? 16 : 0);
-      cp_async16(&Bs[stage][row * LDS + col], ok_b ? B + (long long)gn * K + gk : B, ok_b ? 16 : 0);
-    }
-    cp_async_commit();
-  };
-
-  const int k_tiles = (K + BK - 1) / BK;
-  load_tile(0, 0);
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < k_tiles) {
-      load_tile(cur ^ 1, (kt + 1) * BK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* as = As[cur];
-    const bf16* bs = Bs[cur];
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      unsigned af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int r = wm * 64 + mi * 16 + g;
-        af[mi][0] = *reinterpret_cast<const unsigned*>(as + r * LDS + kk + tig * 2);
-        af[mi][1] = *reinterpret_cast<const unsigned*>(as + (r + 8) * LDS + kk + tig * 2);
-        af[mi][2] = *reinterpret_cast<const unsigned*>(as + r * LDS + kk + 8 + tig * 2);
-        af[mi][3] = *reinterpret_cast<const unsigned*>(as + (r + 8) * LDS + kk + 8 + tig * 2);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = wn * 32 + ni * 8 + g;
-        bfr[ni][0] = *reinterpret_cast<const unsigned*>(bs + n * LDS + kk + tig * 2);
-        bfr[ni][1] = *reinterpret_cast<const unsigned*>(bs + n * LDS + kk + 8 + tig * 2);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bfr[ni]);
-    }
-    __syncthreads();
+  ring_init<R>(full0, empty0);
+  if (tid >= 32 * GEMM_CONSUMER_WARPS) {
+    if (tid == 32 * GEMM_CONSUMER_WARPS)
+      ring_produce<R>(&map_a, &map_b, nullptr, tiles, tiles_n, k_steps, ring, full0, empty0);
+    return;
   }
+  const int cw = tid >> 7;  // consumer warpgroup: rows 64 cw of the tile
+  const int lane = tid & 31, warp = (tid >> 5) & 3, g = lane >> 2, tig = lane & 3;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (t / tiles_n) * GEMM_BM, n0 = (t % tiles_n) * BN;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+    int held = -1;  // the stage the group in flight reads
+    for (int ks = 0; ks < k_steps; ++ks) {
+      mbar_wait(full0 + 8 * stage, phase);
+      __syncwarp();  // the warp issues the .aligned wgmma instructions together
+      const uint32_t a = ring + stage * R::STAGE_BYTES + cw * 64 * GEMM_BK_BYTES;
+      const uint32_t b = ring + stage * R::STAGE_BYTES + R::A_BYTES;
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < GEMM_BK_BYTES / 32; ++kk)
+        wgmma_bf16_n128(acc, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk));
+      wgmma_commit();
+      fence_acc(acc);
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (held >= 0 && lane == 0) mbar_arrive(empty0 + 8 * held);
+      held = stage;
+      ring_advance(stage, phase, R::STAGES);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (held >= 0 && lane == 0) mbar_arrive(empty0 + 8 * held);
 
+    const int m = m0 + cw * 64 + warp * 16 + g;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int m = m0 + wm * 64 + mi * 16 + g;
-      const int n = n0 + wn * 32 + ni * 8 + tig * 2;  // N % 8 == 0: n + 1 < N iff n < N
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + j * 8 + tig * 2;  // N % 8 == 0: n + 1 < N iff n < N
       if (n < N) {
-        if (m < M) store_pair<EPI>(ep, m, n, N, acc[mi][ni][0], acc[mi][ni][1]);
-        if (m + 8 < M) store_pair<EPI>(ep, m + 8, n, N, acc[mi][ni][2], acc[mi][ni][3]);
+        if (m < M) store_pair<EPI>(ep, m, n, N, acc[4 * j], acc[4 * j + 1]);
+        if (m + 8 < M) store_pair<EPI>(ep, m + 8, n, N, acc[4 * j + 2], acc[4 * j + 3]);
       }
     }
+  }
+}
+
+template <int EPI>
+int launch_gemm(const void* A, const void* B, int M, int N, int K, int blocks, const Epilogue& ep,
+                cudaStream_t s) {
+  CUtensorMap map_a, map_b;
+  int err = tensor_map(&map_a, A, M, 2LL * K, GEMM_BM);
+  if (!err) err = tensor_map(&map_b, B, N, 2LL * K, BN);
+  if (!err) err = set_smem(bf16_gemm_kernel<EPI>, R::SMEM);
+  if (err) return err;
+  bf16_gemm_kernel<EPI><<<blocks, GEMM_THREADS_WG, R::SMEM, s>>>(map_a, map_b, M, N, K, ep);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// blocks: the grid, which walks the ceil(M / 128) x ceil(N / 128) tiles
+// N-fastest. TMA takes 16-byte aligned A and B with 16-byte rows only
+// (K % 8 == 0); the epilogue stores column pairs (N % 8 == 0)
 extern "C" int jcf_bf16_gemm(const void* A, const void* B, void* out, int M, int N, int K,
-                             int epilogue, const void* bias, const void* resid, void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+                             int epilogue, const void* bias, const void* resid, int blocks,
+                             void* stream) {
+  if (M < 1 || N < 8 || N % 8 || K < 8 || K % 8 || blocks < 1 || ((uintptr_t)A & 15) ||
+      ((uintptr_t)B & 15))
+    return (int)cudaErrorInvalidValue;
   Epilogue ep{static_cast<bf16*>(out), static_cast<const float*>(bias),
               static_cast<const bf16*>(resid)};
-  const bf16* a = static_cast<const bf16*>(A);
-  const bf16* b = static_cast<const bf16*>(B);
   cudaStream_t s = (cudaStream_t)stream;
   switch (epilogue) {
-    case EPI_BIAS: bf16_gemm_kernel<EPI_BIAS><<<grid, GEMM_THREADS, 0, s>>>(a, b, M, N, K, ep); break;
-    case EPI_RESID: bf16_gemm_kernel<EPI_RESID><<<grid, GEMM_THREADS, 0, s>>>(a, b, M, N, K, ep); break;
-    case EPI_GELU: bf16_gemm_kernel<EPI_GELU><<<grid, GEMM_THREADS, 0, s>>>(a, b, M, N, K, ep); break;
+    case EPI_BIAS: return launch_gemm<EPI_BIAS>(A, B, M, N, K, blocks, ep, s);
+    case EPI_RESID: return launch_gemm<EPI_RESID>(A, B, M, N, K, blocks, ep, s);
+    case EPI_GELU: return launch_gemm<EPI_GELU>(A, B, M, N, K, blocks, ep, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

@@ -69,9 +69,10 @@
 // (the producer loads the next tile while the consumers store this one);
 // below it, one block a tile, whose blocks start apart and so keep their
 // epilogues apart, where two persistent blocks on an SM run in step.
-#include <cuda.h>
-
-#include "common.cuh"
+// The ring (its layout, barriers, producer and stage walk) and the TMA,
+// mbarrier and descriptor helpers are wgmma_gemm.cuh's, shared with the
+// bf16 and f32 GEMMs.
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -81,21 +82,14 @@ enum {
   EPI_RESID_ROWS_F32 = 10
 };
 
-constexpr int BM = 128;            // two consumer warpgroups of 64 rows
-constexpr int BK = 128;            // K bytes a stage: one 128-byte swizzle row
-constexpr int CONSUMER_WARPS = 8;  // warps 0-7; warp 8 the producer
-constexpr int GEMM_THREADS = 32 * (CONSUMER_WARPS + 1);
+constexpr int BM = GEMM_BM, BK = GEMM_BK_BYTES, CONSUMER_WARPS = GEMM_CONSUMER_WARPS;
+constexpr int GEMM_THREADS = GEMM_THREADS_WG;
 
 // BN = 256: one block an SM, a 4-stage ring; BN = 128: two blocks an SM
 // (the one's epilogue beside the other's products), 3 stages each
 template <int BN>
-struct Tile {
+struct Tile : Ring<BN == 256 ? 4 : 3, BN, 1> {
   static constexpr int BLOCKS_PER_SM = BN == 256 ? 1 : 2;
-  static constexpr int STAGES = BN == 256 ? 4 : 3;
-  static constexpr int A_BYTES = BM * BK, STAGE_BYTES = A_BYTES + BN * BK;
-  // the ring, 1024 bytes to align it (the swizzle's 8-row atom), and the
-  // full and empty barriers
-  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
 };
 
 struct Epilogue {
@@ -150,73 +144,6 @@ __device__ __forceinline__ void store_pair(const Epilogue& ep, int m, int n, int
     q.y = round_clip_int8(g1);
     *reinterpret_cast<char2*>(static_cast<int8_t*>(ep.out) + idx) = q;
   }
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// spins until the barrier's phase of this parity completes
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.b32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// box (c0 = K byte, c1 = row) of the tensor map into shared memory at dst
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                         int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma's shared-memory descriptor of a K-major operand in the 128-byte
-// swizzle TMA wrote: start address >> 4, leading offset 1 (unused when the
-// K step lies in one swizzle row), stride 1024 bytes between 8-row groups,
-// layout 1 (128-byte swizzle). The k32 steps inside a 128-byte row add 32
-// bytes to the start: the swizzle is a function of the address bits, and
-// every stage is 1024-byte aligned.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator registers across the
-// asynchronous products
-template <int R>
-__device__ __forceinline__ void fence_acc(int (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d (m64 x BN s32, per thread BN / 2) += A (64 x 32 s8) * B (BN x 32 s8)^T
@@ -294,35 +221,11 @@ __global__ void __launch_bounds__(GEMM_THREADS, Tile<BN>::BLOCKS_PER_SM)
   const int tiles_n = (N + BN - 1) / BN, tiles = ((M + BM - 1) / BM) * tiles_n;
   const int k_steps = (K + BK - 1) / BK;
 
-  if (tid == 0) {
-    for (int s = 0; s < T::STAGES; ++s) {
-      mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, CONSUMER_WARPS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
+  ring_init<T>(full0, empty0);
   if (tid >= 32 * CONSUMER_WARPS) {
     // the producer warp: one thread keeps the ring full
-    if (tid == 32 * CONSUMER_WARPS) {
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int m0 = (t / tiles_n) * BM, n0 = (t % tiles_n) * BN;
-        for (int ks = 0; ks < k_steps; ++ks) {
-          mbar_wait(empty0 + 8 * stage, phase ^ 1);
-          const uint32_t full = full0 + 8 * stage, a = ring + stage * T::STAGE_BYTES;
-          mbar_expect_tx(full, T::STAGE_BYTES);
-          tma_load(a, &map_a, full, ks * BK, m0);
-          tma_load(a + T::A_BYTES, &map_b, full, ks * BK, n0);
-          if (++stage == T::STAGES) {
-            stage = 0;
-            phase ^= 1;
-          }
-        }
-      }
-    }
+    if (tid == 32 * CONSUMER_WARPS)
+      ring_produce<T>(&map_a, &map_b, nullptr, tiles, tiles_n, k_steps, ring, full0, empty0);
   } else {
     const int cw = tid >> 7;  // consumer warpgroup: rows 64 cw of the tile
     const int lane = tid & 31, warp = (tid >> 5) & 3, g = lane >> 2, tig = lane & 3;
@@ -350,10 +253,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, Tile<BN>::BLOCKS_PER_SM)
         fence_acc(acc);
         if (held >= 0 && lane == 0) mbar_arrive(empty0 + 8 * held);
         held = stage;
-        if (++stage == T::STAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
+        ring_advance(stage, phase, T::STAGES);
       }
       wgmma_wait<0>();
       fence_acc(acc);
@@ -370,45 +270,6 @@ __global__ void __launch_bounds__(GEMM_THREADS, Tile<BN>::BLOCKS_PER_SM)
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library links no libcuda of its own
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// a [rows, K] int8 row-major matrix in boxes of BK bytes x box_rows rows,
-// 128-byte swizzle, zero fill past its edges
-int tensor_map(CUtensorMap* map, const void* ptr, int rows, int K, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorInvalidValue;
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
-                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 template <int EPI, int BN>

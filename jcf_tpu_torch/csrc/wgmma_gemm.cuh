@@ -1,0 +1,198 @@
+// The Hopper pieces of the port's three GEMMs (int8_gemm.cu, bf16_gemm.cu,
+// f32_gemm.cu): TMA loads into a ring of full / empty mbarriers, wgmma's
+// shared-memory descriptors and its fences, and the tensor maps.
+//
+// Every GEMM here reads A [M, K] and B [N, K] row-major (K-major, as the
+// JAX [out, in] weights are stored) in 128-byte K slices: 2D TMA boxes of
+// 128 bytes x rows with the 128-byte swizzle, whatever the element type
+// (int8: 128 elements, bf16: 64, f32: 32), so the tensor maps are byte
+// maps and one descriptor serves every type. TMA zero-fills the boxes past
+// M, N and K and still counts whole boxes.
+#pragma once
+
+#include <cuda.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int GEMM_BM = 128;        // two consumer warpgroups of 64 rows
+constexpr int GEMM_BK_BYTES = 128;  // K bytes a stage: one 128-byte swizzle row
+constexpr int GEMM_CONSUMER_WARPS = 8;  // warps 0-7; warp 8 the producer
+constexpr int GEMM_THREADS_WG = 32 * (GEMM_CONSUMER_WARPS + 1);
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// spins until the barrier's phase of this parity completes
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// box (c0 = K byte, c1 = row) of the tensor map into shared memory at dst
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma's shared-memory descriptor of a K-major operand in the 128-byte
+// swizzle TMA wrote: start address >> 4, leading offset 1 (unused when the
+// K step lies in one swizzle row), stride 1024 bytes between 8-row groups,
+// layout 1 (128-byte swizzle). The 32-byte K steps inside a 128-byte row
+// (k32 int8, k16 bf16, k8 tf32) add 32 bytes to the start: the swizzle is
+// a function of the address bits, and every stage is 1024-byte aligned.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator registers across the
+// asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A ring of STAGES stages in dynamic shared memory, each an A box of
+// GEMM_BM rows and PLANES B boxes of BN rows, 128 bytes of K each; 1024
+// bytes to align it (the swizzle's 8-row atom), then the full and empty
+// barriers
+template <int STAGES_, int BN_, int PLANES_>
+struct Ring {
+  static constexpr int STAGES = STAGES_, BN = BN_, PLANES = PLANES_;
+  static constexpr int A_BYTES = GEMM_BM * GEMM_BK_BYTES, B_BYTES = BN * GEMM_BK_BYTES;
+  static constexpr int STAGE_BYTES = A_BYTES + PLANES * B_BYTES;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+};
+
+__device__ __forceinline__ void ring_advance(int& stage, uint32_t& phase, int stages) {
+  if (++stage == stages) {
+    stage = 0;
+    phase ^= 1;
+  }
+}
+
+// thread 0 sets up the barriers (a full barrier waits for the producer's
+// one arrival and the stage's bytes, an empty one for each consumer warp);
+// the whole block syncs
+template <class R>
+__device__ __forceinline__ void ring_init(uint32_t full0, uint32_t empty0) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, GEMM_CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// the producer thread: keeps the ring full, walking the block's tiles
+// (t = blockIdx.x, + gridDim.x, ...; N-fastest) and each tile's K slices;
+// map_b2 is the second B plane (R::PLANES == 2)
+template <class R>
+__device__ __forceinline__ void ring_produce(const CUtensorMap* map_a, const CUtensorMap* map_b,
+                                             const CUtensorMap* map_b2, int tiles, int tiles_n,
+                                             int k_steps, uint32_t ring, uint32_t full0,
+                                             uint32_t empty0) {
+  // phase declared first: in this order the int8 GEMM's kernels compile to
+  // the same SASS as with the loop written inline (scripts/sass_diff.py)
+  uint32_t phase = 0;
+  int stage = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (t / tiles_n) * GEMM_BM, n0 = (t % tiles_n) * R::BN;
+    for (int ks = 0; ks < k_steps; ++ks) {
+      mbar_wait(empty0 + 8 * stage, phase ^ 1);
+      const uint32_t full = full0 + 8 * stage, a = ring + stage * R::STAGE_BYTES;
+      mbar_expect_tx(full, R::STAGE_BYTES);
+      tma_load(a, map_a, full, ks * GEMM_BK_BYTES, m0);
+      tma_load(a + R::A_BYTES, map_b, full, ks * GEMM_BK_BYTES, n0);
+      if (R::PLANES == 2) tma_load(a + R::A_BYTES + R::B_BYTES, map_b2, full, ks * GEMM_BK_BYTES, n0);
+      ring_advance(stage, phase, R::STAGES);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library links no libcuda of its own
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// a [rows, row_bytes] row-major matrix as bytes, in boxes of 128 bytes x
+// box_rows rows, 128-byte swizzle, zero fill past its edges (row_bytes a
+// multiple of 16: TMA's stride rule)
+inline int tensor_map(CUtensorMap* map, const void* ptr, int rows, long long row_bytes,
+                      int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {(cuuint64_t)row_bytes, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)GEMM_BK_BYTES, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+}  // namespace

@@ -13,6 +13,10 @@ in f32, with an f32 bias, then one of:
 These are the products inside ``jcf_tpu``'s ``_attn_half_kernel`` and
 ``_mlp_half_kernel`` (K6a, K6b). Each wrapper launches the CUDA kernel for
 CUDA tensors and runs its plain version for CPU tensors.
+
+The kernel (wgmma fed by TMA, as the int8 GEMM) computes 128 x 128
+output tiles, block b of a grid of B taking tiles b, b + B, ...
+(N-fastest); ``gemm_plan`` picks B.
 """
 
 from __future__ import annotations
@@ -20,11 +24,17 @@ from __future__ import annotations
 import torch
 
 from jcf_tpu_torch import _build
+from jcf_tpu_torch.ops import wgmma_gemm
 from jcf_tpu_torch.ops.layers import GELU_TANH_COEF
 
 _EPILOGUES = {"bias": 0, "residual": 1, "gelu": 2}
 # launches of the GEMM kernel, by epilogue
 LAUNCHES = {f"bf16_gemm_{e}": 0 for e in _EPILOGUES}
+
+def gemm_plan(m: int, n: int, k: int, sms: int) -> int:
+    """The grid over the 128 x 128 output tiles (``wgmma_gemm.grid``): two
+    blocks an SM, persistent from K 2048 on."""
+    return wgmma_gemm.grid(m, n, wgmma_gemm.BN, sms, 2, k >= wgmma_gemm.PERSISTENT_K)
 
 
 def matmul_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -43,9 +53,10 @@ def _launch(epilogue, a, w, bias, resid=None):
     if a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 or w.shape[1] != k:
         raise ValueError(f"bf16 GEMM takes bf16 a [M, K] and w [N, K], got {a.dtype} {tuple(a.shape)}, "
                          f"{w.dtype} {tuple(w.shape)}")
-    if k % 8 or n % 8 or m > 65535 * 128:
-        raise ValueError(f"bf16 GEMM needs K % 8 == 0, N % 8 == 0 and M <= 65535 * 128 "
-                         f"(the grid's row limit), got M={m}, K={k}, N={n}")
+    if m < 1 or k < 8 or k % 8 or n < 8 or n % 8:
+        raise ValueError(f"bf16 GEMM needs M >= 1 and K, N positive multiples of 8 (TMA's "
+                         f"16-byte rows, the epilogue's column pairs), got M={m}, K={k}, N={n}")
+    wgmma_gemm.check_shape(m, n, 2 * k, "bf16 GEMM")
     if bias.dtype != torch.float32 or tuple(bias.shape) != (n,) or bias.device != a.device:
         raise ValueError(f"bias must be f32 ({n},) on {a.device}")
     if resid is not None and (resid.dtype != torch.bfloat16 or tuple(resid.shape) != (m, n)
@@ -53,12 +64,14 @@ def _launch(epilogue, a, w, bias, resid=None):
         raise ValueError(f"resid must be bf16 ({m}, {n}) on {a.device}")
     args = [t for t in (a, w, bias, resid) if t is not None]
     if any(not t.is_contiguous() for t in args) or a.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("bf16 GEMM operands must be contiguous, a and w 16-byte aligned")
+        raise ValueError("bf16 GEMM operands must be contiguous, a and w 16-byte aligned "
+                         "(TMA's rule)")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    blocks = gemm_plan(m, n, k, wgmma_gemm.sm_count(a.device.index))
     lib = _build.load()
     err = lib.jcf_bf16_gemm(a.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
                             _EPILOGUES[epilogue], bias.data_ptr(),
-                            resid.data_ptr() if resid is not None else None,
+                            resid.data_ptr() if resid is not None else None, blocks,
                             _build.stream_ptr(a.device))
     _build.check(err, f"bf16_gemm_{epilogue}")
     LAUNCHES[f"bf16_gemm_{epilogue}"] += 1

@@ -43,8 +43,9 @@ Each half is a few kernel launches: the row kernels ``ln_quant``,
 (csrc/block.cu), ``masked_attention`` (its float variants
 ``causal_attention`` and ``head_attention``) and ``pair_attention``
 (csrc/text_block.cu), and the GEMMs with fused epilogues
-(csrc/int8_gemm.cu; csrc/bf16_gemm.cu on the tensor cores and
-csrc/f32_gemm.cu on the CUDA cores for the float halves). Each wrapper
+(csrc/int8_gemm.cu; for the float halves csrc/bf16_gemm.cu and
+csrc/f32_gemm.cu, all three on wgmma fed by TMA, the f32 products as three
+TF32 products). Each wrapper
 launches its kernel for CUDA tensors and runs its plain version for CPU
 tensors. ``attention`` and ``masked_attention`` on bf16 qkv at head dim
 64 launch tensor-core kernels (csrc/pair_mma.cuh, csrc/text_block.cu),

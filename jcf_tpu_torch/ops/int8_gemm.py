@@ -34,11 +34,10 @@ of a grid of B taking tiles b, b + B, ... (N-fastest); ``gemm_plan`` picks
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from jcf_tpu_torch import _build
+from jcf_tpu_torch.ops import wgmma_gemm
 
 _EPILOGUES = {"s32": 0, "bf16": 1, "residual": 2, "gelu_quant": 3, "rowscale": 4,
               "bf16_rows": 5, "residual_rows": 6, "f32": 7, "f32_rows": 8, "residual_f32": 9,
@@ -48,24 +47,17 @@ LAUNCHES = {f"int8_gemm_{e}": 0 for e in _EPILOGUES}
 
 
 # the kernel's row tile (two consumer warpgroups of 64 rows)
-BM = 128
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+BM = wgmma_gemm.BM
 
 
 def gemm_plan(epilogue: str, m: int, n: int, k: int, sms: int) -> tuple:
     """(bn, blocks): the N tile, 256 (one block an SM) for the raw int32
     product where N is a multiple of 256, else 128 (two blocks an SM: one
-    block's epilogue runs beside the other's products); the grid, from K
-    2048 on as many blocks as fit on the ``sms`` SMs at once, each walking
-    the tiles N-fastest, below it one block a tile (short mainloops: blocks
-    that start apart keep their epilogues apart)."""
+    block's epilogue runs beside the other's products); the grid,
+    persistent from K 2048 on (``wgmma_gemm.grid``)."""
     bn = 256 if epilogue == "s32" and n % 256 == 0 else 128
-    tiles = -(-m // BM) * -(-n // bn)
-    return bn, min(tiles, sms * (1 if bn == 256 else 2)) if k >= 2048 else tiles
+    return bn, wgmma_gemm.grid(m, n, bn, sms, 1 if bn == 256 else 2,
+                               k >= wgmma_gemm.PERSISTENT_K)
 
 
 def int8_matmul_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -124,6 +116,8 @@ def _launch(epilogue, a, w, out_dtype, *, scale=None, bias=None, resid=None, gel
     if m < 1 or k < 16 or k % 16 or n < 8 or n % 8:
         raise ValueError(f"int8 GEMM needs M >= 1, K a positive multiple of 16 and N of 8, "
                          f"got M={m}, K={k}, N={n}")
+    bn, blocks = gemm_plan(epilogue, m, n, k, wgmma_gemm.sm_count(a.device.index))
+    wgmma_gemm.check_shape(m, n, k, "int8 GEMM", bn)
     args = [a, w]
     for name, t, dt, shape in (("scale", scale, torch.float32, (n,)),
                                ("bias", bias, torch.float32, (n,)),
@@ -139,7 +133,6 @@ def _launch(epilogue, a, w, out_dtype, *, scale=None, bias=None, resid=None, gel
         raise ValueError("int8 GEMM operands must be contiguous, a and w 16-byte aligned "
                          "(TMA's rule)")
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    bn, blocks = gemm_plan(epilogue, m, n, k, _sm_count(a.device.index))
     lib = _build.load()
     err = lib.jcf_int8_gemm(
         a.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, _EPILOGUES[epilogue],

@@ -1,5 +1,6 @@
-"""Times every epilogue of the port's int8 GEMM at its serving shapes, for
-an A/B of two checkouts on one NVIDIA GPU.
+"""Times every epilogue of the port's int8 GEMM at its serving shapes, and
+the float towers' bf16 and f32 GEMMs, for an A/B of two checkouts on one
+NVIDIA GPU.
 
     python3 jcf_tpu_torch/scripts/ab_gemm.py [ROOT]   # the card
     python3 jcf_tpu_torch/scripts/ab_gemm.py --device cpu --crops 2 --rounds 1 --reps 1
@@ -29,7 +30,13 @@ views), and the ``ops.int8_gemm`` wrapper that each caller uses:
   (s32, bf16, f32, GELU-quant, bf16 residual), whichever its callers
   use: the same int32 sums stored five ways, so the difference between
   two lines is what one epilogue costs beside another (s32 at these N
-  takes the 256-column tile, the others 128).
+  takes the 256-column tile, the others 128);
+- the float towers' GEMMs (``ops.bf16_gemm``, ``ops.f32_gemm``; seeded
+  normal operands, their own generator) at the text shapes (N/16 prompts
+  x 77 tokens, width 512) and the vision shapes (50N rows, width 768):
+  qkv (bias epilogue), out-proj and c_proj (residual), c_fc (QuickGELU);
+  then the f32 GEMM's weight split (``tf32_split``, where the checkout has
+  it) at c_fc's 3072 x 768.
 Each prints the median, min and max ms per launch over ``--rounds``
 rounds of ``--reps`` launches (CUDA events; on the CPU the host clock,
 where the wrappers run their plain versions) and the SHA-256 of the
@@ -110,26 +117,37 @@ def run(root: str = ROOT, device="cuda", crops: int = 8192, rounds: int = 7,
         reps: int = 10) -> dict:
     """Times every GEMM of the list above from ``root``'s package ->
     {label: median ms}."""
-    import numpy as np
     import torch
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
     package = import_package(root)
-    from jcf_tpu_torch.ops import block_kernel as bk
-    from jcf_tpu_torch.ops import int8_gemm as ig
-    from jcf_tpu_torch.scripts import exp_w4a8 as p1
     from jcf_tpu_torch.scripts.common import card_line
 
     print(card_line(device), flush=True)
     print(f"package: {package}", flush=True)
 
-    gen = torch.Generator(device=device).manual_seed(0)
     res = {}
 
     def timed(label, launch):
         res[label] = report(label, launch, device, rounds, reps)
+
+    int8_rows(timed, device, crops)
+    float_rows(timed, device, crops)
+    return res
+
+
+def int8_rows(timed, device, crops: int) -> None:
+    """The int8 GEMMs' lines."""
+    import numpy as np
+    import torch
+
+    from jcf_tpu_torch.ops import block_kernel as bk
+    from jcf_tpu_torch.ops import int8_gemm as ig
+    from jcf_tpu_torch.scripts import exp_w4a8 as p1
+
+    gen = torch.Generator(device=device).manual_seed(0)
 
     def i8(*shape):
         return torch.randint(-127, 128, shape, dtype=torch.int8, device=device, generator=gen)
@@ -211,7 +229,36 @@ def run(root: str = ROOT, device="cuda", crops: int = 8192, rounds: int = 7,
             timed(f"{epi} on the {name} product, {rows} x {k} -> {n}", launch)
         del res_n
     del x_e, x_h
-    return res
+
+
+def float_rows(timed, device, crops: int) -> None:
+    """The bf16 and f32 GEMMs' lines at the text and vision shapes, then
+    the weight split."""
+    import torch
+
+    from jcf_tpu_torch.ops import bf16_gemm as bg
+    from jcf_tpu_torch.ops import f32_gemm as fg
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    shapes = (("text", 77 * max(1, crops // 16), TEXT_E), ("vision", 50 * crops, E))
+    for dtype, mod, tag in ((torch.bfloat16, bg, "bf16"), (torch.float32, fg, "f32")):
+        for tower, rows, e in shapes:
+            for name, k, n, epi in (("qkv", e, 3 * e, "bias"), ("out-proj", e, e, "residual"),
+                                    ("c_fc", e, 4 * e, "gelu"), ("c_proj", 4 * e, e, "residual")):
+                x = torch.randn(rows, k, device=device, generator=gen).to(dtype)
+                w = (torch.randn(n, k, device=device, generator=gen) * k**-0.5).to(dtype)
+                bias = torch.randn(n, device=device, generator=gen) * 0.1
+                fn = getattr(mod, f"{tag}_gemm_{epi}")
+                if epi == "residual":
+                    resid = torch.randn(rows, n, device=device, generator=gen).to(dtype)
+                    launch = lambda: fn(x, w, bias, resid)  # noqa: E731
+                else:
+                    launch = lambda: fn(x, w, bias)  # noqa: E731
+                timed(f"{tag}_gemm_{epi} {tower} {name}, {rows} x {k} -> {n}", launch)
+                del x, launch
+    if hasattr(fg, "tf32_split"):
+        w = torch.randn(4 * E, E, device=device, generator=gen) * E**-0.5
+        timed(f"tf32_split c_fc weights, {4 * E} x {E}", lambda: fg.tf32_split(w))
 
 
 def main(argv=None) -> int:

@@ -175,17 +175,86 @@ def test_ln_quant_and_attention_kernels(cuda):
     _int8_close(bk.attention(qkv, ctx_inv, s, h), bk.attention_plain(qkv, ctx_inv, s, h), 1e-2)
 
 
-@pytest.mark.parametrize("m,n,k", [(200, 72, 96), (128, 128, 64), (77, 24, 2048)])
+# the float GEMMs' edges (wgmma fed by TMA, 128 x 128 tiles): M across
+# many row tiles and off the tile, N off the 128 tile (24, 72, 132 f32
+# only, 384, 576), K off the stage (12 f32 only, 96, 192) and deep (2048,
+# 3072); at 9000 x 576 from K 2048 on, 355 tiles over the persistent
+# grid's 264 blocks (bf16; f32: 132 blocks at every K)
+FLOAT_GEMM_SHAPES = [(200, 72, 96), (128, 128, 64), (77, 24, 2048), (4097, 384, 128),
+                     (1000, 576, 192), (129, 24, 3072), (9000, 576, 2048), (300, 72, 3072)]
+
+
+@pytest.mark.parametrize("m,n,k", FLOAT_GEMM_SHAPES)
 def test_bf16_gemm_epilogues(cuda, m, n, k):
+    """Each epilogue vs its plain version within 1 bf16 ulp + 1e-3 (wgmma
+    sums in another order than the f32 matmul: an output moves by at most a
+    bf16 tie), one launch each."""
     g = torch.Generator(device=cuda).manual_seed(m + n + k)
     a = torch.randn(m, k, device=cuda, generator=g).bfloat16()
     w = (torch.randn(n, k, device=cuda, generator=g) * k**-0.5).bfloat16()
     bias = torch.randn(n, device=cuda, generator=g) * 0.1
     resid = torch.randn(m, n, device=cuda, generator=g).bfloat16()
     acc = bg.matmul_plain(a, w)
+    before = dict(bg.LAUNCHES)
     _bf16_close(bg.bf16_gemm_bias(a, w, bias), (acc + bias).bfloat16())
     _bf16_close(bg.bf16_gemm_residual(a, w, bias, resid), (resid.float() + (acc + bias)).bfloat16())
     _bf16_close(bg.bf16_gemm_gelu(a, w, bias), bg.gelu_plain(acc + bias).bfloat16())
+    assert {k: v - before[k] for k, v in bg.LAUNCHES.items()} == dict.fromkeys(bg.LAUNCHES, 1)
+
+
+def test_float_gemms_refuse_before_launch(cuda):
+    """TMA reads 16-byte aligned bases and rows only: an A or B one element
+    off 16 bytes, K off 8 (bf16) or 4 (f32) raise ``ValueError`` before
+    any launch, the f32 GEMM's weight split included; a row slice at a
+    multiple of 16 bytes runs."""
+    from jcf_tpu_torch.ops import f32_gemm as fg
+
+    g = torch.Generator(device=cuda).manual_seed(19)
+    buf = torch.randn(64 * 96 + 8, device=cuda, generator=g)
+    bias = torch.zeros(64, device=cuda)
+    before = {**bg.LAUNCHES, **fg.LAUNCHES}
+    hb = buf.bfloat16()
+    for a, w in ((hb[1:64 * 96 + 1].view(64, 96), hb[:64 * 96].view(64, 96)),
+                 (hb[:64 * 96].view(64, 96), hb[1:64 * 96 + 1].view(64, 96)),
+                 (hb[:60 * 100].view(60, 100), hb[:60 * 100].view(60, 100))):
+        with pytest.raises(ValueError):
+            bg.bf16_gemm_bias(a, w, bias)
+    for a, w in ((buf[1:64 * 96 + 1].view(64, 96), buf[:64 * 96].view(64, 96)),
+                 (buf[:64 * 96].view(64, 96), buf[1:64 * 96 + 1].view(64, 96)),
+                 (buf[:64 * 90].view(64, 90), buf[:64 * 90].view(64, 90))):
+        with pytest.raises(ValueError):
+            fg.f32_gemm_bias(a, w, bias)
+    with pytest.raises(ValueError):
+        fg.tf32_split(buf[1:9])
+    assert {**bg.LAUNCHES, **fg.LAUNCHES} == before
+    a, w = buf[:64 * 96].view(64, 96), buf[:64 * 96].view(64, 96)[8:]
+    _f32_close(fg.f32_gemm_bias(a, w, bias[8:]), fg.f32_gemm_bias_plain(a, w, bias[8:]),
+               1e-6 * torch.matmul(a.abs(), w.abs().T))
+
+
+def test_tf32_split_kernel_matches_plain_bit_for_bit(cuda):
+    """The weights' split kernel equals ``tf32_split_plain`` bit for bit:
+    seeded normal values over 40 binades, zeros of both signs, subnormals,
+    powers of two and the ties of the 13 dropped bits (rounded away from
+    zero), at c_fc's 3072 x 768 and a ragged 4 x 12."""
+    from jcf_tpu_torch.ops import f32_gemm as fg
+
+    g = torch.Generator(device=cuda).manual_seed(23)
+    w = torch.randn(3072, 768, device=cuda, generator=g)
+    w = w * torch.exp2(torch.randint(-20, 20, w.shape, device=cuda, generator=g).float())
+    bits = torch.randint(0, 2**23, (4096,), device=cuda, generator=g, dtype=torch.int32)
+    special = torch.cat([
+        torch.tensor([0.0, -0.0, 1.0, -1.0, 2.0**-126, 2.0**-149, -(2.0**-149), 2.0**100],
+                     device=cuda),
+        (bits & 0x7FFFFF).view(torch.float32),                   # subnormals
+        ((bits & 0x7FFFE000) | 0x3F801000).view(torch.float32),  # ties
+        (bits | 0x40001000).view(torch.float32)])
+    w.view(-1)[:special.numel()] = special
+    before = fg.LAUNCHES["tf32_split"]
+    for x in (w, w[:4, :12].contiguous()):
+        got, ref = fg.tf32_split(x), fg.tf32_split_plain(x)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert fg.LAUNCHES["tf32_split"] == before + 2
 
 
 def test_ln_affine_and_causal_attention_kernels(cuda):
@@ -929,11 +998,13 @@ def test_view_kernel_float(cuda, dtype):
     (_f32_close if dtype == torch.float32 else _bf16_close)(got, ref)
 
 
-@pytest.mark.parametrize("m,n,k", [(200, 72, 96), (128, 128, 64), (77, 24, 3072), (5, 132, 12)])
+@pytest.mark.parametrize("m,n,k", FLOAT_GEMM_SHAPES + [(77, 24, 3072), (5, 132, 12),
+                                                       (1000, 132, 12), (4097, 132, 768)])
 def test_f32_gemm_epilogues(cuda, m, n, k):
-    """Each epilogue vs its plain version: the same f32 sums in another
-    order, within 1e-5 + 1e-5 |ref| + 1e-6 sum_k |a w| (the worst case of
-    K-term f32 sums is K u sum |a w|; 1e-6 is far above the typical)."""
+    """Each epilogue vs its plain version within 1e-5 + 1e-5 |ref| + 1e-6
+    sum_k |a w| (the worst case of K-term f32 sums is K u sum |a w|; the
+    kernel's three TF32 products drop about 3 2^-22 |a w| a product), one
+    launch each and one weight split a launch."""
     from jcf_tpu_torch.ops import f32_gemm as fg
 
     g = torch.Generator(device=cuda).manual_seed(m + n + k)
@@ -942,10 +1013,13 @@ def test_f32_gemm_epilogues(cuda, m, n, k):
     bias = torch.randn(n, device=cuda, generator=g) * 0.1
     resid = torch.randn(m, n, device=cuda, generator=g)
     slack = 1e-6 * torch.matmul(a.abs(), w.abs().T)
+    before = dict(fg.LAUNCHES)
     _f32_close(fg.f32_gemm_bias(a, w, bias), fg.f32_gemm_bias_plain(a, w, bias), slack)
     _f32_close(fg.f32_gemm_residual(a, w, bias, resid),
                fg.f32_gemm_residual_plain(a, w, bias, resid), slack)
     _f32_close(fg.f32_gemm_gelu(a, w, bias), fg.f32_gemm_gelu_plain(a, w, bias), slack)
+    assert {k: v - before[k] for k, v in fg.LAUNCHES.items()} == {
+        "f32_gemm_bias": 1, "f32_gemm_residual": 1, "f32_gemm_gelu": 1, "tf32_split": 3}
 
 
 def test_ln_affine_and_causal_attention_f32(cuda):
@@ -1028,7 +1102,8 @@ def test_float_tower_kernels_vs_plain(cuda, dtype, causal):
     """A 2-layer full-width float tower (ViT-B/32's vision tower at S = 50
     mask-free, its text tower at 77 causal): the kernels vs the plain
     versions on the CPU; 7 launches a layer (the causal attention also
-    counted by its route in bf16), nothing of K7."""
+    counted by its route in bf16; in f32 also a weight split for each of
+    the four GEMMs), nothing of K7."""
     cfg = CLIPConfig(vision_layers=2, text_layers=2)
     p = init_clip_params(0, cfg)
     blocks, s, h, e = ((p["text"]["blocks"], 77, 8, 512) if causal
@@ -1043,7 +1118,9 @@ def test_float_tower_kernels_vs_plain(cuda, dtype, causal):
     after = {k: v for c in counts for k, v in c.items()}
     launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     routes = {k: v for k, v in launched.items() if k.endswith(("/mma", "/rowloop"))}
-    assert sum(launched.values()) - sum(routes.values()) == 2 * 7
+    splits = launched.get("tf32_split", 0)
+    assert sum(launched.values()) - sum(routes.values()) - splits == 2 * 7
+    assert splits == (2 * 4 if dtype == torch.float32 else 0)
     assert "packed_attention" not in launched
     if causal and dtype == torch.bfloat16:  # on the tensor cores; f32 has one route
         assert routes == {"causal_attention/mma": 2}

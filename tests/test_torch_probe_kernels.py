@@ -326,6 +326,13 @@ _AB_GEMM_LABELS += [f"{e} on the {name} product, 100 x {k} -> {n}"
                     for name, k, n in (("qkv", 768, 2304), ("c_fc", 768, 3072),
                                        ("c_proj", 3072, 768))
                     for e in ("s32", "bf16", "f32", "gelu_quant", "residual")]
+_AB_GEMM_LABELS += [f"{tag}_gemm_{epi} {tower} {name}, {rows} x {k} -> {n}"
+                    for tag in ("bf16", "f32")
+                    for tower, rows, e in (("text", 77, 512), ("vision", 100, 768))
+                    for name, k, n, epi in (("qkv", e, 3 * e, "bias"), ("out-proj", e, e, "residual"),
+                                            ("c_fc", e, 4 * e, "gelu"),
+                                            ("c_proj", 4 * e, e, "residual"))]
+_AB_GEMM_LABELS += ["tf32_split c_fc weights, 3072 x 768"]
 
 
 def test_ab_gemm_runs_as_a_file_on_the_cpu():
