@@ -113,7 +113,8 @@
    ``PipelineConfig()`` (counted: the f32 text halves only; against the
    plain f32 tower, row cos >= 0.99999); then each new kernel against its
    plain version: K1's f32 and bf16 views at the serving batch, on layer
-   0's input rows of the f32 and bf16 engines' forwards ``ln_affine_f32``,
+   0's input rows of the f32 and bf16 engines' forwards ``ln_affine_f32``
+   and ``ln_affine`` (vision),
    the f32 GEMM epilogues (bias, QuickGELU, residual), the mask-free
    attention in f32 and bf16 (SDPA on the head views as the library
    yardstick, ``matmul`` without TF32 for the GEMMs, ``F.layer_norm``),
@@ -2445,7 +2446,12 @@ def float_kernel_phase(rows_f32, rows_bf16, text, cfg, ids, images, geometry):
     # the bf16 parity engine's attention
     xb, layer_b = rows_bf16[0], rows_bf16[1]
     lb, ab = layer_b["ln_1"], layer_b["attn"]
-    hb = bk.ln_affine(xb, lb["scale"], lb["bias"])
+    hb = ph.run("ln_affine (vision)",
+                lambda: bk.ln_affine(xb, lb["scale"], lb["bias"]),
+                lambda: bk.ln_affine_plain(xb, lb["scale"], lb["bias"]),
+                check_bf16,
+                bound(2 * nbytes(xb) + nbytes(lb["scale"], lb["bias"]), 0.0, PEAK_BF16),
+                lambda: F.layer_norm(xb, (xb.shape[1],), lb["scale"], lb["bias"], 1e-5))
     wqb, bqb = ab["w_qkv"], ab["b_qkv"].float()
     bqb_bf = bqb.to(torch.bfloat16)
     qkv_b = ph.run("bf16_gemm_bias (vision)",

@@ -48,7 +48,7 @@ SIGNATURES = {
     "jcf_bf16_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
     "jcf_f32_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
     "jcf_tf32_split": [_P, _P, ctypes.c_longlong, _P],
-    "jcf_ln_affine": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "jcf_ln_affine": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "jcf_masked_attention": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     "jcf_pair_attention": [_P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
     "jcf_packed_attention": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],

@@ -26,8 +26,16 @@ namespace {
 // cast to the row dtype by the caller (block_kernel.py:1229, :1249),
 // statistics and the affine in f32, the output cast to T:
 //   y = T(((x - mean) * rsqrt(var + 1e-5)) * scale + bias)
-// Bound on the H100: bytes (sizeof(T) in, sizeof(T) out per element). One
-// warp per row, the row held in registers across both reductions.
+// Bound on the H100: bytes (sizeof(T) in, sizeof(T) out per element).
+//
+// Rows whose width is a multiple of the 16-byte vector (and 16-byte
+// aligned tensors) take ln_affine_vec_kernel: a grid sized to the card,
+// each warp looping over rows; a lane holds 16-byte chunks c = lane + 32k
+// (8 bf16 or 4 f32 contiguous elements each) of the row, its chunks of the
+// scale and bias in registers across all its rows, and issues the next
+// row's loads before the current row's two reductions. Other rows take
+// ln_affine_kernel, one warp a row in 2-byte (or 4-byte) slots
+// j = lane + 32k, the wrapper's "/scalar" route.
 
 constexpr int LNA_WARPS = 8;
 constexpr int LNA_PER = 32;  // E <= 1024
@@ -55,6 +63,127 @@ __global__ void __launch_bounds__(LNA_WARPS * 32) ln_affine_kernel(
       const float z = __fmul_rn(__fsub_rn(v[k], st.x), st.y);
       o[j] = from_f<T>(__fadd_rn(__fmul_rn(z, to_f(scale[j])), to_f(bias[j])));
     }
+  }
+}
+
+// a 16-byte chunk as 4 f32 or 8 bf16 values, and back (round to nearest
+// even)
+__device__ __forceinline__ void lnv_unpack(const uint4& r, float (&f)[4]) {
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
+}
+
+__device__ __forceinline__ void lnv_unpack(const uint4& r, float (&f)[8]) {
+  const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+
+__device__ __forceinline__ uint4 lnv_pack(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
+
+__device__ __forceinline__ uint4 lnv_pack(const float (&f)[8]) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    w[i] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Row statistics of the vector kernel's row: a lane sums its chunks' f32
+// values in order (chunk k, then element), the warp adds the lanes' sums
+// by the xor butterfly; then the same for the squared deviations from
+// the mean. Returns (mean, rstd) with var = mean((x - mean)^2), as
+// warp_row_stats.
+template <int CPL, int V>
+__device__ __forceinline__ float2 ln_vec_stats(const float (&v)[CPL][V], const bool (&live)[CPL],
+                                               int n) {
+  float s = 0.0f;
+#pragma unroll
+  for (int k = 0; k < CPL; ++k)
+    if (live[k]) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) s += v[k][i];
+    }
+  const float mean = warp_sum(s) / (float)n;
+  float q = 0.0f;
+#pragma unroll
+  for (int k = 0; k < CPL; ++k)
+    if (live[k]) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float d = v[k][i] - mean;
+        q = fmaf(d, d, q);
+      }
+    }
+  const float var = warp_sum(q) / (float)n;
+  return make_float2(mean, rsqrtf(var + 1e-5f));
+}
+
+// CPL chunks a lane; FIXED_E > 0: E = FIXED_E = 32 * CPL * V (every lane
+// holds CPL chunks), 0: E at run time, E / V <= 32 * CPL chunks, a lane's
+// chunk past the row neither loaded nor stored
+template <typename T, int CPL, int FIXED_E>
+__global__ void __launch_bounds__(LNA_WARPS * 32) ln_affine_vec_kernel(
+    const T* __restrict__ x, const T* __restrict__ scale, const T* __restrict__ bias,
+    T* __restrict__ out, int M, int E_rt) {
+  constexpr int V = 16 / sizeof(T);
+  static_assert(FIXED_E == 0 || FIXED_E == 32 * CPL * V, "a fixed width fills every lane");
+  const int E = FIXED_E > 0 ? FIXED_E : E_rt;
+  const int lane = threadIdx.x & 31;
+  const int chunks = E / V;
+  bool live[CPL];
+  uint4 sc[CPL], bi[CPL], cur[CPL], nxt[CPL];
+#pragma unroll
+  for (int k = 0; k < CPL; ++k) {
+    const int c = lane + 32 * k;
+    live[k] = FIXED_E > 0 || c < chunks;
+    sc[k] = bi[k] = cur[k] = nxt[k] = make_uint4(0u, 0u, 0u, 0u);
+    if (live[k]) {
+      sc[k] = reinterpret_cast<const uint4*>(scale)[c];
+      bi[k] = reinterpret_cast<const uint4*>(bias)[c];
+    }
+  }
+  const long long stride = (long long)gridDim.x * LNA_WARPS;
+  long long row = (long long)blockIdx.x * LNA_WARPS + (threadIdx.x >> 5);
+  auto load = [&](uint4 (&r)[CPL], long long at) {
+    const uint4* src = reinterpret_cast<const uint4*>(x + at * E);
+#pragma unroll
+    for (int k = 0; k < CPL; ++k)
+      if (live[k]) r[k] = src[lane + 32 * k];
+  };
+  if (row < M) load(cur, row);
+  for (; row < M; row += stride) {
+    if (row + stride < M) load(nxt, row + stride);
+    float v[CPL][V];
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) lnv_unpack(cur[k], v[k]);
+    const float2 st = ln_vec_stats<CPL, V>(v, live, E);
+    uint4* dst = reinterpret_cast<uint4*>(out + row * E);
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      if (!live[k]) continue;
+      float s[V], b[V], y[V];
+      lnv_unpack(sc[k], s);
+      lnv_unpack(bi[k], b);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float z = __fmul_rn(__fsub_rn(v[k][i], st.x), st.y);
+        y[i] = __fadd_rn(__fmul_rn(z, s[i]), b[i]);
+      }
+      dst[lane + 32 * k] = lnv_pack(y);
+    }
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) cur[k] = nxt[k];
   }
 }
 
@@ -540,15 +669,51 @@ __global__ void __launch_bounds__(PA_WARPS * 32, 2) pair_attention_tiled_kernel(
                            v_s, q_s, p_w, l_s, PA_WARPS);
 }
 
-template <typename T>
-int launch_ln_affine(const void* x, const void* scale, const void* bias, void* out, int M, int E,
-                     cudaStream_t stream) {
-  if (E < 1 || E > 32 * LNA_PER) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((M + LNA_WARPS - 1) / LNA_WARPS);
-  ln_affine_kernel<T><<<blocks, LNA_WARPS * 32, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(scale), static_cast<const T*>(bias),
-      static_cast<T*>(out), M, E);
+// the vector kernel's grid: as many blocks as fit on the card at once (the
+// occupancy of this instance, cached), fewer where M needs fewer
+template <typename T, int CPL, int FIXED_E>
+int launch_ln_affine_vec(const T* x, const T* scale, const T* bias, T* out, int M, int E,
+                         cudaStream_t stream) {
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, ln_affine_vec_kernel<T, CPL, FIXED_E>, LNA_WARPS * 32, 0);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long need = ((long long)M + LNA_WARPS - 1) / LNA_WARPS;
+  const unsigned blocks = (unsigned)(need < (long long)sms * per_sm ? need : (long long)sms * per_sm);
+  ln_affine_vec_kernel<T, CPL, FIXED_E><<<blocks, LNA_WARPS * 32, 0, stream>>>(x, scale, bias, out,
+                                                                              M, E);
   return (int)cudaGetLastError();
+}
+
+// vec: the vector kernel (E a multiple of 16 / sizeof(T), every pointer
+// 16-byte aligned; the 512 and 768 widths have instances of their own),
+// else the scalar one
+template <typename T>
+int launch_ln_affine(const void* xv, const void* scv, const void* biv, void* outv, int M, int E,
+                     int vec, cudaStream_t stream) {
+  if (E < 1 || E > 32 * LNA_PER) return (int)cudaErrorInvalidValue;
+  const T* x = static_cast<const T*>(xv);
+  const T* scale = static_cast<const T*>(scv);
+  const T* bias = static_cast<const T*>(biv);
+  T* out = static_cast<T*>(outv);
+  if (!vec) {
+    const unsigned blocks = (unsigned)((M + LNA_WARPS - 1) / LNA_WARPS);
+    ln_affine_kernel<T><<<blocks, LNA_WARPS * 32, 0, stream>>>(x, scale, bias, out, M, E);
+    return (int)cudaGetLastError();
+  }
+  constexpr int V = 16 / sizeof(T), LANE_ROW = 32 * V;  // elements of one chunk on every lane
+  if (M < 1 || E % V != 0 ||
+      ((uintptr_t)xv | (uintptr_t)scv | (uintptr_t)biv | (uintptr_t)outv) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (E == 512) return launch_ln_affine_vec<T, 512 / LANE_ROW, 512>(x, scale, bias, out, M, E, stream);
+  if (E == 768) return launch_ln_affine_vec<T, 768 / LANE_ROW, 768>(x, scale, bias, out, M, E, stream);
+  return launch_ln_affine_vec<T, 32 * LNA_PER / LANE_ROW, 0>(x, scale, bias, out, M, E, stream);
 }
 
 template <typename T, typename O, bool CAUSAL, bool SCALED>
@@ -621,12 +786,14 @@ int launch_pair_tiled(const void* qkv, void* out, int n_crops, int S, int H, flo
 
 }  // namespace
 
-// f32: 1 for f32 rows, scale and bias, 0 for bf16
+// f32: 1 for f32 rows, scale and bias, 0 for bf16; vec: 1 for the vector
+// kernel (E a multiple of 16 / sizeof(T), 16-byte aligned pointers), 0
+// for the scalar one
 extern "C" int jcf_ln_affine(const void* x, const void* scale, const void* bias, void* out, int M,
-                             int E, int f32, void* stream) {
+                             int E, int f32, int vec, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  return f32 ? launch_ln_affine<float>(x, scale, bias, out, M, E, st)
-             : launch_ln_affine<bf16>(x, scale, bias, out, M, E, st);
+  return f32 ? launch_ln_affine<float>(x, scale, bias, out, M, E, vec, st)
+             : launch_ln_affine<bf16>(x, scale, bias, out, M, E, vec, st);
 }
 
 // f32: f32 rows (the context in f32; D = 64, qkv and out 16-byte aligned:

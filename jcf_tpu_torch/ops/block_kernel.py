@@ -153,6 +153,9 @@ MASKED_KERNELS = ("masked_attention", "masked_attention_f32", "causal_attention"
                   "head_attention")
 PAIRED_KERNELS = ("attention", "attention_f32", "attention_scaled", "attention_scaled_f32")
 LAUNCHES.update({f"{k}/{r}": 0 for k in MASKED_KERNELS + PAIRED_KERNELS for r in ROUTES})
+# the LayerNorm rows off the vector kernel (a width not a multiple of 16
+# bytes, or a misaligned tensor) also by that route
+LAUNCHES.update({"ln_affine/scalar": 0, "ln_affine_f32/scalar": 0})
 # the float kernels' variants by dtype: the launch count's suffix and the
 # C entries' f32 flag
 _FLOAT = {torch.bfloat16: ("", 0), torch.float32: ("_f32", 1)}
@@ -478,7 +481,9 @@ def _float_kind(name: str, x: torch.Tensor):
 
 def ln_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """x [M, E] bf16 or f32, scale and bias [E] in x's dtype -> [M, E] in
-    x's dtype."""
+    x's dtype. Rows of a width that is a multiple of 16 bytes, on 16-byte
+    aligned tensors, take the vector kernel; others the scalar kernel,
+    which also counts ``LAUNCHES["ln_affine<suffix>/scalar"]``."""
     if not x.is_cuda:
         return ln_affine_plain(x, scale, bias)
     m, e = x.shape
@@ -491,10 +496,14 @@ def ln_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch
     x, scale, bias = x.contiguous(), scale.contiguous(), bias.contiguous()
     out = torch.empty_like(x)
     lib = _build.load()
-    err = lib.jcf_ln_affine(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), m, e,
-                            f32, _build.stream_ptr(x.device))
-    _build.check(err, "ln_affine" + suffix)
-    LAUNCHES["ln_affine" + suffix] += 1
+    ptrs = (x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr())
+    vec = (e * x.element_size()) % 16 == 0 and all(p % 16 == 0 for p in ptrs)
+    err = lib.jcf_ln_affine(*ptrs, m, e, f32, int(vec), _build.stream_ptr(x.device))
+    name = "ln_affine" + suffix
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    if not vec:
+        LAUNCHES[name + "/scalar"] += 1
     return out
 
 

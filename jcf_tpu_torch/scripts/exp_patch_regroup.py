@@ -5,8 +5,9 @@ Port of ``scripts/exp_patch_regroup.py``: ``out[i, py * 7 + px, dy * 32 +
 dx] = x[i, py * 32 + dy, px * 32 + dx]`` for x [512, 224, 224] -> [512,
 49, 1024], in f32 and in int8, with one kernel template
 (``csrc/patch_regroup.cu``) for the TPU probe's three kernels: A
-(``kernel_a``, reshape + transpose of a plane) a block a plane through
-shared memory, B (``kernel_b``, per 32-row band) a block a band, C
+(``kernel_a``, reshape + transpose of a plane) a persistent block an SM
+owning whole planes, each 32² tile one TMA box and each band one bulk
+store, B (``kernel_b``, per 32-row band) a block a band, C
 (``kernel_c``, strided rows ``x[dy::32]``) a block a (plane, dy). Each
 is held to the plain version (``view`` / ``permute`` / ``reshape``) and
 to the TPU probe's numpy check on plane 0, bit for bit, and timed with

@@ -1037,6 +1037,69 @@ def test_ln_affine_and_causal_attention_f32(cuda):
     assert bk.LAUNCHES["causal_attention"] == before["causal_attention"]
 
 
+def _ln_rows_input(m, e, dtype, device, seed):
+    """Seeded LayerNorm rows [m, e]: standard normal; every third row, from
+    row 1, a large common offset with its mean exactly 100 (deviations in
+    pairs k, -k: k / 128 in f32, std ~0.01, where a one-pass variance
+    fails; k / 2 in bf16, std ~1, bf16's spacing at 100 being 0.5)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(m, e, generator=g, dtype=torch.float64)
+    step, sd = (1 / 128, 1.28) if dtype == torch.float32 else (1 / 2, 2.0)
+    for i in range(1, m, 3):
+        k = torch.round(torch.randn(e // 2, generator=g, dtype=torch.float64) * sd)
+        dev = torch.cat([k, -k, torch.zeros(e % 2, dtype=torch.float64)])
+        x[i] = 100 + dev[torch.randperm(e, generator=g)] * step
+    scale = 1 + 0.1 * torch.randn(e, generator=g, dtype=torch.float64)
+    bias = 0.1 * torch.randn(e, generator=g, dtype=torch.float64)
+    return tuple(t.to(device=device, dtype=dtype) for t in (x, scale, bias))
+
+
+# the vector kernel's widths (512 and 768 with instances of their own),
+# rows from one to past the grid's warps (the row loop wraps)
+LN_WIDTHS = (64, 128, 192, 512, 768, 1024)
+LN_ROWS = (1, 7, 9 * 77, 40000)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("e", LN_WIDTHS)
+@pytest.mark.parametrize("m", LN_ROWS)
+def test_ln_affine_vector_kernel(cuda, dtype, e, m):
+    x, scale, bias = _ln_rows_input(m, e, dtype, cuda, seed=m + e)
+    sfx = "" if dtype == torch.bfloat16 else "_f32"
+    before = dict(bk.LAUNCHES)
+    got = bk.ln_affine(x, scale, bias)
+    ref = bk.ln_affine_plain(x, scale, bias)
+    if dtype == torch.bfloat16:
+        _bf16_close(got, ref)
+    else:
+        _f32_close(got, ref)
+    assert _launched(before) == {f"ln_affine{sfx}": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("e,misaligned", [(77, False), (1023, False), (512, True)])
+def test_ln_affine_scalar_route(cuda, dtype, e, misaligned):
+    """Rows off the vector kernel (a width not a multiple of 16 bytes, or
+    rows one element off 16-byte alignment) take the scalar kernel and
+    count its route."""
+    m = 700
+    x, scale, bias = _ln_rows_input(m, e, dtype, cuda, seed=e)
+    if misaligned:
+        buf = torch.empty(m * e + 1, dtype=dtype, device=cuda)
+        buf[1:].copy_(x.reshape(-1))
+        x = buf[1:].view(m, e)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    sfx = "" if dtype == torch.bfloat16 else "_f32"
+    before = dict(bk.LAUNCHES)
+    got = bk.ln_affine(x, scale, bias)
+    ref = bk.ln_affine_plain(x, scale, bias)
+    if dtype == torch.bfloat16:
+        _bf16_close(got, ref)
+    else:
+        _f32_close(got, ref)
+    assert _launched(before) == {f"ln_affine{sfx}": 1, f"ln_affine{sfx}/scalar": 1}
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("s,h,crops", [(48, 6, 7), (50, 12, 7), (54, 12, 7), (56, 4, 7),
                                        (64, 12, 7), (82, 12, 7), (127, 2, 7), (50, 2, 7),
@@ -1498,9 +1561,14 @@ def test_w4a8_mlp_variants(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
-@pytest.mark.parametrize("n,side,patch", [(3, 224, 32), (5, 64, 16), (2, 96, 32)])
+@pytest.mark.parametrize("n,side,patch", [(3, 224, 32), (5, 64, 16), (2, 96, 32), (1, 224, 32),
+                                          (1200, 224, 32), (10000, 64, 16)])
 def test_patch_regroup_kernels(cuda, dtype, n, side, patch):
-    """Probe P2's three strategies equal to the plain regroup bit for bit."""
+    """Probe P2's three strategies equal to the plain regroup bit for bit.
+    A's persistent grid holds as many blocks as fit on the card (at most
+    32 an SM); 1200 planes of 224² and 10,000 of 64² give its blocks
+    several planes, and every plane has more bands (7 at 224², 4 at 64²)
+    than a block's ring holds (3), so the ring wraps."""
     from jcf_tpu_torch.scripts import exp_patch_regroup as p2
 
     x = p2.planes(n, dtype, cuda, seed=n, side=side)

@@ -18,9 +18,9 @@ the TPU probes in ``scripts/``, whose kernels run through
 - P2 (``exp_patch_regroup``): kernels A, B and C at 4 planes, f32 and
   int8, against the port's plain regroup and the script's numpy check,
   bit for bit.
-- Each script's ``main`` on the CPU at a small size (also the attention
-  A/B script ``ab_attention``, run as a file), and the port's modules
-  free of JAX and ``jcf_tpu``.
+- Each script's ``main`` on the CPU at a small size (also the A/B
+  scripts ``ab_attention``, ``ab_gemm`` and ``ab_rows``, run as files),
+  and the port's modules free of JAX and ``jcf_tpu``.
 """
 
 import contextlib
@@ -354,6 +354,38 @@ def test_ab_gemm_runs_as_a_file_on_the_cpu():
     assert all("(1 x 1), sha256 " in line for line in lines[2:])
 
 
+_AB_ROWS_LABELS = [f"{fn} {tag} {tower}, {rows} x {e}"
+                   for tag, tower, rows, e in (("bf16", "text", 77, 512), ("bf16", "vision", 100, 768),
+                                               ("f32", "vision", 100, 768), ("f32", "text", 77, 512))
+                   for fn in ("ln_affine", "F.layer_norm")]
+_AB_ROWS_LABELS += [f"{k} {tag}, 2 planes of 224²" for tag in ("f32", "int8")
+                    for k in ("patch_regroup_a", "patch_regroup_b", "patch_regroup_c",
+                              "plain copy")]
+
+
+def test_ab_rows_runs_as_a_file_on_the_cpu():
+    """The row-kernel A/B script as the card runs it (a file, the
+    checkout's root as ROOT), at two crops, one prompt and two planes on
+    the CPU: the device line, the package, then one line a launch with the
+    SHA-256 of its output; the regroup's strategies and its copy share
+    theirs (the plain versions here, which the kernels equal bit for
+    bit)."""
+    script = ROOT / "jcf_tpu_torch" / "scripts" / "ab_rows.py"
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, str(script), str(ROOT), "--device", "cpu", "--crops",
+                          "2", "--prompts", "1", "--planes", "2", "--rounds", "1", "--reps", "1"],
+                         cwd=ROOT / "tests", env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("device: cpu")
+    assert lines[1] == f"package: {ROOT / 'jcf_tpu_torch'}"
+    assert [line.split(":")[0] for line in lines[2:]] == _AB_ROWS_LABELS
+    assert all("(1 x 1), sha256 " in line for line in lines[2:])
+    shas = [line.rsplit(" ", 1)[1] for line in lines[-8:]]
+    assert len(set(shas[:4])) == 1 and len(set(shas[4:])) == 1
+
+
 def test_no_module_of_the_port_imports_jax():
     """Every module of ``jcf_tpu_torch``, ``chip_smoke.py`` and the root
     ``profile_*.py`` scripts (the port's) import neither JAX nor
@@ -363,7 +395,7 @@ def test_no_module_of_the_port_imports_jax():
     sources = (sorted((ROOT / "jcf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
                + sorted(ROOT.glob("profile_*.py")))
     assert {"exp_batched_dot.py", "exp_w4a8.py", "exp_patch_regroup.py", "ab_attention.py",
-            "ab_gemm.py", "profile_k9.py"} <= {p.name for p in sources}
+            "ab_gemm.py", "ab_rows.py", "profile_k9.py"} <= {p.name for p in sources}
     for path in sources:
         assert not pattern.search(path.read_text()), path
 
@@ -372,10 +404,12 @@ _BLOCKED = """
 import sys
 sys.modules["jax"] = None
 sys.modules["jcf_tpu"] = None
-from jcf_tpu_torch.scripts import exp_batched_dot, exp_patch_regroup, exp_w4a8
+from jcf_tpu_torch.scripts import ab_rows, exp_batched_dot, exp_patch_regroup, exp_w4a8
 assert exp_batched_dot.main(["--device", "cpu", "--grid", "1", "--group", "1", "--iters", "1"]) == 0
 assert exp_w4a8.main(["--device", "cpu", "--rows", "16", "--iters", "1"]) == 0
 assert exp_patch_regroup.main(["--device", "cpu", "--planes", "1", "--iters", "1"]) == 0
+assert ab_rows.main(["--device", "cpu", "--crops", "1", "--prompts", "1", "--planes", "1",
+                     "--rounds", "1", "--reps", "1"]) == 0
 loaded = {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
 assert not loaded & {"jax", "jcf_tpu"}, loaded
 print("ok")
