@@ -701,12 +701,28 @@ def serving_kernel_phase(engine, images, geometry):
     log(f"serving kernel checks at B' = {n_crops} crops")
     ph = Phase()
 
-    views = ph.run("view",
+    # K1 in both layouts: the NCHW int8 views (the checks' layout), then
+    # the patch rows the engine feeds the s32 GEMM ("view" in the JSON
+    # line: the serving path's launch), equal to _patchify of the NCHW
+    # views bit for bit
+    view_work = bound(nbytes(images) + n_crops * 3 * res * res, 0.0, PEAK_INT8)
+    views = ph.run("view NCHW",
                    lambda: vk.fused_views_nchw(images, cy, cx, inv, res, quantize=True),
                    lambda: vk.fused_views_nchw_plain(images, cy, cx, inv, res, quantize=True),
-                   lambda n, a, b: check_int8(n, a, b, 5e-3),
-                   bound(nbytes(images) + n_crops * 3 * res * res, 0.0, PEAK_INT8))
-    cols = _patchify(views.reshape(n_crops, 3, res, res), p).reshape(-1, 3 * p * p).contiguous()
+                   lambda n, a, b: check_int8(n, a, b, 5e-3), view_work)
+    cols = ph.run("view",
+                  lambda: vk.fused_views_nchw(images, cy, cx, inv, res, quantize=True, patch=p),
+                  lambda: vk.fused_views_nchw_plain(images, cy, cx, inv, res, quantize=True,
+                                                    patch=p),
+                  lambda n, a, b: check_int8(n, a, b, 5e-3), view_work)
+
+    def im2col(v):
+        return _patchify(v.reshape(n_crops, 3, res, res), p).reshape(-1, 3 * p * p).contiguous()
+
+    check_int8("view patch rows vs _patchify of the NCHW views", cols, im2col(views), 0.0)
+    t_copy = time_ms(lambda: im2col(vk.fused_views_nchw(images, cy, cx, inv, res, quantize=True)))
+    log(f"  view NCHW + the im2col copy (the parent engine's route): {t_copy:.3f} ms")
+    del views
     k_q = engine._k_q
     acc = ph.run("int8_gemm_s32",
                  lambda: ig.int8_gemm_s32(cols, k_q),
@@ -1376,8 +1392,8 @@ def serving_b16_phase(dev, counters, smi, text):
     torch.cuda.synchronize()
     launches = {k: v for c in counters for k, v in c.items()}
     log(f"ViT-B/16 serving launches: {launches}")
-    expected = {"view": 1, "int8_gemm_s32": 1, "blocked_attention": cfg.vision_layers,
-                "int8_gemm_rowscale": 4 * cfg.vision_layers}
+    expected = {"view": 1, "view/patch": 1, "int8_gemm_s32": 1,
+                "blocked_attention": cfg.vision_layers, "int8_gemm_rowscale": 4 * cfg.vision_layers}
     if {k: v for k, v in launches.items() if v} != expected:
         raise AssertionError(f"expected exactly the launches {expected}")
     check_modes(modes, B16_BATCH, cfg.embed_dim)
@@ -1577,7 +1593,7 @@ def fused_serving_phase(engine, images, geometry, text, modes_halves, modes_f, c
     hidden = quant["mlp"]["c_fc"].w_int8.shape[-2]
     w_bytes = sum(nbytes(*q) for q in (layer0["attn"]["w_qkv"], layer0["attn"]["w_out"],
                                         layer0["mlp"]["c_fc"], layer0["mlp"]["c_proj"]))
-    base = {"view": 1, "int8_gemm_s32": 1, "assemble": 1}
+    base = {"view": 1, "view/patch": 1, "int8_gemm_s32": 1, "assemble": 1}
     # the CLS-only last layer: K5 (LN + quant, K/V and Q GEMMs, CLS
     # attention, out-proj) and K4 on the CLS rows
     cls_layer = {"ln_quant": 2, "int8_gemm_bf16": 2, "cls_attention": 1, "int8_gemm_residual": 2,
@@ -1775,7 +1791,7 @@ def mode_launches(mode: str, n_layers: int, s: int) -> dict:
         "full": {**static, "int8_gemm_residual": 2 * n, "int8_gemm_gelu_quant": n},
     }
     table["full+score"] = table["full"]
-    out = {"view": 1, "int8_gemm_s32": 1, "assemble": 1, **table[mode]}
+    out = {"view": 1, "view/patch": 1, "int8_gemm_s32": 1, "assemble": 1, **table[mode]}
     return with_routes({k: v for k, v in out.items() if v})
 
 
@@ -2019,10 +2035,11 @@ def with_routes(launches: dict) -> dict:
 
 
 def route_counts(launches: dict, name: str) -> dict:
-    """{"routes": {route: launches}} of a kernel with a tensor-core and a
-    CUDA-core route, the routes it took in ``launches``; {} for the
+    """{"routes": {route: launches}} of a kernel counted by route (the
+    attention kernels' "mma" and "rowloop", the LN row kernels' "scalar",
+    K1's "patch"), the routes it took in ``launches``; {} for the
     others."""
-    routes = {r: launches[f"{name}/{r}"] for r in ("mma", "rowloop")
+    routes = {r: launches[f"{name}/{r}"] for r in ("mma", "rowloop", "scalar", "patch")
               if launches.get(f"{name}/{r}")}
     return {"routes": routes} if routes else {}
 
@@ -4263,7 +4280,7 @@ def k9_288_routes(engine, images, geometry, text, feats_f, modes_f, counters, sm
 
     cfg = engine.cfg
     s, heads, n = cfg.vision_seq_len, cfg.vision_heads, cfg.vision_layers
-    base = {"view": 1, "int8_gemm_s32": 1, "assemble": 1}
+    base = {"view": 1, "view/patch": 1, "int8_gemm_s32": 1, "assemble": 1}
     last = with_routes({"ln_quant": 2, "int8_gemm_bf16": 1, "attention": 1,
                         "int8_gemm_residual": 2, "int8_gemm_gelu_quant": 1})
     ph = Phase()
@@ -4394,7 +4411,8 @@ def k9_small_towers_phase(dev, counters, smi):
                 flat = lambda f: f.reshape(-1, f.shape[-1])
                 cos_p = float(cosine_rows(flat(feats), flat(feats_p)).min())
                 cos_h = float(cosine_rows(flat(feats), flat(feats_h)).min())
-                want = {"view": 1, "int8_gemm_s32": 1, "block_int8": 12, f"block_int8/{branch}": 12}
+                want = {"view": 1, "view/patch": 1, "int8_gemm_s32": 1, "block_int8": 12,
+                        f"block_int8/{branch}": 12}
                 log(f"  the {heads}-head {s}-token int8 engine ({mode or 'dynamic'}), {n_img} "
                     f"images x {VIEWS} views under 'block': launches {counted}; per-view features "
                     f"vs plain min cos {cos_p:.6f}, vs the halves {cos_h:.6f} (gates >= 0.999)")
@@ -4635,15 +4653,26 @@ def main() -> int:
     # share); the log has all four
     results.update(k7[("text", "bf16")])
 
-    # the serving path, counted
+    # the serving path, counted; K1 writes the patch rows (no eager im2col
+    # copy: _patchify is never called) and every LN + quant row takes the
+    # vector kernel
+    from jcf_tpu_torch.infer import engine as engine_module
+
     torch.cuda.synchronize()
     for c in counters:
         c.update(dict.fromkeys(c, 0))
-    modes = engine.features_from_images(images, text, geometry=geometry)
+    patchified = []
+    with recorded(engine_module, "_patchify", patchified, 1):
+        modes = engine.features_from_images(images, text, geometry=geometry)
     torch.cuda.synchronize()
     launches_srv = {k: v for c in counters for k, v in c.items()}
     log(f"serving path launches: {launches_srv}")
     check_routes("serving path", launches_srv, {"attention": "mma"})
+    scalar = {k: v for k, v in launches_srv.items() if k.endswith("/scalar") and v}
+    log(f"serving path: view/patch {launches_srv['view/patch']}, _patchify calls "
+        f"{len(patchified)}, scalar-route launches {scalar}")
+    if launches_srv["view/patch"] != 1 or patchified or scalar:
+        raise AssertionError("the serving path must take K1's patch rows and the vector LN rows")
     check_modes(modes, BATCH, cfg.embed_dim)
 
     # int8 vs the f32 engine on the same geometry (bench.py's cert): the
@@ -4733,7 +4762,6 @@ def main() -> int:
 
     # phase 12: the masked and unfolded int8 halves, on phase 6's tower
     # input rows (K2's output at 8192 crops) and phase 11b's prompts
-    from jcf_tpu_torch.infer import engine as engine_module
     from jcf_tpu_torch.ops.quant import quantize_clip_params
 
     calls = []

@@ -36,8 +36,18 @@ namespace {
 // layer params' f32 affine on the CLS rows, :1918-1921). Rows in bf16
 // (the vision tower, a bf16 text tower) or f32 (the f32 text tower,
 // whose residual stream stays f32 through the halves).
-// Bound on the H100: bytes (2 or 4 B in, 1 B out per element). One warp
-// per row, the row held in registers across both reductions.
+// Bound on the H100: bytes (2 or 4 B in, 1 B out per element).
+//
+// Rows of width 512 or 768 on 16-byte aligned tensors (every tower of the
+// port) take ln_quant_vec_kernel, the row design of text_block.cu's
+// ln_affine_vec_kernel: a grid sized to the card, each warp looping over
+// rows; a lane holds the row's 16-byte chunks c = lane + 32k (8 bf16 or 4
+// f32 contiguous elements each), the f32 affine's matching values in
+// registers across all its rows, and issues the next row's loads before
+// the current row's two reductions; the row's int8 values leave packed,
+// 8 bytes a bf16 chunk and 4 an f32 chunk, and lane 0 writes the dynamic
+// scale. Other rows take ln_quant_kernel, one warp a row in 2-byte (or
+// 4-byte) slots j = lane + 32k, the wrapper's "/scalar" route.
 
 constexpr int LNQ_WARPS = 8;
 constexpr int LNQ_PER = 32;  // E <= 1024
@@ -89,6 +99,89 @@ __global__ void __launch_bounds__(LNQ_WARPS * 32) ln_quant_kernel(
   for (int k = 0; k < LNQ_PER; ++k) {
     const int j = lane + 32 * k;
     if (j < E) o[j] = round_clip_int8(__fmul_rn(v[k], inv));
+  }
+}
+
+// four int8 values round(y * inv) clipped to +-127, packed little-endian
+__device__ __forceinline__ unsigned quant_pack4(const float* y, float inv) {
+  unsigned w = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w |= (unsigned)(uint8_t)round_clip_int8(__fmul_rn(y[i], inv)) << (8 * i);
+  return w;
+}
+
+// CPL chunks a lane, E = 32 * CPL * V: every lane holds CPL chunks
+template <typename T, int CPL, bool DYN, bool AFFINE>
+__global__ void __launch_bounds__(LNQ_WARPS * 32) ln_quant_vec_kernel(
+    const T* __restrict__ x, const float* __restrict__ g, const float* __restrict__ b,
+    const float* __restrict__ inv_p, int8_t* __restrict__ out, float* __restrict__ scale,
+    int M) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int E = 32 * CPL * V;
+  const int lane = threadIdx.x & 31;
+  bool live[CPL];
+  float ga[AFFINE ? CPL : 1][V], ba[AFFINE ? CPL : 1][V];
+  uint4 cur[CPL], nxt[CPL];
+#pragma unroll
+  for (int k = 0; k < CPL; ++k) {
+    live[k] = true;
+    cur[k] = nxt[k] = make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (AFFINE) {
+      const int c = lane + 32 * k;
+#pragma unroll
+      for (int i = 0; i < V / 4; ++i) {
+        lnv_unpack(reinterpret_cast<const uint4*>(g)[c * (V / 4) + i],
+                   *reinterpret_cast<float(*)[4]>(&ga[k][4 * i]));
+        lnv_unpack(reinterpret_cast<const uint4*>(b)[c * (V / 4) + i],
+                   *reinterpret_cast<float(*)[4]>(&ba[k][4 * i]));
+      }
+    }
+  }
+  const float inv_static = DYN ? 0.0f : *inv_p;
+  const long long stride = (long long)gridDim.x * LNQ_WARPS;
+  long long row = (long long)blockIdx.x * LNQ_WARPS + (threadIdx.x >> 5);
+  auto load = [&](uint4 (&r)[CPL], long long at) {
+    const uint4* src = reinterpret_cast<const uint4*>(x + at * E);
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) r[k] = src[lane + 32 * k];
+  };
+  if (row < M) load(cur, row);
+  for (; row < M; row += stride) {
+    if (row + stride < M) load(nxt, row + stride);
+    float v[CPL][V];
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) lnv_unpack(cur[k], v[k]);
+    const float2 st = ln_vec_stats<CPL, V>(v, live, E);
+    float amax = 0.0f;
+#pragma unroll
+    for (int k = 0; k < CPL; ++k)
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        float y = __fmul_rn(__fsub_rn(v[k][i], st.x), st.y);
+        if constexpr (AFFINE) y = __fadd_rn(__fmul_rn(y, ga[k][i]), ba[k][i]);
+        v[k][i] = y;
+        if constexpr (DYN) amax = fmaxf(amax, fabsf(y));
+      }
+    float inv = inv_static;
+    if constexpr (DYN) {
+      amax = fmaxf(warp_max(amax), 1e-8f);
+      inv = __fdiv_rn(127.0f, amax);
+      if (lane == 0) scale[row] = __fmul_rn(amax, 1.0f / 127.0f);
+    }
+    int8_t* o = out + row * E;
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      const int c = lane + 32 * k;
+      if constexpr (V == 8) {
+        reinterpret_cast<uint2*>(o)[c] =
+            make_uint2(quant_pack4(&v[k][0], inv), quant_pack4(&v[k][4], inv));
+      } else {
+        reinterpret_cast<unsigned*>(o)[c] = quant_pack4(&v[k][0], inv);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) cur[k] = nxt[k];
   }
 }
 
@@ -360,9 +453,46 @@ extern "C" int jcf_cls_attention(const void* q, const void* kv, const void* ctx_
                  : launch_cls<false, false>(q_, kv_, ci, sh, out, n_crops, S, H, scale, st);
 }
 
+// the vector kernel's grid: as many blocks as fit on the card at once (the
+// occupancy of this instance, cached), fewer where M needs fewer
+template <typename T, int CPL, bool DYN, bool AFFINE>
+static int launch_ln_quant_vec(const void* x, const void* g, const void* b, const void* inv,
+                               void* out, void* scale, int M, cudaStream_t stream) {
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, ln_quant_vec_kernel<T, CPL, DYN, AFFINE>, LNQ_WARPS * 32, 0);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long need = ((long long)M + LNQ_WARPS - 1) / LNQ_WARPS;
+  const unsigned blocks = (unsigned)(need < (long long)sms * per_sm ? need : (long long)sms * per_sm);
+  ln_quant_vec_kernel<T, CPL, DYN, AFFINE><<<blocks, LNQ_WARPS * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(g), static_cast<const float*>(b),
+      static_cast<const float*>(inv), static_cast<int8_t*>(out), static_cast<float*>(scale), M);
+  return (int)cudaGetLastError();
+}
+
+// vec: the vector kernel at E = 512 or 768 (x, out, g and b 16-byte
+// aligned), else the scalar one
 template <typename T, bool DYN, bool AFFINE>
 static int launch_ln_quant(const void* x, const void* g, const void* b, const void* inv,
-                           void* out, void* scale, int M, int E, cudaStream_t stream) {
+                           void* out, void* scale, int M, int E, int vec, cudaStream_t stream) {
+  if (vec) {
+    constexpr int LANE_ROW = 32 * 16 / (int)sizeof(T);  // elements of one chunk on every lane
+    if (M < 1 || ((uintptr_t)x | (uintptr_t)out | (uintptr_t)g | (uintptr_t)b) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    if (E == 512)
+      return launch_ln_quant_vec<T, 512 / LANE_ROW, DYN, AFFINE>(x, g, b, inv, out, scale, M,
+                                                                 stream);
+    if (E == 768)
+      return launch_ln_quant_vec<T, 768 / LANE_ROW, DYN, AFFINE>(x, g, b, inv, out, scale, M,
+                                                                 stream);
+    return (int)cudaErrorInvalidValue;
+  }
   const unsigned blocks = (unsigned)((M + LNQ_WARPS - 1) / LNQ_WARPS);
   ln_quant_kernel<T, DYN, AFFINE><<<blocks, LNQ_WARPS * 32, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(g), static_cast<const float*>(b),
@@ -372,22 +502,25 @@ static int launch_ln_quant(const void* x, const void* g, const void* b, const vo
 
 template <typename T>
 static int dispatch_ln_quant(const void* x, const void* g, const void* b, const void* inv,
-                             void* out, void* scale, int M, int E, cudaStream_t st) {
+                             void* out, void* scale, int M, int E, int vec, cudaStream_t st) {
   if (g != nullptr)
-    return launch_ln_quant<T, true, true>(x, g, b, nullptr, out, scale, M, E, st);
-  if (inv == nullptr) return launch_ln_quant<T, true, false>(x, g, b, nullptr, out, scale, M, E, st);
-  return launch_ln_quant<T, false, false>(x, g, b, inv, out, nullptr, M, E, st);
+    return launch_ln_quant<T, true, true>(x, g, b, nullptr, out, scale, M, E, vec, st);
+  if (inv == nullptr)
+    return launch_ln_quant<T, true, false>(x, g, b, nullptr, out, scale, M, E, vec, st);
+  return launch_ln_quant<T, false, false>(x, g, b, inv, out, nullptr, M, E, vec, st);
 }
 
 // g, b null: the z-norm alone (the folded tree); else the f32 LN affine,
 // dynamic only. inv null: the dynamic variant, writing each row's scale
-// to scale[M]. f32: f32 rows, else bf16
+// to scale[M]. f32: f32 rows, else bf16. vec: the vector kernel (E 512 or
+// 768, 16-byte aligned tensors), else the scalar one
 extern "C" int jcf_ln_quant(const void* x, const void* g, const void* b, const void* inv,
-                            void* out, void* scale, int M, int E, int f32, void* stream) {
+                            void* out, void* scale, int M, int E, int f32, int vec,
+                            void* stream) {
   if (E < 1 || E > 32 * LNQ_PER || (g != nullptr && inv != nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return f32 ? dispatch_ln_quant<float>(x, g, b, inv, out, scale, M, E, st)
-             : dispatch_ln_quant<bf16>(x, g, b, inv, out, scale, M, E, st);
+  return f32 ? dispatch_ln_quant<float>(x, g, b, inv, out, scale, M, E, vec, st)
+             : dispatch_ln_quant<bf16>(x, g, b, inv, out, scale, M, E, vec, st);
 }
 
 extern "C" int jcf_quant_rows(const void* x, void* out, void* scale, int M, int N, int gelu,

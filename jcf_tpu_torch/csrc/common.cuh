@@ -155,3 +155,51 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+
+// a 16-byte chunk as 4 f32 or 8 bf16 values (the LayerNorm row kernels' loads)
+__device__ __forceinline__ void lnv_unpack(const uint4& r, float (&f)[4]) {
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
+}
+
+__device__ __forceinline__ void lnv_unpack(const uint4& r, float (&f)[8]) {
+  const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+
+// Row statistics of a LayerNorm row held by a warp in 16-byte chunks c =
+// lane + 32k (the vector row kernels): a lane sums its chunks' f32
+// values in order (chunk k, then element), the warp adds the lanes' sums
+// by the xor butterfly; then the same for the squared deviations from
+// the mean. Returns (mean, rstd) with var = mean((x - mean)^2), as
+// warp_row_stats.
+template <int CPL, int V>
+__device__ __forceinline__ float2 ln_vec_stats(const float (&v)[CPL][V], const bool (&live)[CPL],
+                                               int n) {
+  float s = 0.0f;
+#pragma unroll
+  for (int k = 0; k < CPL; ++k)
+    if (live[k]) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) s += v[k][i];
+    }
+  const float mean = warp_sum(s) / (float)n;
+  float q = 0.0f;
+#pragma unroll
+  for (int k = 0; k < CPL; ++k)
+    if (live[k]) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float d = v[k][i] - mean;
+        q = fmaf(d, d, q);
+      }
+    }
+  const float var = warp_sum(q) / (float)n;
+  return make_float2(mean, rsqrtf(var + 1e-5f));
+}

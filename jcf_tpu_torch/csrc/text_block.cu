@@ -66,24 +66,7 @@ __global__ void __launch_bounds__(LNA_WARPS * 32) ln_affine_kernel(
   }
 }
 
-// a 16-byte chunk as 4 f32 or 8 bf16 values, and back (round to nearest
-// even)
-__device__ __forceinline__ void lnv_unpack(const uint4& r, float (&f)[4]) {
-  f[0] = __uint_as_float(r.x);
-  f[1] = __uint_as_float(r.y);
-  f[2] = __uint_as_float(r.z);
-  f[3] = __uint_as_float(r.w);
-}
-
-__device__ __forceinline__ void lnv_unpack(const uint4& r, float (&f)[8]) {
-  const unsigned w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
-  }
-}
-
+// a chunk's values back to 16 bytes of f32 or bf16 (round to nearest even)
 __device__ __forceinline__ uint4 lnv_pack(const float (&f)[4]) {
   return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
                     __float_as_uint(f[3]));
@@ -97,36 +80,6 @@ __device__ __forceinline__ uint4 lnv_pack(const float (&f)[8]) {
     w[i] = *reinterpret_cast<const unsigned*>(&h);
   }
   return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// Row statistics of the vector kernel's row: a lane sums its chunks' f32
-// values in order (chunk k, then element), the warp adds the lanes' sums
-// by the xor butterfly; then the same for the squared deviations from
-// the mean. Returns (mean, rstd) with var = mean((x - mean)^2), as
-// warp_row_stats.
-template <int CPL, int V>
-__device__ __forceinline__ float2 ln_vec_stats(const float (&v)[CPL][V], const bool (&live)[CPL],
-                                               int n) {
-  float s = 0.0f;
-#pragma unroll
-  for (int k = 0; k < CPL; ++k)
-    if (live[k]) {
-#pragma unroll
-      for (int i = 0; i < V; ++i) s += v[k][i];
-    }
-  const float mean = warp_sum(s) / (float)n;
-  float q = 0.0f;
-#pragma unroll
-  for (int k = 0; k < CPL; ++k)
-    if (live[k]) {
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        const float d = v[k][i] - mean;
-        q = fmaf(d, d, q);
-      }
-    }
-  const float var = warp_sum(q) / (float)n;
-  return make_float2(mean, rsqrtf(var + 1e-5f));
 }
 
 // CPL chunks a lane; FIXED_E > 0: E = FIXED_E = 32 * CPL * V (every lane

@@ -5,8 +5,8 @@ TPU, in the configuration it ships there (``_CLS_ATTNQ = True``), for
 towers under 128 tokens (ViT-B/32's 50, or 82 at 288²):
 
   source images [B, 3, H, W] bf16 + crop geometry (center + random views)
-  -> K1 int8 views [B, N, 3, res, res]          (ops.view_kernel)
-  -> im2col (a permute) + int8 GEMM -> int32    (ops.int8_gemm)
+  -> K1 int8 views as patch rows [B' * G², 3p²] (ops.view_kernel)
+  -> int8 GEMM -> int32                         (ops.int8_gemm)
   -> K2 flat bf16 rows [B' * S, E]              (ops.assemble_kernel)
   -> int8 tower, K3/K4 per layer; the last layer's attention half K5 on
      the CLS rows (S <= 64) or K3 on all rows (65 to 127 tokens), then
@@ -232,10 +232,11 @@ class TTAEngine:
             tokens = torch.matmul(cols, self._w_embed.float().T) + self._b_embed
             feats = encode_image_tokens(self._params, cfg, tokens, dtype=self.dtype)
         else:
-            views = fused_views_nchw(images, cy, cx, inv, res, quantize=True)
-            # im2col: patch rows [B' * G², 3 * p * p] in the weight's (c, py, px) order
-            cols = _patchify(views.reshape(b * n, 3, res, res), p).reshape(-1, 3 * p * p)
-            acc = int8_gemm_s32(cols.contiguous(), self._k_q)
+            # K1 writes the int8 pixels straight into the patch embed's rows
+            # [B' * G², 3 * p * p] in the weight's (c, py, px) order (the
+            # JAX kernel's py_split emission): no im2col copy
+            cols = fused_views_nchw(images, cy, cx, inv, res, quantize=True, patch=p)
+            acc = int8_gemm_s32(cols, self._k_q)
             g = cfg.grid_size
             if cfg.vision_seq_len >= BLOCKED_MIN_SEQ or not self._assembled:
                 # tokens acc * k_scale + k_bias in f32, then CLS, positions

@@ -153,9 +153,14 @@ MASKED_KERNELS = ("masked_attention", "masked_attention_f32", "causal_attention"
                   "head_attention")
 PAIRED_KERNELS = ("attention", "attention_f32", "attention_scaled", "attention_scaled_f32")
 LAUNCHES.update({f"{k}/{r}": 0 for k in MASKED_KERNELS + PAIRED_KERNELS for r in ROUTES})
-# the LayerNorm rows off the vector kernel (a width not a multiple of 16
-# bytes, or a misaligned tensor) also by that route
-LAUNCHES.update({"ln_affine/scalar": 0, "ln_affine_f32/scalar": 0})
+# the LayerNorm rows off the vector kernel (``ln_affine``: a width not a
+# multiple of 16 bytes, or a misaligned tensor; the LN + quant kernel: a
+# width other than 512 or 768, or a misaligned tensor) also by that route
+LN_QUANT_KERNELS = ("ln_quant", "ln_quant_rows", "ln_quant_f32", "ln_quant_rows_f32",
+                    "ln_affine_quant_rows", "ln_affine_quant_rows_f32")
+LAUNCHES.update({f"{k}/scalar": 0 for k in ("ln_affine", "ln_affine_f32") + LN_QUANT_KERNELS})
+# the LN + quant kernel's vector instances
+LN_QUANT_VEC_WIDTHS = (512, 768)
 # the float kernels' variants by dtype: the launch count's suffix and the
 # C entries' f32 flag
 _FLOAT = {torch.bfloat16: ("", 0), torch.float32: ("_f32", 1)}
@@ -233,7 +238,9 @@ def _scalar(name: str, t, device) -> None:
 def _ln_quant_launch(x: torch.Tensor, inv, affine=None):
     """The LN + quant kernel on rows x [M, E] (bf16 or f32): the z-norm
     with the static ``inv`` or per row, or, given ``affine`` (scale,
-    bias [E]), the LN with its affine in f32, per row."""
+    bias [E]), the LN with its affine in f32, per row. Rows of width 512
+    or 768 on 16-byte aligned tensors take the vector kernel; others the
+    scalar kernel, which also counts ``LAUNCHES["<name>/scalar"]``."""
     m, e = x.shape
     if x.dtype not in _FLOAT or e > 1024:
         raise ValueError(f"ln_quant kernel takes bf16 or f32 rows with E <= 1024, got {x.dtype} "
@@ -252,12 +259,16 @@ def _ln_quant_launch(x: torch.Tensor, inv, affine=None):
     name = ("ln_affine_quant_rows" if affine is not None
             else "ln_quant" if inv is not None else "ln_quant_rows") + suffix
     g, b = affine if affine is not None else (None, None)
+    aligned = (x, out) + (tuple(affine) if affine is not None else ())
+    vec = e in LN_QUANT_VEC_WIDTHS and m > 0 and all(t.data_ptr() % 16 == 0 for t in aligned)
     lib = _build.load()
     err = lib.jcf_ln_quant(x.data_ptr(), *(t.data_ptr() if t is not None else None
                                            for t in (g, b, inv, out, scale)),
-                           m, e, f32, _build.stream_ptr(x.device))
+                           m, e, f32, int(vec), _build.stream_ptr(x.device))
     _build.check(err, name)
     LAUNCHES[name] += 1
+    if not vec:
+        LAUNCHES[name + "/scalar"] += 1
     return out, scale
 
 

@@ -4,8 +4,11 @@
 bilinear with antialiasing, flips folded into mirrored column centers)
 and emits int8 pixels ``round(v * 254 - 127)`` for the int8 patch embed
 (``quantize=True``), or the views in the images' dtype, bf16 or f32 (the
-float engines'). On a CUDA tensor it launches the hand-written kernel in
-``csrc/view.cu``; on a CPU tensor it runs ``fused_views_nchw_plain``.
+float engines'). With ``patch=p`` the int8 pixels come as the patch
+embed's im2col rows (``models.clip._patchify``'s layout, the JAX
+kernel's ``py_split`` emission), which the int8 GEMM reads as they are.
+On a CUDA tensor it launches the hand-written kernel in ``csrc/view.cu``;
+on a CPU tensor it runs ``fused_views_nchw_plain``.
 
 ``sample_view_centers`` draws the crop geometry with a ``torch.Generator``
 (the same box distribution as the JAX sampler; the random numbers differ,
@@ -15,15 +18,17 @@ so tests feed both sides the same geometry).
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from jcf_tpu_torch import _build
+from jcf_tpu_torch.models.clip import _patchify
 
 # launches of the view kernel (fused_views_nchw on CUDA tensors): int8
-# pixels, bf16 and f32 views
-LAUNCHES = {"view": 0, "view_bf16": 0, "view_f32": 0}
+# pixels, bf16 and f32 views; the int8 pixels emitted as patch rows also
+# as "view/patch"
+LAUNCHES = {"view": 0, "view_bf16": 0, "view_f32": 0, "view/patch": 0}
 # the kernel's modes by (image dtype, quantize) -> (C entry mode, count)
 _MODES = {(torch.bfloat16, True): (0, "view"), (torch.bfloat16, False): (1, "view_bf16"),
           (torch.float32, False): (2, "view_f32")}
@@ -46,11 +51,18 @@ def _triangle(centers, inv, n_src, transposed):
     return w * (1.0 / denom)
 
 
-def fused_views_nchw_plain(images, cy, cx, inv, out_size: int, *, quantize: bool = False):
+def fused_views_nchw_plain(images, cy, cx, inv, out_size: int, *, quantize: bool = False,
+                           patch: Optional[int] = None):
     """Plain version of K1. images [B, C, H, W]; cy, cx [B, V, out] f32;
     inv [B, V, 2] f32 -> [B, V, C, out, out] in images.dtype, or int8 with
     ``quantize``. Weights and the row-resampled intermediate are cast to
-    images.dtype; both products accumulate in f32."""
+    images.dtype; both products accumulate in f32. ``patch=p``: those
+    views as patch rows [B * V * G², C * p * p] (``_patchify``)."""
+    if patch is not None:
+        views = fused_views_nchw_plain(images, cy, cx, inv, out_size, quantize=quantize)
+        b, v, c = views.shape[:3]
+        return _patchify(views.reshape(b * v, c, out_size, out_size), patch).reshape(
+            -1, c * patch * patch)
     b, c, h, w = images.shape
     dt = images.dtype
     wy = _triangle(cy, inv[..., 0], h, False).to(dt).float()  # [B, V, out, H]
@@ -66,12 +78,20 @@ def fused_views_nchw_plain(images, cy, cx, inv, out_size: int, *, quantize: bool
     return view.to(dt)
 
 
-def fused_views_nchw(images, cy, cx, inv, out_size: int, *, quantize: bool = False):
+def fused_views_nchw(images, cy, cx, inv, out_size: int, *, quantize: bool = False,
+                     patch: Optional[int] = None):
     """K1 wrapper -> views [B, V, C, out, out]: int8 pixels with
     ``quantize`` (bf16 images), else in the images' dtype (bf16 or f32).
-    The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    ``patch=p`` (with ``quantize``; ``out`` a multiple of p): the int8
+    pixels as the patch embed's rows [B * V * G², C * p * p], G = out / p,
+    in ``_patchify``'s (c, py, px) order. The CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if patch is not None and (not quantize or patch < 1 or out_size % patch):
+        raise ValueError(f"patch rows take int8 pixels and a view side {out_size} that is a "
+                         f"multiple of the patch, got patch={patch} with quantize={quantize}")
     if not images.is_cuda:
-        return fused_views_nchw_plain(images, cy, cx, inv, out_size, quantize=quantize)
+        return fused_views_nchw_plain(images, cy, cx, inv, out_size, quantize=quantize,
+                                      patch=patch)
     b, c, h, w = images.shape
     n_views = cy.shape[1]
     if (images.dtype, quantize) not in _MODES:
@@ -86,14 +106,17 @@ def fused_views_nchw(images, cy, cx, inv, out_size: int, *, quantize: bool = Fal
     if w > 768:
         raise ValueError(f"view kernel supports source width <= 768, got {w}")
     images, cy, cx, inv = (t.contiguous() for t in (images, cy, cx, inv))
-    out = torch.empty((b, n_views, c, out_size, out_size),
-                      dtype=torch.int8 if quantize else images.dtype, device=images.device)
+    shape = ((b, n_views, c, out_size, out_size) if patch is None
+             else (b * n_views * (out_size // patch) ** 2, c * patch * patch))
+    out = torch.empty(shape, dtype=torch.int8 if quantize else images.dtype, device=images.device)
     lib = _build.load()
     err = lib.jcf_view(images.data_ptr(), cy.data_ptr(), cx.data_ptr(), inv.data_ptr(),
-                       out.data_ptr(), b, c, h, w, n_views, out_size, mode,
+                       out.data_ptr(), b, c, h, w, n_views, out_size, mode, patch or 0,
                        _build.stream_ptr(images.device))
     _build.check(err, name)
     LAUNCHES[name] += 1
+    if patch is not None:
+        LAUNCHES["view/patch"] += 1
     return out
 
 

@@ -613,7 +613,7 @@ def test_b16_int8_engine_launches_and_matches_plain(cuda):
         images.to(cuda), text.to(cuda), geometry=tuple(t.to(cuda) for t in geometry))
     torch.cuda.synchronize()
     launches = {k: v for c in counters for k, v in c.items() if v}
-    assert launches == {"view": 1, "int8_gemm_s32": 1, "blocked_attention": 2,
+    assert launches == {"view": 1, "view/patch": 1, "int8_gemm_s32": 1, "blocked_attention": 2,
                         "int8_gemm_rowscale": 8}, launches
     ref = cpu.features_from_images(images, text, geometry=geometry)
     cos = torch.nn.functional.cosine_similarity(got.cpu(), ref)
@@ -800,8 +800,10 @@ def test_row_quant_kernels(cuda, m, e):
             (bk.quant_rows(x, gelu=True), bk.gelu_quant_rows_plain(x))):
         _int8_close(q, q_ref, 1e-3)
         assert bool(((s - s_ref).abs() <= 1e-6 * s_ref.abs()).all())
+    # the LN rows 128 wide take the LN + quant kernel's scalar route
+    scalar = {"ln_quant_rows/scalar": 1} if xb.shape[1] not in bk.LN_QUANT_VEC_WIDTHS else {}
     assert {k: bk.LAUNCHES[k] - before[k] for k in before if bk.LAUNCHES[k] != before[k]} == {
-        "ln_quant_rows": 1, "quant_rows": 1, "gelu_quant_rows": 1}
+        "ln_quant_rows": 1, "quant_rows": 1, "gelu_quant_rows": 1, **scalar}
 
 
 @pytest.mark.parametrize("m,n,k", [(200, 72, 96), (77, 2304, 768), (130, 768, 3072)])
@@ -1256,8 +1258,10 @@ def test_ln_affine_quant_rows_kernel(cuda, m, e, dtype):
     inv = torch.tensor([[20.0]], device=cuda)
     _int8_close(bk.ln_quant(x, inv), bk.ln_quant_plain(x, inv), 1e-3)
     sfx = "_f32" if dtype == torch.float32 else ""
-    assert _launched(before) == {f"ln_affine_quant_rows{sfx}": 1, f"ln_quant_rows{sfx}": 1,
-                                 f"ln_quant{sfx}": 1}
+    names = [f"ln_affine_quant_rows{sfx}", f"ln_quant_rows{sfx}", f"ln_quant{sfx}"]
+    # rows of another width than 512 or 768 take the scalar route
+    routes = [] if e in bk.LN_QUANT_VEC_WIDTHS else [n + "/scalar" for n in names]
+    assert _launched(before) == dict.fromkeys(names + routes, 1)
 
 
 @pytest.mark.parametrize("s", [17, 50, 64, 77, 127, 128])
@@ -1575,3 +1579,129 @@ def test_patch_regroup_kernels(cuda, dtype, n, side, patch):
     ref = p2.patch_regroup_plain(x, patch)
     for s in p2.STRATEGIES:
         assert torch.equal(p2.patch_regroup(x, s, patch), ref), s
+
+
+# ---------------------------------------------------------------------------
+# K1's band kernel in both layouts, and the LN + int8 quant row kernel's
+# vector and scalar routes
+# ---------------------------------------------------------------------------
+
+# (source H, W, view side, patch): the serving cell (256² -> 224, p = 32),
+# ViT-B/16's p = 16, 288² from 329² sources (rows of 658 bytes: the narrow
+# loads), a width off 8 (75), a 768-wide source (views of up to 7 taps) and
+# a 32² view of a 256² source (past the unrolled taps: the general instance)
+VIEW_SHAPES = [(256, 256, 224, 32), (256, 256, 224, 16), (329, 329, 288, 32), (80, 75, 48, 16),
+               (768, 768, 224, 32), (256, 256, 32, 16)]
+
+
+@pytest.mark.parametrize("h,w,out,p", VIEW_SHAPES)
+def test_view_kernel_layouts(cuda, h, w, out, p):
+    """K1's three modes vs their plain versions (int8 off by one on <= 0.5%,
+    bf16 1 ulp + 1e-3, f32 1e-5 + 1e-5 |ref|); the int8 patch rows equal to
+    ``_patchify`` of the kernel's own NCHW views bit for bit, and to the
+    plain patch rows at the int8 bar."""
+    from jcf_tpu_torch.models.clip import _patchify
+
+    gen = torch.Generator(device=cuda).manual_seed(h + w + out + p)
+    b, n = 3, 4
+    img = torch.rand(b, 3, h, w, device=cuda, generator=gen)
+    img_bf = img.bfloat16()
+    geo = vk.sample_view_centers(gen, b, n, (h, w), out)
+    before = dict(vk.LAUNCHES)
+    views = vk.fused_views_nchw(img_bf, *geo, out, quantize=True)
+    rows = vk.fused_views_nchw(img_bf, *geo, out, quantize=True, patch=p)
+    _int8_close(views, vk.fused_views_nchw_plain(img_bf, *geo, out, quantize=True), 5e-3)
+    assert rows.shape == (b * n * (out // p) ** 2, 3 * p * p) and rows.is_contiguous()
+    assert torch.equal(rows, _patchify(views.reshape(b * n, 3, out, out), p).reshape(rows.shape))
+    _int8_close(rows, vk.fused_views_nchw_plain(img_bf, *geo, out, quantize=True, patch=p), 5e-3)
+    _bf16_close(vk.fused_views_nchw(img_bf, *geo, out),
+                vk.fused_views_nchw_plain(img_bf, *geo, out))
+    _f32_close(vk.fused_views_nchw(img, *geo, out), vk.fused_views_nchw_plain(img, *geo, out))
+    assert {k: vk.LAUNCHES[k] - before[k] for k in before} == {
+        "view": 2, "view/patch": 1, "view_bf16": 1, "view_f32": 1}
+
+
+def test_view_kernel_refuses_patch_rows_it_cannot_write(cuda):
+    img = torch.rand(1, 3, 64, 64, device=cuda)
+    geo = vk.sample_view_centers(torch.Generator(device=cuda).manual_seed(0), 1, 2, (64, 64), 48)
+    before = dict(vk.LAUNCHES)
+    with pytest.raises(ValueError):  # float views: patch rows are int8 only
+        vk.fused_views_nchw(img, *geo, 48, patch=16)
+    with pytest.raises(ValueError):  # 48 is not a multiple of 32
+        vk.fused_views_nchw(img.bfloat16(), *geo, 48, quantize=True, patch=32)
+    assert vk.LAUNCHES == before
+
+
+def _ln_quant_rows_input(m, e, dtype, device, seed):
+    """``_ln_rows_input`` with each offset row's largest deviation pair made
+    an odd number of steps: its z-norm is k times one number for integers
+    k, and a dynamic scale maps k to 127 k / k_max, which for an even k_max
+    puts the values at k_max / 2 on exact rounding ties that any f32 order
+    sends either way (``tests/test_torch_ln_quant_rows.py``)."""
+    x, scale, bias = _ln_rows_input(m, e, dtype, "cpu", seed)
+    step = 1 / 128 if dtype == torch.float32 else 1 / 2
+    for i in range(1, m, 3):
+        k = torch.round((x[i].double() - 100) / step)
+        k_max = float(k.abs().max())
+        if k_max % 2 == 0:
+            for sign in (1, -1):
+                x[i, int((k == sign * k_max).nonzero()[0])] = 100 + sign * (k_max + 1) * step
+    return tuple(t.to(device) for t in (x, scale, bias))
+
+
+def _ln_quant_call(kind, x, scale, bias):
+    """(launch-count name, kernel, plain) of the LN + quant kernel's
+    instance ``kind``: "static" (the z-norm, a calibrated scale), "dynamic"
+    (per-row scales) or "affine" (the f32 LN affine, per-row scales)."""
+    sfx = "" if x.dtype == torch.bfloat16 else "_f32"
+    if kind == "static":
+        inv = torch.tensor([[127.0 / 4.5]], device=x.device)
+        return "ln_quant" + sfx, (bk.ln_quant(x, inv), None), (bk.ln_quant_plain(x, inv), None)
+    if kind == "dynamic":
+        return "ln_quant_rows" + sfx, bk.ln_quant_rows(x), bk.ln_quant_rows_plain(x)
+    g, b = scale.float(), bias.float()
+    return ("ln_affine_quant_rows" + sfx, bk.ln_affine_quant_rows(x, g, b),
+            bk.ln_affine_quant_rows_plain(x, g, b))
+
+
+def _ln_quant_close(got, ref):
+    """int8 within 1 on <= 1e-3 of the elements, scales within 1e-6
+    relative."""
+    (q, sc), (q_ref, sc_ref) = got, ref
+    _int8_close(q, q_ref, 1e-3)
+    if sc_ref is not None:
+        assert bool(((sc - sc_ref).abs() <= 1e-6 * sc_ref.abs()).all())
+
+
+@pytest.mark.parametrize("kind", ["static", "dynamic", "affine"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("e", [512, 768])
+@pytest.mark.parametrize("m", LN_ROWS)
+def test_ln_quant_vector_kernel(cuda, kind, dtype, e, m):
+    """The vector instances (E 512 and 768, bf16 and f32 rows; the offset
+    rows of ``_ln_rows_input``, where a one-pass variance fails) vs the
+    plain versions, counted on the vector route."""
+    x, scale, bias = _ln_quant_rows_input(m, e, dtype, cuda, seed=m + e)
+    before = dict(bk.LAUNCHES)
+    name, got, ref = _ln_quant_call(kind, x, scale, bias)
+    _ln_quant_close(got, ref)
+    assert _launched(before) == {name: 1}
+
+
+@pytest.mark.parametrize("kind", ["static", "dynamic", "affine"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("e,misaligned", [(192, False), (1023, False), (768, True)])
+def test_ln_quant_scalar_route(cuda, kind, dtype, e, misaligned):
+    """Rows off the vector instances (another width, or rows one element
+    off 16-byte alignment) take the scalar kernel and count its route."""
+    m = 700
+    x, scale, bias = _ln_quant_rows_input(m, e, dtype, cuda, seed=e)
+    if misaligned:
+        buf = torch.empty(m * e + 1, dtype=dtype, device=cuda)
+        buf[1:].copy_(x.reshape(-1))
+        x = buf[1:].view(m, e)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    before = dict(bk.LAUNCHES)
+    name, got, ref = _ln_quant_call(kind, x, scale, bias)
+    _ln_quant_close(got, ref)
+    assert _launched(before) == {name: 1, name + "/scalar": 1}

@@ -19,7 +19,8 @@ the TPU probes in ``scripts/``, whose kernels run through
   int8, against the port's plain regroup and the script's numpy check,
   bit for bit.
 - Each script's ``main`` on the CPU at a small size (also the A/B
-  scripts ``ab_attention``, ``ab_gemm`` and ``ab_rows``, run as files),
+  scripts ``ab_attention``, ``ab_gemm``, ``ab_rows`` and ``ab_views``, run
+  as files),
   and the port's modules free of JAX and ``jcf_tpu``.
 """
 
@@ -386,6 +387,40 @@ def test_ab_rows_runs_as_a_file_on_the_cpu():
     assert len(set(shas[:4])) == 1 and len(set(shas[4:])) == 1
 
 
+_AB_VIEWS_LABELS = [f"{k}, {tag}" for tag in ("1 x 8 views of 256² into 224²",
+                                               "1 x 8 views of 329² into 288²")
+                    for k in ("view int8 NCHW", "view int8 NCHW + im2col copy (p 32)",
+                              "view int8 patch rows (p 32)", "view bf16 NCHW", "view f32 NCHW")
+                    if "329" not in tag or "int8" in k]
+_AB_VIEWS_LABELS += [f"{k} {tag}" for tag in ("bf16, 16 x 768", "f32, 39424 x 512")
+                     for k in ("ln_quant (static)", "ln_quant_rows (dynamic)",
+                               "ln_affine_quant_rows")]
+
+
+def test_ab_views_runs_as_a_file_on_the_cpu():
+    """K1's and the LN + quant rows' A/B script as the card runs it (a
+    file, the checkout's root as ROOT), at one image and 16 vision rows on
+    the CPU: the device line, the package, then one line a launch with the
+    SHA-256 of its output; the patch rows share theirs with the NCHW views
+    + the im2col copy in both cells."""
+    script = ROOT / "jcf_tpu_torch" / "scripts" / "ab_views.py"
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, str(script), str(ROOT), "--device", "cpu", "--batch",
+                          "1", "--rows", "16", "--rounds", "1", "--reps", "1"],
+                         cwd=ROOT / "tests", env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("device: cpu")
+    assert lines[1] == f"package: {ROOT / 'jcf_tpu_torch'}"
+    assert [line.split(":")[0] for line in lines[2:]] == _AB_VIEWS_LABELS
+    assert all("(1 x 1), sha256 " in line for line in lines[2:])
+    sha = {line.split(":")[0]: line.rsplit(" ", 1)[1] for line in lines[2:]}
+    for tag in ("1 x 8 views of 256² into 224²", "1 x 8 views of 329² into 288²"):
+        assert (sha[f"view int8 patch rows (p 32), {tag}"]
+                == sha[f"view int8 NCHW + im2col copy (p 32), {tag}"])
+
+
 def test_no_module_of_the_port_imports_jax():
     """Every module of ``jcf_tpu_torch``, ``chip_smoke.py`` and the root
     ``profile_*.py`` scripts (the port's) import neither JAX nor
@@ -395,7 +430,7 @@ def test_no_module_of_the_port_imports_jax():
     sources = (sorted((ROOT / "jcf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
                + sorted(ROOT.glob("profile_*.py")))
     assert {"exp_batched_dot.py", "exp_w4a8.py", "exp_patch_regroup.py", "ab_attention.py",
-            "ab_gemm.py", "ab_rows.py", "profile_k9.py"} <= {p.name for p in sources}
+            "ab_gemm.py", "ab_rows.py", "ab_views.py", "profile_k9.py"} <= {p.name for p in sources}
     for path in sources:
         assert not pattern.search(path.read_text()), path
 
@@ -404,12 +439,14 @@ _BLOCKED = """
 import sys
 sys.modules["jax"] = None
 sys.modules["jcf_tpu"] = None
-from jcf_tpu_torch.scripts import ab_rows, exp_batched_dot, exp_patch_regroup, exp_w4a8
+from jcf_tpu_torch.scripts import ab_rows, ab_views, exp_batched_dot, exp_patch_regroup, exp_w4a8
 assert exp_batched_dot.main(["--device", "cpu", "--grid", "1", "--group", "1", "--iters", "1"]) == 0
 assert exp_w4a8.main(["--device", "cpu", "--rows", "16", "--iters", "1"]) == 0
 assert exp_patch_regroup.main(["--device", "cpu", "--planes", "1", "--iters", "1"]) == 0
 assert ab_rows.main(["--device", "cpu", "--crops", "1", "--prompts", "1", "--planes", "1",
                      "--rounds", "1", "--reps", "1"]) == 0
+assert ab_views.main(["--device", "cpu", "--batch", "1", "--rows", "16", "--rounds", "1",
+                      "--reps", "1"]) == 0
 loaded = {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
 assert not loaded & {"jax", "jcf_tpu"}, loaded
 print("ok")

@@ -1,9 +1,11 @@
 """K1, the view kernel's plain version, vs the JAX Pallas kernel in
 interpret mode, on the same crop geometry: f32 views atol 2e-5; int8
 views |diff| <= 1 on at most 0.5% of pixels (f32 sums in another order
-can move a value across a rounding boundary). The centers built from
-boxes are equal, and the torch sampler keeps the reference's layout
-(center view first, flips mirrored)."""
+can move a value across a rounding boundary). The int8 patch rows
+(``patch=p``) against the JAX views through the JAX engine's im2col
+transpose at the same bar, and equal to ``_patchify`` of the NCHW views.
+The centers built from boxes are equal, and the torch sampler keeps the
+reference's layout (center view first, flips mirrored)."""
 
 import inspect
 
@@ -17,6 +19,7 @@ import torch
 from jcf_tpu.infer.engine import sample_tta_boxes as j_sample_tta_boxes
 from jcf_tpu.ops.view_kernel import fused_views_nchw as j_fused_views
 from jcf_tpu.ops.view_kernel import sample_view_centers as j_sample_view_centers
+from jcf_tpu_torch.models.clip import _patchify
 from jcf_tpu_torch.ops import view_kernel as tv
 
 torch.set_num_threads(1)
@@ -24,11 +27,28 @@ torch.set_num_threads(1)
 B, C, SRC, OUT, VIEWS = 4, 3, 72, 64, 4
 
 
-def _inputs(seed):
-    images = np.random.default_rng(seed).random((B, C, SRC, SRC)).astype(np.float32)
+def _inputs(seed, src=(SRC, SRC)):
+    images = np.random.default_rng(seed).random((B, C, *src)).astype(np.float32)
     cy, cx, inv = (np.array(a) for a in j_sample_view_centers(
-        jax.random.PRNGKey(seed), B, VIEWS, (SRC, SRC), OUT))
+        jax.random.PRNGKey(seed), B, VIEWS, src, OUT))
     return images, cy, cx, inv
+
+
+def _jax_patch_rows(images, cy, cx, inv, p):
+    """JAX int8 views of bf16 images, then the JAX engine's im2col
+    (``jcf_tpu/infer/engine.py:604-609``) -> [B * V * G², C * p * p]."""
+    views = np.asarray(j_fused_views(jnp.asarray(images).astype(jnp.bfloat16), jnp.asarray(cy),
+                                     jnp.asarray(cx), jnp.asarray(inv), OUT, interpret=True,
+                                     quantize=True))
+    g = OUT // p
+    return (views.reshape(B * VIEWS, C, g, p, g, p).transpose(0, 2, 4, 1, 3, 5)
+            .reshape(B * VIEWS * g * g, C * p * p))
+
+
+def _int8_close(got, ref):
+    d = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+    assert d.max() <= 1
+    assert (d > 0).mean() <= 5e-3, (d > 0).mean()
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -65,6 +85,38 @@ def test_plain_views_int8_match_jax(seed):
     d = np.abs(got.numpy().astype(np.int32) - ref.astype(np.int32))
     assert d.max() <= 1
     assert (d > 0).mean() <= 5e-3, (d > 0).mean()
+
+
+# (source H, W, patch): square sources at ViT-B/32's and ViT-B/16's
+# patch, and a width that is not a multiple of 8 (the kernel's narrow loads)
+@pytest.mark.parametrize("src,p", [((SRC, SRC), 32), ((SRC, SRC), 16), ((SRC, 75), 32),
+                                   ((67, 75), 16)])
+def test_plain_patch_rows_match_jax(src, p):
+    images, cy, cx, inv = _inputs(src[1] + p, src)
+    ref = _jax_patch_rows(images, cy, cx, inv, p)
+    got = tv.fused_views_nchw(torch.from_numpy(images).bfloat16(), torch.from_numpy(cy),
+                              torch.from_numpy(cx), torch.from_numpy(inv), OUT, quantize=True,
+                              patch=p)
+    assert got.dtype == torch.int8 and tuple(got.shape) == ref.shape and got.is_contiguous()
+    _int8_close(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("p", [32, 16])
+def test_patch_rows_equal_patchify_of_views(p):
+    images, cy, cx, inv = (torch.from_numpy(a) for a in _inputs(p, (SRC, 75)))
+    images = images.bfloat16()
+    views = tv.fused_views_nchw(images, cy, cx, inv, OUT, quantize=True)
+    rows = tv.fused_views_nchw(images, cy, cx, inv, OUT, quantize=True, patch=p)
+    assert torch.equal(rows, _patchify(views.reshape(B * VIEWS, C, OUT, OUT), p).reshape(
+        -1, C * p * p))
+
+
+def test_patch_rows_refused_off_their_layout():
+    images, cy, cx, inv = (torch.from_numpy(a) for a in _inputs(0))
+    with pytest.raises(ValueError):  # float views: patch rows are int8 only
+        tv.fused_views_nchw(images, cy, cx, inv, OUT, patch=16)
+    with pytest.raises(ValueError):  # 64 is not a multiple of 24
+        tv.fused_views_nchw(images.bfloat16(), cy, cx, inv, OUT, quantize=True, patch=24)
 
 
 def test_torch_sampler_layout():
