@@ -97,7 +97,11 @@
    instead), img/s; then the same engine under ``_FUSE`` = "block",
    "layer", "stream" (11 K9a or 11 K9d on the "long" branch, then the last
    layer's K3 + K4; or one K9c), each counted, on the fixed gates, the
-   kernel against its plain version at 2048 x 82, img/s.
+   kernel against its plain version at 2048 x 82, img/s. Phases 8, 10 (each
+   mode) and 10c fail if a row kernel left its vector route on ViT-B/32
+   (``check_no_scalar``: the row quantization ``quant_rows`` /
+   ``gelu_quant_rows``, K2 ``assemble`` and the LN row kernels launch 0
+   times on "/scalar").
 11. (after 10) the unquantized towers: the f32 engine of phase 7 against
    its route through the plain versions (per-view features cos >=
    0.99999, modes top-1 and top-5 >= 0.99) and img/s; its
@@ -2021,6 +2025,17 @@ def check_routes(label: str, launches: dict, want: dict) -> None:
                                  f"got {launches.get(name)} launches, {routes}")
 
 
+def check_no_scalar(label: str, launches: dict) -> None:
+    """Fails unless every row kernel of ``launches`` took its vector route:
+    no "<kernel>/scalar" launch (the row quantization, K2, the LN row
+    kernels), ViT-B/32's widths being those of the vector instances."""
+    scalar = {k: v for k, v in launches.items() if k.endswith("/scalar") and v}
+    rows = {k: launches.get(k, 0) for k in ("quant_rows", "gelu_quant_rows", "assemble")}
+    log(f"  {label}: row kernels {rows}, scalar-route launches {scalar}")
+    if scalar:
+        raise AssertionError(f"{label}: row kernels off their vector route: {scalar}")
+
+
 # the kernels counted by route beside their totals that the main paths
 # run on the tensor cores: K3's mask-free attention (``block_kernel.
 # PAIRED_KERNELS``) and K7's forward
@@ -2095,6 +2110,7 @@ def quant_modes_phase(params, images_np, images, geometry, text, modes_f, counte
             raise AssertionError(f"expected exactly the launches {expected}")
         check_routes(f"phase 10, {name}", launches[name],
                      {k: "mma" for k in ("attention", "attention_f32") if k in expected})
+        check_no_scalar(f"phase 10, {name}", launches[name])
         check_modes(modes, BATCH, cfg.embed_dim)
         mode_kernel_checks(engine, calls[0][0], name, ph)
         del calls
@@ -2198,6 +2214,7 @@ def serving_288_phase(text, counters, smi, dev):
     if launches != expected:
         raise AssertionError(f"expected exactly the launches {expected} (no cls_attention)")
     check_routes("phase 10c", launches, {"attention": "mma"})
+    check_no_scalar("phase 10c", launches)
     check_modes(modes, BATCH_288, cfg.embed_dim)
 
     ph = Phase()
@@ -4668,11 +4685,11 @@ def main() -> int:
     launches_srv = {k: v for c in counters for k, v in c.items()}
     log(f"serving path launches: {launches_srv}")
     check_routes("serving path", launches_srv, {"attention": "mma"})
-    scalar = {k: v for k, v in launches_srv.items() if k.endswith("/scalar") and v}
     log(f"serving path: view/patch {launches_srv['view/patch']}, _patchify calls "
-        f"{len(patchified)}, scalar-route launches {scalar}")
-    if launches_srv["view/patch"] != 1 or patchified or scalar:
-        raise AssertionError("the serving path must take K1's patch rows and the vector LN rows")
+        f"{len(patchified)}")
+    if launches_srv["view/patch"] != 1 or patchified:
+        raise AssertionError("the serving path must take K1's patch rows")
+    check_no_scalar("serving path", launches_srv)
     check_modes(modes, BATCH, cfg.embed_dim)
 
     # int8 vs the f32 engine on the same geometry (bench.py's cert): the

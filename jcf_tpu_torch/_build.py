@@ -39,9 +39,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
     "jcf_view": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "jcf_assemble": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "jcf_assemble": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "jcf_ln_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "jcf_quant_rows": [_P, _P, _P, _I, _I, _I, _P],
+    "jcf_quant_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     "jcf_int8_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
     "jcf_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _I, _I, _P],
     "jcf_cls_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],

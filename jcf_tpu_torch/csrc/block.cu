@@ -198,12 +198,34 @@ __global__ void __launch_bounds__(LNQ_WARPS * 32) ln_quant_vec_kernel(
 //   g = GELU ? h * (0.5 + 0.5 tanh(0.851 h)) : h
 //   amax = max(max |g|, 1e-8), q = clip(round(g * (127 / amax))),
 //   scale = amax * f32(1/127)
-// Bound on the H100: bytes (4 B in, 1 B out per element). One block per
-// row, the row in registers (QR_PER values a thread) across the block
-// reduction.
+// Bound on the H100: bytes (4 B in, 1 B out per element); with GELU the
+// tanhf of every element sits close under it, so the loads must stay in
+// flight while it runs.
+//
+// Rows of a width that is a multiple of 4 on 16-byte aligned tensors take
+// quant_rows_vec_kernel, the row design of ln_quant_vec_kernel: a grid
+// sized to the card, each row group looping over rows; a thread holds the
+// row's float4 chunks c = t + 32 G k (t its index in the group of G warps)
+// and issues the next row's loads before the current row's tanhf and max;
+// the int8 values leave packed, 4 bytes a chunk, and thread 0 of the group
+// writes the scale. Up to 1024 wide a warp owns a row (G = 1, 8 rows a
+// block); wider rows would hold up to 128 values a lane, twice that with
+// the next row in flight, so a group of 4 warps owns a row (G = 4, one row
+// a block, the warps' maxima exchanged through shared memory, one barrier
+// a row). Widths 512, 768, 2048 and 3072 have instances of their own,
+// other widths a general instance of each group size. amax is an exact
+// max and every element's arithmetic is the scalar kernel's, so both
+// routes write the same bits. Other rows take quant_rows_kernel, one block
+// a row in 4-byte slots, the wrapper's "/scalar" route.
 
 constexpr int QR_THREADS = 256;
 constexpr int QR_PER = 16;  // N <= 4096
+
+template <bool GELU>
+__device__ __forceinline__ float quick_gelu_tanh(float h) {
+  if (!GELU) return h;
+  return __fmul_rn(h, __fadd_rn(0.5f, __fmul_rn(0.5f, tanhf(__fmul_rn(0.851f, h)))));
+}
 
 template <bool GELU>
 __global__ void __launch_bounds__(QR_THREADS) quant_rows_kernel(
@@ -217,11 +239,7 @@ __global__ void __launch_bounds__(QR_THREADS) quant_rows_kernel(
   for (int k = 0; k < QR_PER; ++k) {
     const int j = threadIdx.x + QR_THREADS * k;
     float g = 0.0f;
-    if (j < N) {
-      g = xr[j];
-      if (GELU)
-        g = __fmul_rn(g, __fadd_rn(0.5f, __fmul_rn(0.5f, tanhf(__fmul_rn(0.851f, g)))));
-    }
+    if (j < N) g = quick_gelu_tanh<GELU>(xr[j]);
     v[k] = g;
     amax = fmaxf(amax, fabsf(g));
   }
@@ -239,6 +257,78 @@ __global__ void __launch_bounds__(QR_THREADS) quant_rows_kernel(
   for (int k = 0; k < QR_PER; ++k) {
     const int j = threadIdx.x + QR_THREADS * k;
     if (j < N) o[j] = round_clip_int8(__fmul_rn(v[k], inv));
+  }
+}
+
+// the vector kernel's rows a block: 8 warps of one row each (G = 1), or
+// one group of G warps
+constexpr int QRV_WARPS = 8;
+__host__ __device__ constexpr int qrv_threads(int G) {
+  return G == 1 ? QRV_WARPS * 32 : G * 32;
+}
+
+// G warps a row, CPL chunks a thread; FIXED_N > 0: N = FIXED_N = 128 G
+// CPL (every thread holds CPL chunks), 0: N at run time, N / 4 <= 32 G
+// CPL chunks, a thread's chunk past the row neither loaded nor stored
+template <bool GELU, int G, int CPL, int FIXED_N>
+__global__ void __launch_bounds__(qrv_threads(G)) quant_rows_vec_kernel(
+    const float* __restrict__ x, int8_t* __restrict__ out, float* __restrict__ scale, int M,
+    int N_rt) {
+  static_assert(FIXED_N == 0 || FIXED_N == 128 * G * CPL, "a fixed width fills every thread");
+  constexpr int ROWS = qrv_threads(G) / (32 * G);
+  const int N = FIXED_N > 0 ? FIXED_N : N_rt;
+  const int chunks = N / 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = G == 1 ? lane : (int)threadIdx.x;  // the thread's index in its row group
+  __shared__ float red[2][G];
+  bool live[CPL];
+  uint4 cur[CPL], nxt[CPL];
+#pragma unroll
+  for (int k = 0; k < CPL; ++k) {
+    live[k] = FIXED_N > 0 || t + 32 * G * k < chunks;
+    cur[k] = nxt[k] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  const long long stride = (long long)gridDim.x * ROWS;
+  long long row = (long long)blockIdx.x * ROWS + (G == 1 ? warp : 0);
+  auto load = [&](uint4 (&r)[CPL], long long at) {
+    const uint4* src = reinterpret_cast<const uint4*>(x + at * N);
+#pragma unroll
+    for (int k = 0; k < CPL; ++k)
+      if (live[k]) r[k] = src[t + 32 * G * k];
+  };
+  if (row < M) load(cur, row);
+  for (int it = 0; row < M; row += stride, ++it) {
+    if (row + stride < M) load(nxt, row + stride);
+    float v[CPL][4];
+    float amax = 0.0f;
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      lnv_unpack(cur[k], v[k]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        v[k][i] = quick_gelu_tanh<GELU>(v[k][i]);
+        if (live[k]) amax = fmaxf(amax, fabsf(v[k][i]));
+      }
+    }
+    amax = warp_max(amax);
+    if constexpr (G > 1) {
+      // the block is one row group; the maxima alternate between two
+      // slots, so a row's writes never meet the previous row's reads
+      if (lane == 0) red[it & 1][warp] = amax;
+      __syncthreads();
+      amax = red[it & 1][0];
+#pragma unroll
+      for (int w = 1; w < G; ++w) amax = fmaxf(amax, red[it & 1][w]);
+    }
+    amax = fmaxf(amax, 1e-8f);
+    const float inv = __fdiv_rn(127.0f, amax);
+    if (t == 0) scale[row] = __fmul_rn(amax, 1.0f / 127.0f);
+    unsigned* o = reinterpret_cast<unsigned*>(out + row * N);
+#pragma unroll
+    for (int k = 0; k < CPL; ++k)
+      if (live[k]) o[t + 32 * G * k] = quant_pack4(v[k], inv);
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) cur[k] = nxt[k];
   }
 }
 
@@ -523,18 +613,58 @@ extern "C" int jcf_ln_quant(const void* x, const void* g, const void* b, const v
              : dispatch_ln_quant<bf16>(x, g, b, inv, out, scale, M, E, vec, st);
 }
 
+// the vector kernel's grid: as many blocks as fit on the card at once (the
+// occupancy of this instance, cached), fewer where M needs fewer
+template <bool GELU, int G, int CPL, int FIXED_N>
+static int launch_quant_rows_vec(const float* x, int8_t* out, float* scale, int M, int N,
+                                 cudaStream_t stream) {
+  constexpr int threads = qrv_threads(G), rows = threads / (32 * G);
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, quant_rows_vec_kernel<GELU, G, CPL, FIXED_N>, threads, 0);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long need = ((long long)M + rows - 1) / rows;
+  const unsigned blocks = (unsigned)(need < (long long)sms * per_sm ? need : (long long)sms * per_sm);
+  quant_rows_vec_kernel<GELU, G, CPL, FIXED_N><<<blocks, threads, 0, stream>>>(x, out, scale, M, N);
+  return (int)cudaGetLastError();
+}
+
+// vec: the vector kernel (N a multiple of 4, x and out 16-byte aligned),
+// else the scalar one
+template <bool GELU>
+static int launch_quant_rows(const float* x, int8_t* out, float* scale, int M, int N, int vec,
+                             cudaStream_t st) {
+  if (!vec) {
+    quant_rows_kernel<GELU><<<(unsigned)M, QR_THREADS, 0, st>>>(x, out, scale, N);
+    return (int)cudaGetLastError();
+  }
+  if (M < 1 || N % 4 != 0 || ((uintptr_t)x | (uintptr_t)out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (N == 512) return launch_quant_rows_vec<GELU, 1, 4, 512>(x, out, scale, M, N, st);
+  if (N == 768) return launch_quant_rows_vec<GELU, 1, 6, 768>(x, out, scale, M, N, st);
+  if (N == 2048) return launch_quant_rows_vec<GELU, 4, 4, 2048>(x, out, scale, M, N, st);
+  if (N == 3072) return launch_quant_rows_vec<GELU, 4, 6, 3072>(x, out, scale, M, N, st);
+  if (N <= 1024) return launch_quant_rows_vec<GELU, 1, 8, 0>(x, out, scale, M, N, st);
+  return launch_quant_rows_vec<GELU, 4, 8, 0>(x, out, scale, M, N, st);
+}
+
+// f32 rows [M, N <= 4096] -> int8 [M, N] and f32 scales [M]; gelu:
+// QuickGELU first; vec: the vector kernel, else the scalar one
 extern "C" int jcf_quant_rows(const void* x, void* out, void* scale, int M, int N, int gelu,
-                              void* stream) {
+                              int vec, void* stream) {
   if (N < 1 || N > QR_THREADS * QR_PER) return (int)cudaErrorInvalidValue;
   const float* x_ = static_cast<const float*>(x);
   int8_t* o = static_cast<int8_t*>(out);
   float* sc = static_cast<float*>(scale);
   cudaStream_t st = (cudaStream_t)stream;
-  if (gelu)
-    quant_rows_kernel<true><<<(unsigned)M, QR_THREADS, 0, st>>>(x_, o, sc, N);
-  else
-    quant_rows_kernel<false><<<(unsigned)M, QR_THREADS, 0, st>>>(x_, o, sc, N);
-  return (int)cudaGetLastError();
+  return gelu ? launch_quant_rows<true>(x_, o, sc, M, N, vec, st)
+              : launch_quant_rows<false>(x_, o, sc, M, N, vec, st);
 }
 
 template <int KB, bool F32_OUT, bool SCALED>

@@ -173,6 +173,22 @@ __device__ __forceinline__ void lnv_unpack(const uint4& r, float (&f)[8]) {
   }
 }
 
+// a chunk's values back to 16 bytes of f32 or bf16 (round to nearest even)
+__device__ __forceinline__ uint4 lnv_pack(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
+
+__device__ __forceinline__ uint4 lnv_pack(const float (&f)[8]) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    w[i] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 // Row statistics of a LayerNorm row held by a warp in 16-byte chunks c =
 // lane + 32k (the vector row kernels): a lane sums its chunks' f32
 // values in order (chunk k, then element), the warp adds the lanes' sums

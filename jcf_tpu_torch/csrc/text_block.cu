@@ -66,22 +66,6 @@ __global__ void __launch_bounds__(LNA_WARPS * 32) ln_affine_kernel(
   }
 }
 
-// a chunk's values back to 16 bytes of f32 or bf16 (round to nearest even)
-__device__ __forceinline__ uint4 lnv_pack(const float (&f)[4]) {
-  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
-                    __float_as_uint(f[3]));
-}
-
-__device__ __forceinline__ uint4 lnv_pack(const float (&f)[8]) {
-  unsigned w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-    w[i] = *reinterpret_cast<const unsigned*>(&h);
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
 // CPL chunks a lane; FIXED_E > 0: E = FIXED_E = 32 * CPL * V (every lane
 // holds CPL chunks), 0: E at run time, E / V <= 32 * CPL chunks, a lane's
 // chunk past the row neither loaded nor stored

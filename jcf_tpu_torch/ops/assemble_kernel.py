@@ -19,8 +19,12 @@ import torch
 from jcf_tpu_torch import _build
 from jcf_tpu_torch.ops.layers import layer_norm
 
-# launches of the assembly kernel (assemble_dense_rows on CUDA tensors)
-LAUNCHES = {"assemble": 0}
+# launches of the assembly kernel (assemble_dense_rows on CUDA tensors);
+# those off the vector kernel (a width not a multiple of 8, or a
+# misaligned tensor) also as "assemble/scalar"
+LAUNCHES = {"assemble": 0, "assemble/scalar": 0}
+# the widest row the kernel takes
+MAX_E = 1024
 
 
 def make_cls_row(class_embedding, pos_row0, ln_scale, ln_bias, *, dtype=torch.bfloat16):
@@ -41,10 +45,23 @@ def assemble_dense_rows_plain(conv_out, col_scale, col_bias, pos_tail, cls_row,
     return out.reshape(b * (n_gy * n_gx + 1), e)
 
 
+def assemble_route(e: int, aligned: bool) -> str:
+    """The assembly kernel's route for rows of width ``e`` (``aligned``:
+    every tensor it reads or writes starts on a 16-byte boundary) ->
+    "vector" (a width that is a multiple of 8 on aligned tensors) or
+    "scalar"; raises ``ValueError`` past ``MAX_E``."""
+    if not 1 <= e <= MAX_E:
+        raise ValueError(f"assemble kernel supports E <= {MAX_E}, got {e}")
+    return "vector" if e % 8 == 0 and aligned else "scalar"
+
+
 def assemble_dense_rows(conv_out, col_scale, col_bias, pos_tail, cls_row,
                         ln_scale, ln_bias, *, dtype=torch.bfloat16):
     """K2 wrapper: the CUDA kernel for CUDA tensors (int32 accumulators,
-    bf16 rows), the plain version for CPU tensors."""
+    bf16 rows), the plain version for CPU tensors. Rows of a width that
+    is a multiple of 8 on 16-byte aligned tensors take the vector kernel;
+    others the scalar kernel, which also counts
+    ``LAUNCHES["assemble/scalar"]`` (``assemble_route``)."""
     if not conv_out.is_cuda:
         return assemble_dense_rows_plain(conv_out, col_scale, col_bias, pos_tail, cls_row,
                                          ln_scale, ln_bias, dtype=dtype)
@@ -52,8 +69,6 @@ def assemble_dense_rows(conv_out, col_scale, col_bias, pos_tail, cls_row,
     n_tok = n_gy * n_gx
     if conv_out.dtype != torch.int32 or dtype != torch.bfloat16:
         raise TypeError("assemble kernel takes int32 accumulators and emits bf16 rows")
-    if e > 1024:
-        raise ValueError(f"assemble kernel supports E <= 1024, got {e}")
     dev = conv_out.device
 
     def vec(t, dt, shape):
@@ -69,9 +84,13 @@ def assemble_dense_rows(conv_out, col_scale, col_bias, pos_tail, cls_row,
         vec(ln_scale, torch.float32, (e,)), vec(ln_bias, torch.float32, (e,)),
     )
     out = torch.empty((b * (n_tok + 1), e), dtype=torch.bfloat16, device=dev)
+    aligned = b > 0 and all(t.data_ptr() % 16 == 0 for t in (*args, out))
+    vector = assemble_route(e, aligned) == "vector"
     lib = _build.load()
     err = lib.jcf_assemble(*(t.data_ptr() for t in args), out.data_ptr(), b, n_tok, e,
-                           _build.stream_ptr(dev))
+                           int(vector), _build.stream_ptr(dev))
     _build.check(err, "assemble")
     LAUNCHES["assemble"] += 1
+    if not vector:
+        LAUNCHES["assemble/scalar"] += 1
     return out

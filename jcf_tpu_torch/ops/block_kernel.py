@@ -158,9 +158,15 @@ LAUNCHES.update({f"{k}/{r}": 0 for k in MASKED_KERNELS + PAIRED_KERNELS for r in
 # width other than 512 or 768, or a misaligned tensor) also by that route
 LN_QUANT_KERNELS = ("ln_quant", "ln_quant_rows", "ln_quant_f32", "ln_quant_rows_f32",
                     "ln_affine_quant_rows", "ln_affine_quant_rows_f32")
-LAUNCHES.update({f"{k}/scalar": 0 for k in ("ln_affine", "ln_affine_f32") + LN_QUANT_KERNELS})
+# the row quantization of f32 rows off the vector kernel (a width not a
+# multiple of 4, or a misaligned tensor) by that route too
+QUANT_ROWS_KERNELS = ("quant_rows", "gelu_quant_rows")
+LAUNCHES.update({f"{k}/scalar": 0
+                 for k in ("ln_affine", "ln_affine_f32") + LN_QUANT_KERNELS + QUANT_ROWS_KERNELS})
 # the LN + quant kernel's vector instances
 LN_QUANT_VEC_WIDTHS = (512, 768)
+# the row quantization's widest row
+QUANT_ROWS_MAX_N = 4096
 # the float kernels' variants by dtype: the launch count's suffix and the
 # C entries' f32 flag
 _FLOAT = {torch.bfloat16: ("", 0), torch.float32: ("_f32", 1)}
@@ -297,25 +303,43 @@ def ln_affine_quant_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tenso
     return _ln_quant_launch(x, None, (scale, bias))
 
 
+def quant_rows_route(n: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The row quantization kernel's route for f32 rows of width ``n``
+    (``aligned``: the input and output rows start on 16-byte boundaries)
+    -> "vector" (a width that is a multiple of 4 on aligned rows) or
+    "scalar"; raises ``ValueError`` for rows the kernel refuses (not f32,
+    or N outside 1-4096)."""
+    if dtype != torch.float32 or not 1 <= n <= QUANT_ROWS_MAX_N:
+        raise ValueError(f"the row quantization kernel takes f32 rows [M, N <= "
+                         f"{QUANT_ROWS_MAX_N}], got {dtype} N={n}")
+    return "vector" if n % 4 == 0 and aligned else "scalar"
+
+
 def quant_rows(x: torch.Tensor, *, gelu: bool = False):
     """Dynamic per-row int8 of f32 rows x [M, N] (N <= 4096) -> (int8
     [M, N], f32 row scales [M]); with ``gelu``, of QuickGELU(x) (K4's
-    hidden without a static scale)."""
+    hidden without a static scale). Rows of a width that is a multiple of
+    4 on 16-byte aligned tensors take the vector kernel; others the scalar
+    kernel, which also counts ``LAUNCHES["<name>/scalar"]``
+    (``quant_rows_route``). Both write the same bits."""
     if not x.is_cuda:
         return (gelu_quant_rows_plain if gelu else quant_rows_plain)(x)
     name = "gelu_quant_rows" if gelu else "quant_rows"
-    if x.dim() != 2 or x.dtype != torch.float32 or x.shape[1] > 4096:
-        raise ValueError(f"{name} kernel takes f32 rows [M, N <= 4096], got {x.dtype} "
-                         f"{tuple(x.shape)}")
+    if x.dim() != 2:
+        raise ValueError(f"{name} kernel takes f32 rows [M, N], got {tuple(x.shape)}")
     m, n = x.shape
     x = x.contiguous()
+    # the output is fresh, so aligned; the C entry checks it again
+    vec = quant_rows_route(n, x.dtype, m > 0 and x.data_ptr() % 16 == 0) == "vector"
     out = torch.empty((m, n), dtype=torch.int8, device=x.device)
     scale = torch.empty(m, dtype=torch.float32, device=x.device)
     lib = _build.load()
     err = lib.jcf_quant_rows(x.data_ptr(), out.data_ptr(), scale.data_ptr(), m, n, int(gelu),
-                             _build.stream_ptr(x.device))
+                             int(vec), _build.stream_ptr(x.device))
     _build.check(err, name)
     LAUNCHES[name] += 1
+    if not vec:
+        LAUNCHES[name + "/scalar"] += 1
     return out, scale
 
 

@@ -1705,3 +1705,123 @@ def test_ln_quant_scalar_route(cuda, kind, dtype, e, misaligned):
     name, got, ref = _ln_quant_call(kind, x, scale, bias)
     _ln_quant_close(got, ref)
     assert _launched(before) == {name: 1, name + "/scalar": 1}
+
+
+def _misaligned(x):
+    """The same values in a tensor whose storage starts one element past a
+    16-byte boundary (the wrappers' vector kernels refuse it, so the
+    scalar route runs)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:].copy_(x.reshape(-1))
+    out = buf[1:].view(x.shape)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
+def _quant_rows_input(m, n, device, seed):
+    """Seeded f32 rows [m, n]: normal x 3, every fifth row from row 3 all
+    zero, row 1 one large value among small ones."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(m, n, generator=g) * 3
+    x[3::5] = 0.0
+    if m > 1:
+        x[1] *= 1e-3
+        x[1, n // 2] = 40.0
+    return x.to(device)
+
+
+@pytest.mark.parametrize("gelu", [False, True], ids=["ctx", "gelu"])
+@pytest.mark.parametrize("n", [768, 3072, 512, 2048, 72, 192])
+@pytest.mark.parametrize("m", [1, 7, 9 * 77, 20011])
+def test_quant_rows_vector_route_equals_scalar_route(cuda, gelu, n, m):
+    """The vector instances (768, 3072, 512, 2048 their own; 72 and 192
+    the general ones) equal the scalar kernel bit for bit, the scalar
+    route forced by a misaligned copy of the same rows; both hold the
+    plain version's bar (int8 within 1 on <= 1e-3, scales within 1e-6
+    relative); each counted on its route. 20011 rows are no multiple of
+    the card-sized grid."""
+    x = _quant_rows_input(m, n, cuda, seed=m + n)
+    name = "gelu_quant_rows" if gelu else "quant_rows"
+    before = dict(bk.LAUNCHES)
+    q, s = bk.quant_rows(x, gelu=gelu)
+    assert _launched(before) == {name: 1}
+    before = dict(bk.LAUNCHES)
+    q_s, s_s = bk.quant_rows(_misaligned(x), gelu=gelu)
+    assert _launched(before) == {name: 1, name + "/scalar": 1}
+    assert torch.equal(q, q_s) and torch.equal(s.view(torch.int32), s_s.view(torch.int32))
+    q_ref, s_ref = (bk.gelu_quant_rows_plain if gelu else bk.quant_rows_plain)(x)
+    _int8_close(q, q_ref, 1e-3)
+    assert bool(((s - s_ref).abs() <= 1e-6 * s_ref.abs()).all())
+    if m > 3:
+        assert int(q[3].abs().max()) == 0 and float(s[3]) == float(s_ref[3])
+
+
+@pytest.mark.parametrize("gelu", [False, True], ids=["ctx", "gelu"])
+@pytest.mark.parametrize("n", [130, 1, 4095])
+def test_quant_rows_scalar_route_off_widths_of_four(cuda, gelu, n):
+    x = _quant_rows_input(333, n, cuda, seed=n)
+    name = "gelu_quant_rows" if gelu else "quant_rows"
+    before = dict(bk.LAUNCHES)
+    q, s = bk.quant_rows(x, gelu=gelu)
+    assert _launched(before) == {name: 1, name + "/scalar": 1}
+    q_ref, s_ref = (bk.gelu_quant_rows_plain if gelu else bk.quant_rows_plain)(x)
+    _int8_close(q, q_ref, 1e-3)
+    assert bool(((s - s_ref).abs() <= 1e-6 * s_ref.abs()).all())
+
+
+def test_quant_rows_refuses_before_launch(cuda):
+    before = dict(bk.LAUNCHES)
+    with pytest.raises(ValueError):  # N > 4096
+        bk.quant_rows(torch.zeros(4, 4100, device=cuda))
+    with pytest.raises(ValueError):  # bf16 rows: the kernel takes f32
+        bk.quant_rows(torch.zeros(4, 768, device=cuda).bfloat16(), gelu=True)
+    assert bk.LAUNCHES == before
+
+
+def _assemble_args(b, g, e, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    acc = torch.randint(-20000, 20000, (b, g, g, e), device=device, generator=gen,
+                        dtype=torch.int32)
+    scale = torch.rand(e, device=device, generator=gen) * 1e-4
+    bias = torch.randn(e, device=device, generator=gen)
+    pos = torch.randn(g * g, e, device=device, generator=gen).bfloat16()
+    lns = 1 + 0.1 * torch.randn(e, device=device, generator=gen)
+    lnb = 0.1 * torch.randn(e, device=device, generator=gen)
+    cls = ak.make_cls_row(torch.randn(e, device=device, generator=gen), pos[0], lns, lnb)
+    return acc, scale, bias, pos, cls, lns, lnb
+
+
+@pytest.mark.parametrize("e,g,b", [(768, 7, 9), (768, 7, 2000), (768, 9, 33), (512, 7, 21),
+                                   (1024, 7, 5), (192, 7, 17)])
+def test_assemble_vector_kernel(cuda, e, g, b):
+    """E = 768 (its own instance; 7 x 7 and 9 x 9 patches, the 288²
+    grid) and the general instance (512, 1024, 192) vs the plain version
+    at ``_bf16_close``, CLS rows equal, counted on the vector route."""
+    args = _assemble_args(b, g, e, cuda, seed=e + b)
+    before = dict(ak.LAUNCHES)
+    got = ak.assemble_dense_rows(*args)
+    assert {k: ak.LAUNCHES[k] - before[k] for k in before} == {"assemble": 1, "assemble/scalar": 0}
+    ref = ak.assemble_dense_rows_plain(*args)
+    _bf16_close(got, ref)
+    assert torch.equal(got[:: g * g + 1], args[4].expand(b, e))
+
+
+@pytest.mark.parametrize("e,misaligned", [(132, False), (768, True)])
+def test_assemble_scalar_route(cuda, e, misaligned):
+    """A width off multiples of 8, or misaligned accumulators, take the
+    scalar kernel and count its route."""
+    acc, *rest = _assemble_args(13, 7, e, cuda, seed=e)
+    if misaligned:
+        acc = _misaligned(acc)
+    before = dict(ak.LAUNCHES)
+    got = ak.assemble_dense_rows(acc, *rest)
+    assert {k: ak.LAUNCHES[k] - before[k] for k in before} == {"assemble": 1, "assemble/scalar": 1}
+    _bf16_close(got, ak.assemble_dense_rows_plain(acc, *rest))
+
+
+def test_assemble_refuses_before_launch(cuda):
+    args = _assemble_args(2, 7, 1032, cuda, seed=0)
+    before = dict(ak.LAUNCHES)
+    with pytest.raises(ValueError):  # E > 1024
+        ak.assemble_dense_rows(*args)
+    assert ak.LAUNCHES == before
