@@ -352,7 +352,7 @@ KERNELS = {
                          "jcf_tpu/ops/block_kernel.py:1672"),
     "stream_tower_int8": ("serving_stream", FUSED_INT8_SRC,
                           "jcf_tpu/ops/block_kernel.py:833"),
-    "block_bf16": ("classifier_block", "jcf_tpu_torch/csrc/fused_layer.cu",
+    "block_bf16": ("classifier_block", "jcf_tpu_torch/csrc/block_float.cu",
                    "jcf_tpu/ops/block_kernel.py:948"),
     # the dynamic branches of K3, K4 and K5, phase 10 (c_fc without row
     # scales only in mode "ln": static post-LN scales, a dynamic hidden)
@@ -419,7 +419,8 @@ KERNELS = {
     "head_attention": ("tower_odd_heads_bf16", "jcf_tpu_torch/csrc/text_block.cu",
                        "jcf_tpu/ops/block_kernel.py:528"),
     # K9b in f32: jcf-ood's default configuration under _FUSE = "block", 13c
-    "block_f32": ("ood_block", "jcf_tpu_torch/csrc/block_f32.cu", "jcf_tpu/ops/block_kernel.py:948"),
+    "block_f32": ("ood_block", "jcf_tpu_torch/csrc/block_float.cu",
+                  "jcf_tpu/ops/block_kernel.py:948"),
     # the JPEG decoder (jcf-ood's parity path, 13b; the --perf path, 13d):
     # host code of the JAX package's, libjpeg-turbo, not a TPU kernel
     "jpeg_idct": ("ood_parity", "jcf_tpu_torch/csrc/jpeg.cu",
@@ -2755,6 +2756,11 @@ def float_engine_phase(params, ref, modes_f, images, geometry, text, counters, s
                lambda: bk.block_bf16_plain(xb, layer_b, s, heads, zeros), check_layer,
                layer_work(xb.shape[0], e, hidden, heads, n_seq * s * s,
                           2 * nbytes(xb) + w_bytes + nbytes(zeros), PEAK_BF16), reps=3)
+        halves_ms = time_ms(lambda: bk.mlp_half(bk.attn_half(xb, layer_b, s, heads, causal=False),
+                                                 layer_b), 3)
+        log(f"  block_bf16 (vision): {n_seq} x {s} rows, kernel "
+            f"{ph.results['block_bf16 (vision)']['ms']:.3f} ms per layer; the halves (K6a + K6b, "
+            f"7 launches) {halves_ms:.3f} ms per layer on the same rows")
         del xb, zeros
         # the f32 engine under "block": K9b in f32 (block_f32) on every layer
         modes_fk, launches_fk = count_forward(
@@ -3578,16 +3584,24 @@ def check_block_f32(name, got, ref):
 
 
 def block_f32_work(x, layer, s, heads, bias, causal):
-    """The bound of one f32 layer on x's rows: the products' 2E(4E + 2F)
-    flops per row and the attention's 4 d flops per (query, key) pair
-    this mask keeps, at the f32 peak; x read and written, f32 weights and
-    biases and the bias read once."""
+    """The bound of one f32 layer on x's rows as the kernel computes it:
+    the products' 2E(4E + 2F) flops per row, three TF32 passes each at
+    the TF32 rate, and the attention's 4 d flops per (query, key) pair
+    this mask keeps at the f32 peak (the all-f32 FMA bound logged beside
+    it); x read and written, f32 weights and biases and the bias read
+    once."""
     rows, e = x.shape
     hidden = layer["mlp"]["c_fc"]["w"].shape[0]
     pairs = rows // s * (s * (s + 1) // 2 if causal else s * s)
-    ops = 2.0 * rows * e * (4 * e + 2 * hidden) + 4.0 * heads * pairs * (e // heads)
+    products = 2.0 * rows * e * (4 * e + 2 * hidden)
+    attn = 4.0 * heads * pairs * (e // heads)
     w_bytes = 4 * (e * (4 * e + 2 * hidden) + 9 * e + hidden)
-    return bound(2 * nbytes(x) + w_bytes + nbytes(bias), ops, PEAK_F32)
+    n_bytes = 2 * nbytes(x) + w_bytes + nbytes(bias)
+    fma = bound(n_bytes, products + attn, PEAK_F32)
+    log(f"  {rows // s} x {s} rows: f32 FMA bound {fma['bound_ms']:.3f} ms ({fma['bound_by']})")
+    t_ops = (3 * products / PEAK_TF32 + attn / PEAK_F32) * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def ood_phase(params, cfg, counters, smi, launches_srv, launches_cls) -> tuple:

@@ -58,11 +58,8 @@ SIGNATURES = {
     "jcf_block_int8": [*[_P] * 25, *[_I] * 7, _P],
     "jcf_layer_fused_int8": [*[_P] * 25, *[_I] * 7, _P],
     "jcf_stream_tower_int8": [*[_P] * 25, *[_I] * 7, _P],
-    "jcf_block_bf16": [*[_P] * 17, _I, _I, _I, _I, _F, _P],
     "jcf_int8_xq_scratch": [_I] * 6,
-    "jcf_block_bf16_scratch": [_I, _I, _I],
-    "jcf_block_f32": [*[_P] * 16, _I, _I, _I, _I, _F, _P],
-    "jcf_block_f32_scratch": [_I, _I, _I],
+    "jcf_block_float": [_I, *[_P] * 20, _I, _I, _I, _I, _I, _F, _P],
     "jcf_jpeg_idct": [_P, _P, _I, _I, _I, _P, _P],
     "jcf_jpeg_upsample_color": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "jcf_resize_crop": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
@@ -74,8 +71,7 @@ SIGNATURES = {
     "jcf_patch_regroup": [_P, _P, _I, _I, _I, _I, _I, _P],
 }
 # C entries that return something other than a cudaError_t
-RESTYPES = {"jcf_int8_xq_scratch": ctypes.c_longlong, "jcf_block_bf16_scratch": ctypes.c_longlong,
-            "jcf_block_f32_scratch": ctypes.c_longlong}
+RESTYPES = {"jcf_int8_xq_scratch": ctypes.c_longlong}
 # the entropy decoder's entries (csrc/jpeg_entropy.cpp)
 ENTROPY_SIGNATURES = {
     "jcf_jpeg_open": ([_P, ctypes.c_longlong, _P, _P, _I], _P),

@@ -61,19 +61,21 @@ context's); each of the three optionally "+score" (the shift).
 The unfolded tree (``fold=False``) keeps every scale dynamic and reads
 the LN affine from the float blocks.
 
-Whole layers in one kernel (csrc/fused_layer.cu; the int8 kernel a
-template over its quantization mode and branch in csrc/fused_layer.cuh),
-the TPU's ``_FUSE`` variants of the same math:
+Whole layers in one kernel, the TPU's ``_FUSE`` variants of the same
+math: the int8 kernels (csrc/fused_layer.cu, a template over their
+quantization mode and branch in csrc/fused_layer.cuh)
   K9a ``block_int8`` (``_block_int8_kernel``): one int8 layer, the mid
   residual kept in f32 (the halves round it to bf16);
   K9d ``layer_fused_int8`` (``_layer_fused_int8_kernel``): one int8 layer,
   bf16 mid, the MLP in ``_LAYER_NSPLIT`` hidden chunks;
   K9c ``stream_tower_int8`` (``_stream_tower_int8_kernel``): every int8
   layer on every row in one launch, bf16 mid;
-  K9b ``block_bf16`` (``_block_kernel``): one bf16 layer with an
-  additive [S, S] bias, f32 mid, QuickGELU in its sigmoid form; and
-  ``block_f32`` (csrc/block_f32.cu) in f32, every product on the CUDA
-  cores.
+and K9b (``_block_kernel``, csrc/block_float.cu, one template over the
+rows' type): ``block_bf16`` and ``block_f32``, one float layer with an
+additive [S, S] bias, f32 mid, QuickGELU in its sigmoid form; one
+persistent launch a layer whose phases (the LayerNorms, the four
+products on wgmma, f32 as three TF32 products, the attention) walk
+chunks of whole sequences (``_BLOCK_CHUNK``).
 The MLP's f32 chunk partials (``_MLP_NSPLIT`` for K9a/K9c) are added in
 chunk order; a dynamic hidden is quantized per row and per chunk, so the
 chunk count is part of the result. The int8 kernels take the folded tree
@@ -1217,17 +1219,111 @@ def block_f32_plain(x: torch.Tensor, layer: dict, s: int, n_heads: int,
                     bias: torch.Tensor) -> torch.Tensor:
     """Plain version of K9b in f32 (``_block_kernel`` at
     ``Precision.HIGHEST``): one f32 layer on rows x [B * S, E] f32 with an
-    additive [S, S] f32 bias, every product and sum in f32 (no TF32)."""
+    additive [S, S] f32 bias, every product and sum exact f32 (no TF32;
+    the kernel takes each product as three TF32 products)."""
     return _block_float_plain(x, layer, s, n_heads, bias, torch.float32)
+
+
+# K9b's chunks of whole sequences: "all" (one chunk of every row, each
+# intermediate through device memory as between the halves), "l2" (the
+# most sequences whose every phase keeps its operands within L2_BYTES:
+# ``block_chunk_seqs``) or an int (sequences a chunk); read at call time
+_BLOCK_CHUNK = "all"
+# the H100's L2 cache
+L2_BYTES = 50 * 1024 * 1024
+
+
+def block_phase_bytes(rows: int, e: int, hidden: int, dtype: torch.dtype) -> int:
+    """The bytes of K9b's largest phase on a chunk of ``rows`` rows: the
+    phase's activation operands in and out (the rows' dtype; the mid
+    residual f32) and its weights (bf16, or the f32 hi and lo planes)."""
+    t = torch.empty((), dtype=dtype).element_size()
+    tw = 2 if dtype == torch.bfloat16 else 8
+    return max(rows * 2 * e * t,                                       # LN1: x -> h
+               rows * 4 * e * t + 3 * e * e * tw,                      # qkv
+               rows * 4 * e * t,                                       # attention: qkv -> ctx
+               rows * (2 * e * t + 4 * e) + e * e * tw,                # out-proj: ctx, x -> mid
+               rows * (4 * e + e * t),                                 # LN2: mid -> h2
+               rows * (e + hidden) * t + hidden * e * tw,              # c_fc
+               rows * ((hidden + e) * t + 4 * e) + e * hidden * tw)    # c_proj: hid, mid -> out
+
+
+def block_chunk_seqs(n_seq: int, s: int, e: int, hidden: int, dtype: torch.dtype,
+                     budget: int = L2_BYTES) -> int:
+    """The L2 plan: the most whole sequences of ``s`` rows, from 1 to
+    ``n_seq``, whose every phase's operands fit in ``budget`` bytes (one
+    sequence where none does)."""
+    lo, hi = 1, n_seq
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if block_phase_bytes(mid * s, e, hidden, dtype) <= budget:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def _block_chunk(n_seq: int, s: int, e: int, hidden: int, dtype: torch.dtype) -> int:
+    c = _BLOCK_CHUNK
+    if c == "all":
+        return n_seq
+    if c == "l2":
+        return block_chunk_seqs(n_seq, s, e, hidden, dtype)
+    if isinstance(c, int) and not isinstance(c, bool) and c >= 1:
+        return min(c, n_seq)
+    raise ValueError(f"_BLOCK_CHUNK must be 'all', 'l2' or a positive int, got {c!r}")
+
+
+def _block_float(name: str, x: torch.Tensor, layer: dict, s: int, n_heads: int,
+                 bias: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """Launches K9b (csrc/block_float.cu) on checked CUDA rows: one
+    persistent launch for the layer, chunk scratch from the wrapper."""
+    rows, e = x.shape
+    hidden = layer["mlp"]["c_fc"]["w"].shape[0]
+    if bias.dtype != torch.float32 or tuple(bias.shape) != (s, s) or bias.device != x.device:
+        raise ValueError(f"bias must be f32 ({s}, {s}) on {x.device}")
+    ln1, ln2, attn, mlp = layer["ln_1"], layer["ln_2"], layer["attn"], layer["mlp"]
+    ops = [ln1["scale"].to(dt), ln1["bias"].to(dt), attn["w_qkv"].to(dt), attn["b_qkv"].float(),
+           attn["w_out"].to(dt), attn["b_out"].float(), ln2["scale"].to(dt), ln2["bias"].to(dt),
+           mlp["c_fc"]["w"].to(dt), mlp["c_fc"]["b"].float(), mlp["c_proj"]["w"].to(dt),
+           mlp["c_proj"]["b"].float(), bias]
+    shapes = [(e,), (e,), (3 * e, e), (3 * e,), (e, e), (e,), (e,), (e,), (hidden, e), (hidden,),
+              (e, hidden), (e,), (s, s)]
+    for i, (t, shape) in enumerate(zip(ops, shapes)):
+        if tuple(t.shape) != shape or t.device != x.device:
+            raise ValueError(f"{name}: operand {i} must be {shape} on {x.device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    ops = [t.contiguous() for t in ops]
+    x = x.contiguous()
+    n_seq = rows // s
+    seqs = _block_chunk(n_seq, s, e, hidden, dt)
+    c = seqs * s  # the kernel walks chunks of seqs sequences, the last one what is left
+    out = torch.empty_like(x)
+    rows_e = torch.empty(c * e, dtype=dt, device=x.device)
+    rows_b = torch.empty(c * max(3 * e, hidden), dtype=dt, device=x.device)
+    mid = torch.empty(c * e, dtype=torch.float32, device=x.device)
+    f32 = dt == torch.float32
+    split = (torch.empty(2 * e * (4 * e + 2 * hidden), dtype=torch.float32, device=x.device)
+             if f32 else None)
+    bar = torch.empty(2, dtype=torch.int32, device=x.device)  # the grid barrier, the tile counter
+    lib = _build.load()
+    err = lib.jcf_block_float(int(f32), x.data_ptr(), out.data_ptr(), rows_e.data_ptr(),
+                              rows_b.data_ptr(), mid.data_ptr(),
+                              split.data_ptr() if split is not None else None, bar.data_ptr(),
+                              *(t.data_ptr() for t in ops), n_seq, s, n_heads, hidden, seqs,
+                              1.0 / math.sqrt(e // n_heads), _build.stream_ptr(x.device))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return out
 
 
 def block_bf16(x: torch.Tensor, layer: dict, s: int, n_heads: int,
                bias: torch.Tensor) -> torch.Tensor:
-    """K9b wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Weights are cast to bf16, biases kept f32, as the
-    reference casts them. Where the kernel's shared memory cannot hold a
-    sequence's context beside its LN rows (E = 768, the float vision
-    tower) it takes a bf16 scratch in device memory."""
+    """K9b wrapper: the CUDA kernel (csrc/block_float.cu) for CUDA tensors,
+    the plain version for CPU tensors. Weights are cast to bf16, biases
+    kept f32, as the reference casts them. One persistent launch a layer
+    over chunks of whole sequences (``_BLOCK_CHUNK``), every product on
+    wgmma; it raises where the grid cannot be co-resident."""
     if not x.is_cuda:
         return block_bf16_plain(x, layer, s, n_heads, bias)
     rows, e = x.shape
@@ -1237,45 +1333,15 @@ def block_bf16(x: torch.Tensor, layer: dict, s: int, n_heads: int,
         raise ValueError(f"block_bf16 takes bf16 rows of S <= 80 tokens, head dim 64, E and the "
                          f"hidden width multiples of 128 (E <= 1024); got {x.dtype} "
                          f"{tuple(x.shape)}, S={s}, H={n_heads}, hidden={hidden}")
-    if bias.dtype != torch.float32 or tuple(bias.shape) != (s, s) or bias.device != x.device:
-        raise ValueError(f"bias must be f32 ({s}, {s}) on {x.device}")
-    bf = torch.bfloat16
-    ln1, ln2, attn, mlp = layer["ln_1"], layer["ln_2"], layer["attn"], layer["mlp"]
-    ops = [ln1["scale"].to(bf), ln1["bias"].to(bf), attn["w_qkv"].to(bf), attn["b_qkv"].float(),
-           attn["w_out"].to(bf), attn["b_out"].float(), ln2["scale"].to(bf), ln2["bias"].to(bf),
-           mlp["c_fc"]["w"].to(bf), mlp["c_fc"]["b"].float(), mlp["c_proj"]["w"].to(bf),
-           mlp["c_proj"]["b"].float(), bias]
-    shapes = [(e,), (e,), (3 * e, e), (3 * e,), (e, e), (e,), (e,), (e,), (hidden, e), (hidden,),
-              (e, hidden), (e,), (s, s)]
-    for i, (t, shape) in enumerate(zip(ops, shapes)):
-        if tuple(t.shape) != shape or t.device != x.device:
-            raise ValueError(f"block_bf16: operand {i} must be {shape} on {x.device}, "
-                             f"got {tuple(t.shape)} on {t.device}")
-    ops = [t.contiguous() for t in ops]
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    mid = torch.empty((rows, e), dtype=torch.float32, device=x.device)
-    lib = _build.load()
-    # the bf16 context and hidden of a sequence, where shared memory cannot
-    # hold them beside the LN rows (E = 768)
-    per_seq = lib.jcf_block_bf16_scratch(s, e, hidden)
-    scratch = (torch.empty(rows // s * per_seq, dtype=torch.bfloat16, device=x.device)
-               if per_seq else None)
-    err = lib.jcf_block_bf16(x.data_ptr(), out.data_ptr(), mid.data_ptr(),
-                             scratch.data_ptr() if scratch is not None else None,
-                             *(t.data_ptr() for t in ops), rows // s, s, n_heads, hidden,
-                             1.0 / math.sqrt(e // n_heads), _build.stream_ptr(x.device))
-    _build.check(err, "block_bf16")
-    LAUNCHES["block_bf16"] += 1
-    return out
+    return _block_float("block_bf16", x, layer, s, n_heads, bias, torch.bfloat16)
 
 
 def block_f32(x: torch.Tensor, layer: dict, s: int, n_heads: int,
               bias: torch.Tensor) -> torch.Tensor:
-    """K9b in f32 (csrc/block_f32.cu): the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors. One block per sequence; every
-    intermediate of the layer in a global f32 scratch the wrapper
-    allocates, S x (E + max(3E, hidden)) floats per sequence."""
+    """K9b in f32 (csrc/block_float.cu): the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors. One persistent launch a layer, as
+    ``block_bf16``, each product as three TF32 products on wgmma (the f32
+    GEMM's split, the weights split inside the launch): no other launch."""
     if not x.is_cuda:
         return block_f32_plain(x, layer, s, n_heads, bias)
     rows, e = x.shape
@@ -1285,31 +1351,7 @@ def block_f32(x: torch.Tensor, layer: dict, s: int, n_heads: int,
         raise ValueError(f"block_f32 takes f32 rows of S <= 80 tokens, head dim 64, E <= 1024 and "
                          f"E and the hidden width multiples of 16; got {x.dtype} "
                          f"{tuple(x.shape)}, S={s}, H={n_heads}, hidden={hidden}")
-    if bias.dtype != torch.float32 or tuple(bias.shape) != (s, s) or bias.device != x.device:
-        raise ValueError(f"bias must be f32 ({s}, {s}) on {x.device}")
-    f = torch.float32
-    ln1, ln2, attn, mlp = layer["ln_1"], layer["ln_2"], layer["attn"], layer["mlp"]
-    ops = [ln1["scale"], ln1["bias"], attn["w_qkv"], attn["b_qkv"], attn["w_out"], attn["b_out"],
-           ln2["scale"], ln2["bias"], mlp["c_fc"]["w"], mlp["c_fc"]["b"], mlp["c_proj"]["w"],
-           mlp["c_proj"]["b"], bias]
-    shapes = [(e,), (e,), (3 * e, e), (3 * e,), (e, e), (e,), (e,), (e,), (hidden, e), (hidden,),
-              (e, hidden), (e,), (s, s)]
-    for i, (t, shape) in enumerate(zip(ops, shapes)):
-        if tuple(t.shape) != shape or t.device != x.device:
-            raise ValueError(f"block_f32: operand {i} must be {shape} on {x.device}, "
-                             f"got {tuple(t.shape)} on {t.device}")
-    ops = [t.to(f).contiguous() for t in ops]
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    lib = _build.load()
-    scratch = torch.empty(rows // s * lib.jcf_block_f32_scratch(s, e, hidden), dtype=f,
-                          device=x.device)
-    err = lib.jcf_block_f32(x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                            *(t.data_ptr() for t in ops), rows // s, s, n_heads, hidden,
-                            1.0 / math.sqrt(e // n_heads), _build.stream_ptr(x.device))
-    _build.check(err, "block_f32")
-    LAUNCHES["block_f32"] += 1
-    return out
+    return _block_float("block_f32", x, layer, s, n_heads, bias, torch.float32)
 
 
 # ---------------------------------------------------------------------------

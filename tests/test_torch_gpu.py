@@ -675,6 +675,84 @@ def test_block_bf16_kernel(cuda, width, s, seqs, causal):
     _rows_close(bk.block_bf16(x, layer, s, h, bias), bk.block_bf16_plain(x, layer, s, h, bias))
 
 
+def _float_layer(e, dev, seed):
+    """One float block of E = e, hidden 4e, on the card: ``init_clip_params``'s
+    text block 0 with its LN affines and biases moved off 1 and 0."""
+    cfg = CLIPConfig(text_layers=1, text_width=e, text_heads=e // 64)
+    layer = layer_slice(tree_to(init_clip_params(seed, cfg)["text"]["blocks"], dev), 0)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def bump(t, std):
+        return t + std * torch.randn(t.shape, device=dev, generator=g)
+
+    for ln in ("ln_1", "ln_2"):
+        layer[ln] = {k: bump(v, 0.1) for k, v in layer[ln].items()}
+    for k in ("b_qkv", "b_out"):
+        layer["attn"][k] = bump(layer["attn"][k], 0.02)
+    for fc in ("c_fc", "c_proj"):
+        layer["mlp"][fc]["b"] = bump(layer["mlp"][fc]["b"], 0.02)
+    return layer
+
+
+def _block_bias(kind, s, dev):
+    if kind == "causal":
+        return at.causal_mask(s, dev)
+    if kind == "zero":
+        return torch.zeros(s, s, device=dev)
+    return torch.randn(s, s, device=dev, generator=torch.Generator(device=dev).manual_seed(s))
+
+
+@pytest.mark.parametrize("bias", ["causal", "zero", "random"])
+@pytest.mark.parametrize("s", [17, 50, 77, 80])
+@pytest.mark.parametrize("width", [128, 512, 768])
+def test_block_bf16_kernel_shapes(cuda, width, s, bias):
+    """K9b (csrc/block_float.cu) in bf16 vs its plain version on 3
+    sequences in one chunk, at each width, length and bias."""
+    layer = _float_layer(width, cuda, width + s)
+    x = torch.randn(3 * s, width, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(s)).bfloat16()
+    b, h = _block_bias(bias, s, cuda), width // 64
+    before = bk.LAUNCHES["block_bf16"]
+    got = bk.block_bf16(x, layer, s, h, b)
+    assert bk.LAUNCHES["block_bf16"] == before + 1
+    _rows_close(got, bk.block_bf16_plain(x, layer, s, h, b))
+
+
+@pytest.mark.parametrize("n_seq,chunk", [(1, "all"), (1, "l2"), (7, 3), (5, 2), (4, 1), (9, "l2")])
+def test_block_bf16_kernel_chunks(cuda, monkeypatch, n_seq, chunk):
+    """K9b in bf16 over forced chunks of whole sequences (a partial last
+    one where the chunk does not divide them), one sequence, and the L2
+    plan, against its plain version."""
+    monkeypatch.setattr(bk, "_BLOCK_CHUNK", chunk)
+    layer = _float_layer(768, cuda, n_seq)
+    x = torch.randn(n_seq * 77, 768, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(n_seq)).bfloat16()
+    b = at.causal_mask(77, cuda)
+    _rows_close(bk.block_bf16(x, layer, 77, 12, b), bk.block_bf16_plain(x, layer, 77, 12, b))
+
+
+@pytest.mark.parametrize("dtype,name", [(torch.bfloat16, "block_bf16"), (torch.float32, "block_f32")])
+def test_block_float_is_one_launch_a_layer(cuda, monkeypatch, dtype, name):
+    """Under "block" a 2-layer float tower launches K9b once a layer and
+    nothing else: no GEMM, attention, LayerNorm or weight-split launch."""
+    from jcf_tpu_torch.ops import f32_gemm as fg
+
+    cfg = CLIPConfig(text_layers=2, text_width=256, text_heads=4)
+    blocks = tree_to(init_clip_params(3, cfg)["text"]["blocks"], cuda)
+    x = torch.randn(5 * 50, 256, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(5)).to(dtype)
+    monkeypatch.setattr(bk, "_FUSE", "block")
+    monkeypatch.setattr(bk, "_BLOCK_CHUNK", 2)
+    before, before_g, before_f = dict(bk.LAUNCHES), dict(bg.LAUNCHES), dict(fg.LAUNCHES)
+    got = bk.run_float_tower(x, blocks, 4, s=50, causal=False)
+    assert {k: bk.LAUNCHES[k] - before[k] for k in before if bk.LAUNCHES[k] != before[k]} == {name: 2}
+    assert bg.LAUNCHES == before_g and fg.LAUNCHES == before_f
+    monkeypatch.setattr(bk, "_FUSE", "halves")
+    ref = bk.run_float_tower(x, blocks, 4, s=50, causal=False)
+    g, r = got.float(), ref.float()
+    assert float(torch.nn.functional.cosine_similarity(g, r).min()) >= 0.999
+
+
 def test_fused_routes_launch_the_kernels(cuda, monkeypatch):
     """Each _FUSE route of both towers launches its kernel on every layer
     it covers and no K3 attention, K6 row kernel or bf16 GEMM, and agrees

@@ -67,6 +67,49 @@ def test_block_f32(cuda, s, causal, heads, n_seq):
     assert bool(((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all())
 
 
+def _bias(kind, s, dev):
+    if kind == "causal":
+        return causal_mask(s, dev)
+    if kind == "zero":
+        return torch.zeros(s, s, device=dev)
+    return torch.randn(s, s, device=dev, generator=torch.Generator(device=dev).manual_seed(s))
+
+
+def _f32_close(got, ref):
+    """``check_block_f32``'s bar: 1e-5 + 1e-5 |ref| and row cos >= 0.99999."""
+    assert bool(((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all())
+    assert float(torch.nn.functional.cosine_similarity(got, ref).min()) >= 0.99999
+
+
+@pytest.mark.parametrize("bias", ["causal", "zero", "random"])
+@pytest.mark.parametrize("s", [17, 50, 77, 80])
+@pytest.mark.parametrize("width", [128, 512, 768])
+def test_block_f32_kernel_shapes(cuda, width, s, bias):
+    """K9b (csrc/block_float.cu) in f32, three TF32 products a product, vs
+    its plain version (exact f32) on 3 sequences, at each width, length
+    and bias."""
+    layer = _layer(width, 4 * width, cuda, width + s)
+    x = torch.randn(3 * s, width, device=cuda, generator=torch.Generator(device=cuda).manual_seed(s))
+    b, h = _bias(bias, s, cuda), width // 64
+    before = bk.LAUNCHES["block_f32"]
+    got = bk.block_f32(x, layer, s, h, b)
+    assert bk.LAUNCHES["block_f32"] == before + 1
+    _f32_close(got, bk.block_f32_plain(x, layer, s, h, b))
+
+
+@pytest.mark.parametrize("n_seq,chunk", [(1, "all"), (1, "l2"), (7, 3), (5, 2), (4, 1), (9, "l2")])
+def test_block_f32_kernel_chunks(cuda, monkeypatch, n_seq, chunk):
+    """K9b in f32 over forced chunks of whole sequences (a partial last
+    one where the chunk does not divide them), one sequence, and the L2
+    plan, against its plain version."""
+    monkeypatch.setattr(bk, "_BLOCK_CHUNK", chunk)
+    layer = _layer(768, 3072, cuda, n_seq)
+    x = torch.randn(n_seq * 50, 768, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(n_seq))
+    b = torch.zeros(50, 50, device=cuda)
+    _f32_close(bk.block_f32(x, layer, 50, 12, b), bk.block_f32_plain(x, layer, 50, 12, b))
+
+
 def test_block_f32_refuses_what_it_does_not_take(cuda):
     layer = _layer(128, 512, cuda, 0)
     with pytest.raises(ValueError, match="block_f32"):
