@@ -27,11 +27,11 @@
 //   API), launched cooperatively, so that a grid-wide barrier (an atomic
 //   counter that the C entry zeroes before the launch) may separate the
 //   phases; a grid that cannot be co-resident is refused, never split;
-// - the rows go in chunks of whole sequences (the wrapper picks the
-//   chunk: all rows, or few enough that one phase's operands stay in the
-//   50 MB L2), each chunk through seven phases with a barrier after each
-//   of the first six (the next chunk's LayerNorm writes nothing the last
-//   phase reads):
+// - the rows go in chunks of whole sequences (the wrapper passes one
+//   chunk of all rows; chunks small enough that a phase's operands stay in
+//   the 50 MB L2 were 36-52% slower on one H100, as PERF.md records), each
+//   chunk through seven phases with a barrier after each of the first six
+//   (the next chunk's LayerNorm writes nothing the last phase reads):
 //     LN1 (x -> rows_e), qkv (rows_e -> rows_b), attention (rows_b ->
 //     rows_e), out-proj (rows_e, x -> mid), LN2 (mid -> rows_e), c_fc
 //     (rows_e -> rows_b), c_proj (rows_b, mid -> out);
@@ -45,7 +45,7 @@
 //   (N-fastest) from a global counter and hands each tile's index to the
 //   consumers in a slot of its first stage: drawn statically (block b:
 //   tiles b, b + grid, ...), the slowest blocks set each phase's end, and
-//   qkv and c_fc took 16% and 19% longer on one H100 (PERF.md, PR 23).
+//   qkv and c_fc took 16% and 19% longer on one H100 (PERF.md).
 //   bf16: m64n128k16, a ring of 3 stages, two blocks an SM (the halves'
 //   bf16 GEMM; 96 registers). f32: three TF32 products a k8 step as
 //   f32_gemm.cu takes them (A split in registers, the weights' hi and lo
@@ -67,8 +67,8 @@
 // Scratch written in the launch is read back only through L2 (cp.async,
 // __ldcg, TMA), never the non-coherent or L1 paths, and each phase ends
 // with a proxy fence so that TMA sees the generic writes. Every wait is
-// bounded: a barrier that never completes traps instead of holding the
-// card.
+// bounded by the global timer: a barrier that does not complete within
+// BF_WAIT_NS traps instead of holding the card.
 //
 // What bounds it on the H100: the products' operations, E (4E + 2F)
 // multiply-adds a row: 5.9 ms at the bf16 peak for 8192 x 50 at E = 768;
@@ -152,37 +152,34 @@ struct Params {
   float scale;
 };
 
-#ifdef JCF_BLOCK_PROFILE
-// with -DJCF_BLOCK_PROFILE: the nanoseconds of each phase (the split,
-// LN1, qkv, attention, out-proj, LN2, c_fc, c_proj) from one barrier to
-// the next as block 0 sees them, summed over launches (the profile build
-// adds a barrier after c_proj)
-__device__ unsigned long long g_phase_ns[8];
+// ---------------------------------------------------------------------------
+// the grid barrier
+// ---------------------------------------------------------------------------
+
+// a wait that would never end (a block that is not co-resident, a fault
+// in the phases' logic) traps once BF_WAIT_NS have passed on the global
+// timer instead of holding the card; the longest wait of a correct launch
+// is one phase (11 ms at the vision shapes on one H100)
+constexpr unsigned long long BF_WAIT_NS = 10ull * 1000 * 1000 * 1000;
 
 __device__ __forceinline__ unsigned long long now_ns() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
-#define PHASE_MARK(i)                                   \
-  if (blockIdx.x == 0 && threadIdx.x == 0) {            \
-    const unsigned long long t_now = now_ns();          \
-    atomicAdd(&g_phase_ns[i], t_now - t_mark);          \
-    t_mark = t_now;                                     \
+
+// a wait's clock, called on each failed poll: the timer is read every
+// 64th; expired() once BF_WAIT_NS have passed since its first reading
+struct WaitClock {
+  unsigned long long t0 = 0;
+  unsigned n = 0;
+  __device__ __forceinline__ bool expired() {
+    if (++n & 63) return false;
+    const unsigned long long t = now_ns();
+    if (t0 == 0) t0 = t;
+    return t - t0 > BF_WAIT_NS;
   }
-#else
-#define PHASE_MARK(i)
-#endif
-
-// ---------------------------------------------------------------------------
-// the grid barrier
-// ---------------------------------------------------------------------------
-
-// a wait that would never end (a block that is not co-resident, a fault
-// in the phases' logic) traps after some seconds of spinning instead of
-// holding the card; the longest wait of a correct launch is one phase
-// (milliseconds)
-constexpr unsigned BF_SPIN_LIMIT = 1u << 25;
+};
 
 // every thread's writes so far are visible to every block after it, to
 // loads and to TMA; target counts the arrivals of the barriers so far
@@ -194,10 +191,11 @@ __device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target) {
     __threadfence();
     atomicAdd(bar, 1u);
     unsigned seen;
-    for (unsigned n = 0;; ++n) {
+    WaitClock clock;
+    for (;;) {
       asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(bar) : "memory");
       if (seen >= target) break;
-      if (n > BF_SPIN_LIMIT) __trap();
+      if (clock.expired()) __trap();
     }
     __threadfence();
   }
@@ -219,7 +217,8 @@ struct RingPos {
 
 // mbar_wait (wgmma_gemm.cuh), bounded as the grid barrier's spin
 __device__ __forceinline__ void ring_wait(uint32_t bar, uint32_t parity) {
-  for (unsigned n = 0;; ++n) {
+  WaitClock clock;
+  for (;;) {
     uint32_t done;
     asm volatile(
         "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -228,7 +227,7 @@ __device__ __forceinline__ void ring_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
     if (done) return;
-    if (n > BF_SPIN_LIMIT) __trap();
+    if (clock.expired()) __trap();
   }
 }
 
@@ -852,14 +851,10 @@ __global__ void __launch_bounds__(BF_THREADS, Cfg<T>::MIN_BLOCKS)
   const int S = p.S, E = 64 * p.H, F = p.F;
   RingPos rp;
   unsigned target = 0;
-#ifdef JCF_BLOCK_PROFILE
-  unsigned long long t_mark = now_ns();
-#endif
   ring_init<R>(full0, empty0);
   if constexpr (std::is_same<T, float>::value) {
     split_phase(p, E);
     grid_sync(p.bar, target);
-    PHASE_MARK(0);
   }
   for (int seq0 = 0; seq0 < p.n_seq; seq0 += p.chunk) {
     const int n_seq = min(p.chunk, p.n_seq - seq0), M = n_seq * S;
@@ -868,17 +863,14 @@ __global__ void __launch_bounds__(BF_THREADS, Cfg<T>::MIN_BLOCKS)
     T* out = p.out + r0 * E;
     ln_phase<T, T>(x, p.rows_e, p.ln1_s, p.ln1_b, M, E);
     grid_sync(p.bar, target);
-    PHASE_MARK(1);
     gemm_phase<T>(&maps.a_e, maps.b[0], M, 3 * E, E, ring, full0, empty0, slots, ctr, rp,
                   [qkv = p.rows_b, b = p.b_qkv, E](int m, int n, float v0, float v1) {
                     store2(qkv + (long long)m * 3 * E + n, __fadd_rn(v0, b[n]),
                            __fadd_rn(v1, b[n + 1]));
                   });
     grid_sync(p.bar, target);
-    PHASE_MARK(2);
     attention(p, n_seq, tiles);
     grid_sync(p.bar, target);
-    PHASE_MARK(3);
     gemm_phase<T>(&maps.a_e, maps.b[1], M, E, E, ring, full0, empty0, slots, ctr, rp,
                   [x, mid = p.mid, b = p.b_out, E](int m, int n, float v0, float v1) {
                     const long long i = (long long)m * E + n;
@@ -887,10 +879,8 @@ __global__ void __launch_bounds__(BF_THREADS, Cfg<T>::MIN_BLOCKS)
                            __fadd_rn(r.y, __fadd_rn(v1, b[n + 1])));
                   });
     grid_sync(p.bar, target);
-    PHASE_MARK(4);
     ln_phase<T, float>(p.mid, p.rows_e, p.ln2_s, p.ln2_b, M, E);
     grid_sync(p.bar, target);
-    PHASE_MARK(5);
     gemm_phase<T>(&maps.a_e, maps.b[2], M, F, E, ring, full0, empty0, slots, ctr, rp,
                   [hid = p.rows_b, b = p.b_fc, F](int m, int n, float v0, float v1) {
                     const float g0 = __fadd_rn(v0, b[n]), g1 = __fadd_rn(v1, b[n + 1]);
@@ -899,7 +889,6 @@ __global__ void __launch_bounds__(BF_THREADS, Cfg<T>::MIN_BLOCKS)
                     store2(hid + (long long)m * F + n, __fmul_rn(g0, s0), __fmul_rn(g1, s1));
                   });
     grid_sync(p.bar, target);
-    PHASE_MARK(6);
     gemm_phase<T>(&maps.a_f, maps.b[3], M, E, F, ring, full0, empty0, slots, ctr, rp,
                   [out, mid = p.mid, b = p.b_proj, E](int m, int n, float v0, float v1) {
                     const long long i = (long long)m * E + n;
@@ -907,10 +896,6 @@ __global__ void __launch_bounds__(BF_THREADS, Cfg<T>::MIN_BLOCKS)
                     store2(out + i, __fadd_rn(r.x, __fadd_rn(v0, b[n])),
                            __fadd_rn(r.y, __fadd_rn(v1, b[n + 1])));
                   });
-#ifdef JCF_BLOCK_PROFILE
-    grid_sync(p.bar, target);
-    PHASE_MARK(7);
-#endif
     // the next chunk's LN1 writes rows_e, which c_fc read before the last
     // barrier; its qkv writes rows_b after the next barrier
   }
@@ -1034,16 +1019,3 @@ extern "C" int jcf_block_float(int f32, const void* x, void* out, void* rows_e, 
              : run<bf16>(x, out, rows_e, rows_b, mid, split, bar, ops, b, n_seq, S, H, F, chunk,
                          scale, s);
 }
-
-#ifdef JCF_BLOCK_PROFILE
-// the profile build's per-phase nanoseconds (8 unsigned long long) into
-// host, then cleared
-extern "C" int jcf_block_float_profile(void* host) {
-  cudaError_t e = cudaMemcpyFromSymbol(host, g_phase_ns, sizeof(g_phase_ns));
-  if (e == cudaSuccess) {
-    const unsigned long long zero[8] = {};
-    e = cudaMemcpyToSymbol(g_phase_ns, zero, sizeof(zero));
-  }
-  return (int)e;
-}
-#endif

@@ -74,8 +74,8 @@ and K9b (``_block_kernel``, csrc/block_float.cu, one template over the
 rows' type): ``block_bf16`` and ``block_f32``, one float layer with an
 additive [S, S] bias, f32 mid, QuickGELU in its sigmoid form; one
 persistent launch a layer whose phases (the LayerNorms, the four
-products on wgmma, f32 as three TF32 products, the attention) walk
-chunks of whole sequences (``_BLOCK_CHUNK``).
+products on wgmma, f32 as three TF32 products, the attention) walk all
+the rows, separated by grid barriers.
 The MLP's f32 chunk partials (``_MLP_NSPLIT`` for K9a/K9c) are added in
 chunk order; a dynamic hidden is quantized per row and per chunk, so the
 chunk count is part of the result. The int8 kernels take the folded tree
@@ -1224,60 +1224,24 @@ def block_f32_plain(x: torch.Tensor, layer: dict, s: int, n_heads: int,
     return _block_float_plain(x, layer, s, n_heads, bias, torch.float32)
 
 
-# K9b's chunks of whole sequences: "all" (one chunk of every row, each
-# intermediate through device memory as between the halves), "l2" (the
-# most sequences whose every phase keeps its operands within L2_BYTES:
-# ``block_chunk_seqs``) or an int (sequences a chunk); read at call time
-_BLOCK_CHUNK = "all"
-# the H100's L2 cache
-L2_BYTES = 50 * 1024 * 1024
-
-
-def block_phase_bytes(rows: int, e: int, hidden: int, dtype: torch.dtype) -> int:
-    """The bytes of K9b's largest phase on a chunk of ``rows`` rows: the
-    phase's activation operands in and out (the rows' dtype; the mid
-    residual f32) and its weights (bf16, or the f32 hi and lo planes)."""
-    t = torch.empty((), dtype=dtype).element_size()
-    tw = 2 if dtype == torch.bfloat16 else 8
-    return max(rows * 2 * e * t,                                       # LN1: x -> h
-               rows * 4 * e * t + 3 * e * e * tw,                      # qkv
-               rows * 4 * e * t,                                       # attention: qkv -> ctx
-               rows * (2 * e * t + 4 * e) + e * e * tw,                # out-proj: ctx, x -> mid
-               rows * (4 * e + e * t),                                 # LN2: mid -> h2
-               rows * (e + hidden) * t + hidden * e * tw,              # c_fc
-               rows * ((hidden + e) * t + 4 * e) + e * hidden * tw)    # c_proj: hid, mid -> out
-
-
-def block_chunk_seqs(n_seq: int, s: int, e: int, hidden: int, dtype: torch.dtype,
-                     budget: int = L2_BYTES) -> int:
-    """The L2 plan: the most whole sequences of ``s`` rows, from 1 to
-    ``n_seq``, whose every phase's operands fit in ``budget`` bytes (one
-    sequence where none does)."""
-    lo, hi = 1, n_seq
-    while lo < hi:
-        mid = (lo + hi + 1) // 2
-        if block_phase_bytes(mid * s, e, hidden, dtype) <= budget:
-            lo = mid
-        else:
-            hi = mid - 1
-    return lo
-
-
-def _block_chunk(n_seq: int, s: int, e: int, hidden: int, dtype: torch.dtype) -> int:
-    c = _BLOCK_CHUNK
-    if c == "all":
+def _chunk_seqs(n_seq: int, chunk: int | None) -> int:
+    """K9b's sequences a chunk: all ``n_seq`` in one chunk, every
+    intermediate through device memory as between the halves (chunks sized
+    so that a phase's operands stay in the 50 MB L2 were 36-52% slower at
+    all four shapes on one H100, as PERF.md records), unless ``chunk``
+    forces fewer; the kernel's last chunk is what is left."""
+    if chunk is None:
         return n_seq
-    if c == "l2":
-        return block_chunk_seqs(n_seq, s, e, hidden, dtype)
-    if isinstance(c, int) and not isinstance(c, bool) and c >= 1:
-        return min(c, n_seq)
-    raise ValueError(f"_BLOCK_CHUNK must be 'all', 'l2' or a positive int, got {c!r}")
+    if isinstance(chunk, bool) or not isinstance(chunk, int) or chunk < 1:
+        raise ValueError(f"chunk must be a positive int of sequences, got {chunk!r}")
+    return min(chunk, n_seq)
 
 
 def _block_float(name: str, x: torch.Tensor, layer: dict, s: int, n_heads: int,
-                 bias: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+                 bias: torch.Tensor, dt: torch.dtype, chunk: int | None = None) -> torch.Tensor:
     """Launches K9b (csrc/block_float.cu) on checked CUDA rows: one
-    persistent launch for the layer, chunk scratch from the wrapper."""
+    persistent launch for the layer, chunk scratch from the wrapper;
+    ``chunk`` (``_chunk_seqs``) is set only by the GPU tests."""
     rows, e = x.shape
     hidden = layer["mlp"]["c_fc"]["w"].shape[0]
     if bias.dtype != torch.float32 or tuple(bias.shape) != (s, s) or bias.device != x.device:
@@ -1296,7 +1260,7 @@ def _block_float(name: str, x: torch.Tensor, layer: dict, s: int, n_heads: int,
     ops = [t.contiguous() for t in ops]
     x = x.contiguous()
     n_seq = rows // s
-    seqs = _block_chunk(n_seq, s, e, hidden, dt)
+    seqs = _chunk_seqs(n_seq, chunk)
     c = seqs * s  # the kernel walks chunks of seqs sequences, the last one what is left
     out = torch.empty_like(x)
     rows_e = torch.empty(c * e, dtype=dt, device=x.device)
@@ -1322,8 +1286,8 @@ def block_bf16(x: torch.Tensor, layer: dict, s: int, n_heads: int,
     """K9b wrapper: the CUDA kernel (csrc/block_float.cu) for CUDA tensors,
     the plain version for CPU tensors. Weights are cast to bf16, biases
     kept f32, as the reference casts them. One persistent launch a layer
-    over chunks of whole sequences (``_BLOCK_CHUNK``), every product on
-    wgmma; it raises where the grid cannot be co-resident."""
+    over all the rows, every product on wgmma; it raises where the grid
+    cannot be co-resident."""
     if not x.is_cuda:
         return block_bf16_plain(x, layer, s, n_heads, bias)
     rows, e = x.shape

@@ -3,7 +3,6 @@ at the four shapes its paths run, beside the halves and one PyTorch layer
 on the same rows, for an A/B of two checkouts on one NVIDIA GPU.
 
     python3 jcf_tpu_torch/scripts/ab_block_float.py [ROOT]   # the card
-    python3 jcf_tpu_torch/scripts/ab_block_float.py --phases  # + K9b's phase split
     python3 jcf_tpu_torch/scripts/ab_block_float.py --device cpu --scale 256 --rounds 1 --reps 1
 
 ``ROOT`` (default: the checkout holding this script) is the checkout
@@ -22,9 +21,8 @@ and one layer of seeded weights (std 0.02, qkv 0.05; LN affines 1 +/-
 of ``--reps`` launches (CUDA events; on the CPU the host clock, where the
 wrappers run their plain versions), eager and, on the card, captured in
 one CUDA graph, of:
-- K9b, under each chunk plan the checkout has (``_BLOCK_CHUNK`` "all"
-  and "l2"), with its launches, its output's SHA-256 and its distance
-  from the plain version;
+- K9b, with its launches, its output's SHA-256 and its distance from the
+  plain version;
 - the halves (K6a + K6b, seven launches);
 - the yardstick, one PyTorch call: ``torch.nn.TransformerEncoderLayer(
   norm_first=True, batch_first=True, dropout=0, activation=QuickGELU)`` in
@@ -34,15 +32,12 @@ one CUDA graph, of:
 Each shape also prints its bound: the products at the bf16 peak (989
 TFLOP/s) or, in f32, as three TF32 products at 495 TFLOP/s (the f32 FMA
 bound at 67 beside it), and the attention at the same peaks, against the
-bytes at 3.35 TB/s. ``--phases`` (this checkout only) builds the kernels
-with ``-DJCF_BLOCK_PROFILE`` and prints the nanoseconds of each of K9b's
-phases as block 0 sees them (the profile build adds one barrier a chunk).
+bytes at 3.35 TB/s.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import importlib.util
 import os
 import sys
@@ -56,7 +51,6 @@ SHAPES = (("bf16 vision", "bfloat16", 8192, 50, 768, False),
           ("bf16 text", "bfloat16", 512, 77, 512, True),
           ("f32 vision", "float32", 4104, 50, 768, False),
           ("f32 text", "float32", 512, 77, 512, True))
-PHASES = ("split", "LN1", "qkv", "attention", "out-proj", "LN2", "c_fc", "c_proj")
 
 
 def _load(name: str):
@@ -126,8 +120,8 @@ def bound_ms(rows: int, s: int, e: int, hidden: int, heads: int, causal: bool, f
     return max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations", fma
 
 
-def run(root: str = ROOT, device="cuda", scale: int = 1, rounds: int = 7, reps: int = 10,
-        phases: bool = False) -> dict:
+def run(root: str = ROOT, device="cuda", scale: int = 1, rounds: int = 7,
+        reps: int = 10) -> dict:
     """Times every shape above from ``root``'s package -> {label: median ms}."""
     ab = _load("ab_gemm")
     qr = _load("ab_quant_rows")
@@ -142,18 +136,13 @@ def run(root: str = ROOT, device="cuda", scale: int = 1, rounds: int = 7, reps: 
     from jcf_tpu_torch.ops.attention import causal_mask
     from jcf_tpu_torch.scripts.common import card_line
 
-    lib = None
-    if phases:
-        _build.NVCC_FLAGS.append("-DJCF_BLOCK_PROFILE")
-        _build.SIGNATURES["jcf_block_float_profile"] = [ctypes.c_void_p]
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-        lib = _build.load()
+        _build.load()
     print(card_line(device), flush=True)
     print(f"package: {package}", flush=True)
-    plans = ("all", "l2") if hasattr(bk, "_BLOCK_CHUNK") else (None,)
     res = {}
 
     def timed(label, launch):
@@ -182,31 +171,16 @@ def run(root: str = ROOT, device="cuda", scale: int = 1, rounds: int = 7, reps: 
         plain = bk.block_bf16_plain if dt == torch.bfloat16 else bk.block_f32_plain
         name = kern.__name__
         ref = plain(x, layer, s, heads, bias).float()
-        for plan in plans:
-            if plan is not None:
-                bk._BLOCK_CHUNK = plan
-            lab = f"{name} {label}" + (f" chunk {plan}" if plan is not None else "")
-            before = bk.LAUNCHES[name]
-            got = kern(x, layer, s, heads, bias).float()
-            d = (got - ref).abs()
-            cos = float(torch.nn.functional.cosine_similarity(got, ref).min())
-            print(f"{lab}: launches {bk.LAUNCHES[name] - before}, vs plain max |diff| "
-                  f"{float(d.max()):.3e}, over 1e-5 + 1e-5 |ref| "
-                  f"{int((d > 1e-5 + 1e-5 * ref.abs()).sum())}, min row cos {cos:.7f}", flush=True)
-            del got, d
-            timed(lab, lambda: kern(x, layer, s, heads, bias))
-            if phases and plan is not None and lib is not None:
-                ns = (ctypes.c_ulonglong * len(PHASES))()
-                _build.check(lib.jcf_block_float_profile(ctypes.addressof(ns)), "profile")
-                for _ in range(reps):
-                    kern(x, layer, s, heads, bias)
-                torch.cuda.synchronize(device)
-                _build.check(lib.jcf_block_float_profile(ctypes.addressof(ns)), "profile")
-                print(f"{lab}: phases, ms per launch over {reps}: "
-                      + ", ".join(f"{p} {v / reps / 1e6:.4f}" for p, v in zip(PHASES, ns))
-                      + f"; sum {sum(ns) / reps / 1e6:.4f}", flush=True)
-        if plans != (None,):
-            bk._BLOCK_CHUNK = "all"
+        lab = f"{name} {label}"
+        before = bk.LAUNCHES[name]
+        got = kern(x, layer, s, heads, bias).float()
+        d = (got - ref).abs()
+        cos = float(torch.nn.functional.cosine_similarity(got, ref).min())
+        print(f"{lab}: launches {bk.LAUNCHES[name] - before}, vs plain max |diff| "
+              f"{float(d.max()):.3e}, over 1e-5 + 1e-5 |ref| "
+              f"{int((d > 1e-5 + 1e-5 * ref.abs()).sum())}, min row cos {cos:.7f}", flush=True)
+        del got, d
+        timed(lab, lambda: kern(x, layer, s, heads, bias))
         timed(f"halves {label}",
               lambda: bk.mlp_half(bk.attn_half(x, layer, s, heads, causal=causal), layer))
         mod = yardstick(layer, e, heads, dt, device)
@@ -227,10 +201,8 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=int, default=1, help="divides every sequence count")
     ap.add_argument("--rounds", type=int, default=7)
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--phases", action="store_true",
-                    help="build with -DJCF_BLOCK_PROFILE and print K9b's phases")
     args = ap.parse_args(argv)
-    run(args.root, args.device, args.scale, args.rounds, args.reps, args.phases)
+    run(args.root, args.device, args.scale, args.rounds, args.reps)
     return 0
 
 

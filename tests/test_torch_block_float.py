@@ -1,5 +1,5 @@
 """K9b (``csrc/block_float.cu``) on the CPU: its f32 arithmetic and the
-wrapper's chunk plan.
+wrapper's chunk and operand checks.
 
 The kernel runs only on the card. Here:
 - its f32 math: ``block_f32_plain`` with every product taken as the
@@ -11,9 +11,10 @@ The kernel runs only on the card. Here:
   f32 bar of the card (1e-5 + 1e-5 |ref|): S = 77 causal, S = 50 with a
   zero bias, and a 3072-wide hidden on one and two sequences (the error
   of the split through both LayerNorms and the widest product);
-- the chunk plan (``block_chunk_seqs``, ``_BLOCK_CHUNK``): whole sequences, every phase's operands within the
-  L2 budget (recomputed here phase by phase), the most sequences that
-  fit, a partial last chunk, and refusals of a bad knob;
+- the wrapper's chunk (``_chunk_seqs``): all the sequences unless a GPU
+  test forces fewer, whole sequences with a partial last chunk, and
+  refusals of a bad chunk; and ``_block_float``'s refusals of operands
+  it does not take, before anything reaches the card;
 - ``scripts/ab_block_float.py`` at a small size with JAX blocked.
 """
 
@@ -84,62 +85,57 @@ def _chunk_rows(n_seq, s, chunk):
     return [min(chunk, n_seq - q) * s for q in range(0, n_seq, chunk)]
 
 
-def _phases(rows, e, hidden, t, tw):
-    """K9b's phases' operand bytes on ``rows`` rows, each phase written
-    out: (activations in and out, weights)."""
-    return [rows * e * t + rows * e * t,                                   # LN1
-            rows * e * t + rows * 3 * e * t + 3 * e * e * tw,              # qkv
-            rows * 3 * e * t + rows * e * t,                               # attention
-            rows * e * t + rows * e * t + rows * e * 4 + e * e * tw,       # out-proj
-            rows * e * 4 + rows * e * t,                                   # LN2
-            rows * e * t + rows * hidden * t + hidden * e * tw,            # c_fc
-            rows * hidden * t + rows * e * 4 + rows * e * t + e * hidden * tw]  # c_proj
-
-
-@pytest.mark.parametrize("dtype,t,tw", [(torch.bfloat16, 2, 2), (torch.float32, 4, 8)])
-@pytest.mark.parametrize("n_seq,s,e,hidden", [(8192, 50, 768, 3072), (4104, 50, 768, 3072),
-                                              (512, 77, 512, 2048), (403, 77, 512, 2048),
-                                              (3, 17, 128, 512)])
-def test_chunk_plan_takes_whole_sequences_within_l2(dtype, t, tw, n_seq, s, e, hidden):
-    k = tbk.block_chunk_seqs(n_seq, s, e, hidden, dtype)
-    assert 1 <= k <= n_seq
-    for rows in (k * s, (k + 1) * s):
-        assert tbk.block_phase_bytes(rows, e, hidden, dtype) == max(_phases(rows, e, hidden, t, tw))
-    # within the budget, and the most sequences that are
-    assert max(_phases(k * s, e, hidden, t, tw)) <= tbk.L2_BYTES
-    assert k == n_seq or max(_phases((k + 1) * s, e, hidden, t, tw)) > tbk.L2_BYTES
-    rows = _chunk_rows(n_seq, s, k)
-    assert sum(rows) == n_seq * s and all(r % s == 0 and 0 < r <= k * s for r in rows)
-    assert rows[:-1] == [k * s] * (len(rows) - 1)
-
-
-@pytest.mark.parametrize("n_seq,dtype", [(8192, torch.bfloat16), (4104, torch.bfloat16),
-                                         (8192, torch.float32)])
-def test_chunk_plan_ends_on_a_partial_chunk(n_seq, dtype):
-    """The plan at these vision shapes does not divide the sequences: the
-    kernel's last chunk is partial."""
-    k = tbk.block_chunk_seqs(n_seq, 50, 768, 3072, dtype)
+@pytest.mark.parametrize("n_seq,chunk,want", [(9, None, 9), (1, None, 1), (9, 4, 4), (9, 20, 9),
+                                              (9, 1, 1), (8192, None, 8192)])
+def test_chunk_seqs_takes_whole_sequences(n_seq, chunk, want):
+    """All the sequences in one chunk unless a chunk is forced; forced, at
+    most all of them, the last chunk partial where it does not divide."""
+    k = tbk._chunk_seqs(n_seq, chunk)
+    assert k == want
     rows = _chunk_rows(n_seq, 50, k)
-    assert n_seq % k and rows[-1] == n_seq % k * 50 < k * 50
+    assert sum(rows) == n_seq * 50 and rows[:-1] == [k * 50] * (len(rows) - 1)
+    assert rows[-1] == (n_seq % k or k) * 50
 
 
-def test_chunk_plan_gives_one_sequence_where_none_fits():
-    assert tbk.block_chunk_seqs(9, 77, 512, 2048, torch.float32, budget=1) == 1
+@pytest.mark.parametrize("chunk", ["all", 0, -2, 2.5, True])
+def test_chunk_seqs_refuses(chunk):
+    with pytest.raises(ValueError, match="chunk"):
+        tbk._chunk_seqs(9, chunk)
 
 
-@pytest.mark.parametrize("knob,want", [("all", 9), ("l2", None), (4, 4), (20, 9), (1, 1)])
-def test_block_chunk_knob(monkeypatch, knob, want):
-    monkeypatch.setattr(tbk, "_BLOCK_CHUNK", knob)
-    got = tbk._block_chunk(9, 50, 768, 3072, torch.bfloat16)
-    assert got == (want if want is not None else
-                   tbk.block_chunk_seqs(9, 50, 768, 3072, torch.bfloat16))
+def _torch_layer(e, hidden):
+    return jax.tree_util.tree_map(lambda a: torch.from_numpy(np.array(a[0])), _layer(e, hidden, 0))
 
 
-@pytest.mark.parametrize("knob", ["some", 0, -2, 2.5, True])
-def test_block_chunk_knob_refuses(monkeypatch, knob):
-    monkeypatch.setattr(tbk, "_BLOCK_CHUNK", knob)
-    with pytest.raises(ValueError, match="_BLOCK_CHUNK"):
-        tbk._block_chunk(9, 50, 768, 3072, torch.bfloat16)
+def _bad_operand(kind, layer, s):
+    """(layer, bias) with one operand ``_block_float`` does not take (for
+    "chunk", both as it takes them)."""
+    bias = torch.zeros(s, s)
+    if kind == "bias dtype":
+        return layer, bias.bfloat16()
+    if kind == "bias shape":
+        return layer, torch.zeros(s, s + 1)
+    if kind == "qkv shape":
+        layer["attn"]["w_qkv"] = layer["attn"]["w_qkv"][:-1]
+    elif kind == "ln bias":
+        layer["ln_2"]["bias"] = layer["ln_2"]["bias"][:-1]
+    elif kind == "c_proj shape":
+        layer["mlp"]["c_proj"]["w"] = layer["mlp"]["c_proj"]["w"].T.contiguous()
+    return layer, bias
+
+
+@pytest.mark.parametrize("kind,match", [("bias dtype", "bias"), ("bias shape", "bias"),
+                                        ("qkv shape", "operand 2"), ("ln bias", "operand 7"),
+                                        ("c_proj shape", "operand 10"), ("chunk", "chunk")])
+def test_block_float_refuses_before_the_launch(kind, match):
+    """Each refusal comes before the kernel library is loaded (which needs
+    the card), so it is seen here on CPU tensors."""
+    s, e, hidden = 17, 128, 512
+    layer, bias = _bad_operand(kind, _torch_layer(e, hidden), s)
+    x = torch.zeros(2 * s, e)
+    with pytest.raises(ValueError, match=match):
+        tbk._block_float("block_f32", x, layer, s, 2, bias, torch.float32,
+                         chunk=0 if kind == "chunk" else None)
 
 
 _AB_BLOCKED = """
@@ -155,9 +151,9 @@ assert not loaded & {"jax", "jcf_tpu"}, loaded
 
 def test_ab_block_float_runs_on_the_cpu_without_jax():
     """The A/B script at 1/1024 of its shapes on the CPU with JAX blocked:
-    the device line, the package, then per shape its bound, each chunk
-    plan's check against plain (the plain version itself here) and time,
-    the halves' and the yardstick's."""
+    the device line, the package, then per shape its bound, K9b's check
+    against plain (the plain version itself here) and time, the halves'
+    and the yardstick's."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -170,10 +166,8 @@ def test_ab_block_float_runs_on_the_cpu_without_jax():
     for tag, rows in (("bf16 vision", "8 x 50 x 768"), ("bf16 text", "1 x 77 x 512"),
                       ("f32 vision", "4 x 50 x 768"), ("f32 text", "1 x 77 x 512")):
         name = "block_bf16" if tag.startswith("bf16") else "block_f32"
-        labels += [f"{tag}, {rows}"]
-        for plan in ("all", "l2"):
-            labels += [f"{name} {tag}, {rows} chunk {plan}"] * 2
+        labels += [f"{tag}, {rows}"] + [f"{name} {tag}, {rows}"] * 2
         labels += [f"halves {tag}, {rows}", f"yardstick TransformerEncoderLayer {tag}, {rows}"]
     assert [line.split(":")[0] for line in lines[2:]] == labels
     checks = [line for line in lines if "vs plain" in line]
-    assert len(checks) == 8 and all("max |diff| 0.000e+00" in line for line in checks)
+    assert len(checks) == 4 and all("max |diff| 0.000e+00" in line for line in checks)

@@ -718,17 +718,18 @@ def test_block_bf16_kernel_shapes(cuda, width, s, bias):
     _rows_close(got, bk.block_bf16_plain(x, layer, s, h, b))
 
 
-@pytest.mark.parametrize("n_seq,chunk", [(1, "all"), (1, "l2"), (7, 3), (5, 2), (4, 1), (9, "l2")])
-def test_block_bf16_kernel_chunks(cuda, monkeypatch, n_seq, chunk):
+@pytest.mark.parametrize("n_seq,chunk", [(1, None), (9, 4), (7, 3), (5, 2), (4, 1), (9, None)])
+def test_block_bf16_kernel_chunks(cuda, n_seq, chunk):
     """K9b in bf16 over forced chunks of whole sequences (a partial last
-    one where the chunk does not divide them), one sequence, and the L2
-    plan, against its plain version."""
-    monkeypatch.setattr(bk, "_BLOCK_CHUNK", chunk)
+    one where the chunk does not divide them), one sequence, and all the
+    sequences in one chunk (None, the wrappers' default), against its
+    plain version."""
     layer = _float_layer(768, cuda, n_seq)
     x = torch.randn(n_seq * 77, 768, device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(n_seq)).bfloat16()
     b = at.causal_mask(77, cuda)
-    _rows_close(bk.block_bf16(x, layer, 77, 12, b), bk.block_bf16_plain(x, layer, 77, 12, b))
+    got = bk._block_float("block_bf16", x, layer, 77, 12, b, torch.bfloat16, chunk=chunk)
+    _rows_close(got, bk.block_bf16_plain(x, layer, 77, 12, b))
 
 
 @pytest.mark.parametrize("dtype,name", [(torch.bfloat16, "block_bf16"), (torch.float32, "block_f32")])
@@ -742,7 +743,6 @@ def test_block_float_is_one_launch_a_layer(cuda, monkeypatch, dtype, name):
     x = torch.randn(5 * 50, 256, device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(5)).to(dtype)
     monkeypatch.setattr(bk, "_FUSE", "block")
-    monkeypatch.setattr(bk, "_BLOCK_CHUNK", 2)
     before, before_g, before_f = dict(bk.LAUNCHES), dict(bg.LAUNCHES), dict(fg.LAUNCHES)
     got = bk.run_float_tower(x, blocks, 4, s=50, causal=False)
     assert {k: bk.LAUNCHES[k] - before[k] for k in before if bk.LAUNCHES[k] != before[k]} == {name: 2}

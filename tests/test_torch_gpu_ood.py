@@ -97,17 +97,18 @@ def test_block_f32_kernel_shapes(cuda, width, s, bias):
     _f32_close(got, bk.block_f32_plain(x, layer, s, h, b))
 
 
-@pytest.mark.parametrize("n_seq,chunk", [(1, "all"), (1, "l2"), (7, 3), (5, 2), (4, 1), (9, "l2")])
-def test_block_f32_kernel_chunks(cuda, monkeypatch, n_seq, chunk):
+@pytest.mark.parametrize("n_seq,chunk", [(1, None), (9, 4), (7, 3), (5, 2), (4, 1), (9, None)])
+def test_block_f32_kernel_chunks(cuda, n_seq, chunk):
     """K9b in f32 over forced chunks of whole sequences (a partial last
-    one where the chunk does not divide them), one sequence, and the L2
-    plan, against its plain version."""
-    monkeypatch.setattr(bk, "_BLOCK_CHUNK", chunk)
+    one where the chunk does not divide them), one sequence, and all the
+    sequences in one chunk (None, the wrappers' default), against its
+    plain version."""
     layer = _layer(768, 3072, cuda, n_seq)
     x = torch.randn(n_seq * 50, 768, device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(n_seq))
     b = torch.zeros(50, 50, device=cuda)
-    _f32_close(bk.block_f32(x, layer, 50, 12, b), bk.block_f32_plain(x, layer, 50, 12, b))
+    got = bk._block_float("block_f32", x, layer, 50, 12, b, torch.float32, chunk=chunk)
+    _f32_close(got, bk.block_f32_plain(x, layer, 50, 12, b))
 
 
 def test_block_f32_refuses_what_it_does_not_take(cuda):
