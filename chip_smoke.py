@@ -307,9 +307,12 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12  # f32 outside the tensor cores
 PEAK_TF32 = 495e12  # TF32 on the tensor cores (the f32 GEMM's three passes)
 
-# the int8 layer kernel K9a / K9c / K9d: a template there, its instances
-# built from csrc/fused_int8_*.cu
+# the int8 layer kernel K9d and K9a's masked and non-dense branches: a
+# template there, its instances built from csrc/fused_int8_*.cu
 FUSED_INT8_SRC = "jcf_tpu_torch/csrc/fused_layer.cuh"
+# K9a's dense branches and K9c: the persistent int8 layer kernel, its
+# instances built from csrc/block_int8_*.cu
+K9_PERSISTENT_SRC = "jcf_tpu_torch/csrc/block_int8.cu"
 # kernel -> (path, source, TPU kernel it replaces); the int8 patch-embed
 # GEMM replaces an XLA convolution, not a Pallas kernel
 KERNELS = {
@@ -346,11 +349,11 @@ KERNELS = {
     "int8_gemm_rowscale": ("serving_b16", "jcf_tpu_torch/csrc/int8_gemm.cu",
                            "jcf_tpu/ops/quant.py:41"),
     # the whole-layer routes (_FUSE), phase 9
-    "block_int8": ("serving_block", FUSED_INT8_SRC,
+    "block_int8": ("serving_block", K9_PERSISTENT_SRC,
                    "jcf_tpu/ops/block_kernel.py:732"),
     "layer_fused_int8": ("serving_layer", FUSED_INT8_SRC,
                          "jcf_tpu/ops/block_kernel.py:1672"),
-    "stream_tower_int8": ("serving_stream", FUSED_INT8_SRC,
+    "stream_tower_int8": ("serving_stream", K9_PERSISTENT_SRC,
                           "jcf_tpu/ops/block_kernel.py:833"),
     "block_bf16": ("classifier_block", "jcf_tpu_torch/csrc/block_float.cu",
                    "jcf_tpu/ops/block_kernel.py:948"),
@@ -1570,6 +1573,15 @@ def check_layer(name, got, ref, elementwise=True):
     return float(d.max())
 
 
+def one_layer_tree(tree, i):
+    """Layer i of a stacked int8 tree as a stacked tree of one layer."""
+    out = {k: v for k, v in tree.items() if k not in ("attn", "mlp")}
+    for half in ("attn", "mlp"):
+        out[half] = {k: (type(v)(*(t[i:i + 1] for t in v)) if isinstance(v, tuple) else v[i:i + 1])
+                     for k, v in tree[half].items()}
+    return out
+
+
 def layer_work(rows, e, hidden, heads, pairs, n_bytes, peak, n_layers=1):
     """The bound of ``n_layers`` whole layers on ``rows`` rows: the
     products' E (4E + 2 hidden) multiply-adds per row at ``peak``, the
@@ -1635,21 +1647,27 @@ def fused_serving_phase(engine, images, geometry, text, modes_halves, modes_f, c
                            layer_work(n_rows, e, hidden, heads, pairs,
                                       2 * nbytes(rows) + n_layers * w_bytes, PEAK_INT8, n_layers),
                            reps=2)
-            # K9c's layer loop against K9d launched layer by layer at the
-            # same chunk count: one device body, so equal bit for bit
-            nsplit, bk._LAYER_NSPLIT = bk._LAYER_NSPLIT, bk._MLP_NSPLIT
-            try:
-                chain = rows
-                for i in range(n_layers):
-                    chain = bk.layer_fused_int8(chain, layer_slice(quant, i), s, heads)
-            finally:
-                bk._LAYER_NSPLIT = nsplit
+            # K9c's layer loop against the same kernel launched layer by
+            # layer on one-layer slices of the tree: one device body, so
+            # equal bit for bit; and at one hidden chunk against the
+            # halves layer by layer, which run the same bodies and
+            # roundings (printed, not gated, where they differ)
+            chain, halves = rows, rows
+            for i in range(n_layers):
+                chain = bk.stream_tower_int8(chain, one_layer_tree(quant, i), heads, s=s)
             same = torch.equal(chain, tower)
-            log(f"  stream_tower_int8 vs {n_layers} layer_fused_int8 launches at "
-                f"{bk._MLP_NSPLIT} chunk(s): {'equal' if same else 'NOT equal'} (tol: bit for bit)")
+            log(f"  stream_tower_int8 vs {n_layers} one-layer stream_tower_int8 launches: "
+                f"{'equal' if same else 'NOT equal'} (tol: bit for bit)")
             if not same:
-                raise AssertionError("K9c's layer loop disagrees with K9d layer by layer")
-            del tower, chain
+                raise AssertionError("K9c's layer loop disagrees with its own layers one by one")
+            if bk._MLP_NSPLIT == 1:
+                for i in range(n_layers):
+                    halves = bk._halves_int8(halves, layer_slice(quant, i), s, heads)
+                diff = float((halves.float() - tower.float()).abs().max())
+                log(f"  stream_tower_int8 vs {n_layers} _halves_int8 layers at 1 chunk: "
+                    f"{'equal' if torch.equal(halves, tower) else 'NOT equal'}, max |diff| "
+                    f"{diff:.3e}")
+            del tower, chain, halves
         else:
             kern, plain = getattr(bk, name), getattr(bk, f"{name}_plain")
             ph.run(name, lambda: kern(rows, layer0, s, heads), lambda: plain(rows, layer0, s, heads),
@@ -4172,15 +4190,15 @@ KERNELS.update({
                              "jcf_tpu/ops/block_kernel.py:732"),
     "block_int8/nondense": ("engine_nondense_block", FUSED_INT8_SRC,
                             "jcf_tpu/ops/block_kernel.py:732"),
-    **{f"{name}/{branch}": (f"{path}_{fuse}", FUSED_INT8_SRC, KERNELS[name][2])
+    **{f"{name}/{branch}": (f"{path}_{fuse}", KERNELS[name][1], KERNELS[name][2])
        for fuse, name in K9_OF.items()
        for branch, path in (("unfolded", "tower_unfolded"), ("long", "serving_288"))},
 })
 # the K9 kernels in the modes phase 14 adds: jcf-predict's dynamic towers
 # (14b) and the calibrated modes on the serving route (14c)
-KERNELS.update({f"{name}/dynamic": (f"predict_{fuse}", FUSED_INT8_SRC, KERNELS[name][2])
+KERNELS.update({f"{name}/dynamic": (f"predict_{fuse}", KERNELS[name][1], KERNELS[name][2])
                 for fuse, name in K9_OF.items()})
-KERNELS.update({f"{name}/{mode}": (f"modes_{fuse}_{mode}", FUSED_INT8_SRC, KERNELS[name][2])
+KERNELS.update({f"{name}/{mode}": (f"modes_{fuse}_{mode}", KERNELS[name][1], KERNELS[name][2])
                 for mode in K9_MODES for fuse, name in K9_OF.items()})
 
 

@@ -57,7 +57,7 @@ SIGNATURES = {
                               _F, _I, _P],
     "jcf_block_int8": [*[_P] * 25, *[_I] * 7, _P],
     "jcf_layer_fused_int8": [*[_P] * 25, *[_I] * 7, _P],
-    "jcf_stream_tower_int8": [*[_P] * 25, *[_I] * 7, _P],
+    "jcf_int8_layers": [_I, *[_P] * 31, *[_I] * 8, _P],
     "jcf_int8_xq_scratch": [_I] * 6,
     "jcf_block_float": [_I, *[_P] * 20, _I, _I, _I, _I, _I, _F, _P],
     "jcf_jpeg_idct": [_P, _P, _I, _I, _I, _P, _P],

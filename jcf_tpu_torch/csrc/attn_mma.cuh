@@ -24,18 +24,22 @@ constexpr int ATT_D = 64;  // head dim
 // the A fragments of a 16 x 64 query tile from device memory: q is the
 // tile's row 0, ld its row stride in elements (even), rows >= n_rows read
 // as 0; a[kk] is the k16 step over dims 16 kk ..
+template <bool CG = false>
 __device__ __forceinline__ void load_q_tile(unsigned (&a)[4][4], const bf16* q, long long ld,
                                             int n_rows) {
   const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
   const bool ok0 = g < n_rows, ok1 = g + 8 < n_rows;
   const unsigned* r0 = reinterpret_cast<const unsigned*>(q + g * ld + tig * 2);
   const unsigned* r1 = reinterpret_cast<const unsigned*>(q + (g + 8) * ld + tig * 2);
+  // CG: q written earlier in the same launch, read through L2 (the
+  // non-coherent path of __ldg may hold stale lines)
+  auto ld32 = [](const unsigned* p) { return CG ? __ldcg(p) : __ldg(p); };
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = ok0 ? __ldg(r0 + kk * 8) : 0u;
-    a[kk][1] = ok1 ? __ldg(r1 + kk * 8) : 0u;
-    a[kk][2] = ok0 ? __ldg(r0 + kk * 8 + 4) : 0u;
-    a[kk][3] = ok1 ? __ldg(r1 + kk * 8 + 4) : 0u;
+    a[kk][0] = ok0 ? ld32(r0 + kk * 8) : 0u;
+    a[kk][1] = ok1 ? ld32(r1 + kk * 8) : 0u;
+    a[kk][2] = ok0 ? ld32(r0 + kk * 8 + 4) : 0u;
+    a[kk][3] = ok1 ? ld32(r1 + kk * 8 + 4) : 0u;
   }
 }
 

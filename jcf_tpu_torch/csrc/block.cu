@@ -16,6 +16,7 @@
 #include "common.cuh"
 #include "pair_attention.cuh"
 #include "pair_mma.cuh"
+#include "row_quant.cuh"
 
 namespace {
 
@@ -102,16 +103,8 @@ __global__ void __launch_bounds__(LNQ_WARPS * 32) ln_quant_kernel(
   }
 }
 
-// four int8 values round(y * inv) clipped to +-127, packed little-endian
-__device__ __forceinline__ unsigned quant_pack4(const float* y, float inv) {
-  unsigned w = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    w |= (unsigned)(uint8_t)round_clip_int8(__fmul_rn(y[i], inv)) << (8 * i);
-  return w;
-}
-
-// CPL chunks a lane, E = 32 * CPL * V: every lane holds CPL chunks
+// CPL chunks a lane, E = 32 * CPL * V: every lane holds CPL chunks; the
+// row body is row_quant.cuh's ln_quant_vec_row, shared with K9a / K9c
 template <typename T, int CPL, bool DYN, bool AFFINE>
 __global__ void __launch_bounds__(LNQ_WARPS * 32) ln_quant_vec_kernel(
     const T* __restrict__ x, const float* __restrict__ g, const float* __restrict__ b,
@@ -149,37 +142,8 @@ __global__ void __launch_bounds__(LNQ_WARPS * 32) ln_quant_vec_kernel(
   if (row < M) load(cur, row);
   for (; row < M; row += stride) {
     if (row + stride < M) load(nxt, row + stride);
-    float v[CPL][V];
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) lnv_unpack(cur[k], v[k]);
-    const float2 st = ln_vec_stats<CPL, V>(v, live, E);
-    float amax = 0.0f;
-#pragma unroll
-    for (int k = 0; k < CPL; ++k)
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        float y = __fmul_rn(__fsub_rn(v[k][i], st.x), st.y);
-        if constexpr (AFFINE) y = __fadd_rn(__fmul_rn(y, ga[k][i]), ba[k][i]);
-        v[k][i] = y;
-        if constexpr (DYN) amax = fmaxf(amax, fabsf(y));
-      }
-    float inv = inv_static;
-    if constexpr (DYN) {
-      amax = fmaxf(warp_max(amax), 1e-8f);
-      inv = __fdiv_rn(127.0f, amax);
-      if (lane == 0) scale[row] = __fmul_rn(amax, 1.0f / 127.0f);
-    }
-    int8_t* o = out + row * E;
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) {
-      const int c = lane + 32 * k;
-      if constexpr (V == 8) {
-        reinterpret_cast<uint2*>(o)[c] =
-            make_uint2(quant_pack4(&v[k][0], inv), quant_pack4(&v[k][4], inv));
-      } else {
-        reinterpret_cast<unsigned*>(o)[c] = quant_pack4(&v[k][0], inv);
-      }
-    }
+    ln_quant_vec_row<T, CPL, DYN, AFFINE>(cur, live, E, ga, ba, inv_static, out + row * E,
+                                          DYN ? scale + row : nullptr);
 #pragma unroll
     for (int k = 0; k < CPL; ++k) cur[k] = nxt[k];
   }
@@ -220,12 +184,6 @@ __global__ void __launch_bounds__(LNQ_WARPS * 32) ln_quant_vec_kernel(
 
 constexpr int QR_THREADS = 256;
 constexpr int QR_PER = 16;  // N <= 4096
-
-template <bool GELU>
-__device__ __forceinline__ float quick_gelu_tanh(float h) {
-  if (!GELU) return h;
-  return __fmul_rn(h, __fadd_rn(0.5f, __fmul_rn(0.5f, tanhf(__fmul_rn(0.851f, h)))));
-}
 
 template <bool GELU>
 __global__ void __launch_bounds__(QR_THREADS) quant_rows_kernel(
@@ -299,34 +257,20 @@ __global__ void __launch_bounds__(qrv_threads(G)) quant_rows_vec_kernel(
   if (row < M) load(cur, row);
   for (int it = 0; row < M; row += stride, ++it) {
     if (row + stride < M) load(nxt, row + stride);
-    float v[CPL][4];
-    float amax = 0.0f;
+    quant_rows_vec_row<GELU, G, CPL>(cur, live, t, reinterpret_cast<unsigned*>(out + row * N),
+                                     scale + row, [&](float amax) {
+      amax = warp_max(amax);
+      if constexpr (G > 1) {
+        // the block is one row group; the maxima alternate between two
+        // slots, so a row's writes never meet the previous row's reads
+        if (lane == 0) red[it & 1][warp] = amax;
+        __syncthreads();
+        amax = red[it & 1][0];
 #pragma unroll
-    for (int k = 0; k < CPL; ++k) {
-      lnv_unpack(cur[k], v[k]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        v[k][i] = quick_gelu_tanh<GELU>(v[k][i]);
-        if (live[k]) amax = fmaxf(amax, fabsf(v[k][i]));
+        for (int w = 1; w < G; ++w) amax = fmaxf(amax, red[it & 1][w]);
       }
-    }
-    amax = warp_max(amax);
-    if constexpr (G > 1) {
-      // the block is one row group; the maxima alternate between two
-      // slots, so a row's writes never meet the previous row's reads
-      if (lane == 0) red[it & 1][warp] = amax;
-      __syncthreads();
-      amax = red[it & 1][0];
-#pragma unroll
-      for (int w = 1; w < G; ++w) amax = fmaxf(amax, red[it & 1][w]);
-    }
-    amax = fmaxf(amax, 1e-8f);
-    const float inv = __fdiv_rn(127.0f, amax);
-    if (t == 0) scale[row] = __fmul_rn(amax, 1.0f / 127.0f);
-    unsigned* o = reinterpret_cast<unsigned*>(out + row * N);
-#pragma unroll
-    for (int k = 0; k < CPL; ++k)
-      if (live[k]) o[t + 32 * G * k] = quant_pack4(v[k], inv);
+      return amax;
+    });
 #pragma unroll
     for (int k = 0; k < CPL; ++k) cur[k] = nxt[k];
   }

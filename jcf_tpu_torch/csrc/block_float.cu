@@ -68,7 +68,9 @@
 // __ldcg, TMA), never the non-coherent or L1 paths, and each phase ends
 // with a proxy fence so that TMA sees the generic writes. Every wait is
 // bounded by the global timer: a barrier that does not complete within
-// BF_WAIT_NS traps instead of holding the card.
+// PHASE_WAIT_NS traps instead of holding the card. The grid barrier, the
+// producer, the tile walk and the launch are persistent.cuh's, shared with
+// the int8 layer kernel (block_int8.cuh).
 //
 // What bounds it on the H100: the products' operations, E (4E + 2F)
 // multiply-adds a row: 5.9 ms at the bf16 peak for 8192 x 50 at E = 768;
@@ -79,13 +81,13 @@
 // reciprocal), and an attention that shares the SM with nothing: 18 (bf16)
 // or 9 (f32) warps an SM, where the halves' attention kernels run more.
 #include "attn_f32.cuh"
-#include "wgmma_gemm.cuh"
+#include "persistent.cuh"
 
 namespace {
 
 constexpr int BF_THREADS = GEMM_THREADS_WG;  // 8 consumer warps + the producer warp
 constexpr int BF_WARPS = BF_THREADS / 32;
-constexpr int BF_BN = 128;
+constexpr int BF_BN = PHASE_BN;
 constexpr int BF_MAX_SEQ = 80;
 constexpr int BF_ATT_LD = 72;  // padded shared row of one head's Q, K or V (bf16)
 // floats of one f32 attention unit's Q [80][AF_LD], K [96][AF_LD] and V
@@ -151,155 +153,6 @@ struct Params {
   int n_seq, S, H, F, chunk;  // chunk: sequences a chunk
   float scale;
 };
-
-// ---------------------------------------------------------------------------
-// the grid barrier
-// ---------------------------------------------------------------------------
-
-// a wait that would never end (a block that is not co-resident, a fault
-// in the phases' logic) traps once BF_WAIT_NS have passed on the global
-// timer instead of holding the card; the longest wait of a correct launch
-// is one phase (11 ms at the vision shapes on one H100)
-constexpr unsigned long long BF_WAIT_NS = 10ull * 1000 * 1000 * 1000;
-
-__device__ __forceinline__ unsigned long long now_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// a wait's clock, called on each failed poll: the timer is read every
-// 64th; expired() once BF_WAIT_NS have passed since its first reading
-struct WaitClock {
-  unsigned long long t0 = 0;
-  unsigned n = 0;
-  __device__ __forceinline__ bool expired() {
-    if (++n & 63) return false;
-    const unsigned long long t = now_ns();
-    if (t0 == 0) t0 = t;
-    return t - t0 > BF_WAIT_NS;
-  }
-};
-
-// every thread's writes so far are visible to every block after it, to
-// loads and to TMA; target counts the arrivals of the barriers so far
-__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target) {
-  asm volatile("fence.proxy.async;\n" ::: "memory");
-  __syncthreads();
-  target += gridDim.x;
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(bar, 1u);
-    unsigned seen;
-    WaitClock clock;
-    for (;;) {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(bar) : "memory");
-      if (seen >= target) break;
-      if (clock.expired()) __trap();
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------------------
-// the GEMM phases
-// ---------------------------------------------------------------------------
-
-// the ring's position, and (the producer's) the tile counter's value at
-// the start of the phase: each phase takes tiles + gridDim.x of it, every
-// block's producer drawing once past the phase's last tile
-struct RingPos {
-  int stage = 0;
-  uint32_t phase = 0;
-  unsigned base = 0;
-};
-
-// mbar_wait (wgmma_gemm.cuh), bounded as the grid barrier's spin
-__device__ __forceinline__ void ring_wait(uint32_t bar, uint32_t parity) {
-  WaitClock clock;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.b32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock.expired()) __trap();
-  }
-}
-
-// the producer thread: draws the phase's tiles (N-fastest) from the
-// global counter ctr as the ring frees, so that a block that falls behind
-// takes fewer; writes each tile's index into its first stage's slot (-1
-// past the last: the stage then carries no bytes and ends the phase) and
-// loads each tile's K slices into the ring; mb2 the lo plane (f32)
-template <class R>
-__device__ __forceinline__ void produce(const CUtensorMap* ma, const CUtensorMap* mb,
-                                        const CUtensorMap* mb2, int tiles, int tiles_n,
-                                        int k_steps, uint32_t ring, uint32_t full0,
-                                        uint32_t empty0, volatile int* slots, unsigned* ctr,
-                                        RingPos& rp) {
-  asm volatile("fence.proxy.async;\n" ::: "memory");
-  for (;;) {
-    const int t = (int)(atomicAdd(ctr, 1u) - rp.base);
-    ring_wait(empty0 + 8 * rp.stage, rp.phase ^ 1);
-    if (t >= tiles) {
-      slots[rp.stage] = -1;
-      mbar_arrive(full0 + 8 * rp.stage);
-      ring_advance(rp.stage, rp.phase, R::STAGES);
-      break;
-    }
-    slots[rp.stage] = t;
-    const int m0 = (t / tiles_n) * GEMM_BM, n0 = (t % tiles_n) * R::BN;
-    for (int ks = 0; ks < k_steps; ++ks) {
-      if (ks > 0) ring_wait(empty0 + 8 * rp.stage, rp.phase ^ 1);
-      const uint32_t full = full0 + 8 * rp.stage, a = ring + rp.stage * R::STAGE_BYTES;
-      mbar_expect_tx(full, R::STAGE_BYTES);
-      tma_load(a, ma, full, ks * GEMM_BK_BYTES, m0);
-      tma_load(a + R::A_BYTES, mb, full, ks * GEMM_BK_BYTES, n0);
-      if (R::PLANES == 2)
-        tma_load(a + R::A_BYTES + R::B_BYTES, mb2, full, ks * GEMM_BK_BYTES, n0);
-      ring_advance(rp.stage, rp.phase, R::STAGES);
-    }
-  }
-  rp.base += tiles + gridDim.x;
-}
-
-// the consumers' next tile: waits for the next stage and reads its slot;
-// at the phase's end releases that stage and returns -1
-template <class R>
-__device__ __forceinline__ int next_tile(uint32_t full0, uint32_t empty0,
-                                         const volatile int* slots, RingPos& rp) {
-  ring_wait(full0 + 8 * rp.stage, rp.phase);
-  const int t = slots[rp.stage];
-  if (t < 0) {
-    __syncwarp();
-    if ((threadIdx.x & 31) == 0) mbar_arrive(empty0 + 8 * rp.stage);
-    ring_advance(rp.stage, rp.phase, R::STAGES);
-  }
-  return t;
-}
-
-// the tile's stores from wgmma's m64nN f32 layout (per n8 column group
-// rows g and g + 8 of the warp's 16, columns 2t, 2t + 1): epi(m, n, v0,
-// v1) for m < M, n < N (N even)
-template <class Epi>
-__device__ __forceinline__ void store_tile(const float (&acc)[64], int m0, int n0, int M, int N,
-                                           Epi& epi) {
-  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, tig = lane & 3;
-  const int m = m0 + (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + g;
-#pragma unroll
-  for (int j = 0; j < BF_BN / 8; ++j) {
-    const int n = n0 + j * 8 + tig * 2;
-    if (n < N) {
-      if (m < M) epi(m, n, acc[4 * j], acc[4 * j + 1]);
-      if (m + 8 < M) epi(m + 8, n, acc[4 * j + 2], acc[4 * j + 3]);
-    }
-  }
-}
 
 // the consumer warpgroups, bf16: per tile and stage four k16 wgmma, one
 // group in flight; a stage is released once the group that read it is done
@@ -928,31 +781,9 @@ int launch(Params<T> p, const void* const* w, cudaStream_t stream) {
       maps.b[i][1] = maps.b[i][0];
     }
   }
-  const size_t smem = smem_bytes<T>();
-  if (!err) err = set_smem(block_float_kernel<T>, smem);
   if (err) return err;
-  int per_sm = 0, dev = 0, sms = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, block_float_kernel<T>,
-                                                                BF_THREADS, smem);
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  e = cudaMemsetAsync(p.bar, 0, 2 * sizeof(unsigned), stream);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(per_sm * sms));
-  cfg.blockDim = dim3(BF_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, block_float_kernel<T>, maps, p);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch_persistent(block_float_kernel<T>, BF_THREADS, smem_bytes<T>(), p.bar, 2, 0, stream,
+                           maps, p);
 }
 
 template <typename T>

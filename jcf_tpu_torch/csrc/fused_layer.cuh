@@ -1,10 +1,9 @@
 // The tile machinery of the whole-layer kernels (fused_layer.cu) and the
-// int8 layer kernel K9a / K9c / K9d as a template over its quantization
-// mode and branch; see fused_layer.cu for what they replace and how they
-// are laid out. The 32 folded dense instances of the int8 kernel are built
-// in four sources, fused_int8_{mid32,bf16mid}_{dyn,static}.cu, one per
-// (mid, LN scale) pair; its three general instances in
-// fused_int8_general.cu.
+// int8 layer kernel K9d (and K9a off the folded dense route) as a template
+// over its quantization mode and branch; see fused_layer.cu for what they
+// replace and how they are laid out. K9d's 16 folded dense instances are
+// built in two sources, fused_int8_bf16mid_{dyn,static}.cu, one per LN
+// scale; the three general instances in fused_int8_general.cu.
 #pragma once
 
 #include "common.cuh"
@@ -805,8 +804,9 @@ int dispatch_int8(const Int8Launch& a, const bool (&bits)[5], int i) {
 }
 
 // the 8 folded dense instances of one (MID_F32, ACT) pair over the context,
-// hidden and shift options; each pair is instantiated in its own source
-// (fused_int8_*.cu), so that nvcc builds the 32 instances four at a time
+// hidden and shift options; each pair that a launch reaches (K9d's bf16
+// mid) is instantiated in its own source (fused_int8_bf16mid_*.cu), so that
+// nvcc builds them beside each other
 template <bool MID_F32, bool ACT>
 int launch_int8_part(const Int8Launch& a, bool ctx, bool hs, bool shift) {
   const bool bits[5] = {MID_F32, ACT, ctx, hs, shift};
@@ -820,8 +820,6 @@ int launch_int8_general(const Int8Launch& a) {
   return launch_int8_mode<Row, true, GMEM, false, false, false, false, false>(a);
 }
 
-extern template int launch_int8_part<true, false>(const Int8Launch&, bool, bool, bool);
-extern template int launch_int8_part<true, true>(const Int8Launch&, bool, bool, bool);
 extern template int launch_int8_part<false, false>(const Int8Launch&, bool, bool, bool);
 extern template int launch_int8_part<false, true>(const Int8Launch&, bool, bool, bool);
 extern template int launch_int8_general<bf16, false>(const Int8Launch&);

@@ -71,16 +71,11 @@
 // epilogues apart, where two persistent blocks on an SM run in step.
 // The ring (its layout, barriers, producer and stage walk) and the TMA,
 // mbarrier and descriptor helpers are wgmma_gemm.cuh's, shared with the
-// bf16 and f32 GEMMs.
-#include "wgmma_gemm.cuh"
+// bf16 and f32 GEMMs; the epilogues (store_pair) are int8_epilogue.cuh's,
+// shared with the persistent int8 layer kernel (block_int8.cuh).
+#include "int8_epilogue.cuh"
 
 namespace {
-
-enum {
-  EPI_S32 = 0, EPI_BF16 = 1, EPI_RESID = 2, EPI_GELU_Q = 3, EPI_ROWSCALE = 4,
-  EPI_BF16_ROWS = 5, EPI_RESID_ROWS = 6, EPI_F32 = 7, EPI_F32_ROWS = 8, EPI_RESID_F32 = 9,
-  EPI_RESID_ROWS_F32 = 10
-};
 
 constexpr int BM = GEMM_BM, BK = GEMM_BK_BYTES, CONSUMER_WARPS = GEMM_CONSUMER_WARPS;
 constexpr int GEMM_THREADS = GEMM_THREADS_WG;
@@ -92,81 +87,7 @@ struct Tile : Ring<BN == 256 ? 4 : 3, BN, 1> {
   static constexpr int BLOCKS_PER_SM = BN == 256 ? 1 : 2;
 };
 
-struct Epilogue {
-  void* out;               // [M, N] int32 / bf16 / f32 / int8
-  const float* scale;      // [N]
-  const float* bias;       // [N]
-  const void* resid;       // [M, N] bf16, or f32 (EPI_RESID*_F32)
-  const float* gelu_c;     // scalar: 0.851 / h_inv
-  const float* row_scale;  // [M]
-};
-
-template <int EPI>
-__device__ __forceinline__ void store_pair(const Epilogue& ep, int m, int n, int N, int v0, int v1) {
-  const long long idx = (long long)m * N + n;
-  if (EPI == EPI_S32) {
-    *reinterpret_cast<int2*>(static_cast<int32_t*>(ep.out) + idx) = make_int2(v0, v1);
-    return;
-  }
-  float a0 = __int2float_rn(v0), a1 = __int2float_rn(v1);
-  if (EPI == EPI_ROWSCALE) {
-    a0 = __fmul_rn(a0, ep.row_scale[m]);
-    a1 = __fmul_rn(a1, ep.row_scale[m]);
-  }
-  float y0 = __fmul_rn(a0, ep.scale[n]), y1 = __fmul_rn(a1, ep.scale[n + 1]);
-  if (EPI == EPI_BF16_ROWS || EPI == EPI_RESID_ROWS || EPI == EPI_F32_ROWS ||
-      EPI == EPI_RESID_ROWS_F32) {
-    y0 = __fmul_rn(y0, ep.row_scale[m]);
-    y1 = __fmul_rn(y1, ep.row_scale[m]);
-  }
-  y0 = __fadd_rn(y0, ep.bias[n]);
-  y1 = __fadd_rn(y1, ep.bias[n + 1]);
-  if (EPI == EPI_BF16 || EPI == EPI_ROWSCALE || EPI == EPI_BF16_ROWS) {
-    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(ep.out) + idx) =
-        __floats2bfloat162_rn(y0, y1);
-  } else if (EPI == EPI_RESID || EPI == EPI_RESID_ROWS) {
-    const __nv_bfloat162 r =
-        *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(ep.resid) + idx);
-    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(ep.out) + idx) =
-        __floats2bfloat162_rn(__fadd_rn(__low2float(r), y0), __fadd_rn(__high2float(r), y1));
-  } else if (EPI == EPI_RESID_F32 || EPI == EPI_RESID_ROWS_F32) {
-    const float2 r = *reinterpret_cast<const float2*>(static_cast<const float*>(ep.resid) + idx);
-    *reinterpret_cast<float2*>(static_cast<float*>(ep.out) + idx) =
-        make_float2(__fadd_rn(r.x, y0), __fadd_rn(r.y, y1));
-  } else if (EPI == EPI_F32 || EPI == EPI_F32_ROWS) {
-    *reinterpret_cast<float2*>(static_cast<float*>(ep.out) + idx) = make_float2(y0, y1);
-  } else {
-    const float c = *ep.gelu_c;
-    const float g0 = __fmul_rn(y0, __fadd_rn(0.5f, __fmul_rn(0.5f, tanhf(__fmul_rn(c, y0)))));
-    const float g1 = __fmul_rn(y1, __fadd_rn(0.5f, __fmul_rn(0.5f, tanhf(__fmul_rn(c, y1)))));
-    char2 q;
-    q.x = round_clip_int8(g0);
-    q.y = round_clip_int8(g1);
-    *reinterpret_cast<char2*>(static_cast<int8_t*>(ep.out) + idx) = q;
-  }
-}
-
-// d (m64 x BN s32, per thread BN / 2) += A (64 x 32 s8) * B (BN x 32 s8)^T
-__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
+// d (m64 x n256 s32, 128 a thread) += A (64 x 32 s8) * B (256 x 32 s8)^T
 __device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"

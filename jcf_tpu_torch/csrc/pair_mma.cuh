@@ -1,7 +1,9 @@
 // The mask-free paired attention on the tensor cores, one template for
 // every output form: K3's attention of the int8 halves (block.cu: the
-// static int8 context and the f32 context of a dynamic one) and K6a's
-// bf16 pair attention (text_block.cu: the bf16 context). It replaces the
+// static int8 context and the f32 context of a dynamic one), K6a's bf16
+// pair attention (text_block.cu: the bf16 context), and the attention
+// phase of the persistent int8 layer kernel (block_int8.cuh: its staging
+// and row bodies, pair_stage and pair_rows, with q read through L2). It replaces the
 // attention section of jcf_tpu/ops/block_kernel.py::_attn_half_int8_kernel
 // and ::_attn_half_kernel, _paired_attention_nomask, for bf16 qkv at head
 // dim 64. Per crop and head pair (lo, hi), as the row loop of
@@ -93,12 +95,12 @@ __device__ __forceinline__ void store_pair_ctx(float (&acc)[8][4], const float (
 // one head's scores of the warp's 16-row query tile (q: its row 0, ld its
 // row stride, rows >= n_rows as 0) against the 16 NC staged keys at ks,
 // x scale where SCALED, keys past S at -inf
-template <int NC, bool SCALED>
+template <int NC, bool SCALED, bool CG>
 __device__ __forceinline__ void head_scores(float (&sc)[2 * NC][4], const bf16* q, long long ld,
                                             int n_rows, const bf16* ks, int S, float scale) {
   const int tig = threadIdx.x & 3;
   unsigned a[4][4];
-  load_q_tile(a, q, ld, n_rows);
+  load_q_tile<CG>(a, q, ld, n_rows);
 #pragma unroll
   for (int c = 0; c < NC; ++c) qk_chunk<PM_LD>(sc[2 * c], sc[2 * c + 1], a, ks + 16 * c * PM_LD);
 #pragma unroll
@@ -126,6 +128,70 @@ __device__ __forceinline__ void head_context(float (&sc)[2 * NC][4], const float
   store_pair_ctx(acc, l, cinv, dst, ld, n_rows);
 }
 
+// stages the K and V of U units from unit0 ([16 NC keys, 128] bf16 each,
+// both heads, rows past S zero-filled) at smem with 16-byte cp.async (L2
+// only: the launch may have written qkv), all the block's threads
+template <int NC, int U>
+__device__ __forceinline__ void pair_stage(bf16* smem, const bf16* qkv, int unit0, int n_units,
+                                           int S, int H) {
+  constexpr int KP = 16 * NC;
+  const int E = H * ATT_D, E3 = 3 * E, n_pairs = H >> 1;
+  for (int c = threadIdx.x; c < U * 2 * KP * 16; c += blockDim.x) {
+    const int r = c >> 4, ub = r / (2 * KP), t = (r / KP) & 1, row = r % KP;
+    const int unit = unit0 + ub, col = (c & 15) * 8;
+    const bool ok = unit < n_units && row < S;
+    const long long crop = unit / n_pairs;
+    const bf16* src = qkv + (crop * S + row) * E3 + (1 + t) * E +
+                      (unit - crop * n_pairs) * 2 * ATT_D + col;
+    cp_async16(smem + r * PM_LD + col, ok ? src : qkv, ok ? 16 : 0);
+  }
+}
+
+// one warp's 16-row query tiles m0 = m_first, m_first + m_step, .. < S of
+// one unit (crop, pair), its K and V staged at ks, vs: the pair attention
+// of the header, the context to out ([crops * S, E]); cinv: the int8
+// context's scale; CG: q through L2 (written earlier in the same launch)
+template <int NC, typename O, bool SCALED, bool SHIFT, bool CG>
+__device__ __forceinline__ void pair_rows(const bf16* qkv, O* out, int unit, const bf16* ks,
+                                          const bf16* vs, float cinv, const float* shift, int S,
+                                          int H, float scale, float m_floor, int m_first,
+                                          int m_step) {
+  const int E = H * ATT_D, E3 = 3 * E, n_pairs = H >> 1;
+  const long long crop = unit / n_pairs;
+  const int pair = unit - (int)(crop * n_pairs);
+  const bf16* qb = qkv + crop * S * E3 + pair * 2 * ATT_D;
+  O* ob = out + crop * S * E + pair * 2 * ATT_D;
+  for (int m0 = m_first; m0 < S; m0 += m_step) {
+    const bf16* q = qb + m0 * E3;
+    O* o = ob + m0 * E;
+    if constexpr (SHIFT) {
+      // the calibrated shift needs no max: each head's scores go through
+      // PV before the other head's are taken (half the live registers)
+      const float m[2] = {__ldg(shift), __ldg(shift)};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float sc[2 * NC][4];
+        head_scores<NC, SCALED, CG>(sc, q + h * ATT_D, E3, S - m0, ks + h * ATT_D, S, scale);
+        head_context<NC>(sc, m, vs + h * ATT_D, cinv, o + h * ATT_D, E, S - m0);
+      }
+    } else {
+      // the pair shift: both heads' max, then the floor
+      float sc[2][2 * NC][4];
+      float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        head_scores<NC, SCALED, CG>(sc[h], q + h * ATT_D, E3, S - m0, ks + h * ATT_D, S, scale);
+        tile_max<NC>(sc[h], m);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) m[r] = fmaxf(quad_max(m[r]), m_floor);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        head_context<NC>(sc[h], m, vs + h * ATT_D, cinv, o + h * ATT_D, E, S - m0);
+    }
+  }
+}
+
 // NC: 16-key chunks a head holds in registers (16 NC >= S); 16 NC key
 // rows a unit are staged, zero-filled past S. O: the context's type (bf16,
 // float, or int8_t x ctx_inv); SCALED: the scores x scale; SHIFT: *shift
@@ -140,59 +206,18 @@ __global__ void __launch_bounds__(PM_WARPS * 32, NC <= 4 ? 2 : 1) pair_attention
   constexpr int KP = 16 * NC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);  // per unit: [KP][PM_LD] K, then V
-  const int E = H * ATT_D, E3 = 3 * E, n_pairs = H >> 1;
   const int unit0 = blockIdx.x * PM_UNITS;
-  for (int c = threadIdx.x; c < PM_UNITS * 2 * KP * 16; c += blockDim.x) {
-    const int r = c >> 4, ub = r / (2 * KP), t = (r / KP) & 1, row = r % KP;
-    const int unit = unit0 + ub, col = (c & 15) * 8;
-    const bool ok = unit < n_units && row < S;
-    const long long crop = unit / n_pairs;
-    const bf16* src = qkv + (crop * S + row) * E3 + (1 + t) * E +
-                      (unit - crop * n_pairs) * 2 * ATT_D + col;
-    cp_async16(smem + r * PM_LD + col, ok ? src : qkv, ok ? 16 : 0);
-  }
+  pair_stage<NC, PM_UNITS>(smem, qkv, unit0, n_units, S, H);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, unit = unit0 + (warp >> 2);
   if (unit >= n_units) return;
-  const long long crop = unit / n_pairs;
-  const int pair = unit - (int)(crop * n_pairs);
-  const bf16* qb = qkv + crop * S * E3 + pair * 2 * ATT_D;
-  O* ob = out + crop * S * E + pair * 2 * ATT_D;
   const bf16* ks = smem + (warp >> 2) * 2 * KP * PM_LD;
-  const bf16* vs = ks + KP * PM_LD;
   const float cinv = std::is_same<O, int8_t>::value ? __ldg(ctx_inv) : 0.0f;
-  for (int m0 = (warp & 3) * 16; m0 < S; m0 += 64) {
-    const bf16* q = qb + m0 * E3;
-    O* o = ob + m0 * E;
-    if constexpr (SHIFT) {
-      // the calibrated shift needs no max: each head's scores go through
-      // PV before the other head's are taken (half the live registers)
-      const float m[2] = {__ldg(shift), __ldg(shift)};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float sc[2 * NC][4];
-        head_scores<NC, SCALED>(sc, q + h * ATT_D, E3, S - m0, ks + h * ATT_D, S, scale);
-        head_context<NC>(sc, m, vs + h * ATT_D, cinv, o + h * ATT_D, E, S - m0);
-      }
-    } else {
-      // the pair shift: both heads' max, then the floor
-      float sc[2][2 * NC][4];
-      float m[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        head_scores<NC, SCALED>(sc[h], q + h * ATT_D, E3, S - m0, ks + h * ATT_D, S, scale);
-        tile_max<NC>(sc[h], m);
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) m[r] = fmaxf(quad_max(m[r]), m_floor);
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        head_context<NC>(sc[h], m, vs + h * ATT_D, cinv, o + h * ATT_D, E, S - m0);
-    }
-  }
+  pair_rows<NC, O, SCALED, SHIFT, false>(qkv, out, unit, ks, ks + KP * PM_LD, cinv, shift, S, H,
+                                         scale, m_floor, (warp & 3) * 16, 64);
 }
 
 // launches pair_attention_mma_kernel<NC, O, SCALED, SHIFT> over n_crops x

@@ -21,8 +21,10 @@ int8 MLP half (K4):
   LN (as in K3) -> int8 quant (static or dynamic) -> s8 c_fc, then either
   the static hidden scale h_inv folded in and QuickGELU (tanh form) in
   the quantized domain, or the f32 hidden, QuickGELU and a dynamic row
-  quantization over all hidden columns -> int8 -> s8 c_proj -> dequant
-  (x the row scales) + bias + f32 residual -> x's dtype.
+  quantization per row and hidden chunk (``_MLP_NSPLIT`` chunks; one for
+  the CLS rows) -> int8 -> s8 c_proj, one f32 partial a chunk added in
+  chunk order -> dequant (x the row scales) + bias + f32 residual -> x's
+  dtype.
 int8 CLS-query attention half of the last layer (K5), dense route, S <=
   64: K/V for all rows, Q, attention, out-proj and residual for the CLS
   rows only, in the same quantization modes, folded or unfolded.
@@ -62,30 +64,39 @@ The unfolded tree (``fold=False``) keeps every scale dynamic and reads
 the LN affine from the float blocks.
 
 Whole layers in one kernel, the TPU's ``_FUSE`` variants of the same
-math: the int8 kernels (csrc/fused_layer.cu, a template over their
-quantization mode and branch in csrc/fused_layer.cuh)
+math: the int8 kernels
   K9a ``block_int8`` (``_block_int8_kernel``): one int8 layer, the mid
   residual kept in f32 (the halves round it to bf16);
   K9d ``layer_fused_int8`` (``_layer_fused_int8_kernel``): one int8 layer,
   bf16 mid, the MLP in ``_LAYER_NSPLIT`` hidden chunks;
   K9c ``stream_tower_int8`` (``_stream_tower_int8_kernel``): every int8
   layer on every row in one launch, bf16 mid;
+K9a on the dense route (``PERSISTENT_BRANCHES``) and K9c run one
+persistent cooperative launch (csrc/block_int8.cu, one template over the
+mid and the mode): the halves' phases over all the rows (LN + quant, the
+products on wgmma with the int8 GEMM's epilogues, the pair attention, the
+row quantizations, their device code shared with K3 / K4), separated by
+grid barriers; a layer a launch (K9a) or the whole tower (K9c), whose
+layers at one hidden chunk equal the halves' bit for bit. K9d and K9a's
+masked and non-dense branches run csrc/fused_layer.cu's kernels, a block
+a crop (a template over the mode and branch in csrc/fused_layer.cuh);
+``k9_source`` names the route;
 and K9b (``_block_kernel``, csrc/block_float.cu, one template over the
 rows' type): ``block_bf16`` and ``block_f32``, one float layer with an
 additive [S, S] bias, f32 mid, QuickGELU in its sigmoid form; one
 persistent launch a layer whose phases (the LayerNorms, the four
 products on wgmma, f32 as three TF32 products, the attention) walk all
 the rows, separated by grid barriers.
-The MLP's f32 chunk partials (``_MLP_NSPLIT`` for K9a/K9c) are added in
-chunk order; a dynamic hidden is quantized per row and per chunk, so the
-chunk count is part of the result. The int8 kernels take the folded tree
-in every mode (dynamic, "ln", "hidden", "full", each "+score") and the
-unfolded one (every scale dynamic, the LN affines as operands), S <= 127:
-K9d and K9c on the dense route, K9a on either route (the masked attention
-of the text tower and of an odd head count, on bf16 or f32 rows; the
-mask-free one at S a multiple of 16). The folded dense route at S <= 64
-runs one kernel instance per mode; every other branch a general instance
-(``LAUNCHES["<kernel>/<branch>"]`` counts it, ``k9_branch``).
+The MLP's f32 chunk partials (``_MLP_NSPLIT`` for K9a/K9c and the
+halves, ``_LAYER_NSPLIT`` for K9d) are added in chunk order; a dynamic
+hidden is quantized per row and per chunk, so the chunk count is part of
+the result. The int8 kernels take the folded tree in every mode (dynamic,
+"ln", "hidden", "full", each "+score") and the unfolded one (every scale
+dynamic, the LN affines as operands), S <= 127: K9d and K9c on the dense
+route, K9a on either route (the masked attention of the text tower and of
+an odd head count, on bf16 or f32 rows; the mask-free one at S a multiple
+of 16). Each launch off the folded dense route at S <= 64 is also counted
+under its branch (``LAUNCHES["<kernel>/<branch>"]``, ``k9_branch``).
 
 ``run_fused_tower`` is the JAX function's int8 route: the dense route
 (an even head count without a mask, S not a multiple of 16) or the
@@ -774,7 +785,7 @@ def attn_half_int8(x: torch.Tensor, attn: dict, s: int, n_heads: int, *, ln=None
     return int8_gemm_residual(c_q, wo.w_int8, wo.w_scale, wo.bias, x, row_scale=c_sc)
 
 
-def mlp_half_int8(x: torch.Tensor, mlp: dict, *, ln=None) -> torch.Tensor:
+def mlp_half_int8(x: torch.Tensor, mlp: dict, *, ln=None, nsp: int | None = None) -> torch.Tensor:
     """K4 on rows x [M, E] (bf16 or f32) with one layer's MLP weights -> x
     + mlp(x) in x's dtype; ``ln`` the unfolded tree's ``ln_2`` affine (in
     x's dtype for the halves, the layer params' own for the CLS rows, as
@@ -782,8 +793,15 @@ def mlp_half_int8(x: torch.Tensor, mlp: dict, *, ln=None) -> torch.Tensor:
     into the c_fc dequant scale and bias (``_fold_h_static``), so the GEMM
     lands in the quantized domain and QuickGELU runs there; without one
     the c_fc GEMM writes the f32 hidden and QuickGELU and the row
-    quantization over all hidden columns follow in one row kernel."""
+    quantization follow in one row kernel.
+
+    The hidden width goes in ``nsp`` chunks (default ``_MLP_NSPLIT``, as
+    ``_mlp_half_int8_kernel`` reads it; the CLS rows' ``_mlp_half_cls_rows``
+    takes one): a dynamic hidden is quantized per row and per chunk, and
+    c_proj's f32 partials, one a chunk, are added in chunk order before
+    the bias and the residual. One chunk is one residual GEMM."""
     fc, pr = mlp["c_fc"], mlp["c_proj"]
+    nsp = _chunks(_MLP_NSPLIT if nsp is None else nsp, fc.w_int8.shape[0])
     x_q, x_sc = _ln_quant_any(x, mlp.get("ln_inv"), ln)
     if "h_inv" in mlp:
         h_inv = mlp["h_inv"].reshape(())
@@ -792,8 +810,19 @@ def mlp_half_int8(x: torch.Tensor, mlp: dict, *, ln=None) -> torch.Tensor:
                                          gelu_c), None
     else:
         hidden = int8_gemm_f32(x_q, fc.w_int8, fc.w_scale, fc.bias, row_scale=x_sc)
-        h_q, h_sc = quant_rows(hidden, gelu=True)
-    return int8_gemm_residual(h_q, pr.w_int8, pr.w_scale, pr.bias, x, row_scale=h_sc)
+        # a row of each chunk is a row of the [M * nsp, F / nsp] view
+        m, f = hidden.shape
+        h_q, h_sc = quant_rows(hidden.view(m * nsp, f // nsp), gelu=True)
+        h_q, h_sc = h_q.view(m, f), h_sc.view(m, nsp) if nsp > 1 else h_sc
+    if nsp == 1:
+        return int8_gemm_residual(h_q, pr.w_int8, pr.w_scale, pr.bias, x, row_scale=h_sc)
+    hs, zero, acc = h_q.shape[1] // nsp, torch.zeros_like(pr.bias), None
+    for c in range(nsp):
+        sl = slice(c * hs, (c + 1) * hs)
+        part = int8_gemm_f32(h_q[:, sl].contiguous(), pr.w_int8[:, sl].contiguous(), pr.w_scale,
+                             zero, row_scale=None if h_sc is None else h_sc[:, c].contiguous())
+        acc = part if acc is None else acc + part
+    return (x.float() + (acc + pr.bias)).to(x.dtype)
 
 
 def attn_cls_int8(x: torch.Tensor, attn: dict, s: int, n_heads: int, *, ln=None) -> torch.Tensor:
@@ -1061,47 +1090,50 @@ def k9_branch(tree: dict, s: int, n_heads: int, dtype: torch.dtype, *, causal: b
     return "long" if s > CLS_MAX_SEQ else ""
 
 
+# the branches of K9a and K9c that the persistent int8 layer kernel takes
+# (csrc/block_int8.cu): the dense route, folded or unfolded. K9a's other
+# branches and every K9d launch run csrc/fused_layer.cu's kernels.
+PERSISTENT_BRANCHES = ("", "long", "unfolded")
+
+
+def k9_source(name: str, branch: str) -> str:
+    """The source whose kernel a K9 launch of ``name`` ("block_int8",
+    "layer_fused_int8", "stream_tower_int8") on ``branch`` (``k9_branch``)
+    runs: "block_int8.cu" (one persistent launch of phases) or
+    "fused_layer.cu" (a block a crop)."""
+    persistent = name != "layer_fused_int8" and branch in PERSISTENT_BRANCHES
+    return "block_int8.cu" if persistent else "fused_layer.cu"
+
+
 def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
     """t with zero rows appended along dim -2 up to ``rows``."""
     extra = rows - t.shape[-2]
     return torch.cat([t, t.new_zeros(t.shape[:-2] + (extra, t.shape[-1]))], dim=-2)
 
 
-def _launch_int8(name: str, x: torch.Tensor, tree: dict, s: int, n_heads: int, n_layers: int,
-                 nsp: int, mid_f32: bool, *, lns=(None, None), causal: bool = False,
-                 dense: bool = True) -> torch.Tensor:
-    """Checks and launches one of the int8 layer kernels (``jcf_<name>``)
-    on the rows x [B' * S, E] with the (one-layer or stacked) tree, in the
-    mode its static scales select, on the branch the route and tree give."""
-    rows, e = x.shape
-    f32 = x.dtype == torch.float32
-    if (x.dtype not in _FLOAT or (f32 and not mid_f32) or rows % s or s > MAX_SEQ
-            or e != 64 * n_heads or e > 1024):
-        raise ValueError(f"{name} takes bf16 rows (or f32 for block_int8) of S <= {MAX_SEQ} "
-                         f"tokens, head dim 64 and E up to 1024; got {x.dtype} {tuple(x.shape)}, "
-                         f"S={s}, H={n_heads}")
-    masked = causal or n_heads % 2 == 1
-    flags = (quant_flags(tree, dense=dense, use_mask=masked) | (FLAG_CAUSAL if causal else 0)
-             | (FLAG_F32_ROWS if f32 else 0))
+def _int8_operands(name: str, x: torch.Tensor, tree: dict, flags: int, n_layers: int,
+                   lns=(None, None)) -> list:
+    """The int8 layer kernels' 21 operands in their C entries' order, each
+    checked against ``n_layers`` layers of the tree: the four weights with
+    their scales and biases (c_fc's with a static h_inv folded in), the
+    static scalars the mode names (ln_inv of both halves, ctx_inv,
+    gelu_c = 0.851 / h_inv or 0.851, the score shift; None where the tree
+    keeps the quantization dynamic) and the unfolded tree's (ln_1, ln_2)
+    affines in x's dtype (None when folded)."""
+    e = x.shape[1]
     attn, mlp = tree["attn"], tree["mlp"]
     wq, wo, fc, pr = attn["w_qkv"], attn["w_out"], mlp["c_fc"], mlp["c_proj"]
     hidden = _hidden(tree)
-    if hidden % 128 or (hidden // nsp) % 64:
-        raise ValueError(f"{name} needs a hidden width divisible by 128 and chunks of a multiple "
-                         f"of 64, got {hidden} in {nsp} chunks")
     if flags & FLAG_STATIC_H:
         h_inv = mlp["h_inv"].reshape(-1, 1)
         fc_sc, fc_b, gelu_c = fc.w_scale * h_inv, fc.bias * h_inv, GELU_TANH_COEF / h_inv
     else:
         fc_sc, fc_b = fc.w_scale, fc.bias
         gelu_c = torch.full((n_layers,), GELU_TANH_COEF, dtype=torch.float32, device=x.device)
-    ln1, ln2 = lns
-    # the static scalars the mode names and the unfolded tree's LN affines;
-    # None where its quantization is dynamic, or the tree folded
     ops = [wq.w_int8, wq.w_scale, wq.bias, wo.w_int8, wo.w_scale, wo.bias,
            fc.w_int8, fc_sc, fc_b, pr.w_int8, pr.w_scale, pr.bias,
            attn.get("ln_inv"), attn.get("ctx_inv"), mlp.get("ln_inv"), gelu_c,
-           attn.get("score_shift")] + [None if ln is None else ln[k] for ln in (ln1, ln2)
+           attn.get("score_shift")] + [None if ln is None else ln[k] for ln in lns
                                        for k in ("scale", "bias")]
     shapes = [(3 * e, e), (3 * e,), (3 * e,), (e, e), (e,), (e,), (hidden, e), (hidden,),
               (hidden,), (e, hidden), (e,), (e,), (), (), (), (), (), (e,), (e,), (e,), (e,)]
@@ -1113,6 +1145,31 @@ def _launch_int8(name: str, x: torch.Tensor, tree: dict, s: int, n_heads: int, n
                 or (shape and tuple(t.shape[-len(shape):]) != shape)):
             raise ValueError(f"{name}: operand {i} must be {want} {shape} per layer, {n_layers} "
                              f"layer(s), on {x.device}; got {t.dtype} {tuple(t.shape)}")
+    return ops
+
+
+def _launch_int8(name: str, x: torch.Tensor, tree: dict, s: int, n_heads: int, nsp: int,
+                 mid_f32: bool, *, lns=(None, None), causal: bool = False,
+                 dense: bool = True) -> torch.Tensor:
+    """Checks and launches one of the block-a-crop int8 layer kernels of
+    csrc/fused_layer.cu (``jcf_<name>``: K9d, K9a off the dense route) on
+    the rows x [B' * S, E] with one layer's tree, in the mode its static
+    scales select, on the branch the route and tree give."""
+    rows, e = x.shape
+    f32 = x.dtype == torch.float32
+    if (x.dtype not in _FLOAT or (f32 and not mid_f32) or rows % s or s > MAX_SEQ
+            or e != 64 * n_heads or e > 1024):
+        raise ValueError(f"{name} takes bf16 rows (or f32 for block_int8) of S <= {MAX_SEQ} "
+                         f"tokens, head dim 64 and E up to 1024; got {x.dtype} {tuple(x.shape)}, "
+                         f"S={s}, H={n_heads}")
+    masked = causal or n_heads % 2 == 1
+    flags = (quant_flags(tree, dense=dense, use_mask=masked) | (FLAG_CAUSAL if causal else 0)
+             | (FLAG_F32_ROWS if f32 else 0))
+    hidden = _hidden(tree)
+    if hidden % 128 or (hidden // nsp) % 64:
+        raise ValueError(f"{name} needs a hidden width divisible by 128 and chunks of a multiple "
+                         f"of 64, got {hidden} in {nsp} chunks")
+    ops = _int8_operands(name, x, tree, flags, 1, lns)
     if e % 128:
         # an odd head count: every weight tile of the kernel's 128-row
         # tiling lies in memory (the rows past the layer are dropped)
@@ -1121,10 +1178,10 @@ def _launch_int8(name: str, x: torch.Tensor, tree: dict, s: int, n_heads: int, n
             ops[9], up)
     ops = [t.contiguous() if t is not None else None for t in ops]
     lib = _build.load()
-    per_crop = lib.jcf_int8_xq_scratch(s, n_heads, hidden, nsp, n_layers, flags)
+    per_crop = lib.jcf_int8_xq_scratch(s, n_heads, hidden, nsp, 1, flags)
     if per_crop < 0:
         raise ValueError(f"{name}: no instance takes S={s}, H={n_heads}, hidden={hidden}, "
-                         f"{nsp} chunks, {n_layers} layer(s), flags {flags:#x}")
+                         f"{nsp} chunks, flags {flags:#x}")
     x = x.contiguous()
     out = torch.empty_like(x)
     fast = (flags & ~(FLAG_STATIC_ACT | FLAG_STATIC_CTX | FLAG_STATIC_H | FLAG_STATIC_SHIFT)
@@ -1137,11 +1194,77 @@ def _launch_int8(name: str, x: torch.Tensor, tree: dict, s: int, n_heads: int, n
     err = getattr(lib, f"jcf_{name}")(
         x.data_ptr(), out.data_ptr(), scratch.data_ptr() if scratch is not None else None,
         xq.data_ptr() if xq is not None else None,
-        *(t.data_ptr() if t is not None else None for t in ops), rows // s, s, n_heads, hidden,
-        n_layers, nsp, flags, _build.stream_ptr(x.device))
+        *(t.data_ptr() if t is not None else None for t in ops), rows // s, s, n_heads, hidden, 1,
+        nsp, flags, _build.stream_ptr(x.device))
     _build.check(err, name)
     LAUNCHES[name] += 1
     branch = k9_branch(tree, s, n_heads, x.dtype, causal=causal, dense=dense)
+    if branch:
+        LAUNCHES[f"{name}/{branch}"] += 1
+    return out
+
+
+def _layers_plan(name: str, x: torch.Tensor, tree: dict, s: int, n_heads: int, n_layers: int,
+                 nsp: int, mid_f32: bool, lns=(None, None)) -> dict:
+    """The checked operands of the persistent int8 layer kernel
+    (csrc/block_int8.cu) for rows x [B' * S, E] bf16 on the dense route
+    with a (one-layer or stacked) tree: the flags, the operands in the C
+    entry's order, the scratch sizes. Raises ValueError on what the kernel
+    does not take; launches nothing, so it runs on CPU tensors too."""
+    rows, e = x.shape
+    if (x.dtype != torch.bfloat16 or rows < 1 or rows % s or not 1 <= s <= MAX_SEQ
+            or e != 64 * n_heads or n_heads % 2 or e > 1024):
+        raise ValueError(f"{name} takes bf16 rows of S <= {MAX_SEQ} tokens, an even head count of "
+                         f"dim 64 and E up to 1024; got {x.dtype} {tuple(x.shape)}, S={s}, "
+                         f"H={n_heads}")
+    flags = quant_flags(tree, dense=True)
+    if flags & (FLAG_USE_MASK | FLAG_CAUSAL | FLAG_F32_ROWS) or not flags & FLAG_DENSE:
+        raise ValueError(f"{name} runs the dense route only (no mask, bf16 rows); flags {flags:#x}")
+    hidden = _hidden(tree)
+    if hidden % 128 or (hidden // nsp) % 128:
+        raise ValueError(f"{name} needs a hidden width in chunks of a multiple of 128, got "
+                         f"{hidden} in {nsp} chunks")
+    # the LN affines go to the kernel in f32 (the plain version's math)
+    ops = [None if t is None else (t.float() if i >= 17 else t).contiguous()
+           for i, t in enumerate(_int8_operands(name, x, tree, flags, n_layers, lns))]
+    static_ctx, static_h = bool(flags & FLAG_STATIC_CTX), bool(flags & FLAG_STATIC_H)
+    dynamic = not (flags & FLAG_STATIC_ACT) or not static_ctx
+    return {"flags": flags, "ops": ops, "hidden": hidden,
+            # bytes a row of qkv (bf16), then of the dynamic f32 hidden
+            "big": max(6 * e, 0 if static_h else 4 * hidden),
+            "f32s": not static_ctx or nsp > 1, "rsc": dynamic, "hsc": not static_h}
+
+
+def _launch_layers(name: str, x: torch.Tensor, tree: dict, s: int, n_heads: int, n_layers: int,
+                   nsp: int, mid_f32: bool, *, lns=(None, None), grid: int = 0) -> torch.Tensor:
+    """Launches the persistent int8 layer kernel (csrc/block_int8.cu) as
+    K9a (``mid_f32``, one layer) or K9c (every layer of the stacked tree)
+    on CUDA rows x: one cooperative launch, the scratch from here.
+    ``grid``: 0 for the occupancy's blocks (only the GPU tests pass more,
+    which the runtime refuses)."""
+    plan = _layers_plan(name, x, tree, s, n_heads, n_layers, nsp, mid_f32, lns)
+    rows, e = x.shape
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dev, hidden = x.device, plan["hidden"]
+
+    def buf(n, dt, need=True):
+        return torch.empty(n, dtype=dt, device=dev) if need else None
+
+    scratch = [buf(rows * e, torch.int8), buf(rows * plan["big"], torch.uint8),
+               buf(rows * hidden, torch.int8), buf(rows * e, torch.float32, plan["f32s"]),
+               buf(rows * e, torch.float32, mid_f32), buf(rows, torch.float32, plan["rsc"]),
+               buf(rows * nsp, torch.float32, plan["hsc"]),
+               buf(3, torch.int32)]  # the grid barrier, the tile and round counters
+    lib = _build.load()
+    err = lib.jcf_int8_layers(
+        int(mid_f32), x.data_ptr(), out.data_ptr(),
+        *(t.data_ptr() if t is not None else None for t in scratch),
+        *(t.data_ptr() if t is not None else None for t in plan["ops"]), rows // s, s, n_heads,
+        hidden, n_layers, nsp, plan["flags"], grid, _build.stream_ptr(dev))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    branch = k9_branch(tree, s, n_heads, x.dtype)
     if branch:
         LAUNCHES[f"{name}/{branch}"] += 1
     return out
@@ -1158,8 +1281,11 @@ def block_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int, *, lns=(None,
     _check_k9("block_int8", layer, n_heads, lns, causal=causal, dense=dense)
     if not x.is_cuda:
         return block_int8_plain(x, layer, s, n_heads, lns=lns, causal=causal, dense=dense)
-    return _launch_int8("block_int8", x, layer, s, n_heads, 1,
-                        _chunks(_MLP_NSPLIT, _hidden(layer)), mid_f32=True, lns=lns,
+    nsp = _chunks(_MLP_NSPLIT, _hidden(layer))
+    branch = k9_branch(layer, s, n_heads, x.dtype, causal=causal, dense=dense)
+    if k9_source("block_int8", branch) == "block_int8.cu":
+        return _launch_layers("block_int8", x, layer, s, n_heads, 1, nsp, True, lns=lns)
+    return _launch_int8("block_int8", x, layer, s, n_heads, nsp, mid_f32=True, lns=lns,
                         causal=causal, dense=dense)
 
 
@@ -1170,7 +1296,7 @@ def layer_fused_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int, *,
     _check_k9("layer_fused_int8", layer, n_heads, lns)
     if not x.is_cuda:
         return layer_fused_int8_plain(x, layer, s, n_heads, lns=lns)
-    return _launch_int8("layer_fused_int8", x, layer, s, n_heads, 1,
+    return _launch_int8("layer_fused_int8", x, layer, s, n_heads,
                         _chunks(_LAYER_NSPLIT, _hidden(layer)), mid_f32=False, lns=lns)
 
 
@@ -1184,8 +1310,8 @@ def stream_tower_int8(x: torch.Tensor, quant: dict, n_heads: int, *, s: int,
     if not x.is_cuda:
         return stream_tower_int8_plain(x, quant, n_heads, s=s, lns=lns)
     n_layers = quant["attn"]["w_qkv"].w_int8.shape[0]
-    return _launch_int8("stream_tower_int8", x, quant, s, n_heads, n_layers,
-                        _chunks(_MLP_NSPLIT, _hidden(quant)), mid_f32=False, lns=lns)
+    return _launch_layers("stream_tower_int8", x, quant, s, n_heads, n_layers,
+                          _chunks(_MLP_NSPLIT, _hidden(quant)), False, lns=lns)
 
 
 def _block_float_plain(x: torch.Tensor, layer: dict, s: int, n_heads: int, bias: torch.Tensor,
@@ -1421,8 +1547,10 @@ def run_fused_tower(x: torch.Tensor, quant: dict, n_heads: int, *, flat_s: int,
         mid = attn_cls_int8(x, last["attn"], s, n_heads, ln=ln1)
     else:
         mid = attn_half_int8(x, last["attn"], s, n_heads, ln=ln1)[::s].contiguous()
-    # the CLS rows' LN affine as the layer params hold it (_mlp_half_cls_rows)
-    return mlp_half_int8(mid, last["mlp"], ln=None if folded else _layer_ln(blocks, i, "ln_2", None))
+    # the CLS rows' LN affine as the layer params hold it, one hidden chunk
+    # (_mlp_half_cls_rows)
+    return mlp_half_int8(mid, last["mlp"], ln=None if folded else _layer_ln(blocks, i, "ln_2", None),
+                         nsp=1)
 
 
 def run_float_tower(x: torch.Tensor, blocks: dict, n_heads: int, *, s: int,

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Where a fused int8 layer (K9a, K9d) spends its time, on one NVIDIA GPU.
+"""Where the fused int8 layer K9d (``layer_fused_int8``, a block a crop)
+spends its time, on one NVIDIA GPU.
 
     python3 profile_fused.py            # from the repository root
 
 Builds ``jcf_tpu_torch/csrc`` with ``-DJCF_FUSED_PROFILE`` (its own build
-directory: the flags are part of the build hash), then runs ``block_int8``
-and ``layer_fused_int8`` on one ViT-B/32 layer (seed-0 weights, fixed
+directory: the flags are part of the build hash), then runs
+``layer_fused_int8`` on one ViT-B/32 layer (seed-0 weights, fixed
 activation scales) at b1024 x 8 views = 8192 crops of 50 rows. Prints the
 time per launch (CUDA events; the profile build's extra barriers are in
 it) and the share of each phase of the kernel in the cycles that thread 0
 of every block spends in it: LN1, the qkv GEMMs, the attention, the
-out-projection, LN2, c_fc with its GELU-quant epilogue, c_proj.
+out-projection, LN2, c_fc with its GELU-quant epilogue, c_proj. (K9a's
+dense branches and K9c run the persistent kernel of
+``csrc/block_int8.cu``, which has no profile build.)
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ def main() -> int:
                     generator=torch.Generator(device=dev).manual_seed(0)).bfloat16()
     cycles = (ctypes.c_ulonglong * len(PHASES))()
     print(f"card: {smi}")
-    for name in ("block_int8", "layer_fused_int8"):
+    for name in ("layer_fused_int8",):
         fn = getattr(bk, name)
         fn(x, layer, 50, 12)
         torch.cuda.synchronize()

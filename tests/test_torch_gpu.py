@@ -1903,3 +1903,37 @@ def test_assemble_refuses_before_launch(cuda):
     with pytest.raises(ValueError):  # E > 1024
         ak.assemble_dense_rows(*args)
     assert ak.LAUNCHES == before
+
+
+@pytest.mark.parametrize("width,s,crops,nsp,dynamic", [
+    (128, 17, 1, 1, False), (128, 50, 3, 2, True), (256, 100, 2, 4, False),
+    (256, 33, 5, 1, True), (384, 50, 2, 1, True), (384, 66, 3, 2, True)])
+def test_persistent_int8_layers(cuda, monkeypatch, width, s, crops, nsp, dynamic):
+    """K9a's dense branches and K9c on the persistent kernel at narrow and
+    ragged shapes (fewer rows than one 128-row tile; widths whose rows
+    leave lanes idle; a dynamic hidden past 1024 columns, a block a row)
+    vs their plain versions, static "full" or dynamic, at nsp chunks: one
+    launch each, counted under its branch."""
+    monkeypatch.setattr(bk, "_MLP_NSPLIT", nsp)
+    from jcf_tpu_torch.ops.quant import quantize_clip_params
+
+    h = width // 64
+    if dynamic:
+        params = init_clip_params(0, CLIPConfig(vision_layers=3, vision_width=width))
+        tree = quantize_clip_params(params, fold=True, heads={"visual": h})["visual"]
+    else:
+        tree = _int8_tree(width, layers=3)
+    tree = tree_to(tree, cuda)
+    x = torch.randn(crops * s, width, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(s)).bfloat16()
+    branch = "long" if s > 64 else ""
+    before = dict(bk.LAUNCHES)
+    _rows_close(bk.block_int8(x, layer_slice(tree, 1), s, h),
+                bk.block_int8_plain(x, layer_slice(tree, 1), s, h))
+    got = bk.stream_tower_int8(x, tree, h, s=s).float()
+    ref = bk.stream_tower_int8_plain(x, tree, h, s=s).float()
+    assert float(torch.nn.functional.cosine_similarity(got, ref).min()) >= 0.999
+    want = {"block_int8": 1, "stream_tower_int8": 1}
+    if branch:
+        want.update({f"block_int8/{branch}": 1, f"stream_tower_int8/{branch}": 1})
+    assert {k: bk.LAUNCHES[k] - before[k] for k in before if bk.LAUNCHES[k] != before[k]} == want

@@ -265,3 +265,122 @@ def test_resnet50_refuses_tf32_convolutions(cuda, monkeypatch):
     params = tclip.tree_to(tresnet.init_resnet50_params(0), cuda)
     with pytest.raises(RuntimeError, match="allow_tf32"):
         tresnet.resnet50_features(params, torch.zeros(1, 3, 64, 64, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# K9a's dense branches and K9c on the persistent kernel (csrc/block_int8.cu)
+# ---------------------------------------------------------------------------
+
+PERSISTENT_SEQS = [50, 54, 66, 82, 127]
+
+
+def _counted(fn):
+    before = dict(bk.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: bk.LAUNCHES[k] - before[k] for k in before if bk.LAUNCHES[k] != before[k]}
+
+
+def _persistent_tree(mode, dev):
+    """(2-layer tree, lns of layer i, the stacked lns) on ``dev`` at
+    ViT-B/32 width: folded in ``mode`` (None: dynamic; no lns), or
+    unfolded (its LN affines in bf16)."""
+    tree, blocks = _branch_tree("visual", E, mode)
+    tree, blocks = _on(tree, dev), _on(blocks, dev)
+    if mode != "unfolded":
+        return tree, lambda i: (None, None), (None, None)
+    stacked = tuple({k: blocks[n][k].to(torch.bfloat16) for k in ("scale", "bias")}
+                    for n in ("ln_1", "ln_2"))
+    return tree, lambda i: tuple(bk._layer_ln(blocks, i, n, torch.bfloat16)
+                                 for n in ("ln_1", "ln_2")), stacked
+
+
+@pytest.mark.parametrize("nsp", [1, 4])
+@pytest.mark.parametrize("s", PERSISTENT_SEQS)
+@pytest.mark.parametrize("mode", MODES + ["unfolded"])
+def test_persistent_k9_matches_plain(cuda, monkeypatch, mode, s, nsp):
+    """K9a (one layer: phase 9's bars) and K9c (both layers: the cosine)
+    against their plain versions in every mode, folded and unfolded, at
+    nsp chunks and S from 50 to 127; one launch a layer or a tower, each
+    counted under its branch."""
+    monkeypatch.setattr(bk, "_MLP_NSPLIT", nsp)
+    tree, lns_of, lns = _persistent_tree(mode, cuda)
+    branch = bk.k9_branch(tree, s, H, torch.bfloat16)
+    assert bk.k9_source("block_int8", branch) == "block_int8.cu"
+    x = torch.randn(48 * s, E, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(s)).bfloat16()
+    layer = layer_slice(tree, 1)
+    got, n = _counted(lambda: bk.block_int8(x, layer, s, H, lns=lns_of(1)))
+    assert n == {"block_int8": 1, **({f"block_int8/{branch}": 1} if branch else {})}
+    _close(got, bk.block_int8_plain(x, layer, s, H, lns=lns_of(1)))
+    got, n = _counted(lambda: bk.stream_tower_int8(x, tree, H, s=s, lns=lns))
+    assert n == {"stream_tower_int8": 1, **({f"stream_tower_int8/{branch}": 1} if branch else {})}
+    _close(got, bk.stream_tower_int8_plain(x, tree, H, s=s, lns=lns), cos_only=True)
+
+
+def _one_layer(tree, i):
+    """Layer i of a stacked tree as a stacked tree of one layer."""
+    out = {k: v for k, v in tree.items() if k not in ("attn", "mlp")}
+    for half in ("attn", "mlp"):
+        out[half] = {k: (type(v)(*(t[i:i + 1] for t in v)) if isinstance(v, tuple) else v[i:i + 1])
+                     for k, v in tree[half].items()}
+    return out
+
+
+@pytest.mark.parametrize("s", [50, 54])
+@pytest.mark.parametrize("mode", MODES)
+def test_persistent_stream_tower_equals_its_layers_and_the_halves(cuda, monkeypatch, mode, s):
+    """K9c's layer loop runs one device body: the 2-layer tower equals two
+    one-layer K9c launches bit for bit, and at one hidden chunk the halves
+    (K3 + K4) layer by layer, which run the same bodies and roundings."""
+    monkeypatch.setattr(bk, "_MLP_NSPLIT", 1)
+    tree = _on(_tree(mode), cuda)
+    x = _rows(s, cuda, seed=2)
+    tower = bk.stream_tower_int8(x, tree, H, s=s)
+    chain, halves = x, x
+    for i in range(2):
+        chain = bk.stream_tower_int8(chain, _one_layer(tree, i), H, s=s)
+        halves = bk._halves_int8(halves, layer_slice(tree, i), s, H)
+    torch.cuda.synchronize()
+    assert torch.equal(tower, chain)
+    assert torch.equal(tower, halves)
+
+
+@pytest.mark.parametrize("name", ["odd heads full", "64 tokens full+score", "text f32 folded"])
+def test_k9a_other_branches_keep_the_general_kernel(cuda, monkeypatch, name):
+    """K9a's masked and non-dense branches run fused_layer.cu's general
+    instances: the persistent launch is not reached (it would raise here),
+    and the rows agree with the plain version."""
+    tower, width, mode, s, causal, dtype, _ = BRANCHES[name]
+    tree, _ = _branch_tree(tower, width, mode)
+    tree = _on(tree, cuda)
+    heads = width // 64
+    dense = not causal and heads % 2 == 0 and s % 16 != 0
+    branch = bk.k9_branch(tree, s, heads, dtype, causal=causal, dense=dense)
+    assert bk.k9_source("block_int8", branch) == "fused_layer.cu"
+
+    def refuse(*a, **k):
+        raise AssertionError("the persistent kernel took a general branch")
+
+    monkeypatch.setattr(bk, "_launch_layers", refuse)
+    x = torch.randn(48 * s, width, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3)).to(dtype)
+    got, n = _counted(lambda: bk.block_int8(x, layer_slice(tree, 1), s, heads, causal=causal,
+                                            dense=dense))
+    assert n == {"block_int8": 1, f"block_int8/{branch}": 1}
+    _close(got, bk.block_int8_plain(x, layer_slice(tree, 1), s, heads, causal=causal, dense=dense))
+
+
+def test_persistent_grid_past_the_card_is_refused(cuda):
+    """A grid larger than the blocks that fit on the card at once is
+    refused by the cooperative launch (an error, no launch counted, no
+    error left behind); the occupancy's grid runs."""
+    tree = _on(_tree("full"), cuda)
+    layer = layer_slice(tree, 1)
+    x = _rows(50, cuda)
+    before = dict(bk.LAUNCHES)
+    with pytest.raises(RuntimeError):
+        bk._launch_layers("block_int8", x, layer, 50, H, 1, 1, True, grid=1 << 20)
+    assert bk.LAUNCHES == before
+    _close(bk._launch_layers("block_int8", x, layer, 50, H, 1, 1, True),
+           bk.block_int8_plain(x, layer, 50, H))
