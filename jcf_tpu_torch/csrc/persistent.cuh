@@ -12,7 +12,7 @@
 //   tile's index to the consumer warpgroups in a slot of its first stage:
 //   drawn statically (block b: tiles b, b + grid, ...), the slowest blocks
 //   set each phase's end, and K9b's qkv and c_fc took 16% and 19% longer
-//   on one H100 (PERF.md, PR 23).
+//   on one H100 (PERF.md).
 // - Every wait is bounded by the global timer: a barrier or ring wait
 //   that does not complete within PHASE_WAIT_NS traps instead of holding
 //   the card.

@@ -1,6 +1,7 @@
 """Times the int8 whole-layer kernels K9a (``block_int8``) and K9c
-(``stream_tower_int8``) at the rows of PERF.md's PR 24 table, beside the
-halves on the same rows, for an A/B of two checkouts on one NVIDIA GPU.
+(``stream_tower_int8``) at the ViT-B/32 rows PERF.md reports them at,
+beside the halves on the same rows, for an A/B of two checkouts on one
+NVIDIA GPU.
 
     python3 jcf_tpu_torch/scripts/ab_k9.py [ROOT]   # the card
     python3 jcf_tpu_torch/scripts/ab_k9.py --device cpu --scale 4096 --rounds 1 --reps 1
