@@ -307,10 +307,7 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12  # f32 outside the tensor cores
 PEAK_TF32 = 495e12  # TF32 on the tensor cores (the f32 GEMM's three passes)
 
-# the int8 layer kernel K9d and K9a's masked and non-dense branches: a
-# template there, its instances built from csrc/fused_int8_*.cu
-FUSED_INT8_SRC = "jcf_tpu_torch/csrc/fused_layer.cuh"
-# K9a's dense branches and K9c: the persistent int8 layer kernel, its
+# K9a on every branch, K9c and K9d: the persistent int8 layer kernel, its
 # instances built from csrc/block_int8_*.cu
 K9_PERSISTENT_SRC = "jcf_tpu_torch/csrc/block_int8.cu"
 # kernel -> (path, source, TPU kernel it replaces); the int8 patch-embed
@@ -351,7 +348,7 @@ KERNELS = {
     # the whole-layer routes (_FUSE), phase 9
     "block_int8": ("serving_block", K9_PERSISTENT_SRC,
                    "jcf_tpu/ops/block_kernel.py:732"),
-    "layer_fused_int8": ("serving_layer", FUSED_INT8_SRC,
+    "layer_fused_int8": ("serving_layer", K9_PERSISTENT_SRC,
                          "jcf_tpu/ops/block_kernel.py:1672"),
     "stream_tower_int8": ("serving_stream", K9_PERSISTENT_SRC,
                           "jcf_tpu/ops/block_kernel.py:833"),
@@ -1674,6 +1671,29 @@ def fused_serving_phase(engine, images, geometry, text, modes_halves, modes_f, c
                    check_layer,
                    layer_work(n_rows, e, hidden, heads, pairs, 2 * nbytes(rows) + w_bytes,
                               PEAK_INT8), reps=5)
+        if fuse == "layer":
+            # K9d is the persistent kernel's one-layer launch with K9c's
+            # bf16 mid: at the same chunk count equal bit for bit to a
+            # one-layer K9c launch (gated); against the halves at that
+            # count, which JAX holds equal, printed
+            nsp, saved = bk._LAYER_NSPLIT, bk._MLP_NSPLIT
+            bk._MLP_NSPLIT = nsp
+            try:
+                k9d = bk.layer_fused_int8(rows, layer0, s, heads)
+                k9c = bk.stream_tower_int8(rows, one_layer_tree(quant, 0), heads, s=s)
+                halves = bk._halves_int8(rows, layer0, s, heads)
+            finally:
+                bk._MLP_NSPLIT = saved
+            same = torch.equal(k9d, k9c)
+            log(f"  layer_fused_int8 vs a one-layer stream_tower_int8 at {nsp} chunks: "
+                f"{'equal' if same else 'NOT equal'} (tol: bit for bit)")
+            if not same:
+                raise AssertionError("K9d disagrees with a one-layer K9c at the same chunk count")
+            diff = float((halves.float() - k9d.float()).abs().max())
+            log(f"  layer_fused_int8 vs _halves_int8 at _MLP_NSPLIT = {nsp}: "
+                f"{'equal' if torch.equal(halves, k9d) else 'NOT equal'}, max |diff| {diff:.3e} "
+                f"(not gated)")
+            del k9d, k9c, halves
         if halves_ms is None:
             halves_ms = time_ms(lambda: bk._halves_int8(rows, layer0, s, heads))
         per_layer = ph.results[name]["ms"] / (n_layers if fuse == "stream" else 1)
@@ -4182,13 +4202,13 @@ def k9_modes_phase(params, images_np, images, geometry, text, counters, smi, dev
 # unfolded tower (12c) and 288² (10c) under each K9 route, the odd-head and
 # 64-token towers and engines under "block" (12d)
 KERNELS.update({
-    "block_int8/masked_f32": ("classifier_int8_block_f32", FUSED_INT8_SRC,
+    "block_int8/masked_f32": ("classifier_int8_block_f32", K9_PERSISTENT_SRC,
                               "jcf_tpu/ops/block_kernel.py:732"),
-    "block_int8/masked": ("classifier_int8_block_bf16", FUSED_INT8_SRC,
+    "block_int8/masked": ("classifier_int8_block_bf16", K9_PERSISTENT_SRC,
                           "jcf_tpu/ops/block_kernel.py:732"),
-    "block_int8/odd_heads": ("engine_masked_block", FUSED_INT8_SRC,
+    "block_int8/odd_heads": ("engine_masked_block", K9_PERSISTENT_SRC,
                              "jcf_tpu/ops/block_kernel.py:732"),
-    "block_int8/nondense": ("engine_nondense_block", FUSED_INT8_SRC,
+    "block_int8/nondense": ("engine_nondense_block", K9_PERSISTENT_SRC,
                             "jcf_tpu/ops/block_kernel.py:732"),
     **{f"{name}/{branch}": (f"{path}_{fuse}", KERNELS[name][1], KERNELS[name][2])
        for fuse, name in K9_OF.items()

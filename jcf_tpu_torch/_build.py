@@ -55,10 +55,7 @@ SIGNATURES = {
     "jcf_packed_attention_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "jcf_blocked_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, *[ctypes.c_longlong] * 6,
                               _F, _I, _P],
-    "jcf_block_int8": [*[_P] * 25, *[_I] * 7, _P],
-    "jcf_layer_fused_int8": [*[_P] * 25, *[_I] * 7, _P],
     "jcf_int8_layers": [_I, *[_P] * 31, *[_I] * 8, _P],
-    "jcf_int8_xq_scratch": [_I] * 6,
     "jcf_block_float": [_I, *[_P] * 20, _I, _I, _I, _I, _I, _F, _P],
     "jcf_jpeg_idct": [_P, _P, _I, _I, _I, _P, _P],
     "jcf_jpeg_upsample_color": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
@@ -70,8 +67,6 @@ SIGNATURES = {
     "jcf_unpack_int4": [_P, _P, _I, _I, _P],
     "jcf_patch_regroup": [_P, _P, _I, _I, _I, _I, _I, _P],
 }
-# C entries that return something other than a cudaError_t
-RESTYPES = {"jcf_int8_xq_scratch": ctypes.c_longlong}
 # the entropy decoder's entries (csrc/jpeg_entropy.cpp)
 ENTROPY_SIGNATURES = {
     "jcf_jpeg_open": ([_P, ctypes.c_longlong, _P, _P, _I], _P),
@@ -158,7 +153,7 @@ def load() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = RESTYPES.get(name, ctypes.c_int)
+        fn.restype = ctypes.c_int
     _lib = lib
     return lib
 

@@ -256,15 +256,20 @@ __device__ __forceinline__ void unpack8(float (&f)[8], const uint4 w) {
 }
 
 // a warp's 16 query rows (row 0 at q, ld elements a row, 16-byte aligned;
-// rows >= n_rows as 0) to f32 at qf (64 a row)
+// rows >= n_rows as 0) to f32 at qf (64 a row); CG: q through L2 (written
+// earlier in the same launch)
+template <bool CG = false>
 __device__ __forceinline__ void stage_q_f32(float* qf, const bf16* q, long long ld, int n_rows) {
   const int lane = threadIdx.x & 31;
+  auto ld16 = [](const bf16* p) {
+    if constexpr (CG) return __ldcg(reinterpret_cast<const uint4*>(p));
+    else return *reinterpret_cast<const uint4*>(p);
+  };
 #pragma unroll
   for (int c = lane; c < 16 * 8; c += 32) {
     const int r = c >> 3, d0 = (c & 7) * 8;
     float f[8];
-    unpack8(f, r < n_rows ? *reinterpret_cast<const uint4*>(q + r * ld + d0)
-                          : make_uint4(0u, 0u, 0u, 0u));
+    unpack8(f, r < n_rows ? ld16(q + r * ld + d0) : make_uint4(0u, 0u, 0u, 0u));
     *reinterpret_cast<float4*>(qf + r * ATT_D + d0) = make_float4(f[0], f[1], f[2], f[3]);
     *reinterpret_cast<float4*>(qf + r * ATT_D + d0 + 4) = make_float4(f[4], f[5], f[6], f[7]);
   }
@@ -435,4 +440,97 @@ __device__ __forceinline__ void store_tile_int8(const float (&acc)[8][4], float 
                                                 int8_t* dst, long long ld, int n_rows) {
   const float c[2] = {cinv, cinv};
   store_tile_int8(acc, c, dst, ld, n_rows);
+}
+
+// ---------------------------------------------------------------------------
+// the masked attention of one (sequence, head)
+// ---------------------------------------------------------------------------
+//
+// The body of text_block.cu's masked_attention_mma_kernel (its header says
+// what it computes), shared with the attention phase of the persistent
+// int8 layer kernel (block_int8.cuh): the block stages the head's K and V
+// (masked_stage_kv), each warp its 16-row query tile (masked_stage_q),
+// then each warp computes its tile (masked_tile). NC: 16-key chunks, 16 NC
+// >= S.
+
+constexpr int MA_LD = ATT_D + 8;  // padded shared row of K and V (bf16): conflict-free ldmatrix
+
+// bytes of a warp's scratch: its 16 query rows in f32 for the scores, then
+// its 16 rows of bf16 p (KP + 8 a row) for PV
+__host__ __device__ constexpr int ma_warp_bytes(int kp) {
+  return 16 * ATT_D * 4 > 16 * (kp + 8) * 2 ? 16 * ATT_D * 4 : 16 * (kp + 8) * 2;
+}
+
+// K then V of one head ([16 NC][MA_LD] bf16 each at ks, rows past S
+// zero-filled; any: a valid address for the zero-filled chunks) from its
+// packed qkv rows (base: the head's q in the sequence's row 0, E = 64 H),
+// 16-byte cp.async by threads t, t + nt, ..
+template <int NC>
+__device__ __forceinline__ void masked_stage_kv(bf16* ks, const bf16* base, const bf16* any, int S,
+                                                int E, int t, int nt) {
+  constexpr int KP = 16 * NC;
+  const int E3 = 3 * E;
+  for (int c = t; c < 2 * KP * 8; c += nt) {
+    const int r = c >> 3, kv = r >= KP, row = r - kv * KP, col = (c & 7) * 8;
+    const bool ok = row < S;
+    cp_async16(ks + r * MA_LD + col, ok ? base + (long long)row * E3 + (1 + kv) * E + col : any,
+               ok ? 16 : 0);
+  }
+}
+
+// the warp's query rows m0 .. m0 + 15 of the head (base as above) in f32
+// into its scratch wb
+template <bool CG>
+__device__ __forceinline__ void masked_stage_q(unsigned char* wb, const bf16* base, int E, int m0,
+                                               int S) {
+  const int E3 = 3 * E;
+  stage_q_f32<CG>(reinterpret_cast<float*>(wb), base + (long long)m0 * E3, E3, S - m0);
+}
+
+// the warp's tile m0 once K, V (ks) and its q (wb) are staged: scores and
+// softmax in the reference's order, PV on the tensor cores, the context
+// rows to out + o (E a row) as out_kind: 0 bf16, 1 f32, 2 int8 x *ctx_inv
+template <int NC>
+__device__ __forceinline__ void masked_tile(const bf16* ks, unsigned char* wb, int m0, int S,
+                                            bool causal, float scale, int out_kind,
+                                            const float* ctx_inv, void* out, long long o, int E) {
+  constexpr int KP = 16 * NC, KS = (KP + 31) / 32, LDP = KP + 8;
+  const bf16* vs = ks + KP * MA_LD;
+  const int lane = threadIdx.x & 31;
+  const float* qf = reinterpret_cast<const float*>(wb);  // [16][64] q in f32, then [16][LDP] bf16 p
+  bf16* ps = reinterpret_cast<bf16*>(wb);
+
+  // scores and softmax in the reference's order (lanes over keys)
+  float sc[16][KS];
+  scores_seq<KS, MA_LD>(sc, qf, ks, causal ? min(S, m0 + 16) : S, KP);
+#pragma unroll
+  for (int r = 0; r < 16; ++r)
+#pragma unroll
+    for (int sl = 0; sl < KS; ++sl) {
+      const int j = 32 * sl + lane;
+      sc[r][sl] = j < S && (!causal || j <= m0 + r) ? __fmul_rn(sc[r][sl], scale) : -INFINITY;
+    }
+  softmax_rows<KS>(sc);
+  __syncwarp();  // q read: its scratch takes p
+#pragma unroll
+  for (int r = 0; r < 16; ++r)
+#pragma unroll
+    for (int sl = 0; sl < KS; ++sl)
+      if (32 * sl + lane < KP) ps[r * LDP + 32 * sl + lane] = __float2bfloat16_rn(sc[r][sl]);
+  __syncwarp();
+
+  // PV on the tensor cores: bf16 p through ldmatrix, V through ldmatrix.trans
+  float acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+  smem_tile<NC, LDP, MA_LD, false, false>(acc, ps, nullptr, vs);
+
+  if (out_kind == 0)
+    store_tile_bf16(acc, static_cast<bf16*>(out) + o, E, S - m0);
+  else if (out_kind == 1)
+    store_tile_f32(acc, static_cast<float*>(out) + o, E, S - m0);
+  else
+    store_tile_int8(acc, *ctx_inv, static_cast<int8_t*>(out) + o, E, S - m0);
 }

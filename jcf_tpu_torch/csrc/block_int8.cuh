@@ -1,8 +1,10 @@
-// The persistent int8 layer kernel of K9a and K9c (block_int8.cu says what
-// it replaces and how it runs): one template over the mid's type (f32 for
-// K9a, bf16 for K9c) and the quantization mode, with the layer count at
-// run time. Its instances are built in block_int8_{mid32,bf16mid}*.cu,
-// which nvcc compiles in parallel.
+// The persistent int8 layer kernel of K9a, K9c and K9d (block_int8.cu says
+// what it replaces and how it runs): one template over the rows' type (f32
+// rows: K9a on the f32 text tower), the mid's type (f32 for K9a, bf16 for
+// K9c and K9d), the masked attention (K9a's masked route) and the
+// quantization mode, with the layer count and the attention's kind at run
+// time. Its instances are built in block_int8_{bf16mid,mid32,masked,
+// rows32}*.cu, which nvcc compiles in parallel.
 #pragma once
 
 #include "int8_epilogue.cuh"
@@ -18,17 +20,25 @@ constexpr int K9_MAX_SEQ = 127;
 constexpr int K9_BARS = 3;  // the grid barrier, the tile counter, the attention's round counter
 using K9Ring = Ring<3, PHASE_BN, 1>;  // the int8 GEMM's BN = 128 ring (int8_gemm.cu)
 
+// the attention's kinds (Params::attn), one for the whole launch: the
+// mask-free pair attention with its shift floored at 0 (the dense route)
+// or not floored (the non-dense route, S a multiple of 16); the masked
+// per-head attention without a mask (an odd head count) or causal
+enum { K9_ATT_PAIR = 0, K9_ATT_PAIR_NOFLOOR = 1, K9_ATT_HEADS = 2, K9_ATT_CAUSAL = 3 };
+
 // the tensor maps: the int8 A rows (LN1 and LN2 out, the context) [M, E]
 // and the int8 hidden [M, F]; the weights, each stacked over the layers
 // ([L * 3E, E], [L * E, E], [L * F, E], [L * E, F]: a layer's rows start
-// at l times its own rows)
+// at l times its own rows). The hidden and c_proj's weights are 3-D maps
+// [rows, nsp, F / nsp] over the nsp hidden chunks (a box never crosses a
+// chunk: TMA zero-fills a chunk's last box past F / nsp)
 struct Maps {
   CUtensorMap a_x, a_h, b_qkv, b_out, b_fc, b_proj;
 };
 
 struct Params {
-  const bf16* x;  // [M, E], M = n_crops * S
-  bf16* out;      // [M, E]; K9c's mid and every layer's output
+  const void* x;  // [M, E] bf16, or f32 (f32 rows), M = n_crops * S
+  void* out;      // [M, E] as x; K9c's and K9d's mid and every layer's output
   int8_t* xq;     // [M, E]: LN1's rows, the context, LN2's rows
   bf16* qkv;      // [M, 3E]
   float* hid32;   // [M, F]: the dynamic hidden (the memory of qkv)
@@ -45,7 +55,7 @@ struct Params {
   const float *ln1_inv, *ctx_inv, *ln2_inv, *gelu_c, *shift;
   // the unfolded tree's LN affines [L, E] in f32 (null when folded)
   const float *ln1_s, *ln1_b, *ln2_s, *ln2_b;
-  int n_crops, S, H, F, n_layers, nsp;
+  int n_crops, S, H, F, n_layers, nsp, attn;
 };
 
 __host__ __device__ constexpr size_t smem_bytes() {
@@ -112,11 +122,77 @@ __device__ __forceinline__ auto by_pair(int M, int N, F f) {
   };
 }
 
+// c_proj's tile epilogue at chunk ch of nsp > 1 (store_tile's pairs): y =
+// f32(acc) * scale[n] [* the chunk's row scale], + the earlier chunks'
+// partial (ch > 0, in part), to part (ch < nsp - 1) or, at the last chunk,
+// + bias[n], + mid(m, n) -> out in ROW. A column group's loads (both rows'
+// partials and mids) go ahead of its stores: the compiler keeps a load
+// behind a store that may alias it. Loading two, four, eight or all
+// sixteen groups ahead spilled their registers and took longer (PERF.md).
+template <typename ROW, bool HS, class Mid>
+__device__ __forceinline__ void chunk_tile(const int (&acc)[64], int m0, int n0, int ch, int M,
+                                           int E, int nsp, const Epilogue& ep, float* part,
+                                           Mid mid) {
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int m = m0 + (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + g;
+  const bool last = ch + 1 == nsp;
+  float hs[2] = {1.0f, 1.0f};
+  if constexpr (!HS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (m + 8 * r < M) hs[r] = __ldcg(ep.row_scale + (long long)(m + 8 * r) * nsp + ch);
+  }
+#pragma unroll
+  for (int j = 0; j < PHASE_BN / 8; ++j) {
+    const int n = n0 + j * 8 + tig * 2;
+    if (n >= E) continue;
+    float2 q[2], rs[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int mr = m + 8 * r;
+      const bool ok = mr < M;
+      const long long idx = (long long)mr * E + n;
+      q[r] = ok && ch > 0 ? __ldcg(reinterpret_cast<const float2*>(part + idx))
+                          : make_float2(0.0f, 0.0f);
+      rs[r] = ok && last ? mid(mr, n) : make_float2(0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int mr = m + 8 * r;
+      if (mr >= M) continue;
+      const long long idx = (long long)mr * E + n;
+      float y0 = __fmul_rn(__int2float_rn(acc[4 * j + 2 * r]), ep.scale[n]);
+      float y1 = __fmul_rn(__int2float_rn(acc[4 * j + 2 * r + 1]), ep.scale[n + 1]);
+      if constexpr (!HS) {
+        y0 = __fmul_rn(y0, hs[r]);
+        y1 = __fmul_rn(y1, hs[r]);
+      }
+      if (ch > 0) {
+        y0 = __fadd_rn(q[r].x, y0);
+        y1 = __fadd_rn(q[r].y, y1);
+      }
+      if (!last) {
+        *reinterpret_cast<float2*>(part + idx) = make_float2(y0, y1);
+        continue;
+      }
+      y0 = __fadd_rn(y0, ep.bias[n]);
+      y1 = __fadd_rn(y1, ep.bias[n + 1]);
+      if constexpr (std::is_same<ROW, float>::value)
+        *reinterpret_cast<float2*>(static_cast<float*>(ep.out) + idx) =
+            make_float2(__fadd_rn(rs[r].x, y0), __fadd_rn(rs[r].y, y1));
+      else
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(ep.out) + idx) =
+            __floats2bfloat162_rn(__fadd_rn(rs[r].x, y0), __fadd_rn(rs[r].y, y1));
+    }
+  }
+}
+
 // one GEMM phase: C[m, n] = sum_k A[m, k] W[b_row0 + n, k] over M rows and
 // N columns, depth K bytes, through the tile epilogue epi (chunk_steps:
-// stages a chunk of the depth; 0 for one chunk); the producer warp's lane
-// 0 loads, warps 0-7 consume
-template <class Epi>
+// stages a chunk of the depth; 0 for one chunk; CHUNKED: A and W are 3-D
+// chunk maps, K = chunks x chunk_steps stages); the producer warp's lane 0
+// loads, warps 0-7 consume
+template <bool CHUNKED = false, class Epi>
 __device__ __forceinline__ void gemm_phase(const CUtensorMap* ma, const CUtensorMap* mb, int b_row0,
                                            int M, int N, int K, int chunk_steps, uint32_t ring,
                                            uint32_t full0, uint32_t empty0, volatile int* slots,
@@ -127,8 +203,8 @@ __device__ __forceinline__ void gemm_phase(const CUtensorMap* ma, const CUtensor
   const int k_steps = (K + GEMM_BK_BYTES - 1) / GEMM_BK_BYTES;
   if (threadIdx.x >= 32 * GEMM_CONSUMER_WARPS) {
     if (threadIdx.x == 32 * GEMM_CONSUMER_WARPS)
-      produce<R, true>(ma, mb, nullptr, tiles, tiles_n, k_steps, ring, full0, empty0, slots, ctr,
-                       rp, b_row0);
+      produce<R, true, CHUNKED>(ma, mb, nullptr, tiles, tiles_n, k_steps, ring, full0, empty0,
+                                slots, ctr, rp, b_row0, chunk_steps);
     __syncwarp();
   } else {
     consume_s8(k_steps, tiles_n, chunk_steps > 0 ? chunk_steps : k_steps, ring, full0, empty0,
@@ -272,12 +348,13 @@ __device__ __forceinline__ void quant_rows(const float* in, int8_t* out, float* 
 // rounds of U units drawn from the counter actr (base abase: each phase
 // takes rounds + gridDim.x of it); a round's K and V staged in the ring's
 // shared memory, then each of the 8 consumer warps takes its unit's 16-row
-// query tiles. The shift floored at 0 (the dense route); SCALED: the
-// scores x 1/sqrt(64) (the unfolded tree)
+// query tiles. The shift floored at m_floor (0 on the dense route, -inf
+// off it); SCALED: the scores x 1/sqrt(64) (the unfolded tree)
 template <int NC, typename O, bool SCALED, bool SHIFT>
 __device__ __forceinline__ void attention_nc(const bf16* qkv, O* out, int n_crops, int S, int H,
-                                             float cinv, const float* shift, unsigned char* smem,
-                                             unsigned* actr, unsigned& abase, int& slot) {
+                                             float cinv, const float* shift, float m_floor,
+                                             unsigned char* smem, unsigned* actr, unsigned& abase,
+                                             int& slot) {
   constexpr int U = NC <= 4 ? 2 : 1, KP = 16 * NC, WPU = GEMM_CONSUMER_WARPS / U;
   const int units = n_crops * (H >> 1), rounds = (units + U - 1) / U;
   const int warp = threadIdx.x >> 5;
@@ -300,7 +377,7 @@ __device__ __forceinline__ void attention_nc(const bf16* qkv, O* out, int n_crop
       if (unit < units) {
         const bf16* ks = st + ub * 2 * KP * PM_LD;
         pair_rows<NC, O, SCALED, SHIFT, true>(qkv, out, unit, ks, ks + KP * PM_LD, cinv, shift, S,
-                                              H, 0.125f, 0.0f, (warp % WPU) * 16, WPU * 16);
+                                              H, 0.125f, m_floor, (warp % WPU) * 16, WPU * 16);
       }
     }
     __syncthreads();
@@ -312,34 +389,122 @@ __device__ __forceinline__ void attention_nc(const bf16* qkv, O* out, int n_crop
 // 4 key chunks up to 64 keys (two units a round), else 8 (one unit)
 template <typename O, bool SCALED, bool SHIFT>
 __device__ __forceinline__ void attention(const bf16* qkv, O* out, int n_crops, int S, int H,
-                                          float cinv, const float* shift, unsigned char* smem,
-                                          unsigned* actr, unsigned& abase, int& slot) {
+                                          float cinv, const float* shift, float m_floor,
+                                          unsigned char* smem, unsigned* actr, unsigned& abase,
+                                          int& slot) {
   if (S <= 64)
-    attention_nc<4, O, SCALED, SHIFT>(qkv, out, n_crops, S, H, cinv, shift, smem, actr, abase,
-                                      slot);
+    attention_nc<4, O, SCALED, SHIFT>(qkv, out, n_crops, S, H, cinv, shift, m_floor, smem, actr,
+                                      abase, slot);
   else
-    attention_nc<8, O, SCALED, SHIFT>(qkv, out, n_crops, S, H, cinv, shift, smem, actr, abase,
-                                      slot);
+    attention_nc<8, O, SCALED, SHIFT>(qkv, out, n_crops, S, H, cinv, shift, m_floor, smem, actr,
+                                      abase, slot);
 }
 
 static_assert(2 * 2 * 64 * PM_LD * 2 <= K9Ring::STAGES * K9Ring::STAGE_BYTES &&
                   2 * 128 * PM_LD * 2 <= K9Ring::STAGES * K9Ring::STAGE_BYTES,
               "a round's K and V fit in the ring's stages");
 
+// the masked attention (attn_mma.cuh's body of text_block.cu's
+// masked_attention_mma_kernel) on every (sequence, head) unit, in rounds
+// drawn from actr as the pair attention's: U = 8 / NC units a round, their
+// K and V staged in the ring's shared memory, then the warps' scratch;
+// consumer warp w < U NC takes query tile w % NC of unit w / NC (none
+// past S). The scores x scale (1: exact), causal or not; the context as O
+// (f32, or int8 x *ctx_inv)
+template <int NC, typename O>
+__device__ __forceinline__ void heads_nc(const bf16* qkv, O* out, int n_seq, int S, int H,
+                                         bool causal, float scale, const float* ctx_inv,
+                                         unsigned char* smem, unsigned* actr, unsigned& abase,
+                                         int& slot) {
+  constexpr int U = GEMM_CONSUMER_WARPS / NC, KP = 16 * NC, KV = 2 * KP * MA_LD;
+  const int units = n_seq * H, rounds = (units + U - 1) / U;
+  const int warp = threadIdx.x >> 5, E = H * ATT_D;
+  bf16* const st = reinterpret_cast<bf16*>(smem);
+  unsigned char* const wb = smem + U * KV * sizeof(bf16) + (warp % GEMM_CONSUMER_WARPS) *
+                                                                ma_warp_bytes(KP);
+  unsigned drawn = 0;
+  if (threadIdx.x == 0) slot = (int)(atomicAdd(actr, 1u) - abase);
+  for (;;) {
+    __syncthreads();
+    const int r = slot;
+    if (r >= rounds) break;
+    if (threadIdx.x == 0) drawn = atomicAdd(actr, 1u);
+#pragma unroll
+    for (int ub = 0; ub < U; ++ub) {
+      const int unit = r * U + ub;
+      if (unit < units) {
+        const long long seq = unit / H;
+        masked_stage_kv<NC>(st + ub * KV, qkv + seq * S * (3 * E) + (unit - seq * H) * ATT_D, qkv,
+                            S, E, threadIdx.x, blockDim.x);
+      }
+    }
+    cp_async_commit();
+    const int ub = warp / NC, m0 = (warp % NC) * 16, unit = r * U + ub;
+    const bool mine = ub < U && unit < units && m0 < S;  // warps past U NC (and the producer) idle
+    const long long seq = unit / H;
+    const int head = unit - (int)(seq * H);
+    if (mine) masked_stage_q<true>(wb, qkv + seq * S * (3 * E) + head * ATT_D, E, m0, S);
+    cp_async_wait<0>();
+    __syncthreads();
+    if (mine)
+      masked_tile<NC>(st + ub * KV, wb, m0, S, causal, scale,
+                      std::is_same<O, int8_t>::value ? 2 : 1, ctx_inv, out,
+                      (seq * S + m0) * E + head * ATT_D, E);
+    __syncthreads();
+    if (threadIdx.x == 0) slot = (int)(drawn - abase);
+  }
+  abase += rounds + gridDim.x;
+}
+
+// 2, 4, 5 or 8 key chunks (four, two, one or one unit a round; 5: the
+// text tower's 77 tokens, whose attention phase took 2.4x as long at 8,
+// PERF.md)
+template <typename O>
+__device__ __forceinline__ void heads(const bf16* qkv, O* out, int n_seq, int S, int H,
+                                      bool causal, float scale, const float* ctx_inv,
+                                      unsigned char* smem, unsigned* actr, unsigned& abase,
+                                      int& slot) {
+  if (S <= 32)
+    heads_nc<2, O>(qkv, out, n_seq, S, H, causal, scale, ctx_inv, smem, actr, abase, slot);
+  else if (S <= 64)
+    heads_nc<4, O>(qkv, out, n_seq, S, H, causal, scale, ctx_inv, smem, actr, abase, slot);
+  else if (S <= 80)
+    heads_nc<5, O>(qkv, out, n_seq, S, H, causal, scale, ctx_inv, smem, actr, abase, slot);
+  else
+    heads_nc<8, O>(qkv, out, n_seq, S, H, causal, scale, ctx_inv, smem, actr, abase, slot);
+}
+
+template <int NC>
+constexpr bool heads_fit() {
+  return (GEMM_CONSUMER_WARPS / NC) * 2 * 16 * NC * MA_LD * 2 +
+             GEMM_CONSUMER_WARPS * ma_warp_bytes(16 * NC) <=
+         K9Ring::STAGES * K9Ring::STAGE_BYTES;
+}
+static_assert(heads_fit<2>() && heads_fit<4>() && heads_fit<5>() && heads_fit<8>(),
+              "a round's K, V and warp scratch fit in the ring's stages");
+
 // ---------------------------------------------------------------------------
 // the kernel
 // ---------------------------------------------------------------------------
 
-// MID: the mid's type (float: K9a, in mid32; bf16: K9c, in out, as the
-// halves round it). ACT, CTX, HS: a static scale for the LN rows, the
-// context, the hidden (each else dynamic, per row; the hidden per row and
-// chunk); SHIFT: the calibrated softmax shift (else the pair max, floored
-// at 0); FOLDED: the folded tree (else the LN affines and the scores x
-// 1/sqrt(64)). Each phase ends on the grid barrier.
-template <typename MID, bool ACT, bool CTX, bool HS, bool SHIFT, bool FOLDED>
+// ROW: the rows' type (bf16; float: K9a's f32 text rows, one layer). MID:
+// the mid's type (float: K9a, in mid32; bf16: K9c and K9d, in out, as the
+// halves round it). MASKED: the masked attention's code (K9a's masked
+// route; compiled into the dense route's instances, its registers cost
+// K9a's dynamic-context modes 3-6%, PERF.md). ACT, CTX, HS: a static scale
+// for the LN rows, the context, the hidden (each else dynamic, per row;
+// the hidden per row and chunk); SHIFT: the calibrated softmax shift (else
+// the pair max, floored at 0 on the dense route); FOLDED: the folded tree
+// (else the LN affines and the scores x 1/sqrt(64)). The attention's kind
+// (p.attn) is read once a phase. Each phase ends on the grid barrier.
+template <typename ROW, typename MID, bool MASKED, bool ACT, bool CTX, bool HS, bool SHIFT,
+          bool FOLDED>
 __global__ void __launch_bounds__(K9_THREADS, 2)
     block_int8_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Params p) {
   constexpr bool MID_F32 = std::is_same<MID, float>::value;
+  constexpr bool ROW_F32 = std::is_same<ROW, float>::value;
+  static_assert(!ROW_F32 || MID_F32, "f32 rows keep an f32 mid");
+  static_assert(!MASKED || MID_F32, "the masked route is K9a's");
   using R = K9Ring;
   extern __shared__ unsigned char smem_raw[];
   __shared__ float red[2][8];
@@ -357,13 +522,14 @@ __global__ void __launch_bounds__(K9_THREADS, 2)
   unsigned target = 0, abase = 0;
   ring_init<R>(full0, empty0);
   for (int l = 0; l < p.n_layers; ++l) {
-    const bf16* src = l == 0 ? p.x : p.out;  // the residual stream
+    // the residual stream
+    const ROW* src = static_cast<const ROW*>(l == 0 ? p.x : static_cast<const void*>(p.out));
     const float* ln_g[2] = {FOLDED ? nullptr : p.ln1_s + l * E, FOLDED ? nullptr : p.ln2_s + l * E};
     const float* ln_b[2] = {FOLDED ? nullptr : p.ln1_b + l * E, FOLDED ? nullptr : p.ln2_b + l * E};
 
     // LN1 + quant
-    ln_rows<bf16, !ACT, !FOLDED>(src, p.xq, p.rsc, M, E, ACT ? __ldg(p.ln1_inv + l) : 0.0f,
-                                 ln_g[0], ln_b[0]);
+    ln_rows<ROW, !ACT, !FOLDED>(src, p.xq, p.rsc, M, E, ACT ? __ldg(p.ln1_inv + l) : 0.0f,
+                                ln_g[0], ln_b[0]);
     grid_sync(p.bar, target);
 
     // qkv: bf16((acc * scale) [* row scale] + bias)
@@ -376,30 +542,44 @@ __global__ void __launch_bounds__(K9_THREADS, 2)
     grid_sync(p.bar, target);
 
     // the attention: the int8 context (static) or the f32 one, then its
-    // row quantization
-    if constexpr (CTX) {
-      attention<int8_t, !FOLDED, SHIFT>(p.qkv, p.xq, p.n_crops, S, H, __ldg(p.ctx_inv + l),
-                                        SHIFT ? p.shift + l : nullptr, tiles, actr, abase,
-                                        round_slot);
-      grid_sync(p.bar, target);
-    } else {
-      attention<float, !FOLDED, SHIFT>(p.qkv, p.f32s, p.n_crops, S, H, 0.0f,
-                                       SHIFT ? p.shift + l : nullptr, tiles, actr, abase,
-                                       round_slot);
-      grid_sync(p.bar, target);
+    // row quantization. The masked kinds take no shift; their scores x
+    // 1/sqrt(64) where the tree is unfolded (x 1 is exact)
+    {
+      using O = typename std::conditional<CTX, int8_t, float>::type;
+      O* const ctx = CTX ? reinterpret_cast<O*>(p.xq) : reinterpret_cast<O*>(p.f32s);
+      bool masked = false;
+      if constexpr (MASKED) {
+        masked = p.attn >= K9_ATT_HEADS;
+        if (masked)
+          heads<O>(p.qkv, ctx, p.n_crops, S, H, p.attn == K9_ATT_CAUSAL, FOLDED ? 1.0f : 0.125f,
+                   CTX ? p.ctx_inv + l : nullptr, tiles, actr, abase, round_slot);
+      }
+      if (!masked)
+        attention<O, !FOLDED, SHIFT>(p.qkv, ctx, p.n_crops, S, H,
+                                     CTX ? __ldg(p.ctx_inv + l) : 0.0f,
+                                     SHIFT ? p.shift + l : nullptr,
+                                     p.attn == K9_ATT_PAIR ? 0.0f : -INFINITY, tiles, actr, abase,
+                                     round_slot);
+    }
+    grid_sync(p.bar, target);
+    if constexpr (!CTX) {
       quant_rows<false, false>(p.f32s, p.xq, p.rsc, M, E, red);
       grid_sync(p.bar, target);
     }
 
-    // out-proj + residual -> mid: f32 (K9a) or bf16 in out (K9c, the
-    // halves' residual epilogue)
+    // out-proj + residual -> mid: f32 (K9a; from f32 rows the halves' f32
+    // residual epilogue) or bf16 in out (K9c, K9d: the halves' residual
+    // epilogue)
     {
-      const Epilogue ep{MID_F32 ? static_cast<void*>(p.mid32) : static_cast<void*>(p.out),
-                        p.out_sc + l * E, p.out_b + l * E, src, nullptr, p.rsc};
+      const Epilogue ep{MID_F32 ? static_cast<void*>(p.mid32) : p.out, p.out_sc + l * E,
+                        p.out_b + l * E, src, nullptr, p.rsc};
       constexpr int EPI = CTX ? EPI_RESID : EPI_RESID_ROWS;
       gemm_phase(&maps.a_x, &maps.b_out, l * E, M, E, E, 0, ring, full0, empty0, slots, ctr, rp,
                  by_pair(M, E, [ep, E](int m, int n, int v0, int v1, int) {
-                   if constexpr (MID_F32) {
+                   if constexpr (ROW_F32) {
+                     store_pair<CTX ? EPI_RESID_F32 : EPI_RESID_ROWS_F32, true>(ep, m, n, E, v0,
+                                                                                 v1);
+                   } else if constexpr (MID_F32) {
                      const long long idx = (long long)m * E + n;
                      const float2 y = dequant_pair<EPI, true>(ep, m, n, v0, v1);
                      const float2 r = ep_ld_bf16x2<true>(static_cast<const bf16*>(ep.resid) + idx);
@@ -417,8 +597,8 @@ __global__ void __launch_bounds__(K9_THREADS, 2)
       ln_rows<float, !ACT, !FOLDED>(p.mid32, p.xq, p.rsc, M, E,
                                     ACT ? __ldg(p.ln2_inv + l) : 0.0f, ln_g[1], ln_b[1]);
     else
-      ln_rows<bf16, !ACT, !FOLDED>(p.out, p.xq, p.rsc, M, E, ACT ? __ldg(p.ln2_inv + l) : 0.0f,
-                                   ln_g[1], ln_b[1]);
+      ln_rows<bf16, !ACT, !FOLDED>(static_cast<const bf16*>(p.out), p.xq, p.rsc, M, E,
+                                   ACT ? __ldg(p.ln2_inv + l) : 0.0f, ln_g[1], ln_b[1]);
     grid_sync(p.bar, target);
 
     // c_fc: GELU-quant into the int8 hidden (static), or the f32 hidden,
@@ -445,11 +625,12 @@ __global__ void __launch_bounds__(K9_THREADS, 2)
     }
 
     // c_proj + residual. One chunk: the halves' residual epilogue on mid
-    // (K9c), or its twin on the f32 mid (K9a). nsp chunks: one int32 sum a
-    // hidden chunk, its f32 partial (acc * scale) [* the chunk's row scale]
-    // added to the earlier chunks' in chunk order (in f32s), then the bias
-    // and mid. Each its own phase body: one body for both held more
-    // registers through every tile and ran slower.
+    // (K9c, K9d), or its twin on the f32 mid (K9a; to f32 rows the halves'
+    // f32 residual epilogue). nsp chunks: one int32 sum a hidden chunk, its
+    // f32 partial (acc * scale) [* the chunk's row scale] added to the
+    // earlier chunks' in chunk order (in f32s), then the bias and mid. Each
+    // its own phase body: one body for both held more registers through
+    // every tile and ran slower.
     {
       const Epilogue ep{p.out, p.proj_sc + l * E, p.proj_b + l * E,
                         MID_F32 ? static_cast<const void*>(p.mid32) : static_cast<const void*>(p.out),
@@ -462,10 +643,16 @@ __global__ void __launch_bounds__(K9_THREADS, 2)
         else
           return ep_ld_bf16x2<true>(static_cast<const bf16*>(ep.resid) + idx);
       };
+      // the hidden and c_proj's weights through the chunk maps, each
+      // chunk's depth in whole stages (zero-filled past F / nsp)
+      const int steps = (F / nsp + GEMM_BK_BYTES - 1) / GEMM_BK_BYTES;
       if (nsp == 1) {
-        gemm_phase(&maps.a_h, &maps.b_proj, l * E, M, E, F, 0, ring, full0, empty0, slots, ctr, rp,
-                   by_pair(M, E, [ep, E, mid](int m, int n, int v0, int v1, int) {
-                     if constexpr (MID_F32) {
+        gemm_phase<true>(&maps.a_h, &maps.b_proj, l * E, M, E, F, steps, ring, full0, empty0,
+                         slots, ctr, rp, by_pair(M, E, [ep, E, mid](int m, int n, int v0, int v1, int) {
+                     if constexpr (ROW_F32) {
+                       store_pair<HS ? EPI_RESID_F32 : EPI_RESID_ROWS_F32, true>(ep, m, n, E, v0,
+                                                                                 v1);
+                     } else if constexpr (MID_F32) {
                        const float2 y = dequant_pair<EPI, true>(ep, m, n, v0, v1);
                        const float2 r = mid(m, n);
                        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(ep.out) +
@@ -476,58 +663,48 @@ __global__ void __launch_bounds__(K9_THREADS, 2)
                      }
                    }));
       } else {
-        gemm_phase(&maps.a_h, &maps.b_proj, l * E, M, E, F, (F / nsp) / GEMM_BK_BYTES, ring, full0,
-                   empty0, slots, ctr, rp,
-                   by_pair(M, E, [ep, E, nsp, mid, part = p.f32s](int m, int n, int v0, int v1,
-                                                                    int ch) {
-                     const long long idx = (long long)m * E + n;
-                     float y0 = __fmul_rn(__int2float_rn(v0), ep.scale[n]);
-                     float y1 = __fmul_rn(__int2float_rn(v1), ep.scale[n + 1]);
-                     if constexpr (!HS) {
-                       const float h = __ldcg(ep.row_scale + (long long)m * nsp + ch);
-                       y0 = __fmul_rn(y0, h);
-                       y1 = __fmul_rn(y1, h);
-                     }
-                     if (ch > 0) {
-                       const float2 q = __ldcg(reinterpret_cast<const float2*>(part + idx));
-                       y0 = __fadd_rn(q.x, y0);
-                       y1 = __fadd_rn(q.y, y1);
-                     }
-                     if (ch + 1 < nsp) {
-                       *reinterpret_cast<float2*>(part + idx) = make_float2(y0, y1);
-                       return;
-                     }
-                     y0 = __fadd_rn(y0, ep.bias[n]);
-                     y1 = __fadd_rn(y1, ep.bias[n + 1]);
-                     const float2 r = mid(m, n);
-                     *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(ep.out) + idx) =
-                         __floats2bfloat162_rn(__fadd_rn(r.x, y0), __fadd_rn(r.y, y1));
-                   }));
+        gemm_phase<true>(&maps.a_h, &maps.b_proj, l * E, M, E, nsp * steps * GEMM_BK_BYTES, steps,
+                         ring, full0, empty0, slots, ctr, rp,
+                         [ep, E, M, nsp, mid, part = p.f32s](const int (&acc)[64], int m0, int n0,
+                                                             int ch) {
+                           chunk_tile<ROW, HS>(acc, m0, n0, ch, M, E, nsp, ep, part, mid);
+                         });
       }
     }
     if (l + 1 < p.n_layers) grid_sync(p.bar, target);
   }
 }
 
-template <typename MID, bool ACT, bool CTX, bool HS, bool SHIFT, bool FOLDED>
+template <typename ROW, typename MID, bool MASKED, bool ACT, bool CTX, bool HS, bool SHIFT,
+          bool FOLDED>
 int launch(const Maps& maps, const Params& p, int grid, cudaStream_t stream) {
-  return launch_persistent(block_int8_kernel<MID, ACT, CTX, HS, SHIFT, FOLDED>, K9_THREADS,
-                           smem_bytes(), p.bar, K9_BARS, grid, stream, maps, p);
+  return launch_persistent(block_int8_kernel<ROW, MID, MASKED, ACT, CTX, HS, SHIFT, FOLDED>,
+                           K9_THREADS, smem_bytes(), p.bar, K9_BARS, grid, stream, maps, p);
 }
 
-// the modes an instance file builds: the folded tree's (ACT, CTX, HS) as
-// its modes set them (dynamic; "ln"; "hidden"; "full") at one SHIFT, and
-// the unfolded tree (every scale dynamic, no shift)
-#define JCF_K9_FOLDED_MODES(X, MID, SHIFT)   \
-  X(MID, false, false, false, SHIFT, true)   \
-  X(MID, true, false, false, SHIFT, true)    \
-  X(MID, true, false, true, SHIFT, true)     \
-  X(MID, true, true, true, SHIFT, true)
-#define JCF_K9_UNFOLDED(X, MID) X(MID, false, false, false, false, false)
+// the modes an instance file builds on bf16 rows: the folded tree's (ACT,
+// CTX, HS) as its modes set them (dynamic, "ln": DYN, a dynamic hidden;
+// "hidden", "full": STATIC) at one SHIFT, and the unfolded tree (every
+// scale dynamic, no shift), each with the masked attention's code (MK) or
+// without; on f32 rows (K9a's f32 text tower, masked) the folded tree's
+// dynamic mode and the unfolded tree
+#define JCF_K9_FOLDED_DYN(X, MID, MK, SHIFT)           \
+  X(bf16, MID, MK, false, false, false, SHIFT, true)   \
+  X(bf16, MID, MK, true, false, false, SHIFT, true)
+#define JCF_K9_FOLDED_STATIC(X, MID, MK, SHIFT)        \
+  X(bf16, MID, MK, true, false, true, SHIFT, true)     \
+  X(bf16, MID, MK, true, true, true, SHIFT, true)
+#define JCF_K9_FOLDED_MODES(X, MID, MK, SHIFT) \
+  JCF_K9_FOLDED_DYN(X, MID, MK, SHIFT) JCF_K9_FOLDED_STATIC(X, MID, MK, SHIFT)
+#define JCF_K9_UNFOLDED(X, MID, MK) X(bf16, MID, MK, false, false, false, false, false)
+#define JCF_K9_ROWS32(X)                                  \
+  X(float, float, true, false, false, false, false, true) \
+  X(float, float, true, false, false, false, false, false)
 
-#define JCF_K9_INSTANCE(MID, A, C, H, SH, FO) \
-  template int launch<MID, A, C, H, SH, FO>(const Maps&, const Params&, int, cudaStream_t);
-#define JCF_K9_EXTERN(MID, A, C, H, SH, FO) \
-  extern template int launch<MID, A, C, H, SH, FO>(const Maps&, const Params&, int, cudaStream_t);
+#define JCF_K9_INSTANCE(ROW, MID, MK, A, C, H, SH, FO) \
+  template int launch<ROW, MID, MK, A, C, H, SH, FO>(const Maps&, const Params&, int, cudaStream_t);
+#define JCF_K9_EXTERN(ROW, MID, MK, A, C, H, SH, FO)                                       \
+  extern template int launch<ROW, MID, MK, A, C, H, SH, FO>(const Maps&, const Params&, int, \
+                                                            cudaStream_t);
 
 }  // namespace jcf_k9

@@ -1,8 +1,8 @@
-// The persistent int8 layer kernel (block_int8.cuh) for K9c's bf16 mid: the folded
-// tree's four modes with the calibrated softmax shift; built apart from
-// the other instances so that nvcc compiles them at once.
+// The persistent int8 layer kernel (block_int8.cuh) for K9c's and K9d's bf16 mid: the
+// folded tree's four modes with the calibrated softmax shift; built apart
+// from the other instances so that nvcc compiles them at once.
 #include "block_int8.cuh"
 
 namespace jcf_k9 {
-JCF_K9_FOLDED_MODES(JCF_K9_INSTANCE, bf16, true)
+JCF_K9_FOLDED_MODES(JCF_K9_INSTANCE, bf16, false, true)
 }  // namespace jcf_k9

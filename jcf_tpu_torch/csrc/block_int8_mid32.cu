@@ -1,9 +1,10 @@
-// The persistent int8 layer kernel (block_int8.cuh) for K9a's f32 mid: the folded
-// tree's four modes without the softmax shift, and the unfolded tree;
-// built apart from the other instances so that nvcc compiles them at once.
+// The persistent int8 layer kernel (block_int8.cuh) for K9a's f32 mid off the masked
+// route: the folded tree's four modes without the softmax shift, and the
+// unfolded tree; built apart from the other instances so that nvcc
+// compiles them at once.
 #include "block_int8.cuh"
 
 namespace jcf_k9 {
-JCF_K9_FOLDED_MODES(JCF_K9_INSTANCE, float, false)
-JCF_K9_UNFOLDED(JCF_K9_INSTANCE, float)
+JCF_K9_FOLDED_MODES(JCF_K9_INSTANCE, float, false, false)
+JCF_K9_UNFOLDED(JCF_K9_INSTANCE, float, false)
 }  // namespace jcf_k9

@@ -1,8 +1,8 @@
 // Mask-free paired attention over one crop and one head pair, from shared
-// memory: the row loop of _paired_attention_nomask, shared by the fused
-// layer kernels (fused_layer.cu), K6a's f32 attention (text_block.cu) and
-// K3's attention off the tensor cores' shapes (block.cu: head dims other
-// than 64, unaligned rows; pair_mma.cuh takes bf16 at head dim 64).
+// memory: the row loop of _paired_attention_nomask, shared by K6a's f32
+// attention (text_block.cu) and K3's attention off the tensor cores'
+// shapes (block.cu: head dims other than 64, unaligned rows; pair_mma.cuh
+// takes bf16 at head dim 64).
 //
 // For each query row i and head h of the pair (lo, hi), with T the
 // element type of q, k, v and p (bf16, or f32):

@@ -112,12 +112,14 @@ __device__ __forceinline__ void ring_wait(uint32_t bar, uint32_t parity) {
 // AHEAD: the next tile is drawn as soon as this one is, so that the
 // counter's round trip overlaps this tile's loads (short tiles: the int8
 // phases); every block still draws once past the phase's last tile.
-template <class R, bool AHEAD = false>
+// CHUNKED: ma and mb are 3-D maps [rows, chunks, chunk bytes], the depth
+// spc stages a chunk (step ks: chunk ks / spc).
+template <class R, bool AHEAD = false, bool CHUNKED = false>
 __device__ __forceinline__ void produce(const CUtensorMap* ma, const CUtensorMap* mb,
                                         const CUtensorMap* mb2, int tiles, int tiles_n,
                                         int k_steps, uint32_t ring, uint32_t full0,
                                         uint32_t empty0, volatile int* slots, unsigned* ctr,
-                                        RingPos& rp, int b_row0 = 0) {
+                                        RingPos& rp, int b_row0 = 0, int spc = 1) {
   asm volatile("fence.proxy.async;\n" ::: "memory");
   unsigned drawn = AHEAD ? atomicAdd(ctr, 1u) : 0u;
   for (;;) {
@@ -141,10 +143,16 @@ __device__ __forceinline__ void produce(const CUtensorMap* ma, const CUtensorMap
       if (ks > 0) ring_wait(empty0 + 8 * rp.stage, rp.phase ^ 1);
       const uint32_t full = full0 + 8 * rp.stage, a = ring + rp.stage * R::STAGE_BYTES;
       mbar_expect_tx(full, R::STAGE_BYTES);
-      tma_load(a, ma, full, ks * GEMM_BK_BYTES, m0);
-      tma_load(a + R::A_BYTES, mb, full, ks * GEMM_BK_BYTES, n0);
-      if (R::PLANES == 2)
-        tma_load(a + R::A_BYTES + R::B_BYTES, mb2, full, ks * GEMM_BK_BYTES, n0);
+      if constexpr (CHUNKED) {
+        const int c = ks / spc, k0 = (ks - c * spc) * GEMM_BK_BYTES;
+        tma_load_3d(a, ma, full, k0, c, m0);
+        tma_load_3d(a + R::A_BYTES, mb, full, k0, c, n0);
+      } else {
+        tma_load(a, ma, full, ks * GEMM_BK_BYTES, m0);
+        tma_load(a + R::A_BYTES, mb, full, ks * GEMM_BK_BYTES, n0);
+        if (R::PLANES == 2)
+          tma_load(a + R::A_BYTES + R::B_BYTES, mb2, full, ks * GEMM_BK_BYTES, n0);
+      }
       ring_advance(rp.stage, rp.phase, R::STAGES);
     }
   }

@@ -278,81 +278,34 @@ __global__ void __launch_bounds__(CA_WARPS * 32) masked_attention_kernel(
   }
 }
 
-constexpr int MA_LD = ATT_D + 8;  // padded shared row of K and V (bf16): conflict-free ldmatrix
-
-// bytes of a warp's scratch: its 16 query rows in f32 for the scores, then
-// its 16 rows of bf16 p (KP + 8 a row) for PV
-__host__ __device__ constexpr int ma_warp_bytes(int kp) {
-  return 16 * ATT_D * 4 > 16 * (kp + 8) * 2 ? 16 * ATT_D * 4 : 16 * (kp + 8) * 2;
-}
-
 // NC: 16-key chunks, ceil(S / 16); as many warps, one query tile each;
 // the register budget leaves each thread at least 128. out_kind: 0 bf16,
-// 1 f32, 2 int8 x ctx_inv
+// 1 f32, 2 int8 x ctx_inv. The body is attn_mma.cuh's (masked_stage_kv,
+// masked_stage_q, masked_tile), which the persistent int8 layer kernel
+// shares.
 template <int NC, bool CAUSAL>
 __global__ void __launch_bounds__(NC * 32, 16 / NC > 1 ? 16 / NC : 1)
     masked_attention_mma_kernel(const bf16* __restrict__ qkv,       // [n_seq * S, 3E]
                                 const float* __restrict__ ctx_inv,  // scalar (int8 context)
                                 void* __restrict__ out,             // [n_seq * S, E]
                                 int S, int H, float scale, int out_kind) {
-  constexpr int KP = 16 * NC, KS = (KP + 31) / 32, LDP = KP + 8;
+  constexpr int KP = 16 * NC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [KP][MA_LD] K, then [KP][MA_LD] V
-  const bf16* vs = ks + KP * MA_LD;
-  const int E = H * ATT_D, E3 = 3 * E;
+  const int E = H * ATT_D;
   const int head = blockIdx.x % H;
   const long long seq = blockIdx.x / H;
-  const bf16* base = qkv + seq * S * E3 + head * ATT_D;
-  for (int c = threadIdx.x; c < 2 * KP * 8; c += blockDim.x) {
-    const int r = c >> 3, t = r >= KP, row = r - t * KP, col = (c & 7) * 8;
-    const bool ok = row < S;
-    cp_async16(ks + r * MA_LD + col, ok ? base + (long long)row * E3 + (1 + t) * E + col : qkv,
-               ok ? 16 : 0);
-  }
+  const bf16* base = qkv + seq * S * (3 * E) + head * ATT_D;
+  masked_stage_kv<NC>(ks, base, qkv, S, E, threadIdx.x, blockDim.x);
   cp_async_commit();
-  const int lane = threadIdx.x & 31, m0 = (threadIdx.x >> 5) * 16;
+  const int m0 = (threadIdx.x >> 5) * 16;
   unsigned char* wb =
       smem_raw + 2 * KP * MA_LD * sizeof(bf16) + (threadIdx.x >> 5) * ma_warp_bytes(KP);
-  float* qf = reinterpret_cast<float*>(wb);  // [16][64] q in f32, then [16][LDP] bf16 p
-  bf16* ps = reinterpret_cast<bf16*>(wb);
-  stage_q_f32(qf, base + (long long)m0 * E3, E3, S - m0);
+  masked_stage_q<false>(wb, base, E, m0, S);
   cp_async_wait<0>();
   __syncthreads();
-
-  // scores and softmax in the reference's order (lanes over keys)
-  float sc[16][KS];
-  scores_seq<KS, MA_LD>(sc, qf, ks, CAUSAL ? min(S, m0 + 16) : S, KP);
-#pragma unroll
-  for (int r = 0; r < 16; ++r)
-#pragma unroll
-    for (int sl = 0; sl < KS; ++sl) {
-      const int j = 32 * sl + lane;
-      sc[r][sl] = j < S && (!CAUSAL || j <= m0 + r) ? __fmul_rn(sc[r][sl], scale) : -INFINITY;
-    }
-  softmax_rows<KS>(sc);
-  __syncwarp();  // q read: its scratch takes p
-#pragma unroll
-  for (int r = 0; r < 16; ++r)
-#pragma unroll
-    for (int sl = 0; sl < KS; ++sl)
-      if (32 * sl + lane < KP) ps[r * LDP + 32 * sl + lane] = __float2bfloat16_rn(sc[r][sl]);
-  __syncwarp();
-
-  // PV on the tensor cores: bf16 p through ldmatrix, V through ldmatrix.trans
-  float acc[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
-  smem_tile<NC, LDP, MA_LD, false, false>(acc, ps, nullptr, vs);
-
-  const long long o = (seq * S + m0) * E + head * ATT_D;
-  if (out_kind == 0)
-    store_tile_bf16(acc, static_cast<bf16*>(out) + o, E, S - m0);
-  else if (out_kind == 1)
-    store_tile_f32(acc, static_cast<float*>(out) + o, E, S - m0);
-  else
-    store_tile_int8(acc, *ctx_inv, static_cast<int8_t*>(out) + o, E, S - m0);
+  masked_tile<NC>(ks, wb, m0, S, CAUSAL, scale, out_kind, ctx_inv, out,
+                  (seq * S + m0) * E + head * ATT_D, E);
 }
 
 // ---------------------------------------------------------------------------

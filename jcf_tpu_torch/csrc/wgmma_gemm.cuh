@@ -61,6 +61,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// box (c0 = byte in the chunk, c1 = chunk, c2 = row) of a 3-D tensor map
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // wgmma's shared-memory descriptor of a K-major operand in the 128-byte
 // swizzle TMA wrote: start address >> 4, leading offset 1 (unused when the
 // K step lies in one swizzle row), stride 1024 bytes between 8-row groups,
@@ -267,6 +277,25 @@ inline int tensor_map(CUtensorMap* map, const void* ptr, int rows, long long row
   const cuuint32_t box[2] = {(cuuint32_t)GEMM_BK_BYTES, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// a [rows, chunks * chunk_bytes] row-major matrix as bytes seen as [rows,
+// chunks, chunk_bytes], in boxes of 128 bytes x 1 chunk x box_rows rows,
+// 128-byte swizzle (the 2-D map's shared layout), zero fill past each
+// chunk's end (chunk_bytes a multiple of 16)
+inline int tensor_map_chunks(CUtensorMap* map, const void* ptr, int rows, int chunks,
+                             long long chunk_bytes, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {(cuuint64_t)chunk_bytes, (cuuint64_t)chunks, (cuuint64_t)rows};
+  const cuuint64_t strides[2] = {(cuuint64_t)chunk_bytes, (cuuint64_t)(chunk_bytes * chunks)};
+  const cuuint32_t box[3] = {(cuuint32_t)GEMM_BK_BYTES, 1, (cuuint32_t)box_rows};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr), dims,
                             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -71,16 +71,14 @@ math: the int8 kernels
   bf16 mid, the MLP in ``_LAYER_NSPLIT`` hidden chunks;
   K9c ``stream_tower_int8`` (``_stream_tower_int8_kernel``): every int8
   layer on every row in one launch, bf16 mid;
-K9a on the dense route (``PERSISTENT_BRANCHES``) and K9c run one
-persistent cooperative launch (csrc/block_int8.cu, one template over the
-mid and the mode): the halves' phases over all the rows (LN + quant, the
-products on wgmma with the int8 GEMM's epilogues, the pair attention, the
-row quantizations, their device code shared with K3 / K4), separated by
-grid barriers; a layer a launch (K9a) or the whole tower (K9c), whose
-layers at one hidden chunk equal the halves' bit for bit. K9d and K9a's
-masked and non-dense branches run csrc/fused_layer.cu's kernels, a block
-a crop (a template over the mode and branch in csrc/fused_layer.cuh);
-``k9_source`` names the route;
+each one persistent cooperative launch (csrc/block_int8.cu, one template
+over the rows, the mid, the masked attention's code and the mode, the
+attention's kind read at run time): the halves' phases over all the rows (LN + quant, the products on
+wgmma with the int8 GEMM's epilogues, the pair or the masked attention,
+the row quantizations, their device code shared with K3 / K4), separated
+by grid barriers; a layer a launch (K9a, K9d) or the whole tower (K9c),
+whose layers at one hidden chunk equal the halves' bit for bit (K9d is
+K9c's one-layer launch);
 and K9b (``_block_kernel``, csrc/block_float.cu, one template over the
 rows' type): ``block_bf16`` and ``block_f32``, one float layer with an
 additive [S, S] bias, f32 mid, QuickGELU in its sigmoid form; one
@@ -899,7 +897,7 @@ def mlp_half(x: torch.Tensor, layer: dict) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 # the options of the reference's int8 kernels, one bit each (as
-# csrc/fused_layer.cuh numbers them); the kernels take every set that
+# csrc/block_int8.cu numbers them); the kernel takes every set that
 # ``run_fused_tower``'s routes give
 FLAG_FOLDED, FLAG_STATIC_ACT, FLAG_STATIC_CTX, FLAG_STATIC_H = 1, 2, 4, 8
 FLAG_STATIC_SHIFT, FLAG_DENSE, FLAG_USE_MASK = 16, 32, 64
@@ -1090,30 +1088,9 @@ def k9_branch(tree: dict, s: int, n_heads: int, dtype: torch.dtype, *, causal: b
     return "long" if s > CLS_MAX_SEQ else ""
 
 
-# the branches of K9a and K9c that the persistent int8 layer kernel takes
-# (csrc/block_int8.cu): the dense route, folded or unfolded. K9a's other
-# branches and every K9d launch run csrc/fused_layer.cu's kernels.
-PERSISTENT_BRANCHES = ("", "long", "unfolded")
-
-
-def k9_source(name: str, branch: str) -> str:
-    """The source whose kernel a K9 launch of ``name`` ("block_int8",
-    "layer_fused_int8", "stream_tower_int8") on ``branch`` (``k9_branch``)
-    runs: "block_int8.cu" (one persistent launch of phases) or
-    "fused_layer.cu" (a block a crop)."""
-    persistent = name != "layer_fused_int8" and branch in PERSISTENT_BRANCHES
-    return "block_int8.cu" if persistent else "fused_layer.cu"
-
-
-def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
-    """t with zero rows appended along dim -2 up to ``rows``."""
-    extra = rows - t.shape[-2]
-    return torch.cat([t, t.new_zeros(t.shape[:-2] + (extra, t.shape[-1]))], dim=-2)
-
-
 def _int8_operands(name: str, x: torch.Tensor, tree: dict, flags: int, n_layers: int,
                    lns=(None, None)) -> list:
-    """The int8 layer kernels' 21 operands in their C entries' order, each
+    """The int8 layer kernel's 21 operands in its C entry's order, each
     checked against ``n_layers`` layers of the tree: the four weights with
     their scales and biases (c_fc's with a static h_inv folded in), the
     static scalars the mode names (ln_inv of both halves, ctx_inv,
@@ -1148,82 +1125,40 @@ def _int8_operands(name: str, x: torch.Tensor, tree: dict, flags: int, n_layers:
     return ops
 
 
-def _launch_int8(name: str, x: torch.Tensor, tree: dict, s: int, n_heads: int, nsp: int,
-                 mid_f32: bool, *, lns=(None, None), causal: bool = False,
-                 dense: bool = True) -> torch.Tensor:
-    """Checks and launches one of the block-a-crop int8 layer kernels of
-    csrc/fused_layer.cu (``jcf_<name>``: K9d, K9a off the dense route) on
-    the rows x [B' * S, E] with one layer's tree, in the mode its static
-    scales select, on the branch the route and tree give."""
-    rows, e = x.shape
-    f32 = x.dtype == torch.float32
-    if (x.dtype not in _FLOAT or (f32 and not mid_f32) or rows % s or s > MAX_SEQ
-            or e != 64 * n_heads or e > 1024):
-        raise ValueError(f"{name} takes bf16 rows (or f32 for block_int8) of S <= {MAX_SEQ} "
-                         f"tokens, head dim 64 and E up to 1024; got {x.dtype} {tuple(x.shape)}, "
-                         f"S={s}, H={n_heads}")
-    masked = causal or n_heads % 2 == 1
-    flags = (quant_flags(tree, dense=dense, use_mask=masked) | (FLAG_CAUSAL if causal else 0)
-             | (FLAG_F32_ROWS if f32 else 0))
-    hidden = _hidden(tree)
-    if hidden % 128 or (hidden // nsp) % 64:
-        raise ValueError(f"{name} needs a hidden width divisible by 128 and chunks of a multiple "
-                         f"of 64, got {hidden} in {nsp} chunks")
-    ops = _int8_operands(name, x, tree, flags, 1, lns)
-    if e % 128:
-        # an odd head count: every weight tile of the kernel's 128-row
-        # tiling lies in memory (the rows past the layer are dropped)
-        up = -(-e // 128) * 128
-        ops[0], ops[3], ops[9] = _pad_rows(ops[0], 3 * e + 64), _pad_rows(ops[3], up), _pad_rows(
-            ops[9], up)
-    ops = [t.contiguous() if t is not None else None for t in ops]
-    lib = _build.load()
-    per_crop = lib.jcf_int8_xq_scratch(s, n_heads, hidden, nsp, 1, flags)
-    if per_crop < 0:
-        raise ValueError(f"{name}: no instance takes S={s}, H={n_heads}, hidden={hidden}, "
-                         f"{nsp} chunks, flags {flags:#x}")
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    fast = (flags & ~(FLAG_STATIC_ACT | FLAG_STATIC_CTX | FLAG_STATIC_H | FLAG_STATIC_SHIFT)
-            == FLAG_FOLDED | FLAG_DENSE and s <= CLS_MAX_SEQ)
-    # K9a's f32 mid and the f32 context before its quantization
-    scratch = (torch.empty((rows, e), dtype=torch.float32, device=x.device)
-               if mid_f32 or not flags & FLAG_STATIC_CTX or not fast else None)
-    xq = (torch.empty(rows // s * per_crop, dtype=torch.int8, device=x.device)
-          if per_crop else None)
-    err = getattr(lib, f"jcf_{name}")(
-        x.data_ptr(), out.data_ptr(), scratch.data_ptr() if scratch is not None else None,
-        xq.data_ptr() if xq is not None else None,
-        *(t.data_ptr() if t is not None else None for t in ops), rows // s, s, n_heads, hidden, 1,
-        nsp, flags, _build.stream_ptr(x.device))
-    _build.check(err, name)
-    LAUNCHES[name] += 1
-    branch = k9_branch(tree, s, n_heads, x.dtype, causal=causal, dense=dense)
-    if branch:
-        LAUNCHES[f"{name}/{branch}"] += 1
-    return out
-
-
 def _layers_plan(name: str, x: torch.Tensor, tree: dict, s: int, n_heads: int, n_layers: int,
-                 nsp: int, mid_f32: bool, lns=(None, None)) -> dict:
+                 nsp: int, mid_f32: bool, lns=(None, None), *, causal: bool = False,
+                 dense: bool = True) -> dict:
     """The checked operands of the persistent int8 layer kernel
-    (csrc/block_int8.cu) for rows x [B' * S, E] bf16 on the dense route
-    with a (one-layer or stacked) tree: the flags, the operands in the C
+    (csrc/block_int8.cu) for rows x [B' * S, E] with a (one-layer or
+    stacked) tree on the route ``run_fused_tower`` picks (``causal``, an
+    odd head count: the masked attention; else the pair attention, its
+    shift floored on the ``dense`` route): the flags, the operands in the C
     entry's order, the scratch sizes. Raises ValueError on what the kernel
     does not take; launches nothing, so it runs on CPU tensors too."""
     rows, e = x.shape
-    if (x.dtype != torch.bfloat16 or rows < 1 or rows % s or not 1 <= s <= MAX_SEQ
-            or e != 64 * n_heads or n_heads % 2 or e > 1024):
-        raise ValueError(f"{name} takes bf16 rows of S <= {MAX_SEQ} tokens, an even head count of "
-                         f"dim 64 and E up to 1024; got {x.dtype} {tuple(x.shape)}, S={s}, "
+    if (x.dtype not in _FLOAT or rows < 1 or rows % s or not 1 <= s <= MAX_SEQ
+            or e != 64 * n_heads or e > 1024):
+        raise ValueError(f"{name} takes bf16 or f32 rows of S <= {MAX_SEQ} tokens, heads of dim "
+                         f"64 and E up to 1024; got {x.dtype} {tuple(x.shape)}, S={s}, "
                          f"H={n_heads}")
-    flags = quant_flags(tree, dense=True)
-    if flags & (FLAG_USE_MASK | FLAG_CAUSAL | FLAG_F32_ROWS) or not flags & FLAG_DENSE:
-        raise ValueError(f"{name} runs the dense route only (no mask, bf16 rows); flags {flags:#x}")
+    masked = causal or n_heads % 2 == 1
+    f32 = x.dtype == torch.float32
+    flags = (quant_flags(tree, dense=dense, use_mask=masked) | (FLAG_CAUSAL if causal else 0)
+             | (FLAG_F32_ROWS if f32 else 0))
+    if flags & FLAG_USE_MASK and flags & FLAG_DENSE or flags & FLAG_CAUSAL and not flags & FLAG_USE_MASK:
+        raise ValueError(f"{name}: the dense route takes no mask and an even head count; got "
+                         f"causal={causal}, {n_heads} heads, flags {flags:#x}")
+    if (masked or f32) and not (mid_f32 and n_layers == 1):
+        raise ValueError(f"{name}: the masked attention and f32 rows are K9a's, one layer with "
+                         f"the f32 mid; got {x.dtype} rows, causal={causal}, {n_heads} heads")
+    static = FLAG_STATIC_ACT | FLAG_STATIC_CTX | FLAG_STATIC_H | FLAG_STATIC_SHIFT
+    if f32 and flags & static:
+        raise ValueError(f"{name}: f32 rows take the folded dynamic tree or the unfolded one; "
+                         f"flags {flags:#x}")
     hidden = _hidden(tree)
-    if hidden % 128 or (hidden // nsp) % 128:
-        raise ValueError(f"{name} needs a hidden width in chunks of a multiple of 128, got "
-                         f"{hidden} in {nsp} chunks")
+    if hidden % 128 or hidden % nsp or (hidden // nsp) % 64 or hidden // nsp < 128:
+        raise ValueError(f"{name} needs a hidden width divisible by 128 in chunks of a multiple of "
+                         f"64 columns, at least 128; got {hidden} in {nsp} chunks")
     # the LN affines go to the kernel in f32 (the plain version's math)
     ops = [None if t is None else (t.float() if i >= 17 else t).contiguous()
            for i, t in enumerate(_int8_operands(name, x, tree, flags, n_layers, lns))]
@@ -1236,13 +1171,15 @@ def _layers_plan(name: str, x: torch.Tensor, tree: dict, s: int, n_heads: int, n
 
 
 def _launch_layers(name: str, x: torch.Tensor, tree: dict, s: int, n_heads: int, n_layers: int,
-                   nsp: int, mid_f32: bool, *, lns=(None, None), grid: int = 0) -> torch.Tensor:
+                   nsp: int, mid_f32: bool, *, lns=(None, None), causal: bool = False,
+                   dense: bool = True, grid: int = 0) -> torch.Tensor:
     """Launches the persistent int8 layer kernel (csrc/block_int8.cu) as
-    K9a (``mid_f32``, one layer) or K9c (every layer of the stacked tree)
-    on CUDA rows x: one cooperative launch, the scratch from here.
-    ``grid``: 0 for the occupancy's blocks (only the GPU tests pass more,
-    which the runtime refuses)."""
-    plan = _layers_plan(name, x, tree, s, n_heads, n_layers, nsp, mid_f32, lns)
+    K9a (``mid_f32``, one layer, on its route), K9d (one layer) or K9c
+    (every layer of the stacked tree) on CUDA rows x: one cooperative
+    launch, the scratch from here. ``grid``: 0 for the occupancy's blocks
+    (only the GPU tests pass more, which the runtime refuses)."""
+    plan = _layers_plan(name, x, tree, s, n_heads, n_layers, nsp, mid_f32, lns, causal=causal,
+                        dense=dense)
     rows, e = x.shape
     x = x.contiguous()
     out = torch.empty_like(x)
@@ -1264,7 +1201,7 @@ def _launch_layers(name: str, x: torch.Tensor, tree: dict, s: int, n_heads: int,
         hidden, n_layers, nsp, plan["flags"], grid, _build.stream_ptr(dev))
     _build.check(err, name)
     LAUNCHES[name] += 1
-    branch = k9_branch(tree, s, n_heads, x.dtype)
+    branch = k9_branch(tree, s, n_heads, x.dtype, causal=causal, dense=dense)
     if branch:
         LAUNCHES[f"{name}/{branch}"] += 1
     return out
@@ -1281,23 +1218,20 @@ def block_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int, *, lns=(None,
     _check_k9("block_int8", layer, n_heads, lns, causal=causal, dense=dense)
     if not x.is_cuda:
         return block_int8_plain(x, layer, s, n_heads, lns=lns, causal=causal, dense=dense)
-    nsp = _chunks(_MLP_NSPLIT, _hidden(layer))
-    branch = k9_branch(layer, s, n_heads, x.dtype, causal=causal, dense=dense)
-    if k9_source("block_int8", branch) == "block_int8.cu":
-        return _launch_layers("block_int8", x, layer, s, n_heads, 1, nsp, True, lns=lns)
-    return _launch_int8("block_int8", x, layer, s, n_heads, nsp, mid_f32=True, lns=lns,
-                        causal=causal, dense=dense)
+    return _launch_layers("block_int8", x, layer, s, n_heads, 1, _chunks(_MLP_NSPLIT, _hidden(layer)),
+                          True, lns=lns, causal=causal, dense=dense)
 
 
 def layer_fused_int8(x: torch.Tensor, layer: dict, s: int, n_heads: int, *,
                      lns=(None, None)) -> torch.Tensor:
     """K9d, as ``block_int8`` on the dense route with the mid rounded to
-    bf16 and the MLP in ``_LAYER_NSPLIT`` chunks."""
+    bf16 and the MLP in ``_LAYER_NSPLIT`` chunks: the persistent kernel's
+    one-layer launch with K9c's bf16 mid."""
     _check_k9("layer_fused_int8", layer, n_heads, lns)
     if not x.is_cuda:
         return layer_fused_int8_plain(x, layer, s, n_heads, lns=lns)
-    return _launch_int8("layer_fused_int8", x, layer, s, n_heads,
-                        _chunks(_LAYER_NSPLIT, _hidden(layer)), mid_f32=False, lns=lns)
+    return _launch_layers("layer_fused_int8", x, layer, s, n_heads, 1,
+                          _chunks(_LAYER_NSPLIT, _hidden(layer)), False, lns=lns)
 
 
 def stream_tower_int8(x: torch.Tensor, quant: dict, n_heads: int, *, s: int,

@@ -1,7 +1,7 @@
-"""Times the int8 whole-layer kernels K9a (``block_int8``) and K9c
-(``stream_tower_int8``) at the ViT-B/32 rows PERF.md reports them at,
-beside the halves on the same rows, for an A/B of two checkouts on one
-NVIDIA GPU.
+"""Times the int8 whole-layer kernels K9a (``block_int8``), K9d
+(``layer_fused_int8``) and K9c (``stream_tower_int8``) at the rows
+PERF.md reports them at, beside the halves on the same rows, for an A/B
+of two checkouts on one NVIDIA GPU.
 
     python3 jcf_tpu_torch/scripts/ab_k9.py [ROOT]   # the card
     python3 jcf_tpu_torch/scripts/ab_k9.py --device cpu --scale 4096 --rounds 1 --reps 1
@@ -19,21 +19,26 @@ folded dynamic (no calibration), and unfolded (its LN affines from the
 float blocks). Rows (crops x tokens; ``--scale`` divides the crops):
 "full", "ln", "hidden", "full+score" and "unfolded" at 8192 x 50 (b1024
 x 8 views), "dynamic" at 4104 x 54 (jcf-predict's prompted tower: 8
-images x 513 crops, 4 prompt tokens); seeded normal bf16 rows. Each row
-times, as medians of ``--rounds`` rounds of ``--reps`` launches (CUDA
-events; on the CPU the host clock, where the wrappers run their plain
-versions), eager and, on the card, captured in one CUDA graph:
-- K9a on layer 0, with its launches and its distance from its plain
-  version;
-- the halves (K3 + K4) on layer 0;
+images x 513 crops, 4 prompt tokens), "82 tokens" ("full") at 2048 x 82
+(288²); seeded normal bf16 rows. Each row times, as medians of
+``--rounds`` rounds of ``--reps`` launches (CUDA events; on the CPU the
+host clock, where the wrappers run their plain versions), eager and, on
+the card, captured in one CUDA graph:
+- K9a and K9d on layer 0, with their launches and their distance from
+  their plain versions;
+- the halves (K3 + K4) on layer 0, at ``_MLP_NSPLIT`` = 1 and, beside
+  K9d, at 4 (``_LAYER_NSPLIT``, K9d's chunk count);
 - K9c on all 12 layers (rows "full", "dynamic", "unfolded"), with its
-  launches and its cosine to its plain version;
-and prints each output's SHA-256 (equal bits across checkouts show an
-unchanged result). Row "full" also times K9d (``layer_fused_int8``) and
-the text tower's masked K9a (512 prompts x 77 tokens, causal, width 512,
-dynamic) off the new kernel's route. Each row prints its bound: the
-products' int8 operations at 1979 TOP/s and the attention's at the bf16
-peak, against the bytes at 3.35 TB/s.
+  launches and its cosine to its plain version.
+Then K9a's branches off the dense route, each beside the halves on its
+route: the text tower's masked layer (512 prompts x 77 tokens, causal,
+width 512, the unfolded tree, dynamic) on f32 and on bf16 rows, the
+3-head tower (width 192, 1024 x 50, unfolded) and the 64-token tower
+(width 128, 1024 x 64, the non-dense route, unfolded). Each output's
+SHA-256 is printed (equal bits across checkouts show an unchanged
+result), and each row's bound: the products' int8 operations at 1979
+TOP/s and the attention's at the bf16 peak, against the bytes at 3.35
+TB/s.
 """
 
 from __future__ import annotations
@@ -54,7 +59,14 @@ AMAX = (6.0, 6.0, 3.0, 4.0, 45.0, 2.0)
 # (row, tree, crops, tokens, K9c too)
 ROWS = (("full", "full", 8192, 50, True), ("dynamic", "dynamic", 4104, 54, True),
         ("unfolded", "unfolded", 8192, 50, True), ("ln", "ln", 8192, 50, False),
-        ("hidden", "hidden", 8192, 50, False), ("full+score", "full+score", 8192, 50, False))
+        ("hidden", "hidden", 8192, 50, False), ("full+score", "full+score", 8192, 50, False),
+        ("82 tokens", "full", 2048, 82, False))
+# K9a off the dense route, on the unfolded tree: (row, tower, width,
+# sequences, tokens, causal, rows' dtype name)
+BRANCH_ROWS = (("masked f32", "text", 512, 512, 77, True, "float32"),
+               ("masked bf16", "text", 512, 512, 77, True, "bfloat16"),
+               ("masked 3 heads", "visual", 192, 1024, 50, False, "bfloat16"),
+               ("nondense", "visual", 128, 1024, 64, False, "bfloat16"))
 STATIC = {"full": ("ctx", "hidden"), "ln": (), "hidden": ("hidden",),
           "full+score": ("ctx", "hidden", "score")}
 
@@ -152,18 +164,24 @@ def run(root: str = ROOT, device="cuda", scale: int = 1, rounds: int = 7, reps: 
         label = f"{row}, {crops} x {s}"
         b, by = bound_ms(crops * s, s, e, hidden, 1, w_bytes)
         print(f"{label}: bound {b:.4f} ms a layer ({by})", flush=True)
-        got, n = counted("block_int8", lambda: bk.block_int8(x, layer, s, HEADS, lns=lns0))
-        ref = bk.block_int8_plain(x, layer, s, HEADS, lns=lns0)
-        d = (got.float() - ref.float()).abs()
-        cos = float(torch.nn.functional.cosine_similarity(got.float(), ref.float()).min())
-        print(f"block_int8 {label}: launches {n}, vs plain max |diff| {float(d.max()):.3e}, "
-              f"min row cos {cos:.6f}", flush=True)
-        del got, ref, d
-        timed(f"block_int8 {label}", lambda: bk.block_int8(x, layer, s, HEADS, lns=lns0))
+        for name in ("block_int8", "layer_fused_int8"):
+            kern, plain = getattr(bk, name), getattr(bk, f"{name}_plain")
+            got, n = counted(name, lambda: kern(x, layer, s, HEADS, lns=lns0))
+            ref = plain(x, layer, s, HEADS, lns=lns0)
+            d = (got.float() - ref.float()).abs()
+            cos = float(torch.nn.functional.cosine_similarity(got.float(), ref.float()).min())
+            print(f"{name} {label}: launches {n}, vs plain max |diff| {float(d.max()):.3e}, "
+                  f"min row cos {cos:.6f}", flush=True)
+            del got, ref, d
+            timed(f"{name} {label}", lambda: kern(x, layer, s, HEADS, lns=lns0))
         timed(f"halves {label}", lambda: bk._halves_int8(x, layer, s, HEADS, lns0))
-        if row == "full":
-            timed(f"layer_fused_int8 {label}",
-                  lambda: bk.layer_fused_int8(x, layer, s, HEADS, lns=lns0))
+        saved = bk._MLP_NSPLIT
+        bk._MLP_NSPLIT = bk._LAYER_NSPLIT
+        try:
+            timed(f"halves nsp {bk._LAYER_NSPLIT} {label}",
+                  lambda: bk._halves_int8(x, layer, s, HEADS, lns0))
+        finally:
+            bk._MLP_NSPLIT = saved
         if stream:
             b, by = bound_ms(crops * s, s, e, hidden, LAYERS, LAYERS * w_bytes)
             print(f"{label}: {LAYERS} layers' bound {b:.4f} ms ({by})", flush=True)
@@ -179,18 +197,45 @@ def run(root: str = ROOT, device="cuda", scale: int = 1, rounds: int = 7, reps: 
         del x, tree, layer
         if device.type == "cuda":
             torch.cuda.empty_cache()
-        if row == "full":
-            # the text tower's masked K9a (fused_layer.cu's general instance)
-            tcfg = CLIPConfig(vision_layers=1, text_layers=1)
-            tparams = tree_to(init_clip_params(0, tcfg), device)
-            text = layer_slice(quantize_clip_params(tparams, fold=True, heads={
-                "visual": HEADS, "text": tcfg.text_heads})["text"], 0)
-            prompts = max(1, 512 // scale)
-            xt = torch.randn(prompts * 77, tcfg.text_width, device=device,
-                             generator=torch.Generator(device=device).manual_seed(2)).to(dt)
-            timed(f"block_int8 masked text, {prompts} x 77",
-                  lambda: bk.block_int8(xt, text, 77, tcfg.text_heads, causal=True, dense=False))
-            del xt, text, tparams
+
+    for row, tower, width, seqs, s, causal, dt_name in BRANCH_ROWS:
+        if rows and row not in rows:
+            continue
+        dt = getattr(torch, dt_name)
+        seqs = max(1, seqs // scale)
+        kw = ({"text_width": width, "text_heads": width // 64} if tower == "text"
+              else {"vision_width": width})
+        bcfg = CLIPConfig(vision_layers=1, text_layers=1, **kw)
+        bparams = tree_to(init_clip_params(0, bcfg), device)
+        bblocks = bparams[tower]["blocks"]
+        layer = layer_slice(quantize_clip_params(bparams)[tower], 0)
+        lns0 = tuple({k: bblocks[n][k][0].to(dt) for k in ("scale", "bias")}
+                     for n in ("ln_1", "ln_2"))
+        heads = width // 64
+        dense = not causal and heads % 2 == 0 and s % 16 != 0
+        hidden = layer["mlp"]["c_fc"].w_int8.shape[0]
+        x = torch.randn(seqs * s, width, device=device,
+                        generator=torch.Generator(device=device).manual_seed(2)).to(dt)
+        w_bytes = sum(t.numel() * t.element_size() for q in (
+            layer["attn"]["w_qkv"], layer["attn"]["w_out"], layer["mlp"]["c_fc"],
+            layer["mlp"]["c_proj"]) for t in q)
+        label = f"{row}, {seqs} x {s}"
+        b, by = bound_ms(seqs * s, s, width, hidden, 1, w_bytes)
+        print(f"{label}: bound {b:.4f} ms a layer ({by})", flush=True)
+        kw = dict(lns=lns0, causal=causal, dense=dense)
+        got, n = counted("block_int8", lambda: bk.block_int8(x, layer, s, heads, **kw))
+        ref = bk.block_int8_plain(x, layer, s, heads, **kw)
+        d = (got.float() - ref.float()).abs()
+        cos = float(torch.nn.functional.cosine_similarity(got.float(), ref.float()).min())
+        print(f"block_int8 {label}: launches {n}, vs plain max |diff| {float(d.max()):.3e}, "
+              f"min row cos {cos:.6f}", flush=True)
+        del got, ref, d
+        timed(f"block_int8 {label}", lambda: bk.block_int8(x, layer, s, heads, **kw))
+        timed(f"halves {label}", lambda: bk._halves_int8(x, layer, s, heads, lns0, causal=causal,
+                                                         dense=dense))
+        del x, layer, bparams
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
     return res
 
 

@@ -784,9 +784,9 @@ def test_fused_layer_wrappers_refuse(cuda, monkeypatch):
     """The K9 wrappers raise on trees, shapes and types their kernels do
     not take, launching nothing: a tree not marked folded without its LN
     affines, S > 127; for K9b f32 rows, S > 80, a bias of the wrong
-    shape. The C entries refuse a flag set no route gives (a mask on the
-    dense route, a causal mask without one, the unfolded options without
-    the LN affines) themselves. S = 100 and the unfolded tree run, each
+    shape. A flag set no route gives (a mask on the dense route, a causal
+    mask without one) is refused before the launch, the unfolded options
+    without the LN affines by the C entry. S = 100 and the unfolded tree run, each
     against its plain version (``tests/test_torch_gpu_predict.py`` holds
     every branch)."""
     from jcf_tpu_torch.ops.quant import quantize_clip_params
@@ -814,8 +814,9 @@ def test_fused_layer_wrappers_refuse(cuda, monkeypatch):
         bk.block_bf16(x, text, 50, 2, at.causal_mask(49, cuda))
     assert bk.LAUNCHES == before
     flags = bk.quant_flags(layer)
-    # no instance takes these (a ValueError before the launch, from the C
-    # side's route check); the last reaches the launch, which refuses it
+    # no route gives these (a ValueError before the launch, from
+    # _layers_plan's route check); the last reaches the launch, which
+    # refuses it
     for bad, err in ((flags | bk.FLAG_USE_MASK, ValueError), (flags | bk.FLAG_CAUSAL, ValueError),
                      (flags & ~bk.FLAG_FOLDED, RuntimeError)):
         monkeypatch.setattr(bk, "quant_flags", lambda tree, bad=bad, **kw: bad)

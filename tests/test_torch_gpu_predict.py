@@ -306,7 +306,8 @@ def test_persistent_k9_matches_plain(cuda, monkeypatch, mode, s, nsp):
     monkeypatch.setattr(bk, "_MLP_NSPLIT", nsp)
     tree, lns_of, lns = _persistent_tree(mode, cuda)
     branch = bk.k9_branch(tree, s, H, torch.bfloat16)
-    assert bk.k9_source("block_int8", branch) == "block_int8.cu"
+    assert bk._layers_plan("block_int8", _rows(s, cuda), layer_slice(tree, 1), s, H, 1, nsp, True,
+                           lns_of(1))["flags"] & bk.FLAG_DENSE
     x = torch.randn(48 * s, E, device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(s)).bfloat16()
     layer = layer_slice(tree, 1)
@@ -347,27 +348,34 @@ def test_persistent_stream_tower_equals_its_layers_and_the_halves(cuda, monkeypa
 
 
 @pytest.mark.parametrize("name", ["odd heads full", "64 tokens full+score", "text f32 folded"])
-def test_k9a_other_branches_keep_the_general_kernel(cuda, monkeypatch, name):
-    """K9a's masked and non-dense branches run fused_layer.cu's general
-    instances: the persistent launch is not reached (it would raise here),
-    and the rows agree with the plain version."""
+def test_k9a_other_branches_take_the_persistent_kernel(cuda, monkeypatch, name):
+    """K9a's masked and non-dense branches run the persistent kernel: one
+    ``_launch_layers`` on the route's flags (the mask, the causal mask, no
+    dense route, f32 rows), and the rows agree with the plain version."""
     tower, width, mode, s, causal, dtype, _ = BRANCHES[name]
     tree, _ = _branch_tree(tower, width, mode)
     tree = _on(tree, cuda)
     heads = width // 64
     dense = not causal and heads % 2 == 0 and s % 16 != 0
     branch = bk.k9_branch(tree, s, heads, dtype, causal=causal, dense=dense)
-    assert bk.k9_source("block_int8", branch) == "fused_layer.cu"
+    seen = []
+    launch = bk._launch_layers
 
-    def refuse(*a, **k):
-        raise AssertionError("the persistent kernel took a general branch")
+    def spy(*a, **k):
+        seen.append(bk._layers_plan(*a[:8], k.get("lns", (None, None)), causal=k["causal"],
+                                    dense=k["dense"])["flags"])
+        return launch(*a, **k)
 
-    monkeypatch.setattr(bk, "_launch_layers", refuse)
+    monkeypatch.setattr(bk, "_launch_layers", spy)
     x = torch.randn(48 * s, width, device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(3)).to(dtype)
     got, n = _counted(lambda: bk.block_int8(x, layer_slice(tree, 1), s, heads, causal=causal,
                                             dense=dense))
     assert n == {"block_int8": 1, f"block_int8/{branch}": 1}
+    assert len(seen) == 1 and not seen[0] & bk.FLAG_DENSE
+    assert bool(seen[0] & bk.FLAG_USE_MASK) == (causal or heads % 2 == 1)
+    assert bool(seen[0] & bk.FLAG_CAUSAL) == causal
+    assert bool(seen[0] & bk.FLAG_F32_ROWS) == (dtype == torch.float32)
     _close(got, bk.block_int8_plain(x, layer_slice(tree, 1), s, heads, causal=causal, dense=dense))
 
 
@@ -384,3 +392,35 @@ def test_persistent_grid_past_the_card_is_refused(cuda):
     assert bk.LAUNCHES == before
     _close(bk._launch_layers("block_int8", x, layer, 50, H, 1, 1, True),
            bk.block_int8_plain(x, layer, 50, H))
+
+
+# ---------------------------------------------------------------------------
+# K9d on the persistent kernel (its one-layer launch with K9c's bf16 mid)
+# ---------------------------------------------------------------------------
+
+K9D_SEQS = [17, 50, 54, 66, 82, 127]
+
+
+@pytest.mark.parametrize("s", K9D_SEQS)
+@pytest.mark.parametrize("nsp", [1, 4])
+@pytest.mark.parametrize("mode", MODES + ["unfolded"])
+def test_k9d_matches_plain(cuda, monkeypatch, mode, nsp, s):
+    """K9d against its plain version in every mode, folded and unfolded, at
+    nsp chunks and S from 17 to 127 (phase 9's bars); one launch, counted
+    under its branch; and equal bit for bit to a one-layer K9c at the same
+    chunk count (one device body)."""
+    monkeypatch.setattr(bk, "_LAYER_NSPLIT", nsp)
+    monkeypatch.setattr(bk, "_MLP_NSPLIT", nsp)
+    tree, lns_of, _ = _persistent_tree(mode, cuda)
+    branch = bk.k9_branch(tree, s, H, torch.bfloat16)
+    x = torch.randn(48 * s, E, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(s + 1)).bfloat16()
+    layer = layer_slice(tree, 1)
+    got, n = _counted(lambda: bk.layer_fused_int8(x, layer, s, H, lns=lns_of(1)))
+    assert n == {"layer_fused_int8": 1, **({f"layer_fused_int8/{branch}": 1} if branch else {})}
+    _close(got, bk.layer_fused_int8_plain(x, layer, s, H, lns=lns_of(1)))
+    stacked = tuple(None if ln is None else {k: t[None] for k, t in ln.items()}
+                    for ln in lns_of(1))
+    one = bk.stream_tower_int8(x, _one_layer(tree, 1), H, s=s, lns=stacked)
+    torch.cuda.synchronize()
+    assert torch.equal(got, one)

@@ -1,4 +1,4 @@
-"""The persistent int8 layer kernel of K9a's dense branches and K9c
+"""The persistent int8 layer kernel of K9a, K9c and K9d
 (``csrc/block_int8.cu``) on the CPU: the arithmetic of its c_proj phase,
 the route choice, and the wrapper's checks.
 
@@ -14,11 +14,13 @@ the route choice, and the wrapper's checks.
   atol = rtol = 5e-2: int8 values flip at rounding ties where the two
   sides' f32 sums and tanh differ in the last bits), and against the
   port's plain versions bit for bit.
-- the route: which K9 launches the new kernel takes (``k9_source``).
+- the route: every K9 launch takes the persistent kernel, on every branch
+  (``k9_branch``) its wrapper reaches.
 - the checks: ``_layers_plan`` refuses, on CPU tensors and before any
   launch, what the kernel does not take.
 """
 
+import functools
 import math
 
 import numpy as np
@@ -32,6 +34,7 @@ import jcf_tpu.ops.block_kernel as jbk
 import test_torch_quant_modes as qm
 from jcf_tpu_torch.ops import block_kernel as tbk
 from jcf_tpu_torch.ops.layers import layer_slice
+from jcf_tpu_torch.ops.quant import QuantizedLinear
 
 torch.set_num_threads(1)
 
@@ -134,27 +137,52 @@ def _close(got, ref):
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _zero_tree(heads: int, folded: bool) -> dict:
+    """A one-layer int8 tree of zeros at width 64 heads, hidden 128: the
+    shapes and types ``_layers_plan`` checks, no weights' values."""
+    e = 64 * heads
+
+    def lin(n, k):
+        return QuantizedLinear(torch.zeros(n, k, dtype=torch.int8), torch.ones(n), torch.zeros(n))
+
+    return {"attn": {"w_qkv": lin(3 * e, e), "w_out": lin(e, e)},
+            "mlp": {"c_fc": lin(128, e), "c_proj": lin(e, 128)}, "quant_folded": folded}
+
+
 @settings(derandomize=True, max_examples=200, deadline=None)
 @given(s=st.integers(1, 127), heads=st.integers(1, 16), causal=st.booleans(),
        folded=st.booleans(), f32=st.booleans())
 def test_the_new_kernel_takes_the_dense_branches(s, heads, causal, folded, f32):
-    """K9a takes block_int8.cu on the dense route (folded at S <= 64: "";
-    65-127 tokens: "long"; unfolded), fused_layer.cu on the masked, f32
-    and non-dense branches; K9c always block_int8.cu (it runs the dense
-    route only); K9d always fused_layer.cu."""
-    tree = {"quant_folded": folded}
+    """Every K9 launch takes the persistent kernel (csrc/block_int8.cu): K9a
+    on every branch (the dense ones: folded at S <= 64 "", 65-127 tokens
+    "long", unfolded; the masked, f32 and non-dense ones), K9c and K9d on
+    the dense route their wrappers take. The plan (flags, operands,
+    scratch) is made on CPU tensors, nothing launched."""
+    tree = _zero_tree(heads, folded)
     dense = not causal and heads % 2 == 0 and s % 16 != 0
     dt = torch.float32 if f32 else torch.bfloat16
     branch = tbk.k9_branch(tree, s, heads, dt, causal=causal, dense=dense)
-    new = dense and not f32
-    assert (tbk.k9_source("block_int8", branch) == "block_int8.cu") == new
-    assert tbk.k9_source("layer_fused_int8", branch) == "fused_layer.cu"
-    if new:
+    if dense and not f32:
         assert branch == ("unfolded" if not folded else "long" if s > 64 else "")
-        assert tbk.k9_source("stream_tower_int8", branch) == "block_int8.cu"
     else:
         assert branch in ("masked", "masked_f32", "nondense")
-    assert tbk.PERSISTENT_BRANCHES == ("", "long", "unfolded")
+    x = torch.zeros(s, 64 * heads, dtype=dt)
+    lns = (None, None) if folded else tuple(
+        {"scale": torch.ones(64 * heads, dtype=dt), "bias": torch.zeros(64 * heads, dtype=dt)}
+        for _ in range(2))
+    plan = tbk._layers_plan("block_int8", x, tree, s, heads, 1, 1, True, lns, causal=causal,
+                            dense=dense)
+    masked = causal or heads % 2 == 1
+    assert bool(plan["flags"] & tbk.FLAG_USE_MASK) == masked
+    assert bool(plan["flags"] & tbk.FLAG_CAUSAL) == causal
+    assert bool(plan["flags"] & tbk.FLAG_DENSE) == dense
+    assert bool(plan["flags"] & tbk.FLAG_F32_ROWS) == f32
+    if dense and not f32:
+        for name in ("layer_fused_int8", "stream_tower_int8"):
+            assert tbk._layers_plan(name, x, tree, s, heads, 1, 1, False, lns)["flags"] == \
+                plan["flags"]
+    assert not hasattr(tbk, "k9_source") and not hasattr(tbk, "PERSISTENT_BRANCHES")
 
 
 # ---------------------------------------------------------------------------
@@ -198,7 +226,10 @@ def test_layers_plan_takes_the_unfolded_affines_in_f32():
 @pytest.mark.parametrize("case", ["s128", "f32", "odd_heads", "width", "chunks", "masked",
                                   "operand"])
 def test_layers_plan_refuses_before_any_launch(monkeypatch, case):
-    """Each refusal is a ValueError on CPU tensors; nothing is counted."""
+    """Each refusal is a ValueError on CPU tensors; nothing is counted:
+    S = 128, f32 rows with the bf16 mid (K9c, K9d), an odd head count on
+    the dense route, a width not 64 a head, 64-column hidden chunks, a mask
+    on the dense route, an operand of the wrong type."""
     _, _, tq = qm._trees(0, None)
     layer = layer_slice(tq, 1)
     x = qm._rows(1, S)
@@ -207,7 +238,7 @@ def test_layers_plan_refuses_before_any_launch(monkeypatch, case):
     if case == "s128":
         kw = {"s": 128, "x": torch.zeros(128, qm.E, dtype=torch.bfloat16)}
     elif case == "f32":
-        kw = {"x": x.float()}
+        kw = {"x": x.float(), "mid_f32": False}
     elif case == "odd_heads":
         kw = {"x": torch.zeros(S, 192, dtype=torch.bfloat16)}
     elif case == "width":
@@ -224,7 +255,7 @@ def test_layers_plan_refuses_before_any_launch(monkeypatch, case):
     heads = xs.shape[1] // 64 if case == "odd_heads" else qm.H
     with pytest.raises(ValueError):
         tbk._layers_plan("block_int8", xs, layer, kw.pop("s", S), heads, 1, kw.pop("nsp", 1),
-                         True)
+                         kw.pop("mid_f32", True))
     assert tbk.LAUNCHES == before
 
 
