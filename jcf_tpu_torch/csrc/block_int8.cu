@@ -82,7 +82,6 @@ namespace jcf_k9 {
 JCF_K9_FOLDED_MODES(JCF_K9_EXTERN, float, false, false)
 JCF_K9_FOLDED_MODES(JCF_K9_EXTERN, float, false, true)
 JCF_K9_FOLDED_MODES(JCF_K9_EXTERN, float, true, false)
-JCF_K9_FOLDED_MODES(JCF_K9_EXTERN, float, true, true)
 JCF_K9_FOLDED_MODES(JCF_K9_EXTERN, bf16, false, false)
 JCF_K9_FOLDED_MODES(JCF_K9_EXTERN, bf16, false, true)
 JCF_K9_UNFOLDED(JCF_K9_EXTERN, float, false)
@@ -240,7 +239,8 @@ extern "C" int jcf_int8_layers(int mid_f32, const void* x, void* out, void* xq, 
   if (err) return err;
   cudaStream_t s = (cudaStream_t)stream;
   if (rows32) return dispatch_rows32(maps, p, grid, s, flags);
-  if (masked) return dispatch<float, true>(maps, p, grid, s, flags);
+  // the masked attention reads no shift: a static one takes the shift-free instance
+  if (masked) return dispatch<float, true>(maps, p, grid, s, flags & ~FLAG_STATIC_SHIFT);
   return mid_f32 ? dispatch<float, false>(maps, p, grid, s, flags)
                  : dispatch<bf16, false>(maps, p, grid, s, flags);
 }

@@ -456,17 +456,15 @@ __device__ __forceinline__ void heads_nc(const bf16* qkv, O* out, int n_seq, int
   abase += rounds + gridDim.x;
 }
 
-// 2, 4, 5 or 8 key chunks (four, two, one or one unit a round; 5: the
-// text tower's 77 tokens, whose attention phase took 2.4x as long at 8,
+// 4, 5 or 8 key chunks (two, one or one unit a round; 5: the text
+// tower's 77 tokens, whose attention phase took 2.4x as long at 8,
 // PERF.md)
 template <typename O>
 __device__ __forceinline__ void heads(const bf16* qkv, O* out, int n_seq, int S, int H,
                                       bool causal, float scale, const float* ctx_inv,
                                       unsigned char* smem, unsigned* actr, unsigned& abase,
                                       int& slot) {
-  if (S <= 32)
-    heads_nc<2, O>(qkv, out, n_seq, S, H, causal, scale, ctx_inv, smem, actr, abase, slot);
-  else if (S <= 64)
+  if (S <= 64)
     heads_nc<4, O>(qkv, out, n_seq, S, H, causal, scale, ctx_inv, smem, actr, abase, slot);
   else if (S <= 80)
     heads_nc<5, O>(qkv, out, n_seq, S, H, causal, scale, ctx_inv, smem, actr, abase, slot);
@@ -480,7 +478,7 @@ constexpr bool heads_fit() {
              GEMM_CONSUMER_WARPS * ma_warp_bytes(16 * NC) <=
          K9Ring::STAGES * K9Ring::STAGE_BYTES;
 }
-static_assert(heads_fit<2>() && heads_fit<4>() && heads_fit<5>() && heads_fit<8>(),
+static_assert(heads_fit<4>() && heads_fit<5>() && heads_fit<8>(),
               "a round's K, V and warp scratch fit in the ring's stages");
 
 // ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 // The persistent int8 layer kernel (block_int8.cuh) for K9a's masked route (the causal
 // text tower, an odd head count): the folded tree's dynamic and "ln" modes
-// without the softmax shift, and the unfolded tree; built apart from the
-// other instances so that nvcc compiles them at once.
+// (with or without the calibrated softmax shift: the masked attention reads
+// none, so the C entry sends both here), and the unfolded tree; built apart
+// from the other instances so that nvcc compiles them at once.
 #include "block_int8.cuh"
 
 namespace jcf_k9 {

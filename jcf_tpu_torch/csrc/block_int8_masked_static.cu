@@ -1,6 +1,7 @@
 // The persistent int8 layer kernel (block_int8.cuh) for K9a's masked route: the folded
-// tree's "hidden" and "full" modes without the softmax shift; built apart
-// from the other instances so that nvcc compiles them at once.
+// tree's "hidden" and "full" modes (with or without the calibrated softmax
+// shift: the masked attention reads none, so the C entry sends both here);
+// built apart from the other instances so that nvcc compiles them at once.
 #include "block_int8.cuh"
 
 namespace jcf_k9 {

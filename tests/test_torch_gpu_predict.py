@@ -132,8 +132,10 @@ def test_layer_kernels_refuse_bad_operands(cuda):
 
 
 # the K9 branches off the folded dense route at 64 tokens or fewer, at
-# ViT-B/32 widths: (tower, width, folded mode or "unfolded", S, causal,
-# rows dtype, the kernels that take the route)
+# ViT-B/32 widths, and the masked attention's key-chunk counts (4 up to 64
+# tokens, 5 up to 80, 8 to 127) and f32 rows on the pair attention: (tower,
+# width, folded mode or "unfolded", S, causal, rows dtype, the kernels that
+# take the route)
 BRANCHES = {
     "text f32 unfolded": ("text", 512, "unfolded", 77, True, torch.float32, ("block_int8",)),
     "text f32 folded": ("text", 512, None, 77, True, torch.float32, ("block_int8",)),
@@ -149,6 +151,15 @@ BRANCHES = {
     "64 tokens full+score": ("visual", 768, "full+score", 64, False, torch.bfloat16,
                              ("block_int8",)),
     "64 tokens unfolded": ("visual", 768, "unfolded", 64, False, torch.bfloat16, ("block_int8",)),
+    "text bf16 unfolded 17": ("text", 512, "unfolded", 17, True, torch.bfloat16, ("block_int8",)),
+    "text f32 folded 32": ("text", 512, None, 32, True, torch.float32, ("block_int8",)),
+    "text bf16 folded 127": ("text", 512, None, 127, True, torch.bfloat16, ("block_int8",)),
+    "odd heads full+score 100": ("visual", 704, "full+score", 100, False, torch.bfloat16,
+                                 ("block_int8",)),
+    "odd heads unfolded 127": ("visual", 192, "unfolded", 127, False, torch.bfloat16,
+                               ("block_int8",)),
+    "f32 rows dense 50": ("visual", 768, None, 50, False, torch.float32, ("block_int8",)),
+    "f32 rows unfolded 64": ("visual", 768, "unfolded", 64, False, torch.float32, ("block_int8",)),
 }
 
 
