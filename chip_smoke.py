@@ -114,8 +114,12 @@
    at E = 768 against its plain version on the bf16 engine's layer-0
    rows, and the f32 engine on 8 images (1 K1 + 12 ``block_f32``, modes
    against the f32 halves' at cos >= 0.9999); the f32 classifier build under
-   ``PipelineConfig()`` (counted: the f32 text halves only; against the
-   plain f32 tower, row cos >= 0.99999); then each new kernel against its
+   ``PipelineConfig()`` (counted: the f32 text halves and the text
+   weights' TF32 planes, split once before the batches, 48 ``tf32_split``;
+   against the plain f32 tower, row cos >= 0.99999); 11b' the planes of
+   the text tower (``with_tf32_planes``) counted, timed, equal to the plain
+   split bit for bit, with the bytes the text and vision planes hold; the
+   phase's peak device memory; then each new kernel against its
    plain version: K1's f32 and bf16 views at the serving batch, on layer
    0's input rows of the f32 and bf16 engines' forwards ``ln_affine_f32``
    and ``ln_affine`` (vision),
@@ -168,12 +172,16 @@
    (``tests/fixtures/jpeg``: the six fixtures and the four small ones
    under ``extra/``: progressive, restart markers, 4:2:2, odd size)
    decoded on the card at every scale PIL's draft reaches, each decode's
-   SHA-256 against PIL's (``libjpeg_sha256.json``), the IDCT and upsample
-   + color kernels against their plain versions bit for bit there and
-   the IDCT on random coefficients; ``decode_batch`` (libjpeg's reduced
-   scale, the resize kernel) within one level of the committed
-   ``jcf_tpu.native`` output; decode img/s; the three decoder kernels
-   timed at the largest fixture. 13a': the card's and the CPU's full-size
+   SHA-256 against PIL's (``libjpeg_sha256.json``), the IDCT (one launch
+   an image) and upsample + color kernels against their plain versions
+   bit for bit there; one IDCT launch over every committed JPEG at
+   scales 1, 2, 4 and 8 and one over random coefficients past 16 bits
+   (mixed sizes in each), against ``idct_plain`` per component;
+   ``decode_batch`` (libjpeg's reduced scale, the resize kernel) within
+   one level of the committed ``jcf_tpu.native`` output; decode img/s;
+   ``decode_file`` and ``decode_batch`` counted (one IDCT a decode
+   call); the IDCT timed at a --perf decode_batch (128 images, one
+   launch), the upsample + color and resize at the largest fixture. 13a': the card's and the CPU's full-size
    decodes, 64 seeded PIL-exact crops each: the 384 crops equal. Then a
    TestSetB of the
    fixtures repeated (16 images; 1024 for 13d), a 403-line synthetic
@@ -182,8 +190,9 @@
    written through ``models.loader.state_dict_from_params``, each run from
    a temporary directory with its own classifier cache. 13b:
    ``cli.ood.main`` in the default configuration (f32, 512 + 1 host
-   crops), counted (the f32 text and vision halves, an IDCT a component
-   and an upsample + color an image), then on the plain versions
+   crops), counted (the f32 text and vision halves, the text and vision
+   weights' TF32 planes once each, an IDCT and an upsample + color an
+   image), then on the plain versions
    (nothing launches): the split
    files byte-identical; img/s and the ``Timer`` shares of decode and
    device. 13c: the same under ``_FUSE`` = "block": 84 + 12 per batch
@@ -191,8 +200,8 @@
    ``block_f32`` against ``block_f32_plain`` at 512 x 77 causal and 4104
    x 50 zero bias (1e-5 + 1e-5 |ref|, row cos >= 0.99999), timed beside
    the f32 halves per layer. 13d: ``--perf`` on 1024 images (batches of
-   128): each batch launches exactly phase 8's route, the decoder its
-   IDCTs, one upsample + color and one resize an image; against the same
+   128): each batch launches exactly phase 8's route, the decoder one
+   IDCT a batch, one upsample + color and one resize an image; against the same
    run on the
    plain versions (scored against the same cached classifier) per-image
    top-1 agreement >= 0.99 and per-view feature cos >= 0.999 (top-5 and
@@ -212,8 +221,9 @@
    statistics as a ``base_encoder.`` MoCo state dict. 14a:
    ``cli.predict.main`` in the default configuration (f32, 512 + 1 host
    crops), counted (the f32 text halves of 3 classifiers and the prompt
-   learner, the f32 vision halves of 3 crop clouds, the decoder's kernels
-   for each image; no K3-K5, no K9), then on the plain versions: the
+   learner, the f32 vision halves of 3 crop clouds, the TF32 planes of
+   the 4 text and 3 vision trees, the decoder's kernels for each image;
+   no K3-K5, no K9) with its peak device memory, then on the plain versions: the
    three result files byte-identical, ``cs1`` within 1e-3; img/s end to end and per
    loop. 14b: ``run_predict`` with ``runtime.quant = "int8"`` in bf16 (the
    engines built without calibration: dynamic per-row scales) under
@@ -390,10 +400,10 @@ KERNELS = {
                       "jcf_tpu/ops/block_kernel.py:704"),
     "f32_gemm_residual": ("serving_f32", "jcf_tpu_torch/csrc/f32_gemm.cu",
                           "jcf_tpu/ops/block_kernel.py:704"),
-    # the f32 GEMM's weight split (hi and lo TF32 planes), one launch a
-    # GEMM: part of K6a / K6b's f32 products, which the TPU splits in its
-    # HIGHEST passes
-    "tf32_split": ("serving_f32", "jcf_tpu_torch/csrc/f32_gemm.cu",
+    # the f32 GEMMs' weight split (hi and lo TF32 planes), once a layer and
+    # weight when an f32 tree is made (48 in the f32 classifier build): part
+    # of K6a / K6b's f32 products, which the TPU splits in its HIGHEST passes
+    "tf32_split": ("classifier_f32", "jcf_tpu_torch/csrc/f32_gemm.cu",
                    "jcf_tpu/ops/block_kernel.py:528"),
     "causal_attention_f32": ("classifier_f32", "jcf_tpu_torch/csrc/attn_f32.cuh",
                              "jcf_tpu/ops/block_kernel.py:464"),
@@ -2314,15 +2324,16 @@ def serving_288_phase(text, counters, smi, dev):
 
 
 # phase 11: the unquantized towers. Launches of one layer of each float
-# tower (K6a: LN, qkv, attention, out-proj; K6b: LN, c_fc + GELU, c_proj;
-# in f32 a weight split before each of the four GEMMs)
+# tower (K6a: LN, qkv, attention, out-proj; K6b: LN, c_fc + GELU, c_proj);
+# the f32 GEMMs read the weights' TF32 planes, split once a tree
+# (``tree_planes``), not once a call
 FLOAT_LAYER = {
     "f32": {"ln_affine_f32": 2, "f32_gemm_bias": 1, "pair_attention_f32": 1,
-            "f32_gemm_residual": 2, "f32_gemm_gelu": 1, "tf32_split": 4},
+            "f32_gemm_residual": 2, "f32_gemm_gelu": 1},
     "bf16": {"ln_affine": 2, "bf16_gemm_bias": 1, "pair_attention_bf16": 1,
              "bf16_gemm_residual": 2, "bf16_gemm_gelu": 1},
     "f32 text": {"ln_affine_f32": 2, "f32_gemm_bias": 1, "causal_attention_f32": 1,
-                 "f32_gemm_residual": 2, "f32_gemm_gelu": 1, "tf32_split": 4},
+                 "f32_gemm_residual": 2, "f32_gemm_gelu": 1},
     "bf16 text": {"ln_affine": 2, "bf16_gemm_bias": 1, "causal_attention": 1,
                   "causal_attention/mma": 1, "bf16_gemm_residual": 2, "bf16_gemm_gelu": 1},
 }
@@ -2339,6 +2350,12 @@ def views_preset(pc, n_random: int):
     return dataclasses.replace(pc, tta=dataclasses.replace(pc.tta, n_views=n_random))
 
 
+def tree_planes(n_layers: int, trees: int = 1) -> dict:
+    """The launches of ``with_tf32_planes`` on ``trees`` f32 trees: one
+    ``tf32_split`` a layer and GEMM weight."""
+    return {"tf32_split": 4 * n_layers * trees}
+
+
 def float_launches(kind: str, n_layers: int, calls: int = 1, view: bool = True) -> dict:
     """The launches of ``calls`` unquantized tower forwards (and K1 once,
     with ``view``)."""
@@ -2350,9 +2367,10 @@ def float_launches(kind: str, n_layers: int, calls: int = 1, view: bool = True) 
 
 @contextlib.contextmanager
 def plain_float():
-    """Routes the float halves (K6a, K6b in bf16 and f32) and the engines'
-    K1 through the plain versions of their kernels for the block: the
-    composed reference of the unquantized towers."""
+    """Routes the float halves (K6a, K6b in bf16 and f32), the weights'
+    TF32 split and the engines' K1 through the plain versions of their
+    kernels for the block: the composed reference of the unquantized
+    towers."""
     import torch
 
     from jcf_tpu_torch.infer import engine as eng
@@ -2361,16 +2379,21 @@ def plain_float():
     from jcf_tpu_torch.ops import f32_gemm as fg
     from jcf_tpu_torch.ops import view_kernel as vk
 
+    def split_plain(w, out=None):
+        return fg.tf32_split_plain(w) if out is None else out.copy_(fg.tf32_split_plain(w))
+
     swaps = [(bk, "ln_affine", bk.ln_affine_plain), (bk, "pair_attention", bk.pair_attention_plain),
              (bk, "causal_attention", bk.causal_attention_plain),
              (bk, "masked_attention", bk.masked_attention_plain),
-             (eng, "fused_views_nchw", vk.fused_views_nchw_plain)]
+             (eng, "fused_views_nchw", vk.fused_views_nchw_plain), (fg, "tf32_split", split_plain)]
     saved = [(m, k, getattr(m, k)) for m, k, _ in swaps]
     gemms = dict(bk._GEMMS)
     for m, k, fn in swaps:
         setattr(m, k, fn)
-    bk._GEMMS[torch.float32] = (fg.f32_gemm_bias_plain, fg.f32_gemm_gelu_plain,
-                                fg.f32_gemm_residual_plain)
+    # the plain GEMMs read the weights; the planes the halves hand them go unread
+    bk._GEMMS[torch.float32] = tuple(
+        (lambda *args, planes=None, f=f: f(*args))
+        for f in (fg.f32_gemm_bias_plain, fg.f32_gemm_gelu_plain, fg.f32_gemm_residual_plain))
     bk._GEMMS[torch.bfloat16] = (bg.bf16_gemm_bias_plain, bg.bf16_gemm_gelu_plain,
                                  bg.bf16_gemm_residual_plain)
     try:
@@ -2410,6 +2433,45 @@ def head_views(qkv, rows_per, heads):
     """q, k, v [B, H, S, D] views of qkv [B * S, 3E] (SDPA's layout)."""
     e = qkv.shape[1] // 3
     return qkv.view(-1, rows_per, 3, heads, e // heads).permute(2, 0, 3, 1, 4)
+
+
+def planes_phase(params, cfg, ref, dev, counters, smi):
+    """Phase 11b': ``with_tf32_planes`` on the f32 text tower, counted (one
+    ``tf32_split`` a layer and weight) and timed, the planes equal to the
+    plain split bit for bit; the bytes the text planes and the f32
+    engine's vision planes hold -> the text tree with its planes (phase
+    11a's)."""
+    import torch
+
+    from jcf_tpu_torch.models.clip import tree_to
+    from jcf_tpu_torch.ops import f32_gemm as fg
+
+    def weights(tree):
+        """(weight, planes) of the four GEMM weights of a stacked tree."""
+        out = []
+        for path in fg.PLANE_WEIGHTS:
+            owner = tree
+            for key in path[:-1]:
+                owner = owner[key]
+            out.append((owner[path[-1]], owner.get(fg.planes_key(path[-1]))))
+        return out
+
+    text = tree_to(params["text"], dev)
+    blocks, launches = count_forward(counters, lambda: fg.with_tf32_planes(text["blocks"]))
+    if launches != tree_planes(cfg.text_layers):
+        raise AssertionError(f"with_tf32_planes: launches {launches}, expected "
+                             f"{tree_planes(cfg.text_layers)}")
+    for w, planes in weights(blocks):
+        want = torch.stack([fg.tf32_split_plain(w[i]) for i in range(w.shape[0])])
+        if not torch.equal(planes.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError("the text tower's planes differ from the plain split")
+    ms = time_ms(lambda: fg.with_tf32_planes(text["blocks"]), 3)
+    text_mb = sum(nbytes(p) for _, p in weights(blocks)) / 1e6
+    vision_mb = sum(nbytes(p) for _, p in weights(ref._params["visual"]["blocks"])) / 1e6
+    log(f"phase 11b': the f32 text tower's TF32 planes (with_tf32_planes, once a tree): "
+        f"{launches['tf32_split']} tf32_split launches in {ms:.3f} ms, {text_mb:.1f} MB, bit for "
+        f"bit the plain split; the f32 engine's vision planes {vision_mb:.1f} MB, on {smi}")
+    return {**text, "blocks": blocks}
 
 
 def float_kernel_phase(rows_f32, rows_bf16, text, cfg, ids, images, geometry):
@@ -2459,9 +2521,9 @@ def float_kernel_phase(rows_f32, rows_bf16, text, cfg, ids, images, geometry):
                check_f32,
                bound(2 * nbytes(x) + nbytes(ln1["scale"], ln1["bias"]), 0.0, PEAK_F32),
                lambda: F.layer_norm(x, (e,), ln1["scale"], ln1["bias"], 1e-5))
-    wq, bq = attn["w_qkv"], attn["b_qkv"]
+    wq, bq, pq = attn["w_qkv"], attn["b_qkv"], attn["w_qkv_tf32"]
     qkv = ph.run("f32_gemm_bias",
-                 lambda: fg.f32_gemm_bias(h, wq, bq),
+                 lambda: fg.f32_gemm_bias(h, wq, bq, planes=pq),
                  lambda: fg.f32_gemm_bias_plain(h, wq, bq),
                  check_f32_sum(h, wq),
                  f32_gemm_work("f32_gemm_bias", h, wq, bq),
@@ -2477,7 +2539,7 @@ def float_kernel_phase(rows_f32, rows_bf16, text, cfg, ids, images, geometry):
     del q, k, v
     wo, bo = attn["w_out"], attn["b_out"]
     mid = ph.run("f32_gemm_residual (out-proj)",
-                 lambda: fg.f32_gemm_residual(ctx, wo, bo, x),
+                 lambda: fg.f32_gemm_residual(ctx, wo, bo, x, planes=attn["w_out_tf32"]),
                  lambda: fg.f32_gemm_residual_plain(ctx, wo, bo, x),
                  check_f32_sum(ctx, wo),
                  f32_gemm_work("f32_gemm_residual (out-proj)", ctx, wo, x, bo),
@@ -2486,7 +2548,7 @@ def float_kernel_phase(rows_f32, rows_bf16, text, cfg, ids, images, geometry):
     h2 = bk.ln_affine(mid, ln2["scale"], ln2["bias"])
     wf, bf_ = mlp["c_fc"]["w"], mlp["c_fc"]["b"]
     hid = ph.run("f32_gemm_gelu",
-                 lambda: fg.f32_gemm_gelu(h2, wf, bf_),
+                 lambda: fg.f32_gemm_gelu(h2, wf, bf_, planes=mlp["c_fc"]["w_tf32"]),
                  lambda: fg.f32_gemm_gelu_plain(h2, wf, bf_),
                  check_f32_sum(h2, wf),
                  f32_gemm_work("f32_gemm_gelu", h2, wf, bf_),
@@ -2500,7 +2562,7 @@ def float_kernel_phase(rows_f32, rows_bf16, text, cfg, ids, images, geometry):
            bound(3 * nbytes(wf), 0.0, PEAK_F32))
     wp, bp = mlp["c_proj"]["w"], mlp["c_proj"]["b"]
     ph.run("f32_gemm_residual",
-           lambda: fg.f32_gemm_residual(hid, wp, bp, mid),
+           lambda: fg.f32_gemm_residual(hid, wp, bp, mid, planes=mlp["c_proj"]["w_tf32"]),
            lambda: fg.f32_gemm_residual_plain(hid, wp, bp, mid),
            check_f32_sum(hid, wp),
            f32_gemm_work("f32_gemm_residual", hid, wp, mid, bp),
@@ -2593,6 +2655,7 @@ def float_kernel_phase(rows_f32, rows_bf16, text, cfg, ids, images, geometry):
     xt = (text["token_embedding"][ids] + text["positional_embedding"]).reshape(b * st, -1)
     et = xt.shape[1]
     tl = layer_slice(text["blocks"], 0)
+    tp = tl["attn"]["w_qkv_tf32"]
     t1, ta = tl["ln_1"], tl["attn"]
     ht = ph.run("ln_affine_f32 (text)",
                 lambda: bk.ln_affine(xt, t1["scale"], t1["bias"]),
@@ -2601,7 +2664,7 @@ def float_kernel_phase(rows_f32, rows_bf16, text, cfg, ids, images, geometry):
                 bound(2 * nbytes(xt) + nbytes(t1["scale"], t1["bias"]), 0.0, PEAK_F32),
                 lambda: F.layer_norm(xt, (et,), t1["scale"], t1["bias"], 1e-5))
     qkv_t = ph.run("f32_gemm_bias (text)",
-                   lambda: fg.f32_gemm_bias(ht, ta["w_qkv"], ta["b_qkv"]),
+                   lambda: fg.f32_gemm_bias(ht, ta["w_qkv"], ta["b_qkv"], planes=tp),
                    lambda: fg.f32_gemm_bias_plain(ht, ta["w_qkv"], ta["b_qkv"]),
                    check_f32_sum(ht, ta["w_qkv"]),
                    f32_gemm_work("f32_gemm_bias (text)", ht, ta["w_qkv"], ta["b_qkv"]),
@@ -2635,6 +2698,7 @@ def float_classifier_phase(params, cfg, dev, counters):
 
     from jcf_tpu_torch.config import DataConfig, PipelineConfig, RuntimeConfig
     from jcf_tpu_torch.models.clip import encode_text, tree_to
+    from jcf_tpu_torch.ops import f32_gemm as fg
     from jcf_tpu_torch.ops.layers import l2_normalize
     from jcf_tpu_torch.pipelines.common import build_text_weights, ensure_templates
     from jcf_tpu_torch.tokenizer import tokenize
@@ -2655,13 +2719,16 @@ def float_classifier_phase(params, cfg, dev, counters):
             counters, lambda: build_text_weights(tparams, cfg, templates, pc, device=dev))
         log(f"  built in {time.perf_counter() - t0:.2f} s (cache miss); launches: {launches}")
     calls = -(-len(prompts) // TEXT_BATCH)
-    expected = float_launches("f32 text", cfg.text_layers, calls, view=False)
+    # the text weights split once for the build, before its batches
+    expected = add_launches(float_launches("f32 text", cfg.text_layers, calls, view=False),
+                            tree_planes(cfg.text_layers))
     if launches != expected:
         raise AssertionError(f"expected exactly the launches {expected}")
     if built.dtype != torch.float32 or tuple(built.shape) != (N_CLASSES, cfg.embed_dim):
         raise AssertionError(f"bad f32 classifier: {built.dtype} {tuple(built.shape)}")
     ids = torch.from_numpy(tokenize(prompts[:TEXT_BATCH], truncate=True)).to(dev).long()
-    emb_k = l2_normalize(encode_text(tparams, cfg, ids, device=dev, dtype=torch.float32))
+    planed = {"text": {**text, "blocks": fg.with_tf32_planes(text["blocks"])}}
+    emb_k = l2_normalize(encode_text(planed, cfg, ids, device=dev, dtype=torch.float32))
     emb_p = l2_normalize(encode_text_plain(text, cfg, ids, torch.float32))
     cos_emb = float(cosine_rows(emb_k, emb_p).min())
     n_c = TEXT_BATCH // n_t
@@ -3206,6 +3273,7 @@ HASHES = os.path.join(FIXTURE_DIR, "libjpeg_sha256.json")
 # 270, 255 and 9 (measured on one H100); rotated by 260 these sit at ids 10,
 # 398 and 152, on both sides of the base/new boundary at 372
 OOD_ROTATE = 260
+PERF_DECODE_BATCH = 128  # images a decode_batch call on --perf (tta.batch_images)
 # integer operations of the decoder kernels, counted from their source (the
 # IDCT: the two passes' products, sums, shifts and wraps, the dequantization
 # and the output clamp of one block; the upsampler: a pixel's three samples
@@ -3220,21 +3288,15 @@ def fixture_paths():
     return sorted(os.path.join(FIXTURE_DIR, f) for f in os.listdir(FIXTURE_DIR) if f.endswith(".jpg"))
 
 
-def decoder_launches(paths, resize: bool = False) -> dict:
-    """The decoder's launches for ``paths``: one IDCT a component and one
-    upsample + color an image (and one resize + crop an image where
-    ``resize``)."""
-    from jcf_tpu_torch.data import jpeg
-
-    per_file = {}
-    for p in set(paths):
-        with open(p, "rb") as f:
-            per_file[p] = len(jpeg.read_coefficients(f.read(), p).components)
-    comps = sum(per_file[p] for p in paths)
-    out = {"jpeg_idct": comps, "jpeg_upsample_color": len(paths)}
-    if resize:
-        out["resize_crop"] = len(paths)
-    return out
+def decoder_launches(paths, batch: int | None = None) -> dict:
+    """The decoder's launches for the JPEGs ``paths``: one IDCT a decode
+    call (each image's ``decode_coefficients``, or with ``batch`` each
+    ``decode_batch`` of that many images, which also resizes and crops
+    each image) and one upsample + color an image."""
+    if batch is None:
+        return {"jpeg_idct": len(paths), "jpeg_upsample_color": len(paths)}
+    return {"jpeg_idct": -(-len(paths) // batch), "jpeg_upsample_color": len(paths),
+            "resize_crop": len(paths)}
 
 
 def ood_image_paths(n_images: int) -> list:
@@ -3262,6 +3324,41 @@ def check_equal(name, got, ref):
     if not same:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return 0.0
+
+
+def check_idct_batch(label: str, images, dev) -> None:
+    """``idct_images`` of ``images`` on the card (one ``jpeg_idct`` launch)
+    against ``idct_plain`` of each component, bit for bit."""
+    import torch
+
+    from jcf_tpu_torch.data import jpeg
+
+    before = jpeg.LAUNCHES["jpeg_idct"]
+    got = jpeg.idct_images(images, dev)
+    launched = jpeg.LAUNCHES["jpeg_idct"] - before
+    comps = sizes = 0
+    same = launched == 1
+    for (coef, geo), planes in zip(images, got):
+        for c, p, plane in zip(coef.components, geo, planes):
+            want = jpeg.idct_plain(c.coefs.to(dev), c.quant.to(dev), p.size)
+            same = same and torch.equal(plane, want)
+            comps, sizes = comps + 1, sizes | (1 << p.size)
+    log(f"  jpeg_idct on {label}: {len(images)} images, {comps} components, sizes "
+        f"{sorted(k for k in jpeg.SCALES if sizes >> k & 1)} in {launched} launch(es): "
+        f"{'equal to' if same else 'DIFFERS FROM'} idct_plain per component bit for bit")
+    if not same:
+        raise AssertionError(f"jpeg_idct on {label}: not one launch equal to its plain version")
+
+
+def idct_batch_work(layout) -> dict:
+    """The batched IDCT's bound: 128 bytes of coefficients read, S^2
+    samples written a block, the tables and descriptors read once; its
+    integer operations at the int32 rate."""
+    d = layout.desc
+    blocks = d[:, 2] * d[:, 3]
+    n_bytes = int(blocks.sum()) * 128 + len(d) * (256 + 64) + int((blocks * d[:, 4] ** 2).sum())
+    ops = float(sum(IDCT_OPS[int(size)] * int(n) for size, n in zip(d[:, 4], blocks)))
+    return bound(n_bytes, ops, PEAK_INT32)
 
 
 def decode_phase(dev, smi) -> dict:
@@ -3295,7 +3392,7 @@ def decode_phase(dev, smi) -> dict:
         line = []
         for scale, ref in sorted(scales.items(), key=lambda kv: int(kv[0])):
             out_w, out_h, geo = jpeg.geometry(coef, int(scale), rel)
-            planes = [jpeg.idct(c, q, p.size) for (c, q), p in zip(cq, geo)]
+            planes = jpeg.idct_images([(coef, geo)], dev)[0]  # one launch, every component
             planes_p = [jpeg.idct_plain(c, q, p.size) for (c, q), p in zip(cq, geo)]
             img = jpeg.upsample_color(planes, geo, out_w, out_h, coef.ycc)
             img_p = jpeg.upsample_color_plain(planes_p, geo, out_w, out_h, coef.ycc)
@@ -3313,17 +3410,16 @@ def decode_phase(dev, smi) -> dict:
     if n_ok != n_all:
         raise AssertionError("a decode on the card differs from PIL's or a kernel from its plain "
                              "version")
-    gen = torch.Generator().manual_seed(0)
-    for size in (8, 4, 2, 1):
-        c = torch.randint(-1023, 1024, (64, 300, 64), generator=gen, dtype=torch.int16)
-        c[:, ::3, 8:] = 0  # DC-only blocks: the IDCTs' zero test
-        q = torch.randint(1, 65536, (64,), generator=gen, dtype=torch.int32)
-        c, q = c.to(dev), q.to(dev)
-        if not torch.equal(jpeg.idct(c, q, size), jpeg.idct_plain(c, q, size)):
-            raise AssertionError(f"jpeg_idct at size {size} differs from its plain version on "
-                                 f"random coefficients")
-    log("  jpeg_idct on random coefficients (|c| <= 1023, tables up to 65535: 16-bit wraps and "
-        "saturation) at sizes 8, 4, 2, 1: equal to its plain version bit for bit")
+    # one launch over every committed JPEG at every scale (mixed sizes in
+    # one table), then over random coefficients past 16 bits
+    images = []
+    for rel in sorted(refs["images"]):
+        with open(os.path.join(FIXTURE_DIR, rel), "rb") as f:
+            coef = jpeg.read_coefficients(f.read(), rel)
+        images += [(coef, jpeg.geometry(coef, d, rel)[2]) for d in jpeg.SCALES]
+    check_idct_batch("the committed JPEGs at scales 1, 2, 4 and 8", images, dev)
+    check_idct_batch("random coefficients (|c| <= 2047, tables up to 65535: 16-bit wraps and "
+                     "saturation)", jpeg.random_idct_images(np.random.default_rng(0), 24), dev)
 
     # decode_batch (libjpeg's reduced scale from a 512 short side, then the
     # resize kernel) against jcf_tpu.native's committed output
@@ -3376,22 +3472,49 @@ def decode_phase(dev, smi) -> dict:
         torch.cuda.synchronize()
         rates[label] = len(paths) / (time.perf_counter() - t0)
         log(f"  {label}: {rates[label]:.2f} img/s (the 6 fixtures x 20, one thread) on {smi}")
+    for label, run, want in (
+            ("decode_file", lambda: [dec.decode_file(p, dev) for p in paths],
+             decoder_launches(paths)),
+            ("decode_batch", lambda: dec.decode_batch(paths, device=dev),
+             decoder_launches(paths, batch=len(paths)))):
+        before = dict(jpeg.LAUNCHES)
+        run()
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in jpeg.LAUNCHES.items() if v != before[k]}
+        log(f"  {label} of {len(paths)} images: launches {got} (one IDCT a decode call)")
+        if got != want:
+            raise AssertionError(f"{label}: expected the launches {want}")
 
-    # the kernels at the largest fixture's full-size decode (the parity
-    # path's shapes): its luma plane's IDCT, the upsample + color
+    # the IDCT at a --perf decode_batch's shapes (128 images at libjpeg's
+    # scale for a 256 short side, one launch), then the upsample + color
+    # at the largest fixture's full-size decode (the parity path's shapes)
+    ph = Phase()
+    images = []
+    for p in ood_image_paths(PERF_DECODE_BATCH):
+        with open(p, "rb") as f:
+            coef = jpeg.read_coefficients(f.read(), p)
+        images.append((coef, jpeg.geometry(coef, dec.native_scale(coef.width, coef.height, 256),
+                                           p)[2]))
+    layout = jpeg.idct_layout(images)
+    coefs_d = torch.cat([c.coefs for c, _ in images]).to(dev)
+    quant_d = torch.cat([c.quant for c, _ in images]).to(dev)
+    desc_d = torch.from_numpy(layout.desc).to(dev)
+
+    def planes_of(out):
+        return torch.cat([out[o:o + h * w] for mine in layout.planes for o, h, w in mine])
+
+    log(f"  jpeg_idct at a --perf decode_batch: {len(images)} images, {len(layout.desc)} "
+        f"components, {layout.blocks} blocks, {layout.ctas} CTAs, one launch")
+    ph.run("jpeg_idct", lambda: jpeg.idct_batch(coefs_d, quant_d, desc_d, layout),
+           lambda: jpeg.idct_batch_plain(coefs_d, quant_d, desc_d, layout.out_bytes),
+           lambda n, g, r: check_equal(n, planes_of(g), planes_of(r)), idct_batch_work(layout))
+    del coefs_d, quant_d, desc_d, images
     path = max(fixture_paths(), key=os.path.getsize)
     with open(path, "rb") as f:
         coef = jpeg.read_coefficients(f.read(), path)
     out_w, out_h, geo = jpeg.geometry(coef, 1)
-    cq = [(c.coefs.to(dev), c.quant.to(dev)) for c in coef.components]
-    cy, qy = cq[0]
-    n_blocks = cy.shape[0] * cy.shape[1]
-    log(f"  decoder kernels at {os.path.basename(path)} ({coef.width}x{coef.height}): luma "
-        f"{cy.shape[0]}x{cy.shape[1]} blocks")
-    ph = Phase()
-    ph.run("jpeg_idct", lambda: jpeg.idct(cy, qy, 8), lambda: jpeg.idct_plain(cy, qy, 8),
-           check_equal, bound(nbytes(cy, qy) + n_blocks * 64, n_blocks * IDCT_OPS[8], PEAK_INT32))
-    planes = [jpeg.idct(c, q, p.size) for (c, q), p in zip(cq, geo)]
+    log(f"  jpeg_upsample_color at {os.path.basename(path)} ({coef.width}x{coef.height})")
+    planes = jpeg.idct_images([(coef, geo)], dev)[0]
     ph.run("jpeg_upsample_color",
            lambda: jpeg.upsample_color(planes, geo, out_w, out_h, coef.ycc),
            lambda: jpeg.upsample_color_plain(planes, geo, out_w, out_h, coef.ycc), check_equal,
@@ -3548,7 +3671,8 @@ def plain_serving():
     swaps = [(eng, "int8_gemm_s32", ig.int8_matmul_plain),
              (eng, "assemble_dense_rows", ak.assemble_dense_rows_plain),
              (dec, "resize_crop", dec.resize_crop_plain),
-             (jpeg, "idct", jpeg.idct_plain),
+             (jpeg, "idct_batch",
+              lambda c, q, d, layout: jpeg.idct_batch_plain(c, q, d, layout.out_bytes)),
              (jpeg, "upsample_color", jpeg.upsample_color_plain)]
     saved = [(m, k, getattr(m, k)) for m, k, _ in swaps]
     with plain_float(), plain_halves():
@@ -3655,7 +3779,7 @@ def ood_phase(params, cfg, counters, smi, launches_srv, launches_cls) -> tuple:
     results = decode_phase(torch.device("cuda", 0), smi)
     crops_identical(torch.device("cuda", 0), smi)
     decodes = decoder_launches(ood_image_paths(OOD_IMAGES))
-    decodes_perf = decoder_launches(ood_image_paths(OOD_PERF_IMAGES), resize=True)
+    decodes_perf = decoder_launches(ood_image_paths(OOD_PERF_IMAGES), batch=PERF_DECODE_BATCH)
     launches_srv = {k: v for k, v in launches_srv.items() if v}
     launches_cls = {k: v for k, v in launches_cls.items() if v}
     with tempfile.TemporaryDirectory() as tmp:
@@ -3677,8 +3801,11 @@ def ood_phase(params, cfg, counters, smi, launches_srv, launches_cls) -> tuple:
         with per_call_launches(counters, calls, "features_from_crops"):
             files, launches, _, _ = run_ood_cli(tmp, argv, counters, "kernels", OOD_IMAGES, smi)
         log(f"  predicted classes (class: images): {prediction_counts(predictions(calls))}")
+        # the text and vision weights split once each, for the classifier
+        # build and the engine
         expected = add_launches(float_launches("f32 text", cfg.text_layers, n_text, view=False),
                                 float_launches("f32", cfg.vision_layers, n_img, view=False),
+                                tree_planes(cfg.text_layers), tree_planes(cfg.vision_layers),
                                 decodes)
         log(f"  launches: {launches}")
         if launches != expected:
@@ -3701,7 +3828,7 @@ def ood_phase(params, cfg, counters, smi, launches_srv, launches_cls) -> tuple:
                                                         smi)
             log(f"  launches: {launches_b}")
             expected = {"block_f32": cfg.text_layers * n_text + cfg.vision_layers * n_img,
-                        **decodes}
+                        **tree_planes(cfg.text_layers + cfg.vision_layers), **decodes}
             if launches_b != expected:
                 raise AssertionError(f"expected exactly the launches {expected}")
             if files_b != files:
@@ -4028,16 +4155,23 @@ def predict_phase(params, cfg, counters, text, smi, dev):
         log("phase 14a: the default configuration (f32, 512 + 1 host crops) through "
             "cli.predict.main")
         ens_k, feats_f = [], []
+        torch.cuda.reset_peak_memory_stats()
         with predict_records(ens_k, feats_f):
             files_k, launches_k, _, _ = run_predict_counted(tmp, cli_run, counters, "kernels", smi)
         log(f"  launches: {launches_k}")
+        log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+            f"(torch.cuda.max_memory_allocated over the run) on {smi}")
         # 3 crop clouds (the prompted and zs towers on the base batch, the
         # pristine one on the new batch), the text tower, one decode per
         # image and per loader (the center view and the crops come from
         # the same decode)
         decodes = decoder_launches(ood_image_paths(PREDICT_IMAGES))
+        # the weights split once a tree: three classifier builds and the
+        # prompt learner (text), three engines (vision)
         expected = add_launches(text_launches("halves", "f32", cfg.text_layers, n_text),
-                                float_launches("f32", cfg.vision_layers, 3, view=False), decodes)
+                                float_launches("f32", cfg.vision_layers, 3, view=False),
+                                tree_planes(cfg.text_layers, 4), tree_planes(cfg.vision_layers, 3),
+                                decodes)
         if launches_k != expected:
             raise AssertionError(f"expected exactly the launches {expected}")
         ens_p = []
@@ -4820,12 +4954,15 @@ def main() -> int:
 
     # phase 11: the unquantized towers (the f32 engine of phase 7, the
     # bf16 parity engine, the f32 classifier build)
+    torch.cuda.reset_peak_memory_stats()
     launches_bf16, rows_bf16, results_block = float_engine_phase(params, ref, modes_f, images,
                                                                  geometry, text, counters, smi, dev)
     results.update(results_block)
     launches_cls_f32, ids, built_f32 = float_classifier_phase(params, cfg, dev, counters)
-    text_f32 = tree_to(params["text"], dev)
+    text_f32 = planes_phase(params, cfg, ref, dev, counters, smi)
     results.update(float_kernel_phase(rows_f32[0], rows_bf16, text_f32, cfg, ids, images, geometry))
+    log(f"phase 11: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated over the phase) on {smi}")
     del ref, rows_f32, rows_bf16, text_f32
     torch.cuda.empty_cache()
 

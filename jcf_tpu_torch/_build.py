@@ -56,8 +56,8 @@ SIGNATURES = {
     "jcf_blocked_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, *[ctypes.c_longlong] * 6,
                               _F, _I, _P],
     "jcf_int8_layers": [_I, *[_P] * 31, *[_I] * 8, _P],
-    "jcf_block_float": [_I, *[_P] * 20, _I, _I, _I, _I, _I, _F, _P],
-    "jcf_jpeg_idct": [_P, _P, _I, _I, _I, _P, _P],
+    "jcf_block_float": [_I, *[_P] * 19, _I, _I, _I, _I, _I, _F, _P],
+    "jcf_jpeg_idct": [_P, _P, _P, _I, ctypes.c_longlong, _P, _P],
     "jcf_jpeg_upsample_color": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "jcf_resize_crop": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
     "jcf_copy_add_one": [_P, _P, ctypes.c_longlong, _P],

@@ -50,9 +50,10 @@
 //   bf16 GEMM; 96 registers). f32: three TF32 products a k8 step as
 //   f32_gemm.cu takes them (A split in registers, the weights' hi and lo
 //   planes by TMA, a fresh partial per 32-deep stage added in by
-//   __fadd_rn), a ring of 4 stages, one block an SM; the launch's first
-//   phase splits the four weights into their planes (a scratch the
-//   wrapper allocates), so the layer is still one launch;
+//   __fadd_rn), a ring of 4 stages, one block an SM; the weights' planes
+//   [2, N, K] come from the tree, split once when it was made
+//   (ops/f32_gemm.py with_tf32_planes), so the layer is one launch and
+//   splits nothing;
 // - LayerNorm: a warp a row, 16-byte chunks a lane, the affine held in
 //   registers across the warp's rows (text_block.cu's vector row kernel);
 // - the attention: a unit is one (sequence, head). The bias is staged in
@@ -144,8 +145,6 @@ struct Params {
   T* rows_e;           // [C, E]
   T* rows_b;           // [C, max(3E, F)]: qkv [C, 3E], then the hidden [C, F]
   float* mid;          // [C, E]
-  const float* w32[4]; // f32: the weights, split by the first phase
-  float* split;        // f32: [2, N, K] per weight, in turn
   const T *ln1_s, *ln1_b, *ln2_s, *ln2_b;
   const float *b_qkv, *b_out, *b_fc, *b_proj;
   const float* bias;   // [S, S]
@@ -665,31 +664,6 @@ __device__ __forceinline__ void attention(const Params<bf16>& p, int n_seq, unsi
 // the kernel
 // ---------------------------------------------------------------------------
 
-// f32: the four weights' hi and lo planes, four floats a thread
-__device__ __forceinline__ void split_phase(const Params<float>& p, int E) {
-  const long long n[4] = {3LL * E * E, (long long)E * E, (long long)p.F * E, (long long)E * p.F};
-  float* dst = p.split;
-  const long long stride = (long long)gridDim.x * BF_THREADS;
-  for (int w = 0; w < 4; ++w) {
-    const float4* src = reinterpret_cast<const float4*>(p.w32[w]);
-    float4* hi = reinterpret_cast<float4*>(dst);
-    float4* lo = reinterpret_cast<float4*>(dst + n[w]);
-    for (long long i = (long long)blockIdx.x * BF_THREADS + threadIdx.x; i < n[w] / 4; i += stride) {
-      const float4 x = __ldg(src + i);
-      const float xs[4] = {x.x, x.y, x.z, x.w};
-      float h[4], l[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        h[j] = __uint_as_float(tf32_rna(__float_as_uint(xs[j])));
-        l[j] = __uint_as_float(tf32_rna(__float_as_uint(__fsub_rn(xs[j], h[j]))));
-      }
-      hi[i] = make_float4(h[0], h[1], h[2], h[3]);
-      lo[i] = make_float4(l[0], l[1], l[2], l[3]);
-    }
-    dst += 2 * n[w];
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(BF_THREADS, Cfg<T>::MIN_BLOCKS)
     block_float_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Params<T> p) {
@@ -705,10 +679,6 @@ __global__ void __launch_bounds__(BF_THREADS, Cfg<T>::MIN_BLOCKS)
   RingPos rp;
   unsigned target = 0;
   ring_init<R>(full0, empty0);
-  if constexpr (std::is_same<T, float>::value) {
-    split_phase(p, E);
-    grid_sync(p.bar, target);
-  }
   for (int seq0 = 0; seq0 < p.n_seq; seq0 += p.chunk) {
     const int n_seq = min(p.chunk, p.n_seq - seq0), M = n_seq * S;
     const long long r0 = (long long)seq0 * S;
@@ -768,14 +738,12 @@ int launch(Params<T> p, const void* const* w, cudaStream_t stream) {
   int err = tensor_map(&maps.a_e, p.rows_e, C, (long long)E * t, GEMM_BM);
   if (!err) err = tensor_map(&maps.a_f, p.rows_b, C, (long long)p.F * t, GEMM_BM);
   const int n[4] = {3 * E, E, p.F, E}, k[4] = {E, E, E, p.F};
-  long long off = 0;
   for (int i = 0; i < 4 && !err; ++i) {
-    if (std::is_same<T, float>::value) {
-      err = tensor_map(&maps.b[i][0], p.split + off, n[i], 4LL * k[i], BF_BN);
+    if (std::is_same<T, float>::value) {  // the hi plane, then the lo plane
+      const float* hi = static_cast<const float*>(w[i]);
+      err = tensor_map(&maps.b[i][0], hi, n[i], 4LL * k[i], BF_BN);
       if (!err)
-        err = tensor_map(&maps.b[i][1], p.split + off + (long long)n[i] * k[i], n[i], 4LL * k[i],
-                         BF_BN);
-      off += 2LL * n[i] * k[i];
+        err = tensor_map(&maps.b[i][1], hi + (long long)n[i] * k[i], n[i], 4LL * k[i], BF_BN);
     } else {
       err = tensor_map(&maps.b[i][0], w[i], n[i], 2LL * k[i], BF_BN);
       maps.b[i][1] = maps.b[i][0];
@@ -787,7 +755,7 @@ int launch(Params<T> p, const void* const* w, cudaStream_t stream) {
 }
 
 template <typename T>
-int run(const void* x, void* out, void* rows_e, void* rows_b, void* mid, void* split, void* bar,
+int run(const void* x, void* out, void* rows_e, void* rows_b, void* mid, void* bar,
         const void* const* ops, const float* bias, int n_seq, int S, int H, int F, int chunk,
         float scale, cudaStream_t stream) {
   Params<T> p;
@@ -796,7 +764,6 @@ int run(const void* x, void* out, void* rows_e, void* rows_b, void* mid, void* s
   p.rows_e = static_cast<T*>(rows_e);
   p.rows_b = static_cast<T*>(rows_b);
   p.mid = static_cast<float*>(mid);
-  p.split = static_cast<float*>(split);
   p.ln1_s = static_cast<const T*>(ops[0]);
   p.ln1_b = static_cast<const T*>(ops[1]);
   p.b_qkv = static_cast<const float*>(ops[3]);
@@ -806,7 +773,6 @@ int run(const void* x, void* out, void* rows_e, void* rows_b, void* mid, void* s
   p.b_fc = static_cast<const float*>(ops[9]);
   p.b_proj = static_cast<const float*>(ops[11]);
   const void* const w[4] = {ops[2], ops[4], ops[8], ops[10]};
-  for (int i = 0; i < 4; ++i) p.w32[i] = static_cast<const float*>(w[i]);
   p.bias = bias;
   p.bar = static_cast<unsigned*>(bar);
   p.n_seq = n_seq, p.S = S, p.H = H, p.F = F, p.chunk = chunk;
@@ -819,14 +785,14 @@ int run(const void* x, void* out, void* rows_e, void* rows_b, void* mid, void* s
 // K9b (_block_kernel) in bf16 (f32 = 0) or f32 (f32 = 1): x [n_seq * S, E]
 // -> out (same shape and type), S <= 80, head dim 64, E <= 1024; chunk:
 // sequences a chunk (C = chunk * S rows); rows_e [C, E] and rows_b [C,
-// max(3E, F)] of the rows' type, mid [C, E] f32; split (f32 only) [2 (4E^2
-// + 2EF)] f32; bar two unsigned (the grid barrier, the tile counter);
-// ln1_s, ln1_b, ln2_s, ln2_b [E] of the rows' type; w_qkv [3E, E], w_out
-// [E, E], w_fc [F, E], w_proj [E, F] of the rows' type ([out, in]); the
+// max(3E, F)] of the rows' type, mid [C, E] f32; bar two unsigned (the
+// grid barrier, the tile counter); ln1_s, ln1_b, ln2_s, ln2_b [E] of the
+// rows' type; w_qkv [3E, E], w_out [E, E], w_fc [F, E], w_proj [E, F]
+// ([out, in]) in bf16, or in f32 their TF32 hi and lo planes [2, N, K]; the
 // four biases f32; bias [S, S] f32 additive; scale = 1/sqrt(64). Every
 // pointer 16-byte aligned; F a multiple of 8.
 extern "C" int jcf_block_float(int f32, const void* x, void* out, void* rows_e, void* rows_b,
-                               void* mid, void* split, void* bar, const void* ln1_s,
+                               void* mid, void* bar, const void* ln1_s,
                                const void* ln1_b, const void* w_qkv, const void* b_qkv,
                                const void* w_out, const void* b_out, const void* ln2_s,
                                const void* ln2_b, const void* w_fc, const void* b_fc,
@@ -837,16 +803,14 @@ extern "C" int jcf_block_float(int f32, const void* x, void* out, void* rows_e, 
                                ln2_s, ln2_b, w_fc,  b_fc,  w_proj, b_proj};
   bool ok = n_seq >= 1 && S >= 1 && S <= BF_MAX_SEQ && H >= 1 && E <= 1024 && F >= 8 &&
             F % 8 == 0 && chunk >= 1 && bias != nullptr && bar != nullptr && x && out &&
-            rows_e && rows_b && mid && (!f32 || split);
+            rows_e && rows_b && mid;
   for (const void* q : {x, (const void*)out, (const void*)rows_e, (const void*)rows_b,
-                        (const void*)mid, (const void*)split})
+                        (const void*)mid})
     ok = ok && ((uintptr_t)q & 15) == 0;
   for (const void* q : ops) ok = ok && q != nullptr && ((uintptr_t)q & 15) == 0;
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* b = static_cast<const float*>(bias);
-  return f32 ? run<float>(x, out, rows_e, rows_b, mid, split, bar, ops, b, n_seq, S, H, F, chunk,
-                          scale, s)
-             : run<bf16>(x, out, rows_e, rows_b, mid, split, bar, ops, b, n_seq, S, H, F, chunk,
-                         scale, s);
+  return f32 ? run<float>(x, out, rows_e, rows_b, mid, bar, ops, b, n_seq, S, H, F, chunk, scale, s)
+             : run<bf16>(x, out, rows_e, rows_b, mid, bar, ops, b, n_seq, S, H, F, chunk, scale, s);
 }

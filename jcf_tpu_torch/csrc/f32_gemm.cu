@@ -27,7 +27,8 @@
 // products into a fresh partial (wgmma's scale-d 0 starts it), and the
 // partial joins the tile's sum by an f32 add rounded to nearest.
 // - B (the weights) comes split: tf32_split_kernel below writes its hi and
-//   lo planes [2, N, K] once a call (ops/f32_gemm.py).
+//   lo planes [2, N, K] once a layer and weight, when a tree is made for
+//   serving (ops/f32_gemm.py with_tf32_planes), never once a call.
 // - A (the activations) is split in the consumer warps: wgmma takes A from
 //   registers, so each thread reads its fragment out of the swizzled tile
 //   in shared memory, splits it and hands wgmma both halves; the

@@ -7,9 +7,11 @@
 // jcf_tpu/data/datasets.py. No TPU kernel decodes images: these kernels
 // stand in for libjpeg-turbo's host code, integer for integer.
 //
-// jpeg_idct: dequantization + the IDCT of one component, one thread per
-// 8 x 8 coefficient block, templated on the output block size (8: the
-// islow IDCT of jidctint.c; 4, 2, 1: the reduced IDCTs of jidctred.c), as
+// jpeg_idct: dequantization + the IDCT of every component of every image
+// of a decode call in one launch (a descriptor table in device memory
+// maps each CTA to its component), 8 lanes per 8 x 8 coefficient block,
+// templated on the output block size (8: the islow IDCT of jidctint.c; 4,
+// 2, 1: the reduced IDCTs of jidctred.c), as
 // libjpeg-turbo's x86 SIMD code computes them (16-bit dequantization and
 // sums where the SIMD code adds 16-bit lanes, 32-bit products, int16
 // saturation between the passes, a clamp to 0..255 at the end; the 1 x 1
@@ -26,9 +28,15 @@
 // card's pixels equal the plain versions' and libjpeg-turbo's bit for bit.
 //
 // What bounds them: bytes. The IDCT reads 128 bytes of coefficients and
-// writes 64 (or fewer) samples a block; the upsampler reads each plane
-// sample about once and writes 3 bytes a pixel. A simple layout: one
-// thread a block (strided 128-byte loads) and one a pixel; nothing here is
+// writes S^2 samples a block (S its size); the upsampler reads each plane
+// sample about once and writes 3 bytes a pixel. The IDCT's lanes: lane r
+// of a block's 8 loads its row r as one 16-byte load (a warp reads 512
+// contiguous bytes), the column pass runs after a transpose by shuffles
+// within the 8 lanes, the block's AC-zero test is a vote of the 8, and
+// lane r stores output row r as one 8-, 4- or 2-byte word. One launch a
+// decode call: a single image's IDCT is ~1.5 us of bytes, under a
+// launch's own cost, and a 128-image decode_batch is one launch whose
+// bound a kernel can approach. The upsampler: one thread a pixel; not
 // tuned.
 //
 // The resize is two kernels, the horizontal pass over every source row
@@ -176,63 +184,145 @@ __device__ __forceinline__ uint8_t clamp_sample(int v) {
   return (uint8_t)(min(max(v, -128), 127) + 128);
 }
 
-// coefs int16 [bh * bw, 64] (natural order), quant int32 [64] -> out uint8
-// [bh * S, bw * S]; one thread a block
+// the batched IDCT: a descriptor a component (int64 fields, device memory:
+// a decode_batch of 128 images holds 384 of them), sorted by cta0; each
+// component's blocks padded to whole CTAs, so a CTA serves one component
+enum { D_CTA0, D_BLK0, D_BW, D_BH, D_SIZE, D_TABLE, D_OFFSET, D_STRIDE, D_FIELDS };
+constexpr int IDCT_THREADS = 256;
+constexpr int IDCT_BLOCKS = IDCT_THREADS / 8;  // 8 lanes an 8 x 8 block, 4 blocks a warp
+constexpr unsigned FULL = 0xffffffffu;
+
+// an 8 x 8 transpose across the 8 lanes of a group (lane r of the group
+// holds row r in x[0..7] before, column r after): at each level b the
+// entries (r, i) and (r ^ b, i ^ b) whose bit b differs trade places,
+// one shuffle a pair of them; the three levels move (r, i) to (i, r)
+__device__ __forceinline__ void transpose8(int (&x)[8], int r) {
+#pragma unroll
+  for (int b = 4; b >= 1; b >>= 1) {
+    const bool up = r & b;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i & b) continue;
+      const int got = __shfl_xor_sync(FULL, up ? x[i] : x[i | b], b);
+      if (up)
+        x[i] = got;
+      else
+        x[i | b] = got;
+    }
+  }
+}
+
+// one block's S x S output by its group of 8 lanes (r: the lane's row):
+// lane r loads coefficient row r (16 bytes), dequantizes it with the
+// table in shared memory, the group transposes, lane c runs pass 1 on
+// column c, the group transposes back, lane r < S runs pass 2 on row r
+// and stores its S samples as one word. Dead lanes (past the component's
+// last block) compute on zeros, so every shuffle and the vote see the
+// whole warp, and store nothing.
 template <int S>
-__global__ void idct_kernel(const int16_t* __restrict__ coefs, const int* __restrict__ quant,
-                            int bw, int n_blocks, uint8_t* __restrict__ out) {
-  const int blk = blockIdx.x * blockDim.x + threadIdx.x;
-  if (blk >= n_blocks) return;
-  const int16_t* c = coefs + (long long)blk * 64;
-  uint8_t* o = out + (long long)(blk / bw) * S * bw * S + (long long)(blk % bw) * S;
-  const int row_stride = bw * S;
+__device__ __forceinline__ void idct_block(const int16_t* __restrict__ c, const int* q, bool live,
+                                           int lane, uint8_t* o, long long stride) {
+  const int r = lane & 7;
+  int v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  if (live) {
+    const int4 raw = __ldg(reinterpret_cast<const int4*>(c) + r);
+    const int words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[2 * k] = (int)(int16_t)(words[k] & 0xFFFF);
+      v[2 * k + 1] = words[k] >> 16;
+    }
+  }
   if (S == 1) {  // C: DESCALE(dc * q, 3) through the RANGE_MASK table
-    const int i = descale((u32)((int)c[0] * (int)(int16_t)quant[0]), 3) & 1023;
-    o[0] = (uint8_t)min(max((i < 512 ? i : i - 1024) + 128, 0), 255);
+    if (live && r == 0) {
+      const int i = descale((u32)(v[0] * (int)(int16_t)q[0]), 3) & 1023;
+      o[0] = (uint8_t)min(max((i < 512 ? i : i - 1024) + 128, 0), 255);
+    }
     return;
   }
-  int d[64];
-  bool ac_zero = true;  // the AC rows pass 1 reads (the SIMD code's zero test)
+  // the SIMD code's zero test: are the AC rows pass 1 reads all zero?
+  bool nz = false;
 #pragma unroll
-  for (int k = 0; k < 64; ++k) {
-    const int v = c[k];
-    d[k] = w16((u32)v * (u32)quant[k]);
-    const int r = k >> 3;
-    if (r != 0 && !(S == 4 && r == 4) && v != 0) ac_zero = false;
+  for (int k = 0; k < 8; ++k) nz |= v[k] != 0;
+  const unsigned votes = __ballot_sync(FULL, nz && r != 0 && !(S == 4 && r == 4));
+  const bool ac_zero = ((votes >> (lane & 24)) & 0xFFu) == 0;
+  int x[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) x[k] = w16((u32)v[k] * (u32)q[8 * r + k]);
+  transpose8(x, r);  // x: column r
+  int y[8];
+  if (S == 8) {
+    islow_1d(x, CONST_BITS - PASS1_BITS, y);
+  } else if (S == 4) {
+    red4_1d(x, CONST_BITS - PASS1_BITS + 1, y);
+  } else {
+    red2_1d((u32)x[0] << (CONST_BITS + 2), x, CONST_BITS - PASS1_BITS + 2, y);
   }
-  int ws[S * 8];
-  int ws32[S];  // 2 x 2: column 0's pass-1 outputs, kept in 32 bits
-  int x[8], y[8];
+  // 2 x 2: column 0's pass-1 outputs, kept in 32 bits for pass 2's DC term
+  const int dc0 = S == 2 ? __shfl_sync(FULL, y[0], lane & 24) : 0;
+  const int dc1 = S == 2 ? __shfl_sync(FULL, y[1], lane & 24) : 0;
+  int ws[8];
 #pragma unroll
-  for (int col = 0; col < 8; ++col) {
-#pragma unroll
-    for (int r = 0; r < 8; ++r) x[r] = d[r * 8 + col];
-    if (S == 8) {
-      islow_1d(x, CONST_BITS - PASS1_BITS, y);
-    } else if (S == 4) {
-      red4_1d(x, CONST_BITS - PASS1_BITS + 1, y);
-    } else {
-      red2_1d((u32)x[0] << (CONST_BITS + 2), x, CONST_BITS - PASS1_BITS + 2, y);
-      if (col == 0) {
-        ws32[0] = y[0];
-        ws32[S - 1] = y[1];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < S; ++r)
-      ws[r * 8 + col] = (S != 2 && ac_zero) ? w16((u32)x[0] << PASS1_BITS) : s16(y[r]);
+  for (int k = 0; k < 8; ++k)
+    ws[k] = k >= S ? 0 : (S != 2 && ac_zero) ? w16((u32)x[0] << PASS1_BITS) : s16(y[k]);
+  transpose8(ws, r);  // ws: pass 1's row r
+  if (!live || r >= S) return;
+  if (S == 8) {
+    islow_1d(ws, CONST_BITS + PASS1_BITS + 3, y);
+  } else if (S == 4) {
+    red4_1d(ws, CONST_BITS + PASS1_BITS + 3 + 1, y);
+  } else {
+    red2_1d((u32)(r == 0 ? dc0 : dc1) << (CONST_BITS + 2), ws, CONST_BITS + PASS1_BITS + 3 + 2, y);
   }
+  u32 word[2] = {0u, 0u};
 #pragma unroll
-  for (int r = 0; r < S; ++r) {
-    if (S == 8) {
-      islow_1d(ws + r * 8, CONST_BITS + PASS1_BITS + 3, y);
-    } else if (S == 4) {
-      red4_1d(ws + r * 8, CONST_BITS + PASS1_BITS + 3 + 1, y);
-    } else {
-      red2_1d((u32)ws32[r] << (CONST_BITS + 2), ws + r * 8, CONST_BITS + PASS1_BITS + 3 + 2, y);
+  for (int k = 0; k < S; ++k) word[k >> 2] |= (u32)clamp_sample(y[k]) << (8 * (k & 3));
+  uint8_t* row = o + r * stride;
+  if (S == 8)
+    *reinterpret_cast<uint2*>(row) = make_uint2(word[0], word[1]);
+  else if (S == 4)
+    *reinterpret_cast<u32*>(row) = word[0];
+  else
+    *reinterpret_cast<uint16_t*>(row) = (uint16_t)word[0];
+}
+
+// one launch for every component of every image of a decode call: CTA b
+// finds its component (the last descriptor with cta0 <= b), stages that
+// component's table in shared memory and dispatches on its IDCT size,
+// uniform over the CTA
+__global__ void __launch_bounds__(IDCT_THREADS)
+    idct_batch_kernel(const int16_t* __restrict__ coefs, const int* __restrict__ quant,
+                      const long long* __restrict__ desc, int n_desc, uint8_t* __restrict__ out) {
+  __shared__ int q[64];
+  __shared__ int comp;
+  const long long b = blockIdx.x;
+  if (threadIdx.x == 0) {
+    int lo = 0, hi = n_desc - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (desc[(long long)mid * D_FIELDS + D_CTA0] <= b)
+        lo = mid;
+      else
+        hi = mid - 1;
     }
-#pragma unroll
-    for (int k = 0; k < S; ++k) o[(long long)r * row_stride + k] = clamp_sample(y[k]);
+    comp = lo;
+  }
+  __syncthreads();
+  const long long* d = desc + (long long)comp * D_FIELDS;
+  const long long bw = d[D_BW], stride = d[D_STRIDE];
+  const int size = (int)d[D_SIZE];
+  if (threadIdx.x < 64) q[threadIdx.x] = quant[d[D_TABLE] * 64 + threadIdx.x];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const long long j = (b - d[D_CTA0]) * IDCT_BLOCKS + (threadIdx.x >> 3);  // the component's block
+  const bool live = j < bw * d[D_BH];
+  const int16_t* c = coefs + (d[D_BLK0] + (live ? j : 0)) * 64;
+  uint8_t* o = out + d[D_OFFSET] + (j / bw) * size * stride + (j % bw) * size;
+  switch (size) {
+    case 8: idct_block<8>(c, q, live, lane, o, stride); break;
+    case 4: idct_block<4>(c, q, live, lane, o, stride); break;
+    case 2: idct_block<2>(c, q, live, lane, o, stride); break;
+    default: idct_block<1>(c, q, live, lane, o, stride); break;
   }
 }
 
@@ -305,24 +395,21 @@ __global__ void upsample_color_kernel(Planes planes, int n, int ycc, int out_w, 
 
 extern "C" {
 
-// coefs int16 [bh * bw, 64], quant int32 [64] (device) -> out uint8
-// [bh * size, bw * size], size 8, 4, 2 or 1. Returns a cudaError_t.
-int jcf_jpeg_idct(const void* coefs, const void* quant, int bw, int bh, int size, void* out,
-                  void* stream) {
-  if (bw < 1 || bh < 1) return (int)cudaErrorInvalidValue;
-  const int n = bw * bh;
-  const dim3 grid((n + 127) / 128), block(128);
-  cudaStream_t s = (cudaStream_t)stream;
-  const int16_t* c = static_cast<const int16_t*>(coefs);
-  const int* q = static_cast<const int*>(quant);
-  uint8_t* o = static_cast<uint8_t*>(out);
-  switch (size) {
-    case 8: idct_kernel<8><<<grid, block, 0, s>>>(c, q, bw, n, o); break;
-    case 4: idct_kernel<4><<<grid, block, 0, s>>>(c, q, bw, n, o); break;
-    case 2: idct_kernel<2><<<grid, block, 0, s>>>(c, q, bw, n, o); break;
-    case 1: idct_kernel<1><<<grid, block, 0, s>>>(c, q, bw, n, o); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+// coefs int16 [blocks, 64] (natural order), quant int32 [tables, 64],
+// desc int64 [n_desc, 8] (cta0, first block, bw, bh, IDCT size 8, 4, 2 or
+// 1, table, the plane's byte offset in out and its row stride; sorted by
+// cta0, the first at 0, each component's block range padded to whole
+// CTAs), all in device memory -> every component's uint8 plane [bh * size,
+// bw * size] in out, one launch of ctas CTAs. Offsets and strides must
+// keep each stored row word-aligned (16-byte aligned offsets do). Returns
+// a cudaError_t.
+int jcf_jpeg_idct(const void* coefs, const void* quant, const void* desc, int n_desc,
+                  long long ctas, void* out, void* stream) {
+  if (n_desc < 1 || ctas < 1 || ctas > 0x7fffffffLL || ((uintptr_t)coefs & 15))
+    return (int)cudaErrorInvalidValue;
+  idct_batch_kernel<<<(unsigned)ctas, IDCT_THREADS, 0, (cudaStream_t)stream>>>(
+      static_cast<const int16_t*>(coefs), static_cast<const int*>(quant),
+      static_cast<const long long*>(desc), n_desc, static_cast<uint8_t*>(out));
   return (int)cudaGetLastError();
 }
 

@@ -146,11 +146,20 @@ def decode_file(path: str, device="cuda") -> torch.Tensor:
     through ``data.jpeg`` (C = 3, or 1 for a grayscale JPEG), a PNG through
     ``decode_png`` (C = 3). Any other file raises and names it."""
     device = torch.device(device)
+    data, is_jpeg = _sniff(path)
+    if is_jpeg:
+        return jpeg.decode_jpeg(data, device, name=path)
+    return torch.from_numpy(decode_png(data, path)).to(device)
+
+
+def _sniff(path: str):
+    """(the file's bytes, True for a JPEG or False for a PNG); any other
+    file raises and names it."""
     data = _read(path)
     if data.startswith(_JPEG_MAGIC):
-        return jpeg.decode_jpeg(data, device, name=path)
+        return data, True
     if data.startswith(_PNG_MAGIC):
-        return torch.from_numpy(decode_png(data, path)).to(device)
+        return data, False
     raise ValueError(f"{path}: neither a JPEG nor a PNG file")
 
 
@@ -159,17 +168,6 @@ def native_scale(width: int, height: int, resize_to: int) -> int:
     d of 8, 4, 2 with min(width, height) // d >= resize_to, else 1."""
     short = min(width, height)
     return next((d for d in (8, 4, 2) if resize_to > 0 and short // d >= resize_to), 1)
-
-
-def _decode_for_resize(path: str, resize_to: int, device) -> torch.Tensor:
-    """A file decoded as ``jcf_tpu.native`` decodes it before its resize:
-    a JPEG at ``native_scale``, a PNG at full size."""
-    data = _read(path)
-    if data.startswith(_JPEG_MAGIC):
-        coef = jpeg.read_coefficients(data, path)
-        scale = native_scale(coef.width, coef.height, resize_to)
-        return jpeg.decode_coefficients(coef, device, scale, name=path)
-    return decode_file(path, device)
 
 
 # ---------------------------------------------------------------------------
@@ -269,16 +267,46 @@ def decode_batch(paths, resize_to: int = 256, out_size: int = 256, *, device="cu
     each file, on ``device`` -> float32 [N, 3, out, out] in [0, 1] (the
     square sources of the device-crop engine, as
     ``jcf_tpu.native.decode_batch`` returns them), or with ``uint8`` the
-    pixels [N, out, out, 3]. One thread decodes the files in turn: a pool
+    pixels [N, out, out, 3].
+
+    Every file's Huffman decoding runs first, on the host, in turn (a pool
     of decoding threads ran slower on the card's host, their per-image
     Python work contending for the interpreter lock with each other and
-    with the serving thread's launches."""
+    with the serving thread's launches); then one IDCT over every JPEG's
+    components (``data.jpeg.idct_images``: one pinned buffer, one copy,
+    one launch), and per image the upsampling and color conversion on its
+    planes and the resize + crop, on the thread's decode stream. A PNG
+    decodes on the host at full size."""
     device = torch.device(device)
     if not paths:
         out = torch.empty((0, out_size, out_size, 3), dtype=torch.uint8, device=device)
     else:
-        out = torch.stack([resize_crop(_decode_for_resize(p, resize_to, device), resize_to,
-                                       out_size) for p in paths])
+        jpegs, sources = [], []  # sources: (JPEG index, out_w, out_h) or a PNG's pixels
+        for path in paths:
+            data, is_jpeg = _sniff(path)
+            if not is_jpeg:
+                sources.append(torch.from_numpy(decode_png(data, path)))
+                continue
+            coef = jpeg.read_coefficients(data, path)
+            out_w, out_h, geo = jpeg.geometry(
+                coef, native_scale(coef.width, coef.height, resize_to), path)
+            sources.append((len(jpegs), out_w, out_h))
+            jpegs.append((coef, geo))
+
+        def stages():
+            planes = jpeg.idct_images(jpegs, device) if jpegs else []
+            images = []
+            for src in sources:
+                if isinstance(src, tuple):
+                    i, out_w, out_h = src
+                    coef, geo = jpegs[i]
+                    img = jpeg.upsample_color(planes[i], geo, out_w, out_h, coef.ycc)
+                else:
+                    img = src.to(device)
+                images.append(resize_crop(img, resize_to, out_size))
+            return torch.stack(images)
+
+        out = jpeg.on_decode_stream(device, stages)
     if uint8:
         return out
     return true_div(out.permute(0, 3, 1, 2).float(), 255.0)

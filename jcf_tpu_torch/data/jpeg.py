@@ -10,10 +10,11 @@ Three stages:
    sampling factors and block grid. A JPEG it does not take (arithmetic
    coding, lossless, 12-bit, 2 or 4 components, truncated or corrupt data)
    raises ``ValueError`` naming the file.
-2. ``idct``: dequantization and libjpeg's integer IDCT of each block into a
-   uint8 component plane: ``jpeg_idct_islow`` (``jidctint.c``) for 8 x 8
-   output, the reduced ``jpeg_idct_4x4`` / ``_2x2`` / ``_1x1``
-   (``jidctred.c``) for 4, 2 and 1, as libjpeg-turbo's x86 SIMD code
+2. ``idct_images``: dequantization and libjpeg's integer IDCT of each
+   block of every component of a decode call into its uint8 plane:
+   ``jpeg_idct_islow`` (``jidctint.c``) for 8 x 8 output, the reduced
+   ``jpeg_idct_4x4`` / ``_2x2`` / ``_1x1`` (``jidctred.c``) for 4, 2 and
+   1, as libjpeg-turbo's x86 SIMD code
    computes them (see below: the C's integers for any encoder's output,
    the SIMD's 16-bit arithmetic on crafted coefficients).
 3. ``upsample_color``: each component to the output size (``jdsample.c``:
@@ -32,11 +33,14 @@ only where the smallest IDCT size is above 1 and, for h2v1 and h2v2, the
 component is more than 2 samples wide.
 
 Stages 2 and 3 are CUDA kernels (``csrc/jpeg.cu``) for tensors on the card
-and their plain versions (``idct_plain``, ``upsample_color_plain``: integer
-torch, the 16- and 32-bit wraps written out) for tensors on the CPU; both
-compute the same integers, so the card's pixels equal the CPU's bit for
-bit. Each kernel wrapper counts its launches
-in ``LAUNCHES``.
+and their plain versions (``idct_batch_plain`` on ``idct_plain``,
+``upsample_color_plain``: integer torch, the 16- and 32-bit wraps written
+out) for tensors on the CPU; both compute the same integers, so the card's
+pixels equal the CPU's bit for bit. Stage 2 runs once for a whole decode
+call (``idct_images``: one image in ``decode_coefficients``, every JPEG of
+a ``data.decode.decode_batch``): one pinned host buffer, one copy and one
+``jpeg_idct`` launch. Each kernel wrapper counts its launches in
+``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -312,27 +316,171 @@ def idct_plain(coefs: torch.Tensor, quant: torch.Tensor, size: int) -> torch.Ten
     return out.permute(0, 2, 1, 3).reshape(bh * size, bw * size).to(torch.uint8)
 
 
-def idct(coefs: torch.Tensor, quant: torch.Tensor, size: int) -> torch.Tensor:
-    """Dequantize and inverse-transform one component: int16 [bh, bw, 64]
-    coefficients (natural order), the int32 [64] table -> the uint8 plane
-    [bh * size, bw * size], size 8 (``jpeg_idct_islow``) or 4, 2, 1 (the
-    reduced IDCTs). The ``jpeg_idct`` kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    if size not in (1, 2, 4, 8):
-        raise ValueError(f"IDCT size {size} is not 1, 2, 4 or 8")
+# The batched IDCT: one launch for every component of every image of a
+# decode call. A descriptor a component (int64, ``DESC_FIELDS``) gives its
+# first CTA, its first block in the packed coefficients, its block grid,
+# IDCT size and table, and its plane's byte offset and row stride in the
+# packed output. Each component's blocks are padded to whole CTAs of
+# ``IDCT_BLOCKS`` (so a CTA serves one component and dispatches on one
+# size) and each plane starts on a 16-byte boundary.
+
+DESC_FIELDS = ("cta0", "blk0", "bw", "bh", "size", "table", "offset", "stride")
+IDCT_BLOCKS = 32  # 8 x 8 blocks a CTA: 8 warps of 4 blocks, 8 lanes a block
+
+
+@dataclasses.dataclass
+class IdctLayout:
+    """Where a batch's components go: ``desc`` int64 [components, 8] (the
+    kernel's table), the coefficient blocks and CTAs in all, the packed
+    output's bytes, and per image its planes' (offset, height, width)."""
+    desc: np.ndarray
+    blocks: int
+    ctas: int
+    out_bytes: int
+    planes: List[List[Tuple[int, int, int]]]
+
+
+def idct_layout(images) -> IdctLayout:
+    """The descriptor table of ``images``, a sequence of (``Coefficients``,
+    its ``geometry`` planes): components in image order, each component's
+    table its own row of the packed tables (image by image, ``coef.quant``
+    in turn)."""
+    rows, planes = [], []
+    blk = cta = off = 0
+    for coef, geo in images:
+        if len(geo) != len(coef.components):
+            raise ValueError(f"{len(geo)} planes for {len(coef.components)} components")
+        mine = []
+        for c, p in zip(coef.components, geo):
+            n = c.blocks_w * c.blocks_h
+            h, w = c.blocks_h * p.size, c.blocks_w * p.size
+            rows.append((cta, blk, c.blocks_w, c.blocks_h, p.size, len(rows), off, w))
+            mine.append((off, h, w))
+            blk += n
+            cta += _ceil_div(n, IDCT_BLOCKS)
+            off += _ceil_div(h * w, 16) * 16
+        planes.append(mine)
+    desc = np.array(rows, np.int64).reshape(-1, len(DESC_FIELDS))
+    return IdctLayout(desc, blk, cta, off, planes)
+
+
+def idct_batch_plain(coefs: torch.Tensor, quant: torch.Tensor, desc: torch.Tensor,
+                     out_bytes: int) -> torch.Tensor:
+    """Plain version of ``idct_batch``: each descriptor's component through
+    ``idct_plain`` into its place in a zeroed uint8 [out_bytes]."""
+    out = torch.zeros(out_bytes, dtype=torch.uint8, device=coefs.device)
+    for _, blk0, bw, bh, size, table, offset, stride in desc.tolist():
+        plane = idct_plain(coefs[blk0:blk0 + bw * bh].view(bh, bw, 64), quant[table], size)
+        out[offset:offset + bh * size * stride].view(bh * size, stride)[:, :bw * size] = plane
+    return out
+
+
+def idct_batch(coefs: torch.Tensor, quant: torch.Tensor, desc: torch.Tensor,
+               layout: IdctLayout) -> torch.Tensor:
+    """Dequantize and inverse-transform every component that ``desc``
+    (``layout.desc`` on the coefficients' device) lists: int16 [blocks, 64]
+    coefficients (natural order), int32 [tables, 64] tables -> the packed
+    uint8 planes [layout.out_bytes]. One ``jpeg_idct`` launch for CUDA
+    tensors, the plain version for CPU tensors."""
     if not coefs.is_cuda:
-        return idct_plain(coefs, quant, size)
-    bh, bw, n = coefs.shape
-    if coefs.dtype != torch.int16 or n != 64 or quant.dtype != torch.int32 or quant.numel() != 64:
-        raise ValueError(f"idct takes int16 [bh, bw, 64] and int32 [64], got {coefs.dtype} "
-                         f"{tuple(coefs.shape)} and {quant.dtype} {tuple(quant.shape)}")
-    coefs, quant = coefs.contiguous(), quant.to(coefs.device).contiguous()
-    out = torch.empty((bh * size, bw * size), dtype=torch.uint8, device=coefs.device)
-    err = _build.load().jcf_jpeg_idct(coefs.data_ptr(), quant.data_ptr(), bw, bh, size,
-                                      out.data_ptr(), _build.stream_ptr(coefs.device))
+        return idct_batch_plain(coefs, quant, desc, layout.out_bytes)
+    n = layout.desc.shape[0]
+    if (coefs.dtype != torch.int16 or tuple(coefs.shape) != (layout.blocks, 64)
+            or quant.dtype != torch.int32 or quant.dim() != 2 or quant.shape[1] != 64
+            or desc.dtype != torch.int64 or tuple(desc.shape) != (n, len(DESC_FIELDS)) or n < 1
+            or any(t.device != coefs.device or not t.is_contiguous() for t in (coefs, quant, desc))
+            or coefs.data_ptr() % 16):
+        raise ValueError(f"idct_batch takes contiguous int16 [{layout.blocks}, 64] coefficients "
+                         f"(16-byte aligned), int32 [tables, 64] tables and int64 [{n}, 8] "
+                         f"descriptors on one device")
+    out = torch.empty(layout.out_bytes, dtype=torch.uint8, device=coefs.device)
+    err = _build.load().jcf_jpeg_idct(coefs.data_ptr(), quant.data_ptr(), desc.data_ptr(), n,
+                                      layout.ctas, out.data_ptr(), _build.stream_ptr(coefs.device))
     _build.check(err, "jpeg_idct")
     count("jpeg_idct")
     return out
+
+
+def _pinned(nbytes: int) -> torch.Tensor:
+    """The calling thread's pinned staging buffer, at least ``nbytes``,
+    once its last copy to the card has finished (the ``--perf`` path's
+    decode thread packs the next batch while the card may still read the
+    previous one)."""
+    done = getattr(_local, "pinned_done", None)
+    if done is not None:
+        done.synchronize()
+    buf = getattr(_local, "pinned", None)
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(max(nbytes, 2 * (0 if buf is None else buf.numel())), dtype=torch.uint8,
+                          pin_memory=True)
+        _local.pinned = buf
+    return buf
+
+
+def idct_images(images, device) -> List[List[torch.Tensor]]:
+    """Stage 2 of a batch of images (``idct_layout``'s argument) on
+    ``device`` -> per image its uint8 planes (views of one packed output).
+    On the card the coefficients, tables and descriptors go into one
+    pinned host buffer, one copy and one ``jpeg_idct`` launch on the
+    current stream."""
+    device = torch.device(device)
+    layout = idct_layout(images)
+    n = len(layout.desc)
+    if not n:
+        return []
+    if device.type == "cuda":
+        nc, nq = layout.blocks * 128, n * 256
+        staged = _pinned(nc + nq + n * 64)
+        blk = t = 0
+        coefs = staged[:nc].view(torch.int16).view(-1, 64)
+        quant = staged[nc:nc + nq].view(torch.int32).view(-1, 64)
+        for coef, _ in images:
+            coefs[blk:blk + coef.coefs.shape[0]].copy_(coef.coefs)
+            quant[t:t + coef.quant.shape[0]].copy_(coef.quant)
+            blk, t = blk + coef.coefs.shape[0], t + coef.quant.shape[0]
+        staged[nc + nq:nc + nq + n * 64].view(torch.int64).copy_(
+            torch.from_numpy(layout.desc).view(-1))
+        packed = torch.empty(nc + nq + n * 64, dtype=torch.uint8, device=device)
+        packed.copy_(staged[:packed.numel()], non_blocking=True)
+        _local.pinned_done = torch.cuda.Event()
+        _local.pinned_done.record()
+        out = idct_batch(packed[:nc].view(torch.int16).view(-1, 64),
+                         packed[nc:nc + nq].view(torch.int32).view(-1, 64),
+                         packed[nc + nq:].view(torch.int64).view(n, len(DESC_FIELDS)), layout)
+    else:
+        coefs = torch.cat([coef.coefs for coef, _ in images]).to(device)
+        quant = torch.cat([coef.quant for coef, _ in images]).to(device)
+        out = idct_batch(coefs, quant, torch.from_numpy(layout.desc).to(device), layout)
+    return [[out[off:off + h * w].view(h, w) for off, h, w in mine] for mine in layout.planes]
+
+
+def random_idct_images(rng: np.random.Generator, n: int, *, max_bw: int = 300,
+                       table: int = 65535) -> list:
+    """``n`` images of random content in ``idct_images``' form, to hold
+    the IDCT against its plain version past what real files reach: 1 or 3
+    components, each a grid of 1 to ``max_bw`` blocks a row and 1 to 8
+    rows (so ranges end mid-CTA) at a random IDCT size (sizes mixed within
+    an image), coefficients up to +-2047 (past 16 bits once dequantized;
+    every fourth block DC-only, for the zero test) and tables up to
+    ``table``."""
+    images = []
+    for _ in range(n):
+        grids = [(int(rng.integers(1, max_bw + 1)), int(rng.integers(1, 9)))
+                 for _ in range(int(rng.choice([1, 3])))]
+        blocks = [rng.integers(-2047, 2048, (bh * bw, 64)) * (rng.random((bh * bw, 64)) < 0.3)
+                  for bw, bh in grids]
+        for b in blocks:
+            b[::4, 1:] = 0
+        coefs = torch.from_numpy(np.concatenate(blocks).astype(np.int16))
+        quant = torch.from_numpy(rng.integers(1, table + 1, (len(grids), 64)).astype(np.int32))
+        comps, at = [], 0
+        for i, (bw, bh) in enumerate(grids):
+            comps.append(Component(1, 1, bw, bh, coefs[at:at + bw * bh].view(bh, bw, 64), quant[i]))
+            at += bw * bh
+        coef = Coefficients(8 * grids[0][0], 8 * grids[0][1], len(grids) == 3, False, comps, coefs,
+                            quant)
+        images.append((coef, [Plane(int(rng.choice(SCALES)), 1, 1, 1, 1, 0) for _ in grids]))
+    return images
 
 
 # ---------------------------------------------------------------------------
@@ -437,36 +585,32 @@ def _decode_stream(device: torch.device) -> torch.cuda.Stream:
     return streams[device]
 
 
-def _stages(coef: Coefficients, device, out_w: int, out_h: int, geo) -> torch.Tensor:
-    coefs, quant = coef.coefs.to(device), coef.quant.to(device)  # one copy each
-    planes, at = [], 0
-    for i, (c, p) in enumerate(zip(coef.components, geo)):
-        n = c.blocks_h * c.blocks_w
-        planes.append(idct(coefs[at:at + n].view(c.blocks_h, c.blocks_w, 64), quant[i], p.size))
-        at += n
-    return upsample_color(planes, geo, out_w, out_h, coef.ycc)
+def on_decode_stream(device, fn):
+    """``fn()`` on ``device``: on a CUDA device on the calling thread's own
+    stream, which the caller's current stream then waits for (the inputs
+    come from the host, so nothing before them is waited for; on the
+    caller's stream the copy would wait for every kernel queued there, the
+    serving thread's while ``--perf`` decodes the next batch). ``fn``
+    returns one tensor, freed after the caller's use."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return fn()
+    caller, stream = torch.cuda.current_stream(device), _decode_stream(device)
+    with torch.cuda.stream(stream):
+        out = fn()
+    caller.wait_stream(stream)
+    out.record_stream(caller)
+    return out
 
 
 def decode_coefficients(coef: Coefficients, device, scale_denom: int = 1,
                         name: str = "<bytes>") -> torch.Tensor:
     """Stages 2 and 3 on ``device``: uint8 [ceil(H / d), ceil(W / d), C]
-    (C = 3, or 1 for a grayscale JPEG).
-
-    On a CUDA device they run on the calling thread's own stream, which
-    the caller's current stream then waits for: the copy of the
-    coefficients from pageable host memory blocks the host, and on the
-    caller's stream it would wait for every kernel queued there before it
-    (the serving thread's, while ``--perf`` decodes the next batch)."""
-    device = torch.device(device)
+    (C = 3, or 1 for a grayscale JPEG); one IDCT launch for all the
+    components, on the thread's decode stream (``on_decode_stream``)."""
     out_w, out_h, geo = geometry(coef, scale_denom, name)
-    if device.type != "cuda":
-        return _stages(coef, device, out_w, out_h, geo)
-    caller, stream = torch.cuda.current_stream(device), _decode_stream(device)
-    with torch.cuda.stream(stream):  # the inputs come from the host: nothing to wait for
-        out = _stages(coef, device, out_w, out_h, geo)
-    caller.wait_stream(stream)
-    out.record_stream(caller)  # freed after the caller's use, not before
-    return out
+    return on_decode_stream(device, lambda: upsample_color(
+        idct_images([(coef, geo)], device)[0], geo, out_w, out_h, coef.ycc))
 
 
 def decode_jpeg(data: bytes, device="cuda", *, scale_denom: int = 1,

@@ -87,6 +87,7 @@ from jcf_tpu_torch.models.clip import (
 from jcf_tpu_torch.ops.assemble_kernel import assemble_dense_rows, make_cls_row
 from jcf_tpu_torch.ops.attention import BLOCKED_MIN_SEQ
 from jcf_tpu_torch.ops.block_kernel import dense_rows_eligible, run_fused_tower
+from jcf_tpu_torch.ops.f32_gemm import with_tf32_planes
 from jcf_tpu_torch.ops.int8_gemm import int8_gemm_s32
 from jcf_tpu_torch.ops.layers import l2_normalize, require_f32_products
 from jcf_tpu_torch.ops.quant import quantize_clip_params, true_div
@@ -154,7 +155,12 @@ class TTAEngine:
             if self.dtype not in (torch.float32, torch.bfloat16):
                 raise ValueError(f"the unquantized engine computes in f32 or bf16, not {self.dtype}")
             # the float params cast to the compute dtype, as the JAX engine casts them
-            self._params = {"visual": tree_to(v, dev, self.dtype)}
+            vis = tree_to(v, dev, self.dtype)
+            if self.dtype == torch.float32 and cfg.vision_seq_len < BLOCKED_MIN_SEQ:
+                # the fused tower's f32 products read the weights' TF32
+                # planes, split once here
+                vis = {**vis, "blocks": with_tf32_planes(vis["blocks"])}
+            self._params = {"visual": vis}
             self._quant = None
             self._w_embed = w4.permute(3, 0, 1, 2).reshape(w4.shape[3], -1).to(dev, self.dtype)
             self._b_embed = fold_bias.to(dev)

@@ -129,7 +129,13 @@ from jcf_tpu_torch.ops.bf16_gemm import (
     gelu_plain,
     matmul_plain,
 )
-from jcf_tpu_torch.ops.f32_gemm import f32_gemm_bias, f32_gemm_gelu, f32_gemm_residual
+from jcf_tpu_torch.ops.f32_gemm import (
+    f32_gemm_bias,
+    f32_gemm_gelu,
+    f32_gemm_residual,
+    need_planes,
+    planes_key,
+)
 from jcf_tpu_torch.ops.int8_gemm import (
     dequant_plain,
     gelu_quant_plain,
@@ -857,6 +863,13 @@ def _gemms(dt: torch.dtype):
     return _GEMMS[dt]
 
 
+def _planes(owner: dict, name: str, dt: torch.dtype) -> dict:
+    """The f32 GEMMs' ``planes=`` argument: weight ``name``'s TF32 planes
+    from its dict (``with_tf32_planes``), None where the tree has none;
+    nothing for bf16 rows."""
+    return {"planes": owner.get(planes_key(name))} if dt == torch.float32 else {}
+
+
 def attn_half(x: torch.Tensor, layer: dict, s: int, n_heads: int, *,
               causal: bool = True) -> torch.Tensor:
     """K6a on rows x [B * S, E] (S rows per sequence), bf16 or f32, with
@@ -864,12 +877,14 @@ def attn_half(x: torch.Tensor, layer: dict, s: int, n_heads: int, *,
     causal (the text tower), or mask-free: over head pairs (the float
     vision towers), per head for an odd head count (the reference's
     ``use_mask=True`` route with a zero bias). Weights and the LN affine
-    are cast to x's dtype, biases kept f32 (``_halves_block``)."""
+    are cast to x's dtype, biases kept f32 (``_halves_block``). f32 rows
+    on the card read the weights' TF32 planes from the layer
+    (``ops.f32_gemm.with_tf32_planes``) and raise without them."""
     dt = x.dtype
     gemm_bias, _, gemm_residual = _gemms(dt)
     ln, attn = layer["ln_1"], layer["attn"]
     h = ln_affine(x, ln["scale"].to(dt), ln["bias"].to(dt))
-    qkv = gemm_bias(h, attn["w_qkv"].to(dt), attn["b_qkv"].float())
+    qkv = gemm_bias(h, attn["w_qkv"].to(dt), attn["b_qkv"].float(), **_planes(attn, "w_qkv", dt))
     if causal:
         ctx = causal_attention(qkv, s, n_heads)
     elif n_heads % 2:
@@ -878,7 +893,8 @@ def attn_half(x: torch.Tensor, layer: dict, s: int, n_heads: int, *,
                                scale=1.0 / math.sqrt(x.shape[1] // n_heads))
     else:
         ctx = pair_attention(qkv, s, n_heads)
-    return gemm_residual(ctx, attn["w_out"].to(dt), attn["b_out"].float(), x)
+    return gemm_residual(ctx, attn["w_out"].to(dt), attn["b_out"].float(), x,
+                         **_planes(attn, "w_out", dt))
 
 
 def mlp_half(x: torch.Tensor, layer: dict) -> torch.Tensor:
@@ -888,8 +904,9 @@ def mlp_half(x: torch.Tensor, layer: dict) -> torch.Tensor:
     _, gemm_gelu, gemm_residual = _gemms(dt)
     ln, mlp = layer["ln_2"], layer["mlp"]
     h = ln_affine(x, ln["scale"].to(dt), ln["bias"].to(dt))
-    hidden = gemm_gelu(h, mlp["c_fc"]["w"].to(dt), mlp["c_fc"]["b"].float())
-    return gemm_residual(hidden, mlp["c_proj"]["w"].to(dt), mlp["c_proj"]["b"].float(), x)
+    fc, proj = mlp["c_fc"], mlp["c_proj"]
+    hidden = gemm_gelu(h, fc["w"].to(dt), fc["b"].float(), **_planes(fc, "w", dt))
+    return gemm_residual(hidden, proj["w"].to(dt), proj["b"].float(), x, **_planes(proj, "w", dt))
 
 
 # ---------------------------------------------------------------------------
@@ -1321,19 +1338,20 @@ def _block_float(name: str, x: torch.Tensor, layer: dict, s: int, n_heads: int,
     x = x.contiguous()
     n_seq = rows // s
     seqs = _chunk_seqs(n_seq, chunk)
+    f32 = dt == torch.float32
+    if f32:  # the kernel reads the weights' TF32 planes [2, N, K] from the tree
+        for i, (o, k) in zip((2, 4, 8, 10), ((attn, "w_qkv"), (attn, "w_out"), (mlp["c_fc"], "w"),
+                                             (mlp["c_proj"], "w"))):
+            ops[i] = need_planes(o.get(planes_key(k)), o[k], name)
     c = seqs * s  # the kernel walks chunks of seqs sequences, the last one what is left
     out = torch.empty_like(x)
     rows_e = torch.empty(c * e, dtype=dt, device=x.device)
     rows_b = torch.empty(c * max(3 * e, hidden), dtype=dt, device=x.device)
     mid = torch.empty(c * e, dtype=torch.float32, device=x.device)
-    f32 = dt == torch.float32
-    split = (torch.empty(2 * e * (4 * e + 2 * hidden), dtype=torch.float32, device=x.device)
-             if f32 else None)
     bar = torch.empty(2, dtype=torch.int32, device=x.device)  # the grid barrier, the tile counter
     lib = _build.load()
     err = lib.jcf_block_float(int(f32), x.data_ptr(), out.data_ptr(), rows_e.data_ptr(),
-                              rows_b.data_ptr(), mid.data_ptr(),
-                              split.data_ptr() if split is not None else None, bar.data_ptr(),
+                              rows_b.data_ptr(), mid.data_ptr(), bar.data_ptr(),
                               *(t.data_ptr() for t in ops), n_seq, s, n_heads, hidden, seqs,
                               1.0 / math.sqrt(e // n_heads), _build.stream_ptr(x.device))
     _build.check(err, name)
@@ -1365,7 +1383,9 @@ def block_f32(x: torch.Tensor, layer: dict, s: int, n_heads: int,
     """K9b in f32 (csrc/block_float.cu): the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors. One persistent launch a layer, as
     ``block_bf16``, each product as three TF32 products on wgmma (the f32
-    GEMM's split, the weights split inside the launch): no other launch."""
+    GEMM's split): the weights' hi and lo planes come from the layer
+    (``ops.f32_gemm.with_tf32_planes``; without them it raises), so no
+    other launch."""
     if not x.is_cuda:
         return block_f32_plain(x, layer, s, n_heads, bias)
     rows, e = x.shape

@@ -23,9 +23,12 @@ cores' own adds truncate, so each 32-deep stage of K sums into a fresh
 partial that joins the tile's sum by an f32 add rounded to nearest. Both
 stay inside the f32 bar the kernel is held to against its plain version
 (``1e-5 + 1e-5 |ref| + 1e-6 sum_k |a w|``, the bar of f32 sums in another
-order). Each call splits the weights into their hi and lo planes
-(``tf32_split``, a kernel of its own) and the GEMM splits the activations
-as it reads them. PyTorch's own TF32 flags play no part:
+order). The weights come split: ``with_tf32_planes`` adds each stacked
+f32 weight's hi and lo planes beside it once, when a tree is made for
+serving (``tf32_split``, a kernel of its own, once a layer and weight),
+and the GEMM on the card reads them (``planes=``; without them it
+raises). The GEMM splits the activations as it reads them. PyTorch's own
+TF32 flags play no part:
 ``ops.layers.require_f32_products`` still refuses them for the port's
 ``torch.matmul`` products.
 
@@ -67,21 +70,87 @@ def tf32_split_plain(w: torch.Tensor) -> torch.Tensor:
     return torch.stack((hi, rna(w - hi)))
 
 
-def tf32_split(w: torch.Tensor) -> torch.Tensor:
+def tf32_split(w: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """``tf32_split_plain`` by the split kernel for a CUDA ``w`` (f32,
-    contiguous, 16-byte aligned, a multiple of 4 elements)."""
+    contiguous, 16-byte aligned, a multiple of 4 elements), into ``out``
+    ([2, *w.shape], contiguous and aligned) where given; the CPU's plain
+    version takes no ``out``."""
     if not w.is_cuda:
+        if out is not None:
+            raise ValueError("tf32_split: out= is for CUDA tensors")
         return tf32_split_plain(w)
     if w.dtype != torch.float32 or not w.is_contiguous() or w.numel() % 4 or w.numel() < 4 \
             or w.data_ptr() % 16:
         raise ValueError(f"tf32_split takes a contiguous, 16-byte aligned f32 tensor of a "
                          f"positive multiple of 4 elements, got {w.dtype} {tuple(w.shape)}")
-    out = torch.empty((2, *w.shape), dtype=torch.float32, device=w.device)
+    if out is None:
+        out = torch.empty((2, *w.shape), dtype=torch.float32, device=w.device)
+    elif (out.dtype != torch.float32 or tuple(out.shape) != (2, *w.shape) or out.device != w.device
+          or not out.is_contiguous() or out.data_ptr() % 16):
+        raise ValueError(f"tf32_split: out must be contiguous, 16-byte aligned f32 "
+                         f"{(2, *w.shape)} on {w.device}")
     lib = _build.load()
     err = lib.jcf_tf32_split(w.data_ptr(), out.data_ptr(), w.numel(), _build.stream_ptr(w.device))
     _build.check(err, "tf32_split")
     LAUNCHES["tf32_split"] += 1
     return out
+
+
+# the paths of the f32 GEMM weights in a stacked float tree
+PLANE_WEIGHTS = (("attn", "w_qkv"), ("attn", "w_out"), ("mlp", "c_fc", "w"), ("mlp", "c_proj", "w"))
+
+
+def planes_key(name: str) -> str:
+    """The key of weight ``name``'s TF32 planes, beside it in its dict."""
+    return f"{name}_tf32"
+
+
+def with_tf32_planes(blocks: dict) -> dict:
+    """A stacked float tree's blocks (f32 weights [L, N, K]) -> the same
+    dicts with each f32 GEMM weight's TF32 hi and lo planes [L, 2, N, K]
+    beside it under ``planes_key`` (``attn.w_qkv_tf32``, ``attn.w_out_tf32``,
+    ``mlp.c_fc.w_tf32``, ``mlp.c_proj.w_tf32``): what ``f32_gemm_*`` and
+    ``block_f32`` read on the card, split once here and never per call.
+    On the card one ``tf32_split`` launch a layer and weight (48 for
+    ViT-B/32's towers), on the CPU ``tf32_split_plain``; the planes lie
+    where the weights lie. Planes already present are kept; nothing is
+    changed in place (the dicts on the weights' paths are copied)."""
+    out = dict(blocks)
+    for path in PLANE_WEIGHTS:
+        parents = [out]
+        for key in path[:-1]:
+            parents.append(dict(parents[-1][key]))
+            parents[-2][key] = parents[-1]
+        owner, name = parents[-1], path[-1]
+        if planes_key(name) in owner:
+            continue
+        w = owner[name]
+        if w.dtype != torch.float32 or w.dim() != 3:
+            raise ValueError(f"with_tf32_planes takes stacked f32 weights [L, N, K], got "
+                             f"{'.'.join(path)} {w.dtype} {tuple(w.shape)}")
+        if w.is_cuda:
+            w = w.contiguous()
+            planes = torch.empty((w.shape[0], 2, *w.shape[1:]), dtype=torch.float32,
+                                 device=w.device)
+            for layer in range(w.shape[0]):
+                tf32_split(w[layer], planes[layer])
+        else:
+            planes = tf32_split_plain(w).transpose(0, 1).contiguous()
+        owner[planes_key(name)] = planes
+    return out
+
+
+def need_planes(planes, w, name: str) -> torch.Tensor:
+    """The planes of ``w`` [N, K] a CUDA f32 product reads, checked."""
+    if planes is None:
+        raise ValueError(f"{name} on the card reads the weights' TF32 planes: build the tree with "
+                         f"ops.f32_gemm.with_tf32_planes and pass planes=")
+    if (planes.dtype != torch.float32 or tuple(planes.shape) != (2, *w.shape)
+            or planes.device != w.device or not planes.is_contiguous() or planes.data_ptr() % 16):
+        raise ValueError(f"{name}: planes must be contiguous, 16-byte aligned f32 "
+                         f"{(2, *w.shape)} on {w.device}, got {planes.dtype} "
+                         f"{tuple(planes.shape)} on {planes.device}")
+    return planes
 
 
 def f32_gemm_bias_plain(a, w, bias):
@@ -96,7 +165,7 @@ def f32_gemm_gelu_plain(a, w, bias):
     return gelu_plain(torch.matmul(a, w.T) + bias)
 
 
-def _launch(epilogue, a, w, bias, resid=None):
+def _launch(epilogue, a, w, bias, resid=None, planes=None):
     m, k = a.shape
     n = w.shape[0]
     f32 = torch.float32
@@ -116,7 +185,7 @@ def _launch(epilogue, a, w, bias, resid=None):
     if any(not t.is_contiguous() for t in args) or a.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("f32 GEMM operands must be contiguous, a and w 16-byte aligned "
                          "(TMA's rule)")
-    split = tf32_split(w)
+    split = need_planes(planes, w, f"f32_gemm_{epilogue}")
     out = torch.empty((m, n), dtype=f32, device=a.device)
     blocks = gemm_plan(m, n, wgmma_gemm.sm_count(a.device.index))
     lib = _build.load()
@@ -129,19 +198,21 @@ def _launch(epilogue, a, w, bias, resid=None):
     return out
 
 
-def f32_gemm_bias(a, w, bias):
+def f32_gemm_bias(a, w, bias, *, planes=None):
+    """``planes``: w's TF32 planes [2, N, K] (``with_tf32_planes``), which
+    the card reads and the CPU's plain version does not."""
     if not a.is_cuda:
         return f32_gemm_bias_plain(a, w, bias)
-    return _launch("bias", a, w, bias)
+    return _launch("bias", a, w, bias, planes=planes)
 
 
-def f32_gemm_residual(a, w, bias, resid):
+def f32_gemm_residual(a, w, bias, resid, *, planes=None):
     if not a.is_cuda:
         return f32_gemm_residual_plain(a, w, bias, resid)
-    return _launch("residual", a, w, bias, resid)
+    return _launch("residual", a, w, bias, resid, planes)
 
 
-def f32_gemm_gelu(a, w, bias):
+def f32_gemm_gelu(a, w, bias, *, planes=None):
     if not a.is_cuda:
         return f32_gemm_gelu_plain(a, w, bias)
-    return _launch("gelu", a, w, bias)
+    return _launch("gelu", a, w, bias, planes=planes)

@@ -68,9 +68,14 @@ def prompt_text_features(clip_params: dict, cfg: "CLIPConfig", learner: PromptLe
                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Prompt-tuned class text features [C, embed_dim] (not normalized) in
     ``dtype``, computed where ``ctx`` and the text params lie (the
-    learner's buffers follow ``ctx``)."""
+    learner's buffers follow ``ctx``). In f32 the text weights are split
+    into their TF32 planes first (kept where ``clip_params`` has them)."""
     from jcf_tpu_torch.models.clip import encode_text_embeddings
+    from jcf_tpu_torch.ops.f32_gemm import with_tf32_planes
 
+    if dtype == torch.float32:
+        text = clip_params["text"]
+        clip_params = {**clip_params, "text": {**text, "blocks": with_tf32_planes(text["blocks"])}}
     emb = build_prompt_embeddings(learner, ctx)
     eot = learner.tokenized.to(emb.device).long().argmax(dim=-1)
     return encode_text_embeddings(clip_params, cfg, emb, eot, dtype=dtype)

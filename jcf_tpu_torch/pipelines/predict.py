@@ -151,6 +151,9 @@ def run_predict(cfg: PipelineConfig, results_dir: str = "final_results", *, devi
         l2c = label_to_classname(read_classnames(cfg.data.classes_file))
         classnames = [l2c[i] for i in sorted(l2c)]
 
+    # every f32 tree from here on is split into its TF32 planes where it is
+    # made (the classifier builds, the prompt learner, the engines), so the
+    # planes are the split of the LoRA-merged weights
     with timer.phase("classifiers"):
         text_hand = build_text_weights(params_merged, mcfg, templates, cfg, device=device)
         text_zs = build_text_weights(params_zs_merged, mcfg_zs, templates, cfg, device=device)

@@ -17,7 +17,9 @@ bias), the classifier build's text tower (512 x 77 x 512, causal), and
 the same two in f32 at ``jcf-ood``'s default (4104 x 50 x 768 and 512 x
 77 x 512); ``--scale`` divides the sequence counts. Seeded normal rows
 and one layer of seeded weights (std 0.02, qkv 0.05; LN affines 1 +/-
-0.1 and biases nonzero). For each shape, medians of ``--rounds`` rounds
+0.1 and biases nonzero); in f32 the layer carries its weights' TF32
+planes where the checkout splits them once a tree (``with_tf32_planes``,
+before the timing), and a checkout without it splits them in each call. For each shape, medians of ``--rounds`` rounds
 of ``--reps`` launches (CUDA events; on the CPU the host clock, where the
 wrappers run their plain versions), eager and, on the card, captured in
 one CUDA graph, of:
@@ -79,6 +81,21 @@ def seeded_layer(e: int, hidden: int, device, seed: int = 0) -> dict:
                     "c_proj": {"w": n(e, hidden), "b": n(e)}}}
 
 
+def with_planes(layer: dict) -> dict:
+    """The f32 layer as a tree made for serving holds it: with its weights'
+    TF32 planes, where the imported checkout has ``with_tf32_planes``."""
+    from jcf_tpu_torch.ops import f32_gemm as fg
+    from jcf_tpu_torch.ops.layers import layer_slice
+
+    if not hasattr(fg, "with_tf32_planes"):
+        return layer
+
+    def stack(tree):
+        return {k: stack(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[None]
+
+    return layer_slice(fg.with_tf32_planes(stack(layer)), 0)
+
+
 def yardstick(layer: dict, e: int, heads: int, dtype, device):
     """``torch.nn.TransformerEncoderLayer`` holding the block's weights,
     in eval, in ``dtype``."""
@@ -124,7 +141,6 @@ def run(root: str = ROOT, device="cuda", scale: int = 1, rounds: int = 7,
         reps: int = 10) -> dict:
     """Times every shape above from ``root``'s package -> {label: median ms}."""
     ab = _load("ab_gemm")
-    qr = _load("ab_quant_rows")
     import torch
 
     device = torch.device(device)
@@ -149,7 +165,7 @@ def run(root: str = ROOT, device="cuda", scale: int = 1, rounds: int = 7,
         res[label] = ab.report(label, launch, device, rounds, reps)
         if device.type == "cuda":
             try:
-                res[label + " (graph)"] = qr.graph_ms(label, launch, device, rounds, reps)
+                res[label + " (graph)"] = ab.graph_ms(label, launch, device, rounds, reps)
             except RuntimeError as err:  # a capture the call refuses
                 print(f"{label}: in a CUDA graph not measured ({str(err).splitlines()[0]})",
                       flush=True)
@@ -159,6 +175,8 @@ def run(root: str = ROOT, device="cuda", scale: int = 1, rounds: int = 7,
         n_seq = max(1, n_seq // scale)
         heads, hidden, rows = e // 64, 4 * e, n_seq * s
         layer = seeded_layer(e, hidden, device)
+        if dt == torch.float32:
+            layer = with_planes(layer)
         x = torch.randn(rows, e, device=device,
                         generator=torch.Generator(device=device).manual_seed(1)).to(dt)
         bias = (causal_mask(s, device) if causal

@@ -35,8 +35,11 @@ views), and the ``ops.int8_gemm`` wrapper that each caller uses:
   normal operands, their own generator) at the text shapes (N/16 prompts
   x 77 tokens, width 512) and the vision shapes (50N rows, width 768):
   qkv (bias epilogue), out-proj and c_proj (residual), c_fc (QuickGELU);
-  then the f32 GEMM's weight split (``tf32_split``, where the checkout has
-  it) at c_fc's 3072 x 768.
+  the f32 GEMMs read the weight's TF32 planes, split before the timing,
+  where the checkout takes them (``planes=``) and split the weight in each
+  call where it does not; then the f32 GEMM's weight split (``tf32_split``,
+  where the checkout has it) at c_fc's 3072 x 768, eager and, on the card,
+  in a CUDA graph (its eager time is mostly the wrapper's host time).
 Each prints the median, min and max ms per launch over ``--rounds``
 rounds of ``--reps`` launches (CUDA events; on the CPU the host clock,
 where the wrappers run their plain versions) and the SHA-256 of the
@@ -110,6 +113,37 @@ def report(label: str, launch, device, rounds: int, reps: int) -> float:
     med = statistics.median(times)
     print(f"{label}: median {med:.4f} ms per launch, min {min(times):.4f}, max {max(times):.4f} "
           f"({rounds} x {reps}), sha256 {sha}", flush=True)
+    return med
+
+
+def graph_ms(label: str, launch, device, rounds: int, reps: int) -> float:
+    """The device time of ``launch``: ``reps`` launches captured in one
+    CUDA graph, replayed ``rounds`` times -> the median ms per launch,
+    printed."""
+    import torch
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        launch()  # warm the allocator outside the capture
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            launch()
+    times = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize(device)
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    torch.cuda.empty_cache()
+    med = statistics.median(times)
+    print(f"{label}: in a CUDA graph median {med:.4f} ms per launch, min {min(times):.4f}, max "
+          f"{max(times):.4f} ({rounds} x {reps})", flush=True)
     return med
 
 
@@ -249,16 +283,21 @@ def float_rows(timed, device, crops: int) -> None:
                 w = (torch.randn(n, k, device=device, generator=gen) * k**-0.5).to(dtype)
                 bias = torch.randn(n, device=device, generator=gen) * 0.1
                 fn = getattr(mod, f"{tag}_gemm_{epi}")
+                kw = ({"planes": fg.tf32_split(w)}
+                      if dtype == torch.float32 and hasattr(fg, "with_tf32_planes") else {})
                 if epi == "residual":
                     resid = torch.randn(rows, n, device=device, generator=gen).to(dtype)
-                    launch = lambda: fn(x, w, bias, resid)  # noqa: E731
+                    launch = lambda: fn(x, w, bias, resid, **kw)  # noqa: E731
                 else:
-                    launch = lambda: fn(x, w, bias)  # noqa: E731
+                    launch = lambda: fn(x, w, bias, **kw)  # noqa: E731
                 timed(f"{tag}_gemm_{epi} {tower} {name}, {rows} x {k} -> {n}", launch)
-                del x, launch
+                del x, launch, kw
     if hasattr(fg, "tf32_split"):
         w = torch.randn(4 * E, E, device=device, generator=gen) * E**-0.5
-        timed(f"tf32_split c_fc weights, {4 * E} x {E}", lambda: fg.tf32_split(w))
+        label = f"tf32_split c_fc weights, {4 * E} x {E}"
+        timed(label, lambda: fg.tf32_split(w))
+        if device.type == "cuda":
+            graph_ms(label, lambda: fg.tf32_split(w), device, 7, 10)
 
 
 def main(argv=None) -> int:

@@ -96,7 +96,6 @@ def run(root: str = ROOT, device="cuda", scale: int = 1, rounds: int = 7, reps: 
     """Times the rows above (``rows``: their names, default all) from
     ``root``'s package -> {label: median ms}."""
     ab = _load("ab_gemm")
-    qr = _load("ab_quant_rows")
     import torch
 
     device = torch.device(device)
@@ -125,7 +124,7 @@ def run(root: str = ROOT, device="cuda", scale: int = 1, rounds: int = 7, reps: 
         res[label] = ab.report(label, launch, device, rounds, reps)
         if device.type == "cuda":
             try:
-                res[label + " (graph)"] = qr.graph_ms(label, launch, device, rounds, reps)
+                res[label + " (graph)"] = ab.graph_ms(label, launch, device, rounds, reps)
             except RuntimeError as err:  # a capture the call refuses
                 print(f"{label}: in a CUDA graph not measured ({str(err).splitlines()[0]})",
                       flush=True)

@@ -36,7 +36,6 @@ import argparse
 import hashlib
 import importlib.util
 import os
-import statistics
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -78,38 +77,6 @@ def first(out):
     return out[0] if isinstance(out, tuple) else out
 
 
-def graph_ms(label: str, launch, device, rounds: int, reps: int) -> float:
-    """The device time of ``launch``: ``reps`` launches captured in one
-    CUDA graph, replayed ``rounds`` times -> the median ms per launch,
-    printed (the eager medians of the smallest shapes are the wrapper's
-    host time)."""
-    import torch
-
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        launch()  # warm the allocator outside the capture
-    torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            launch()
-    times = []
-    for _ in range(rounds):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize(device)
-        times.append(start.elapsed_time(end) / reps)
-    del graph
-    torch.cuda.empty_cache()
-    med = statistics.median(times)
-    print(f"{label}: in a CUDA graph median {med:.4f} ms per launch, min {min(times):.4f}, max "
-          f"{max(times):.4f} ({rounds} x {reps})", flush=True)
-    return med
-
-
 def run(root: str = ROOT, device="cuda", scale: int = 1, rounds: int = 7, reps: int = 10) -> dict:
     """Times every line of the list above from ``root``'s package ->
     {label: median ms}."""
@@ -137,7 +104,7 @@ def run(root: str = ROOT, device="cuda", scale: int = 1, rounds: int = 7, reps: 
         before = dict(counters)
         res[label] = ab.report(label, lambda: first(launch()), device, rounds, reps)
         if device.type == "cuda":
-            res[label + " (graph)"] = graph_ms(label, launch, device, rounds, reps)
+            res[label + " (graph)"] = ab.graph_ms(label, launch, device, rounds, reps)
         routes = {k: counters[k] - before[k] for k in counters
                   if k.split("/")[0] in names and counters[k] != before[k]}
         print(f"{label}: launches {routes}", flush=True)

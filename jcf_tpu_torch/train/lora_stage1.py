@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from jcf_tpu_torch.models.clip import CLIPConfig, encode_image, encode_text, tree_to
+from jcf_tpu_torch.ops.f32_gemm import with_tf32_planes
 from jcf_tpu_torch.ops.layers import l2_normalize
 from jcf_tpu_torch.peft.lora import LoraSpec, make_lora_context
 
@@ -54,9 +55,19 @@ def make_stage1_step(clip_params: dict, cfg: CLIPConfig, spec: LoraSpec, bank_to
     full f32 (``torch.backends.cuda.matmul.allow_tf32`` False, or the step
     raises) and bf16 products with one rounding (``ops.layers.linear``
     raises unless ``allow_bf16_reduced_precision_reduction`` is False).
+    A tower that the spec gives no LoRA layer runs the fused route, whose
+    f32 products read the weights' TF32 planes: in f32 ``frozen`` holds
+    them for that tower, split once here.
     """
     device = torch.device(device)
-    frozen = (tree_to(clip_params, device), torch.as_tensor(bank_token_ids).to(device).long())
+    params = tree_to(clip_params, device)
+    if dtype == torch.float32:
+        for tower, indices in (("text", spec.text_indices(cfg.text_layers)),
+                               ("visual", spec.vision_indices(cfg.vision_layers))):
+            if not indices:
+                params = {**params, tower: {**params[tower],
+                                            "blocks": with_tf32_planes(params[tower]["blocks"])}}
+    frozen = (params, torch.as_tensor(bank_token_ids).to(device).long())
 
     def check_precision():
         if device.type != "cuda":

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from jcf_tpu_torch.models.clip import CLIPConfig, encode_text, tree_to
+from jcf_tpu_torch.ops.f32_gemm import with_tf32_planes
 from jcf_tpu_torch.ops.layers import l2_normalize
 from jcf_tpu_torch.tokenizer import tokenize
 
@@ -32,10 +33,15 @@ def _mean(emb: torch.Tensor, dim: int) -> torch.Tensor:
 def _encode_normalized(params: dict, cfg: CLIPConfig, ids, batch_size: int, device,
                        dtype: torch.dtype, quant) -> torch.Tensor:
     """L2-normalized text features of token ids [N, ctx], ``batch_size``
-    prompts per tower call -> [N, D] in ``dtype`` on ``device``."""
-    params = {"text": tree_to(params["text"], device)}
+    prompts per tower call -> [N, D] in ``dtype`` on ``device``. The f32
+    tower's weights are split into their TF32 planes once, before the
+    batches."""
+    text = tree_to(params["text"], device)
     if quant is not None:
         quant = tree_to(quant, device)
+    elif dtype == torch.float32:
+        text = {**text, "blocks": with_tf32_planes(text["blocks"])}
+    params = {"text": text}
     ids = torch.as_tensor(ids)
     return torch.cat([l2_normalize(encode_text(params, cfg, ids[i : i + batch_size], device=device,
                                                dtype=dtype, quant=quant))

@@ -205,8 +205,9 @@ def test_bf16_gemm_epilogues(cuda, m, n, k):
 def test_float_gemms_refuse_before_launch(cuda):
     """TMA reads 16-byte aligned bases and rows only: an A or B one element
     off 16 bytes, K off 8 (bf16) or 4 (f32) raise ``ValueError`` before
-    any launch, the f32 GEMM's weight split included; a row slice at a
-    multiple of 16 bytes runs."""
+    any launch, the f32 GEMM's weight split included, and so does an f32
+    product without the weight's TF32 planes; a row slice at a multiple of
+    16 bytes runs on its planes."""
     from jcf_tpu_torch.ops import f32_gemm as fg
 
     g = torch.Generator(device=cuda).manual_seed(19)
@@ -226,10 +227,12 @@ def test_float_gemms_refuse_before_launch(cuda):
             fg.f32_gemm_bias(a, w, bias)
     with pytest.raises(ValueError):
         fg.tf32_split(buf[1:9])
-    assert {**bg.LAUNCHES, **fg.LAUNCHES} == before
     a, w = buf[:64 * 96].view(64, 96), buf[:64 * 96].view(64, 96)[8:]
-    _f32_close(fg.f32_gemm_bias(a, w, bias[8:]), fg.f32_gemm_bias_plain(a, w, bias[8:]),
-               1e-6 * torch.matmul(a.abs(), w.abs().T))
+    with pytest.raises(ValueError, match="with_tf32_planes"):
+        fg.f32_gemm_bias(a, w, bias[8:])
+    assert {**bg.LAUNCHES, **fg.LAUNCHES} == before
+    _f32_close(fg.f32_gemm_bias(a, w, bias[8:], planes=fg.tf32_split(w)),
+               fg.f32_gemm_bias_plain(a, w, bias[8:]), 1e-6 * torch.matmul(a.abs(), w.abs().T))
 
 
 def test_tf32_split_kernel_matches_plain_bit_for_bit(cuda):
@@ -255,6 +258,27 @@ def test_tf32_split_kernel_matches_plain_bit_for_bit(cuda):
         got, ref = fg.tf32_split(x), fg.tf32_split_plain(x)
         assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
     assert fg.LAUNCHES["tf32_split"] == before + 2
+
+
+def test_tree_planes_on_the_card(cuda):
+    """``with_tf32_planes`` on a 2-layer ViT-B/32-width tree on the card:
+    one ``tf32_split`` a layer and weight (8), every plane equal to the
+    plain split of its layer bit for bit, the source tree untouched."""
+    from jcf_tpu_torch.ops import f32_gemm as fg
+
+    blocks = tree_to(init_clip_params(0, CLIPConfig(vision_layers=2))["visual"]["blocks"], cuda)
+    before = fg.LAUNCHES["tf32_split"]
+    planes = fg.with_tf32_planes(blocks)
+    assert fg.LAUNCHES["tf32_split"] == before + 2 * 4
+    assert "w_qkv_tf32" not in blocks["attn"]
+    for path in fg.PLANE_WEIGHTS:
+        owner = planes
+        for key in path[:-1]:
+            owner = owner[key]
+        w, p = owner[path[-1]], owner[fg.planes_key(path[-1])]
+        assert p.shape == (2, 2, *w.shape[1:])
+        for i in range(2):
+            assert torch.equal(p[i].view(torch.int32), fg.tf32_split_plain(w[i]).view(torch.int32))
 
 
 def test_ln_affine_and_causal_attention_kernels(cuda):
@@ -457,6 +481,41 @@ def test_stage1_step_kernels_vs_plain_attention(cuda, monkeypatch):
     for t in lora_k:
         for k in lora_k[t]:
             assert float((lora_k[t][k] - lora_p[t][k]).abs().max()) <= 1e-5, (t, k)
+
+
+@pytest.mark.parametrize("encoder", ["text", "vision"])
+def test_stage1_step_with_one_lora_tower(cuda, encoder):
+    """An f32 stage-1 step with LoRA on one tower only, on a 2-layer
+    full-width model: the other tower runs the fused route on the TF32
+    planes ``make_stage1_step`` split for it (8 ``tf32_split`` launches
+    there, none in the step), and the step's loss is within 1e-4 relative
+    of the same step on the CPU (no dropout; the products' roundings
+    differ)."""
+    from jcf_tpu_torch.ops import f32_gemm as fg
+    from jcf_tpu_torch.peft import LoraSpec, init_lora_params
+    from jcf_tpu_torch.train import adamw, make_stage1_step
+
+    cfg = CLIPConfig(text_layers=2, vision_layers=2)
+    spec = LoraSpec(encoder=encoder)
+    params = init_clip_params(0, cfg)
+    lora = init_lora_params(1, spec, 2, cfg.text_width, 2, cfg.vision_width)
+    gen = torch.Generator().manual_seed(0)
+    banks = torch.randint(1, 49000, (2, 7, 77), generator=gen)
+    banks[:, :, 20] = 49407
+    images = torch.rand(6, 3, 224, 224, generator=gen)
+    targets = torch.randint(0, 7, (6,), generator=gen)
+    losses = []
+    for device in (cuda, torch.device("cpu")):
+        before = fg.LAUNCHES["tf32_split"]
+        init_state, step, frozen = make_stage1_step(params, cfg, spec, banks, adamw(1e-3),
+                                                    device=device)
+        built = fg.LAUNCHES["tf32_split"]
+        _, m = step(frozen, init_state(lora), images, targets, 1, None)
+        losses.append(float(m["loss"]))
+        if device.type == "cuda":
+            assert (built - before, fg.LAUNCHES["tf32_split"] - built) == (2 * 4, 0)
+    assert torch.isfinite(torch.tensor(losses)).all()
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
@@ -740,6 +799,8 @@ def test_block_float_is_one_launch_a_layer(cuda, monkeypatch, dtype, name):
 
     cfg = CLIPConfig(text_layers=2, text_width=256, text_heads=4)
     blocks = tree_to(init_clip_params(3, cfg)["text"]["blocks"], cuda)
+    if dtype == torch.float32:
+        blocks = fg.with_tf32_planes(blocks)  # split once, before the count
     x = torch.randn(5 * 50, 256, device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(5)).to(dtype)
     monkeypatch.setattr(bk, "_FUSE", "block")
@@ -1085,7 +1146,9 @@ def test_f32_gemm_epilogues(cuda, m, n, k):
     """Each epilogue vs its plain version within 1e-5 + 1e-5 |ref| + 1e-6
     sum_k |a w| (the worst case of K-term f32 sums is K u sum |a w|; the
     kernel's three TF32 products drop about 3 2^-22 |a w| a product), one
-    launch each and one weight split a launch."""
+    launch each and no weight split (the planes come split); the planes
+    split by the kernel and by the plain version (then copied to the card)
+    give the same output bit for bit."""
     from jcf_tpu_torch.ops import f32_gemm as fg
 
     g = torch.Generator(device=cuda).manual_seed(m + n + k)
@@ -1094,13 +1157,18 @@ def test_f32_gemm_epilogues(cuda, m, n, k):
     bias = torch.randn(n, device=cuda, generator=g) * 0.1
     resid = torch.randn(m, n, device=cuda, generator=g)
     slack = 1e-6 * torch.matmul(a.abs(), w.abs().T)
+    p = fg.tf32_split(w)
     before = dict(fg.LAUNCHES)
-    _f32_close(fg.f32_gemm_bias(a, w, bias), fg.f32_gemm_bias_plain(a, w, bias), slack)
-    _f32_close(fg.f32_gemm_residual(a, w, bias, resid),
+    got = fg.f32_gemm_bias(a, w, bias, planes=p)
+    _f32_close(got, fg.f32_gemm_bias_plain(a, w, bias), slack)
+    _f32_close(fg.f32_gemm_residual(a, w, bias, resid, planes=p),
                fg.f32_gemm_residual_plain(a, w, bias, resid), slack)
-    _f32_close(fg.f32_gemm_gelu(a, w, bias), fg.f32_gemm_gelu_plain(a, w, bias), slack)
+    _f32_close(fg.f32_gemm_gelu(a, w, bias, planes=p), fg.f32_gemm_gelu_plain(a, w, bias), slack)
     assert {k: v - before[k] for k, v in fg.LAUNCHES.items()} == {
-        "f32_gemm_bias": 1, "f32_gemm_residual": 1, "f32_gemm_gelu": 1, "tf32_split": 3}
+        "f32_gemm_bias": 1, "f32_gemm_residual": 1, "f32_gemm_gelu": 1, "tf32_split": 0}
+    host = fg.tf32_split_plain(w.cpu()).to(cuda)
+    assert torch.equal(fg.f32_gemm_bias(a, w, bias, planes=host).view(torch.int32),
+                       got.view(torch.int32))
 
 
 def test_ln_affine_and_causal_attention_f32(cuda):
@@ -1246,8 +1314,8 @@ def test_float_tower_kernels_vs_plain(cuda, dtype, causal):
     """A 2-layer full-width float tower (ViT-B/32's vision tower at S = 50
     mask-free, its text tower at 77 causal): the kernels vs the plain
     versions on the CPU; 7 launches a layer (the causal attention also
-    counted by its route in bf16; in f32 also a weight split for each of
-    the four GEMMs), nothing of K7."""
+    counted by its route in bf16), no weight split (the f32 tree carries
+    its TF32 planes, split before the count), nothing of K7."""
     cfg = CLIPConfig(vision_layers=2, text_layers=2)
     p = init_clip_params(0, cfg)
     blocks, s, h, e = ((p["text"]["blocks"], 77, 8, 512) if causal
@@ -1256,15 +1324,18 @@ def test_float_tower_kernels_vs_plain(cuda, dtype, causal):
 
     x = torch.randn(6 * s, e, generator=torch.Generator().manual_seed(1)).to(dtype)
     ref = bk.run_float_tower(x, blocks, h, s=s, causal=causal)
+    on_card = tree_to(blocks, cuda)
+    if dtype == torch.float32:
+        on_card = fg.with_tf32_planes(on_card)
     counts = (bk.LAUNCHES, at.LAUNCHES, bg.LAUNCHES, fg.LAUNCHES)
     before = {k: v for c in counts for k, v in c.items()}
-    got = bk.run_float_tower(x.to(cuda), tree_to(blocks, cuda), h, s=s, causal=causal).cpu()
+    got = bk.run_float_tower(x.to(cuda), on_card, h, s=s, causal=causal).cpu()
     after = {k: v for c in counts for k, v in c.items()}
     launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     routes = {k: v for k, v in launched.items() if k.endswith(("/mma", "/rowloop"))}
     splits = launched.get("tf32_split", 0)
     assert sum(launched.values()) - sum(routes.values()) - splits == 2 * 7
-    assert splits == (2 * 4 if dtype == torch.float32 else 0)
+    assert splits == 0
     assert "packed_attention" not in launched
     if causal and dtype == torch.bfloat16:  # on the tensor cores; f32 has one route
         assert routes == {"causal_attention/mma": 2}

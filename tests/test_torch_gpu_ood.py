@@ -21,8 +21,11 @@ import torch
 from jcf_tpu_torch.data import decode as dec
 from jcf_tpu_torch.data import read_image
 from jcf_tpu_torch.data import transforms as tt
+from jcf_tpu_torch.data import jpeg
 from jcf_tpu_torch.ops import block_kernel as bk
+from jcf_tpu_torch.ops import f32_gemm as fg
 from jcf_tpu_torch.ops.attention import causal_mask
+from jcf_tpu_torch.ops.layers import layer_slice
 
 pytestmark = pytest.mark.gpu
 
@@ -52,11 +55,21 @@ def _layer(e, hidden, dev, seed):
                     "c_proj": {"w": n(e, hidden), "b": n(e)}}}
 
 
+def _stack(tree):
+    return {k: _stack(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[None]
+
+
+def _f32_layer(e, hidden, dev, seed):
+    """``_layer`` with its weights' TF32 planes beside them, as a layer of
+    an f32 tree that ``with_tf32_planes`` split holds them."""
+    return layer_slice(fg.with_tf32_planes(_stack(_layer(e, hidden, dev, seed))), 0)
+
+
 @pytest.mark.parametrize("s,causal,heads,n_seq", [(77, True, 2, 5), (50, False, 4, 7),
                                                   (64, False, 2, 3), (17, True, 6, 9)])
 def test_block_f32(cuda, s, causal, heads, n_seq):
     e = 64 * heads
-    layer = _layer(e, 4 * e, cuda, s)
+    layer = _f32_layer(e, 4 * e, cuda, s)
     gen = torch.Generator(device=cuda).manual_seed(1)
     x = torch.randn(n_seq * s, e, device=cuda, generator=gen)
     bias = causal_mask(s, cuda) if causal else torch.zeros(s, s, device=cuda)
@@ -88,7 +101,7 @@ def test_block_f32_kernel_shapes(cuda, width, s, bias):
     """K9b (csrc/block_float.cu) in f32, three TF32 products a product, vs
     its plain version (exact f32) on 3 sequences, at each width, length
     and bias."""
-    layer = _layer(width, 4 * width, cuda, width + s)
+    layer = _f32_layer(width, 4 * width, cuda, width + s)
     x = torch.randn(3 * s, width, device=cuda, generator=torch.Generator(device=cuda).manual_seed(s))
     b, h = _bias(bias, s, cuda), width // 64
     before = bk.LAUNCHES["block_f32"]
@@ -103,7 +116,7 @@ def test_block_f32_kernel_chunks(cuda, n_seq, chunk):
     one where the chunk does not divide them), one sequence, and all the
     sequences in one chunk (None, the wrappers' default), against its
     plain version."""
-    layer = _layer(768, 3072, cuda, n_seq)
+    layer = _f32_layer(768, 3072, cuda, n_seq)
     x = torch.randn(n_seq * 50, 768, device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(n_seq))
     b = torch.zeros(50, 50, device=cuda)
@@ -111,8 +124,29 @@ def test_block_f32_kernel_chunks(cuda, n_seq, chunk):
     _f32_close(got, bk.block_f32_plain(x, layer, 50, 12, b))
 
 
+def test_block_f32_reads_the_planes_bit_for_bit(cuda):
+    """K9b f32 on planes split by the kernel and by the plain version (then
+    copied to the card): the same output bit for bit, no split launch."""
+    layer = _f32_layer(768, 3072, cuda, 5)
+    host = {**layer, "attn": {**layer["attn"]}, "mlp": {k: dict(v) for k, v in layer["mlp"].items()}}
+    for owner, k in ((host["attn"], "w_qkv"), (host["attn"], "w_out"), (host["mlp"]["c_fc"], "w"),
+                     (host["mlp"]["c_proj"], "w")):
+        owner[k + "_tf32"] = fg.tf32_split_plain(owner[k].cpu()).to(cuda)
+    x = torch.randn(7 * 50, 768, device=cuda, generator=torch.Generator(device=cuda).manual_seed(5))
+    b = torch.zeros(50, 50, device=cuda)
+    before = fg.LAUNCHES["tf32_split"]
+    got = bk.block_f32(x, layer, 50, 12, b)
+    assert torch.equal(bk.block_f32(x, host, 50, 12, b).view(torch.int32), got.view(torch.int32))
+    assert fg.LAUNCHES["tf32_split"] == before
+
+
 def test_block_f32_refuses_what_it_does_not_take(cuda):
     layer = _layer(128, 512, cuda, 0)
+    before = bk.LAUNCHES["block_f32"]
+    with pytest.raises(ValueError, match="with_tf32_planes"):
+        bk.block_f32(torch.zeros(2 * 50, 128, device=cuda), layer, 50, 2,
+                     torch.zeros(50, 50, device=cuda))
+    assert bk.LAUNCHES["block_f32"] == before
     with pytest.raises(ValueError, match="block_f32"):
         bk.block_f32(torch.zeros(2 * 90, 128, device=cuda), layer, 90, 2,
                      torch.zeros(90, 90, device=cuda))
@@ -146,8 +180,6 @@ def test_decode_hashes_at_every_scale(cuda):
     import hashlib
     import json
 
-    from jcf_tpu_torch.data import jpeg
-
     with open(os.path.join(FIXTURES, "libjpeg_sha256.json")) as f:
         refs = json.load(f)["images"]
     for rel, scales in refs.items():
@@ -156,7 +188,9 @@ def test_decode_hashes_at_every_scale(cuda):
         for scale, ref in scales.items():
             out_w, out_h, geo = jpeg.geometry(coef, int(scale))
             cq = [(c.coefs.to(cuda), c.quant.to(cuda)) for c in coef.components]
-            planes = [jpeg.idct(c, q, p.size) for (c, q), p in zip(cq, geo)]
+            before = jpeg.LAUNCHES["jpeg_idct"]
+            planes = jpeg.idct_images([(coef, geo)], cuda)[0]
+            assert jpeg.LAUNCHES["jpeg_idct"] == before + 1
             for (c, q), p, plane in zip(cq, geo, planes):
                 assert torch.equal(plane, jpeg.idct_plain(c, q, p.size)), (rel, scale)
             img = jpeg.upsample_color(planes, geo, out_w, out_h, coef.ycc)
@@ -166,6 +200,60 @@ def test_decode_hashes_at_every_scale(cuda):
             x = np.repeat(x, 3, axis=2) if x.shape[2] == 1 else x
             assert list(x.shape) == ref["shape"], (rel, scale)
             assert hashlib.sha256(x.tobytes()).hexdigest() == ref["sha256"], (rel, scale)
+
+
+def _fixture_images():
+    """Every committed JPEG at scales 1, 2, 4 and 8."""
+    import json
+
+    with open(os.path.join(FIXTURES, "libjpeg_sha256.json")) as f:
+        rels = sorted(json.load(f)["images"])
+    images = []
+    for rel in rels:
+        with open(os.path.join(FIXTURES, rel), "rb") as f:
+            coef = jpeg.read_coefficients(f.read(), rel)
+        images += [(coef, jpeg.geometry(coef, d, rel)[2]) for d in jpeg.SCALES]
+    return images
+
+
+@pytest.mark.parametrize("kind", ["fixtures", "random"])
+def test_batched_idct_is_one_launch_equal_to_plain(cuda, kind):
+    """One ``jpeg_idct`` launch over many images of mixed IDCT sizes (the
+    committed JPEGs at every scale; random coefficients past 16 bits) equals
+    ``idct_plain`` of each component, and its plain version over the same
+    table, bit for bit."""
+    images = (_fixture_images() if kind == "fixtures"
+              else jpeg.random_idct_images(np.random.default_rng(3), 24))
+    before = jpeg.LAUNCHES["jpeg_idct"]
+    got = jpeg.idct_images(images, cuda)
+    assert jpeg.LAUNCHES["jpeg_idct"] == before + 1
+    for (coef, geo), planes in zip(images, got):
+        for c, p, plane in zip(coef.components, geo, planes):
+            assert torch.equal(plane, jpeg.idct_plain(c.coefs.to(cuda), c.quant.to(cuda), p.size))
+    layout = jpeg.idct_layout(images)
+    coefs = torch.cat([c.coefs for c, _ in images]).to(cuda)
+    quant = torch.cat([c.quant for c, _ in images]).to(cuda)
+    desc = torch.from_numpy(layout.desc).to(cuda)
+    out = jpeg.idct_batch(coefs, quant, desc, layout)
+    ref = jpeg.idct_batch_plain(coefs, quant, desc, layout.out_bytes)
+    for mine in layout.planes:
+        for off, h, w in mine:
+            assert torch.equal(out[off:off + h * w], ref[off:off + h * w])
+
+
+def test_decode_calls_launch_one_idct(cuda):
+    """``decode_file`` makes one IDCT launch an image, ``decode_batch`` one
+    a call, whatever the images' components."""
+    paths = [os.path.join(FIXTURES, f) for f in sorted(os.listdir(FIXTURES))
+             if f.endswith(".jpg")] * 3
+    before = dict(jpeg.LAUNCHES)
+    for p in paths:
+        dec.decode_file(p, cuda)
+    assert jpeg.LAUNCHES["jpeg_idct"] - before["jpeg_idct"] == len(paths)
+    before = dict(jpeg.LAUNCHES)
+    dec.decode_batch(paths, device=cuda)
+    got = {k: v - before[k] for k, v in jpeg.LAUNCHES.items()}
+    assert got == {"jpeg_idct": 1, "jpeg_upsample_color": len(paths), "resize_crop": len(paths)}
 
 
 def test_decode_in_a_thread_while_the_card_is_busy(cuda):
