@@ -510,6 +510,32 @@ def time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 10) -> float:
+    """``fn``'s device time without the host's: ``reps`` calls captured in
+    one CUDA graph, replayed 5 times -> the median ms per call."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm the allocator outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return sorted(times)[2]
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -3276,11 +3302,15 @@ OOD_ROTATE = 260
 PERF_DECODE_BATCH = 128  # images a decode_batch call on --perf (tta.batch_images)
 # integer operations of the decoder kernels, counted from their source (the
 # IDCT: the two passes' products, sums, shifts and wraps, the dequantization
-# and the output clamp of one block; the upsampler: a pixel's three samples
-# and the color conversion), against the card's 32-bit integer rate: one
-# operation a CUDA core a clock, half the f32 peak (which counts an FMA as two)
+# and the output clamp of one block; the upsampler: a sample's arithmetic by
+# its plane's method, none for box replication, 3 near + far + bias >> 2 for
+# h2v1 and h1v2, the two column sums and their blend for h2v2, and a
+# YCbCr pixel's conversion: two offsets, three products, sums, shifts and
+# clamps), against the card's 32-bit integer rate: one operation a CUDA
+# core a clock, half the f32 peak (which counts an FMA as two)
 IDCT_OPS = {8: 1300, 4: 560, 2: 200, 1: 8}
-UPSAMPLE_COLOR_OPS = 60
+UPSAMPLE_OPS = {0: 0, 1: 4, 2: 4, 3: 8}
+YCC_OPS = 22
 PEAK_INT32 = PEAK_F32 / 2
 
 
@@ -3289,14 +3319,14 @@ def fixture_paths():
 
 
 def decoder_launches(paths, batch: int | None = None) -> dict:
-    """The decoder's launches for the JPEGs ``paths``: one IDCT a decode
-    call (each image's ``decode_coefficients``, or with ``batch`` each
-    ``decode_batch`` of that many images, which also resizes and crops
-    each image) and one upsample + color an image."""
+    """The decoder's launches for the JPEGs ``paths``: one IDCT and one
+    upsample + color a decode call (each image's ``decode_coefficients``,
+    or with ``batch`` each ``decode_batch`` of that many images, which
+    also makes one resize + crop launch)."""
     if batch is None:
         return {"jpeg_idct": len(paths), "jpeg_upsample_color": len(paths)}
-    return {"jpeg_idct": -(-len(paths) // batch), "jpeg_upsample_color": len(paths),
-            "resize_crop": len(paths)}
+    calls = -(-len(paths) // batch)
+    return {"jpeg_idct": calls, "jpeg_upsample_color": calls, "resize_crop": calls}
 
 
 def ood_image_paths(n_images: int) -> list:
@@ -3327,14 +3357,16 @@ def check_equal(name, got, ref):
 
 
 def check_idct_batch(label: str, images, dev) -> None:
-    """``idct_images`` of ``images`` on the card (one ``jpeg_idct`` launch)
-    against ``idct_plain`` of each component, bit for bit."""
+    """``idct_batch`` of ``images`` on the card (``stage``'s one copy, one
+    ``jpeg_idct`` launch) against ``idct_plain`` of each component, bit for
+    bit."""
     import torch
 
     from jcf_tpu_torch.data import jpeg
 
     before = jpeg.LAUNCHES["jpeg_idct"]
-    got = jpeg.idct_images(images, dev)
+    layout = jpeg.idct_layout(images)
+    got = layout.views(layout.run(jpeg.stage(dev, layout.tables(images))))
     launched = jpeg.LAUNCHES["jpeg_idct"] - before
     comps = sizes = 0
     same = launched == 1
@@ -3348,6 +3380,89 @@ def check_idct_batch(label: str, images, dev) -> None:
         f"{'equal to' if same else 'DIFFERS FROM'} idct_plain per component bit for bit")
     if not same:
         raise AssertionError(f"jpeg_idct on {label}: not one launch equal to its plain version")
+
+
+def check_decode_plan(label: str, images, dev) -> None:
+    """A ``DecodePlan`` of ``images`` on the card (one IDCT and one
+    upsample launch) against the same plan on the CPU (their plain
+    versions), every output bit for bit."""
+    import torch
+
+    from jcf_tpu_torch.data import jpeg
+
+    before = dict(jpeg.LAUNCHES)
+    plan = jpeg.DecodePlan(images, dev)
+    got = plan.run(jpeg.stage(dev, plan.tables()))
+    launched = {k: v - before[k] for k, v in jpeg.LAUNCHES.items() if v != before[k]}
+    ref = jpeg.DecodePlan(images, "cpu")
+    want = ref.run(jpeg.stage("cpu", ref.tables()))
+    same = launched == {"jpeg_idct": 1, "jpeg_upsample_color": 1} and all(
+        torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    log(f"  jpeg_upsample_color on {label}: {len(images)} images, {plan.up.ctas} CTAs, launches "
+        f"{launched}: {'equal to' if same else 'DIFFERS FROM'} upsample_color_batch_plain bit for "
+        f"bit")
+    if not same:
+        raise AssertionError(f"jpeg_upsample_color on {label}: not one launch equal to its plain "
+                             f"version")
+
+
+def check_upsample_batch(label: str, planes, images, dev) -> None:
+    """``upsample_color_batch`` of ``images`` (``upsample_layout``'s form)
+    on the packed ``planes``, one launch, against its plain version bit for
+    bit (the outputs; the padding between them is not written)."""
+    import torch
+
+    from jcf_tpu_torch.data import jpeg
+
+    layout = jpeg.upsample_layout(images)
+    desc = torch.from_numpy(layout.desc)
+    before = jpeg.LAUNCHES["jpeg_upsample_color"]
+    got = jpeg.upsample_color_batch(planes.to(dev), desc.to(dev), layout).cpu()
+    launched = jpeg.LAUNCHES["jpeg_upsample_color"] - before
+    want = jpeg.upsample_color_batch_plain(planes, desc, layout.out_bytes)
+    same = launched == 1 and all(torch.equal(g, w) for g, w in zip(layout.views(got),
+                                                                   layout.views(want)))
+    tiles = sorted({tuple(t) for t in layout.desc[:, 6:8].tolist()})
+    log(f"  jpeg_upsample_color on {label}: {layout.ctas} CTAs (tiles rows x cols "
+        f"{tiles[:3]}{' ...' if len(tiles) > 3 else ''}) in {launched} launch(es): "
+        f"{'equal to' if same else 'DIFFERS FROM'} upsample_color_batch_plain bit for bit")
+    if not same:
+        raise AssertionError(f"jpeg_upsample_color on {label}: not one launch equal to its plain "
+                             f"version")
+
+
+def upsample_work(plan) -> dict:
+    """The batched upsample's bound: each plane sample read once, each
+    output byte written once; each output sample's arithmetic by its
+    plane's method, and a YCbCr pixel's conversion, at the int32 rate."""
+    planes = sum(p.width * p.height for _, geo, _, _ in plan.images for p in geo)
+    outputs = sum(h * w * n for _, h, w, n in plan.up.outputs)
+    ops = sum(out_w * out_h * (sum(UPSAMPLE_OPS[p.method] for p in geo)
+                               + (YCC_OPS if coef.ycc and len(geo) == 3 else 0))
+              for coef, geo, out_w, out_h in plan.images)
+    return bound(planes + outputs, float(ops), PEAK_INT32)
+
+
+def resize_work(sources, resize_to: int, out: int) -> dict:
+    """The batched resize's bound: each source byte that the crop's
+    windows reach read once (the rows and columns of nonzero weight, as
+    ``resize_crop_plain`` slices them), each output byte written once; the
+    two passes' f32 FMAs on the taps of nonzero weight (the horizontal pass
+    on the source rows the crop's windows reach), two flops each, on each
+    of the source's channels (a grayscale source's one channel is the
+    output's three)."""
+    from jcf_tpu_torch.data import decode as dec
+
+    n_bytes, flops = len(sources) * out * out * 3, 0.0
+    for img in sources:
+        sh, sw, ch = img.shape
+        rw, rh, left, top = dec._geometry(sw, sh, resize_to, out)
+        wx = dec._triangle_weights(sw, rw, left, out)
+        wy = dec._triangle_weights(sh, rh, top, out)
+        cols, rows = np.nonzero(wx.any(axis=0))[0], np.nonzero(wy.any(axis=0))[0]
+        n_bytes += (int(rows[-1]) + 1 - int(rows[0])) * (int(cols[-1]) + 1 - int(cols[0])) * ch
+        flops += 2.0 * ch * (len(rows) * np.count_nonzero(wx) + out * np.count_nonzero(wy))
+    return bound(n_bytes, flops, PEAK_F32)
 
 
 def idct_batch_work(layout) -> dict:
@@ -3392,13 +3507,13 @@ def decode_phase(dev, smi) -> dict:
         line = []
         for scale, ref in sorted(scales.items(), key=lambda kv: int(kv[0])):
             out_w, out_h, geo = jpeg.geometry(coef, int(scale), rel)
-            planes = jpeg.idct_images([(coef, geo)], dev)[0]  # one launch, every component
+            before = dict(jpeg.LAUNCHES)
+            img = jpeg.decode_jpeg(data, dev, scale_denom=int(scale), name=rel)
+            launched = {k: v - before[k] for k, v in jpeg.LAUNCHES.items() if v != before[k]}
             planes_p = [jpeg.idct_plain(c, q, p.size) for (c, q), p in zip(cq, geo)]
-            img = jpeg.upsample_color(planes, geo, out_w, out_h, coef.ycc)
             img_p = jpeg.upsample_color_plain(planes_p, geo, out_w, out_h, coef.ycc)
-            whole = jpeg.decode_jpeg(data, dev, scale_denom=int(scale), name=rel)
-            kernels_equal = (all(torch.equal(a, b) for a, b in zip(planes, planes_p))
-                             and torch.equal(img, img_p) and torch.equal(img, whole))
+            kernels_equal = (launched == {"jpeg_idct": 1, "jpeg_upsample_color": 1}
+                             and torch.equal(img, img_p))
             ok = kernels_equal and rgb_digest(img) == (ref["shape"], ref["sha256"])
             n_all, n_ok = n_all + 1, n_ok + ok
             line.append(f"1/{scale} {'ok' if ok else 'MISMATCH'}")
@@ -3406,20 +3521,37 @@ def decode_phase(dev, smi) -> dict:
         log(f"  {rel} ({coef.width}x{coef.height}, sampling {sub}"
             f"{', progressive' if coef.progressive else ''}): {', '.join(line)}")
     log(f"  {n_ok} of {n_all} decodes hash to PIL's (Pillow {refs['pillow']}, libjpeg-turbo "
-        f"{refs['libjpeg_turbo']}), each with both kernels equal to their plain versions")
+        f"{refs['libjpeg_turbo']}), each one IDCT and one upsample launch equal to the plain "
+        f"versions' decode")
     if n_ok != n_all:
         raise AssertionError("a decode on the card differs from PIL's or a kernel from its plain "
                              "version")
     # one launch over every committed JPEG at every scale (mixed sizes in
     # one table), then over random coefficients past 16 bits
-    images = []
+    imgs = []
     for rel in sorted(refs["images"]):
         with open(os.path.join(FIXTURE_DIR, rel), "rb") as f:
             coef = jpeg.read_coefficients(f.read(), rel)
-        images += [(coef, jpeg.geometry(coef, d, rel)[2]) for d in jpeg.SCALES]
-    check_idct_batch("the committed JPEGs at scales 1, 2, 4 and 8", images, dev)
+        for d in jpeg.SCALES:
+            out_w, out_h, geo = jpeg.geometry(coef, d, rel)
+            imgs.append((coef, geo, out_w, out_h))
+    check_idct_batch("the committed JPEGs at scales 1, 2, 4 and 8",
+                     [(coef, geo) for coef, geo, _, _ in imgs], dev)
     check_idct_batch("random coefficients (|c| <= 2047, tables up to 65535: 16-bit wraps and "
                      "saturation)", jpeg.random_idct_images(np.random.default_rng(0), 24), dev)
+    # one upsample launch over every committed JPEG at every scale (gray
+    # among color), then over random planes: every method, planes of 1 to
+    # 3 samples a side at unaligned offsets and strides, and rows too wide
+    # for one CTA's shared memory
+    check_decode_plan("the committed JPEGs at scales 1, 2, 4 and 8", imgs, dev)
+    for label, (planes, color) in (
+            ("40 random images of planes", jpeg.random_color_images(np.random.default_rng(0), 40)),
+            ("12 random images up to 300 a side",
+             jpeg.random_color_images(np.random.default_rng(1), 12, max_out=300)),
+            ("3 random images of rows too wide for a CTA, and a tall one",
+             jpeg.random_color_images(np.random.default_rng(2), 4, sizes=[
+                 (14001, 3), (9000, 2), (2, 2500), (5, 4)]))):
+        check_upsample_batch(label, planes, color, dev)
 
     # decode_batch (libjpeg's reduced scale from a 512 short side, then the
     # resize kernel) against jcf_tpu.native's committed output
@@ -3485,42 +3617,29 @@ def decode_phase(dev, smi) -> dict:
         if got != want:
             raise AssertionError(f"{label}: expected the launches {want}")
 
-    # the IDCT at a --perf decode_batch's shapes (128 images at libjpeg's
-    # scale for a 256 short side, one launch), then the upsample + color
-    # at the largest fixture's full-size decode (the parity path's shapes)
+    # the three kernels at a --perf decode_batch's shapes (128 images at
+    # libjpeg's scale for a 256 short side, one launch each, on inputs
+    # already on the card), eager (the JSON's ms) and in a CUDA graph
+    import torch.nn.functional as F
+
     ph = Phase()
     images = []
     for p in ood_image_paths(PERF_DECODE_BATCH):
         with open(p, "rb") as f:
             coef = jpeg.read_coefficients(f.read(), p)
-        images.append((coef, jpeg.geometry(coef, dec.native_scale(coef.width, coef.height, 256),
-                                           p)[2]))
-    layout = jpeg.idct_layout(images)
-    coefs_d = torch.cat([c.coefs for c, _ in images]).to(dev)
-    quant_d = torch.cat([c.quant for c, _ in images]).to(dev)
-    desc_d = torch.from_numpy(layout.desc).to(dev)
+        out_w, out_h, geo = jpeg.geometry(coef, dec.native_scale(coef.width, coef.height, 256), p)
+        images.append((coef, geo, out_w, out_h))
+    plan = jpeg.DecodePlan(images, dev)
+    layout = plan.idct
+    coefs_d, quant_d, desc_d, up_d = jpeg.stage(dev, plan.tables())
+    coefs_d, quant_d = coefs_d.view(-1, 64), quant_d.view(-1, 64)
+    desc_d, up_d = desc_d.view(-1, len(jpeg.DESC_FIELDS)), up_d.view(-1, len(jpeg.UP_FIELDS))
 
     def planes_of(out):
         return torch.cat([out[o:o + h * w] for mine in layout.planes for o, h, w in mine])
 
-    log(f"  jpeg_idct at a --perf decode_batch: {len(images)} images, {len(layout.desc)} "
-        f"components, {layout.blocks} blocks, {layout.ctas} CTAs, one launch")
-    ph.run("jpeg_idct", lambda: jpeg.idct_batch(coefs_d, quant_d, desc_d, layout),
-           lambda: jpeg.idct_batch_plain(coefs_d, quant_d, desc_d, layout.out_bytes),
-           lambda n, g, r: check_equal(n, planes_of(g), planes_of(r)), idct_batch_work(layout))
-    del coefs_d, quant_d, desc_d, images
-    path = max(fixture_paths(), key=os.path.getsize)
-    with open(path, "rb") as f:
-        coef = jpeg.read_coefficients(f.read(), path)
-    out_w, out_h, geo = jpeg.geometry(coef, 1)
-    log(f"  jpeg_upsample_color at {os.path.basename(path)} ({coef.width}x{coef.height})")
-    planes = jpeg.idct_images([(coef, geo)], dev)[0]
-    ph.run("jpeg_upsample_color",
-           lambda: jpeg.upsample_color(planes, geo, out_w, out_h, coef.ycc),
-           lambda: jpeg.upsample_color_plain(planes, geo, out_w, out_h, coef.ycc), check_equal,
-           bound(sum(p.width * p.height for p in geo) + out_w * out_h * 3,
-                 out_w * out_h * UPSAMPLE_COLOR_OPS, PEAK_INT32))
-    raw = dec.decode_file(path, dev)
+    def outputs_of(out):
+        return torch.cat([v.reshape(-1) for v in plan.up.views(out)])
 
     def check_resize(name, got, ref):
         d = (got.int() - ref.int()).abs()
@@ -3531,9 +3650,47 @@ def decode_phase(dev, smi) -> dict:
             raise AssertionError(f"{name}: kernel disagrees with its plain version")
         return float(d.max())
 
-    ph.run("resize_crop", lambda: dec.resize_crop(raw, 256, 256),
-           lambda: dec.resize_crop_plain(raw, 256, 256), check_resize,
-           bound(raw.numel() + 256 * 256 * 3, 0.0, PEAK_F32))
+    log(f"  jpeg_idct at a --perf decode_batch: {len(images)} images, {len(layout.desc)} "
+        f"components, {layout.blocks} blocks, {layout.ctas} CTAs, one launch")
+    ph.run("jpeg_idct", lambda: jpeg.idct_batch(coefs_d, quant_d, desc_d, layout),
+           lambda: jpeg.idct_batch_plain(coefs_d, quant_d, desc_d, layout.out_bytes),
+           lambda n, g, r: check_equal(n, planes_of(g), planes_of(r)), idct_batch_work(layout))
+    planes = jpeg.idct_batch(coefs_d, quant_d, desc_d, layout)
+    log(f"  jpeg_upsample_color at a --perf decode_batch: {len(images)} images, {plan.up.ctas} "
+        f"CTAs, one launch")
+    ph.run("jpeg_upsample_color", lambda: jpeg.upsample_color_batch(planes, up_d, plan.up,
+                                                                    plan.rgb),
+           lambda: jpeg.upsample_color_batch_plain(planes, up_d, plan.up.out_bytes),
+           lambda n, g, r: check_equal(n, outputs_of(g), outputs_of(r)), upsample_work(plan))
+    pixels = plan.outputs()
+    rs_layout = dec.resize_layout(pixels, 256, 256)
+    rs_d = torch.from_numpy(rs_layout.desc).to(dev)
+    # the yardstick: PyTorch's antialiased bilinear resize and the crop on
+    # the largest source repeated (another filter: the product-alone
+    # convention)
+    big = max(pixels, key=lambda t: t.numel())
+    sh, sw, _ = big.shape
+    rw, rh, left, top = dec._geometry(sw, sh, 256, 256)
+    x = big.permute(2, 0, 1).float()[None].expand(len(pixels), -1, -1, -1).contiguous()
+    log(f"  resize_crop at a --perf decode_batch: {len(pixels)} images to 256², {rs_layout.ctas} "
+        f"CTAs, one launch; library: F.interpolate(bilinear, antialias) + crop, {sw}x{sh} x "
+        f"{len(pixels)}")
+    ph.run("resize_crop", lambda: dec.resize_crop_batch(pixels, 256, 256, layout=rs_layout,
+                                                        desc=rs_d),
+           lambda: dec.resize_crop_batch_plain(pixels, 256, 256), check_resize,
+           resize_work(pixels, 256, 256),
+           library=lambda: F.interpolate(x, size=(rh, rw), mode="bilinear", antialias=True)[
+               :, :, top:top + 256, left:left + 256])
+    for name, fn in (("jpeg_idct", lambda: jpeg.idct_batch(coefs_d, quant_d, desc_d, layout)),
+                     ("jpeg_upsample_color",
+                      lambda: jpeg.upsample_color_batch(planes, up_d, plan.up, plan.rgb)),
+                     ("resize_crop", lambda: dec.resize_crop_batch(pixels, 256, 256,
+                                                                   layout=rs_layout, desc=rs_d))):
+        r = ph.results[name]
+        r["graph_ms"] = graph_ms(fn)
+        log(f"  {name}, {len(images)} images: eager {r['ms']:.4f} ms, in a CUDA graph "
+            f"{r['graph_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}): "
+            f"{r['bound_ms'] / r['graph_ms']:.3f} of it in a graph, on {smi}")
     return ph.results
 
 
@@ -3670,10 +3827,13 @@ def plain_serving():
 
     swaps = [(eng, "int8_gemm_s32", ig.int8_matmul_plain),
              (eng, "assemble_dense_rows", ak.assemble_dense_rows_plain),
-             (dec, "resize_crop", dec.resize_crop_plain),
+             (dec, "resize_crop_batch",
+              lambda srcs, resize_to, out, **_: dec.resize_crop_batch_plain(srcs, resize_to, out)),
              (jpeg, "idct_batch",
               lambda c, q, d, layout: jpeg.idct_batch_plain(c, q, d, layout.out_bytes)),
-             (jpeg, "upsample_color", jpeg.upsample_color_plain)]
+             (jpeg, "upsample_color_batch",
+              lambda p, d, layout, out: out.copy_(jpeg.upsample_color_batch_plain(
+                  p, d, layout.out_bytes)))]
     saved = [(m, k, getattr(m, k)) for m, k, _ in swaps]
     with plain_float(), plain_halves():
         for m, k, fn in swaps:

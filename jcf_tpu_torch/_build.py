@@ -58,8 +58,8 @@ SIGNATURES = {
     "jcf_int8_layers": [_I, *[_P] * 31, *[_I] * 8, _P],
     "jcf_block_float": [_I, *[_P] * 19, _I, _I, _I, _I, _I, _F, _P],
     "jcf_jpeg_idct": [_P, _P, _P, _I, ctypes.c_longlong, _P, _P],
-    "jcf_jpeg_upsample_color": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "jcf_resize_crop": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "jcf_jpeg_upsample_color": [_P, _P, _I, ctypes.c_longlong, _P, _P],
+    "jcf_resize_crop": [_P, _I, ctypes.c_longlong, _I, _P, _P],
     "jcf_copy_add_one": [_P, _P, ctypes.c_longlong, _P],
     "jcf_batched_dot_mma": [_P, _P, _P, _P, _I, _I, _P],
     "jcf_batched_dot_loop": [_P, _P, _P, _P, _I, _I, _P],

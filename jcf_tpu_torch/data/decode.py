@@ -11,12 +11,12 @@ byte-equal to ``np.asarray(Image.open(path).convert("RGB"))``.
 ``decode_batch`` decodes at the scale ``jcfnative.cpp:70-77`` picks (the
 largest d of 8, 4, 2 with short side / d >= ``resize_to``, else full size),
 so the decode equals libjpeg's inside ``jcf_tpu.native.decode_batch`` byte
-for byte; ``resize_crop`` then takes the short side to ``resize_to`` with
-the triangle filter of ``jcf_tpu/native/jcfnative.cpp`` (float weights,
-the same window and rounding) and crops the center, a CUDA kernel for CUDA
-tensors. Its f32 sums run in another order than the C++ loop's, so a
-value on a rounding tie may land one level off: that is the one
-difference left from ``jcf_tpu.native.decode_batch``.
+for byte; ``resize_crop_batch`` then takes each image's short side to
+``resize_to`` with the triangle filter of ``jcf_tpu/native/jcfnative.cpp``
+(float weights, the same window and rounding) and crops the center, one
+CUDA launch for the batch's CUDA tensors. Its f32 sums run in another
+order than the C++ loop's, so a value on a rounding tie may land one level
+off: that is the one difference left from ``jcf_tpu.native.decode_batch``.
 
 PNG (which ``walk_test_dir`` admits) decodes with ``zlib`` and numpy on
 every device: 8-bit, non-interlaced, gray, gray + alpha, RGB or RGBA
@@ -28,6 +28,7 @@ another decoder.
 
 from __future__ import annotations
 
+import dataclasses
 import struct
 import zlib
 
@@ -39,8 +40,8 @@ from jcf_tpu_torch.data import jpeg
 from jcf_tpu_torch.ops.quant import true_div
 
 # launches of the decoder's card work (CUDA tensors only): the IDCT and
-# upsample + color kernels of ``data.jpeg`` and the resize + crop kernel
-# pairs; the same dict as ``jpeg.LAUNCHES``
+# upsample + color kernels of ``data.jpeg`` and the resize + crop kernel;
+# the same dict as ``jpeg.LAUNCHES``
 LAUNCHES = jpeg.LAUNCHES
 
 _JPEG_MAGIC = b"\xff\xd8"
@@ -239,26 +240,117 @@ def resize_crop_plain(img: torch.Tensor, resize_to: int, out_size: int) -> torch
     return torch.floor(torch.clamp(acc + 0.5, 0.0, 255.0)).to(torch.uint8).contiguous()
 
 
-def resize_crop(img: torch.Tensor, resize_to: int, out_size: int) -> torch.Tensor:
-    """uint8 [H, W, C] (C = 1 or 3) -> uint8 [out, out, 3]: the short side
-    to ``resize_to`` with the triangle filter, then the center crop. The
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    if not img.is_cuda:
-        return resize_crop_plain(img, resize_to, out_size)
-    sh, sw, ch = img.shape
-    if img.dtype != torch.uint8 or ch not in (1, 3):
-        raise ValueError(f"resize_crop takes uint8 [H, W, 1 or 3], got {img.dtype} "
-                         f"{tuple(img.shape)}")
-    _geometry(sw, sh, resize_to, out_size)
-    img = img.contiguous()
-    tmp = torch.empty((sh, out_size, 3), dtype=torch.float32, device=img.device)
-    out = torch.empty((out_size, out_size, 3), dtype=torch.uint8, device=img.device)
-    err = _build.load().jcf_resize_crop(img.data_ptr(), sw, sh, ch, resize_to, out_size,
-                                        tmp.data_ptr(), out.data_ptr(),
-                                        _build.stream_ptr(img.device))
+# The batched resize + crop: one launch for every image of a call. A
+# descriptor an image (int64, ``RS_FIELDS``) gives its first CTA, the
+# source's device address, size and channels, the crop's corner, the two
+# scales (f32 bits, as ``jcf_resize_crop`` computed them), the output's
+# byte offset in [N, out, out, 3], the tile a CTA takes (``rows`` crop
+# rows, ``cols`` columns, ``spans`` spans a band) and the taps a window
+# holds at most. ``csrc/jpeg.cu`` holds at most ``RS_ROWS`` rows and
+# ``RS_SPAN`` columns a CTA, ``RS_WX`` column weights and ``RS_WY`` row
+# weights.
+
+RS_FIELDS = ("cta0", "src", "sw", "sh", "ch", "left", "top", "sx", "sy", "offset", "rows", "cols",
+             "spans", "tx", "ty")
+RS_ROWS, RS_SPAN, RS_WX, RS_WY = 16, 256, 4096, 1024
+
+
+@dataclasses.dataclass
+class ResizeLayout:
+    """A batch's resize: ``desc`` int64 [images, 15] (the kernel's table)
+    and the CTAs in all."""
+    desc: np.ndarray
+    ctas: int
+
+
+def _f32_bits(x: np.float32) -> int:
+    return int(np.float32(x).view(np.int32))
+
+
+def _taps(scale: np.float32) -> int:
+    """The taps a window of this scale holds at most: hi - lo <= 2 *
+    support + 2 (floor and ceil), plus one to spare."""
+    return int(2.0 * float(max(scale, np.float32(1.0)))) + 4
+
+
+def resize_layout(sources, resize_to: int, out_size: int) -> ResizeLayout:
+    """The descriptor table of ``sources`` (uint8 [H, W, 1 or 3] tensors,
+    read at their ``data_ptr``), image i's output at [i] of [N, out, out,
+    3]. Each image's tile: the most rows a band (up to ``RS_ROWS``) whose
+    row weights fit ``RS_WY``, spans of equal width (up to ``RS_SPAN``)
+    whose column weights fit ``RS_WX``."""
+    rows, cta = [], 0
+    for i, img in enumerate(sources):
+        if (img.dtype != torch.uint8 or img.dim() != 3 or img.shape[2] not in (1, 3)
+                or not img.is_contiguous()):
+            raise ValueError(f"resize_crop takes contiguous uint8 [H, W, 1 or 3], got {img.dtype} "
+                             f"{tuple(img.shape)}")
+        sh, sw, ch = img.shape
+        rw, rh, left, top = _geometry(sw, sh, resize_to, out_size)
+        sx, sy = np.float32(sw) / np.float32(rw), np.float32(sh) / np.float32(rh)
+        tx, ty = _taps(sx), _taps(sy)
+        if tx > RS_WX or ty > RS_WY:
+            raise ValueError(f"resize_crop: a {sw}x{sh} source to a short side of {resize_to} "
+                             f"takes windows of {tx} x {ty} taps; the kernel holds {RS_WX} x "
+                             f"{RS_WY}")
+        band = min(RS_ROWS, RS_WY // ty)
+        cols = -(-out_size // -(-out_size // min(RS_SPAN, RS_WX // tx)))
+        spans = -(-out_size // cols)
+        rows.append((cta, img.data_ptr(), sw, sh, ch, left, top, _f32_bits(sx), _f32_bits(sy),
+                     i * out_size * out_size * 3, band, cols, spans, tx, ty))
+        cta += -(-out_size // band) * spans
+    return ResizeLayout(np.array(rows, np.int64).reshape(-1, len(RS_FIELDS)), cta)
+
+
+def resize_crop_batch_plain(sources, resize_to: int, out_size: int) -> torch.Tensor:
+    """Plain version of ``resize_crop_batch``: ``resize_crop_plain`` image
+    by image -> uint8 [N, out, out, 3]."""
+    dev = sources[0].device if sources else "cpu"
+    out = torch.empty((len(sources), out_size, out_size, 3), dtype=torch.uint8, device=dev)
+    for i, img in enumerate(sources):
+        out[i] = resize_crop_plain(img, resize_to, out_size)
+    return out
+
+
+def resize_crop_batch(sources, resize_to: int, out_size: int, *,
+                      layout: ResizeLayout | None = None,
+                      desc: torch.Tensor | None = None) -> torch.Tensor:
+    """uint8 [H, W, C] images (C = 1 or 3, sizes mixed) -> uint8 [N, out,
+    out, 3]: each short side to ``resize_to`` with the triangle filter,
+    then the center crop. For CUDA tensors one ``resize_crop`` launch over
+    ``resize_layout(sources, ...)``'s table (``layout`` and ``desc``, its
+    copy on the card, where the caller staged them; else made and copied
+    here); the plain version for CPU tensors."""
+    if not sources or not sources[0].is_cuda:
+        return resize_crop_batch_plain(sources, resize_to, out_size)
+    dev = sources[0].device
+    if any(img.device != dev for img in sources):
+        raise ValueError("resize_crop_batch takes sources on one device")
+    if layout is None:
+        layout = resize_layout(sources, resize_to, out_size)
+        desc = jpeg.stage(dev, [[torch.from_numpy(layout.desc)]])[0]
+    n = len(sources)
+    desc = desc.view(-1, len(RS_FIELDS))
+    if (desc.dtype != torch.int64 or desc.shape[0] != n or len(layout.desc) != n
+            or desc.device != dev):
+        raise ValueError(f"resize_crop_batch takes int64 [{n}, {len(RS_FIELDS)}] descriptors on "
+                         f"the sources' device")
+    out = torch.empty((n, out_size, out_size, 3), dtype=torch.uint8, device=dev)
+    err = _build.load().jcf_resize_crop(desc.data_ptr(), n, layout.ctas, out_size, out.data_ptr(),
+                                        _build.stream_ptr(dev))
     _build.check(err, "resize_crop")
     jpeg.count("resize_crop")
     return out
+
+
+def resize_crop(img: torch.Tensor, resize_to: int, out_size: int) -> torch.Tensor:
+    """uint8 [H, W, C] (C = 1 or 3) -> uint8 [out, out, 3]: the short side
+    to ``resize_to`` with the triangle filter, then the center crop. For
+    CUDA tensors ``resize_crop_batch``'s launch over a table of one; the
+    plain version for CPU tensors."""
+    if not img.is_cuda:
+        return resize_crop_plain(img, resize_to, out_size)
+    return resize_crop_batch([img.contiguous()], resize_to, out_size)[0]
 
 
 def decode_batch(paths, resize_to: int = 256, out_size: int = 256, *, device="cuda",
@@ -272,16 +364,17 @@ def decode_batch(paths, resize_to: int = 256, out_size: int = 256, *, device="cu
     Every file's Huffman decoding runs first, on the host, in turn (a pool
     of decoding threads ran slower on the card's host, their per-image
     Python work contending for the interpreter lock with each other and
-    with the serving thread's launches); then one IDCT over every JPEG's
-    components (``data.jpeg.idct_images``: one pinned buffer, one copy,
-    one launch), and per image the upsampling and color conversion on its
-    planes and the resize + crop, on the thread's decode stream. A PNG
-    decodes on the host at full size."""
+    with the serving thread's launches); a PNG decodes on the host at full
+    size and is copied on its own. Then, on the thread's decode stream, one
+    pinned buffer and one copy carry the coefficients, the quantization
+    tables and the three descriptor tables, and three launches serve every
+    image: the IDCT, the upsample + color (``data.jpeg.DecodePlan``) and
+    the resize + crop, straight into the batch's output."""
     device = torch.device(device)
     if not paths:
         out = torch.empty((0, out_size, out_size, 3), dtype=torch.uint8, device=device)
     else:
-        jpegs, sources = [], []  # sources: (JPEG index, out_w, out_h) or a PNG's pixels
+        jpegs, sources = [], []  # sources: a JPEG's index in jpegs, or a PNG's pixels
         for path in paths:
             data, is_jpeg = _sniff(path)
             if not is_jpeg:
@@ -290,21 +383,22 @@ def decode_batch(paths, resize_to: int = 256, out_size: int = 256, *, device="cu
             coef = jpeg.read_coefficients(data, path)
             out_w, out_h, geo = jpeg.geometry(
                 coef, native_scale(coef.width, coef.height, resize_to), path)
-            sources.append((len(jpegs), out_w, out_h))
-            jpegs.append((coef, geo))
+            sources.append(len(jpegs))
+            jpegs.append((coef, geo, out_w, out_h))
 
         def stages():
-            planes = jpeg.idct_images(jpegs, device) if jpegs else []
-            images = []
-            for src in sources:
-                if isinstance(src, tuple):
-                    i, out_w, out_h = src
-                    coef, geo = jpegs[i]
-                    img = jpeg.upsample_color(planes[i], geo, out_w, out_h, coef.ycc)
-                else:
-                    img = src.to(device)
-                images.append(resize_crop(img, resize_to, out_size))
-            return torch.stack(images)
+            plan = jpeg.DecodePlan(jpegs, device) if jpegs else None
+            pixels = plan.outputs() if plan else []
+            srcs = [pixels[s] if isinstance(s, int) else s.to(device) for s in sources]
+            # the resize's table only for the kernel (the plain version takes any geometry)
+            layout = resize_layout(srcs, resize_to, out_size) if device.type == "cuda" else None
+            tables = (plan.tables() if plan else []) + (
+                [[torch.from_numpy(layout.desc)]] if layout else [])
+            staged = jpeg.stage(device, tables)
+            if plan:
+                plan.run(staged[:4])
+            return resize_crop_batch(srcs, resize_to, out_size, layout=layout,
+                                     desc=staged[-1] if layout else None)
 
         out = jpeg.on_decode_stream(device, stages)
     if uint8:

@@ -10,18 +10,18 @@ Three stages:
    sampling factors and block grid. A JPEG it does not take (arithmetic
    coding, lossless, 12-bit, 2 or 4 components, truncated or corrupt data)
    raises ``ValueError`` naming the file.
-2. ``idct_images``: dequantization and libjpeg's integer IDCT of each
+2. ``idct_batch``: dequantization and libjpeg's integer IDCT of each
    block of every component of a decode call into its uint8 plane:
    ``jpeg_idct_islow`` (``jidctint.c``) for 8 x 8 output, the reduced
    ``jpeg_idct_4x4`` / ``_2x2`` / ``_1x1`` (``jidctred.c``) for 4, 2 and
    1, as libjpeg-turbo's x86 SIMD code
    computes them (see below: the C's integers for any encoder's output,
    the SIMD's 16-bit arithmetic on crafted coefficients).
-3. ``upsample_color``: each component to the output size (``jdsample.c``:
-   the triangle "fancy" upsamplers h2v1, h1v2 and h2v2 with edge columns
-   and rows replicated, where they apply, else box replication) and
-   YCbCr -> RGB with ``jdcolor.c``'s 16-bit fixed-point tables; uint8
-   [H, W, 3], or [H, W, 1] for a grayscale JPEG.
+3. ``upsample_color_batch``: each component to the output size
+   (``jdsample.c``: the triangle "fancy" upsamplers h2v1, h1v2 and h2v2
+   with edge columns and rows replicated, where they apply, else box
+   replication) and YCbCr -> RGB with ``jdcolor.c``'s 16-bit fixed-point
+   tables; uint8 [H, W, 3], or [H, W, 1] for a grayscale JPEG.
 
 ``decode_jpeg(data, device, scale_denom=d)`` decodes at 1/d scale (d in
 1, 2, 4, 8) as libjpeg does with ``scale_denom`` d (``jdmaster.c``): the
@@ -34,13 +34,15 @@ component is more than 2 samples wide.
 
 Stages 2 and 3 are CUDA kernels (``csrc/jpeg.cu``) for tensors on the card
 and their plain versions (``idct_batch_plain`` on ``idct_plain``,
-``upsample_color_plain``: integer torch, the 16- and 32-bit wraps written
-out) for tensors on the CPU; both compute the same integers, so the card's
-pixels equal the CPU's bit for bit. Stage 2 runs once for a whole decode
-call (``idct_images``: one image in ``decode_coefficients``, every JPEG of
-a ``data.decode.decode_batch``): one pinned host buffer, one copy and one
-``jpeg_idct`` launch. Each kernel wrapper counts its launches in
-``LAUNCHES``.
+``upsample_color_batch_plain`` on ``upsample_color_plain``: integer torch,
+the 16- and 32-bit wraps written out) for tensors on the CPU; both compute
+the same integers, so the card's pixels equal the CPU's bit for bit. Each
+runs once for a whole decode call (``DecodePlan``: one image in
+``decode_coefficients``, every JPEG of a ``data.decode.decode_batch``),
+over descriptor tables (``idct_layout``, ``upsample_layout``) that ride
+with the coefficients in one pinned host buffer and one copy (``stage``):
+one ``jpeg_idct`` and one ``jpeg_upsample_color`` launch a call. Each
+kernel wrapper counts its launches in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -339,6 +341,25 @@ class IdctLayout:
     out_bytes: int
     planes: List[List[Tuple[int, int, int]]]
 
+    def tables(self, images) -> list:
+        """The IDCT's inputs for ``images`` (this layout's argument) as
+        ``stage`` takes them: the coefficients, the quantization tables and
+        the descriptors."""
+        return [[coef.coefs for coef, *_ in images], [coef.quant for coef, *_ in images],
+                [torch.from_numpy(self.desc)]]
+
+    def run(self, staged) -> torch.Tensor:
+        """``idct_batch`` on ``tables``' parts as ``stage`` put them on a
+        device -> the packed uint8 planes."""
+        coefs, quant, desc = staged
+        return idct_batch(coefs.view(-1, 64), quant.view(-1, 64),
+                          desc.view(-1, len(DESC_FIELDS)), self)
+
+    def views(self, out: torch.Tensor) -> List[List[torch.Tensor]]:
+        """Per image its uint8 [height, width] planes in the packed
+        ``out``."""
+        return [[out[o:o + h * w].view(h, w) for o, h, w in mine] for mine in self.planes]
+
 
 def idct_layout(images) -> IdctLayout:
     """The descriptor table of ``images``, a sequence of (``Coefficients``,
@@ -417,46 +438,36 @@ def _pinned(nbytes: int) -> torch.Tensor:
     return buf
 
 
-def idct_images(images, device) -> List[List[torch.Tensor]]:
-    """Stage 2 of a batch of images (``idct_layout``'s argument) on
-    ``device`` -> per image its uint8 planes (views of one packed output).
-    On the card the coefficients, tables and descriptors go into one
-    pinned host buffer, one copy and one ``jpeg_idct`` launch on the
-    current stream."""
+def stage(device, parts) -> List[torch.Tensor]:
+    """``parts``: lists of CPU tensors, one dtype a list -> per list its
+    tensors flattened and concatenated on ``device``. On the card every
+    part goes into the calling thread's pinned host buffer (each part
+    16-byte aligned), then one copy on the current stream."""
     device = torch.device(device)
-    layout = idct_layout(images)
-    n = len(layout.desc)
-    if not n:
-        return []
-    if device.type == "cuda":
-        nc, nq = layout.blocks * 128, n * 256
-        staged = _pinned(nc + nq + n * 64)
-        blk = t = 0
-        coefs = staged[:nc].view(torch.int16).view(-1, 64)
-        quant = staged[nc:nc + nq].view(torch.int32).view(-1, 64)
-        for coef, _ in images:
-            coefs[blk:blk + coef.coefs.shape[0]].copy_(coef.coefs)
-            quant[t:t + coef.quant.shape[0]].copy_(coef.quant)
-            blk, t = blk + coef.coefs.shape[0], t + coef.quant.shape[0]
-        staged[nc + nq:nc + nq + n * 64].view(torch.int64).copy_(
-            torch.from_numpy(layout.desc).view(-1))
-        packed = torch.empty(nc + nq + n * 64, dtype=torch.uint8, device=device)
-        packed.copy_(staged[:packed.numel()], non_blocking=True)
-        _local.pinned_done = torch.cuda.Event()
-        _local.pinned_done.record()
-        out = idct_batch(packed[:nc].view(torch.int16).view(-1, 64),
-                         packed[nc:nc + nq].view(torch.int32).view(-1, 64),
-                         packed[nc + nq:].view(torch.int64).view(n, len(DESC_FIELDS)), layout)
-    else:
-        coefs = torch.cat([coef.coefs for coef, _ in images]).to(device)
-        quant = torch.cat([coef.quant for coef, _ in images]).to(device)
-        out = idct_batch(coefs, quant, torch.from_numpy(layout.desc).to(device), layout)
-    return [[out[off:off + h * w].view(h, w) for off, h, w in mine] for mine in layout.planes]
+    flat = [[t.reshape(-1) for t in part] for part in parts]
+    if device.type != "cuda":
+        return [torch.cat(part).to(device) for part in flat]
+    spots, at = [], 0
+    for part in flat:
+        nbytes = sum(t.numel() * t.element_size() for t in part)
+        spots.append((at, nbytes, part[0].dtype))
+        at += _ceil_div(nbytes, 16) * 16
+    staged = _pinned(at)
+    for (off, nbytes, dtype), part in zip(spots, flat):
+        view, i = staged[off:off + nbytes].view(dtype), 0
+        for t in part:
+            view[i:i + t.numel()].copy_(t)
+            i += t.numel()
+    packed = torch.empty(at, dtype=torch.uint8, device=device)
+    packed.copy_(staged[:at], non_blocking=True)
+    _local.pinned_done = torch.cuda.Event()
+    _local.pinned_done.record()
+    return [packed[off:off + nbytes].view(dtype) for off, nbytes, dtype in spots]
 
 
 def random_idct_images(rng: np.random.Generator, n: int, *, max_bw: int = 300,
                        table: int = 65535) -> list:
-    """``n`` images of random content in ``idct_images``' form, to hold
+    """``n`` images of random content in ``idct_layout``'s form, to hold
     the IDCT against its plain version past what real files reach: 1 or 3
     components, each a grid of 1 to ``max_bw`` blocks a row and 1 to 8
     rows (so ranges end mid-CTA) at a random IDCT size (sizes mixed within
@@ -532,7 +543,11 @@ def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor) -> torch.Ten
 
 def upsample_color_plain(planes: List[torch.Tensor], geo: List[Plane], out_w: int, out_h: int,
                          ycc: bool) -> torch.Tensor:
-    """Plain version of ``upsample_color``, in int32."""
+    """The IDCT's planes of one image (uint8, one per component) -> uint8
+    [out_h, out_w, 3] (or [out_h, out_w, 1] for one component): each plane
+    upsampled by its ``Plane``'s method, then YCbCr -> RGB where ``ycc``; in
+    int32, image by image (the plain version of ``upsample_color_batch``'s
+    work for one image)."""
     full = [_upsample_plain(img, p, out_w, out_h) for img, p in zip(planes, geo)]
     if len(full) == 1:
         out = full[0].unsqueeze(-1)
@@ -543,34 +558,181 @@ def upsample_color_plain(planes: List[torch.Tensor], geo: List[Plane], out_w: in
     return out.to(torch.uint8)
 
 
-def upsample_color(planes: List[torch.Tensor], geo: List[Plane], out_w: int, out_h: int,
-                   ycc: bool) -> torch.Tensor:
-    """The IDCT's planes (uint8, one per component) -> uint8 [out_h,
-    out_w, 3] (or [out_h, out_w, 1] for one component): each plane
-    upsampled by its ``Plane``'s method, then YCbCr -> RGB where ``ycc``.
-    The ``jpeg_upsample_color`` kernel for CUDA tensors, the plain version
-    for CPU tensors."""
-    if len(planes) not in (1, 3) or len(geo) != len(planes):
-        raise ValueError(f"upsample_color takes 1 or 3 planes, got {len(planes)}")
-    if not planes[0].is_cuda:
-        return upsample_color_plain(planes, geo, out_w, out_h, ycc)
-    dev = planes[0].device
-    for img, p in zip(planes, geo):
-        if (img.dtype != torch.uint8 or img.device != dev or not img.is_contiguous()
-                or img.shape[0] < p.height or img.shape[1] < p.width):
-            raise ValueError(f"upsample_color: plane {img.dtype} {tuple(img.shape)} on "
-                             f"{img.device} does not hold {p}")
-    n = len(planes)
-    out = torch.empty((out_h, out_w, n), dtype=torch.uint8, device=dev)
-    ptrs = [img.data_ptr() for img in planes] + [0] * (3 - n)
-    desc = np.zeros((3, 6), np.int32)  # per plane: stride, width, height, fx, fy, method
-    for i, (img, p) in enumerate(zip(planes, geo)):
-        desc[i] = (img.shape[1], p.width, p.height, p.fx, p.fy, p.method)
-    err = _build.load().jcf_jpeg_upsample_color(*ptrs, desc.ctypes.data, n, int(ycc), out_w,
-                                                out_h, out.data_ptr(), _build.stream_ptr(dev))
+# The batched upsample + color conversion: one launch for every image of a
+# decode call. A descriptor an image (int64, ``UP_FIELDS``) gives its first
+# CTA, its output's byte offset (16-byte aligned), size, components and
+# YCbCr flag, the tile a CTA takes, and per plane its byte offset from the
+# planes' base (the IDCT's packed output), row stride, size, factors and
+# method. A CTA takes ``rows`` output rows of one image, whole rows where
+# ``rows`` of them fit its shared memory (``UP_SMEM``), else one row in
+# segments of ``cols`` columns; ``rows`` is capped so that a call's rows
+# make at least about ``UP_CTAS`` CTAs (one large image alone, as on the
+# parity path, would otherwise fill a fraction of the card).
+
+UP_FIELDS = ("cta0", "offset", "out_w", "out_h", "n", "ycc", "rows", "cols") + tuple(
+    f"{k}{i}" for i in range(3) for k in ("offset", "stride", "width", "height", "fx", "fy",
+                                          "method"))
+UP_SMEM = 40 * 1024  # a tile's staged output and planes (csrc/jpeg.cu)
+UP_CTAS = 4 * 132  # 4 CTAs a multiprocessor of an H100 SXM
+_FACTORS = {1: (2, 1), 2: (1, 2), 3: (2, 2)}  # a fancy method's (fx, fy)
+
+
+@dataclasses.dataclass
+class UpsampleLayout:
+    """Where a batch's images go: ``desc`` int64 [images, 29] (the
+    kernel's table), the CTAs in all, the packed output's bytes, and per
+    image its output's (offset, out_h, out_w, components)."""
+    desc: np.ndarray
+    ctas: int
+    out_bytes: int
+    outputs: List[Tuple[int, int, int, int]]
+
+    def views(self, out: torch.Tensor) -> List[torch.Tensor]:
+        """Each image's uint8 [out_h, out_w, components] in the packed
+        ``out``."""
+        return [out[o:o + h * w * n].view(h, w, n) for o, h, w, n in self.outputs]
+
+
+def _tile_bytes(rows: int, cols: int, n: int, geo: List[Plane]) -> int:
+    """A tile's shared memory at most (``csrc/jpeg.cu``: the staged output
+    with 16 bytes of room for its alignment, then per plane
+    ``staged_rows`` x ``staged_pitch``)."""
+    total = _ceil_div(rows * cols * n + 15, 16) * 16
+    for p in geo:
+        h2, v2 = p.method & 1, 2 if p.method >= 2 else 0
+        pitch = ((cols - 1) // p.fx + 2 + 2 * h2 + 30) // 16 * 16
+        total += ((rows - 1) // p.fy + 2 + v2) * pitch
+    return total
+
+
+def _largest(lo: int, hi: int, fits) -> int:
+    """The largest k in [lo, hi] with ``fits(k)``, given ``fits(lo)``."""
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo
+
+
+def _tile(out_w: int, out_h: int, n: int, geo: List[Plane], band: int) -> Tuple[int, int]:
+    """(rows, cols) of an image's tiles: the most whole rows, up to
+    ``band``, that fit ``UP_SMEM``, else one row and the widest segment
+    that fits."""
+    if _tile_bytes(1, out_w, n, geo) <= UP_SMEM:
+        most = min(out_h, band)
+        return _largest(1, most, lambda r: _tile_bytes(r, out_w, n, geo) <= UP_SMEM), out_w
+    return 1, _largest(1, out_w, lambda c: _tile_bytes(1, c, n, geo) <= UP_SMEM)
+
+
+def upsample_layout(images) -> UpsampleLayout:
+    """The descriptor table of ``images``: per image (planes, out_w,
+    out_h, ycc), planes one or three (byte offset, row stride, ``Plane``)
+    from the planes' base. Each output starts on a 16-byte boundary; a
+    tile takes at most ceil(the images' rows / ``UP_CTAS``) rows."""
+    images = list(images)
+    band = max(1, _ceil_div(sum(out_h for _, _, out_h, _ in images), UP_CTAS))
+    rows, outputs, cta, off = [], [], 0, 0
+    for planes, out_w, out_h, ycc in images:
+        n = len(planes)
+        geo = [p for _, _, p in planes]
+        if n not in (1, 3) or out_w < 1 or out_h < 1:
+            raise ValueError(f"upsample_layout takes 1 or 3 planes to a non-empty output, got {n} "
+                             f"planes to {out_w}x{out_h}")
+        for _, stride, p in planes:
+            if (p.width < 1 or p.height < 1 or p.fx < 1 or p.fy < 1 or stride < p.width
+                    or _FACTORS.get(p.method, (p.fx, p.fy)) != (p.fx, p.fy)):
+                raise ValueError(f"upsample_layout: plane {p} with row stride {stride}")
+        t_rows, t_cols = _tile(out_w, out_h, n, geo, band)
+        fields = [cta, off, out_w, out_h, n, int(ycc), t_rows, t_cols]
+        for i in range(3):
+            o, stride, p = planes[i] if i < n else (0, 0, Plane(0, 0, 0, 0, 0, 0))
+            fields += [o, stride, p.width, p.height, p.fx, p.fy, p.method]
+        rows.append(fields)
+        outputs.append((off, out_h, out_w, n))
+        cta += _ceil_div(out_h, t_rows)
+        off += _ceil_div(out_h * out_w * n, 16) * 16
+    desc = np.array(rows, np.int64).reshape(-1, len(UP_FIELDS))
+    return UpsampleLayout(desc, cta, off, outputs)
+
+
+def upsample_color_batch_plain(planes: torch.Tensor, desc: torch.Tensor,
+                               out_bytes: int) -> torch.Tensor:
+    """Plain version of ``upsample_color_batch``: each descriptor's image
+    through ``upsample_color_plain`` into its place in a zeroed uint8
+    [out_bytes]."""
+    out = torch.zeros(out_bytes, dtype=torch.uint8, device=planes.device)
+    for row in desc.tolist():
+        _, off, out_w, out_h, n, ycc = row[:6]
+        views, geo = [], []
+        for i in range(n):
+            o, stride, width, height, fx, fy, method = row[8 + 7 * i:15 + 7 * i]
+            views.append(planes[o:o + height * stride].view(height, stride))
+            geo.append(Plane(0, width, height, fx, fy, method))
+        img = upsample_color_plain(views, geo, out_w, out_h, bool(ycc))
+        out[off:off + img.numel()] = img.view(-1)
+    return out
+
+
+def upsample_color_batch(planes: torch.Tensor, desc: torch.Tensor, layout: UpsampleLayout,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
+    """Upsample and color-convert every image that ``desc`` (``layout.desc``
+    on the planes' device) lists: the IDCT's packed uint8 planes -> the
+    packed uint8 outputs [layout.out_bytes] (into ``out`` where given). One
+    ``jpeg_upsample_color`` launch for CUDA tensors, the plain version for
+    CPU tensors."""
+    if not planes.is_cuda:
+        got = upsample_color_batch_plain(planes, desc, layout.out_bytes)
+        return got if out is None else out.copy_(got)
+    if planes.dtype != torch.uint8 or planes.dim() != 1:
+        raise ValueError(f"upsample_color_batch takes the packed uint8 planes, got {planes.dtype} "
+                         f"{tuple(planes.shape)}")
+    if out is None:
+        out = torch.empty(layout.out_bytes, dtype=torch.uint8, device=planes.device)
+    n = len(layout.desc)
+    if (desc.dtype != torch.int64 or tuple(desc.shape) != (n, len(UP_FIELDS)) or n < 1
+            or not desc.is_contiguous() or desc.device != planes.device
+            or out.device != planes.device
+            or out.dtype != torch.uint8 or out.numel() < layout.out_bytes or out.data_ptr() % 16):
+        raise ValueError(f"upsample_color_batch takes int64 [{n}, {len(UP_FIELDS)}] descriptors "
+                         f"and a 16-byte aligned uint8 output of {layout.out_bytes} bytes on the "
+                         f"planes' device")
+    err = _build.load().jcf_jpeg_upsample_color(planes.data_ptr(), desc.data_ptr(), n, layout.ctas,
+                                                out.data_ptr(), _build.stream_ptr(out.device))
     _build.check(err, "jpeg_upsample_color")
     count("jpeg_upsample_color")
     return out
+
+
+def random_color_images(rng: np.random.Generator, n: int, *, max_out: int = 40,
+                        sizes=None):
+    """``n`` images of random planes, to hold the upsample against its
+    plain version past what real files reach -> (packed uint8 planes, the
+    images in ``upsample_layout``'s form). 1 or 3 planes, each by a random
+    method (box replication at factors 1, 2 or 4 a side, or a fancy one),
+    of the size the output calls for or 1 to 3 samples a side, in rows of
+    a random stride at a random (unaligned) offset; outputs of 1 to
+    ``max_out`` a side (or the (out_w, out_h) of ``sizes`` in turn), RGB
+    or YCbCr."""
+    chunks, images, at = [], [], 0
+    for i in range(n):
+        out_w, out_h = (int(v) for v in (rng.integers(1, max_out + 1, 2) if sizes is None
+                                         else sizes[i]))
+        planes = []
+        for _ in range(int(rng.choice([1, 3]))):
+            method = int(rng.integers(0, 4))
+            fx, fy = _FACTORS.get(method, (int(rng.choice([1, 2, 4])), int(rng.choice([1, 2, 4]))))
+            small = rng.random() < 0.3
+            width = int(rng.integers(1, 4)) if small else _ceil_div(out_w, fx)
+            height = int(rng.integers(1, 4)) if small else _ceil_div(out_h, fy)
+            stride = width + int(rng.integers(0, 20))
+            at += int(rng.integers(0, 16))
+            chunks.append((at, rng.integers(0, 256, height * stride, np.uint8)))
+            planes.append((at, stride, Plane(0, width, height, fx, fy, method)))
+            at += height * stride
+        images.append((planes, out_w, out_h, len(planes) == 3 and bool(rng.random() < 0.7)))
+    packed = np.zeros(at + 16, np.uint8)
+    for off, data in chunks:
+        packed[off:off + data.size] = data
+    return torch.from_numpy(packed), images
 
 
 # ---------------------------------------------------------------------------
@@ -603,14 +765,49 @@ def on_decode_stream(device, fn):
     return out
 
 
+class DecodePlan:
+    """Stages 2 and 3 of a decode call: ``images`` per JPEG (coefficients,
+    geometry planes, out_w, out_h). ``tables()`` are the CPU tensors the
+    two kernels read (the coefficients, the quantization tables, the IDCT's
+    and the upsample's descriptors: ``stage``'s parts), ``run(staged)``
+    launches the IDCT and the upsample on them, and ``outputs()`` are each
+    image's uint8 [out_h, out_w, C], views of ``rgb``: allocated here, so
+    that a table staged in the same copy may hold their addresses."""
+
+    def __init__(self, images, device):
+        self.images = images
+        self.idct = idct_layout([(coef, geo) for coef, geo, _, _ in images])
+        # upsample_layout's images: the planes at their offsets in the IDCT's output
+        self.color = [([(off, w, p) for (off, _, w), p in zip(planes, geo)], out_w, out_h, coef.ycc)
+                      for planes, (coef, geo, out_w, out_h) in zip(self.idct.planes, images)]
+        self.up = upsample_layout(self.color)
+        self.rgb = torch.empty(self.up.out_bytes, dtype=torch.uint8, device=device)
+
+    def tables(self) -> list:
+        return self.idct.tables(self.images) + [[torch.from_numpy(self.up.desc)]]
+
+    def outputs(self) -> List[torch.Tensor]:
+        return self.up.views(self.rgb)
+
+    def run(self, staged) -> List[torch.Tensor]:
+        planes = self.idct.run(staged[:3])
+        upsample_color_batch(planes, staged[3].view(-1, len(UP_FIELDS)), self.up, self.rgb)
+        return self.outputs()
+
+
 def decode_coefficients(coef: Coefficients, device, scale_denom: int = 1,
                         name: str = "<bytes>") -> torch.Tensor:
     """Stages 2 and 3 on ``device``: uint8 [ceil(H / d), ceil(W / d), C]
-    (C = 3, or 1 for a grayscale JPEG); one IDCT launch for all the
-    components, on the thread's decode stream (``on_decode_stream``)."""
+    (C = 3, or 1 for a grayscale JPEG); one copy, one IDCT launch for all
+    the components and one upsample launch, on the thread's decode stream
+    (``on_decode_stream``)."""
     out_w, out_h, geo = geometry(coef, scale_denom, name)
-    return on_decode_stream(device, lambda: upsample_color(
-        idct_images([(coef, geo)], device)[0], geo, out_w, out_h, coef.ycc))
+
+    def stages():
+        plan = DecodePlan([(coef, geo, out_w, out_h)], device)
+        return plan.run(stage(device, plan.tables()))[0]
+
+    return on_decode_stream(device, stages)
 
 
 def decode_jpeg(data: bytes, device="cuda", *, scale_denom: int = 1,

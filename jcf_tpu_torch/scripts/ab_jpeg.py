@@ -14,24 +14,28 @@ the same card in turns: A, B, B, A.
 Two inputs from ``tests/fixtures/jpeg``: the largest fixture at full size
 (the parity path's decode of one file), and a ``--perf`` decode_batch:
 ``--images`` (128) of the six fixtures in turn at libjpeg's scale for a
-256 short side (``data.decode.native_scale``). For each, per decode call:
-- ``jpeg_idct``: every component of every image, as the checkout's decode
-  call launches it: one launch of the batched kernel where the checkout
-  has ``idct_batch``, else one launch a component (``idct``); the
-  coefficients, tables and descriptors are on the card before the timing;
-- ``jpeg_upsample_color``: each image's planes to its pixels, one launch
-  an image;
-- ``resize_crop`` (the batch only): each image to 256², one launch an
-  image;
+256 short side (``data.decode.native_scale``). For each, per decode call,
+as the checkout's decode call launches it, on inputs already on the card:
+- ``jpeg_idct``: every component of every image: one launch of the
+  batched kernel where the checkout has ``idct_batch``, else one launch a
+  component (``idct``);
+- ``jpeg_upsample_color``: every image's planes to its pixels: one launch
+  over a ``DecodePlan``'s table where the checkout has
+  ``upsample_color_batch``, else one launch an image;
+- ``resize_crop`` (the batch only): every image to 256²: one launch where
+  the checkout has ``resize_crop_batch``, else one launch (of two
+  kernels) an image;
 - the whole ``decode_batch`` (the batch only; eager, the host's Huffman
-  decoding included).
+  decoding included), timed at 256² and hashed at 256², 224² from 256 and
+  288².
 Each line prints the median, min and max ms per call over ``--rounds``
 rounds of ``--reps`` calls (CUDA events; on the CPU the host clock, where
 the wrappers run their plain versions), on the card the median of
 ``--reps`` calls captured in one CUDA graph (the device time without the
 wrappers' host time), the launches a call, the bytes bound at 3.35 TB/s
-(each input byte read once, each output byte written once) and the
-SHA-256 of the output's bytes plane by plane, which two checkouts that
+(each input byte read once, each output byte written once; the resize's
+input: the source rows and columns that the crop's windows reach) and the
+SHA-256 of the output's bytes image by image, which two checkouts that
 compute the same bits share.
 """
 
@@ -44,6 +48,8 @@ import os
 import statistics
 import sys
 import time
+
+import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
@@ -87,6 +93,19 @@ def eager_ms(call, device, rounds: int, reps: int) -> list:
                 call()
             times.append((time.perf_counter() - t0) / reps * 1e3)
     return times
+
+
+def reached_bytes(dec, img) -> int:
+    """The bytes of ``img`` (uint8 [H, W, C]) that an ``OUT``² crop of its
+    resize to an ``OUT`` short side reads: the rows and columns of nonzero
+    weight, as ``resize_crop_plain`` slices them."""
+    sh, sw, ch = img.shape
+    rw, rh, left, top = dec._geometry(sw, sh, OUT, OUT)
+    spans = []
+    for size, resized, first in ((sh, rh, top), (sw, rw, left)):
+        hit = np.nonzero(dec._triangle_weights(size, resized, first, OUT).any(axis=0))[0]
+        spans.append(int(hit[-1]) + 1 - int(hit[0]))
+    return spans[0] * spans[1] * ch
 
 
 def idct_call(jpeg, images, device):
@@ -158,25 +177,44 @@ def run(root: str = ROOT, device="cuda", n_images: int = 128, rounds: int = 7,
         timed(f"jpeg_idct, {name}: {len(blocks)} components, {sum(n for n, _ in blocks)} blocks",
               call, planes_of, sum(n * (128 + s * s) for n, s in blocks) + 256 * len(blocks))
         planes = planes_of(call())
-        per_image, at = [], 0
-        for coef, _ in images:
-            per_image.append(planes[at:at + len(coef.components)])
-            at += len(coef.components)
         up_bytes = sum(p.width * p.height for _, geo in images for p in geo) + sum(
             w * h * len(coef.components) for (w, h), (coef, _) in zip(sizes, images))
-        upsample = lambda: [jpeg.upsample_color(pl, geo, w, h, coef.ycc)  # noqa: E731
-                            for pl, (coef, geo), (w, h) in zip(per_image, images, sizes)]
-        timed(f"jpeg_upsample_color, {name}", upsample, lambda out: out, up_bytes)
+        if hasattr(jpeg, "upsample_color_batch"):
+            plan = jpeg.DecodePlan([(c, g, w, h) for (c, g), (w, h) in zip(images, sizes)],
+                                   device)
+            staged = plan.tables()
+            packed = plan.idct.run(jpeg.stage(device, staged[:3]))
+            up_d = torch.from_numpy(plan.up.desc).to(device)
+            upsample = lambda: jpeg.upsample_color_batch(packed, up_d, plan.up, plan.rgb)  # noqa: E731
+            pixels_of = plan.up.views
+        else:
+            per_image, at = [], 0
+            for coef, _ in images:
+                per_image.append(planes[at:at + len(coef.components)])
+                at += len(coef.components)
+            upsample = lambda: [jpeg.upsample_color(pl, geo, w, h, coef.ycc)  # noqa: E731
+                                for pl, (coef, geo), (w, h) in zip(per_image, images, sizes)]
+            pixels_of = lambda out: out  # noqa: E731
+        timed(f"jpeg_upsample_color, {name}", upsample, pixels_of, up_bytes)
         if len(images) == 1:
             continue
-        pixels = upsample()
-        timed(f"resize_crop, {name} to {OUT}²",
-              lambda: [dec.resize_crop(img, OUT, OUT) for img in pixels], lambda out: out,
-              sum(img.numel() for img in pixels) + len(pixels) * OUT * OUT * 3)
+        pixels = pixels_of(upsample())
+        if hasattr(dec, "resize_crop_batch"):
+            layout = dec.resize_layout(pixels, OUT, OUT)
+            rs_d = torch.from_numpy(layout.desc).to(device)
+            resize = lambda: dec.resize_crop_batch(pixels, OUT, OUT, layout=layout,  # noqa: E731
+                                                   desc=rs_d)
+        else:
+            resize = lambda: [dec.resize_crop(img, OUT, OUT) for img in pixels]  # noqa: E731
+        timed(f"resize_crop, {name} to {OUT}²", resize, lambda out: list(out),
+              sum(reached_bytes(dec, img) for img in pixels) + len(pixels) * OUT * OUT * 3)
         paths = [p for p, _ in files]
-        before = dict(jpeg.LAUNCHES)
-        digest = sha([dec.decode_batch(paths, OUT, OUT, device=device, uint8=True)])
-        launched = {k: v - before[k] for k, v in jpeg.LAUNCHES.items() if v != before[k]}
+        for resize_to, out_size in ((OUT, OUT), (OUT, 224), (288, 288)):
+            before = dict(jpeg.LAUNCHES)
+            digest = sha([dec.decode_batch(paths, resize_to, out_size, device=device, uint8=True)])
+            launched = {k: v - before[k] for k, v in jpeg.LAUNCHES.items() if v != before[k]}
+            print(f"decode_batch, {name} at {out_size}² from {resize_to}: launches {launched}, "
+                  f"sha256 {digest}", flush=True)
         times = []
         for _ in range(rounds):
             t0 = time.perf_counter()
@@ -186,8 +224,8 @@ def run(root: str = ROOT, device="cuda", n_images: int = 128, rounds: int = 7,
             times.append((time.perf_counter() - t0) * 1e3)
         res[f"decode_batch, {name}"] = med = statistics.median(times)
         print(f"decode_batch, {name} (host clock, Huffman decoding included): median {med:.2f} "
-              f"ms per call, min {min(times):.2f}, max {max(times):.2f} ({rounds} calls), "
-              f"launches {launched}, sha256 {digest}", flush=True)
+              f"ms per call, min {min(times):.2f}, max {max(times):.2f} ({rounds} calls)",
+              flush=True)
     return res
 
 

@@ -1,7 +1,8 @@
 """``jcf-ood``'s card pieces on an NVIDIA GPU: K9b in f32 (``block_f32``)
 against its plain version, the JPEG decode (PIL's bytes at every scale,
 ``tests/fixtures/jpeg/libjpeg_sha256.json``) and the resize + crop kernel
-against the committed references, the PIL-exact transforms on the card
+against the committed references, the batched upsample and resize
+against their plain versions, the PIL-exact transforms on the card
 against the same functions on the CPU.
 
 Marked ``gpu``: each test skips where no CUDA device is present. The file
@@ -175,8 +176,9 @@ def test_decode_matches_the_committed_references(cuda):
 
 def test_decode_hashes_at_every_scale(cuda):
     """Every committed JPEG decoded on the card at every scale PIL's draft
-    reaches hashes to PIL's decode, and each decoder kernel equals its
-    plain version bit for bit."""
+    reaches hashes to PIL's decode; each decode is one IDCT and one
+    upsample launch whose pixels equal the plain versions' (``idct_plain``,
+    then ``upsample_color_plain``) bit for bit."""
     import hashlib
     import json
 
@@ -184,16 +186,16 @@ def test_decode_hashes_at_every_scale(cuda):
         refs = json.load(f)["images"]
     for rel, scales in refs.items():
         with open(os.path.join(FIXTURES, rel), "rb") as f:
-            coef = jpeg.read_coefficients(f.read(), rel)
+            data = f.read()
+        coef = jpeg.read_coefficients(data, rel)
         for scale, ref in scales.items():
             out_w, out_h, geo = jpeg.geometry(coef, int(scale))
-            cq = [(c.coefs.to(cuda), c.quant.to(cuda)) for c in coef.components]
-            before = jpeg.LAUNCHES["jpeg_idct"]
-            planes = jpeg.idct_images([(coef, geo)], cuda)[0]
-            assert jpeg.LAUNCHES["jpeg_idct"] == before + 1
-            for (c, q), p, plane in zip(cq, geo, planes):
-                assert torch.equal(plane, jpeg.idct_plain(c, q, p.size)), (rel, scale)
-            img = jpeg.upsample_color(planes, geo, out_w, out_h, coef.ycc)
+            before = dict(jpeg.LAUNCHES)
+            img = jpeg.decode_jpeg(data, cuda, scale_denom=int(scale), name=rel)
+            got = {k: v - before[k] for k, v in jpeg.LAUNCHES.items() if v != before[k]}
+            assert got == {"jpeg_idct": 1, "jpeg_upsample_color": 1}, (rel, scale)
+            planes = [jpeg.idct_plain(c.coefs.to(cuda), c.quant.to(cuda), p.size)
+                      for c, p in zip(coef.components, geo)]
             assert torch.equal(img, jpeg.upsample_color_plain(planes, geo, out_w, out_h,
                                                               coef.ycc)), (rel, scale)
             x = img.cpu().numpy()
@@ -225,12 +227,12 @@ def test_batched_idct_is_one_launch_equal_to_plain(cuda, kind):
     images = (_fixture_images() if kind == "fixtures"
               else jpeg.random_idct_images(np.random.default_rng(3), 24))
     before = jpeg.LAUNCHES["jpeg_idct"]
-    got = jpeg.idct_images(images, cuda)
+    layout = jpeg.idct_layout(images)
+    got = layout.views(layout.run(jpeg.stage(cuda, layout.tables(images))))
     assert jpeg.LAUNCHES["jpeg_idct"] == before + 1
     for (coef, geo), planes in zip(images, got):
         for c, p, plane in zip(coef.components, geo, planes):
             assert torch.equal(plane, jpeg.idct_plain(c.coefs.to(cuda), c.quant.to(cuda), p.size))
-    layout = jpeg.idct_layout(images)
     coefs = torch.cat([c.coefs for c, _ in images]).to(cuda)
     quant = torch.cat([c.quant for c, _ in images]).to(cuda)
     desc = torch.from_numpy(layout.desc).to(cuda)
@@ -253,7 +255,66 @@ def test_decode_calls_launch_one_idct(cuda):
     before = dict(jpeg.LAUNCHES)
     dec.decode_batch(paths, device=cuda)
     got = {k: v - before[k] for k, v in jpeg.LAUNCHES.items()}
-    assert got == {"jpeg_idct": 1, "jpeg_upsample_color": len(paths), "resize_crop": len(paths)}
+    assert got == {"jpeg_idct": 1, "jpeg_upsample_color": 1, "resize_crop": 1}
+
+
+@pytest.mark.parametrize("kind", ["fixtures", "random", "wide"])
+def test_batched_upsample_is_one_launch_equal_to_plain(cuda, kind):
+    """One ``jpeg_upsample_color`` launch over many images equals
+    ``upsample_color_batch_plain`` bit for bit: the committed JPEGs at
+    every scale (through a ``DecodePlan``, against the same plan on the
+    CPU), random planes (every method, planes of 1 to 3 samples a side,
+    unaligned offsets and strides), and rows too wide for one CTA's shared
+    memory beside a tall narrow image."""
+    if kind == "fixtures":
+        images = [(coef, geo, *jpeg.geometry(coef, jpeg.SCALES[i % len(jpeg.SCALES)])[:2])
+                  for i, (coef, geo) in enumerate(_fixture_images())]
+        before = jpeg.LAUNCHES["jpeg_upsample_color"]
+        plan = jpeg.DecodePlan(images, cuda)
+        got = plan.run(jpeg.stage(cuda, plan.tables()))
+        assert jpeg.LAUNCHES["jpeg_upsample_color"] == before + 1
+        ref = jpeg.DecodePlan(images, "cpu")
+        for g, w in zip(got, ref.run(jpeg.stage("cpu", ref.tables()))):
+            assert torch.equal(g.cpu(), w)
+        return
+    rng = np.random.default_rng(7)
+    planes, images = (jpeg.random_color_images(rng, 40) if kind == "random" else
+                      jpeg.random_color_images(rng, 3, sizes=[(14001, 3), (2, 2500), (9000, 2)]))
+    layout = jpeg.upsample_layout(images)
+    desc = torch.from_numpy(layout.desc)
+    before = jpeg.LAUNCHES["jpeg_upsample_color"]
+    got = jpeg.upsample_color_batch(planes.to(cuda), desc.to(cuda), layout).cpu()
+    assert jpeg.LAUNCHES["jpeg_upsample_color"] == before + 1
+    want = jpeg.upsample_color_batch_plain(planes, desc, layout.out_bytes)
+    for g, w in zip(layout.views(got), layout.views(want)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("size", [(256, 256), (224, 200), (300, 288)])
+def test_batched_resize_is_one_launch(cuda, size):
+    """One ``resize_crop`` launch over the fixtures at libjpeg's scale, a
+    4x downscale of a PNG-sized source and a gray source: within one level
+    on <= 1e-3 of the values of the plain version, and equal to each image
+    resized alone (a table of one) bit for bit."""
+    resize_to, out = size
+    sources = []
+    for path in sorted(os.listdir(FIXTURES)):
+        if path.endswith(".jpg"):
+            with open(os.path.join(FIXTURES, path), "rb") as f:
+                coef = jpeg.read_coefficients(f.read(), path)
+            d = dec.native_scale(coef.width, coef.height, resize_to)
+            sources.append(jpeg.decode_coefficients(coef, cuda, d))
+    rng = np.random.default_rng(0)
+    sources.append(torch.from_numpy(rng.integers(0, 256, (1100, 1040, 3), np.uint8)).to(cuda))
+    sources.append(torch.from_numpy(rng.integers(0, 256, (97, 50, 1), np.uint8)).to(cuda))
+    before = jpeg.LAUNCHES["resize_crop"]
+    got = dec.resize_crop_batch(sources, resize_to, out)
+    assert jpeg.LAUNCHES["resize_crop"] == before + 1
+    ref = dec.resize_crop_batch_plain(sources, resize_to, out)
+    d = (got.int() - ref.int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+    for g, img in zip(got, sources):
+        assert torch.equal(g, dec.resize_crop(img, resize_to, out))
 
 
 def test_decode_in_a_thread_while_the_card_is_busy(cuda):

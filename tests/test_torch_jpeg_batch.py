@@ -1,5 +1,5 @@
 """The batched IDCT (``data.jpeg.idct_layout``, ``idct_batch_plain``,
-``idct_images``) and ``decode_batch`` on it, on the CPU.
+``IdctLayout.run``) and ``decode_batch`` on it, on the CPU.
 
 - The descriptor table: each component's first CTA, first block, grid,
   size, table and plane offset; block ranges padded to whole CTAs of
@@ -68,7 +68,10 @@ def _per_component(images):
 
 
 def _batched(images):
-    return jpeg.idct_images(images, "cpu")
+    """One ``idct_batch`` over ``images`` through ``stage`` -> per image
+    its planes, views of the packed output."""
+    layout = jpeg.idct_layout(images)
+    return layout.views(layout.run(jpeg.stage("cpu", layout.tables(images))))
 
 
 def _check_layout(images, layout):
@@ -121,7 +124,7 @@ def test_layout_of_the_fixtures_at_every_scale():
 def test_empty_batch():
     layout = jpeg.idct_layout([])
     assert layout.desc.shape == (0, 8) and layout.blocks == layout.ctas == layout.out_bytes == 0
-    assert layout.planes == [] and jpeg.idct_images([], "cpu") == []
+    assert layout.planes == [] and layout.views(torch.zeros(0, dtype=torch.uint8)) == []
     out = tdec.decode_batch([], 64, 32, device="cpu", uint8=True)
     assert out.shape == (0, 32, 32, 3) and out.dtype == torch.uint8
 
